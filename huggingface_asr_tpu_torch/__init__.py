@@ -1,0 +1,22 @@
+"""PyTorch/CUDA port of ``huggingface_asr_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package next to this one is the reference. This package imports
+``torch`` and never ``jax``. Plain tensor code is PyTorch; the work that the
+JAX package runs as Pallas TPU kernels runs here as CUDA C++ kernels written
+for ``sm_90a`` (``csrc/``), built with ``nvcc`` at their first call and bound
+with ``ctypes`` (``kernels/_build.py``). Importing the package needs neither
+``nvcc`` nor a GPU.
+
+Layout (each module names its JAX counterpart):
+
+* ``models/``   — configs, the plain E-Branchformer CTC model, ``ctc_infer``
+* ``ops/``      — length math, the plain log-mel front end, CTC greedy decode
+* ``kernels/``  — one file per Pallas file: weight folds, plain versions and
+  the CUDA kernel wrappers
+* ``csrc/``     — the ``.cu`` / ``.cuh`` kernel sources
+* ``interop/``  — Flax parameter tree -> this package's state dict
+* ``training/`` — checkpoint directory loading
+* ``serving/``  — ``ASRPipeline`` and ``EndpointHandler``
+"""
+
+__version__ = "0.1.0"

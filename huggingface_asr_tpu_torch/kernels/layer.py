@@ -1,0 +1,467 @@
+"""E-Branchformer encoder layer for inference: weight folds, plain version and
+CUDA kernels (counterpart of ``huggingface_asr_tpu/ops/pallas_layer.py``).
+
+The TPU kernel ``_layer_kernel`` keeps one whole layer in VMEM. Hopper has
+227 KB of shared memory per block, so here the layer is a short sequence of
+kernels (``csrc/``), in ``_layer_kernel``'s order:
+
+  FF1:    layer_norm -> gemm(+bias, act) -> gemm(+bias, x + 0.5*out)
+  attn:   layer_norm -> gemm(QKV; dual bias writes q_u and q_v)
+          -> pos_query -> rel_attention -> gemm(out proj)
+  cgMLP:  layer_norm -> gemm(+bias, exact GELU) -> csgu dwconv -> gemm
+  merge:  merge dwconv -> gemm(+bias, residual + out)
+  FF2, then the final layer_norm.
+
+Each piece has its plain PyTorch version here. A wrapper sends a CPU tensor
+to the plain version and a CUDA tensor to its kernel, and raises on anything
+the kernel does not take; nothing falls back. The plain layer
+(``ebranchformer_layer_plain``) runs the same sequence on the plain pieces.
+
+Numeric contract (each piece states its own rounding points; they are the
+TPU kernel's): bf16 activations between pieces, fp32 accumulation inside,
+LayerNorm with flax's fast variance, biases added in fp32 before the bf16
+rounding. GELU is evaluated once in fp32 (``0.5 x erfc(-x/sqrt 2)``) and
+rounded once, where the TPU ``bitexact`` profile replays XLA's intermediate
+bf16 roundings; the two differ by 1-2 bf16 ulp on some elements, which is
+what the tests' bf16 tolerances absorb.
+"""
+
+from __future__ import annotations
+
+import types
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from huggingface_asr_tpu_torch.kernels import _build
+from huggingface_asr_tpu_torch.models.ebranchformer import relpos_tables
+
+ACT_CODES = {"identity": 0, "gelu": 1, "gelu_new": 2, "relu": 3, "swish": 4, "silu": 4}
+NEG_INF = -1.0e9
+_SQRT_HALF = 0.7071067811865476
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _round(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 values to bf16 and back."""
+    return x.to(BF16).to(F32)
+
+
+def act_plain(name: str, x: torch.Tensor) -> torch.Tensor:
+    """Activations in fp32, as ``csrc/common.cuh::apply_act``."""
+    if name == "gelu":
+        return 0.5 * x * torch.special.erfc(-x * _SQRT_HALF)
+    if name == "gelu_new":
+        return F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu(x)
+    if name in ("swish", "silu"):
+        return F.silu(x)
+    if name == "identity":
+        return x
+    raise ValueError(f"unsupported activation {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm
+
+
+def layer_norm_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """Row LayerNorm with flax's fast variance (E[x^2] - mu^2, clipped at 0),
+    ``(x - mu) * (rsqrt(var + eps) * g) + b`` in fp32, one bf16 rounding."""
+    xf = x.to(F32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    return ((xf - mu) * (torch.rsqrt(var + eps) * g) + b).to(BF16)
+
+
+def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """``layer_norm_plain`` on (M, D) bf16 rows; CUDA tensors run ``csrc/layer.cu``."""
+    if not _build.on_cuda(x, g, b):
+        return layer_norm_plain(x, g, b, eps)
+    M, D = x.shape
+    _build.check(x, "x", BF16, contiguous=False)
+    if x.stride(1) != 1:
+        raise ValueError("layer_norm: rows must be contiguous")
+    _build.check(g, "g", F32, (D,))
+    _build.check(b, "b", F32, (D,))
+    y = torch.empty(M, D, dtype=BF16, device=x.device)
+    _build.launch("asr_layernorm_bf16", "ppppiiiif", x.data_ptr(), g.data_ptr(), b.data_ptr(),
+                  y.data_ptr(), M, D, x.stride(0), D, float(eps))
+    return y
+
+
+# ---------------------------------------------------------------------------
+# GEMM with fused epilogue
+
+
+def gemm_plain(a, w, bias=None, *, act="identity", residual=None, alpha=1.0, bias2=None,
+               round_first=False, out=None):
+    """``bf16(epilogue(a @ w))`` with fp32 accumulation; see ``csrc/gemm.cuh``
+    for the rounding points. With ``bias2`` returns ``(out, out2)`` where
+    ``out2 = bf16(acc[:, :n2] + bias2)``."""
+    acc = a.to(F32) @ w.to(F32)
+    out2 = None
+    if bias2 is not None:
+        out2 = (acc[:, : bias2.shape[0]] + bias2).to(BF16)
+    b = bias if bias is not None else 0.0
+    v = _round(_round(acc) + b) if round_first else _round(acc + b)
+    if act != "identity":
+        v = _round(act_plain(act, v))
+    if residual is not None:
+        v = residual.to(F32) + alpha * v
+    v = v.to(BF16)
+    if out is not None:
+        out.copy_(v)
+        v = out
+    return (v, out2) if bias2 is not None else v
+
+
+def _check_rows(t: torch.Tensor, name: str, shape) -> int:
+    """2-D bf16 CUDA view with unit column stride and a 16-byte-aligned row
+    stride; returns the row stride."""
+    _build.check(t, name, BF16, shape, contiguous=False)
+    if t.stride(1) != 1 or t.stride(0) % 8:
+        raise ValueError(f"{name}: needs unit column stride and a row stride divisible by 8")
+    return t.stride(0)
+
+
+def gemm(a, w, bias=None, *, act="identity", residual=None, alpha=1.0, bias2=None,
+         round_first=False, out=None):
+    """``gemm_plain``; CUDA tensors run the tiled wmma GEMM of ``csrc/gemm.cuh``.
+    a: (M, K) bf16, w: (K, N) bf16, bias/bias2: fp32; out may be a column slice."""
+    tensors = [t for t in (a, w, bias, residual, bias2, out) if t is not None]
+    if not _build.on_cuda(*tensors):
+        return gemm_plain(a, w, bias, act=act, residual=residual, alpha=alpha, bias2=bias2,
+                          round_first=round_first, out=out)
+    M, K = a.shape
+    N = w.shape[1]
+    if N % 64 or K % 32:
+        raise ValueError(f"gemm kernel needs N % 64 == 0 and K % 32 == 0, got N={N}, K={K}")
+    lda = _check_rows(a, "a", (M, K))
+    _build.check(w, "w", BF16, (K, N))
+    if bias is not None:
+        _build.check(bias, "bias", F32, (N,))
+    if out is None:
+        out = torch.empty(M, N, dtype=BF16, device=a.device)
+    ldo = _check_rows(out, "out", (M, N))
+    ldr = _check_rows(residual, "residual", (M, N)) if residual is not None else 0
+    out2, n2, ldo2 = None, 0, 0
+    if bias2 is not None:
+        n2 = bias2.shape[0]
+        _build.check(bias2, "bias2", F32, (n2,))
+        out2 = torch.empty(M, n2, dtype=BF16, device=a.device)
+        ldo2 = n2
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    _build.launch("asr_gemm_bf16", "pppppppiiiiiiiiiiif", a.data_ptr(), w.data_ptr(), ptr(bias),
+                  ptr(bias2), out.data_ptr(), ptr(out2), ptr(residual), M, N, K, lda, N, ldo,
+                  ldo2, ldr, n2, ACT_CODES[act], int(round_first), float(alpha))
+    return (out, out2) if bias2 is not None else out
+
+
+# ---------------------------------------------------------------------------
+# Positional query
+
+
+def pos_query_plain(q_v, wp_e, wp_o, rot_cos, rot_sin, T: int) -> torch.Tensor:
+    """q_rot[m, h] = [cos*ce + sin*co, cos*co - sin*ce] with ce/co = q_v_h @
+    wp_e/wp_o[h] (fp32 accumulation), cos/sin at frame m % T. q_v: (M, D)
+    bf16; wp_e/wp_o: (H, dh, D/2) bf16; rot tables (T, D/2) bf16. -> (M, H, D) bf16."""
+    M = q_v.shape[0]
+    H, dh, half = wp_e.shape
+    qv = q_v.to(F32).reshape(M, H, dh)
+    ce = torch.einsum("mhd,hdj->mhj", qv, wp_e.to(F32))
+    co = torch.einsum("mhd,hdj->mhj", qv, wp_o.to(F32))
+    t = torch.arange(M, device=q_v.device) % T
+    c = rot_cos.to(F32)[t][:, None, :]
+    s = rot_sin.to(F32)[t][:, None, :]
+    return torch.cat([c * ce + s * co, c * co - s * ce], dim=-1).to(BF16)
+
+
+def pos_query(q_v, wp_e, wp_o, rot_cos, rot_sin, T: int) -> torch.Tensor:
+    """``pos_query_plain``; CUDA tensors run ``csrc/layer.cu::pos_query_kernel``."""
+    if not _build.on_cuda(q_v, wp_e, wp_o, rot_cos, rot_sin):
+        return pos_query_plain(q_v, wp_e, wp_o, rot_cos, rot_sin, T)
+    M = q_v.shape[0]
+    H, dh, half = wp_e.shape
+    D = 2 * half
+    ldq = _check_rows(q_v, "q_v", (M, H * dh))
+    _build.check(wp_e, "wp_e", BF16, (H, dh, half))
+    _build.check(wp_o, "wp_o", BF16, (H, dh, half))
+    _build.check(rot_cos, "rot_cos", BF16, (T, half))
+    _build.check(rot_sin, "rot_sin", BF16, (T, half))
+    q_rot = torch.empty(M, H, D, dtype=BF16, device=q_v.device)
+    _build.launch("asr_pos_query", "ppppppiiiiii", q_v.data_ptr(), wp_e.data_ptr(),
+                  wp_o.data_ptr(), rot_cos.data_ptr(), rot_sin.data_ptr(), q_rot.data_ptr(),
+                  M, T, H, dh, D, ldq)
+    return q_rot
+
+
+# ---------------------------------------------------------------------------
+# Relative-position attention (K4's forward interface at dropout rate 0)
+
+
+def rel_attention_plain(q_u, k, v, q_rot, k_std, lengths) -> torch.Tensor:
+    """softmax2(q_u.k + q_rot.k_std + mask) @ v, normalised after P.V.
+
+    q_u, k, v: (B, T, H, dh) bf16 (views allowed); q_rot: (B, T, H, D) bf16;
+    k_std: (T, D) bf16; lengths: (B,) int32. Scores are log2-scaled (the
+    scales are folded into the query weights); keys at or past an
+    utterance's length get the finite -1e9. -> (B, T, H, dh) bf16."""
+    B, T, H, dh = q_u.shape
+    s = (torch.einsum("bthd,bshd->bhts", q_u.to(F32), k.to(F32))
+         + torch.einsum("bthD,sD->bhts", q_rot.to(F32), k_std.to(F32)))
+    col = torch.arange(T, device=q_u.device)
+    s = s + torch.where(col[None, :] < lengths[:, None].to(col.dtype), 0.0, NEG_INF)[:, None, None, :]
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    z = e.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhts,bshd->bhtd", e.to(BF16).to(F32), v.to(F32)) * (1.0 / z)
+    return o.permute(0, 2, 1, 3).to(BF16).contiguous()
+
+
+def rel_attention(q_u, k, v, q_rot, k_std, lengths) -> torch.Tensor:
+    """``rel_attention_plain``; CUDA tensors run ``csrc/rel_attention.cu``
+    (head size 32; q_u, k, v may be column views of one (B*T, 3D) buffer)."""
+    if not _build.on_cuda(q_u, k, v, q_rot, k_std, lengths):
+        return rel_attention_plain(q_u, k, v, q_rot, k_std, lengths)
+    B, T, H, dh = q_u.shape
+    D = q_rot.shape[-1]
+    if dh != 32:
+        raise ValueError(f"rel_attention kernel supports head size 32, got {dh}")
+    ld = q_u.stride(1)
+    for name, t in (("q_u", q_u), ("k", k), ("v", v)):
+        _build.check(t, name, BF16, (B, T, H, dh), contiguous=False)
+        if t.stride() != (T * ld, ld, dh, 1) or ld % 8:
+            raise ValueError(f"{name}: expected (B, T, H, dh) rows with one shared row stride")
+    _build.check(q_rot, "q_rot", BF16, (B, T, H, D))
+    _build.check(k_std, "k_std", BF16, (T, D))
+    _build.check(lengths, "lengths", torch.int32, (B,))
+    out = torch.empty(B, T, H, dh, dtype=BF16, device=q_u.device)
+    _build.launch("asr_rel_attention", "pppppppiiiiiii", q_u.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), q_rot.data_ptr(), k_std.data_ptr(), lengths.data_ptr(),
+                  out.data_ptr(), B, T, H, dh, D, ld, H * dh)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Depthwise convs (CSGU and merge)
+
+
+def _dwconv_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, t_valid: int) -> torch.Tensor:
+    """fp32 depthwise conv along T of (B, T, C) values, rows >= t_valid read as 0."""
+    B, T, C = x.shape
+    K = w.shape[0]
+    P = (K - 1) // 2
+    x = torch.where(torch.arange(T, device=x.device)[None, :, None] < t_valid, x, 0.0)
+    xp = F.pad(x, (0, 0, P, P))
+    acc = bias.expand(B, T, C)
+    wf = w.to(F32)
+    for j in range(K):
+        acc = acc + xp[:, j: j + T] * wf[j]
+    return acc
+
+
+def csgu_plain(l, ln_g, ln_b, w, bias, B: int, T: int, t_valid: int, act: str, eps: float):
+    """CSGU: gated = bf16(l[:, :C] * bf16(act(dwconv(LN(l[:, C:]))))).
+    l: (B*T, 2C) bf16 -> (B*T, C) bf16."""
+    C = l.shape[1] // 2
+    g = layer_norm_plain(l[:, C:], ln_g, ln_b, eps).to(F32).reshape(B, T, C)
+    gate = _round(act_plain(act, _dwconv_plain(g, w, bias, t_valid)))
+    return (l[:, :C].to(F32) * gate.reshape(B * T, C)).to(BF16)
+
+
+def merge_conv_plain(x, w, bias, B: int, T: int, t_valid: int):
+    """merged + bf16(dwconv(merged)), rounded to bf16. x: (B*T, C) bf16."""
+    C = x.shape[1]
+    acc = _dwconv_plain(x.to(F32).reshape(B, T, C), w, bias, t_valid)
+    return (x.to(F32) + _round(acc).reshape(B * T, C)).to(BF16)
+
+
+def _dwconv(mode, x, ln_g, ln_b, w, bias, B, T, t_valid, C, act, eps, label):
+    K = w.shape[0]
+    _build.check(x, "x", BF16, (B * T, 2 * C if mode == 0 else C))
+    _build.check(w, "w", BF16, (K, C))
+    _build.check(bias, "bias", F32, (C,))
+    if mode == 0:
+        _build.check(ln_g, "ln_g", F32, (C,))
+        _build.check(ln_b, "ln_b", F32, (C,))
+    if K % 2 == 0:
+        raise ValueError(f"depthwise conv kernel needs an odd kernel size, got {K}")
+    out = torch.empty(B * T, C, dtype=BF16, device=x.device)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    _build.launch("asr_dwconv", "ppppppiiiiiiiif", x.data_ptr(), ptr(ln_g), ptr(ln_b),
+                  w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, T, t_valid, C, K,
+                  x.stride(0), mode, ACT_CODES[act], float(eps), label=label)
+    return out
+
+
+def csgu(l, ln_g, ln_b, w, bias, B: int, T: int, t_valid: int, act: str, eps: float):
+    """``csgu_plain``; CUDA tensors run ``csrc/dwconv.cu`` in its CSGU form."""
+    if not _build.on_cuda(l, ln_g, ln_b, w, bias):
+        return csgu_plain(l, ln_g, ln_b, w, bias, B, T, t_valid, act, eps)
+    return _dwconv(0, l, ln_g, ln_b, w, bias, B, T, t_valid, l.shape[1] // 2, act, eps,
+                   "dwconv_csgu")
+
+
+def merge_conv(x, w, bias, B: int, T: int, t_valid: int):
+    """``merge_conv_plain``; CUDA tensors run ``csrc/dwconv.cu`` in its merge form."""
+    if not _build.on_cuda(x, w, bias):
+        return merge_conv_plain(x, w, bias, B, T, t_valid)
+    return _dwconv(1, x, None, None, w, bias, B, T, t_valid, x.shape[1], "identity", 0.0,
+                   "dwconv_merge")
+
+
+# ---------------------------------------------------------------------------
+# Weight folds
+
+
+def relpos_kernel_tables(T: int, D: int, device=None) -> Dict[str, torch.Tensor]:
+    """bf16 rotation tables (T, D/2) and the ascending sinusoid table
+    ``k_std = [sin | cos]`` (T, D), built in float64 like the JAX fold."""
+    cos, sin = (t.to(BF16) for t in relpos_tables(T, D))
+    return {
+        "rot_cos": cos.to(device),
+        "rot_sin": sin.to(device),
+        "k_std": torch.cat([sin, cos], dim=-1).to(device),
+    }
+
+
+@torch.no_grad()
+def fold_layer_weights(layer, cfg, device=None) -> Dict[str, torch.Tensor]:
+    """Fold one ``EBranchformerEncoderLayer``'s float32 parameters into kernel
+    operands, as ``pallas_layer.py::fold_layer_weights`` does:
+
+    * matrices as (in, out) bf16; dense biases rounded to bf16, kept fp32;
+      LayerNorm parameters fp32;
+    * 1/sqrt(dh) * log2(e) folded into W_q and both query biases
+      (the attention softmax runs on exp2), bias_u / bias_v added into the
+      query bias: ``b_qkv = [bq_u | bk | bv]`` and ``bq_v`` fp32;
+    * W_q, W_k, W_v concatenated into one (D, 3D) matrix;
+    * the positional projection kept low rank per head, (H, dh, D/2), split
+      into even (sin) and odd (cos) sinusoid channels, the sin half negated;
+    * depthwise conv kernels as (K, C) bf16, their biases fp32.
+    """
+    D, H = cfg.hidden_size, cfg.num_attention_heads
+    dh = D // H
+    inv = np.float32(np.log2(np.e) / np.sqrt(dh))
+
+    def mat(lin):
+        return lin.weight.detach().to(F32).t().contiguous().to(BF16)
+
+    def vec(lin):
+        return _round(lin.bias.detach().to(F32))
+
+    def ln(m):
+        return m.weight.detach().to(F32), m.bias.detach().to(F32)
+
+    def dw(conv):
+        return (conv.weight.detach().to(F32)[:, 0, :].t().contiguous().to(BF16),
+                conv.bias.detach().to(F32))
+
+    att = layer.self_attn
+    wq = att.linear_q.weight.detach().to(F32).t() * inv
+    bq = att.linear_q.bias.detach().to(F32).reshape(H, dh)
+    bq_u = ((bq + att.pos_bias_u.detach().to(F32)).reshape(D) * inv)
+    bq_v = ((bq + att.pos_bias_v.detach().to(F32)).reshape(D) * inv)
+    wp_t = att.linear_pos.weight.detach().to(F32).t().reshape(D, H, dh).permute(1, 2, 0)
+    w = {
+        "w_qkv": torch.cat([wq.to(BF16), mat(att.linear_k), mat(att.linear_v)], dim=1),
+        "b_qkv": torch.cat([bq_u, vec(att.linear_k), vec(att.linear_v)]),
+        "bq_v": bq_v,
+        "wo": mat(att.linear_out), "bo": vec(att.linear_out),
+        "wp_e": (-wp_t[:, :, 0::2]).contiguous().to(BF16),
+        "wp_o": wp_t[:, :, 1::2].contiguous().to(BF16),
+    }
+    w["attn_ln_g"], w["attn_ln_b"] = ln(layer.self_attn_layer_norm)
+    for ff in ("ff1", "ff2"):
+        norm, mlp = getattr(layer, ff)
+        w[f"{ff}_ln_g"], w[f"{ff}_ln_b"] = ln(norm)
+        w[f"{ff}_wi"], w[f"{ff}_bi"] = mat(mlp.intermediate_dense), vec(mlp.intermediate_dense)
+        w[f"{ff}_wo"], w[f"{ff}_bo"] = mat(mlp.output_dense), vec(mlp.output_dense)
+    cg = layer.cgMLP
+    w["cg_ln_g"], w["cg_ln_b"] = ln(layer.cgMLP_layer_norm)
+    w["cg_w1"], w["cg_b1"] = mat(cg.channel_proj1[0]), vec(cg.channel_proj1[0])
+    w["csgu_ln_g"], w["csgu_ln_b"] = ln(cg.csgu.norm)
+    w["csgu_dw"], w["csgu_dw_b"] = dw(cg.csgu.conv)
+    w["cg_w2"], w["cg_b2"] = mat(cg.channel_proj2), vec(cg.channel_proj2)
+    w["merge_dw"], w["merge_dw_b"] = dw(layer.depthwise_conv_fusion)
+    w["merge_w"], w["merge_b"] = mat(layer.merge_proj), vec(layer.merge_proj)
+    w["final_ln_g"], w["final_ln_b"] = ln(layer.final_layer_norm)
+    return {k: v.contiguous().to(device) for k, v in w.items()}
+
+
+# ---------------------------------------------------------------------------
+# The layer
+
+PLAIN_OPS = types.SimpleNamespace(
+    layer_norm=layer_norm_plain, gemm=gemm_plain, pos_query=pos_query_plain,
+    rel_attention=rel_attention_plain, csgu=csgu_plain, merge_conv=merge_conv_plain,
+)
+KERNEL_OPS = types.SimpleNamespace(
+    layer_norm=layer_norm, gemm=gemm, pos_query=pos_query,
+    rel_attention=rel_attention, csgu=csgu, merge_conv=merge_conv,
+)
+
+
+def _layer(x, lengths, w, cfg, t_valid, tables, ops):
+    B, T, D = x.shape
+    H = cfg.num_attention_heads
+    dh, M, eps, act = D // H, B * T, cfg.layer_norm_eps, cfg.hidden_act
+    xf = x.reshape(M, D)
+
+    # macaron FF1: x += 0.5 * FF(LN(x))
+    h = ops.layer_norm(xf, w["ff1_ln_g"], w["ff1_ln_b"], eps)
+    h = ops.gemm(h, w["ff1_wi"], w["ff1_bi"], act=act)
+    xf = ops.gemm(h, w["ff1_wo"], w["ff1_bo"], residual=xf, alpha=0.5)
+    residual = xf
+
+    # attention branch
+    g = ops.layer_norm(xf, w["attn_ln_g"], w["attn_ln_b"], eps)
+    qkv, q_v = ops.gemm(g, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
+    q_rot = ops.pos_query(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"], tables["rot_sin"], T)
+    heads = lambda i: qkv[:, i * D:(i + 1) * D].view(B, T, H, dh)
+    attn = ops.rel_attention(heads(0), heads(1), heads(2), q_rot.view(B, T, H, D),
+                             tables["k_std"], lengths)
+    merged = torch.empty(M, 2 * D, dtype=BF16, device=x.device)
+    ops.gemm(attn.view(M, D), w["wo"], w["bo"], out=merged[:, :D])
+
+    # cgMLP branch (channel_proj1 is always exact GELU)
+    l = ops.layer_norm(xf, w["cg_ln_g"], w["cg_ln_b"], eps)
+    l = ops.gemm(l, w["cg_w1"], w["cg_b1"], act="gelu")
+    gated = ops.csgu(l, w["csgu_ln_g"], w["csgu_ln_b"], w["csgu_dw"], w["csgu_dw_b"],
+                     B, T, t_valid, cfg.csgu_activation, eps)
+    ops.gemm(gated, w["cg_w2"], w["cg_b2"], out=merged[:, D:])
+
+    # merge: concat + depthwise fusion + projection, residual
+    merged = ops.merge_conv(merged, w["merge_dw"], w["merge_dw_b"], B, T, t_valid)
+    xf = ops.gemm(merged, w["merge_w"], w["merge_b"], residual=residual, alpha=1.0)
+
+    # macaron FF2, final LN
+    h = ops.layer_norm(xf, w["ff2_ln_g"], w["ff2_ln_b"], eps)
+    h = ops.gemm(h, w["ff2_wi"], w["ff2_bi"], act=act)
+    xf = ops.gemm(h, w["ff2_wo"], w["ff2_bo"], residual=xf, alpha=0.5)
+    return ops.layer_norm(xf, w["final_ln_g"], w["final_ln_b"], eps).view(B, T, D)
+
+
+def _check_layer_args(x, cfg):
+    if x.dtype != BF16 or x.ndim != 3:
+        raise ValueError("x must be (B, T, D) bfloat16")
+    if cfg.csgu_use_linear_after_conv:
+        raise NotImplementedError("csgu_use_linear_after_conv is not ported yet")
+
+
+def ebranchformer_layer_plain(x, lengths, w, cfg, t_valid: int, tables) -> torch.Tensor:
+    """One inference layer in plain PyTorch on any device. x: (B, T, D) bf16,
+    lengths: (B,) int32 key lengths; rows >= t_valid are masked out of both
+    depthwise convs (padding rows below it are not re-zeroed)."""
+    _check_layer_args(x, cfg)
+    return _layer(x, lengths, w, cfg, t_valid, tables, PLAIN_OPS)
+
+
+def ebranchformer_layer(x, lengths, w, cfg, t_valid: int, tables) -> torch.Tensor:
+    """``ebranchformer_layer_plain`` on CPU tensors; on CUDA tensors every
+    piece runs its kernel."""
+    _check_layer_args(x, cfg)
+    return _layer(x, lengths, w, cfg, t_valid, tables, KERNEL_OPS)

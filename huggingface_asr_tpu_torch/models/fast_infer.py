@@ -1,0 +1,127 @@
+"""Fused CTC inference path (counterpart of ``huggingface_asr_tpu/models/fast_infer.py``).
+
+``ctc_infer(fused, features, lengths)`` is the functional equivalent of
+``EBranchformerForCTC(features, lengths)`` in bf16: the conv subsampler
+(K2, ``kernels/subsample.py``), then every encoder layer as the K1 sequence
+(``kernels/layer.py``), then the final LayerNorm and the two CTC heads as
+plain tensor code — the JAX path computes those outside any kernel too.
+On CUDA tensors the kernels run; on CPU tensors their plain versions.
+
+``FusedCTC`` holds the folded kernel operands. They are folded once, from a
+loaded ``EBranchformerForCTC`` onto the target device; the relative-position
+tables are built once per padded length and cached.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from huggingface_asr_tpu_torch.kernels.layer import (
+    ACT_CODES,
+    ebranchformer_layer,
+    ebranchformer_layer_plain,
+    fold_layer_weights,
+    relpos_kernel_tables,
+)
+from huggingface_asr_tpu_torch.kernels.subsample import (
+    conv_subsample,
+    conv_subsample_plain,
+    fits_subsample_kernel,
+    fold_subsample_weights,
+)
+from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
+from huggingface_asr_tpu_torch.models.ebranchformer import (
+    CTCOutput,
+    EBranchformerForCTC,
+    feat_extract_output_frames,
+    feat_extract_output_lengths,
+)
+from huggingface_asr_tpu_torch.ops.lengths import lengths_to_mask
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def fused_encoder_ok(cfg: EBranchformerConfig, dtype: torch.dtype) -> bool:
+    """Static gate for the fused path (single source of truth for the pipeline)."""
+    return (
+        cfg.position_embeddings_type == "relative"
+        and not cfg.is_causal
+        and not cfg.finetune_with_layer_mixing
+        and not cfg.finetune_with_additional_layer
+        and cfg.use_macaron_ff
+        and not cfg.csgu_use_linear_after_conv
+        and cfg.hidden_act in ACT_CODES
+        and cfg.csgu_activation in ACT_CODES
+        and cfg.head_size == 32
+        and fits_subsample_kernel(cfg)
+        and dtype == torch.bfloat16
+    )
+
+
+class FusedCTC:
+    """Folded kernel operands of one ``EBranchformerForCTC`` on one device."""
+
+    def __init__(self, model: EBranchformerForCTC, device=None):
+        cfg = model.config
+        if not fused_encoder_ok(cfg, torch.bfloat16):
+            raise ValueError("model config is outside the fused path's support")
+        self.config = cfg
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        w2v = model.wav2vec2
+        with torch.no_grad():
+            self.subsample = fold_subsample_weights(w2v, cfg, self.device)
+            self.layers = [fold_layer_weights(l, cfg, self.device) for l in w2v.encoder.layers]
+            ln = w2v.encoder.layer_norm
+            self.ln_g = ln.weight.detach().float().to(self.device)
+            self.ln_b = ln.bias.detach().float().to(self.device)
+            # CTC heads: [vocab | blank] as one (D, V+1) matrix of bf16 values.
+            w = torch.cat([model.lm_head.weight, model.blank_projection.weight]).detach()
+            self.heads_w = w.t().contiguous().to(torch.bfloat16).float().to(self.device)
+            b = torch.cat([model.lm_head.bias, model.blank_projection.bias]).detach()
+            self.heads_b = b.float().to(self.device)
+        self._tables: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    def tables(self, T: int) -> Dict[str, torch.Tensor]:
+        if T not in self._tables:
+            self._tables[T] = relpos_kernel_tables(T, self.config.hidden_size, self.device)
+        return self._tables[T]
+
+
+def ctc_infer(fused: FusedCTC, input_features: torch.Tensor, input_lengths: torch.Tensor,
+              *, plain: bool = False) -> CTCOutput:
+    """(B, T_in, num_fbanks) features + (B,) frame lengths -> bf16 CTC logits
+    (B, T, V+1) and the CTC decode lengths. ``plain=True`` runs every
+    kernel's plain version, on any device."""
+    cfg = fused.config
+    T = int(feat_extract_output_frames(cfg, input_features.shape[1]))
+    T_pad = _round_up(T, 8)
+    subsample = conv_subsample_plain if plain else conv_subsample
+    layer = ebranchformer_layer_plain if plain else ebranchformer_layer
+    hidden = subsample(input_features, fused.subsample, cfg, T_pad)
+
+    # Encoder masking uses the padded-conv frame count; the RETURNED lengths
+    # the reference's unpadded formula (models/ebranchformer.py).
+    input_lengths = input_lengths.to(torch.int64)
+    enc_lengths = torch.clamp(feat_extract_output_frames(cfg, input_lengths), 0, T)
+    out_lengths = torch.clamp(feat_extract_output_lengths(cfg, input_lengths), 0, T)
+    mask = lengths_to_mask(enc_lengths, T_pad)
+    # Rows past each length are zeroed once here; the layers' convs mask only
+    # rows >= T (the batch's unpadded frame count), as the TPU path does.
+    x = torch.where(mask[..., None], hidden, 0.0).to(torch.bfloat16).contiguous()
+    enc_lengths = enc_lengths.to(torch.int32)
+    tables = fused.tables(T_pad)
+    for w in fused.layers:
+        x = layer(x, enc_lengths, w, cfg, T, tables)
+
+    # final encoder LayerNorm (two-pass variance, as fast_infer.py computes it)
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    x = ((xf - mu) * torch.rsqrt(var + cfg.layer_norm_eps) * fused.ln_g + fused.ln_b)
+    x = x.to(torch.bfloat16)[:, :T]
+    logits = (x.float() @ fused.heads_w + fused.heads_b).to(torch.bfloat16)
+    return CTCOutput(logits=logits, logit_lengths=out_lengths.to(torch.int32))

@@ -20,3 +20,9 @@ jax.config.update("jax_enable_x64", False)
 # Parity tests compare fp32 math against torch; JAX's default matmul
 # precision is reduced (bf16 passes), so force full fp32 for tests.
 jax.config.update("jax_default_matmul_precision", "highest")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel on the card; skips where there is no CUDA device"
+    )

@@ -1,0 +1,138 @@
+"""PyTorch port: each CUDA kernel against its plain version on the card.
+
+Imports neither jax nor the JAX package, so the file also runs on a machine
+with only PyTorch and a GPU:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+Every test skips where there is no CUDA device. Plain references run in fp32
+with TF32 off. Tolerances: pieces with the kernel's own rounding points may
+differ by an fp32 summation order, i.e. an isolated bf16 ulp (2^-7 or 2^-6 of
+the scale); chains of pieces (a layer, the subsampler, the model) 0.05 of the
+scale, as the JAX package holds its Pallas path to its XLA path.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from huggingface_asr_tpu_torch.kernels import _build
+from huggingface_asr_tpu_torch.kernels import layer as K1
+from huggingface_asr_tpu_torch.kernels import mel as K3
+from huggingface_asr_tpu_torch.kernels import subsample as K2
+from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
+from huggingface_asr_tpu_torch.models.ebranchformer import EBranchformerForCTC, init_random_
+from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer
+from huggingface_asr_tpu_torch.ops.features import LogMelConfig
+
+pytestmark = pytest.mark.cuda
+
+CFG = EBranchformerConfig(
+    hidden_size=128, num_hidden_layers=2, num_attention_heads=4, intermediate_size=256,
+    csgu_kernel_size=7, merge_conv_kernel=7, vocab_size=50,
+)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, ref, rel):
+    g, r = got.float(), ref.float()
+    assert bool(torch.isfinite(g).all())
+    err, scale = float((g - r).abs().max()), max(1.0, float(r.abs().max()))
+    assert err <= rel * scale, (err, rel * scale)
+
+
+@pytest.fixture(scope="module")
+def fused():
+    model = init_random_(EBranchformerForCTC(CFG).eval(), torch.Generator().manual_seed(0))
+    return model, FusedCTC(model, "cuda") if torch.cuda.is_available() else None
+
+
+def test_mel_and_cmvn():
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    wav = torch.from_numpy(rng.standard_normal((3, 16000 * 3)).astype(np.float32) * 0.1).to(dev)
+    fe = K3.MelFrontEnd(LogMelConfig(), device=dev)
+    lm = K3.log_mel(wav, 298, fe.dft, fe.mel, 160, 2 ** -23)
+    _close(lm, K3.log_mel_plain(wav, 298, fe.dft, fe.mel, 160, 2 ** -23), 1e-4)
+    n = torch.tensor([298, 180, 0], dtype=torch.int32, device=dev)
+    out = K3.cmvn(lm, n)
+    _close(out, K3.cmvn_plain(lm, n), 2 ** -7)
+    assert bool((out[1, 180:] == 0).all())
+
+
+def test_layer_pieces_and_layer(fused):
+    dev = _cuda()
+    _, fm = fused
+    w, B, T, t_valid = fm.layers[0], 3, 40, 37
+    D, H = CFG.hidden_size, CFG.num_attention_heads
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(B, T, D, generator=g).bfloat16().to(dev)
+    lens = torch.tensor([37, 20, 0], dtype=torch.int32, device=dev)
+    tables = fm.tables(T)
+    xf = x.view(B * T, D)
+    _close(K1.layer_norm(xf, w["ff1_ln_g"], w["ff1_ln_b"], 1e-5),
+           K1.layer_norm_plain(xf, w["ff1_ln_g"], w["ff1_ln_b"], 1e-5), 2 ** -7)
+    _close(K1.gemm(xf, w["ff1_wi"], w["ff1_bi"], act="gelu"),
+           K1.gemm_plain(xf, w["ff1_wi"], w["ff1_bi"], act="gelu"), 2 ** -6)
+    qkv, q_v = K1.gemm(xf, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
+    _close(qkv, K1.gemm_plain(xf, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])[0], 2 ** -6)
+    q_rot = K1.pos_query(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"], tables["rot_sin"], T)
+    _close(q_rot, K1.pos_query_plain(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"],
+                                     tables["rot_sin"], T), 2 ** -7)
+    hv = lambda i: qkv[:, i * D:(i + 1) * D].view(B, T, H, D // H)
+    qr = q_rot.view(B, T, H, D)
+    _close(K1.rel_attention(hv(0), hv(1), hv(2), qr, tables["k_std"], lens),
+           K1.rel_attention_plain(hv(0), hv(1), hv(2), qr, tables["k_std"], lens), 2 ** -6)
+    l = K1.gemm(xf, w["cg_w1"], w["cg_b1"], act="gelu")
+    args = (w["csgu_ln_g"], w["csgu_ln_b"], w["csgu_dw"], w["csgu_dw_b"], B, T, t_valid,
+            "identity", 1e-5)
+    _close(K1.csgu(l, *args), K1.csgu_plain(l, *args), 2 ** -7)
+    merged = torch.cat([xf, xf], dim=1).contiguous()
+    margs = (w["merge_dw"], w["merge_dw_b"], B, T, t_valid)
+    _close(K1.merge_conv(merged, *margs), K1.merge_conv_plain(merged, *margs), 2 ** -7)
+    _close(K1.ebranchformer_layer(x, lens, w, CFG, t_valid, tables),
+           K1.ebranchformer_layer_plain(x, lens, w, CFG, t_valid, tables), 0.05)
+
+
+def test_subsample(fused):
+    dev = _cuda()
+    _, fm = fused
+    feats = torch.randn(2, 101, 80, generator=torch.Generator().manual_seed(2)).bfloat16().to(dev)
+    w = fm.subsample
+    y1 = K2.conv1(feats, w["w1"], w["b1"])
+    _close(y1, K2.conv1_plain(feats, w["w1"], w["b1"]), 2 ** -7)
+    _close(K2.conv2(y1, w["w2"], w["b2"], 32), K2.conv2_plain(y1, w["w2"], w["b2"], 32), 2 ** -6)
+    _close(K2.conv_subsample(feats, w, CFG, 32), K2.conv_subsample_plain(feats, w, CFG, 32), 0.05)
+
+
+def test_ctc_infer_launches_kernels_and_matches_plain(fused):
+    dev = _cuda()
+    _, fm = fused
+    feats = torch.randn(3, 150, 80, generator=torch.Generator().manual_seed(3)).to(dev)
+    lens = torch.tensor([150, 96, 41], dtype=torch.int32, device=dev)
+    _build.reset_launch_counts()
+    got = ctc_infer(fm, feats, lens)
+    assert _build.LAUNCHES["asr_rel_attention"] == CFG.num_hidden_layers
+    assert _build.LAUNCHES["asr_conv1"] == 1
+    ref = ctc_infer(fm, feats, lens, plain=True)
+    assert torch.equal(got.logit_lengths, ref.logit_lengths)
+    _close(got.logits, ref.logits, 0.05)
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take():
+    dev = _cuda()
+    g, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    with pytest.raises(ValueError):
+        K1.layer_norm(torch.zeros(8, 64, device=dev), g, b, 1e-5)  # fp32 rows
+    with pytest.raises(ValueError):
+        K1.gemm(torch.zeros(8, 64, dtype=torch.bfloat16, device=dev),
+                torch.zeros(64, 40, dtype=torch.bfloat16, device=dev))  # N % 64
+    with pytest.raises(ValueError):
+        K1.layer_norm(torch.zeros(8, 64, dtype=torch.bfloat16, device=dev), g.cpu(), b, 1e-5)

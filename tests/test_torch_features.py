@@ -1,0 +1,92 @@
+"""PyTorch port, log-mel front end (K3) vs the JAX package.
+
+The same seeded numpy waveforms go through the JAX front ends and the port's.
+The Pallas kernel runs in interpret mode, as tests/test_pallas_features.py
+runs it; the port's wrappers run their plain versions on CPU tensors.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from huggingface_asr_tpu.ops.features import LogMelConfig as JLogMelConfig
+from huggingface_asr_tpu.ops.features import LogMelFrontEnd as JLogMelFrontEnd
+from huggingface_asr_tpu.ops.pallas_features import PallasLogMelFrontEnd
+from huggingface_asr_tpu.ops.pallas_features import folded_bases as j_folded_bases
+from huggingface_asr_tpu_torch.kernels import _build
+from huggingface_asr_tpu_torch.kernels import mel as K3
+from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
+
+
+def _wave(seed, B=2, S=16000 * 2, cut=5000):
+    rng = np.random.default_rng(seed)
+    wav = rng.standard_normal((B, S)).astype(np.float32) * 0.1
+    lens = np.asarray([S] + [S - cut * (i + 1) for i in range(B - 1)], np.int32)
+    return wav, lens
+
+
+def test_folded_bases_equal_jax():
+    dft, mel = K3.folded_bases(LogMelConfig())
+    j_dft, j_mel = j_folded_bases(JLogMelConfig())
+    np.testing.assert_array_equal(dft, j_dft)
+    np.testing.assert_array_equal(mel, j_mel)
+
+
+def test_fused_cmvn_bf16_matches_pallas_interpret():
+    """Plain K3 (folded DFT, fused CMVN, bf16) vs the Pallas kernel at the
+    'highest' contract. Tolerance 2e-2 as tests/test_pallas_features.py:86:
+    one bf16 rounding of CMVN'd values of magnitude up to ~4."""
+    wav, lens = _wave(3)
+    j_fe = PallasLogMelFrontEnd(JLogMelConfig(matmul_precision="highest"), interpret=True,
+                                fused_cmvn_bf16=True)
+    f_ref, l_ref = j_fe(jnp.asarray(wav), jnp.asarray(lens))
+    f_got, l_got = K3.MelFrontEnd(LogMelConfig())(torch.from_numpy(wav), torch.from_numpy(lens))
+    assert f_got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(l_got.numpy(), np.asarray(l_ref))
+    g = f_got.float().numpy()
+    np.testing.assert_allclose(g, np.asarray(f_ref, np.float32), rtol=0, atol=2e-2)
+    n1 = int(l_got[1])
+    assert np.all(g[1, n1:] == 0.0)
+
+
+@pytest.mark.parametrize("norm_type", ["utterance", "global", "none"])
+def test_plain_front_end_matches_jax_fp32(norm_type):
+    """Plain fp32 LogMelFrontEnd vs JAX LogMelFrontEnd (highest precision):
+    the same float64-built bases, fp32 products summed in another order."""
+    wav, lens = _wave(0)
+    stats = {}
+    if norm_type == "global":
+        rng = np.random.default_rng(4)
+        stats = dict(global_means=rng.uniform(5.0, 15.0, 80).astype(np.float32),
+                     global_stds=rng.uniform(2.0, 4.0, 80).astype(np.float32))
+    f_ref, l_ref = JLogMelFrontEnd(JLogMelConfig(norm_type=norm_type), **stats)(
+        jnp.asarray(wav), jnp.asarray(lens))
+    f_got, l_got = LogMelFrontEnd(LogMelConfig(norm_type=norm_type), **stats)(
+        torch.from_numpy(wav), torch.from_numpy(lens))
+    np.testing.assert_array_equal(l_got.numpy(), np.asarray(l_ref))
+    np.testing.assert_allclose(f_got.numpy(), np.asarray(f_ref), rtol=2e-4, atol=2e-4)
+
+
+def test_folded_plain_matches_unfolded_plain():
+    """The folded form (what the kernel computes) equals the unfolded front
+    end at fp32: the DC/pre-emphasis/window fold is exact in exact arithmetic."""
+    wav, lens = _wave(1, B=3)
+    w, l = torch.from_numpy(wav), torch.from_numpy(lens)
+    cfg = LogMelConfig()
+    f_ref, l_ref = LogMelFrontEnd(LogMelConfig(norm_type="none"))(w, l)
+    fe = K3.MelFrontEnd(cfg)
+    n_frames = f_ref.shape[1]
+    f_got = K3.log_mel_plain(w, n_frames, fe.dft, fe.mel, cfg.hop_length, cfg.mel_floor)
+    assert f_got.shape == f_ref.shape
+    valid = (torch.arange(n_frames)[None, :] < l_ref[:, None])[..., None]
+    np.testing.assert_allclose(torch.where(valid, f_got, 0.0).numpy(), f_ref.numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_cpu_tensors_launch_nothing():
+    _build.reset_launch_counts()
+    wav, lens = _wave(2)
+    K3.MelFrontEnd(LogMelConfig())(torch.from_numpy(wav), torch.from_numpy(lens))
+    assert sum(_build.LAUNCHES.values()) == 0
