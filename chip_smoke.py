@@ -15,15 +15,37 @@
    timed once on the host clock;
 5. checks that every kernel of the path launched during those requests, and
    that for every request the kernel path's logits and greedy ids match the
-   plain path's on the card.
+   plain path's on the card;
+6. holds the training attention kernel (forward, and all four gradients for a
+   seeded dO) and the shift-form inference attention kernel against their
+   plain versions at B=8, T=250 and T=500, ragged lengths with one
+   zero-length row, bf16 and fp32, dropout rate 0 and 0.1, checks that the
+   kernel's keep-mask is the plain version's bit for bit, then holds them
+   against their plain versions once more and times them at the training
+   path's shape (B=32, T=250, bf16, rate 0.1);
+7. trains the flagship model (attention_impl="pallas", bf16 over fp32
+   parameters, attention_dropout 0.1, SpecAugment on) for 6 steps on seeded
+   synthetic speech (B=32 of 9.3-10 s) through collator -> prefetch ->
+   CTCTrainer(device="cuda").fit, evaluates, saves a checkpoint and the model
+   directory, serves one request from it, and checks: finite losses, every
+   step applied with its gradient norm under half the guard's threshold, the
+   fixed batch's loss went down, 12 launches of each training kernel per step
+   and 12 of the inference kernel per evaluation, the served request's
+   logits and greedy ids equal to the plain path's on the trained weights,
+   and step 1 equal to the same step with the plain attention versions.
 
-It prints one JSON line with every kernel's launches, error and times, then
-the result line {"ok": true, "device": {...}} last. It exits non-zero without
-a result line when CUDA is missing or any phase fails.
+Beside each kernel's time it prints the plain version's, the least time the
+card could take (the larger of bytes / 3.35 TB/s and operations / the peak
+rate of their type) and, where one PyTorch call computes the same function,
+that call's time. It prints one JSON line with every kernel's launches,
+error, times and bound, then the result line {"ok": true, "device": {...}}
+last. It exits non-zero without a result line when CUDA is missing or any
+phase fails.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -33,6 +55,20 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Published peaks of one H100 SXM (dense): device memory bytes/s, bf16 tensor
+# core FLOP/s, fp32 FLOP/s outside the tensor cores.
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, {"bf16": 989e12, "fp32": 67e12}
+
+
+def bound(flops: float, nbytes: float, kind: str):
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[kind], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _fail(msg: str) -> None:
@@ -60,21 +96,67 @@ def speech(seconds: float, rng: np.random.Generator) -> np.ndarray:
     return (out * rng.uniform(0.5, 1.0) + noise).astype(np.float32)
 
 
-def flagship_model(seed: int = 0):
-    """The flagship E-Branchformer CTC (12 layers, D=256, 8 heads, I=1024,
-    256x256 subsampler, 500+1 outputs) with weights drawn from ``seed``."""
-    import torch
-
+def flagship_config(**overrides):
+    """The flagship E-Branchformer CTC: 12 layers, D=256, 8 heads, I=1024,
+    256x256 subsampler, 500+1 outputs."""
     sys.path.insert(0, ROOT)
     from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
-    from huggingface_asr_tpu_torch.models.ebranchformer import EBranchformerForCTC, init_random_
 
-    cfg = EBranchformerConfig(
+    return EBranchformerConfig(**{**dict(
         hidden_size=256, num_hidden_layers=12, num_attention_heads=8, intermediate_size=1024,
         conv_dim=(256, 256), conv_kernel=(3, 3), conv_stride=(2, 2), conv_padding=(1, 1),
         vocab_size=500,
+    ), **overrides})
+
+
+def flagship_model(seed: int = 0):
+    """The flagship model with weights of useful scale drawn from ``seed``."""
+    import torch
+
+    from huggingface_asr_tpu_torch.models.ebranchformer import EBranchformerForCTC, init_random_
+
+    return init_random_(EBranchformerForCTC(flagship_config()).eval(), torch.Generator().manual_seed(seed))
+
+
+def training_setup(seed: int = 0, batch_size: int = 32, n_batches: int = 6, checkpoint_dir=None):
+    """The training phase's trainer and host batches: the flagship model with
+    the training attention kernels selected, seeded random weights at a
+    from-scratch trainer's scale (matrices ~ N(0, initializer_range^2)), bf16
+    compute, SpecAugment on; batches of ``batch_size`` seeded synthetic
+    utterances of 93-100 % of 10 s with seeded label sequences. The learning
+    rate is small on purpose. A from-scratch CTC model first learns to emit
+    blanks, and on the way its gradient norm climbs towards the trainer's
+    guard (steps at 100 or more are rejected): the faster the loss falls, the
+    sooner. A smoke run's few steps are to be applied, with room to spare."""
+    import torch
+
+    from huggingface_asr_tpu_torch.data.bucketing import BucketingConfig
+    from huggingface_asr_tpu_torch.data.collator import CollatorConfig, SpeechCollator
+    from huggingface_asr_tpu_torch.data.synthetic_speech import utterance
+    from huggingface_asr_tpu_torch.models.ebranchformer import EBranchformerForCTC, init_random_
+    from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
+    from huggingface_asr_tpu_torch.training.loop import CTCTrainer, TrainerConfig
+    from huggingface_asr_tpu_torch.training.optim import OptimizerConfig
+
+    cfg = flagship_config(attention_impl="pallas", attention_dropout=0.1)
+    model = init_random_(EBranchformerForCTC(cfg), torch.Generator().manual_seed(seed),
+                         matrix_std=cfg.initializer_range)
+    tcfg = TrainerConfig(
+        optimizer=OptimizerConfig(learning_rate=5e-6, warmup_steps=2, total_steps=1000),
+        max_steps=n_batches, log_every=1, save_every=10 ** 9, seed=seed, checkpoint_dir=checkpoint_dir,
     )
-    return init_random_(EBranchformerForCTC(cfg).eval(), torch.Generator().manual_seed(seed))
+    trainer = CTCTrainer(model, tcfg, frontend=LogMelFrontEnd(LogMelConfig(num_mel_bins=cfg.num_fbanks)),
+                         device="cuda", dtype="bfloat16")
+    rng = np.random.default_rng(seed)
+    collate = SpeechCollator(CollatorConfig(bucketing=BucketingConfig(batch_size=batch_size, buckets=(160000,))))
+    batches = []
+    for _ in range(n_batches):
+        examples = []
+        for _ in range(batch_size):
+            wav, _ = utterance(rng.uniform(9.3, 10.0), rng)
+            examples.append({"audio": wav, "labels": rng.integers(0, 500, rng.integers(20, 41)).tolist()})
+        batches.append(collate(examples))
+    return trainer, batches
 
 
 def timed(fn, iters: int, reps: int = 5) -> float:
@@ -95,8 +177,38 @@ def timed(fn, iters: int, reps: int = 5) -> float:
     return float(np.median(windows))
 
 
+def sdpa_call(q_u, q_rot, k, v, k_std, lengths, scale):
+    """The library yardstick of the attention kernels:
+    ``F.scaled_dot_product_attention`` on the concatenated operands
+    ``[q_u | q_rot]`` and ``[k | k_std]`` with a boolean key mask (a zero-length
+    row attends to every key) at dropout rate 0. Returns (a forward call, a
+    function that builds a backward call for a seeded dO)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, T, H, _ = q_u.shape
+    heads_first = lambda t: t.detach().transpose(1, 2).contiguous()  # noqa: E731
+    q = heads_first(torch.cat([q_u, q_rot], dim=-1))
+    kk = heads_first(torch.cat([k, k_std[None, :, None, :].expand(B, T, H, -1)], dim=-1))
+    vv = heads_first(v)
+    n_keys = torch.where(lengths > 0, lengths, T)
+    mask = (torch.arange(T, device=q.device)[None, :] < n_keys[:, None])[:, None, None, :]
+
+    def forward():
+        return F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask, scale=scale)
+
+    def make_backward():
+        leaves = [t.clone().requires_grad_(True) for t in (q, kk, vv)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=scale)
+        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(out)
+        return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
+
+    return forward, make_backward
+
+
 def main() -> None:
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false")
@@ -111,11 +223,19 @@ def main() -> None:
     from huggingface_asr_tpu_torch.kernels import layer as K1
     from huggingface_asr_tpu_torch.kernels import mel as K3
     from huggingface_asr_tpu_torch.kernels import subsample as K2
+    from huggingface_asr_tpu_torch.kernels.attention import rel_attention, rel_attention_plain_shift
+    from huggingface_asr_tpu_torch.kernels.train_attention import (
+        keep_mask,
+        rel_attention_train,
+        rel_attention_train_plain,
+    )
+    from huggingface_asr_tpu_torch.data.prefetch import PrefetchIterator, pinned_device_put
+    from huggingface_asr_tpu_torch.models import ebranchformer as model_module
     from huggingface_asr_tpu_torch.models.ebranchformer import feat_extract_output_frames
     from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer
     from huggingface_asr_tpu_torch.ops.features import LogMelConfig
     from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
-    from huggingface_asr_tpu_torch.training.model_factory import save_checkpoint
+    from huggingface_asr_tpu_torch.training.model_factory import save_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -138,31 +258,43 @@ def main() -> None:
     results = {}
     failures = []
 
-    def compare(name, key, kernel_fn, plain_fn, rel_tol, iters=20):
-        """Kernel vs plain on the same inputs; times are medians of 5 windows
-        (``iters`` kernel calls, ``iters // 4`` plain calls each). The JSON line
-        keeps, per key, the largest error over both buckets and the 10 s
-        bucket's times."""
-        got = kernel_fn()
-        ref = plain_fn()
-        torch.cuda.synchronize()
-        g = (got if isinstance(got, torch.Tensor) else got[0]).float()
-        r = (ref if isinstance(ref, torch.Tensor) else ref[0]).float()
-        finite = bool(torch.isfinite(g).all())
-        err = float((g - r).abs().max())
-        tol = rel_tol * max(1.0, float(r.abs().max()))
-        ms = timed(kernel_fn, iters)
-        plain_ms = timed(plain_fn, max(2, iters // 4))
-        ok = finite and err <= tol
-        print(f"  {name:28s} max_abs_err={err:.3e} tol={tol:.3e} kernel={ms:.4f} ms "
-              f"plain={plain_ms:.4f} ms {'ok' if ok else 'FAIL'}", flush=True)
+    def record(name, key, err, ok, ms, plain_ms, work, library_ms):
+        """Print one comparison; keep, per key, the largest error over all
+        its comparisons and the first one's times and bound."""
+        bound_ms, bound_by = bound(*work) if work else (None, None)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        bnd = "" if bound_ms is None else f" bound={bound_ms:.4f} ms ({bound_by})"
+        print(f"  {name:28s} max_abs_err={err:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms"
+              f"{bnd} library={lib} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append(name)
         if key is not None:
             entry = results.setdefault(key, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            if "ms" not in entry:  # the 10 s bucket runs first
-                entry.update(ms=ms, plain_ms=plain_ms)
+            if "ms" not in entry:
+                entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms)
+
+    def compare(name, key, kernel_fn, plain_fn, rel_tol, iters=20, work=None, library_fn=None):
+        """Kernel vs plain on the same inputs; times are medians of 5 windows
+        (``iters`` kernel calls, ``iters // 4`` plain calls each). ``work`` is
+        (operations, bytes moved, type of the operations) for the bound;
+        ``library_fn`` is the one PyTorch call that computes the same function,
+        timed as a yardstick and used nowhere else. The 10 s bucket runs
+        first, so the JSON line carries its times."""
+        got = kernel_fn()
+        ref = plain_fn()
+        torch.cuda.synchronize()
+        g = (got if isinstance(got, torch.Tensor) else got[0]).float()
+        r = (ref if isinstance(ref, torch.Tensor) else ref[0]).float()
+        err = float((g - r).abs().max())
+        ok = bool(torch.isfinite(g).all()) and err <= rel_tol * max(1.0, float(r.abs().max()))
+        library_ms = None
+        if library_fn is not None and (key is None or "ms" not in results.get(key, {})):
+            with torch.no_grad():
+                library_ms = timed(library_fn, iters)
+        record(name, key, err, ok, timed(kernel_fn, iters), timed(plain_fn, max(2, iters // 4)),
+               work, library_ms)
         return got
 
     rng = np.random.default_rng(0)
@@ -182,19 +314,40 @@ def main() -> None:
 
         # K3
         hop, floor = mel_cfg.hop_length, mel_cfg.mel_floor
+        # The library call of the mel kernel is its plain version: the framed
+        # cuBLAS fp32 products (TF32 off).
+        mel_plain = lambda: K3.log_mel_plain(wav, n_frames, frontend.dft, frontend.mel, hop, floor)  # noqa: E731
+        n_mel = mel_cfg.num_mel_bins
         lm = compare("mel", "mel", lambda: K3.log_mel(wav, n_frames, frontend.dft, frontend.mel, hop, floor),
-                     lambda: K3.log_mel_plain(wav, n_frames, frontend.dft, frontend.mel, hop, floor),
-                     1e-4)
+                     mel_plain, 1e-4, library_fn=mel_plain,
+                     work=(2.0 * B * n_frames * (frontend.dft.shape[0] * frontend.dft.shape[1]
+                                                 + frontend.mel.shape[0] * n_mel),
+                           nbytes(wav, frontend.dft, frontend.mel) + 4 * B * n_frames * n_mel, "fp32"))
         feat_lens = torch.clamp(mel_cfg.num_frames(wav_lens.long()), 0, n_frames).int()
         feats = compare("cmvn", "cmvn", lambda: K3.cmvn(lm, feat_lens), lambda: K3.cmvn_plain(lm, feat_lens),
-                        2 ** -7)
+                        2 ** -7, work=(8.0 * lm.numel(), nbytes(lm) + 2 * lm.numel(), "fp32"))
 
         # K2
         sw = fused.subsample
+        # library calls: F.conv2d in bf16 with the model's own conv weights
+        # (conv1 on the features as one input channel, conv2 on conv1's
+        # channels-last output), without the bias, GELU and re-layout that
+        # the kernels fuse
+        convs = [blk[0].conv for blk in model.wav2vec2.feature_extractor.conv]
+        cw = [c.weight.detach().to(dev, torch.bfloat16) for c in convs]
+        C = cfg.conv_dim[0]
         y1 = compare("conv1", "conv1", lambda: K2.conv1(feats, sw["w1"], sw["b1"]),
-                     lambda: K2.conv1_plain(feats, sw["w1"], sw["b1"]), 2 ** -7)
+                     lambda: K2.conv1_plain(feats, sw["w1"], sw["b1"]), 2 ** -7,
+                     library_fn=lambda: F.conv2d(feats[:, None], cw[0], stride=2, padding=1),
+                     work=(2.0 * 9 * C * B * ((n_frames + 1) // 2) * ((n_mel + 1) // 2),
+                           nbytes(feats, sw["w1"], sw["b1"]) + 2 * C * B * ((n_frames + 1) // 2) * ((n_mel + 1) // 2),
+                           "bf16"))
+        y1_nchw = y1.permute(0, 3, 1, 2)  # (B, C, T1, F1) view, channels last in memory
+        rows2 = B * T_pad * ((y1.shape[2] + 1) // 2)
         compare("conv2", "conv2", lambda: K2.conv2(y1, sw["w2"], sw["b2"], T_pad),
-                lambda: K2.conv2_plain(y1, sw["w2"], sw["b2"], T_pad), 2 ** -6)
+                lambda: K2.conv2_plain(y1, sw["w2"], sw["b2"], T_pad), 2 ** -6,
+                library_fn=lambda: F.conv2d(y1_nchw, cw[1], stride=2, padding=1),
+                work=(2.0 * rows2 * C * 9 * C, nbytes(y1, sw["w2"], sw["b2"]) + 2 * rows2 * C, "bf16"))
         hidden = compare("subsample (K2 whole)", None, lambda: K2.conv_subsample(feats, sw, cfg, T_pad),
                          lambda: K2.conv_subsample_plain(feats, sw, cfg, T_pad), 0.05)
 
@@ -206,10 +359,17 @@ def main() -> None:
         x = torch.where(mask[..., None], hidden, 0.0).to(torch.bfloat16).contiguous()
         M, D, H = B * T_pad, cfg.hidden_size, cfg.num_attention_heads
         xf = x.view(M, D)
+        ln_g16, ln_b16 = w["attn_ln_g"].bfloat16(), w["attn_ln_b"].bfloat16()
         g = compare("layernorm", "layernorm", lambda: K1.layer_norm(xf, w["attn_ln_g"], w["attn_ln_b"], 1e-5),
-                    lambda: K1.layer_norm_plain(xf, w["attn_ln_g"], w["attn_ln_b"], 1e-5), 2 ** -7)
+                    lambda: K1.layer_norm_plain(xf, w["attn_ln_g"], w["attn_ln_b"], 1e-5), 2 ** -7,
+                    library_fn=lambda: F.layer_norm(xf, (D,), ln_g16, ln_b16, 1e-5),
+                    work=(8.0 * M * D, 2 * nbytes(xf), "fp32"))
+        wi_t, bi16 = w["ff1_wi"].t(), w["ff1_bi"].bfloat16()
         compare("gemm ff1_in (+gelu)", "gemm", lambda: K1.gemm(g, w["ff1_wi"], w["ff1_bi"], act="gelu"),
-                lambda: K1.gemm_plain(g, w["ff1_wi"], w["ff1_bi"], act="gelu"), 2 ** -6)
+                lambda: K1.gemm_plain(g, w["ff1_wi"], w["ff1_bi"], act="gelu"), 2 ** -6,
+                library_fn=lambda: F.linear(g, wi_t, bi16),  # F.linear in bf16, without the fused GELU
+                work=(2.0 * M * D * w["ff1_wi"].shape[1],
+                      nbytes(g, w["ff1_wi"], w["ff1_bi"]) + 2 * M * w["ff1_wi"].shape[1], "bf16"))
         h = K1.gemm(g, w["ff1_wi"], w["ff1_bi"], act="gelu")
         compare("gemm ff1_out (+residual)", "gemm",
                 lambda: K1.gemm(h, w["ff1_wo"], w["ff1_bo"], residual=xf, alpha=0.5),
@@ -228,29 +388,48 @@ def main() -> None:
                                              tables["rot_sin"], T_pad),
                         lambda: K1.pos_query_plain(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"],
                                                    tables["rot_sin"], T_pad),
-                        2 ** -7)
-        hv = lambda i: qkv[:, i * D:(i + 1) * D].view(B, T_pad, H, D // H)
+                        2 ** -7,  # no single PyTorch call computes it: no library time
+                        work=(2.0 * M * D * D + 6.0 * M * H * D,
+                              nbytes(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"], tables["rot_sin"])
+                              + 2 * M * H * D, "bf16"))
+        dh = D // H
+        hv = lambda i: qkv[:, i * D:(i + 1) * D].view(B, T_pad, H, dh)
         qr = q_rot.view(B, T_pad, H, D)
+        keys = torch.where(enc_lens > 0, enc_lens, T_pad).sum().item()  # key columns the lengths need
         compare("rel_attention", "rel_attention",
                 lambda: K1.rel_attention(hv(0), hv(1), hv(2), qr, tables["k_std"], enc_lens),
                 lambda: K1.rel_attention_plain(hv(0), hv(1), hv(2), qr, tables["k_std"], enc_lens),
-                2 ** -6)
+                2 ** -6, library_fn=sdpa_call(hv(0), qr, hv(1), hv(2), tables["k_std"], enc_lens, 1.0)[0],
+                work=(2.0 * H * T_pad * keys * (dh + D + dh),
+                      nbytes(qr, tables["k_std"]) + 4 * 2 * M * D, "bf16"))
         l = K1.gemm(K1.layer_norm(xf, w["cg_ln_g"], w["cg_ln_b"], 1e-5), w["cg_w1"], w["cg_b1"],
                     act="gelu")
         args = (w["csgu_ln_g"], w["csgu_ln_b"], w["csgu_dw"], w["csgu_dw_b"], B, T_pad, T,
                 cfg.csgu_activation, 1e-5)
-        compare("dwconv csgu", "dwconv_csgu", lambda: K1.csgu(l, *args), lambda: K1.csgu_plain(l, *args), 2 ** -7)
+        # library calls: F.conv1d(groups=C) in bf16 on the (B, C, T) view, without
+        # the LayerNorm and gate (CSGU) or the residual add (merge) that the kernels fuse
+        Cg, Kc = l.shape[1] // 2, w["csgu_dw"].shape[0]
+        gate_in = l[:, Cg:].reshape(B, T_pad, Cg).transpose(1, 2)
+        dw_c = w["csgu_dw"].t().reshape(Cg, 1, Kc).contiguous()
+        compare("dwconv csgu", "dwconv_csgu", lambda: K1.csgu(l, *args), lambda: K1.csgu_plain(l, *args), 2 ** -7,
+                library_fn=lambda: F.conv1d(gate_in, dw_c, padding=(Kc - 1) // 2, groups=Cg),
+                work=(2.0 * M * Cg * Kc + 10.0 * M * Cg, nbytes(l, w["csgu_dw"]) + 2 * M * Cg, "fp32"))
         merged = torch.cat([xf, xf], dim=1).contiguous()
         margs = (w["merge_dw"], w["merge_dw_b"], B, T_pad, T)
+        Km = w["merge_dw"].shape[0]
+        merged_in = merged.reshape(B, T_pad, 2 * D).transpose(1, 2)
+        dw_m = w["merge_dw"].t().reshape(2 * D, 1, Km).contiguous()
         compare("dwconv merge", "dwconv_merge", lambda: K1.merge_conv(merged, *margs),
-                lambda: K1.merge_conv_plain(merged, *margs), 2 ** -7)
+                lambda: K1.merge_conv_plain(merged, *margs), 2 ** -7,
+                library_fn=lambda: F.conv1d(merged_in, dw_m, padding=(Km - 1) // 2, groups=2 * D),
+                work=(2.0 * M * 2 * D * Km, 2 * nbytes(merged) + nbytes(w["merge_dw"]), "fp32"))
         compare("layer (K1 whole)", None,
                 lambda: K1.ebranchformer_layer(x, enc_lens, w, cfg, T, tables),
                 lambda: K1.ebranchformer_layer_plain(x, enc_lens, w, cfg, T, tables), 0.05)
 
     # ---- the main path: ASRPipeline on the card
     model_dir = os.path.join(ROOT, "build", "chip_smoke_model")
-    save_checkpoint(model, model_dir)
+    save_params(model, model_dir)
 
     class PieceTable:
         """id -> piece decoding for the random model's 500 outputs."""
@@ -286,44 +465,260 @@ def main() -> None:
     if missing:
         _fail(f"kernels not launched on the main path: {missing}")
 
-    # ---- kernel path vs plain path on the card, every request (same waveforms).
-    # Logits within 0.05 of their scale (the tolerance the JAX package holds its
-    # Pallas path to); greedy ids equal on every frame where the plain path's
-    # top-2 margin exceeds twice that tolerance, and on >= 98 % of all valid
-    # frames (random weights leave many near-ties).
-    n_frames = n_agree = 0
-    for name, audios in requests.items():
-        wav = torch.from_numpy(pipe._bucket_pad(audios)).to(dev)
-        lens = torch.tensor([len(a) for a in audios], dtype=torch.int32, device=dev)
-        with torch.inference_mode():
-            got = ctc_infer(pipe._fused, *pipe._frontend(wav, lens))
-            ref = ctc_infer(pipe._fused, *pipe._frontend(wav, lens, plain=True), plain=True)
-        torch.cuda.synchronize()
-        g, r = got.logits.float(), ref.logits.float()
-        if g.shape != r.shape or g.shape[:2] != (len(audios), r.shape[1]) \
-                or g.shape[-1] != cfg.vocab_size + 1:
-            _fail(f"{name}: logit shapes {tuple(g.shape)} vs {tuple(r.shape)}")
-        if not torch.equal(got.logit_lengths, ref.logit_lengths):
-            _fail(f"{name}: logit lengths differ")
-        valid = torch.arange(g.shape[1], device=dev)[None, :] < ref.logit_lengths[:, None]
-        err = float((g - r).abs()[valid].max())
-        scale = float(r.abs()[valid].max())
-        tol = 0.05 * max(1.0, scale)
-        same = (g.argmax(-1) == r.argmax(-1))[valid]
-        top2 = r.topk(2, dim=-1).values
-        clear = ((top2[..., 0] - top2[..., 1]) > 2 * tol)[valid]
-        n_frames += int(valid.sum())
-        n_agree += int(same.sum())
-        print(f"{name} logits kernel vs plain: max_abs_err={err:.3e} tol={tol:.3e} "
-              f"(scale {scale:.3f}); greedy ids agree on {float(same.float().mean()):.4f} of "
-              f"{int(valid.sum())} valid frames, on {int((same & clear).sum())}/{int(clear.sum())} "
-              f"frames with a clear margin", flush=True)
-        if not bool(torch.isfinite(g).all()) or err > tol:
-            _fail(f"{name}: pipeline logits disagree with the plain path")
-        if not bool(same[clear].all()):
-            _fail(f"{name}: greedy ids differ on a frame with a clear margin")
+    def against_plain_path(pipe, requests):
+        """Kernel path vs plain path on the card for every request (same
+        waveforms): logits within 0.05 of their scale (the tolerance the JAX
+        package holds its Pallas path to), greedy ids equal on every frame
+        where the plain path's top-2 margin exceeds twice that tolerance.
+        Returns (valid frames, frames whose greedy ids agree)."""
+        n_frames = n_agree = 0
+        for name, audios in requests.items():
+            wav = torch.from_numpy(pipe._bucket_pad(audios)).to(dev)
+            lens = torch.tensor([len(a) for a in audios], dtype=torch.int32, device=dev)
+            with torch.inference_mode():
+                got = ctc_infer(pipe._fused, *pipe._frontend(wav, lens))
+                ref = ctc_infer(pipe._fused, *pipe._frontend(wav, lens, plain=True), plain=True)
+            torch.cuda.synchronize()
+            g, r = got.logits.float(), ref.logits.float()
+            if g.shape != r.shape or g.shape[:2] != (len(audios), r.shape[1]) \
+                    or g.shape[-1] != cfg.vocab_size + 1:
+                _fail(f"{name}: logit shapes {tuple(g.shape)} vs {tuple(r.shape)}")
+            if not torch.equal(got.logit_lengths, ref.logit_lengths):
+                _fail(f"{name}: logit lengths differ")
+            valid = torch.arange(g.shape[1], device=dev)[None, :] < ref.logit_lengths[:, None]
+            err = float((g - r).abs()[valid].max())
+            scale = float(r.abs()[valid].max())
+            tol = 0.05 * max(1.0, scale)
+            same = (g.argmax(-1) == r.argmax(-1))[valid]
+            top2 = r.topk(2, dim=-1).values
+            clear = ((top2[..., 0] - top2[..., 1]) > 2 * tol)[valid]
+            n_frames += int(valid.sum())
+            n_agree += int(same.sum())
+            print(f"{name} logits kernel vs plain: max_abs_err={err:.3e} tol={tol:.3e} "
+                  f"(scale {scale:.3f}); greedy ids agree on {float(same.float().mean()):.4f} of "
+                  f"{int(valid.sum())} valid frames, on {int((same & clear).sum())}/{int(clear.sum())} "
+                  f"frames with a clear margin", flush=True)
+            if not bool(torch.isfinite(g).all()) or err > tol:
+                _fail(f"{name}: pipeline logits disagree with the plain path")
+            if not bool(same[clear].all()):
+                _fail(f"{name}: greedy ids differ on a frame with a clear margin")
+        return n_frames, n_agree
+
+    # Every request of the main path; pooled over them, the greedy ids must
+    # also agree on >= 98 % of all valid frames (random weights leave many
+    # near-ties).
+    n_frames, n_agree = against_plain_path(pipe, requests)
     if n_agree < 0.98 * n_frames:
         _fail(f"greedy ids agree on {n_agree}/{n_frames} valid frames, below 98 %")
+
+    # ---- K4 (training attention) and K5 (shift-form inference attention)
+    # against their plain versions. fp32: the kernel's FMA loops and the plain
+    # matmuls (TF32 off) sum in another order, 1e-4 of each tensor's scale.
+    # bf16: both sides round P, the dropped P and dS to bf16 at the same
+    # points and differ where an fp32 value lands on the other side of a
+    # rounding boundary, 2^-6 of each tensor's scale. The keep-mask is the
+    # same function on both sides (checked bit for bit below), so the
+    # tolerance at rate 0.1 is the tolerance at rate 0.
+    att_tol = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+    H, dh, D = cfg.num_attention_heads, cfg.head_size, cfg.hidden_size
+    scale = 1.0 / float(np.sqrt(dh))
+
+    def attention_inputs(B, T, dtype, seed):
+        g = torch.Generator().manual_seed(seed)
+        mk = lambda *shape: torch.randn(*shape, generator=g).to(dtype).to(dev)  # noqa: E731
+        t = dict(q_u=mk(B, T, H, dh), q_rot=mk(B, T, H, D) * 0.25, k=mk(B, T, H, dh), v=mk(B, T, H, dh),
+                 k_std=mk(T, D), q_v=mk(B, T, H, dh), pos=mk(2 * T - 1, H, dh), cot=mk(B, T, H, dh))
+        lens = [T - (i * T) // (2 * B) for i in range(B)]
+        lens[B // 2] = 0  # one zero-length row
+        t["lengths"] = torch.tensor(lens, dtype=torch.int32, device=dev)
+        return t
+
+    def train_attention_run(fn, t, seed, rate):
+        leaves = [t[n].clone().requires_grad_(True) for n in ("q_u", "q_rot", "k", "v")]
+        out = fn(*leaves, t["k_std"], t["lengths"], seed, rate)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, t["cot"]))
+
+    def worst(got, ref, tol):
+        """(largest abs error over the tensors, all within tol of their scale)."""
+        errs, ok = [], True
+        for g, r in zip(got, ref):
+            g, r = g.float(), r.float()
+            err = float((g - r).abs().max())
+            ok = ok and bool(torch.isfinite(g).all()) and err <= tol * max(1.0, float(r.abs().max()))
+            errs.append(err)
+        return max(errs), ok
+
+    print("-- training attention (K4) and shift-form attention (K5) vs plain, B=8", flush=True)
+    for T in (250, 500):
+        for dtype in (torch.bfloat16, torch.float32):
+            t = attention_inputs(8, T, dtype, seed=T)
+            for rate in (0.0, 0.1):
+                got = train_attention_run(rel_attention_train, t, 77, rate)
+                ref = train_attention_run(rel_attention_train_plain, t, 77, rate)
+                torch.cuda.synchronize()
+                tag = f"T={T} {str(dtype).split('.')[-1]} rate={rate}"
+                for part, sl in (("fwd", slice(0, 1)), ("bwd (4 gradients)", slice(1, 5))):
+                    err, ok = worst(got[sl], ref[sl], att_tol[dtype])
+                    print(f"  K4 {part:18s} {tag:28s} max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+                    if not ok:
+                        failures.append(f"K4 {part} {tag}")
+            args = (t["q_u"], t["q_v"], t["k"], t["v"], t["pos"], t["lengths"])
+            err, ok = worst([rel_attention(*args)], [rel_attention_plain_shift(*args)], att_tol[dtype])
+            print(f"  K5 {'fwd':18s} T={T} {str(dtype).split('.')[-1]:20s} max_abs_err={err:.3e} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"K5 T={T} {dtype}")
+
+    # The kernel's keep-mask, read out of the kernel itself: with zero queries
+    # every valid key has the same probability, and v = one-hot of (s mod 32)
+    # within one 32-key chunk makes out[t, d] non-zero exactly where key
+    # 32*chunk + d was kept.
+    t = attention_inputs(4, 250, torch.bfloat16, seed=5)
+    t["lengths"] = torch.full((4,), 250, dtype=torch.int32, device=dev)
+    zq, zr = torch.zeros_like(t["q_u"]), torch.zeros_like(t["q_rot"])
+    kept = torch.zeros(4, H, 250, 250, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        for c0 in range(0, 250, dh):
+            probe = torch.zeros_like(t["v"])
+            for d in range(min(dh, 250 - c0)):
+                probe[:, c0 + d, :, d] = 1.0
+            out = rel_attention_train(zq, zr, t["k"], probe, t["k_std"], t["lengths"], 4242, 0.1)
+            kept[:, :, :, c0:c0 + dh] = (out != 0).permute(0, 2, 1, 3)[..., : min(dh, 250 - c0)]
+    same_mask = bool(torch.equal(kept, keep_mask(4242, 4, H, 250, 0.1, dev)))
+    print(f"  K4 keep-mask read from the kernel equals the plain version's: {same_mask} "
+          f"(kept share {float(kept.float().mean()):.4f})", flush=True)
+    if not same_mask:
+        failures.append("K4 keep-mask")
+
+    # At the training path's own shape, B=32, T=250, bf16, rate 0.1: each
+    # kernel against its plain version (same tolerance), then the times (the
+    # library call runs at rate 0). These are the JSON line's numbers.
+    print("-- attention kernels at the training path's shape: B=32, T=250, bf16, rate 0.1", flush=True)
+    Bt, Tt = 32, 250
+    t = attention_inputs(Bt, Tt, torch.bfloat16, seed=1)
+    got = train_attention_run(rel_attention_train, t, 77, 0.1)
+    ref = train_attention_run(rel_attention_train_plain, t, 77, 0.1)
+    (err_fwd, ok_fwd), (err_bwd, ok_bwd) = (worst(got[sl], ref[sl], att_tol[torch.bfloat16])
+                                            for sl in (slice(0, 1), slice(1, 5)))
+    args = (t["q_u"], t["q_v"], t["k"], t["v"], t["pos"], t["lengths"])
+    err_k5, ok_k5 = worst([rel_attention(*args)], [rel_attention_plain_shift(*args)], att_tol[torch.bfloat16])
+    del got, ref
+    keys = float(torch.where(t["lengths"] > 0, t["lengths"], Tt).sum())
+    small, big = nbytes(t["q_u"]), nbytes(t["q_rot"])
+    lib_fwd, lib_make_bwd = sdpa_call(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"], t["lengths"], scale)
+
+    def backward_call(fn):
+        leaves = [t[n].clone().requires_grad_(True) for n in ("q_u", "q_rot", "k", "v")]
+        out = fn(*leaves, t["k_std"], t["lengths"], 77, 0.1)
+        return lambda: torch.autograd.grad(out, leaves, t["cot"], retain_graph=True)
+
+    with torch.no_grad():
+        fwd = lambda fn: (lambda: fn(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"], t["lengths"], 77, 0.1))  # noqa: E731
+        record("K4 fwd", "rel_attention_train_fwd", err_fwd, ok_fwd,
+               timed(fwd(rel_attention_train), 20), timed(fwd(rel_attention_train_plain), 5),
+               (2.0 * H * Tt * keys * (dh + D + dh), 4 * small + big + nbytes(t["k_std"]) + 8 * Bt * H * Tt, "bf16"),
+               timed(lib_fwd, 20))
+    record("K4 bwd", "rel_attention_train_bwd", err_bwd, ok_bwd,
+           timed(backward_call(rel_attention_train), 20), timed(backward_call(rel_attention_train_plain), 5),
+           (2.0 * H * Tt * keys * ((dh + D) + 4 * dh + D), 7 * small + 2 * big + nbytes(t["k_std"]) + 8 * Bt * H * Tt,
+            "bf16"),
+           timed(lib_make_bwd(), 20))
+    with torch.no_grad():
+        # library: the same SDPA call (the factored operands give the same scores)
+        record("K5 fwd", "rel_attention_shift", err_k5, ok_k5,
+               timed(lambda: rel_attention(*args), 20), timed(lambda: rel_attention_plain_shift(*args), 5),
+               (2.0 * H * Tt * keys * 3 * dh, 5 * small + nbytes(t["pos"]), "bf16"), timed(lib_fwd, 20))
+    del t, lib_fwd, lib_make_bwd
+    torch.cuda.empty_cache()
+
+    # ---- the training path at full width
+    print("-- training path: flagship model, B=32 x 9.3-10 s, bf16, attention_dropout 0.1", flush=True)
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_train")
+    trainer, batches = training_setup(seed=0, batch_size=32, n_batches=6, checkpoint_dir=ckpt_dir)
+    twin = copy.deepcopy(trainer.model)  # the same initial state, for the plain-attention step
+    state = trainer.init_state()
+    fixed = batches[0]
+    loss_before = float(trainer.eval_step(state, fixed)["loss"])
+    step_events, logged = [], []
+    plain_step = trainer.train_step
+
+    def timed_step(st, batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = plain_step(st, batch)
+        end.record()
+        step_events.append((start, end))
+        return result
+
+    trainer.train_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    state = trainer.fit(state, PrefetchIterator(iter(batches), depth=2, device_put=pinned_device_put(dev)),
+                        hooks=[lambda step, m: logged.append(m)])
+    evaluated = trainer.eval_step(state, fixed)
+    loss_after = float(evaluated["loss"])
+    trainer.save_checkpoint(state)
+    final_dir = os.path.join(ckpt_dir, "final")
+    save_params(state.model, final_dir)
+    trained_pipe = ASRPipeline(final_dir, model_type="ctc", tokenizer=PieceTable())
+    trained_request = {"trained model, 1 utt (6 s)": [speech(6.0, rng)]}
+    served = trained_pipe(trained_request["trained model, 1 utt (6 s)"])
+    torch.cuda.synchronize()
+    train_launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = [a.elapsed_time(b) for a, b in step_events]
+    for i, m in enumerate(logged):
+        print(f"  step {i + 1}: loss={m['loss']:.4f} grad_norm={m['grad_norm']:.3f} "
+              f"applied={int(m['step_applied'])} {step_ms[i]:.1f} ms", flush=True)
+    print(f"  fixed batch, dropout off: loss {loss_before:.4f} -> {loss_after:.4f}; "
+          f"greedy tokens per utterance {evaluated['token_lengths'].float().mean():.1f}; "
+          f"served from the saved model: {served[0][:40]!r}", flush=True)
+    print(f"  train step time (median of steps 3-6): {float(np.median(step_ms[2:])):.1f} ms; "
+          f"peak memory {peak_gib:.2f} GiB; {smi}", flush=True)
+    print(f"  launches in the training phase: {train_launches}", flush=True)
+    n_layers, n_steps = cfg.num_hidden_layers, len(batches)
+    if len(logged) != n_steps or state.step != n_steps:
+        _fail(f"trainer took {state.step} steps, logged {len(logged)}")
+    if not all(np.isfinite(m["loss"]) for m in logged) or not np.isfinite(loss_after):
+        _fail("non-finite training loss")
+    if any(int(m["step_applied"]) != 1 for m in logged) or int(state.skipped_steps) or int(state.nonfinite_steps):
+        _fail("the guard rejected a step")
+    guard = trainer.config.max_grad_norm_guard
+    if max(m["grad_norm"] for m in logged) >= 0.5 * guard:
+        _fail(f"a step's gradient norm reached half the guard's threshold of {guard}")
+    if not loss_after < loss_before:
+        _fail(f"the fixed batch's loss did not go down: {loss_before} -> {loss_after}")
+    want = {"asr_rel_attention_train_fwd": n_layers * n_steps, "asr_rel_attention_train_bwd": n_layers * n_steps,
+            "asr_rel_attention_shift": n_layers}
+    if any(train_launches.get(k, 0) != v for k, v in want.items()):
+        _fail(f"attention kernel launches {train_launches} != {want}")
+    if len(served) != 1 or not isinstance(served[0], str):
+        _fail("the saved model did not serve a request")
+    # the served request again, kernel path vs plain path on the trained weights
+    against_plain_path(trained_pipe, trained_request)
+
+    # Step 1 again, from the same initial state, streams and batch, with the
+    # plain attention version on the card. The two differ by the bf16 rounding
+    # flips of 12 layers of attention and by the order of atomic sums: loss within
+    # 1e-4, gradient norm within 1e-3 (measured 7e-6 and 2e-4).
+    trainer_plain, _ = training_setup(seed=0, batch_size=32, n_batches=0)
+    trainer_plain.model.load_state_dict(twin.state_dict())
+    model_module.rel_attention_train = rel_attention_train_plain
+    try:
+        before = dict(_build.LAUNCHES)
+        _, m_plain = trainer_plain.train_step(trainer_plain.init_state(), fixed)
+        if dict(_build.LAUNCHES) != before:
+            _fail("the plain-attention step launched a kernel")
+    finally:
+        model_module.rel_attention_train = rel_attention_train
+    d_loss = abs(logged[0]["loss"] - float(m_plain["loss"])) / abs(float(m_plain["loss"]))
+    d_norm = abs(logged[0]["grad_norm"] - float(m_plain["grad_norm"])) / float(m_plain["grad_norm"])
+    print(f"  step 1, kernels vs plain attention: loss {logged[0]['loss']:.5f} vs {float(m_plain['loss']):.5f} "
+          f"(rel {d_loss:.2e}, tol 1e-4); grad norm {logged[0]['grad_norm']:.4f} vs "
+          f"{float(m_plain['grad_norm']):.4f} (rel {d_norm:.2e}, tol 1e-3)", flush=True)
+    if d_loss > 1e-4 or d_norm > 1e-3:
+        _fail("step 1 with the attention kernels disagrees with the plain-attention step")
 
     if failures:
         _fail(f"kernel phases outside tolerance: {failures}")
@@ -340,7 +735,15 @@ def main() -> None:
                           "huggingface_asr_tpu/ops/pallas_layer.py:417"),
         "dwconv_csgu": ("dwconv_csgu", "csrc/dwconv.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
         "dwconv_merge": ("dwconv_merge", "csrc/dwconv.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
+        "rel_attention_train_fwd": ("asr_rel_attention_train_fwd", "csrc/rel_attention_train.cu",
+                                    "huggingface_asr_tpu/ops/pallas_train_attention.py:105"),
+        "rel_attention_train_bwd": ("asr_rel_attention_train_bwd", "csrc/rel_attention_train.cu",
+                                    "huggingface_asr_tpu/ops/pallas_train_attention.py:130"),
+        "rel_attention_shift": ("asr_rel_attention_shift", "csrc/rel_attention_shift.cu",
+                                "huggingface_asr_tpu/ops/pallas_attention.py:34"),
     }
+    launches.update({k: v for k, v in train_launches.items() if k.startswith("asr_rel_attention_")
+                     and k != "asr_rel_attention"})
     kernels = []
     for name, (counter, src, replaces) in routes.items():
         kernels.append({

@@ -1,0 +1,158 @@
+// Shared device helpers of the training attention kernels
+// (rel_attention_train.cu) and the shift-form inference attention kernel
+// (rel_attention_shift.cu).
+//
+// One template parameter E is the element type of the inputs and outputs:
+// bf16 (tile products on wmma fragments, fp32 accumulation) or float (tile
+// products as exact fp32 FMA loops, the slow path that holds the kernels'
+// logic to the plain version at fp32 tolerance). Everything between the
+// products (scores, softmax, dropout, dS) is fp32 in both.
+//
+// Tiles: a block owns TILE<E> query rows (or key rows), one warp per 16
+// rows, and walks the other direction in tiles of the same size. Rows past
+// the sequence end are zero-filled on load and masked on store, so any
+// sequence length runs.
+#pragma once
+
+#include <mma.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace attn {
+
+constexpr int DH = 32;  // head width the kernels are written for
+constexpr float MASK_NEG = -1.0e9f;
+constexpr size_t MAX_SMEM = 232448;  // 227 KB, the most a Hopper block can use
+
+template <typename E> struct Tile;
+template <> struct Tile<bf16> { static constexpr int B = 64; };
+template <> struct Tile<float> { static constexpr int B = 32; };
+
+__device__ __forceinline__ float as_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float as_float(float v) { return v; }
+template <typename E> __device__ __forceinline__ E from_float(float v);
+template <> __device__ __forceinline__ bf16 from_float<bf16>(float v) { return __float2bfloat16_rn(v); }
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+// Round to the element type and return as float.
+template <typename E> __device__ __forceinline__ float round_to(float v) {
+    return as_float(from_float<E>(v));
+}
+
+__host__ __device__ inline size_t up128(size_t x) { return (x + 127) / 128 * 128; }
+
+// Copy `n` elements (n a multiple of 16 bytes, both sides 16-byte aligned), or zeros.
+template <typename E>
+__device__ __forceinline__ void copy_row(E* dst, const E* src, int n, bool valid, int lane) {
+    constexpr int V = 16 / (int)sizeof(E);  // elements in one 16-byte vector
+    for (int c = lane * V; c < n; c += 32 * V) {
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (valid) val = *reinterpret_cast<const uint4*>(src + c);
+        *reinterpret_cast<uint4*>(dst + c) = val;
+    }
+}
+
+// Warp-level product on shared-memory tiles, fp32 result in shared memory:
+//   C[16 x 16*n_tiles] (+)= A[16 x K] * B[K x 16*n_tiles]
+//   A_COL: A(i, k) at A[k * lda + i], else A[i * lda + k]
+//   B_COL: B(k, j) at B[j * ldb + k], else B[k * ldb + j]
+//   ACC:   add to what C holds, else overwrite.
+// K is a multiple of 16. Ends with __syncwarp(), so the warp may read C.
+template <bool A_COL, bool B_COL, bool ACC>
+__device__ __forceinline__ void warp_mm(float* C, int ldc, const bf16* A, int lda, const bf16* B,
+                                        int ldb, int K, int n_tiles) {
+    using namespace nvcuda;
+    using ALayout = typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
+    using BLayout = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
+    for (int j0 = 0; j0 < n_tiles; j0 += 4) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (ACC && j0 + j < n_tiles)
+                wmma::load_matrix_sync(acc[j], C + 16 * (j0 + j), ldc, wmma::mem_row_major);
+            else
+                wmma::fill_fragment(acc[j], 0.0f);
+        }
+        for (int kk = 0; kk < K; kk += 16) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> fa;
+            wmma::load_matrix_sync(fa, A_COL ? A + (size_t)kk * lda : A + kk, lda);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                if (j0 + j < n_tiles) {
+                    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb;
+                    const int n0 = 16 * (j0 + j);
+                    wmma::load_matrix_sync(fb, B_COL ? B + (size_t)n0 * ldb + kk
+                                                     : B + (size_t)kk * ldb + n0, ldb);
+                    wmma::mma_sync(acc[j], fa, fb, acc[j]);
+                }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (j0 + j < n_tiles)
+                wmma::store_matrix_sync(C + 16 * (j0 + j), acc[j], ldc, wmma::mem_row_major);
+        }
+    }
+    __syncwarp();
+}
+
+template <bool A_COL, bool B_COL, bool ACC>
+__device__ __forceinline__ void warp_mm(float* C, int ldc, const float* A, int lda, const float* B,
+                                        int ldb, int K, int n_tiles) {
+    const int lane = threadIdx.x % 32;
+    for (int c = lane; c < 16 * n_tiles; c += 32) {
+        float acc[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[i] = ACC ? C[i * ldc + c] : 0.0f;
+        for (int k = 0; k < K; ++k) {
+            const float b = B_COL ? B[(size_t)c * ldb + k] : B[(size_t)k * ldb + c];
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+                const float a = A_COL ? A[(size_t)k * lda + i] : A[(size_t)i * lda + k];
+                acc[i] = fmaf(a, b, acc[i]);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 16; ++i) C[i * ldc + c] = acc[i];
+    }
+    __syncwarp();
+}
+
+// Scaled and masked score of key column s: columns past the utterance's
+// length are REPLACED by -1e9 (a zero-length row is then uniform over all T
+// keys); columns past the sequence end (tile edge) take no part at all.
+__device__ __forceinline__ float masked_score(float raw, float scale, int s, int len, int T) {
+    if (s >= T) return -INFINITY;
+    if (s >= len) return MASK_NEG;
+    return raw * scale;
+}
+
+// Key columns a block has to visit: past an utterance's length every
+// probability is an exact zero, except for a zero-length row.
+__device__ __forceinline__ int visited_keys(int len, int T) { return len > 0 ? min(len, T) : T; }
+
+// ---- dropout: the counter hash of ops/pallas_train_attention.py::_keep_mask
+// (its interpret branch), all in wrapping uint32.
+__device__ __forceinline__ uint32_t hash_round(uint32_t x) {
+    x *= 0x85EBCA6Bu;
+    x ^= x >> 13;
+    x *= 0xC2B2AE35u;
+    x ^= x >> 16;
+    return x;
+}
+
+// Per-(batch row, head) stream key.
+__device__ __forceinline__ uint32_t dropout_key(uint32_t seed, int b, int h, int H) {
+    uint32_t mixed = seed ^ ((uint32_t)(b * H + h) * 0x9E3779B9u);
+    mixed = hash_round(hash_round(mixed));
+    return mixed * 0x9E3779B9u;
+}
+
+__device__ __forceinline__ bool dropout_keep(uint32_t key, int t, int s, int T, uint32_t thresh) {
+    uint32_t x = ((uint32_t)t * (uint32_t)T + (uint32_t)s) ^ key;
+    x = hash_round(hash_round(hash_round(x)));
+    return x >= thresh;
+}
+
+}  // namespace attn

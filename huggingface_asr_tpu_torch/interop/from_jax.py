@@ -1,45 +1,92 @@
-"""Flax parameter tree -> this package's state dict.
+"""Flax parameter tree <-> this package's state dict.
 
-Mirror of ``huggingface_asr_tpu/interop/export_hf.py::export_ebranchformer_ctc``
-written with numpy and torch only: the tree comes in as nested dicts of numpy
-arrays, and the keys that come out are the reference HF keys that
-``EBranchformerForCTC`` (``models/ebranchformer.py``) is named after, so
-``load_state_dict(strict=True)`` accepts the result.
+``state_dict_from_flax`` mirrors
+``huggingface_asr_tpu/interop/export_hf.py::export_ebranchformer_ctc`` with
+numpy and torch only: the tree comes in as nested dicts of numpy arrays, and
+the keys that come out are the reference HF keys that ``EBranchformerForCTC``
+(``models/ebranchformer.py``) is named after, so ``load_state_dict(strict=True)``
+accepts the result. ``flax_tree_from_state_dict`` is its inverse (numpy out),
+so gradients and trained weights can go back for comparison.
+
+Both walk one table of (Flax path, state-dict key, layout change).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
 
+# layout change -> (axes Flax -> torch, axes torch -> Flax)
+_AXES = {
+    "same": (None, None),
+    "dense": ((1, 0), (1, 0)),  # (in, out) <-> (out, in)
+    "conv2d": ((3, 2, 0, 1), (2, 3, 1, 0)),  # (kh, kw, I, O) <-> (O, I, kh, kw)
+    "conv1d": ((2, 1, 0), (2, 1, 0)),  # (k, I/g, O) <-> (O, I/g, k)
+}
 
-def _t(w) -> np.ndarray:
-    return np.ascontiguousarray(np.asarray(w).T)
-
-
-def _conv2d(w) -> np.ndarray:
-    """flax (kh, kw, I, O) -> torch (O, I, kh, kw)."""
-    return np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1))
-
-
-def _conv1d(w) -> np.ndarray:
-    """flax (k, I/g, O) -> torch (O, I/g, k)."""
-    return np.ascontiguousarray(np.asarray(w).transpose(2, 1, 0))
+Entry = Tuple[Tuple[str, ...], str, str]
 
 
-def _dense(out, prefix, p):
-    out[f"{prefix}.weight"] = _t(p["kernel"])
-    if "bias" in p:
-        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+def _dense(path, key, bias=True) -> Iterator[Entry]:
+    yield path + ("kernel",), f"{key}.weight", "dense"
+    if bias:
+        yield path + ("bias",), f"{key}.bias", "same"
 
 
-def _ln(out, prefix, p):
-    out[f"{prefix}.weight"] = np.asarray(p["scale"])
-    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+def _ln(path, key) -> Iterator[Entry]:
+    yield path + ("scale",), f"{key}.weight", "same"
+    yield path + ("bias",), f"{key}.bias", "same"
+
+
+def _conv(path, key, kind) -> Iterator[Entry]:
+    yield path + ("kernel",), f"{key}.weight", kind
+    yield path + ("bias",), f"{key}.bias", "same"
+
+
+def param_table(cfg: EBranchformerConfig) -> Iterator[Entry]:
+    """Every parameter of the CTC model as (Flax path, state-dict key, layout change)."""
+    w = ("wav2vec2",)
+    for i in range(len(cfg.conv_dim)):
+        yield from _conv(w + ("feature_extractor", f"conv_{i}"),
+                         f"wav2vec2.feature_extractor.conv.{i}.0.conv", "conv2d")
+    yield from _dense(w + ("feature_extractor", "out"), "wav2vec2.feature_extractor.out")
+    yield from _ln(w + ("feature_projection", "layer_norm"), "wav2vec2.feature_projection.layer_norm")
+    yield from _dense(w + ("feature_projection", "projection"), "wav2vec2.feature_projection.projection")
+    yield from _ln(w + ("encoder", "layer_norm"), "wav2vec2.encoder.layer_norm")
+    for i in range(cfg.num_hidden_layers):
+        L, p = w + ("encoder", f"layers_{i}"), f"wav2vec2.encoder.layers.{i}"
+        if cfg.use_macaron_ff:
+            for ff in ("ff1", "ff2"):
+                yield from _ln(L + (f"{ff}_layer_norm",), f"{p}.{ff}.0")
+                yield from _dense(L + (ff, "intermediate_dense"), f"{p}.{ff}.1.intermediate_dense")
+                yield from _dense(L + (ff, "output_dense"), f"{p}.{ff}.1.output_dense")
+        yield from _ln(L + ("self_attn_layer_norm",), f"{p}.self_attn_layer_norm")
+        for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            yield from _dense(L + ("self_attn", name), f"{p}.self_attn.{name}")
+        if cfg.position_embeddings_type == "relative":
+            yield from _dense(L + ("self_attn", "linear_pos"), f"{p}.self_attn.linear_pos", bias=False)
+            yield L + ("self_attn", "pos_bias_u"), f"{p}.self_attn.pos_bias_u", "same"
+            yield L + ("self_attn", "pos_bias_v"), f"{p}.self_attn.pos_bias_v", "same"
+        yield from _ln(L + ("cgMLP_layer_norm",), f"{p}.cgMLP_layer_norm")
+        yield from _dense(L + ("cgMLP", "channel_proj1"), f"{p}.cgMLP.channel_proj1.0")
+        yield from _ln(L + ("cgMLP", "csgu", "norm"), f"{p}.cgMLP.csgu.norm")
+        yield from _conv(L + ("cgMLP", "csgu", "conv"), f"{p}.cgMLP.csgu.conv", "conv1d")
+        if cfg.csgu_use_linear_after_conv:
+            yield from _dense(L + ("cgMLP", "csgu", "linear"), f"{p}.cgMLP.csgu.linear")
+        yield from _dense(L + ("cgMLP", "channel_proj2"), f"{p}.cgMLP.channel_proj2")
+        yield from _conv(L + ("depthwise_conv_fusion",), f"{p}.depthwise_conv_fusion", "conv1d")
+        yield from _dense(L + ("merge_proj",), f"{p}.merge_proj")
+        yield from _ln(L + ("final_layer_norm",), f"{p}.final_layer_norm")
+    yield from _dense(("lm_head",), "lm_head")
+    yield from _dense(("blank_projection",), "blank_projection")
+
+
+def _moved(a: np.ndarray, axes) -> np.ndarray:
+    return a if axes is None else np.ascontiguousarray(a.transpose(axes))
 
 
 def state_dict_from_flax(
@@ -47,52 +94,30 @@ def state_dict_from_flax(
 ) -> Dict[str, torch.Tensor]:
     """Flax ``EBranchformerForCTC`` params (nested dicts of arrays) -> float32
     torch state dict keyed like the reference ``Wav2Vec2EBranchformerForCTC``."""
-    sd: Dict[str, np.ndarray] = {}
-    w2v = tree["wav2vec2"]
-    fe = w2v["feature_extractor"]
-    for i in range(len(cfg.conv_dim)):
-        if f"gate_{i}" in fe:
-            raise NotImplementedError("gated conv front ends are not ported yet")
-        base = f"wav2vec2.feature_extractor.conv.{i}.0"
-        sd[f"{base}.conv.weight"] = _conv2d(fe[f"conv_{i}"]["kernel"])
-        sd[f"{base}.conv.bias"] = np.asarray(fe[f"conv_{i}"]["bias"])
-    _dense(sd, "wav2vec2.feature_extractor.out", fe["out"])
-    fp = w2v["feature_projection"]
-    _ln(sd, "wav2vec2.feature_projection.layer_norm", fp["layer_norm"])
-    _dense(sd, "wav2vec2.feature_projection.projection", fp["projection"])
+    fe = tree["wav2vec2"]["feature_extractor"]
+    if any(f"gate_{i}" in fe for i in range(len(cfg.conv_dim))):
+        raise NotImplementedError("gated conv front ends are not ported yet")
+    sd = {}
+    for path, key, kind in param_table(cfg):
+        leaf = tree
+        for name in path:
+            leaf = leaf[name]
+        sd[key] = torch.as_tensor(_moved(np.asarray(leaf, np.float32), _AXES[kind][0]))
+    return sd
 
-    enc = w2v["encoder"]
-    _ln(sd, "wav2vec2.encoder.layer_norm", enc["layer_norm"])
-    for i in range(cfg.num_hidden_layers):
-        L = enc[f"layers_{i}"]
-        p = f"wav2vec2.encoder.layers.{i}"
-        if cfg.use_macaron_ff:
-            for ff in ("ff1", "ff2"):
-                _ln(sd, f"{p}.{ff}.0", L[f"{ff}_layer_norm"])
-                _dense(sd, f"{p}.{ff}.1.intermediate_dense", L[ff]["intermediate_dense"])
-                _dense(sd, f"{p}.{ff}.1.output_dense", L[ff]["output_dense"])
-        _ln(sd, f"{p}.self_attn_layer_norm", L["self_attn_layer_norm"])
-        attn = L["self_attn"]
-        for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
-            _dense(sd, f"{p}.self_attn.{name}", attn[name])
-        if "linear_pos" in attn:
-            sd[f"{p}.self_attn.linear_pos.weight"] = _t(attn["linear_pos"]["kernel"])
-            sd[f"{p}.self_attn.pos_bias_u"] = np.asarray(attn["pos_bias_u"])
-            sd[f"{p}.self_attn.pos_bias_v"] = np.asarray(attn["pos_bias_v"])
-        _ln(sd, f"{p}.cgMLP_layer_norm", L["cgMLP_layer_norm"])
-        cg = L["cgMLP"]
-        _dense(sd, f"{p}.cgMLP.channel_proj1.0", cg["channel_proj1"])
-        _ln(sd, f"{p}.cgMLP.csgu.norm", cg["csgu"]["norm"])
-        sd[f"{p}.cgMLP.csgu.conv.weight"] = _conv1d(cg["csgu"]["conv"]["kernel"])
-        sd[f"{p}.cgMLP.csgu.conv.bias"] = np.asarray(cg["csgu"]["conv"]["bias"])
-        if "linear" in cg["csgu"]:
-            _dense(sd, f"{p}.cgMLP.csgu.linear", cg["csgu"]["linear"])
-        _dense(sd, f"{p}.cgMLP.channel_proj2", cg["channel_proj2"])
-        sd[f"{p}.depthwise_conv_fusion.weight"] = _conv1d(L["depthwise_conv_fusion"]["kernel"])
-        sd[f"{p}.depthwise_conv_fusion.bias"] = np.asarray(L["depthwise_conv_fusion"]["bias"])
-        _dense(sd, f"{p}.merge_proj", L["merge_proj"])
-        _ln(sd, f"{p}.final_layer_norm", L["final_layer_norm"])
 
-    _dense(sd, "lm_head", tree["lm_head"])
-    _dense(sd, "blank_projection", tree["blank_projection"])
-    return {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+def flax_tree_from_state_dict(
+    sd: Mapping[str, Any], cfg: EBranchformerConfig
+) -> Dict[str, Any]:
+    """The inverse of ``state_dict_from_flax``: a state dict (or any mapping
+    keyed like one, e.g. gradients by parameter name) of tensors or arrays ->
+    the Flax tree as nested dicts of float32 numpy arrays."""
+    tree: Dict[str, Any] = {}
+    for path, key, kind in param_table(cfg):
+        v = sd[key]
+        a = v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v, np.float32)
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = _moved(a, _AXES[kind][1])
+    return tree

@@ -119,12 +119,12 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint32, "f": ctypes.c_float}
 
 
 def launch(name: str, spec: str, *args, label: Optional[str] = None) -> None:
     """Call C function ``name`` with ``args`` typed by ``spec`` (one letter
-    per argument: p pointer, i int, f float), the current stream appended.
+    per argument: p pointer, i int, u uint32, f float), the current stream appended.
     Raises if the launch reports an error; otherwise counts the launch under
     ``label`` (default ``name``)."""
     lib = library()

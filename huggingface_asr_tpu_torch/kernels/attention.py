@@ -1,0 +1,57 @@
+"""Relative-position self-attention for inference, shift form
+(counterpart of ``huggingface_asr_tpu/ops/pallas_attention.py``).
+
+    scores[t, s] = (q_u[t] . k[s] + q_v[t] . pos[t - s + T - 1, h]) / sqrt(dh)
+    columns >= length := -1e9;  P = softmax in fp32, cast;  out = P v
+
+``rel_attention`` has the JAX function's signature. On CUDA tensors it
+launches ``csrc/rel_attention_shift.cu`` (dh == 32, bf16 or fp32) or raises;
+on CPU tensors it runs ``rel_attention_plain_shift``. Inference only: no
+gradient is defined.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from huggingface_asr_tpu_torch.kernels import _build
+
+NEG_INF = -1.0e9
+
+
+def rel_attention_plain_shift(q_u, q_v, k, v, pos, lengths):
+    """Plain PyTorch version (``rel_attention_reference`` of the JAX module):
+    the positional table is gathered to (T, T, H, dh), products accumulate in fp32."""
+    B, T, H, dh = q_u.shape
+    t = torch.arange(T, device=q_u.device)
+    ac = torch.einsum("bthd,bshd->bhts", q_u.float(), k.float())
+    pos_g = pos[t[:, None] - t[None, :] + (T - 1)]  # (T, T, H, dh)
+    bd = torch.einsum("bthd,tshd->bhts", q_v.float(), pos_g.float())
+    scores = (ac + bd) * float(np.float32(1.0 / np.sqrt(dh)))
+    scores = torch.where(t[None, None, None, :] < lengths[:, None, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs.float(), v.float()).to(q_u.dtype)
+
+
+def rel_attention(q_u, q_v, k, v, pos, lengths):
+    """q_u, q_v, k, v: (B, T, H, dh); pos: (2T-1, H, dh) projected positional
+    table; lengths: (B,) int32 valid key counts. Returns (B, T, H, dh)."""
+    if not _build.on_cuda(q_u, q_v, k, v, pos, lengths):
+        return rel_attention_plain_shift(q_u, q_v, k, v, pos, lengths)
+    B, T, H, dh = q_u.shape
+    dtype = q_u.dtype
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"rel_attention: bf16 or fp32 inputs, got {dtype}")
+    if dh != 32:
+        raise ValueError(f"rel_attention kernel needs dh == 32, got {dh}")
+    q_u, q_v, k, v, pos = (t.contiguous() for t in (q_u, q_v, k, v, pos))
+    for name, t in (("q_u", q_u), ("q_v", q_v), ("k", k), ("v", v)):
+        _build.check(t, name, dtype, (B, T, H, dh))
+    _build.check(pos, "pos", dtype, (2 * T - 1, H, dh))
+    _build.check(lengths, "lengths", torch.int32, (B,))
+    out = torch.empty_like(q_u)
+    _build.launch("asr_rel_attention_shift", "pppppppiiiiif", q_u.data_ptr(), q_v.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), pos.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                  B, T, H, dh, int(dtype == torch.bfloat16), float(np.float32(1.0 / np.sqrt(dh))))
+    return out

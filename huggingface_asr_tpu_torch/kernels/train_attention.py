@@ -1,0 +1,194 @@
+"""Relative-position attention core for training: forward and backward
+(counterpart of ``huggingface_asr_tpu/ops/pallas_train_attention.py``).
+
+    S = (q_u k^T + q_rot k_std^T) / sqrt(dh);  columns >= length := -1e9
+    P = softmax(S) in fp32, cast to the input dtype
+    Pd = keep ? P * dtype(1 / (1 - rate)) : 0;  out = Pd v
+
+``rel_attention_train`` is a ``torch.autograd.Function``: on CUDA tensors its
+forward launches ``csrc/rel_attention_train.cu``'s forward kernel and its
+backward the two backward passes (dq, then dk/dv); on CPU tensors it runs
+``rel_attention_train_plain``. Nothing falls back: a CUDA tensor the kernels
+do not take raises. Gradients exist for q_u, q_rot, k and v only.
+
+The dropout keep-mask is the counter hash of the JAX kernel's interpret
+branch (``_keep_mask``), a pure function of (seed, batch row, head, t, s, T),
+so the plain version, the kernels and ``rel_attention_train(...,
+interpret=True)`` of the JAX package drop the same elements.
+
+The plain version is itself an explicit forward/backward pair with the TPU
+kernel's rounding points (P rounded before the dropout scale, dv from the
+dropped P, ``rowsum(dP * P)`` over the fp32 P, dS rounded before its three
+products), so that it says what the kernels compute in bf16 too; in fp32 it
+equals autograd of the naive formula.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from huggingface_asr_tpu_torch.kernels import _build
+
+NEG_INF = -1.0e9
+_M32 = 0xFFFFFFFF
+_GOLDEN, _C1, _C2 = 0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for an int64 tensor of 32-bit values, without
+    overflowing int64: two 48-bit partial products."""
+    lo = a * (c & 0xFFFF)
+    hi = (a * (c >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _hash_round(x: torch.Tensor) -> torch.Tensor:
+    x = _mul32(x, _C1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _C2)
+    return x ^ (x >> 16)
+
+
+def dropout_threshold(rate: float) -> int:
+    return int(rate * float(2 ** 32))
+
+
+def keep_mask(seed: int, B: int, H: int, T: int, rate: float, device=None) -> torch.Tensor:
+    """(B, H, T, T) bool keep-mask: wrapping-uint32 arithmetic on int64 tensors."""
+    bh = torch.arange(B * H, dtype=torch.int64, device=device)
+    mixed = (int(seed) & _M32) ^ _mul32(bh, _GOLDEN)
+    mixed = _hash_round(_hash_round(mixed))
+    key = _mul32(mixed, _GOLDEN)
+    t = torch.arange(T, dtype=torch.int64, device=device)
+    ctr = (t[:, None] * T + t[None, :]) & _M32
+    x = ctr[None] ^ key[:, None, None]
+    x = _hash_round(_hash_round(_hash_round(x)))
+    return (x >= dropout_threshold(rate)).view(B, H, T, T)
+
+
+def _probs(q_u, q_rot, k, k_std, lengths):
+    """fp32 softmax of the scaled, masked scores: (B, H, T, T)."""
+    T, dh = q_u.shape[1], q_u.shape[-1]
+    ac = torch.einsum("bthd,bshd->bhts", q_u.float(), k.float())
+    bd = torch.einsum("bthD,sD->bhts", q_rot.float(), k_std.float())
+    scores = (ac + bd) * float(np.float32(1.0 / np.sqrt(dh)))
+    col = torch.arange(T, device=q_u.device)
+    scores = torch.where(col[None, None, None, :] < lengths[:, None, None, None], scores, NEG_INF)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _dropped(p32, dtype, keep, rate):
+    p = p32.to(dtype)
+    if keep is None:
+        return p
+    inv_keep = torch.tensor(np.float32(1.0 / (1.0 - rate)), dtype=torch.float32).to(dtype)
+    return torch.where(keep, p * inv_keep.to(p.device), torch.zeros((), dtype=dtype, device=p.device))
+
+
+class _PlainFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q_u, q_rot, k, v, k_std, lengths, seed, rate):
+        B, T, H, _ = q_u.shape
+        keep = keep_mask(seed, B, H, T, rate, q_u.device) if rate > 0.0 else None
+        pd = _dropped(_probs(q_u, q_rot, k, k_std, lengths), q_u.dtype, keep, rate)
+        ctx.save_for_backward(q_u, q_rot, k, v, k_std, lengths)
+        ctx.seed, ctx.rate = seed, rate
+        return torch.einsum("bhts,bshd->bthd", pd.float(), v.float()).to(q_u.dtype)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q_u, q_rot, k, v, k_std, lengths = ctx.saved_tensors
+        rate, dtype = ctx.rate, q_u.dtype
+        B, T, H, dh = q_u.shape
+        keep = keep_mask(ctx.seed, B, H, T, rate, q_u.device) if rate > 0.0 else None
+        p32 = _probs(q_u, q_rot, k, k_std, lengths)
+        pd = _dropped(p32, dtype, keep, rate)
+        do = d_out.float()
+        dv = torch.einsum("bhts,bthd->bshd", pd.float(), do)
+        dp = torch.einsum("bthd,bshd->bhts", do, v.float())
+        if keep is not None:
+            dp = torch.where(keep, dp * float(np.float32(1.0 / (1.0 - rate))), 0.0)
+        ds = p32 * (dp - (dp * p32).sum(dim=-1, keepdim=True))
+        ds = (ds * float(np.float32(1.0 / np.sqrt(dh)))).to(dtype).float()
+        dq_u = torch.einsum("bhts,bshd->bthd", ds, k.float())
+        dk = torch.einsum("bhts,bthd->bshd", ds, q_u.float())
+        dq_rot = torch.einsum("bhts,sD->bthD", ds, k_std.float())
+        return (dq_u.to(dtype), dq_rot.to(q_rot.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None)
+
+
+def rel_attention_train_plain(q_u, q_rot, k, v, k_std, lengths, seed, dropout_rate=0.0):
+    """Plain PyTorch version of ``rel_attention_train``, on any device,
+    differentiable in q_u, q_rot, k and v."""
+    return _PlainFunction.apply(q_u, q_rot, k, v, k_std, lengths, int(seed), float(dropout_rate))
+
+
+def _check_inputs(q_u, q_rot, k, v, k_std, lengths):
+    B, T, H, dh = q_u.shape
+    D = q_rot.shape[-1]
+    dtype = q_u.dtype
+    # head size 32; D a multiple of 16 and at most 256 (the backward's
+    # [dq_u | dq_rot] accumulator must fit in shared memory); bf16 or fp32
+    if dh != 32 or D % 16 or D > 256 or dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"rel_attention_train kernels need dh == 32, D % 16 == 0, D <= 256 and bf16 or "
+                         f"fp32 inputs, got dh={dh}, D={D}, {dtype}; attention_impl='xla' selects the "
+                         f"plain attention")
+    _build.check(q_u, "q_u", dtype, (B, T, H, dh))
+    _build.check(q_rot, "q_rot", dtype, (B, T, H, D))
+    _build.check(k, "k", dtype, (B, T, H, dh))
+    _build.check(v, "v", dtype, (B, T, H, dh))
+    _build.check(k_std, "k_std", dtype, (T, D))
+    _build.check(lengths, "lengths", torch.int32, (B,))
+    return B, T, H, dh, D
+
+
+class _KernelFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q_u, q_rot, k, v, k_std, lengths, seed, rate):
+        q_u, q_rot, k, v, k_std = (t.contiguous() for t in (q_u, q_rot, k, v, k_std))
+        B, T, H, dh, D = _check_inputs(q_u, q_rot, k, v, k_std, lengths)
+        out = torch.empty_like(q_u)
+        stats = torch.empty(2, B, H, T, dtype=torch.float32, device=q_u.device)
+        ctx.tail = (B, T, H, dh, D, int(q_u.dtype == torch.bfloat16),
+                    float(np.float32(1.0 / np.sqrt(dh))), seed & _M32, dropout_threshold(rate),
+                    float(np.float32(1.0 / (1.0 - rate))) if rate > 0.0 else 1.0, int(rate > 0.0))
+        _build.launch("asr_rel_attention_train_fwd", "ppppppppiiiiiifuufi",
+                      q_u.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      k_std.data_ptr(), lengths.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                      *ctx.tail)
+        ctx.save_for_backward(q_u, q_rot, k, v, k_std, lengths, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q_u, q_rot, k, v, k_std, lengths, stats = ctx.saved_tensors
+        B, T, H = ctx.tail[:3]
+        d_out = d_out.contiguous()
+        _build.check(d_out, "d_out", q_u.dtype, tuple(q_u.shape))
+        dq_u, dq_rot = torch.empty_like(q_u), torch.empty_like(q_rot)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty(B, H, T, dtype=torch.float32, device=q_u.device)
+        _build.launch("asr_rel_attention_train_bwd", "pppppppppppppiiiiiifuufi",
+                      q_u.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      k_std.data_ptr(), lengths.data_ptr(), d_out.data_ptr(), stats.data_ptr(),
+                      delta.data_ptr(), dq_u.data_ptr(), dq_rot.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), *ctx.tail)
+        return dq_u, dq_rot, dk, dv, None, None, None, None
+
+
+def rel_attention_train(q_u, q_rot, k, v, k_std, lengths, seed, dropout_rate=0.0):
+    """Attention core with in-kernel dropout.
+
+    q_u, k, v: (B, T, H, dh); q_rot: (B, T, H, D) rotary-transformed
+    positional query; k_std: (T, D) ascending sinusoid table (no gradient);
+    lengths: (B,) int32 valid key counts; seed: int (int32 range); returns
+    (B, T, H, dh) in q_u's dtype. CUDA tensors run the kernels (dh == 32,
+    D % 16 == 0, D <= 256, bf16 or fp32), CPU tensors the plain version."""
+    seed, rate = int(seed), float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    if not _build.on_cuda(q_u, q_rot, k, v, k_std, lengths):
+        return _PlainFunction.apply(q_u, q_rot, k, v, k_std, lengths, seed, rate)
+    return _KernelFunction.apply(q_u, q_rot, k, v, k_std, lengths, seed, rate)

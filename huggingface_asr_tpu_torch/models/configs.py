@@ -38,7 +38,7 @@ class EBranchformerConfig:
     layerdrop: float = 0.0
 
     attention_softmax_fp32: bool = True
-    attention_impl: str = "auto"  # auto | xla | pallas (JAX evaluation knob)
+    attention_impl: str = "auto"  # auto | xla | pallas: which attention core runs (models/ebranchformer.py)
     relpos_impl: str = "factored"  # this package implements "factored" only
     dwconv_impl: str = "conv"  # conv | slice (JAX evaluation knob)
     remat: bool = False

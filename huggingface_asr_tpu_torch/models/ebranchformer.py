@@ -1,16 +1,34 @@
-"""E-Branchformer CTC model, inference forward in plain PyTorch
+"""E-Branchformer CTC model in plain PyTorch, inference and training forward
 (counterpart of ``huggingface_asr_tpu/models/ebranchformer.py``).
 
 Module attribute names follow the reference HF state-dict keys that
 ``huggingface_asr_tpu/interop/export_hf.py::export_ebranchformer_ctc`` emits,
 so that export loads with ``load_state_dict(strict=True)``.
 
-This is the CPU path and the float32 reference that the CUDA kernels of the
-fused path (``models/fast_infer.py``) are held against. Supported: the plain
-2-D conv front end, non-causal self-attention with relative positions in the
-factored form (or no positions), macaron FFs, cgMLP/CSGU and the merge
-block. The gated conv front ends, causal models, rotary positions and the
-BEST-RQ fine-tuning adapters raise ``NotImplementedError``.
+The model computes in the dtype of its input features: parameters (fp32 in a
+trainer, or whatever ``model.to`` made them) are cast to it at each use, as
+the Flax modules cast theirs to their ``dtype``; LayerNorm statistics, the
+softmax and the CTC loss are fp32.
+
+Training mode is a forward with ``rng`` given (a ``DropoutRng``): every
+dropout site of the Flax model draws from it, and the attention core follows
+``attention_impl`` as the Flax model's does:
+
+- training, ``"pallas"`` (or ``"auto"`` on CUDA tensors):
+  ``rel_attention_train`` (``kernels/train_attention.py``), whose in-kernel
+  dropout takes the place of the probability dropout;
+- inference, ``"pallas"``: ``rel_attention`` (``kernels/attention.py``), the
+  shift form over the projected (2T-1) table;
+- otherwise plain einsums over the factored scores.
+
+On CPU tensors both wrappers run their plain versions; on CUDA tensors they
+run their kernels or raise (a model the kernels do not take trains with
+``attention_impl="xla"``). The inference path is
+also the float32 reference that the fused path (``models/fast_infer.py``) is
+held against. Supported: the plain 2-D conv front end, non-causal
+self-attention with relative positions (or none), macaron FFs, cgMLP/CSGU
+and the merge block. The gated conv front ends, causal models, rotary
+positions and the BEST-RQ fine-tuning adapters raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,7 +42,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from huggingface_asr_tpu_torch.kernels.attention import rel_attention
+from huggingface_asr_tpu_torch.kernels.train_attention import rel_attention_train
 from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
+from huggingface_asr_tpu_torch.ops.ctc import ctc_loss
 from huggingface_asr_tpu_torch.ops.lengths import conv_output_length, lengths_to_mask
 
 ACT = {
@@ -45,6 +66,54 @@ NEG_INF = -1.0e9
 class CTCOutput:
     logits: torch.Tensor
     logit_lengths: torch.Tensor
+    loss: Optional[torch.Tensor] = None
+
+
+def dropout_apply(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout given the keep draws: ``keep ? x / (1 - rate) : 0``."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DropoutRng:
+    """The explicit random stream of one training forward: a generator on the
+    tensors' device for the elementwise masks and one on the host for the
+    attention kernel's per-layer seeds (drawn without touching the device)."""
+
+    def __init__(self, seed: int, device="cpu"):
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self._host = torch.Generator().manual_seed(seed ^ 0x5DEECE66D)
+
+    def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        if rate <= 0.0:
+            return x
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return dropout_apply(x, u >= rate, rate)
+
+    def seed(self) -> int:
+        """An int32 for ``rel_attention_train``."""
+        return int(torch.randint(-2 ** 31, 2 ** 31, (), generator=self._host))
+
+
+def _drop(rng: Optional[DropoutRng], x: torch.Tensor, rate: float) -> torch.Tensor:
+    return x if rng is None else rng.dropout(x, rate)
+
+
+def _lin(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``m(x)`` with the parameters cast to x's dtype."""
+    return F.linear(x, m.weight.to(x.dtype), None if m.bias is None else m.bias.to(x.dtype))
+
+
+def _ln(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm in fp32, result in x's dtype."""
+    y = F.layer_norm(x.float(), m.normalized_shape, m.weight.float(), m.bias.float(), m.eps)
+    return y.to(x.dtype)
+
+
+def _dwconv(m: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise conv over time on (B, T, C)."""
+    y = F.conv1d(x.transpose(1, 2), m.weight.to(x.dtype), m.bias.to(x.dtype),
+                 padding=m.padding, groups=m.groups)
+    return y.transpose(1, 2)
 
 
 def feat_extract_output_frames(config: EBranchformerConfig, input_lengths):
@@ -69,6 +138,17 @@ def feat_extract_output_lengths(config: EBranchformerConfig, input_lengths):
     if isinstance(lengths, np.ndarray):
         return np.maximum(lengths, 0)
     return max(int(lengths), 0)
+
+
+def relative_positional_embeddings(T: int, D: int, device=None, dtype=torch.float32):
+    """Transformer-XL table (2T-1, D): row i holds the sinusoid at relative
+    position i - (T-1) (sin in the even columns, cos in the odd), built in float64."""
+    pos = np.arange(-(T - 1), T, dtype=np.float64)[:, None]
+    div = np.exp(np.arange(0, D, 2, dtype=np.float64) * -(np.log(10000.0) / D))
+    table = np.zeros((2 * T - 1, D), dtype=np.float64)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div)
+    return torch.as_tensor(table, dtype=dtype, device=device)
 
 
 def relpos_tables(T: int, D: int, device=None, dtype=torch.float32):
@@ -114,10 +194,12 @@ class Conv2dFeatureExtractor(nn.Module):
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         x = features[:, None]  # (B, 1, T, F)
         for block in self.conv:
-            x = self.act(block(x))
+            conv = block[0].conv
+            x = self.act(F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                                  stride=conv.stride, padding=conv.padding))
         B, C, T, Fq = x.shape
         x = x.permute(0, 2, 1, 3).reshape(B, T, C * Fq)  # channel-major: c*F' + f
-        return self.out(x)
+        return _lin(self.out, x)
 
 
 class FeatureProjection(nn.Module):
@@ -125,9 +207,10 @@ class FeatureProjection(nn.Module):
         super().__init__()
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.dropout = cfg.feat_proj_dropout
 
-    def forward(self, x):
-        return self.projection(self.layer_norm(x))
+    def forward(self, x, rng: Optional[DropoutRng] = None):
+        return _drop(rng, _lin(self.projection, _ln(self.layer_norm, x)), self.dropout)
 
 
 class EBranchformerSelfAttention(nn.Module):
@@ -143,6 +226,7 @@ class EBranchformerSelfAttention(nn.Module):
         D = cfg.hidden_size
         self.H, self.dh = cfg.num_attention_heads, cfg.head_size
         self.relative = cfg.position_embeddings_type == "relative"
+        self.impl, self.attention_dropout = cfg.attention_impl, cfg.attention_dropout
         self.linear_q = nn.Linear(D, D)
         self.linear_k = nn.Linear(D, D)
         self.linear_v = nn.Linear(D, D)
@@ -152,22 +236,37 @@ class EBranchformerSelfAttention(nn.Module):
             self.pos_bias_u = nn.Parameter(torch.zeros(self.H, self.dh))
             self.pos_bias_v = nn.Parameter(torch.zeros(self.H, self.dh))
 
-    def forward(self, x: torch.Tensor, attention_bias: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attention_bias: Optional[torch.Tensor],
+                lengths: Optional[torch.Tensor] = None, rng: Optional[DropoutRng] = None,
+                pos_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``lengths``: (B,) int32 valid key counts for the kernels (the
+        encoder's lengths). ``pos_emb``: the (2T-1, D) table, given when the
+        shift-form inference kernel may run."""
         B, T, D = x.shape
         H, dh = self.H, self.dh
-        q = self.linear_q(x).view(B, T, H, dh)
-        k = self.linear_k(x).view(B, T, H, dh)
-        v = self.linear_v(x).view(B, T, H, dh)
+        q = _lin(self.linear_q, x).view(B, T, H, dh)
+        k = _lin(self.linear_k, x).view(B, T, H, dh)
+        v = _lin(self.linear_v, x).view(B, T, H, dh)
         if self.relative:
-            q_u = q + self.pos_bias_u
-            q_v = q + self.pos_bias_v
-            wp = self.linear_pos.weight.t().reshape(D, H, dh)  # (Din, H, dh)
+            q_u = q + self.pos_bias_u.to(x.dtype)
+            q_v = q + self.pos_bias_v.to(x.dtype)
+            if self.impl == "pallas" and rng is None and lengths is not None and pos_emb is not None:
+                pos = _lin(self.linear_pos, pos_emb).view(-1, H, dh)
+                out = rel_attention(q_u, q_v, k, v, pos, lengths).reshape(B, T, D)
+                return _lin(self.linear_out, out)
+            wp = self.linear_pos.weight.to(x.dtype).t().reshape(D, H, dh)  # (Din, H, dh)
             qw = torch.einsum("bthd,Dhd->bthD", q_v, wp)
             cos_t, sin_t = relpos_tables(T, D, x.device, x.dtype)
             r_cos, r_sin = cos_t[None, :, None, :], sin_t[None, :, None, :]
             qe, qo = qw[..., 0::2], qw[..., 1::2]
             q_rot = torch.cat([r_sin * qo - r_cos * qe, r_sin * qe + r_cos * qo], dim=-1)
             k_std = torch.cat([sin_t, cos_t], dim=-1)  # (T, D)
+            use_train_kernel = self.impl == "pallas" or (self.impl == "auto" and x.is_cuda)
+            if use_train_kernel and rng is not None and lengths is not None:
+                # the kernel's own dropout takes the place of the probability dropout
+                out = rel_attention_train(q_u, q_rot, k, v, k_std, lengths, rng.seed(),
+                                          self.attention_dropout).reshape(B, T, D)
+                return _lin(self.linear_out, out)
             scores = (torch.einsum("bthd,bshd->bhts", q_u, k)
                       + torch.einsum("bthD,sD->bhts", q_rot, k_std)) / math.sqrt(dh)
         else:
@@ -175,9 +274,9 @@ class EBranchformerSelfAttention(nn.Module):
         scores = scores.float()
         if attention_bias is not None:
             scores = scores + attention_bias
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        probs = _drop(rng, torch.softmax(scores, dim=-1).to(x.dtype), self.attention_dropout)
         out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, D)
-        return self.linear_out(out)
+        return _lin(self.linear_out, out)
 
 
 class FeedForward(nn.Module):
@@ -186,9 +285,11 @@ class FeedForward(nn.Module):
         self.act = ACT[cfg.hidden_act]
         self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.activation_dropout, self.hidden_dropout = cfg.activation_dropout, cfg.hidden_dropout
 
-    def forward(self, x):
-        return self.output_dense(self.act(self.intermediate_dense(x)))
+    def forward(self, x, rng: Optional[DropoutRng] = None):
+        x = _drop(rng, self.act(_lin(self.intermediate_dense, x)), self.activation_dropout)
+        return _drop(rng, _lin(self.output_dense, x), self.hidden_dropout)
 
 
 def _depthwise_conv1d(C: int, k: int) -> nn.Conv1d:
@@ -204,14 +305,14 @@ class ConvolutionalSpatialGatingUnit(nn.Module):
         self.conv = _depthwise_conv1d(n, cfg.csgu_kernel_size)
         if cfg.csgu_use_linear_after_conv:
             self.linear = nn.Linear(n, n)
+        self.dropout = cfg.csgu_conv_dropout
 
-    def forward(self, x):
+    def forward(self, x, rng: Optional[DropoutRng] = None):
         x_r, x_g = x.chunk(2, dim=-1)
-        x_g = self.norm(x_g)
-        x_g = self.conv(x_g.transpose(1, 2)).transpose(1, 2)
+        x_g = _dwconv(self.conv, _ln(self.norm, x_g))
         if hasattr(self, "linear"):
-            x_g = self.linear(x_g)
-        return x_r * self.act(x_g)
+            x_g = _lin(self.linear, x_g)
+        return _drop(rng, x_r * self.act(x_g), self.dropout)
 
 
 class ConvolutionalGatingMLP(nn.Module):
@@ -224,8 +325,9 @@ class ConvolutionalGatingMLP(nn.Module):
         self.csgu = ConvolutionalSpatialGatingUnit(cfg)
         self.channel_proj2 = nn.Linear(cfg.intermediate_size // 2, cfg.hidden_size)
 
-    def forward(self, x):
-        return self.channel_proj2(self.csgu(self.channel_proj1(x)))
+    def forward(self, x, rng: Optional[DropoutRng] = None):
+        x = F.gelu(_lin(self.channel_proj1[0], x))
+        return _lin(self.channel_proj2, self.csgu(x, rng))
 
 
 class EBranchformerEncoderLayer(nn.Module):
@@ -243,19 +345,24 @@ class EBranchformerEncoderLayer(nn.Module):
         self.depthwise_conv_fusion = _depthwise_conv1d(2 * D, cfg.merge_conv_kernel)
         self.merge_proj = nn.Linear(2 * D, D)
         self.final_layer_norm = nn.LayerNorm(D, eps=eps)
+        # The reference drops the attention and the merged branch outputs at
+        # the ATTENTION dropout rate; the Flax model copies that, and so does this.
+        self.branch_dropout = cfg.attention_dropout
 
-    def forward(self, x, attention_bias=None):
+    def forward(self, x, attention_bias=None, lengths=None, rng: Optional[DropoutRng] = None,
+                pos_emb=None):
         if self.use_macaron_ff:
-            x = x + 0.5 * self.ff1(x)
+            x = x + 0.5 * self.ff1[1](_ln(self.ff1[0], x), rng)
         residual = x
-        g = self.self_attn(self.self_attn_layer_norm(x), attention_bias)
-        l = self.cgMLP(self.cgMLP_layer_norm(x))
+        g = self.self_attn(_ln(self.self_attn_layer_norm, x), attention_bias, lengths, rng, pos_emb)
+        g = _drop(rng, g, self.branch_dropout)
+        l = self.cgMLP(_ln(self.cgMLP_layer_norm, x), rng)
         merged = torch.cat([g, l], dim=-1)
-        merged = merged + self.depthwise_conv_fusion(merged.transpose(1, 2)).transpose(1, 2)
-        x = residual + self.merge_proj(merged)
+        merged = merged + _dwconv(self.depthwise_conv_fusion, merged)
+        x = residual + _drop(rng, _lin(self.merge_proj, merged), self.branch_dropout)
         if self.use_macaron_ff:
-            x = x + 0.5 * self.ff2(x)
-        return self.final_layer_norm(x)
+            x = x + 0.5 * self.ff2[1](_ln(self.ff2[0], x), rng)
+        return _ln(self.final_layer_norm, x)
 
 
 class EBranchformerEncoder(nn.Module):
@@ -265,13 +372,23 @@ class EBranchformerEncoder(nn.Module):
             [EBranchformerEncoderLayer(cfg) for _ in range(cfg.num_hidden_layers)]
         )
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.hidden_dropout = cfg.hidden_dropout
+        self.shift_kernel = cfg.attention_impl == "pallas" and cfg.position_embeddings_type == "relative"
 
-    def forward(self, x, mask: torch.Tensor):
+    def forward(self, x, mask: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRng] = None):
+        """``lengths``: the (B,) int32 counts that ``mask`` was made from, for
+        the attention kernels. The Flax encoder runs every layer (it never
+        applies ``layerdrop``), and so does this."""
         x = torch.where(mask[..., None], x, 0.0)
         bias = torch.where(mask, 0.0, NEG_INF)[:, None, None, :].float()
+        x = _drop(rng, x, self.hidden_dropout)
+        pos_emb = None
+        if self.shift_kernel and rng is None and lengths is not None:
+            pos_emb = relative_positional_embeddings(x.shape[1], x.shape[2], x.device, x.dtype)
         for layer in self.layers:
-            x = layer(x, bias)
-        return self.layer_norm(x)
+            x = layer(x, bias, lengths, rng, pos_emb)
+        return _ln(self.layer_norm, x)
 
 
 class EBranchformerModel(nn.Module):
@@ -282,15 +399,15 @@ class EBranchformerModel(nn.Module):
         self.feature_projection = FeatureProjection(cfg)
         self.encoder = EBranchformerEncoder(cfg)
 
-    def forward(self, input_features, input_lengths):
+    def forward(self, input_features, input_lengths, rng: Optional[DropoutRng] = None):
         cfg = self.config
-        hidden = self.feature_projection(self.feature_extractor(input_features))
+        hidden = self.feature_projection(self.feature_extractor(input_features), rng)
         T = hidden.shape[1]
         # Encoder masking uses the true padded-conv frame count; the RETURNED
         # lengths use the reference's unpadded formula (see the two helpers).
         enc_lengths = torch.clamp(feat_extract_output_frames(cfg, input_lengths), 0, T)
         out_lengths = torch.clamp(feat_extract_output_lengths(cfg, input_lengths), 0, T)
-        last = self.encoder(hidden, lengths_to_mask(enc_lengths, T))
+        last = self.encoder(hidden, lengths_to_mask(enc_lengths, T), enc_lengths.to(torch.int32), rng)
         return last, out_lengths.to(torch.int32)
 
 
@@ -308,27 +425,41 @@ class EBranchformerForCTC(nn.Module):
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size)
         self.blank_projection = nn.Linear(cfg.hidden_size, 1)
 
-    def forward(self, input_features: torch.Tensor, input_lengths: Optional[torch.Tensor] = None):
+        self.final_dropout = cfg.final_dropout
+
+    def forward(self, input_features: torch.Tensor, input_lengths: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None, label_lengths: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRng] = None):
+        """``rng`` given: the training forward (dropout on). ``labels`` given:
+        the fp32 CTC loss (blank last) is returned too."""
         B, T_in, _ = input_features.shape
         if input_lengths is None:
             input_lengths = torch.full((B,), T_in, dtype=torch.int32, device=input_features.device)
-        hidden, lengths = self.wav2vec2(input_features, input_lengths)
-        logits = torch.cat([self.lm_head(hidden), self.blank_projection(hidden)], dim=-1)
-        return CTCOutput(logits=logits, logit_lengths=lengths)
+        hidden, lengths = self.wav2vec2(input_features, input_lengths, rng)
+        hidden = _drop(rng, hidden, self.final_dropout)
+        logits = torch.cat([_lin(self.lm_head, hidden), _lin(self.blank_projection, hidden)], dim=-1)
+        loss = None
+        if labels is not None:
+            loss = ctc_loss(logits.float(), lengths, labels, label_lengths, blank_id=-1,
+                            reduction=self.config.ctc_loss_reduction)
+        return CTCOutput(logits=logits, logit_lengths=lengths, loss=loss)
 
 
 @torch.no_grad()
-def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random weights for smoke runs: matrices ~ N(0, 1/fan_in),
-    LayerNorm scales ~ 1 + N(0, 0.1^2), every other vector ~ N(0, 0.1^2).
-    Draws on the CPU from ``generator`` and copies into place."""
+def init_random_(model: nn.Module, generator: torch.Generator,
+                 matrix_std: Optional[float] = None) -> nn.Module:
+    """Seeded random weights for smoke runs: matrices ~ N(0, 1/fan_in), or
+    ~ N(0, matrix_std^2) where ``matrix_std`` is given (a from-scratch
+    trainer's ``initializer_range``); LayerNorm scales ~ 1 + N(0, 0.1^2),
+    every other vector ~ N(0, 0.1^2). Draws on the CPU from ``generator`` and
+    copies into place."""
     ln_scales = {
         f"{name}.weight" for name, m in model.named_modules() if isinstance(m, nn.LayerNorm)
     }
     for name, p in model.named_parameters():
         z = torch.randn(p.shape, generator=generator, dtype=torch.float32)
         if p.ndim >= 2:
-            z = z / math.sqrt(p[0].numel())
+            z = z / math.sqrt(p[0].numel()) if matrix_std is None else matrix_std * z
         elif name in ln_scales:
             z = 1.0 + 0.1 * z
         else:

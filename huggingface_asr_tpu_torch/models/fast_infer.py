@@ -39,6 +39,7 @@ from huggingface_asr_tpu_torch.models.ebranchformer import (
     feat_extract_output_lengths,
 )
 from huggingface_asr_tpu_torch.ops.lengths import lengths_to_mask
+from huggingface_asr_tpu_torch.utils.device import resolve_device
 
 
 def _round_up(n: int, m: int) -> int:
@@ -65,12 +66,12 @@ def fused_encoder_ok(cfg: EBranchformerConfig, dtype: torch.dtype) -> bool:
 class FusedCTC:
     """Folded kernel operands of one ``EBranchformerForCTC`` on one device."""
 
-    def __init__(self, model: EBranchformerForCTC, device=None):
+    def __init__(self, model: EBranchformerForCTC, device="cuda"):
         cfg = model.config
         if not fused_encoder_ok(cfg, torch.bfloat16):
             raise ValueError("model config is outside the fused path's support")
         self.config = cfg
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         w2v = model.wav2vec2
         with torch.no_grad():
             self.subsample = fold_subsample_weights(w2v, cfg, self.device)

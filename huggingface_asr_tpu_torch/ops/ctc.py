@@ -1,4 +1,4 @@
-"""CTC greedy decoding (counterpart of ``huggingface_asr_tpu/ops/ctc.py:147,175``)."""
+"""CTC loss and greedy decoding (counterpart of ``huggingface_asr_tpu/ops/ctc.py``)."""
 
 from __future__ import annotations
 
@@ -6,6 +6,53 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+
+NO_ALIGNMENT_LOSS = 1e9  # the JAX package's stand-in for -log(0)
+
+
+def ctc_loss(
+    logits: torch.Tensor,
+    logit_lengths: torch.Tensor,
+    labels: torch.Tensor,
+    label_lengths: torch.Tensor,
+    blank_id: int = -1,
+    reduction: str = "mean",
+) -> torch.Tensor:
+    """Batched CTC loss in fp32.
+
+    logits: (B, T, V) raw logits; logit_lengths: (B,) valid frames; labels:
+    (B, L) target ids without blanks, padded arbitrarily; label_lengths: (B,).
+    ``blank_id`` -1 means the last index. ``reduction``: "mean" divides each
+    example's loss by ``max(label_length, 1)`` and then averages over the
+    batch; "sum"; "none" gives (B,).
+
+    The recursion is ``F.ctc_loss`` (the JAX package computes its loss outside
+    any kernel too). Where no alignment exists (more labels, repeats counted
+    twice, than frames) the JAX recursion, which stands -1e9 in for -inf,
+    returns 1e9 for that example with finite gradients, so its trainer's guard
+    lets the step through on the other examples' gradients. This ends in the
+    same place: such an example costs 1e9 and contributes a zero gradient."""
+    V = logits.shape[-1]
+    if blank_id < 0:
+        blank_id = V + blank_id
+    log_probs = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)  # (T, B, V)
+    per_example = F.ctc_loss(
+        log_probs, labels.long(), logit_lengths.long(), label_lengths.long(),
+        blank=blank_id, reduction="none", zero_infinity=True,
+    )
+    in_label = torch.arange(1, labels.shape[1], device=labels.device)[None, :] < label_lengths[:, None]
+    repeats = ((labels[:, 1:] == labels[:, :-1]) & in_label).sum(dim=1)
+    infeasible = label_lengths + repeats > logit_lengths
+    per_example = per_example + infeasible.to(per_example.dtype) * NO_ALIGNMENT_LOSS
+    if reduction == "none":
+        return per_example
+    if reduction == "sum":
+        return per_example.sum()
+    if reduction == "mean":
+        return (per_example / torch.clamp(label_lengths, min=1)).mean()
+    raise ValueError(f"unknown reduction {reduction}")
 
 
 def ctc_greedy_decode(
@@ -23,7 +70,7 @@ def ctc_greedy_decode(
     if blank_id < 0:
         blank_id = V + blank_id
     ids = logits.argmax(dim=-1).to(torch.int32)  # (B, T)
-    prev = torch.nn.functional.pad(ids[:, :-1], (1, 0), value=blank_id)
+    prev = F.pad(ids[:, :-1], (1, 0), value=blank_id)
     valid_t = torch.arange(T, device=logits.device)[None, :] < logit_lengths[:, None]
     keep = (ids != blank_id) & (ids != prev) & valid_t
     pos = torch.cumsum(keep.to(torch.int64), dim=1) - 1

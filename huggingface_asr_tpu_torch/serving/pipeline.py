@@ -3,9 +3,11 @@
 
 waveform(s) -> log-mel -> E-Branchformer CTC -> greedy collapse -> text.
 Inputs are padded up to the next of a few length buckets, so a server sees
-a handful of shapes. On a CUDA device with a bf16 model that the fused path
-supports, the front end, subsampler and encoder layers run the CUDA kernels
-(``kernels/``); otherwise the plain float model runs.
+a handful of shapes. The pipeline runs on the card unless the caller passes
+``device="cpu"``; without a card the default raises. On a CUDA device with a
+bf16 model that the fused path supports, the front end, subsampler and
+encoder layers run the CUDA kernels (``kernels/``); otherwise the plain float
+model runs.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer, fus
 from huggingface_asr_tpu_torch.ops.ctc import ctc_greedy_decode, tokens_to_lists
 from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
 from huggingface_asr_tpu_torch.training.model_factory import load_ctc_model
+from huggingface_asr_tpu_torch.utils.device import resolve_device
 
 
 class ASRPipeline:
@@ -36,14 +39,12 @@ class ASRPipeline:
         dtype: str = "bfloat16",
         length_buckets: Sequence[float] = (2.0, 5.0, 10.0, 20.0, 30.0),
         sampling_rate: int = 16000,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
         tokenizer=None,
     ):
         if model_type != "ctc":
             raise NotImplementedError(f"model_type={model_type!r} is not ported yet (AED slice)")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' requested but CUDA is not available")
+        self.device = resolve_device(device)
         if tokenizer is None:
             from transformers import AutoTokenizer
 

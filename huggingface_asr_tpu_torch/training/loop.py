@@ -1,0 +1,288 @@
+"""Training orchestration on one device (counterpart of
+``huggingface_asr_tpu/training/loop.py``: ``TrainerConfig``, ``BaseTrainer``,
+``CTCTrainer``).
+
+One step is: log-mel featurization on the device (no gradient flows into it),
+SpecAugment, the model's training forward in the trainer's compute dtype over
+fp32 parameters, the fp32 CTC loss, backward, and the guarded optimizer update
+(``training/train_state.py``). Nothing in a step waits for the device except
+what the CTC loss itself copies to the host: the metrics come back as 0-d
+device tensors and ``fit`` reads them only when it logs.
+
+The per-step augment and dropout streams are derived from ``(seed, step)``, so
+a restored run repeats the run it was saved from.
+
+Not ported here: the joint, BEST-RQ, wav2vec2-SSL and LLM-ASR trainers, meshes
+and sharded state (one device), profiler capture.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+from typing import Any, Callable, Dict, Iterable, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from huggingface_asr_tpu_torch.models.configs import parse_dtype
+from huggingface_asr_tpu_torch.models.ebranchformer import DropoutRng
+from huggingface_asr_tpu_torch.ops.ctc import ctc_greedy_decode
+from huggingface_asr_tpu_torch.ops.features import LogMelFrontEnd
+from huggingface_asr_tpu_torch.ops.spec_augment import SpecAugmentConfig, spec_augment
+from huggingface_asr_tpu_torch.training.model_factory import (
+    load_trainer_checkpoint,
+    save_trainer_checkpoint,
+)
+from huggingface_asr_tpu_torch.training.optim import AdamW, OptimizerConfig
+from huggingface_asr_tpu_torch.training.train_state import TrainState
+from huggingface_asr_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    optimizer: OptimizerConfig = OptimizerConfig()
+    spec_augment: Optional[SpecAugmentConfig] = SpecAugmentConfig()
+    max_grad_norm_guard: float = 100.0
+    log_every: int = 50
+    eval_every: int = 1000
+    save_every: int = 1000
+    max_steps: int = 100_000
+    seed: int = 42
+    checkpoint_dir: Optional[str] = None
+    keep_checkpoints: int = 5
+    early_stopping_patience: int = 0  # 0 = disabled
+    greater_is_better: bool = False
+    metric_for_best: str = "eval_loss"
+    # SpecAugment switches on at this global step.
+    spec_augment_start_step: int = 0
+
+
+def _stream_seed(seed: int, step: int, stream: int) -> int:
+    """A 63-bit seed for stream ``stream`` (0 augment, 1 dropout) of ``step``."""
+    x = (seed * 0x9E3779B97F4A7C15 + step * 0xC2B2AE3D27D4EB4F + stream * 0x165667B19E3779F9) & (2 ** 64 - 1)
+    x ^= x >> 31
+    x = (x * 0xBF58476D1CE4E5B9) & (2 ** 64 - 1)
+    return (x ^ (x >> 29)) & (2 ** 63 - 1)
+
+
+class BaseTrainer:
+    """Shared optimizer/state/fit/checkpoint machinery on one device.
+
+    The trainer runs on the card unless the caller passes ``device="cpu"``;
+    without a card the default raises. ``dtype`` is the compute dtype; the
+    parameters stay fp32."""
+
+    def __init__(
+        self,
+        model: nn.Module,
+        config: TrainerConfig = TrainerConfig(),
+        frontend: Optional[LogMelFrontEnd] = None,
+        device: Union[str, torch.device] = "cuda",
+        dtype: str = "bfloat16",
+        frozen_prefixes=(),
+    ):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).float()
+        self.config = config
+        self.frontend = frontend
+        self.dtype = parse_dtype(dtype)
+        self.frozen_prefixes = tuple(frozen_prefixes)
+
+    # --------------------------------------------------------------- model fns
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {
+            k: v if k.startswith("_") else torch.as_tensor(v).to(self.device, non_blocking=True)
+            for k, v in batch.items()
+        }
+
+    @torch.no_grad()
+    def _featurize(self, batch: Dict[str, torch.Tensor]):
+        """Waveform batches are featurized on the device inside the step."""
+        if "input_features" in batch:
+            return batch["input_features"], batch["input_lengths"]
+        return self.frontend(batch["input_values"], batch["input_values_lengths"])
+
+    def init_state(self) -> TrainState:
+        """A fresh state over the model's current parameters."""
+        optimizer = AdamW(self.model.named_parameters(), self.config.optimizer, self.frozen_prefixes)
+        return TrainState.create_with_guards(self.model, optimizer, self.config.seed)
+
+    # ------------------------------------------------------- subclass hooks
+    def loss_and_metrics(self, batch, aug_gen, dropout_rng, step):
+        raise NotImplementedError
+
+    def eval_outputs(self, batch):
+        raise NotImplementedError
+
+    # ------------------------------------------------------------- step fns
+    def step_streams(self, state: TrainState, step: Optional[int] = None):
+        """The (augment generator, dropout stream) pair of ``step``."""
+        step = state.step if step is None else step
+        aug_gen = torch.Generator(device=self.device).manual_seed(_stream_seed(state.seed, step, 0))
+        return aug_gen, DropoutRng(_stream_seed(state.seed, step, 1), self.device)
+
+    def train_step(self, state: TrainState, batch: Dict[str, Any]):
+        """One guarded optimizer step; updates ``state`` in place and returns
+        it with the step's metrics (0-d tensors on the device)."""
+        batch = self._to_device(batch)
+        aug_gen, dropout_rng = self.step_streams(state)
+        self.model.train()
+        loss, aux = self.loss_and_metrics(batch, aug_gen, dropout_rng, state.step)
+        params = state.optimizer.params
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        gnorm, ok = state.apply_gradients_guarded(grads, self.config.max_grad_norm_guard)
+        metrics = {
+            "loss": loss.detach(),
+            "grad_norm": gnorm,
+            "step_applied": ok.to(torch.int32),
+            "skipped_steps": state.skipped_steps.clone(),
+            "nonfinite_steps": state.nonfinite_steps.clone(),
+            **aux,
+        }
+        return state, metrics
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: Dict[str, Any]):
+        self.model.eval()
+        return self.eval_outputs(self._to_device(batch))
+
+    # ------------------------------------------------------------------ loop
+    def fit(
+        self,
+        state: TrainState,
+        train_iter: Iterable[Dict[str, np.ndarray]],
+        eval_fn: Optional[Callable[[TrainState], Dict[str, float]]] = None,
+        hooks: Optional[Iterable[Callable[[int, Dict[str, Any]], None]]] = None,
+    ) -> TrainState:
+        cfg = self.config
+        hooks = list(hooks or [])
+        best_metric, best_step, patience_left = None, 0, cfg.early_stopping_patience
+        t0 = time.time()
+        audio_samples = 0
+        nan_dumped = False
+
+        for batch in train_iter:
+            step = state.step
+            if step >= cfg.max_steps:
+                break
+            batch = dict(batch)
+            n_audio = batch.pop("_num_audio_samples", None)
+            if n_audio is None:  # counted on the host copy, before it moves to the device
+                for key in ("input_values_lengths", "input_lengths", "label_lengths"):
+                    if key in batch and not (isinstance(batch[key], torch.Tensor) and batch[key].is_cuda):
+                        n_audio = int(np.sum(np.asarray(batch[key])))
+                        break
+            state, metrics = self.train_step(state, batch)
+            audio_samples += int(n_audio or 0)
+
+            if (step + 1) % cfg.log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["throughput"] = audio_samples / max(time.time() - t0, 1e-6)
+                logger.info("step %d: %s", step + 1, m)
+                for h in hooks:
+                    h(step + 1, m)
+                # Post-mortem on the first non-finite gradient. The guard has
+                # cancelled the update, so the parameters and optimizer state
+                # are those before it; the batch is the logged step's, not
+                # necessarily the offender's.
+                if not nan_dumped and m.get("nonfinite_steps", 0) > 0 and cfg.checkpoint_dir:
+                    nan_dumped = True
+                    self._dump_nan_postmortem(state, batch, step + 1)
+
+            if eval_fn is not None and (step + 1) % cfg.eval_every == 0:
+                eval_metrics = eval_fn(state)
+                logger.info("eval @%d: %s", step + 1, eval_metrics)
+                for h in hooks:
+                    h(step + 1, {f"eval/{k}": v for k, v in eval_metrics.items()})
+                if cfg.early_stopping_patience > 0:
+                    val = eval_metrics.get(cfg.metric_for_best.replace("eval_", ""))
+                    if val is not None:
+                        better = best_metric is None or (val > best_metric) == cfg.greater_is_better
+                        if better:
+                            best_metric, best_step = val, step + 1
+                            patience_left = cfg.early_stopping_patience
+                        else:
+                            patience_left -= 1
+                            if patience_left <= 0:
+                                logger.info("early stop at %d (best %s=%s @%d)", step + 1,
+                                            cfg.metric_for_best, best_metric, best_step)
+                                break
+
+            if cfg.checkpoint_dir and (step + 1) % cfg.save_every == 0:
+                self.save_checkpoint(state)
+        return state
+
+    def _dump_nan_postmortem(self, state: TrainState, batch, step: int):
+        """Write parameters, optimizer state and the batch to
+        ``<checkpoint_dir>/nan_postmortem/`` for offline diagnosis."""
+        out = os.path.join(self.config.checkpoint_dir, "nan_postmortem")
+        os.makedirs(out, exist_ok=True)
+        torch.save(self._payload(state), os.path.join(out, "state.pt"))
+        np.savez(os.path.join(out, "batch.npz"), step=np.asarray(step),
+                 **{k: torch.as_tensor(v).cpu().numpy() for k, v in batch.items() if not k.startswith("_")})
+        logger.warning("non-finite gradients: post-mortem dumped to %s", out)
+
+    # ---------------------------------------------------------- checkpoints
+    @staticmethod
+    def _payload(state: TrainState) -> Dict[str, Any]:
+        cpu = lambda t: t.detach().cpu()  # noqa: E731
+        opt = state.optimizer.state_dict()
+        return {
+            "model": {k: cpu(v) for k, v in state.model.state_dict().items()},
+            "optimizer": {k: {n: cpu(t) for n, t in v.items()} if isinstance(v, dict) else cpu(v)
+                          for k, v in opt.items()},
+            "step": state.step,
+            "seed": state.seed,
+            "skipped_steps": int(state.skipped_steps),
+            "nonfinite_steps": int(state.nonfinite_steps),
+        }
+
+    def save_checkpoint(self, state: TrainState) -> str:
+        """``<checkpoint_dir>/checkpoint_<step>.pt``; the newest
+        ``keep_checkpoints`` are kept."""
+        return save_trainer_checkpoint(self.config.checkpoint_dir, state.step, self._payload(state),
+                                       self.config.keep_checkpoints)
+
+    def restore_checkpoint(self, state: TrainState, step: Optional[int] = None) -> TrainState:
+        """Load the checkpoint of ``step`` (default: the newest) into ``state``."""
+        saved = load_trainer_checkpoint(self.config.checkpoint_dir, step, map_location=self.device)
+        state.model.load_state_dict(saved["model"], strict=True)
+        state.optimizer.load_state_dict(saved["optimizer"])
+        state.step, state.seed = int(saved["step"]), int(saved["seed"])
+        state.skipped_steps.fill_(saved["skipped_steps"])
+        state.nonfinite_steps.fill_(saved["nonfinite_steps"])
+        return state
+
+    def _maybe_spec_augment(self, aug_gen, feats, lengths, step: int):
+        """SpecAugment inside the step, honouring delayed activation."""
+        cfg = self.config
+        if cfg.spec_augment is None or step < cfg.spec_augment_start_step:
+            return feats
+        return spec_augment(aug_gen, feats, lengths, cfg.spec_augment)
+
+
+class CTCTrainer(BaseTrainer):
+    """CTC encoder training over waveform or mel-feature batches."""
+
+    def loss_and_metrics(self, batch, aug_gen, dropout_rng, step):
+        feats, lengths = self._featurize(batch)
+        feats = self._maybe_spec_augment(aug_gen, feats, lengths, step)
+        out = self.model(feats.to(self.dtype), lengths, labels=batch["labels"],
+                         label_lengths=batch["label_lengths"], rng=dropout_rng)
+        return out.loss, {}
+
+    def eval_outputs(self, batch):
+        feats, lengths = self._featurize(batch)
+        out = self.model(feats.to(self.dtype), lengths, labels=batch.get("labels"),
+                         label_lengths=batch.get("label_lengths"))
+        # blank = last index for the E-Branchformer family
+        tokens, token_lengths = ctc_greedy_decode(out.logits, out.logit_lengths, blank_id=-1)
+        loss = out.loss if out.loss is not None else torch.zeros((), device=self.device)
+        return {"loss": loss, "tokens": tokens, "token_lengths": token_lengths}

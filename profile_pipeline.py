@@ -128,13 +128,13 @@ def main() -> None:
         sys.exit("torch.cuda.is_available() is false")
     sys.path.insert(0, ROOT)
     from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
-    from huggingface_asr_tpu_torch.training.model_factory import save_checkpoint
+    from huggingface_asr_tpu_torch.training.model_factory import save_params
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     model_dir = os.path.join(ROOT, "build", "profile_model")
-    save_checkpoint(flagship_model(args.seed), model_dir)
+    save_params(flagship_model(args.seed), model_dir)
 
     class PieceTable:
         def decode(self, ids, skip_special_tokens=True):

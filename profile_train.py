@@ -1,0 +1,122 @@
+"""Profile the PyTorch/CUDA port's training step on one NVIDIA GPU.
+
+    python3 profile_train.py
+
+Builds the flagship trainer of ``chip_smoke.py`` at that script's shape
+(``training_setup``: B=32 seeded synthetic utterances of 9.3-10 s, bf16 over
+fp32 parameters, attention kernels selected, SpecAugment on), warms up two
+steps, then:
+
+1. times 3 steps with CUDA events (median), and reads the peak allocated
+   memory;
+2. traces 3 more steps with ``torch.profiler`` and sums the device
+   time by kernel group (the hand-written attention kernels by name, cuBLAS
+   and cuDNN products, the CTC loss, elementwise and reduction kernels), and
+   reports two busy shares: the union of the kernels' intervals over the traced
+   window (the profiler slows the host, so this understates a host-bound
+   step), and the traced device time per step over the untraced step time.
+
+Prints one JSON object with the card's name and power limit beside the
+numbers. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+BATCH, STEPS = 32, 3
+
+GROUPS = (
+    ("attention fwd kernel (K4)", ("train_fwd_kernel",)),
+    ("attention bwd kernels (K4)", ("train_bwd_dq_kernel", "train_bwd_dkv_kernel")),
+    ("matrix products (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "gemv", "splitKreduce", "cublas")),
+    ("convolutions (cuDNN and native depthwise)", ("conv", "cudnn", "wgrad", "dgrad", "implicit")),
+    ("CTC loss", ("ctc_loss",)),
+    ("layer norm", ("layer_norm", "LayerNorm")),
+    ("softmax", ("softmax",)),
+    ("random numbers", ("distribution", "philox", "uniform")),
+)
+
+
+def group_of(name: str) -> str:
+    for group, needles in GROUPS:
+        if any(n in name for n in needles):
+            return group
+    return "elementwise, reductions, copies"
+
+
+def main() -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("FAILED: torch.cuda.is_available() is false", file=sys.stderr)
+        sys.exit(1)
+    from chip_smoke import training_setup
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    n = 2 + 2 * STEPS
+    trainer, batches = training_setup(seed=0, batch_size=BATCH, n_batches=n)
+    state = trainer.init_state()
+    for b in batches[:2]:
+        state, _ = trainer.train_step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for b in batches[2:2 + STEPS]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = trainer.train_step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches[2 + STEPS:]:
+            state, m = trainer.train_step(state, b)
+        torch.cuda.synchronize()
+    spans, by_group, by_kernel = [], {}, {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.time_range.end > ev.time_range.start:
+            dur = (ev.time_range.end - ev.time_range.start) / 1e3  # ms
+            spans.append((ev.time_range.start, ev.time_range.end))
+            by_group[group_of(ev.name)] = by_group.get(group_of(ev.name), 0.0) + dur
+            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + dur
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += 0.0 if cur_e is None else cur_e - cur_s
+    window = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    per_step = {k: v / STEPS for k, v in sorted(by_group.items(), key=lambda kv: -kv[1])}
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:30]
+    result = {
+        "card": smi, "batch": BATCH, "seconds_of_audio": 10.0, "steps_timed": STEPS,
+        "step_ms_median": float(np.median(times)), "step_ms_all": times,
+        "peak_memory_gib": peak, "loss_last": float(m["loss"]),
+        "device_ms_per_step_by_group": per_step,
+        "device_ms_per_step_total": sum(per_step.values()),
+        "device_busy_share_traced_window": busy / window if window else None,
+        "device_share_of_untraced_step": sum(per_step.values()) / float(np.median(times)),
+        "kernel_launches_per_step": len(spans) / STEPS,
+        "top_kernels_ms_per_step": {k[:80]: v / STEPS for k, v in top},
+    }
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

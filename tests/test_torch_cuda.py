@@ -12,6 +12,10 @@ the scale); chains of pieces (a layer, the subsampler, the model) 0.05 of the
 scale, as the JAX package holds its Pallas path to its XLA path.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +24,11 @@ from huggingface_asr_tpu_torch.kernels import _build
 from huggingface_asr_tpu_torch.kernels import layer as K1
 from huggingface_asr_tpu_torch.kernels import mel as K3
 from huggingface_asr_tpu_torch.kernels import subsample as K2
+from huggingface_asr_tpu_torch.kernels.attention import rel_attention, rel_attention_plain_shift
+from huggingface_asr_tpu_torch.kernels.train_attention import (
+    rel_attention_train,
+    rel_attention_train_plain,
+)
 from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
 from huggingface_asr_tpu_torch.models.ebranchformer import EBranchformerForCTC, init_random_
 from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer
@@ -126,6 +135,101 @@ def test_ctc_infer_launches_kernels_and_matches_plain(fused):
     _close(got.logits, ref.logits, 0.05)
 
 
+def _attention_inputs(dev, dtype, B, T, H, D, seed):
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dtype).to(dev)  # noqa: E731
+    return mk(B, T, H, 32), mk(B, T, H, D), mk(B, T, H, 32), mk(B, T, H, 32), mk(T, D), mk(B, T, H, 32)
+
+
+# Tolerances of the attention kernels against their plain versions. fp32: the
+# kernel's FMA loops and the plain matmuls sum in another order (1e-4 of the
+# scale). bf16: both round P, Pd and dS to bf16 at the same points, so they
+# differ where an fp32 value lands on the other side of a rounding boundary:
+# 2^-6 of each tensor's scale. The keep-mask is the same function on both
+# sides, so dropout changes neither tolerance.
+ATT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T,lens", [(70, [70, 33, 0]), (129, [129, 64, 1])])
+def test_train_attention_forward_and_backward(dtype, rate, T, lens):
+    dev = _cuda()
+    B, H, D = 3, 4, 128
+    q_u, q_rot, k, v, k_std, cot = _attention_inputs(dev, dtype, B, T, H, D, seed=T)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q_u, q_rot, k, v)]
+        out = fn(*leaves, k_std, lengths, 1234, rate)
+        out.backward(cot)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    _build.reset_launch_counts()
+    got = run(rel_attention_train)
+    assert _build.LAUNCHES["asr_rel_attention_train_fwd"] == 1
+    assert _build.LAUNCHES["asr_rel_attention_train_bwd"] == 1
+    ref = run(rel_attention_train_plain)
+    assert sum(_build.LAUNCHES.values()) == 2
+    for name, g, r in zip(("out", "dq_u", "dq_rot", "dk", "dv"), got, ref):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        _close(g, r, ATT_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,lens", [(70, [70, 33, 0]), (129, [129, 64, 1])])
+def test_shift_attention(dtype, T, lens):
+    dev = _cuda()
+    B, H = 3, 4
+    q_u, _, k, v, _, q_v = _attention_inputs(dev, dtype, B, T, H, 16, seed=T + 1)
+    pos = torch.randn(2 * T - 1, H, 32, generator=torch.Generator().manual_seed(9)).to(dtype).to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    _build.reset_launch_counts()
+    got = rel_attention(q_u, q_v, k, v, pos, lengths)
+    assert _build.LAUNCHES["asr_rel_attention_shift"] == 1
+    _close(got, rel_attention_plain_shift(q_u, q_v, k, v, pos, lengths), ATT_TOL[dtype])
+
+
+@pytest.mark.parametrize("impl,heads,launched", [("auto", 4, True), ("pallas", 4, True), ("xla", 4, False),
+                                                 ("auto", 2, None), ("pallas", 2, None)])
+def test_model_attention_dispatch_on_the_card(impl, heads, launched):
+    """Training forward on CUDA tensors: "auto" and "pallas" take the kernel,
+    and raise on a model the kernel does not take (head size 64 here); only
+    "xla" runs the plain attention."""
+    import dataclasses
+
+    from huggingface_asr_tpu_torch.models.ebranchformer import DropoutRng
+
+    dev = _cuda()
+    cfg = dataclasses.replace(CFG, attention_impl=impl, num_attention_heads=heads, num_hidden_layers=1)
+    model = init_random_(EBranchformerForCTC(cfg), torch.Generator().manual_seed(0)).to(dev)
+    feats = torch.randn(2, 64, 80, generator=torch.Generator().manual_seed(1)).to(dev)
+    lens = torch.tensor([64, 40], dtype=torch.int32, device=dev)
+    _build.reset_launch_counts()
+    if launched is None:
+        with pytest.raises(ValueError):
+            model(feats, lens, rng=DropoutRng(0, dev))
+        return
+    out = model(feats, lens, rng=DropoutRng(0, dev))
+    assert bool(torch.isfinite(out.logits).all())
+    assert (_build.LAUNCHES["asr_rel_attention_train_fwd"] == 1) == launched
+
+
+def test_attention_wrappers_raise_on_what_the_kernels_do_not_take():
+    dev = _cuda()
+    z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16, device=dev)  # noqa: E731
+    lengths = torch.tensor([8], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # dh != 32
+        rel_attention_train(z(1, 8, 2, 16), z(1, 8, 2, 64), z(1, 8, 2, 16), z(1, 8, 2, 16), z(8, 64),
+                            lengths, 0, 0.0)
+    with pytest.raises(ValueError):  # lengths on the CPU
+        rel_attention(z(1, 8, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, 32), z(15, 2, 32),
+                      lengths.cpu())
+    with pytest.raises(ValueError):  # int64 lengths
+        rel_attention(z(1, 8, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, 32), z(15, 2, 32),
+                      lengths.long())
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
     dev = _cuda()
     g, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
@@ -136,3 +240,29 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
                 torch.zeros(64, 40, dtype=torch.bfloat16, device=dev))  # N % 64
     with pytest.raises(ValueError):
         K1.layer_norm(torch.zeros(8, 64, dtype=torch.bfloat16, device=dev), g.cpu(), b, 1e-5)
+
+
+def test_port_modules_import_nothing_of_jax():
+    """Needs no card: after importing every module of the port's training
+    slice in a fresh interpreter, no jax, flax, optax, orbax or
+    huggingface_asr_tpu module is loaded."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "import huggingface_asr_tpu_torch.training.loop, huggingface_asr_tpu_torch.training.optim\n"
+        "import huggingface_asr_tpu_torch.training.train_state, huggingface_asr_tpu_torch.training.model_factory\n"
+        "import huggingface_asr_tpu_torch.kernels.train_attention, huggingface_asr_tpu_torch.kernels.attention\n"
+        "import huggingface_asr_tpu_torch.ops.spec_augment, huggingface_asr_tpu_torch.ops.ctc\n"
+        "import huggingface_asr_tpu_torch.data.synthetic_speech, huggingface_asr_tpu_torch.data.bucketing\n"
+        "import huggingface_asr_tpu_torch.data.collator, huggingface_asr_tpu_torch.data.prefetch\n"
+        "import huggingface_asr_tpu_torch.utils.metrics, huggingface_asr_tpu_torch.utils.logging_utils\n"
+        "import huggingface_asr_tpu_torch.utils.device, huggingface_asr_tpu_torch.interop.from_jax\n"
+        "import huggingface_asr_tpu_torch.serving.pipeline\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'huggingface_asr_tpu'))\n"
+        "assert not bad, bad\nprint('ok')\n" % repo
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=300,
+                         cwd=repo, env=env)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]

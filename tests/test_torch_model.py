@@ -100,7 +100,7 @@ def test_bf16_ctc_infer_matches_fused_interpret(models, feats):
     jcfg, pcfg, tree, _, pmodel = models
     ref = ctc_infer_fused(tree, jcfg, jnp.asarray(feats), jnp.asarray(LENS), bb=2, interpret=True)
     with torch.no_grad():
-        got = ctc_infer(FusedCTC(pmodel), torch.from_numpy(feats), torch.from_numpy(LENS))
+        got = ctc_infer(FusedCTC(pmodel, "cpu"), torch.from_numpy(feats), torch.from_numpy(LENS))
     lens = np.asarray(ref.logit_lengths)
     np.testing.assert_array_equal(got.logit_lengths.numpy(), lens)
     r = np.asarray(ref.logits, np.float32)
@@ -120,7 +120,7 @@ def test_fused_gate(models):
                    {"csgu_use_linear_after_conv": True}):
         assert not fused_encoder_ok(dataclasses.replace(pcfg, **change), torch.bfloat16), change
     with pytest.raises(ValueError):
-        FusedCTC(EBranchformerForCTC(dataclasses.replace(pcfg, conv_dim=(32, 32))))
+        FusedCTC(EBranchformerForCTC(dataclasses.replace(pcfg, conv_dim=(32, 32))), "cpu")
 
 
 def test_greedy_decode_matches_jax():

@@ -62,7 +62,8 @@ def test_transcripts_match_jax_pipeline(checkpoint):
     model_dir, tok_dir = checkpoint
     jp = JPipeline(model_dir, tokenizer_dir=tok_dir, model_type="ctc", dtype="float32",
                    length_buckets=BUCKETS)
-    pp = ASRPipeline(model_dir, tokenizer_dir=tok_dir, dtype="float32", length_buckets=BUCKETS)
+    pp = ASRPipeline(model_dir, tokenizer_dir=tok_dir, dtype="float32", length_buckets=BUCKETS,
+                     device="cpu")
     single = _audio(0, [6000])[0]
     batch = _audio(1, [4000, 7500, 12000, 16000])
     assert isinstance(pp(single), str)
@@ -76,14 +77,15 @@ def test_fused_path_on_cpu_launches_nothing(checkpoint):
     """A CPU pipeline takes the plain model. The kernel path itself, on CPU
     tensors, runs every kernel's plain version: the launch counters stay at 0."""
     model_dir, tok_dir = checkpoint
-    pp = ASRPipeline(model_dir, tokenizer_dir=tok_dir, dtype="bfloat16", length_buckets=BUCKETS)
+    pp = ASRPipeline(model_dir, tokenizer_dir=tok_dir, dtype="bfloat16", length_buckets=BUCKETS,
+                     device="cpu")
     assert not pp._use_fused
-    model = load_ctc_model(model_dir)
+    model = load_ctc_model(model_dir, device="cpu")
     fe = MelFrontEnd(LogMelConfig(num_mel_bins=model.config.num_fbanks))
     wav = torch.from_numpy(pp._bucket_pad(_audio(2, [5000, 9000])))
     _build.reset_launch_counts()
     feats, feat_lens = fe(wav, torch.tensor([5000, 9000], dtype=torch.int32))
-    out = ctc_infer(FusedCTC(model), feats, feat_lens)
+    out = ctc_infer(FusedCTC(model, "cpu"), feats, feat_lens)
     assert out.logits.shape[0] == 2 and bool(torch.isfinite(out.logits.float()).all())
     assert sum(_build.LAUNCHES.values()) == 0
 
@@ -91,7 +93,7 @@ def test_fused_path_on_cpu_launches_nothing(checkpoint):
 def test_endpoint_handler(checkpoint):
     model_dir, tok_dir = checkpoint
     handler = EndpointHandler(model_dir, tokenizer_dir=tok_dir, dtype="float32",
-                              length_buckets=BUCKETS)
+                              length_buckets=BUCKETS, device="cpu")
     out = handler({"inputs": {"array": _audio(3, [7000])[0].tolist()}})
     assert isinstance(out["text"], str)
 
@@ -104,10 +106,26 @@ def test_cuda_device_without_cuda_raises(checkpoint):
         ASRPipeline(model_dir, tokenizer_dir=tok_dir, device="cuda")
 
 
+def test_default_device_is_the_card_and_raises_without_one(checkpoint):
+    """No ``device`` argument means the card: where there is none, every
+    entry point raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    model_dir, tok_dir = checkpoint
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ASRPipeline(model_dir, tokenizer_dir=tok_dir)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EndpointHandler(model_dir, tokenizer_dir=tok_dir)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_ctc_model(model_dir)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FusedCTC(load_ctc_model(model_dir, device="cpu"))
+
+
 def test_aed_is_not_ported(checkpoint):
     model_dir, tok_dir = checkpoint
     with pytest.raises(NotImplementedError):
-        ASRPipeline(model_dir, tokenizer_dir=tok_dir, model_type="aed")
+        ASRPipeline(model_dir, tokenizer_dir=tok_dir, model_type="aed", device="cpu")
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
@@ -124,7 +142,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
         from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer
         from huggingface_asr_tpu_torch.ops.features import LogMelConfig
         from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
-        from huggingface_asr_tpu_torch.training.model_factory import save_checkpoint
+        from huggingface_asr_tpu_torch.training.model_factory import save_params
 
         class Table:
             def decode(self, ids, skip_special_tokens=True):
@@ -134,16 +152,16 @@ def test_port_runs_with_jax_blocked(tmp_path):
                                   intermediate_size=128, csgu_kernel_size=7, merge_conv_kernel=7,
                                   vocab_size=20)
         model = init_random_(EBranchformerForCTC(cfg), torch.Generator().manual_seed(0))
-        save_checkpoint(model, {str(tmp_path)!r})
+        save_params(model, {str(tmp_path)!r})
         wav = [np.random.default_rng(0).standard_normal(n).astype(np.float32) * 0.1
                for n in (5000, 8000)]
         for dtype in ("float32", "bfloat16"):
             pipe = ASRPipeline({str(tmp_path)!r}, dtype=dtype, tokenizer=Table(),
-                               length_buckets=(1.0,))
+                               length_buckets=(1.0,), device="cpu")
             assert len(pipe(wav)) == 2
         feats, lens = MelFrontEnd(LogMelConfig())(torch.from_numpy(pipe._bucket_pad(wav)),
                                                   torch.tensor([5000, 8000], dtype=torch.int32))
-        assert ctc_infer(FusedCTC(model), feats, lens).logits.shape[0] == 2
+        assert ctc_infer(FusedCTC(model, "cpu"), feats, lens).logits.shape[0] == 2
         assert sys.modules["jax"] is None
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "huggingface_asr_tpu")
                and sys.modules[m] is not None]

@@ -1,0 +1,153 @@
+"""PyTorch port, training attention (K4) vs the JAX package on the CPU.
+
+The same numpy inputs go through ``rel_attention_train(..., interpret=True)``
+of the JAX package (its Pallas kernel in interpret mode) and through the
+port's ``rel_attention_train``, which on CPU tensors runs its plain version.
+The dropout keep-mask is a counter hash of (seed, b, h, t, s, T) on both
+sides, so with dropout on the two agree at the tolerances of rate 0:
+fp32 forward rtol/atol 2e-5, gradients 2e-4 (fp32 products sum in another
+order). bf16: 2^-6 of each tensor's scale, i.e. isolated 1-2 bf16 ulp flips
+where an fp32 value sits on a rounding boundary.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from huggingface_asr_tpu.ops.pallas_train_attention import _keep_mask
+from huggingface_asr_tpu.ops.pallas_train_attention import rel_attention_train as j_rel_attention_train
+
+from huggingface_asr_tpu_torch.kernels import _build
+from huggingface_asr_tpu_torch.kernels.train_attention import (
+    keep_mask,
+    _check_inputs,
+    rel_attention_train,
+    rel_attention_train_plain,
+)
+
+H, DH, D = 2, 8, 16
+# (B, T, lengths): ragged; T not a multiple of 8; a zero-length row
+SHAPES = {
+    "ragged": (2, 32, [32, 22]),
+    "odd_T": (2, 27, [27, 13]),
+    "zero_len": (3, 20, [20, 0, 7]),
+}
+
+
+def _inputs(shape, seed=0):
+    B, T, lens = SHAPES[shape]
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return dict(q_u=mk(B, T, H, DH), q_rot=mk(B, T, H, D), k=mk(B, T, H, DH), v=mk(B, T, H, DH),
+                k_std=mk(T, D), lengths=np.asarray(lens, np.int32), cot=mk(B, T, H, DH))
+
+
+def _jax_run(x, seed, rate, dtype=jnp.float32):
+    args = [jnp.asarray(x[n], dtype) for n in ("q_u", "q_rot", "k", "v", "k_std")]
+    lengths, cot = jnp.asarray(x["lengths"]), jnp.asarray(x["cot"], dtype)
+
+    def loss(q_u, q_rot, k, v):
+        out = j_rel_attention_train(q_u, q_rot, k, v, args[4], lengths, jnp.int32(seed), rate, True)
+        return jnp.sum(out.astype(jnp.float32) * cot.astype(jnp.float32)), out
+
+    (_, out), grads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3), has_aux=True)(*args[:4])
+    return np.asarray(out, np.float32), [np.asarray(g, np.float32) for g in grads]
+
+
+def _torch_run(x, seed, rate, dtype=torch.float32, fn=rel_attention_train):
+    t = {n: torch.from_numpy(x[n]).to(dtype).requires_grad_(n != "k_std")
+         for n in ("q_u", "q_rot", "k", "v", "k_std")}
+    out = fn(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"], torch.from_numpy(x["lengths"]),
+             seed, rate)
+    out.backward(torch.from_numpy(x["cot"]).to(dtype))
+    assert t["k_std"].grad is None
+    return out.detach().float().numpy(), [t[n].grad.float().numpy() for n in ("q_u", "q_rot", "k", "v")]
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, 123), (0.4, -7)])
+def test_fp32_forward_and_gradients_match_jax_interpret(shape, rate, seed):
+    x = _inputs(shape)
+    _build.reset_launch_counts()
+    out, grads = _torch_run(x, seed, rate)
+    assert sum(_build.LAUNCHES.values()) == 0  # CPU tensors: the plain version
+    ref_out, ref_grads = _jax_run(x, seed, rate)
+    np.testing.assert_allclose(out, ref_out, rtol=2e-5, atol=2e-5)
+    for name, g, r in zip(("dq_u", "dq_rot", "dk", "dv"), grads, ref_grads):
+        np.testing.assert_allclose(g, r, rtol=2e-4, atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_matches_jax_interpret(rate):
+    x = _inputs("ragged", seed=3)
+    out, grads = _torch_run(x, 11, rate, torch.bfloat16)
+    ref_out, ref_grads = _jax_run(x, 11, rate, jnp.bfloat16)
+    for name, g, r in zip(("out", "dq_u", "dq_rot", "dk", "dv"), [out] + grads, [ref_out] + ref_grads):
+        assert np.abs(g - r).max() <= 2 ** -6 * max(1.0, np.abs(r).max()), name
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("rate,seed", [(0.1, 0), (0.5, 2 ** 31 - 1), (0.9, -2 ** 31)])
+def test_keep_mask_is_bit_equal_to_the_jax_hash(shape, rate, seed):
+    B, T, _ = SHAPES[shape]
+    got = keep_mask(seed, B, H, T, rate).numpy()
+    for b in range(B):
+        for h in range(H):
+            ref = np.asarray(_keep_mask(jnp.int32(seed), h, b, H, T, rate, interpret=True))
+            np.testing.assert_array_equal(got[b, h], ref)
+    assert abs(got.mean() - (1.0 - rate)) < 0.06
+
+
+def test_zero_length_row_is_uniform_over_all_keys():
+    x = _inputs("zero_len")
+    out, _ = _torch_run(x, 0, 0.0)
+    np.testing.assert_allclose(out[1], np.broadcast_to(x["v"][1].mean(axis=0), out[1].shape),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_plain_backward_equals_autograd_of_the_formula():
+    """The plain version's hand-written backward against autograd of the
+    naive softmax attention, fp32, dropout off."""
+    x = _inputs("odd_T", seed=5)
+    _, grads = _torch_run(x, 0, 0.0, fn=rel_attention_train_plain)
+
+    def naive(q_u, q_rot, k, v, k_std, lengths, seed, rate):
+        T = q_u.shape[1]
+        s = (torch.einsum("bthd,bshd->bhts", q_u, k) + torch.einsum("bthD,sD->bhts", q_rot, k_std))
+        s = s / np.sqrt(DH)
+        mask = torch.arange(T)[None, None, None, :] < lengths[:, None, None, None]
+        p = torch.softmax(torch.where(mask, s, -1e9), dim=-1)
+        return torch.einsum("bhts,bshd->bthd", p, v)
+
+    _, ref = _torch_run(x, 0, 0.0, fn=naive)
+    for name, g, r in zip(("dq_u", "dq_rot", "dk", "dv"), grads, ref):
+        np.testing.assert_allclose(g, r, rtol=2e-4, atol=2e-5, err_msg=name)
+
+
+def test_same_seed_repeats_and_other_seed_differs():
+    x = _inputs("ragged")
+    a, _ = _torch_run(x, 5, 0.3)
+    b, _ = _torch_run(x, 5, 0.3)
+    c, _ = _torch_run(x, 6, 0.3)
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c)
+
+
+def test_bad_rate_raises():
+    x = _inputs("ragged")
+    with pytest.raises(ValueError):
+        _torch_run(x, 0, 1.0)
+
+
+@pytest.mark.parametrize("dh,D,dtype", [(64, 256, torch.bfloat16), (32, 512, torch.bfloat16),
+                                        (32, 40, torch.float32), (32, 256, torch.float16)])
+def test_kernel_gate_raises_and_names_the_way_out(dh, D, dtype):
+    """What the CUDA kernels do not take raises (nothing falls back to the
+    plain version), and the message names ``attention_impl='xla'``."""
+    z = lambda *shape: torch.zeros(*shape, dtype=dtype)  # noqa: E731
+    with pytest.raises(ValueError, match="attention_impl='xla'"):
+        _check_inputs(z(1, 8, 2, dh), z(1, 8, 2, D), z(1, 8, 2, dh), z(1, 8, 2, dh), z(8, D),
+                      torch.zeros(1, dtype=torch.int32))
