@@ -6,7 +6,8 @@
 2. builds the CUDA kernels of huggingface_asr_tpu_torch/csrc with nvcc;
 3. holds each kernel against its plain PyTorch version on the card, at the
    flagship shapes (B=8, 10 s -> T_in=998 mel frames, T_pad=256 encoder
-   frames; and 20 s, T_pad=504), with TF32 off for the plain reference, and
+   frames; and 20 s, T_pad=504; conv2 also at a frame count that is no
+   multiple of its tile), with TF32 off for the plain reference, and
    times both with CUDA events (median of 5 windows of 20 kernel calls);
 4. writes a flagship E-Branchformer CTC model with seeded random weights
    (12 layers, D=256, 8 heads, I=1024, 256x256 subsampler, 500+1 outputs),
@@ -19,7 +20,8 @@
 6. holds the training attention kernel (forward, and all four gradients for a
    seeded dO) and the shift-form inference attention kernel against their
    plain versions at B=8, T=250 and T=500, ragged lengths with one
-   zero-length row, bf16 and fp32, dropout rate 0 and 0.1, checks that the
+   zero-length row, bf16 and fp32, dropout rate 0 and 0.1, once more at
+   T=333 with rows of length 1 and 0, checks that the
    kernel's keep-mask is the plain version's bit for bit, then holds them
    against their plain versions once more and times them at the training
    path's shape (B=32, T=250, bf16, rate 0.1);
@@ -348,6 +350,12 @@ def main() -> None:
                 lambda: K2.conv2_plain(y1, sw["w2"], sw["b2"], T_pad), 2 ** -6,
                 library_fn=lambda: F.conv2d(y1_nchw, cw[1], stride=2, padding=1),
                 work=(2.0 * rows2 * C * 9 * C, nbytes(y1, sw["w2"], sw["b2"]) + 2 * rows2 * C, "bf16"))
+        if seconds == 10.0:
+            # a frame count that is no multiple of the kernel's tile (6 output frames, 120 rows)
+            B3, T3 = 3, 40
+            y1_3 = y1[:B3, : 2 * T3 - 1].contiguous()
+            compare(f"conv2 ragged tile (T2={T3})", "conv2", lambda: K2.conv2(y1_3, sw["w2"], sw["b2"], T3),
+                    lambda: K2.conv2_plain(y1_3, sw["w2"], sw["b2"], T3), 2 ** -6)
         hidden = compare("subsample (K2 whole)", None, lambda: K2.conv_subsample(feats, sw, cfg, T_pad),
                          lambda: K2.conv_subsample_plain(feats, sw, cfg, T_pad), 0.05)
 
@@ -569,6 +577,19 @@ def main() -> None:
             if not ok:
                 failures.append(f"K5 T={T} {dtype}")
 
+    # A sequence length that is no multiple of the 64-key tile, with rows of
+    # length 1 and 0 (bf16: the forward on wgmma, the backward fed by its stats).
+    t = attention_inputs(4, 333, torch.bfloat16, seed=333)
+    t["lengths"] = torch.tensor([333, 1, 0, 200], dtype=torch.int32, device=dev)
+    got = train_attention_run(rel_attention_train, t, 77, 0.1)
+    ref = train_attention_run(rel_attention_train_plain, t, 77, 0.1)
+    for part, sl in (("fwd", slice(0, 1)), ("bwd (4 gradients)", slice(1, 5))):
+        err, ok = worst(got[sl], ref[sl], att_tol[torch.bfloat16])
+        print(f"  K4 {part:18s} {'T=333 lengths 333,1,0,200':28s} max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"K4 {part} T=333")
+
     # The kernel's keep-mask, read out of the kernel itself: with zero queries
     # every valid key has the same probability, and v = one-hot of (s mod 32)
     # within one 32-key chunk makes out[t, d] non-zero exactly where key
@@ -727,7 +748,7 @@ def main() -> None:
         "mel": ("asr_log_mel", "csrc/mel.cu", "huggingface_asr_tpu/ops/pallas_features.py:112"),
         "cmvn": ("asr_cmvn", "csrc/mel.cu", "huggingface_asr_tpu/ops/pallas_features.py:112"),
         "conv1": ("asr_conv1", "csrc/subsample.cu", "huggingface_asr_tpu/ops/pallas_subsample.py:147"),
-        "conv2": ("asr_conv2", "csrc/subsample.cu", "huggingface_asr_tpu/ops/pallas_subsample.py:147"),
+        "conv2": ("asr_conv2", "csrc/conv2.cu", "huggingface_asr_tpu/ops/pallas_subsample.py:147"),
         "gemm": ("asr_gemm_bf16", "csrc/gemm.cuh", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
         "layernorm": ("asr_layernorm_bf16", "csrc/layer.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
         "pos_query": ("asr_pos_query", "csrc/layer.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
@@ -735,7 +756,7 @@ def main() -> None:
                           "huggingface_asr_tpu/ops/pallas_layer.py:417"),
         "dwconv_csgu": ("dwconv_csgu", "csrc/dwconv.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
         "dwconv_merge": ("dwconv_merge", "csrc/dwconv.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
-        "rel_attention_train_fwd": ("asr_rel_attention_train_fwd", "csrc/rel_attention_train.cu",
+        "rel_attention_train_fwd": ("asr_rel_attention_train_fwd", "csrc/rel_attention_train_fwd.cu",
                                     "huggingface_asr_tpu/ops/pallas_train_attention.py:105"),
         "rel_attention_train_bwd": ("asr_rel_attention_train_bwd", "csrc/rel_attention_train.cu",
                                     "huggingface_asr_tpu/ops/pallas_train_attention.py:130"),

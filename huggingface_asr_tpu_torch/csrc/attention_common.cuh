@@ -155,4 +155,16 @@ __device__ __forceinline__ bool dropout_keep(uint32_t key, int t, int s, int T, 
     return x >= thresh;
 }
 
+struct DropoutArgs {
+    uint32_t seed, thresh;
+    float inv_keep;  // fp32(1 / (1 - rate))
+    int enabled;
+};
+
+// The bf16 training forward (rel_attention_train_fwd.cu): builds its tensor
+// maps, launches and returns cudaGetLastError(). D % 64 == 0, D <= 256.
+int train_fwd_bf16(const void* q_u, const void* q_rot, const void* k, const void* v,
+                   const void* k_std, const void* lengths, void* out, void* stats, int B, int T,
+                   int H, int D, float scale, DropoutArgs drop, cudaStream_t stream);
+
 }  // namespace attn

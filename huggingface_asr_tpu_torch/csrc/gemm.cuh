@@ -3,7 +3,8 @@
 // Replaces the `_mm` / `jnp.dot(..., preferred_element_type=f32)` products
 // inside the TPU kernels ops/pallas_layer.py::_layer_kernel (FF1/FF2 in and
 // out, Q/K/V, output projection, cgMLP proj1/proj2, merge_proj) and
-// ops/pallas_subsample.py::_subsample_kernel (conv2, out-dense, projection).
+// ops/pallas_subsample.py::_subsample_kernel (out-dense, projection; conv2,
+// the one compute-bound product, has its own wgmma kernel in conv2.cu).
 //
 // On the H100 these products are small (K <= 5120, N <= 1024) and the layer
 // is memory-bound at D=256: what bounds a GEMM here is reading A and writing
@@ -14,9 +15,7 @@
 // intermediate makes an extra round trip through device memory.
 // wgmma/TMA pipelining is later work.
 //
-// A is read through a loader functor so the same core serves a plain
-// row-major A and the conv2 implicit GEMM (3x3 neighbourhood gather, no
-// im2col in memory; see subsample.cu).
+// A is read through a loader functor (row-major today).
 //
 // Rounding points (one numeric contract, the TPU kernels'):
 //   round_first = 0 (K1's `_mm`):        v = bf16(acc + bias)

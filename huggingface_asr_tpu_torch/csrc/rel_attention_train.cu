@@ -18,12 +18,16 @@
 // nothing quadratic exists anywhere: every kernel owns one tile of rows and
 // walks the other direction in tiles, recomputing S from the inputs.
 //
-//   forward   block = (query tile, head, batch). Pass A walks the key tiles
-//             for the row max m and sum l (saved, fp32, for the backward);
-//             pass B walks them again, forms P = exp(S - m) / l exactly as
-//             the plain version does, rounds, drops, and accumulates Pd v.
-//             Two passes cost a second S product but keep the TPU kernel's
-//             rounding points (P is rounded before the dropout scale).
+//   forward   bf16: rel_attention_train_fwd.cu (wgmma, TMA ring, softmax in
+//             registers). fp32, below: block = (query tile, head, batch).
+//             Pass A walks the key tiles for the row max m and sum l (saved,
+//             fp32, for the backward); pass B walks them again, forms
+//             P = exp(S - m) / l exactly as the plain version does, rounds,
+//             drops, and accumulates Pd v. Both forwards walk twice: a second
+//             S product keeps the TPU kernel's rounding points (P is rounded
+//             before the dropout scale). The fp32 forward is exact FMA loops
+//             on 32-row tiles: slow, and there to hold the logic to the plain
+//             version at fp32 tolerance.
 //   dq pass   block = (query tile, head, batch). Pass 0 walks the key tiles
 //             for delta = rowsum(dP P32) over the fp32 P and the masked,
 //             scaled dP, as the TPU kernel takes it (written out for the dkv
@@ -32,21 +36,16 @@
 //   dkv pass  block = (key tile, head, batch), walks the query tiles and
 //             accumulates dv += Pd^T dO and dk += dS^T q_u.
 //
-// What bounds it on the H100: q_rot (B, T, H, D) and dq_rot dominate the
-// bytes, and the kernels are memory-bound by the roofline, but as written
-// they are bound by the wmma products out of padded shared memory and the
-// recomputed S (three times in the backward); wgmma/TMA are later work.
+// What bounds the backward on the H100: q_rot (B, T, H, D) and dq_rot
+// dominate the bytes, and the kernels are memory-bound by the roofline, but
+// as written they are bound by the wmma products out of padded shared memory
+// and the recomputed S (three times); moving them to wgmma/TMA as the bf16
+// forward was is later work.
 #include "attention_common.cuh"
 
 namespace {
 
 using namespace attn;
-
-struct DropoutArgs {
-    uint32_t seed, thresh;
-    float inv_keep;  // fp32(1 / (1 - rate))
-    int enabled;
-};
 
 // Load `rows` rows [a | b] (widths na, nb) of a tile starting at row r0.
 template <typename E>
@@ -61,7 +60,7 @@ __device__ __forceinline__ void load_cat_tile(E* dst, int ld, const E* a, size_t
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// forward (instantiated for fp32 only; bf16 runs train_fwd_bf16)
 
 template <typename E>
 struct FwdSmem {
@@ -507,7 +506,7 @@ ASR_API int asr_rel_attention_train_fwd(const void* q_u, const void* q_rot, cons
     if (dh != DH || D % 16 != 0 || T < 1) return (int)cudaErrorInvalidValue;
     const DropoutArgs drop{seed, thresh, inv_keep, dropout};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? fwd<bf16>(q_u, q_rot, k, v, k_std, lengths, out, stats, B, T, H, D, scale, drop, st)
+    return is_bf16 ? train_fwd_bf16(q_u, q_rot, k, v, k_std, lengths, out, stats, B, T, H, D, scale, drop, st)
                    : fwd<float>(q_u, q_rot, k, v, k_std, lengths, out, stats, B, T, H, D, scale, drop, st);
 }
 

@@ -1,4 +1,4 @@
-// Conv subsampler: conv1 (direct) and conv2 (implicit GEMM).
+// Conv subsampler: conv1 (direct); conv2 (implicit GEMM) is in conv2.cu.
 //
 // Replaces ops/pallas_subsample.py::_subsample_kernel (via conv_subsample_fused):
 //   conv1 (1 -> C, 3x3, stride 2, pad 1) + bias + GELU
@@ -16,12 +16,9 @@
 // What bounds it on the H100: conv1 has C_in = 1 and 9 taps, so it is bound
 // by writing its (B, T1, F1, C) bf16 output; a block per (frame, utterance)
 // stages three mel rows in shared memory and each thread writes one channel
-// across all 40 frequency groups. conv2 is the one large product of the
-// front end (K = 9*C = 2304); it runs on the GEMM core with a loader that
-// gathers each 8-channel vector of the 3x3 neighbourhood straight from
-// conv1's output, so no im2col tensor (about 3 GB of bf16 at B=128 x 10 s)
-// is ever written.
-#include "gemm.cuh"
+// across all 40 frequency groups. conv2, the one large product of the front
+// end (K = 9*C = 2304), is a kernel of its own: conv2.cu.
+#include "common.cuh"
 
 namespace {
 
@@ -62,22 +59,6 @@ __global__ void conv1_kernel(const bf16* __restrict__ mel, const bf16* __restric
     }
 }
 
-// A[m, k] of conv2 as an implicit GEMM: m = (b*T2 + t2)*F2 + f2,
-// k = (kt*3 + kf)*C + c, reading y1[b, 2*t2 + kt - 1, 2*f2 + kf - 1, c]
-// (zero outside the conv1 output: the conv's padding).
-struct Conv2Loader {
-    const bf16* y1;
-    int T1, F1, C, T2, F2;
-    __device__ __forceinline__ uint4 load(int m, int k) const {
-        const int f2 = m % F2, bt = m / F2;
-        const int t2 = bt % T2, b = bt / T2;
-        const int tap = k / C, c = k % C;
-        const int t1 = 2 * t2 + tap / 3 - 1, f1 = 2 * f2 + tap % 3 - 1;
-        if (t1 < 0 || t1 >= T1 || f1 < 0 || f1 >= F1) return make_uint4(0u, 0u, 0u, 0u);
-        return *reinterpret_cast<const uint4*>(y1 + (((size_t)b * T1 + t1) * F1 + f1) * C + c);
-    }
-};
-
 }  // namespace
 
 ASR_API int asr_conv1(const void* mel, const void* w1, const void* b1, void* y1, int B, int T_in,
@@ -88,18 +69,4 @@ ASR_API int asr_conv1(const void* mel, const void* w1, const void* b1, void* y1,
         static_cast<const bf16*>(mel), static_cast<const bf16*>(w1),
         static_cast<const float*>(b1), static_cast<bf16*>(y1), T_in, T1, F, C);
     return static_cast<int>(cudaGetLastError());
-}
-
-// y2[B*T2*F2, C] = GELU(bf16(bf16(conv2(y1)) + b2)); w2: [9*C, C] bf16.
-ASR_API int asr_conv2(const void* y1, const void* w2, const void* b2, void* y2, int B, int T1,
-                      int F1, int C, int T2, int F2, void* stream) {
-    Conv2Loader A{static_cast<const bf16*>(y1), T1, F1, C, T2, F2};
-    gemm::Epilogue e{};
-    e.bias = static_cast<const float*>(b2);
-    e.out = static_cast<bf16*>(y2);
-    e.ldo = C;
-    e.act = ACT_GELU;
-    e.round_first = 1;
-    return static_cast<int>(gemm::launch(A, static_cast<const bf16*>(w2), C, B * T2 * F2, C,
-                                         9 * C, e, static_cast<cudaStream_t>(stream)));
 }

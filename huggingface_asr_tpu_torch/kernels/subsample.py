@@ -2,7 +2,7 @@
 and CUDA kernels (counterpart of ``huggingface_asr_tpu/ops/pallas_subsample.py``).
 
   conv1 (1->C, 3x3, s2, p1) + GELU      csrc/subsample.cu::conv1_kernel
-  conv2 (C->C, 3x3, s2, p1) + GELU      csrc/subsample.cu, implicit GEMM
+  conv2 (C->C, 3x3, s2, p1) + GELU      csrc/conv2.cu, implicit GEMM on wgmma
   flatten + Dense (F2*C -> D)           gemm (rows of the Dense weight
                                         regathered into f2-major order)
   LayerNorm, Dense projection           layer_norm, gemm
@@ -112,13 +112,14 @@ def conv2_plain(y1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, T2: int) -
 
 
 def conv2(y1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, T2: int) -> torch.Tensor:
-    """``conv2_plain``; CUDA tensors run the implicit-GEMM ``csrc/subsample.cu::asr_conv2``."""
+    """``conv2_plain``; CUDA tensors run the implicit-GEMM kernel ``csrc/conv2.cu``
+    (C == 256: one block holds all output channels of up to 128 / F2 output frames)."""
     if not _build.on_cuda(y1, w2, b2):
         return conv2_plain(y1, w2, b2, T2)
     B, T1, F1, C = y1.shape
     F2 = F1 // 2
-    if C % 64:
-        raise ValueError(f"conv2 kernel needs C % 64 == 0, got {C}")
+    if C != 256 or F1 % 2 or F2 > 128 or T1 < 2:
+        raise ValueError(f"conv2 kernel needs C == 256, an even F1 <= 256 and T1 >= 2, got C={C}, F1={F1}, T1={T1}")
     _build.check(y1, "y1", BF16)
     _build.check(w2, "w2", BF16, (9 * C, C))
     _build.check(b2, "b2", F32, (C,))

@@ -6,8 +6,9 @@
     Pd = keep ? P * dtype(1 / (1 - rate)) : 0;  out = Pd v
 
 ``rel_attention_train`` is a ``torch.autograd.Function``: on CUDA tensors its
-forward launches ``csrc/rel_attention_train.cu``'s forward kernel and its
-backward the two backward passes (dq, then dk/dv); on CPU tensors it runs
+forward launches the forward kernel (bf16: ``csrc/rel_attention_train_fwd.cu``,
+fp32: ``csrc/rel_attention_train.cu``) and its backward the two backward
+passes of ``csrc/rel_attention_train.cu`` (dq, then dk/dv); on CPU tensors it runs
 ``rel_attention_train_plain``. Nothing falls back: a CUDA tensor the kernels
 do not take raises. Gradients exist for q_u, q_rot, k and v only.
 
@@ -129,10 +130,12 @@ def _check_inputs(q_u, q_rot, k, v, k_std, lengths):
     B, T, H, dh = q_u.shape
     D = q_rot.shape[-1]
     dtype = q_u.dtype
-    # head size 32; D a multiple of 16 and at most 256 (the backward's
+    # head size 32; D a multiple of 16 (of 64 in bf16: the forward loads q_rot
+    # and k_std in 64-column tiles) and at most 256 (the backward's
     # [dq_u | dq_rot] accumulator must fit in shared memory); bf16 or fp32
-    if dh != 32 or D % 16 or D > 256 or dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"rel_attention_train kernels need dh == 32, D % 16 == 0, D <= 256 and bf16 or "
+    step = 64 if dtype == torch.bfloat16 else 16
+    if dh != 32 or D % step or D > 256 or dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"rel_attention_train kernels need dh == 32, D % {step} == 0, D <= 256 and bf16 or "
                          f"fp32 inputs, got dh={dh}, D={D}, {dtype}; attention_impl='xla' selects the "
                          f"plain attention")
     _build.check(q_u, "q_u", dtype, (B, T, H, dh))
@@ -185,7 +188,8 @@ def rel_attention_train(q_u, q_rot, k, v, k_std, lengths, seed, dropout_rate=0.0
     positional query; k_std: (T, D) ascending sinusoid table (no gradient);
     lengths: (B,) int32 valid key counts; seed: int (int32 range); returns
     (B, T, H, dh) in q_u's dtype. CUDA tensors run the kernels (dh == 32,
-    D % 16 == 0, D <= 256, bf16 or fp32), CPU tensors the plain version."""
+    D <= 256, D % 64 == 0 in bf16 and D % 16 == 0 in fp32), CPU tensors the
+    plain version."""
     seed, rate = int(seed), float(dropout_rate)
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")

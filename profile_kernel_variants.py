@@ -1,0 +1,121 @@
+"""A/B of kernel source variants on one NVIDIA GPU.
+
+    python3 profile_kernel_variants.py conv2,k4 DIR_A [DIR_B ...]
+
+Each DIR is a directory holding a full copy of ``huggingface_asr_tpu_torch/csrc``
+(the package's own directory is a valid DIR). Every variant is built and run in
+a process of its own, in the order A B ... B A, so that two variants are
+compared inside one call on one card. For each variant the script prints
+ptxas's register and spill lines for the two wgmma kernels, then holds conv2
+(``conv2``) and the bf16 training-attention forward (``k4``) against their plain
+versions at small, ragged and flagship shapes and times them with CUDA events
+(median of 5 windows of 20 calls). Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+CONV2_SHAPES = [(3, 15, 8), (3, 79, 40), (8, 499, 256), (8, 999, 504), (128, 499, 256)]  # (B, T1, T2)
+K4_SHAPES = [  # (B, T, H, D, lengths or None for the smoke's ragged lengths, rate)
+    (3, 70, 4, 128, [70, 33, 0], 0.0), (3, 129, 4, 128, [129, 64, 1], 0.1),
+    (4, 333, 8, 256, [333, 1, 0, 200], 0.1), (8, 500, 8, 256, None, 0.1), (32, 250, 8, 256, None, 0.1),
+]
+
+
+def timed(fn, iters: int = 20, reps: int = 5) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        windows.append(start.elapsed_time(end) / iters)
+    return float(np.median(windows))
+
+
+def run_variant(csrc: str, what: str) -> None:
+    import torch
+
+    from huggingface_asr_tpu_torch.kernels import _build
+    from huggingface_asr_tpu_torch.kernels import subsample as K2
+    from huggingface_asr_tpu_torch.kernels.train_attention import rel_attention_train, rel_attention_train_plain
+
+    if not torch.cuda.is_available():
+        sys.exit("torch.cuda.is_available() is false")
+    _build.CSRC = pathlib.Path(csrc).resolve()
+    _build.library()
+    keep = False
+    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+        if line.startswith("=="):
+            keep = "conv2" in line or "train_fwd" in line
+        if keep and any(s in line for s in ("Used", "spill", "C7510", "C7515", "error")):
+            print("  ", line.strip()[:200])
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    tol = 2 ** -6
+    if "conv2" in what:
+        for B, T1, T2 in CONV2_SHAPES:
+            y1 = torch.randn(B, T1, 40, 256, generator=g).bfloat16().to(dev)
+            w2 = (torch.randn(9 * 256, 256, generator=g) * 0.02).bfloat16().to(dev)
+            b2 = (torch.randn(256, generator=g) * 0.1).bfloat16().float().to(dev)
+            got = K2.conv2(y1, w2, b2, T2)
+            verdict = "unchecked"
+            if B <= 8:  # the plain version at B=128 needs tens of GB
+                ref = K2.conv2_plain(y1, w2, b2, T2).float()
+                err = float((got.float() - ref).abs().max())
+                verdict = f"err={err:.3e} {'ok' if err <= tol * max(1.0, float(ref.abs().max())) else 'FAIL'}"
+            print(f"conv2 B={B} T2={T2} rows={got.shape[0]} {verdict} "
+                  f"ms={timed(lambda: K2.conv2(y1, w2, b2, T2)):.4f}", flush=True)
+            del y1, got
+    if "k4" in what:
+        for B, T, H, D, lens, rate in K4_SHAPES:
+            g = torch.Generator().manual_seed(T)
+            mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
+            q_u, q_rot, k, v, k_std = mk(B, T, H, 32), mk(B, T, H, D) * 0.25, mk(B, T, H, 32), mk(B, T, H, 32), mk(T, D)
+            if lens is None:
+                lens = [T - (i * T) // (2 * B) for i in range(B)]
+                lens[B // 2] = 0
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            with torch.no_grad():
+                call = lambda: rel_attention_train(q_u, q_rot, k, v, k_std, lengths, 77, rate)  # noqa: E731
+                ref = rel_attention_train_plain(q_u, q_rot, k, v, k_std, lengths, 77, rate).float()
+                err = float((call().float() - ref).abs().max())
+                ok = err <= tol * max(1.0, float(ref.abs().max()))
+                print(f"K4 fwd B={B} T={T} D={D} rate={rate} err={err:.3e} {'ok' if ok else 'FAIL'} "
+                      f"ms={timed(call):.4f}", flush=True)
+
+
+def main() -> None:
+    if sys.argv[1] == "--one":
+        run_variant(sys.argv[2], sys.argv[3])
+        return
+    what, dirs = sys.argv[1], sys.argv[2:]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    failed = False
+    for d in (dirs + dirs[::-1] if len(dirs) > 1 else dirs):
+        res = subprocess.run([sys.executable, __file__, "--one", d, what], capture_output=True, text=True,
+                             timeout=600)
+        print(f"=== {d} rc={res.returncode}\n{res.stdout[-5000:]}\n{res.stderr[-2500:]}", flush=True)
+        failed = failed or res.returncode != 0 or "FAIL" in res.stdout
+    sys.exit(1 if failed else 0)
+
+
+if __name__ == "__main__":
+    main()

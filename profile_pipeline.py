@@ -35,7 +35,7 @@ import numpy as np
 from chip_smoke import ROOT, flagship_model, speech
 
 GROUPS = (  # (group, substring of the demangled kernel name), first match wins
-    ("conv2", "Conv2Loader"),
+    ("conv2", "conv2_kernel"),
     ("gemm", "gemm_kernel"),
     ("rel_attention", "rel_attention_kernel"),
     ("dwconv", "dwconv_kernel"),

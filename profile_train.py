@@ -35,7 +35,7 @@ sys.path.insert(0, ROOT)
 BATCH, STEPS = 32, 3
 
 GROUPS = (
-    ("attention fwd kernel (K4)", ("train_fwd_kernel",)),
+    ("attention fwd kernel (K4)", ("train_fwd_bf16_kernel", "train_fwd_kernel")),
     ("attention bwd kernels (K4)", ("train_bwd_dq_kernel", "train_bwd_dkv_kernel")),
     ("matrix products (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "gemv", "splitKreduce", "cublas")),
     ("convolutions (cuDNN and native depthwise)", ("conv", "cudnn", "wgrad", "dgrad", "implicit")),

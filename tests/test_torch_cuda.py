@@ -110,15 +110,19 @@ def test_layer_pieces_and_layer(fused):
            K1.ebranchformer_layer_plain(x, lens, w, CFG, t_valid, tables), 0.05)
 
 
-def test_subsample(fused):
+@pytest.mark.parametrize("B,T2", [(2, 32), (3, 40), (1, 8), (2, 24)])  # conv2 tiles hold 6 output frames: ragged, and whole at 24
+def test_subsample(fused, B, T2):
     dev = _cuda()
     _, fm = fused
-    feats = torch.randn(2, 101, 80, generator=torch.Generator().manual_seed(2)).bfloat16().to(dev)
+    feats = torch.randn(B, 101, 80, generator=torch.Generator().manual_seed(2)).bfloat16().to(dev)
     w = fm.subsample
     y1 = K2.conv1(feats, w["w1"], w["b1"])
     _close(y1, K2.conv1_plain(feats, w["w1"], w["b1"]), 2 ** -7)
-    _close(K2.conv2(y1, w["w2"], w["b2"], 32), K2.conv2_plain(y1, w["w2"], w["b2"], 32), 2 ** -6)
-    _close(K2.conv_subsample(feats, w, CFG, 32), K2.conv_subsample_plain(feats, w, CFG, 32), 0.05)
+    _build.reset_launch_counts()
+    y2 = K2.conv2(y1, w["w2"], w["b2"], T2)
+    assert _build.LAUNCHES["asr_conv2"] == 1 and y2.shape == (B * T2 * 20, 256)
+    _close(y2, K2.conv2_plain(y1, w["w2"], w["b2"], T2), 2 ** -6)
+    _close(K2.conv_subsample(feats, w, CFG, T2), K2.conv_subsample_plain(feats, w, CFG, T2), 0.05)
 
 
 def test_ctc_infer_launches_kernels_and_matches_plain(fused):
@@ -152,7 +156,7 @@ ATT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("T,lens", [(70, [70, 33, 0]), (129, [129, 64, 1])])
+@pytest.mark.parametrize("T,lens", [(70, [70, 33, 0]), (129, [129, 64, 1]), (333, [1, 333, 0])])
 def test_train_attention_forward_and_backward(dtype, rate, T, lens):
     dev = _cuda()
     B, H, D = 3, 4, 128
@@ -222,6 +226,9 @@ def test_attention_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):  # dh != 32
         rel_attention_train(z(1, 8, 2, 16), z(1, 8, 2, 64), z(1, 8, 2, 16), z(1, 8, 2, 16), z(8, 64),
                             lengths, 0, 0.0)
+    with pytest.raises(ValueError):  # bf16 forward: D not a multiple of its 64-column tiles
+        rel_attention_train(z(1, 8, 2, 32), z(1, 8, 2, 48), z(1, 8, 2, 32), z(1, 8, 2, 32), z(8, 48),
+                            lengths, 0, 0.0)
     with pytest.raises(ValueError):  # lengths on the CPU
         rel_attention(z(1, 8, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, 32), z(15, 2, 32),
                       lengths.cpu())
@@ -240,6 +247,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
                 torch.zeros(64, 40, dtype=torch.bfloat16, device=dev))  # N % 64
     with pytest.raises(ValueError):
         K1.layer_norm(torch.zeros(8, 64, dtype=torch.bfloat16, device=dev), g.cpu(), b, 1e-5)
+    with pytest.raises(ValueError):  # conv2 holds all C == 256 output channels in one block
+        K2.conv2(torch.zeros(1, 7, 40, 64, dtype=torch.bfloat16, device=dev),
+                 torch.zeros(9 * 64, 64, dtype=torch.bfloat16, device=dev), torch.zeros(64, device=dev), 8)
 
 
 def test_port_modules_import_nothing_of_jax():

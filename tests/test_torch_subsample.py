@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from huggingface_asr_tpu.ops.pallas_subsample import conv_subsample_fused
@@ -61,6 +62,56 @@ def test_plain_subsample_matches_pallas_interpret(models, t_in):
     got = K2.conv_subsample(torch.from_numpy(feats), w, pcfg, T2_pad)
     assert got.shape == (2, T2_pad, jcfg.hidden_size) and got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy()[:, :T2], ref, rtol=0, atol=6e-2)
+
+
+def _jax_conv2(y1, w2, b2):
+    """conv2 in JAX ops with the TPU kernel's expression (``_subsample_kernel``:
+    ``acc2.astype(bf) + b2`` in bf16, then the bf16 ``jax.nn.gelu`` whose
+    rounding chain the kernel's GELU replicates)."""
+    C = y1.shape[-1]
+    acc = jax.lax.conv_general_dilated(
+        jnp.asarray(y1, jnp.float32), jnp.asarray(w2, jnp.float32).reshape(3, 3, C, C), (2, 2),
+        ((1, 1), (1, 1)), dimension_numbers=("NHWC", "HWIO", "NHWC"), precision=jax.lax.Precision.HIGHEST)
+    y2 = acc.astype(jnp.bfloat16) + jnp.asarray(b2, jnp.bfloat16)[None, None, None, :]
+    return _np(jax.nn.gelu(y2, approximate=False))
+
+
+def test_conv2_plain_rounds_the_sum_before_the_bias():
+    """Pins the rounding points the CUDA conv2 relies on:
+    ``GELU(bf16(bf16(acc) + b2))``. Crafted so that the order shows: the
+    centre tap sums 1 + 2^-8 (a bf16 tie, rounds to 1), the bias adds 2^-8
+    (a tie again, 1), where one rounding of acc + b2 gives 1 + 2^-7."""
+    C, T1, F1 = 16, 5, 4
+    y1 = np.zeros((1, T1, F1, C), np.float32)
+    y1[..., 0], y1[..., 1] = 1.0, 2.0 ** -8
+    w2 = np.zeros((3, 3, C, C), np.float32)
+    w2[1, 1, 0, 0] = w2[1, 1, 1, 0] = 1.0
+    b2 = np.zeros(C, np.float32)
+    b2[0] = 2.0 ** -8
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    T2 = (T1 - 1) // 2 + 1
+    got = K2.conv2_plain(bf(y1), bf(w2.reshape(9 * C, C)), torch.from_numpy(b2), T2)
+    got = got.float().numpy().reshape(1, T2, F1 // 2, C)
+    ref = _jax_conv2(y1, w2, b2)
+    np.testing.assert_array_equal(got, ref)
+    gelu = lambda v: float(torch.nn.functional.gelu(torch.tensor(v)).bfloat16())  # noqa: E731
+    assert got[0, 0, 0, 0] == gelu(1.0) != gelu(1.0 + 2.0 ** -7)
+    assert got[0, 0, 0, 1] == 0.0
+
+
+def test_conv2_plain_matches_jax_ops():
+    """Seeded operands: against the same JAX expression within one bf16 ulp of
+    the scale (fp32 sums in another order; JAX's GELU is a chain of bf16 ops,
+    the port's one fp32 evaluation rounded once)."""
+    rng = np.random.default_rng(4)
+    C, T1, F1 = 32, 9, 8
+    bfr = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
+    y1, w2 = bfr(rng.standard_normal((2, T1, F1, C))), bfr(rng.standard_normal((9 * C, C)) * 0.06)
+    b2 = bfr(rng.standard_normal(C) * 0.1).float()
+    T2 = (T1 - 1) // 2 + 1
+    got = K2.conv2_plain(y1, w2, b2, T2).float().numpy().reshape(2, T2, F1 // 2, C)
+    ref = _jax_conv2(y1.float().numpy(), w2.float().numpy(), b2.numpy())
+    assert np.abs(got - ref).max() <= 2 ** -7 * max(1.0, np.abs(ref).max())
 
 
 @pytest.mark.parametrize("change", [

@@ -101,6 +101,28 @@ def test_keep_mask_is_bit_equal_to_the_jax_hash(shape, rate, seed):
     assert abs(got.mean() - (1.0 - rate)) < 0.06
 
 
+@pytest.mark.parametrize("rate,T,expected", [(0.1, 11, 0.1005859375), (0.2, 24, 0.05224609375)])
+def test_bf16_probabilities_round_before_the_dropout_scale(rate, T, expected):
+    """Pins the rounding points the CUDA forward relies on, bit for bit
+    against the JAX kernel in interpret mode: zero queries make P = 1/T on
+    every key and one-hot values read Pd out of ``out``. At these (rate, T)
+    ``bf16(bf16(1/T) * bf16(1/(1-rate)))`` differs from the same product with
+    an unrounded P (and, at rate 0.1, with an unrounded scale)."""
+    dh, D, seed = 32, 16, 5
+    x = dict(q_u=np.zeros((1, T, 1, dh), np.float32), q_rot=np.zeros((1, T, 1, D), np.float32),
+             k=np.ones((1, T, 1, dh), np.float32), v=np.eye(T, dh, dtype=np.float32)[None, :, None, :],
+             k_std=np.ones((T, D), np.float32), lengths=np.asarray([T], np.int32),
+             cot=np.zeros((1, T, 1, dh), np.float32))
+    out, _ = _torch_run(x, seed, rate, torch.bfloat16)
+    ref, _ = _jax_run(x, seed, rate, jnp.bfloat16)
+    np.testing.assert_array_equal(out, ref)
+    keep = keep_mask(seed, 1, 1, T, rate).numpy()[0, 0]
+    np.testing.assert_array_equal(out[0, :, 0, :T], np.where(keep, np.float32(expected), np.float32(0)))
+    unrounded_p = torch.tensor(np.float32(1) / np.float32(T)) * torch.tensor(
+        np.float32(1.0 / (1.0 - rate))).bfloat16().float()
+    assert float(unrounded_p.bfloat16()) != expected
+
+
 def test_zero_length_row_is_uniform_over_all_keys():
     x = _inputs("zero_len")
     out, _ = _torch_run(x, 0, 0.0)
@@ -143,7 +165,8 @@ def test_bad_rate_raises():
 
 
 @pytest.mark.parametrize("dh,D,dtype", [(64, 256, torch.bfloat16), (32, 512, torch.bfloat16),
-                                        (32, 40, torch.float32), (32, 256, torch.float16)])
+                                        (32, 40, torch.float32), (32, 256, torch.float16),
+                                        (32, 48, torch.bfloat16)])  # bf16 forward: 64-column tiles
 def test_kernel_gate_raises_and_names_the_way_out(dh, D, dtype):
     """What the CUDA kernels do not take raises (nothing falls back to the
     plain version), and the message names ``attention_impl='xla'``."""
