@@ -9,6 +9,11 @@
    frames; and 20 s, T_pad=504; conv2 also at a frame count that is no
    multiple of its tile), with TF32 off for the plain reference, and
    times both with CUDA events (median of 5 windows of 20 kernel calls);
+   the fused layer's attention kernel once more on seeded strided views at
+   the 2 s, 20 s and 30 s buckets (T_pad = 56, 512, 752: fewer rows than one
+   block, key loops past one tile, a ragged last tile) with lengths that
+   include 0 and 1, and timed at B=128, T_pad=256; the host's time per launch
+   of the two inference attention kernels;
 4. writes a flagship E-Branchformer CTC model with seeded random weights
    (12 layers, D=256, 8 heads, I=1024, 256x256 subsampler, 500+1 outputs),
    loads it through ASRPipeline(device="cuda") and answers requests of 1, 4
@@ -21,7 +26,8 @@
    seeded dO) and the shift-form inference attention kernel against their
    plain versions at B=8, T=250 and T=500, ragged lengths with one
    zero-length row, bf16 and fp32, dropout rate 0 and 0.1, once more at
-   T=333 with rows of length 1 and 0, checks that the
+   T=333 with rows of length 1 and 0 (the shift form also at T=70, one ragged
+   tile), checks that the
    kernel's keep-mask is the plain version's bit for bit, then holds them
    against their plain versions once more and times them at the training
    path's shape (B=32, T=250, bf16, rate 0.1);
@@ -161,7 +167,7 @@ def training_setup(seed: int = 0, batch_size: int = 32, n_batches: int = 6, chec
     return trainer, batches
 
 
-def timed(fn, iters: int, reps: int = 5) -> float:
+def timed(fn, iters: int = 20, reps: int = 5) -> float:
     """Median over ``reps`` windows of the mean ms of ``iters`` calls (CUDA events)."""
     import torch
 
@@ -177,6 +183,22 @@ def timed(fn, iters: int, reps: int = 5) -> float:
         torch.cuda.synchronize()
         windows.append(start.elapsed_time(end) / iters)
     return float(np.median(windows))
+
+
+def host_us_per_launch(fn, n: int = 300) -> float:
+    """Host time in us of one call of ``fn``, a kernel wrapper at a shape so
+    small that the device never falls behind."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e6 * dt / n
 
 
 def sdpa_call(q_u, q_rot, k, v, k_std, lengths, scale):
@@ -404,9 +426,11 @@ def main() -> None:
         hv = lambda i: qkv[:, i * D:(i + 1) * D].view(B, T_pad, H, dh)
         qr = q_rot.view(B, T_pad, H, D)
         keys = torch.where(enc_lens > 0, enc_lens, T_pad).sum().item()  # key columns the lengths need
-        compare("rel_attention", "rel_attention",
-                lambda: K1.rel_attention(hv(0), hv(1), hv(2), qr, tables["k_std"], enc_lens),
-                lambda: K1.rel_attention_plain(hv(0), hv(1), hv(2), qr, tables["k_std"], enc_lens),
+        # the layer's own column views of the projection buffer, made once:
+        # the timed call is the wrapper and its kernel
+        att_args = (hv(0), hv(1), hv(2), qr, tables["k_std"], enc_lens)
+        compare("rel_attention", "rel_attention", lambda: K1.rel_attention(*att_args),
+                lambda: K1.rel_attention_plain(*att_args),
                 2 ** -6, library_fn=sdpa_call(hv(0), qr, hv(1), hv(2), tables["k_std"], enc_lens, 1.0)[0],
                 work=(2.0 * H * T_pad * keys * (dh + D + dh),
                       nbytes(qr, tables["k_std"]) + 4 * 2 * M * D, "bf16"))
@@ -434,6 +458,45 @@ def main() -> None:
         compare("layer (K1 whole)", None,
                 lambda: K1.ebranchformer_layer(x, enc_lens, w, cfg, T, tables),
                 lambda: K1.ebranchformer_layer_plain(x, enc_lens, w, cfg, T, tables), 0.05)
+
+    # ---- the fused layer's attention kernel beyond the two buckets above:
+    # seeded inputs as column views of one (B*T_pad, 3D) buffer, which is how
+    # the layer passes q_u, k and v
+    D, H = cfg.hidden_size, cfg.num_attention_heads
+    dh = D // H
+
+    def factored_inputs(B, T_pad, lens, seed):
+        g = torch.Generator().manual_seed(seed)
+        mk = lambda *shape: torch.randn(*shape, generator=g).bfloat16().to(dev)  # noqa: E731
+        qkv, q_rot, k_std = mk(B * T_pad, 3 * D), mk(B, T_pad, H, D) * 0.25, mk(T_pad, D)
+        q_u, k, v = (qkv[:, i * D:(i + 1) * D].view(B, T_pad, H, dh) for i in range(3))
+        return q_u, k, v, q_rot, k_std, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    print("-- rel_attention on strided views: 2 s, 20 s and 30 s buckets, lengths with 0 and 1", flush=True)
+    for T_pad in (56, 512, 752):
+        lens = [T_pad, 1, 0, T_pad - 7, T_pad // 2, 65, 64, (3 * T_pad) // 4]
+        fi = factored_inputs(8, T_pad, lens, seed=T_pad)
+        compare(f"rel_attention T_pad={T_pad}", "rel_attention", lambda: K1.rel_attention(*fi),
+                lambda: K1.rel_attention_plain(*fi), 2 ** -6)
+    B_big = 128
+    fi = factored_inputs(B_big, 256, [256 - (i * 256) // (2 * B_big) for i in range(B_big)], seed=128)
+    with torch.no_grad():
+        compare(f"rel_attention B={B_big} T_pad=256", None, lambda: K1.rel_attention(*fi),
+                lambda: K1.rel_attention_plain(*fi), 2 ** -6,
+                library_fn=sdpa_call(fi[0], fi[3], fi[1], fi[2], fi[4], fi[5], 1.0)[0],
+                work=(2.0 * H * 256 * float(fi[5].sum()) * (dh + D + dh),
+                      nbytes(fi[3], fi[4]) + 4 * 2 * B_big * 256 * D, "bf16"))
+    del fi
+    torch.cuda.empty_cache()
+
+    fi = factored_inputs(1, 64, [64], seed=1)
+    g = torch.Generator().manual_seed(2)
+    si = [torch.randn(1, 64, H, dh, generator=g).bfloat16().to(dev) for _ in range(4)]
+    si += [torch.randn(127, H, dh, generator=g).bfloat16().to(dev), fi[5]]
+    print(f"host time per launch (B=1, T=64): rel_attention {host_us_per_launch(lambda: K1.rel_attention(*fi)):.2f} us, "
+          f"shift attention {host_us_per_launch(lambda: rel_attention(*si)):.2f} us, "
+          f"layernorm {host_us_per_launch(lambda: K1.layer_norm(xf[:64], w['attn_ln_g'], w['attn_ln_b'], 1e-5)):.2f} us",
+          flush=True)
 
     # ---- the main path: ASRPipeline on the card
     model_dir = os.path.join(ROOT, "build", "chip_smoke_model")
@@ -589,6 +652,16 @@ def main() -> None:
               flush=True)
         if not ok:
             failures.append(f"K4 {part} T=333")
+    # K5 on the same ragged rows, and at T=70: one ragged key tile, whose band
+    # takes in table rows below 0 and past 2T - 2
+    for tag, tt in (("T=333 lengths 333,1,0,200", t), ("T=70 lengths 70,33,0", attention_inputs(3, 70, torch.bfloat16, seed=70))):
+        if tag.startswith("T=70"):
+            tt["lengths"] = torch.tensor([70, 33, 0], dtype=torch.int32, device=dev)
+        args = (tt["q_u"], tt["q_v"], tt["k"], tt["v"], tt["pos"], tt["lengths"])
+        err, ok = worst([rel_attention(*args)], [rel_attention_plain_shift(*args)], att_tol[torch.bfloat16])
+        print(f"  K5 {'fwd':18s} {tag:28s} max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"K5 {tag}")
 
     # The kernel's keep-mask, read out of the kernel itself: with zero queries
     # every valid key has the same probability, and v = one-hot of (s mod 32)
@@ -760,7 +833,7 @@ def main() -> None:
                                     "huggingface_asr_tpu/ops/pallas_train_attention.py:105"),
         "rel_attention_train_bwd": ("asr_rel_attention_train_bwd", "csrc/rel_attention_train.cu",
                                     "huggingface_asr_tpu/ops/pallas_train_attention.py:130"),
-        "rel_attention_shift": ("asr_rel_attention_shift", "csrc/rel_attention_shift.cu",
+        "rel_attention_shift": ("asr_rel_attention_shift", "csrc/rel_attention_shift_bf16.cu",
                                 "huggingface_asr_tpu/ops/pallas_attention.py:34"),
     }
     launches.update({k: v for k, v in train_launches.items() if k.startswith("asr_rel_attention_")

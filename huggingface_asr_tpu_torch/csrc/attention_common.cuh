@@ -1,12 +1,14 @@
 // Shared device helpers of the training attention kernels
 // (rel_attention_train.cu) and the shift-form inference attention kernel
-// (rel_attention_shift.cu).
+// (rel_attention_shift.cu); the mask, the visited keys and the dropout hash
+// also serve the kernels on wgmma (attention_wgmma.cuh).
 //
 // One template parameter E is the element type of the inputs and outputs:
-// bf16 (tile products on wmma fragments, fp32 accumulation) or float (tile
-// products as exact fp32 FMA loops, the slow path that holds the kernels'
-// logic to the plain version at fp32 tolerance). Everything between the
-// products (scores, softmax, dropout, dS) is fp32 in both.
+// bf16 (tile products on wmma fragments, fp32 accumulation: the training
+// backward) or float (tile products as exact fp32 FMA loops, the slow path
+// that holds the kernels' logic to the plain version at fp32 tolerance).
+// Everything between the products (scores, softmax, dropout, dS) is fp32 in
+// both.
 //
 // Tiles: a block owns TILE<E> query rows (or key rows), one warp per 16
 // rows, and walks the other direction in tiles of the same size. Rows past
@@ -166,5 +168,11 @@ struct DropoutArgs {
 int train_fwd_bf16(const void* q_u, const void* q_rot, const void* k, const void* v,
                    const void* k_std, const void* lengths, void* out, void* stats, int B, int T,
                    int H, int D, float scale, DropoutArgs drop, cudaStream_t stream);
+
+// The bf16 shift-form inference kernel (rel_attention_shift_bf16.cu): same
+// contract. Tensors (B, T, H, dh) contiguous, the table (2T - 1, H, dh).
+int shift_fwd_bf16(const void* q_u, const void* q_v, const void* k, const void* v, const void* pos,
+                   const void* lengths, void* out, int B, int T, int H, float scale,
+                   cudaStream_t stream);
 
 }  // namespace attn

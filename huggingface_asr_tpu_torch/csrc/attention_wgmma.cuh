@@ -1,0 +1,215 @@
+// What the attention kernels on wgmma + TMA share.
+//
+// rel_attention_train_fwd.cu (training forward: two walks, dropout, stats)
+// and rel_attention.cu (inference: one walk, online softmax) compute the same
+// scores, S = [q_u | q_rot] . [k | k_std], with one block structure, set out
+// in namespace attn::fa below: a block owns 128 query rows of one (batch row,
+// head), two consumer warpgroups of 64 rows and one producer thread;
+// [q_u | q_rot] is loaded once and stays, [k | k_std] and v arrive as 64-key
+// tiles through a ring of three stages. Every tile is a TMA box of the tensor
+// as it lies in device memory, written in the swizzled layout wgmma reads and
+// reported to an mbarrier. Rows past the sequence end come back as zeros.
+//
+// The quad reductions and the P.V step also serve rel_attention_shift_bf16.cu,
+// whose ring carries other tiles.
+#pragma once
+
+#include "attention_common.cuh"
+#include "hopper.cuh"
+
+namespace attn {
+
+using namespace hopper;
+
+constexpr int BQ = 128;    // query rows of a block
+constexpr int BKEY = 64;   // key rows of a tile
+constexpr int STAGES = 3;  // key tiles in the ring
+constexpr int N_CONSUMER_WARPS = 8;
+constexpr int BLOCK_THREADS = 384;  // two consumer warpgroups and the producer's
+constexpr uint32_t QH_BYTES = BQ * DH * 2;     // a (128, dh) query tile, 64-byte swizzle
+constexpr uint32_t KH_BYTES = BKEY * DH * 2;   // a (64, dh) key or value tile
+constexpr uint32_t WG_QH = 64 * DH * 2;        // one warpgroup's 64 rows of a query tile
+
+// The barriers of a block: one for the query tiles, and a full / empty pair per
+// ring stage (8 bytes each, STAGES in a row). Called by every thread of the
+// block before it splits into roles.
+__device__ __forceinline__ void init_block_barriers(uint32_t q_full, uint32_t full, uint32_t empty) {
+    if (threadIdx.x == 0) {
+        mbar_init(q_full, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, N_CONSUMER_WARPS);
+        }
+        mbar_init_fence();
+    }
+    __syncthreads();
+}
+
+// A row of the accumulator fragment lives in the four lanes of a quad.
+__device__ __forceinline__ float quad_max(float v) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The 64 x 64 score fragment as the register A operand of the P.V product:
+// column pair j of the fragment is pair j % 2 of k16 step j / 2.
+__device__ __forceinline__ void pack_p(uint32_t (&pd)[4][4], int j, float a0, float a1, float b0,
+                                       float b1) {
+    pd[j / 2][2 * (j % 2)] = pack_bf16(a0, a1);
+    pd[j / 2][2 * (j % 2) + 1] = pack_bf16(b0, b1);
+}
+
+// O (64 x dh, registers) += P (64 x 64, registers) v (64 keys x dh in shared
+// memory as TMA wrote it: the transposed B operand). Waits for the product.
+__device__ __forceinline__ void add_pv(float (&o)[16], const uint32_t (&pd)[4][4], uint32_t v_tile) {
+    const uint64_t b_v = make_desc(v_tile, 16, 512, SWIZZLE_64);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n32k16_rs_bt(o, pd[kk], b_v + kk * (16 * DH * 2 / 16), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+}
+
+// Write this thread's part of the O fragment: rows ta and ta + 8 of `out`
+// (row stride ld elements), columns 8j + cq, 8j + cq + 1 of head h.
+__device__ __forceinline__ void store_o(const float (&o)[16], float scale_a, float scale_b,
+                                        bf16* __restrict__ out, size_t ld, int b, int T, int ta,
+                                        int h, int cq) {
+    bf16* out_a = out + ((size_t)b * T + ta) * ld + (size_t)h * DH + cq;
+    bf16* out_b = out_a + 8 * ld;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+        if (ta < T)
+            *reinterpret_cast<uint32_t*>(out_a + 8 * j) = pack_bf16(o[4 * j] * scale_a, o[4 * j + 1] * scale_a);
+        if (ta + 8 < T)
+            *reinterpret_cast<uint32_t*>(out_b + 8 * j) = pack_bf16(o[4 * j + 2] * scale_b, o[4 * j + 3] * scale_b);
+    }
+}
+
+namespace fa {  // the factored form: S = [q_u | q_rot] . [k | k_std]
+
+constexpr int CW = 64;  // columns of one 128-byte-swizzled chunk of q_rot / k_std
+constexpr uint32_t QR_CHUNK = BQ * CW * 2, KS_CHUNK = BKEY * CW * 2;
+
+struct Maps {
+    CUtensorMap qu, qrot, k, v, kstd;
+};
+
+// Shared memory past the 1024-byte aligned base, for D = 64 * nc:
+//   q_u | q_rot chunks | STAGES x (k | k_std chunks | v) | barriers
+__host__ __device__ inline uint32_t stage_bytes(int nc) { return KH_BYTES + nc * KS_CHUNK + KH_BYTES; }
+__host__ __device__ inline uint32_t smem_bytes(int nc) {
+    return 1024 + QH_BYTES + nc * QR_CHUNK + STAGES * stage_bytes(nc) + 8 * (1 + 2 * STAGES);
+}
+
+struct Smem {
+    int nc;
+    uint32_t qu, qr, ring, stage_sz, q_full, full, empty;
+    __device__ Smem(const unsigned char* raw, int D) {
+        nc = D / CW;
+        qu = (smem_u32(raw) + 1023u) & ~1023u;
+        qr = qu + QH_BYTES;
+        ring = qr + nc * QR_CHUNK;
+        stage_sz = stage_bytes(nc);
+        q_full = ring + STAGES * stage_sz;
+        full = q_full + 8;
+        empty = full + 8 * STAGES;
+    }
+    __device__ uint32_t stage(int it) const { return ring + (it % STAGES) * stage_sz; }
+    __device__ uint32_t v_tile(int it) const { return stage(it) + KH_BYTES + nc * KS_CHUNK; }
+    __device__ uint32_t full_bar(int it) const { return full + 8 * (it % STAGES); }
+    __device__ uint32_t empty_bar(int it) const { return empty + 8 * (it % STAGES); }
+};
+
+__device__ __forceinline__ void init_barriers(const Smem& sm) { init_block_barriers(sm.q_full, sm.full, sm.empty); }
+
+// The producer thread: the query tile once, then the ring kept full, walk
+// after walk over the n_keys visited keys; v rides along from walk `v_from` on.
+__device__ __forceinline__ void produce(const Smem& sm, const Maps& maps, int b, int h, int t0, int D,
+                                        int n_keys, int walks, int v_from) {
+    const int nc = sm.nc;
+    mbar_arrive_expect_tx(sm.q_full, QH_BYTES + nc * QR_CHUNK);
+    tma_load_3d(sm.qu, &maps.qu, sm.q_full, h * DH, t0, b);
+    for (int c = 0; c < nc; ++c) tma_load_3d(sm.qr + c * QR_CHUNK, &maps.qrot, sm.q_full, h * D + c * CW, t0, b);
+    int it = 0;
+    for (int walk = 0; walk < walks; ++walk) {
+        const bool with_v = walk >= v_from;
+        for (int s0 = 0; s0 < n_keys; s0 += BKEY, ++it) {
+            const uint32_t stage = sm.stage(it), bar = sm.full_bar(it);
+            mbar_wait(sm.empty_bar(it), ((it / STAGES) & 1) ^ 1);
+            mbar_arrive_expect_tx(bar, KH_BYTES + nc * KS_CHUNK + (with_v ? KH_BYTES : 0));
+            tma_load_3d(stage, &maps.k, bar, h * DH, s0, b);
+            for (int c = 0; c < nc; ++c)
+                tma_load_2d(stage + KH_BYTES + c * KS_CHUNK, &maps.kstd, bar, c * CW, s0);
+            if (with_v) tma_load_3d(sm.v_tile(it), &maps.v, bar, h * DH, s0, b);
+        }
+    }
+}
+
+// S (this warpgroup's 64 rows x the stage's 64 keys) = [q_u | q_rot] . [k | k_std]^T
+// Started and committed as one group; the caller waits for it.
+__device__ __forceinline__ void start_scores(float (&s)[32], uint32_t qu, uint32_t qr,
+                                             uint32_t stage, int nc) {
+    fence_regs(s);
+    wgmma_fence();
+    const uint64_t a_u = make_desc(qu, 16, 512, SWIZZLE_64);
+    const uint64_t b_u = make_desc(stage, 16, 512, SWIZZLE_64);
+    wgmma_m64n64k16_ss(s, a_u, b_u, 0);
+    wgmma_m64n64k16_ss(s, a_u + 2, b_u + 2, 1);
+    for (int c = 0; c < nc; ++c) {
+        const uint64_t a_r = make_desc(qr + c * QR_CHUNK, 16, 1024, SWIZZLE_128);
+        const uint64_t b_r = make_desc(stage + KH_BYTES + c * KS_CHUNK, 16, 1024, SWIZZLE_128);
+#pragma unroll
+        for (int kk = 0; kk < CW / 16; ++kk) wgmma_m64n64k16_ss(s, a_r + 2 * kk, b_r + 2 * kk, 1);
+    }
+    wgmma_commit();
+}
+
+// ---- host
+
+inline bool supported(int B, int H, int D) {
+    return D % CW == 0 && D >= CW && D <= 256 && B <= 65535 && H <= 65535;
+}
+
+// Tensor maps of q_u, k, v as (B, T, H * dh) views whose rows are ld_qkv
+// elements apart (columns of a wider buffer are fine), q_rot (B, T, H * D)
+// and k_std (T, D), both contiguous. Coordinates are (column, t, b); rows
+// past T read as zeros.
+inline cudaError_t make_maps(Maps* m, const void* q_u, const void* q_rot, const void* k,
+                             const void* v, const void* k_std, int B, int T, int H, int D,
+                             int ld_qkv) {
+    const cuuint64_t dims_h[3] = {(cuuint64_t)H * DH, (cuuint64_t)T, (cuuint64_t)B};
+    const cuuint64_t strides_h[2] = {(cuuint64_t)ld_qkv * 2, (cuuint64_t)T * ld_qkv * 2};
+    const cuuint64_t dims_r[3] = {(cuuint64_t)H * D, (cuuint64_t)T, (cuuint64_t)B};
+    const cuuint64_t strides_r[2] = {(cuuint64_t)H * D * 2, (cuuint64_t)T * H * D * 2};
+    const cuuint64_t dims_s[2] = {(cuuint64_t)D, (cuuint64_t)T};
+    const cuuint64_t strides_s[1] = {(cuuint64_t)D * 2};
+    const cuuint32_t box_qu[3] = {DH, BQ, 1}, box_qr[3] = {CW, BQ, 1}, box_kv[3] = {DH, BKEY, 1};
+    const cuuint32_t box_ks[2] = {CW, BKEY};
+    cudaError_t err = tensor_map_bf16(&m->qu, q_u, 3, dims_h, strides_h, box_qu, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err == cudaSuccess)
+        err = tensor_map_bf16(&m->qrot, q_rot, 3, dims_r, strides_r, box_qr, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == cudaSuccess)
+        err = tensor_map_bf16(&m->k, k, 3, dims_h, strides_h, box_kv, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err == cudaSuccess)
+        err = tensor_map_bf16(&m->v, v, 3, dims_h, strides_h, box_kv, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err == cudaSuccess)
+        err = tensor_map_bf16(&m->kstd, k_std, 2, dims_s, strides_s, box_ks, CU_TENSOR_MAP_SWIZZLE_128B);
+    return err;
+}
+
+// Give `kernel` its shared memory; the launch is <<<grid(T), BLOCK_THREADS, smem_bytes(D / CW)>>>.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int D) {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(D / CW));
+}
+inline dim3 grid(int B, int T, int H) { return dim3(ceil_div(T, BQ), H, B); }
+
+}  // namespace fa
+}  // namespace attn

@@ -1,196 +1,151 @@
-// Relative-position attention forward (flash style, online softmax).
+// Relative-position attention for INFERENCE, factored form (flash style, one
+// walk with an online softmax).
 //
-// Replaces the attention branch of ops/pallas_layer.py::_layer_kernel (and,
-// at dropout rate 0, the forward of ops/pallas_train_attention.py::_fwd_kernel
-// and ops/pallas_attention.py::_rel_attn_kernel, which compute the same
-// scores). The interface is K4's: q_u, k, v as (B, T, H, dh) with a row
-// stride, q_rot (B, T, H, D), k_std (T, D), lengths (B,).
+// Replaces the attention branch of ops/pallas_layer.py::_layer_kernel of the
+// JAX package. q_u, k, v are (B, T, H, dh) with one shared row stride (they
+// may be column views of the layer's (B*T, 3D) projection buffer), q_rot is
+// (B, T, H, D), k_std (T, D), lengths (B,):
 //
 //   s[t, s'] = [q_u | q_rot][t] . [k | k_std][s']      (one dot of width dh+D)
 //            + (s' < len ? 0 : -1e9)                     (finite: a zero-length
 //                                                          row stays finite)
-//   out[t]   = sum_s' exp2(s - m) v[s'] / sum_s' exp2(s - m)
+//   out[t]   = sum_s' bf16(exp2(s - m)) v[s'] / sum_s' exp2(s - m)
 //
 // The 1/sqrt(dh) and log2(e) scales are folded into the query weights
 // (kernels/layer.py::fold_layer_weights), so the softmax runs on exp2 and is
 // normalised after P.V, as on the TPU.
 //
-// What bounds it on the H100: at T_pad = 256 the (T, T) score tile of one
-// (b, h) fits on chip, but the 30 s bucket (T_pad ~ 752) does not, and the
-// score tensor must never reach device memory. One block per (query tile of
-// 64, head, batch) walks 64-key tiles with a running max and sum (online
-// softmax), so device traffic is Q, K, V, q_rot and k_std once per block plus
-// the output. Products run on bf16 wmma fragments with fp32 accumulation;
-// the softmax bookkeeping is fp32 in shared memory, one warp per 16 rows.
-// Key tiles past an utterance's length are skipped (their probabilities are
-// exact zeros); a zero-length row attends uniformly over all T keys, as the
-// TPU kernel's -1e9 additive mask gives.
-#include <mma.h>
+// What bounds it on the H100: by the roofline, bytes (q_rot is read once and
+// nothing quadratic is written). In practice the score product's inner width
+// of dh + D = 288 against dh = 32 output columns: nine tenths of the
+// arithmetic is S, so the kernel lives by how the tensor cores are fed.
+//
+// What the design does about it:
+//   * The block structure of the training forward (attention_wgmma.cuh): 128
+//     query rows of one (b, h), two consumer warpgroups, one producer thread;
+//     [q_u | q_rot] loaded once by TMA, [k | k_std | v] tiles of 64 keys
+//     through an mbarrier ring of three stages; S is 18 wgmma.m64n64k16 steps
+//     out of swizzled shared memory into registers. The tensor maps take the
+//     projection buffer's row stride, so no copy is made of q_u, k or v.
+//   * One walk. The running max and sum of a row pair live in registers;
+//     mask, max, exp2 and the bf16 rounding run on the accumulator fragment
+//     (about ten operations a score), P is the register A operand of the
+//     P.V product, O stays in registers, is rescaled by exp2(m_old - m_new)
+//     there and written once, divided by the row sum.
+//   * A warpgroup takes its tiles one after another (product, softmax, P.V)
+//     and the two warpgroups fill each other's gaps. Starting the next
+//     tile's product before this tile's softmax, into a second fragment, as
+//     the training forward does, was 12 % slower here (B=128, T_pad=256):
+//     O is rescaled between two products, and the compiler then serialises
+//     every wgmma of a loop that keeps a product in flight across that write.
+//   * Key tiles past an utterance's length are skipped (their probabilities
+//     are exact zeros); a zero-length row attends uniformly over all T keys,
+//     as the TPU kernel's -1e9 additive mask gives. Columns past T in a
+//     ragged last tile (TMA returns zeros there) get weight 0.
+#include "attention_wgmma.cuh"
 
-#include "common.cuh"
+using namespace attn;
+using namespace attn::fa;
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64, DH = 32, THREADS = 128;
-constexpr int PAD = 8;
-constexpr float MASK_NEG = -1.0e9f;
-
-__host__ __device__ inline size_t up(size_t x) { return (x + 127) / 128 * 128; }
-
-// Byte offsets of the shared-memory regions for a dot width kd = dh + D.
-struct Smem {
-    int kd;
-    size_t q, k, v, s, p, o, m, l, a, total;
-    __host__ __device__ explicit Smem(int kd_) : kd(kd_) {
-        q = 0;
-        k = up(q + (size_t)BQ * (kd + PAD) * 2);
-        v = up(k + (size_t)BKV * (kd + PAD) * 2);
-        s = up(v + (size_t)BKV * (DH + PAD) * 2);
-        p = up(s + (size_t)BQ * (BKV + 4) * 4);
-        o = up(p + (size_t)BQ * (BKV + PAD) * 2);
-        m = up(o + (size_t)BQ * (DH + 4) * 4);
-        l = up(m + BQ * 4);
-        a = up(l + BQ * 4);
-        total = up(a + BQ * 4);
-    }
-};
-
-// Copy `n` bf16 values (n % 8 == 0, 16-byte aligned both sides) or zeros.
-__device__ __forceinline__ void copy_row(bf16* dst, const bf16* src, int n, bool valid, int lane,
-                                         int lanes) {
-    for (int c = lane * 8; c < n; c += lanes * 8) {
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (valid) val = *reinterpret_cast<const uint4*>(src + c);
-        *reinterpret_cast<uint4*>(dst + c) = val;
-    }
+// Score of key column `col` as the softmax sees it.
+__device__ __forceinline__ float masked(float raw, int col, int len, int T) {
+    if (col >= T) return -INFINITY;
+    return col < len ? raw : raw + MASK_NEG;
 }
 
-__global__ void __launch_bounds__(THREADS)
-rel_attention_kernel(const bf16* __restrict__ q_u, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, int ld_qkv, const bf16* __restrict__ q_rot,
-                     const bf16* __restrict__ k_std, const int* __restrict__ lengths,
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+rel_attention_kernel(const __grid_constant__ Maps maps, const int* __restrict__ lengths,
                      bf16* __restrict__ out, int ld_o, int T, int H, int D) {
-    using namespace nvcuda;
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    const int kd = DH + D;
-    const Smem L(kd);
-    bf16* Qs = reinterpret_cast<bf16*>(smem_raw + L.q);
-    bf16* Ks = reinterpret_cast<bf16*>(smem_raw + L.k);
-    bf16* Vs = reinterpret_cast<bf16*>(smem_raw + L.v);
-    float* Ss = reinterpret_cast<float*>(smem_raw + L.s);
-    bf16* Ps = reinterpret_cast<bf16*>(smem_raw + L.p);
-    float* Os = reinterpret_cast<float*>(smem_raw + L.o);
-    float* m_s = reinterpret_cast<float*>(smem_raw + L.m);
-    float* l_s = reinterpret_cast<float*>(smem_raw + L.l);
-    float* a_s = reinterpret_cast<float*>(smem_raw + L.a);
-    const int ldk = kd + PAD, ldv = DH + PAD, lds = BKV + 4, ldp = BKV + PAD, ldo_s = DH + 4;
+    extern __shared__ unsigned char smem_raw[];
+    const Smem sm(smem_raw, D);
+    const int nc = sm.nc;
+    init_barriers(sm);
 
     const int t0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int len = lengths[b];
-    const int n_keys = len > 0 ? min(len, T) : T;
+    const int n_keys = visited_keys(len, T);
+    const int wg = threadIdx.x / 128;
 
-    // Q tile: [q_u | q_rot], 16 rows per warp.
-    for (int r = warp; r < BQ; r += THREADS / 32) {
-        const int t = t0 + r;
-        const size_t row = (size_t)b * T + t;
-        copy_row(Qs + r * ldk, q_u + row * ld_qkv + h * DH, DH, t < T, lane, 32);
-        copy_row(Qs + r * ldk + DH, q_rot + (row * H + h) * D, D, t < T, lane, 32);
-    }
-    for (int i = threadIdx.x; i < BQ * DH; i += THREADS) Os[(i / DH) * ldo_s + i % DH] = 0.0f;
-    for (int i = threadIdx.x; i < BQ; i += THREADS) {
-        m_s[i] = -INFINITY;
-        l_s[i] = 0.0f;
+    if (wg == 2) {
+        // producer: one thread keeps the ring full; v rides in every stage
+        if (threadIdx.x == 256) produce(sm, maps, b, h, t0, D, n_keys, 1, 0);
+        return;
     }
 
-    const int wr = warp * 16;  // this warp's 16 query rows
-    for (int s0 = 0; s0 < n_keys; s0 += BKV) {
-        __syncthreads();  // previous tile's K/V reads are done
-        for (int r = warp; r < BKV; r += THREADS / 32) {
-            const int s = s0 + r;
-            const size_t row = (size_t)b * T + s;
-            copy_row(Ks + r * ldk, k + row * ld_qkv + h * DH, DH, s < T, lane, 32);
-            copy_row(Ks + r * ldk + DH, k_std + (size_t)s * D, D, s < T, lane, 32);
-            copy_row(Vs + r * ldv, v + row * ld_qkv + h * DH, DH, s < T, lane, 32);
-        }
-        __syncthreads();
+    // consumers: warpgroup wg owns query rows t0 + 64 * wg .. + 63
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int row = wg * 64 + warp * 16 + lane / 4;  // this thread's rows: row, row + 8
+    const int cq = 2 * (lane % 4);                   // and columns 8j + cq, 8j + cq + 1
+    const uint32_t my_qu = sm.qu + wg * WG_QH, my_qr = sm.qr + wg * (64 * CW * 2);
 
-        // S = Q K^T for this warp's 16 rows x 64 keys.
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc[BKV / 16];
+    const int n_tiles = (n_keys + BKEY - 1) / BKEY;
+    const int n_clear = min(len, T);  // columns below it carry no mask
+    float s[32], o[16];
 #pragma unroll
-        for (int j = 0; j < BKV / 16; ++j) wmma::fill_fragment(sacc[j], 0.0f);
-        for (int kk = 0; kk < kd; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-            wmma::load_matrix_sync(fa, Qs + wr * ldk + kk, ldk);
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
 #pragma unroll
-            for (int j = 0; j < BKV / 16; ++j) {
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-                wmma::load_matrix_sync(fb, Ks + (16 * j) * ldk + kk, ldk);
-                wmma::mma_sync(sacc[j], fa, fb, sacc[j]);
+    for (int i = 0; i < 16; ++i) o[i] = 0.0f;
+    // running max (the same in the four lanes of a quad) and this lane's part
+    // of the running sum, for rows a (row) and b (row + 8)
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
+
+    mbar_wait(sm.q_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+        mbar_wait(sm.full_bar(it), (it / STAGES) & 1);
+        start_scores(s, my_qu, my_qr, sm.stage(it), nc);
+        wgmma_wait<0>();
+        fence_regs(s);
+        const int s0 = it * BKEY;
+        const bool edge = s0 + BKEY > n_clear;  // a tile with masked or absent columns
+        float mx_a = -INFINITY, mx_b = -INFINITY;
+        if (edge) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int col = s0 + 8 * j + cq + e;
+                    s[4 * j + e] = masked(s[4 * j + e], col, len, T);
+                    s[4 * j + 2 + e] = masked(s[4 * j + 2 + e], col, len, T);
+                }
             }
         }
 #pragma unroll
-        for (int j = 0; j < BKV / 16; ++j)
-            wmma::store_matrix_sync(Ss + wr * lds + 16 * j, sacc[j], lds, wmma::mem_row_major);
-        __syncwarp();
-
-        // Online softmax over this key tile, one row at a time.
-        for (int r = wr; r < wr + 16; ++r) {
-            float sv[2];
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-                const int c = lane + 32 * u, s = s0 + c;
-                float x = Ss[r * lds + c];
-                if (s >= T) x = -INFINITY;
-                else if (s >= len) x += MASK_NEG;
-                sv[u] = x;
-            }
-            const float m_old = m_s[r];
-            const float m_new = fmaxf(m_old, warp_max(fmaxf(sv[0], sv[1])));
-            const float e0 = exp2f(sv[0] - m_new), e1 = exp2f(sv[1] - m_new);
-            const float rs = warp_sum(e0 + e1);
-            Ps[r * ldp + lane] = to_bf(e0);
-            Ps[r * ldp + lane + 32] = to_bf(e1);
-            __syncwarp();
-            if (lane == 0) {
-                const float alpha = exp2f(m_old - m_new);
-                a_s[r] = alpha;
-                l_s[r] = l_s[r] * alpha + rs;
-                m_s[r] = m_new;
-            }
+        for (int j = 0; j < 8; ++j) {
+            mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+            mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
         }
-        __syncwarp();
-
-        // PV for this warp's rows; the product lands in the warp's S rows.
+        // every visited tile has a column below T, so the new max is finite
+        const float new_a = fmaxf(m_a, quad_max(mx_a)), new_b = fmaxf(m_b, quad_max(mx_b));
+        const float alpha_a = exp2f(m_a - new_a), alpha_b = exp2f(m_b - new_b);
+        m_a = new_a;
+        m_b = new_b;
+        float sum_a = 0.0f, sum_b = 0.0f;
+        uint32_t pd[4][4];
 #pragma unroll
-        for (int j = 0; j < DH / 16; ++j) {
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> pacc;
-            wmma::fill_fragment(pacc, 0.0f);
+        for (int j = 0; j < 8; ++j) {
+            const float a0 = exp2f(s[4 * j] - new_a), a1 = exp2f(s[4 * j + 1] - new_a);
+            const float b0 = exp2f(s[4 * j + 2] - new_b), b1 = exp2f(s[4 * j + 3] - new_b);
+            sum_a += a0 + a1;
+            sum_b += b0 + b1;
+            pack_p(pd, j, a0, a1, b0, b1);
+        }
+        l_a = l_a * alpha_a + sum_a;
+        l_b = l_b * alpha_b + sum_b;
 #pragma unroll
-            for (int kk = 0; kk < BKV; kk += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-                wmma::load_matrix_sync(fa, Ps + wr * ldp + kk, ldp);
-                wmma::load_matrix_sync(fb, Vs + kk * ldv + 16 * j, ldv);
-                wmma::mma_sync(pacc, fa, fb, pacc);
-            }
-            wmma::store_matrix_sync(Ss + wr * lds + 16 * j, pacc, lds, wmma::mem_row_major);
+        for (int j = 0; j < DH / 8; ++j) {
+            o[4 * j] *= alpha_a;
+            o[4 * j + 1] *= alpha_a;
+            o[4 * j + 2] *= alpha_b;
+            o[4 * j + 3] *= alpha_b;
         }
-        __syncwarp();
-        for (int i = lane; i < 16 * DH; i += 32) {
-            const int r = wr + i / DH, d = i % DH;
-            Os[r * ldo_s + d] = Os[r * ldo_s + d] * a_s[r] + Ss[r * lds + d];
-        }
-        __syncwarp();
+        add_pv(o, pd, sm.v_tile(it));
+        if (lane == 0) mbar_arrive(sm.empty_bar(it));
     }
 
-    for (int i = lane; i < 16 * DH; i += 32) {
-        const int r = wr + i / DH, d = i % DH;
-        const int t = t0 + r;
-        if (t < T) {
-            out[((size_t)b * T + t) * ld_o + h * DH + d] = to_bf(Os[r * ldo_s + d] * (1.0f / l_s[r]));
-        }
-    }
+    store_o(o, 1.0f / quad_sum(l_a), 1.0f / quad_sum(l_b), out, (size_t)ld_o, b, T, t0 + row, h, cq);
 }
 
 }  // namespace
@@ -198,16 +153,13 @@ rel_attention_kernel(const bf16* __restrict__ q_u, const bf16* __restrict__ k,
 ASR_API int asr_rel_attention(const void* q_u, const void* k, const void* v, const void* q_rot,
                               const void* k_std, const void* lengths, void* out, int B, int T,
                               int H, int dh, int D, int ld_qkv, int ld_o, void* stream) {
-    if (dh != DH || D % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    const Smem L(DH + D);
-    cudaError_t err = cudaFuncSetAttribute(rel_attention_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(L.total));
+    if (dh != DH || T < 1 || !supported(B, H, D) || ld_qkv % 8 != 0 || ld_qkv < H * DH || ld_o % 2 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    Maps maps;
+    cudaError_t err = make_maps(&maps, q_u, q_rot, k, v, k_std, B, T, H, D, ld_qkv);
+    if (err == cudaSuccess) err = allow_smem(rel_attention_kernel, D);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid(ceil_div(T, BQ), H, B);
-    rel_attention_kernel<<<grid, THREADS, L.total, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(q_u), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        ld_qkv, static_cast<const bf16*>(q_rot), static_cast<const bf16*>(k_std),
-        static_cast<const int*>(lengths), static_cast<bf16*>(out), ld_o, T, H, D);
+    rel_attention_kernel<<<grid(B, T, H), BLOCK_THREADS, smem_bytes(D / CW), static_cast<cudaStream_t>(stream)>>>(
+        maps, static_cast<const int*>(lengths), static_cast<bf16*>(out), ld_o, T, H, D);
     return static_cast<int>(cudaGetLastError());
 }

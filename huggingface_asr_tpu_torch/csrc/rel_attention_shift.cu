@@ -19,8 +19,11 @@
 // training forward: row max and sum first, then P = exp(S - m) / l rounded
 // to the element type and out += P v. Nothing quadratic reaches device
 // memory. Bound by bytes on the H100 (q_u, q_v, k, v, out once each; the
-// table is small and cached); as written the wmma products out of padded
-// shared memory bound it.
+// table is small and cached).
+//
+// This file holds the entry point and the fp32 kernel: exact FMA loops out of
+// padded shared memory, which hold the logic to the plain version at fp32
+// tolerance. bf16 inputs run rel_attention_shift_bf16.cu (wgmma + TMA).
 #include "attention_common.cuh"
 
 namespace {
@@ -57,6 +60,7 @@ __device__ __forceinline__ void load_tile(E* dst, int ld, const E* src, size_t s
     }
 }
 
+// (instantiated for fp32 only; bf16 runs shift_fwd_bf16)
 template <typename E>
 __global__ void __launch_bounds__(Tile<E>::B * 2)
 shift_attention_kernel(const E* __restrict__ q_u, const E* __restrict__ q_v,
@@ -168,6 +172,6 @@ ASR_API int asr_rel_attention_shift(const void* q_u, const void* q_v, const void
                                     int H, int dh, int is_bf16, float scale, void* stream) {
     if (dh != DH || T < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? run<bf16>(q_u, q_v, k, v, pos, lengths, out, B, T, H, scale, st)
+    return is_bf16 ? shift_fwd_bf16(q_u, q_v, k, v, pos, lengths, out, B, T, H, scale, st)
                    : run<float>(q_u, q_v, k, v, pos, lengths, out, B, T, H, scale, st);
 }

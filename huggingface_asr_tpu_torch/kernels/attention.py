@@ -5,8 +5,10 @@
     columns >= length := -1e9;  P = softmax in fp32, cast;  out = P v
 
 ``rel_attention`` has the JAX function's signature. On CUDA tensors it
-launches ``csrc/rel_attention_shift.cu`` (dh == 32, bf16 or fp32) or raises;
-on CPU tensors it runs ``rel_attention_plain_shift``. Inference only: no
+launches ``asr_rel_attention_shift`` (dh == 32; bf16 runs the wgmma + TMA kernel
+of ``csrc/rel_attention_shift_bf16.cu``, fp32 the exact FMA kernel of
+``csrc/rel_attention_shift.cu``) or raises; on CPU tensors it runs
+``rel_attention_plain_shift``. Inference only: no
 gradient is defined.
 """
 

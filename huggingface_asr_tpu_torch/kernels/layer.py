@@ -200,7 +200,8 @@ def pos_query(q_v, wp_e, wp_o, rot_cos, rot_sin, T: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Relative-position attention (K4's forward interface at dropout rate 0)
+# Relative-position attention, factored form (the interface of the training
+# attention's forward, without dropout)
 
 
 def rel_attention_plain(q_u, k, v, q_rot, k_std, lengths) -> torch.Tensor:
@@ -221,15 +222,26 @@ def rel_attention_plain(q_u, k, v, q_rot, k_std, lengths) -> torch.Tensor:
     return o.permute(0, 2, 1, 3).to(BF16).contiguous()
 
 
+def rel_attention_width_ok(D: int) -> bool:
+    """The q_rot / k_std widths ``csrc/rel_attention.cu`` takes: whole 64-column
+    chunks, and a query tile plus three key stages within a block's shared memory."""
+    return D % 64 == 0 and 64 <= D <= 256
+
+
 def rel_attention(q_u, k, v, q_rot, k_std, lengths) -> torch.Tensor:
     """``rel_attention_plain``; CUDA tensors run ``csrc/rel_attention.cu``
-    (head size 32; q_u, k, v may be column views of one (B*T, 3D) buffer)."""
+    (wgmma out of TMA-filled shared memory, one walk with an online softmax).
+    The kernel takes head size 32 and a q_rot width D that is a multiple of
+    64, at most 256; q_u, k, v may be column views of one (B*T, 3D) buffer,
+    which the kernel's tensor maps read in place."""
     if not _build.on_cuda(q_u, k, v, q_rot, k_std, lengths):
         return rel_attention_plain(q_u, k, v, q_rot, k_std, lengths)
     B, T, H, dh = q_u.shape
     D = q_rot.shape[-1]
     if dh != 32:
         raise ValueError(f"rel_attention kernel supports head size 32, got {dh}")
+    if not rel_attention_width_ok(D):
+        raise ValueError(f"rel_attention kernel needs D % 64 == 0 and D <= 256, got {D}")
     ld = q_u.stride(1)
     for name, t in (("q_u", q_u), ("k", k), ("v", v)):
         _build.check(t, name, BF16, (B, T, H, dh), contiguous=False)

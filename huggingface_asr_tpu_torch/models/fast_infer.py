@@ -23,6 +23,7 @@ from huggingface_asr_tpu_torch.kernels.layer import (
     ebranchformer_layer,
     ebranchformer_layer_plain,
     fold_layer_weights,
+    rel_attention_width_ok,
     relpos_kernel_tables,
 )
 from huggingface_asr_tpu_torch.kernels.subsample import (
@@ -58,6 +59,7 @@ def fused_encoder_ok(cfg: EBranchformerConfig, dtype: torch.dtype) -> bool:
         and cfg.hidden_act in ACT_CODES
         and cfg.csgu_activation in ACT_CODES
         and cfg.head_size == 32
+        and rel_attention_width_ok(cfg.hidden_size)
         and fits_subsample_kernel(cfg)
         and dtype == torch.bfloat16
     )

@@ -1,15 +1,18 @@
 """A/B of kernel source variants on one NVIDIA GPU.
 
-    python3 profile_kernel_variants.py conv2,k4 DIR_A [DIR_B ...]
+    python3 profile_kernel_variants.py conv2,k4,k1,k5 DIR_A [DIR_B ...]
 
 Each DIR is a directory holding a full copy of ``huggingface_asr_tpu_torch/csrc``
 (the package's own directory is a valid DIR). Every variant is built and run in
 a process of its own, in the order A B ... B A, so that two variants are
 compared inside one call on one card. For each variant the script prints
-ptxas's register and spill lines for the two wgmma kernels, then holds conv2
-(``conv2``) and the bf16 training-attention forward (``k4``) against their plain
-versions at small, ragged and flagship shapes and times them with CUDA events
-(median of 5 windows of 20 calls). Exits non-zero without a CUDA device.
+ptxas's register and spill lines for the wgmma kernels, then holds conv2
+(``conv2``), the bf16 training-attention forward (``k4``), the fused layer's
+inference attention (``k1``) and the bf16 shift-form inference attention
+(``k5``) against their plain versions at small, ragged and flagship shapes and
+times them with CUDA events (median of 5 windows of 20 calls). For ``k1`` and
+``k5`` it also prints the host's time per launch (the wrapper call at a tiny
+shape, where the device never falls behind). Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -19,40 +22,39 @@ import pathlib
 import subprocess
 import sys
 
-import numpy as np
-
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+
+from chip_smoke import host_us_per_launch, timed  # noqa: E402
 
 CONV2_SHAPES = [(3, 15, 8), (3, 79, 40), (8, 499, 256), (8, 999, 504), (128, 499, 256)]  # (B, T1, T2)
 K4_SHAPES = [  # (B, T, H, D, lengths or None for the smoke's ragged lengths, rate)
     (3, 70, 4, 128, [70, 33, 0], 0.0), (3, 129, 4, 128, [129, 64, 1], 0.1),
     (4, 333, 8, 256, [333, 1, 0, 200], 0.1), (8, 500, 8, 256, None, 0.1), (32, 250, 8, 256, None, 0.1),
 ]
+K1_SHAPES = [  # (B, T_pad, H, D, lengths or None for the smoke's ragged lengths)
+    (2, 64, 4, 128, [64, 0]), (3, 192, 4, 128, [187, 1, 0]), (2, 752, 8, 256, [752, 0]), (3, 752, 8, 256, [700, 1, 440]),
+    (8, 56, 8, 256, None), (8, 256, 8, 256, None), (8, 512, 8, 256, None), (128, 256, 8, 256, None),
+]
+K5_SHAPES = [  # (B, T, H, lengths or None)
+    (3, 70, 4, [70, 33, 0]), (3, 129, 4, [129, 64, 1]), (4, 333, 8, [333, 1, 0, 200]), (8, 500, 8, None),
+    (32, 250, 8, None),
+]
 
 
-def timed(fn, iters: int = 20, reps: int = 5) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    windows = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        windows.append(start.elapsed_time(end) / iters)
-    return float(np.median(windows))
+def smoke_lengths(B: int, T: int):
+    lens = [T - (i * T) // (2 * B) for i in range(B)]
+    lens[B // 2] = 0
+    return lens
 
 
 def run_variant(csrc: str, what: str) -> None:
     import torch
 
     from huggingface_asr_tpu_torch.kernels import _build
+    from huggingface_asr_tpu_torch.kernels import layer as K1
     from huggingface_asr_tpu_torch.kernels import subsample as K2
+    from huggingface_asr_tpu_torch.kernels.attention import rel_attention, rel_attention_plain_shift
     from huggingface_asr_tpu_torch.kernels.train_attention import rel_attention_train, rel_attention_train_plain
 
     if not torch.cuda.is_available():
@@ -62,7 +64,7 @@ def run_variant(csrc: str, what: str) -> None:
     keep = False
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("=="):
-            keep = "conv2" in line or "train_fwd" in line
+            keep = any(name in line for name in ("conv2", "train_fwd", "rel_attention.cu", "shift"))
         if keep and any(s in line for s in ("Used", "spill", "C7510", "C7515", "error")):
             print("  ", line.strip()[:200])
     dev = torch.device("cuda")
@@ -88,10 +90,7 @@ def run_variant(csrc: str, what: str) -> None:
             g = torch.Generator().manual_seed(T)
             mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
             q_u, q_rot, k, v, k_std = mk(B, T, H, 32), mk(B, T, H, D) * 0.25, mk(B, T, H, 32), mk(B, T, H, 32), mk(T, D)
-            if lens is None:
-                lens = [T - (i * T) // (2 * B) for i in range(B)]
-                lens[B // 2] = 0
-            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            lengths = torch.tensor(lens or smoke_lengths(B, T), dtype=torch.int32, device=dev)
             with torch.no_grad():
                 call = lambda: rel_attention_train(q_u, q_rot, k, v, k_std, lengths, 77, rate)  # noqa: E731
                 ref = rel_attention_train_plain(q_u, q_rot, k, v, k_std, lengths, 77, rate).float()
@@ -99,6 +98,36 @@ def run_variant(csrc: str, what: str) -> None:
                 ok = err <= tol * max(1.0, float(ref.abs().max()))
                 print(f"K4 fwd B={B} T={T} D={D} rate={rate} err={err:.3e} {'ok' if ok else 'FAIL'} "
                       f"ms={timed(call):.4f}", flush=True)
+    if "k1" in what:
+        for B, T, H, D, lens in K1_SHAPES:
+            g = torch.Generator().manual_seed(T)
+            mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
+            qkv, q_rot, k_std = mk(B * T, 3 * H * 32), mk(B, T, H, D) * 0.25, mk(T, D)
+            # column views of one buffer, as the layer passes them
+            q_u, k, v = (qkv[:, i * H * 32:(i + 1) * H * 32].view(B, T, H, 32) for i in range(3))
+            lengths = torch.tensor(lens or smoke_lengths(B, T), dtype=torch.int32, device=dev)
+            call = lambda: K1.rel_attention(q_u, k, v, q_rot, k_std, lengths)  # noqa: E731
+            verdict = "unchecked"
+            if B <= 8:
+                ref = K1.rel_attention_plain(q_u, k, v, q_rot, k_std, lengths).float()
+                err = float((call().float() - ref).abs().max())
+                verdict = f"err={err:.3e} {'ok' if err <= tol * max(1.0, float(ref.abs().max())) else 'FAIL'}"
+            print(f"K1 rel_attention B={B} T_pad={T} D={D} {verdict} ms={timed(call):.4f}", flush=True)
+            if (B, T) == (2, 64):
+                print(f"K1 rel_attention host us per launch: {host_us_per_launch(call):.2f}", flush=True)
+    if "k5" in what:
+        for B, T, H, lens in K5_SHAPES:
+            g = torch.Generator().manual_seed(T)
+            mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
+            args = [mk(B, T, H, 32), mk(B, T, H, 32), mk(B, T, H, 32), mk(B, T, H, 32), mk(2 * T - 1, H, 32),
+                    torch.tensor(lens or smoke_lengths(B, T), dtype=torch.int32, device=dev)]
+            call = lambda: rel_attention(*args)  # noqa: E731
+            ref = rel_attention_plain_shift(*args).float()
+            err = float((call().float() - ref).abs().max())
+            ok = err <= tol * max(1.0, float(ref.abs().max()))
+            print(f"K5 shift B={B} T={T} err={err:.3e} {'ok' if ok else 'FAIL'} ms={timed(call):.4f}", flush=True)
+            if T == 70:
+                print(f"K5 shift host us per launch: {host_us_per_launch(call):.2f}", flush=True)
 
 
 def main() -> None:

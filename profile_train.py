@@ -14,7 +14,9 @@ steps, then:
    and cuDNN products, the CTC loss, elementwise and reduction kernels), and
    reports two busy shares: the union of the kernels' intervals over the traced
    window (the profiler slows the host, so this understates a host-bound
-   step), and the traced device time per step over the untraced step time.
+   step), and the traced device time per step over the untraced step time;
+3. traces 3 evaluation steps on one batch and reports the step's time and the
+   device time of the shift-form inference attention kernel (K5) in it.
 
 Prints one JSON object with the card's name and power limit beside the
 numbers. Exits non-zero without a CUDA device.
@@ -37,6 +39,7 @@ BATCH, STEPS = 32, 3
 GROUPS = (
     ("attention fwd kernel (K4)", ("train_fwd_bf16_kernel", "train_fwd_kernel")),
     ("attention bwd kernels (K4)", ("train_bwd_dq_kernel", "train_bwd_dkv_kernel")),
+    ("attention inference kernel (K5)", ("shift_bf16_kernel", "shift_attention_kernel")),
     ("matrix products (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "gemv", "splitKreduce", "cublas")),
     ("convolutions (cuDNN and native depthwise)", ("conv", "cudnn", "wgrad", "dgrad", "implicit")),
     ("CTC loss", ("ctc_loss",)),
@@ -92,6 +95,21 @@ def main() -> None:
             spans.append((ev.time_range.start, ev.time_range.end))
             by_group[group_of(ev.name)] = by_group.get(group_of(ev.name), 0.0) + dur
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + dur
+    # evaluation: the plain model with the shift-form inference attention kernel
+    trainer.eval_step(state, batches[0])
+    torch.cuda.synchronize()
+    eval_ms = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as eval_prof:
+        for _ in range(STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainer.eval_step(state, batches[0])
+            end.record()
+            torch.cuda.synchronize()
+            eval_ms.append(start.elapsed_time(end))
+    k5_ms = sum((ev.time_range.end - ev.time_range.start) / 1e3 for ev in eval_prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and group_of(ev.name) == "attention inference kernel (K5)") / STEPS
     spans.sort()
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -114,6 +132,8 @@ def main() -> None:
         "device_share_of_untraced_step": sum(per_step.values()) / float(np.median(times)),
         "kernel_launches_per_step": len(spans) / STEPS,
         "top_kernels_ms_per_step": {k[:80]: v / STEPS for k, v in top},
+        "eval_step_ms_median_traced": float(np.median(eval_ms)),
+        "eval_step_k5_device_ms": k5_ms,
     }
     print(json.dumps(result))
 

@@ -194,6 +194,60 @@ def test_shift_attention(dtype, T, lens):
     _close(got, rel_attention_plain_shift(q_u, q_v, k, v, pos, lengths), ATT_TOL[dtype])
 
 
+@pytest.mark.parametrize("T,lens", [(333, [333, 1, 0, 200]), (500, [500, 437, 0, 1])])
+def test_shift_attention_bf16_past_one_block(T, lens):
+    """The bf16 kernel over several query blocks and key tiles at the flagship
+    head count: ragged last tiles, rows of length 1 and 0."""
+    dev = _cuda()
+    B, H = 4, 8
+    q_u, _, k, v, _, q_v = _attention_inputs(dev, torch.bfloat16, B, T, H, 16, seed=T + 2)
+    pos = torch.randn(2 * T - 1, H, 32, generator=torch.Generator().manual_seed(10)).bfloat16().to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    _build.reset_launch_counts()
+    got = rel_attention(q_u, q_v, k, v, pos, lengths)
+    assert _build.LAUNCHES["asr_rel_attention_shift"] == 1
+    _close(got, rel_attention_plain_shift(q_u, q_v, k, v, pos, lengths), ATT_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("B,T,H,D,lens", [(2, 64, 4, 128, [64, 0]), (3, 192, 4, 128, [187, 1, 0]),
+                                          (2, 752, 8, 256, [752, 0]), (3, 752, 8, 256, [700, 1, 440])])
+def test_layer_rel_attention_on_strided_views(B, T, H, D, lens):
+    """The fused layer's attention kernel on column views of one (B*T, 3 * H * 32)
+    buffer: fewer rows than one block, key loops past one tile, a ragged last
+    tile (752 = 11.75 tiles), rows of length 0 and 1."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(T + B)
+    mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
+    qkv, q_rot, k_std = mk(B * T, 3 * H * 32), mk(B, T, H, D) * 0.25, mk(T, D)
+    q_u, k, v = (qkv[:, i * H * 32:(i + 1) * H * 32].view(B, T, H, 32) for i in range(3))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    _build.reset_launch_counts()
+    got = K1.rel_attention(q_u, k, v, q_rot, k_std, lengths)
+    assert _build.LAUNCHES["asr_rel_attention"] == 1 and got.shape == (B, T, H, 32)
+    _close(got, K1.rel_attention_plain(q_u, k, v, q_rot, k_std, lengths), 2 ** -6)
+
+
+@pytest.mark.parametrize("D", [48, 96, 320])
+def test_layer_rel_attention_raises_on_widths_it_does_not_take(D):
+    """D must be whole 64-column chunks and fit a block's shared memory; such a
+    config is also kept off the fused path."""
+    import dataclasses
+
+    from huggingface_asr_tpu_torch.models.fast_infer import fused_encoder_ok
+
+    dev = _cuda()
+    z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16, device=dev)  # noqa: E731
+    lengths = torch.tensor([8], dtype=torch.int32, device=dev)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError):
+        K1.rel_attention(z(1, 8, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, D), z(8, D), lengths)
+    assert dict(_build.LAUNCHES) == before
+    if D % 32 == 0:
+        cfg = dataclasses.replace(CFG, hidden_size=D, num_attention_heads=D // 32, conv_dim=(256, 256))
+        assert cfg.head_size == 32 and not fused_encoder_ok(cfg, torch.bfloat16)
+        assert fused_encoder_ok(dataclasses.replace(cfg, hidden_size=128, num_attention_heads=4), torch.bfloat16)
+
+
 @pytest.mark.parametrize("impl,heads,launched", [("auto", 4, True), ("pallas", 4, True), ("xla", 4, False),
                                                  ("auto", 2, None), ("pallas", 2, None)])
 def test_model_attention_dispatch_on_the_card(impl, heads, launched):
