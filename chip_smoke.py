@@ -13,7 +13,12 @@
    the 2 s, 20 s and 30 s buckets (T_pad = 56, 512, 752: fewer rows than one
    block, key loops past one tile, a ragged last tile) with lengths that
    include 0 and 1, and timed at B=128, T_pad=256; the host's time per launch
-   of the two inference attention kernels;
+   of the two inference attention kernels; the GEMM once more at M = 32,768
+   rows (B=128, T_pad=256: FF1-in, FF1-out with its residual, QKV with its
+   second output, cg_w2 into a column slice of a wider buffer, and the
+   subsampler's out-dense at K=5120), each beside its bound and ``F.linear``,
+   at a ragged M (B=1, T_pad=56) and into each half of ``merged``, where the
+   other half and the rows past M must stay untouched;
 4. writes a flagship E-Branchformer CTC model with seeded random weights
    (12 layers, D=256, 8 heads, I=1024, 256x256 subsampler, 500+1 outputs),
    loads it through ASRPipeline(device="cuda") and answers requests of 1, 4
@@ -27,7 +32,8 @@
    plain versions at B=8, T=250 and T=500, ragged lengths with one
    zero-length row, bf16 and fp32, dropout rate 0 and 0.1, once more at
    T=333 with rows of length 1 and 0 (the shift form also at T=70, one ragged
-   tile), checks that the
+   tile), the training kernel's backward also at D = 64 and 128 (T = 70 and
+   250), checks that the
    kernel's keep-mask is the plain version's bit for bit, then holds them
    against their plain versions once more and times them at the training
    path's shape (B=32, T=250, bf16, rate 0.1);
@@ -489,13 +495,69 @@ def main() -> None:
     del fi
     torch.cuda.empty_cache()
 
+    # ---- the GEMM at the rows of a B=128 x 10 s request (M = 128 * 256), with
+    # layer 0's folded weights and the subsampler's out-dense; then at a ragged
+    # M and into each half of a wider buffer. F.linear is the library call,
+    # without what the kernel's epilogue fuses.
+    print(f"-- gemm at M={B_big * 256} (B={B_big}, T_pad=256), at M=56, and into column slices", flush=True)
+    gen = torch.Generator().manual_seed(3)
+    rows = lambda m, k: torch.randn(m, k, generator=gen).bfloat16().to(dev)  # noqa: E731
+    I = w["ff1_wi"].shape[1]
+    Cg = w["cg_w2"].shape[0]
+    wout, bout = fused.subsample["wout"], fused.subsample["bout"]
+
+    def gemm_case(name, key, M, a, wt, bias, lib=True, **kw):
+        K_, N_ = wt.shape
+        moved = nbytes(a, wt, bias) + 2 * M * N_ + sum(nbytes(kw[k]) for k in ("residual",) if k in kw) \
+            + (2 * M * kw["bias2"].shape[0] if "bias2" in kw else 0)
+        wt_t, b16 = wt.t(), bias.bfloat16()
+        a_lin = a.contiguous()
+        return compare(name, key, lambda: K1.gemm(a, wt, bias, **kw), lambda: K1.gemm_plain(a, wt, bias, **kw),
+                       2 ** -6, work=(2.0 * M * K_ * N_, moved, "bf16"),
+                       library_fn=(lambda: F.linear(a_lin, wt_t, b16)) if lib else None)
+
+    Mb = B_big * 256
+    with torch.no_grad():
+        g_big, x_big = rows(Mb, D), rows(Mb, D)
+        h_big = gemm_case("gemm ff1_in (+act) M=32768", "gemm_m32768_ff1_in", Mb, g_big, w["ff1_wi"], w["ff1_bi"],
+                          act=cfg.hidden_act)
+        gemm_case("gemm ff1_out (+res) M=32768", "gemm_m32768_ff1_out", Mb, h_big, w["ff1_wo"], w["ff1_bo"],
+                  residual=x_big, alpha=0.5)
+        gemm_case("gemm qkv (dual) M=32768", "gemm_m32768_qkv", Mb, g_big, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
+        merged_big = torch.full((Mb + 8, 2 * D), 7.0, dtype=torch.bfloat16, device=dev)
+        gemm_case("gemm cg_w2 -> merged[:, D:]", "gemm_m32768_cg_w2", Mb, rows(Mb, Cg), w["cg_w2"], w["cg_b2"],
+                  out=merged_big[:Mb, D:])
+        if not bool((merged_big[:Mb, :D] == 7.0).all()) or not bool((merged_big[Mb:] == 7.0).all()):
+            failures.append("gemm cg_w2: wrote outside its column slice")
+        del merged_big, h_big
+        gemm_case("gemm out-dense (K=5120)", "gemm_m32768_out_dense", Mb, rows(Mb, wout.shape[0]), wout, bout,
+                  round_first=True)
+        del g_big, x_big
+        torch.cuda.empty_cache()
+        # a ragged M (B=1, T_pad=56: less than one tile), every epilogue, and both halves of `merged`
+        Ms = 56
+        g_s, x_s = rows(Ms, D), rows(Ms, D)
+        gemm_case("gemm ff1_in M=56", "gemm", Ms, g_s, w["ff1_wi"], w["ff1_bi"], lib=False, act=cfg.hidden_act)
+        gemm_case("gemm ff1_out M=56", "gemm", Ms, rows(Ms, I), w["ff1_wo"], w["ff1_bo"], lib=False,
+                  residual=x_s, alpha=0.5)
+        gemm_case("gemm qkv M=56", "gemm", Ms, g_s, w["w_qkv"], w["b_qkv"], lib=False, bias2=w["bq_v"])
+        gemm_case("gemm out-dense M=56", "gemm", Ms, rows(Ms, wout.shape[0]), wout, bout, lib=False, round_first=True)
+        for half, (wt, bias, a_s) in enumerate(((w["wo"], w["bo"], g_s), (w["cg_w2"], w["cg_b2"], rows(Ms, Cg)))):
+            merged_s = torch.full((Ms + 8, 2 * D), 7.0, dtype=torch.bfloat16, device=dev)
+            gemm_case(f"gemm -> merged half {half} M=56", "gemm", Ms, a_s, wt, bias, lib=False,
+                      out=merged_s[:Ms, half * D:(half + 1) * D])
+            other = merged_s[:Ms, (1 - half) * D:(2 - half) * D]
+            if not bool((other == 7.0).all()) or not bool((merged_s[Ms:] == 7.0).all()):
+                failures.append(f"gemm into merged half {half}: wrote outside its slice")
+
     fi = factored_inputs(1, 64, [64], seed=1)
     g = torch.Generator().manual_seed(2)
     si = [torch.randn(1, 64, H, dh, generator=g).bfloat16().to(dev) for _ in range(4)]
     si += [torch.randn(127, H, dh, generator=g).bfloat16().to(dev), fi[5]]
     print(f"host time per launch (B=1, T=64): rel_attention {host_us_per_launch(lambda: K1.rel_attention(*fi)):.2f} us, "
           f"shift attention {host_us_per_launch(lambda: rel_attention(*si)):.2f} us, "
-          f"layernorm {host_us_per_launch(lambda: K1.layer_norm(xf[:64], w['attn_ln_g'], w['attn_ln_b'], 1e-5)):.2f} us",
+          f"layernorm {host_us_per_launch(lambda: K1.layer_norm(xf[:64], w['attn_ln_g'], w['attn_ln_b'], 1e-5)):.2f} us, "
+          f"gemm {host_us_per_launch(lambda: K1.gemm(xf[:64], w['ff1_wi'], w['ff1_bi'], act='gelu')):.2f} us",
           flush=True)
 
     # ---- the main path: ASRPipeline on the card
@@ -662,6 +724,26 @@ def main() -> None:
         print(f"  K5 {'fwd':18s} {tag:28s} max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append(f"K5 {tag}")
+
+    # The backward at the narrower widths the kernels take (q_rot and k_std in
+    # one and two 64-column chunks), a ragged single tile and the training length.
+    def narrow_inputs(B, T, Hn, Dn, seed):
+        g = torch.Generator().manual_seed(seed)
+        mk = lambda *shape: torch.randn(*shape, generator=g).bfloat16().to(dev)  # noqa: E731
+        return dict(q_u=mk(B, T, Hn, dh), q_rot=mk(B, T, Hn, Dn) * 0.25, k=mk(B, T, Hn, dh), v=mk(B, T, Hn, dh),
+                    k_std=mk(T, Dn), cot=mk(B, T, Hn, dh),
+                    lengths=torch.tensor([T, 1, 0, (2 * T) // 3][:B], dtype=torch.int32, device=dev))
+
+    for Dn in (64, 128):
+        for B, T in ((3, 70), (4, 250)):
+            t = narrow_inputs(B, T, Dn // dh, Dn, seed=Dn + T)
+            got = train_attention_run(rel_attention_train, t, 77, 0.1)
+            ref = train_attention_run(rel_attention_train_plain, t, 77, 0.1)
+            err, ok = worst(got[1:], ref[1:], att_tol[torch.bfloat16])
+            print(f"  K4 {'bwd (4 gradients)':18s} {f'D={Dn} T={T} lengths T,1,0,..':28s} max_abs_err={err:.3e} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"K4 bwd D={Dn} T={T}")
 
     # The kernel's keep-mask, read out of the kernel itself: with zero queries
     # every valid key has the same probability, and v = one-hot of (s mod 32)
@@ -831,11 +913,13 @@ def main() -> None:
         "dwconv_merge": ("dwconv_merge", "csrc/dwconv.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
         "rel_attention_train_fwd": ("asr_rel_attention_train_fwd", "csrc/rel_attention_train_fwd.cu",
                                     "huggingface_asr_tpu/ops/pallas_train_attention.py:105"),
-        "rel_attention_train_bwd": ("asr_rel_attention_train_bwd", "csrc/rel_attention_train.cu",
+        "rel_attention_train_bwd": ("asr_rel_attention_train_bwd", "csrc/rel_attention_train_bwd.cu",
                                     "huggingface_asr_tpu/ops/pallas_train_attention.py:130"),
         "rel_attention_shift": ("asr_rel_attention_shift", "csrc/rel_attention_shift_bf16.cu",
                                 "huggingface_asr_tpu/ops/pallas_attention.py:34"),
     }
+    # the GEMM's readings at M = 32,768: the same kernel, source and counter
+    routes.update({k: routes["gemm"] for k in results if k.startswith("gemm_m32768_")})
     launches.update({k: v for k, v in train_launches.items() if k.startswith("asr_rel_attention_")
                      and k != "asr_rel_attention"})
     kernels = []

@@ -3,22 +3,17 @@
 // (rel_attention_shift.cu); the mask, the visited keys and the dropout hash
 // also serve the kernels on wgmma (attention_wgmma.cuh).
 //
-// One template parameter E is the element type of the inputs and outputs:
-// bf16 (tile products on wmma fragments, fp32 accumulation: the training
-// backward) or float (tile products as exact fp32 FMA loops, the slow path
-// that holds the kernels' logic to the plain version at fp32 tolerance).
-// Everything between the products (scores, softmax, dropout, dS) is fp32 in
-// both.
+// One template parameter E is the element type of the inputs and outputs of
+// the kernels that are not on wgmma. Only float is instantiated today (tile
+// products as exact fp32 FMA loops, the slow path that holds the kernels'
+// logic to the plain version at fp32 tolerance); bf16 runs the wgmma kernels.
+// Everything between the products (scores, softmax, dropout, dS) is fp32.
 //
 // Tiles: a block owns TILE<E> query rows (or key rows), one warp per 16
 // rows, and walks the other direction in tiles of the same size. Rows past
 // the sequence end are zero-filled on load and masked on store, so any
 // sequence length runs.
 #pragma once
-
-#include <mma.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -29,7 +24,6 @@ constexpr float MASK_NEG = -1.0e9f;
 constexpr size_t MAX_SMEM = 232448;  // 227 KB, the most a Hopper block can use
 
 template <typename E> struct Tile;
-template <> struct Tile<bf16> { static constexpr int B = 64; };
 template <> struct Tile<float> { static constexpr int B = 32; };
 
 __device__ __forceinline__ float as_float(bf16 v) { return __bfloat162float(v); }
@@ -55,50 +49,13 @@ __device__ __forceinline__ void copy_row(E* dst, const E* src, int n, bool valid
     }
 }
 
-// Warp-level product on shared-memory tiles, fp32 result in shared memory:
+// Warp-level product on shared-memory tiles, fp32 result in shared memory,
+// as exact FMA loops:
 //   C[16 x 16*n_tiles] (+)= A[16 x K] * B[K x 16*n_tiles]
 //   A_COL: A(i, k) at A[k * lda + i], else A[i * lda + k]
 //   B_COL: B(k, j) at B[j * ldb + k], else B[k * ldb + j]
 //   ACC:   add to what C holds, else overwrite.
-// K is a multiple of 16. Ends with __syncwarp(), so the warp may read C.
-template <bool A_COL, bool B_COL, bool ACC>
-__device__ __forceinline__ void warp_mm(float* C, int ldc, const bf16* A, int lda, const bf16* B,
-                                        int ldb, int K, int n_tiles) {
-    using namespace nvcuda;
-    using ALayout = typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
-    using BLayout = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-    for (int j0 = 0; j0 < n_tiles; j0 += 4) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            if (ACC && j0 + j < n_tiles)
-                wmma::load_matrix_sync(acc[j], C + 16 * (j0 + j), ldc, wmma::mem_row_major);
-            else
-                wmma::fill_fragment(acc[j], 0.0f);
-        }
-        for (int kk = 0; kk < K; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> fa;
-            wmma::load_matrix_sync(fa, A_COL ? A + (size_t)kk * lda : A + kk, lda);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                if (j0 + j < n_tiles) {
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb;
-                    const int n0 = 16 * (j0 + j);
-                    wmma::load_matrix_sync(fb, B_COL ? B + (size_t)n0 * ldb + kk
-                                                     : B + (size_t)kk * ldb + n0, ldb);
-                    wmma::mma_sync(acc[j], fa, fb, acc[j]);
-                }
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            if (j0 + j < n_tiles)
-                wmma::store_matrix_sync(C + 16 * (j0 + j), acc[j], ldc, wmma::mem_row_major);
-        }
-    }
-    __syncwarp();
-}
-
+// Ends with __syncwarp(), so the warp may read C.
 template <bool A_COL, bool B_COL, bool ACC>
 __device__ __forceinline__ void warp_mm(float* C, int ldc, const float* A, int lda, const float* B,
                                         int ldb, int K, int n_tiles) {
@@ -168,6 +125,13 @@ struct DropoutArgs {
 int train_fwd_bf16(const void* q_u, const void* q_rot, const void* k, const void* v,
                    const void* k_std, const void* lengths, void* out, void* stats, int B, int T,
                    int H, int D, float scale, DropoutArgs drop, cudaStream_t stream);
+
+// The bf16 training backward (rel_attention_train_bwd.cu): the dq kernel,
+// then the dk/dv kernel, which reads the first's delta. Same contract.
+int train_bwd_bf16(const void* q_u, const void* q_rot, const void* k, const void* v, const void* k_std,
+                   const void* lengths, const void* d_out, const void* stats, void* delta, void* dq_u,
+                   void* dq_rot, void* dk, void* dv, int B, int T, int H, int D, float scale,
+                   DropoutArgs drop, cudaStream_t stream);
 
 // The bf16 shift-form inference kernel (rel_attention_shift_bf16.cu): same
 // contract. Tensors (B, T, H, dh) contiguous, the table (2T - 1, H, dh).

@@ -11,7 +11,9 @@
 // reported to an mbarrier. Rows past the sequence end come back as zeros.
 //
 // The quad reductions and the P.V step also serve rel_attention_shift_bf16.cu,
-// whose ring carries other tiles.
+// whose ring carries other tiles; the quad reductions, the P packing and the
+// O store serve the training backward, rel_attention_train_bwd.cu, whose two
+// kernels have their own layout (the keys are resident in one of them).
 #pragma once
 
 #include "attention_common.cuh"

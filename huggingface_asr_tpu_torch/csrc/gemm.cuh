@@ -1,21 +1,50 @@
-// bf16 x bf16 -> fp32-accumulated tiled GEMM with a fused epilogue.
+// bf16 x bf16 -> fp32-accumulated GEMM with a fused epilogue, on wgmma + TMA.
 //
 // Replaces the `_mm` / `jnp.dot(..., preferred_element_type=f32)` products
 // inside the TPU kernels ops/pallas_layer.py::_layer_kernel (FF1/FF2 in and
 // out, Q/K/V, output projection, cgMLP proj1/proj2, merge_proj) and
 // ops/pallas_subsample.py::_subsample_kernel (out-dense, projection; conv2,
-// the one compute-bound product, has its own wgmma kernel in conv2.cu).
+// the one compute-bound product, has its own kernel in conv2.cu).
 //
-// On the H100 these products are small (K <= 5120, N <= 1024) and the layer
-// is memory-bound at D=256: what bounds a GEMM here is reading A and writing
-// C, not tensor-core rate. The design keeps it simple and right: 64x64x32
-// block tiles, four warps of 32x32 each on `nvcuda::wmma` bf16 fragments
-// (mma.sync underneath), and an epilogue that applies bias, activation and
-// residual in fp32 on the accumulator tile before ONE bf16 write, so no
-// intermediate makes an extra round trip through device memory.
-// wgmma/TMA pipelining is later work.
+// What bounds it on the H100: bytes. The products are skinny (K = 256..1024,
+// 5120 once; N = 256..1024) over many rows (M = B x T_pad, 32,768 at B=128 x
+// 10 s): FF1-in reads 17 MB and writes 67 MB for 17 GFLOP, so a call lives by
+// how A and the output move, not by the tensor cores; and with K = 256 a tile's
+// epilogue (35 instructions a value with GELU) takes longer than its
+// products. 110 calls per request.
 //
-// A is read through a loader functor (row-major today).
+// What the design does about it:
+//   * A (M, K) row-major and the weight (K, N) row-major arrive as TMA boxes
+//     of 64 k-values in the 128-byte-swizzled layout wgmma reads (the weight as
+//     the transposed B operand, so it keeps its layout), through a ring of
+//     stages under full/empty mbarriers filled by one producer thread: no
+//     thread computes an address and the loads of the next k-steps run under
+//     the products of this one. Rows past M and columns past K or N are the
+//     TMA's out-of-range zeros. The accumulator stays in registers.
+//   * Two kernels, chosen in launch() from (M, N). Large (gemm_kernel_pingpong,
+//     128 x 128 tiles): one block per SM that stays there and takes tiles
+//     blockIdx.x, blockIdx.x + gridDim.x, ...; the producer streams the k-steps
+//     of all of them through a ring of six 32 KB stages without a pause at a
+//     tile's end; two teams of two consumer warpgroups (64 rows each) take the
+//     tiles in turn, so that one team's epilogue runs under the other's
+//     products and under the loads of the tiles after them, and sixteen warps
+//     share the epilogue's latency. Small (gemm_kernel, 64 x 64 tiles, one
+//     consumer warpgroup, ring of four 16 KB stages, several blocks per SM)
+//     when the large tiles would not fill the card's 132 SMs once. With column
+//     tiles fastest in the tile order an A tile is fetched from device memory
+//     once and re-read by its other column tiles from L2.
+//   * The epilogue runs on the accumulator fragment: bias, rounding,
+//     activation and rounding in the fragment's own layout; then the four
+//     lanes of a quad trade their packed pairs (quad_transpose) so that each
+//     holds 8 consecutive columns, reads the residual as one 16-byte load and
+//     writes one 16-byte store: a row of the tile leaves in 64-byte pieces.
+//     Rows >= M and columns >= N are never written, so `out` may be a column
+//     slice of a wider buffer. No fp32 tile passes through shared memory.
+//     It is straight-line code: the activation is a template parameter (a
+//     switch per value kept the 64 chains of a thread apart), GELU is
+//     evaluated on eight values at a time without a branch (gelu8), the
+//     tile's biases wait in shared memory from before the first product, and
+//     a thread's residual loads are all issued before the first is used.
 //
 // Rounding points (one numeric contract, the TPU kernels'):
 //   round_first = 0 (K1's `_mm`):        v = bf16(acc + bias)
@@ -25,15 +54,14 @@
 //   dual output (Q):   out2 = bf16(acc + bias2) for columns < n2
 #pragma once
 
-#include <mma.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace gemm {
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int APAD = 8, BPAD = 8, CPAD = 4;
-constexpr int THREADS = 128;
+using namespace hopper;
+
+constexpr int BK = 64;  // k-values of a stage: one 128-byte-swizzled row
+constexpr int SMS = 132;  // the card's SMs
 
 struct Epilogue {
     const float* bias;   // [N] or null
@@ -47,92 +75,442 @@ struct Epilogue {
     int round_first;
 };
 
-struct RowMajorA {
-    const bf16* a;
-    int lda;
-    __device__ __forceinline__ uint4 load(int m, int k) const {
-        return *reinterpret_cast<const uint4*>(a + (size_t)m * lda + k);
-    }
+struct Maps {
+    CUtensorMap a, b;  // A as (k, m) boxes {64, BM}; the weight as (n, k) boxes {64, 64}
 };
 
-template <class Loader>
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(Loader A, const bf16* __restrict__ B, int ldb, int M, int N, int K, Epilogue e) {
-    using namespace nvcuda;
-    __shared__ __align__(128) bf16 As[BM][BK + APAD];
-    __shared__ __align__(128) bf16 Bs[BK][BN + BPAD];
-    __shared__ __align__(128) float Cs[BM][BN + CPAD];
+// The small tile's shape: NWG x 64 rows and BN columns; STAGES ring stages; BLOCKS per SM.
+template <int NWG_, int BN_, int STAGES_, int BLOCKS_>
+struct Tile {
+    static constexpr int NWG = NWG_, BM = 64 * NWG_, BN = BN_, STAGES = STAGES_, BLOCKS = BLOCKS_;
+    static constexpr int THREADS = 128 * NWG_ + 32;  // the consumers and the producer's warp
+    static constexpr uint32_t A_BYTES = BM * BK * 2, B_BOX = BK * 64 * 2, B_BYTES = B_BOX * (BN / 64);
+    static constexpr uint32_t STAGE_BYTES = A_BYTES + B_BYTES;
+    static constexpr uint32_t SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 8 * 2 * STAGES + 2 * BN * 4;
+};
+using Small = Tile<1, 64, 4, 3>;
 
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-    const int warp = threadIdx.x / 32;
-    const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+// The large tile: 128 x 128 per team of two consumer warpgroups, two teams
+// taking turns in a block that stays on its SM, and a producer warpgroup whose
+// registers go to the consumers (64 accumulators and the epilogue's values).
+struct Large {
+    static constexpr int BM = 128, BN = 128, STAGES = 6, THREADS = 640;
+    static constexpr int CONSUMER_REGS = 112, PRODUCER_REGS = 32;  // 128 * (4 * 112 + 32) = 640 * 96
+    static constexpr uint32_t A_BYTES = BM * BK * 2, B_BOX = BK * 64 * 2, B_BYTES = B_BOX * (BN / 64);
+    static constexpr uint32_t STAGE_BYTES = A_BYTES + B_BYTES;
+    static constexpr uint32_t SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 8 * (2 * STAGES + 2) + 2 * 2 * BN * 4;
+};
 
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+__device__ __forceinline__ void product(float (&acc)[64], uint64_t a, uint64_t b) {
+    wgmma_m64n128k16_ss_bt(acc, a, b, 1);
+}
+__device__ __forceinline__ void product(float (&acc)[32], uint64_t a, uint64_t b) {
+    wgmma_m64n64k16_ss_bt(acc, a, b, 1);
+}
 
-    for (int k0 = 0; k0 < K; k0 += BK) {
-        for (int i = threadIdx.x; i < BM * (BK / 8); i += THREADS) {
-            const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-            const int m = m0 + r;
-            uint4 v = make_uint4(0u, 0u, 0u, 0u);
-            if (m < M) v = A.load(m, k0 + c);
-            *reinterpret_cast<uint4*>(&As[r][c]) = v;
-        }
-        for (int i = threadIdx.x; i < BK * (BN / 8); i += THREADS) {
-            const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-            *reinterpret_cast<uint4*>(&Bs[r][c]) =
-                *reinterpret_cast<const uint4*>(B + (size_t)(k0 + r) * ldb + n0 + c);
-        }
-        __syncthreads();
+// GELU (erf form) of eight values at once, stage by stage, so that eight
+// independent chains are in flight and no branch parts them: Phi(x) =
+// 1/2 erfc(-x / sqrt 2) with erfc(z) = t exp(-z^2 + P(t)), t = 1 / (1 + z / 2)
+// for z >= 0 (Numerical Recipes' erfcc, relative error < 1.2e-7 also in the
+// tail; erfcf costs twice the instructions and branches), the exponential as
+// ex2 with log2(e) and the factor 1/2 folded into P's coefficients.
+__device__ __forceinline__ void gelu8(float (&x)[8]) {
+    constexpr float L = 1.4426950408889634f;  // log2(e)
+    constexpr float C[10] = {0.17087277f * L, -0.82215223f * L, 1.48851587f * L, -1.13520398f * L,
+                             0.27886807f * L, -0.18628806f * L, 0.09678418f * L, 0.37409196f * L,
+                             1.00002368f * L, -1.26551223f * L - 1.0f};
+    float a[8], t[8], p[8];
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+    for (int i = 0; i < 8; ++i) a[i] = fabsf(x[i]) * 0.70710678118654752f;
 #pragma unroll
-            for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], &As[wm + 16 * i][kk], BK + APAD);
+    for (int i = 0; i < 8; ++i) asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t[i]) : "f"(fmaf(0.5f, a[i], 1.0f)));
 #pragma unroll
-            for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], &Bs[kk][wn + 16 * j], BN + BPAD);
+    for (int i = 0; i < 8; ++i) p[i] = C[0];
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
+    for (int c = 1; c < 10; ++c) {
 #pragma unroll
-                for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-        __syncthreads();
+        for (int i = 0; i < 8; ++i) p[i] = fmaf(p[i], t[i], C[c]);
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 8; ++i) p[i] = fmaf(-a[i] * a[i], L, p[i]);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(&Cs[wm + 16 * i][wn + 16 * j], acc[i][j], BN + CPAD,
-                                    wmma::mem_row_major);
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-        const int r = i / BN, c = i % BN;
-        const int m = m0 + r, n = n0 + c;
-        if (m >= M) continue;
-        const float a = Cs[r][c];
-        if (e.out2 != nullptr && n < e.n2)
-            e.out2[(size_t)m * e.ldo2 + n] = to_bf(a + e.bias2[n]);
-        const float b = e.bias ? e.bias[n] : 0.0f;
-        float v = e.round_first ? round_bf(round_bf(a) + b) : round_bf(a + b);
-        if (e.act != ACT_IDENTITY) v = round_bf(apply_act(e.act, v));
-        if (e.res != nullptr) v = to_f(e.res[(size_t)m * e.ldr + n]) + e.alpha * v;
-        e.out[(size_t)m * e.ldo + n] = to_bf(v);
+    for (int i = 0; i < 8; ++i) asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p[i]) : "f"(p[i]));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const float h = t[i] * p[i];  // Phi(-|x|)
+        x[i] *= x[i] <= 0.0f ? h : 1.0f - h;
     }
 }
 
-// Shape contract checked by the Python wrapper: N % BN == 0, K % BK == 0,
-// lda/ldb multiples of 8 and 16-byte aligned base pointers.
-template <class Loader>
-cudaError_t launch(const Loader& A, const bf16* B, int ldb, int M, int N, int K,
-                   const Epilogue& e, cudaStream_t stream) {
-    dim3 grid(N / BN, ceil_div(M, BM));
-    gemm_kernel<Loader><<<grid, THREADS, 0, stream>>>(A, B, ldb, M, N, K, e);
+// The epilogue on one accumulator fragment of 64 rows x BN columns whose first
+// row is m_top and first column n0: this thread's rows m_a, m_a + 8 and, of
+// every 8-column group j, columns 2q, 2q + 1. Straight-line code (the
+// activation is a template parameter, round_first a select), so that the
+// chains of the 64 values overlap. Every thread of the warpgroup calls it.
+template <int BN, int ACT>
+__device__ __forceinline__ void epilogue(float (&acc)[BN / 2], int m_top, int n0, const float* bias_s,
+                                         const float* bias2_s, bool dual, int M, int N, const Epilogue& e) {
+    constexpr int NG = BN / 8;
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int q = lane % 4;
+    const int m_a = m_top + warp * 16 + lane / 4, m_b = m_a + 8;
+    const int n_mine = n0 + 8 * q;  // after a trade of groups j0 .. j0 + 3: columns n_mine + 8 j0 .. + 7
+    if (dual) {
+#pragma unroll
+        for (int j0 = 0; j0 < NG; j0 += 4) {
+            uint32_t xa[4], xb[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int j = j0 + i;
+                const float2 b2 = *reinterpret_cast<const float2*>(bias2_s + 8 * j + 2 * q);
+                xa[i] = pack_bf16(acc[4 * j] + b2.x, acc[4 * j + 1] + b2.y);
+                xb[i] = pack_bf16(acc[4 * j + 2] + b2.x, acc[4 * j + 3] + b2.y);
+            }
+            quad_transpose(xa, q);
+            quad_transpose(xb, q);
+            const int n = n_mine + 8 * j0;
+            if (n < e.n2) {
+                if (m_a < M)
+                    *reinterpret_cast<uint4*>(e.out2 + (size_t)m_a * e.ldo2 + n) = make_uint4(xa[0], xa[1], xa[2], xa[3]);
+                if (m_b < M)
+                    *reinterpret_cast<uint4*>(e.out2 + (size_t)m_b * e.ldo2 + n) = make_uint4(xb[0], xb[1], xb[2], xb[3]);
+            }
+        }
+    }
+    // Every rounding is the one a bf16 pair's pack does (the conversion unit
+    // is the scarce one here: one conversion per two values and rounding point).
+    if (e.round_first) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; i += 2) {
+            const uint32_t r = pack_bf16(acc[i], acc[i + 1]);
+            acc[i] = bf16_lo(r);
+            acc[i + 1] = bf16_hi(r);
+        }
+    }
+    uint32_t va[NG], vb[NG];  // the chain's rounded values, packed: rows a and b of group j
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+        const float2 bias = *reinterpret_cast<const float2*>(bias_s + 8 * j + 2 * q);
+        va[j] = pack_bf16(acc[4 * j] + bias.x, acc[4 * j + 1] + bias.y);
+        vb[j] = pack_bf16(acc[4 * j + 2] + bias.x, acc[4 * j + 3] + bias.y);
+        if (ACT != ACT_IDENTITY && ACT != ACT_GELU) {
+            va[j] = pack_bf16(apply_act(ACT, bf16_lo(va[j])), apply_act(ACT, bf16_hi(va[j])));
+            vb[j] = pack_bf16(apply_act(ACT, bf16_lo(vb[j])), apply_act(ACT, bf16_hi(vb[j])));
+        }
+    }
+    if (ACT == ACT_GELU) {
+#pragma unroll
+        for (int j = 0; j < NG; j += 2) {
+            float x[8] = {bf16_lo(va[j]), bf16_hi(va[j]), bf16_lo(vb[j]), bf16_hi(vb[j]),
+                          bf16_lo(va[j + 1]), bf16_hi(va[j + 1]), bf16_lo(vb[j + 1]), bf16_hi(vb[j + 1])};
+            gelu8(x);
+            va[j] = pack_bf16(x[0], x[1]);
+            vb[j] = pack_bf16(x[2], x[3]);
+            va[j + 1] = pack_bf16(x[4], x[5]);
+            vb[j + 1] = pack_bf16(x[6], x[7]);
+        }
+    }
+#pragma unroll
+    for (int j0 = 0; j0 < NG; j0 += 4) {
+        uint32_t ta[4] = {va[j0], va[j0 + 1], va[j0 + 2], va[j0 + 3]};
+        uint32_t tb[4] = {vb[j0], vb[j0 + 1], vb[j0 + 2], vb[j0 + 3]};
+        quad_transpose(ta, q);
+        quad_transpose(tb, q);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            va[j0 + c] = ta[c];
+            vb[j0 + c] = tb[c];
+        }
+    }
+    // now va[j0 .. j0 + 3] are columns n_mine + 8 j0 .. + 7 of row a
+    if (e.res != nullptr) {
+        // all of the thread's residual loads first, then the sums
+        uint4 ra[NG / 4], rb[NG / 4];
+#pragma unroll
+        for (int g = 0; g < NG / 4; ++g) {
+            const int n = n_mine + 32 * g;
+            ra[g] = rb[g] = make_uint4(0u, 0u, 0u, 0u);
+            if (n < N && m_a < M) ra[g] = *reinterpret_cast<const uint4*>(e.res + (size_t)m_a * e.ldr + n);
+            if (n < N && m_b < M) rb[g] = *reinterpret_cast<const uint4*>(e.res + (size_t)m_b * e.ldr + n);
+        }
+#pragma unroll
+        for (int g = 0; g < NG / 4; ++g) {
+            const uint32_t wa[4] = {ra[g].x, ra[g].y, ra[g].z, ra[g].w}, wb[4] = {rb[g].x, rb[g].y, rb[g].z, rb[g].w};
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const uint32_t a = va[4 * g + c], b = vb[4 * g + c];
+                va[4 * g + c] = pack_bf16(bf16_lo(wa[c]) + e.alpha * bf16_lo(a), bf16_hi(wa[c]) + e.alpha * bf16_hi(a));
+                vb[4 * g + c] = pack_bf16(bf16_lo(wb[c]) + e.alpha * bf16_lo(b), bf16_hi(wb[c]) + e.alpha * bf16_hi(b));
+            }
+        }
+    }
+#pragma unroll
+    for (int g = 0; g < NG / 4; ++g) {
+        const int n = n_mine + 32 * g;
+        if (n < N) {
+            if (m_a < M)
+                *reinterpret_cast<uint4*>(e.out + (size_t)m_a * e.ldo + n) =
+                    make_uint4(va[4 * g], va[4 * g + 1], va[4 * g + 2], va[4 * g + 3]);
+            if (m_b < M)
+                *reinterpret_cast<uint4*>(e.out + (size_t)m_b * e.ldo + n) =
+                    make_uint4(vb[4 * g], vb[4 * g + 1], vb[4 * g + 2], vb[4 * g + 3]);
+        }
+    }
+}
+
+template <class T, int ACT>
+__global__ void __launch_bounds__(T::THREADS, T::BLOCKS)
+gemm_kernel(const __grid_constant__ Maps maps, int M, int N, int K, Epilogue e) {
+    constexpr int NWG = T::NWG, BN = T::BN, STAGES = T::STAGES;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t full = ring + STAGES * T::STAGE_BYTES, empty = full + 8 * STAGES;
+    // the tile's columns of bias and bias2, past the barriers
+    float* bias_s = reinterpret_cast<float*>(smem_raw + (empty + 8 * STAGES - smem_u32(smem_raw)));
+    float* bias2_s = bias_s + BN;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, 4 * NWG);
+        }
+        mbar_init_fence();
+    }
+    __syncthreads();
+
+    const int n0 = blockIdx.x * BN, m0 = blockIdx.y * T::BM;
+    const int k_steps = (K + BK - 1) / BK;
+    const int wg = threadIdx.x / 128;
+    if (wg == NWG) {
+        // ---- producer: one thread, 1 + BN / 64 TMA boxes per k-step
+        if (threadIdx.x != 128 * NWG) return;
+        for (int ks = 0; ks < k_steps; ++ks) {
+            const int s = ks % STAGES;
+            const uint32_t a_st = ring + s * T::STAGE_BYTES, b_st = a_st + T::A_BYTES, bar = full + 8 * s;
+            mbar_wait(empty + 8 * s, ((ks / STAGES) & 1) ^ 1);
+            mbar_arrive_expect_tx(bar, T::STAGE_BYTES);
+            tma_load_2d(a_st, &maps.a, bar, ks * BK, m0);
+#pragma unroll
+            for (int j = 0; j < BN / 64; ++j) tma_load_2d(b_st + j * T::B_BOX, &maps.b, bar, n0 + 64 * j, ks * BK);
+        }
+        return;
+    }
+
+    // ---- consumer warpgroups: tile rows 64 * wg .. + 63, all BN columns
+    const int lane = threadIdx.x % 32;
+    const bool dual = e.out2 != nullptr && n0 < e.n2;  // this column tile also writes out2
+    if (threadIdx.x < BN) {
+        // the biases' trip from device memory runs under the first loads
+        const int n = n0 + threadIdx.x;
+        bias_s[threadIdx.x] = e.bias != nullptr && n < N ? e.bias[n] : 0.0f;
+        bias2_s[threadIdx.x] = dual && n < e.n2 ? e.bias2[n] : 0.0f;
+    }
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    fence_regs(acc);
+    for (int ks = 0; ks < k_steps; ++ks) {
+        const int s = ks % STAGES;
+        const uint32_t a_st = ring + s * T::STAGE_BYTES, b_st = a_st + T::A_BYTES;
+        mbar_wait(full + 8 * s, (ks / STAGES) & 1);
+        const uint64_t a_desc = make_desc(a_st + wg * (64 * 128), 16, 1024, SWIZZLE_128);
+        const uint64_t b_desc = make_desc(b_st, T::B_BOX, 1024, SWIZZLE_128);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) product(acc, a_desc + 2 * kk, b_desc + kk * (16 * 128 / 16));
+        wgmma_commit();
+        if (ks > 0) {
+            // the previous step's products are done: hand its stage back
+            wgmma_wait<1>();
+            if (lane == 0) mbar_arrive(empty + 8 * ((ks - 1) % STAGES));
+        }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    named_barrier(1, 128 * NWG);  // the biases are in place
+
+    epilogue<BN, ACT>(acc, m0 + wg * 64, n0, bias_s, bias2_s, dual, M, N, e);
+}
+
+// Column tile of the output tile numbered t (row tile t / tiles_n): the
+// columns are taken in an order that turns by one from row tile to row tile,
+// so that a block, whose tiles are gridDim.x apart, meets every column tile
+// in turn and not (when tiles_n divides gridDim.x) one alone: the column tiles
+// that also write the second output cost more than the others.
+__device__ __forceinline__ int tile_column(int t, int tiles_n) {
+    return (t % tiles_n + t / tiles_n) % tiles_n;
+}
+
+// The large tile's kernel. The block stays on its SM and takes output tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... (column tiles fastest, so that the
+// blocks running together share their A rows in L2). The producer streams the
+// k-steps of all of them through one ring without a pause at a tile's end; the
+// two teams of consumer warpgroups take the tiles in turn, warpgroup wg % 2 of
+// a team the tile's rows 64 (wg % 2) .. + 63: while one team runs its epilogue
+// the other's products keep the tensor cores and the loads busy.
+template <int ACT>
+__global__ void __launch_bounds__(Large::THREADS, 1)
+gemm_kernel_pingpong(const __grid_constant__ Maps maps, int M, int N, int K, Epilogue e) {
+    using T = Large;
+    constexpr int BN = T::BN, STAGES = T::STAGES;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t full = ring + STAGES * T::STAGE_BYTES, empty = full + 8 * STAGES, turn = empty + 8 * STAGES;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, 8);  // the eight warps of the team whose tile the stage holds
+        }
+        mbar_init(turn, 8);  // team 0 may start its next main loop: the eight warps of team 1 say so
+        mbar_init(turn + 8, 8);
+        mbar_init_fence();
+    }
+    __syncthreads();
+
+    const int tiles_n = (N + BN - 1) / BN, tiles = tiles_n * ((M + T::BM - 1) / T::BM);
+    const int k_steps = (K + BK - 1) / BK;
+    const int wg = threadIdx.x / 128;
+    if (wg == 4) {
+        // ---- producer: one thread, three TMA boxes per k-step, tile after tile
+        setmaxnreg_dec<T::PRODUCER_REGS>();
+        if (threadIdx.x != 512) return;
+        int g = 0;  // k-steps loaded so far
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+            const int m0 = (t / tiles_n) * T::BM, n0 = tile_column(t, tiles_n) * BN;
+            for (int ks = 0; ks < k_steps; ++ks, ++g) {
+                const int s = g % STAGES;
+                const uint32_t a_st = ring + s * T::STAGE_BYTES, b_st = a_st + T::A_BYTES, bar = full + 8 * s;
+                mbar_wait(empty + 8 * s, ((g / STAGES) & 1) ^ 1);
+                mbar_arrive_expect_tx(bar, T::STAGE_BYTES);
+                tma_load_2d(a_st, &maps.a, bar, ks * BK, m0);
+#pragma unroll
+                for (int j = 0; j < BN / 64; ++j) tma_load_2d(b_st + j * T::B_BOX, &maps.b, bar, n0 + 64 * j, ks * BK);
+            }
+        }
+        return;
+    }
+    setmaxnreg_inc<T::CONSUMER_REGS>();
+
+    // ---- consumer team wg / 2: the block's tiles number team, team + 2, ...;
+    // its warpgroup wg % 2 has rows 64 (wg % 2) .. + 63 of each
+    const int lane = threadIdx.x % 32, team = wg / 2, tid = threadIdx.x % 256;
+    // this team's columns of bias and bias2, past the barriers
+    float* bias_s = reinterpret_cast<float*>(smem_raw + (turn + 16 - smem_u32(smem_raw))) + team * 2 * BN;
+    float* bias2_s = bias_s + BN;
+    for (int i = team; blockIdx.x + i * gridDim.x < tiles; i += 2) {
+        const int t = blockIdx.x + i * gridDim.x;
+        const int m0 = (t / tiles_n) * T::BM, n0 = tile_column(t, tiles_n) * BN;
+        const bool dual = e.out2 != nullptr && n0 < e.n2;  // this column tile also writes out2
+        named_barrier(1 + team, 256);  // the last tile's epilogue has read its biases
+        if (tid < BN) {
+            const int n = n0 + tid;
+            bias_s[tid] = e.bias != nullptr && n < N ? e.bias[n] : 0.0f;
+            bias2_s[tid] = dual && n < e.n2 ? e.bias2[n] : 0.0f;
+        }
+        float acc[BN / 2];
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) acc[j] = 0.0f;
+        fence_regs(acc);
+        // The main loops take turns in the tiles' order: a team that waited
+        // for a stage more than one round of the ring ahead would mistake an
+        // earlier filling of it for its own.
+        if (team == 1) mbar_wait(turn + 8, (i / 2) & 1);
+        else if (i > 0) mbar_wait(turn, (i / 2 - 1) & 1);
+        const int g0 = i * k_steps;
+        for (int ks = 0; ks < k_steps; ++ks) {
+            const int g = g0 + ks, s = g % STAGES;
+            const uint32_t a_st = ring + s * T::STAGE_BYTES, b_st = a_st + T::A_BYTES;
+            mbar_wait(full + 8 * s, (g / STAGES) & 1);
+            const uint64_t a_desc = make_desc(a_st + (wg % 2) * (64 * 128), 16, 1024, SWIZZLE_128);
+            const uint64_t b_desc = make_desc(b_st, T::B_BOX, 1024, SWIZZLE_128);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk) product(acc, a_desc + 2 * kk, b_desc + kk * (16 * 128 / 16));
+            wgmma_commit();
+            if (ks > 0) {
+                // the previous step's products are done: hand its stage back
+                wgmma_wait<1>();
+                if (lane == 0) mbar_arrive(empty + 8 * ((g - 1) % STAGES));
+            }
+        }
+        if (lane == 0) mbar_arrive(turn + 8 * (1 - team));  // every stage of this tile has been waited for
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(empty + 8 * ((g0 + k_steps - 1) % STAGES));
+        fence_regs(acc);
+        named_barrier(1 + team, 256);  // the biases are in place
+        epilogue<BN, ACT>(acc, m0 + 64 * (wg % 2), n0, bias_s, bias2_s, dual, M, N, e);
+    }
+}
+
+template <int ACT>
+cudaError_t launch_kernel(Small, const Maps& maps, int M, int N, int K, const Epilogue& e, cudaStream_t stream) {
+    using T = Small;
+    static bool ready = false;  // the attribute is set once per activation
+    if (!ready) {
+        cudaError_t err = cudaFuncSetAttribute(gemm_kernel<T, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)T::SMEM_BYTES);
+        if (err != cudaSuccess) return err;
+        ready = true;
+    }
+    dim3 grid(ceil_div(N, T::BN), ceil_div(M, T::BM));
+    gemm_kernel<T, ACT><<<grid, T::THREADS, T::SMEM_BYTES, stream>>>(maps, M, N, K, e);
     return cudaGetLastError();
+}
+
+template <int ACT>
+cudaError_t launch_kernel(Large, const Maps& maps, int M, int N, int K, const Epilogue& e, cudaStream_t stream) {
+    using T = Large;
+    static bool ready = false;  // the attribute and the check below are made once per activation
+    if (!ready) {
+        cudaError_t err = cudaFuncSetAttribute(gemm_kernel_pingpong<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)T::SMEM_BYTES);
+        if (err != cudaSuccess) return err;
+        // A consumer that waits for registers the block was never given would
+        // hang, not trap: refuse unless the launch allocates what they take.
+        cudaFuncAttributes attr;
+        err = cudaFuncGetAttributes(&attr, gemm_kernel_pingpong<ACT>);
+        if (err != cudaSuccess) return err;
+        if (attr.numRegs * T::THREADS < 128 * (4 * T::CONSUMER_REGS + T::PRODUCER_REGS))
+            return cudaErrorLaunchOutOfResources;
+        ready = true;
+    }
+    const int tiles = ceil_div(N, T::BN) * ceil_div(M, T::BM);
+    gemm_kernel_pingpong<ACT><<<tiles < SMS ? tiles : SMS, T::THREADS, T::SMEM_BYTES, stream>>>(maps, M, N, K, e);
+    return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_tile(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K,
+                        const Epilogue& e, cudaStream_t stream) {
+    Maps maps;
+    const cuuint64_t dims_a[2] = {(cuuint64_t)K, (cuuint64_t)M}, dims_b[2] = {(cuuint64_t)N, (cuuint64_t)K};
+    const cuuint64_t stride_a[1] = {(cuuint64_t)lda * 2}, stride_b[1] = {(cuuint64_t)ldb * 2};
+    const cuuint32_t box_a[2] = {BK, (cuuint32_t)T::BM}, box_b[2] = {64, BK};
+    cudaError_t err = tensor_map_bf16(&maps.a, A, 2, dims_a, stride_a, box_a, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == cudaSuccess)
+        err = tensor_map_bf16(&maps.b, B, 2, dims_b, stride_b, box_b, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+    switch (e.act) {
+        case ACT_IDENTITY: return launch_kernel<ACT_IDENTITY>(T(), maps, M, N, K, e, stream);
+        case ACT_GELU: return launch_kernel<ACT_GELU>(T(), maps, M, N, K, e, stream);
+        case ACT_GELU_TANH: return launch_kernel<ACT_GELU_TANH>(T(), maps, M, N, K, e, stream);
+        case ACT_RELU: return launch_kernel<ACT_RELU>(T(), maps, M, N, K, e, stream);
+        case ACT_SILU: return launch_kernel<ACT_SILU>(T(), maps, M, N, K, e, stream);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+// Shape contract checked by the Python wrapper: N % 64 == 0, K % 32 == 0, n2
+// a multiple of 8, every row stride a multiple of 8 elements and every base
+// pointer 16-byte aligned (TMA boxes and 16-byte stores). The large tile
+// serves whenever its grid covers the card's SMs at least once.
+inline cudaError_t launch(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K,
+                          const Epilogue& e, cudaStream_t stream) {
+    if (M < 1 || N % 64 || K % 8 || lda % 8 || ldb % 8 || e.ldo % 8 || e.ldr % 8 || e.ldo2 % 8 || e.n2 % 8 ||
+        ceil_div(M, Small::BM) > 65535)
+        return cudaErrorInvalidValue;
+    if (ceil_div(M, Large::BM) * ceil_div(N, Large::BN) >= SMS)
+        return launch_tile<Large>(A, lda, B, ldb, M, N, K, e, stream);
+    return launch_tile<Small>(A, lda, B, ldb, M, N, K, e, stream);
 }
 
 }  // namespace gemm

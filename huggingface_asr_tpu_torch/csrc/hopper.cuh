@@ -1,8 +1,10 @@
-// Hopper building blocks shared by the kernels that run on wgmma (conv2.cu
-// and, through attention_wgmma.cuh, rel_attention.cu,
-// rel_attention_train_fwd.cu and rel_attention_shift_bf16.cu): mbarriers, TMA
-// tile loads, the warpgroup matrix product and its shared-memory matrix
-// descriptors, and the host-side tensor map.
+// Hopper building blocks shared by the kernels that run on wgmma (conv2.cu,
+// gemm.cuh and, through attention_wgmma.cuh, rel_attention.cu,
+// rel_attention_train_fwd.cu, rel_attention_train_bwd.cu and
+// rel_attention_shift_bf16.cu): mbarriers, TMA tile loads, the warpgroup
+// matrix product and its shared-memory matrix descriptors, register
+// re-allocation between warpgroups, the 16-byte store of an accumulator
+// fragment, and the host-side tensor map.
 //
 // Shared-memory operand layouts used here (bf16, T = 8 elements = 16 bytes):
 //   K-major, 128-byte swizzle: rows of 64 elements (128 B), groups of 8 rows
@@ -21,6 +23,9 @@
 
 #include <cuda.h>  // CUtensorMap and the enums of cuTensorMapEncodeTiled (types only)
 #include <dlfcn.h>
+
+#include <cstring>
+#include <memory>
 
 #include "common.cuh"
 
@@ -127,6 +132,44 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&v);
 }
+// The two bf16 values of a packed pair, as floats.
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+
+// Four consecutive 8-column groups of an accumulator fragment, one packed
+// pair per group in each lane of a quad (lane q holds columns 2q, 2q + 1 of
+// every group): afterwards lane q holds all four pairs, columns 0..7 in
+// order, of group q, so that a row leaves as 16-byte stores, 64 bytes in a
+// row per quad. Every lane of the warp calls it.
+__device__ __forceinline__ void quad_transpose(uint32_t (&w)[4], int q) {
+    uint32_t o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+        const int peer = q ^ s;  // the lane this one trades with, and the group it hands over
+        const uint32_t send = peer == 0 ? w[0] : peer == 1 ? w[1] : peer == 2 ? w[2] : w[3];
+        const uint32_t got = s == 0 ? send : __shfl_xor_sync(0xffffffffu, send, s);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+            if (c == peer) o[c] = got;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) w[c] = o[c];
+}
+
+// ---- registers and barriers of a warpgroup
+// Give up / take registers (a multiple of 8): every warp of the warpgroup
+// executes it. The block's pool is what it was launched with, so the kernel
+// must have been allocated enough for the sum of what its warpgroups take.
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+// Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
 
 // D (64 x N fp32, registers) = or += A (64 x 16) B (16 x N), bf16 operands.
 // Fragment of D: thread t of the warpgroup holds, for j < N / 8,
@@ -216,6 +259,90 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs_bt(float (&d)[16], const uint
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_m64n64k16_ss_bt(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 1;\n"
+        "}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_ss_bt(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n"
+        "}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_rs_bt(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+        "}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_m64n256k16_ss_bt(float (&d)[128], uint64_t desc_a, uint64_t desc_b, int scale_d) {
     asm volatile(
         "{\n"
@@ -285,6 +412,13 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// One entry of the cache below: what defines a tensor map (base, rank and
+// swizzle, dims, strides, box, as plain words) and the map itself.
+struct TensorMapEntry {
+    uint64_t key[16];
+    CUtensorMap map;
+};
+
 inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* base, int rank,
                                    const cuuint64_t* dims, const cuuint64_t* strides,
                                    const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
@@ -295,12 +429,40 @@ inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* base, int rank,
         if (fn == nullptr) return cudaErrorNotSupported;
         encode = reinterpret_cast<EncodeTiledFn>(fn);
     }
+    // A map is a function of its arguments alone, and a request after the
+    // first meets the same ones again (weights stay where they are, the
+    // allocator hands the activations their old addresses): keep the maps, one
+    // table per thread, an entry overwritten when another map hashes to it.
+    constexpr int SLOTS = 1024;
+    thread_local std::unique_ptr<TensorMapEntry[]> cache(new TensorMapEntry[SLOTS]());
+    uint64_t key[16] = {reinterpret_cast<uint64_t>(base), (uint64_t)rank | ((uint64_t)swizzle << 32)};
+    uint64_t h = key[0] >> 4;
+    for (int i = 0; i < rank; ++i) {
+        key[2 + i] = dims[i];
+        key[11 + i] = box[i];
+        if (i > 0) key[6 + i] = strides[i - 1];
+        h = h * 0x9E3779B97F4A7C15ull + dims[i] * 31 + box[i];
+    }
+    TensorMapEntry& slot = cache[(h >> 20) % SLOTS];
+    if (memcmp(slot.key, key, sizeof key) == 0) {
+        *map = slot.map;
+        return cudaSuccess;
+    }
     const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-    const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                               const_cast<void*>(base), dims, strides, box, ones,
-                               CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+    CUresult rc = CUDA_ERROR_INVALID_CONTEXT;
+    for (int attempt = 0; attempt < 2 && rc == CUDA_ERROR_INVALID_CONTEXT; ++attempt) {
+        // The encoder wants a current context. A thread that has made no
+        // runtime call yet (autograd's worker, where a backward kernel's maps
+        // are made) has none: a runtime call binds the primary context.
+        if (attempt == 1) cudaFree(nullptr);
+        rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), dims,
+                    strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    }
+    if (rc != CUDA_SUCCESS) return cudaErrorInvalidValue;
+    memcpy(slot.key, key, sizeof key);
+    slot.map = *map;
+    return cudaSuccess;
 }
 
 }  // namespace hopper

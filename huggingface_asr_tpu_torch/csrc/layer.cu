@@ -4,7 +4,8 @@
 // Replaces ops/pallas_layer.py::_layer_kernel (via ebranchformer_layer). The
 // TPU kernel keeps one whole layer resident in VMEM; Hopper has 227 KB of
 // shared memory per block, so the layer is split into a few kernels (see
-// kernels/layer.py for the order): GEMMs with fused epilogues (gemm.cuh),
+// kernels/layer.py for the order): GEMMs with fused epilogues (gemm.cuh, on
+// wgmma + TMA),
 // LayerNorm (here), the positional query (here), the rel-pos attention
 // forward (rel_attention.cu) and the two depthwise convs (dwconv.cu).
 //
@@ -40,8 +41,7 @@ ASR_API int asr_gemm_bf16(const void* a, const void* b, const void* bias, const 
     e.alpha = alpha;
     e.act = act;
     e.round_first = round_first;
-    gemm::RowMajorA A{static_cast<const bf16*>(a), lda};
-    return gemm::launch(A, static_cast<const bf16*>(b), ldb, M, N, K, e,
+    return gemm::launch(static_cast<const bf16*>(a), lda, static_cast<const bf16*>(b), ldb, M, N, K, e,
                         static_cast<cudaStream_t>(stream));
 }
 

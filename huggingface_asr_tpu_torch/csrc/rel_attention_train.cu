@@ -28,6 +28,8 @@
 //             before the dropout scale). The fp32 forward is exact FMA loops
 //             on 32-row tiles: slow, and there to hold the logic to the plain
 //             version at fp32 tolerance.
+//   backward  bf16: rel_attention_train_bwd.cu (wgmma, TMA rings, dS and Pd
+//             formed on the accumulator fragment). fp32, below:
 //   dq pass   block = (query tile, head, batch). Pass 0 walks the key tiles
 //             for delta = rowsum(dP P32) over the fp32 P and the masked,
 //             scaled dP, as the TPU kernel takes it (written out for the dkv
@@ -36,11 +38,10 @@
 //   dkv pass  block = (key tile, head, batch), walks the query tiles and
 //             accumulates dv += Pd^T dO and dk += dS^T q_u.
 //
-// What bounds the backward on the H100: q_rot (B, T, H, D) and dq_rot
-// dominate the bytes, and the kernels are memory-bound by the roofline, but
-// as written they are bound by the wmma products out of padded shared memory
-// and the recomputed S (three times); moving them to wgmma/TMA as the bf16
-// forward was is later work.
+// The kernels of this file are instantiated for fp32 only: exact FMA loops on
+// 32-row tiles out of padded shared memory, S recomputed three times in the
+// backward. They are slow by design and are not on a main path (training
+// runs in bf16); what bounds the bf16 kernels is said in their own files.
 #include "attention_common.cuh"
 
 namespace {
@@ -184,7 +185,7 @@ train_fwd_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot, const E
 }
 
 // ---------------------------------------------------------------------------
-// backward, dq pass
+// backward, dq pass (instantiated for fp32 only; bf16 runs train_bwd_bf16)
 
 template <typename E>
 struct DqSmem {
@@ -522,8 +523,8 @@ ASR_API int asr_rel_attention_train_bwd(const void* q_u, const void* q_rot, cons
     if (dh != DH || D % 16 != 0 || T < 1) return (int)cudaErrorInvalidValue;
     const DropoutArgs drop{seed, thresh, inv_keep, dropout};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? bwd<bf16>(q_u, q_rot, k, v, k_std, lengths, d_out, stats, delta, dq_u, dq_rot,
-                               dk, dv, B, T, H, D, scale, drop, st)
+    return is_bf16 ? train_bwd_bf16(q_u, q_rot, k, v, k_std, lengths, d_out, stats, delta, dq_u, dq_rot,
+                                    dk, dv, B, T, H, D, scale, drop, st)
                    : bwd<float>(q_u, q_rot, k, v, k_std, lengths, d_out, stats, delta, dq_u,
                                 dq_rot, dk, dv, B, T, H, D, scale, drop, st);
 }

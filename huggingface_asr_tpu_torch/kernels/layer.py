@@ -128,26 +128,55 @@ def _check_rows(t: torch.Tensor, name: str, shape) -> int:
     return t.stride(0)
 
 
+def gemm_contract(a, w, out=None, residual=None, bias2=None) -> None:
+    """Raise unless the GEMM kernel takes these shapes, strides and base
+    addresses (whatever device the tensors lie on): N % 64 == 0, K % 32 == 0;
+    ``a`` (M, K), ``out`` and ``residual`` (M, N) with unit column stride, a
+    row stride divisible by 8 and a 16-byte aligned base, which is what the
+    kernel's TMA boxes and 16-byte stores need; ``len(bias2)`` a multiple of
+    8, at most N."""
+    M, K = a.shape
+    N = w.shape[1]
+    if N % 64 or K % 32:
+        raise ValueError(f"gemm kernel needs N % 64 == 0 and K % 32 == 0, got N={N}, K={K}")
+    for name, t, shape in (("a", a, (M, K)), ("out", out, (M, N)), ("residual", residual, (M, N))):
+        if t is None:
+            continue
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+        if t.stride(1) != 1 or t.stride(0) % 8:
+            raise ValueError(f"{name}: needs unit column stride and a row stride divisible by 8")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data pointer is not 16-byte aligned")
+    if bias2 is not None and (bias2.shape[0] % 8 or bias2.shape[0] > N):
+        raise ValueError(f"gemm kernel needs len(bias2) % 8 == 0 and <= N, got {bias2.shape[0]}")
+
+
 def gemm(a, w, bias=None, *, act="identity", residual=None, alpha=1.0, bias2=None,
          round_first=False, out=None):
-    """``gemm_plain``; CUDA tensors run the tiled wmma GEMM of ``csrc/gemm.cuh``.
-    a: (M, K) bf16, w: (K, N) bf16, bias/bias2: fp32; out may be a column slice."""
+    """``gemm_plain``; CUDA tensors run the wgmma + TMA GEMM of ``csrc/gemm.cuh``
+    (two tile shapes, chosen there from M and N; the epilogue runs on the
+    accumulator fragment). a: (M, K) bf16, a view with a row stride is fine;
+    w: (K, N) bf16; bias/bias2: fp32; ``out`` may be a column slice of a wider
+    buffer, whose other columns and rows are left untouched. What the kernel
+    takes is ``gemm_contract``'s to say; anything else raises."""
     tensors = [t for t in (a, w, bias, residual, bias2, out) if t is not None]
     if not _build.on_cuda(*tensors):
         return gemm_plain(a, w, bias, act=act, residual=residual, alpha=alpha, bias2=bias2,
                           round_first=round_first, out=out)
     M, K = a.shape
     N = w.shape[1]
-    if N % 64 or K % 32:
-        raise ValueError(f"gemm kernel needs N % 64 == 0 and K % 32 == 0, got N={N}, K={K}")
-    lda = _check_rows(a, "a", (M, K))
+    if out is None:
+        out = torch.empty(M, N, dtype=BF16, device=a.device)
+    gemm_contract(a, w, out, residual, bias2)  # shapes, strides, base addresses
+    for name, t in (("a", a), ("out", out), ("residual", residual)):
+        if t is not None and t.dtype != BF16:
+            raise ValueError(f"{name}: expected {BF16}, got {t.dtype}")
     _build.check(w, "w", BF16, (K, N))
     if bias is not None:
         _build.check(bias, "bias", F32, (N,))
-    if out is None:
-        out = torch.empty(M, N, dtype=BF16, device=a.device)
-    ldo = _check_rows(out, "out", (M, N))
-    ldr = _check_rows(residual, "residual", (M, N)) if residual is not None else 0
+    lda, ldo = a.stride(0), out.stride(0)
+    ldr = residual.stride(0) if residual is not None else 0
     out2, n2, ldo2 = None, 0, 0
     if bias2 is not None:
         n2 = bias2.shape[0]

@@ -8,7 +8,8 @@
 ``rel_attention_train`` is a ``torch.autograd.Function``: on CUDA tensors its
 forward launches the forward kernel (bf16: ``csrc/rel_attention_train_fwd.cu``,
 fp32: ``csrc/rel_attention_train.cu``) and its backward the two backward
-passes of ``csrc/rel_attention_train.cu`` (dq, then dk/dv); on CPU tensors it runs
+passes (dq, then dk/dv; bf16: ``csrc/rel_attention_train_bwd.cu``, fp32:
+``csrc/rel_attention_train.cu``); on CPU tensors it runs
 ``rel_attention_train_plain``. Nothing falls back: a CUDA tensor the kernels
 do not take raises. Gradients exist for q_u, q_rot, k and v only.
 
@@ -130,9 +131,10 @@ def _check_inputs(q_u, q_rot, k, v, k_std, lengths):
     B, T, H, dh = q_u.shape
     D = q_rot.shape[-1]
     dtype = q_u.dtype
-    # head size 32; D a multiple of 16 (of 64 in bf16: the forward loads q_rot
+    # head size 32; D a multiple of 16 (of 64 in bf16: the kernels load q_rot
     # and k_std in 64-column tiles) and at most 256 (the backward's
-    # [dq_u | dq_rot] accumulator must fit in shared memory); bf16 or fp32
+    # [dq_u | dq_rot] accumulator must fit in a thread's registers in bf16,
+    # in shared memory in fp32); bf16 or fp32
     step = 64 if dtype == torch.bfloat16 else 16
     if dh != 32 or D % step or D > 256 or dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"rel_attention_train kernels need dh == 32, D % {step} == 0, D <= 256 and bf16 or "

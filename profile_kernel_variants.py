@@ -1,6 +1,6 @@
 """A/B of kernel source variants on one NVIDIA GPU.
 
-    python3 profile_kernel_variants.py conv2,k4,k1,k5 DIR_A [DIR_B ...]
+    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm DIR_A [DIR_B ...]
 
 Each DIR is a directory holding a full copy of ``huggingface_asr_tpu_torch/csrc``
 (the package's own directory is a valid DIR). Every variant is built and run in
@@ -12,7 +12,14 @@ inference attention (``k1``) and the bf16 shift-form inference attention
 (``k5``) against their plain versions at small, ragged and flagship shapes and
 times them with CUDA events (median of 5 windows of 20 calls). For ``k1`` and
 ``k5`` it also prints the host's time per launch (the wrapper call at a tiny
-shape, where the device never falls behind). Exits non-zero without a CUDA device.
+shape, where the device never falls behind). ``k4bwd`` holds the four
+gradients of the bf16 training attention against the plain backward and times
+the backward alone; ``gemm`` holds the GEMM with each epilogue the layer and
+the subsampler use (activation, residual, dual output, a column slice of a
+wider output, round-first at K=5120, a strided ``a``) against ``gemm_plain``
+at M = 56, 2,048 and 32,768 rows, checks that rows past M and the other half
+of a sliced output stay untouched, and times it beside ``F.linear``.
+Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ K4_SHAPES = [  # (B, T, H, D, lengths or None for the smoke's ragged lengths, ra
     (3, 70, 4, 128, [70, 33, 0], 0.0), (3, 129, 4, 128, [129, 64, 1], 0.1),
     (4, 333, 8, 256, [333, 1, 0, 200], 0.1), (8, 500, 8, 256, None, 0.1), (32, 250, 8, 256, None, 0.1),
 ]
+K4BWD_SHAPES = [(3, 70, 2, 64, [70, 1, 0], 0.1)] + K4_SHAPES
 K1_SHAPES = [  # (B, T_pad, H, D, lengths or None for the smoke's ragged lengths)
     (2, 64, 4, 128, [64, 0]), (3, 192, 4, 128, [187, 1, 0]), (2, 752, 8, 256, [752, 0]), (3, 752, 8, 256, [700, 1, 440]),
     (8, 56, 8, 256, None), (8, 256, 8, 256, None), (8, 512, 8, 256, None), (128, 256, 8, 256, None),
@@ -40,6 +48,75 @@ K5_SHAPES = [  # (B, T, H, lengths or None)
     (3, 70, 4, [70, 33, 0]), (3, 129, 4, [129, 64, 1]), (4, 333, 8, [333, 1, 0, 200]), (8, 500, 8, None),
     (32, 250, 8, None),
 ]
+
+
+GEMM_ROWS = (56, 2048, 32768)
+GEMM_CASES = [  # (name, K, N, keyword arguments of the call besides bias)
+    ("ff_in +gelu", 256, 1024, dict(act="gelu")),
+    ("ff_in no act", 256, 1024, dict()),
+    ("ff_out +residual", 1024, 256, dict(residual=True, alpha=0.5)),
+    ("qkv dual", 256, 768, dict(bias2=True)),
+    ("wo -> merged[:, :D]", 256, 256, dict(out_half=0)),
+    ("cg_w2 -> merged[:, D:]", 512, 256, dict(out_half=1)),
+    ("merge +residual, strided a", 512, 256, dict(residual=True, alpha=1.0, strided_a=True)),
+    ("out-dense round_first", 5120, 256, dict(round_first=True)),
+    ("narrow D=64", 64, 192, dict(bias2=True)),
+    ("K=96", 96, 64, dict(act="swish")),
+]
+
+
+def gemm_case(K1, M, K, N, kw, dev, gen):
+    """(kernel call, plain call, library call, untouched-memory check) of one GEMM case."""
+    import torch
+    import torch.nn.functional as F
+
+    mk = lambda *s: torch.randn(*s, generator=gen).bfloat16().to(dev)  # noqa: E731
+    kw = dict(kw)
+    a = mk(M, 2 * K)[:, K:] if kw.pop("strided_a", False) else mk(M, K)
+    w = mk(K, N) * (K ** -0.5)
+    bias = mk(N).float()
+    if kw.pop("residual", False):
+        kw["residual"] = mk(M, N)
+    if kw.pop("bias2", False):
+        kw["bias2"] = mk(N // 3).float()
+    half = kw.pop("out_half", None)
+    guard = torch.full((M + 8, 2 * N), 7.0, dtype=torch.bfloat16, device=dev)  # rows past M, the other half
+    out = None if half is None else guard[:M, half * N:(half + 1) * N]
+
+    def kernel():
+        return K1.gemm(a, w, bias, out=out, **kw)
+
+    def plain():
+        return K1.gemm_plain(a, w, bias, **kw)
+
+    def untouched():
+        if half is None:
+            return True
+        other = guard[:M, (1 - half) * N:(2 - half) * N]
+        return bool((other == 7.0).all()) and bool((guard[M:] == 7.0).all())
+
+    w_t, b16 = w.t(), bias.bfloat16()
+    a_lin = a.contiguous()
+    return kernel, plain, (lambda: F.linear(a_lin, w_t, b16)), untouched
+
+
+def device_ms(fn, n: int = 10) -> float:
+    """Device time of one call of ``fn`` in ms: the kernels' own durations
+    under ``torch.profiler``, summed over ``n`` calls. Unlike a pair of events
+    around the calls it leaves out the host's time per launch, which at small
+    shapes is the larger part."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.time_range.end - ev.time_range.start for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / n
 
 
 def smoke_lengths(B: int, T: int):
@@ -61,17 +138,38 @@ def run_variant(csrc: str, what: str) -> None:
         sys.exit("torch.cuda.is_available() is false")
     _build.CSRC = pathlib.Path(csrc).resolve()
     _build.library()
+    sources = {"conv2": "conv2", "k4": "train_fwd", "k4bwd": "train_bwd", "k1": "rel_attention.cu", "k5": "shift",
+               "gemm": "layer.cu"}
     keep = False
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("=="):
-            keep = any(name in line for name in ("conv2", "train_fwd", "rel_attention.cu", "shift"))
-        if keep and any(s in line for s in ("Used", "spill", "C7510", "C7515", "error")):
+            keep = any(sources[mode] in line for mode in what.split(","))
+        # (C7517 and C7519 only say where the compiler put the waits around a product)
+        if keep and any(s in line for s in ("Used", "spill", "C751", "error", "Compiling entry")) \
+                and "C7517" not in line and "C7519" not in line:
             print("  ", line.strip()[:200])
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
     tol = 2 ** -6
-    if "conv2" in what:
+    if "gemm" in what.split(","):
+        for M in GEMM_ROWS:
+            for name, K, N, kw in GEMM_CASES:
+                gen = torch.Generator().manual_seed(M + K + N)
+                kernel, plain, library, untouched = gemm_case(K1, M, K, N, kw, dev, gen)
+                got, ref = kernel(), plain()
+                torch.cuda.synchronize()
+                pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+                err = max(float((a.float() - r.float()).abs().max()) for a, r in pairs)
+                scale = max(float(r.float().abs().max()) for _, r in pairs)
+                ok = err <= tol * max(1.0, scale) and untouched()
+                print(f"gemm M={M} K={K} N={N} {name}: err={err:.3e} {'ok' if ok else 'FAIL'} "
+                      f"ms={timed(kernel):.4f} device_ms={device_ms(kernel):.4f} linear_ms={timed(library):.4f} "
+                      f"linear_device_ms={device_ms(library):.4f}", flush=True)
+                if M == GEMM_ROWS[0] and name.startswith("ff_in"):
+                    print(f"gemm host us per launch: {host_us_per_launch(kernel):.2f} "
+                          f"(F.linear {host_us_per_launch(library):.2f})", flush=True)
+    if "conv2" in what.split(","):
         for B, T1, T2 in CONV2_SHAPES:
             y1 = torch.randn(B, T1, 40, 256, generator=g).bfloat16().to(dev)
             w2 = (torch.randn(9 * 256, 256, generator=g) * 0.02).bfloat16().to(dev)
@@ -85,7 +183,7 @@ def run_variant(csrc: str, what: str) -> None:
             print(f"conv2 B={B} T2={T2} rows={got.shape[0]} {verdict} "
                   f"ms={timed(lambda: K2.conv2(y1, w2, b2, T2)):.4f}", flush=True)
             del y1, got
-    if "k4" in what:
+    if "k4" in what.split(","):
         for B, T, H, D, lens, rate in K4_SHAPES:
             g = torch.Generator().manual_seed(T)
             mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
@@ -98,7 +196,30 @@ def run_variant(csrc: str, what: str) -> None:
                 ok = err <= tol * max(1.0, float(ref.abs().max()))
                 print(f"K4 fwd B={B} T={T} D={D} rate={rate} err={err:.3e} {'ok' if ok else 'FAIL'} "
                       f"ms={timed(call):.4f}", flush=True)
-    if "k1" in what:
+    if "k4bwd" in what.split(","):
+        for B, T, H, D, lens, rate in K4BWD_SHAPES:
+            g = torch.Generator().manual_seed(T)
+            mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
+            q_u, q_rot, k, v, k_std = mk(B, T, H, 32), mk(B, T, H, D) * 0.25, mk(B, T, H, 32), mk(B, T, H, 32), mk(T, D)
+            cot = mk(B, T, H, 32)
+            lengths = torch.tensor(lens or smoke_lengths(B, T), dtype=torch.int32, device=dev)
+
+            def grads(fn):
+                leaves = [t.clone().requires_grad_(True) for t in (q_u, q_rot, k, v)]
+                out = fn(*leaves, k_std, lengths, 77, rate)
+                return (lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True))
+
+            call = grads(rel_attention_train)
+            got, ref = call(), grads(rel_attention_train_plain)()
+            torch.cuda.synchronize()
+            errs = []
+            for name, a, r in zip(("dq_u", "dq_rot", "dk", "dv"), got, ref):
+                err = float((a.float() - r.float()).abs().max())
+                ok = bool(torch.isfinite(a.float()).all()) and err <= tol * max(1.0, float(r.float().abs().max()))
+                errs.append(f"{name}={err:.2e}{'' if ok else ' FAIL'}")
+            print(f"K4 bwd B={B} T={T} D={D} rate={rate} {' '.join(errs)} ms={timed(call):.4f} "
+                  f"device_ms={device_ms(call):.4f}", flush=True)
+    if "k1" in what.split(","):
         for B, T, H, D, lens in K1_SHAPES:
             g = torch.Generator().manual_seed(T)
             mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
@@ -115,7 +236,7 @@ def run_variant(csrc: str, what: str) -> None:
             print(f"K1 rel_attention B={B} T_pad={T} D={D} {verdict} ms={timed(call):.4f}", flush=True)
             if (B, T) == (2, 64):
                 print(f"K1 rel_attention host us per launch: {host_us_per_launch(call):.2f}", flush=True)
-    if "k5" in what:
+    if "k5" in what.split(","):
         for B, T, H, lens in K5_SHAPES:
             g = torch.Generator().manual_seed(T)
             mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
@@ -134,14 +255,25 @@ def main() -> None:
     if sys.argv[1] == "--one":
         run_variant(sys.argv[2], sys.argv[3])
         return
-    what, dirs = sys.argv[1], sys.argv[2:]
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    args = sys.argv[1:]
+    out = None
+    if args[0] == "--out":  # also append every variant's full output to this file
+        out, args = open(args[1], "a"), args[2:]
+    what, dirs = args[0], args[1:]
+
+    def emit(text: str) -> None:
+        print(text, flush=True)
+        if out is not None:
+            out.write(text + "\n")
+            out.flush()
+
+    emit(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                        capture_output=True, text=True, check=True).stdout.strip())
     failed = False
     for d in (dirs + dirs[::-1] if len(dirs) > 1 else dirs):
         res = subprocess.run([sys.executable, __file__, "--one", d, what], capture_output=True, text=True,
                              timeout=600)
-        print(f"=== {d} rc={res.returncode}\n{res.stdout[-5000:]}\n{res.stderr[-2500:]}", flush=True)
+        emit(f"=== {d} rc={res.returncode}\n{res.stdout[-12000:]}\n{res.stderr[-2500:]}")
         failed = failed or res.returncode != 0 or "FAIL" in res.stdout
     sys.exit(1 if failed else 0)
 

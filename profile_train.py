@@ -38,7 +38,7 @@ BATCH, STEPS = 32, 3
 
 GROUPS = (
     ("attention fwd kernel (K4)", ("train_fwd_bf16_kernel", "train_fwd_kernel")),
-    ("attention bwd kernels (K4)", ("train_bwd_dq_kernel", "train_bwd_dkv_kernel")),
+    ("attention bwd kernels (K4)", ("train_bwd_dq", "train_bwd_dkv")),  # the bf16 kernels on wgmma and the fp32 ones
     ("attention inference kernel (K5)", ("shift_bf16_kernel", "shift_attention_kernel")),
     ("matrix products (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "gemv", "splitKreduce", "cublas")),
     ("convolutions (cuDNN and native depthwise)", ("conv", "cudnn", "wgrad", "dgrad", "implicit")),

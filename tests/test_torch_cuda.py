@@ -180,6 +180,104 @@ def test_train_attention_forward_and_backward(dtype, rate, T, lens):
         _close(g, r, ATT_TOL[dtype])
 
 
+BWD_LENGTHS = {70: [70, 1, 0], 250: [250, 1, 0, 167], 333: [333, 1, 0, 200], 500: [500, 437, 0, 1]}
+# bf16 (the wgmma kernels) at every width and length; fp32 (FMA loops, slow) at the smaller ones
+BWD_CASES = [(torch.bfloat16, H, D, T) for H, D in ((2, 64), (4, 128), (8, 256)) for T in BWD_LENGTHS] \
+    + [(torch.float32, H, D, T) for H, D in ((2, 64), (4, 128)) for T in (70, 250, 333)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype,H,D,T", BWD_CASES)
+def test_train_attention_backward_widths_and_lengths(dtype, H, D, T, rate):
+    """The four gradients at every width the kernels take, at lengths with 0
+    and 1, past one key tile and past one block of rows. bf16 runs the wgmma
+    kernels of ``rel_attention_train_bwd.cu``, fp32 the FMA kernels."""
+    dev = _cuda()
+    lens = BWD_LENGTHS[T]
+    B = len(lens)
+    q_u, q_rot, k, v, k_std, cot = _attention_inputs(dev, dtype, B, T, H, D, seed=T + D)
+    q_rot = q_rot * 0.25
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q_u, q_rot, k, v)]
+        return torch.autograd.grad(fn(*leaves, k_std, lengths, 99, rate), leaves, cot)
+
+    _build.reset_launch_counts()
+    got = grads(rel_attention_train)
+    assert _build.LAUNCHES["asr_rel_attention_train_bwd"] == 1
+    for name, g, r in zip(("dq_u", "dq_rot", "dk", "dv"), got, grads(rel_attention_train_plain)):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        _close(g, r, ATT_TOL[dtype])
+    # keys past every row's visited keys get exact zeros
+    if T == 250:
+        assert not bool(got[2][1, 1:].any()) and not bool(got[3][1, 1:].any())
+
+
+def _flagship_gemm_calls(dev, M, seed):
+    """Every GEMM call of the flagship layer (D=256, I=1024, cgMLP 1024 -> 512)
+    and of its subsampler (5120 -> 256 -> 256), as (name, a, w, bias, kwargs)."""
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
+    wt = lambda k, n: (torch.randn(k, n, generator=g) * k ** -0.5).bfloat16().to(dev)  # noqa: E731
+    bias = lambda n: torch.randn(n, generator=g).bfloat16().float().to(dev)  # noqa: E731
+    D, I, C = 256, 1024, 512
+    x = mk(M, D)
+    merged = torch.full((M + 8, 2 * D), 7.0, dtype=torch.bfloat16, device=dev)
+    return merged, [
+        ("ff_in gelu", x, wt(D, I), bias(I), dict(act="gelu")),
+        ("ff_in swish", x, wt(D, I), bias(I), dict(act="swish")),
+        ("ff_out", mk(M, I), wt(I, D), bias(D), dict(residual=x, alpha=0.5)),
+        ("qkv", x, wt(D, 3 * D), bias(3 * D), dict(bias2=bias(D))),
+        ("wo", x, wt(D, D), bias(D), dict(out=merged[:M, :D])),
+        ("cg_w1", x, wt(D, 2 * C), bias(2 * C), dict(act="gelu")),
+        ("cg_w2", mk(M, C), wt(C, D), bias(D), dict(out=merged[:M, D:])),
+        ("merge", mk(M, 4 * D)[:, D:3 * D], wt(2 * D, D), bias(D), dict(residual=x, alpha=1.0)),
+        ("out-dense", mk(M, 5120), wt(5120, D), bias(D), dict(round_first=True)),
+        ("proj", x, wt(D, D), bias(D), dict(round_first=True)),
+    ]
+
+
+@pytest.mark.parametrize("M", [56, 2048, 8200, 32768])
+def test_gemm_at_the_flagship_call_shapes(M):
+    """Both kernels, a ragged M in each (56 in the small one, 8,200 in the
+    large one), every epilogue; rows past M and the other half of a sliced
+    output stay as they were."""
+    dev = _cuda()
+    merged, calls = _flagship_gemm_calls(dev, M, seed=M)
+    _build.reset_launch_counts()
+    for name, a, w, bias, kw in calls:
+        got = K1.gemm(a, w, bias, **kw)
+        ref_kw = {k: v for k, v in kw.items() if k != "out"}
+        ref = K1.gemm_plain(a, w, bias, **ref_kw)
+        if "bias2" in kw:
+            _close(got[1], ref[1], 2 ** -6)
+            got, ref = got[0], ref[0]
+        _close(got, ref, 2 ** -6)
+        if name == "wo":
+            assert bool((merged[:M, 256:] == 7.0).all()) and bool((merged[M:] == 7.0).all()), name
+        if name == "cg_w2":
+            assert bool((merged[M:] == 7.0).all()), name
+            _close(merged[:M, :256], K1.gemm_plain(*calls[4][1:4]), 2 ** -6)  # wo's half is still wo's
+    assert _build.LAUNCHES["asr_gemm_bf16"] == len(calls)
+
+
+@pytest.mark.parametrize("D", [64, 128, 192])
+def test_gemm_at_narrow_widths(D):
+    """N = 3D that is no multiple of the large tile's 128 columns, a second
+    output narrower than a tile, and a K that is no multiple of a 64-deep step."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(D)
+    mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
+    for M in (40, 9000):
+        a, w, bias, bias2 = mk(M, D), mk(D, 3 * D) * D ** -0.5, mk(3 * D).float(), mk(D).float()
+        got, ref = K1.gemm(a, w, bias, bias2=bias2), K1.gemm_plain(a, w, bias, bias2=bias2)
+        _close(got[0], ref[0], 2 ** -6)
+        _close(got[1], ref[1], 2 ** -6)
+        a96, w96 = mk(M, 96), mk(96, D) * 96 ** -0.5  # K = 96: the second k-step is half out of range
+        _close(K1.gemm(a96, w96), K1.gemm_plain(a96, w96), 2 ** -6)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,lens", [(70, [70, 33, 0]), (129, [129, 64, 1])])
 def test_shift_attention(dtype, T, lens):
@@ -301,6 +399,20 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
                 torch.zeros(64, 40, dtype=torch.bfloat16, device=dev))  # N % 64
     with pytest.raises(ValueError):
         K1.layer_norm(torch.zeros(8, 64, dtype=torch.bfloat16, device=dev), g.cpu(), b, 1e-5)
+    z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16, device=dev)  # noqa: E731
+    refused = [
+        dict(a=z(8, 48), w=z(48, 64)),                              # K % 32
+        dict(a=z(8, 68)[:, :64], w=z(64, 64)),                      # a's row stride
+        dict(a=z(8, 72)[:, 4:68], w=z(64, 64)),                     # a's base address
+        dict(a=z(8, 64), w=z(64, 64), out=z(8, 72)[:, 4:68]),       # out's base address
+        dict(a=z(8, 64), w=z(64, 64), residual=z(8, 68)[:, :64]),   # the residual's row stride
+        dict(a=z(8, 64), w=z(64, 64), bias2=torch.zeros(20, device=dev)),
+        dict(a=z(8, 64).float(), w=z(64, 64)),                      # fp32 rows
+        dict(a=z(8, 64), w=z(64, 128)[:, :64]),                     # a weight that is not contiguous
+    ]
+    for kw in refused:
+        with pytest.raises(ValueError):
+            K1.gemm(kw.pop("a"), kw.pop("w"), None, **kw)
     with pytest.raises(ValueError):  # conv2 holds all C == 256 output channels in one block
         K2.conv2(torch.zeros(1, 7, 40, 64, dtype=torch.bfloat16, device=dev),
                  torch.zeros(9 * 64, 64, dtype=torch.bfloat16, device=dev), torch.zeros(64, device=dev), 8)

@@ -174,3 +174,56 @@ def test_kernel_gate_raises_and_names_the_way_out(dh, D, dtype):
     with pytest.raises(ValueError, match="attention_impl='xla'"):
         _check_inputs(z(1, 8, 2, dh), z(1, 8, 2, D), z(1, 8, 2, dh), z(1, 8, 2, dh), z(8, D),
                       torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("T", [70, 72])
+def test_bf16_backward_matches_jax_interpret_at_a_ragged_length(T):
+    """All four gradients in bf16 with dropout on, at a T that is no multiple
+    of the kernels' tiles, with rows of full length, length 1 and length 0:
+    the contract the CUDA backward is held to on the card. 2^-6 of each
+    tensor's scale (isolated bf16 rounding flips)."""
+    rng = np.random.default_rng(T)
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    x = dict(q_u=mk(3, T, H, DH), q_rot=0.25 * mk(3, T, H, D), k=mk(3, T, H, DH), v=mk(3, T, H, DH),
+             k_std=mk(T, D), lengths=np.asarray([T, 1, 0], np.int32), cot=mk(3, T, H, DH))
+    _, grads = _torch_run(x, 77, 0.1, torch.bfloat16)
+    _, ref_grads = _jax_run(x, 77, 0.1, jnp.bfloat16)
+    for name, g, r in zip(("dq_u", "dq_rot", "dk", "dv"), grads, ref_grads):
+        assert np.isfinite(g).all(), name
+        assert np.abs(g - r).max() <= 2 ** -6 * max(1.0, np.abs(r).max()), name
+    # a row of length 1 sends gradient to its first key only; a row of length 0 to all of them
+    assert not grads[2][1, 1:].any() and not grads[3][1, 1:].any()
+    assert grads[3][2].any(axis=(1, 2)).all()
+
+
+def test_delta_is_the_row_sum_over_the_unrounded_probabilities():
+    """delta = rowsum(dP * P32) with the fp32 probabilities, as the TPU kernel
+    takes it, and not rowsum(dO * O): O is built from the rounded P and is
+    itself rounded. The inputs make every dP of a row nearly the same large
+    number, so dS = P (dP - delta) is a small difference that the shortcut's
+    bf16-level error in delta swamps; the plain backward must agree with the
+    JAX kernel's VJP where the shortcut does not."""
+    T, rng = 24, np.random.default_rng(9)
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    bf = lambda a: torch.from_numpy(a).bfloat16().float().numpy()  # noqa: E731
+    x = dict(q_u=bf(mk(1, T, 1, DH)), q_rot=bf(0.25 * mk(1, T, 1, D)), k=bf(mk(1, T, 1, DH)),
+             v=bf(1.0 + 0.02 * mk(1, T, 1, DH)), k_std=bf(mk(T, D)), lengths=np.asarray([T], np.int32),
+             cot=bf(48.0 + 0.5 * mk(1, T, 1, DH)))
+    out, grads = _torch_run(x, 0, 0.0, torch.bfloat16)
+    _, ref_grads = _jax_run(x, 0, 0.0, jnp.bfloat16)
+    tol = [2 ** -6 * max(1.0, np.abs(r).max()) for r in ref_grads]
+    for name, g, r, t in zip(("dq_u", "dq_rot", "dk", "dv"), grads, ref_grads, tol):
+        assert np.abs(g - r).max() <= t, name
+
+    # the same backward with the shortcut delta, in the plain version's own arithmetic
+    t = {n: torch.from_numpy(x[n]) for n in ("q_u", "q_rot", "k", "v", "k_std", "cot")}
+    s = (torch.einsum("bthd,bshd->bhts", t["q_u"], t["k"])
+         + torch.einsum("bthD,sD->bhts", t["q_rot"], t["k_std"])) * float(np.float32(1.0 / np.sqrt(DH)))
+    p32 = torch.softmax(s, dim=-1)
+    dp = torch.einsum("bthd,bshd->bhts", t["cot"], t["v"])
+    delta_true = (dp * p32).sum(-1, keepdim=True)
+    delta_short = (t["cot"] * torch.from_numpy(out)).sum(-1).permute(0, 2, 1)[..., None]
+    assert float((delta_true - delta_short).abs().max()) > 0.2  # bf16-level error on values near 384
+    ds_short = (p32 * (dp - delta_short) * float(np.float32(1.0 / np.sqrt(DH)))).bfloat16().float()
+    dq_u_short = torch.einsum("bhts,bshd->bthd", ds_short, t["k"]).bfloat16().float().numpy()
+    assert np.abs(dq_u_short - ref_grads[0]).max() > 4 * tol[0]
