@@ -18,7 +18,13 @@
    second output, cg_w2 into a column slice of a wider buffer, and the
    subsampler's out-dense at K=5120), each beside its bound and ``F.linear``,
    at a ragged M (B=1, T_pad=56) and into each half of ``merged``, where the
-   other half and the rows past M must stay untouched;
+   other half and the rows past M must stay untouched; both depthwise convs
+   (CSGU and merge) once more at B=128, T_pad=256, each beside its bound and
+   ``F.conv1d(groups=C)``, then at B=8, 128 and 3 (T_pad 256, 256, 70) with
+   K = 3, 31, 33 and t_valid = T - 5, 1, T, on an input that is a row view of
+   a wider buffer, and into the first rows of a larger buffer whose other
+   rows must stay untouched; the device time under the profiler of
+   layernorm, pos_query and the two convs at B=8, beside the library calls';
 4. writes a flagship E-Branchformer CTC model with seeded random weights
    (12 layers, D=256, 8 heads, I=1024, 256x256 subsampler, 500+1 outputs),
    loads it through ASRPipeline(device="cuda") and answers requests of 1, 4
@@ -60,6 +66,7 @@ phase fails.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import os
 import subprocess
@@ -79,6 +86,22 @@ def bound(flops: float, nbytes: float, kind: str):
     """(least ms the card could take, what bounds it)."""
     t_ops, t_bytes = flops / PEAK_FLOPS[kind], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def sum_bound(pieces):
+    """The bound of a chain of kernels: the sum of its pieces' bounds, each
+    piece (operations, bytes moved, type of the operations); bound by what
+    bounds most of that sum."""
+    parts = [bound(*p) for p in pieces]
+    by_bytes = sum(ms for ms, by in parts if by == "bytes")
+    total = sum(ms for ms, _ in parts)
+    return total, "bytes" if 2 * by_bytes >= total else "operations"
+
+
+def gemm_work(M: int, K: int, N: int, extra_bytes: int = 0):
+    """(operations, bytes, type) of one bf16 GEMM: a, w, fp32 bias and the
+    output once each, plus ``extra_bytes`` (a residual, a second output)."""
+    return 2.0 * M * K * N, 2 * M * K + 2 * K * N + 4 * N + 2 * M * N + extra_bytes, "bf16"
 
 
 def nbytes(*tensors) -> int:
@@ -207,6 +230,25 @@ def host_us_per_launch(fn, n: int = 300) -> float:
     return 1e6 * dt / n
 
 
+def device_ms(fn, n: int = 10) -> float:
+    """Device time of one call of ``fn`` in ms: the kernels' own durations
+    under ``torch.profiler``, summed over ``n`` calls. Unlike a pair of events
+    around the calls it leaves out the host's time per launch, which at small
+    shapes is the larger part."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.time_range.end - ev.time_range.start for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / n
+
+
 def sdpa_call(q_u, q_rot, k, v, k_std, lengths, scale):
     """The library yardstick of the attention kernels:
     ``F.scaled_dot_product_attention`` on the concatenated operands
@@ -291,7 +333,7 @@ def main() -> None:
     def record(name, key, err, ok, ms, plain_ms, work, library_ms):
         """Print one comparison; keep, per key, the largest error over all
         its comparisons and the first one's times and bound."""
-        bound_ms, bound_by = bound(*work) if work else (None, None)
+        bound_ms, bound_by = (sum_bound(work) if isinstance(work, list) else bound(*work)) if work else (None, None)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         bnd = "" if bound_ms is None else f" bound={bound_ms:.4f} ms ({bound_by})"
         print(f"  {name:28s} max_abs_err={err:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms"
@@ -308,7 +350,8 @@ def main() -> None:
     def compare(name, key, kernel_fn, plain_fn, rel_tol, iters=20, work=None, library_fn=None):
         """Kernel vs plain on the same inputs; times are medians of 5 windows
         (``iters`` kernel calls, ``iters // 4`` plain calls each). ``work`` is
-        (operations, bytes moved, type of the operations) for the bound;
+        (operations, bytes moved, type of the operations) for the bound, or a
+        list of them for a chain of kernels (the sum of their bounds);
         ``library_fn`` is the one PyTorch call that computes the same function,
         timed as a yardstick and used nowhere else. The 10 s bucket runs
         first, so the JSON line carries its times."""
@@ -366,26 +409,29 @@ def main() -> None:
         convs = [blk[0].conv for blk in model.wav2vec2.feature_extractor.conv]
         cw = [c.weight.detach().to(dev, torch.bfloat16) for c in convs]
         C = cfg.conv_dim[0]
+        work_conv1 = (2.0 * 9 * C * B * ((n_frames + 1) // 2) * ((n_mel + 1) // 2),
+                      nbytes(feats, sw["w1"], sw["b1"]) + 2 * C * B * ((n_frames + 1) // 2) * ((n_mel + 1) // 2),
+                      "bf16")
         y1 = compare("conv1", "conv1", lambda: K2.conv1(feats, sw["w1"], sw["b1"]),
                      lambda: K2.conv1_plain(feats, sw["w1"], sw["b1"]), 2 ** -7,
-                     library_fn=lambda: F.conv2d(feats[:, None], cw[0], stride=2, padding=1),
-                     work=(2.0 * 9 * C * B * ((n_frames + 1) // 2) * ((n_mel + 1) // 2),
-                           nbytes(feats, sw["w1"], sw["b1"]) + 2 * C * B * ((n_frames + 1) // 2) * ((n_mel + 1) // 2),
-                           "bf16"))
+                     library_fn=lambda: F.conv2d(feats[:, None], cw[0], stride=2, padding=1), work=work_conv1)
         y1_nchw = y1.permute(0, 3, 1, 2)  # (B, C, T1, F1) view, channels last in memory
         rows2 = B * T_pad * ((y1.shape[2] + 1) // 2)
+        work_conv2 = (2.0 * rows2 * C * 9 * C, nbytes(y1, sw["w2"], sw["b2"]) + 2 * rows2 * C, "bf16")
         compare("conv2", "conv2", lambda: K2.conv2(y1, sw["w2"], sw["b2"], T_pad),
                 lambda: K2.conv2_plain(y1, sw["w2"], sw["b2"], T_pad), 2 ** -6,
-                library_fn=lambda: F.conv2d(y1_nchw, cw[1], stride=2, padding=1),
-                work=(2.0 * rows2 * C * 9 * C, nbytes(y1, sw["w2"], sw["b2"]) + 2 * rows2 * C, "bf16"))
+                library_fn=lambda: F.conv2d(y1_nchw, cw[1], stride=2, padding=1), work=work_conv2)
         if seconds == 10.0:
             # a frame count that is no multiple of the kernel's tile (6 output frames, 120 rows)
             B3, T3 = 3, 40
             y1_3 = y1[:B3, : 2 * T3 - 1].contiguous()
             compare(f"conv2 ragged tile (T2={T3})", "conv2", lambda: K2.conv2(y1_3, sw["w2"], sw["b2"], T3),
                     lambda: K2.conv2_plain(y1_3, sw["w2"], sw["b2"], T3), 2 ** -6)
+        M2, D = B * T_pad, cfg.hidden_size  # K2's pieces: conv1, conv2, out-dense, LayerNorm, projection
         hidden = compare("subsample (K2 whole)", None, lambda: K2.conv_subsample(feats, sw, cfg, T_pad),
-                         lambda: K2.conv_subsample_plain(feats, sw, cfg, T_pad), 0.05)
+                         lambda: K2.conv_subsample_plain(feats, sw, cfg, T_pad), 0.05,
+                         work=[work_conv1, work_conv2, gemm_work(M2, sw["wout"].shape[0], D),
+                               (8.0 * M2 * D, 4 * M2 * D, "fp32"), gemm_work(M2, D, D)])
 
         # K1 pieces at this bucket's shapes, with the real folded weights of layer 0
         w = fused.layers[0]
@@ -419,15 +465,16 @@ def main() -> None:
         print(f"  {'gemm qkv second output':28s} max_abs_err={err_qv:.3e}")
         if err_qv > 2 ** -6 * max(1.0, float(q_v_ref.float().abs().max())):
             failures.append("gemm qkv second output")
+        work_pos_query = (2.0 * M * D * D + 6.0 * M * H * D,
+                          nbytes(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"], tables["rot_sin"]) + 2 * M * H * D,
+                          "bf16")
         q_rot = compare("pos_query", "pos_query",
                         lambda: K1.pos_query(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"],
                                              tables["rot_sin"], T_pad),
                         lambda: K1.pos_query_plain(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"],
                                                    tables["rot_sin"], T_pad),
                         2 ** -7,  # no single PyTorch call computes it: no library time
-                        work=(2.0 * M * D * D + 6.0 * M * H * D,
-                              nbytes(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"], tables["rot_sin"])
-                              + 2 * M * H * D, "bf16"))
+                        work=work_pos_query)
         dh = D // H
         hv = lambda i: qkv[:, i * D:(i + 1) * D].view(B, T_pad, H, dh)
         qr = q_rot.view(B, T_pad, H, D)
@@ -435,11 +482,11 @@ def main() -> None:
         # the layer's own column views of the projection buffer, made once:
         # the timed call is the wrapper and its kernel
         att_args = (hv(0), hv(1), hv(2), qr, tables["k_std"], enc_lens)
+        work_attention = (2.0 * H * T_pad * keys * (dh + D + dh), nbytes(qr, tables["k_std"]) + 4 * 2 * M * D, "bf16")
         compare("rel_attention", "rel_attention", lambda: K1.rel_attention(*att_args),
                 lambda: K1.rel_attention_plain(*att_args),
                 2 ** -6, library_fn=sdpa_call(hv(0), qr, hv(1), hv(2), tables["k_std"], enc_lens, 1.0)[0],
-                work=(2.0 * H * T_pad * keys * (dh + D + dh),
-                      nbytes(qr, tables["k_std"]) + 4 * 2 * M * D, "bf16"))
+                work=work_attention)
         l = K1.gemm(K1.layer_norm(xf, w["cg_ln_g"], w["cg_ln_b"], 1e-5), w["cg_w1"], w["cg_b1"],
                     act="gelu")
         args = (w["csgu_ln_g"], w["csgu_ln_b"], w["csgu_dw"], w["csgu_dw_b"], B, T_pad, T,
@@ -449,21 +496,47 @@ def main() -> None:
         Cg, Kc = l.shape[1] // 2, w["csgu_dw"].shape[0]
         gate_in = l[:, Cg:].reshape(B, T_pad, Cg).transpose(1, 2)
         dw_c = w["csgu_dw"].t().reshape(Cg, 1, Kc).contiguous()
+        work_csgu = (2.0 * M * Cg * Kc + 10.0 * M * Cg, nbytes(l, w["csgu_dw"]) + 2 * M * Cg, "fp32")
         compare("dwconv csgu", "dwconv_csgu", lambda: K1.csgu(l, *args), lambda: K1.csgu_plain(l, *args), 2 ** -7,
                 library_fn=lambda: F.conv1d(gate_in, dw_c, padding=(Kc - 1) // 2, groups=Cg),
-                work=(2.0 * M * Cg * Kc + 10.0 * M * Cg, nbytes(l, w["csgu_dw"]) + 2 * M * Cg, "fp32"))
+                work=work_csgu)
         merged = torch.cat([xf, xf], dim=1).contiguous()
         margs = (w["merge_dw"], w["merge_dw_b"], B, T_pad, T)
         Km = w["merge_dw"].shape[0]
         merged_in = merged.reshape(B, T_pad, 2 * D).transpose(1, 2)
         dw_m = w["merge_dw"].t().reshape(2 * D, 1, Km).contiguous()
+        work_merge = (2.0 * M * 2 * D * Km, 2 * nbytes(merged) + nbytes(w["merge_dw"]), "fp32")
         compare("dwconv merge", "dwconv_merge", lambda: K1.merge_conv(merged, *margs),
                 lambda: K1.merge_conv_plain(merged, *margs), 2 ** -7,
                 library_fn=lambda: F.conv1d(merged_in, dw_m, padding=(Km - 1) // 2, groups=2 * D),
-                work=(2.0 * M * 2 * D * Km, 2 * nbytes(merged) + nbytes(w["merge_dw"]), "fp32"))
+                work=work_merge)
+        I = w["ff1_wi"].shape[1]
+        work_ln = (8.0 * M * D, 2 * nbytes(xf), "fp32")
+        layer_pieces = [  # the layer's 18 launches, in order
+            work_ln, gemm_work(M, D, I), gemm_work(M, I, D, 2 * M * D),             # FF1 (+ residual)
+            work_ln, gemm_work(M, D, 3 * D, 2 * M * D), work_pos_query, work_attention,  # attention
+            gemm_work(M, D, D),                                                     # out projection
+            work_ln, gemm_work(M, D, 2 * Cg), work_csgu, gemm_work(M, Cg, D),       # cgMLP
+            work_merge, gemm_work(M, 2 * D, D, 2 * M * D),                          # merge (+ residual)
+            work_ln, gemm_work(M, D, I), gemm_work(M, I, D, 2 * M * D), work_ln,    # FF2, final LayerNorm
+        ]
         compare("layer (K1 whole)", None,
                 lambda: K1.ebranchformer_layer(x, enc_lens, w, cfg, T, tables),
-                lambda: K1.ebranchformer_layer_plain(x, enc_lens, w, cfg, T, tables), 0.05)
+                lambda: K1.ebranchformer_layer_plain(x, enc_lens, w, cfg, T, tables), 0.05, work=layer_pieces)
+        if seconds == 10.0:
+            # the kernels' own durations, without the host's time per launch
+            dev_ms = {
+                "layernorm": device_ms(lambda: K1.layer_norm(xf, w["attn_ln_g"], w["attn_ln_b"], 1e-5)),
+                "pos_query": device_ms(lambda: K1.pos_query(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"],
+                                                            tables["rot_sin"], T_pad)),
+                "dwconv_csgu": device_ms(lambda: K1.csgu(l, *args)),
+                "dwconv_merge": device_ms(lambda: K1.merge_conv(merged, *margs)),
+                "F.conv1d csgu": device_ms(lambda: F.conv1d(gate_in, dw_c, padding=(Kc - 1) // 2, groups=Cg)),
+                "F.conv1d merge": device_ms(lambda: F.conv1d(merged_in, dw_m, padding=(Km - 1) // 2, groups=2 * D)),
+                "F.layer_norm": device_ms(lambda: F.layer_norm(xf, (D,), ln_g16, ln_b16, 1e-5)),
+            }
+            print("  device ms per call under the profiler (B=8, 10 s): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()), flush=True)
 
     # ---- the fused layer's attention kernel beyond the two buckets above:
     # seeded inputs as column views of one (B*T_pad, 3D) buffer, which is how
@@ -549,6 +622,89 @@ def main() -> None:
             other = merged_s[:Ms, (1 - half) * D:(2 - half) * D]
             if not bool((other == 7.0).all()) or not bool((merged_s[Ms:] == 7.0).all()):
                 failures.append(f"gemm into merged half {half}: wrote outside its slice")
+
+    # ---- the depthwise convs at the rows of a B=128 x 10 s request, each beside
+    # its bound and F.conv1d(groups=C); then against their plain versions at
+    # t_valid off the tiles' edges, 1 and T, at K = 3, 31, 33, on a strided l,
+    # and into the first rows of a larger buffer whose other rows must stay
+    # untouched (T = 70 is no multiple of either tile)
+    print(f"-- depthwise convs at B={B_big}, T_pad=256 and across t_valid, K, strides", flush=True)
+    Cg, Kc = w["csgu_dw"].shape[1], w["csgu_dw"].shape[0]
+    Cm = 2 * D
+
+    def dw_inputs(mode, B, T, K, seed, lead=0):
+        gen = torch.Generator().manual_seed(seed)
+        C = Cg if mode == 0 else Cm
+        width = 2 * C if mode == 0 else C
+        x_ = torch.randn(B * T, width + 2 * lead, generator=gen).bfloat16().to(dev)[:, lead:lead + width]
+        if K == Kc:  # the model's own weights
+            key = "csgu_dw" if mode == 0 else "merge_dw"
+            return x_, w[key], w[key + "_b"]
+        return (x_, (torch.randn(K, C, generator=gen) * K ** -0.5).bfloat16().to(dev),
+                (torch.randn(C, generator=gen) * 0.1).to(dev))
+
+    def dw_call(mode, x_, wk, bk, B, T, t_valid, out=None):
+        if mode == 0:
+            return K1._dwconv(0, x_, w["csgu_ln_g"], w["csgu_ln_b"], wk, bk, B, T, t_valid,
+                              cfg.csgu_activation, 1e-5, "dwconv_csgu", out=out)
+        return K1._dwconv(1, x_, None, None, wk, bk, B, T, t_valid, "identity", 0.0, "dwconv_merge", out=out)
+
+    def dw_plain(mode, x_, wk, bk, B, T, t_valid):
+        if mode == 0:
+            return K1.csgu_plain(x_, w["csgu_ln_g"], w["csgu_ln_b"], wk, bk, B, T, t_valid,
+                                 cfg.csgu_activation, 1e-5)
+        return K1.merge_conv_plain(x_, wk, bk, B, T, t_valid)
+
+    with torch.no_grad():
+        for mode, name in ((0, "csgu"), (1, "merge")):
+            x_, wk, bk = dw_inputs(mode, B_big, 256, Kc, seed=11 + mode)
+            C = Cg if mode == 0 else Cm
+            lib_in = x_[:, C:] if mode == 0 else x_
+            lib_in = lib_in.reshape(B_big, 256, C).transpose(1, 2)
+            lib_w = wk.t().reshape(C, 1, Kc).contiguous()
+            moved = (nbytes(x_, wk) + 2 * B_big * 256 * C) if mode == 0 else (2 * nbytes(x_) + nbytes(wk))
+            compare(f"dwconv {name} B={B_big} T_pad=256", f"dwconv_{name}_b{B_big}",
+                    lambda: dw_call(mode, x_, wk, bk, B_big, 256, 250),
+                    lambda: dw_plain(mode, x_, wk, bk, B_big, 256, 250), 2 ** -7,
+                    library_fn=lambda: F.conv1d(lib_in, lib_w, padding=(Kc - 1) // 2, groups=C),
+                    work=(2.0 * B_big * 256 * C * Kc + (10.0 * B_big * 256 * C if mode == 0 else 0.0), moved,
+                          "fp32"))
+            print(f"  dwconv {name} B={B_big} T_pad=256 device ms under the profiler: "
+                  f"{device_ms(lambda: dw_call(mode, x_, wk, bk, B_big, 256, 250)):.4f} "
+                  f"(F.conv1d {device_ms(lambda: F.conv1d(lib_in, lib_w, padding=(Kc - 1) // 2, groups=C)):.4f})",
+                  flush=True)
+            del x_, lib_in
+            torch.cuda.empty_cache()
+            errs = []
+            for (B_, T_), K_, tv in itertools.product(((8, 256), (B_big, 256), (3, 70)), (3, Kc, 33),
+                                                       ("ragged", 1, "T")):
+                t_valid = {"ragged": T_ - 5, "T": T_}.get(tv, tv)
+                x_, wk, bk = dw_inputs(mode, B_, T_, K_, seed=B_ + T_ + K_)
+                got, ref = dw_call(mode, x_, wk, bk, B_, T_, t_valid), dw_plain(mode, x_, wk, bk, B_, T_, t_valid)
+                err = float((got.float() - ref.float()).abs().max())
+                errs.append(err)
+                scale = max(1.0, float(ref.float().abs().max()))
+                if not bool(torch.isfinite(got.float()).all()) or err > 2 ** -7 * scale:
+                    failures.append(f"dwconv {name} B={B_} T={T_} K={K_} t_valid={t_valid}")
+            x_, wk, bk = dw_inputs(mode, B_big, 256, Kc, seed=5, lead=64)  # a row view of a wider buffer
+            got, ref = dw_call(mode, x_, wk, bk, B_big, 256, 251), dw_plain(mode, x_, wk, bk, B_big, 256, 251)
+            err = float((got.float() - ref.float()).abs().max())
+            errs.append(err)
+            if err > 2 ** -7 * max(1.0, float(ref.float().abs().max())) \
+                    or not torch.equal(got, dw_call(mode, x_.contiguous(), wk, bk, B_big, 256, 251)):
+                failures.append(f"dwconv {name} on a strided input")
+            for B_, T_ in ((3, 70), (B_big, 256)):
+                x_, wk, bk = dw_inputs(mode, B_, T_, Kc, seed=7)
+                guard = torch.full((B_ * T_ + 80, C), 7.0, dtype=torch.bfloat16, device=dev)
+                got = dw_call(mode, x_, wk, bk, B_, T_, T_ - 9, out=guard[:B_ * T_])
+                ref = dw_plain(mode, x_, wk, bk, B_, T_, T_ - 9)
+                errs.append(float((got.float() - ref.float()).abs().max()))
+                if not bool((guard[B_ * T_:] == 7.0).all()):
+                    failures.append(f"dwconv {name} wrote past the last row (B={B_}, T={T_})")
+            results[f"dwconv_{name}"]["max_abs_err"] = max(results[f"dwconv_{name}"]["max_abs_err"], *errs)
+            print(f"  dwconv {name}: B in (8, {B_big}, 3) x K in (3, {Kc}, 33) x t_valid in (T-5, 1, T), a strided "
+                  f"input, rows past the last untouched: max_abs_err={max(errs):.3e}", flush=True)
+        torch.cuda.empty_cache()
 
     fi = factored_inputs(1, 64, [64], seed=1)
     g = torch.Generator().manual_seed(2)
@@ -909,7 +1065,7 @@ def main() -> None:
         "pos_query": ("asr_pos_query", "csrc/layer.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
         "rel_attention": ("asr_rel_attention", "csrc/rel_attention.cu",
                           "huggingface_asr_tpu/ops/pallas_layer.py:417"),
-        "dwconv_csgu": ("dwconv_csgu", "csrc/dwconv.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
+        "dwconv_csgu": ("dwconv_csgu", "csrc/dwconv_csgu.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
         "dwconv_merge": ("dwconv_merge", "csrc/dwconv.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
         "rel_attention_train_fwd": ("asr_rel_attention_train_fwd", "csrc/rel_attention_train_fwd.cu",
                                     "huggingface_asr_tpu/ops/pallas_train_attention.py:105"),
@@ -918,8 +1074,10 @@ def main() -> None:
         "rel_attention_shift": ("asr_rel_attention_shift", "csrc/rel_attention_shift_bf16.cu",
                                 "huggingface_asr_tpu/ops/pallas_attention.py:34"),
     }
-    # the GEMM's readings at M = 32,768: the same kernel, source and counter
+    # the GEMM's readings at M = 32,768 and the convs' at B=128: the same
+    # kernel, source and counter
     routes.update({k: routes["gemm"] for k in results if k.startswith("gemm_m32768_")})
+    routes.update({k: routes[k.rsplit("_", 1)[0]] for k in results if k.startswith("dwconv_") and k.endswith("_b128")})
     launches.update({k: v for k, v in train_launches.items() if k.startswith("asr_rel_attention_")
                      and k != "asr_rel_attention"})
     kernels = []

@@ -1,0 +1,26 @@
+// The CSGU form of the depthwise convolution (design and numeric contract in
+// dwconv.cuh): LayerNorm of the gate half, conv, activation and gate.
+#include "dwconv.cuh"
+
+namespace dwconv {
+
+template <int KP>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+dwconv_csgu_kernel(const Args a, const __grid_constant__ Maps maps, int TT, int CS) {
+    dwconv_body<true, KP, ROWS>(a, maps, TT, CS);
+}
+
+template <int KP>
+static cudaError_t launch_csgu_k(const Args& a, cudaStream_t stream) {
+    return launch_tiled(dwconv_csgu_kernel<KP>, a, true, KP, stream);
+}
+
+cudaError_t launch_csgu(const Args& a, cudaStream_t stream) {
+    switch (padded_k(a.K)) {
+        case 7: return launch_csgu_k<7>(a, stream);
+        case 31: return launch_csgu_k<31>(a, stream);
+        default: return launch_csgu_k<33>(a, stream);
+    }
+}
+
+}  // namespace dwconv

@@ -320,38 +320,73 @@ def merge_conv_plain(x, w, bias, B: int, T: int, t_valid: int):
     return (x.to(F32) + _round(acc).reshape(B * T, C)).to(BF16)
 
 
-def _dwconv(mode, x, ln_g, ln_b, w, bias, B, T, t_valid, C, act, eps, label):
-    K = w.shape[0]
-    _build.check(x, "x", BF16, (B * T, 2 * C if mode == 0 else C))
-    _build.check(w, "w", BF16, (K, C))
-    _build.check(bias, "bias", F32, (C,))
+DWCONV_MAX_K = 33
+DWCONV_MAX_C = {0: 768, 1: 1024}  # CSGU, merge: two stages of a 16-row tile in 227 KB
+
+
+def dwconv_contract(mode: int, x, w, bias, B: int, T: int, t_valid: int, ln_g=None, ln_b=None) -> int:
+    """Raise unless ``csrc/dwconv.cu`` takes these operands (whatever device
+    they lie on); return C. mode 0 (CSGU): x is (B*T, 2C) ``[x_r | x_g]``;
+    mode 1 (merge): x is (B*T, C). x may be a row view: unit column stride, a
+    row stride divisible by 8 and a 16-byte aligned base, which the kernel's
+    TMA maps need; C a multiple of 8, at most 768 (CSGU) or 1024
+    (merge), so that two stages of a tile fit in shared memory; w (K, C) bf16 with
+    K odd, at most 33 (the TPU kernel's ``PAD_ALLOC``); bias, ln_g, ln_b (C,)
+    fp32, each contiguous; 0 <= t_valid."""
+    width = x.shape[1] if x.ndim == 2 else -1
+    C = width // 2 if mode == 0 else width
+    if x.ndim != 2 or x.shape[0] != B * T or C <= 0 or width != (2 * C if mode == 0 else C):
+        raise ValueError(f"x: expected ({B * T}, {'2C' if mode == 0 else 'C'}) rows, got {tuple(x.shape)}")
+    if C % 8 or C > DWCONV_MAX_C[mode]:
+        raise ValueError(f"depthwise conv kernel needs C % 8 == 0 and C <= {DWCONV_MAX_C[mode]}, got C={C}")
+    if x.stride(1) != 1 or x.stride(0) % 8 or x.data_ptr() % 16:
+        raise ValueError("x: needs unit column stride, a row stride divisible by 8 and a 16-byte aligned base")
+    K = w.shape[0] if w.ndim == 2 else 0
+    if K % 2 == 0 or K > DWCONV_MAX_K:
+        raise ValueError(f"depthwise conv kernel needs an odd kernel size of at most {DWCONV_MAX_K}, got {K}")
+    if t_valid < 0:
+        raise ValueError(f"t_valid must be >= 0, got {t_valid}")
+    params = [("x", x, BF16, None), ("w", w, BF16, (K, C)), ("bias", bias, F32, (C,))]
     if mode == 0:
-        _build.check(ln_g, "ln_g", F32, (C,))
-        _build.check(ln_b, "ln_b", F32, (C,))
-    if K % 2 == 0:
-        raise ValueError(f"depthwise conv kernel needs an odd kernel size, got {K}")
-    out = torch.empty(B * T, C, dtype=BF16, device=x.device)
+        params += [("ln_g", ln_g, F32, (C,)), ("ln_b", ln_b, F32, (C,))]
+    for name, t, dtype, shape in params:
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+        if shape is not None and (tuple(t.shape) != shape or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name}: expected a contiguous, 16-byte aligned {shape} tensor, got {tuple(t.shape)}")
+    return C
+
+
+def _dwconv(mode, x, ln_g, ln_b, w, bias, B, T, t_valid, act, eps, label, out=None):
+    """Launch ``asr_dwconv``; ``out`` (B*T, C) may be a view of a larger
+    buffer, of which only these rows are written."""
+    C = dwconv_contract(mode, x, w, bias, B, T, t_valid, ln_g, ln_b)
+    for name, t in (("x", x), ("w", w), ("bias", bias), ("ln_g", ln_g), ("ln_b", ln_b)):
+        if t is not None and not t.is_cuda:
+            raise ValueError(f"{name}: expected a CUDA tensor, got device {t.device}")
+    if out is None:
+        out = torch.empty(B * T, C, dtype=BF16, device=x.device)
+    _build.check(out, "out", BF16, (B * T, C))
     ptr = lambda t: t.data_ptr() if t is not None else None
     _build.launch("asr_dwconv", "ppppppiiiiiiiif", x.data_ptr(), ptr(ln_g), ptr(ln_b),
-                  w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, T, t_valid, C, K,
+                  w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, T, t_valid, C, w.shape[0],
                   x.stride(0), mode, ACT_CODES[act], float(eps), label=label)
     return out
 
 
 def csgu(l, ln_g, ln_b, w, bias, B: int, T: int, t_valid: int, act: str, eps: float):
-    """``csgu_plain``; CUDA tensors run ``csrc/dwconv.cu`` in its CSGU form."""
+    """``csgu_plain``; CUDA tensors run ``csrc/dwconv_csgu.cu`` (``l`` may be a
+    row view; what the kernel takes is ``dwconv_contract``'s to say)."""
     if not _build.on_cuda(l, ln_g, ln_b, w, bias):
         return csgu_plain(l, ln_g, ln_b, w, bias, B, T, t_valid, act, eps)
-    return _dwconv(0, l, ln_g, ln_b, w, bias, B, T, t_valid, l.shape[1] // 2, act, eps,
-                   "dwconv_csgu")
+    return _dwconv(0, l, ln_g, ln_b, w, bias, B, T, t_valid, act, eps, "dwconv_csgu")
 
 
 def merge_conv(x, w, bias, B: int, T: int, t_valid: int):
-    """``merge_conv_plain``; CUDA tensors run ``csrc/dwconv.cu`` in its merge form."""
+    """``merge_conv_plain``; CUDA tensors run ``csrc/dwconv.cu``'s merge kernel."""
     if not _build.on_cuda(x, w, bias):
         return merge_conv_plain(x, w, bias, B, T, t_valid)
-    return _dwconv(1, x, None, None, w, bias, B, T, t_valid, x.shape[1], "identity", 0.0,
-                   "dwconv_merge")
+    return _dwconv(1, x, None, None, w, bias, B, T, t_valid, "identity", 0.0, "dwconv_merge")
 
 
 # ---------------------------------------------------------------------------

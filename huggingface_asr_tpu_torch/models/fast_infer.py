@@ -14,7 +14,7 @@ tables are built once per padded length and cached.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -47,22 +47,31 @@ def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+def fused_encoder_refusal(cfg: EBranchformerConfig, dtype: torch.dtype) -> Optional[str]:
+    """The first condition of the fused path that ``cfg`` and ``dtype`` fail,
+    as a sentence for the user, or None where the fused path takes them."""
+    checks = (
+        (cfg.position_embeddings_type == "relative",
+         f"position_embeddings_type is {cfg.position_embeddings_type!r}, not 'relative'"),
+        (not cfg.is_causal, "the model is causal"),
+        (not cfg.finetune_with_layer_mixing, "finetune_with_layer_mixing is set"),
+        (not cfg.finetune_with_additional_layer, "finetune_with_additional_layer is set"),
+        (cfg.use_macaron_ff, "use_macaron_ff is off"),
+        (not cfg.csgu_use_linear_after_conv, "csgu_use_linear_after_conv is set"),
+        (cfg.hidden_act in ACT_CODES, f"hidden_act {cfg.hidden_act!r} has no kernel form"),
+        (cfg.csgu_activation in ACT_CODES, f"csgu_activation {cfg.csgu_activation!r} has no kernel form"),
+        (cfg.head_size == 32, f"head size {cfg.head_size} (the attention kernels take 32)"),
+        (rel_attention_width_ok(cfg.hidden_size),
+         f"hidden_size {cfg.hidden_size} (the attention kernels take a multiple of 64, at most 256)"),
+        (fits_subsample_kernel(cfg), "the conv subsampler is outside the subsampler kernel's support"),
+        (dtype == torch.bfloat16, f"dtype {dtype} (the kernels run bfloat16)"),
+    )
+    return next((reason for ok, reason in checks if not ok), None)
+
+
 def fused_encoder_ok(cfg: EBranchformerConfig, dtype: torch.dtype) -> bool:
     """Static gate for the fused path (single source of truth for the pipeline)."""
-    return (
-        cfg.position_embeddings_type == "relative"
-        and not cfg.is_causal
-        and not cfg.finetune_with_layer_mixing
-        and not cfg.finetune_with_additional_layer
-        and cfg.use_macaron_ff
-        and not cfg.csgu_use_linear_after_conv
-        and cfg.hidden_act in ACT_CODES
-        and cfg.csgu_activation in ACT_CODES
-        and cfg.head_size == 32
-        and rel_attention_width_ok(cfg.hidden_size)
-        and fits_subsample_kernel(cfg)
-        and dtype == torch.bfloat16
-    )
+    return fused_encoder_refusal(cfg, dtype) is None
 
 
 class FusedCTC:

@@ -12,6 +12,7 @@ model runs.
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -19,11 +20,13 @@ import torch
 
 from huggingface_asr_tpu_torch.kernels.mel import MelFrontEnd
 from huggingface_asr_tpu_torch.models.configs import parse_dtype
-from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer, fused_encoder_ok
+from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer, fused_encoder_refusal
 from huggingface_asr_tpu_torch.ops.ctc import ctc_greedy_decode, tokens_to_lists
 from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
 from huggingface_asr_tpu_torch.training.model_factory import load_ctc_model
 from huggingface_asr_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
 
 
 class ASRPipeline:
@@ -56,7 +59,10 @@ class ASRPipeline:
 
         model = load_ctc_model(model_dir, self.device)
         config = model.config
-        self._use_fused = self.device.type == "cuda" and fused_encoder_ok(config, dt)
+        refusal = fused_encoder_refusal(config, dt)
+        self._use_fused = self.device.type == "cuda" and refusal is None
+        if self.device.type == "cuda" and refusal is not None:
+            logger.warning("serving through the plain model, not the fused kernels: %s", refusal)
         mel_cfg = LogMelConfig(num_mel_bins=config.num_fbanks)
         if self._use_fused:
             self._fused = FusedCTC(model, self.device)

@@ -1,6 +1,6 @@
 """A/B of kernel source variants on one NVIDIA GPU.
 
-    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm DIR_A [DIR_B ...]
+    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm,dwconv DIR_A [DIR_B ...]
 
 Each DIR is a directory holding a full copy of ``huggingface_asr_tpu_torch/csrc``
 (the package's own directory is a valid DIR). Every variant is built and run in
@@ -18,7 +18,11 @@ the backward alone; ``gemm`` holds the GEMM with each epilogue the layer and
 the subsampler use (activation, residual, dual output, a column slice of a
 wider output, round-first at K=5120, a strided ``a``) against ``gemm_plain``
 at M = 56, 2,048 and 32,768 rows, checks that rows past M and the other half
-of a sliced output stay untouched, and times it beside ``F.linear``.
+of a sliced output stay untouched, and times it beside ``F.linear``;
+``dwconv`` holds both forms of the depthwise conv (CSGU with its LayerNorm
+and gate, merge with its residual; C = 512, K = 31) against their plain
+versions at M = 2,048 and 32,768 rows and times them beside
+``F.conv1d(groups=C)``, with the device times under the profiler.
 Exits non-zero without a CUDA device.
 """
 
@@ -32,7 +36,7 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import host_us_per_launch, timed  # noqa: E402
+from chip_smoke import device_ms, host_us_per_launch, timed  # noqa: E402
 
 CONV2_SHAPES = [(3, 15, 8), (3, 79, 40), (8, 499, 256), (8, 999, 504), (128, 499, 256)]  # (B, T1, T2)
 K4_SHAPES = [  # (B, T, H, D, lengths or None for the smoke's ragged lengths, rate)
@@ -51,6 +55,7 @@ K5_SHAPES = [  # (B, T, H, lengths or None)
 
 
 GEMM_ROWS = (56, 2048, 32768)
+DWCONV_SHAPES = [(8, 256), (128, 256)]  # (B, T_pad): M = 2,048 and 32,768 rows
 GEMM_CASES = [  # (name, K, N, keyword arguments of the call besides bias)
     ("ff_in +gelu", 256, 1024, dict(act="gelu")),
     ("ff_in no act", 256, 1024, dict()),
@@ -100,25 +105,6 @@ def gemm_case(K1, M, K, N, kw, dev, gen):
     return kernel, plain, (lambda: F.linear(a_lin, w_t, b16)), untouched
 
 
-def device_ms(fn, n: int = 10) -> float:
-    """Device time of one call of ``fn`` in ms: the kernels' own durations
-    under ``torch.profiler``, summed over ``n`` calls. Unlike a pair of events
-    around the calls it leaves out the host's time per launch, which at small
-    shapes is the larger part."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ev.time_range.end - ev.time_range.start for ev in prof.events()
-                if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return total / 1e3 / n
-
-
 def smoke_lengths(B: int, T: int):
     lens = [T - (i * T) // (2 * B) for i in range(B)]
     lens[B // 2] = 0
@@ -139,7 +125,7 @@ def run_variant(csrc: str, what: str) -> None:
     _build.CSRC = pathlib.Path(csrc).resolve()
     _build.library()
     sources = {"conv2": "conv2", "k4": "train_fwd", "k4bwd": "train_bwd", "k1": "rel_attention.cu", "k5": "shift",
-               "gemm": "layer.cu"}
+               "gemm": "layer.cu", "dwconv": "dwconv"}
     keep = False
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("=="):
@@ -169,6 +155,38 @@ def run_variant(csrc: str, what: str) -> None:
                 if M == GEMM_ROWS[0] and name.startswith("ff_in"):
                     print(f"gemm host us per launch: {host_us_per_launch(kernel):.2f} "
                           f"(F.linear {host_us_per_launch(library):.2f})", flush=True)
+    if "dwconv" in what.split(","):
+        import torch.nn.functional as F
+
+        C, K = 512, 31
+        for B, T in DWCONV_SHAPES:
+            gen = torch.Generator().manual_seed(B + T)
+            l = torch.randn(B * T, 2 * C, generator=gen).bfloat16().to(dev)
+            x = torch.randn(B * T, C, generator=gen).bfloat16().to(dev)
+            w = (torch.randn(K, C, generator=gen) * K ** -0.5).bfloat16().to(dev)
+            bias, ln_b = (torch.randn(C, generator=gen) * 0.1).to(dev), (torch.randn(C, generator=gen) * 0.1).to(dev)
+            ln_g = (1.0 + 0.1 * torch.randn(C, generator=gen)).to(dev)
+            w_lib = w.t().reshape(C, 1, K).contiguous()
+            t_valid = T - 6
+            calls = {
+                "csgu": (lambda: K1.csgu(l, ln_g, ln_b, w, bias, B, T, t_valid, "identity", 1e-5),
+                         lambda: K1.csgu_plain(l, ln_g, ln_b, w, bias, B, T, t_valid, "identity", 1e-5),
+                         l[:, C:].reshape(B, T, C).transpose(1, 2)),
+                "merge": (lambda: K1.merge_conv(x, w, bias, B, T, t_valid),
+                          lambda: K1.merge_conv_plain(x, w, bias, B, T, t_valid),
+                          x.reshape(B, T, C).transpose(1, 2)),
+            }
+            for name, (kernel, plain, lib_in) in calls.items():
+                got, ref = kernel().float(), plain().float()
+                err = float((got - ref).abs().max())
+                ok = bool(torch.isfinite(got).all()) and err <= 2 ** -7 * max(1.0, float(ref.abs().max()))
+                library = lambda: F.conv1d(lib_in, w_lib, padding=(K - 1) // 2, groups=C)  # noqa: E731
+                with torch.no_grad():
+                    print(f"dwconv {name} B={B} T={T} M={B * T}: err={err:.3e} {'ok' if ok else 'FAIL'} "
+                          f"ms={timed(kernel):.4f} device_ms={device_ms(kernel):.4f} conv1d_ms={timed(library):.4f} "
+                          f"conv1d_device_ms={device_ms(library):.4f}", flush=True)
+            del l, x
+            torch.cuda.empty_cache()
     if "conv2" in what.split(","):
         for B, T1, T2 in CONV2_SHAPES:
             y1 = torch.randn(B, T1, 40, 256, generator=g).bfloat16().to(dev)

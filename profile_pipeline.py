@@ -38,7 +38,8 @@ GROUPS = (  # (group, substring of the demangled kernel name), first match wins
     ("conv2", "conv2_kernel"),
     ("gemm", "gemm_kernel"),
     ("rel_attention", "rel_attention_kernel"),
-    ("dwconv", "dwconv_kernel"),
+    ("dwconv_csgu", "dwconv_csgu_kernel"),
+    ("dwconv_merge", "dwconv_merge_kernel"),
     ("pos_query", "pos_query_kernel"),
     ("layernorm", "layernorm_kernel"),
     ("conv1", "conv1_kernel"),

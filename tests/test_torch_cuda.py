@@ -139,6 +139,139 @@ def test_ctc_infer_launches_kernels_and_matches_plain(fused):
     _close(got.logits, ref.logits, 0.05)
 
 
+# ---- the depthwise convs (csrc/dwconv.cu, dwconv_csgu.cu): both tilings
+# (M = 56 and 2,048 rows take the 16-row tiles, 32,768 the 64-row tiles),
+# every compiled kernel size (K = 3 runs on the 7-tap kernel), t_valid at 1,
+# at T and off the tiles' edges.
+
+
+def _dw_inputs(dev, mode, B, T, C, K, seed, lead=0):
+    """(x, ln_g, ln_b, w, bias); x is a row view ``lead`` columns into a wider buffer."""
+    g = torch.Generator().manual_seed(seed)
+    width = 2 * C if mode == 0 else C
+    x = torch.randn(B * T, width + 2 * lead, generator=g).bfloat16().to(dev)[:, lead:lead + width]
+    w = (torch.randn(K, C, generator=g) * K ** -0.5).bfloat16().to(dev)
+    bias, ln_b = (torch.randn(C, generator=g) * 0.1).to(dev), (torch.randn(C, generator=g) * 0.1).to(dev)
+    ln_g = (1.0 + 0.1 * torch.randn(C, generator=g)).to(dev)
+    return x, ln_g, ln_b, w, bias
+
+
+def _dw_both(mode, x, ln_g, ln_b, w, bias, B, T, t_valid, act="identity", out=None):
+    """(kernel output, plain output) of one form of the conv."""
+    label = ("dwconv_csgu", "dwconv_merge")[mode]
+    if mode == 0:
+        got = K1._dwconv(0, x, ln_g, ln_b, w, bias, B, T, t_valid, act, 1e-5, label, out=out)
+        return got, K1.csgu_plain(x, ln_g, ln_b, w, bias, B, T, t_valid, act, 1e-5)
+    got = K1._dwconv(1, x, None, None, w, bias, B, T, t_valid, "identity", 0.0, label, out=out)
+    return got, K1.merge_conv_plain(x, w, bias, B, T, t_valid)
+
+
+@pytest.mark.parametrize("t_valid", ["ragged", 1, "T"])
+@pytest.mark.parametrize("K", [3, 31, 33])
+@pytest.mark.parametrize("B,T", [(1, 56), (8, 256), (128, 256)])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_dwconv_against_plain(mode, B, T, K, t_valid):
+    dev = _cuda()
+    tv = {"ragged": T - 5, "T": T}.get(t_valid, t_valid)
+    args = _dw_inputs(dev, mode, B, T, 512, K, seed=B + T + K)
+    _build.reset_launch_counts()
+    got, ref = _dw_both(mode, *args, B, T, tv)
+    assert sum(_build.LAUNCHES.values()) == 1
+    _close(got, ref, 2 ** -7)
+
+
+@pytest.mark.parametrize("act", sorted(K1.ACT_CODES))
+def test_dwconv_csgu_activations(act):
+    dev = _cuda()
+    args = _dw_inputs(dev, 0, 3, 70, 128, 7, seed=4)
+    _close(*_dw_both(0, *args, 3, 70, 61, act=act), 2 ** -7)
+
+
+@pytest.mark.parametrize("C", [64, 128, 256, 384, 768])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_dwconv_channel_counts(mode, C):
+    """Channel counts of 64 to 768 (merge also 1,000: one slice of all C)."""
+    dev = _cuda()
+    for B, T in ((3, 70), (128, 200)):
+        args = _dw_inputs(dev, mode, B, T, C, 31, seed=C + T)
+        _close(*_dw_both(mode, *args, B, T, T - 3), 2 ** -7)
+    if mode == 1 and C == 768:
+        args = _dw_inputs(dev, 1, 3, 70, 1000, 33, seed=1000)
+        _close(*_dw_both(1, *args, 3, 70, 67), 2 ** -7)
+
+
+@pytest.mark.parametrize("B,T", [(8, 256), (128, 256)])
+def test_dwconv_csgu_on_a_strided_l(B, T):
+    """``l`` as a row view with 64 columns on each side, as a column slice of a wider buffer is."""
+    dev = _cuda()
+    args = _dw_inputs(dev, 0, B, T, 512, 31, seed=9, lead=64)
+    assert not args[0].is_contiguous()
+    got = K1.csgu(*args, B, T, T - 5, "identity", 1e-5)
+    _close(got, K1.csgu_plain(*args, B, T, T - 5, "identity", 1e-5), 2 ** -7)
+    contiguous = K1.csgu(args[0].contiguous(), *args[1:], B, T, T - 5, "identity", 1e-5)
+    assert torch.equal(got, contiguous)
+
+
+@pytest.mark.parametrize("T", [70, 256])
+@pytest.mark.parametrize("B", [3, 128])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_dwconv_writes_no_row_past_T(mode, B, T):
+    """Output into the first B*T rows of a larger buffer: the rows after them
+    keep their value, and every utterance's rows are its own (T is no multiple
+    of either tile at 70)."""
+    dev = _cuda()
+    args = _dw_inputs(dev, mode, B, T, 512, 31, seed=B * T)
+    guard = torch.full((B * T + 80, 512), 7.0, dtype=torch.bfloat16, device=dev)
+    got, ref = _dw_both(mode, *args, B, T, T - 9, out=guard[:B * T])
+    torch.cuda.synchronize()
+    assert bool((guard[B * T:] == 7.0).all())
+    _close(got, ref, 2 ** -7)
+
+
+def test_dwconv_refusals_on_the_card():
+    dev = _cuda()
+    x, ln_g, ln_b, w, bias = _dw_inputs(dev, 0, 2, 16, 64, 7, seed=0)
+    with pytest.raises(ValueError):  # even K
+        K1.csgu(x, ln_g, ln_b, w[:6].contiguous(), bias, 2, 16, 16, "identity", 1e-5)
+    with pytest.raises(ValueError):  # K > 33
+        K1.csgu(x, ln_g, ln_b, w.repeat(5, 1)[:35].contiguous(), bias, 2, 16, 16, "identity", 1e-5)
+    with pytest.raises(ValueError):  # C % 8
+        K1.merge_conv(x[:, :60].contiguous(), w[:, :60].contiguous(), bias[:60].contiguous(), 2, 16, 16)
+    with pytest.raises(ValueError):  # fp32 rows
+        K1.merge_conv(x[:, :64].float(), w[:, :64].contiguous(), bias, 2, 16, 16)
+    with pytest.raises(ValueError):  # a row stride that is no multiple of 8
+        K1.csgu(torch.zeros(32, 132, dtype=torch.bfloat16, device=dev)[:, :128], ln_g, ln_b, w, bias,
+                2, 16, 16, "identity", 1e-5)
+    with pytest.raises(ValueError):  # bias on the CPU
+        K1.merge_conv(x[:, :64].contiguous(), w, bias.cpu(), 2, 16, 16)
+
+
+def test_pipeline_logs_why_the_fused_path_is_refused(tmp_path, caplog):
+    """A config outside the fused path (head size 44) serves through the plain
+    model on the card, and the pipeline says why in one line."""
+    import logging
+
+    from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
+    from huggingface_asr_tpu_torch.training.model_factory import save_params
+
+    _cuda()
+    cfg = EBranchformerConfig(hidden_size=176, num_hidden_layers=1, num_attention_heads=4, intermediate_size=352,
+                              csgu_kernel_size=7, merge_conv_kernel=7, vocab_size=20)
+    save_params(init_random_(EBranchformerForCTC(cfg).eval(), torch.Generator().manual_seed(0)), str(tmp_path))
+
+    class Ids:
+        def decode(self, ids, skip_special_tokens=True):
+            return " ".join(map(str, ids))
+
+    with caplog.at_level(logging.WARNING, logger="huggingface_asr_tpu_torch.serving.pipeline"):
+        pipe = ASRPipeline(str(tmp_path), device="cuda", tokenizer=Ids())
+    assert not pipe._use_fused
+    lines = [r.getMessage() for r in caplog.records if r.name == "huggingface_asr_tpu_torch.serving.pipeline"]
+    assert lines == ["serving through the plain model, not the fused kernels: head size 44 (the attention kernels "
+                     "take 32)"]
+    assert isinstance(pipe(np.zeros(16000, np.float32)), str)
+
+
 def _attention_inputs(dev, dtype, B, T, H, D, seed):
     g = torch.Generator().manual_seed(seed)
     mk = lambda *s: torch.randn(*s, generator=g).to(dtype).to(dev)  # noqa: E731
