@@ -52,7 +52,25 @@
    fixed batch's loss went down, 12 launches of each training kernel per step
    and 12 of the inference kernel per evaluation, the served request's
    logits and greedy ids equal to the plain path's on the trained weights,
-   and step 1 equal to the same step with the plain attention versions.
+   and step 1 equal to the same step with the plain attention versions;
+8. builds the 176-wide shipped config (configs/ebranchformer_small_ctc.json at
+   full size: 8 layers x 176, 4 heads of 44, I=704, conv_dim (176, 176),
+   500+1 outputs; seeded random weights), whose heads the kernels take padded
+   to 64 columns and whose q_rot to 192, and holds against their plain
+   versions at its B=8 x 10 s shapes: the five GEMM call shapes of a layer at
+   K = 176 or N = 176 (edge tiles), each into a column slice of a guard
+   buffer, pos_query (pad columns zero), the attention (also at the 2 s and
+   20 s buckets, lengths with 1 and 0), the whole layer; K4 forward and its
+   four gradients and K5 at dh 44 (T = 250 and 333, lengths with 1 and 0,
+   bf16 and fp32, rates 0 and 0.1), timed at B=32, T=250 beside SDPA;
+9. serves that model through ASRPipeline(device="cuda"), which must take the
+   fused path (the model's own front end, then the K1 layers), with requests
+   of 1 and 8 utterances at 10 s and 20 s, each launching every K1 piece 8
+   times, logits and greedy ids against the plain path;
+10. trains it 3 steps through CTCTrainer with the config's attention_impl
+   ("auto"): 8 K4 forward and 8 K4 backward launches a step, every step
+   applied, step 1 within 1e-4 in loss of the plain attention; then one
+   evaluation step with "pallas" (8 K5 launches).
 
 Beside each kernel's time it prints the plain version's, the least time the
 card could take (the larger of bytes / 3.35 TB/s and operations / the peak
@@ -66,6 +84,7 @@ phase fails.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import itertools
 import json
 import os
@@ -146,25 +165,46 @@ def flagship_config(**overrides):
     ), **overrides})
 
 
-def flagship_model(seed: int = 0):
-    """The flagship model with weights of useful scale drawn from ``seed``."""
+# The 176-wide shipped config: 8 layers x 176, 4 heads of 44, I=704, conv_dim
+# (176, 176) (outside the subsampler kernel), 500 + 1 outputs.
+SMALL_CONFIG = "ebranchformer_small_ctc.json"
+
+
+def config_file(name: str):
+    """A config file under configs/ (an encoder-decoder file's encoder)."""
+    sys.path.insert(0, ROOT)
+    from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
+
+    with open(os.path.join(ROOT, "configs", name)) as f:
+        d = json.load(f)
+    return EBranchformerConfig.from_dict(d.get("encoder", d))
+
+
+def seeded_model(cfg, seed: int = 0):
+    """An E-Branchformer CTC model of ``cfg`` with weights of useful scale drawn from ``seed``."""
     import torch
 
     from huggingface_asr_tpu_torch.models.ebranchformer import EBranchformerForCTC, init_random_
 
-    return init_random_(EBranchformerForCTC(flagship_config()).eval(), torch.Generator().manual_seed(seed))
+    return init_random_(EBranchformerForCTC(cfg).eval(), torch.Generator().manual_seed(seed))
 
 
-def training_setup(seed: int = 0, batch_size: int = 32, n_batches: int = 6, checkpoint_dir=None):
+def flagship_model(seed: int = 0):
+    """The flagship model with weights of useful scale drawn from ``seed``."""
+    return seeded_model(flagship_config(), seed)
+
+
+def training_setup(seed: int = 0, batch_size: int = 32, n_batches: int = 6, checkpoint_dir=None, cfg=None):
     """The training phase's trainer and host batches: the flagship model with
-    the training attention kernels selected, seeded random weights at a
-    from-scratch trainer's scale (matrices ~ N(0, initializer_range^2)), bf16
-    compute, SpecAugment on; batches of ``batch_size`` seeded synthetic
-    utterances of 93-100 % of 10 s with seeded label sequences. The learning
-    rate is small on purpose. A from-scratch CTC model first learns to emit
-    blanks, and on the way its gradient norm climbs towards the trainer's
-    guard (steps at 100 or more are rejected): the faster the loss falls, the
-    sooner. A smoke run's few steps are to be applied, with room to spare."""
+    the training attention kernels selected (or a model of ``cfg``), seeded
+    random weights at a from-scratch trainer's scale (matrices ~ N(0,
+    initializer_range^2)), bf16 compute, SpecAugment on; batches of
+    ``batch_size`` seeded synthetic utterances of 93-100 % of 10 s with seeded
+    label sequences. The learning rate is small on purpose. A from-scratch CTC
+    model first learns to emit blanks, and on the way its gradient norm climbs
+    towards the trainer's guard (steps at 100 or more are rejected): the
+    faster the loss falls, the sooner. A smoke run's few steps are to be
+    applied, with room to spare."""
     import torch
 
     from huggingface_asr_tpu_torch.data.bucketing import BucketingConfig
@@ -175,7 +215,7 @@ def training_setup(seed: int = 0, batch_size: int = 32, n_batches: int = 6, chec
     from huggingface_asr_tpu_torch.training.loop import CTCTrainer, TrainerConfig
     from huggingface_asr_tpu_torch.training.optim import OptimizerConfig
 
-    cfg = flagship_config(attention_impl="pallas", attention_dropout=0.1)
+    cfg = cfg or flagship_config(attention_impl="pallas", attention_dropout=0.1)
     model = init_random_(EBranchformerForCTC(cfg), torch.Generator().manual_seed(seed),
                          matrix_std=cfg.initializer_range)
     tcfg = TrainerConfig(
@@ -230,11 +270,12 @@ def host_us_per_launch(fn, n: int = 300) -> float:
     return 1e6 * dt / n
 
 
-def device_ms(fn, n: int = 10) -> float:
+def device_ms(fn, n: int = 10, name=None) -> float:
     """Device time of one call of ``fn`` in ms: the kernels' own durations
-    under ``torch.profiler``, summed over ``n`` calls. Unlike a pair of events
-    around the calls it leaves out the host's time per launch, which at small
-    shapes is the larger part."""
+    under ``torch.profiler``, summed over ``n`` calls (only the kernels whose
+    name holds ``name`` where it is given). Unlike a pair of events around the
+    calls it leaves out the host's time per launch, which at small shapes is
+    the larger part."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -245,7 +286,7 @@ def device_ms(fn, n: int = 10) -> float:
             fn()
         torch.cuda.synchronize()
     total = sum(ev.time_range.end - ev.time_range.start for ev in prof.events()
-                if ev.device_type == torch.autograd.DeviceType.CUDA)
+                if ev.device_type == torch.autograd.DeviceType.CUDA and (name is None or name in ev.name))
     return total / 1e3 / n
 
 
@@ -276,6 +317,18 @@ def sdpa_call(q_u, q_rot, k, v, k_std, lengths, scale):
         return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
 
     return forward, make_backward
+
+
+def pos_query_library(q_v, wp_e, wp_o):
+    """The library yardstick of the positional query: one ``torch.bmm`` of the
+    per-head product, q_v_h (M, dh) x [wp_e | wp_o][h] (dh, D) for the H heads,
+    without the rotation the kernel fuses."""
+    import torch
+
+    H, dh, _ = wp_e.shape
+    qv = q_v.reshape(-1, H, dh).transpose(0, 1).contiguous()
+    wp = torch.cat([wp_e, wp_o], dim=-1).contiguous()
+    return lambda: torch.bmm(qv, wp)
 
 
 def main() -> None:
@@ -473,7 +526,7 @@ def main() -> None:
                                              tables["rot_sin"], T_pad),
                         lambda: K1.pos_query_plain(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"],
                                                    tables["rot_sin"], T_pad),
-                        2 ** -7,  # no single PyTorch call computes it: no library time
+                        2 ** -7, library_fn=pos_query_library(q_v, w["wp_e"], w["wp_o"]),
                         work=work_pos_query)
         dh = D // H
         hv = lambda i: qkv[:, i * D:(i + 1) * D].view(B, T_pad, H, dh)
@@ -534,6 +587,7 @@ def main() -> None:
                 "F.conv1d csgu": device_ms(lambda: F.conv1d(gate_in, dw_c, padding=(Kc - 1) // 2, groups=Cg)),
                 "F.conv1d merge": device_ms(lambda: F.conv1d(merged_in, dw_m, padding=(Km - 1) // 2, groups=2 * D)),
                 "F.layer_norm": device_ms(lambda: F.layer_norm(xf, (D,), ln_g16, ln_b16, 1e-5)),
+                "torch.bmm (pos_query's library call)": device_ms(pos_query_library(q_v, w["wp_e"], w["wp_o"])),
             }
             print("  device ms per call under the profiler (B=8, 10 s): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()), flush=True)
@@ -1052,6 +1106,261 @@ def main() -> None:
     if d_loss > 1e-4 or d_norm > 1e-3:
         _fail("step 1 with the attention kernels disagrees with the plain-attention step")
 
+    # ---- the 176-wide config (configs/ebranchformer_small_ctc.json at full
+    # size): head size 44 (padded to 64 columns), q_rot 176 wide (padded to
+    # 192), the GEMM's edge tiles at N = 176 and K = 176, and K1 behind the
+    # model's own conv front end. Its kernels against their plain versions at
+    # the shapes its paths give them, then both main paths.
+    ncfg = config_file(SMALL_CONFIG)
+    n_model = seeded_model(ncfg, seed=1)
+    nf = FusedCTC(n_model, dev)
+    if nf.subsample is not None:
+        _fail("the 176-wide config took the subsampler kernel")
+    nD, nH, n_dh = ncfg.hidden_size, ncfg.num_attention_heads, ncfg.head_size
+    nw = nf.layers[0]
+    hw, d_rot = nw["wp_e"].shape[1], K1.rot_width(nD)
+    nB, nT_in = 8, 998
+    nT = int(feat_extract_output_frames(ncfg, nT_in))
+    nT_pad = -(-nT // 8) * 8
+    print(f"-- 176-wide config ({SMALL_CONFIG}): {ncfg.num_hidden_layers} layers x {nD}, {nH} heads of {n_dh} "
+          f"(kernel width {hw}), q_rot width {nD} (kernel width {d_rot}); B={nB}, 10 s: T={nT}, T_pad={nT_pad}",
+          flush=True)
+    gen = torch.Generator().manual_seed(176)
+    n_tab = nf.tables(nT_pad)
+    nM = nB * nT_pad
+    n_lens = torch.tensor([nT - (i * nT) // (2 * nB) for i in range(nB)], dtype=torch.int32, device=dev)
+    n_lens[nB // 2], n_lens[nB - 1] = 1, 0  # an utterance of one frame and one of none
+    nx = torch.randn(nB, nT_pad, nD, generator=gen).bfloat16().to(dev)
+    nxf = nx.view(nM, nD)
+    with torch.no_grad():
+        # the GEMMs of the 176-wide layer at M = 2,048 (a B=8 request), each into
+        # a column slice of a buffer whose other columns and rows must stay untouched
+        g_ = K1.layer_norm(nxf, nw["attn_ln_g"], nw["attn_ln_b"], 1e-5)
+        n_gemms = [("ff1_in (K=176, +gelu)", g_, "ff1_wi", "ff1_bi", dict(act=ncfg.hidden_act)),
+                   ("ff1_out (N=176, +res)", None, "ff1_wo", "ff1_bo", dict(residual=nxf, alpha=0.5)),
+                   ("qkv (K=176, dual)", g_, "w_qkv", "b_qkv", dict(bias2=nw["bq_v"])),
+                   ("cg_w2 -> merged[:, 176:]", None, "cg_w2", "cg_b2", {}),
+                   ("merge_w (K=352, N=176, +res)", None, "merge_w", "merge_b", dict(residual=nxf, alpha=1.0))]
+        for name, a_, wk, bk, kw in n_gemms:
+            K_, N_ = nw[wk].shape
+            a_ = a_ if a_ is not None else torch.randn(nM, K_, generator=gen).bfloat16().to(dev)
+            lead = nD if wk == "cg_w2" else 16
+            guard = torch.full((nM + 8, N_ + lead + 16), 7.0, dtype=torch.bfloat16, device=dev)
+            out_view = guard[:nM, lead:lead + N_]
+            extra = (2 * nM * N_ if "residual" in kw else 0) + (2 * nM * kw["bias2"].shape[0] if "bias2" in kw else 0)
+            compare(f"gemm {name}", "gemm_d176", lambda: K1.gemm(a_, nw[wk], nw[bk], out=out_view, **kw),
+                    lambda: K1.gemm_plain(a_, nw[wk], nw[bk], **kw), 2 ** -6, work=gemm_work(nM, K_, N_, extra),
+                    library_fn=(lambda a_=a_, wt=nw[wk].t(), b16=nw[bk].bfloat16(): F.linear(a_, wt, b16)))
+            torch.cuda.synchronize()
+            if not bool((guard[:, :lead] == 7.0).all()) or not bool((guard[:, lead + N_:] == 7.0).all()) \
+                    or not bool((guard[nM:] == 7.0).all()):
+                failures.append(f"gemm {name}: wrote outside its slice")
+        qkv_n, q_v_n = K1.gemm(g_, nw["w_qkv"], nw["b_qkv"], bias2=nw["bq_v"])
+        work_pq = (2.0 * nM * nH * n_dh * nD + 6.0 * nM * nH * nD,
+                   2 * nM * nH * n_dh + 2 * nH * n_dh * nD + 2 * nT_pad * nD + 2 * nM * nH * nD, "bf16")
+        q_rot_n = compare("pos_query dh=44", "pos_query_dh44",
+                          lambda: K1.pos_query(q_v_n, nw["wp_e"], nw["wp_o"], n_tab["rot_cos"], n_tab["rot_sin"], nT_pad),
+                          lambda: K1.pos_query_plain(q_v_n, nw["wp_e"], nw["wp_o"], n_tab["rot_cos"], n_tab["rot_sin"],
+                                                     nT_pad),
+                          2 ** -7, library_fn=pos_query_library(q_v_n, nw["wp_e"], nw["wp_o"]), work=work_pq)
+        pad = (d_rot - nD) // 2
+        if q_rot_n[..., nD // 2:nD // 2 + pad].any() or q_rot_n[..., d_rot - pad:].any():
+            failures.append("pos_query dh=44: a pad column of q_rot is not zero")
+        hvn = lambda i: qkv_n[:, i * nH * hw:(i + 1) * nH * hw].view(nB, nT_pad, nH, hw)  # noqa: E731
+        n_att = (hvn(0), hvn(1), hvn(2), q_rot_n.view(nB, nT_pad, nH, d_rot), n_tab["k_std"], n_lens)
+        n_keys = float(torch.where(n_lens > 0, n_lens, nT_pad).sum())
+        work_att_n = (2.0 * nH * nT_pad * n_keys * (n_dh + nD + n_dh),
+                      2 * nM * nH * nD + 2 * nT_pad * nD + 4 * 2 * nM * nH * n_dh, "bf16")
+        attn_n = compare("rel_attention dh=44", "rel_attention_dh44", lambda: K1.rel_attention(*n_att),
+                         lambda: K1.rel_attention_plain(*n_att), 2 ** -6,
+                         library_fn=sdpa_call(hvn(0), n_att[3], hvn(1), hvn(2), n_tab["k_std"], n_lens, 1.0)[0],
+                         work=work_att_n)
+        if attn_n[..., n_dh:].any():
+            failures.append("rel_attention dh=44: a pad column of the output is not zero")
+        for T_pad_ in (56, 504):  # the 2 s and 20 s buckets: fewer rows than a block, keys past four tiles
+            lens_ = [T_pad_, 1, 0, T_pad_ - 9, T_pad_ // 2, 65, 64, (3 * T_pad_) // 4]
+            gq = torch.Generator().manual_seed(T_pad_)
+            buf = torch.randn(8 * T_pad_, 3 * nH * hw, generator=gq).bfloat16().to(dev)
+            buf.view(-1, 3, nH, hw)[..., n_dh:] = 0.0  # the fold's zero pad columns
+            tab_ = nf.tables(T_pad_)
+            qr_ = (torch.randn(8, T_pad_, nH, d_rot, generator=gq) * 0.25).bfloat16().to(dev)
+            qr_[..., nD // 2:nD // 2 + pad] = 0.0
+            qr_[..., d_rot - pad:] = 0.0
+            args_ = tuple(buf[:, i * nH * hw:(i + 1) * nH * hw].view(8, T_pad_, nH, hw) for i in range(3)) + (
+                qr_, tab_["k_std"], torch.tensor(lens_, dtype=torch.int32, device=dev))
+            compare(f"rel_attention dh=44 T_pad={T_pad_}", "rel_attention_dh44", lambda: K1.rel_attention(*args_),
+                    lambda: K1.rel_attention_plain(*args_), 2 ** -6)
+        compare("layer (K1 whole) D=176", None, lambda: K1.ebranchformer_layer(nx, n_lens, nw, ncfg, nT, n_tab),
+                lambda: K1.ebranchformer_layer_plain(nx, n_lens, nw, ncfg, nT, n_tab), 0.05)
+        print("  device ms per call under the profiler (B=8, 10 s, D=176): "
+              f"pos_query {device_ms(lambda: K1.pos_query(q_v_n, nw['wp_e'], nw['wp_o'], n_tab['rot_cos'], n_tab['rot_sin'], nT_pad)):.4f}, "
+              f"rel_attention {device_ms(lambda: K1.rel_attention(*n_att)):.4f}, "
+              f"gemm ff1_in {device_ms(lambda: K1.gemm(g_, nw['ff1_wi'], nw['ff1_bi'], act=ncfg.hidden_act)):.4f}, "
+              f"torch.bmm {device_ms(pos_query_library(q_v_n, nw['wp_e'], nw['wp_o'])):.4f}, "
+              f"layer {device_ms(lambda: K1.ebranchformer_layer(nx, n_lens, nw, ncfg, nT, n_tab)):.4f}", flush=True)
+
+    # K4 and K5 at dh 44, D 176: the wrappers pad to the kernels' widths
+    def narrow_attention_inputs(B, T, dtype, lens, seed):
+        g = torch.Generator().manual_seed(seed)
+        mk = lambda *shape: torch.randn(*shape, generator=g).to(dtype).to(dev)  # noqa: E731
+        return dict(q_u=mk(B, T, nH, n_dh), q_rot=mk(B, T, nH, nD) * 0.25, k=mk(B, T, nH, n_dh),
+                    v=mk(B, T, nH, n_dh), k_std=mk(T, nD), q_v=mk(B, T, nH, n_dh), pos=mk(2 * T - 1, nH, n_dh),
+                    cot=mk(B, T, nH, n_dh), lengths=torch.tensor(lens, dtype=torch.int32, device=dev))
+
+    print("-- K4 and K5 at dh=44, D=176 vs plain, lengths with 1 and 0", flush=True)
+    for T, lens in ((250, [250, 1, 0, 167, 250, 200, 64, 65]), (333, [333, 1, 0, 200])):
+        for dtype in (torch.bfloat16, torch.float32):
+            t = narrow_attention_inputs(len(lens), T, dtype, lens, seed=T + 44)
+            tag = f"dh=44 T={T} {str(dtype).split('.')[-1]}"
+            for rate in (0.0, 0.1):
+                got = train_attention_run(rel_attention_train, t, 77, rate)
+                ref = train_attention_run(rel_attention_train_plain, t, 77, rate)
+                for part, sl in (("fwd", slice(0, 1)), ("bwd (4 gradients)", slice(1, 5))):
+                    err, ok = worst(got[sl], ref[sl], att_tol[dtype])
+                    print(f"  K4 {part:18s} {tag + f' rate={rate}':28s} max_abs_err={err:.3e} "
+                          f"{'ok' if ok else 'FAIL'}", flush=True)
+                    if not ok:
+                        failures.append(f"K4 {part} {tag} rate={rate}")
+            args = (t["q_u"], t["q_v"], t["k"], t["v"], t["pos"], t["lengths"])
+            err, ok = worst([rel_attention(*args)], [rel_attention_plain_shift(*args)], att_tol[dtype])
+            print(f"  K5 {'fwd':18s} {tag:28s} max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"K5 {tag}")
+    # timed at the 176-wide training path's shape, B=32, T=250, bf16, rate 0.1
+    Bt, Tt = 32, 250
+    t = narrow_attention_inputs(Bt, Tt, torch.bfloat16, [Tt - (i * Tt) // (2 * Bt) for i in range(Bt)], seed=32)
+    got = train_attention_run(rel_attention_train, t, 77, 0.1)
+    ref = train_attention_run(rel_attention_train_plain, t, 77, 0.1)
+    (err_fwd, ok_fwd), (err_bwd, ok_bwd) = (worst(got[sl], ref[sl], att_tol[torch.bfloat16])
+                                            for sl in (slice(0, 1), slice(1, 5)))
+    args = (t["q_u"], t["q_v"], t["k"], t["v"], t["pos"], t["lengths"])
+    err_k5, ok_k5 = worst([rel_attention(*args)], [rel_attention_plain_shift(*args)], att_tol[torch.bfloat16])
+    del got, ref
+    keys = float(t["lengths"].sum())
+    small, big = nbytes(t["q_u"]), nbytes(t["q_rot"])
+    n_scale = 1.0 / float(np.sqrt(n_dh))
+    lib_fwd, lib_make_bwd = sdpa_call(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"], t["lengths"], n_scale)
+
+    def n_backward_call(fn):
+        leaves = [t[n].clone().requires_grad_(True) for n in ("q_u", "q_rot", "k", "v")]
+        out = fn(*leaves, t["k_std"], t["lengths"], 77, 0.1)
+        return lambda: torch.autograd.grad(out, leaves, t["cot"], retain_graph=True)
+
+    with torch.no_grad():
+        fwd = lambda fn: (lambda: fn(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"], t["lengths"], 77, 0.1))  # noqa: E731
+        record("K4 fwd dh=44", "rel_attention_train_fwd_dh44", err_fwd, ok_fwd,
+               timed(fwd(rel_attention_train), 20), timed(fwd(rel_attention_train_plain), 5),
+               (2.0 * nH * Tt * keys * (n_dh + nD + n_dh), 4 * small + big + nbytes(t["k_std"]) + 8 * Bt * nH * Tt,
+                "bf16"), timed(lib_fwd, 20))
+    record("K4 bwd dh=44", "rel_attention_train_bwd_dh44", err_bwd, ok_bwd,
+           timed(n_backward_call(rel_attention_train), 20), timed(n_backward_call(rel_attention_train_plain), 5),
+           (2.0 * nH * Tt * keys * ((n_dh + nD) + 4 * n_dh + nD),
+            7 * small + 2 * big + nbytes(t["k_std"]) + 8 * Bt * nH * Tt, "bf16"),
+           timed(lib_make_bwd(), 20))
+    with torch.no_grad():
+        record("K5 fwd dh=44", "rel_attention_shift_dh44", err_k5, ok_k5,
+               timed(lambda: rel_attention(*args), 20), timed(lambda: rel_attention_plain_shift(*args), 5),
+               (2.0 * nH * Tt * keys * 3 * n_dh, 5 * small + nbytes(t["pos"]), "bf16"), timed(lib_fwd, 20))
+    # the wrappers' device time under the profiler: the kernel's own, and the
+    # rest (the zero-padded copies of the operands, the gradient's pad)
+    splits = {"K4 fwd": (fwd(rel_attention_train), "train_fwd_bf16_kernel"),
+              "K4 bwd": (n_backward_call(rel_attention_train), "train_bwd_"),
+              "K5": (lambda: rel_attention(*args), "shift_bf16_kernel")}
+    for name, (fn, kernel_name) in splits.items():
+        total, own = device_ms(fn), device_ms(fn, name=kernel_name)
+        print(f"  {name} dh=44 B={Bt} T={Tt} device ms under the profiler: {total:.4f}, the kernel "
+              f"{own:.4f}, the wrapper's pad copies {total - own:.4f}", flush=True)
+    del t, lib_fwd, lib_make_bwd
+    torch.cuda.empty_cache()
+
+    # the 176-wide serving path: ASRPipeline on the card, requests of 1 and 8
+    # utterances at 10 s and 20 s, each with its own launch counts
+    n_dir = os.path.join(ROOT, "build", "chip_smoke_model_176")
+    save_params(n_model, n_dir)
+    n_pipe = ASRPipeline(n_dir, model_type="ctc", device="cuda", tokenizer=PieceTable())
+    if not n_pipe._use_fused:
+        _fail("the pipeline did not select the fused kernel path for the 176-wide config")
+    n_requests = {f"176-wide, {n} utt ({sec} s)": [speech(sec * (1.0 - 0.05 * i), rng) for i in range(n)]
+                  for sec in (10, 20) for n in (1, 8)}
+    n_pipe(n_requests["176-wide, 1 utt (10 s)"])  # first call: warm the allocator
+    torch.cuda.synchronize()
+    per_layer = {"asr_rel_attention": 1, "asr_pos_query": 1, "dwconv_csgu": 1, "dwconv_merge": 1}
+    narrow_launches = {}
+    for name, audios in n_requests.items():
+        _build.reset_launch_counts()
+        t0_ = time.perf_counter()
+        texts = n_pipe(audios)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0_) * 1e3
+        got_l = dict(_build.LAUNCHES)
+        for k, v in got_l.items():
+            narrow_launches[k] = narrow_launches.get(k, 0) + v
+        print(f"request {name}: {ms:.1f} ms; launches {got_l}", flush=True)
+        want = {k: v * ncfg.num_hidden_layers for k, v in per_layer.items()}
+        if len(texts) != len(audios) or any(got_l.get(k, 0) != v for k, v in want.items()) \
+                or got_l.get("asr_log_mel", 0) != 1 or got_l.get("asr_conv1", 0) != 0:
+            _fail(f"{name}: {len(texts)} transcripts, launches {got_l}, want {want} and one mel, no conv1")
+    against_plain_path(n_pipe, n_requests)
+
+    # the 176-wide training path: CTCTrainer with the config's attention_impl
+    # ("auto": K4 on the card), 3 steps, each with its own launch counts, and
+    # step 1 again with the plain attention
+    print(f"-- training path: 176-wide config, attention_impl={ncfg.attention_impl!r}, B=32 x 9.3-10 s, bf16, "
+          f"attention_dropout {ncfg.attention_dropout}", flush=True)
+    n_trainer, n_batches = training_setup(seed=1, batch_size=32, n_batches=3, cfg=ncfg)
+    n_twin = copy.deepcopy(n_trainer.model)
+    n_state = n_trainer.init_state()
+    n_logged, n_step_ms, n_train_launches = [], [], {}
+    for i, batch in enumerate(n_batches):
+        _build.reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        n_state, m = n_trainer.train_step(n_state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_l = dict(_build.LAUNCHES)
+        n_step_ms.append(start.elapsed_time(end))
+        n_logged.append({k: float(v) for k, v in m.items() if k in ("loss", "grad_norm", "step_applied")})
+        for k, v in step_l.items():
+            n_train_launches[k] = n_train_launches.get(k, 0) + v
+        print(f"  step {i + 1}: loss={n_logged[-1]['loss']:.4f} grad_norm={n_logged[-1]['grad_norm']:.3f} "
+              f"applied={int(n_logged[-1]['step_applied'])} {n_step_ms[-1]:.1f} ms; K4 launches "
+              f"{step_l.get('asr_rel_attention_train_fwd', 0)} fwd, {step_l.get('asr_rel_attention_train_bwd', 0)} bwd",
+              flush=True)
+        if any(step_l.get(k, 0) != ncfg.num_hidden_layers
+               for k in ("asr_rel_attention_train_fwd", "asr_rel_attention_train_bwd")):
+            _fail(f"176-wide step {i + 1}: K4 launches {step_l}, want {ncfg.num_hidden_layers} of each")
+        if int(n_logged[-1]["step_applied"]) != 1 or not np.isfinite(n_logged[-1]["loss"]):
+            _fail(f"176-wide step {i + 1} was not applied or its loss is not finite")
+    print(f"  176-wide train step time (median of 3): {float(np.median(n_step_ms)):.1f} ms; {smi}", flush=True)
+    n_plain, _ = training_setup(seed=1, batch_size=32, n_batches=0, cfg=ncfg)
+    n_plain.model.load_state_dict(n_twin.state_dict())
+    model_module.rel_attention_train = rel_attention_train_plain
+    try:
+        before = dict(_build.LAUNCHES)
+        _, m_plain = n_plain.train_step(n_plain.init_state(), n_batches[0])
+        if dict(_build.LAUNCHES) != before:
+            _fail("the 176-wide plain-attention step launched a kernel")
+    finally:
+        model_module.rel_attention_train = rel_attention_train
+    d_loss = abs(n_logged[0]["loss"] - float(m_plain["loss"])) / abs(float(m_plain["loss"]))
+    print(f"  176-wide step 1, kernels vs plain attention: loss {n_logged[0]['loss']:.5f} vs "
+          f"{float(m_plain['loss']):.5f} (rel {d_loss:.2e}, tol 1e-4)", flush=True)
+    if d_loss > 1e-4:
+        _fail("176-wide step 1 with the attention kernels disagrees with the plain-attention step")
+    # an evaluation step of the trained weights with "pallas" runs K5 at dh 44
+    n_evaluator, _ = training_setup(seed=1, batch_size=32, n_batches=0,
+                                    cfg=dataclasses.replace(ncfg, attention_impl="pallas"))
+    n_evaluator.model.load_state_dict(n_state.model.state_dict())
+    _build.reset_launch_counts()
+    ev = n_evaluator.eval_step(n_evaluator.init_state(), n_batches[0])
+    torch.cuda.synchronize()
+    n_eval_launches = dict(_build.LAUNCHES)
+    if n_eval_launches.get("asr_rel_attention_shift", 0) != ncfg.num_hidden_layers or not np.isfinite(float(ev["loss"])):
+        _fail(f"176-wide evaluation with 'pallas': launches {n_eval_launches}")
+    narrow_launches.update({k: v for k, v in n_train_launches.items() if k.startswith("asr_rel_attention_train")})
+    narrow_launches["asr_rel_attention_shift"] = n_eval_launches["asr_rel_attention_shift"]
+
     if failures:
         _fail(f"kernel phases outside tolerance: {failures}")
 
@@ -1080,12 +1389,21 @@ def main() -> None:
     routes.update({k: routes[k.rsplit("_", 1)[0]] for k in results if k.startswith("dwconv_") and k.endswith("_b128")})
     launches.update({k: v for k, v in train_launches.items() if k.startswith("asr_rel_attention_")
                      and k != "asr_rel_attention"})
+    # the 176-wide entries: launches from its own paths (4 requests; 3 train steps; 1 evaluation step)
+    narrow_routes = {
+        "gemm_d176": routes["gemm"], "pos_query_dh44": routes["pos_query"],
+        "rel_attention_dh44": routes["rel_attention"],
+        "rel_attention_train_fwd_dh44": routes["rel_attention_train_fwd"],
+        "rel_attention_train_bwd_dh44": routes["rel_attention_train_bwd"],
+        "rel_attention_shift_dh44": routes["rel_attention_shift"],
+    }
     kernels = []
-    for name, (counter, src, replaces) in routes.items():
-        kernels.append({
-            "name": name, "route": "cuda", "source": f"huggingface_asr_tpu_torch/{src}",
-            "replaces": replaces, "launches": launches[counter], **results[name],
-        })
+    for table, counts in ((routes, launches), (narrow_routes, narrow_launches)):
+        for name, (counter, src, replaces) in table.items():
+            kernels.append({
+                "name": name, "route": "cuda", "source": f"huggingface_asr_tpu_torch/{src}",
+                "replaces": replaces, "launches": counts[counter], **results[name],
+            })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

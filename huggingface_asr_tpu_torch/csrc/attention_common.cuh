@@ -13,13 +13,23 @@
 // rows, and walks the other direction in tiles of the same size. Rows past
 // the sequence end are zero-filled on load and masked on store, so any
 // sequence length runs.
+//
+// Head width: every kernel is a template on it, DH, instantiated for 32 and
+// 64 (with_head_width below picks the instantiation at run time). Other head
+// sizes are padded with zero columns to the next of the two by the caller
+// (kernels/layer.py folds the padding into the layer's weights; the wrappers
+// of kernels/train_attention.py and kernels/attention.py copy the operands):
+// a zero column adds an exact zero to every fp32 sum, so the scores and the
+// true columns of the output are those of the unpadded head. The softmax
+// scale is the caller's, from the true head size.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace attn {
 
-constexpr int DH = 32;  // head width the kernels are written for
 constexpr float MASK_NEG = -1.0e9f;
 constexpr size_t MAX_SMEM = 232448;  // 227 KB, the most a Hopper block can use
 
@@ -37,6 +47,15 @@ template <typename E> __device__ __forceinline__ float round_to(float v) {
 }
 
 __host__ __device__ inline size_t up128(size_t x) { return (x + 127) / 128 * 128; }
+
+// fn(std::integral_constant<int, DH>{}) for the instantiated head width dh;
+// cudaErrorInvalidValue for any other.
+template <typename Fn>
+inline int with_head_width(int dh, Fn&& fn) {
+    if (dh == 32) return fn(std::integral_constant<int, 32>{});
+    if (dh == 64) return fn(std::integral_constant<int, 64>{});
+    return (int)cudaErrorInvalidValue;
+}
 
 // Copy `n` elements (n a multiple of 16 bytes, both sides 16-byte aligned), or zeros.
 template <typename E>
@@ -121,20 +140,25 @@ struct DropoutArgs {
 };
 
 // The bf16 training forward (rel_attention_train_fwd.cu): builds its tensor
-// maps, launches and returns cudaGetLastError(). D % 64 == 0, D <= 256.
+// maps, launches and returns cudaGetLastError(). D % 64 == 0, D <= 256, and
+// the tiles within a block's shared memory (fa::supported).
+template <int DH>
 int train_fwd_bf16(const void* q_u, const void* q_rot, const void* k, const void* v,
                    const void* k_std, const void* lengths, void* out, void* stats, int B, int T,
                    int H, int D, float scale, DropoutArgs drop, cudaStream_t stream);
 
 // The bf16 training backward (rel_attention_train_bwd.cu): the dq kernel,
-// then the dk/dv kernel, which reads the first's delta. Same contract.
+// then the dk/dv kernel, which reads the first's delta. Same contract, and
+// DH + D <= 288: the dq kernel's [dq_u | dq_rot] accumulator in registers.
+template <int DH>
 int train_bwd_bf16(const void* q_u, const void* q_rot, const void* k, const void* v, const void* k_std,
                    const void* lengths, const void* d_out, const void* stats, void* delta, void* dq_u,
                    void* dq_rot, void* dk, void* dv, int B, int T, int H, int D, float scale,
                    DropoutArgs drop, cudaStream_t stream);
 
 // The bf16 shift-form inference kernel (rel_attention_shift_bf16.cu): same
-// contract. Tensors (B, T, H, dh) contiguous, the table (2T - 1, H, dh).
+// contract. Tensors (B, T, H, DH) contiguous, the table (2T - 1, H, DH).
+template <int DH>
 int shift_fwd_bf16(const void* q_u, const void* q_v, const void* k, const void* v, const void* pos,
                    const void* lengths, void* out, int B, int T, int H, float scale,
                    cudaStream_t stream);

@@ -28,9 +28,57 @@ constexpr int BKEY = 64;   // key rows of a tile
 constexpr int STAGES = 3;  // key tiles in the ring
 constexpr int N_CONSUMER_WARPS = 8;
 constexpr int BLOCK_THREADS = 384;  // two consumer warpgroups and the producer's
-constexpr uint32_t QH_BYTES = BQ * DH * 2;     // a (128, dh) query tile, 64-byte swizzle
-constexpr uint32_t KH_BYTES = BKEY * DH * 2;   // a (64, dh) key or value tile
-constexpr uint32_t WG_QH = 64 * DH * 2;        // one warpgroup's 64 rows of a query tile
+
+// The shared-memory layout of a (rows, DH) head tile: one row of DH bf16 values
+// is one swizzle row, 64 bytes (DH = 32) or 128 bytes (DH = 64, the layout of
+// the 64-column q_rot / k_std chunks), so a TMA box of the head's columns lands
+// in the layout wgmma reads (hopper.cuh, head of file).
+template <int DH>
+struct Head {
+    static_assert(DH == 32 || DH == 64, "head tiles are 32 or 64 columns wide");
+    static constexpr uint64_t SWIZZLE = DH == 32 ? SWIZZLE_64 : SWIZZLE_128;
+    static constexpr CUtensorMapSwizzle MAP_SWIZZLE =
+        DH == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+    static constexpr uint32_t SBO = 8 * DH * 2;             // bytes of 8 rows
+    static constexpr uint32_t Q_BYTES = BQ * DH * 2;        // a (128, DH) query tile
+    static constexpr uint32_t K_BYTES = BKEY * DH * 2;      // a (64, DH) key or value tile
+    static constexpr uint32_t WG_Q = 64 * DH * 2;           // one warpgroup's 64 rows of a query tile
+};
+
+// Descriptor of a K-major (rows, DH) head tile; + 2 is the next k16 step.
+template <int DH>
+__device__ __forceinline__ uint64_t head_desc(uint32_t tile) {
+    return make_desc(tile, 16, Head<DH>::SBO, Head<DH>::SWIZZLE);
+}
+
+// acc += (64 x 16 of rows . DH columns): the k16 steps of a product whose inner
+// width is the head's (q_u k^T, dO v^T), both operands K-major head tiles.
+template <int DH, int N>
+__device__ __forceinline__ void head_product(float (&acc)[N], uint64_t a, uint64_t b, int scale_first) {
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+        if constexpr (N == 32) wgmma_m64n64k16_ss(acc, a + 2 * kk, b + 2 * kk, kk > 0 || scale_first);
+        else wgmma_m64n128k16_ss(acc, a + 2 * kk, b + 2 * kk, kk > 0 || scale_first);
+    }
+}
+
+// One k16 step of acc (64 x DH) += A (64 x 16, registers) B, B a head tile
+// stored (k, n): the transposed B operand.
+__device__ __forceinline__ void wgmma_head_rs_bt(float (&acc)[16], const uint32_t (&a)[4], uint64_t b) {
+    wgmma_m64n32k16_rs_bt(acc, a, b, 1);
+}
+__device__ __forceinline__ void wgmma_head_rs_bt(float (&acc)[32], const uint32_t (&a)[4], uint64_t b) {
+    wgmma_m64n64k16_rs_bt(acc, a, b, 1);
+}
+
+// acc (64 x DH) += A (64 x 64 keys or queries, registers) . tile, a (64, DH)
+// head tile read as the transposed B operand. Issued into the open group.
+template <int DH>
+__device__ __forceinline__ void add_head(float (&acc)[DH / 2], const uint32_t (&a)[4][4], uint32_t tile) {
+    const uint64_t b = head_desc<DH>(tile);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_head_rs_bt(acc, a[kk], b + kk * (16 * DH * 2 / 16));
+}
 
 // The barriers of a block: one for the query tiles, and a full / empty pair per
 // ring stage (8 bytes each, STAGES in a row). Called by every thread of the
@@ -65,14 +113,13 @@ __device__ __forceinline__ void pack_p(uint32_t (&pd)[4][4], int j, float a0, fl
     pd[j / 2][2 * (j % 2) + 1] = pack_bf16(b0, b1);
 }
 
-// O (64 x dh, registers) += P (64 x 64, registers) v (64 keys x dh in shared
+// O (64 x DH, registers) += P (64 x 64, registers) v (64 keys x DH in shared
 // memory as TMA wrote it: the transposed B operand). Waits for the product.
-__device__ __forceinline__ void add_pv(float (&o)[16], const uint32_t (&pd)[4][4], uint32_t v_tile) {
-    const uint64_t b_v = make_desc(v_tile, 16, 512, SWIZZLE_64);
+template <int DH>
+__device__ __forceinline__ void add_pv(float (&o)[DH / 2], const uint32_t (&pd)[4][4], uint32_t v_tile) {
     fence_regs(o);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_m64n32k16_rs_bt(o, pd[kk], b_v + kk * (16 * DH * 2 / 16), 1);
+    add_head<DH>(o, pd, v_tile);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -80,7 +127,8 @@ __device__ __forceinline__ void add_pv(float (&o)[16], const uint32_t (&pd)[4][4
 
 // Write this thread's part of the O fragment: rows ta and ta + 8 of `out`
 // (row stride ld elements), columns 8j + cq, 8j + cq + 1 of head h.
-__device__ __forceinline__ void store_o(const float (&o)[16], float scale_a, float scale_b,
+template <int DH>
+__device__ __forceinline__ void store_o(const float (&o)[DH / 2], float scale_a, float scale_b,
                                         bf16* __restrict__ out, size_t ld, int b, int T, int ta,
                                         int h, int cq) {
     bf16* out_a = out + ((size_t)b * T + ta) * ld + (size_t)h * DH + cq;
@@ -105,38 +153,44 @@ struct Maps {
 
 // Shared memory past the 1024-byte aligned base, for D = 64 * nc:
 //   q_u | q_rot chunks | STAGES x (k | k_std chunks | v) | barriers
-__host__ __device__ inline uint32_t stage_bytes(int nc) { return KH_BYTES + nc * KS_CHUNK + KH_BYTES; }
+template <int DH>
+__host__ __device__ inline uint32_t stage_bytes(int nc) { return 2 * Head<DH>::K_BYTES + nc * KS_CHUNK; }
+template <int DH>
 __host__ __device__ inline uint32_t smem_bytes(int nc) {
-    return 1024 + QH_BYTES + nc * QR_CHUNK + STAGES * stage_bytes(nc) + 8 * (1 + 2 * STAGES);
+    return 1024 + Head<DH>::Q_BYTES + nc * QR_CHUNK + STAGES * stage_bytes<DH>(nc) + 8 * (1 + 2 * STAGES);
 }
 
+template <int DH>
 struct Smem {
     int nc;
     uint32_t qu, qr, ring, stage_sz, q_full, full, empty;
     __device__ Smem(const unsigned char* raw, int D) {
         nc = D / CW;
         qu = (smem_u32(raw) + 1023u) & ~1023u;
-        qr = qu + QH_BYTES;
+        qr = qu + Head<DH>::Q_BYTES;
         ring = qr + nc * QR_CHUNK;
-        stage_sz = stage_bytes(nc);
+        stage_sz = stage_bytes<DH>(nc);
         q_full = ring + STAGES * stage_sz;
         full = q_full + 8;
         empty = full + 8 * STAGES;
     }
     __device__ uint32_t stage(int it) const { return ring + (it % STAGES) * stage_sz; }
-    __device__ uint32_t v_tile(int it) const { return stage(it) + KH_BYTES + nc * KS_CHUNK; }
+    __device__ uint32_t v_tile(int it) const { return stage(it) + Head<DH>::K_BYTES + nc * KS_CHUNK; }
     __device__ uint32_t full_bar(int it) const { return full + 8 * (it % STAGES); }
     __device__ uint32_t empty_bar(int it) const { return empty + 8 * (it % STAGES); }
 };
 
-__device__ __forceinline__ void init_barriers(const Smem& sm) { init_block_barriers(sm.q_full, sm.full, sm.empty); }
+template <int DH>
+__device__ __forceinline__ void init_barriers(const Smem<DH>& sm) { init_block_barriers(sm.q_full, sm.full, sm.empty); }
 
 // The producer thread: the query tile once, then the ring kept full, walk
 // after walk over the n_keys visited keys; v rides along from walk `v_from` on.
-__device__ __forceinline__ void produce(const Smem& sm, const Maps& maps, int b, int h, int t0, int D,
+template <int DH>
+__device__ __forceinline__ void produce(const Smem<DH>& sm, const Maps& maps, int b, int h, int t0, int D,
                                         int n_keys, int walks, int v_from) {
+    constexpr uint32_t KH = Head<DH>::K_BYTES;
     const int nc = sm.nc;
-    mbar_arrive_expect_tx(sm.q_full, QH_BYTES + nc * QR_CHUNK);
+    mbar_arrive_expect_tx(sm.q_full, Head<DH>::Q_BYTES + nc * QR_CHUNK);
     tma_load_3d(sm.qu, &maps.qu, sm.q_full, h * DH, t0, b);
     for (int c = 0; c < nc; ++c) tma_load_3d(sm.qr + c * QR_CHUNK, &maps.qrot, sm.q_full, h * D + c * CW, t0, b);
     int it = 0;
@@ -145,10 +199,10 @@ __device__ __forceinline__ void produce(const Smem& sm, const Maps& maps, int b,
         for (int s0 = 0; s0 < n_keys; s0 += BKEY, ++it) {
             const uint32_t stage = sm.stage(it), bar = sm.full_bar(it);
             mbar_wait(sm.empty_bar(it), ((it / STAGES) & 1) ^ 1);
-            mbar_arrive_expect_tx(bar, KH_BYTES + nc * KS_CHUNK + (with_v ? KH_BYTES : 0));
+            mbar_arrive_expect_tx(bar, KH + nc * KS_CHUNK + (with_v ? KH : 0));
             tma_load_3d(stage, &maps.k, bar, h * DH, s0, b);
             for (int c = 0; c < nc; ++c)
-                tma_load_2d(stage + KH_BYTES + c * KS_CHUNK, &maps.kstd, bar, c * CW, s0);
+                tma_load_2d(stage + KH + c * KS_CHUNK, &maps.kstd, bar, c * CW, s0);
             if (with_v) tma_load_3d(sm.v_tile(it), &maps.v, bar, h * DH, s0, b);
         }
     }
@@ -156,17 +210,15 @@ __device__ __forceinline__ void produce(const Smem& sm, const Maps& maps, int b,
 
 // S (this warpgroup's 64 rows x the stage's 64 keys) = [q_u | q_rot] . [k | k_std]^T
 // Started and committed as one group; the caller waits for it.
+template <int DH>
 __device__ __forceinline__ void start_scores(float (&s)[32], uint32_t qu, uint32_t qr,
                                              uint32_t stage, int nc) {
     fence_regs(s);
     wgmma_fence();
-    const uint64_t a_u = make_desc(qu, 16, 512, SWIZZLE_64);
-    const uint64_t b_u = make_desc(stage, 16, 512, SWIZZLE_64);
-    wgmma_m64n64k16_ss(s, a_u, b_u, 0);
-    wgmma_m64n64k16_ss(s, a_u + 2, b_u + 2, 1);
+    head_product<DH>(s, head_desc<DH>(qu), head_desc<DH>(stage), 0);
     for (int c = 0; c < nc; ++c) {
         const uint64_t a_r = make_desc(qr + c * QR_CHUNK, 16, 1024, SWIZZLE_128);
-        const uint64_t b_r = make_desc(stage + KH_BYTES + c * KS_CHUNK, 16, 1024, SWIZZLE_128);
+        const uint64_t b_r = make_desc(stage + Head<DH>::K_BYTES + c * KS_CHUNK, 16, 1024, SWIZZLE_128);
 #pragma unroll
         for (int kk = 0; kk < CW / 16; ++kk) wgmma_m64n64k16_ss(s, a_r + 2 * kk, b_r + 2 * kk, 1);
     }
@@ -175,14 +227,19 @@ __device__ __forceinline__ void start_scores(float (&s)[32], uint32_t qu, uint32
 
 // ---- host
 
+// The kernels take D in whole 64-column chunks, at most 256, and a query tile
+// plus three key stages within a block's shared memory.
+template <int DH>
 inline bool supported(int B, int H, int D) {
-    return D % CW == 0 && D >= CW && D <= 256 && B <= 65535 && H <= 65535;
+    return D % CW == 0 && D >= CW && D <= 256 && smem_bytes<DH>(D / CW) <= MAX_SMEM && B <= 65535 &&
+           H <= 65535;
 }
 
-// Tensor maps of q_u, k, v as (B, T, H * dh) views whose rows are ld_qkv
+// Tensor maps of q_u, k, v as (B, T, H * DH) views whose rows are ld_qkv
 // elements apart (columns of a wider buffer are fine), q_rot (B, T, H * D)
 // and k_std (T, D), both contiguous. Coordinates are (column, t, b); rows
 // past T read as zeros.
+template <int DH>
 inline cudaError_t make_maps(Maps* m, const void* q_u, const void* q_rot, const void* k,
                              const void* v, const void* k_std, int B, int T, int H, int D,
                              int ld_qkv) {
@@ -194,22 +251,21 @@ inline cudaError_t make_maps(Maps* m, const void* q_u, const void* q_rot, const 
     const cuuint64_t strides_s[1] = {(cuuint64_t)D * 2};
     const cuuint32_t box_qu[3] = {DH, BQ, 1}, box_qr[3] = {CW, BQ, 1}, box_kv[3] = {DH, BKEY, 1};
     const cuuint32_t box_ks[2] = {CW, BKEY};
-    cudaError_t err = tensor_map_bf16(&m->qu, q_u, 3, dims_h, strides_h, box_qu, CU_TENSOR_MAP_SWIZZLE_64B);
+    constexpr CUtensorMapSwizzle SW = Head<DH>::MAP_SWIZZLE;
+    cudaError_t err = tensor_map_bf16(&m->qu, q_u, 3, dims_h, strides_h, box_qu, SW);
     if (err == cudaSuccess)
         err = tensor_map_bf16(&m->qrot, q_rot, 3, dims_r, strides_r, box_qr, CU_TENSOR_MAP_SWIZZLE_128B);
-    if (err == cudaSuccess)
-        err = tensor_map_bf16(&m->k, k, 3, dims_h, strides_h, box_kv, CU_TENSOR_MAP_SWIZZLE_64B);
-    if (err == cudaSuccess)
-        err = tensor_map_bf16(&m->v, v, 3, dims_h, strides_h, box_kv, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err == cudaSuccess) err = tensor_map_bf16(&m->k, k, 3, dims_h, strides_h, box_kv, SW);
+    if (err == cudaSuccess) err = tensor_map_bf16(&m->v, v, 3, dims_h, strides_h, box_kv, SW);
     if (err == cudaSuccess)
         err = tensor_map_bf16(&m->kstd, k_std, 2, dims_s, strides_s, box_ks, CU_TENSOR_MAP_SWIZZLE_128B);
     return err;
 }
 
-// Give `kernel` its shared memory; the launch is <<<grid(T), BLOCK_THREADS, smem_bytes(D / CW)>>>.
-template <typename Kernel>
+// Give `kernel` its shared memory; the launch is <<<grid(T), BLOCK_THREADS, smem_bytes<DH>(D / CW)>>>.
+template <int DH, typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, int D) {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(D / CW));
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<DH>(D / CW));
 }
 inline dim3 grid(int B, int T, int H) { return dim3(ceil_div(T, BQ), H, B); }
 

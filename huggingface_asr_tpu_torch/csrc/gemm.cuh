@@ -20,7 +20,9 @@
 //     stages under full/empty mbarriers filled by one producer thread: no
 //     thread computes an address and the loads of the next k-steps run under
 //     the products of this one. Rows past M and columns past K or N are the
-//     TMA's out-of-range zeros. The accumulator stays in registers.
+//     TMA's out-of-range zeros (K and N need only be multiples of 8: the
+//     176-wide configs end in edge tiles at K = 176 and N = 176). The
+//     accumulator stays in registers.
 //   * Two kernels, chosen in launch() from (M, N). Large (gemm_kernel_pingpong,
 //     128 x 128 tiles): one block per SM that stays there and takes tiles
 //     blockIdx.x, blockIdx.x + gridDim.x, ...; the producer streams the k-steps
@@ -499,13 +501,17 @@ cudaError_t launch_tile(const bf16* A, int lda, const bf16* B, int ldb, int M, i
     }
 }
 
-// Shape contract checked by the Python wrapper: N % 64 == 0, K % 32 == 0, n2
-// a multiple of 8, every row stride a multiple of 8 elements and every base
-// pointer 16-byte aligned (TMA boxes and 16-byte stores). The large tile
-// serves whenever its grid covers the card's SMs at least once.
+// Shape contract checked by the Python wrapper (kernels/layer.py::gemm_contract):
+// N % 8 == 0, K % 8 == 0, n2 a multiple of 8, every row stride a multiple of
+// 8 elements and every base pointer 16-byte aligned (TMA boxes and 16-byte
+// stores). Edge tiles need nothing more: the maps carry the true K and N, so a
+// box past either comes back as the TMA's zeros (a product over them adds
+// exact zeros), and the epilogue writes a 16-byte group of 8 columns only
+// below N (N % 8 == 0 makes that every column below N). The large tile serves
+// whenever its grid covers the card's SMs at least once.
 inline cudaError_t launch(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K,
                           const Epilogue& e, cudaStream_t stream) {
-    if (M < 1 || N % 64 || K % 8 || lda % 8 || ldb % 8 || e.ldo % 8 || e.ldr % 8 || e.ldo2 % 8 || e.n2 % 8 ||
+    if (M < 1 || N % 8 || K % 8 || lda % 8 || ldb % 8 || e.ldo % 8 || e.ldr % 8 || e.ldo2 % 8 || e.n2 % 8 ||
         ceil_div(M, Small::BM) > 65535)
         return cudaErrorInvalidValue;
     if (ceil_div(M, Large::BM) * ceil_div(N, Large::BN) >= SMS)

@@ -11,20 +11,24 @@
 //                                                          row stays finite)
 //   out[t]   = sum_s' bf16(exp2(s - m)) v[s'] / sum_s' exp2(s - m)
 //
+// Head width dh = 32 or 64 (a template parameter; a head of another size is
+// padded with zero columns in the folded weights, kernels/layer.py), q_rot
+// width D in whole 64-column chunks (padded there too).
+//
 // The 1/sqrt(dh) and log2(e) scales are folded into the query weights
 // (kernels/layer.py::fold_layer_weights), so the softmax runs on exp2 and is
 // normalised after P.V, as on the TPU.
 //
 // What bounds it on the H100: by the roofline, bytes (q_rot is read once and
 // nothing quadratic is written). In practice the score product's inner width
-// of dh + D = 288 against dh = 32 output columns: nine tenths of the
-// arithmetic is S, so the kernel lives by how the tensor cores are fed.
+// of dh + D = 288 against dh = 32 output columns (flagship; 64 + 192 against
+// 64 at the 176-wide configs' padded widths): most of the arithmetic is S, so the kernel lives by how the tensor cores are fed.
 //
 // What the design does about it:
 //   * The block structure of the training forward (attention_wgmma.cuh): 128
 //     query rows of one (b, h), two consumer warpgroups, one producer thread;
 //     [q_u | q_rot] loaded once by TMA, [k | k_std | v] tiles of 64 keys
-//     through an mbarrier ring of three stages; S is 18 wgmma.m64n64k16 steps
+//     through an mbarrier ring of three stages; S is (dh + D) / 16 wgmma.m64n64k16 steps
 //     out of swizzled shared memory into registers. The tensor maps take the
 //     projection buffer's row stride, so no copy is made of q_u, k or v.
 //   * One walk. The running max and sum of a row pair live in registers;
@@ -55,11 +59,12 @@ __device__ __forceinline__ float masked(float raw, int col, int len, int T) {
     return col < len ? raw : raw + MASK_NEG;
 }
 
+template <int DH>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 rel_attention_kernel(const __grid_constant__ Maps maps, const int* __restrict__ lengths,
                      bf16* __restrict__ out, int ld_o, int T, int H, int D) {
     extern __shared__ unsigned char smem_raw[];
-    const Smem sm(smem_raw, D);
+    const Smem<DH> sm(smem_raw, D);
     const int nc = sm.nc;
     init_barriers(sm);
 
@@ -78,15 +83,15 @@ rel_attention_kernel(const __grid_constant__ Maps maps, const int* __restrict__ 
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
     const int row = wg * 64 + warp * 16 + lane / 4;  // this thread's rows: row, row + 8
     const int cq = 2 * (lane % 4);                   // and columns 8j + cq, 8j + cq + 1
-    const uint32_t my_qu = sm.qu + wg * WG_QH, my_qr = sm.qr + wg * (64 * CW * 2);
+    const uint32_t my_qu = sm.qu + wg * Head<DH>::WG_Q, my_qr = sm.qr + wg * (64 * CW * 2);
 
     const int n_tiles = (n_keys + BKEY - 1) / BKEY;
     const int n_clear = min(len, T);  // columns below it carry no mask
-    float s[32], o[16];
+    float s[32], o[DH / 2];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) o[i] = 0.0f;
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
     // running max (the same in the four lanes of a quad) and this lane's part
     // of the running sum, for rows a (row) and b (row + 8)
     float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
@@ -95,7 +100,7 @@ rel_attention_kernel(const __grid_constant__ Maps maps, const int* __restrict__ 
 
     for (int it = 0; it < n_tiles; ++it) {
         mbar_wait(sm.full_bar(it), (it / STAGES) & 1);
-        start_scores(s, my_qu, my_qr, sm.stage(it), nc);
+        start_scores<DH>(s, my_qu, my_qr, sm.stage(it), nc);
         wgmma_wait<0>();
         fence_regs(s);
         const int s0 = it * BKEY;
@@ -141,11 +146,11 @@ rel_attention_kernel(const __grid_constant__ Maps maps, const int* __restrict__ 
             o[4 * j + 2] *= alpha_b;
             o[4 * j + 3] *= alpha_b;
         }
-        add_pv(o, pd, sm.v_tile(it));
+        add_pv<DH>(o, pd, sm.v_tile(it));
         if (lane == 0) mbar_arrive(sm.empty_bar(it));
     }
 
-    store_o(o, 1.0f / quad_sum(l_a), 1.0f / quad_sum(l_b), out, (size_t)ld_o, b, T, t0 + row, h, cq);
+    store_o<DH>(o, 1.0f / quad_sum(l_a), 1.0f / quad_sum(l_b), out, (size_t)ld_o, b, T, t0 + row, h, cq);
 }
 
 }  // namespace
@@ -153,13 +158,17 @@ rel_attention_kernel(const __grid_constant__ Maps maps, const int* __restrict__ 
 ASR_API int asr_rel_attention(const void* q_u, const void* k, const void* v, const void* q_rot,
                               const void* k_std, const void* lengths, void* out, int B, int T,
                               int H, int dh, int D, int ld_qkv, int ld_o, void* stream) {
-    if (dh != DH || T < 1 || !supported(B, H, D) || ld_qkv % 8 != 0 || ld_qkv < H * DH || ld_o % 2 != 0)
-        return static_cast<int>(cudaErrorInvalidValue);
-    Maps maps;
-    cudaError_t err = make_maps(&maps, q_u, q_rot, k, v, k_std, B, T, H, D, ld_qkv);
-    if (err == cudaSuccess) err = allow_smem(rel_attention_kernel, D);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    rel_attention_kernel<<<grid(B, T, H), BLOCK_THREADS, smem_bytes(D / CW), static_cast<cudaStream_t>(stream)>>>(
-        maps, static_cast<const int*>(lengths), static_cast<bf16*>(out), ld_o, T, H, D);
-    return static_cast<int>(cudaGetLastError());
+    return with_head_width(dh, [&](auto head) {
+        constexpr int DH = decltype(head)::value;
+        if (T < 1 || !supported<DH>(B, H, D) || ld_qkv % 8 != 0 || ld_qkv < H * DH || ld_o % 2 != 0)
+            return static_cast<int>(cudaErrorInvalidValue);
+        Maps maps;
+        cudaError_t err = make_maps<DH>(&maps, q_u, q_rot, k, v, k_std, B, T, H, D, ld_qkv);
+        if (err == cudaSuccess) err = allow_smem<DH>(rel_attention_kernel<DH>, D);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        rel_attention_kernel<DH><<<grid(B, T, H), BLOCK_THREADS, smem_bytes<DH>(D / CW),
+                                   static_cast<cudaStream_t>(stream)>>>(
+            maps, static_cast<const int*>(lengths), static_cast<bf16*>(out), ld_o, T, H, D);
+        return static_cast<int>(cudaGetLastError());
+    });
 }

@@ -30,7 +30,7 @@ namespace {
 
 using namespace attn;
 
-template <typename E>
+template <typename E, int DH>
 struct ShiftSmem {
     size_t qu, qv, k, v, band, g, s, p, o, total;
     int ldv, ldg, lds, ldp, ldo;
@@ -50,7 +50,7 @@ struct ShiftSmem {
     }
 };
 
-template <typename E>
+template <typename E, int DH>
 __device__ __forceinline__ void load_tile(E* dst, int ld, const E* src, size_t stride, int r0,
                                           int lo, int hi, int rows, int warp, int n_warps, int lane) {
     for (int r = warp; r < rows; r += n_warps) {
@@ -61,7 +61,7 @@ __device__ __forceinline__ void load_tile(E* dst, int ld, const E* src, size_t s
 }
 
 // (instantiated for fp32 only; bf16 runs shift_fwd_bf16)
-template <typename E>
+template <typename E, int DH>
 __global__ void __launch_bounds__(Tile<E>::B * 2)
 shift_attention_kernel(const E* __restrict__ q_u, const E* __restrict__ q_v,
                        const E* __restrict__ k, const E* __restrict__ v,
@@ -69,7 +69,7 @@ shift_attention_kernel(const E* __restrict__ q_u, const E* __restrict__ q_v,
                        E* __restrict__ out, int T, int H, float scale) {
     constexpr int BT = Tile<E>::B, NW = BT / 16;
     extern __shared__ __align__(128) unsigned char smem_raw[];
-    const ShiftSmem<E> L;
+    const ShiftSmem<E, DH> L;
     E* Qu = reinterpret_cast<E*>(smem_raw + L.qu);
     E* Qv = reinterpret_cast<E*>(smem_raw + L.qv);
     E* Ks = reinterpret_cast<E*>(smem_raw + L.k);
@@ -88,8 +88,8 @@ shift_attention_kernel(const E* __restrict__ q_u, const E* __restrict__ q_v,
     const size_t hs = (size_t)H * DH;
     const size_t base = (size_t)b * T * hs + (size_t)h * DH;
 
-    load_tile<E>(Qu, L.ldv, q_u + base, hs, t0, 0, T, BT, warp, NW, lane);
-    load_tile<E>(Qv, L.ldv, q_v + base, hs, t0, 0, T, BT, warp, NW, lane);
+    load_tile<E, DH>(Qu, L.ldv, q_u + base, hs, t0, 0, T, BT, warp, NW, lane);
+    load_tile<E, DH>(Qv, L.ldv, q_v + base, hs, t0, 0, T, BT, warp, NW, lane);
     for (int i = threadIdx.x; i < BT * DH; i += NW * 32) Os[(i / DH) * L.ldo + i % DH] = 0.0f;
 
     float m[16], l[16];
@@ -102,10 +102,10 @@ shift_attention_kernel(const E* __restrict__ q_u, const E* __restrict__ q_v,
     for (int pass = 0; pass < 2; ++pass) {
         for (int s0 = 0; s0 < n_keys; s0 += BT) {
             __syncthreads();
-            load_tile<E>(Ks, L.ldv, k + base, hs, s0, 0, T, BT, warp, NW, lane);
-            if (pass == 1) load_tile<E>(Vs, L.ldv, v + base, hs, s0, 0, T, BT, warp, NW, lane);
+            load_tile<E, DH>(Ks, L.ldv, k + base, hs, s0, 0, T, BT, warp, NW, lane);
+            if (pass == 1) load_tile<E, DH>(Vs, L.ldv, v + base, hs, s0, 0, T, BT, warp, NW, lane);
             // band row j is table row (t0 - s0 - (BT - 1) + T - 1) + j of head h
-            load_tile<E>(Band, L.ldv, pos + (size_t)h * DH, hs, t0 - s0 - (BT - 1) + T - 1, 0,
+            load_tile<E, DH>(Band, L.ldv, pos + (size_t)h * DH, hs, t0 - s0 - (BT - 1) + T - 1, 0,
                          2 * T - 1, 2 * BT, warp, NW, lane);
             __syncthreads();
             warp_mm<false, true, false>(Ss + wr * L.lds, L.lds, Qu + wr * L.ldv, L.ldv, Ks, L.ldv,
@@ -148,17 +148,17 @@ shift_attention_kernel(const E* __restrict__ q_u, const E* __restrict__ q_v,
     }
 }
 
-template <typename E>
+template <typename E, int DH>
 int run(const void* q_u, const void* q_v, const void* k, const void* v, const void* pos,
         const void* lengths, void* out, int B, int T, int H, float scale, cudaStream_t stream) {
     constexpr int BT = Tile<E>::B;
-    const ShiftSmem<E> L;
+    const ShiftSmem<E, DH> L;
     if (L.total > MAX_SMEM) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(shift_attention_kernel<E>,
+    cudaError_t err = cudaFuncSetAttribute(shift_attention_kernel<E, DH>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(ceil_div(T, BT), H, B);
-    shift_attention_kernel<E><<<grid, BT * 2, L.total, stream>>>(
+    shift_attention_kernel<E, DH><<<grid, BT * 2, L.total, stream>>>(
         (const E*)q_u, (const E*)q_v, (const E*)k, (const E*)v, (const E*)pos, (const int*)lengths,
         (E*)out, T, H, scale);
     return (int)cudaGetLastError();
@@ -167,11 +167,15 @@ int run(const void* q_u, const void* q_v, const void* k, const void* v, const vo
 }  // namespace
 
 // q_u, q_v, k, v, out: (B, T, H, dh) contiguous; pos: (2T - 1, H, dh); lengths: (B,) int32.
+// dh = 32 or 64 (the wrapper pads other head sizes with zero columns).
 ASR_API int asr_rel_attention_shift(const void* q_u, const void* q_v, const void* k, const void* v,
                                     const void* pos, const void* lengths, void* out, int B, int T,
                                     int H, int dh, int is_bf16, float scale, void* stream) {
-    if (dh != DH || T < 1) return (int)cudaErrorInvalidValue;
+    if (T < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? shift_fwd_bf16(q_u, q_v, k, v, pos, lengths, out, B, T, H, scale, st)
-                   : run<float>(q_u, q_v, k, v, pos, lengths, out, B, T, H, scale, st);
+    return with_head_width(dh, [&](auto head) {
+        constexpr int DH = decltype(head)::value;
+        return is_bf16 ? shift_fwd_bf16<DH>(q_u, q_v, k, v, pos, lengths, out, B, T, H, scale, st)
+                       : run<float, DH>(q_u, q_v, k, v, pos, lengths, out, B, T, H, scale, st);
+    });
 }

@@ -9,7 +9,7 @@
 //
 // What bounds it on the H100: by the roofline, bytes (five (B, T, H, dh)
 // tensors once each; the table is small and cached). Both products have an
-// inner width of only dh = 32, so the tensor cores have little to do; what
+// inner width of only dh (32, or 64 padded), so the tensor cores have little to do; what
 // costs is the positional term's skew: the score of (t, s) needs
 // G[t][t - s + const] of G = q_v band^T, which the accumulator fragment
 // holds in another lane than S[t][s].
@@ -43,18 +43,28 @@ namespace {
 
 constexpr int BAND = 192;  // table rows a block needs for one key tile (191 used)
 constexpr int GLD = 72;    // floats between rows of the skew buffer
-constexpr uint32_t BAND_BYTES = BAND * DH * 2;
-constexpr uint32_t STAGE_BYTES = KH_BYTES + BAND_BYTES + KH_BYTES;  // k | band | v
 constexpr uint32_t G_BYTES = BQ * GLD * 4;
-constexpr uint32_t SMEM_BYTES = 1024 + 2 * QH_BYTES + STAGES * STAGE_BYTES + G_BYTES + 8 * (1 + 2 * STAGES);
+
+// Shared memory of head width DH: q_u | q_v | STAGES x (k | band | v) | skew buffer | barriers.
+template <int DH>
+struct Layout {
+    static constexpr uint32_t QH = Head<DH>::Q_BYTES, KH = Head<DH>::K_BYTES;
+    static constexpr uint32_t BAND_BYTES = BAND * DH * 2;
+    static constexpr uint32_t STAGE_BYTES = KH + BAND_BYTES + KH;
+    static constexpr uint32_t SMEM_BYTES = 1024 + 2 * QH + STAGES * STAGE_BYTES + G_BYTES + 8 * (1 + 2 * STAGES);
+    static_assert(SMEM_BYTES <= MAX_SMEM, "the shift kernel's tiles fit a block's shared memory");
+};
 
 struct ShiftMaps {
     CUtensorMap qu, qv, k, v, pos;
 };
 
+template <int DH>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 shift_bf16_kernel(const __grid_constant__ ShiftMaps maps, const int* __restrict__ lengths,
                   bf16* __restrict__ out, int T, int H, float scale) {
+    using L = Layout<DH>;
+    constexpr uint32_t QH_BYTES = L::QH, KH_BYTES = L::KH, BAND_BYTES = L::BAND_BYTES, STAGE_BYTES = L::STAGE_BYTES;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t base = smem_u32(smem_raw);
     const uint32_t qu = (base + 1023u) & ~1023u;
@@ -104,32 +114,30 @@ shift_bf16_kernel(const __grid_constant__ ShiftMaps maps, const int* __restrict_
     float* g_a = g_rows + rl * GLD;
     float* g_b = g_a + 8 * GLD;
 
-    float s[32], g[64], o[16];
+    float s[32], g[64], o[DH / 2];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.0f;
 #pragma unroll
     for (int i = 0; i < 64; ++i) g[i] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) o[i] = 0.0f;
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
     float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
 
     mbar_wait(q_full, 0);
-    const uint64_t a_u = make_desc(qu + wg * WG_QH, 16, 512, SWIZZLE_64);
-    const uint64_t a_v = make_desc(qv + wg * WG_QH, 16, 512, SWIZZLE_64);
+    const uint64_t a_u = head_desc<DH>(qu + wg * Head<DH>::WG_Q);
+    const uint64_t a_v = head_desc<DH>(qv + wg * Head<DH>::WG_Q);
 
     // s := the scaled, masked scores of ring step `it` (this thread's part)
     auto scores = [&](int it, int s0) {
         const uint32_t stage = ring + (it % STAGES) * STAGE_BYTES;
         mbar_wait(full + 8 * (it % STAGES), (it / STAGES) & 1);
-        const uint64_t b_k = make_desc(stage, 16, 512, SWIZZLE_64);
-        const uint64_t b_band = make_desc(stage + KH_BYTES + wg * (64 * DH * 2), 16, 512, SWIZZLE_64);
+        const uint64_t b_k = head_desc<DH>(stage);
+        const uint64_t b_band = head_desc<DH>(stage + KH_BYTES + wg * (64 * DH * 2));
         fence_regs(s);
         fence_regs(g);
         wgmma_fence();
-        wgmma_m64n64k16_ss(s, a_u, b_k, 0);
-        wgmma_m64n64k16_ss(s, a_u + 2, b_k + 2, 1);
-        wgmma_m64n128k16_ss(g, a_v, b_band, 0);
-        wgmma_m64n128k16_ss(g, a_v + 2, b_band + 2, 1);
+        head_product<DH>(s, a_u, b_k, 0);
+        head_product<DH>(g, a_v, b_band, 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
@@ -192,43 +200,49 @@ shift_bf16_kernel(const __grid_constant__ ShiftMaps maps, const int* __restrict_
         for (int j = 0; j < 8; ++j)
             pack_p(pd, j, expf(s[4 * j] - m_a) / l_a, expf(s[4 * j + 1] - m_a) / l_a,
                    expf(s[4 * j + 2] - m_b) / l_b, expf(s[4 * j + 3] - m_b) / l_b);
-        add_pv(o, pd, ring + (it % STAGES) * STAGE_BYTES + KH_BYTES + BAND_BYTES);
+        add_pv<DH>(o, pd, ring + (it % STAGES) * STAGE_BYTES + KH_BYTES + BAND_BYTES);
         if (lane == 0) mbar_arrive(empty + 8 * (it % STAGES));
     }
 
-    store_o(o, 1.0f, 1.0f, out, (size_t)H * DH, b, T, ta, h, cq);
+    store_o<DH>(o, 1.0f, 1.0f, out, (size_t)H * DH, b, T, ta, h, cq);
 }
 
 }  // namespace
 
+template <int DH>
 int shift_fwd_bf16(const void* q_u, const void* q_v, const void* k, const void* v, const void* pos,
                    const void* lengths, void* out, int B, int T, int H, float scale,
                    cudaStream_t stream) {
     if (B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
-    // (B, T, H * dh) tensors: coordinates (column, t, b); the table (2T - 1, H * dh):
+    // (B, T, H * DH) tensors: coordinates (column, t, b); the table (2T - 1, H * DH):
     // (column, row). Rows outside a tensor read as zeros.
     const cuuint64_t dims_h[3] = {(cuuint64_t)H * DH, (cuuint64_t)T, (cuuint64_t)B};
     const cuuint64_t strides_h[2] = {(cuuint64_t)H * DH * 2, (cuuint64_t)T * H * DH * 2};
     const cuuint64_t dims_p[2] = {(cuuint64_t)H * DH, (cuuint64_t)(2 * T - 1)};
     const cuuint64_t strides_p[1] = {(cuuint64_t)H * DH * 2};
     const cuuint32_t box_q[3] = {DH, BQ, 1}, box_kv[3] = {DH, BKEY, 1}, box_band[2] = {DH, BAND};
+    constexpr CUtensorMapSwizzle SW = Head<DH>::MAP_SWIZZLE;
     ShiftMaps maps;
-    cudaError_t err = tensor_map_bf16(&maps.qu, q_u, 3, dims_h, strides_h, box_q, CU_TENSOR_MAP_SWIZZLE_64B);
+    cudaError_t err = tensor_map_bf16(&maps.qu, q_u, 3, dims_h, strides_h, box_q, SW);
+    if (err == cudaSuccess) err = tensor_map_bf16(&maps.qv, q_v, 3, dims_h, strides_h, box_q, SW);
+    if (err == cudaSuccess) err = tensor_map_bf16(&maps.k, k, 3, dims_h, strides_h, box_kv, SW);
+    if (err == cudaSuccess) err = tensor_map_bf16(&maps.v, v, 3, dims_h, strides_h, box_kv, SW);
+    if (err == cudaSuccess) err = tensor_map_bf16(&maps.pos, pos, 2, dims_p, strides_p, box_band, SW);
     if (err == cudaSuccess)
-        err = tensor_map_bf16(&maps.qv, q_v, 3, dims_h, strides_h, box_q, CU_TENSOR_MAP_SWIZZLE_64B);
-    if (err == cudaSuccess)
-        err = tensor_map_bf16(&maps.k, k, 3, dims_h, strides_h, box_kv, CU_TENSOR_MAP_SWIZZLE_64B);
-    if (err == cudaSuccess)
-        err = tensor_map_bf16(&maps.v, v, 3, dims_h, strides_h, box_kv, CU_TENSOR_MAP_SWIZZLE_64B);
-    if (err == cudaSuccess)
-        err = tensor_map_bf16(&maps.pos, pos, 2, dims_p, strides_p, box_band, CU_TENSOR_MAP_SWIZZLE_64B);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(shift_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+        err = cudaFuncSetAttribute(shift_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)Layout<DH>::SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(ceil_div(T, BQ), H, B);
-    shift_bf16_kernel<<<grid, BLOCK_THREADS, SMEM_BYTES, stream>>>(
+    shift_bf16_kernel<DH><<<grid, BLOCK_THREADS, Layout<DH>::SMEM_BYTES, stream>>>(
         maps, (const int*)lengths, (bf16*)out, T, H, scale);
     return (int)cudaGetLastError();
 }
+
+#define INSTANTIATE(DH)                                                                                         \
+    template int shift_fwd_bf16<DH>(const void*, const void*, const void*, const void*, const void*, const void*, \
+                                    void*, int, int, int, float, cudaStream_t);
+INSTANTIATE(32)
+INSTANTIATE(64)
+#undef INSTANTIATE
 
 }  // namespace attn

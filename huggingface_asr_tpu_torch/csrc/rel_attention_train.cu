@@ -63,7 +63,7 @@ __device__ __forceinline__ void load_cat_tile(E* dst, int ld, const E* a, size_t
 // ---------------------------------------------------------------------------
 // forward (instantiated for fp32 only; bf16 runs train_fwd_bf16)
 
-template <typename E>
+template <typename E, int DH>
 struct FwdSmem {
     size_t q, k, v, s, p, o, total;
     int ldk, ldv, lds, ldp, ldo;
@@ -80,7 +80,7 @@ struct FwdSmem {
     }
 };
 
-template <typename E>
+template <typename E, int DH>
 __global__ void __launch_bounds__(Tile<E>::B * 2)
 train_fwd_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot, const E* __restrict__ k,
                  const E* __restrict__ v, const E* __restrict__ k_std,
@@ -89,7 +89,7 @@ train_fwd_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot, const E
     constexpr int BT = Tile<E>::B, NW = BT / 16;
     extern __shared__ __align__(128) unsigned char smem_raw[];
     const int kd = DH + D;
-    const FwdSmem<E> L(kd);
+    const FwdSmem<E, DH> L(kd);
     E* Qs = reinterpret_cast<E*>(smem_raw + L.q);
     E* Ks = reinterpret_cast<E*>(smem_raw + L.k);
     E* Vs = reinterpret_cast<E*>(smem_raw + L.v);
@@ -187,7 +187,7 @@ train_fwd_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot, const E
 // ---------------------------------------------------------------------------
 // backward, dq pass (instantiated for fp32 only; bf16 runs train_bwd_bf16)
 
-template <typename E>
+template <typename E, int DH>
 struct DqSmem {
     size_t q, k, v, dO, s, d, ds, acc, total;
     int ldk, ldv, lds, ldp, lda;
@@ -206,7 +206,7 @@ struct DqSmem {
     }
 };
 
-template <typename E>
+template <typename E, int DH>
 __global__ void __launch_bounds__(Tile<E>::B * 2)
 train_bwd_dq_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot,
                     const E* __restrict__ k, const E* __restrict__ v,
@@ -217,7 +217,7 @@ train_bwd_dq_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot,
     constexpr int BT = Tile<E>::B, NW = BT / 16;
     extern __shared__ __align__(128) unsigned char smem_raw[];
     const int kd = DH + D;
-    const DqSmem<E> L(kd);
+    const DqSmem<E, DH> L(kd);
     E* Qs = reinterpret_cast<E*>(smem_raw + L.q);
     E* Ks = reinterpret_cast<E*>(smem_raw + L.k);
     E* Vs = reinterpret_cast<E*>(smem_raw + L.v);
@@ -311,7 +311,7 @@ train_bwd_dq_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot,
 // ---------------------------------------------------------------------------
 // backward, dk/dv pass
 
-template <typename E>
+template <typename E, int DH>
 struct DkvSmem {
     size_t q, k, v, dO, s, d, p, ds, acc_v, acc_k, st, total;
     int ldk, ldv, lds, ldp, lda;
@@ -333,7 +333,7 @@ struct DkvSmem {
     }
 };
 
-template <typename E>
+template <typename E, int DH>
 __global__ void __launch_bounds__(Tile<E>::B * 2)
 train_bwd_dkv_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot,
                      const E* __restrict__ k, const E* __restrict__ v,
@@ -344,7 +344,7 @@ train_bwd_dkv_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot,
     constexpr int BT = Tile<E>::B, NW = BT / 16;
     extern __shared__ __align__(128) unsigned char smem_raw[];
     const int kd = DH + D;
-    const DkvSmem<E> L(kd);
+    const DkvSmem<E, DH> L(kd);
     E* Qs = reinterpret_cast<E*>(smem_raw + L.q);
     E* Ks = reinterpret_cast<E*>(smem_raw + L.k);
     E* Vs = reinterpret_cast<E*>(smem_raw + L.v);
@@ -453,41 +453,41 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename E>
+template <typename E, int DH>
 int fwd(const void* q_u, const void* q_rot, const void* k, const void* v, const void* k_std,
         const void* lengths, void* out, void* stats, int B, int T, int H, int D, float scale,
         DropoutArgs drop, cudaStream_t stream) {
     constexpr int BT = Tile<E>::B;
-    const FwdSmem<E> L(DH + D);
-    cudaError_t err = allow_smem(train_fwd_kernel<E>, L.total);
+    const FwdSmem<E, DH> L(DH + D);
+    cudaError_t err = allow_smem(train_fwd_kernel<E, DH>, L.total);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(ceil_div(T, BT), H, B);
-    train_fwd_kernel<E><<<grid, BT * 2, L.total, stream>>>(
+    train_fwd_kernel<E, DH><<<grid, BT * 2, L.total, stream>>>(
         (const E*)q_u, (const E*)q_rot, (const E*)k, (const E*)v, (const E*)k_std,
         (const int*)lengths, (E*)out, (float*)stats, B, T, H, D, scale, drop);
     return (int)cudaGetLastError();
 }
 
-template <typename E>
+template <typename E, int DH>
 int bwd(const void* q_u, const void* q_rot, const void* k, const void* v, const void* k_std,
         const void* lengths, const void* d_out, const void* stats, void* delta, void* dq_u,
         void* dq_rot, void* dk, void* dv, int B, int T, int H, int D, float scale,
         DropoutArgs drop, cudaStream_t stream) {
     constexpr int BT = Tile<E>::B;
-    const DqSmem<E> Lq(DH + D);
-    const DkvSmem<E> Lk(DH + D);
-    cudaError_t err = allow_smem(train_bwd_dq_kernel<E>, Lq.total);
+    const DqSmem<E, DH> Lq(DH + D);
+    const DkvSmem<E, DH> Lk(DH + D);
+    cudaError_t err = allow_smem(train_bwd_dq_kernel<E, DH>, Lq.total);
     if (err != cudaSuccess) return (int)err;
-    err = allow_smem(train_bwd_dkv_kernel<E>, Lk.total);
+    err = allow_smem(train_bwd_dkv_kernel<E, DH>, Lk.total);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(ceil_div(T, BT), H, B);
-    train_bwd_dq_kernel<E><<<grid, BT * 2, Lq.total, stream>>>(
+    train_bwd_dq_kernel<E, DH><<<grid, BT * 2, Lq.total, stream>>>(
         (const E*)q_u, (const E*)q_rot, (const E*)k, (const E*)v, (const E*)k_std,
         (const int*)lengths, (const E*)d_out, (const float*)stats, (float*)delta, (E*)dq_u,
         (E*)dq_rot, B, T, H, D, scale, drop);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    train_bwd_dkv_kernel<E><<<grid, BT * 2, Lk.total, stream>>>(
+    train_bwd_dkv_kernel<E, DH><<<grid, BT * 2, Lk.total, stream>>>(
         (const E*)q_u, (const E*)q_rot, (const E*)k, (const E*)v, (const E*)k_std,
         (const int*)lengths, (const E*)d_out, (const float*)stats, (const float*)delta, (E*)dk,
         (E*)dv, B, T, H, D, scale, drop);
@@ -497,18 +497,22 @@ int bwd(const void* q_u, const void* q_rot, const void* k, const void* v, const 
 }  // namespace
 
 // q_u, k, v, out: (B, T, H, dh) contiguous; q_rot: (B, T, H, D); k_std: (T, D);
-// lengths: (B,) int32; stats: (2, B, H, T) fp32 (row max, row sum).
-// is_bf16 selects the element type (bf16 or float).
+// lengths: (B,) int32; stats: (2, B, H, T) fp32 (row max, row sum). dh = 32 or
+// 64 (the wrapper pads other head sizes with zero columns); is_bf16 selects the
+// element type (bf16 or float).
 ASR_API int asr_rel_attention_train_fwd(const void* q_u, const void* q_rot, const void* k,
                                         const void* v, const void* k_std, const void* lengths,
                                         void* out, void* stats, int B, int T, int H, int dh, int D,
                                         int is_bf16, float scale, unsigned seed, unsigned thresh,
                                         float inv_keep, int dropout, void* stream) {
-    if (dh != DH || D % 16 != 0 || T < 1) return (int)cudaErrorInvalidValue;
+    if (D % 16 != 0 || T < 1) return (int)cudaErrorInvalidValue;
     const DropoutArgs drop{seed, thresh, inv_keep, dropout};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? train_fwd_bf16(q_u, q_rot, k, v, k_std, lengths, out, stats, B, T, H, D, scale, drop, st)
-                   : fwd<float>(q_u, q_rot, k, v, k_std, lengths, out, stats, B, T, H, D, scale, drop, st);
+    return with_head_width(dh, [&](auto head) {
+        constexpr int DH = decltype(head)::value;
+        return is_bf16 ? train_fwd_bf16<DH>(q_u, q_rot, k, v, k_std, lengths, out, stats, B, T, H, D, scale, drop, st)
+                       : fwd<float, DH>(q_u, q_rot, k, v, k_std, lengths, out, stats, B, T, H, D, scale, drop, st);
+    });
 }
 
 // The two backward passes, dq then dkv (the second reads the first's delta).
@@ -520,11 +524,14 @@ ASR_API int asr_rel_attention_train_bwd(const void* q_u, const void* q_rot, cons
                                         int H, int dh, int D, int is_bf16, float scale,
                                         unsigned seed, unsigned thresh, float inv_keep, int dropout,
                                         void* stream) {
-    if (dh != DH || D % 16 != 0 || T < 1) return (int)cudaErrorInvalidValue;
+    if (D % 16 != 0 || T < 1) return (int)cudaErrorInvalidValue;
     const DropoutArgs drop{seed, thresh, inv_keep, dropout};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? train_bwd_bf16(q_u, q_rot, k, v, k_std, lengths, d_out, stats, delta, dq_u, dq_rot,
-                                    dk, dv, B, T, H, D, scale, drop, st)
-                   : bwd<float>(q_u, q_rot, k, v, k_std, lengths, d_out, stats, delta, dq_u,
-                                dq_rot, dk, dv, B, T, H, D, scale, drop, st);
+    return with_head_width(dh, [&](auto head) {
+        constexpr int DH = decltype(head)::value;
+        return is_bf16 ? train_bwd_bf16<DH>(q_u, q_rot, k, v, k_std, lengths, d_out, stats, delta, dq_u, dq_rot,
+                                            dk, dv, B, T, H, D, scale, drop, st)
+                       : bwd<float, DH>(q_u, q_rot, k, v, k_std, lengths, d_out, stats, delta, dq_u,
+                                        dq_rot, dk, dv, B, T, H, D, scale, drop, st);
+    });
 }

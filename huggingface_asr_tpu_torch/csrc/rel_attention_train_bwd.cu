@@ -15,7 +15,10 @@
 // dq_rot written once, 33 MB each at B=32, T=250: 28 us). In practice, the
 // fp32 work on every score (mask, exp, three hash rounds, the dS chain), done
 // three times per (query, key) pair, and after it the products of inner width
-// dh + D = 288; so both must run at once, and nothing else may cost a cycle.
+// dh + D (288 at the flagship's widths, 64 + 192 at the 176-wide configs'
+// padded ones); so both must run at once, and nothing else may cost a cycle.
+// Head width dh = 32 or 64, a template parameter (the wrapper pads other head
+// sizes with zero columns).
 //
 // What the design does about it. Two kernels, each a block of two consumer
 // warpgroups (64 rows each) and one producer thread; every operand tile is a
@@ -30,7 +33,7 @@
 //     reduction at its end, written out for the other kernel); walk 2 forms
 //     dS on the fragment and feeds it as the register A operand of
 //     [dq_u | dq_rot] += dS [k | k_std], the key tile read as the transposed B
-//     operand. That accumulator is 16 + 32 * D / 64 registers a thread beside
+//     operand. That accumulator is dh / 2 + 32 * D / 64 registers a thread beside
 //     S's and dP's 32 each, so the consumers take 240 registers and the
 //     producer's warpgroup gives its own up (setmaxnreg). dq_rot leaves as
 //     16-byte stores (quad_transpose).
@@ -59,9 +62,16 @@ constexpr int ROWS = 64 * NWG;     // rows a block owns
 constexpr int CW = fa::CW;         // columns of one 128-byte-swizzled chunk
 constexpr int THREADS = 128 * (NWG + 1);
 constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;
-constexpr uint32_t RES_H = ROWS * DH * 2, RES_W = ROWS * CW * 2;  // resident narrow tile / wide chunk
-constexpr uint32_t T_H = BKEY * DH * 2, T_W = BKEY * CW * 2;      // the same of a 64-row ring tile
-constexpr uint32_t WG_H = 64 * DH * 2, WG_W = 64 * CW * 2;        // one warpgroup's rows of a resident tile
+constexpr int ACC_COLS = 288;      // [dq_u | dq_rot] columns a dq thread's registers hold: DH + D <= 288
+constexpr uint32_t RES_W = ROWS * CW * 2, T_W = BKEY * CW * 2, WG_W = 64 * CW * 2;  // a wide chunk: resident, ring, one warpgroup's
+
+// The narrow (head-wide) tiles of head width DH: resident (ROWS rows), in the
+// ring (64 rows), one warpgroup's rows of a resident tile.
+template <int DH>
+struct Narrow {
+    static constexpr uint32_t RES = ROWS * DH * 2, RING = BKEY * DH * 2, WG = 64 * DH * 2;
+    static constexpr int MAX_CHUNKS = (ACC_COLS - DH) / CW;  // dq_rot chunks beside dq_u in registers
+};
 
 struct Maps {
     CUtensorMap qu, qrot, k, kstd, v, d_o;
@@ -74,16 +84,17 @@ struct Maps {
 //             (dq: k, k_std, v;     dk/dv: q_u, q_rot, dO)
 //   barriers: resident full, STAGES x full, STAGES x empty
 //   columns:  per warpgroup 2 x 3 x 64 floats (dk/dv kernel only)
+template <int DH>
 struct Smem {
     int nc;
     uint32_t res_h, res_w, res_h2, ring, stage_sz, res_full, full, empty, cols;
     __device__ Smem(const unsigned char* raw, int D) {
         nc = D / CW;
         res_h = (smem_u32(raw) + 1023u) & ~1023u;
-        res_w = res_h + RES_H;
+        res_w = res_h + Narrow<DH>::RES;
         res_h2 = res_w + nc * RES_W;
-        ring = res_h2 + RES_H;
-        stage_sz = 2 * T_H + nc * T_W;
+        ring = res_h2 + Narrow<DH>::RES;
+        stage_sz = 2 * Narrow<DH>::RING + nc * T_W;
         res_full = ring + STAGES * stage_sz;
         full = res_full + 8;
         empty = full + 8 * STAGES;
@@ -94,43 +105,35 @@ struct Smem {
     __device__ uint32_t empty_bar(int it) const { return empty + 8 * (it % STAGES); }
 };
 constexpr int COL_FLOATS = NWG * 2 * 3 * BKEY;
+template <int DH>
 inline uint32_t smem_bytes(int nc) {
-    return 1024 + 2 * RES_H + nc * RES_W + STAGES * (2 * T_H + nc * T_W) + 8 * (2 + 2 * STAGES) + 4 * COL_FLOATS;
+    return 1024 + 2 * Narrow<DH>::RES + nc * RES_W + STAGES * (2 * Narrow<DH>::RING + nc * T_W) +
+           8 * (2 + 2 * STAGES) + 4 * COL_FLOATS;
 }
 
-// s (64 x 64) = [a_h | a_w chunks] . [b_h | b_w chunks]^T over dh + 64 nc
-// columns, and d (64 x 64) = a2 . b2^T over dh: both K-major operand pairs out
+// s (64 x 64) = [a_h | a_w chunks] . [b_h | b_w chunks]^T over DH + 64 nc
+// columns, and d (64 x 64) = a2 . b2^T over DH: both K-major operand pairs out
 // of shared memory, started and committed as one group; the caller waits.
+template <int DH>
 __device__ __forceinline__ void start_pair(float (&s)[32], float (&d)[32], uint32_t a_h, uint32_t a_w,
                                            uint32_t a_chunk, uint32_t a2, uint32_t b_h, uint32_t b_w,
                                            uint32_t b2, int nc) {
     fence_regs(s);
     fence_regs(d);
     wgmma_fence();
-    const uint64_t da = make_desc(a_h, 16, 512, SWIZZLE_64), db = make_desc(b_h, 16, 512, SWIZZLE_64);
-    wgmma_m64n64k16_ss(s, da, db, 0);
-    wgmma_m64n64k16_ss(s, da + 2, db + 2, 1);
+    head_product<DH>(s, head_desc<DH>(a_h), head_desc<DH>(b_h), 0);
     for (int c = 0; c < nc; ++c) {
         const uint64_t a_r = make_desc(a_w + c * a_chunk, 16, 1024, SWIZZLE_128);
         const uint64_t b_r = make_desc(b_w + c * T_W, 16, 1024, SWIZZLE_128);
 #pragma unroll
         for (int kk = 0; kk < CW / 16; ++kk) wgmma_m64n64k16_ss(s, a_r + 2 * kk, b_r + 2 * kk, 1);
     }
-    const uint64_t d2a = make_desc(a2, 16, 512, SWIZZLE_64), d2b = make_desc(b2, 16, 512, SWIZZLE_64);
-    wgmma_m64n64k16_ss(d, d2a, d2b, 0);
-    wgmma_m64n64k16_ss(d, d2a + 2, d2b + 2, 1);
+    head_product<DH>(d, head_desc<DH>(a2), head_desc<DH>(b2), 0);
     wgmma_commit();
 }
 
-// acc (64 x dh) += A (64 x 64, registers) . tile, a (64, dh) ring tile read
-// as the transposed B operand. Issued into the open group.
-__device__ __forceinline__ void add_narrow(float (&acc)[16], const uint32_t (&a)[4][4], uint32_t tile) {
-    const uint64_t b = make_desc(tile, 16, 512, SWIZZLE_64);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_m64n32k16_rs_bt(acc, a[kk], b + kk * (16 * DH * 2 / 16), 1);
-}
-
-__device__ __forceinline__ void init_barriers(const Smem& sm) {
+template <int DH>
+__device__ __forceinline__ void init_barriers(const Smem<DH>& sm) {
     if (threadIdx.x == 0) {
         mbar_init(sm.res_full, 1);
         for (int s = 0; s < STAGES; ++s) {
@@ -145,13 +148,16 @@ __device__ __forceinline__ void init_barriers(const Smem& sm) {
 // ---------------------------------------------------------------------------
 // dq: block = (128 query rows, head, batch row)
 
+template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
 train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restrict__ lengths,
                          const float* __restrict__ stats, float* __restrict__ delta_out,
                          bf16* __restrict__ dq_u, bf16* __restrict__ dq_rot, int B, int T, int H, int D,
                          float scale, DropoutArgs drop) {
+    using N = Narrow<DH>;
+    constexpr int MAXC = N::MAX_CHUNKS;
     extern __shared__ unsigned char smem_raw[];
-    const Smem sm(smem_raw, D);
+    const Smem<DH> sm(smem_raw, D);
     const int nc = sm.nc;
     init_barriers(sm);
 
@@ -165,7 +171,7 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
         // producer: the resident tiles once, then both walks through the ring
         if (NWG > 1) setmaxnreg_dec<PRODUCER_REGS>();
         if (threadIdx.x != 128 * NWG) return;
-        mbar_arrive_expect_tx(sm.res_full, 2 * RES_H + nc * RES_W);
+        mbar_arrive_expect_tx(sm.res_full, 2 * N::RES + nc * RES_W);
         tma_load_3d(sm.res_h, &maps.qu, sm.res_full, h * DH, t0, b);
         for (int c = 0; c < nc; ++c) tma_load_3d(sm.res_w + c * RES_W, &maps.qrot, sm.res_full, h * D + c * CW, t0, b);
         tma_load_3d(sm.res_h2, &maps.d_o, sm.res_full, h * DH, t0, b);
@@ -175,8 +181,8 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
             mbar_wait(sm.empty_bar(it), ((it / STAGES) & 1) ^ 1);
             mbar_arrive_expect_tx(bar, sm.stage_sz);
             tma_load_3d(stage, &maps.k, bar, h * DH, s0, b);
-            for (int c = 0; c < nc; ++c) tma_load_2d(stage + T_H + c * T_W, &maps.kstd, bar, c * CW, s0);
-            tma_load_3d(stage + T_H + nc * T_W, &maps.v, bar, h * DH, s0, b);
+            for (int c = 0; c < nc; ++c) tma_load_2d(stage + N::RING + c * T_W, &maps.kstd, bar, c * CW, s0);
+            tma_load_3d(stage + N::RING + nc * T_W, &maps.v, bar, h * DH, s0, b);
         }
         return;
     }
@@ -186,7 +192,7 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
     const int q = lane % 4, cq = 2 * q;
     const int ta = t0 + wg * 64 + warp * 16 + lane / 4, tb = ta + 8;  // this thread's rows
-    const uint32_t my_h = sm.res_h + wg * WG_H, my_w = sm.res_w + wg * WG_W, my_do = sm.res_h2 + wg * WG_H;
+    const uint32_t my_h = sm.res_h + wg * N::WG, my_w = sm.res_w + wg * WG_W, my_do = sm.res_h2 + wg * N::WG;
 
     const size_t at = ((size_t)b * H + h) * T, n_stats = (size_t)B * H * T;
     const float m_a = stats[at + min(ta, T - 1)], m_b = stats[at + min(tb, T - 1)];
@@ -194,13 +200,13 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
     const float il_b = 1.0f / stats[n_stats + at + min(tb, T - 1)];
     const uint32_t key = dropout_key(drop.seed, b, h, H);
 
-    float s[32], dp[32], acc_u[16], acc_r[4][32];
+    float s[32], dp[32], acc_u[DH / 2], acc_r[MAXC][32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc_u[i] = 0.0f;
+    for (int i = 0; i < DH / 2; ++i) acc_u[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+    for (int c = 0; c < MAXC; ++c)
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc_r[c][i] = 0.0f;
     float delta_a = 0.0f, delta_b = 0.0f;
@@ -212,7 +218,7 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
         const int s0 = (second ? it - n_tiles : it) * BKEY;
         const uint32_t stage = sm.stage(it);
         mbar_wait(sm.full_bar(it), (it / STAGES) & 1);
-        start_pair(s, dp, my_h, my_w, RES_W, my_do, stage, stage + T_H, stage + T_H + nc * T_W, nc);
+        start_pair<DH>(s, dp, my_h, my_w, RES_W, my_do, stage, stage + N::RING, stage + N::RING + nc * T_W, nc);
         wgmma_wait<0>();
         fence_regs(s);
         fence_regs(dp);
@@ -257,13 +263,13 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
         // [dq_u | dq_rot] += dS [k | k_std]
         fence_regs(acc_u);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) fence_regs(acc_r[c]);
+        for (int c = 0; c < MAXC; ++c) fence_regs(acc_r[c]);
         wgmma_fence();
-        add_narrow(acc_u, ds, stage);
+        add_head<DH>(acc_u, ds, stage);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < MAXC; ++c) {
             if (c < nc) {
-                const uint64_t b_s = make_desc(stage + T_H + c * T_W, T_W, 1024, SWIZZLE_128);
+                const uint64_t b_s = make_desc(stage + N::RING + c * T_W, T_W, 1024, SWIZZLE_128);
 #pragma unroll
                 for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_rs_bt(acc_r[c], ds[kk], b_s + kk * (16 * CW * 2 / 16), 1);
             }
@@ -272,16 +278,16 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
         wgmma_wait<0>();
         fence_regs(acc_u);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) fence_regs(acc_r[c]);
+        for (int c = 0; c < MAXC; ++c) fence_regs(acc_r[c]);
         if (lane == 0) mbar_arrive(sm.empty_bar(it));
     }
 
-    store_o(acc_u, 1.0f, 1.0f, dq_u, (size_t)H * DH, b, T, ta, h, cq);
+    store_o<DH>(acc_u, 1.0f, 1.0f, dq_u, (size_t)H * DH, b, T, ta, h, cq);
     // dq_rot (B, T, H, D): a lane's 8 consecutive columns of a row as one 16-byte store
     bf16* row_a = dq_rot + (((size_t)b * T + ta) * H + h) * D + 8 * q;
     bf16* row_b = row_a + (size_t)8 * H * D;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < MAXC; ++c) {
         if (c < nc) {
 #pragma unroll
             for (int j0 = 0; j0 < 8; j0 += 4) {
@@ -304,13 +310,15 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
 // ---------------------------------------------------------------------------
 // dk, dv: block = (128 keys, head, batch row)
 
+template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
 train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restrict__ lengths,
                           const float* __restrict__ stats, const float* __restrict__ delta_in,
                           bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int T, int H, int D,
                           float scale, DropoutArgs drop) {
+    using N = Narrow<DH>;
     extern __shared__ unsigned char smem_raw[];
-    const Smem sm(smem_raw, D);
+    const Smem<DH> sm(smem_raw, D);
     const int nc = sm.nc;
     const int s0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
     const int len = lengths[b];
@@ -335,7 +343,7 @@ train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restri
     if (wg == NWG) {
         // producer: the block's keys once, then every query tile through the ring
         if (threadIdx.x != 128 * NWG) return;
-        mbar_arrive_expect_tx(sm.res_full, 2 * RES_H + nc * RES_W);
+        mbar_arrive_expect_tx(sm.res_full, 2 * N::RES + nc * RES_W);
         tma_load_3d(sm.res_h, &maps.k, sm.res_full, h * DH, s0, b);
         for (int c = 0; c < nc; ++c) tma_load_2d(sm.res_w + c * RES_W, &maps.kstd, sm.res_full, c * CW, s0);
         tma_load_3d(sm.res_h2, &maps.v, sm.res_full, h * DH, s0, b);
@@ -345,8 +353,8 @@ train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restri
             mbar_wait(sm.empty_bar(it), ((it / STAGES) & 1) ^ 1);
             mbar_arrive_expect_tx(bar, sm.stage_sz);
             tma_load_3d(stage, &maps.qu, bar, h * DH, t0, b);
-            for (int c = 0; c < nc; ++c) tma_load_3d(stage + T_H + c * T_W, &maps.qrot, bar, h * D + c * CW, t0, b);
-            tma_load_3d(stage + T_H + nc * T_W, &maps.d_o, bar, h * DH, t0, b);
+            for (int c = 0; c < nc; ++c) tma_load_3d(stage + N::RING + c * T_W, &maps.qrot, bar, h * D + c * CW, t0, b);
+            tma_load_3d(stage + N::RING + nc * T_W, &maps.d_o, bar, h * DH, t0, b);
         }
         return;
     }
@@ -356,18 +364,18 @@ train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restri
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
     const int cq = 2 * (lane % 4);
     const int key_a = s0 + wg * 64 + warp * 16 + lane / 4, key_b = key_a + 8;
-    const uint32_t my_h = sm.res_h + wg * WG_H, my_w = sm.res_w + wg * WG_W, my_v = sm.res_h2 + wg * WG_H;
+    const uint32_t my_h = sm.res_h + wg * N::WG, my_w = sm.res_w + wg * WG_W, my_v = sm.res_h2 + wg * N::WG;
     float* cols = reinterpret_cast<float*>(smem_raw + (sm.cols - smem_u32(smem_raw))) + wg * (2 * 3 * BKEY);
 
     const size_t at = ((size_t)b * H + h) * T, n_stats = (size_t)B * H * T;
     const uint32_t key = dropout_key(drop.seed, b, h, H);
     const float inv_keep_e = round_bf(drop.inv_keep);
 
-    float st[32], dpt[32], acc_k[16], acc_v[16];
+    float st[32], dpt[32], acc_k[DH / 2], acc_v[DH / 2];
 #pragma unroll
     for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc_k[i] = acc_v[i] = 0.0f;
+    for (int i = 0; i < DH / 2; ++i) acc_k[i] = acc_v[i] = 0.0f;
 
     mbar_wait(sm.res_full, 0);
 
@@ -388,7 +396,7 @@ train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restri
 
         mbar_wait(sm.full_bar(it), (it / STAGES) & 1);
         // S^T = [k | k_std] [q_u | q_rot]^T and dP^T = v dO^T
-        start_pair(st, dpt, my_h, my_w, RES_W, my_v, stage, stage + T_H, stage + T_H + nc * T_W, nc);
+        start_pair<DH>(st, dpt, my_h, my_w, RES_W, my_v, stage, stage + N::RING, stage + N::RING + nc * T_W, nc);
         wgmma_wait<0>();
         fence_regs(st);
         fence_regs(dpt);
@@ -428,8 +436,8 @@ train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restri
         fence_regs(acc_v);
         fence_regs(acc_k);
         wgmma_fence();
-        add_narrow(acc_v, pd, stage + T_H + nc * T_W);
-        add_narrow(acc_k, ds, stage);
+        add_head<DH>(acc_v, pd, stage + N::RING + nc * T_W);
+        add_head<DH>(acc_k, ds, stage);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc_v);
@@ -437,14 +445,15 @@ train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restri
         if (lane == 0) mbar_arrive(sm.empty_bar(it));
     }
 
-    store_o(acc_k, 1.0f, 1.0f, dk, (size_t)H * DH, b, T, key_a, h, cq);
-    store_o(acc_v, 1.0f, 1.0f, dv, (size_t)H * DH, b, T, key_a, h, cq);
+    store_o<DH>(acc_k, 1.0f, 1.0f, dk, (size_t)H * DH, b, T, key_a, h, cq);
+    store_o<DH>(acc_v, 1.0f, 1.0f, dv, (size_t)H * DH, b, T, key_a, h, cq);
 }
 
 // Tensor maps of one kernel: q_u, q_rot, dO in boxes of `rows_q` rows, k,
-// k_std, v in boxes of `rows_k` rows. All contiguous: (B, T, H * dh),
+// k_std, v in boxes of `rows_k` rows. All contiguous: (B, T, H * DH),
 // (B, T, H * D) and k_std (T, D); coordinates (column, t, b); rows past T read
 // as zeros.
+template <int DH>
 cudaError_t make_maps(Maps* m, const void* q_u, const void* q_rot, const void* k, const void* v,
                       const void* k_std, const void* d_out, int B, int T, int H, int D,
                       cuuint32_t rows_q, cuuint32_t rows_k) {
@@ -456,15 +465,13 @@ cudaError_t make_maps(Maps* m, const void* q_u, const void* q_rot, const void* k
     const cuuint64_t strides_s[1] = {(cuuint64_t)D * 2};
     const cuuint32_t box_hq[3] = {DH, rows_q, 1}, box_rq[3] = {(cuuint32_t)CW, rows_q, 1};
     const cuuint32_t box_hk[3] = {DH, rows_k, 1}, box_sk[2] = {(cuuint32_t)CW, rows_k};
-    cudaError_t err = tensor_map_bf16(&m->qu, q_u, 3, dims_h, strides_h, box_hq, CU_TENSOR_MAP_SWIZZLE_64B);
-    if (err == cudaSuccess)
-        err = tensor_map_bf16(&m->d_o, d_out, 3, dims_h, strides_h, box_hq, CU_TENSOR_MAP_SWIZZLE_64B);
+    constexpr CUtensorMapSwizzle SW = Head<DH>::MAP_SWIZZLE;
+    cudaError_t err = tensor_map_bf16(&m->qu, q_u, 3, dims_h, strides_h, box_hq, SW);
+    if (err == cudaSuccess) err = tensor_map_bf16(&m->d_o, d_out, 3, dims_h, strides_h, box_hq, SW);
     if (err == cudaSuccess)
         err = tensor_map_bf16(&m->qrot, q_rot, 3, dims_r, strides_r, box_rq, CU_TENSOR_MAP_SWIZZLE_128B);
-    if (err == cudaSuccess)
-        err = tensor_map_bf16(&m->k, k, 3, dims_h, strides_h, box_hk, CU_TENSOR_MAP_SWIZZLE_64B);
-    if (err == cudaSuccess)
-        err = tensor_map_bf16(&m->v, v, 3, dims_h, strides_h, box_hk, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err == cudaSuccess) err = tensor_map_bf16(&m->k, k, 3, dims_h, strides_h, box_hk, SW);
+    if (err == cudaSuccess) err = tensor_map_bf16(&m->v, v, 3, dims_h, strides_h, box_hk, SW);
     if (err == cudaSuccess)
         err = tensor_map_bf16(&m->kstd, k_std, 2, dims_s, strides_s, box_sk, CU_TENSOR_MAP_SWIZZLE_128B);
     return err;
@@ -473,9 +480,9 @@ cudaError_t make_maps(Maps* m, const void* q_u, const void* q_rot, const void* k
 // Give `kernel` its shared memory. The dq kernel's warpgroups re-divide the
 // block's registers, 2 x 240 + 24 a thread: the block must have been given
 // that many, or a consumer would wait for registers that never come.
-template <typename Kernel>
+template <int DH, typename Kernel>
 cudaError_t prepare(Kernel kernel, int nc, bool redivides_registers) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(nc));
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<DH>(nc));
     if (err != cudaSuccess || !redivides_registers) return err;
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, kernel);
@@ -486,28 +493,38 @@ cudaError_t prepare(Kernel kernel, int nc, bool redivides_registers) {
 
 }  // namespace
 
+template <int DH>
 int train_bwd_bf16(const void* q_u, const void* q_rot, const void* k, const void* v, const void* k_std,
                    const void* lengths, const void* d_out, const void* stats, void* delta, void* dq_u,
                    void* dq_rot, void* dk, void* dv, int B, int T, int H, int D, float scale,
                    DropoutArgs drop, cudaStream_t stream) {
-    if (!fa::supported(B, H, D)) return (int)cudaErrorInvalidValue;
     const int nc = D / CW;
+    if (!fa::supported<DH>(B, H, D) || nc > Narrow<DH>::MAX_CHUNKS || smem_bytes<DH>(nc) > MAX_SMEM)
+        return (int)cudaErrorInvalidValue;
     Maps maps_q, maps_k;
-    cudaError_t err = make_maps(&maps_q, q_u, q_rot, k, v, k_std, d_out, B, T, H, D, ROWS, BKEY);
-    if (err == cudaSuccess) err = make_maps(&maps_k, q_u, q_rot, k, v, k_std, d_out, B, T, H, D, BKEY, ROWS);
-    if (err == cudaSuccess) err = prepare(train_bwd_dq_bf16_kernel, nc, NWG > 1);
-    if (err == cudaSuccess) err = prepare(train_bwd_dkv_bf16_kernel, nc, false);
+    cudaError_t err = make_maps<DH>(&maps_q, q_u, q_rot, k, v, k_std, d_out, B, T, H, D, ROWS, BKEY);
+    if (err == cudaSuccess) err = make_maps<DH>(&maps_k, q_u, q_rot, k, v, k_std, d_out, B, T, H, D, BKEY, ROWS);
+    if (err == cudaSuccess) err = prepare<DH>(train_bwd_dq_bf16_kernel<DH>, nc, NWG > 1);
+    if (err == cudaSuccess) err = prepare<DH>(train_bwd_dkv_bf16_kernel<DH>, nc, false);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(ceil_div(T, ROWS), H, B);
-    train_bwd_dq_bf16_kernel<<<grid, THREADS, smem_bytes(nc), stream>>>(
+    train_bwd_dq_bf16_kernel<DH><<<grid, THREADS, smem_bytes<DH>(nc), stream>>>(
         maps_q, (const int*)lengths, (const float*)stats, (float*)delta, (bf16*)dq_u, (bf16*)dq_rot, B, T, H, D,
         scale, drop);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    train_bwd_dkv_bf16_kernel<<<grid, THREADS, smem_bytes(nc), stream>>>(
+    train_bwd_dkv_bf16_kernel<DH><<<grid, THREADS, smem_bytes<DH>(nc), stream>>>(
         maps_k, (const int*)lengths, (const float*)stats, (const float*)delta, (bf16*)dk, (bf16*)dv, B, T, H, D,
         scale, drop);
     return (int)cudaGetLastError();
 }
+
+#define INSTANTIATE(DH)                                                                                     \
+    template int train_bwd_bf16<DH>(const void*, const void*, const void*, const void*, const void*,        \
+                                    const void*, const void*, const void*, void*, void*, void*, void*, void*, \
+                                    int, int, int, int, float, DropoutArgs, cudaStream_t);
+INSTANTIATE(32)
+INSTANTIATE(64)
+#undef INSTANTIATE
 
 }  // namespace attn

@@ -10,7 +10,8 @@
 //
 // What bounds it on the H100: by the roofline, bytes (q_rot, B x T x H x D
 // bf16, is read once and nothing quadratic is written: 49 MB, 15 us at B=32,
-// T=250). In practice the score product has an inner width of dh + D = 288,
+// T=250). In practice the score product has an inner width of dh + D (288 at
+// the flagship's widths; head width dh = 32 or 64, a template parameter),
 // so the kernel lives or dies by how the tensor cores are fed, and after
 // that by the fp32 work on every score (mask, exp, divide, three hash
 // rounds), which no tensor core takes.
@@ -23,12 +24,12 @@
 //     layout wgmma reads, reported to an mbarrier: no thread spends a register
 //     or an instruction on a copy, and two tiles are in flight under every
 //     product. Rows past the sequence end come back as zeros.
-//   * S = Q K^T is 18 wgmma.m64n64k16 steps per warpgroup with both operands
+//   * S = Q K^T is (dh + D) / 16 wgmma.m64n64k16 steps per warpgroup with both operands
 //     in shared memory and the accumulator in registers. Mask, scale, row
 //     max and sum, exp, the bf16 rounding, the keep hash and the dropout
 //     scale all run on the accumulator fragment (a row lives in the four
 //     lanes of a quad: two shuffles per reduction). P goes to the second
-//     product as its register A operand (wgmma.m64n32k16, v as the
+//     product as its register A operand (wgmma.m64n{dh}k16, v as the
 //     transposed B operand), and O stays in registers until it is written
 //     once. Nothing but Q, K and V tiles touches shared memory.
 //   * There are two score fragments: the product of the next key tile is
@@ -50,12 +51,13 @@ namespace {
 
 using namespace fa;
 
+template <int DH>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 train_fwd_bf16_kernel(const __grid_constant__ Maps maps, const int* __restrict__ lengths,
                       bf16* __restrict__ out, float* __restrict__ stats, int B, int T, int H, int D,
                       float scale, DropoutArgs drop) {
     extern __shared__ unsigned char smem_raw[];
-    const Smem sm(smem_raw, D);
+    const Smem<DH> sm(smem_raw, D);
     const int nc = sm.nc;
     init_barriers(sm);
 
@@ -75,7 +77,7 @@ train_fwd_bf16_kernel(const __grid_constant__ Maps maps, const int* __restrict__
     const int row = wg * 64 + warp * 16 + lane / 4;  // this thread's rows: row, row + 8
     const int cq = 2 * (lane % 4);                   // and columns 8j + cq, 8j + cq + 1
     const int ta = t0 + row, tb = ta + 8;
-    const uint32_t my_qu = sm.qu + wg * WG_QH, my_qr = sm.qr + wg * (64 * CW * 2);
+    const uint32_t my_qu = sm.qu + wg * Head<DH>::WG_Q, my_qr = sm.qr + wg * (64 * CW * 2);
 
     mbar_wait(sm.q_full, 0);
 
@@ -84,18 +86,18 @@ train_fwd_bf16_kernel(const __grid_constant__ Maps maps, const int* __restrict__
     // the other of two accumulator fragments, so the tensor cores run under
     // the softmax instead of before it.
     const int n_tiles = (n_keys + BKEY - 1) / BKEY, n_steps = 2 * n_tiles;
-    float s_even[32], s_odd[32], o[16];
+    float s_even[32], s_odd[32], o[DH / 2];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s_even[i] = s_odd[i] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) o[i] = 0.0f;
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
     float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
     const uint32_t key = dropout_key(drop.seed, b, h, H);
     const float inv_keep_e = round_bf(drop.inv_keep);
 
     auto start = [&](float (&s)[32], int it) {
         mbar_wait(sm.full_bar(it), (it / STAGES) & 1);
-        start_scores(s, my_qu, my_qr, sm.stage(it), nc);
+        start_scores<DH>(s, my_qu, my_qr, sm.stage(it), nc);
     };
 
     // the fp32 work on step `it`, whose product is the oldest group in flight
@@ -168,7 +170,7 @@ train_fwd_bf16_kernel(const __grid_constant__ Maps maps, const int* __restrict__
             }
             pack_p(pd, j, p[0], p[1], p[2], p[3]);
         }
-        add_pv(o, pd, sm.v_tile(it));
+        add_pv<DH>(o, pd, sm.v_tile(it));
         if (lane == 0) mbar_arrive(sm.empty_bar(it));
     };
 
@@ -181,22 +183,31 @@ train_fwd_bf16_kernel(const __grid_constant__ Maps maps, const int* __restrict__
         consume(s_odd, it + 1, more);
     }
 
-    store_o(o, 1.0f, 1.0f, out, (size_t)H * DH, b, T, ta, h, cq);
+    store_o<DH>(o, 1.0f, 1.0f, out, (size_t)H * DH, b, T, ta, h, cq);
 }
 
 }  // namespace
 
+template <int DH>
 int train_fwd_bf16(const void* q_u, const void* q_rot, const void* k, const void* v,
                    const void* k_std, const void* lengths, void* out, void* stats, int B, int T,
                    int H, int D, float scale, DropoutArgs drop, cudaStream_t stream) {
-    if (!fa::supported(B, H, D)) return (int)cudaErrorInvalidValue;
+    if (!fa::supported<DH>(B, H, D)) return (int)cudaErrorInvalidValue;
     fa::Maps maps;
-    cudaError_t err = fa::make_maps(&maps, q_u, q_rot, k, v, k_std, B, T, H, D, H * DH);
-    if (err == cudaSuccess) err = fa::allow_smem(train_fwd_bf16_kernel, D);
+    cudaError_t err = fa::make_maps<DH>(&maps, q_u, q_rot, k, v, k_std, B, T, H, D, H * DH);
+    if (err == cudaSuccess) err = fa::allow_smem<DH>(train_fwd_bf16_kernel<DH>, D);
     if (err != cudaSuccess) return (int)err;
-    train_fwd_bf16_kernel<<<fa::grid(B, T, H), BLOCK_THREADS, fa::smem_bytes(D / fa::CW), stream>>>(
+    train_fwd_bf16_kernel<DH><<<fa::grid(B, T, H), BLOCK_THREADS, fa::smem_bytes<DH>(D / fa::CW), stream>>>(
         maps, (const int*)lengths, (bf16*)out, (float*)stats, B, T, H, D, scale, drop);
     return (int)cudaGetLastError();
 }
+
+#define INSTANTIATE(DH)                                                                              \
+    template int train_fwd_bf16<DH>(const void*, const void*, const void*, const void*, const void*, \
+                                    const void*, void*, void*, int, int, int, int, float, DropoutArgs, \
+                                    cudaStream_t);
+INSTANTIATE(32)
+INSTANTIATE(64)
+#undef INSTANTIATE
 
 }  // namespace attn

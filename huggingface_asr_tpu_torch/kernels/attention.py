@@ -5,19 +5,32 @@
     columns >= length := -1e9;  P = softmax in fp32, cast;  out = P v
 
 ``rel_attention`` has the JAX function's signature. On CUDA tensors it
-launches ``asr_rel_attention_shift`` (dh == 32; bf16 runs the wgmma + TMA kernel
-of ``csrc/rel_attention_shift_bf16.cu``, fp32 the exact FMA kernel of
+launches ``asr_rel_attention_shift`` (bf16 runs the wgmma + TMA kernel of
+``csrc/rel_attention_shift_bf16.cu``, fp32 the exact FMA kernel of
 ``csrc/rel_attention_shift.cu``) or raises; on CPU tensors it runs
-``rel_attention_plain_shift``. Inference only: no
-gradient is defined.
+``rel_attention_plain_shift``. The kernels are compiled for heads of 32 and
+64 columns: a head size of at most 64 is padded with zero columns to the
+next of the two, in copies of the five operands (a zero column adds an exact
+zero to every sum), the scale staying 1/sqrt(dh) of the true head size, and
+the output's true columns are returned. Inference only: no gradient is
+defined.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from huggingface_asr_tpu_torch.kernels import _build
+
+HEAD_WIDTHS = (32, 64)  # the head widths every attention kernel is compiled for
+
+
+def head_width(dh: int):
+    """The attention kernels' head width for head size ``dh``: the smallest of
+    ``HEAD_WIDTHS`` that holds it (zero columns pad the rest), None past 64."""
+    return next((w for w in HEAD_WIDTHS if dh <= w), None)
 
 NEG_INF = -1.0e9
 
@@ -45,15 +58,18 @@ def rel_attention(q_u, q_v, k, v, pos, lengths):
     dtype = q_u.dtype
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"rel_attention: bf16 or fp32 inputs, got {dtype}")
-    if dh != 32:
-        raise ValueError(f"rel_attention kernel needs dh == 32, got {dh}")
+    hw = head_width(dh)
+    if hw is None:
+        raise ValueError(f"rel_attention kernel takes head sizes of at most {HEAD_WIDTHS[-1]}, got {dh}")
     q_u, q_v, k, v, pos = (t.contiguous() for t in (q_u, q_v, k, v, pos))
     for name, t in (("q_u", q_u), ("q_v", q_v), ("k", k), ("v", v)):
         _build.check(t, name, dtype, (B, T, H, dh))
     _build.check(pos, "pos", dtype, (2 * T - 1, H, dh))
     _build.check(lengths, "lengths", torch.int32, (B,))
+    if hw != dh:
+        q_u, q_v, k, v, pos = (F.pad(t, (0, hw - dh)) for t in (q_u, q_v, k, v, pos))
     out = torch.empty_like(q_u)
     _build.launch("asr_rel_attention_shift", "pppppppiiiiif", q_u.data_ptr(), q_v.data_ptr(),
                   k.data_ptr(), v.data_ptr(), pos.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                  B, T, H, dh, int(dtype == torch.bfloat16), float(np.float32(1.0 / np.sqrt(dh))))
-    return out
+                  B, T, H, hw, int(dtype == torch.bfloat16), float(np.float32(1.0 / np.sqrt(dh))))
+    return out[..., :dh]

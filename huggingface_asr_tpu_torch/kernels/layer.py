@@ -17,6 +17,14 @@ to the plain version and a CUDA tensor to its kernel, and raises on anything
 the kernel does not take; nothing falls back. The plain layer
 (``ebranchformer_layer_plain``) runs the same sequence on the plain pieces.
 
+Head and q_rot widths: the attention kernels are compiled for heads of 32 and
+64 columns and read q_rot / k_std in whole 64-column chunks. The fold pads
+each head of another size (44 in the 176-wide configs) with zero columns to
+``head_width(dh)`` and the q_rot width D to ``rot_width(D)``, in the weights
+and the tables, so that every piece runs on the padded operands as they are.
+A zero column adds an exact zero to every fp32 sum: the layer's output is
+that of the unpadded layer (the scale keeps the true 1/sqrt(dh)).
+
 Numeric contract (each piece states its own rounding points; they are the
 TPU kernel's): bf16 activations between pieces, fp32 accumulation inside,
 LayerNorm with flax's fast variance, biases added in fp32 before the bf16
@@ -36,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from huggingface_asr_tpu_torch.kernels import _build
+from huggingface_asr_tpu_torch.kernels.attention import HEAD_WIDTHS, head_width
 from huggingface_asr_tpu_torch.models.ebranchformer import relpos_tables
 
 ACT_CODES = {"identity": 0, "gelu": 1, "gelu_new": 2, "relu": 3, "swish": 4, "silu": 4}
@@ -47,6 +56,14 @@ BF16, F32 = torch.bfloat16, torch.float32
 def _round(x: torch.Tensor) -> torch.Tensor:
     """Round float32 values to bf16 and back."""
     return x.to(BF16).to(F32)
+
+
+ROT_CHUNK = 64  # the attention kernels read q_rot and k_std in chunks of this many columns
+
+
+def rot_width(D: int) -> int:
+    """The q_rot / k_std width the attention kernels read: D in whole chunks."""
+    return -(-D // ROT_CHUNK) * ROT_CHUNK
 
 
 def act_plain(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -130,15 +147,16 @@ def _check_rows(t: torch.Tensor, name: str, shape) -> int:
 
 def gemm_contract(a, w, out=None, residual=None, bias2=None) -> None:
     """Raise unless the GEMM kernel takes these shapes, strides and base
-    addresses (whatever device the tensors lie on): N % 64 == 0, K % 32 == 0;
-    ``a`` (M, K), ``out`` and ``residual`` (M, N) with unit column stride, a
-    row stride divisible by 8 and a 16-byte aligned base, which is what the
-    kernel's TMA boxes and 16-byte stores need; ``len(bias2)`` a multiple of
-    8, at most N."""
+    addresses (whatever device the tensors lie on): N % 8 == 0, K % 8 == 0
+    (rows of 16 bytes; a last tile that is partly past N or K is the kernel's
+    edge tile); ``a`` (M, K), ``out`` and ``residual`` (M, N) with unit column
+    stride, a row stride divisible by 8 and a 16-byte aligned base, which is
+    what the kernel's TMA boxes and 16-byte stores need; ``len(bias2)`` a
+    multiple of 8, at most N."""
     M, K = a.shape
     N = w.shape[1]
-    if N % 64 or K % 32:
-        raise ValueError(f"gemm kernel needs N % 64 == 0 and K % 32 == 0, got N={N}, K={K}")
+    if N % 8 or K % 8:
+        raise ValueError(f"gemm kernel needs N % 8 == 0 and K % 8 == 0, got N={N}, K={K}")
     for name, t, shape in (("a", a, (M, K)), ("out", out, (M, N)), ("residual", residual, (M, N))):
         if t is None:
             continue
@@ -196,8 +214,10 @@ def gemm(a, w, bias=None, *, act="identity", residual=None, alpha=1.0, bias2=Non
 
 def pos_query_plain(q_v, wp_e, wp_o, rot_cos, rot_sin, T: int) -> torch.Tensor:
     """q_rot[m, h] = [cos*ce + sin*co, cos*co - sin*ce] with ce/co = q_v_h @
-    wp_e/wp_o[h] (fp32 accumulation), cos/sin at frame m % T. q_v: (M, D)
-    bf16; wp_e/wp_o: (H, dh, D/2) bf16; rot tables (T, D/2) bf16. -> (M, H, D) bf16."""
+    wp_e/wp_o[h] (fp32 accumulation), cos/sin at frame m % T. q_v: (M, H*dh)
+    bf16; wp_e/wp_o: (H, dh, D/2) bf16; rot tables (T, D/2) bf16. -> (M, H, D)
+    bf16. With the padded fold (zero rows and columns in wp_e/wp_o, zero
+    columns in the tables) the pad columns of q_rot come out as exact zeros."""
     M = q_v.shape[0]
     H, dh, half = wp_e.shape
     qv = q_v.to(F32).reshape(M, H, dh)
@@ -253,22 +273,24 @@ def rel_attention_plain(q_u, k, v, q_rot, k_std, lengths) -> torch.Tensor:
 
 def rel_attention_width_ok(D: int) -> bool:
     """The q_rot / k_std widths ``csrc/rel_attention.cu`` takes: whole 64-column
-    chunks, and a query tile plus three key stages within a block's shared memory."""
-    return D % 64 == 0 and 64 <= D <= 256
+    chunks, and a query tile plus three key stages within a block's shared
+    memory (at either head width)."""
+    return D % ROT_CHUNK == 0 and ROT_CHUNK <= D <= 256
 
 
 def rel_attention(q_u, k, v, q_rot, k_std, lengths) -> torch.Tensor:
     """``rel_attention_plain``; CUDA tensors run ``csrc/rel_attention.cu``
     (wgmma out of TMA-filled shared memory, one walk with an online softmax).
-    The kernel takes head size 32 and a q_rot width D that is a multiple of
-    64, at most 256; q_u, k, v may be column views of one (B*T, 3D) buffer,
-    which the kernel's tensor maps read in place."""
+    The kernel takes a head width of 32 or 64 and a q_rot width D that is a
+    multiple of 64, at most 256 (the layer passes the padded operands of
+    ``fold_layer_weights``); q_u, k, v may be column views of one (B*T, 3*H*dh)
+    buffer, which the kernel's tensor maps read in place."""
     if not _build.on_cuda(q_u, k, v, q_rot, k_std, lengths):
         return rel_attention_plain(q_u, k, v, q_rot, k_std, lengths)
     B, T, H, dh = q_u.shape
     D = q_rot.shape[-1]
-    if dh != 32:
-        raise ValueError(f"rel_attention kernel supports head size 32, got {dh}")
+    if dh not in HEAD_WIDTHS:
+        raise ValueError(f"rel_attention kernel takes head widths {HEAD_WIDTHS}, got {dh}")
     if not rel_attention_width_ok(D):
         raise ValueError(f"rel_attention kernel needs D % 64 == 0 and D <= 256, got {D}")
     ld = q_u.stride(1)
@@ -394,9 +416,12 @@ def merge_conv(x, w, bias, B: int, T: int, t_valid: int):
 
 
 def relpos_kernel_tables(T: int, D: int, device=None) -> Dict[str, torch.Tensor]:
-    """bf16 rotation tables (T, D/2) and the ascending sinusoid table
-    ``k_std = [sin | cos]`` (T, D), built in float64 like the JAX fold."""
-    cos, sin = (t.to(BF16) for t in relpos_tables(T, D))
+    """bf16 rotation tables (T, D_rot/2) and the ascending sinusoid table
+    ``k_std = [sin | cos]`` (T, D_rot), built in float64 like the JAX fold, at
+    the frequencies of D; with ``D_rot = rot_width(D)`` > D each half ends in
+    zero columns (the pad columns of q_rot meet zeros of k_std)."""
+    pad = (rot_width(D) - D) // 2
+    cos, sin = (F.pad(t, (0, pad)).to(BF16) for t in relpos_tables(T, D))
     return {
         "rot_cos": cos.to(device),
         "rot_sin": sin.to(device),
@@ -418,10 +443,25 @@ def fold_layer_weights(layer, cfg, device=None) -> Dict[str, torch.Tensor]:
     * the positional projection kept low rank per head, (H, dh, D/2), split
       into even (sin) and odd (cos) sinusoid channels, the sin half negated;
     * depthwise conv kernels as (K, C) bf16, their biases fp32.
+
+    Each head is padded with zero columns to ``head_width(dh)`` (HW) in W_q,
+    W_k, W_v and their biases, with zero rows in W_out and in the positional
+    projection, whose D/2 columns are padded to ``rot_width(D) / 2``; the
+    scale is that of the true dh. So ``w_qkv`` is (D, 3*H*HW), ``bq_v``
+    (H*HW,), ``wo`` (H*HW, D) and ``wp_e``/``wp_o`` (H, HW, rot_width(D)/2);
+    nothing changes where dh is 32 and D a multiple of 64.
     """
     D, H = cfg.hidden_size, cfg.num_attention_heads
     dh = D // H
+    hw, pad_rot = head_width(dh), (rot_width(D) - D) // 2
+    if hw is None:
+        raise ValueError(f"head size {dh}: the attention kernels take head sizes of at most {HEAD_WIDTHS[-1]}")
     inv = np.float32(np.log2(np.e) / np.sqrt(dh))
+
+    def heads(t, dim):
+        """Pad each head's dh entries along ``dim`` of ``t`` to hw with zeros."""
+        t = t.unflatten(dim, (H, dh))
+        return F.pad(t, [0, 0] * (t.ndim - dim - 2) + [0, hw - dh]).flatten(dim, dim + 1)
 
     def mat(lin):
         return lin.weight.detach().to(F32).t().contiguous().to(BF16)
@@ -442,13 +482,14 @@ def fold_layer_weights(layer, cfg, device=None) -> Dict[str, torch.Tensor]:
     bq_u = ((bq + att.pos_bias_u.detach().to(F32)).reshape(D) * inv)
     bq_v = ((bq + att.pos_bias_v.detach().to(F32)).reshape(D) * inv)
     wp_t = att.linear_pos.weight.detach().to(F32).t().reshape(D, H, dh).permute(1, 2, 0)
+    low_rank = lambda t: F.pad(t, (0, pad_rot, 0, hw - dh)).to(BF16)  # noqa: E731
     w = {
-        "w_qkv": torch.cat([wq.to(BF16), mat(att.linear_k), mat(att.linear_v)], dim=1),
-        "b_qkv": torch.cat([bq_u, vec(att.linear_k), vec(att.linear_v)]),
-        "bq_v": bq_v,
-        "wo": mat(att.linear_out), "bo": vec(att.linear_out),
-        "wp_e": (-wp_t[:, :, 0::2]).contiguous().to(BF16),
-        "wp_o": wp_t[:, :, 1::2].contiguous().to(BF16),
+        "w_qkv": torch.cat([heads(t, 1) for t in (wq.to(BF16), mat(att.linear_k), mat(att.linear_v))], dim=1),
+        "b_qkv": torch.cat([heads(t, 0) for t in (bq_u, vec(att.linear_k), vec(att.linear_v))]),
+        "bq_v": heads(bq_v, 0),
+        "wo": heads(mat(att.linear_out), 0), "bo": vec(att.linear_out),
+        "wp_e": low_rank(-wp_t[:, :, 0::2]),
+        "wp_o": low_rank(wp_t[:, :, 1::2]),
     }
     w["attn_ln_g"], w["attn_ln_b"] = ln(layer.self_attn_layer_norm)
     for ff in ("ff1", "ff2"):
@@ -484,7 +525,8 @@ KERNEL_OPS = types.SimpleNamespace(
 def _layer(x, lengths, w, cfg, t_valid, tables, ops):
     B, T, D = x.shape
     H = cfg.num_attention_heads
-    dh, M, eps, act = D // H, B * T, cfg.layer_norm_eps, cfg.hidden_act
+    M, eps, act = B * T, cfg.layer_norm_eps, cfg.hidden_act
+    hw, d_rot = w["wp_e"].shape[1], tables["k_std"].shape[1]  # the fold's padded widths
     xf = x.reshape(M, D)
 
     # macaron FF1: x += 0.5 * FF(LN(x))
@@ -497,11 +539,11 @@ def _layer(x, lengths, w, cfg, t_valid, tables, ops):
     g = ops.layer_norm(xf, w["attn_ln_g"], w["attn_ln_b"], eps)
     qkv, q_v = ops.gemm(g, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
     q_rot = ops.pos_query(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"], tables["rot_sin"], T)
-    heads = lambda i: qkv[:, i * D:(i + 1) * D].view(B, T, H, dh)
-    attn = ops.rel_attention(heads(0), heads(1), heads(2), q_rot.view(B, T, H, D),
+    heads = lambda i: qkv[:, i * H * hw:(i + 1) * H * hw].view(B, T, H, hw)
+    attn = ops.rel_attention(heads(0), heads(1), heads(2), q_rot.view(B, T, H, d_rot),
                              tables["k_std"], lengths)
     merged = torch.empty(M, 2 * D, dtype=BF16, device=x.device)
-    ops.gemm(attn.view(M, D), w["wo"], w["bo"], out=merged[:, :D])
+    ops.gemm(attn.view(M, H * hw), w["wo"], w["bo"], out=merged[:, :D])
 
     # cgMLP branch (channel_proj1 is always exact GELU)
     l = ops.layer_norm(xf, w["cg_ln_g"], w["cg_ln_b"], eps)

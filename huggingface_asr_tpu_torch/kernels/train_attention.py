@@ -13,6 +13,14 @@ passes (dq, then dk/dv; bf16: ``csrc/rel_attention_train_bwd.cu``, fp32:
 ``rel_attention_train_plain``. Nothing falls back: a CUDA tensor the kernels
 do not take raises. Gradients exist for q_u, q_rot, k and v only.
 
+The kernels are compiled for heads of 32 and 64 columns and read q_rot and
+k_std in whole 64-column (bf16) or 16-column (fp32) tiles. The Function pads
+other sizes with zero columns, in copies (q_u, k, v to the head width,
+q_rot and k_std to the tile width), launches the kernels on the copies and
+returns the gradients' true columns; the scale stays 1/sqrt(dh) of the true
+head size. A zero column adds an exact zero to every fp32 sum, and the keep
+mask is a function of (b, h, t, s) alone, so the padding changes no value.
+
 The dropout keep-mask is the counter hash of the JAX kernel's interpret
 branch (``_keep_mask``), a pure function of (seed, batch row, head, t, s, T),
 so the plain version, the kernels and ``rel_attention_train(...,
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from huggingface_asr_tpu_torch.kernels import _build
+from huggingface_asr_tpu_torch.kernels.attention import head_width
 
 NEG_INF = -1.0e9
 _M32 = 0xFFFFFFFF
@@ -127,36 +136,62 @@ def rel_attention_train_plain(q_u, q_rot, k, v, k_std, lengths, seed, dropout_ra
     return _PlainFunction.apply(q_u, q_rot, k, v, k_std, lengths, int(seed), float(dropout_rate))
 
 
+ACC_COLUMNS = 288  # the bf16 dq kernel's [dq_u | dq_rot] accumulator, in registers
+
+
+def padded_widths(dh: int, D: int, dtype: torch.dtype):
+    """(head width, q_rot width) the kernels run ``(dh, D)`` at in ``dtype``,
+    or None where they do not take it: a head of at most 64 columns, q_rot in
+    whole tiles of 64 (bf16) or 16 (fp32) columns, at most 256 of them, and in
+    bf16 the two together within the backward's register accumulator."""
+    hw = head_width(dh)
+    step = 64 if dtype == torch.bfloat16 else 16
+    d_rot = -(-D // step) * step
+    if dtype not in (torch.bfloat16, torch.float32) or hw is None or d_rot > 256:
+        return None
+    if dtype == torch.bfloat16 and hw + d_rot > ACC_COLUMNS:
+        return None
+    return hw, d_rot
+
+
 def _check_inputs(q_u, q_rot, k, v, k_std, lengths):
+    """Raise unless the kernels take these operands; return (B, T, H, dh, D,
+    head width, q_rot width)."""
     B, T, H, dh = q_u.shape
     D = q_rot.shape[-1]
     dtype = q_u.dtype
-    # head size 32; D a multiple of 16 (of 64 in bf16: the kernels load q_rot
-    # and k_std in 64-column tiles) and at most 256 (the backward's
-    # [dq_u | dq_rot] accumulator must fit in a thread's registers in bf16,
-    # in shared memory in fp32); bf16 or fp32
-    step = 64 if dtype == torch.bfloat16 else 16
-    if dh != 32 or D % step or D > 256 or dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"rel_attention_train kernels need dh == 32, D % {step} == 0, D <= 256 and bf16 or "
-                         f"fp32 inputs, got dh={dh}, D={D}, {dtype}; attention_impl='xla' selects the "
-                         f"plain attention")
+    widths = padded_widths(dh, D, dtype)
+    if widths is None:
+        raise ValueError(f"rel_attention_train kernels need bf16 or fp32 inputs, dh <= 64 and D <= 256 (in bf16 "
+                         f"also the padded dh + D <= {ACC_COLUMNS}), got dh={dh}, D={D}, {dtype}; "
+                         f"attention_impl='xla' selects the plain attention")
     _build.check(q_u, "q_u", dtype, (B, T, H, dh))
     _build.check(q_rot, "q_rot", dtype, (B, T, H, D))
     _build.check(k, "k", dtype, (B, T, H, dh))
     _build.check(v, "v", dtype, (B, T, H, dh))
     _build.check(k_std, "k_std", dtype, (T, D))
     _build.check(lengths, "lengths", torch.int32, (B,))
-    return B, T, H, dh, D
+    return (B, T, H, dh, D) + widths
+
+
+def _pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` (contiguous) with its last dimension padded with zeros to
+    ``width``: a copy, or ``t`` itself where it has that width."""
+    n = t.shape[-1]
+    return t if n == width else torch.nn.functional.pad(t, (0, width - n))
 
 
 class _KernelFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q_u, q_rot, k, v, k_std, lengths, seed, rate):
         q_u, q_rot, k, v, k_std = (t.contiguous() for t in (q_u, q_rot, k, v, k_std))
-        B, T, H, dh, D = _check_inputs(q_u, q_rot, k, v, k_std, lengths)
+        B, T, H, dh, D, hw, d_rot = _check_inputs(q_u, q_rot, k, v, k_std, lengths)
+        q_u, k, v = (_pad_last(t, hw) for t in (q_u, k, v))
+        q_rot, k_std = _pad_last(q_rot, d_rot), _pad_last(k_std, d_rot)
         out = torch.empty_like(q_u)
         stats = torch.empty(2, B, H, T, dtype=torch.float32, device=q_u.device)
-        ctx.tail = (B, T, H, dh, D, int(q_u.dtype == torch.bfloat16),
+        ctx.widths = (dh, D)
+        ctx.tail = (B, T, H, hw, d_rot, int(q_u.dtype == torch.bfloat16),
                     float(np.float32(1.0 / np.sqrt(dh))), seed & _M32, dropout_threshold(rate),
                     float(np.float32(1.0 / (1.0 - rate))) if rate > 0.0 else 1.0, int(rate > 0.0))
         _build.launch("asr_rel_attention_train_fwd", "ppppppppiiiiiifuufi",
@@ -164,14 +199,16 @@ class _KernelFunction(torch.autograd.Function):
                       k_std.data_ptr(), lengths.data_ptr(), out.data_ptr(), stats.data_ptr(),
                       *ctx.tail)
         ctx.save_for_backward(q_u, q_rot, k, v, k_std, lengths, stats)
-        return out
+        return out[..., :dh]
 
     @staticmethod
     def backward(ctx, d_out):
         q_u, q_rot, k, v, k_std, lengths, stats = ctx.saved_tensors
         B, T, H = ctx.tail[:3]
+        dh, D = ctx.widths
         d_out = d_out.contiguous()
-        _build.check(d_out, "d_out", q_u.dtype, tuple(q_u.shape))
+        _build.check(d_out, "d_out", q_u.dtype, (B, T, H, dh))
+        d_out = _pad_last(d_out, q_u.shape[-1])
         dq_u, dq_rot = torch.empty_like(q_u), torch.empty_like(q_rot)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         delta = torch.empty(B, H, T, dtype=torch.float32, device=q_u.device)
@@ -180,7 +217,8 @@ class _KernelFunction(torch.autograd.Function):
                       k_std.data_ptr(), lengths.data_ptr(), d_out.data_ptr(), stats.data_ptr(),
                       delta.data_ptr(), dq_u.data_ptr(), dq_rot.data_ptr(), dk.data_ptr(),
                       dv.data_ptr(), *ctx.tail)
-        return dq_u, dq_rot, dk, dv, None, None, None, None
+        return (dq_u[..., :dh], dq_rot[..., :D], dk[..., :dh], dv[..., :dh],
+                None, None, None, None)
 
 
 def rel_attention_train(q_u, q_rot, k, v, k_std, lengths, seed, dropout_rate=0.0):
@@ -189,9 +227,9 @@ def rel_attention_train(q_u, q_rot, k, v, k_std, lengths, seed, dropout_rate=0.0
     q_u, k, v: (B, T, H, dh); q_rot: (B, T, H, D) rotary-transformed
     positional query; k_std: (T, D) ascending sinusoid table (no gradient);
     lengths: (B,) int32 valid key counts; seed: int (int32 range); returns
-    (B, T, H, dh) in q_u's dtype. CUDA tensors run the kernels (dh == 32,
-    D <= 256, D % 64 == 0 in bf16 and D % 16 == 0 in fp32), CPU tensors the
-    plain version."""
+    (B, T, H, dh) in q_u's dtype. CUDA tensors run the kernels (dh <= 64,
+    D <= 256, each padded with zeros to what the kernels are compiled for:
+    ``padded_widths``), CPU tensors the plain version."""
     seed, rate = int(seed), float(dropout_rate)
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")

@@ -7,6 +7,11 @@
 plain tensor code — the JAX path computes those outside any kernel too.
 On CUDA tensors the kernels run; on CPU tensors their plain versions.
 
+Where K2 does not take the model's front end (any conv_dim other than
+(256, 256), as in the 176-wide configs), the model's own feature extractor
+and feature projection run in bf16 instead, as the JAX path runs its Flax
+modules, and the K1 layers follow as before.
+
 ``FusedCTC`` holds the folded kernel operands. They are folded once, from a
 loaded ``EBranchformerForCTC`` onto the target device; the relative-position
 tables are built once per padded length and cached.
@@ -14,10 +19,12 @@ tables are built once per padded length and cached.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional
 
 import torch
 
+from huggingface_asr_tpu_torch.kernels.attention import HEAD_WIDTHS, head_width
 from huggingface_asr_tpu_torch.kernels.layer import (
     ACT_CODES,
     ebranchformer_layer,
@@ -25,6 +32,7 @@ from huggingface_asr_tpu_torch.kernels.layer import (
     fold_layer_weights,
     rel_attention_width_ok,
     relpos_kernel_tables,
+    rot_width,
 )
 from huggingface_asr_tpu_torch.kernels.subsample import (
     conv_subsample,
@@ -60,10 +68,14 @@ def fused_encoder_refusal(cfg: EBranchformerConfig, dtype: torch.dtype) -> Optio
         (not cfg.csgu_use_linear_after_conv, "csgu_use_linear_after_conv is set"),
         (cfg.hidden_act in ACT_CODES, f"hidden_act {cfg.hidden_act!r} has no kernel form"),
         (cfg.csgu_activation in ACT_CODES, f"csgu_activation {cfg.csgu_activation!r} has no kernel form"),
-        (cfg.head_size == 32, f"head size {cfg.head_size} (the attention kernels take 32)"),
-        (rel_attention_width_ok(cfg.hidden_size),
-         f"hidden_size {cfg.hidden_size} (the attention kernels take a multiple of 64, at most 256)"),
-        (fits_subsample_kernel(cfg), "the conv subsampler is outside the subsampler kernel's support"),
+        (head_width(cfg.head_size) is not None,
+         f"head size {cfg.head_size} (the attention kernels take head sizes of at most {HEAD_WIDTHS[-1]})"),
+        (cfg.hidden_size % 8 == 0 and cfg.intermediate_size % 16 == 0,
+         f"hidden_size {cfg.hidden_size}, intermediate_size {cfg.intermediate_size} (the GEMM kernel takes "
+         f"multiples of 8 columns)"),
+        (rel_attention_width_ok(rot_width(cfg.hidden_size)),
+         f"hidden_size {cfg.hidden_size} (the attention kernels hold q_rot rows of at most 256 columns in "
+         f"shared memory; wider ones need q_rot streamed in chunks, which is not built)"),
         (dtype == torch.bfloat16, f"dtype {dtype} (the kernels run bfloat16)"),
     )
     return next((reason for ok, reason in checks if not ok), None)
@@ -85,7 +97,12 @@ class FusedCTC:
         self.device = resolve_device(device)
         w2v = model.wav2vec2
         with torch.no_grad():
-            self.subsample = fold_subsample_weights(w2v, cfg, self.device)
+            # K2's folded operands, or (where K2 does not take the front end)
+            # the model's own two front-end modules
+            self.subsample = fold_subsample_weights(w2v, cfg, self.device) if fits_subsample_kernel(cfg) else None
+            self.front_end = None if self.subsample is not None else (
+                copy.deepcopy(w2v.feature_extractor).to(self.device),
+                copy.deepcopy(w2v.feature_projection).to(self.device))
             self.layers = [fold_layer_weights(l, cfg, self.device) for l in w2v.encoder.layers]
             ln = w2v.encoder.layer_norm
             self.ln_g = ln.weight.detach().float().to(self.device)
@@ -104,16 +121,26 @@ class FusedCTC:
 
 
 def ctc_infer(fused: FusedCTC, input_features: torch.Tensor, input_lengths: torch.Tensor,
-              *, plain: bool = False) -> CTCOutput:
+              *, plain: bool = False, return_hidden: bool = False):
     """(B, T_in, num_fbanks) features + (B,) frame lengths -> bf16 CTC logits
     (B, T, V+1) and the CTC decode lengths. ``plain=True`` runs every
-    kernel's plain version, on any device."""
+    kernel's plain version, on any device. ``return_hidden=True`` returns
+    ``(output, hidden)`` with the post-final-LayerNorm bf16 hidden states
+    (B, T, D), as ``ctc_infer_fused(..., return_hidden=True)`` does."""
     cfg = fused.config
     T = int(feat_extract_output_frames(cfg, input_features.shape[1]))
     T_pad = _round_up(T, 8)
-    subsample = conv_subsample_plain if plain else conv_subsample
     layer = ebranchformer_layer_plain if plain else ebranchformer_layer
-    hidden = subsample(input_features, fused.subsample, cfg, T_pad)
+    if fused.subsample is not None:
+        subsample = conv_subsample_plain if plain else conv_subsample
+        hidden = subsample(input_features, fused.subsample, cfg, T_pad)
+    else:
+        # the model's conv front end and feature projection in bf16 (no
+        # kernel of its own), padded with zero frames to T_pad
+        extractor, projection = fused.front_end
+        with torch.no_grad():
+            hidden = projection(extractor(input_features.to(torch.bfloat16)))
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, T_pad - hidden.shape[1]))
 
     # Encoder masking uses the padded-conv frame count; the RETURNED lengths
     # the reference's unpadded formula (models/ebranchformer.py).
@@ -136,4 +163,5 @@ def ctc_infer(fused: FusedCTC, input_features: torch.Tensor, input_lengths: torc
     x = ((xf - mu) * torch.rsqrt(var + cfg.layer_norm_eps) * fused.ln_g + fused.ln_b)
     x = x.to(torch.bfloat16)[:, :T]
     logits = (x.float() @ fused.heads_w + fused.heads_b).to(torch.bfloat16)
-    return CTCOutput(logits=logits, logit_lengths=out_lengths.to(torch.int32))
+    out = CTCOutput(logits=logits, logit_lengths=out_lengths.to(torch.int32))
+    return (out, x) if return_hidden else out

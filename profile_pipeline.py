@@ -3,9 +3,13 @@ one NVIDIA GPU.
 
     python3 profile_pipeline.py [--batches 1,8,32,128] [--seconds 10]
                                 [--requests 20] [--profile 8,128] [--out FILE]
+                                [--config FILE]
 
 Loads the flagship E-Branchformer CTC with seeded random weights (the model
-``chip_smoke.py`` serves) through ``ASRPipeline(device="cuda")``. For each batch
+``chip_smoke.py`` serves), or with ``--config`` a shipped config under
+configs/ (e.g. ebranchformer_small_ctc.json, the 176-wide model, which runs
+the model's own conv front end before the K1 layers), through
+``ASRPipeline(device="cuda")``. For each batch
 size B it makes B seeded synthetic utterances of 93-100 % of ``--seconds``
 (all in one length bucket), answers 3 warm-up requests, then times
 ``--requests`` requests on the host clock, profiler off; each request ends
@@ -32,7 +36,7 @@ import time
 
 import numpy as np
 
-from chip_smoke import ROOT, flagship_model, speech
+from chip_smoke import ROOT, config_file, flagship_model, seeded_model, speech
 
 GROUPS = (  # (group, substring of the demangled kernel name), first match wins
     ("conv2", "conv2_kernel"),
@@ -47,12 +51,14 @@ GROUPS = (  # (group, substring of the demangled kernel name), first match wins
     ("cmvn", "cmvn_kernel"),
     ("memcpy HtoD", "Memcpy HtoD"),
     ("memcpy DtoH", "Memcpy DtoH"),
+    ("cuDNN / cuBLAS (a front end the subsampler kernel does not take, heads)",
+     ("xmma", "nvjet", "cutlass", "cudnn", "convolve", "gemv", "gemmSN", "gemmk")),
 )
 
 
 def _group(name: str) -> str:
-    for group, key in GROUPS:
-        if key in name:
+    for group, keys in GROUPS:
+        if any(k in name for k in ((keys,) if isinstance(keys, str) else keys)):
             return group
     return "torch ops (masking, final LN, heads, decode)"
 
@@ -121,6 +127,7 @@ def main() -> None:
     ap.add_argument("--profile", default="8,128")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile_pipeline.json"))
+    ap.add_argument("--config", default=None, help="a config file under configs/ instead of the flagship")
     args = ap.parse_args()
 
     import torch
@@ -135,7 +142,8 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     model_dir = os.path.join(ROOT, "build", "profile_model")
-    save_params(flagship_model(args.seed), model_dir)
+    save_params(seeded_model(config_file(args.config), args.seed) if args.config else flagship_model(args.seed),
+                model_dir)
 
     class PieceTable:
         def decode(self, ids, skip_special_tokens=True):
@@ -145,7 +153,7 @@ def main() -> None:
     if not pipe._use_fused:
         sys.exit("the pipeline did not select the kernel path")
     rng = np.random.default_rng(args.seed)
-    result = {"device": smi, "torch": torch.__version__, "seconds": args.seconds,
+    result = {"device": smi, "torch": torch.__version__, "seconds": args.seconds, "config": args.config or "flagship",
               "latency": [], "profile": []}
     for B in [int(b) for b in args.batches.split(",") if b]:
         r = latency(pipe, _audios(B, args.seconds, rng), args.requests)

@@ -1,10 +1,12 @@
 """Profile the PyTorch/CUDA port's training step on one NVIDIA GPU.
 
-    python3 profile_train.py
+    python3 profile_train.py [--config FILE]
 
 Builds the flagship trainer of ``chip_smoke.py`` at that script's shape
 (``training_setup``: B=32 seeded synthetic utterances of 9.3-10 s, bf16 over
-fp32 parameters, attention kernels selected, SpecAugment on), warms up two
+fp32 parameters, attention kernels selected, SpecAugment on), or with
+``--config`` the trainer of a shipped config under configs/ (its own
+attention_impl, "auto" in the files: the kernels on the card), warms up two
 steps, then:
 
 1. times 3 steps with CUDA events (median), and reads the peak allocated
@@ -24,6 +26,8 @@ numbers. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -60,15 +64,19 @@ def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default=None, help="a config file under configs/ instead of the flagship")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is false", file=sys.stderr)
         sys.exit(1)
-    from chip_smoke import training_setup
+    from chip_smoke import config_file, training_setup
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     n = 2 + 2 * STEPS
-    trainer, batches = training_setup(seed=0, batch_size=BATCH, n_batches=n)
+    cfg = config_file(args.config) if args.config else None
+    trainer, batches = training_setup(seed=0, batch_size=BATCH, n_batches=n, cfg=cfg)
     state = trainer.init_state()
     for b in batches[:2]:
         state, _ = trainer.train_step(state, b)
@@ -96,6 +104,11 @@ def main() -> None:
             by_group[group_of(ev.name)] = by_group.get(group_of(ev.name), 0.0) + dur
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + dur
     # evaluation: the plain model with the shift-form inference attention kernel
+    if cfg is not None:  # the trained weights in a model whose attention_impl is "pallas"
+        evaluator, _ = training_setup(seed=0, batch_size=BATCH, n_batches=0,
+                                      cfg=dataclasses.replace(cfg, attention_impl="pallas"))
+        evaluator.model.load_state_dict(state.model.state_dict())
+        trainer, state = evaluator, evaluator.init_state()
     trainer.eval_step(state, batches[0])
     torch.cuda.synchronize()
     eval_ms = []
@@ -123,7 +136,7 @@ def main() -> None:
     per_step = {k: v / STEPS for k, v in sorted(by_group.items(), key=lambda kv: -kv[1])}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:30]
     result = {
-        "card": smi, "batch": BATCH, "seconds_of_audio": 10.0, "steps_timed": STEPS,
+        "card": smi, "config": args.config or "flagship", "batch": BATCH, "seconds_of_audio": 10.0, "steps_timed": STEPS,
         "step_ms_median": float(np.median(times)), "step_ms_all": times,
         "peak_memory_gib": peak, "loss_last": float(m["loss"]),
         "device_ms_per_step_by_group": per_step,

@@ -12,6 +12,7 @@ the scale); chains of pieces (a layer, the subsampler, the model) 0.05 of the
 scale, as the JAX package holds its Pallas path to its XLA path.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -247,15 +248,15 @@ def test_dwconv_refusals_on_the_card():
 
 
 def test_pipeline_logs_why_the_fused_path_is_refused(tmp_path, caplog):
-    """A config outside the fused path (head size 44) serves through the plain
-    model on the card, and the pipeline says why in one line."""
+    """A config outside the fused path (head size 128) serves through the
+    plain model on the card, and the pipeline says why in one line."""
     import logging
 
     from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
     from huggingface_asr_tpu_torch.training.model_factory import save_params
 
     _cuda()
-    cfg = EBranchformerConfig(hidden_size=176, num_hidden_layers=1, num_attention_heads=4, intermediate_size=352,
+    cfg = EBranchformerConfig(hidden_size=128, num_hidden_layers=1, num_attention_heads=1, intermediate_size=256,
                               csgu_kernel_size=7, merge_conv_kernel=7, vocab_size=20)
     save_params(init_random_(EBranchformerForCTC(cfg).eval(), torch.Generator().manual_seed(0)), str(tmp_path))
 
@@ -267,8 +268,8 @@ def test_pipeline_logs_why_the_fused_path_is_refused(tmp_path, caplog):
         pipe = ASRPipeline(str(tmp_path), device="cuda", tokenizer=Ids())
     assert not pipe._use_fused
     lines = [r.getMessage() for r in caplog.records if r.name == "huggingface_asr_tpu_torch.serving.pipeline"]
-    assert lines == ["serving through the plain model, not the fused kernels: head size 44 (the attention kernels "
-                     "take 32)"]
+    assert lines == ["serving through the plain model, not the fused kernels: head size 128 (the attention kernels "
+                     "take head sizes of at most 64)"]
     assert isinstance(pipe(np.zeros(16000, np.float32)), str)
 
 
@@ -460,10 +461,9 @@ def test_layer_rel_attention_on_strided_views(B, T, H, D, lens):
 
 @pytest.mark.parametrize("D", [48, 96, 320])
 def test_layer_rel_attention_raises_on_widths_it_does_not_take(D):
-    """D must be whole 64-column chunks and fit a block's shared memory; such a
-    config is also kept off the fused path."""
-    import dataclasses
-
+    """D must be whole 64-column chunks and fit a block's shared memory. A
+    config whose width rounds up to at most 256 takes the fused path on the
+    fold's padded operands (96 -> 128); one past 256 (320) is kept off it."""
     from huggingface_asr_tpu_torch.models.fast_infer import fused_encoder_ok
 
     dev = _cuda()
@@ -475,18 +475,16 @@ def test_layer_rel_attention_raises_on_widths_it_does_not_take(D):
     assert dict(_build.LAUNCHES) == before
     if D % 32 == 0:
         cfg = dataclasses.replace(CFG, hidden_size=D, num_attention_heads=D // 32, conv_dim=(256, 256))
-        assert cfg.head_size == 32 and not fused_encoder_ok(cfg, torch.bfloat16)
+        assert cfg.head_size == 32 and fused_encoder_ok(cfg, torch.bfloat16) == (K1.rot_width(D) <= 256)
         assert fused_encoder_ok(dataclasses.replace(cfg, hidden_size=128, num_attention_heads=4), torch.bfloat16)
 
 
 @pytest.mark.parametrize("impl,heads,launched", [("auto", 4, True), ("pallas", 4, True), ("xla", 4, False),
-                                                 ("auto", 2, None), ("pallas", 2, None)])
+                                                 ("auto", 1, None), ("pallas", 1, None)])
 def test_model_attention_dispatch_on_the_card(impl, heads, launched):
     """Training forward on CUDA tensors: "auto" and "pallas" take the kernel,
-    and raise on a model the kernel does not take (head size 64 here); only
+    and raise on a model the kernel does not take (head size 128 here); only
     "xla" runs the plain attention."""
-    import dataclasses
-
     from huggingface_asr_tpu_torch.models.ebranchformer import DropoutRng
 
     dev = _cuda()
@@ -508,12 +506,14 @@ def test_attention_wrappers_raise_on_what_the_kernels_do_not_take():
     dev = _cuda()
     z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16, device=dev)  # noqa: E731
     lengths = torch.tensor([8], dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):  # dh != 32
-        rel_attention_train(z(1, 8, 2, 16), z(1, 8, 2, 64), z(1, 8, 2, 16), z(1, 8, 2, 16), z(8, 64),
+    with pytest.raises(ValueError):  # a head past 64 columns (16 and 44 are padded)
+        rel_attention_train(z(1, 8, 2, 96), z(1, 8, 2, 64), z(1, 8, 2, 96), z(1, 8, 2, 96), z(8, 64),
                             lengths, 0, 0.0)
-    with pytest.raises(ValueError):  # bf16 forward: D not a multiple of its 64-column tiles
-        rel_attention_train(z(1, 8, 2, 32), z(1, 8, 2, 48), z(1, 8, 2, 32), z(1, 8, 2, 32), z(8, 48),
+    with pytest.raises(ValueError):  # q_rot past 256 columns (48 is padded to 64)
+        rel_attention_train(z(1, 8, 2, 32), z(1, 8, 2, 320), z(1, 8, 2, 32), z(1, 8, 2, 32), z(8, 320),
                             lengths, 0, 0.0)
+    with pytest.raises(ValueError):  # the shift form: a head past 64 columns
+        rel_attention(z(1, 8, 2, 96), z(1, 8, 2, 96), z(1, 8, 2, 96), z(1, 8, 2, 96), z(15, 2, 96), lengths)
     with pytest.raises(ValueError):  # lengths on the CPU
         rel_attention(z(1, 8, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, 32), z(15, 2, 32),
                       lengths.cpu())
@@ -529,12 +529,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
         K1.layer_norm(torch.zeros(8, 64, device=dev), g, b, 1e-5)  # fp32 rows
     with pytest.raises(ValueError):
         K1.gemm(torch.zeros(8, 64, dtype=torch.bfloat16, device=dev),
-                torch.zeros(64, 40, dtype=torch.bfloat16, device=dev))  # N % 64
+                torch.zeros(64, 36, dtype=torch.bfloat16, device=dev))  # N % 8
     with pytest.raises(ValueError):
         K1.layer_norm(torch.zeros(8, 64, dtype=torch.bfloat16, device=dev), g.cpu(), b, 1e-5)
     z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16, device=dev)  # noqa: E731
     refused = [
-        dict(a=z(8, 48), w=z(48, 64)),                              # K % 32
+        dict(a=z(8, 44), w=z(44, 64)),                              # K % 8
         dict(a=z(8, 68)[:, :64], w=z(64, 64)),                      # a's row stride
         dict(a=z(8, 72)[:, 4:68], w=z(64, 64)),                     # a's base address
         dict(a=z(8, 64), w=z(64, 64), out=z(8, 72)[:, 4:68]),       # out's base address
@@ -575,3 +575,198 @@ def test_port_modules_import_nothing_of_jax():
     res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=300,
                          cwd=repo, env=env)
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
+
+
+# ---- the 176-wide configs: head size 44 (padded to 64 columns), q_rot width
+# 176 (padded to 192), the GEMM's edge tiles at N = 176 and K = 176, and K1
+# behind the model's own conv front end (conv_dim (176, 176))
+
+NARROW = EBranchformerConfig(
+    hidden_size=176, num_hidden_layers=2, num_attention_heads=4, intermediate_size=704, conv_dim=(176, 176),
+    vocab_size=50,
+)
+
+
+@pytest.fixture(scope="module")
+def narrow():
+    model = init_random_(EBranchformerForCTC(NARROW).eval(), torch.Generator().manual_seed(7))
+    return model, FusedCTC(model, "cuda") if torch.cuda.is_available() else None
+
+
+@pytest.mark.parametrize("B,T,t_valid,lens", [(3, 72, 70, [70, 1, 0]), (8, 256, 250, [250, 200, 1, 0, 64, 65, 128, 3])])
+def test_layer_pieces_and_layer_at_head_size_44(narrow, B, T, t_valid, lens):
+    """Every piece of a 176-wide layer on the fold's padded operands, and the
+    whole layer, against their plain versions; q_rot's pad columns are zeros
+    the kernel wrote, and the attention output's pad columns are zero."""
+    dev = _cuda()
+    _, fm = narrow
+    w, D, H = fm.layers[0], NARROW.hidden_size, NARROW.num_attention_heads
+    hw, d_rot = w["wp_e"].shape[1], K1.rot_width(D)
+    assert (hw, d_rot) == (64, 192)
+    g = torch.Generator().manual_seed(B + T)
+    x = torch.randn(B, T, D, generator=g).bfloat16().to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tables = fm.tables(T)
+    xf = x.view(B * T, D)
+    qkv, q_v = K1.gemm(xf, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])  # K = 176
+    ref_qkv, ref_q_v = K1.gemm_plain(xf, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
+    _close(qkv, ref_qkv, 2 ** -6)
+    _close(q_v, ref_q_v, 2 ** -6)
+    q_rot = K1.pos_query(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"], tables["rot_sin"], T)
+    pad = (d_rot - D) // 2
+    assert not q_rot[..., D // 2:D // 2 + pad].any() and not q_rot[..., d_rot - pad:].any()
+    _close(q_rot, K1.pos_query_plain(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"], tables["rot_sin"], T), 2 ** -7)
+    hv = lambda i: qkv[:, i * H * hw:(i + 1) * H * hw].view(B, T, H, hw)  # noqa: E731
+    args = (hv(0), hv(1), hv(2), q_rot.view(B, T, H, d_rot), tables["k_std"], lengths)
+    _build.reset_launch_counts()
+    attn = K1.rel_attention(*args)
+    assert _build.LAUNCHES["asr_rel_attention"] == 1 and attn.shape == (B, T, H, hw)
+    _close(attn, K1.rel_attention_plain(*args), 2 ** -6)
+    assert not attn[..., 44:].any()
+    # the out projection (K = 256, N = 176) and cg_w2 (K = 352, N = 176) into
+    # the two halves of `merged`, 352 bytes apart, with guard rows after them
+    merged = torch.full((B * T + 8, 2 * D), 7.0, dtype=torch.bfloat16, device=dev)
+    K1.gemm(attn.view(B * T, H * hw), w["wo"], w["bo"], out=merged[:B * T, :D])
+    assert bool((merged[:B * T, D:] == 7.0).all())
+    gated = torch.randn(B * T, NARROW.intermediate_size // 2, generator=g).bfloat16().to(dev)
+    K1.gemm(gated, w["cg_w2"], w["cg_b2"], out=merged[:B * T, D:])
+    assert bool((merged[B * T:] == 7.0).all())
+    _close(merged[:B * T, :D], K1.gemm_plain(attn.view(B * T, H * hw), w["wo"], w["bo"]), 2 ** -6)
+    _close(merged[:B * T, D:], K1.gemm_plain(gated, w["cg_w2"], w["cg_b2"]), 2 ** -6)
+    _close(K1.ebranchformer_layer(x, lengths, w, NARROW, t_valid, tables),
+           K1.ebranchformer_layer_plain(x, lengths, w, NARROW, t_valid, tables), 0.05)
+
+
+@pytest.mark.parametrize("M", [56, 2048, 32768])
+def test_gemm_edge_tiles_at_176(M):
+    """N = 176 and K = 176 (and K = 704, 352) in both tile kernels (M = 56 and
+    2,048 take the small tile, 32,768 the large one), every epilogue, into a
+    column slice of a buffer whose other columns and rows past M must stay
+    untouched."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(M)
+    mk = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dev)  # noqa: E731
+    for K, N, kw in ((176, 704, dict(act="gelu")), (704, 176, dict(residual=True)), (176, 528, dict(dual=True)),
+                     (352, 176, dict()), (176, 176, dict(act="swish"))):
+        a, wt, bias = mk(M, K).bfloat16(), mk(K, N, scale=K ** -0.5).bfloat16(), mk(N, scale=0.1)
+        extra = {}
+        if kw.get("act"):
+            extra["act"] = kw["act"]
+        if kw.get("residual"):
+            extra.update(residual=mk(M, N).bfloat16(), alpha=0.5)
+        if kw.get("dual"):
+            extra["bias2"] = mk(176, scale=0.1)
+        guard = torch.full((M + 8, N + 64), 7.0, dtype=torch.bfloat16, device=dev)
+        got = K1.gemm(a, wt, bias, out=guard[:M, 32:32 + N], **extra)
+        ref = K1.gemm_plain(a, wt, bias, **extra)
+        torch.cuda.synchronize()
+        if kw.get("dual"):
+            _close(got[1], ref[1], 2 ** -6)
+            got, ref = got[0], ref[0]
+        _close(got, ref, 2 ** -6)
+        assert bool((guard[:, :32] == 7.0).all()) and bool((guard[:, 32 + N:] == 7.0).all()), (K, N)
+        assert bool((guard[M:] == 7.0).all()), (K, N)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T,lens", [(250, [250, 1, 0, 167]), (333, [333, 1, 0, 200])])
+def test_train_attention_at_head_size_44(dtype, rate, T, lens):
+    """K4 forward and all four gradients at dh 44 and D 176 (the wrapper pads
+    to 64 and 192 in bf16, to 64 and 176 in fp32) against the plain version on
+    the unpadded operands."""
+    dev = _cuda()
+    B, H, dh, D = len(lens), 4, 44, 176
+    g = torch.Generator().manual_seed(T)
+    mk = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dtype).to(dev)  # noqa: E731
+    q_u, q_rot, k, v, k_std, cot = (mk(B, T, H, dh), mk(B, T, H, D, scale=0.25), mk(B, T, H, dh), mk(B, T, H, dh),
+                                    mk(T, D), mk(B, T, H, dh))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q_u, q_rot, k, v)]
+        out = fn(*leaves, k_std, lengths, 4242, rate)
+        out.backward(cot)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    _build.reset_launch_counts()
+    got = run(rel_attention_train)
+    assert _build.LAUNCHES["asr_rel_attention_train_fwd"] == 1 and _build.LAUNCHES["asr_rel_attention_train_bwd"] == 1
+    ref = run(rel_attention_train_plain)
+    for name, gt, r in zip(("out", "dq_u", "dq_rot", "dk", "dv"), got, ref):
+        assert gt.dtype == dtype and gt.shape == r.shape, name
+        _close(gt, r, ATT_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,lens", [(70, [70, 33, 0]), (250, [250, 1, 0, 200])])
+def test_shift_attention_at_head_size_44(dtype, T, lens):
+    dev = _cuda()
+    B, H, dh = len(lens), 4, 44
+    g = torch.Generator().manual_seed(T)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dtype).to(dev)  # noqa: E731
+    args = (mk(B, T, H, dh), mk(B, T, H, dh), mk(B, T, H, dh), mk(B, T, H, dh), mk(2 * T - 1, H, dh),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+    _build.reset_launch_counts()
+    got = rel_attention(*args)
+    assert _build.LAUNCHES["asr_rel_attention_shift"] == 1 and got.shape == (B, T, H, dh)
+    _close(got, rel_attention_plain_shift(*args), ATT_TOL[dtype])
+
+
+def test_ctc_infer_behind_the_model_front_end(narrow):
+    """A 176-wide model: the model's conv front end in bf16, then the K1
+    layers, against the plain path; each layer launches its attention and
+    positional query once and both convs once."""
+    dev = _cuda()
+    _, fm = narrow
+    feats = torch.randn(3, 300, 80, generator=torch.Generator().manual_seed(8)).to(dev)
+    lens = torch.tensor([300, 1, 0], dtype=torch.int32, device=dev)
+    _build.reset_launch_counts()
+    got, hidden = ctc_infer(fm, feats, lens, return_hidden=True)
+    n = NARROW.num_hidden_layers
+    assert all(_build.LAUNCHES[k] == n for k in ("asr_rel_attention", "asr_pos_query", "dwconv_csgu", "dwconv_merge"))
+    assert _build.LAUNCHES["asr_conv1"] == 0 and hidden.shape == (3, got.logits.shape[1], NARROW.hidden_size)
+    ref = ctc_infer(fm, feats, lens, plain=True)
+    assert torch.equal(got.logit_lengths, ref.logit_lengths)
+    _close(got.logits, ref.logits, 0.05)
+
+
+def test_pipeline_serves_a_176_wide_model_through_the_kernels(narrow, tmp_path):
+    from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
+    from huggingface_asr_tpu_torch.training.model_factory import save_params
+
+    _cuda()
+    save_params(narrow[0], str(tmp_path))
+
+    class Ids:
+        def decode(self, ids, skip_special_tokens=True):
+            return " ".join(map(str, ids))
+
+    pipe = ASRPipeline(str(tmp_path), device="cuda", tokenizer=Ids())
+    assert pipe._use_fused
+    _build.reset_launch_counts()
+    texts = pipe([np.zeros(16000, np.float32), np.ones(24000, np.float32) * 0.01])
+    assert len(texts) == 2 and _build.LAUNCHES["asr_rel_attention"] == NARROW.num_hidden_layers
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_training_step_of_a_176_wide_model_takes_the_kernels(impl):
+    """The config default "auto" trains a 176-wide model on K4 (it raised
+    before): a training forward and backward with the CTC loss launch the
+    forward and backward kernels once per layer; the gradients are finite."""
+    from huggingface_asr_tpu_torch.models.ebranchformer import DropoutRng
+
+    dev = _cuda()
+    cfg = dataclasses.replace(NARROW, attention_impl=impl, attention_dropout=0.1)
+    model = init_random_(EBranchformerForCTC(cfg), torch.Generator().manual_seed(0)).to(dev)
+    feats = torch.randn(2, 200, 80, generator=torch.Generator().manual_seed(1)).to(dev)
+    lens = torch.tensor([200, 120], dtype=torch.int32, device=dev)
+    labels = torch.randint(0, 50, (2, 12), generator=torch.Generator().manual_seed(2)).to(dev)
+    label_lens = torch.tensor([12, 7], dtype=torch.int32, device=dev)
+    _build.reset_launch_counts()
+    out = model(feats.bfloat16(), lens, labels, label_lens, rng=DropoutRng(0, dev))
+    out.loss.backward()
+    n = cfg.num_hidden_layers
+    assert _build.LAUNCHES["asr_rel_attention_train_fwd"] == n and _build.LAUNCHES["asr_rel_attention_train_bwd"] == n
+    assert bool(torch.isfinite(out.loss)) and all(bool(torch.isfinite(p.grad).all())
+                                                 for p in model.parameters() if p.grad is not None)

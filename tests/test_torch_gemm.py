@@ -146,10 +146,10 @@ def _refusal_case(name):
     a = torch.zeros(16, 64, dtype=torch.bfloat16)
     w = torch.zeros(64, 128, dtype=torch.bfloat16)
     out = res = bias2 = None
-    if name == "N % 64":
-        w = torch.zeros(64, 96, dtype=torch.bfloat16)
-    elif name == "K % 32":
-        a, w = torch.zeros(16, 48, dtype=torch.bfloat16), torch.zeros(48, 128, dtype=torch.bfloat16)
+    if name == "N % 8":
+        w = torch.zeros(64, 100, dtype=torch.bfloat16)
+    elif name == "K % 8":
+        a, w = torch.zeros(16, 44, dtype=torch.bfloat16), torch.zeros(44, 128, dtype=torch.bfloat16)
     elif name == "a row stride":
         a = torch.zeros(16, 68, dtype=torch.bfloat16)[:, :64]
     elif name == "a column stride":
@@ -174,7 +174,7 @@ def _refusal_case(name):
 
 
 @pytest.mark.parametrize("name", [
-    "N % 64", "K % 32", "a row stride", "a column stride", "a base", "out base", "out row stride",
+    "N % 8", "K % 8", "a row stride", "a column stride", "a base", "out base", "out row stride",
     "out shape", "residual row stride", "residual base", "bias2 % 8", "bias2 > N",
 ])
 def test_contract_refuses(name):
@@ -191,7 +191,8 @@ def test_contract_takes_the_layers_calls():
 
 
 # What ``fused_encoder_ok`` said of every file under configs/ before the GEMM
-# moved to wgmma + TMA: the kernel's shape contract did not narrow.
+# moved to wgmma + TMA: no file may lose the fused path as the kernel's shape
+# contract changes.
 FUSED_BEFORE = {  # (an encoder-decoder file is judged by its encoder)
     "decred_base.json": True, "decred_small.json": False, "ebranchformer_30m_ssl.json": True,
     "ebranchformer_90m_ssl.json": False, "ebranchformer_base_ctc.json": True,
@@ -210,7 +211,7 @@ def test_configs_keep_the_fused_path(name):
         d = json.load(f)
     cfg = EBranchformerConfig.from_dict(d.get("encoder", d))
     ok = fused_encoder_ok(cfg, torch.bfloat16)
-    assert ok == FUSED_BEFORE[name]
+    assert ok or not FUSED_BEFORE[name]
     if ok:
         # every product of the layer and the subsampler is inside the GEMM's contract
         D, I = cfg.hidden_size, cfg.intermediate_size

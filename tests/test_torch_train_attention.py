@@ -165,11 +165,15 @@ def test_bad_rate_raises():
 
 
 @pytest.mark.parametrize("dh,D,dtype", [(64, 256, torch.bfloat16), (32, 512, torch.bfloat16),
-                                        (32, 40, torch.float32), (32, 256, torch.float16),
-                                        (32, 48, torch.bfloat16)])  # bf16 forward: 64-column tiles
+                                        (32, 272, torch.float32), (32, 256, torch.float16),
+                                        (96, 64, torch.bfloat16)])
 def test_kernel_gate_raises_and_names_the_way_out(dh, D, dtype):
     """What the CUDA kernels do not take raises (nothing falls back to the
-    plain version), and the message names ``attention_impl='xla'``."""
+    plain version), and the message names ``attention_impl='xla'``: a head
+    past 64 columns, q_rot past 256 once padded to whole tiles, in bf16 a
+    padded head and q_rot wider together than the backward's 288-column
+    accumulator (64 + 256), a dtype other than bf16 and fp32. (The wrapper
+    pads D to whole tiles, so D = 40 in fp32 and 48 in bf16 run.)"""
     z = lambda *shape: torch.zeros(*shape, dtype=dtype)  # noqa: E731
     with pytest.raises(ValueError, match="attention_impl='xla'"):
         _check_inputs(z(1, 8, 2, dh), z(1, 8, 2, D), z(1, 8, 2, dh), z(1, 8, 2, dh), z(8, D),
