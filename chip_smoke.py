@@ -24,7 +24,12 @@
    K = 3, 31, 33 and t_valid = T - 5, 1, T, on an input that is a row view of
    a wider buffer, and into the first rows of a larger buffer whose other
    rows must stay untouched; the device time under the profiler of
-   layernorm, pos_query and the two convs at B=8, beside the library calls';
+   layernorm, pos_query, mel and the two convs at B=8, beside the library calls';
+   the mel kernel and pos_query (flagship and dh 44) once more at the rows of
+   a B=128 x 10 s request, beside their bounds and library calls, with device
+   times; and the mel kernel's accuracy gate: against the folded product in
+   fp64, its largest log-mel error at most twice the fp32 plain version's,
+   on speech-like input and on the same input x 1e-4, at B=8 and B=128;
 4. writes a flagship E-Branchformer CTC model with seeded random weights
    (12 layers, D=256, 8 heads, I=1024, 256x256 subsampler, 500+1 outputs),
    loads it through ASRPipeline(device="cuda") and answers requests of 1, 4
@@ -59,8 +64,9 @@
    to 64 columns and whose q_rot to 192, and holds against their plain
    versions at its B=8 x 10 s shapes: the five GEMM call shapes of a layer at
    K = 176 or N = 176 (edge tiles), each into a column slice of a guard
-   buffer, pos_query (pad columns zero), the attention (also at the 2 s and
-   20 s buckets, lengths with 1 and 0), the whole layer; K4 forward and its
+   buffer and beside F.linear, pos_query (pad columns zero; also at B=128),
+   the attention (also at the 2 s and 20 s buckets, lengths with 1 and 0),
+   the whole layer beside the sum of its pieces' bounds; K4 forward and its
    four gradients and K5 at dh 44 (T = 250 and 333, lengths with 1 and 0,
    bf16 and fp32, rates 0 and 0.1), timed at B=32, T=250 beside SDPA;
 9. serves that model through ASRPipeline(device="cuda"), which must take the
@@ -105,6 +111,24 @@ def bound(flops: float, nbytes: float, kind: str):
     """(least ms the card could take, what bounds it)."""
     t_ops, t_bytes = flops / PEAK_FLOPS[kind], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def mel_work(wav, n_frames: int, dft, mel):
+    """(operations, bytes, type) of the log-mel kernel: the framed DFT and
+    the mel product in fp32; the waveform, bases and log-mel moved once."""
+    B = wav.shape[0]
+    flops = 2.0 * B * n_frames * (dft.shape[0] * dft.shape[1] + mel.shape[0] * mel.shape[1])
+    return flops, nbytes(wav, dft, mel) + 4 * B * n_frames * mel.shape[1], "fp32"
+
+
+def mel_errors(K3, wav, n_frames, frontend, cfg):
+    """(kernel, fp32 plain version) largest log-mel errors against the same
+    folded product in fp64 (the plain version on float64 operands)."""
+    args = (cfg.hop_length, cfg.mel_floor)
+    exact = K3.log_mel_plain(wav.double(), n_frames, frontend.dft.double(), frontend.mel.double(), *args)
+    got = K3.log_mel(wav, n_frames, frontend.dft, frontend.mel, *args)
+    plain = K3.log_mel_plain(wav, n_frames, frontend.dft, frontend.mel, *args)
+    return float((got.double() - exact).abs().max()), float((plain.double() - exact).abs().max())
 
 
 def sum_bound(pieces):
@@ -319,16 +343,16 @@ def sdpa_call(q_u, q_rot, k, v, k_std, lengths, scale):
     return forward, make_backward
 
 
-def pos_query_library(q_v, wp_e, wp_o):
+def pos_query_library(q_v, wp):
     """The library yardstick of the positional query: one ``torch.bmm`` of the
     per-head product, q_v_h (M, dh) x [wp_e | wp_o][h] (dh, D) for the H heads,
     without the rotation the kernel fuses."""
     import torch
 
-    H, dh, _ = wp_e.shape
+    H, _, dh = wp.shape
     qv = q_v.reshape(-1, H, dh).transpose(0, 1).contiguous()
-    wp = torch.cat([wp_e, wp_o], dim=-1).contiguous()
-    return lambda: torch.bmm(qv, wp)
+    w = wp.transpose(1, 2).contiguous()
+    return lambda: torch.bmm(qv, w)
 
 
 def main() -> None:
@@ -440,15 +464,13 @@ def main() -> None:
 
         # K3
         hop, floor = mel_cfg.hop_length, mel_cfg.mel_floor
+        mel_args = (n_frames, frontend.dft, frontend.mel, hop, floor)
         # The library call of the mel kernel is its plain version: the framed
         # cuBLAS fp32 products (TF32 off).
-        mel_plain = lambda: K3.log_mel_plain(wav, n_frames, frontend.dft, frontend.mel, hop, floor)  # noqa: E731
+        mel_plain = lambda: K3.log_mel_plain(wav, *mel_args)  # noqa: E731
         n_mel = mel_cfg.num_mel_bins
-        lm = compare("mel", "mel", lambda: K3.log_mel(wav, n_frames, frontend.dft, frontend.mel, hop, floor),
-                     mel_plain, 1e-4, library_fn=mel_plain,
-                     work=(2.0 * B * n_frames * (frontend.dft.shape[0] * frontend.dft.shape[1]
-                                                 + frontend.mel.shape[0] * n_mel),
-                           nbytes(wav, frontend.dft, frontend.mel) + 4 * B * n_frames * n_mel, "fp32"))
+        lm = compare("mel", "mel", lambda: K3.log_mel(wav, *mel_args), mel_plain, 1e-4, library_fn=mel_plain,
+                     work=mel_work(wav, n_frames, frontend.dft, frontend.mel))
         feat_lens = torch.clamp(mel_cfg.num_frames(wav_lens.long()), 0, n_frames).int()
         feats = compare("cmvn", "cmvn", lambda: K3.cmvn(lm, feat_lens), lambda: K3.cmvn_plain(lm, feat_lens),
                         2 ** -7, work=(8.0 * lm.numel(), nbytes(lm) + 2 * lm.numel(), "fp32"))
@@ -519,15 +541,11 @@ def main() -> None:
         if err_qv > 2 ** -6 * max(1.0, float(q_v_ref.float().abs().max())):
             failures.append("gemm qkv second output")
         work_pos_query = (2.0 * M * D * D + 6.0 * M * H * D,
-                          nbytes(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"], tables["rot_sin"]) + 2 * M * H * D,
-                          "bf16")
-        q_rot = compare("pos_query", "pos_query",
-                        lambda: K1.pos_query(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"],
-                                             tables["rot_sin"], T_pad),
-                        lambda: K1.pos_query_plain(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"],
-                                                   tables["rot_sin"], T_pad),
-                        2 ** -7, library_fn=pos_query_library(q_v, w["wp_e"], w["wp_o"]),
-                        work=work_pos_query)
+                          nbytes(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"]) + 2 * M * H * D, "bf16")
+        pq_args = (q_v, w["wp"], tables["rot_cos"], tables["rot_sin"], T_pad)
+        q_rot = compare("pos_query", "pos_query", lambda: K1.pos_query(*pq_args),
+                        lambda: K1.pos_query_plain(*pq_args), 2 ** -7,
+                        library_fn=pos_query_library(q_v, w["wp"]), work=work_pos_query)
         dh = D // H
         hv = lambda i: qkv[:, i * D:(i + 1) * D].view(B, T_pad, H, dh)
         qr = q_rot.view(B, T_pad, H, D)
@@ -580,17 +598,68 @@ def main() -> None:
             # the kernels' own durations, without the host's time per launch
             dev_ms = {
                 "layernorm": device_ms(lambda: K1.layer_norm(xf, w["attn_ln_g"], w["attn_ln_b"], 1e-5)),
-                "pos_query": device_ms(lambda: K1.pos_query(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"],
-                                                            tables["rot_sin"], T_pad)),
+                "pos_query": device_ms(lambda: K1.pos_query(*pq_args)),
+                "mel": device_ms(lambda: K3.log_mel(wav, *mel_args)),
                 "dwconv_csgu": device_ms(lambda: K1.csgu(l, *args)),
                 "dwconv_merge": device_ms(lambda: K1.merge_conv(merged, *margs)),
                 "F.conv1d csgu": device_ms(lambda: F.conv1d(gate_in, dw_c, padding=(Kc - 1) // 2, groups=Cg)),
                 "F.conv1d merge": device_ms(lambda: F.conv1d(merged_in, dw_m, padding=(Km - 1) // 2, groups=2 * D)),
                 "F.layer_norm": device_ms(lambda: F.layer_norm(xf, (D,), ln_g16, ln_b16, 1e-5)),
-                "torch.bmm (pos_query's library call)": device_ms(pos_query_library(q_v, w["wp_e"], w["wp_o"])),
+                "torch.bmm (pos_query's library call)": device_ms(pos_query_library(q_v, w["wp"])),
+                "cuBLAS fp32 log-mel (mel's library call)": device_ms(mel_plain),
             }
             print("  device ms per call under the profiler (B=8, 10 s): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()), flush=True)
+
+    # ---- K3's mel kernel and K1's positional query at the rows of a B=128 x
+    # 10 s request, each beside its bound and library call, with device times
+    # under the profiler; and the mel kernel's accuracy gate: its largest
+    # log-mel error against the folded product in fp64 at most twice the fp32
+    # plain version's (cuBLAS, TF32 off), on speech-like input and on the same
+    # input x 1e-4 (bins near the mel floor), at B=8 and B=128
+    B_big, S10 = 128, 160000
+    n10 = int(mel_cfg.num_frames(S10))
+    T10 = -(-int(feat_extract_output_frames(cfg, n10)) // 8) * 8
+    print(f"-- mel and pos_query at B={B_big} x 10 s (T_in={n10}, T_pad={T10}); the mel kernel against fp64",
+          flush=True)
+    gen_w = np.random.default_rng(128)
+    wavs_big = np.zeros((B_big, S10), np.float32)
+    for i in range(B_big):
+        wv = speech(10.0 - 0.05 * (i % 16), gen_w)
+        wavs_big[i, :len(wv)] = wv
+    wav_big = torch.from_numpy(wavs_big).to(dev)
+    del wavs_big
+    with torch.no_grad():
+        big_args = (n10, frontend.dft, frontend.mel, mel_cfg.hop_length, mel_cfg.mel_floor)
+        big_plain = lambda: K3.log_mel_plain(wav_big, *big_args)  # noqa: E731
+        compare(f"mel B={B_big}", "mel_b128", lambda: K3.log_mel(wav_big, *big_args), big_plain, 1e-4,
+                library_fn=big_plain, work=mel_work(wav_big, n10, frontend.dft, frontend.mel))
+        print(f"  mel B={B_big} device ms under the profiler: {device_ms(lambda: K3.log_mel(wav_big, *big_args)):.4f} "
+              f"(cuBLAS fp32 log-mel {device_ms(big_plain):.4f})", flush=True)
+        for name, wv_ in (("B=8 speech", wav_big[:8]), ("B=8 quiet (x 1e-4)", wav_big[:8] * 1e-4),
+                          (f"B={B_big} speech", wav_big), (f"B={B_big} quiet (x 1e-4)", wav_big * 1e-4)):
+            err_k, err_p = mel_errors(K3, wv_, n10, frontend, mel_cfg)
+            ok = err_k <= 2 * err_p
+            print(f"  mel against fp64, {name}: kernel {err_k:.3e}, fp32 plain version (cuBLAS) {err_p:.3e}, "
+                  f"ratio {err_k / err_p:.3f} (at most 2) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"mel against fp64, {name}")
+        del wav_big, big_plain
+        torch.cuda.empty_cache()
+        M_big = B_big * T10
+        q_v_big = torch.randn(M_big, w["wp"].shape[0] * w["wp"].shape[2],
+                              generator=torch.Generator().manual_seed(129)).bfloat16().to(dev)
+        tab10 = fused.tables(T10)
+        pq_big = (q_v_big, w["wp"], tab10["rot_cos"], tab10["rot_sin"], T10)
+        D, H = cfg.hidden_size, cfg.num_attention_heads
+        compare(f"pos_query B={B_big}", "pos_query_b128", lambda: K1.pos_query(*pq_big),
+                lambda: K1.pos_query_plain(*pq_big), 2 ** -7, library_fn=pos_query_library(q_v_big, w["wp"]),
+                work=(2.0 * M_big * D * D + 6.0 * M_big * H * D,
+                      nbytes(q_v_big, w["wp"], tab10["rot_cos"], tab10["rot_sin"]) + 2 * M_big * H * D, "bf16"))
+        print(f"  pos_query B={B_big} device ms under the profiler: {device_ms(lambda: K1.pos_query(*pq_big)):.4f} "
+              f"(torch.bmm {device_ms(pos_query_library(q_v_big, w['wp'])):.4f})", flush=True)
+        del q_v_big, pq_big
+        torch.cuda.empty_cache()
 
     # ---- the fused layer's attention kernel beyond the two buckets above:
     # seeded inputs as column views of one (B*T_pad, 3D) buffer, which is how
@@ -611,7 +680,6 @@ def main() -> None:
         fi = factored_inputs(8, T_pad, lens, seed=T_pad)
         compare(f"rel_attention T_pad={T_pad}", "rel_attention", lambda: K1.rel_attention(*fi),
                 lambda: K1.rel_attention_plain(*fi), 2 ** -6)
-    B_big = 128
     fi = factored_inputs(B_big, 256, [256 - (i * 256) // (2 * B_big) for i in range(B_big)], seed=128)
     with torch.no_grad():
         compare(f"rel_attention B={B_big} T_pad=256", None, lambda: K1.rel_attention(*fi),
@@ -1118,7 +1186,7 @@ def main() -> None:
         _fail("the 176-wide config took the subsampler kernel")
     nD, nH, n_dh = ncfg.hidden_size, ncfg.num_attention_heads, ncfg.head_size
     nw = nf.layers[0]
-    hw, d_rot = nw["wp_e"].shape[1], K1.rot_width(nD)
+    hw, d_rot = nw["wp"].shape[2], K1.rot_width(nD)
     nB, nT_in = 8, 998
     nT = int(feat_extract_output_frames(ncfg, nT_in))
     nT_pad = -(-nT // 8) * 8
@@ -1148,9 +1216,12 @@ def main() -> None:
             guard = torch.full((nM + 8, N_ + lead + 16), 7.0, dtype=torch.bfloat16, device=dev)
             out_view = guard[:nM, lead:lead + N_]
             extra = (2 * nM * N_ if "residual" in kw else 0) + (2 * nM * kw["bias2"].shape[0] if "bias2" in kw else 0)
-            compare(f"gemm {name}", "gemm_d176", lambda: K1.gemm(a_, nw[wk], nw[bk], out=out_view, **kw),
-                    lambda: K1.gemm_plain(a_, nw[wk], nw[bk], **kw), 2 ** -6, work=gemm_work(nM, K_, N_, extra),
-                    library_fn=(lambda a_=a_, wt=nw[wk].t(), b16=nw[bk].bfloat16(): F.linear(a_, wt, b16)))
+            n_gemm = lambda: K1.gemm(a_, nw[wk], nw[bk], out=out_view, **kw)  # noqa: E731
+            n_lib = lambda a_=a_, wt=nw[wk].t(), b16=nw[bk].bfloat16(): F.linear(a_, wt, b16)  # noqa: E731
+            compare(f"gemm {name}", "gemm_d176", n_gemm, lambda: K1.gemm_plain(a_, nw[wk], nw[bk], **kw), 2 ** -6,
+                    work=gemm_work(nM, K_, N_, extra), library_fn=n_lib)
+            print(f"    this call's F.linear (bf16, no epilogue) {timed(n_lib):.4f} ms; device ms under the profiler: "
+                  f"kernel {device_ms(n_gemm):.4f}, F.linear {device_ms(n_lib):.4f}", flush=True)
             torch.cuda.synchronize()
             if not bool((guard[:, :lead] == 7.0).all()) or not bool((guard[:, lead + N_:] == 7.0).all()) \
                     or not bool((guard[nM:] == 7.0).all()):
@@ -1158,14 +1229,29 @@ def main() -> None:
         qkv_n, q_v_n = K1.gemm(g_, nw["w_qkv"], nw["b_qkv"], bias2=nw["bq_v"])
         work_pq = (2.0 * nM * nH * n_dh * nD + 6.0 * nM * nH * nD,
                    2 * nM * nH * n_dh + 2 * nH * n_dh * nD + 2 * nT_pad * nD + 2 * nM * nH * nD, "bf16")
-        q_rot_n = compare("pos_query dh=44", "pos_query_dh44",
-                          lambda: K1.pos_query(q_v_n, nw["wp_e"], nw["wp_o"], n_tab["rot_cos"], n_tab["rot_sin"], nT_pad),
-                          lambda: K1.pos_query_plain(q_v_n, nw["wp_e"], nw["wp_o"], n_tab["rot_cos"], n_tab["rot_sin"],
-                                                     nT_pad),
-                          2 ** -7, library_fn=pos_query_library(q_v_n, nw["wp_e"], nw["wp_o"]), work=work_pq)
+        npq_args = (q_v_n, nw["wp"], n_tab["rot_cos"], n_tab["rot_sin"], nT_pad)
+        q_rot_n = compare("pos_query dh=44", "pos_query_dh44", lambda: K1.pos_query(*npq_args),
+                          lambda: K1.pos_query_plain(*npq_args), 2 ** -7,
+                          library_fn=pos_query_library(q_v_n, nw["wp"]), work=work_pq)
         pad = (d_rot - nD) // 2
         if q_rot_n[..., nD // 2:nD // 2 + pad].any() or q_rot_n[..., d_rot - pad:].any():
             failures.append("pos_query dh=44: a pad column of q_rot is not zero")
+        # and at the rows of a B=128 x 10 s request (q_v's pad columns zero, as the fold makes them)
+        nM_big = 128 * nT_pad
+        q_v_nb = torch.randn(nM_big, nH * hw, generator=gen).bfloat16().to(dev)
+        q_v_nb.view(nM_big, nH, hw)[..., n_dh:] = 0.0
+        npq_big = (q_v_nb, nw["wp"], n_tab["rot_cos"], n_tab["rot_sin"], nT_pad)
+        q_rot_nb = compare("pos_query dh=44 B=128", "pos_query_dh44_b128", lambda: K1.pos_query(*npq_big),
+                           lambda: K1.pos_query_plain(*npq_big), 2 ** -7,
+                           library_fn=pos_query_library(q_v_nb, nw["wp"]),
+                           work=(2.0 * nM_big * nH * n_dh * nD + 6.0 * nM_big * nH * nD,
+                                 2 * nM_big * nH * n_dh + 2 * nH * n_dh * nD + 2 * nT_pad * nD + 2 * nM_big * nH * nD,
+                                 "bf16"))
+        if q_rot_nb[..., nD // 2:nD // 2 + pad].any() or q_rot_nb[..., d_rot - pad:].any():
+            failures.append("pos_query dh=44 B=128: a pad column of q_rot is not zero")
+        print(f"  pos_query dh=44 B=128 device ms under the profiler: {device_ms(lambda: K1.pos_query(*npq_big)):.4f} "
+              f"(torch.bmm {device_ms(pos_query_library(q_v_nb, nw['wp'])):.4f})", flush=True)
+        del q_v_nb, q_rot_nb, npq_big
         hvn = lambda i: qkv_n[:, i * nH * hw:(i + 1) * nH * hw].view(nB, nT_pad, nH, hw)  # noqa: E731
         n_att = (hvn(0), hvn(1), hvn(2), q_rot_n.view(nB, nT_pad, nH, d_rot), n_tab["k_std"], n_lens)
         n_keys = float(torch.where(n_lens > 0, n_lens, nT_pad).sum())
@@ -1190,13 +1276,28 @@ def main() -> None:
                 qr_, tab_["k_std"], torch.tensor(lens_, dtype=torch.int32, device=dev))
             compare(f"rel_attention dh=44 T_pad={T_pad_}", "rel_attention_dh44", lambda: K1.rel_attention(*args_),
                     lambda: K1.rel_attention_plain(*args_), 2 ** -6)
+        # the bound of the whole layer: the sum of its 18 pieces' at the true widths (D = 176, heads of 44)
+        nI, nCg = nw["ff1_wi"].shape[1], nw["cg_w2"].shape[0]
+        nKc, nKm = nw["csgu_dw"].shape[0], nw["merge_dw"].shape[0]
+        n_ln = (8.0 * nM * nD, 4 * nM * nD, "fp32")
+        n_layer_pieces = [
+            n_ln, gemm_work(nM, nD, nI), gemm_work(nM, nI, nD, 2 * nM * nD),                   # FF1 (+ residual)
+            n_ln, gemm_work(nM, nD, 3 * nD, 2 * nM * nD), work_pq, work_att_n,                 # attention
+            gemm_work(nM, nD, nD),                                                             # out projection
+            n_ln, gemm_work(nM, nD, 2 * nCg),                                                  # cgMLP
+            (2.0 * nM * nCg * nKc + 10.0 * nM * nCg, 2 * nM * 2 * nCg + 2 * nKc * nCg + 2 * nM * nCg, "fp32"),
+            gemm_work(nM, nCg, nD),
+            (2.0 * nM * 2 * nD * nKm, 2 * 2 * nM * 2 * nD + 2 * nKm * 2 * nD, "fp32"),       # merge conv
+            gemm_work(nM, 2 * nD, nD, 2 * nM * nD),                                            # merge (+ residual)
+            n_ln, gemm_work(nM, nD, nI), gemm_work(nM, nI, nD, 2 * nM * nD), n_ln,            # FF2, final LN
+        ]
         compare("layer (K1 whole) D=176", None, lambda: K1.ebranchformer_layer(nx, n_lens, nw, ncfg, nT, n_tab),
-                lambda: K1.ebranchformer_layer_plain(nx, n_lens, nw, ncfg, nT, n_tab), 0.05)
+                lambda: K1.ebranchformer_layer_plain(nx, n_lens, nw, ncfg, nT, n_tab), 0.05, work=n_layer_pieces)
         print("  device ms per call under the profiler (B=8, 10 s, D=176): "
-              f"pos_query {device_ms(lambda: K1.pos_query(q_v_n, nw['wp_e'], nw['wp_o'], n_tab['rot_cos'], n_tab['rot_sin'], nT_pad)):.4f}, "
+              f"pos_query {device_ms(lambda: K1.pos_query(*npq_args)):.4f}, "
               f"rel_attention {device_ms(lambda: K1.rel_attention(*n_att)):.4f}, "
               f"gemm ff1_in {device_ms(lambda: K1.gemm(g_, nw['ff1_wi'], nw['ff1_bi'], act=ncfg.hidden_act)):.4f}, "
-              f"torch.bmm {device_ms(pos_query_library(q_v_n, nw['wp_e'], nw['wp_o'])):.4f}, "
+              f"torch.bmm {device_ms(pos_query_library(q_v_n, nw['wp'])):.4f}, "
               f"layer {device_ms(lambda: K1.ebranchformer_layer(nx, n_lens, nw, ncfg, nT, n_tab)):.4f}", flush=True)
 
     # K4 and K5 at dh 44, D 176: the wrappers pad to the kernels' widths
@@ -1386,12 +1487,14 @@ def main() -> None:
     # the GEMM's readings at M = 32,768 and the convs' at B=128: the same
     # kernel, source and counter
     routes.update({k: routes["gemm"] for k in results if k.startswith("gemm_m32768_")})
-    routes.update({k: routes[k.rsplit("_", 1)[0]] for k in results if k.startswith("dwconv_") and k.endswith("_b128")})
+    routes.update({k: routes[k.rsplit("_", 1)[0]] for k in results
+                   if k.endswith("_b128") and k.rsplit("_", 1)[0] in routes})
     launches.update({k: v for k, v in train_launches.items() if k.startswith("asr_rel_attention_")
                      and k != "asr_rel_attention"})
     # the 176-wide entries: launches from its own paths (4 requests; 3 train steps; 1 evaluation step)
     narrow_routes = {
         "gemm_d176": routes["gemm"], "pos_query_dh44": routes["pos_query"],
+        "pos_query_dh44_b128": routes["pos_query"],
         "rel_attention_dh44": routes["rel_attention"],
         "rel_attention_train_fwd_dh44": routes["rel_attention_train_fwd"],
         "rel_attention_train_bwd_dh44": routes["rel_attention_train_bwd"],

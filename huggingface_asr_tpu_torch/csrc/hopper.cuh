@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the kernels that run on wgmma (conv2.cu,
-// gemm.cuh and, through attention_wgmma.cuh, rel_attention.cu,
+// gemm.cuh, layer.cu's positional query and, through attention_wgmma.cuh, rel_attention.cu,
 // rel_attention_train_fwd.cu, rel_attention_train_bwd.cu and
 // rel_attention_shift_bf16.cu): mbarriers, TMA tile loads, the warpgroup
 // matrix product and its shared-memory matrix descriptors, register
@@ -181,6 +181,24 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 //   _ss: A and B from shared memory, both K-major
 //   _bt: B is MN-major (stored (k, n))
 //   _rs: A from registers
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n"
+        "}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
     asm volatile(
         "{\n"

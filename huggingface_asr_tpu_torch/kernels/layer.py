@@ -212,13 +212,45 @@ def gemm(a, w, bias=None, *, act="identity", residual=None, alpha=1.0, bias2=Non
 # Positional query
 
 
-def pos_query_plain(q_v, wp_e, wp_o, rot_cos, rot_sin, T: int) -> torch.Tensor:
-    """q_rot[m, h] = [cos*ce + sin*co, cos*co - sin*ce] with ce/co = q_v_h @
-    wp_e/wp_o[h] (fp32 accumulation), cos/sin at frame m % T. q_v: (M, H*dh)
-    bf16; wp_e/wp_o: (H, dh, D/2) bf16; rot tables (T, D/2) bf16. -> (M, H, D)
-    bf16. With the padded fold (zero rows and columns in wp_e/wp_o, zero
+def _fragment_order(n: int) -> torch.Tensor:
+    """Row order of ``pos_weights`` within each whole chunk of 32 columns:
+    row 8j + 2q + e holds column 8q + 2j + e (an involution), so that the
+    lane of a product's accumulator fragment that holds fragment columns
+    8j + 2q + e, j < 4, holds output columns 8q .. 8q + 7 in order. A tail of
+    fewer than 32 columns keeps its order."""
+    r = torch.arange(n)
+    c = r % 32
+    swapped = r - c + 8 * ((c % 8) // 2) + 2 * (c // 8) + c % 2
+    return torch.where(r < n - n % 32, swapped, r)
+
+
+def pos_weights(wp_e: torch.Tensor, wp_o: torch.Tensor) -> torch.Tensor:
+    """The positional projection as ``pos_query`` reads it: ``[wp_e | wp_o]``
+    of each head transposed, (H, dh, D/2) twice -> (H, D, dh), so that a row
+    holds the dh weights of one output column (K-major, the layout a
+    tensor-core product reads): rows < D/2 wp_e's columns, the rest wp_o's,
+    each half in ``_fragment_order``."""
+    half = wp_e.shape[-1]
+    order = _fragment_order(half)
+    return torch.cat([wp_e[..., order], wp_o[..., order]], dim=-1).transpose(1, 2).contiguous()
+
+
+def split_pos_weights(wp: torch.Tensor):
+    """(wp_e, wp_o), each (H, dh, D/2), from ``pos_weights``' layout."""
+    w = wp.transpose(1, 2)
+    half = w.shape[-1] // 2
+    order = _fragment_order(half).to(wp.device)  # an involution: its own inverse
+    return w[..., :half][..., order], w[..., half:][..., order]
+
+
+def pos_query_plain(q_v, wp, rot_cos, rot_sin, T: int) -> torch.Tensor:
+    """q_rot[m, h] = [cos*ce + sin*co, cos*co - sin*ce] with ce|co = q_v_h @
+    [wp_e | wp_o][h] (fp32 accumulation), cos/sin at frame m % T. q_v: (M, H*dh)
+    bf16; wp: (H, D, dh) bf16 (``pos_weights``); rot tables (T, D/2) bf16. ->
+    (M, H, D) bf16. With the padded fold (zero rows and columns in wp, zero
     columns in the tables) the pad columns of q_rot come out as exact zeros."""
     M = q_v.shape[0]
+    wp_e, wp_o = split_pos_weights(wp)
     H, dh, half = wp_e.shape
     qv = q_v.to(F32).reshape(M, H, dh)
     ce = torch.einsum("mhd,hdj->mhj", qv, wp_e.to(F32))
@@ -229,22 +261,27 @@ def pos_query_plain(q_v, wp_e, wp_o, rot_cos, rot_sin, T: int) -> torch.Tensor:
     return torch.cat([c * ce + s * co, c * co - s * ce], dim=-1).to(BF16)
 
 
-def pos_query(q_v, wp_e, wp_o, rot_cos, rot_sin, T: int) -> torch.Tensor:
-    """``pos_query_plain``; CUDA tensors run ``csrc/layer.cu::pos_query_kernel``."""
-    if not _build.on_cuda(q_v, wp_e, wp_o, rot_cos, rot_sin):
-        return pos_query_plain(q_v, wp_e, wp_o, rot_cos, rot_sin, T)
+POS_QUERY_MAX_D = 512  # the widest q_rot whose weight rows the kernel holds in shared memory
+
+
+def pos_query(q_v, wp, rot_cos, rot_sin, T: int) -> torch.Tensor:
+    """``pos_query_plain``; CUDA tensors run ``csrc/layer.cu::pos_query_kernel``
+    (head widths 32 and 64, D a multiple of 64 up to 512: what the fold gives)."""
+    if not _build.on_cuda(q_v, wp, rot_cos, rot_sin):
+        return pos_query_plain(q_v, wp, rot_cos, rot_sin, T)
     M = q_v.shape[0]
-    H, dh, half = wp_e.shape
-    D = 2 * half
+    H, D, dh = wp.shape
+    if dh not in HEAD_WIDTHS or D % ROT_CHUNK or D > POS_QUERY_MAX_D:
+        raise ValueError(f"pos_query: the kernel takes head widths {HEAD_WIDTHS} and q_rot widths that are "
+                         f"multiples of {ROT_CHUNK} up to {POS_QUERY_MAX_D}, got {dh} and {D}")
     ldq = _check_rows(q_v, "q_v", (M, H * dh))
-    _build.check(wp_e, "wp_e", BF16, (H, dh, half))
-    _build.check(wp_o, "wp_o", BF16, (H, dh, half))
-    _build.check(rot_cos, "rot_cos", BF16, (T, half))
-    _build.check(rot_sin, "rot_sin", BF16, (T, half))
+    _build.check(wp, "wp", BF16, (H, D, dh))
+    _build.check(rot_cos, "rot_cos", BF16, (T, D // 2))
+    _build.check(rot_sin, "rot_sin", BF16, (T, D // 2))
     q_rot = torch.empty(M, H, D, dtype=BF16, device=q_v.device)
-    _build.launch("asr_pos_query", "ppppppiiiiii", q_v.data_ptr(), wp_e.data_ptr(),
-                  wp_o.data_ptr(), rot_cos.data_ptr(), rot_sin.data_ptr(), q_rot.data_ptr(),
-                  M, T, H, dh, D, ldq)
+    if M:
+        _build.launch("asr_pos_query", "pppppiiiiii", q_v.data_ptr(), wp.data_ptr(), rot_cos.data_ptr(),
+                      rot_sin.data_ptr(), q_rot.data_ptr(), M, T, H, dh, D, ldq)
     return q_rot
 
 
@@ -440,16 +477,17 @@ def fold_layer_weights(layer, cfg, device=None) -> Dict[str, torch.Tensor]:
       (the attention softmax runs on exp2), bias_u / bias_v added into the
       query bias: ``b_qkv = [bq_u | bk | bv]`` and ``bq_v`` fp32;
     * W_q, W_k, W_v concatenated into one (D, 3D) matrix;
-    * the positional projection kept low rank per head, (H, dh, D/2), split
-      into even (sin) and odd (cos) sinusoid channels, the sin half negated;
+    * the positional projection kept low rank per head, split into even
+      (sin) and odd (cos) sinusoid channels, the sin half negated: (H, dh,
+      D/2) twice, stored as ``pos_weights`` lays them out, (H, D, dh);
     * depthwise conv kernels as (K, C) bf16, their biases fp32.
 
     Each head is padded with zero columns to ``head_width(dh)`` (HW) in W_q,
     W_k, W_v and their biases, with zero rows in W_out and in the positional
     projection, whose D/2 columns are padded to ``rot_width(D) / 2``; the
     scale is that of the true dh. So ``w_qkv`` is (D, 3*H*HW), ``bq_v``
-    (H*HW,), ``wo`` (H*HW, D) and ``wp_e``/``wp_o`` (H, HW, rot_width(D)/2);
-    nothing changes where dh is 32 and D a multiple of 64.
+    (H*HW,), ``wo`` (H*HW, D) and ``wp`` (H, rot_width(D), HW); nothing
+    changes where dh is 32 and D a multiple of 64.
     """
     D, H = cfg.hidden_size, cfg.num_attention_heads
     dh = D // H
@@ -488,8 +526,7 @@ def fold_layer_weights(layer, cfg, device=None) -> Dict[str, torch.Tensor]:
         "b_qkv": torch.cat([heads(t, 0) for t in (bq_u, vec(att.linear_k), vec(att.linear_v))]),
         "bq_v": heads(bq_v, 0),
         "wo": heads(mat(att.linear_out), 0), "bo": vec(att.linear_out),
-        "wp_e": low_rank(-wp_t[:, :, 0::2]),
-        "wp_o": low_rank(wp_t[:, :, 1::2]),
+        "wp": pos_weights(low_rank(-wp_t[:, :, 0::2]), low_rank(wp_t[:, :, 1::2])),
     }
     w["attn_ln_g"], w["attn_ln_b"] = ln(layer.self_attn_layer_norm)
     for ff in ("ff1", "ff2"):
@@ -526,7 +563,7 @@ def _layer(x, lengths, w, cfg, t_valid, tables, ops):
     B, T, D = x.shape
     H = cfg.num_attention_heads
     M, eps, act = B * T, cfg.layer_norm_eps, cfg.hidden_act
-    hw, d_rot = w["wp_e"].shape[1], tables["k_std"].shape[1]  # the fold's padded widths
+    hw, d_rot = w["wp"].shape[2], tables["k_std"].shape[1]  # the fold's padded widths
     xf = x.reshape(M, D)
 
     # macaron FF1: x += 0.5 * FF(LN(x))
@@ -538,7 +575,7 @@ def _layer(x, lengths, w, cfg, t_valid, tables, ops):
     # attention branch
     g = ops.layer_norm(xf, w["attn_ln_g"], w["attn_ln_b"], eps)
     qkv, q_v = ops.gemm(g, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
-    q_rot = ops.pos_query(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"], tables["rot_sin"], T)
+    q_rot = ops.pos_query(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"], T)
     heads = lambda i: qkv[:, i * H * hw:(i + 1) * H * hw].view(B, T, H, hw)
     attn = ops.rel_attention(heads(0), heads(1), heads(2), q_rot.view(B, T, H, d_rot),
                              tables["k_std"], lengths)

@@ -4,8 +4,9 @@ and CUDA kernels (counterpart of ``huggingface_asr_tpu/ops/pallas_features.py``)
 DC removal, pre-emphasis, the povey window and the 2^15 waveform scale are
 linear per-frame operators, folded (in float64 numpy, as the JAX package
 does) into the cos|sin DFT bases; the all-zero Nyquist bin is dropped. The
-kernel (``csrc/mel.cu``) then computes the DFT in fp32 FFMA, the power, the
-mel product and the log; a second kernel applies utterance CMVN with length
+kernel (``csrc/mel.cu``) then computes the DFT in fp32 FFMA (register tiles,
+each sum in k order as the cuBLAS fp32 product takes it), the power, the mel
+product and the log; a second kernel applies utterance CMVN with length
 masking and writes bf16 — the input the conv subsampler takes.
 
 ``MelFrontEnd`` is the counterpart of ``PallasLogMelFrontEnd``; the plain
@@ -75,9 +76,13 @@ def log_mel_plain(wav: torch.Tensor, n_frames: int, dft: torch.Tensor, mel: torc
     return torch.log(torch.clamp(power @ mel, min=floor))
 
 
+MEL_PASS_BINS, MEL_MAX_BINS = 64, 80  # the kernel's bins a pass; mel columns its threads hold
+
+
 def log_mel(wav: torch.Tensor, n_frames: int, dft: torch.Tensor, mel: torch.Tensor,
             hop: int, floor: float) -> torch.Tensor:
-    """``log_mel_plain``; CUDA tensors run ``csrc/mel.cu::mel_kernel``."""
+    """``log_mel_plain``; CUDA tensors run ``csrc/mel.cu::mel_kernel`` (any S;
+    bins in passes of 64, at most 80 mel bins)."""
     if not _build.on_cuda(wav, dft, mel):
         return log_mel_plain(wav, n_frames, dft, mel, hop, floor)
     B, S = wav.shape
@@ -85,7 +90,10 @@ def log_mel(wav: torch.Tensor, n_frames: int, dft: torch.Tensor, mel: torch.Tens
     nb, n_mel = mel.shape
     if two_nb != 2 * nb:
         raise ValueError("dft must have 2 * bins columns")
-    if n_frames > 1 + (S - L) // hop:
+    if nb % MEL_PASS_BINS or n_mel > MEL_MAX_BINS:
+        raise ValueError(f"the mel kernel takes bins in passes of {MEL_PASS_BINS} and at most {MEL_MAX_BINS} "
+                         f"mel bins, got {nb} and {n_mel}")
+    if n_frames < 1 or n_frames > 1 + (S - L) // hop:
         raise ValueError(f"{n_frames} frames need more than {S} samples")
     _build.check(wav, "wav", F32)
     _build.check(dft, "dft", F32)

@@ -1,6 +1,6 @@
 """A/B of kernel source variants on one NVIDIA GPU.
 
-    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm,dwconv DIR_A [DIR_B ...]
+    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm,dwconv,mel,posq DIR_A [DIR_B ...]
 
 Each DIR is a directory holding a full copy of ``huggingface_asr_tpu_torch/csrc``
 (the package's own directory is a valid DIR). Every variant is built and run in
@@ -22,7 +22,13 @@ of a sliced output stay untouched, and times it beside ``F.linear``;
 ``dwconv`` holds both forms of the depthwise conv (CSGU with its LayerNorm
 and gate, merge with its residual; C = 512, K = 31) against their plain
 versions at M = 2,048 and 32,768 rows and times them beside
-``F.conv1d(groups=C)``, with the device times under the profiler.
+``F.conv1d(groups=C)``, with the device times under the profiler; ``mel``
+holds the log-mel kernel against its plain version at B = 8 and 128 x 10 s of
+seeded synthetic speech, and against the folded product in fp64 on that speech
+and on it x 1e-4 (its largest error at most twice the cuBLAS fp32 product's),
+and times it beside the cuBLAS fp32 product (device times); ``posq`` holds the positional query at head widths 32 (8 heads, q_rot
+256) and 64 (4 heads, q_rot 192) at M = 2,048 and 32,768 rows and times it
+beside ``torch.bmm`` (device times).
 Exits non-zero without a CUDA device.
 """
 
@@ -32,6 +38,8 @@ import os
 import pathlib
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -125,7 +133,7 @@ def run_variant(csrc: str, what: str) -> None:
     _build.CSRC = pathlib.Path(csrc).resolve()
     _build.library()
     sources = {"conv2": "conv2", "k4": "train_fwd", "k4bwd": "train_bwd", "k1": "rel_attention.cu", "k5": "shift",
-               "gemm": "layer.cu", "dwconv": "dwconv"}
+               "gemm": "layer.cu", "dwconv": "dwconv", "mel": "mel.cu", "posq": "layer.cu"}
     keep = False
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("=="):
@@ -187,6 +195,55 @@ def run_variant(csrc: str, what: str) -> None:
                           f"conv1d_device_ms={device_ms(library):.4f}", flush=True)
             del l, x
             torch.cuda.empty_cache()
+    if "mel" in what.split(","):
+        from chip_smoke import mel_errors, speech
+        from huggingface_asr_tpu_torch.kernels import mel as K3
+        from huggingface_asr_tpu_torch.ops.features import LogMelConfig
+
+        cfg = LogMelConfig()
+        fe = K3.MelFrontEnd(cfg, device=dev)
+        rng = np.random.default_rng(0)
+        S = 160000
+        wav = np.zeros((128, S), np.float32)
+        for i in range(128):
+            w_ = speech(10.0 - 0.05 * (i % 16), rng)
+            wav[i, :len(w_)] = w_
+        wav = torch.from_numpy(wav).to(dev)
+        n = int(cfg.num_frames(S))
+        args = (cfg.hop_length, cfg.mel_floor)
+        for B in (8, 128):
+            x = wav[:B]
+            kernel = lambda: K3.log_mel(x, n, fe.dft, fe.mel, *args)  # noqa: E731
+            library = lambda: K3.log_mel_plain(x, n, fe.dft, fe.mel, *args)  # noqa: E731
+            got, ref = kernel(), library()
+            err = float((got - ref).abs().max())
+            ok = bool(torch.isfinite(got).all()) and err <= 1e-4 * max(1.0, float(ref.abs().max()))
+            gate = []
+            for name, xs in (("speech", x), ("quiet", x * 1e-4)):  # against the folded product in fp64
+                err_k, err_p = mel_errors(K3, xs, n, fe, cfg)
+                ok = ok and err_k <= 2 * err_p
+                gate.append(f"{name} {err_k:.3e}/{err_p:.3e}")
+            with torch.no_grad():
+                print(f"mel B={B}: err={err:.3e} fp64 kernel/cublas: {', '.join(gate)} {'ok' if ok else 'FAIL'} "
+                      f"ms={timed(kernel):.4f} device_ms={device_ms(kernel):.4f} "
+                      f"cublas_fp32_device_ms={device_ms(library):.4f}", flush=True)
+    if "posq" in what.split(","):
+        for H, hw, D in ((8, 32, 256), (4, 64, 192)):
+            for M in (2048, 32768):
+                gen = torch.Generator().manual_seed(M + hw)
+                q_v = torch.randn(M, H * hw, generator=gen).bfloat16().to(dev)
+                wp = (torch.randn(H, D, hw, generator=gen) * 0.2).bfloat16().to(dev)
+                tab = K1.relpos_kernel_tables(256, D, device=dev)
+                a = (q_v, wp, tab["rot_cos"], tab["rot_sin"], 256)
+                kernel = lambda: K1.pos_query(*a)  # noqa: E731
+                got, ref = kernel().float(), K1.pos_query_plain(*a).float()
+                err = float((got - ref).abs().max())
+                ok = bool(torch.isfinite(got).all()) and err <= 2 ** -7 * max(1.0, float(ref.abs().max()))
+                qh, wt = q_v.view(M, H, hw).transpose(0, 1).contiguous(), wp.transpose(1, 2).contiguous()
+                library = lambda: torch.bmm(qh, wt)  # noqa: E731
+                print(f"pos_query H={H} hw={hw} D={D} M={M}: err={err:.3e} {'ok' if ok else 'FAIL'} "
+                      f"ms={timed(kernel):.4f} device_ms={device_ms(kernel):.4f} bmm_device_ms={device_ms(library):.4f}",
+                      flush=True)
     if "conv2" in what.split(","):
         for B, T1, T2 in CONV2_SHAPES:
             y1 = torch.randn(B, T1, 40, 256, generator=g).bfloat16().to(dev)

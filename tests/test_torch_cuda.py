@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from huggingface_asr_tpu_torch.data.synthetic_speech import utterance
 from huggingface_asr_tpu_torch.kernels import _build
 from huggingface_asr_tpu_torch.kernels import layer as K1
 from huggingface_asr_tpu_torch.kernels import mel as K3
@@ -77,6 +78,80 @@ def test_mel_and_cmvn():
     assert bool((out[1, 180:] == 0).all())
 
 
+def _speech_batch(B, S, seed):
+    """B seeded synthetic utterances of S samples (the last ones shorter,
+    zero-padded), fp32 numpy."""
+    rng = np.random.default_rng(seed)
+    wav = np.zeros((B, S), np.float32)
+    for i in range(B):
+        w = utterance((S - i * (S // (4 * B))) / 16000, rng)[0]
+        wav[i, :len(w)] = w
+    return wav
+
+
+@pytest.mark.parametrize("B,S", [(1, 16000 * 2 + 3), (3, 16000 * 3 + 1), (8, 160000 + 2), (24, 160000 + 2)])
+@pytest.mark.parametrize("quiet", [False, True])
+def test_mel_kernel_against_fp64(B, S, quiet):
+    """The fp32 DFT at the "highest" contract, on speech-like input and on
+    the same input x 1e-4 (bins near the mel floor), at an S that is no
+    multiple of 4 (utterance rows not 16-byte aligned): against the folded
+    product in fp64 (the plain version on float64 operands), the kernel's
+    largest log-mel error is at most twice the fp32 plain version's (cuBLAS,
+    TF32 off); and it is within 1e-4 of the scale of the fp32 plain version."""
+    dev = _cuda()
+    cfg = LogMelConfig()
+    wav = torch.from_numpy(_speech_batch(B, S, seed=B) * (1e-4 if quiet else 1.0)).to(dev)
+    fe = K3.MelFrontEnd(cfg, device=dev)
+    n_frames = int(cfg.num_frames(S))
+    args = (n_frames, fe.dft, fe.mel, cfg.hop_length, cfg.mel_floor)
+    _build.reset_launch_counts()
+    got = K3.log_mel(wav, *args)
+    assert _build.LAUNCHES["asr_log_mel"] == 1 and got.shape == (B, n_frames, cfg.num_mel_bins)
+    plain = K3.log_mel_plain(wav, *args)
+    exact = K3.log_mel_plain(wav.double(), n_frames, fe.dft.double(), fe.mel.double(), cfg.hop_length,
+                             cfg.mel_floor)
+    err_kernel = float((got.double() - exact).abs().max())
+    err_plain = float((plain.double() - exact).abs().max())
+    assert err_kernel <= 2 * err_plain, (err_kernel, err_plain)
+    _close(got, plain, 1e-4)
+
+
+@pytest.mark.parametrize("T", [40, 250, 256, 504])
+@pytest.mark.parametrize("width", ["32", "44->64", "64, q_rot 512"])
+def test_pos_query_against_plain(narrow, width, T):
+    """The positional query on wgmma at head width 32 (8 heads, q_rot 256: the
+    flagship's widths, seeded weights), 44 padded to 64 (the 176-wide fold's
+    own weights and tables, q_rot 176 -> 192) and 64 with q_rot 512 (the
+    512-wide config's widths: two boxes of weight rows), M = 3T - 24 rows (no
+    multiple of the 64-row tile; a tile crosses utterance boundaries), q_v a
+    column view of a wider buffer (row stride > H * dh): within 2^-7 of the
+    scale, the pad columns of q_rot exact zeros."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(T)
+    M = 3 * T - 24
+    if width != "44->64":
+        H, hw, D, pad = (8, 32, 256, 0) if width == "32" else (8, 64, 512, 0)
+        wp = (torch.randn(H, D, hw, generator=g) * 0.2).bfloat16().to(dev)
+        tables = K1.relpos_kernel_tables(T, D, device=dev)
+    else:
+        _, fm = narrow
+        wp, hw = fm.layers[0]["wp"], 64
+        H, D, pad = wp.shape[0], wp.shape[1], (K1.rot_width(176) - 176) // 2
+        tables = fm.tables(T)
+    buf = torch.randn(M, H * hw + 24, generator=g).bfloat16().to(dev)
+    if width == "44->64":
+        buf.view(M, -1)[:, :H * hw].view(M, H, hw)[..., 44:] = 0.0  # the fold's zero pad columns of q_v
+    q_v = buf[:, :H * hw]
+    assert q_v.stride(0) == H * hw + 24
+    _build.reset_launch_counts()
+    q_rot = K1.pos_query(q_v, wp, tables["rot_cos"], tables["rot_sin"], T)
+    assert _build.LAUNCHES["asr_pos_query"] == 1 and q_rot.shape == (M, H, D)
+    _close(q_rot, K1.pos_query_plain(q_v, wp, tables["rot_cos"], tables["rot_sin"], T), 2 ** -7)
+    if pad:
+        half = D // 2
+        assert not q_rot[..., half - pad:half].any() and not q_rot[..., D - pad:].any()
+
+
 def test_layer_pieces_and_layer(fused):
     dev = _cuda()
     _, fm = fused
@@ -93,9 +168,8 @@ def test_layer_pieces_and_layer(fused):
            K1.gemm_plain(xf, w["ff1_wi"], w["ff1_bi"], act="gelu"), 2 ** -6)
     qkv, q_v = K1.gemm(xf, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
     _close(qkv, K1.gemm_plain(xf, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])[0], 2 ** -6)
-    q_rot = K1.pos_query(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"], tables["rot_sin"], T)
-    _close(q_rot, K1.pos_query_plain(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"],
-                                     tables["rot_sin"], T), 2 ** -7)
+    q_rot = K1.pos_query(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"], T)
+    _close(q_rot, K1.pos_query_plain(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"], T), 2 ** -7)
     hv = lambda i: qkv[:, i * D:(i + 1) * D].view(B, T, H, D // H)
     qr = q_rot.view(B, T, H, D)
     _close(K1.rel_attention(hv(0), hv(1), hv(2), qr, tables["k_std"], lens),
@@ -601,7 +675,7 @@ def test_layer_pieces_and_layer_at_head_size_44(narrow, B, T, t_valid, lens):
     dev = _cuda()
     _, fm = narrow
     w, D, H = fm.layers[0], NARROW.hidden_size, NARROW.num_attention_heads
-    hw, d_rot = w["wp_e"].shape[1], K1.rot_width(D)
+    hw, d_rot = w["wp"].shape[2], K1.rot_width(D)
     assert (hw, d_rot) == (64, 192)
     g = torch.Generator().manual_seed(B + T)
     x = torch.randn(B, T, D, generator=g).bfloat16().to(dev)
@@ -612,10 +686,10 @@ def test_layer_pieces_and_layer_at_head_size_44(narrow, B, T, t_valid, lens):
     ref_qkv, ref_q_v = K1.gemm_plain(xf, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
     _close(qkv, ref_qkv, 2 ** -6)
     _close(q_v, ref_q_v, 2 ** -6)
-    q_rot = K1.pos_query(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"], tables["rot_sin"], T)
+    q_rot = K1.pos_query(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"], T)
     pad = (d_rot - D) // 2
     assert not q_rot[..., D // 2:D // 2 + pad].any() and not q_rot[..., d_rot - pad:].any()
-    _close(q_rot, K1.pos_query_plain(q_v, w["wp_e"], w["wp_o"], tables["rot_cos"], tables["rot_sin"], T), 2 ** -7)
+    _close(q_rot, K1.pos_query_plain(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"], T), 2 ** -7)
     hv = lambda i: qkv[:, i * H * hw:(i + 1) * H * hw].view(B, T, H, hw)  # noqa: E731
     args = (hv(0), hv(1), hv(2), q_rot.view(B, T, H, d_rot), tables["k_std"], lengths)
     _build.reset_launch_counts()

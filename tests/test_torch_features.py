@@ -15,6 +15,7 @@ from huggingface_asr_tpu.ops.features import LogMelConfig as JLogMelConfig
 from huggingface_asr_tpu.ops.features import LogMelFrontEnd as JLogMelFrontEnd
 from huggingface_asr_tpu.ops.pallas_features import PallasLogMelFrontEnd
 from huggingface_asr_tpu.ops.pallas_features import folded_bases as j_folded_bases
+from huggingface_asr_tpu_torch.data.synthetic_speech import utterance
 from huggingface_asr_tpu_torch.kernels import _build
 from huggingface_asr_tpu_torch.kernels import mel as K3
 from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
@@ -32,6 +33,32 @@ def test_folded_bases_equal_jax():
     j_dft, j_mel = j_folded_bases(JLogMelConfig())
     np.testing.assert_array_equal(dft, j_dft)
     np.testing.assert_array_equal(mel, j_mel)
+
+
+@pytest.mark.parametrize("quiet", [False, True])
+def test_plain_log_mel_matches_pallas_interpret(quiet):
+    """The plain log-mel on the folded bases (what a CPU tensor runs, and
+    what the kernel is held to on the card) against the Pallas kernel at the
+    'highest' contract in interpret mode, without CMVN, on seeded synthetic
+    speech and on the same x 1e-4 (bins near the mel floor): the same bases,
+    the products summed in another order."""
+    rng = np.random.default_rng(5)
+    S = 16000 * 2
+    wav = np.zeros((2, S), np.float32)
+    for i, n in enumerate((S, S - 7000)):
+        w = utterance(n / 16000, rng)[0][:n]
+        wav[i, :len(w)] = w
+    if quiet:
+        wav *= np.float32(1e-4)
+    jcfg = JLogMelConfig(norm_type="none", matmul_precision="highest")
+    ref, _ = PallasLogMelFrontEnd(jcfg, interpret=True)(jnp.asarray(wav), jnp.full((2,), S, jnp.int32))
+    cfg = LogMelConfig()
+    fe = K3.MelFrontEnd(cfg)
+    n_frames = int(cfg.num_frames(S))
+    got = K3.log_mel_plain(torch.from_numpy(wav), n_frames, fe.dft, fe.mel, cfg.hop_length, cfg.mel_floor)
+    ref = np.asarray(ref, np.float32)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-4, atol=2e-4)
 
 
 def test_fused_cmvn_bf16_matches_pallas_interpret():

@@ -44,6 +44,7 @@ def test_fold_matches_jax(setup):
         "wq": w["w_qkv"][:, :D], "wk": w["w_qkv"][:, D:2 * D], "wv": w["w_qkv"][:, 2 * D:],
         "bq_u": w["b_qkv"][:D], "bk": w["b_qkv"][D:2 * D], "bv": w["b_qkv"][2 * D:],
     }
+    pairs["wp_e"], pairs["wp_o"] = K1.split_pos_weights(w["wp"])
     for name in PL.WEIGHT_FIELDS:
         if name in ("csgu_lin_w", "csgu_lin_b", "rot_cos", "rot_sin", "k_std"):
             continue
@@ -53,6 +54,53 @@ def test_fold_matches_jax(setup):
     tables = K1.relpos_kernel_tables(T, D)
     for name in ("rot_cos", "rot_sin", "k_std"):
         np.testing.assert_array_equal(tables[name].float().numpy(), _np(j[name]), err_msg=name)
+
+
+@pytest.mark.parametrize("half", [64, 88, 96, 128])
+def test_pos_weights_are_a_permutation(half):
+    """``pos_weights`` holds wp_e and wp_o exactly, transposed, and puts
+    column 8q + 2j + e of each whole 32 columns in row 8j + 2q + e (the
+    column the kernel's accumulator lane q holds there); a ragged tail keeps
+    its order. ``split_pos_weights`` undoes it."""
+    g = torch.Generator().manual_seed(half)
+    wp_e, wp_o = torch.randn(3, 5, half, generator=g), torch.randn(3, 5, half, generator=g)
+    wp = K1.pos_weights(wp_e, wp_o)
+    assert wp.shape == (3, 2 * half, 5)
+    e2, o2 = K1.split_pos_weights(wp)
+    assert torch.equal(e2, wp_e) and torch.equal(o2, wp_o)
+    for r in range(half):
+        c, j, q, e = r // 32, (r % 32) // 8, (r % 8) // 2, r % 2
+        col = 32 * c + 8 * q + 2 * j + e if r < half - half % 32 else r
+        assert torch.equal(wp[:, r], wp_e[:, :, col]) and torch.equal(wp[:, half + r], wp_o[:, :, col])
+
+
+def test_pos_query_plain_matches_the_jax_positional_query(setup):
+    """The plain positional query on the port's fold (``wp``, the rotation
+    tables) against the Pallas kernel's own arithmetic on the JAX fold
+    (pallas_layer.py:489-499: per-head fp32 products at HIGHEST precision,
+    the rotation, one bf16 rounding): within one bf16 rounding of the same
+    fp32 values, 2^-7 of the scale."""
+    jcfg, pcfg, lp, _, w = setup
+    D, H = jcfg.hidden_size, jcfg.num_attention_heads
+    dh = D // H
+    j = PL.fold_layer_weights(lp, jcfg, T)
+    rng = np.random.default_rng(6)
+    M = 3 * T
+    q_v = np.asarray(jnp.asarray(rng.standard_normal((M, D)), jnp.bfloat16), np.float32)
+    t = np.arange(M) % T
+    cos_n, sin_n = _np(j["rot_cos"])[t], _np(j["rot_sin"])[t]
+    heads = []
+    for hd in range(H):
+        qvh = jnp.asarray(q_v[:, hd * dh:(hd + 1) * dh], jnp.bfloat16)
+        ce = jnp.dot(qvh, j["wp_e"][hd], preferred_element_type=jnp.float32, precision="highest")
+        co = jnp.dot(qvh, j["wp_o"][hd], preferred_element_type=jnp.float32, precision="highest")
+        heads.append(jnp.concatenate([cos_n * ce + sin_n * co, cos_n * co - sin_n * ce], -1).astype(jnp.bfloat16))
+    ref = np.stack([_np(h) for h in heads], axis=1)
+    tables = K1.relpos_kernel_tables(T, D)
+    got = K1.pos_query_plain(torch.from_numpy(q_v).bfloat16(), w["wp"], tables["rot_cos"], tables["rot_sin"], T)
+    assert got.shape == ref.shape
+    d = np.abs(got.float().numpy() - ref)
+    assert d.max() <= 2 ** -7 * max(1.0, np.abs(ref).max()), d.max()
 
 
 @pytest.mark.parametrize("gelu_mode", ["bitexact", "fast"])

@@ -79,6 +79,8 @@ def test_padded_fold_matches_jax(models):
     j = {k: _np(v) for k, v in PL.fold_layer_weights(lp, jcfg, T).items()}
     w = {k: v.float().numpy() for k, v in K1.fold_layer_weights(pmodel.wav2vec2.encoder.layers[0], pcfg).items()}
     assert w["w_qkv"].shape == (D, 3 * H * HW) and w["wo"].shape == (H * HW, D)
+    assert w["wp"].shape == (H, D_ROT, HW)
+    w["wp_e"], w["wp_o"] = (t.numpy() for t in K1.split_pos_weights(torch.from_numpy(w.pop("wp"))))
     assert w["wp_e"].shape == (H, HW, D_ROT // 2)
     qkv = w["w_qkv"].reshape(D, 3, H, HW)
     bqkv = w["b_qkv"].reshape(3, H, HW)
@@ -140,12 +142,14 @@ def test_padded_and_unpadded_plain_attention_agree(models):
     tab = K1.relpos_kernel_tables(T, D)
     x = torch.randn(B * T, D, generator=g).bfloat16()
     qkv, q_v = K1.gemm_plain(x, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
-    q_rot = K1.pos_query_plain(q_v, w["wp_e"], w["wp_o"], tab["rot_cos"], tab["rot_sin"], T)
+    q_rot = K1.pos_query_plain(q_v, w["wp"], tab["rot_cos"], tab["rot_sin"], T)
     half, pad = D // 2, (D_ROT - D) // 2
     assert not q_rot[..., half:half + pad].any() and not q_rot[..., D_ROT - pad:].any()
     true_cols = torch.cat([torch.arange(half), torch.arange(half + pad, D_ROT - pad)])
-    q_rot_u = K1.pos_query_plain(q_v.view(-1, H, HW)[..., :DH].reshape(-1, H * DH), w["wp_e"][:, :DH, :half],
-                                 w["wp_o"][:, :DH, :half], tab["rot_cos"][:, :half], tab["rot_sin"][:, :half], T)
+    wp_e, wp_o = K1.split_pos_weights(w["wp"])
+    q_rot_u = K1.pos_query_plain(q_v.view(-1, H, HW)[..., :DH].reshape(-1, H * DH),
+                                 K1.pos_weights(wp_e[:, :DH, :half], wp_o[:, :DH, :half]),
+                                 tab["rot_cos"][:, :half], tab["rot_sin"][:, :half], T)
     torch.testing.assert_close(q_rot[..., true_cols].float(), q_rot_u.float(), rtol=2 ** -8, atol=1e-6)
     heads = lambda i, n: qkv.view(B, T, 3, H, HW)[:, :, i, :, :n]  # noqa: E731
     lengths = torch.tensor([T, 1, 0], dtype=torch.int32)
