@@ -24,10 +24,13 @@
    K = 3, 31, 33 and t_valid = T - 5, 1, T, on an input that is a row view of
    a wider buffer, and into the first rows of a larger buffer whose other
    rows must stay untouched; the device time under the profiler of
-   layernorm, pos_query, mel and the two convs at B=8, beside the library calls';
-   the mel kernel and pos_query (flagship and dh 44) once more at the rows of
-   a B=128 x 10 s request, beside their bounds and library calls, with device
-   times; and the mel kernel's accuracy gate: against the folded product in
+   layernorm, pos_query, mel, cmvn, conv1 and the two depthwise convs at B=8,
+   beside the library calls';
+   the mel kernel, cmvn, conv1 (also the share of its outputs equal to the
+   plain version's bit for bit, here and at B=8) and pos_query (flagship and
+   dh 44) once more at the rows of a B=128 x 10 s request, beside their
+   bounds and library calls, with device times (cmvn and conv1 also at B=8);
+   and the mel kernel's accuracy gate: against the folded product in
    fp64, its largest log-mel error at most twice the fp32 plain version's,
    on speech-like input and on the same input x 1e-4, at B=8 and B=128;
 4. writes a flagship E-Branchformer CTC model with seeded random weights
@@ -129,6 +132,14 @@ def mel_errors(K3, wav, n_frames, frontend, cfg):
     got = K3.log_mel(wav, n_frames, frontend.dft, frontend.mel, *args)
     plain = K3.log_mel_plain(wav, n_frames, frontend.dft, frontend.mel, *args)
     return float((got.double() - exact).abs().max()), float((plain.double() - exact).abs().max())
+
+
+def conv1_bit_equal(K2, feats, w) -> float:
+    """Share of conv1's outputs whose bits equal the plain version's."""
+    import torch
+
+    got = K2.conv1(feats, w["w1"], w["b1"]).view(torch.int16)
+    return float((got == K2.conv1_plain(feats, w["w1"], w["b1"]).view(torch.int16)).float().mean())
 
 
 def sum_bound(pieces):
@@ -490,6 +501,8 @@ def main() -> None:
         y1 = compare("conv1", "conv1", lambda: K2.conv1(feats, sw["w1"], sw["b1"]),
                      lambda: K2.conv1_plain(feats, sw["w1"], sw["b1"]), 2 ** -7,
                      library_fn=lambda: F.conv2d(feats[:, None], cw[0], stride=2, padding=1), work=work_conv1)
+        print(f"  conv1: {conv1_bit_equal(K2, feats, sw):.6f} of its outputs equal the plain version's bit for bit",
+              flush=True)
         y1_nchw = y1.permute(0, 3, 1, 2)  # (B, C, T1, F1) view, channels last in memory
         rows2 = B * T_pad * ((y1.shape[2] + 1) // 2)
         work_conv2 = (2.0 * rows2 * C * 9 * C, nbytes(y1, sw["w2"], sw["b2"]) + 2 * rows2 * C, "bf16")
@@ -600,6 +613,10 @@ def main() -> None:
                 "layernorm": device_ms(lambda: K1.layer_norm(xf, w["attn_ln_g"], w["attn_ln_b"], 1e-5)),
                 "pos_query": device_ms(lambda: K1.pos_query(*pq_args)),
                 "mel": device_ms(lambda: K3.log_mel(wav, *mel_args)),
+                "cmvn": device_ms(lambda: K3.cmvn(lm, feat_lens)),
+                "conv1": device_ms(lambda: K2.conv1(feats, sw["w1"], sw["b1"])),
+                "F.conv2d (conv1's library call)": device_ms(lambda: F.conv2d(feats[:, None], cw[0], stride=2,
+                                                                                padding=1)),
                 "dwconv_csgu": device_ms(lambda: K1.csgu(l, *args)),
                 "dwconv_merge": device_ms(lambda: K1.merge_conv(merged, *margs)),
                 "F.conv1d csgu": device_ms(lambda: F.conv1d(gate_in, dw_c, padding=(Kc - 1) // 2, groups=Cg)),
@@ -611,16 +628,18 @@ def main() -> None:
             print("  device ms per call under the profiler (B=8, 10 s): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()), flush=True)
 
-    # ---- K3's mel kernel and K1's positional query at the rows of a B=128 x
-    # 10 s request, each beside its bound and library call, with device times
-    # under the profiler; and the mel kernel's accuracy gate: its largest
-    # log-mel error against the folded product in fp64 at most twice the fp32
-    # plain version's (cuBLAS, TF32 off), on speech-like input and on the same
-    # input x 1e-4 (bins near the mel floor), at B=8 and B=128
+    # ---- K3's mel kernel and CMVN, K2's conv1 and K1's positional query at
+    # the rows of a B=128 x 10 s request, each beside its bound and library
+    # call, with device times under the profiler; and the mel kernel's
+    # accuracy gate: its largest log-mel error against the folded product in
+    # fp64 at most twice the fp32 plain version's (cuBLAS, TF32 off), on
+    # speech-like input and on the same input x 1e-4 (bins near the mel
+    # floor), at B=8 and B=128
     B_big, S10 = 128, 160000
     n10 = int(mel_cfg.num_frames(S10))
     T10 = -(-int(feat_extract_output_frames(cfg, n10)) // 8) * 8
-    print(f"-- mel and pos_query at B={B_big} x 10 s (T_in={n10}, T_pad={T10}); the mel kernel against fp64",
+    print(f"-- mel, cmvn, conv1 and pos_query at B={B_big} x 10 s (T_in={n10}, T_pad={T10}); the mel kernel "
+          "against fp64",
           flush=True)
     gen_w = np.random.default_rng(128)
     wavs_big = np.zeros((B_big, S10), np.float32)
@@ -644,7 +663,26 @@ def main() -> None:
                   f"ratio {err_k / err_p:.3f} (at most 2) {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 failures.append(f"mel against fp64, {name}")
-        del wav_big, big_plain
+        # K3's CMVN and K2's conv1 on this request's log-mel (lengths of 9.25-10 s)
+        lm_big = K3.log_mel(wav_big, *big_args)
+        lens_big = torch.tensor([int((10.0 - 0.05 * (i % 16)) * 16000) for i in range(B_big)],  # speech()'s
+                                dtype=torch.int32, device=dev)
+        n_big = torch.clamp(mel_cfg.num_frames(lens_big.long()), 0, n10).int()
+        feats_big = compare(f"cmvn B={B_big}", "cmvn_b128", lambda: K3.cmvn(lm_big, n_big),
+                            lambda: K3.cmvn_plain(lm_big, n_big), 2 ** -7,
+                            work=(8.0 * lm_big.numel(), nbytes(lm_big) + 2 * lm_big.numel(), "fp32"))
+        T1_big = (n10 + 1) // 2
+        compare(f"conv1 B={B_big}", "conv1_b128", lambda: K2.conv1(feats_big, sw["w1"], sw["b1"]),
+                lambda: K2.conv1_plain(feats_big, sw["w1"], sw["b1"]), 2 ** -7,
+                library_fn=lambda: F.conv2d(feats_big[:, None], cw[0], stride=2, padding=1),
+                work=(2.0 * 9 * C * B_big * T1_big * (n_mel // 2),
+                      nbytes(feats_big, sw["w1"], sw["b1"]) + 2 * C * B_big * T1_big * (n_mel // 2), "bf16"))
+        print(f"  conv1 B={B_big}: {conv1_bit_equal(K2, feats_big, sw):.6f} of its outputs equal the plain "
+              f"version's bit for bit", flush=True)
+        print(f"  B={B_big} device ms under the profiler: cmvn {device_ms(lambda: K3.cmvn(lm_big, n_big)):.4f}, "
+              f"conv1 {device_ms(lambda: K2.conv1(feats_big, sw['w1'], sw['b1'])):.4f} (F.conv2d in bf16 "
+              f"{device_ms(lambda: F.conv2d(feats_big[:, None], cw[0], stride=2, padding=1)):.4f})", flush=True)
+        del wav_big, big_plain, lm_big, feats_big
         torch.cuda.empty_cache()
         M_big = B_big * T10
         q_v_big = torch.randn(M_big, w["wp"].shape[0] * w["wp"].shape[2],

@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the kernels that run on wgmma (conv2.cu,
 // gemm.cuh, layer.cu's positional query and, through attention_wgmma.cuh, rel_attention.cu,
 // rel_attention_train_fwd.cu, rel_attention_train_bwd.cu and
-// rel_attention_shift_bf16.cu): mbarriers, TMA tile loads, the warpgroup
-// matrix product and its shared-memory matrix descriptors, register
-// re-allocation between warpgroups, the 16-byte store of an accumulator
-// fragment, and the host-side tensor map.
+// rel_attention_shift_bf16.cu) and by mel.cu's CMVN: mbarriers, TMA tile
+// loads and bulk copies, thread-block clusters, the warpgroup matrix product
+// and its shared-memory matrix descriptors, register re-allocation between
+// warpgroups, the 16-byte store of an accumulator fragment, and the
+// host-side tensor map.
 //
 // Shared-memory operand layouts used here (bf16, T = 8 elements = 16 bytes):
 //   K-major, 128-byte swizzle: rows of 64 elements (128 B), groups of 8 rows
@@ -98,6 +99,38 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
         "[%0], [%1, {%3, %4, %5, %6}], [%2];"
         ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
         : "memory");
+}
+
+// ---- bulk copy of `bytes` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned) into this block's shared memory
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+// ---- thread-block clusters: every thread of every block of the cluster
+// executes an arrive before the matching wait
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+    return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// A float in the shared memory of block `rank` of the cluster, at the offset
+// that `local` has in this block's.
+__device__ __forceinline__ float ld_cluster(const float* local, uint32_t rank) {
+    uint32_t remote;
+    float v;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(smem_u32(local)), "r"(rank));
+    asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(remote) : "memory");
+    return v;
 }
 
 // ---- wgmma

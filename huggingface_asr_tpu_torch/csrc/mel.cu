@@ -34,11 +34,25 @@
 //     adds its 8 frames x 5 mel columns of power @ melbank over the pass's
 //     bins, in bin order; after the last pass, log and one fp32 store.
 //
-// CMVN needs statistics over the whole utterance, so it is a second pass:
-// one block per utterance, one thread per (mel bin, row group), fp32 sums,
-// in the TPU kernel's op order (count clamped at 1, divide by sqrt(var) with
-// no epsilon), masked rows written as exact zeros, output bf16.
-#include "common.cuh"
+// CMVN needs statistics over the whole utterance, so it is a second kernel,
+// in the TPU kernel's op order (the mean first, then the variance of the
+// centred values, var - mean^2 only without mean normalisation; count clamped
+// at 1, divide by sqrt(var) with no epsilon), rows at and past the length
+// written as exact zeros, output bf16. It is bound by bytes (the fp32 log-mel
+// read once, the bf16 features written once: 0.018 ms at B=128 x 10 s), so
+// an utterance is spread over a thread-block cluster of 8 blocks, each
+// holding its eighth of the frames (40 KB at 10 s) in shared memory from one
+// bulk copy: the per-bin sums of both passes are read from there and
+// exchanged through distributed shared memory (sums in frame order per
+// thread, then over the block's frame groups, then over the cluster in rank
+// order), and the block writes its frames in 16-byte pieces. A block whose
+// frames do not fit 160 KB reads them again, chunk by chunk, in every pass.
+// What holds it at ~2.4x its byte bound at B=128 (about twice a bf16 cast of
+// the same input, PERF.md section 6): the cluster exchange, a quarter of its time
+// there, since a block waits at the first cluster barrier for the slowest
+// load of its cluster while its writes and the next blocks' loads wait behind
+// it (1,024 blocks, four an SM, two waves).
+#include "hopper.cuh"
 
 namespace {
 
@@ -172,46 +186,149 @@ mel_kernel(const float* __restrict__ wav, int S, const float* __restrict__ dft,
     }
 }
 
-constexpr int CMVN_GROUPS = 4;
+constexpr int CMVN_CLUSTER = 8;                 // blocks of an utterance
+constexpr int CMVN_THREADS = 320;               // 20 column groups of 4 bins x 16 frame groups at 80 bins
+constexpr int CMVN_CHUNK_BYTES = 160 * 1024;    // of a block's frames held in shared memory at once
 
-__global__ void cmvn_kernel(const float* __restrict__ lm, const int* __restrict__ lengths,
-                            bf16* __restrict__ out, int n_frames, int n_mel, int norm_means,
-                            int norm_vars) {
-    extern __shared__ float red[];  // [CMVN_GROUPS][n_mel]
-    const int b = blockIdx.x;
-    const int m = threadIdx.x % n_mel, g = threadIdx.x / n_mel;
-    const int n = lengths[b];
+// lm: [B, n_frames, n_mel] fp32; lengths: [B]; out: [B, n_frames, n_mel] bf16.
+// A cluster of CMVN_CLUSTER blocks per utterance (grid (CMVN_CLUSTER, B)),
+// block r owning frames [r * per, (r + 1) * per). Shared memory: the block's
+// frames ([chunk][n_mel] fp32), the frame groups' partial sums ([G][n_mel]),
+// the block's sums of both passes ([2][n_mel], read by the whole cluster),
+// shift and divisor ([2][n_mel]), the mbarrier.
+__global__ void __launch_bounds__(CMVN_THREADS)
+cmvn_kernel(const float* __restrict__ lm, const int* __restrict__ lengths, bf16* __restrict__ out,
+            int n_frames, int n_mel, int per, int chunk, int norm_means, int norm_vars) {
+    using namespace hopper;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int Q = n_mel / 4, G = CMVN_THREADS / Q;
+    float* xs = reinterpret_cast<float*>(smem);
+    float* part = xs + (size_t)chunk * n_mel;
+    float* sums = part + G * n_mel;
+    float* stat = sums + 2 * n_mel;
+    const uint32_t bar = smem_u32(stat + 2 * n_mel);
+    const int tid = threadIdx.x, q = tid % Q, g = tid / Q;  // bins 4q .. 4q + 3 of frames g, g + G, ..
+    const int b = blockIdx.y;
+    const int f_lo = (int)cluster_rank() * per, f_hi = min(f_lo + per, n_frames);
+    const int n = min(lengths[b], n_frames);
+    const int n_ld = max(0, min(n, f_hi) - f_lo);  // this block's frames below the length
     const float count = fmaxf((float)n, 1.0f);
-    const float* x = lm + (size_t)b * n_frames * n_mel;
+    const float* x = lm + ((size_t)b * n_frames + f_lo) * n_mel;
+    bf16* o = out + ((size_t)b * n_frames + f_lo) * n_mel;
+    const bool resident = n_ld <= chunk;
 
-    auto block_sum = [&](float v) {
-        red[g * n_mel + m] = v;
+    if (tid == 0) {
+        mbar_init(bar, 1);
+        mbar_init_fence();
+    }
+    __syncthreads();
+    uint32_t phase = 0;
+    auto load = [&](int c0, int cn) {  // this block's frames c0 .. c0 + cn - 1 into xs
+        if (tid == 0) {
+            const uint32_t bytes = (uint32_t)cn * n_mel * 4;
+            mbar_arrive_expect_tx(bar, bytes);
+            bulk_load(smem_u32(xs), x + (size_t)c0 * n_mel, bytes, bar);
+        }
+        mbar_wait(bar, phase);
+        phase ^= 1;
+    };
+    // body(c0, cn) over the block's frames below the length: held once where
+    // they fit, else chunk by chunk (read again by every pass)
+    auto visit = [&](auto&& body) {
+        if (resident) {
+            body(0, n_ld);
+            return;
+        }
+        for (int c0 = 0; c0 < n_ld; c0 += chunk) {
+            __syncthreads();  // every thread is done with the previous chunk
+            load(c0, min(chunk, n_ld - c0));
+            body(c0, min(chunk, n_ld - c0));
+        }
+    };
+    // dst[m] = the whole utterance's sum of term(x, m) over the frames below
+    // the length: per thread in frame order, then over the frame groups, then
+    // over the cluster's blocks in rank order (every block gets the same sum)
+    auto utterance_sums = [&](float* mine, float* dst, auto&& term) {
+        float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        visit([&](int, int cn) {
+            if (g < G)
+                for (int f = g; f < cn; f += G) {
+                    const float4 v = reinterpret_cast<const float4*>(xs + (size_t)f * n_mel)[q];
+                    s.x += term(v.x, 4 * q);
+                    s.y += term(v.y, 4 * q + 1);
+                    s.z += term(v.z, 4 * q + 2);
+                    s.w += term(v.w, 4 * q + 3);
+                }
+        });
+        if (g < G) reinterpret_cast<float4*>(part + g * n_mel)[q] = s;
         __syncthreads();
-        float s = 0.0f;
-        for (int i = 0; i < CMVN_GROUPS; ++i) s += red[i * n_mel + m];
+        if (tid < n_mel) {
+            float t = 0.0f;
+            for (int i = 0; i < G; ++i) t += part[i * n_mel + tid];
+            mine[tid] = t;
+        }
+        cluster_arrive();
+        cluster_wait();  // every block's sums are in place
+        if (tid < n_mel) {
+            float t = 0.0f;
+            for (int r = 0; r < CMVN_CLUSTER; ++r) t += ld_cluster(mine + tid, r);
+            dst[tid] = t;
+        }
         __syncthreads();
-        return s;
     };
 
-    float s = 0.0f;
-    for (int t = g; t < n; t += CMVN_GROUPS) s += x[(size_t)t * n_mel + m];
-    const float mean = block_sum(s) / count;
-    const float shift = norm_means ? mean : 0.0f;
-    float sd = 1.0f;
-    if (norm_vars) {
-        float q = 0.0f;
-        for (int t = g; t < n; t += CMVN_GROUPS) {
-            const float d = x[(size_t)t * n_mel + m] - shift;
-            q += d * d;
+    if (resident && n_ld > 0) load(0, n_ld);
+    float* shift = stat;
+    float* sd = stat + n_mel;
+    if (tid < n_mel) {
+        shift[tid] = 0.0f;
+        sd[tid] = 1.0f;
+    }
+    if (norm_means || norm_vars) {
+        utterance_sums(sums, part, [](float v, int) { return v; });
+        // part[m] holds the sum; part is reused only after the next barrier
+        float mean = 0.0f;
+        if (tid < n_mel) {
+            mean = part[tid] / count;
+            if (norm_means) shift[tid] = mean;
         }
-        float var = block_sum(q) / count;
-        if (!norm_means) var -= mean * mean;
-        sd = sqrtf(var);
+        __syncthreads();
+        if (norm_vars) {
+            utterance_sums(sums + n_mel, part, [&](float v, int m) {
+                const float d = v - shift[m];
+                return __fmul_rn(d, d);
+            });
+            if (tid < n_mel) {
+                float var = part[tid] / count;
+                if (!norm_means) var = var - __fmul_rn(mean, mean);
+                sd[tid] = sqrtf(var);
+            }
+            __syncthreads();
+        }
+        cluster_arrive();  // this block reads no other block's shared memory after here
     }
-    for (int t = g; t < n_frames; t += CMVN_GROUPS) {
-        const float v = t < n ? (x[(size_t)t * n_mel + m] - shift) / sd : 0.0f;
-        out[((size_t)b * n_frames + t) * n_mel + m] = to_bf(v);
-    }
+
+    // bf16 out in 16-byte pieces of 8 bins: (x - shift) / sd below the length, zeros from it on
+    const int P = n_mel / 8;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = tid; i < (f_hi - f_lo - n_ld) * P; i += CMVN_THREADS)
+        reinterpret_cast<uint4*>(o + (size_t)(n_ld + i / P) * n_mel)[i % P] = zero;
+    visit([&](int c0, int cn) {
+        for (int i = tid; i < cn * P; i += CMVN_THREADS) {
+            const int f = i / P, p = i % P;
+            const float* v = xs + (size_t)f * n_mel + 8 * p;
+            uint32_t w[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int m = 8 * p + 2 * j;
+                const __nv_bfloat162 y = __floats2bfloat162_rn((v[2 * j] - shift[m]) / sd[m],
+                                                               (v[2 * j + 1] - shift[m + 1]) / sd[m + 1]);
+                w[j] = *reinterpret_cast<const uint32_t*>(&y);
+            }
+            reinterpret_cast<uint4*>(o + (size_t)(c0 + f) * n_mel)[p] = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+    });
+    if (norm_means || norm_vars) cluster_wait();  // no block leaves while another reads its sums
 }
 
 }  // namespace
@@ -233,13 +350,35 @@ ASR_API int asr_log_mel(const void* wav, const void* dft, const void* melbank, v
 }
 
 // lm: [B, n_frames, n_mel] fp32; lengths: [B] int32 frame counts;
-// out: [B, n_frames, n_mel] bf16, rows >= length exact zeros.
+// out: [B, n_frames, n_mel] bf16, rows >= length exact zeros. Takes n_mel % 8
+// == 0, n_mel <= CMVN_THREADS (a thread a bin for the sums) and 16-byte
+// aligned tensors (the wrapper's are).
 ASR_API int asr_cmvn(const void* lm, const void* lengths, void* out, int B, int n_frames,
                      int n_mel, int norm_means, int norm_vars, void* stream) {
-    const int threads = n_mel * CMVN_GROUPS;
-    if (threads > 1024) return static_cast<int>(cudaErrorInvalidValue);
-    cmvn_kernel<<<B, threads, threads * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(lm), static_cast<const int*>(lengths), static_cast<bf16*>(out),
-        n_frames, n_mel, norm_means, norm_vars);
+    if (B < 1 || B > 65535 || n_frames < 1 || n_mel < 8 || n_mel % 8 || n_mel > CMVN_THREADS ||
+        reinterpret_cast<uintptr_t>(lm) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int per = ceil_div(n_frames, CMVN_CLUSTER);
+    const int max_chunk = CMVN_CHUNK_BYTES / (n_mel * 4);
+    const int chunk = per < max_chunk ? per : max_chunk;
+    const int G = CMVN_THREADS / (n_mel / 4);
+    const size_t smem = ((size_t)chunk + G + 4) * n_mel * 4 + 8;
+    cudaError_t err = cudaFuncSetAttribute(cmvn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CMVN_CLUSTER, B);
+    cfg.blockDim = dim3(CMVN_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CMVN_CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, cmvn_kernel, static_cast<const float*>(lm), static_cast<const int*>(lengths),
+                             static_cast<bf16*>(out), n_frames, n_mel, per, chunk, norm_means, norm_vars);
+    if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,13 +1,14 @@
 """A/B of kernel source variants on one NVIDIA GPU.
 
-    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm,dwconv,mel,posq DIR_A [DIR_B ...]
+    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm,dwconv,mel,posq,conv1,cmvn,ln DIR_A [DIR_B ...]
 
 Each DIR is a directory holding a full copy of ``huggingface_asr_tpu_torch/csrc``
 (the package's own directory is a valid DIR). Every variant is built and run in
 a process of its own, in the order A B ... B A, so that two variants are
 compared inside one call on one card. For each variant the script prints
 ptxas's register and spill lines for the wgmma kernels, then holds conv2
-(``conv2``), the bf16 training-attention forward (``k4``), the fused layer's
+(``conv2``, timed beside ``F.conv2d`` in bf16, device times), the bf16
+training-attention forward (``k4``), the fused layer's
 inference attention (``k1``) and the bf16 shift-form inference attention
 (``k5``) against their plain versions at small, ragged and flagship shapes and
 times them with CUDA events (median of 5 windows of 20 calls). For ``k1`` and
@@ -28,7 +29,13 @@ seeded synthetic speech, and against the folded product in fp64 on that speech
 and on it x 1e-4 (its largest error at most twice the cuBLAS fp32 product's),
 and times it beside the cuBLAS fp32 product (device times); ``posq`` holds the positional query at head widths 32 (8 heads, q_rot
 256) and 64 (4 heads, q_rot 192) at M = 2,048 and 32,768 rows and times it
-beside ``torch.bmm`` (device times).
+beside ``torch.bmm`` (device times); ``conv1`` and ``cmvn`` hold the subsampler's conv1 and the
+utterance CMVN against their plain versions at B = 8 and 128 x 998 frames (seeded log-mel, the smoke's
+ragged lengths) and time them beside their bounds, cmvn also beside a bf16 cast of its input (the same bytes
+moved by one streaming kernel), conv1 also beside ``F.conv2d`` in bf16 (device times)
+with the share of its outputs equal to the plain version's bit for bit, and beside ``fill_`` of its output (the
+card's rate of writing those bytes); ``ln`` holds the LayerNorm at M = 2,048 and 32,768 rows (D = 256) against its
+plain version and times it beside ``F.layer_norm`` in bf16 (device times).
 Exits non-zero without a CUDA device.
 """
 
@@ -133,7 +140,8 @@ def run_variant(csrc: str, what: str) -> None:
     _build.CSRC = pathlib.Path(csrc).resolve()
     _build.library()
     sources = {"conv2": "conv2", "k4": "train_fwd", "k4bwd": "train_bwd", "k1": "rel_attention.cu", "k5": "shift",
-               "gemm": "layer.cu", "dwconv": "dwconv", "mel": "mel.cu", "posq": "layer.cu"}
+               "gemm": "layer.cu", "dwconv": "dwconv", "mel": "mel.cu", "posq": "layer.cu",
+               "conv1": "subsample.cu", "cmvn": "mel.cu", "ln": "layer.cu"}
     keep = False
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("=="):
@@ -227,6 +235,48 @@ def run_variant(csrc: str, what: str) -> None:
                 print(f"mel B={B}: err={err:.3e} fp64 kernel/cublas: {', '.join(gate)} {'ok' if ok else 'FAIL'} "
                       f"ms={timed(kernel):.4f} device_ms={device_ms(kernel):.4f} "
                       f"cublas_fp32_device_ms={device_ms(library):.4f}", flush=True)
+    if "conv1" in what.split(",") or "cmvn" in what.split(","):
+        import torch.nn.functional as F
+
+        from chip_smoke import bound
+        from huggingface_asr_tpu_torch.kernels import mel as K3
+
+        C, n_mel, T_in = 256, 80, 998
+        gen = torch.Generator().manual_seed(10)
+        w1 = (torch.randn(9, C, generator=gen) / 3).bfloat16().to(dev)
+        b1 = (torch.randn(C, generator=gen) * 0.1).bfloat16().float().to(dev)
+        w_lib = w1.t().reshape(C, 1, 3, 3).contiguous()
+        lm_all = (torch.randn(128, T_in, n_mel, generator=gen) * 2.0 - 3.0).to(dev)
+        n_all = torch.tensor(smoke_lengths(128, T_in), dtype=torch.int32, device=dev)
+        for B in (8, 128):
+            lm, n = lm_all[:B].contiguous(), n_all[:B].contiguous()
+            feats = K3.cmvn_plain(lm, n)
+            if "cmvn" in what.split(","):
+                kernel = lambda: K3.cmvn(lm, n)  # noqa: E731
+                got, ref = kernel().float(), feats.float()
+                err = float((got - ref).abs().max())
+                ok = bool(torch.isfinite(got).all()) and err <= 2 ** -7 * max(1.0, float(ref.abs().max()))
+                ms_b, _ = bound(8.0 * lm.numel(), 6 * lm.numel(), "fp32")
+                print(f"cmvn B={B} T={T_in}: err={err:.3e} {'ok' if ok else 'FAIL'} ms={timed(kernel):.4f} "
+                      f"device_ms={device_ms(kernel):.4f} bound_ms={ms_b:.4f} "
+                      f"cast_device_ms={device_ms(lambda: lm.to(torch.bfloat16)):.4f}", flush=True)
+            if "conv1" in what.split(","):
+                kernel = lambda: K2.conv1(feats, w1, b1)  # noqa: E731
+                library = lambda: F.conv2d(feats[:, None], w_lib, stride=2, padding=1)  # noqa: E731
+                got, ref = kernel(), K2.conv1_plain(feats, w1, b1)
+                err = float((got.float() - ref.float()).abs().max())
+                same = float((got.view(torch.int16) == ref.view(torch.int16)).float().mean())
+                scale = max(1.0, float(ref.float().abs().max()))
+                ok = bool(torch.isfinite(got.float()).all()) and err <= 2 ** -7 * scale
+                T1 = (T_in - 1) // 2 + 1
+                ms_b, _ = bound(2.0 * 9 * C * B * T1 * 40, 2 * feats.numel() + 2 * C * B * T1 * 40, "bf16")
+                with torch.no_grad():
+                    print(f"conv1 B={B} T_in={T_in}: err={err:.3e} bit-equal={same:.6f} {'ok' if ok else 'FAIL'} "
+                          f"ms={timed(kernel):.4f} device_ms={device_ms(kernel):.4f} bound_ms={ms_b:.4f} "
+                          f"conv2d_device_ms={device_ms(library):.4f} "
+                          f"fill_device_ms={device_ms(lambda: got.fill_(1.0)):.4f}", flush=True)
+            del feats
+            torch.cuda.empty_cache()
     if "posq" in what.split(","):
         for H, hw, D in ((8, 32, 256), (4, 64, 192)):
             for M in (2048, 32768):
@@ -244,7 +294,25 @@ def run_variant(csrc: str, what: str) -> None:
                 print(f"pos_query H={H} hw={hw} D={D} M={M}: err={err:.3e} {'ok' if ok else 'FAIL'} "
                       f"ms={timed(kernel):.4f} device_ms={device_ms(kernel):.4f} bmm_device_ms={device_ms(library):.4f}",
                       flush=True)
+    if "ln" in what.split(","):
+        import torch.nn.functional as F
+
+        for M in (2048, 32768):  # B = 8 and 128 x T_pad 256
+            gen = torch.Generator().manual_seed(M)
+            x = torch.randn(M, 256, generator=gen).bfloat16().to(dev)
+            ln_g = (1.0 + 0.1 * torch.randn(256, generator=gen)).to(dev)
+            ln_b = (0.1 * torch.randn(256, generator=gen)).to(dev)
+            g16, b16 = ln_g.bfloat16(), ln_b.bfloat16()
+            kernel = lambda: K1.layer_norm(x, ln_g, ln_b, 1e-5)  # noqa: E731
+            library = lambda: F.layer_norm(x, (256,), g16, b16, 1e-5)  # noqa: E731
+            got, ref = kernel().float(), K1.layer_norm_plain(x, ln_g, ln_b, 1e-5).float()
+            err = float((got - ref).abs().max())
+            ok = err <= 2 ** -7 * max(1.0, float(ref.abs().max()))
+            print(f"layernorm M={M}: err={err:.3e} {'ok' if ok else 'FAIL'} ms={timed(kernel):.4f} "
+                  f"device_ms={device_ms(kernel):.4f} layer_norm_device_ms={device_ms(library):.4f}", flush=True)
     if "conv2" in what.split(","):
+        import torch.nn.functional as F
+
         for B, T1, T2 in CONV2_SHAPES:
             y1 = torch.randn(B, T1, 40, 256, generator=g).bfloat16().to(dev)
             w2 = (torch.randn(9 * 256, 256, generator=g) * 0.02).bfloat16().to(dev)
@@ -255,8 +323,14 @@ def run_variant(csrc: str, what: str) -> None:
                 ref = K2.conv2_plain(y1, w2, b2, T2).float()
                 err = float((got.float() - ref).abs().max())
                 verdict = f"err={err:.3e} {'ok' if err <= tol * max(1.0, float(ref.abs().max())) else 'FAIL'}"
-            print(f"conv2 B={B} T2={T2} rows={got.shape[0]} {verdict} "
-                  f"ms={timed(lambda: K2.conv2(y1, w2, b2, T2)):.4f}", flush=True)
+            # library call: F.conv2d in bf16 on the (B, C, T1, F1) view, without the bias and GELU
+            w_lib = w2.reshape(3, 3, 256, 256).permute(3, 2, 0, 1).contiguous()
+            library = lambda: F.conv2d(y1.permute(0, 3, 1, 2), w_lib, stride=2, padding=1)  # noqa: E731
+            with torch.no_grad():
+                print(f"conv2 B={B} T2={T2} rows={got.shape[0]} {verdict} "
+                      f"ms={timed(lambda: K2.conv2(y1, w2, b2, T2)):.4f} "
+                      f"device_ms={device_ms(lambda: K2.conv2(y1, w2, b2, T2)):.4f} "
+                      f"conv2d_device_ms={device_ms(library):.4f}", flush=True)
             del y1, got
     if "k4" in what.split(","):
         for B, T, H, D, lens, rate in K4_SHAPES:

@@ -200,6 +200,112 @@ def test_subsample(fused, B, T2):
     _close(K2.conv_subsample(feats, w, CFG, T2), K2.conv_subsample_plain(feats, w, CFG, T2), 0.05)
 
 
+# ---- conv1 (csrc/subsample.cu) and the utterance CMVN (csrc/mel.cu::cmvn_kernel)
+# where their designs can break: conv1's persistent warps at frame counts that
+# leave warps idle or take two frames, the time padding at odd and even T_in,
+# the GELU table's edges; the CMVN cluster's slices at frame counts that are no
+# multiple of them, lengths at 0, 1, 2, n_frames - 1 and n_frames, frames that
+# do not fit a block's shared memory at once, all four normalisation modes.
+
+
+def _close_nan(got, ref, rel):
+    """``_close`` on the finite values; NaNs and infinities must sit in the
+    same places on both sides, the infinities with the same sign."""
+    g, r = got.float(), ref.float()
+    assert torch.equal(torch.isnan(g), torch.isnan(r))
+    inf = torch.isinf(r)
+    assert torch.equal(torch.isinf(g), inf) and torch.equal(g[inf], r[inf])
+    finite = torch.isfinite(r)
+    _close(torch.where(finite, g, 0.0), torch.where(finite, r, 0.0), rel)
+
+
+@pytest.mark.parametrize("B", [1, 3, 33])
+@pytest.mark.parametrize("T_in", [998, 997, 1, 2, 3])
+def test_conv1_against_plain(fused, B, T_in):
+    dev = _cuda()
+    _, fm = fused
+    w = fm.subsample
+    feats = torch.randn(B, T_in, 80, generator=torch.Generator().manual_seed(B * T_in)).bfloat16().to(dev)
+    _build.reset_launch_counts()
+    got = K2.conv1(feats, w["w1"], w["b1"])
+    assert _build.LAUNCHES["asr_conv1"] == 1 and got.shape == (B, (T_in - 1) // 2 + 1, 40, 256)
+    _close(got, K2.conv1_plain(feats, w["w1"], w["b1"]), 2 ** -7)
+
+
+@pytest.mark.parametrize("bias", ["zero", "seeded"])
+def test_conv1_gelu_on_every_bf16_value(bias):
+    """With the centre tap 1 and the others 0, conv1's output at (t1, f1) in
+    channel c is GELU(bf16(x + b1[c])) of the input x at (2 t1, 2 f1): all
+    65,536 bf16 values (zeros, subnormals, infinities and NaNs among them) sit
+    at those places, zeros everywhere else. With a zero bias every channel is
+    the GELU of every bf16 value; seeded biases of magnitudes from 2^-30 to
+    2^6, both signs, hold the bias add's rounding against the plain version's
+    on every input too. The kernel's output equals the plain version's
+    expression (``act_plain("gelu")`` of the bf16 sum, rounded to bf16: what
+    ``conv1_plain`` applies) exactly, NaNs in place."""
+    dev = _cuda()
+    T1, F1 = 1639, 40
+    values = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    grid = torch.zeros(T1 * F1, dtype=torch.bfloat16)
+    grid[:65536] = values
+    feats = torch.zeros(1, 2 * T1 - 1, 2 * F1, dtype=torch.bfloat16)
+    feats[0, 0::2, 0::2] = grid.view(T1, F1)
+    w1 = torch.zeros(9, 256, dtype=torch.bfloat16, device=dev)
+    w1[4] = 1.0
+    b1 = torch.zeros(256)
+    if bias == "seeded":
+        g = torch.Generator().manual_seed(7)
+        b1 = torch.randn(256, generator=g).sign() * 2.0 ** torch.randint(-30, 7, (256,), generator=g)
+        b1 = (b1 * (1.0 + torch.rand(256, generator=g))).bfloat16().float()
+    b1 = b1.to(dev)
+    got = K2.conv1(feats.to(dev), w1, b1).float()
+    x = grid.float().to(dev).view(1, T1, F1, 1)
+    ref = K1.act_plain("gelu", (x + b1).bfloat16().float()).bfloat16().float()
+    nan = torch.isnan(ref)
+    assert int(nan.sum()) > 0 and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(torch.where(nan, 0.0, got), torch.where(nan, 0.0, ref))
+
+
+@pytest.mark.parametrize("norm_means,norm_vars", [(True, True), (True, False), (False, True), (False, False)])
+@pytest.mark.parametrize("n_frames", [998, 13, 4801])
+def test_cmvn_lengths_and_modes(n_frames, norm_means, norm_vars):
+    dev = _cuda()
+    lens = [0, 1, 2, n_frames - 1, n_frames, n_frames // 2 + 3]
+    g = torch.Generator().manual_seed(n_frames)
+    lm = (torch.randn(len(lens), n_frames, 80, generator=g) * 3.0 - 4.0).to(dev)
+    n = torch.tensor(lens, dtype=torch.int32, device=dev)
+    _build.reset_launch_counts()
+    got = K3.cmvn(lm, n, norm_means, norm_vars)
+    assert _build.LAUNCHES["asr_cmvn"] == 1 and got.dtype == torch.bfloat16 and got.shape == lm.shape
+    _close_nan(got, K3.cmvn_plain(lm, n, norm_means, norm_vars), 2 ** -7)
+    for i, length in enumerate(lens):
+        assert not got[i, max(length, 0):].float().any()
+
+
+@pytest.mark.parametrize("B", [1, 128])
+def test_conv1_and_cmvn_at_the_frames_of_10_s(fused, B):
+    """B = 128 x 998 frames (a B=128 x 10 s request) and one utterance: a
+    cluster then holds one utterance's work."""
+    dev = _cuda()
+    _, fm = fused
+    w = fm.subsample
+    g = torch.Generator().manual_seed(B)
+    lm = (torch.randn(B, 998, 80, generator=g) * 2.0 - 3.0).to(dev)
+    n = torch.tensor([998 - (7 * i) % 200 for i in range(B)], dtype=torch.int32, device=dev)
+    feats = K3.cmvn(lm, n)
+    _close_nan(feats, K3.cmvn_plain(lm, n), 2 ** -7)
+    _close(K2.conv1(feats, w["w1"], w["b1"]), K2.conv1_plain(feats, w["w1"], w["b1"]), 2 ** -7)
+
+
+def test_conv1_and_cmvn_refuse_what_they_do_not_take():
+    dev = _cuda()
+    with pytest.raises(RuntimeError):  # conv1 holds C == 256 channels in a warp
+        K2.conv1(torch.zeros(1, 9, 80, dtype=torch.bfloat16, device=dev),
+                 torch.zeros(9, 64, dtype=torch.bfloat16, device=dev), torch.zeros(64, device=dev))
+    with pytest.raises(RuntimeError):  # cmvn writes 16-byte pieces of 8 bins
+        K3.cmvn(torch.zeros(2, 9, 20, device=dev), torch.ones(2, dtype=torch.int32, device=dev))
+
+
 def test_ctc_infer_launches_kernels_and_matches_plain(fused):
     dev = _cuda()
     _, fm = fused

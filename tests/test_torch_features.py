@@ -117,3 +117,48 @@ def test_cpu_tensors_launch_nothing():
     wav, lens = _wave(2)
     K3.MelFrontEnd(LogMelConfig())(torch.from_numpy(wav), torch.from_numpy(lens))
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("norm_means,norm_vars", [(True, True), (True, False), (False, True), (False, False)])
+def test_plain_cmvn_at_edge_lengths_matches_pallas_interpret(norm_means, norm_vars):
+    """The plain CMVN (what the CUDA kernel is held to on the card) against the
+    Pallas kernel's fused CMVN in interpret mode in each normalisation mode, at
+    the lengths the kernel's cluster slices meet: 0, 1 and 2 frames, all
+    frames but one and all of them. Non-finite values (the one-frame
+    utterance's zero variance) sit in the same places with the same values;
+    the rest within one bf16 rounding of values up to ~4 (2e-2, as above).
+    Without mean normalisation the variance is mean(x^2) - mean^2, which for
+    one or two frames cancels to (nearly) nothing: for one frame it is x^2 -
+    x^2, whose last rounding each side decides (XLA's fused multiply-add
+    leaves a residue of either sign, the plain version an exact zero), and
+    both sides give a non-finite value or one of magnitude at least 2^10; for
+    two frames the cancellation multiplies the rounding differences past one
+    bf16 ulp. There those two utterances are checked only for that and for
+    their zeros past the length, the others (values up to ~64, where the
+    cancellation still doubles the rounding differences) within 2^-6 of
+    their scale."""
+    S = 16000
+    n_frames = int(LogMelConfig().num_frames(S))
+    lens = np.asarray([0, 400, 560, S - 160, S], np.int32)  # 0, 1, 2, n_frames - 1 and n_frames frames
+    wav = np.random.default_rng(6).standard_normal((len(lens), S)).astype(np.float32) * 0.1
+    cfg = dict(normalize_means=norm_means, normalize_vars=norm_vars)
+    j_fe = PallasLogMelFrontEnd(JLogMelConfig(matmul_precision="highest", **cfg), interpret=True,
+                                fused_cmvn_bf16=True)
+    f_ref, l_ref = j_fe(jnp.asarray(wav), jnp.asarray(lens))
+    f_got, l_got = K3.MelFrontEnd(LogMelConfig(**cfg))(torch.from_numpy(wav), torch.from_numpy(lens))
+    np.testing.assert_array_equal(l_got.numpy(), [0, 1, 2, n_frames - 1, n_frames])
+    np.testing.assert_array_equal(l_got.numpy(), np.asarray(l_ref))
+    g, r = f_got.float().numpy(), np.asarray(f_ref, np.float32)
+    if norm_vars and not norm_means:
+        for side in (g[1, :1], r[1, :1]):
+            with np.errstate(invalid="ignore"):
+                assert np.all(~np.isfinite(side) | (np.abs(side) >= 2.0 ** 10))
+        assert np.all(g[1:3, 2:] == 0.0) and np.all(g[2, :2] != 0.0)
+        g, r, lens = g[[0, 3, 4]], r[[0, 3, 4]], lens[[0, 3, 4]]
+    finite = np.isfinite(r)
+    np.testing.assert_array_equal(np.isfinite(g), finite)
+    np.testing.assert_array_equal(g[~finite], r[~finite])
+    atol = 2 ** -6 * max(1.0, float(np.abs(r[finite]).max())) if norm_vars and not norm_means else 2e-2
+    np.testing.assert_allclose(g[finite], r[finite], rtol=0, atol=atol)
+    for i, n in enumerate(LogMelConfig().num_frames(lens).tolist()):
+        assert np.all(g[i, max(n, 0):] == 0.0)

@@ -6,6 +6,8 @@ seeded features, as tests/test_pallas_subsample.py runs it.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -122,3 +124,39 @@ def test_gate_matches_jax(models, change):
     jcfg, pcfg, _, _ = models
     assert K2.fits_subsample_kernel(dataclasses.replace(pcfg, **change)) == j_fits(
         dataclasses.replace(jcfg, **change))
+
+
+def _conv1_table_constants():
+    """G_LO and G_N of csrc/subsample.cu: the bf16 bits where conv1's GELU
+    table starts and its entries a sign."""
+    src = (Path(K2.__file__).resolve().parent.parent / "csrc" / "subsample.cu").read_text()
+    get = lambda name: int(re.search(rf"constexpr uint32_t {name} = (0x[0-9A-Fa-f]+)u;", src).group(1), 16)  # noqa: E731
+    return get("G_LO"), get("G_N")
+
+
+@pytest.mark.parametrize("half", ["low", "high"])
+def test_conv1_gelu_table_window_on_every_bf16_pattern(half):
+    """The CUDA conv1 looks a bf16 value's GELU up in a table of the values of
+    magnitude [2^-24, 2^8) and computes it elsewhere. Its checks, mirrored on
+    all 65,536 bit patterns in numpy: a value is taken from the table exactly
+    when it lies in that range (finite, both signs), and its entry (at 2 (bits
+    - G_LO) bytes) lies inside the table's two halves; the packed check of a
+    pair (bits 12-14 of each half of ``q - (G_LO | G_LO << 16)``) passes only
+    when both halves are in the table, whatever the other half holds."""
+    lo, n = _conv1_table_constants()
+    bits = np.arange(65536, dtype=np.uint32)
+    x = (bits << 16).view(np.float32)
+    with np.errstate(invalid="ignore"):
+        want = np.isfinite(x) & (np.abs(x) >= 2.0 ** -24) & (np.abs(x) < 2.0 ** 8)
+    d = (bits - np.uint32(lo)) & np.uint32(0xFFFFFFFF)
+    inside = (d & 0x7000) == 0
+    np.testing.assert_array_equal(inside, want)
+    assert np.all((d[inside] < n) | ((d[inside] >= 0x8000) & (d[inside] < 0x8000 + n)))
+    assert int(inside.sum()) == 2 * n
+    # the packed check against every pattern in this half beside a sample of the other half's
+    others = np.concatenate([np.arange(0, 65536, 97, dtype=np.uint32), np.uint32([0, lo - 1, lo, 0x7F80, 0xFFFF])])
+    for o in others:
+        q = (bits | (o << 16)) if half == "low" else ((bits << 16) | o)
+        t = (q - np.uint32(lo | lo << 16)) & np.uint32(0xFFFFFFFF)
+        both = inside & inside[o]
+        np.testing.assert_array_equal((t & 0x70007000) == 0, both)
