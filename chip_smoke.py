@@ -79,7 +79,24 @@
 10. trains it 3 steps through CTCTrainer with the config's attention_impl
    ("auto"): 8 K4 forward and 8 K4 backward launches a step, every step
    applied, step 1 within 1e-4 in loss of the plain attention; then one
-   evaluation step with "pallas" (8 K5 launches).
+   evaluation step with "pallas" (8 K5 launches);
+11. builds the joint CTC/attention model of configs/decred_base.json at full
+   width (encoder 16 layers x 256, 8 heads, I=1024, 256x256 subsampler;
+   decoder 6 layers x 256, 4 heads of 64, an intermediate head after layer 3
+   with head weights 0.3/0.7; one vocabulary of 500 on both sides, bos/eos/pad
+   0/1/3; seeded random weights), serves it through
+   ASRPipeline(model_type="aed", device="cuda"), which must take the kernel
+   route (K2 and 16 x K1 behind the plain log-mel front end), with B=8 x 10 s,
+   5 beams, ctc_weight 0.3, max_length 128, and one more request with a seeded
+   2-layer x 256 LM at lm_weight 0.3. It checks that every K1/K2 kernel
+   launched in a request, that the kernel route's cross-attention state and
+   CTC log-probs match the plain versions' (0.05 of scale) and that the n-best
+   lists of the two routes are equal (where one differs, its score must be
+   within bf16 noise of the other route's at that rank; the gap is printed);
+   it prints the request time (median of 5 after a warm-up), decode steps,
+   launches, device busy time under the profiler and its share of the
+   window, peak memory, and the time of the encoder, the decoder steps and
+   the CTC prefix scoring taken separately (each part synchronized).
 
 Beside each kernel's time it prints the plain version's, the least time the
 card could take (the larger of bytes / 3.35 TB/s and operations / the peak
@@ -269,6 +286,298 @@ def training_setup(seed: int = 0, batch_size: int = 32, n_batches: int = 6, chec
             examples.append({"audio": wav, "labels": rng.integers(0, 500, rng.integers(20, 41)).tolist()})
         batches.append(collate(examples))
     return trainer, batches
+
+
+# The joint CTC/attention config of the AED phase. The file sets no vocabulary
+# (the JAX CLI fills it from the tokenizer on both sides); the smoke sets 500
+# on both sides, with bos/eos/pad 0/1/3 as the JAX CLI's tokenizers have them.
+AED_CONFIG = "decred_base.json"
+AED_VOCAB = 500
+
+
+def aed_model(seed: int = 0):
+    """The joint model of ``AED_CONFIG`` with seeded random weights."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from huggingface_asr_tpu_torch.models.ebranchformer import init_random_
+    from huggingface_asr_tpu_torch.models.joint_ctc_aed import (
+        JointCTCAttentionConfig,
+        JointCTCAttentionEncoderDecoder,
+    )
+
+    with open(os.path.join(ROOT, "configs", AED_CONFIG)) as f:
+        d = json.load(f)
+    d["encoder"]["vocab_size"] = AED_VOCAB
+    d["decoder"].update(vocab_size=AED_VOCAB, bos_token_id=0, eos_token_id=1, pad_token_id=3)
+    cfg = JointCTCAttentionConfig.from_dict({**d, "decoder_start_token_id": 0, "pad_token_id": 3})
+    return init_random_(JointCTCAttentionEncoderDecoder(cfg).eval(), torch.Generator().manual_seed(seed))
+
+
+class AedPieces:
+    """id -> piece decoding for the random joint model's 500 ids, with the
+    special ids an HF tokenizer has (bos/eos/pad 0/1/3)."""
+
+    bos_token_id, eos_token_id, pad_token_id, unk_token_id = 0, 1, 3, 2
+
+    def __len__(self):
+        return AED_VOCAB
+
+    def decode(self, ids, skip_special_tokens=True):
+        ids = [i for i in ids if not (skip_special_tokens and i in (0, 1, 2, 3))]
+        return "".join(chr(ord("a") + i % 26) if i % 7 else " " for i in ids)
+
+
+def rescore_hypotheses(model, enc, hid, hyps, cfg):
+    """Teacher-forced scores of fixed hypotheses under one encoder output, with
+    the beam search's accounting: per step (1 - ctc_weight) * the decoder's
+    log-prob + ctc_weight * the CTC prefix score's increment (pad never,
+    blank never), summed up to and including eos, over (t + 1) ** penalty
+    where eos came at step t (or max_length ** penalty for a hypothesis
+    without eos). ``hyps`` (B, H, L) starts with bos. Returns (scores (B, H),
+    per-step combined scores (B, H, L - 1), zero past the last token)."""
+    import torch
+    import torch.nn.functional as F
+
+    from huggingface_asr_tpu_torch.decoding.beam_search import NEG_INF
+    from huggingface_asr_tpu_torch.decoding.ctc_prefix import CTCPrefixScorer
+
+    B, Hn, L = hyps.shape
+    toks = hyps.reshape(B * Hn, L)
+    V = model.config.decoder.vocab_size
+    is_eos = toks[:, 1:] == cfg.eos_token_id
+    has_eos = is_eos.any(dim=1)
+    last = torch.where(has_eos, is_eos.int().argmax(dim=1), L - 2)  # the step of the last scored token
+    lp_len = torch.where(has_eos, last + 1, L).float() ** cfg.length_penalty
+    lens = enc.logit_lengths.repeat_interleave(Hn)
+    att = F.log_softmax(model.decoder(toks[:, :-1], model.project(hid).repeat_interleave(Hn, 0), lens)
+                        .logits.float(), dim=-1)[..., :V]
+    att[..., cfg.pad_token_id] = NEG_INF
+    att = att.gather(-1, toks[:, 1:, None])[..., 0]
+    lp = F.log_softmax(enc.logits.float(), dim=-1)
+    scorer = CTCPrefixScorer(lp, enc.logit_lengths, cfg.blank_id % lp.shape[-1], cfg.eos_token_id)
+    state, ctc, rows = scorer.init_state(Hn), [], torch.arange(B * Hn, device=toks.device)
+    for t in range(L - 1):
+        tok = toks[:, t + 1]
+        inc, scored = scorer.score_candidates(state, tok[:, None])
+        ctc.append(inc[:, 0])
+        state = scorer.select_state(state, scored, rows, torch.zeros_like(rows), tok)
+    steps = (1.0 - cfg.ctc_weight) * att + cfg.ctc_weight * torch.stack(ctc, dim=1)
+    steps = torch.where(torch.arange(L - 1, device=toks.device)[None, :] <= last[:, None], steps, 0.0)
+    return (steps.sum(dim=1) / lp_len).view(B, Hn), steps.view(B, Hn, L - 1)
+
+
+def aed_phase(dev, rng, smi) -> dict:
+    """The joint CTC/attention serving path on the card (step 11 of the
+    module's docstring). Returns the kernel launches of one request."""
+    import dataclasses as dc
+
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from huggingface_asr_tpu_torch.decoding.beam_search import joint_beam_search
+    from huggingface_asr_tpu_torch.decoding.generate import build_decoder_step, generate_joint
+    from huggingface_asr_tpu_torch.kernels import _build
+    from huggingface_asr_tpu_torch.models.ebranchformer import init_random_
+    from huggingface_asr_tpu_torch.models.fast_infer import ctc_infer
+    from huggingface_asr_tpu_torch.models.gpt2_decoder import GPT2DecoderConfig, GPT2MultiHeadDecoder
+    from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
+    from huggingface_asr_tpu_torch.training.model_factory import save_params
+
+    print(f"-- AED serving path: configs/{AED_CONFIG} at full width, vocabulary {AED_VOCAB} on both sides, "
+          f"B=8 x 10 s, 5 beams, ctc_weight 0.3, max_length 128", flush=True)
+    aed_dir = os.path.join(ROOT, "build", "chip_smoke_aed")
+    save_params(aed_model(seed=3), aed_dir)
+    pipe = ASRPipeline(aed_dir, model_type="aed", ctc_weight=0.3, num_beams=5, max_length=128, device="cuda",
+                       tokenizer=AedPieces())
+    if not pipe._use_fused:
+        _fail("the AED pipeline did not select the kernel route for its encoder")
+    model, gen_cfg = pipe._model, pipe._gen_cfg
+    ecfg = model.config.encoder
+    audios = [speech(10.0, rng) for _ in range(8)]
+    texts = pipe(audios)  # first call: warm the allocator
+    torch.cuda.synchronize()
+
+    # one request, with the launch counts set to 0 just before it
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    texts = pipe(audios)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    per_layer = {"asr_gemm_bf16": 1, "asr_layernorm_bf16": 1, "asr_pos_query": 1, "asr_rel_attention": 1,
+                 "dwconv_csgu": 1, "dwconv_merge": 1}
+    missing = [k for k in ("asr_conv1", "asr_conv2", *per_layer) if launches.get(k, 0) <= 0]
+    if len(texts) != 8 or missing or launches.get("asr_log_mel", 0) or launches.get("asr_rel_attention", 0) \
+            != ecfg.num_hidden_layers:
+        _fail(f"AED request: {len(texts)} transcripts, launches {launches}; not launched: {missing} "
+              f"(want {ecfg.num_hidden_layers} rel_attention launches and no log-mel kernel)")
+    print(f"  AED request launches: {launches} ({sum(launches.values())} kernel launches); transcripts: "
+          f"{[t[:30] for t in texts]}", flush=True)
+
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pipe(audios)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+
+    # the request's parts, each synchronized: front end, encoder, decoder
+    # steps, CTC prefix scoring, beam selection
+    wav = torch.from_numpy(pipe._bucket_pad(audios)).to(dev)
+    lens = torch.tensor([len(a) for a in audios], dtype=torch.int32, device=dev)
+    parts = {}
+    clock = {"name": "front end", "t": 0.0}
+
+    def hook(name, alive=None):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[clock["name"]] = parts.get(clock["name"], 0.0) + (now - clock["t"]) * 1e3
+        clock.update(name=name, t=now)
+        if name == "decoder":
+            parts["steps"] = parts.get("steps", 0) + 1
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        clock["t"] = time.perf_counter()
+        feats, feat_lens = pipe._frontend(wav, lens)
+        seqs, scores, comps = generate_joint(model, feats, feat_lens, dc.replace(gen_cfg, return_components=True),
+                                             fused_encoder=True, fused=pipe._fused, hook=hook)
+    steps = parts.pop("steps")
+    print(f"  AED request: {float(np.median(ms)):.1f} ms (median of 5; all {[round(m, 1) for m in ms]}); "
+          f"{steps} decode steps; peak memory {peak:.0f} MiB; {smi}", flush=True)
+    print("  AED request parts, each synchronized (ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in parts.items() if k != "end")
+          + f"; decoder {parts['decoder'] / steps:.3f} and CTC prefix {parts.get('ctc', 0.0) / steps:.3f} a step",
+          flush=True)
+
+    # device busy under the profiler, over one request's window
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe(audios)
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    on_device = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ev.time_range.end - ev.time_range.start for ev in on_device) / 1e3
+    print(f"  AED request under the profiler: {len(on_device)} device kernels and copies, busy {busy:.2f} ms of a "
+          f"{window:.1f} ms window ({100 * busy / window:.1f} %)", flush=True)
+
+    # what comes out
+    B, W, L = 8, gen_cfg.num_beams, gen_cfg.max_length
+    s = scores.float()
+    if tuple(seqs.shape) != (B, W, L) or not bool((seqs[:, :, 0] == 0).all()) \
+            or not bool(torch.isfinite(s[:, 0]).all()) or not bool((s[:, :-1] + 1e-6 >= s[:, 1:]).all()):
+        _fail(f"AED sequences {tuple(seqs.shape)} or scores out of order / not finite")
+
+    # the kernel route against the plain versions, on the same features
+    with torch.inference_mode():
+        k_enc, k_hid = ctc_infer(pipe._fused, feats, feat_lens, return_hidden=True)
+        p_enc, p_hid = ctc_infer(pipe._fused, feats, feat_lens, plain=True, return_hidden=True)
+        k_x, p_x = model.project(k_hid), model.project(p_hid)
+        k_lp, p_lp = F.log_softmax(k_enc.logits.float(), -1), F.log_softmax(p_enc.logits.float(), -1)
+    if not torch.equal(k_enc.logit_lengths, p_enc.logit_lengths):
+        _fail("AED encoder lengths differ between the kernel route and the plain versions")
+    valid = torch.arange(k_lp.shape[1], device=dev)[None, :] < p_enc.logit_lengths[:, None]
+    for name, g, r in (("cross-attention state", k_x.float(), p_x.float()), ("CTC log-probs", k_lp, p_lp)):
+        err, scale = float((g - r).abs()[valid].max()), float(r.abs()[valid].max())
+        tol = 0.05 * max(1.0, scale)
+        print(f"  AED {name}, kernels vs plain versions: max_abs_err={err:.3e} tol={tol:.3e} (scale {scale:.3f})",
+              flush=True)
+        if not bool(torch.isfinite(g).all()) or err > tol:
+            _fail(f"AED {name}: the kernel route disagrees with the plain versions")
+
+    def search(enc, hid, alive):
+        """The search on one route's encoder outputs; ``alive`` collects the
+        alive tokens each step starts from."""
+        step, cache = build_decoder_step(model.decoder, B * W, L, model.project(hid), enc.logit_lengths)
+        return joint_beam_search(step, cache, B, gen_cfg, ctc_log_probs=F.log_softmax(enc.logits.float(), -1),
+                                 ctc_lengths=enc.logit_lengths, vocab_size=model.config.decoder.vocab_size,
+                                 hook=lambda name, a=None: alive.append(a.clone()) if name == "decoder" else None)
+
+    k_alive, p_alive = [], []
+    with torch.inference_mode():
+        (k_seqs, k_scores), (p_seqs, p_scores) = search(k_enc, k_hid, k_alive), search(p_enc, p_hid, p_alive)
+    if not torch.equal(k_seqs, seqs):
+        _fail("the composed search on the kernel route's outputs differs from generate_joint's")
+    differ = (k_seqs != p_seqs).any(-1)
+    with torch.inference_mode():
+        own = rescore_hypotheses(model, k_enc, k_hid, k_seqs[:, :1], gen_cfg)[0][:, 0]
+    own = float(((own - k_scores[:, 0]).abs() / k_scores[:, 0].abs().clamp(min=1.0)).max())
+    print(f"  AED n-best, kernel route vs plain versions: {int((~differ).sum())}/{B * W} entries equal, the best "
+          f"equal in {int((~differ[:, 0]).sum())}/{B}; teacher-forced rescoring reproduces the search's best "
+          f"scores within {own:.2e} of their size", flush=True)
+    if own > 1e-2:
+        _fail("AED: teacher-forced rescoring does not reproduce the search's scores")
+
+    # The triage rule for near-ties, at the first step where the two searches'
+    # alive sets differ: both entered the step that made them with the same
+    # hypotheses, and each kept some the other dropped. Under the plain
+    # route's totals (teacher-forced, the search's own accounting), the gap
+    # between the lowest it kept and the highest it dropped that the kernel
+    # route kept must be at bf16 noise: at most 2^-7 of the total. It must not
+    # be negative beyond that either: a hypothesis the plain search dropped
+    # that outscores one it kept means the totals and the search disagree.
+    # Beams re-rank after that step, so later differences follow from this one.
+    ka, pa = torch.stack(k_alive).cpu().numpy(), torch.stack(p_alive).cpu().numpy()  # (steps, B, W, L)
+    pad = gen_cfg.pad_token_id
+    rows = torch.full((B, 2 * W, L), pad, dtype=torch.int64)
+    rows[:, :, 0] = gen_cfg.bos_token_id
+    flips = {}
+    for b in range(B):
+        for t in range(1, min(len(ka), len(pa))):
+            kset, pset = ({tuple(r[:t + 1]) for r in x[t, b]} for x in (ka, pa))
+            if kset != pset:
+                X, Y = sorted(kset - pset), sorted(pset - kset)
+                for i, r in enumerate(X + Y):
+                    rows[b, i, :t + 1] = torch.tensor(r)
+                flips[b] = (t, len(X), len(Y))
+                break
+    if flips:
+        with torch.inference_mode():
+            hyps = rows.to(dev)
+            _, on_k = rescore_hypotheses(model, k_enc, k_hid, hyps, gen_cfg)
+            _, on_p = rescore_hypotheses(model, p_enc, p_hid, hyps, gen_cfg)
+    for b in range(B):
+        if b not in flips:
+            if bool(differ[b, 0]):
+                _fail(f"AED utterance {b}: the best hypotheses differ but the alive sets never did")
+            continue
+        t, nx, ny = flips[b]
+        tot_p, tot_k = (x[b, :, :t].sum(-1) for x in (on_p, on_k))  # totals entering step t
+        x_star = int(tot_p[:nx].argmax())
+        y_star = nx + int(tot_p[nx:nx + ny].argmin())
+        gap = float(tot_p[y_star] - tot_p[x_star])
+        bound = 2 ** -7 * max(1.0, abs(float(tot_p[y_star])))
+        moved = float((tot_k[x_star] - tot_p[x_star]).abs() + (tot_k[y_star] - tot_p[y_star]).abs())
+        print(f"    utterance {b}: alive sets first differ after step {t - 1} ({nx} kept by one route only); the "
+              f"plain route's top-two gap there {gap:+.5f} of a total {float(tot_p[y_star]):.3f} (bound "
+              f"{bound:.5f}); the route change moved those totals by {moved:.5f}", flush=True)
+        if gap > bound:
+            _fail(f"AED utterance {b}: the two routes' searches part beyond bf16 noise")
+        if gap < -bound:
+            _fail(f"AED utterance {b}: the plain search dropped a hypothesis that its own teacher-forced totals "
+                  f"rank above one it kept (gap {gap:+.5f})")
+
+    # one more request with a seeded 2-layer x 256 LM at lm_weight 0.3
+    lm_cfg = GPT2DecoderConfig(vocab_size=AED_VOCAB, n_positions=512, n_embd=256, n_layer=2, n_head=4,
+                               add_cross_attention=False, bos_token_id=0, eos_token_id=1, pad_token_id=3)
+    lm = init_random_(GPT2MultiHeadDecoder(lm_cfg, dtype=model.dtype).eval(),
+                      torch.Generator().manual_seed(4)).to(dev)
+    lm_gen = dc.replace(gen_cfg, lm_weight=0.3, return_components=True)
+    with torch.inference_mode():
+        generate_joint(model, feats, feat_lens, lm_gen, lm=lm, fused=pipe._fused)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm_seqs, lm_scores, lm_comps = generate_joint(model, feats, feat_lens, lm_gen, lm=lm, fused=pipe._fused)
+        torch.cuda.synchronize()
+    lm_ms = (time.perf_counter() - t0) * 1e3
+    if tuple(lm_seqs.shape) != (B, W, L) or not bool(torch.isfinite(lm_scores[:, 0]).all()) \
+            or not bool((lm_comps["lm"][:, 0] != 0).all()):
+        _fail("the LM-fused AED request's output is malformed or its LM component is 0")
+    print(f"  AED request with a 2 x 256 LM at lm_weight 0.3: {lm_ms:.1f} ms (after one warm-up); best "
+          f"hypotheses changed by the LM in {int((lm_seqs[:, 0] != seqs[:, 0]).any(-1).sum())}/{B}", flush=True)
+    return launches
 
 
 def timed(fn, iters: int = 20, reps: int = 5) -> float:
@@ -1500,6 +1809,8 @@ def main() -> None:
     narrow_launches.update({k: v for k, v in n_train_launches.items() if k.startswith("asr_rel_attention_train")})
     narrow_launches["asr_rel_attention_shift"] = n_eval_launches["asr_rel_attention_shift"]
 
+    aed_launches = aed_phase(dev, rng, smi)
+
     if failures:
         _fail(f"kernel phases outside tolerance: {failures}")
 
@@ -1545,6 +1856,7 @@ def main() -> None:
                 "name": name, "route": "cuda", "source": f"huggingface_asr_tpu_torch/{src}",
                 "replaces": replaces, "launches": counts[counter], **results[name],
             })
+    print(f"AED path launches a request (K2 and K1): {aed_launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

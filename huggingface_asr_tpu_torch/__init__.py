@@ -9,14 +9,17 @@ with ``ctypes`` (``kernels/_build.py``). Importing the package needs neither
 
 Layout (each module names its JAX counterpart):
 
-* ``models/``   — configs, the plain E-Branchformer CTC model, ``ctc_infer``
+* ``models/``   — configs, the plain E-Branchformer CTC model, ``ctc_infer``,
+  the DeCRED decoder and the joint CTC/attention model
+* ``decoding/`` — the CTC prefix scorer, the joint beam search, ``generate_joint``
+* ``cli/``      — what the command-line entry points share (``tokenizer_ids``)
 * ``ops/``      — length math, the plain log-mel front end, CTC greedy decode
 * ``kernels/``  — one file per Pallas file: weight folds, plain versions and
   the CUDA kernel wrappers
 * ``csrc/``     — the ``.cu`` / ``.cuh`` kernel sources
-* ``interop/``  — Flax parameter tree -> this package's state dict
-* ``training/`` — checkpoint directory loading
-* ``serving/``  — ``ASRPipeline`` and ``EndpointHandler``
+* ``interop/``  — Flax parameter tree <-> this package's state dict
+* ``training/`` — ``CTCTrainer``, model directories and checkpoints
+* ``serving/``  — ``ASRPipeline`` (joint CTC/attention or CTC) and ``EndpointHandler``
 """
 
 __version__ = "0.1.0"

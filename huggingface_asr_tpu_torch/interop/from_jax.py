@@ -8,17 +8,21 @@ the keys that come out are the reference HF keys that ``EBranchformerForCTC``
 accepts the result. ``flax_tree_from_state_dict`` is its inverse (numpy out),
 so gradients and trained weights can go back for comparison.
 
-Both walk one table of (Flax path, state-dict key, layout change).
+Both walk one table of (Flax path, state-dict key, layout change). The
+decoder's table (``decoder_param_table``) mirrors ``export_gpt2_decoder`` and
+the joint model's (``joint_param_table``) ``export_joint``; each has the same
+pair of functions.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterable, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
+from huggingface_asr_tpu_torch.models.gpt2_decoder import GPT2DecoderConfig
 
 # layout change -> (axes Flax -> torch, axes torch -> Flax)
 _AXES = {
@@ -89,21 +93,105 @@ def _moved(a: np.ndarray, axes) -> np.ndarray:
     return a if axes is None else np.ascontiguousarray(a.transpose(axes))
 
 
-def state_dict_from_flax(
-    tree: Mapping[str, Any], cfg: EBranchformerConfig
-) -> Dict[str, torch.Tensor]:
-    """Flax ``EBranchformerForCTC`` params (nested dicts of arrays) -> float32
-    torch state dict keyed like the reference ``Wav2Vec2EBranchformerForCTC``."""
-    fe = tree["wav2vec2"]["feature_extractor"]
-    if any(f"gate_{i}" in fe for i in range(len(cfg.conv_dim))):
-        raise NotImplementedError("gated conv front ends are not ported yet")
+def decoder_param_table(cfg: GPT2DecoderConfig, tree: Mapping[str, Any]) -> Iterator[Entry]:
+    """Every parameter of a GPT-2 (multi-head) decoder, as ``export_gpt2_decoder``
+    writes it. GPT-2 ``Conv1D`` weights are (in, out) on both sides; the heads
+    are dense. ``tree`` (Flax params, or None-valued stand-ins) decides the
+    optional entries, as the export does: ``wpe``, the cross-attention, the
+    heads."""
+    yield ("wte", "embedding"), "transformer.wte.weight", "same"
+    if "wpe" in tree:
+        yield ("wpe",), "transformer.wpe.weight", "same"
+    yield from _ln(("ln_f",), "transformer.ln_f")
+    for i in range(cfg.n_layer):
+        L, b = (f"h_{i}",), f"transformer.h.{i}"
+        yield from _ln(L + ("ln_1",), f"{b}.ln_1")
+        for name in ("c_attn", "c_proj"):
+            yield from _conv(L + ("attn", name), f"{b}.attn.{name}", "same")
+        if "crossattention" in tree[f"h_{i}"]:
+            for name in ("q_attn", "c_attn", "c_proj"):
+                yield from _conv(L + ("crossattention", name), f"{b}.crossattention.{name}", "same")
+            yield from _ln(L + ("ln_cross_attn",), f"{b}.ln_cross_attn")
+        yield from _ln(L + ("ln_2",), f"{b}.ln_2")
+        yield from _conv(L + ("mlp_c_fc",), f"{b}.mlp.c_fc", "same")
+        yield from _conv(L + ("mlp_c_proj",), f"{b}.mlp.c_proj", "same")
+    if "lm_head" in tree:
+        yield from _dense(("lm_head",), "lm_head", bias=False)
+    for k in range(len(cfg.head_locations)):
+        if f"additional_lm_heads_{k}" in tree:
+            yield from _dense((f"additional_lm_heads_{k}",), f"additional_lm_heads.{k}", bias=False)
+
+
+def decoder_tree_shape(cfg: GPT2DecoderConfig) -> Dict[str, Any]:
+    """The optional parts of a decoder's Flax tree that this package's
+    ``GPT2MultiHeadDecoder(cfg)`` has, as the tree ``decoder_param_table`` reads."""
+    tree: Dict[str, Any] = {f"h_{i}": {"crossattention": None} if cfg.add_cross_attention else {}
+                            for i in range(cfg.n_layer)}
+    if not cfg.pos_emb_fixed:
+        tree["wpe"] = None
+    if not cfg.tie_word_embeddings:
+        tree["lm_head"] = None
+    if not cfg.tie_additional_weights:
+        tree.update({f"additional_lm_heads_{k}": None for k in range(len(cfg.head_locations))})
+    return tree
+
+
+def _prefixed(entries: Iterable[Entry], path: Tuple[str, ...], key: str) -> Iterator[Entry]:
+    for p, k, kind in entries:
+        yield path + p, key + k, kind
+
+
+def joint_param_table(enc: EBranchformerConfig, dec: GPT2DecoderConfig,
+                      tree: Mapping[str, Any]) -> Iterator[Entry]:
+    """Every parameter of the joint CTC/attention model, as ``export_joint`` writes it."""
+    yield from _prefixed(param_table(enc), ("encoder",), "encoder.")
+    yield from _prefixed(decoder_param_table(dec, tree["decoder"]), ("decoder",), "decoder.")
+    if "enc_to_dec_proj" in tree:
+        yield from _dense(("enc_to_dec_proj",), "enc_to_dec_proj")
+
+
+def joint_tree_shape(enc: EBranchformerConfig, dec: GPT2DecoderConfig) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {"decoder": decoder_tree_shape(dec)}
+    if enc.hidden_size != dec.n_embd:
+        tree["enc_to_dec_proj"] = None
+    return tree
+
+
+def _to_state_dict(tree: Mapping[str, Any], table: Iterable[Entry]) -> Dict[str, torch.Tensor]:
     sd = {}
-    for path, key, kind in param_table(cfg):
+    for path, key, kind in table:
         leaf = tree
         for name in path:
             leaf = leaf[name]
         sd[key] = torch.as_tensor(_moved(np.asarray(leaf, np.float32), _AXES[kind][0]))
     return sd
+
+
+def _to_tree(sd: Mapping[str, Any], table: Iterable[Entry]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, key, kind in table:
+        v = sd[key]
+        a = v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v, np.float32)
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = _moved(a, _AXES[kind][1])
+    return tree
+
+
+def _refuse_gated(encoder_tree: Mapping[str, Any], cfg: EBranchformerConfig) -> None:
+    fe = encoder_tree["wav2vec2"]["feature_extractor"]
+    if any(f"gate_{i}" in fe for i in range(len(cfg.conv_dim))):
+        raise NotImplementedError("gated conv front ends are not ported yet")
+
+
+def state_dict_from_flax(
+    tree: Mapping[str, Any], cfg: EBranchformerConfig
+) -> Dict[str, torch.Tensor]:
+    """Flax ``EBranchformerForCTC`` params (nested dicts of arrays) -> float32
+    torch state dict keyed like the reference ``Wav2Vec2EBranchformerForCTC``."""
+    _refuse_gated(tree, cfg)
+    return _to_state_dict(tree, param_table(cfg))
 
 
 def flax_tree_from_state_dict(
@@ -112,12 +200,30 @@ def flax_tree_from_state_dict(
     """The inverse of ``state_dict_from_flax``: a state dict (or any mapping
     keyed like one, e.g. gradients by parameter name) of tensors or arrays ->
     the Flax tree as nested dicts of float32 numpy arrays."""
-    tree: Dict[str, Any] = {}
-    for path, key, kind in param_table(cfg):
-        v = sd[key]
-        a = v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v, np.float32)
-        node = tree
-        for name in path[:-1]:
-            node = node.setdefault(name, {})
-        node[path[-1]] = _moved(a, _AXES[kind][1])
-    return tree
+    return _to_tree(sd, param_table(cfg))
+
+
+def decoder_state_dict_from_flax(tree: Mapping[str, Any], cfg: GPT2DecoderConfig) -> Dict[str, torch.Tensor]:
+    """Flax ``GPT2MultiHeadDecoder`` params -> float32 state dict of
+    ``models/gpt2_decoder.py::GPT2MultiHeadDecoder`` (an LM as well: a
+    decoder without cross-attention)."""
+    return _to_state_dict(tree, decoder_param_table(cfg, tree))
+
+
+def decoder_flax_tree_from_state_dict(sd: Mapping[str, Any], cfg: GPT2DecoderConfig) -> Dict[str, Any]:
+    """The inverse of ``decoder_state_dict_from_flax``."""
+    return _to_tree(sd, decoder_param_table(cfg, decoder_tree_shape(cfg)))
+
+
+def joint_state_dict_from_flax(tree: Mapping[str, Any], enc: EBranchformerConfig,
+                               dec: GPT2DecoderConfig) -> Dict[str, torch.Tensor]:
+    """Flax ``JointCTCAttentionEncoderDecoder`` params -> float32 state dict of
+    ``models/joint_ctc_aed.py::JointCTCAttentionEncoderDecoder``."""
+    _refuse_gated(tree["encoder"], enc)
+    return _to_state_dict(tree, joint_param_table(enc, dec, tree))
+
+
+def joint_flax_tree_from_state_dict(sd: Mapping[str, Any], enc: EBranchformerConfig,
+                                    dec: GPT2DecoderConfig) -> Dict[str, Any]:
+    """The inverse of ``joint_state_dict_from_flax``."""
+    return _to_tree(sd, joint_param_table(enc, dec, joint_tree_shape(enc, dec)))

@@ -117,11 +117,6 @@ class EBranchformerConfig:
                 kwargs[key] = tuple(kwargs[key])
         return cls(**kwargs)
 
-    @classmethod
-    def from_json_file(cls, path: str) -> "EBranchformerConfig":
-        with open(path) as f:
-            return cls.from_dict(json.load(f))
-
 
 def parse_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}[name]

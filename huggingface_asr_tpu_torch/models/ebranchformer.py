@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +67,8 @@ class CTCOutput:
     logits: torch.Tensor
     logit_lengths: torch.Tensor
     loss: Optional[torch.Tensor] = None
+    # each layer's input, then the post-final-LayerNorm state (where asked for)
+    hidden_states: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def dropout_apply(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
@@ -376,19 +378,28 @@ class EBranchformerEncoder(nn.Module):
         self.shift_kernel = cfg.attention_impl == "pallas" and cfg.position_embeddings_type == "relative"
 
     def forward(self, x, mask: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-                rng: Optional[DropoutRng] = None):
+                rng: Optional[DropoutRng] = None, output_hidden_states: bool = False):
         """``lengths``: the (B,) int32 counts that ``mask`` was made from, for
         the attention kernels. The Flax encoder runs every layer (it never
-        applies ``layerdrop``), and so does this."""
+        applies ``layerdrop``), and so does this. Returns the final state and,
+        with ``output_hidden_states``, every layer's input followed by the
+        final state (else None)."""
         x = torch.where(mask[..., None], x, 0.0)
         bias = torch.where(mask, 0.0, NEG_INF)[:, None, None, :].float()
         x = _drop(rng, x, self.hidden_dropout)
         pos_emb = None
         if self.shift_kernel and rng is None and lengths is not None:
             pos_emb = relative_positional_embeddings(x.shape[1], x.shape[2], x.device, x.dtype)
+        all_hidden = [] if output_hidden_states else None
         for layer in self.layers:
+            if output_hidden_states:
+                all_hidden.append(x)
             x = layer(x, bias, lengths, rng, pos_emb)
-        return _ln(self.layer_norm, x)
+        x = _ln(self.layer_norm, x)
+        if output_hidden_states:
+            all_hidden.append(x)
+            return x, tuple(all_hidden)
+        return x, None
 
 
 class EBranchformerModel(nn.Module):
@@ -399,7 +410,8 @@ class EBranchformerModel(nn.Module):
         self.feature_projection = FeatureProjection(cfg)
         self.encoder = EBranchformerEncoder(cfg)
 
-    def forward(self, input_features, input_lengths, rng: Optional[DropoutRng] = None):
+    def forward(self, input_features, input_lengths, rng: Optional[DropoutRng] = None,
+                output_hidden_states: bool = False):
         cfg = self.config
         hidden = self.feature_projection(self.feature_extractor(input_features), rng)
         T = hidden.shape[1]
@@ -407,8 +419,9 @@ class EBranchformerModel(nn.Module):
         # lengths use the reference's unpadded formula (see the two helpers).
         enc_lengths = torch.clamp(feat_extract_output_frames(cfg, input_lengths), 0, T)
         out_lengths = torch.clamp(feat_extract_output_lengths(cfg, input_lengths), 0, T)
-        last = self.encoder(hidden, lengths_to_mask(enc_lengths, T), enc_lengths.to(torch.int32), rng)
-        return last, out_lengths.to(torch.int32)
+        last, all_hidden = self.encoder(hidden, lengths_to_mask(enc_lengths, T), enc_lengths.to(torch.int32),
+                                        rng, output_hidden_states)
+        return last, out_lengths.to(torch.int32), all_hidden
 
 
 class EBranchformerForCTC(nn.Module):
@@ -429,20 +442,22 @@ class EBranchformerForCTC(nn.Module):
 
     def forward(self, input_features: torch.Tensor, input_lengths: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None, label_lengths: Optional[torch.Tensor] = None,
-                rng: Optional[DropoutRng] = None):
+                rng: Optional[DropoutRng] = None, output_hidden_states: bool = False):
         """``rng`` given: the training forward (dropout on). ``labels`` given:
-        the fp32 CTC loss (blank last) is returned too."""
+        the fp32 CTC loss (blank last) is returned too. ``output_hidden_states``:
+        the output's ``hidden_states`` holds every layer's input and, last,
+        the post-final-LayerNorm state that a joint model's decoder attends to."""
         B, T_in, _ = input_features.shape
         if input_lengths is None:
             input_lengths = torch.full((B,), T_in, dtype=torch.int32, device=input_features.device)
-        hidden, lengths = self.wav2vec2(input_features, input_lengths, rng)
+        hidden, lengths, all_hidden = self.wav2vec2(input_features, input_lengths, rng, output_hidden_states)
         hidden = _drop(rng, hidden, self.final_dropout)
         logits = torch.cat([_lin(self.lm_head, hidden), _lin(self.blank_projection, hidden)], dim=-1)
         loss = None
         if labels is not None:
             loss = ctc_loss(logits.float(), lengths, labels, label_lengths, blank_id=-1,
                             reduction=self.config.ctc_loss_reduction)
-        return CTCOutput(logits=logits, logit_lengths=lengths, loss=loss)
+        return CTCOutput(logits=logits, logit_lengths=lengths, loss=loss, hidden_states=all_hidden)
 
 
 @torch.no_grad()

@@ -34,6 +34,7 @@ from huggingface_asr_tpu_torch.kernels.layer import (
     relpos_kernel_tables,
     rot_width,
 )
+from huggingface_asr_tpu_torch.kernels.mel import MEL_MAX_BINS
 from huggingface_asr_tpu_torch.kernels.subsample import (
     conv_subsample,
     conv_subsample_plain,
@@ -55,9 +56,13 @@ def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
-def fused_encoder_refusal(cfg: EBranchformerConfig, dtype: torch.dtype) -> Optional[str]:
+def fused_encoder_refusal(cfg: EBranchformerConfig, dtype: torch.dtype, *, log_mel: bool = False) -> Optional[str]:
     """The first condition of the fused path that ``cfg`` and ``dtype`` fail,
-    as a sentence for the user, or None where the fused path takes them."""
+    as a sentence for the user, or None where the fused path takes them.
+    ``log_mel``: the caller also runs the log-mel and CMVN kernels in front of
+    the encoder (the CTC pipeline does; the AED route keeps the plain front
+    end, and the subsampler falls back to the model's own where it does not
+    fit), so their bin limit applies too."""
     checks = (
         (cfg.position_embeddings_type == "relative",
          f"position_embeddings_type is {cfg.position_embeddings_type!r}, not 'relative'"),
@@ -76,6 +81,9 @@ def fused_encoder_refusal(cfg: EBranchformerConfig, dtype: torch.dtype) -> Optio
         (rel_attention_width_ok(rot_width(cfg.hidden_size)),
          f"hidden_size {cfg.hidden_size} (the attention kernels hold q_rot rows of at most 256 columns in "
          f"shared memory; wider ones need q_rot streamed in chunks, which is not built)"),
+        (not log_mel or (cfg.num_fbanks <= MEL_MAX_BINS and cfg.num_fbanks % 8 == 0),
+         f"num_fbanks {cfg.num_fbanks} (the log-mel and CMVN kernels take at most {MEL_MAX_BINS} mel bins, "
+         f"a multiple of 8)"),
         (dtype == torch.bfloat16, f"dtype {dtype} (the kernels run bfloat16)"),
     )
     return next((reason for ok, reason in checks if not ok), None)

@@ -13,29 +13,38 @@ checkpoint directory: model and optimizer state, step, guard counters, seed.
 
 from __future__ import annotations
 
+import json
 import os
 import re
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
 from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
 from huggingface_asr_tpu_torch.models.ebranchformer import EBranchformerForCTC
+from huggingface_asr_tpu_torch.models.joint_ctc_aed import (
+    JointCTCAttentionConfig,
+    JointCTCAttentionEncoderDecoder,
+)
 from huggingface_asr_tpu_torch.utils.device import resolve_device
 
 STATE_FILE = "pytorch_model.bin"
 _CKPT = re.compile(r"^checkpoint_(\d+)\.pt$")
 
 
-def load_config(path: str) -> EBranchformerConfig:
-    return EBranchformerConfig.from_json_file(os.path.join(path, "config.json"))
+def load_config(path: str, cls=EBranchformerConfig) -> Union[EBranchformerConfig, JointCTCAttentionConfig]:
+    """The ``config.json`` of a model directory as ``cls``: the CTC model's
+    flat fields, or (``JointCTCAttentionConfig``) nested ``encoder`` and
+    ``decoder`` dicts."""
+    with open(os.path.join(path, "config.json")) as f:
+        return cls.from_dict(json.load(f))
 
 
 def load_state(path: str) -> Dict[str, torch.Tensor]:
     return torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
 
 
-def save_params(model: EBranchformerForCTC, path: str) -> None:
+def save_params(model: Union[EBranchformerForCTC, JointCTCAttentionEncoderDecoder], path: str) -> None:
     """Write a standalone inference checkpoint (``config.json`` +
     ``pytorch_model.bin``), over any earlier one at ``path``."""
     os.makedirs(path, exist_ok=True)
@@ -48,6 +57,14 @@ def save_params(model: EBranchformerForCTC, path: str) -> None:
 def load_ctc_model(path: str, device="cuda") -> EBranchformerForCTC:
     device = resolve_device(device)
     model = EBranchformerForCTC(load_config(path))
+    model.load_state_dict(load_state(path), strict=True)
+    return model.to(device).eval()
+
+
+def load_aed_model(path: str, device="cuda", dtype: torch.dtype = torch.float32) -> JointCTCAttentionEncoderDecoder:
+    """The joint CTC/attention model of a model directory, computing in ``dtype``."""
+    device = resolve_device(device)
+    model = JointCTCAttentionEncoderDecoder(load_config(path, JointCTCAttentionConfig), dtype)
     model.load_state_dict(load_state(path), strict=True)
     return model.to(device).eval()
 

@@ -445,7 +445,7 @@ def test_pipeline_logs_why_the_fused_path_is_refused(tmp_path, caplog):
             return " ".join(map(str, ids))
 
     with caplog.at_level(logging.WARNING, logger="huggingface_asr_tpu_torch.serving.pipeline"):
-        pipe = ASRPipeline(str(tmp_path), device="cuda", tokenizer=Ids())
+        pipe = ASRPipeline(str(tmp_path), model_type="ctc", device="cuda", tokenizer=Ids())
     assert not pipe._use_fused
     lines = [r.getMessage() for r in caplog.records if r.name == "huggingface_asr_tpu_torch.serving.pipeline"]
     assert lines == ["serving through the plain model, not the fused kernels: head size 128 (the attention kernels "
@@ -922,7 +922,7 @@ def test_pipeline_serves_a_176_wide_model_through_the_kernels(narrow, tmp_path):
         def decode(self, ids, skip_special_tokens=True):
             return " ".join(map(str, ids))
 
-    pipe = ASRPipeline(str(tmp_path), device="cuda", tokenizer=Ids())
+    pipe = ASRPipeline(str(tmp_path), model_type="ctc", device="cuda", tokenizer=Ids())
     assert pipe._use_fused
     _build.reset_launch_counts()
     texts = pipe([np.zeros(16000, np.float32), np.ones(24000, np.float32) * 0.01])
@@ -950,3 +950,44 @@ def test_training_step_of_a_176_wide_model_takes_the_kernels(impl):
     assert _build.LAUNCHES["asr_rel_attention_train_fwd"] == n and _build.LAUNCHES["asr_rel_attention_train_bwd"] == n
     assert bool(torch.isfinite(out.loss)) and all(bool(torch.isfinite(p.grad).all())
                                                  for p in model.parameters() if p.grad is not None)
+
+
+def test_aed_pipeline_takes_the_kernel_route(tmp_path):
+    """The AED route on the card: the encoder runs K2 and one K1 sequence a
+    layer behind the plain log-mel front end (no mel kernel), and the search
+    on the kernel route's outputs returns bos-led sequences, best first."""
+    from huggingface_asr_tpu_torch.models.gpt2_decoder import GPT2DecoderConfig
+    from huggingface_asr_tpu_torch.models.joint_ctc_aed import (
+        JointCTCAttentionConfig,
+        JointCTCAttentionEncoderDecoder,
+    )
+    from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
+    from huggingface_asr_tpu_torch.training.model_factory import save_params
+
+    _cuda()
+    cfg = JointCTCAttentionConfig(
+        encoder=EBranchformerConfig(hidden_size=64, num_hidden_layers=2, num_attention_heads=2, intermediate_size=128,
+                                    csgu_kernel_size=7, merge_conv_kernel=7, vocab_size=80),
+        decoder=GPT2DecoderConfig(vocab_size=80, n_embd=64, n_layer=2, n_head=2, n_positions=64))
+    save_params(init_random_(JointCTCAttentionEncoderDecoder(cfg), torch.Generator().manual_seed(0)), str(tmp_path))
+
+    class Table:
+        bos_token_id, eos_token_id, pad_token_id, unk_token_id = 0, 1, 3, 2
+
+        def __len__(self):
+            return 80
+
+        def decode(self, ids, skip_special_tokens=True):
+            return " ".join(str(i) for i in ids if i > 3)
+
+    pipe = ASRPipeline(str(tmp_path), device="cuda", tokenizer=Table(), max_length=16)
+    assert pipe.model_type == "aed" and pipe._use_fused
+    rng = np.random.default_rng(0)
+    audios = [utterance(s, rng)[0] for s in (3.0, 4.5)]
+    _build.reset_launch_counts()
+    texts = pipe(audios)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    assert len(texts) == 2
+    assert launches.get("asr_rel_attention") == 2 and launches.get("asr_conv2") == 1
+    assert not launches.get("asr_log_mel")
