@@ -96,13 +96,35 @@
    it prints the request time (median of 5 after a warm-up), decode steps,
    launches, device busy time under the profiler and its share of the
    window, peak memory, and the time of the encoder, the decoder steps and
-   the CTC prefix scoring taken separately (each part synchronized).
+   the CTC prefix scoring taken separately (each part synchronized);
+12. drives the CTC command-line surface through ``cli/train_ctc.py::run`` and
+   ``cli/evaluate.py::run`` (the card's machine has no ``datasets`` or
+   ``transformers``: seeded synthetic corpus rows in memory, stand-in
+   tokenizers whose ``decode`` writes the ids): train_ctc trains the flagship
+   width (vocabulary 31, attention_impl "pallas": K4 in the train step, K5 in
+   the evaluation step) from the Flax-matching initialiser, 8 steps at B=16
+   with the JAX defaults (applied and rejected steps and each step's gradient
+   norm printed; SpecAugment's caveat (b) may reject steps) and 4 steps with
+   --no-apply_spec_augment (every step applied), each writing final/ and
+   evaluating its test split; evaluate --model_type ctc on that final/ for 32
+   utterances at batch 16, --fused_encoder on (K3, K2, K1) and off (the plain
+   bf16 model), the two routes' logits held as in step 5, with wall time and
+   RTFx; the committed gate model (huggingface_asr_tpu_torch/assets/gate_ctc,
+   trained by the JAX CLIs) on its 64 test utterances, whose kernel route's
+   ids must equal the JAX evaluate CLI's bf16 ids but for ties by the triage
+   rule (a top-two logit gap within 2^-7 of the logit scale at the first
+   frame that leaves JAX's; the plain routes' counts are printed); and
+   evaluate --model_type aed with --save_nbest on the step-11 model (5 beams,
+   ctc_weight 0.3, max_length 32, 8 utterances), whose best hypotheses must
+   equal generate_joint's on the same features. Every kernel of these paths
+   must launch in them.
 
 Beside each kernel's time it prints the plain version's, the least time the
 card could take (the larger of bytes / 3.35 TB/s and operations / the peak
 rate of their type) and, where one PyTorch call computes the same function,
-that call's time. It prints one JSON line with every kernel's launches,
-error, times and bound, then the result line {"ok": true, "device": {...}}
+that call's time. It prints one JSON line with every kernel's launches
+(and ``cli_launches``, its launches in step 12), error, times and bound, then
+the result line {"ok": true, "device": {...}}
 last. It exits non-zero without a result line when CUDA is missing or any
 phase fails.
 """
@@ -114,6 +136,7 @@ import dataclasses
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -578,6 +601,303 @@ def aed_phase(dev, rng, smi) -> dict:
     print(f"  AED request with a 2 x 256 LM at lm_weight 0.3: {lm_ms:.1f} ms (after one warm-up); best "
           f"hypotheses changed by the LM in {int((lm_seqs[:, 0] != seqs[:, 0]).any(-1).sum())}/{B}", flush=True)
     return launches
+
+
+class IdTokenizer:
+    """A stand-in tokenizer for the CLIs on the card (the card's machine has no
+    ``transformers``): ``decode`` writes the ids themselves, separated by
+    spaces, so the CLIs' CSV files carry them; ``encode`` is character level
+    (ids 4.. for the space and the letters, eos after). ``specials`` are
+    dropped by ``decode`` with ``skip_special_tokens`` (none: every id the
+    decoder produced is written)."""
+
+    bos_token_id, eos_token_id, unk_token_id, pad_token_id = 0, 1, 2, 3
+    CHARS = " abcdefghijklmnopqrstuvwxyz"
+
+    def __init__(self, vocab_size: int = 4 + len(CHARS), specials=()):
+        self.vocab_size, self.specials = vocab_size, set(specials)
+
+    def __len__(self):
+        return self.vocab_size
+
+    def encode(self, text):
+        return [4 + self.CHARS.index(c) if c in self.CHARS else self.unk_token_id for c in text] + [1]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(int(i)) for i in ids if not (skip_special_tokens and int(i) in self.specials))
+
+
+# The committed gate model (trained by the JAX CLIs; tests/test_torch_cli_gate.py)
+GATE_DIR = os.path.join("huggingface_asr_tpu_torch", "assets", "gate_ctc")
+TIE = 2.0 ** -7  # the triage rule: a top-two logit gap within this share of the logit scale is a tie
+
+
+def _collapse(frame_ids, blank):
+    out, prev = [], blank
+    for t in frame_ids:
+        if t != blank and t != prev:
+            out.append(int(t))
+        prev = t
+    return out
+
+
+def _csv_ids(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return [[int(t) for t in row["prediction"].split()] for row in csv.DictReader(f)]
+
+
+def cli_phase(dev, smi) -> dict:
+    """The CTC command-line surface on the card (step 12 of the module's
+    docstring), through ``train_ctc.run`` and ``evaluate.run`` with in-memory
+    corpus rows and stand-in tokenizers. Returns the kernel launches of its
+    runs, by counter."""
+    import torch
+
+    from huggingface_asr_tpu_torch.cli import evaluate, train_ctc
+    from huggingface_asr_tpu_torch.cli.common import eval_batches
+    from huggingface_asr_tpu_torch.data.bucketing import BucketingConfig
+    from huggingface_asr_tpu_torch.data.collator import CollatorConfig, SpeechCollator
+    from huggingface_asr_tpu_torch.data.datasets import ColumnTable, DataConfig
+    from huggingface_asr_tpu_torch.data.synthetic_speech import corpus_rows
+    from huggingface_asr_tpu_torch.decoding.generate import generate_joint
+    from huggingface_asr_tpu_torch.kernels import _build
+    from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC
+    from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
+    from huggingface_asr_tpu_torch.training.arguments import (
+        GeneralTrainingArguments,
+        GenerationArguments,
+        ModelArguments,
+    )
+    from huggingface_asr_tpu_torch.training.model_factory import load_aed_model, load_ctc_model, save_params
+    from huggingface_asr_tpu_torch.utils.argparsing import DataclassArgumentParser
+
+    work = os.path.join(ROOT, "build", "chip_smoke_cli")
+    os.makedirs(work, exist_ok=True)
+    cli_launches = {}
+
+    def counted(fn):
+        """Run ``fn`` with the launch counts set to 0 just before; returns (its result, the counts)."""
+        _build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(_build.LAUNCHES)
+        for k, v in got.items():
+            cli_launches[k] = cli_launches.get(k, 0) + v
+        return out, got
+
+    # ---- train_ctc at the flagship width, from the Flax-matching initialiser
+    tok = IdTokenizer()
+    cfg = flagship_config(vocab_size=len(tok), attention_impl="pallas")
+    with open(os.path.join(work, "model.json"), "w") as f:
+        f.write(cfg.to_json())
+    rows = corpus_rows(n_train=128, n_eval=32, seed=1)
+    dataset = {split: ColumnTable(r) for split, r in rows.items()}
+    audio_s = float(sum(rows["test"]["input_len"]))
+    print(f"-- CLI phase: train_ctc (flagship {cfg.num_hidden_layers} x {cfg.hidden_size}, vocabulary "
+          f"{len(tok)} + blank, attention_impl 'pallas': K4 in the train step, K5 in evaluation), B=16 of "
+          f"{min(rows['train']['input_len']):.1f}-{max(rows['train']['input_len']):.1f} s synthetic speech",
+          flush=True)
+
+    def train(name, steps, *flags):
+        out = os.path.join(work, name)
+        argv = ["--model_config", os.path.join(work, "model.json"), "--output_dir", out,
+                "--per_device_train_batch_size", "16", "--per_device_eval_batch_size", "16",
+                "--max_steps", str(steps), "--logging_steps", "1", "--eval_steps", "4", "--save_steps", "1000",
+                "--warmup_steps", "2", "--learning_rate", "5e-4", "--pad_to_multiple", "100", *flags]
+        groups = [ModelArguments, GeneralTrainingArguments, GenerationArguments, DataConfig]
+        args = DataclassArgumentParser(groups).parse_args_into_dataclasses(argv)
+        shutil.rmtree(out, ignore_errors=True)
+        t0 = time.perf_counter()
+        results, launches = counted(lambda: train_ctc.run(*args, dataset, tok))
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        steps_ = [r for r in logged if "loss" in r]
+        evals = [r for r in logged if "eval/wer" in r]
+        times = [r["time"] for r in logged]
+        # host-clock step times: gaps between consecutive step records, less those that hold an evaluation
+        gaps = [1e3 * (b["time"] - a["time"]) for a, b in zip(steps_, steps_[1:])
+                if not any(a["time"] < e["time"] <= b["time"] for e in evals)]
+        applied = sum(int(r["step_applied"]) for r in steps_)
+        print(f"  train_ctc {name}: {len(steps_)} steps in {wall:.1f} s ({max(times) - min(times):.1f} s from "
+              f"the first to the last record), applied {applied}, rejected {len(steps_) - applied}; "
+              f"step ms (host clock, no evaluation in the gap): median {float(np.median(gaps)):.1f} of "
+              f"{[round(g, 1) for g in gaps]}; launches {launches}", flush=True)
+        for r in steps_:
+            print(f"    step {r['step']}: loss={r['loss']:.4f} grad_norm={r['grad_norm']:.3f} "
+                  f"applied={int(r['step_applied'])}", flush=True)
+        for r in evals:
+            print(f"    eval @{r['step']}: loss={r['eval/loss']:.4f} wer={r['eval/wer']:.4f}", flush=True)
+        if len(steps_) != steps or not all(np.isfinite(r["loss"]) for r in steps_):
+            _fail(f"train_ctc {name}: {len(steps_)} of {steps} steps logged, or a loss is not finite")
+        for k in ("asr_rel_attention_train_fwd", "asr_rel_attention_train_bwd"):
+            if launches.get(k, 0) != steps * cfg.num_hidden_layers:
+                _fail(f"train_ctc {name}: {launches.get(k, 0)} launches of {k}, want {steps * cfg.num_hidden_layers}")
+        if launches.get("asr_rel_attention_shift", 0) <= 0 or not evals:
+            _fail(f"train_ctc {name}: the evaluation step did not launch K5")
+        if "test" not in results or not os.path.exists(os.path.join(out, "final", "pytorch_model.bin")):
+            _fail(f"train_ctc {name}: no final/ or no test-split evaluation")
+        return out, steps_, gaps
+
+    train("defaults", 8)  # the JAX defaults: SpecAugment on (caveat (b) may reject steps)
+    out, steps_, gaps = train("no_spec_augment", 4, "--no-apply_spec_augment")
+    if not all(int(r["step_applied"]) == 1 for r in steps_):
+        _fail("train_ctc --no-apply_spec_augment: a step was rejected")
+    final = os.path.join(out, "final")
+
+    # ---- evaluate --model_type ctc on that final/: the kernel route and the plain bf16 model
+    def evaluate_ctc(model_dir, route, table, tokenizer, batch_size, dtype="bfloat16", name=""):
+        out_dir = os.path.join(work, f"eval_{name}_{route}")
+        args = (evaluate.EvalArguments(output_dir=out_dir, batch_size=batch_size, model_type="ctc",
+                                       fused_encoder=route),
+                ModelArguments(from_pretrained=model_dir, dtype=dtype), GenerationArguments(), DataConfig())
+        evaluate.run(*args, {"test": table}, tokenizer)  # warm-up: folds, tables, the allocator
+        results, launches = counted(lambda: evaluate.run(*args, {"test": table}, tokenizer))
+        return results["test"], launches, out_dir
+
+    test = ColumnTable(rows["test"])
+    walls = {}
+    for route in ("on", "off"):
+        res, launches, out_dir = evaluate_ctc(final, route, test, tok, 16, name="flagship")
+        walls[route] = res.wall_time
+        print(f"  evaluate --model_type ctc --fused_encoder {route}: {res.num_examples} utterances "
+              f"({audio_s:.1f} s of audio) at batch 16 in {1e3 * res.wall_time:.1f} ms, RTFx "
+              f"{audio_s / res.wall_time:.0f}; WER {res.metrics['wer']:.3f}; launches {launches}; {smi}", flush=True)
+        if route == "on":
+            want = ("asr_log_mel", "asr_cmvn", "asr_conv1", "asr_conv2", "asr_gemm_bf16", "asr_layernorm_bf16",
+                    "asr_pos_query", "asr_rel_attention", "dwconv_csgu", "dwconv_merge")
+            missing = [k for k in want if launches.get(k, 0) <= 0]
+            if missing or launches.get("asr_rel_attention", 0) != cfg.num_hidden_layers * 2:
+                _fail(f"evaluate --fused_encoder on: not launched {missing}; launches {launches}")
+        elif set(launches) - {"asr_rel_attention_shift"}:
+            # the plain model runs K5 for its attention core where the config
+            # says "pallas", and nothing else
+            _fail(f"evaluate --fused_encoder off launched the kernel route's kernels: {launches}")
+        for suffix in (".csv", "_hyp.trn", "_ref.trn"):
+            if not os.path.exists(os.path.join(out_dir, f"predictions_test{suffix}")):
+                _fail(f"evaluate --fused_encoder {route} wrote no predictions_test{suffix}")
+    ids = {r: _csv_ids(os.path.join(work, f"eval_flagship_{r}", "predictions_test.csv")) for r in ("on", "off")}
+    print(f"  the two routes' transcripts: {sum(a == b for a, b in zip(ids['on'], ids['off']))}/{len(ids['on'])} "
+          f"equal", flush=True)
+
+    # the two routes' logits on the CLI's batches, held as the serving phase holds them
+    model = load_ctc_model(final, dev)
+    routes = {r: evaluate.CTCRoute(model, r, dev, torch.bfloat16) for r in ("on", "off")}
+    collator = SpeechCollator(CollatorConfig(bucketing=BucketingConfig(batch_size=16, pad_to_multiple=16000)))
+    n_frames = n_agree = 0
+    for batch in eval_batches(test, collator, 16):
+        wav = torch.from_numpy(batch["input_values"]).to(dev)
+        lens = torch.from_numpy(batch["input_values_lengths"]).to(dev)
+        got, ref = routes["on"](wav, lens), routes["off"](wav, lens)
+        if not torch.equal(got.logit_lengths, ref.logit_lengths):
+            _fail("evaluate: the two CTC routes' lengths differ")
+        g, r = got.logits.float(), ref.logits.float()
+        valid = torch.arange(g.shape[1], device=dev)[None, :] < ref.logit_lengths[:, None]
+        err, scale = float((g - r).abs()[valid].max()), float(r.abs()[valid].max())
+        tol = 0.05 * max(1.0, scale)
+        same = (g.argmax(-1) == r.argmax(-1))[valid]
+        top2 = r.topk(2, dim=-1).values
+        clear = ((top2[..., 0] - top2[..., 1]) > 2 * tol)[valid]
+        n_frames, n_agree = n_frames + int(valid.sum()), n_agree + int(same.sum())
+        print(f"  evaluate routes, kernel vs plain bf16 model: max_abs_err={err:.3e} tol={tol:.3e} (scale "
+              f"{scale:.3f}); ids agree on {int(same.sum())}/{int(valid.sum())} frames, on "
+              f"{int((same & clear).sum())}/{int(clear.sum())} with a clear margin", flush=True)
+        if not bool(torch.isfinite(g).all()) or err > tol or not bool(same[clear].all()):
+            _fail("evaluate: the kernel route disagrees with the plain bf16 model")
+    if n_agree < 0.98 * n_frames:
+        _fail(f"evaluate: greedy ids agree on {n_agree}/{n_frames} frames, below 98 %")
+
+    # ---- the committed gate model: both routes against the JAX evaluate CLI's ids
+    with open(os.path.join(ROOT, GATE_DIR, "jax_reference.json")) as f:
+        ref = json.load(f)
+    gate_rows = corpus_rows(n_train=512, n_eval=64, seed=0)["test"]
+    gate_table, blank = ColumnTable(gate_rows), ref["blank_id"]
+    gate_tok = IdTokenizer(blank)
+    gate_model = load_ctc_model(os.path.join(ROOT, GATE_DIR), dev)
+    gate_count = {}
+    for route, dtype, key in (("on", "bfloat16", "bfloat16"), ("off", "bfloat16", "bfloat16"),
+                              ("off", "float32", "float32")):
+        res, launches, out_dir = evaluate_ctc(os.path.join(ROOT, GATE_DIR), route, gate_table, gate_tok, 32,
+                                              dtype, name=f"gate_{dtype}")
+        got = _csv_ids(os.path.join(out_dir, "predictions_test.csv"))
+        want = ref[key]["ids"]
+        differ = [u for u in range(len(want)) if got[u] != want[u]]
+        gate_count[f"{route} {dtype}"] = len(want) - len(differ)
+        gaps = []
+        if differ and dtype == "bfloat16":
+            # the triage rule at the first frame where this route's argmax leaves JAX's (bf16 frame ids)
+            gate_route = evaluate.CTCRoute(gate_model, route, dev, getattr(torch, dtype))
+            for start, batch in zip(range(0, len(want), 32), eval_batches(gate_table, SpeechCollator(
+                    CollatorConfig(bucketing=BucketingConfig(batch_size=32, pad_to_multiple=16000))), 32)):
+                out = gate_route(torch.from_numpy(batch["input_values"]).to(dev),
+                                 torch.from_numpy(batch["input_values_lengths"]).to(dev))
+                logits = out.logits.float().cpu().numpy()
+                for u in [u for u in differ if start <= u < start + 32]:
+                    T = int(out.logit_lengths[u - start])
+                    frames = logits[u - start, :T].argmax(-1)
+                    jf = np.asarray(ref["bfloat16"]["frame_ids"][u])
+                    t = int(np.flatnonzero(frames != jf)[0]) if len(jf) == T and (frames != jf).any() else 0
+                    top2 = np.sort(logits[u - start, t])[-2:]
+                    gaps.append((u, t, float(top2[1] - top2[0]), float(np.abs(logits[u - start, :T]).max())))
+        print(f"  gate model, evaluate --fused_encoder {route} at {dtype}: {len(want) - len(differ)}/{len(want)} "
+              f"id sequences equal to the JAX evaluate CLI's; {res.num_examples} utterances in "
+              f"{1e3 * res.wall_time:.1f} ms; launches {launches}" + "".join(
+                  f"; utterance {u} frame {t}: top-two gap {g:.5f} of scale {s:.3f} (bound {TIE * s:.5f})"
+                  for u, t, g, s in gaps), flush=True)
+        if route == "on":
+            if any(launches.get(k, 0) <= 0 for k in ("asr_log_mel", "asr_cmvn", "asr_rel_attention")):
+                _fail(f"gate model: the kernel route did not launch the log-mel and layer kernels: {launches}")
+            for u, t, g, s in gaps:
+                if g > TIE * s:
+                    _fail(f"gate model: utterance {u} differs from JAX at frame {t} beyond a tie")
+    print(f"gate: {gate_count['on bfloat16']}/64 equal to JAX", flush=True)
+
+    # ---- evaluate --model_type aed with --save_nbest against generate_joint called directly
+    aed_dir = os.path.join(work, "aed")
+    save_params(aed_model(seed=3), aed_dir)
+    aed_tok = IdTokenizer(AED_VOCAB, specials=(0, 1, 2, 3))
+    aed_rows = {k: v[:8] for k, v in rows["test"].items()}
+    aed_out = os.path.join(work, "eval_aed")
+    gen = GenerationArguments(num_beams=5, ctc_weight=0.3, max_length=32, save_nbest=True)
+    args = (evaluate.EvalArguments(output_dir=aed_out, batch_size=8, model_type="aed"),
+            ModelArguments(from_pretrained=aed_dir), gen, DataConfig())
+    t0 = time.perf_counter()
+    res, launches = counted(lambda: evaluate.run(*args, {"test": ColumnTable(aed_rows)}, aed_tok))
+    wall = time.perf_counter() - t0
+    print(f"  evaluate --model_type aed (configs/{AED_CONFIG}, 5 beams, ctc_weight 0.3, max_length 32, "
+          f"--save_nbest): 8 utterances in {1e3 * res['test'].wall_time:.1f} ms ({wall:.1f} s with the model's "
+          f"load); launches {launches}", flush=True)
+    names = ("nbest_hyps.txt", "nbest_scores.txt", "nbest_att_scores.txt", "nbest_ctc_scores.txt",
+             "nbest_lm_scores.txt")
+    if any(not os.path.exists(os.path.join(aed_out, n)) for n in names):
+        _fail(f"evaluate --model_type aed wrote no {names}")
+    if any(launches.get(k, 0) <= 0 for k in ("asr_conv1", "asr_conv2", "asr_rel_attention")):
+        _fail(f"evaluate --model_type aed did not take the kernel route: {launches}")
+    model = load_aed_model(aed_dir, dev, torch.bfloat16)
+    batch = next(iter(eval_batches(ColumnTable(aed_rows), SpeechCollator(
+        CollatorConfig(bucketing=BucketingConfig(batch_size=8, pad_to_multiple=16000))), 8)))
+    feats, lens = LogMelFrontEnd(LogMelConfig(num_mel_bins=model.config.encoder.num_fbanks))(
+        torch.from_numpy(batch["input_values"]).to(dev), torch.from_numpy(batch["input_values_lengths"]).to(dev))
+    gen_cfg = dataclasses.replace(evaluate.build_generation_config(gen, {"bos": 0, "eos": 1, "pad": 3}),
+                                  return_components=True)
+    with torch.inference_mode():
+        seqs, scores, _ = generate_joint(model, feats, lens, gen_cfg, fused=FusedCTC(model.encoder, dev))
+    with open(os.path.join(aed_out, "nbest_hyps.txt")) as f:
+        hyps = [line.rstrip("\n").split(" ", 1) for line in f]
+    with open(os.path.join(aed_out, "nbest_scores.txt")) as f:
+        cli_scores = [float(line.split()[1]) for line in f]
+    direct = [aed_tok.decode([int(t) for t in row[0]]) for row in seqs.cpu().numpy()]
+    best = [h[1] if len(h) > 1 else "" for h in hyps[::gen_cfg.num_beams]]
+    d_scores = scores[:, 0].float().cpu().numpy()
+    s_err = float(np.abs(np.asarray(cli_scores[::gen_cfg.num_beams]) - d_scores).max())
+    print(f"  evaluate --model_type aed vs generate_joint called directly: best hypotheses equal in "
+          f"{sum(a == b for a, b in zip(best, direct))}/8, scores within {s_err:.2e}", flush=True)
+    if best != direct or s_err > 1e-5 * max(1.0, float(np.abs(d_scores).max())):
+        _fail("evaluate --model_type aed: the best hypotheses differ from generate_joint's")
+    print(f"  CLI phase launches (train, evaluate, gate, aed): {cli_launches}", flush=True)
+    return cli_launches
 
 
 def timed(fn, iters: int = 20, reps: int = 5) -> float:
@@ -1810,6 +2130,7 @@ def main() -> None:
     narrow_launches["asr_rel_attention_shift"] = n_eval_launches["asr_rel_attention_shift"]
 
     aed_launches = aed_phase(dev, rng, smi)
+    cli_launches = cli_phase(dev, smi)
 
     if failures:
         _fail(f"kernel phases outside tolerance: {failures}")
@@ -1855,6 +2176,7 @@ def main() -> None:
             kernels.append({
                 "name": name, "route": "cuda", "source": f"huggingface_asr_tpu_torch/{src}",
                 "replaces": replaces, "launches": counts[counter], **results[name],
+                "cli_launches": cli_launches.get(counter, 0),
             })
     print(f"AED path launches a request (K2 and K1): {aed_launches}")
     print(json.dumps({"kernels": kernels}))

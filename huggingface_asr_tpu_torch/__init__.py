@@ -12,7 +12,8 @@ Layout (each module names its JAX counterpart):
 * ``models/``   — configs, the plain E-Branchformer CTC model, ``ctc_infer``,
   the DeCRED decoder and the joint CTC/attention model
 * ``decoding/`` — the CTC prefix scorer, the joint beam search, ``generate_joint``
-* ``cli/``      — what the command-line entry points share (``tokenizer_ids``)
+* ``cli/``      — ``train_ctc`` and ``evaluate`` (CTC and joint routes), and what they share
+* ``data/``     — the CLIs' data path: datasets, collation, bucketing, prefetch, augmentation
 * ``ops/``      — length math, the plain log-mel front end, CTC greedy decode
 * ``kernels/``  — one file per Pallas file: weight folds, plain versions and
   the CUDA kernel wrappers
@@ -20,6 +21,7 @@ Layout (each module names its JAX counterpart):
 * ``interop/``  — Flax parameter tree <-> this package's state dict
 * ``training/`` — ``CTCTrainer``, model directories and checkpoints
 * ``serving/``  — ``ASRPipeline`` (joint CTC/attention or CTC) and ``EndpointHandler``
+* ``assets/``   — the transcript gate's model, trained by the JAX CLIs, and JAX's ids for it
 """
 
 __version__ = "0.1.0"

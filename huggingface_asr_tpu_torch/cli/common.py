@@ -1,9 +1,45 @@
 """What the command-line entry points share (counterpart of
-``huggingface_asr_tpu/cli/common.py``; ``tokenizer_ids`` only so far)."""
+``huggingface_asr_tpu/cli/common.py``; its ``setup_compile_cache`` is the
+XLA compile cache and has no counterpart, and ``load_fusion_lm`` comes with
+``train_clm``).
+
+``datasets`` and ``transformers`` are imported inside the loaders only: a
+caller that brings its own dataset mapping and tokenizer needs neither.
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+import itertools
+import logging
+import os
+from typing import Callable, Dict, Iterator, List, Optional
+
+import numpy as np
+
+from huggingface_asr_tpu_torch.data.bucketing import BucketedBatchSampler
+from huggingface_asr_tpu_torch.data.collator import SpeechCollator
+
+logger = logging.getLogger(__name__)
+
+
+def setup_logging(output_dir: Optional[str] = None, level=logging.INFO):
+    handlers = [logging.StreamHandler()]
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+        handlers.append(logging.FileHandler(os.path.join(output_dir, "train.log")))
+    logging.basicConfig(
+        level=level,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+        handlers=handlers,
+        force=True,
+    )
+
+
+def load_tokenizer(name_or_path: str):
+    """Load an HF fast tokenizer from a local dir/file or the hub."""
+    from transformers import AutoTokenizer
+
+    return AutoTokenizer.from_pretrained(name_or_path)
 
 
 def tokenizer_ids(tokenizer) -> Dict[str, int]:
@@ -16,3 +52,68 @@ def tokenizer_ids(tokenizer) -> Dict[str, int]:
         "unk": tokenizer.unk_token_id,
         "vocab_size": len(tokenizer),
     }
+
+
+def dataset_lengths(dataset, length_column: str) -> np.ndarray:
+    if length_column in dataset.column_names:
+        return np.asarray(dataset[length_column], dtype=np.float64)
+    raise KeyError(f"dataset lacks length column {length_column}")
+
+
+def epoch_iterator(
+    dataset,
+    sampler: BucketedBatchSampler,
+    collator: SpeechCollator,
+    max_steps: Optional[int] = None,
+    extra_fn: Optional[Callable[[dict], dict]] = None,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite (or max_steps-bounded) epoch-cycling batch iterator. Each
+    batch carries ``_num_audio_samples``, counted on the host, for ``fit``'s
+    throughput."""
+    step = 0
+    for epoch in itertools.count():
+        for idx in sampler.epoch_batches(epoch):
+            batch = collator([dataset[int(i)] for i in idx])
+            if extra_fn is not None:
+                batch = extra_fn(batch)
+            for key in ("input_values_lengths", "input_lengths", "label_lengths"):
+                if key in batch:
+                    batch["_num_audio_samples"] = np.asarray(
+                        np.sum(batch[key]), np.int64
+                    )
+                    break
+            else:
+                if "input_ids" in batch:
+                    batch["_num_audio_samples"] = np.asarray(
+                        np.prod(batch["input_ids"].shape), np.int64
+                    )
+            yield batch
+            step += 1
+            if max_steps is not None and step >= max_steps:
+                return
+
+
+def eval_batches(
+    dataset,
+    collator: SpeechCollator,
+    batch_size: int,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Fixed-batch-size eval iterator.
+
+    The last ragged batch is padded to ``batch_size`` by repeating the final
+    example, so every eval batch has the same leading shape, as in the JAX
+    package. The number of real rows rides along as ``batch["_num_real"]``;
+    consumers pop it and truncate their outputs with it.
+    """
+    n = len(dataset)
+    for start in range(0, n, batch_size):
+        idx = list(range(start, min(start + batch_size, n)))
+        num_real = len(idx)
+        idx += [idx[-1]] * (batch_size - num_real)
+        batch = collator([dataset[i] for i in idx])
+        batch["_num_real"] = np.asarray(num_real, np.int32)
+        yield batch
+
+
+def split_references(dataset, text_column: str) -> List[str]:
+    return list(dataset[text_column])

@@ -1,0 +1,262 @@
+"""Standalone decode/evaluation entry point (counterpart of
+``huggingface_asr_tpu/cli/evaluate.py``).
+
+Covers the reference's eval paths — ``do_evaluate`` with generation-config
+override strings and per-split CSV/trn outputs (reference:
+src/utilities/general_utils.py:129-228) — for the port's model directories:
+CTC greedy decode for E-Branchformer CTC models (``--model_type ctc``), joint
+CTC/attention beam search for AED models (``--model_type aed``, with
+``--save_nbest``'s ``nbest_*`` files). ``--model_type whisper_ctc|llm_asr``
+raises (ROADMAP.md Queue 1 item 11), and so does ``--lm_model`` (shallow
+fusion's ``load_fusion_lm`` comes with ``train_clm``, Queue 1 item 8).
+
+``--fused_encoder`` (the CTC route): "auto" takes the kernel route (the
+log-mel kernel, then ``ctc_infer``: the subsampler and layer kernels, then the
+heads) where the device is a card and ``fused_encoder_refusal(config, dtype,
+log_mel=True)`` is None; "on" requires it and raises with the reason
+otherwise; "off" runs the plain model behind the plain log-mel front end. The
+AED route hands the same choice to ``generate_joint`` ("on" -> True, "off" ->
+False).
+
+``main(argv)`` parses the arguments and loads the dataset and the tokenizer
+(through ``datasets`` and ``transformers``); ``run`` does the rest, for a
+caller that brings its own dataset mapping and tokenizer.
+
+    python -m huggingface_asr_tpu_torch.cli.evaluate --dataset_name DIR --load_from_disk \\
+        --tokenizer_name TOK --from_pretrained out/final --model_type ctc [--device cpu]
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from huggingface_asr_tpu_torch.cli.common import (
+    eval_batches,
+    load_tokenizer,
+    setup_logging,
+    split_references,
+    tokenizer_ids,
+)
+from huggingface_asr_tpu_torch.data.bucketing import BucketingConfig
+from huggingface_asr_tpu_torch.data.collator import CollatorConfig, SpeechCollator
+from huggingface_asr_tpu_torch.data.datasets import DataConfig, get_dataset
+from huggingface_asr_tpu_torch.decoding.beam_search import BeamSearchConfig
+from huggingface_asr_tpu_torch.decoding.generate import generate_joint
+from huggingface_asr_tpu_torch.kernels.mel import MelFrontEnd
+from huggingface_asr_tpu_torch.models.configs import parse_dtype
+from huggingface_asr_tpu_torch.models.ebranchformer import CTCOutput, EBranchformerForCTC
+from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer, fused_encoder_refusal
+from huggingface_asr_tpu_torch.ops.ctc import ctc_greedy_decode, tokens_to_lists
+from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
+from huggingface_asr_tpu_torch.training.arguments import GenerationArguments, ModelArguments, check_supported
+from huggingface_asr_tpu_torch.training.model_factory import load_aed_model, load_ctc_model
+from huggingface_asr_tpu_torch.utils.argparsing import DataclassArgumentParser, parse_override_string
+from huggingface_asr_tpu_torch.utils.device import resolve_device
+from huggingface_asr_tpu_torch.utils.eval_utils import evaluate_splits, save_nbests
+
+logger = logging.getLogger(__name__)
+
+FUSED_CHOICES = {"auto": "auto", "on": True, "off": False}
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalArguments:
+    output_dir: str = "eval_output"
+    batch_size: int = 32
+    model_type: str = "ctc"  # ctc | aed (whisper_ctc | llm_asr: not ported yet)
+    # "auto": the kernel route when on a card and the config/dtype qualify;
+    # "on": require it; "off": the plain model.
+    fused_encoder: str = "auto"  # auto | on | off
+
+
+def build_generation_config(gen_args: GenerationArguments, ids) -> BeamSearchConfig:
+    """The port's own copy of ``huggingface_asr_tpu/cli/train_aed.py::build_generation_config``."""
+    return BeamSearchConfig(
+        num_beams=max(gen_args.num_beams, 1),
+        max_length=gen_args.max_length,
+        ctc_weight=gen_args.ctc_weight,
+        ctc_margin=gen_args.ctc_margin,
+        lm_weight=gen_args.lm_weight,
+        length_penalty=gen_args.length_penalty,
+        num_candidates=gen_args.num_candidates,
+        bos_token_id=ids["bos"],
+        eos_token_id=ids["eos"],
+        pad_token_id=ids["pad"],
+        apply_eos_space_trick=gen_args.apply_eos_space_trick,
+        space_token_id=gen_args.space_token_id,
+        eos_space_trick_weight=gen_args.eos_space_trick_weight,
+    )
+
+
+class CTCRoute:
+    """The CTC route's front end and encoder, chosen once by
+    ``fused_encoder``: ``route(waveforms, lengths)`` -> ``CTCOutput`` (logits
+    in the route's dtype, decode lengths)."""
+
+    def __init__(self, model: EBranchformerForCTC, fused_encoder: str, device: torch.device, dtype: torch.dtype):
+        if fused_encoder not in FUSED_CHOICES:
+            raise ValueError(f"--fused_encoder {fused_encoder!r}: auto, on or off")
+        refusal = fused_encoder_refusal(model.config, dtype, log_mel=True)
+        if refusal is None and device.type != "cuda":
+            refusal = f"device {device} (the kernels run on a CUDA device)"
+        if fused_encoder == "on" and refusal is not None:
+            raise ValueError(f"--fused_encoder on, but the kernel route does not take this model: {refusal}")
+        self.fused = fused_encoder != "off" and refusal is None
+        if fused_encoder == "auto" and refusal is not None and device.type == "cuda":
+            logger.warning("CTC decode through the plain model, not the kernels: %s", refusal)
+        mel_cfg = LogMelConfig(num_mel_bins=model.config.num_fbanks)
+        self.dtype = dtype
+        if self.fused:
+            logger.info("CTC decode through the kernel route")
+            self._frontend = MelFrontEnd(mel_cfg, device=device)
+            self._encoder = FusedCTC(model, device)
+        else:
+            self._frontend = LogMelFrontEnd(mel_cfg)
+            self._model = model
+
+    @torch.inference_mode()
+    def __call__(self, waveforms: torch.Tensor, lengths: torch.Tensor) -> CTCOutput:
+        feats, feat_lens = self._frontend(waveforms, lengths)
+        if self.fused:
+            return ctc_infer(self._encoder, feats, feat_lens)
+        return self._model(feats.to(self.dtype), feat_lens)
+
+
+def main(argv=None):
+    parser = DataclassArgumentParser(
+        [EvalArguments, ModelArguments, GenerationArguments, DataConfig]
+    )
+    eval_args, model_args, gen_args, data_cfg = parser.parse_args_into_dataclasses(argv)
+    check_supported(eval_args.model_type)
+    setup_logging(eval_args.output_dir)
+
+    dataset = get_dataset(data_cfg)
+    tokenizer = load_tokenizer(model_args.tokenizer_name)
+    return run(eval_args, model_args, gen_args, data_cfg, dataset, tokenizer)
+
+
+def run(
+    eval_args: EvalArguments,
+    model_args: ModelArguments,
+    gen_args: GenerationArguments,
+    data_cfg: DataConfig,
+    dataset: Mapping[str, Any],
+    tokenizer,
+) -> Dict[str, Any]:
+    """Decode and score every split but the train split; returns
+    ``evaluate_splits``' results (split -> ``SplitResult``)."""
+    check_supported(eval_args.model_type)
+    if eval_args.model_type not in ("ctc", "aed"):
+        raise ValueError(f"--model_type {eval_args.model_type!r}: ctc or aed")
+    device = resolve_device(model_args.device)
+    ids = tokenizer_ids(tokenizer)
+    dtype = parse_dtype(model_args.dtype)
+
+    def to_device(batch):
+        return (torch.from_numpy(batch["input_values"]).to(device),
+                torch.from_numpy(batch["input_values_lengths"]).to(device))
+
+    nbest_store = []
+    if eval_args.model_type == "ctc":
+        route = CTCRoute(load_ctc_model(model_args.from_pretrained, device), eval_args.fused_encoder, device, dtype)
+
+        def decode_batch(batch):
+            out = route(*to_device(batch))
+            toks, tlens = ctc_greedy_decode(out.logits, out.logit_lengths, blank_id=-1)
+            return [
+                tokenizer.decode(t, skip_special_tokens=True)
+                for t in tokens_to_lists(toks.cpu().numpy(), tlens.cpu().numpy())
+            ], None
+
+    else:
+        if gen_args.lm_model:
+            raise NotImplementedError(
+                "--lm_model is not ported yet: shallow fusion's load_fusion_lm comes with train_clm "
+                "(ROADMAP.md Queue 1 item 8)")
+        model = load_aed_model(model_args.from_pretrained, device, dtype)
+        frontend = LogMelFrontEnd(LogMelConfig(num_mel_bins=model.config.encoder.num_fbanks))
+        gen_cfg = build_generation_config(gen_args, ids)
+        if gen_args.override_for_evaluation:
+            gen_cfg = parse_override_string(gen_args.override_for_evaluation, gen_cfg)
+        if gen_args.save_nbest:
+            gen_cfg = dataclasses.replace(gen_cfg, return_components=True)
+        if gen_args.eval_beam_factor > 1:
+            # Reference do_evaluate: beams x= factor, eval batch /= factor
+            # (general_utils.py:200-203).
+            gen_cfg = dataclasses.replace(
+                gen_cfg, num_beams=gen_cfg.num_beams * gen_args.eval_beam_factor
+            )
+            eval_args = dataclasses.replace(
+                eval_args,
+                batch_size=max(eval_args.batch_size // gen_args.eval_beam_factor, 1),
+            )
+        use_fused = FUSED_CHOICES[eval_args.fused_encoder]
+        refusal = fused_encoder_refusal(model.config.encoder, dtype)
+        if use_fused is True and refusal is not None:
+            raise ValueError(f"--fused_encoder on, but the kernel path does not take this encoder: {refusal}")
+        if use_fused == "auto":
+            use_fused = device.type == "cuda" and refusal is None
+        fused = FusedCTC(model.encoder, device) if use_fused else None  # folded once, not per batch
+
+        @torch.inference_mode()
+        def decode_batch(batch):
+            feats, lens = frontend(*to_device(batch))
+            out = generate_joint(model, feats, lens, gen_cfg, fused_encoder=use_fused, fused=fused)
+            out = tuple(o.cpu().numpy() if isinstance(o, torch.Tensor) else o for o in out)
+            if gen_args.save_nbest:
+                seqs, scores, comps = out
+                nbest_store.append((seqs, scores, {k: v.cpu().numpy() for k, v in comps.items()}))
+            else:
+                seqs, scores = out
+            return [
+                tokenizer.decode([int(t) for t in row[0]], skip_special_tokens=True)
+                for row in seqs
+            ], None
+
+    collator = SpeechCollator(
+        CollatorConfig(bucketing=BucketingConfig(batch_size=eval_args.batch_size,
+                                                 pad_to_multiple=16000))
+    )
+    test_splits = {
+        name: ds for name, ds in dataset.items() if name != data_cfg.train_split
+    }
+    normalizer = None
+    if gen_args.post_process_predictions:
+        from huggingface_asr_tpu_torch.utils.normalizer import EnglishNormalizer
+
+        normalizer = EnglishNormalizer()
+    results = evaluate_splits(
+        decode_batch,
+        {n: eval_batches(ds, collator, eval_args.batch_size) for n, ds in test_splits.items()},
+        {n: split_references(ds, data_cfg.text_column_name) for n, ds in test_splits.items()},
+        output_dir=eval_args.output_dir,
+        normalizer=normalizer,
+    )
+    if eval_args.model_type == "aed" and gen_args.save_nbest and nbest_store:
+        seqs = np.concatenate([s for s, _, _ in nbest_store], axis=0)
+        scores = np.concatenate([s for _, s, _ in nbest_store], axis=0)
+        save_nbests(
+            os.path.join(eval_args.output_dir, "nbest"),
+            seqs, scores,
+            lambda toks: tokenizer.decode(toks, skip_special_tokens=True),
+        )
+        # per-component score streams (reference postprocess_beam_outputs,
+        # general_utils.py:115-126 splits joint/dec/ctc/lm)
+        for name in ("att", "ctc", "lm"):
+            comp = np.concatenate([c[name] for _, _, c in nbest_store], axis=0)
+            path = os.path.join(eval_args.output_dir, f"nbest_{name}_scores.txt")
+            with open(path, "w") as f:
+                for i in range(comp.shape[0]):
+                    for w in range(comp.shape[1]):
+                        f.write(f"utt_{i}-{w} {comp[i, w]:.6f}\n")
+    return results
+
+
+if __name__ == "__main__":
+    main()

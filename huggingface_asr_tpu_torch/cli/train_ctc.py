@@ -1,0 +1,254 @@
+"""CTC ASR training entry point (counterpart of
+``huggingface_asr_tpu/cli/train_ctc.py``; reference: src/trainers/train_ctc_asr.py).
+
+Flow: parse arg groups -> get_dataset -> tokenizer -> model (from
+``--model_config`` / ``--from_pretrained`` with the tokenizer's vocabulary and
+``--config_overrides``; the Flax-matching ``init_from_scratch_`` when nothing
+is loaded) -> bucketed batches of raw waveforms -> ``CTCTrainer`` steps on the
+device (log-mel + SpecAugment + E-Branchformer + fp32 CTC) -> periodic
+greedy-WER eval -> checkpoints -> ``final/`` (``config.json`` +
+``pytorch_model.bin``) -> final per-test-split evaluation (CSV and ``.trn``).
+
+``main(argv)`` parses the arguments and loads the dataset and the tokenizer
+(through ``datasets`` and ``transformers``); ``run`` does the rest, for a
+caller that brings its own dataset mapping (split -> a table with ``len``,
+rows and columns, such as ``data.datasets.ColumnTable``) and tokenizer.
+The E-Branchformer CTC family only: ``--model_family whisper_ctc|llm_asr``
+raises (ROADMAP.md Queue 1 item 11). ``--device cpu`` runs on the CPU; the
+default is the card.
+
+    python -m huggingface_asr_tpu_torch.cli.train_ctc --dataset_name DIR --load_from_disk \\
+        --tokenizer_name TOK --model_config model.json --output_dir out [--device cpu]
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from huggingface_asr_tpu_torch.cli.common import (
+    epoch_iterator,
+    eval_batches,
+    load_tokenizer,
+    setup_logging,
+    split_references,
+    tokenizer_ids,
+)
+from huggingface_asr_tpu_torch.data.bucketing import BucketedBatchSampler, BucketingConfig
+from huggingface_asr_tpu_torch.data.collator import CollatorConfig, SpeechCollator
+from huggingface_asr_tpu_torch.data.datasets import DataConfig, get_dataset
+from huggingface_asr_tpu_torch.data.prefetch import PrefetchIterator, pinned_device_put
+from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
+from huggingface_asr_tpu_torch.models.ebranchformer import init_from_scratch_
+from huggingface_asr_tpu_torch.ops.ctc import tokens_to_lists
+from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
+from huggingface_asr_tpu_torch.ops.spec_augment import SpecAugmentConfig
+from huggingface_asr_tpu_torch.training.arguments import (
+    GeneralTrainingArguments,
+    GenerationArguments,
+    ModelArguments,
+    check_supported,
+)
+from huggingface_asr_tpu_torch.training.loop import CTCTrainer, TrainerConfig
+from huggingface_asr_tpu_torch.training.model_factory import (
+    apply_config_overrides,
+    instantiate_ctc_model,
+    load_config,
+    save_params,
+)
+from huggingface_asr_tpu_torch.training.optim import OptimizerConfig
+from huggingface_asr_tpu_torch.utils.argparsing import DataclassArgumentParser
+from huggingface_asr_tpu_torch.utils.device import resolve_device
+from huggingface_asr_tpu_torch.utils.eval_utils import evaluate_splits, get_metrics
+from huggingface_asr_tpu_torch.utils.logging_utils import MetricsLogger
+
+logger = logging.getLogger(__name__)
+
+
+def build_trainer_config(training: GeneralTrainingArguments) -> TrainerConfig:
+    return TrainerConfig(
+        optimizer=OptimizerConfig(
+            learning_rate=training.learning_rate,
+            lr_scheduler_type=training.lr_scheduler_type,
+            warmup_steps=training.warmup_steps,
+            total_steps=training.max_steps,
+            weight_decay=training.weight_decay,
+            adam_beta1=training.adam_beta1,
+            adam_beta2=training.adam_beta2,
+            adam_epsilon=training.adam_epsilon,
+            max_grad_norm=training.max_grad_norm,
+            gradient_accumulation_steps=training.gradient_accumulation_steps,
+        ),
+        spec_augment=SpecAugmentConfig() if training.apply_spec_augment else None,
+        log_every=training.logging_steps,
+        eval_every=training.eval_steps,
+        save_every=training.save_steps,
+        max_steps=training.max_steps,
+        seed=training.seed,
+        checkpoint_dir=os.path.join(os.path.abspath(training.output_dir), "checkpoints"),
+        keep_checkpoints=training.save_total_limit,
+        early_stopping_patience=training.early_stopping_patience,
+        greater_is_better=training.greater_is_better,
+        metric_for_best=training.metric_for_best_model,
+    )
+
+
+def build_model_config(model_args: ModelArguments, vocab_size: int) -> EBranchformerConfig:
+    """The model config: ``--model_config``'s file, else the architecture of
+    ``--from_pretrained`` (possibly an SSL pretrain one), else the defaults;
+    the vocabulary from the tokenizer, then ``--config_overrides``."""
+    if model_args.model_config:
+        with open(model_args.model_config) as f:
+            config = EBranchformerConfig.from_dict(json.load(f))
+    elif model_args.from_pretrained:
+        config = load_config(model_args.from_pretrained, EBranchformerConfig)
+    else:
+        config = EBranchformerConfig()
+    config = dataclasses.replace(config, vocab_size=vocab_size)
+    if model_args.config_overrides:
+        overrides = dict(p.split("=", 1) for p in model_args.config_overrides.split(";"))
+        config = apply_config_overrides(config, overrides)
+    return config
+
+
+def main(argv=None):
+    parser = DataclassArgumentParser(
+        [ModelArguments, GeneralTrainingArguments, GenerationArguments, DataConfig]
+    )
+    model_args, training, gen_args, data_cfg = parser.parse_args_into_dataclasses(argv)
+    check_supported(model_args.model_family, training)
+    setup_logging(training.output_dir)
+
+    dataset = get_dataset(data_cfg)
+    if training.preprocess_dataset_only:
+        return
+    tokenizer = load_tokenizer(model_args.tokenizer_name)
+    return run(model_args, training, gen_args, data_cfg, dataset, tokenizer)
+
+
+def run(
+    model_args: ModelArguments,
+    training: GeneralTrainingArguments,
+    gen_args: GenerationArguments,
+    data_cfg: DataConfig,
+    dataset: Mapping[str, Any],
+    tokenizer,
+) -> Dict[str, Any]:
+    """Train, write ``final/`` and evaluate the test splits; returns
+    ``evaluate_splits``' results (split -> ``SplitResult``)."""
+    check_supported(model_args.model_family, training)
+    device = resolve_device(model_args.device)
+    ids = tokenizer_ids(tokenizer)
+
+    config = build_model_config(model_args, ids["vocab_size"])
+    model, state_dict = instantiate_ctc_model(
+        config,
+        from_pretrained=model_args.from_pretrained,
+        from_hf_checkpoint=model_args.from_hf_checkpoint,
+    )
+    if state_dict is None:
+        init_from_scratch_(model, torch.Generator().manual_seed(training.seed))
+    elif "lm_head.weight" not in state_dict:
+        raise NotImplementedError("an encoder-only (SSL pretraining) checkpoint under a fresh CTC head comes "
+                                  "with the SSL slice (ROADMAP.md Queue 1 item 10)")
+    else:
+        model.load_state_dict(state_dict, strict=True)
+
+    frontend = LogMelFrontEnd(LogMelConfig(num_mel_bins=config.num_fbanks))
+    trainer_cfg = build_trainer_config(training)
+
+    speed_perturb = None
+    if training.preprocessing_config:
+        from huggingface_asr_tpu_torch.data.preprocessing_config import load_preprocessing_config
+
+        plan = load_preprocessing_config(training.preprocessing_config, training.seed)
+        speed_perturb = plan.audio_transform
+        if plan.spec_augment is not None:
+            trainer_cfg = dataclasses.replace(
+                trainer_cfg,
+                spec_augment=plan.spec_augment,
+                spec_augment_start_step=plan.spec_augment_start_step,
+            )
+    trainer = CTCTrainer(model, trainer_cfg, frontend=frontend, device=device, dtype=model_args.dtype)
+
+    collator_cfg = CollatorConfig(
+        bucketing=BucketingConfig(
+            batch_size=training.per_device_train_batch_size,
+            pad_to_multiple=training.pad_to_multiple * 160,  # frames -> samples
+        )
+    )
+    train_collator = SpeechCollator(collator_cfg, tokenizer=tokenizer, audio_transform=speed_perturb)
+    collator = SpeechCollator(collator_cfg, tokenizer=tokenizer)  # eval: no augment
+    train_ds = dataset[data_cfg.train_split]
+    sampler = BucketedBatchSampler(
+        np.asarray(train_ds[data_cfg.length_column_name], dtype=np.float64),
+        BucketingConfig(batch_size=training.per_device_train_batch_size, seed=training.seed),
+    )
+
+    state = trainer.init_state()
+    if training.restart_from:
+        state = trainer.restore_checkpoint(state, None)
+    if hasattr(speed_perturb, "set_step"):
+        # delayed-start transforms resume from the restored global step
+        speed_perturb.set_step(int(state.step))
+
+    if training.report_to_wandb:
+        logger.warning("--report_to_wandb: the port logs to metrics.jsonl only (no W&B sink)")
+    metrics_logger = MetricsLogger(training.output_dir)
+
+    def decode(batch):
+        out = trainer.eval_step(state, batch)
+        toks = tokens_to_lists(out["tokens"].cpu().numpy(), out["token_lengths"].cpu().numpy())
+        return [tokenizer.decode(t, skip_special_tokens=True) for t in toks], out
+
+    def eval_fn(state):
+        val = dataset.get(data_cfg.validation_split)
+        if val is None:
+            return {}
+        hyps, losses = [], []
+        for batch in eval_batches(val, collator, training.per_device_eval_batch_size):
+            num_real = int(batch.pop("_num_real"))
+            texts, out = decode(batch)
+            losses.append(float(out["loss"]))
+            hyps.extend(texts[:num_real])
+        refs = split_references(val, data_cfg.text_column_name)
+        assert len(refs) == len(hyps), (len(refs), len(hyps))
+        m = get_metrics(refs, hyps)
+        return {"loss": float(np.mean(losses)), **m}
+
+    if training.start_by_eval:
+        logger.info("start_by_eval: %s", eval_fn(state))
+
+    train_iter = PrefetchIterator(
+        epoch_iterator(train_ds, sampler, train_collator, max_steps=training.max_steps),
+        depth=2,
+        device_put=pinned_device_put(device),
+    )
+    state = trainer.fit(state, train_iter, eval_fn=eval_fn, hooks=[metrics_logger.log])
+    trainer.save_checkpoint(state)
+    save_params(trainer.model, os.path.join(training.output_dir, "final"))
+
+    # Final evaluation on all test splits.
+    test_splits = {
+        name: ds for name, ds in dataset.items()
+        if name not in (data_cfg.train_split, data_cfg.validation_split)
+    }
+    return evaluate_splits(
+        lambda batch: (decode(batch)[0], None),
+        {
+            name: eval_batches(ds, collator, training.per_device_eval_batch_size)
+            for name, ds in test_splits.items()
+        },
+        {name: split_references(ds, data_cfg.text_column_name) for name, ds in test_splits.items()},
+        output_dir=training.output_dir,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Deterministic synthetic speech (the port's own copy of
-``huggingface_asr_tpu/data/synthetic_speech.py``, numpy only; ``build_corpus``,
-which writes an HF ``datasets`` directory, is not carried over).
+``huggingface_asr_tpu/data/synthetic_speech.py``; numpy only, but for
+``build_corpus``, which imports ``datasets`` to write its directory).
 
 Renders text to 16 kHz audio where each character is a two-formant tone burst
 with randomized duration, gain, and additive noise — an acoustically
@@ -10,6 +10,9 @@ real work, while remaining reproducible with zero external data.
 
 ``utterance(seconds, rng)`` renders sampled sentences up to a wanted duration,
 for smoke runs and tests that need speech-like input of a given length.
+``corpus_rows`` makes the rows of the JAX package's ``build_corpus`` (what its
+inner ``make`` does), so that a machine without ``datasets`` can build the
+same corpus in memory; ``build_corpus`` saves them as a ``DatasetDict``.
 """
 
 from __future__ import annotations
@@ -91,6 +94,68 @@ def sample_sentence(
 ) -> str:
     n = int(rng.integers(min_words, max_words + 1))
     return " ".join(rng.choice(vocab if vocab is not None else WORDS, size=n))
+
+
+def corpus_rows(
+    n_train: int = 256,
+    n_eval: int = 32,
+    seed: int = 0,
+    noise: float = 0.02,
+    hard: bool = False,
+):
+    """The rows of ``build_corpus``: {"train", "validation", "test"} -> the
+    columns {"audio": float32 waveforms, "text", "input_len": seconds}, drawn
+    from one generator in that order (so a split's rows depend on the sizes of
+    the splits before it). Eval splits use held-out sentences.
+
+    ``hard=True`` produces a discriminative corpus: 6x the additive noise,
+    squeezed formant spacing (confusable characters), per-utterance speed in
+    [0.8, 1.3], and a vocabulary extended with minimal-pair words — trained
+    models plateau at WER > 0, so transcript parity must agree on errors, not
+    just on clean outputs.
+    """
+    rng = np.random.default_rng(seed)
+    render_kw = {"noise": noise}
+    vocab = None
+    if hard:
+        render_kw = {
+            "noise": max(noise, 0.12),
+            "freq_spacing": 0.45,
+            "speed_range": (0.8, 1.3),
+        }
+        vocab = WORDS + CONFUSABLE_WORDS
+
+    def make(n):
+        rows = {"audio": [], "text": [], "input_len": []}
+        for _ in range(n):
+            text = sample_sentence(rng, vocab=vocab)
+            wav = render_utterance(text, rng, **render_kw)
+            rows["audio"].append(wav)
+            rows["text"].append(text)
+            rows["input_len"].append(len(wav) / SAMPLE_RATE)
+        return rows
+
+    return {"train": make(n_train), "validation": make(n_eval), "test": make(n_eval)}
+
+
+def build_corpus(
+    path: str,
+    n_train: int = 256,
+    n_eval: int = 32,
+    seed: int = 0,
+    noise: float = 0.02,
+    hard: bool = False,
+):
+    """Build and save ``corpus_rows(...)`` as a DatasetDict in the corpus
+    schema the CLIs consume (audio / text / input_len)."""
+    import datasets
+
+    dd = datasets.DatasetDict({
+        split: datasets.Dataset.from_dict(rows)
+        for split, rows in corpus_rows(n_train, n_eval, seed, noise, hard).items()
+    })
+    dd.save_to_disk(path)
+    return dd
 
 
 def utterance(seconds: float, rng: np.random.Generator, noise: float = 0.02):

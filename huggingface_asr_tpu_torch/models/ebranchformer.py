@@ -481,3 +481,66 @@ def init_random_(model: nn.Module, generator: torch.Generator,
             z = 0.1 * z
         p.copy_(z)
     return model
+
+
+# Flax's lecun_normal: a standard normal truncated to [-2, 2], scaled so that
+# the result has variance 1 / fan_in (this constant is the std of the
+# truncated standard normal).
+_TRUNC_STD = 0.87962566103423978
+_PHI_M2, _PHI_P2 = 0.5 * math.erfc(2.0 / math.sqrt(2.0)), 0.5 * math.erfc(-2.0 / math.sqrt(2.0))
+
+
+def _lecun_normal(shape, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """Draws of ``jax.nn.initializers.lecun_normal()`` (inverse CDF of the
+    truncated normal, as ``jax.random.truncated_normal`` draws it)."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float64) * (_PHI_P2 - _PHI_M2) + _PHI_M2
+    z = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
+    return (z.clamp(-2.0, 2.0) * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)).float()
+
+
+@torch.no_grad()
+def init_from_scratch_(model: "EBranchformerForCTC", generator: torch.Generator) -> "EBranchformerForCTC":
+    """The distributions of the JAX package's ``EBranchformerForCTC.init``, for
+    a model trained from scratch (``cli/train_ctc.py`` when nothing is loaded):
+
+    - every Dense kernel ~ N(0, ``initializer_range``^2) (the Flax model's
+      ``_winit``), but the feature projection's, which keeps Flax's default
+      lecun_normal;
+    - every convolution kernel (the 2-D front-end convs, the CSGU and merge
+      depthwise convs) lecun_normal over its fan-in (input channels per group
+      x kernel taps), Flax's ``nn.Conv`` default;
+    - every bias 0, the attention's ``pos_bias_u`` / ``pos_bias_v`` 0, every
+      LayerNorm scale 1 and bias 0.
+
+    The draws come from ``generator`` on the CPU, in ``named_parameters``
+    order, and are copied into place; a parameter of another kind raises.
+
+    Caveat (b) of ROADMAP.md follows from the zero conv biases: a frame that
+    SpecAugment's time mask zeroed stays exactly zero through the front end,
+    reaches the feature projection's LayerNorm as a constant row, and its
+    gradient is scaled by rsqrt(eps). At the flagship width the trainer's
+    guard then rejects the steps with such frames, in the JAX trainer and
+    here alike. This initialiser keeps that behaviour, to match the JAX
+    trainer; ``--no-apply_spec_augment`` (or a preprocessing plan that starts
+    SpecAugment later) is the way round it.
+    """
+    std = model.config.initializer_range
+    lecun_dense = {id(model.wav2vec2.feature_projection.projection)}
+    for module in model.modules():
+        own = dict(module.named_parameters(recurse=False))
+        if not own:
+            continue
+        if isinstance(module, nn.LayerNorm):
+            module.weight.fill_(1.0)
+            module.bias.fill_(0.0)
+            continue
+        for name, p in own.items():
+            if name == "bias" or name in ("pos_bias_u", "pos_bias_v"):
+                p.zero_()
+            elif name == "weight" and isinstance(module, nn.Linear) and id(module) not in lecun_dense:
+                p.copy_(std * torch.randn(p.shape, generator=generator, dtype=torch.float32))
+            elif name == "weight" and isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+                p.copy_(_lecun_normal(p.shape, p[0].numel(), generator))
+            else:
+                raise ValueError(f"init_from_scratch_: no Flax initialiser known for {type(module).__name__}.{name}")
+    return model

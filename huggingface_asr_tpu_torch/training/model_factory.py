@@ -1,6 +1,8 @@
-"""Model directories and trainer checkpoints (subset of
-``huggingface_asr_tpu/training/model_factory.py``; ``torch.save`` takes the
-place of orbax).
+"""Model directories, trainer checkpoints, checkpoint averaging and config
+overrides (counterpart of ``huggingface_asr_tpu/training/model_factory.py``;
+``torch.save`` takes the place of orbax; the joint model's
+``instantiate_aed_model`` and ``merge_pretrained_halves`` come with its
+training half).
 
 A model directory holds ``config.json`` (the JAX package's config fields) and
 ``pytorch_model.bin`` (a flat state dict with the reference HF keys, the file
@@ -9,14 +11,17 @@ Orbax checkpoints cannot be read without JAX; the JAX side converts them.
 
 A trainer checkpoint is one file ``checkpoint_<step>.pt`` in the trainer's
 checkpoint directory: model and optimizer state, step, guard counters, seed.
+``average_checkpoints`` averages those files' model states, as the JAX
+package averages its orbax checkpoints.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -26,6 +31,7 @@ from huggingface_asr_tpu_torch.models.joint_ctc_aed import (
     JointCTCAttentionConfig,
     JointCTCAttentionEncoderDecoder,
 )
+from huggingface_asr_tpu_torch.utils.argparsing import split_prefixed_overrides
 from huggingface_asr_tpu_torch.utils.device import resolve_device
 
 STATE_FILE = "pytorch_model.bin"
@@ -95,3 +101,55 @@ def load_trainer_checkpoint(directory: str, step: Optional[int] = None, map_loca
     step = steps[-1] if step is None else step
     return torch.load(os.path.join(directory, f"checkpoint_{step}.pt"), map_location=map_location,
                       weights_only=True)
+
+
+def average_checkpoints(checkpoint_dir: str, last_n: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Mean of the model states of the trainer checkpoints in
+    ``checkpoint_dir`` (the newest ``last_n``, or all), summed in float64 and
+    returned as float32, as the JAX package averages its orbax checkpoints
+    (reference model_utils.py:54-65 averages all ``checkpoint*/pytorch_model.bin``)."""
+    steps = checkpoint_steps(checkpoint_dir)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints under {checkpoint_dir}")
+    if last_n:
+        steps = steps[-last_n:]
+    acc: Optional[Dict[str, torch.Tensor]] = None
+    for step in steps:
+        model = load_trainer_checkpoint(checkpoint_dir, step)["model"]
+        model = {k: v.to(torch.float64) for k, v in model.items()}
+        acc = model if acc is None else {k: acc[k] + v for k, v in model.items()}
+    return {k: (v / len(steps)).to(torch.float32) for k, v in acc.items()}
+
+
+def apply_config_overrides(config, overrides: Dict[str, Any]):
+    """Route encoder_/decoder_ prefixed overrides into sub-configs
+    (reference fetch_config, model_utils.py:68-114)."""
+    enc, dec, rest = split_prefixed_overrides(overrides)
+    if isinstance(config, JointCTCAttentionConfig):
+        new_enc = dataclasses.replace(config.encoder, **enc) if enc else config.encoder
+        new_dec = dataclasses.replace(config.decoder, **dec) if dec else config.decoder
+        return dataclasses.replace(config, encoder=new_enc, decoder=new_dec, **rest)
+    return dataclasses.replace(config, **{**enc, **rest})
+
+
+def instantiate_ctc_model(
+    config: Optional[EBranchformerConfig] = None,
+    from_pretrained: Optional[str] = None,
+    from_hf_checkpoint: Optional[str] = None,
+    average_checkpoints_dir: Optional[str] = None,
+) -> Tuple[EBranchformerForCTC, Optional[Dict[str, torch.Tensor]]]:
+    """Build (model, state dict or None) (reference instantiate_ctc_model,
+    model_utils.py:117-155). The state dict comes from a model directory, an
+    HF checkpoint directory (its ``pytorch_model.bin``: the port's keys are
+    HF's, so it loads with ``load_state_dict(strict=True)`` as it is) or the
+    mean of a trainer's checkpoints; the caller loads it."""
+    state = None
+    if from_pretrained:
+        config = config or load_config(from_pretrained, EBranchformerConfig)
+        state = load_state(from_pretrained)
+    elif from_hf_checkpoint:
+        assert config is not None, "config required for HF checkpoint conversion"
+        state = load_state(from_hf_checkpoint)
+    elif average_checkpoints_dir:
+        state = average_checkpoints(average_checkpoints_dir)
+    return EBranchformerForCTC(config), state
