@@ -64,18 +64,23 @@
 8. builds the 176-wide shipped config (configs/ebranchformer_small_ctc.json at
    full size: 8 layers x 176, 4 heads of 44, I=704, conv_dim (176, 176),
    500+1 outputs; seeded random weights), whose heads the kernels take padded
-   to 64 columns and whose q_rot to 192, and holds against their plain
-   versions at its B=8 x 10 s shapes: the five GEMM call shapes of a layer at
-   K = 176 or N = 176 (edge tiles), each into a column slice of a guard
-   buffer and beside F.linear, pos_query (pad columns zero; also at B=128),
-   the attention (also at the 2 s and 20 s buckets, lengths with 1 and 0),
-   the whole layer beside the sum of its pieces' bounds; K4 forward and its
-   four gradients and K5 at dh 44 (T = 250 and 333, lengths with 1 and 0,
-   bf16 and fp32, rates 0 and 0.1), timed at B=32, T=250 beside SDPA;
+   to 64 columns and whose q_rot to 192, and holds every kernel of a layer
+   against its plain version at its B=8 x 10 s shapes (``layer_holds``, the
+   routine step 13 runs too): the LayerNorm beside F.layer_norm, the seven
+   GEMM calls of a layer with their epilogues (K = 176 or N = 176: edge
+   tiles), each into a column slice of a guard buffer and beside F.linear,
+   pos_query (pad columns zero; also at B=128), the attention (also at the
+   2 s and 20 s buckets, lengths with 1 and 0), both depthwise convs at
+   t_valid T, 1, T_pad and 0 beside F.conv1d(groups=C), the whole layer
+   beside the sum of its pieces' bounds; K4 forward and its four gradients
+   and K5 at dh 44 (``train_attention_holds``: T = 250 and 333, lengths with
+   1 and 0, bf16 and fp32, rates 0 and 0.1), timed at B=32, T=250 beside
+   SDPA;
 9. serves that model through ASRPipeline(device="cuda"), which must take the
    fused path (the model's own front end, then the K1 layers), with requests
-   of 1 and 8 utterances at 10 s and 20 s, each launching every K1 piece 8
-   times, logits and greedy ids against the plain path;
+   of 1 and 8 utterances at 10 s and 20 s, each launching per layer 5
+   LayerNorms, 9 GEMMs and one of each other K1 piece, logits and greedy ids
+   against the plain path (``serve_requests``, as step 13);
 10. trains it 3 steps through CTCTrainer with the config's attention_impl
    ("auto"): 8 K4 forward and 8 K4 backward launches a step, every step
    applied, step 1 within 1e-4 in loss of the plain attention; then one
@@ -118,6 +123,21 @@
    ctc_weight 0.3, max_length 32, 8 utterances), whose best hypotheses must
    equal generate_joint's on the same features. Every kernel of these paths
    must launch in them.
+13. builds the 512-wide shipped config (configs/ebranchformer_90m_ssl.json at
+   full width: 17 layers x 512, 8 heads of 64, I=2048, conv_dim (512, 512);
+   seeded random weights, 500+1 outputs) and holds its layer's kernels as in
+   step 8: the LayerNorm at 512, the GEMM at N and K of 512, 1,024, 1,536
+   and 2,048, pos_query at q_rot 512, the attention at q_rot 512 (the k_std
+   chunk ring) beside SDPA on the 576-wide concatenated head, the CSGU conv
+   (128-channel slices) and the merge conv at 1,024 channels; K4 forward and
+   its four gradients at (dh 64, q_rot 512) in bf16 and K5 at dh 64, timed at
+   the BEST-RQ step's B=32, T=250 beside SDPA; then serves four requests of
+   8 x 10 s through ASRPipeline(model_type="ctc") as in step 9, the greedy
+   ids also equal on at least 98 % of the valid frames; and pretrains it through cli/pretrain.run (BEST-RQ, codebook
+   8192, B=16 x 9.3-10 s, bf16, attention_impl "pallas"): 3 steps, every one
+   applied (K4 forward and backward and the backward's dq_rot GEMM 17 times a
+   step), one evaluation batch (K5 17 times), final/ written, and step 1
+   again with the plain attention within 1e-4 of its loss.
 
 Beside each kernel's time it prints the plain version's, the least time the
 card could take (the larger of bytes / 3.35 TB/s and operations / the peak
@@ -243,6 +263,9 @@ def flagship_config(**overrides):
 # The 176-wide shipped config: 8 layers x 176, 4 heads of 44, I=704, conv_dim
 # (176, 176) (outside the subsampler kernel), 500 + 1 outputs.
 SMALL_CONFIG = "ebranchformer_small_ctc.json"
+# The 512-wide shipped config: 17 layers x 512, 8 heads of 64, I=2048,
+# conv_dim (512, 512) (outside the subsampler kernel), BEST-RQ codebook 8192.
+WIDE_CONFIG = "ebranchformer_90m_ssl.json"
 
 
 def config_file(name: str):
@@ -934,24 +957,53 @@ def host_us_per_launch(fn, n: int = 300) -> float:
     return 1e6 * dt / n
 
 
-def device_ms(fn, n: int = 10, name=None) -> float:
-    """Device time of one call of ``fn`` in ms: the kernels' own durations
-    under ``torch.profiler``, summed over ``n`` calls (only the kernels whose
-    name holds ``name`` where it is given). Unlike a pair of events around the
-    calls it leaves out the host's time per launch, which at small shapes is
-    the larger part."""
+TRACE_PAD_S = 0.02  # host time before the first call and after the last in every device_ms trace
+
+
+def device_kernel_ms(fn, n: int = 10, tries: int = 3) -> dict:
+    """{kernel name: device ms per call of ``fn``}, from the kernels' own
+    durations under ``torch.profiler`` over ``n`` calls: each name's mean
+    duration times its records per call. A trace can drop kernel records
+    (``profile_kernel_variants.py trace`` counts them): with the calls right
+    at its edges, all of them at times (the device records' times can sit
+    milliseconds off the host's); and late in a long process one a trace. So
+    the calls start and end ``TRACE_PAD_S`` inside the trace; a trace that
+    still holds fewer records than the host launched kernels says so, with the
+    launches' and the records' start times, and the means stand; a trace with
+    no record is taken again, and after ``tries`` of them the run fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ev.time_range.end - ev.time_range.start for ev in prof.events()
-                if ev.device_type == torch.autograd.DeviceType.CUDA and (name is None or name in ev.name))
-    return total / 1e3 / n
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+        events = prof.events()
+        records = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA]
+        launches = [ev for ev in events if "Launch" in ev.name]
+        if len(records) < len(launches):
+            at = lambda evs: [round(ev.time_range.start) for ev in sorted(evs, key=lambda e: e.time_range.start)]  # noqa: E731
+            print(f"    device_ms: {len(records)} kernel records for {len(launches)} host launch records; launches "
+                  f"at {at(launches)} us, records at {at(records)} us", flush=True)
+        if records:
+            per_name = {}
+            for ev in records:
+                per_name.setdefault(ev.name, []).append(ev.time_range.end - ev.time_range.start)
+            return {k: float(np.mean(d)) * max(1, round(len(d) / n)) / 1e3 for k, d in per_name.items()}
+    _fail(f"the profiler held no kernel record in {tries} traces in a row")
+
+
+def device_ms(fn, n: int = 10, name=None) -> float:
+    """Device time of one call of ``fn`` in ms (``device_kernel_ms``), of
+    the kernels whose name holds ``name`` where it is given. Unlike a pair of
+    events around the calls it leaves out the host's time per launch, which
+    at small shapes is the larger part."""
+    return sum(v for k, v in device_kernel_ms(fn, n).items() if name is None or name in k)
 
 
 def sdpa_call(q_u, q_rot, k, v, k_std, lengths, scale):
@@ -1841,71 +1893,304 @@ def main() -> None:
     if d_loss > 1e-4 or d_norm > 1e-3:
         _fail("step 1 with the attention kernels disagrees with the plain-attention step")
 
-    # ---- the 176-wide config (configs/ebranchformer_small_ctc.json at full
-    # size): head size 44 (padded to 64 columns), q_rot 176 wide (padded to
-    # 192), the GEMM's edge tiles at N = 176 and K = 176, and K1 behind the
-    # model's own conv front end. Its kernels against their plain versions at
-    # the shapes its paths give them, then both main paths.
+    # ---- the configs beside the flagship, each at full size: one routine
+    # holds every kernel of a layer against its plain version at the shapes
+    # the config's paths give it, one holds K4 and K5 at its attention
+    # widths, one serves its requests; then its training path.
+
+    @torch.no_grad()
+    def layer_holds(title, cfg_, fm, keys, seed):
+        """Every kernel of layer 0 of ``fm`` (the FusedCTC of ``cfg_``) at the
+        shapes a B=8 x 10 s request gives it, against its plain version, with
+        bound, library call and device time: the LayerNorm; each GEMM of the
+        layer with its epilogue, into a column slice of a buffer whose other
+        columns and rows must stay untouched (2^-6); pos_query and the
+        attention (also at the 2 s and 20 s buckets), whose pad columns must
+        be zero; both depthwise convs at t_valid T, 1, T_pad and 0; the whole
+        layer against the sum of its 18 pieces' bounds (0.05 of scale).
+        ``keys`` names each kernel's JSON entry. Returns layer 0's weights, the
+        padded length and its tables."""
+        D_, H_, dh_ = cfg_.hidden_size, cfg_.num_attention_heads, cfg_.head_size
+        w_ = fm.layers[0]
+        hw_, d_rot_ = w_["wp"].shape[2], K1.rot_width(D_)
+        I_, Cg_ = w_["ff1_wi"].shape[1], w_["cg_w2"].shape[0]
+        Kc_, Km_ = w_["csgu_dw"].shape[0], w_["merge_dw"].shape[0]
+        eps = cfg_.layer_norm_eps
+        B_, T_ = 8, int(feat_extract_output_frames(cfg_, 998))
+        T_pad_ = -(-T_ // 8) * 8
+        M_ = B_ * T_pad_
+        print(f"-- {title}: {cfg_.num_hidden_layers} layers x {D_}, {H_} heads of {dh_} (kernel width {hw_}), "
+              f"q_rot {D_} (kernel width {d_rot_}), I={I_} (CSGU {Cg_} channels, merge {2 * D_}); "
+              f"B={B_}, 10 s: T={T_}, T_pad={T_pad_}", flush=True)
+        gen_ = torch.Generator().manual_seed(seed)
+        mk = lambda *shape: torch.randn(*shape, generator=gen_).bfloat16().to(dev)  # noqa: E731
+        tab_ = fm.tables(T_pad_)
+        lens_ = torch.tensor([T_ - (i * T_) // (2 * B_) for i in range(B_)], dtype=torch.int32, device=dev)
+        lens_[B_ // 2], lens_[B_ - 1] = 1, 0  # an utterance of one frame and one of none
+        x_ = mk(B_, T_pad_, D_)
+        xf_ = x_.view(M_, D_)
+
+        work_ln = (8.0 * M_ * D_, 4 * M_ * D_, "fp32")
+        ln_g16, ln_b16 = w_["attn_ln_g"].bfloat16(), w_["attn_ln_b"].bfloat16()
+        g_ = compare(f"layernorm D={D_}", keys["layernorm"],
+                     lambda: K1.layer_norm(xf_, w_["attn_ln_g"], w_["attn_ln_b"], eps),
+                     lambda: K1.layer_norm_plain(xf_, w_["attn_ln_g"], w_["attn_ln_b"], eps), 2 ** -7,
+                     library_fn=lambda: F.layer_norm(xf_, (D_,), ln_g16, ln_b16, eps), work=work_ln)
+
+        # (name, input or None for a seeded one, weight, bias, epilogue, first column of the output)
+        gemms = [("ff1_in (+act)", g_, "ff1_wi", "ff1_bi", dict(act=cfg_.hidden_act), 16),
+                 ("ff1_out (+res)", None, "ff1_wo", "ff1_bo", dict(residual=xf_, alpha=0.5), 16),
+                 ("qkv (dual)", g_, "w_qkv", "b_qkv", dict(bias2=w_["bq_v"]), 16),
+                 ("wo -> merged[:, :D]", None, "wo", "bo", {}, 0),
+                 ("cg_w1 (+gelu)", g_, "cg_w1", "cg_b1", dict(act="gelu"), 16),
+                 ("cg_w2 -> merged[:, D:]", None, "cg_w2", "cg_b2", {}, D_),
+                 ("merge_w (+res)", None, "merge_w", "merge_b", dict(residual=xf_, alpha=1.0), 16)]
+        for name, a_, wk, bk, kw, lead in gemms:
+            K_, N_ = w_[wk].shape
+            a_ = a_ if a_ is not None else mk(M_, K_)
+            guard = torch.full((M_ + 8, lead + N_ + 16), 7.0, dtype=torch.bfloat16, device=dev)
+            out_view = guard[:M_, lead:lead + N_]
+            extra = (2 * M_ * N_ if "residual" in kw else 0) + (2 * M_ * kw["bias2"].shape[0] if "bias2" in kw else 0)
+            run = lambda: K1.gemm(a_, w_[wk], w_[bk], out=out_view, **kw)  # noqa: E731
+            lib = lambda wt=w_[wk].t(), b16=w_[bk].bfloat16(): F.linear(a_, wt, b16)  # noqa: E731
+            got = compare(f"gemm {name} K={K_} N={N_}", keys["gemm"], run,
+                          lambda: K1.gemm_plain(a_, w_[wk], w_[bk], **kw), 2 ** -6,
+                          work=gemm_work(M_, K_, N_, extra), library_fn=lib)
+            if "bias2" in kw:
+                ref2 = K1.gemm_plain(a_, w_[wk], w_[bk], **kw)[1].float()
+                if float((got[1].float() - ref2).abs().max()) > 2 ** -6 * max(1.0, float(ref2.abs().max())):
+                    failures.append(f"gemm {name} K={K_} N={N_}: second output")
+            print(f"    device ms under the profiler: kernel {device_ms(run):.4f}, F.linear (bf16, no epilogue) "
+                  f"{device_ms(lib):.4f}", flush=True)
+            torch.cuda.synchronize()
+            if not bool((guard[:, :lead] == 7.0).all()) or not bool((guard[:, lead + N_:] == 7.0).all()) \
+                    or not bool((guard[M_:] == 7.0).all()):
+                failures.append(f"gemm {name} K={K_} N={N_}: wrote outside its slice")
+
+        qkv_, q_v_ = K1.gemm(g_, w_["w_qkv"], w_["b_qkv"], bias2=w_["bq_v"])
+        work_pq = (2.0 * M_ * H_ * dh_ * D_ + 6.0 * M_ * H_ * D_,
+                   2 * M_ * H_ * dh_ + 2 * H_ * dh_ * D_ + 2 * T_pad_ * D_ + 2 * M_ * H_ * D_, "bf16")
+        pq = (q_v_, w_["wp"], tab_["rot_cos"], tab_["rot_sin"], T_pad_)
+        q_rot_ = compare(f"pos_query dh={dh_} q_rot={D_}", keys["pos_query"], lambda: K1.pos_query(*pq),
+                         lambda: K1.pos_query_plain(*pq), 2 ** -7, library_fn=pos_query_library(q_v_, w_["wp"]),
+                         work=work_pq)
+        pad = (d_rot_ - D_) // 2
+        if pad and (q_rot_[..., D_ // 2:D_ // 2 + pad].any() or q_rot_[..., d_rot_ - pad:].any()):
+            failures.append(f"pos_query dh={dh_}: a pad column of q_rot is not zero")
+        hv = lambda i: qkv_[:, i * H_ * hw_:(i + 1) * H_ * hw_].view(B_, T_pad_, H_, hw_)  # noqa: E731
+        att = (hv(0), hv(1), hv(2), q_rot_.view(B_, T_pad_, H_, d_rot_), tab_["k_std"], lens_)
+        n_keys = float(torch.where(lens_ > 0, lens_, T_pad_).sum())
+        work_att = (2.0 * H_ * T_pad_ * n_keys * (dh_ + D_ + dh_),
+                    2 * M_ * H_ * D_ + 2 * T_pad_ * D_ + 4 * 2 * M_ * H_ * dh_, "bf16")
+        attn_ = compare(f"rel_attention dh={dh_} q_rot={D_}", keys["rel_attention"], lambda: K1.rel_attention(*att),
+                        lambda: K1.rel_attention_plain(*att), 2 ** -6,
+                        library_fn=sdpa_call(hv(0), att[3], hv(1), hv(2), tab_["k_std"], lens_, 1.0)[0],
+                        work=work_att)
+        if hw_ > dh_ and attn_[..., dh_:].any():
+            failures.append(f"rel_attention dh={dh_}: a pad column of the output is not zero")
+        for Tb in (56, 504):  # the 2 s and 20 s buckets: fewer rows than a block, keys past four tiles
+            lens_b = [Tb, 1, 0, Tb - 9, Tb // 2, 65, 64, (3 * Tb) // 4]
+            gq = torch.Generator().manual_seed(Tb + seed)
+            buf = torch.randn(8 * Tb, 3 * H_ * hw_, generator=gq).bfloat16().to(dev)
+            buf.view(-1, 3, H_, hw_)[..., dh_:] = 0.0  # the fold's zero pad columns
+            qr_b = (torch.randn(8, Tb, H_, d_rot_, generator=gq) * 0.25).bfloat16().to(dev)
+            if pad:
+                qr_b[..., D_ // 2:D_ // 2 + pad] = 0.0
+                qr_b[..., d_rot_ - pad:] = 0.0
+            args_b = tuple(buf[:, i * H_ * hw_:(i + 1) * H_ * hw_].view(8, Tb, H_, hw_) for i in range(3)) + (
+                qr_b, fm.tables(Tb)["k_std"], torch.tensor(lens_b, dtype=torch.int32, device=dev))
+            compare(f"rel_attention dh={dh_} q_rot={D_} T_pad={Tb}", keys["rel_attention"],
+                    lambda: K1.rel_attention(*args_b), lambda: K1.rel_attention_plain(*args_b), 2 ** -6)
+
+        # the depthwise convs: CSGU on the layer's own l, merge on a seeded
+        # `merged`; F.conv1d(groups=C) in bf16 on the (B, C, T) layout is the
+        # library call, without what the kernels fuse
+        l_ = K1.gemm(K1.layer_norm(xf_, w_["cg_ln_g"], w_["cg_ln_b"], eps), w_["cg_w1"], w_["cg_b1"], act="gelu")
+        csgu_args = lambda tv: (l_, w_["csgu_ln_g"], w_["csgu_ln_b"], w_["csgu_dw"], w_["csgu_dw_b"],  # noqa: E731
+                                B_, T_pad_, tv, cfg_.csgu_activation, eps)
+        gate_in = l_[:, Cg_:].reshape(B_, T_pad_, Cg_).transpose(1, 2).contiguous()
+        dw_c = w_["csgu_dw"].t().contiguous()[:, None, :]
+        lib_csgu = lambda: F.conv1d(gate_in, dw_c, padding=Kc_ // 2, groups=Cg_)  # noqa: E731
+        work_csgu = (2.0 * M_ * Cg_ * Kc_ + 10.0 * M_ * Cg_, 2 * M_ * 2 * Cg_ + 2 * Kc_ * Cg_ + 2 * M_ * Cg_, "fp32")
+        merged = mk(M_, 2 * D_)
+        margs = lambda tv: (merged, w_["merge_dw"], w_["merge_dw_b"], B_, T_pad_, tv)  # noqa: E731
+        merged_in = merged.reshape(B_, T_pad_, 2 * D_).transpose(1, 2).contiguous()
+        dw_m = w_["merge_dw"].t().contiguous()[:, None, :]
+        lib_merge = lambda: F.conv1d(merged_in, dw_m, padding=Km_ // 2, groups=2 * D_)  # noqa: E731
+        work_merge = (2.0 * M_ * 2 * D_ * Km_, 2 * 2 * M_ * 2 * D_ + 2 * Km_ * 2 * D_, "fp32")
+        for tv in (T_, 1, T_pad_, 0):
+            first = {} if tv != T_ else dict(work=work_csgu, library_fn=lib_csgu)
+            compare(f"dwconv csgu C={Cg_} t_valid={tv}", keys["dwconv_csgu"], lambda: K1.csgu(*csgu_args(tv)),
+                    lambda: K1.csgu_plain(*csgu_args(tv)), 2 ** -7, **first)
+        for tv in (T_, 1, T_pad_, 0):
+            first = {} if tv != T_ else dict(work=work_merge, library_fn=lib_merge)
+            compare(f"dwconv merge C={2 * D_} t_valid={tv}", keys["dwconv_merge"], lambda: K1.merge_conv(*margs(tv)),
+                    lambda: K1.merge_conv_plain(*margs(tv)), 2 ** -7, **first)
+
+        layer_pieces = [  # the layer's 18 launches, in order, at the true widths
+            work_ln, gemm_work(M_, D_, I_), gemm_work(M_, I_, D_, 2 * M_ * D_),               # FF1 (+ residual)
+            work_ln, gemm_work(M_, D_, 3 * D_, 2 * M_ * D_), work_pq, work_att,               # attention
+            gemm_work(M_, D_, D_),                                                            # out projection
+            work_ln, gemm_work(M_, D_, 2 * Cg_), work_csgu, gemm_work(M_, Cg_, D_),           # cgMLP
+            work_merge, gemm_work(M_, 2 * D_, D_, 2 * M_ * D_),                               # merge (+ residual)
+            work_ln, gemm_work(M_, D_, I_), gemm_work(M_, I_, D_, 2 * M_ * D_), work_ln,      # FF2, final LN
+        ]
+        compare(f"layer (K1 whole) D={D_}", None, lambda: K1.ebranchformer_layer(x_, lens_, w_, cfg_, T_, tab_),
+                lambda: K1.ebranchformer_layer_plain(x_, lens_, w_, cfg_, T_, tab_), 0.05, work=layer_pieces)
+        dev_ms = {
+            "layernorm": device_ms(lambda: K1.layer_norm(xf_, w_["attn_ln_g"], w_["attn_ln_b"], eps)),
+            "F.layer_norm": device_ms(lambda: F.layer_norm(xf_, (D_,), ln_g16, ln_b16, eps)),
+            "pos_query": device_ms(lambda: K1.pos_query(*pq)),
+            "torch.bmm": device_ms(pos_query_library(q_v_, w_["wp"])),
+            "rel_attention": device_ms(lambda: K1.rel_attention(*att)),
+            "dwconv csgu": device_ms(lambda: K1.csgu(*csgu_args(T_))),
+            "F.conv1d csgu": device_ms(lib_csgu),
+            "dwconv merge": device_ms(lambda: K1.merge_conv(*margs(T_))),
+            "F.conv1d merge": device_ms(lib_merge),
+            "layer": device_ms(lambda: K1.ebranchformer_layer(x_, lens_, w_, cfg_, T_, tab_)),
+        }
+        print(f"  device ms per call under the profiler (B={B_}, 10 s, D={D_}): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()), flush=True)
+        return w_, T_pad_, tab_
+
+    def train_attention_holds(tag, H_, dh_, D_, keys, dtypes, seed):
+        """K4 (forward and the four gradients) and K5 at head size ``dh_`` and
+        q_rot width ``D_`` (the wrappers pad to the kernels' widths) against
+        their plain versions: B=8 x T=250 and B=4 x T=333 with rows of length 1
+        and 0, at rates 0 and 0.1, in each of ``dtypes``; then at a training
+        step's B=32, T=250, bf16, rate 0.1, timed beside SDPA on the
+        concatenated head, and the wrappers' device time split into the
+        attention kernels' own and the rest (the pad copies; where the
+        backward writes dS, its zeroing and the dq_rot GEMM)."""
+        def inputs(B, T, dtype, lens, s):
+            g = torch.Generator().manual_seed(s)
+            mk = lambda *shape: torch.randn(*shape, generator=g).to(dtype).to(dev)  # noqa: E731
+            return dict(q_u=mk(B, T, H_, dh_), q_rot=mk(B, T, H_, D_) * 0.25, k=mk(B, T, H_, dh_),
+                        v=mk(B, T, H_, dh_), k_std=mk(T, D_), q_v=mk(B, T, H_, dh_), pos=mk(2 * T - 1, H_, dh_),
+                        cot=mk(B, T, H_, dh_), lengths=torch.tensor(lens, dtype=torch.int32, device=dev))
+
+        print(f"-- K4 and K5 at {tag} vs plain, lengths with 1 and 0", flush=True)
+        for T, lens in ((250, [250, 1, 0, 167, 250, 200, 64, 65]), (333, [333, 1, 0, 200])):
+            for dtype in dtypes:
+                t = inputs(len(lens), T, dtype, lens, seed + T)
+                label = f"{tag} T={T} {str(dtype).split('.')[-1]}"
+                for rate in (0.0, 0.1):
+                    got = train_attention_run(rel_attention_train, t, 77, rate)
+                    ref = train_attention_run(rel_attention_train_plain, t, 77, rate)
+                    for part, sl in (("fwd", slice(0, 1)), ("bwd (4 gradients)", slice(1, 5))):
+                        err, ok = worst(got[sl], ref[sl], att_tol[dtype])
+                        print(f"  K4 {part:18s} {label + f' rate={rate}':36s} max_abs_err={err:.3e} "
+                              f"{'ok' if ok else 'FAIL'}", flush=True)
+                        if not ok:
+                            failures.append(f"K4 {part} {label} rate={rate}")
+                args = (t["q_u"], t["q_v"], t["k"], t["v"], t["pos"], t["lengths"])
+                err, ok = worst([rel_attention(*args)], [rel_attention_plain_shift(*args)], att_tol[dtype])
+                print(f"  K5 {'fwd':18s} {label:36s} max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    failures.append(f"K5 {label}")
+        Bt, Tt = 32, 250
+        t = inputs(Bt, Tt, torch.bfloat16, [Tt - (i * Tt) // (2 * Bt) for i in range(Bt)], seed + 32)
+        got = train_attention_run(rel_attention_train, t, 77, 0.1)
+        ref = train_attention_run(rel_attention_train_plain, t, 77, 0.1)
+        (err_fwd, ok_fwd), (err_bwd, ok_bwd) = (worst(got[sl], ref[sl], att_tol[torch.bfloat16])
+                                                for sl in (slice(0, 1), slice(1, 5)))
+        args = (t["q_u"], t["q_v"], t["k"], t["v"], t["pos"], t["lengths"])
+        err_k5, ok_k5 = worst([rel_attention(*args)], [rel_attention_plain_shift(*args)], att_tol[torch.bfloat16])
+        del got, ref
+        n_keys = float(t["lengths"].sum())
+        small, big = nbytes(t["q_u"]), nbytes(t["q_rot"])
+        lib_fwd, lib_make_bwd = sdpa_call(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"], t["lengths"],
+                                          1.0 / float(np.sqrt(dh_)))
+
+        def backward_of(fn):
+            leaves = [t[n].clone().requires_grad_(True) for n in ("q_u", "q_rot", "k", "v")]
+            out = fn(*leaves, t["k_std"], t["lengths"], 77, 0.1)
+            return lambda: torch.autograd.grad(out, leaves, t["cot"], retain_graph=True)
+
+        forward_of = lambda fn: (lambda: fn(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"], t["lengths"],  # noqa: E731
+                                            77, 0.1))
+        with torch.no_grad():
+            record(f"K4 fwd {tag}", keys["fwd"], err_fwd, ok_fwd,
+                   timed(forward_of(rel_attention_train), 20), timed(forward_of(rel_attention_train_plain), 5),
+                   (2.0 * H_ * Tt * n_keys * (dh_ + D_ + dh_),
+                    4 * small + big + nbytes(t["k_std"]) + 8 * Bt * H_ * Tt, "bf16"), timed(lib_fwd, 20))
+        # the backward's bytes: its inputs and the four gradients once (a dS
+        # scratch it writes and reads back is the design's, not the function's)
+        record(f"K4 bwd {tag}", keys["bwd"], err_bwd, ok_bwd,
+               timed(backward_of(rel_attention_train), 20), timed(backward_of(rel_attention_train_plain), 5),
+               (2.0 * H_ * Tt * n_keys * ((dh_ + D_) + 4 * dh_ + D_),
+                7 * small + 2 * big + nbytes(t["k_std"]) + 8 * Bt * H_ * Tt, "bf16"),
+               timed(lib_make_bwd(), 20))
+        with torch.no_grad():
+            record(f"K5 fwd {tag}", keys["shift"], err_k5, ok_k5,
+                   timed(lambda: rel_attention(*args), 20), timed(lambda: rel_attention_plain_shift(*args), 5),
+                   (2.0 * H_ * Tt * n_keys * 3 * dh_, 5 * small + nbytes(t["pos"]), "bf16"), timed(lib_fwd, 20))
+        splits = {"K4 fwd": (forward_of(rel_attention_train), "train_fwd_bf16_kernel"),
+                  "K4 bwd": (backward_of(rel_attention_train), "train_bwd_"),
+                  "K5": (lambda: rel_attention(*args), "shift_bf16_kernel")}
+        for name, (fn, kernel_name) in splits.items():
+            per_kernel = device_kernel_ms(fn)
+            total = sum(per_kernel.values())
+            own = sum(v for k, v in per_kernel.items() if kernel_name in k)
+            print(f"  {name} {tag} B={Bt} T={Tt} device ms under the profiler: {total:.4f}, the attention kernels "
+                  f"{own:.4f}, the rest {total - own:.4f}", flush=True)
+        del t, lib_fwd, lib_make_bwd
+        torch.cuda.empty_cache()
+
+    def serve_requests(title, cfg_, model_, requests):
+        """``model_`` saved and served through ``ASRPipeline(model_type="ctc")``
+        on the card, each request with its own launch counts (per layer 5
+        LayerNorms, 9 GEMMs and one of each other layer kernel; one log-mel
+        launch; no conv1: the model's own front end), then every request
+        against the plain path. Returns (the launches summed over the
+        requests, valid frames, frames whose greedy ids agree)."""
+        model_dir_ = os.path.join(ROOT, "build", f"chip_smoke_model_{cfg_.hidden_size}")
+        save_params(model_, model_dir_)
+        pipe_ = ASRPipeline(model_dir_, model_type="ctc", device="cuda", tokenizer=PieceTable())
+        if not pipe_._use_fused:
+            _fail(f"the pipeline did not select the fused kernel path for the {title} config")
+        pipe_(next(iter(requests.values()))[:1])  # first call: warm the allocator
+        torch.cuda.synchronize()
+        per_layer = {"asr_layernorm_bf16": 5, "asr_gemm_bf16": 9, "asr_rel_attention": 1, "asr_pos_query": 1,
+                     "dwconv_csgu": 1, "dwconv_merge": 1}
+        want = {k: v * cfg_.num_hidden_layers for k, v in per_layer.items()}
+        summed = {}
+        for name, audios in requests.items():
+            _build.reset_launch_counts()
+            t0_ = time.perf_counter()
+            texts = pipe_(audios)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0_) * 1e3
+            got_l = dict(_build.LAUNCHES)
+            for k, v in got_l.items():
+                summed[k] = summed.get(k, 0) + v
+            print(f"request {name}: {ms:.1f} ms; launches {got_l}", flush=True)
+            if len(texts) != len(audios) or any(got_l.get(k, 0) != v for k, v in want.items()) \
+                    or got_l.get("asr_log_mel", 0) != 1 or got_l.get("asr_conv1", 0) != 0:
+                _fail(f"{name}: {len(texts)} transcripts, launches {got_l}, want {want} and one mel, no conv1")
+        frames, agree = against_plain_path(pipe_, requests)
+        del pipe_
+        torch.cuda.empty_cache()
+        return summed, frames, agree
+
+    # the 176-wide config (configs/ebranchformer_small_ctc.json): head size 44
+    # (padded to 64 columns), q_rot 176 wide (padded to 192), the GEMM's edge
+    # tiles at N = 176 and K = 176, and K1 behind the model's own conv front end
     ncfg = config_file(SMALL_CONFIG)
     n_model = seeded_model(ncfg, seed=1)
     nf = FusedCTC(n_model, dev)
     if nf.subsample is not None:
         _fail("the 176-wide config took the subsampler kernel")
+    nw, nT_pad, n_tab = layer_holds(f"176-wide config ({SMALL_CONFIG})", ncfg, nf, seed=176, keys=dict(
+        layernorm="layernorm_d176", gemm="gemm_d176", pos_query="pos_query_dh44", rel_attention="rel_attention_dh44",
+        dwconv_csgu="dwconv_csgu_c352", dwconv_merge="dwconv_merge_c352"))
     nD, nH, n_dh = ncfg.hidden_size, ncfg.num_attention_heads, ncfg.head_size
-    nw = nf.layers[0]
     hw, d_rot = nw["wp"].shape[2], K1.rot_width(nD)
-    nB, nT_in = 8, 998
-    nT = int(feat_extract_output_frames(ncfg, nT_in))
-    nT_pad = -(-nT // 8) * 8
-    print(f"-- 176-wide config ({SMALL_CONFIG}): {ncfg.num_hidden_layers} layers x {nD}, {nH} heads of {n_dh} "
-          f"(kernel width {hw}), q_rot width {nD} (kernel width {d_rot}); B={nB}, 10 s: T={nT}, T_pad={nT_pad}",
-          flush=True)
-    gen = torch.Generator().manual_seed(176)
-    n_tab = nf.tables(nT_pad)
-    nM = nB * nT_pad
-    n_lens = torch.tensor([nT - (i * nT) // (2 * nB) for i in range(nB)], dtype=torch.int32, device=dev)
-    n_lens[nB // 2], n_lens[nB - 1] = 1, 0  # an utterance of one frame and one of none
-    nx = torch.randn(nB, nT_pad, nD, generator=gen).bfloat16().to(dev)
-    nxf = nx.view(nM, nD)
+    pad = (d_rot - nD) // 2
     with torch.no_grad():
-        # the GEMMs of the 176-wide layer at M = 2,048 (a B=8 request), each into
-        # a column slice of a buffer whose other columns and rows must stay untouched
-        g_ = K1.layer_norm(nxf, nw["attn_ln_g"], nw["attn_ln_b"], 1e-5)
-        n_gemms = [("ff1_in (K=176, +gelu)", g_, "ff1_wi", "ff1_bi", dict(act=ncfg.hidden_act)),
-                   ("ff1_out (N=176, +res)", None, "ff1_wo", "ff1_bo", dict(residual=nxf, alpha=0.5)),
-                   ("qkv (K=176, dual)", g_, "w_qkv", "b_qkv", dict(bias2=nw["bq_v"])),
-                   ("cg_w2 -> merged[:, 176:]", None, "cg_w2", "cg_b2", {}),
-                   ("merge_w (K=352, N=176, +res)", None, "merge_w", "merge_b", dict(residual=nxf, alpha=1.0))]
-        for name, a_, wk, bk, kw in n_gemms:
-            K_, N_ = nw[wk].shape
-            a_ = a_ if a_ is not None else torch.randn(nM, K_, generator=gen).bfloat16().to(dev)
-            lead = nD if wk == "cg_w2" else 16
-            guard = torch.full((nM + 8, N_ + lead + 16), 7.0, dtype=torch.bfloat16, device=dev)
-            out_view = guard[:nM, lead:lead + N_]
-            extra = (2 * nM * N_ if "residual" in kw else 0) + (2 * nM * kw["bias2"].shape[0] if "bias2" in kw else 0)
-            n_gemm = lambda: K1.gemm(a_, nw[wk], nw[bk], out=out_view, **kw)  # noqa: E731
-            n_lib = lambda a_=a_, wt=nw[wk].t(), b16=nw[bk].bfloat16(): F.linear(a_, wt, b16)  # noqa: E731
-            compare(f"gemm {name}", "gemm_d176", n_gemm, lambda: K1.gemm_plain(a_, nw[wk], nw[bk], **kw), 2 ** -6,
-                    work=gemm_work(nM, K_, N_, extra), library_fn=n_lib)
-            print(f"    this call's F.linear (bf16, no epilogue) {timed(n_lib):.4f} ms; device ms under the profiler: "
-                  f"kernel {device_ms(n_gemm):.4f}, F.linear {device_ms(n_lib):.4f}", flush=True)
-            torch.cuda.synchronize()
-            if not bool((guard[:, :lead] == 7.0).all()) or not bool((guard[:, lead + N_:] == 7.0).all()) \
-                    or not bool((guard[nM:] == 7.0).all()):
-                failures.append(f"gemm {name}: wrote outside its slice")
-        qkv_n, q_v_n = K1.gemm(g_, nw["w_qkv"], nw["b_qkv"], bias2=nw["bq_v"])
-        work_pq = (2.0 * nM * nH * n_dh * nD + 6.0 * nM * nH * nD,
-                   2 * nM * nH * n_dh + 2 * nH * n_dh * nD + 2 * nT_pad * nD + 2 * nM * nH * nD, "bf16")
-        npq_args = (q_v_n, nw["wp"], n_tab["rot_cos"], n_tab["rot_sin"], nT_pad)
-        q_rot_n = compare("pos_query dh=44", "pos_query_dh44", lambda: K1.pos_query(*npq_args),
-                          lambda: K1.pos_query_plain(*npq_args), 2 ** -7,
-                          library_fn=pos_query_library(q_v_n, nw["wp"]), work=work_pq)
-        pad = (d_rot - nD) // 2
-        if q_rot_n[..., nD // 2:nD // 2 + pad].any() or q_rot_n[..., d_rot - pad:].any():
-            failures.append("pos_query dh=44: a pad column of q_rot is not zero")
-        # and at the rows of a B=128 x 10 s request (q_v's pad columns zero, as the fold makes them)
+        # pos_query at the rows of a B=128 x 10 s request (q_v's pad columns zero, as the fold makes them)
         nM_big = 128 * nT_pad
-        q_v_nb = torch.randn(nM_big, nH * hw, generator=gen).bfloat16().to(dev)
+        q_v_nb = torch.randn(nM_big, nH * hw, generator=torch.Generator().manual_seed(177)).bfloat16().to(dev)
         q_v_nb.view(nM_big, nH, hw)[..., n_dh:] = 0.0
         npq_big = (q_v_nb, nw["wp"], n_tab["rot_cos"], n_tab["rot_sin"], nT_pad)
         q_rot_nb = compare("pos_query dh=44 B=128", "pos_query_dh44_b128", lambda: K1.pos_query(*npq_big),
@@ -1919,156 +2204,14 @@ def main() -> None:
         print(f"  pos_query dh=44 B=128 device ms under the profiler: {device_ms(lambda: K1.pos_query(*npq_big)):.4f} "
               f"(torch.bmm {device_ms(pos_query_library(q_v_nb, nw['wp'])):.4f})", flush=True)
         del q_v_nb, q_rot_nb, npq_big
-        hvn = lambda i: qkv_n[:, i * nH * hw:(i + 1) * nH * hw].view(nB, nT_pad, nH, hw)  # noqa: E731
-        n_att = (hvn(0), hvn(1), hvn(2), q_rot_n.view(nB, nT_pad, nH, d_rot), n_tab["k_std"], n_lens)
-        n_keys = float(torch.where(n_lens > 0, n_lens, nT_pad).sum())
-        work_att_n = (2.0 * nH * nT_pad * n_keys * (n_dh + nD + n_dh),
-                      2 * nM * nH * nD + 2 * nT_pad * nD + 4 * 2 * nM * nH * n_dh, "bf16")
-        attn_n = compare("rel_attention dh=44", "rel_attention_dh44", lambda: K1.rel_attention(*n_att),
-                         lambda: K1.rel_attention_plain(*n_att), 2 ** -6,
-                         library_fn=sdpa_call(hvn(0), n_att[3], hvn(1), hvn(2), n_tab["k_std"], n_lens, 1.0)[0],
-                         work=work_att_n)
-        if attn_n[..., n_dh:].any():
-            failures.append("rel_attention dh=44: a pad column of the output is not zero")
-        for T_pad_ in (56, 504):  # the 2 s and 20 s buckets: fewer rows than a block, keys past four tiles
-            lens_ = [T_pad_, 1, 0, T_pad_ - 9, T_pad_ // 2, 65, 64, (3 * T_pad_) // 4]
-            gq = torch.Generator().manual_seed(T_pad_)
-            buf = torch.randn(8 * T_pad_, 3 * nH * hw, generator=gq).bfloat16().to(dev)
-            buf.view(-1, 3, nH, hw)[..., n_dh:] = 0.0  # the fold's zero pad columns
-            tab_ = nf.tables(T_pad_)
-            qr_ = (torch.randn(8, T_pad_, nH, d_rot, generator=gq) * 0.25).bfloat16().to(dev)
-            qr_[..., nD // 2:nD // 2 + pad] = 0.0
-            qr_[..., d_rot - pad:] = 0.0
-            args_ = tuple(buf[:, i * nH * hw:(i + 1) * nH * hw].view(8, T_pad_, nH, hw) for i in range(3)) + (
-                qr_, tab_["k_std"], torch.tensor(lens_, dtype=torch.int32, device=dev))
-            compare(f"rel_attention dh=44 T_pad={T_pad_}", "rel_attention_dh44", lambda: K1.rel_attention(*args_),
-                    lambda: K1.rel_attention_plain(*args_), 2 ** -6)
-        # the bound of the whole layer: the sum of its 18 pieces' at the true widths (D = 176, heads of 44)
-        nI, nCg = nw["ff1_wi"].shape[1], nw["cg_w2"].shape[0]
-        nKc, nKm = nw["csgu_dw"].shape[0], nw["merge_dw"].shape[0]
-        n_ln = (8.0 * nM * nD, 4 * nM * nD, "fp32")
-        n_layer_pieces = [
-            n_ln, gemm_work(nM, nD, nI), gemm_work(nM, nI, nD, 2 * nM * nD),                   # FF1 (+ residual)
-            n_ln, gemm_work(nM, nD, 3 * nD, 2 * nM * nD), work_pq, work_att_n,                 # attention
-            gemm_work(nM, nD, nD),                                                             # out projection
-            n_ln, gemm_work(nM, nD, 2 * nCg),                                                  # cgMLP
-            (2.0 * nM * nCg * nKc + 10.0 * nM * nCg, 2 * nM * 2 * nCg + 2 * nKc * nCg + 2 * nM * nCg, "fp32"),
-            gemm_work(nM, nCg, nD),
-            (2.0 * nM * 2 * nD * nKm, 2 * 2 * nM * 2 * nD + 2 * nKm * 2 * nD, "fp32"),       # merge conv
-            gemm_work(nM, 2 * nD, nD, 2 * nM * nD),                                            # merge (+ residual)
-            n_ln, gemm_work(nM, nD, nI), gemm_work(nM, nI, nD, 2 * nM * nD), n_ln,            # FF2, final LN
-        ]
-        compare("layer (K1 whole) D=176", None, lambda: K1.ebranchformer_layer(nx, n_lens, nw, ncfg, nT, n_tab),
-                lambda: K1.ebranchformer_layer_plain(nx, n_lens, nw, ncfg, nT, n_tab), 0.05, work=n_layer_pieces)
-        print("  device ms per call under the profiler (B=8, 10 s, D=176): "
-              f"pos_query {device_ms(lambda: K1.pos_query(*npq_args)):.4f}, "
-              f"rel_attention {device_ms(lambda: K1.rel_attention(*n_att)):.4f}, "
-              f"gemm ff1_in {device_ms(lambda: K1.gemm(g_, nw['ff1_wi'], nw['ff1_bi'], act=ncfg.hidden_act)):.4f}, "
-              f"torch.bmm {device_ms(pos_query_library(q_v_n, nw['wp'])):.4f}, "
-              f"layer {device_ms(lambda: K1.ebranchformer_layer(nx, n_lens, nw, ncfg, nT, n_tab)):.4f}", flush=True)
+    train_attention_holds("dh=44, D=176", nH, n_dh, nD, dict(fwd="rel_attention_train_fwd_dh44",
+                          bwd="rel_attention_train_bwd_dh44", shift="rel_attention_shift_dh44"),
+                          (torch.bfloat16, torch.float32), seed=44)
 
-    # K4 and K5 at dh 44, D 176: the wrappers pad to the kernels' widths
-    def narrow_attention_inputs(B, T, dtype, lens, seed):
-        g = torch.Generator().manual_seed(seed)
-        mk = lambda *shape: torch.randn(*shape, generator=g).to(dtype).to(dev)  # noqa: E731
-        return dict(q_u=mk(B, T, nH, n_dh), q_rot=mk(B, T, nH, nD) * 0.25, k=mk(B, T, nH, n_dh),
-                    v=mk(B, T, nH, n_dh), k_std=mk(T, nD), q_v=mk(B, T, nH, n_dh), pos=mk(2 * T - 1, nH, n_dh),
-                    cot=mk(B, T, nH, n_dh), lengths=torch.tensor(lens, dtype=torch.int32, device=dev))
-
-    print("-- K4 and K5 at dh=44, D=176 vs plain, lengths with 1 and 0", flush=True)
-    for T, lens in ((250, [250, 1, 0, 167, 250, 200, 64, 65]), (333, [333, 1, 0, 200])):
-        for dtype in (torch.bfloat16, torch.float32):
-            t = narrow_attention_inputs(len(lens), T, dtype, lens, seed=T + 44)
-            tag = f"dh=44 T={T} {str(dtype).split('.')[-1]}"
-            for rate in (0.0, 0.1):
-                got = train_attention_run(rel_attention_train, t, 77, rate)
-                ref = train_attention_run(rel_attention_train_plain, t, 77, rate)
-                for part, sl in (("fwd", slice(0, 1)), ("bwd (4 gradients)", slice(1, 5))):
-                    err, ok = worst(got[sl], ref[sl], att_tol[dtype])
-                    print(f"  K4 {part:18s} {tag + f' rate={rate}':28s} max_abs_err={err:.3e} "
-                          f"{'ok' if ok else 'FAIL'}", flush=True)
-                    if not ok:
-                        failures.append(f"K4 {part} {tag} rate={rate}")
-            args = (t["q_u"], t["q_v"], t["k"], t["v"], t["pos"], t["lengths"])
-            err, ok = worst([rel_attention(*args)], [rel_attention_plain_shift(*args)], att_tol[dtype])
-            print(f"  K5 {'fwd':18s} {tag:28s} max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                failures.append(f"K5 {tag}")
-    # timed at the 176-wide training path's shape, B=32, T=250, bf16, rate 0.1
-    Bt, Tt = 32, 250
-    t = narrow_attention_inputs(Bt, Tt, torch.bfloat16, [Tt - (i * Tt) // (2 * Bt) for i in range(Bt)], seed=32)
-    got = train_attention_run(rel_attention_train, t, 77, 0.1)
-    ref = train_attention_run(rel_attention_train_plain, t, 77, 0.1)
-    (err_fwd, ok_fwd), (err_bwd, ok_bwd) = (worst(got[sl], ref[sl], att_tol[torch.bfloat16])
-                                            for sl in (slice(0, 1), slice(1, 5)))
-    args = (t["q_u"], t["q_v"], t["k"], t["v"], t["pos"], t["lengths"])
-    err_k5, ok_k5 = worst([rel_attention(*args)], [rel_attention_plain_shift(*args)], att_tol[torch.bfloat16])
-    del got, ref
-    keys = float(t["lengths"].sum())
-    small, big = nbytes(t["q_u"]), nbytes(t["q_rot"])
-    n_scale = 1.0 / float(np.sqrt(n_dh))
-    lib_fwd, lib_make_bwd = sdpa_call(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"], t["lengths"], n_scale)
-
-    def n_backward_call(fn):
-        leaves = [t[n].clone().requires_grad_(True) for n in ("q_u", "q_rot", "k", "v")]
-        out = fn(*leaves, t["k_std"], t["lengths"], 77, 0.1)
-        return lambda: torch.autograd.grad(out, leaves, t["cot"], retain_graph=True)
-
-    with torch.no_grad():
-        fwd = lambda fn: (lambda: fn(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"], t["lengths"], 77, 0.1))  # noqa: E731
-        record("K4 fwd dh=44", "rel_attention_train_fwd_dh44", err_fwd, ok_fwd,
-               timed(fwd(rel_attention_train), 20), timed(fwd(rel_attention_train_plain), 5),
-               (2.0 * nH * Tt * keys * (n_dh + nD + n_dh), 4 * small + big + nbytes(t["k_std"]) + 8 * Bt * nH * Tt,
-                "bf16"), timed(lib_fwd, 20))
-    record("K4 bwd dh=44", "rel_attention_train_bwd_dh44", err_bwd, ok_bwd,
-           timed(n_backward_call(rel_attention_train), 20), timed(n_backward_call(rel_attention_train_plain), 5),
-           (2.0 * nH * Tt * keys * ((n_dh + nD) + 4 * n_dh + nD),
-            7 * small + 2 * big + nbytes(t["k_std"]) + 8 * Bt * nH * Tt, "bf16"),
-           timed(lib_make_bwd(), 20))
-    with torch.no_grad():
-        record("K5 fwd dh=44", "rel_attention_shift_dh44", err_k5, ok_k5,
-               timed(lambda: rel_attention(*args), 20), timed(lambda: rel_attention_plain_shift(*args), 5),
-               (2.0 * nH * Tt * keys * 3 * n_dh, 5 * small + nbytes(t["pos"]), "bf16"), timed(lib_fwd, 20))
-    # the wrappers' device time under the profiler: the kernel's own, and the
-    # rest (the zero-padded copies of the operands, the gradient's pad)
-    splits = {"K4 fwd": (fwd(rel_attention_train), "train_fwd_bf16_kernel"),
-              "K4 bwd": (n_backward_call(rel_attention_train), "train_bwd_"),
-              "K5": (lambda: rel_attention(*args), "shift_bf16_kernel")}
-    for name, (fn, kernel_name) in splits.items():
-        total, own = device_ms(fn), device_ms(fn, name=kernel_name)
-        print(f"  {name} dh=44 B={Bt} T={Tt} device ms under the profiler: {total:.4f}, the kernel "
-              f"{own:.4f}, the wrapper's pad copies {total - own:.4f}", flush=True)
-    del t, lib_fwd, lib_make_bwd
-    torch.cuda.empty_cache()
-
-    # the 176-wide serving path: ASRPipeline on the card, requests of 1 and 8
-    # utterances at 10 s and 20 s, each with its own launch counts
-    n_dir = os.path.join(ROOT, "build", "chip_smoke_model_176")
-    save_params(n_model, n_dir)
-    n_pipe = ASRPipeline(n_dir, model_type="ctc", device="cuda", tokenizer=PieceTable())
-    if not n_pipe._use_fused:
-        _fail("the pipeline did not select the fused kernel path for the 176-wide config")
+    # the 176-wide serving path: requests of 1 and 8 utterances at 10 s and 20 s
     n_requests = {f"176-wide, {n} utt ({sec} s)": [speech(sec * (1.0 - 0.05 * i), rng) for i in range(n)]
                   for sec in (10, 20) for n in (1, 8)}
-    n_pipe(n_requests["176-wide, 1 utt (10 s)"])  # first call: warm the allocator
-    torch.cuda.synchronize()
-    per_layer = {"asr_rel_attention": 1, "asr_pos_query": 1, "dwconv_csgu": 1, "dwconv_merge": 1}
-    narrow_launches = {}
-    for name, audios in n_requests.items():
-        _build.reset_launch_counts()
-        t0_ = time.perf_counter()
-        texts = n_pipe(audios)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0_) * 1e3
-        got_l = dict(_build.LAUNCHES)
-        for k, v in got_l.items():
-            narrow_launches[k] = narrow_launches.get(k, 0) + v
-        print(f"request {name}: {ms:.1f} ms; launches {got_l}", flush=True)
-        want = {k: v * ncfg.num_hidden_layers for k, v in per_layer.items()}
-        if len(texts) != len(audios) or any(got_l.get(k, 0) != v for k, v in want.items()) \
-                or got_l.get("asr_log_mel", 0) != 1 or got_l.get("asr_conv1", 0) != 0:
-            _fail(f"{name}: {len(texts)} transcripts, launches {got_l}, want {want} and one mel, no conv1")
-    against_plain_path(n_pipe, n_requests)
+    narrow_launches, _, _ = serve_requests("176-wide", ncfg, n_model, n_requests)
 
     # the 176-wide training path: CTCTrainer with the config's attention_impl
     # ("auto": K4 on the card), 3 steps, each with its own launch counts, and
@@ -2129,6 +2272,130 @@ def main() -> None:
     narrow_launches.update({k: v for k, v in n_train_launches.items() if k.startswith("asr_rel_attention_train")})
     narrow_launches["asr_rel_attention_shift"] = n_eval_launches["asr_rel_attention_shift"]
 
+    # ---- the 512-wide config (configs/ebranchformer_90m_ssl.json: 17 layers x
+    # 512, 8 heads of 64, I=2048, conv_dim (512, 512), outside K2): q_rot 512
+    # wide (the k_std chunk ring of K1's attention and K4's forward), the K4
+    # backward that writes dS (dq_rot by the GEMM), the CSGU conv at 1,024
+    # channels (128-channel slices behind the row-statistics pass), the GEMM
+    # at N and K of 512, 1,024, 1,536 and 2,048, the LayerNorm at 512 and the
+    # merge conv at 1,024 channels. Its kernels against their plain versions
+    # at the shapes its paths give them, then the serving path (4 CTC
+    # requests, a 500 + 1 head) and BEST-RQ pretraining (3 steps and an
+    # evaluation of cli/pretrain.run).
+    wide_t0 = time.perf_counter()
+    wcfg = dataclasses.replace(config_file(WIDE_CONFIG), vocab_size=500)
+    w_model = seeded_model(wcfg, seed=2)
+    wf = FusedCTC(w_model, dev)
+    if wf.subsample is not None:
+        _fail("the 512-wide config took the subsampler kernel")
+    layer_holds(f"512-wide config ({WIDE_CONFIG})", wcfg, wf, seed=512, keys=dict(
+        layernorm="layernorm_d512", gemm="gemm_d512", pos_query="pos_query_q512", rel_attention="rel_attention_q512",
+        dwconv_csgu="dwconv_csgu_c1024", dwconv_merge="dwconv_merge_c1024"))
+    del wf
+    # K4 at (dh 64, q_rot 512) in bf16 (fp32 K4 takes q_rot up to 256) and K5 at dh 64
+    train_attention_holds("dh=64, q_rot=512", wcfg.num_attention_heads, wcfg.head_size, wcfg.hidden_size,
+                          dict(fwd="rel_attention_train_fwd_q512", bwd="rel_attention_train_bwd_q512",
+                               shift="rel_attention_shift_dh64"), (torch.bfloat16,), seed=512)
+
+    # the 512-wide serving path: four requests of 8 x 10 s
+    w_requests = {f"512-wide, 8 utts (10 s) #{r}": [speech(10.0 * (1.0 - 0.01 * ((i + r) % 7)), rng) for i in range(8)]
+                  for r in range(4)}
+    wide_launches, w_frames, w_agree = serve_requests("512-wide", wcfg, w_model, w_requests)
+    if w_agree < 0.98 * w_frames:
+        _fail(f"512-wide: greedy ids agree on {w_agree}/{w_frames} valid frames, below 98 %")
+
+    # BEST-RQ pretraining of the config through cli/pretrain.run: B=16 x 9.3-10 s,
+    # codebook 8192, bf16, attention_impl "pallas" (K4 in the steps, K5 in the
+    # evaluation), 3 steps and one evaluation batch; then step 1 again with the
+    # plain attention
+    from huggingface_asr_tpu_torch.cli import pretrain as pretrain_cli
+    from huggingface_asr_tpu_torch.data.datasets import ColumnTable, DataConfig
+    from huggingface_asr_tpu_torch.training.arguments import (
+        GeneralTrainingArguments,
+        ModelArguments,
+        PretrainingArguments,
+    )
+    from huggingface_asr_tpu_torch.training.loop import BestRQTrainer
+
+    print("-- BEST-RQ pretraining (cli/pretrain.run): 512-wide config, B=16 x 9.3-10 s, codebook "
+          f"{wcfg.best_rq_codebook_size}, bf16, attention_impl 'pallas'", flush=True)
+    p_dir = os.path.join(ROOT, "build", "chip_smoke_pretrain")
+    shutil.rmtree(p_dir, ignore_errors=True)
+    os.makedirs(p_dir)
+    with open(os.path.join(ROOT, "configs", WIDE_CONFIG)) as f:
+        p_cfg = {**json.load(f), "attention_impl": "pallas"}
+    with open(os.path.join(p_dir, "model.json"), "w") as f:
+        json.dump(p_cfg, f)
+
+    def p_split(n):
+        audio = [speech(rng.uniform(9.3, 10.0), rng) for _ in range(n)]
+        return ColumnTable({"audio": audio, "text": [""] * n, "input_len": [len(a) / 16000 for a in audio]})
+
+    p_data = {"train": p_split(16), "validation": p_split(16)}
+    p_model_args = ModelArguments(model_config=os.path.join(p_dir, "model.json"), device="cuda", dtype="bfloat16")
+    p_training = GeneralTrainingArguments(output_dir=os.path.join(p_dir, "out"), per_device_train_batch_size=16,
+                                          per_device_eval_batch_size=16, max_steps=3, logging_steps=1, eval_steps=3,
+                                          save_steps=10 ** 9, warmup_steps=1, learning_rate=1e-4, seed=3)
+    steps_seen = []
+    real_step = BestRQTrainer.train_step
+
+    def watched_step(self, state, batch):
+        t_ = time.perf_counter()
+        state, m = real_step(self, state, batch)
+        torch.cuda.synchronize()
+        steps_seen.append((dict(batch), {k: float(v) for k, v in m.items()}, (time.perf_counter() - t_) * 1e3))
+        return state, m
+
+    BestRQTrainer.train_step = watched_step
+    _build.reset_launch_counts()
+    try:
+        p_out = pretrain_cli.run(p_model_args, p_training, PretrainingArguments(), DataConfig(), p_data)
+    finally:
+        BestRQTrainer.train_step = real_step
+    torch.cuda.synchronize()
+    p_launches = dict(_build.LAUNCHES)
+    for i, (_, m, ms) in enumerate(steps_seen):
+        print(f"  step {i + 1}: loss={m['loss']:.4f} grad_norm={m['grad_norm']:.3f} applied={int(m['step_applied'])} "
+              f"num_masked={int(m['num_masked'])} ({m['percent_masked']:.1f} %) {ms:.1f} ms", flush=True)
+    with open(os.path.join(p_dir, "out", "metrics.jsonl")) as f:
+        p_eval = [json.loads(line) for line in f if "eval/loss" in line]
+    n_l = wcfg.num_hidden_layers
+    print(f"  evaluation loss {p_eval[-1]['eval/loss'] if p_eval else None}; launches over the run {p_launches}; "
+          f"{smi}", flush=True)
+    if len(steps_seen) != 3 or any(int(m["step_applied"]) != 1 or not np.isfinite(m["loss"]) for _, m, _ in steps_seen):
+        _fail("BEST-RQ: not every one of 3 steps was applied with a finite loss")
+    if not p_eval or not np.isfinite(p_eval[-1]["eval/loss"]):
+        _fail("BEST-RQ: no finite evaluation loss")
+    want = {"asr_rel_attention_train_fwd": 3 * n_l, "asr_rel_attention_train_bwd": 3 * n_l,
+            "asr_rel_attention_shift": n_l, "asr_gemm_bf16": 3 * n_l}
+    if any(p_launches.get(k, 0) != v for k, v in want.items()):
+        _fail(f"BEST-RQ launches {p_launches}, want {want}")
+    if not os.path.exists(os.path.join(p_dir, "out", "final", "pytorch_model.bin")):
+        _fail("BEST-RQ: no final/ written")
+    # step 1 again from the same initial weights, with the plain attention
+    twin = BestRQTrainer(pretrain_cli.build_model(p_model_args, p_training.seed), p_out["trainer"].config,
+                         frontend=p_out["trainer"].frontend, device="cuda", dtype="bfloat16")
+    model_module.rel_attention_train = rel_attention_train_plain
+    try:
+        before = dict(_build.LAUNCHES)
+        _, m_plain = twin.train_step(twin.init_state(), steps_seen[0][0])
+        if dict(_build.LAUNCHES) != before:
+            _fail("the plain-attention BEST-RQ step launched an attention kernel")
+    finally:
+        model_module.rel_attention_train = rel_attention_train
+    p_loss = steps_seen[0][1]["loss"]
+    d_loss = abs(p_loss - float(m_plain["loss"])) / abs(float(m_plain["loss"]))
+    print(f"  BEST-RQ step 1, kernels vs plain attention: loss {p_loss:.6f} vs {float(m_plain['loss']):.6f} "
+          f"(rel {d_loss:.2e}, tol 1e-4)", flush=True)
+    if d_loss > 1e-4:
+        _fail("BEST-RQ step 1 with the attention kernels disagrees with the plain-attention step")
+    for k, v in p_launches.items():
+        if k.startswith("asr_rel_attention_"):
+            wide_launches[k] = v
+    del twin, p_out, steps_seen
+    torch.cuda.empty_cache()
+    print(f"512-wide phase: {time.perf_counter() - wide_t0:.1f} s", flush=True)
+
     aed_launches = aed_phase(dev, rng, smi)
     cli_launches = cli_phase(dev, smi)
 
@@ -2163,15 +2430,25 @@ def main() -> None:
                      and k != "asr_rel_attention"})
     # the 176-wide entries: launches from its own paths (4 requests; 3 train steps; 1 evaluation step)
     narrow_routes = {
-        "gemm_d176": routes["gemm"], "pos_query_dh44": routes["pos_query"],
+        "layernorm_d176": routes["layernorm"], "gemm_d176": routes["gemm"], "pos_query_dh44": routes["pos_query"],
         "pos_query_dh44_b128": routes["pos_query"],
-        "rel_attention_dh44": routes["rel_attention"],
+        "rel_attention_dh44": routes["rel_attention"], "dwconv_csgu_c352": routes["dwconv_csgu"],
+        "dwconv_merge_c352": routes["dwconv_merge"],
         "rel_attention_train_fwd_dh44": routes["rel_attention_train_fwd"],
         "rel_attention_train_bwd_dh44": routes["rel_attention_train_bwd"],
         "rel_attention_shift_dh44": routes["rel_attention_shift"],
     }
+    # the 512-wide entries: launches from its own paths (4 requests; 3 BEST-RQ steps and 1 evaluation)
+    wide_routes = {
+        "layernorm_d512": routes["layernorm"], "gemm_d512": routes["gemm"], "pos_query_q512": routes["pos_query"],
+        "rel_attention_q512": routes["rel_attention"], "dwconv_csgu_c1024": routes["dwconv_csgu"],
+        "dwconv_merge_c1024": routes["dwconv_merge"],
+        "rel_attention_train_fwd_q512": routes["rel_attention_train_fwd"],
+        "rel_attention_train_bwd_q512": routes["rel_attention_train_bwd"],
+        "rel_attention_shift_dh64": routes["rel_attention_shift"],
+    }
     kernels = []
-    for table, counts in ((routes, launches), (narrow_routes, narrow_launches)):
+    for table, counts in ((routes, launches), (narrow_routes, narrow_launches), (wide_routes, wide_launches)):
         for name, (counter, src, replaces) in table.items():
             kernels.append({
                 "name": name, "route": "cuda", "source": f"huggingface_asr_tpu_torch/{src}",

@@ -140,7 +140,7 @@ struct DropoutArgs {
 };
 
 // The bf16 training forward (rel_attention_train_fwd.cu): builds its tensor
-// maps, launches and returns cudaGetLastError(). D % 64 == 0, D <= 256, and
+// maps, launches and returns cudaGetLastError(). D % 64 == 0, D <= 512, and
 // the tiles within a block's shared memory (fa::supported).
 template <int DH>
 int train_fwd_bf16(const void* q_u, const void* q_rot, const void* k, const void* v,
@@ -149,7 +149,8 @@ int train_fwd_bf16(const void* q_u, const void* q_rot, const void* k, const void
 
 // The bf16 training backward (rel_attention_train_bwd.cu): the dq kernel,
 // then the dk/dv kernel, which reads the first's delta. Same contract, and
-// DH + D <= 288: the dq kernel's [dq_u | dq_rot] accumulator in registers.
+// DH + D <= 288: the dq kernel's [dq_u | dq_rot] accumulator in registers
+// (past that, asr_rel_attention_train_bwd_wide).
 template <int DH>
 int train_bwd_bf16(const void* q_u, const void* q_rot, const void* k, const void* v, const void* k_std,
                    const void* lengths, const void* d_out, const void* stats, void* delta, void* dq_u,

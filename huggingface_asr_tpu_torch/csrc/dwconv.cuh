@@ -33,6 +33,12 @@
 //     works on the next tile.
 //   * CSGU normalises each staged row in place, one warp a row: one read into
 //     registers gives both sums, and the bf16 row goes back from registers.
+//   * CSGU past 768 channels (up to 1,024): a 16-row tile of [x_r | x_g]
+//     with its 30-row halo, 2 x 127 KB at C = 1,024, no longer double-buffers
+//     in 227 KB. There the tiles are 128-channel slices, as merge's are, and
+//     a first kernel (csgu_stats_kernel, one warp a row, a read of x_g's valid
+//     rows) writes each row's mean and 1 / std, which the slices' LayerNorm
+//     reads; the rows' sums are the whole-row path's, in the same order.
 //   * A thread owns a channel (or a few) of the tile and walks its groups of
 //     R = 16 output rows. The KP weights of the channel sit in registers,
 //     loaded once as 32-bit words; a group walks its R + KP - 1 input rows,
@@ -64,6 +70,7 @@ constexpr int ROWS = 16;     // output rows of a group (R)
 constexpr int BOX = 128;     // channels of a TMA box: a staged row of a box is 256 bytes
 constexpr int MAX_THREADS = 512;
 constexpr int MAX_C_CSGU = 768, MAX_C_MERGE = 1024;  // the 16-row tile's two stages within 227 KB
+constexpr int MAX_C_CSGU_SPLIT = 1024;  // CSGU in channel slices, the row statistics from a first pass
 constexpr int LN_CHUNKS = MAX_C_CSGU / 256;  // 16-byte chunks of a row a lane holds in the LayerNorm
 
 struct Args {
@@ -75,6 +82,7 @@ struct Args {
     bf16* out;  // [B*T, C]
     int ldx, B, T, t_valid, C, K, act;
     float eps;
+    float2* stats;  // [B*T] (mean, 1 / std) of x_g's rows: CSGU past MAX_C_CSGU only
 };
 
 // 3-D views (channel, frame, utterance) of the input rows (frames at or past
@@ -115,8 +123,9 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
 
 // One thread loads a tile into a stage: a TMA box of 128 channels by the
 // tile's input rows for each box (CSGU: and one of its x_r rows), counted in
-// bytes on the stage's mbarrier. A tile past the last loads nothing.
-template <bool CSGU, int KP>
+// bytes on the stage's mbarrier. A tile past the last loads nothing. SPLIT:
+// CSGU in channel slices (past MAX_C_CSGU).
+template <bool CSGU, int KP, bool SPLIT>
 __device__ __forceinline__ void load_tile(const Args& a, const Maps& maps, const Tiles& tl, int tile,
                                           uint32_t stage, uint32_t bar) {
     if (tile >= tl.n) return;
@@ -129,7 +138,8 @@ __device__ __forceinline__ void load_tile(const Args& a, const Maps& maps, const
     for (int j = 0; j < tl.nbox; ++j) {
         hopper::tma_load_3d(stage + j * tl.rows_in * BOX * 2, &maps.in, bar, slice * tl.CS + j * BOX, t_in, b);
         if (CSGU)
-            hopper::tma_load_3d(stage + (uint32_t)tl.in_bytes + j * tl.TT * BOX * 2, &maps.xr, bar, j * BOX, t0, b);
+            hopper::tma_load_3d(stage + (uint32_t)tl.in_bytes + j * tl.TT * BOX * 2, &maps.xr, bar,
+                                (SPLIT ? slice * tl.CS : 0) + j * BOX, t0, b);
     }
 }
 
@@ -187,6 +197,68 @@ __device__ __forceinline__ void layer_norm_rows(const Args& a, unsigned char* xs
     }
 }
 
+// The sums of layer_norm_rows for one row of x_g in device memory, one warp:
+// the same chunks to a lane, added in the same order.
+__device__ __forceinline__ float2 row_stats(const Args& a, const bf16* row) {
+    const int lane = threadIdx.x % 32, cq = a.C / 8;
+    float s = 0.0f, ss = 0.0f;
+    for (int q = lane; q < cq; q += 32) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(row) + q);
+        const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float lo = hopper::bf16_lo(u[e]), hi = hopper::bf16_hi(u[e]);
+            s += lo + hi;
+            ss = fmaf(lo, lo, fmaf(hi, hi, ss));
+        }
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mu = s / (float)a.C;
+    return make_float2(mu, rsqrtf(fmaxf(ss / (float)a.C - mu * mu, 0.0f) + a.eps));
+}
+
+// CSGU past MAX_C_CSGU, first pass: (mean, 1 / std) of every valid row of
+// x_g (frames below t_valid), one warp a row.
+static __global__ void __launch_bounds__(256) csgu_stats_kernel(const Args a) {
+    const int row = blockIdx.x * 8 + threadIdx.x / 32;
+    const int tv = max(0, min(a.t_valid, a.T));
+    if (row >= a.B * a.T || row % a.T >= tv) return;
+    const float2 st = row_stats(a, a.x + (size_t)row * a.ldx + a.C);
+    if (threadIdx.x % 32 == 0) a.stats[row] = st;
+}
+
+// The LayerNorm of a slice tile's valid staged rows, in place, from the
+// first pass's statistics: 16 bytes (8 channels) a thread at a time.
+template <int KP>
+__device__ __forceinline__ void layer_norm_slice(const Args& a, const Tiles& tl, unsigned char* xs, const float* gs,
+                                                 int b, int t0, int c0, int tv) {
+    constexpr int P = (KP - 1) / 2;
+    const int per_row = BOX / 8, per_box = tl.rows_in * per_row;
+    for (int idx = threadIdx.x; idx < tl.nbox * per_box; idx += blockDim.x) {
+        const int j = idx / per_box, r = (idx - j * per_box) / per_row, q = idx % per_row;
+        const int t = t0 - P + r;
+        if (t < 0 || t >= tv) continue;
+        const float2 st = a.stats[(size_t)b * a.T + t];
+        const int ch = c0 + j * BOX + q * 8;
+        const float4* g4 = reinterpret_cast<const float4*>(gs + ch);
+        const float4* b4 = reinterpret_cast<const float4*>(gs + a.C + ch);
+        const float4 ga = g4[0], gb = g4[1], ba = b4[0], bb = b4[1];
+        const float g[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+        const float bi[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+        uint4* p = reinterpret_cast<uint4*>(xs + ((size_t)j * tl.rows_in + r) * BOX * 2 + q * 16);
+        const uint4 v = *p;
+        uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float lo = (hopper::bf16_lo(u[e]) - st.x) * (st.y * g[2 * e]) + bi[2 * e];
+            const float hi = (hopper::bf16_hi(u[e]) - st.x) * (st.y * g[2 * e + 1]) + bi[2 * e + 1];
+            u[e] = hopper::pack_bf16(lo, hi);
+        }
+        *p = make_uint4(u[0], u[1], u[2], u[3]);
+    }
+}
+
 // Merge's output of one tile, in place in `ys` (16 bytes a thread):
 // bf16(x + y) with x the staged input row of the same frame, or device memory
 // for a frame at or past t_valid (staged as 0).
@@ -219,8 +291,10 @@ __device__ __forceinline__ void merge_residual(const Args& a, const Tiles& tl, c
 // through two stages. Thread 0 moves the bytes by TMA: it loads the tile
 // after next into a stage as soon as the block is done with it, and stores a
 // tile's output boxes from shared memory; both run while the block works on
-// the next tile.
-template <bool CSGU, int KP, int R>
+// the next tile. SPLIT: CSGU in 128-channel slices, normalised from the
+// statistics pass's output (a second instantiation: the whole-row path keeps
+// its code).
+template <bool CSGU, int KP, int R, bool SPLIT = false>
 __device__ __forceinline__ void dwconv_body(const Args& a, const Maps& maps, int TT, int CS) {
     extern __shared__ __align__(128) unsigned char smem[];
     constexpr int ROW = BOX * 2;  // bytes of a staged row of a box
@@ -244,8 +318,8 @@ __device__ __forceinline__ void dwconv_body(const Args& a, const Maps& maps, int
     }
     __syncthreads();
     if (tid == 0) {
-        load_tile<CSGU, KP>(a, maps, tl, blockIdx.x, smem0, bar0);
-        load_tile<CSGU, KP>(a, maps, tl, blockIdx.x + gridDim.x, smem0 + (uint32_t)tl.stage_bytes, bar0 + 8);
+        load_tile<CSGU, KP, SPLIT>(a, maps, tl, blockIdx.x, smem0, bar0);
+        load_tile<CSGU, KP, SPLIT>(a, maps, tl, blockIdx.x + gridDim.x, smem0 + (uint32_t)tl.stage_bytes, bar0 + 8);
     }
 
     const int off = (KP - a.K) / 2;  // zero taps on each side of a smaller kernel
@@ -259,7 +333,8 @@ __device__ __forceinline__ void dwconv_body(const Args& a, const Maps& maps, int
         unsigned char* stage = smem + (k & 1) * tl.stage_bytes;
         if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");  // the last tile's store
         hopper::mbar_wait(bar0 + 8 * (k & 1), (k >> 1) & 1);  // this tile's rows have landed
-        if (CSGU) layer_norm_rows<KP>(a, stage, gs, tl.rows_in, t0, tv);
+        if constexpr (SPLIT) layer_norm_slice<KP>(a, tl, stage, gs, b, t0, c0, tv);
+        else if (CSGU) layer_norm_rows<KP>(a, stage, gs, tl.rows_in, t0, tv);
         __syncthreads();
 
         // The convolution: a thread owns channels c = tid, tid + NT, ... of
@@ -319,7 +394,7 @@ __device__ __forceinline__ void dwconv_body(const Args& a, const Maps& maps, int
             for (int j = 0; j < tl.nbox; ++j)
                 tma_store_3d(&maps.out, hopper::smem_u32(ys + (size_t)j * TT * ROW), c0 + j * BOX, t0, b);
             asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-            load_tile<CSGU, KP>(a, maps, tl, tile + 2 * gridDim.x, hopper::smem_u32(stage), bar0 + 8 * (k & 1));
+            load_tile<CSGU, KP, SPLIT>(a, maps, tl, tile + 2 * gridDim.x, hopper::smem_u32(stage), bar0 + 8 * (k & 1));
         }
     }
     if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
@@ -330,12 +405,15 @@ struct Tiling {
     int rows, chans, threads;
 };
 
-// CSGU tiles span all C channels (the LayerNorm needs them), merge tiles 128
-// where C allows; one thread a channel, up to 512.
+// CSGU tiles span all C channels (the LayerNorm needs them) up to
+// MAX_C_CSGU, merge tiles and wider CSGU tiles 128 where C allows; one thread
+// a channel, up to 512.
+inline bool csgu_split(const Args& a) { return a.C > MAX_C_CSGU; }
 inline Tiling choose_tiling(const Args& a, bool csgu, bool large) {
     Tiling t;
-    t.rows = large ? (csgu ? 32 : 64) : 16;
-    t.chans = (!csgu && a.C % BOX == 0) ? BOX : a.C;
+    const bool slices = !csgu || csgu_split(a);
+    t.rows = large ? (slices ? 64 : 32) : 16;
+    t.chans = (slices && a.C % BOX == 0) ? BOX : a.C;
     t.threads = (((t.chans < MAX_THREADS ? t.chans : MAX_THREADS) + 31) / 32) * 32;
     return t;
 }
@@ -391,6 +469,11 @@ inline cudaError_t launch_tiled(Kernel kernel, const Args& a, bool csgu, int KP,
     int grid = per_sm * n_sm;
     grid = grid >= tl.n_slices ? grid - grid % tl.n_slices : grid;
     grid = grid < tl.n ? grid : tl.n;
+    if (csgu && t.chans < a.C) {
+        csgu_stats_kernel<<<ceil_div(a.B * a.T, 8), 256, 0, stream>>>(a);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+    }
     kernel<<<grid, t.threads, tl.smem, stream>>>(a, maps, t.rows, t.chans);
     return cudaGetLastError();
 }

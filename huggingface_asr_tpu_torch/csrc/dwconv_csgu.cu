@@ -4,15 +4,17 @@
 
 namespace dwconv {
 
-template <int KP>
+// SPLIT: past MAX_C_CSGU channels, 128-channel slices behind the statistics pass
+template <int KP, bool SPLIT>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 dwconv_csgu_kernel(const Args a, const __grid_constant__ Maps maps, int TT, int CS) {
-    dwconv_body<true, KP, ROWS>(a, maps, TT, CS);
+    dwconv_body<true, KP, ROWS, SPLIT>(a, maps, TT, CS);
 }
 
 template <int KP>
 static cudaError_t launch_csgu_k(const Args& a, cudaStream_t stream) {
-    return launch_tiled(dwconv_csgu_kernel<KP>, a, true, KP, stream);
+    return csgu_split(a) ? launch_tiled(dwconv_csgu_kernel<KP, true>, a, true, KP, stream)
+                         : launch_tiled(dwconv_csgu_kernel<KP, false>, a, true, KP, stream);
 }
 
 cudaError_t launch_csgu(const Args& a, cudaStream_t stream) {

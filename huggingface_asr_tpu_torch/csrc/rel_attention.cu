@@ -13,7 +13,9 @@
 //
 // Head width dh = 32 or 64 (a template parameter; a head of another size is
 // padded with zero columns in the folded weights, kernels/layer.py), q_rot
-// width D in whole 64-column chunks (padded there too).
+// width D in whole 64-column chunks (padded there too), at most 512: past 256
+// the k_std chunks come through a ring of their own (WIDE, attention_wgmma.cuh's
+// namespace wide) and S is a synchronous product of 1 + D / 64 groups.
 //
 // The 1/sqrt(dh) and log2(e) scales are folded into the query weights
 // (kernels/layer.py::fold_layer_weights), so the softmax runs on exp2 and is
@@ -59,12 +61,12 @@ __device__ __forceinline__ float masked(float raw, int col, int len, int T) {
     return col < len ? raw : raw + MASK_NEG;
 }
 
-template <int DH>
+template <int DH, bool WIDE>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 rel_attention_kernel(const __grid_constant__ Maps maps, const int* __restrict__ lengths,
                      bf16* __restrict__ out, int ld_o, int T, int H, int D) {
     extern __shared__ unsigned char smem_raw[];
-    const Smem<DH> sm(smem_raw, D);
+    const Smem<DH, WIDE> sm(smem_raw, D);
     const int nc = sm.nc;
     init_barriers(sm);
 
@@ -96,13 +98,18 @@ rel_attention_kernel(const __grid_constant__ Maps maps, const int* __restrict__ 
     // of the running sum, for rows a (row) and b (row + 8)
     float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
 
+    wide::Cursor cur;  // WIDE: this consumer's place in the k_std chunk ring
     mbar_wait(sm.q_full, 0);
 
     for (int it = 0; it < n_tiles; ++it) {
         mbar_wait(sm.full_bar(it), (it / STAGES) & 1);
-        start_scores<DH>(s, my_qu, my_qr, sm.stage(it), nc);
-        wgmma_wait<0>();
-        fence_regs(s);
+        if constexpr (WIDE) {
+            wide_scores<DH>(s, my_qu, my_qr, sm.stage(it), sm, cur, lane);
+        } else {
+            start_scores<DH>(s, my_qu, my_qr, sm.stage(it), nc);
+            wgmma_wait<0>();
+            fence_regs(s);
+        }
         const int s0 = it * BKEY;
         const bool edge = s0 + BKEY > n_clear;  // a tile with masked or absent columns
         float mx_a = -INFINITY, mx_b = -INFINITY;
@@ -164,10 +171,10 @@ ASR_API int asr_rel_attention(const void* q_u, const void* k, const void* v, con
             return static_cast<int>(cudaErrorInvalidValue);
         Maps maps;
         cudaError_t err = make_maps<DH>(&maps, q_u, q_rot, k, v, k_std, B, T, H, D, ld_qkv);
-        if (err == cudaSuccess) err = allow_smem<DH>(rel_attention_kernel<DH>, D);
+        auto kernel = wide_path(D) ? rel_attention_kernel<DH, true> : rel_attention_kernel<DH, false>;
+        if (err == cudaSuccess) err = allow_smem<DH>(kernel, D);
         if (err != cudaSuccess) return static_cast<int>(err);
-        rel_attention_kernel<DH><<<grid(B, T, H), BLOCK_THREADS, smem_bytes<DH>(D / CW),
-                                   static_cast<cudaStream_t>(stream)>>>(
+        kernel<<<grid(B, T, H), BLOCK_THREADS, block_smem<DH>(D), static_cast<cudaStream_t>(stream)>>>(
             maps, static_cast<const int*>(lengths), static_cast<bf16*>(out), ld_o, T, H, D);
         return static_cast<int>(cudaGetLastError());
     });

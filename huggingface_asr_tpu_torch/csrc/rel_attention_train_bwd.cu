@@ -49,6 +49,17 @@
 //     the dq kernel never loads them, the dk/dv kernel writes zeros. Query
 //     rows past T in a ragged last tile get P = 0 (max := +inf); rows and
 //     columns past T arrive as the TMA's zeros and are never stored.
+//   * dh + D past 288 (WIDE, D up to 512): the dq kernel's [dq_u | dq_rot]
+//     accumulator does not fit its registers (576 columns at D = 512), nor
+//     past D = 256 the resident operand beside stages of k_std chunks
+//     (160 + 3 x 80 KB at 512). Both
+//     kernels keep their resident operand and take the streamed side's wide
+//     chunks through attention_wgmma.cuh's chunk ring; the stages hold the
+//     narrow tiles only (two of them). The dq kernel accumulates dq_u alone
+//     and writes dS, bf16 (the rounding its products read anyway), to a
+//     (B, T, H, ld) scratch that the caller zeroes; dq_rot = dS k_std is then
+//     one GEMM (gemm.cuh, from the Python wrapper) over rows (b, t, h), whose
+//     output rows are dq_rot's own order.
 //   * S is still computed three times per pair; taking delta as rowsum(dO O)
 //     would save one, but differs from the TPU kernel at bf16 level.
 #include "attention_wgmma.cuh"
@@ -80,36 +91,68 @@ struct Maps {
 // Shared memory of both kernels past the 1024-byte aligned base, D = 64 * nc:
 //   resident: narrow | nc wide chunks | second narrow
 //             (dq: q_u, q_rot, dO;  dk/dv: k, k_std, v)
-//   ring:     STAGES x (narrow | nc wide chunks | second narrow)
+//   ring:     NS x (narrow | stage_nc wide chunks | second narrow)
 //             (dq: k, k_std, v;     dk/dv: q_u, q_rot, dO)
-//   barriers: resident full, STAGES x full, STAGES x empty
+//   WIDE:     the chunk ring's slots (stage_nc = 0, NS = 2)
+//   barriers: resident full, NS x full, NS x empty (WIDE: the chunk ring's)
 //   columns:  per warpgroup 2 x 3 x 64 floats (dk/dv kernel only)
+constexpr int COL_FLOATS = NWG * 2 * 3 * BKEY;
+template <bool WIDE> constexpr int n_stages() { return WIDE ? 2 : STAGES; }
+template <int DH, bool WIDE>
+inline uint32_t fixed_bytes(int nc) {
+    constexpr int NS = n_stages<WIDE>();
+    return 1024 + 2 * Narrow<DH>::RES + nc * RES_W + NS * (2 * Narrow<DH>::RING + (WIDE ? 0 : nc) * T_W) +
+           8 * (2 + 2 * NS) + 4 * COL_FLOATS;
+}
 template <int DH>
+__host__ __device__ inline int wide_slots(int nc) {
+    constexpr int NS = n_stages<true>();
+    return wide::slots_beside(1024 + 2 * Narrow<DH>::RES + nc * RES_W + NS * 2 * Narrow<DH>::RING +
+                              8 * (2 + 2 * NS) + 4 * COL_FLOATS);
+}
+template <int DH, bool WIDE>
+inline uint32_t smem_bytes(int nc) {
+    return fixed_bytes<DH, WIDE>(nc) + (WIDE ? wide_slots<DH>(nc) * wide::SLOT + wide::BAR_BYTES : 0);
+}
+
+template <int DH, bool WIDE>
 struct Smem {
-    int nc;
+    static constexpr int NS = n_stages<WIDE>();
+    int nc, stage_nc;
     uint32_t res_h, res_w, res_h2, ring, stage_sz, res_full, full, empty, cols;
+    wide::Ring chunks;  // WIDE only
     __device__ Smem(const unsigned char* raw, int D) {
         nc = D / CW;
+        stage_nc = WIDE ? 0 : nc;
         res_h = (smem_u32(raw) + 1023u) & ~1023u;
         res_w = res_h + Narrow<DH>::RES;
         res_h2 = res_w + nc * RES_W;
         ring = res_h2 + Narrow<DH>::RES;
-        stage_sz = 2 * Narrow<DH>::RING + nc * T_W;
-        res_full = ring + STAGES * stage_sz;
+        stage_sz = 2 * Narrow<DH>::RING + stage_nc * T_W;
+        uint32_t at = ring + NS * stage_sz;
+        if constexpr (WIDE) {
+            chunks.base = at;
+            chunks.n = wide_slots<DH>(nc);
+            at += chunks.n * wide::SLOT;
+        }
+        res_full = at;
         full = res_full + 8;
-        empty = full + 8 * STAGES;
-        cols = empty + 8 * STAGES + 8;  // 16-byte aligned
+        empty = full + 8 * NS;
+        at = empty + 8 * NS;
+        if constexpr (WIDE) {
+            chunks.full = at;
+            chunks.empty = at + 8 * wide::MAX_SLOTS;
+            at += wide::BAR_BYTES;
+        }
+        cols = at + 8;  // 16-byte aligned
     }
-    __device__ uint32_t stage(int it) const { return ring + (it % STAGES) * stage_sz; }
-    __device__ uint32_t full_bar(int it) const { return full + 8 * (it % STAGES); }
-    __device__ uint32_t empty_bar(int it) const { return empty + 8 * (it % STAGES); }
+    __device__ uint32_t stage(int it) const { return ring + (it % NS) * stage_sz; }
+    __device__ uint32_t full_bar(int it) const { return full + 8 * (it % NS); }
+    __device__ uint32_t empty_bar(int it) const { return empty + 8 * (it % NS); }
+    __device__ uint32_t parity(int it) const { return (it / NS) & 1; }
+    // the second narrow tile of a stage (dq: v; dk/dv: dO)
+    __device__ uint32_t narrow2(int it) const { return stage(it) + Narrow<DH>::RING + stage_nc * T_W; }
 };
-constexpr int COL_FLOATS = NWG * 2 * 3 * BKEY;
-template <int DH>
-inline uint32_t smem_bytes(int nc) {
-    return 1024 + 2 * Narrow<DH>::RES + nc * RES_W + STAGES * (2 * Narrow<DH>::RING + nc * T_W) +
-           8 * (2 + 2 * STAGES) + 4 * COL_FLOATS;
-}
 
 // s (64 x 64) = [a_h | a_w chunks] . [b_h | b_w chunks]^T over DH + 64 nc
 // columns, and d (64 x 64) = a2 . b2^T over DH: both K-major operand pairs out
@@ -132,32 +175,49 @@ __device__ __forceinline__ void start_pair(float (&s)[32], float (&d)[32], uint3
     wgmma_commit();
 }
 
-template <int DH>
-__device__ __forceinline__ void init_barriers(const Smem<DH>& sm) {
+template <int DH, bool WIDE>
+__device__ __forceinline__ void init_barriers(const Smem<DH, WIDE>& sm) {
     if (threadIdx.x == 0) {
         mbar_init(sm.res_full, 1);
-        for (int s = 0; s < STAGES; ++s) {
+        for (int s = 0; s < Smem<DH, WIDE>::NS; ++s) {
             mbar_init(sm.full + 8 * s, 1);
             mbar_init(sm.empty + 8 * s, 4 * NWG);
         }
+        if constexpr (WIDE) wide::init_ring(sm.chunks, 4 * NWG);
         mbar_init_fence();
     }
     __syncthreads();
 }
 
+// S = [a_h | a_w chunks] . [b_h | streamed chunks]^T and d = a2 . b2^T with
+// WIDE: the chunks of the B side from the chunk ring. Returns with both done.
+template <int DH>
+__device__ __forceinline__ void wide_pair(float (&s)[32], float (&d)[32], uint32_t a_h, uint32_t a_w,
+                                          uint32_t a2, uint32_t b_h, uint32_t b2, const wide::Ring& ring,
+                                          wide::Cursor& cur, int nc, int lane) {
+    fence_regs(s);
+    fence_regs(d);
+    wide::chunk_products(s, a_w, RES_W, ring, cur, nc, lane, [&] {
+        head_product<DH>(s, head_desc<DH>(a_h), head_desc<DH>(b_h), 0);
+        head_product<DH>(d, head_desc<DH>(a2), head_desc<DH>(b2), 0);
+    });
+    fence_regs(d);
+}
+
 // ---------------------------------------------------------------------------
 // dq: block = (128 query rows, head, batch row)
 
-template <int DH>
+// WIDE: dq_rot is unused; dS goes to ds_out (B, T, H, ld_ds) instead.
+template <int DH, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restrict__ lengths,
                          const float* __restrict__ stats, float* __restrict__ delta_out,
-                         bf16* __restrict__ dq_u, bf16* __restrict__ dq_rot, int B, int T, int H, int D,
-                         float scale, DropoutArgs drop) {
+                         bf16* __restrict__ dq_u, bf16* __restrict__ dq_rot, bf16* __restrict__ ds_out,
+                         int ld_ds, int B, int T, int H, int D, float scale, DropoutArgs drop) {
     using N = Narrow<DH>;
-    constexpr int MAXC = N::MAX_CHUNKS;
+    constexpr int MAXC = WIDE ? 0 : N::MAX_CHUNKS;  // dq_rot chunks in registers (WIDE: none)
     extern __shared__ unsigned char smem_raw[];
-    const Smem<DH> sm(smem_raw, D);
+    const Smem<DH, WIDE> sm(smem_raw, D);
     const int nc = sm.nc;
     init_barriers(sm);
 
@@ -169,24 +229,31 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
 
     if (wg == NWG) {
         // producer: the resident tiles once, then both walks through the ring
-        if (NWG > 1) setmaxnreg_dec<PRODUCER_REGS>();
+        if (NWG > 1 && !WIDE) setmaxnreg_dec<PRODUCER_REGS>();
         if (threadIdx.x != 128 * NWG) return;
         mbar_arrive_expect_tx(sm.res_full, 2 * N::RES + nc * RES_W);
         tma_load_3d(sm.res_h, &maps.qu, sm.res_full, h * DH, t0, b);
         for (int c = 0; c < nc; ++c) tma_load_3d(sm.res_w + c * RES_W, &maps.qrot, sm.res_full, h * D + c * CW, t0, b);
         tma_load_3d(sm.res_h2, &maps.d_o, sm.res_full, h * DH, t0, b);
+        wide::Cursor cur;
         for (int it = 0; it < 2 * n_tiles; ++it) {
             const int s0 = (it % n_tiles) * BKEY;
             const uint32_t stage = sm.stage(it), bar = sm.full_bar(it);
-            mbar_wait(sm.empty_bar(it), ((it / STAGES) & 1) ^ 1);
+            mbar_wait(sm.empty_bar(it), sm.parity(it) ^ 1);
             mbar_arrive_expect_tx(bar, sm.stage_sz);
             tma_load_3d(stage, &maps.k, bar, h * DH, s0, b);
-            for (int c = 0; c < nc; ++c) tma_load_2d(stage + N::RING + c * T_W, &maps.kstd, bar, c * CW, s0);
-            tma_load_3d(stage + N::RING + nc * T_W, &maps.v, bar, h * DH, s0, b);
+            for (int c = 0; c < sm.stage_nc; ++c) tma_load_2d(stage + N::RING + c * T_W, &maps.kstd, bar, c * CW, s0);
+            tma_load_3d(sm.narrow2(it), &maps.v, bar, h * DH, s0, b);
+            if constexpr (WIDE) {
+                for (int c = 0; c < nc; ++c)
+                    wide::put(sm.chunks, cur, [&](uint32_t dst, uint32_t cbar) {
+                        tma_load_2d(dst, &maps.kstd, cbar, c * CW, s0);
+                    });
+            }
         }
         return;
     }
-    if (NWG > 1) setmaxnreg_inc<CONSUMER_REGS>();  // (a single consumer warpgroup has 255 from the launch)
+    if (NWG > 1 && !WIDE) setmaxnreg_inc<CONSUMER_REGS>();  // (a single consumer warpgroup has 255 from the launch)
 
     // consumers: warpgroup wg owns query rows t0 + 64 * wg .. + 63
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
@@ -200,7 +267,7 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
     const float il_b = 1.0f / stats[n_stats + at + min(tb, T - 1)];
     const uint32_t key = dropout_key(drop.seed, b, h, H);
 
-    float s[32], dp[32], acc_u[DH / 2], acc_r[MAXC][32];
+    float s[32], dp[32], acc_u[DH / 2], acc_r[MAXC > 0 ? MAXC : 1][32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
 #pragma unroll
@@ -210,6 +277,7 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc_r[c][i] = 0.0f;
     float delta_a = 0.0f, delta_b = 0.0f;
+    wide::Cursor cur;  // WIDE: this consumer's place in the k_std chunk ring
 
     mbar_wait(sm.res_full, 0);
 
@@ -217,11 +285,15 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
         const bool second = it >= n_tiles;
         const int s0 = (second ? it - n_tiles : it) * BKEY;
         const uint32_t stage = sm.stage(it);
-        mbar_wait(sm.full_bar(it), (it / STAGES) & 1);
-        start_pair<DH>(s, dp, my_h, my_w, RES_W, my_do, stage, stage + N::RING, stage + N::RING + nc * T_W, nc);
-        wgmma_wait<0>();
-        fence_regs(s);
-        fence_regs(dp);
+        mbar_wait(sm.full_bar(it), sm.parity(it));
+        if constexpr (WIDE) {
+            wide_pair<DH>(s, dp, my_h, my_w, my_do, stage, sm.narrow2(it), sm.chunks, cur, nc, lane);
+        } else {
+            start_pair<DH>(s, dp, my_h, my_w, RES_W, my_do, stage, stage + N::RING, sm.narrow2(it), nc);
+            wgmma_wait<0>();
+            fence_regs(s);
+            fence_regs(dp);
+        }
         if (!second && lane == 0) mbar_arrive(sm.empty_bar(it));
 
         uint32_t ds[4][4];
@@ -260,7 +332,30 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
             }
             continue;
         }
-        // [dq_u | dq_rot] += dS [k | k_std]
+        if constexpr (WIDE) {
+            // dS, rounded as the products read it, to its scratch: a lane's 8
+            // consecutive columns of a row as one 16-byte store; columns past
+            // ld_ds (and rows past T) are never written
+            bf16* ds_a = ds_out + (((size_t)b * T + ta) * H + h) * ld_ds;
+            bf16* ds_b = ds_a + (size_t)8 * H * ld_ds;
+#pragma unroll
+            for (int j0 = 0; j0 < 8; j0 += 4) {
+                uint32_t wa[4], wb[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    wa[i] = ds[(j0 + i) / 2][2 * ((j0 + i) % 2)];
+                    wb[i] = ds[(j0 + i) / 2][2 * ((j0 + i) % 2) + 1];
+                }
+                quad_transpose(wa, q);
+                quad_transpose(wb, q);
+                const int col = s0 + 8 * (j0 + q);
+                if (col < ld_ds) {
+                    if (ta < T) *reinterpret_cast<uint4*>(ds_a + col) = make_uint4(wa[0], wa[1], wa[2], wa[3]);
+                    if (tb < T) *reinterpret_cast<uint4*>(ds_b + col) = make_uint4(wb[0], wb[1], wb[2], wb[3]);
+                }
+            }
+        }
+        // [dq_u | dq_rot] += dS [k | k_std]  (WIDE: dq_u alone)
         fence_regs(acc_u);
 #pragma unroll
         for (int c = 0; c < MAXC; ++c) fence_regs(acc_r[c]);
@@ -310,7 +405,7 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
 // ---------------------------------------------------------------------------
 // dk, dv: block = (128 keys, head, batch row)
 
-template <int DH>
+template <int DH, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restrict__ lengths,
                           const float* __restrict__ stats, const float* __restrict__ delta_in,
@@ -318,7 +413,7 @@ train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restri
                           float scale, DropoutArgs drop) {
     using N = Narrow<DH>;
     extern __shared__ unsigned char smem_raw[];
-    const Smem<DH> sm(smem_raw, D);
+    const Smem<DH, WIDE> sm(smem_raw, D);
     const int nc = sm.nc;
     const int s0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
     const int len = lengths[b];
@@ -347,14 +442,22 @@ train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restri
         tma_load_3d(sm.res_h, &maps.k, sm.res_full, h * DH, s0, b);
         for (int c = 0; c < nc; ++c) tma_load_2d(sm.res_w + c * RES_W, &maps.kstd, sm.res_full, c * CW, s0);
         tma_load_3d(sm.res_h2, &maps.v, sm.res_full, h * DH, s0, b);
+        wide::Cursor cur;
         for (int it = 0; it < n_tiles; ++it) {
             const int t0 = it * BKEY;
             const uint32_t stage = sm.stage(it), bar = sm.full_bar(it);
-            mbar_wait(sm.empty_bar(it), ((it / STAGES) & 1) ^ 1);
+            mbar_wait(sm.empty_bar(it), sm.parity(it) ^ 1);
             mbar_arrive_expect_tx(bar, sm.stage_sz);
             tma_load_3d(stage, &maps.qu, bar, h * DH, t0, b);
-            for (int c = 0; c < nc; ++c) tma_load_3d(stage + N::RING + c * T_W, &maps.qrot, bar, h * D + c * CW, t0, b);
-            tma_load_3d(stage + N::RING + nc * T_W, &maps.d_o, bar, h * DH, t0, b);
+            for (int c = 0; c < sm.stage_nc; ++c)
+                tma_load_3d(stage + N::RING + c * T_W, &maps.qrot, bar, h * D + c * CW, t0, b);
+            tma_load_3d(sm.narrow2(it), &maps.d_o, bar, h * DH, t0, b);
+            if constexpr (WIDE) {
+                for (int c = 0; c < nc; ++c)
+                    wide::put(sm.chunks, cur, [&](uint32_t dst, uint32_t cbar) {
+                        tma_load_3d(dst, &maps.qrot, cbar, h * D + c * CW, t0, b);
+                    });
+            }
         }
         return;
     }
@@ -376,6 +479,7 @@ train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restri
     for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.0f;
 #pragma unroll
     for (int i = 0; i < DH / 2; ++i) acc_k[i] = acc_v[i] = 0.0f;
+    wide::Cursor cur;  // WIDE: this consumer's place in the q_rot chunk ring
 
     mbar_wait(sm.res_full, 0);
 
@@ -394,12 +498,16 @@ train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restri
         }
         named_barrier(1 + wg, 128);
 
-        mbar_wait(sm.full_bar(it), (it / STAGES) & 1);
+        mbar_wait(sm.full_bar(it), sm.parity(it));
         // S^T = [k | k_std] [q_u | q_rot]^T and dP^T = v dO^T
-        start_pair<DH>(st, dpt, my_h, my_w, RES_W, my_v, stage, stage + N::RING, stage + N::RING + nc * T_W, nc);
-        wgmma_wait<0>();
-        fence_regs(st);
-        fence_regs(dpt);
+        if constexpr (WIDE) {
+            wide_pair<DH>(st, dpt, my_h, my_w, my_v, stage, sm.narrow2(it), sm.chunks, cur, nc, lane);
+        } else {
+            start_pair<DH>(st, dpt, my_h, my_w, RES_W, my_v, stage, stage + N::RING, sm.narrow2(it), nc);
+            wgmma_wait<0>();
+            fence_regs(st);
+            fence_regs(dpt);
+        }
 
         uint32_t pd[4][4], ds[4][4];
 #pragma unroll
@@ -436,7 +544,7 @@ train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restri
         fence_regs(acc_v);
         fence_regs(acc_k);
         wgmma_fence();
-        add_head<DH>(acc_v, pd, stage + N::RING + nc * T_W);
+        add_head<DH>(acc_v, pd, sm.narrow2(it));
         add_head<DH>(acc_k, ds, stage);
         wgmma_commit();
         wgmma_wait<0>();
@@ -478,17 +586,43 @@ cudaError_t make_maps(Maps* m, const void* q_u, const void* q_rot, const void* k
 }
 
 // Give `kernel` its shared memory. The dq kernel's warpgroups re-divide the
-// block's registers, 2 x 240 + 24 a thread: the block must have been given
-// that many, or a consumer would wait for registers that never come.
-template <int DH, typename Kernel>
+// block's registers, 2 x 240 + 24 a thread (not with WIDE, which holds no
+// dq_rot): the block must have been given that many, or a consumer would wait
+// for registers that never come.
+template <int DH, bool WIDE, typename Kernel>
 cudaError_t prepare(Kernel kernel, int nc, bool redivides_registers) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<DH>(nc));
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<DH, WIDE>(nc));
     if (err != cudaSuccess || !redivides_registers) return err;
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return err;
     return attr.numRegs * THREADS >= 128 * (NWG * CONSUMER_REGS + PRODUCER_REGS) ? cudaSuccess
                                                                                  : cudaErrorLaunchOutOfResources;
+}
+
+template <int DH, bool WIDE>
+int launch_bwd(const void* q_u, const void* q_rot, const void* k, const void* v, const void* k_std,
+               const void* lengths, const void* d_out, const void* stats, void* delta, void* dq_u, void* dq_rot,
+               void* ds, int ld_ds, void* dk, void* dv, int B, int T, int H, int D, float scale, DropoutArgs drop,
+               cudaStream_t stream) {
+    const int nc = D / CW;
+    Maps maps_q, maps_k;
+    cudaError_t err = make_maps<DH>(&maps_q, q_u, q_rot, k, v, k_std, d_out, B, T, H, D, ROWS, BKEY);
+    if (err == cudaSuccess) err = make_maps<DH>(&maps_k, q_u, q_rot, k, v, k_std, d_out, B, T, H, D, BKEY, ROWS);
+    if (err == cudaSuccess) err = prepare<DH, WIDE>(train_bwd_dq_bf16_kernel<DH, WIDE>, nc, NWG > 1 && !WIDE);
+    if (err == cudaSuccess) err = prepare<DH, WIDE>(train_bwd_dkv_bf16_kernel<DH, WIDE>, nc, false);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(ceil_div(T, ROWS), H, B);
+    train_bwd_dq_bf16_kernel<DH, WIDE><<<grid, THREADS, smem_bytes<DH, WIDE>(nc), stream>>>(
+        maps_q, (const int*)lengths, (const float*)stats, (float*)delta, (bf16*)dq_u, (bf16*)dq_rot, (bf16*)ds,
+        ld_ds, B, T, H, D, scale, drop);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    train_bwd_dkv_bf16_kernel<DH, WIDE><<<grid, THREADS, smem_bytes<DH, WIDE>(nc), stream>>>(
+        maps_k, (const int*)lengths, (const float*)stats, (const float*)delta, (bf16*)dk, (bf16*)dv, B, T, H, D,
+        scale, drop);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -499,24 +633,11 @@ int train_bwd_bf16(const void* q_u, const void* q_rot, const void* k, const void
                    void* dq_rot, void* dk, void* dv, int B, int T, int H, int D, float scale,
                    DropoutArgs drop, cudaStream_t stream) {
     const int nc = D / CW;
-    if (!fa::supported<DH>(B, H, D) || nc > Narrow<DH>::MAX_CHUNKS || smem_bytes<DH>(nc) > MAX_SMEM)
+    if (!fa::supported<DH>(B, H, D) || nc > Narrow<DH>::MAX_CHUNKS ||
+        smem_bytes<DH, false>(nc) > MAX_SMEM)
         return (int)cudaErrorInvalidValue;
-    Maps maps_q, maps_k;
-    cudaError_t err = make_maps<DH>(&maps_q, q_u, q_rot, k, v, k_std, d_out, B, T, H, D, ROWS, BKEY);
-    if (err == cudaSuccess) err = make_maps<DH>(&maps_k, q_u, q_rot, k, v, k_std, d_out, B, T, H, D, BKEY, ROWS);
-    if (err == cudaSuccess) err = prepare<DH>(train_bwd_dq_bf16_kernel<DH>, nc, NWG > 1);
-    if (err == cudaSuccess) err = prepare<DH>(train_bwd_dkv_bf16_kernel<DH>, nc, false);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid(ceil_div(T, ROWS), H, B);
-    train_bwd_dq_bf16_kernel<DH><<<grid, THREADS, smem_bytes<DH>(nc), stream>>>(
-        maps_q, (const int*)lengths, (const float*)stats, (float*)delta, (bf16*)dq_u, (bf16*)dq_rot, B, T, H, D,
-        scale, drop);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    train_bwd_dkv_bf16_kernel<DH><<<grid, THREADS, smem_bytes<DH>(nc), stream>>>(
-        maps_k, (const int*)lengths, (const float*)stats, (const float*)delta, (bf16*)dk, (bf16*)dv, B, T, H, D,
-        scale, drop);
-    return (int)cudaGetLastError();
+    return launch_bwd<DH, false>(q_u, q_rot, k, v, k_std, lengths, d_out, stats, delta, dq_u, dq_rot, nullptr, 0,
+                                 dk, dv, B, T, H, D, scale, drop, stream);
 }
 
 #define INSTANTIATE(DH)                                                                                     \
@@ -528,3 +649,27 @@ INSTANTIATE(64)
 #undef INSTANTIATE
 
 }  // namespace attn
+
+// The bf16 backward where [dq_u | dq_rot] passes the dq kernel's register
+// accumulator, dh + D > 288 (WIDE, up to D = 512): the dq kernel writes
+// dq_u and dS, bf16, into `ds` (B, T, H, ld_ds), ld_ds a multiple of 8 of at
+// least T, zeroed by the caller (columns of unvisited keys stay 0); the dk/dv
+// kernel writes dk and dv. dq_rot = dS k_std is the caller's GEMM.
+ASR_API int asr_rel_attention_train_bwd_wide(const void* q_u, const void* q_rot, const void* k, const void* v,
+                                             const void* k_std, const void* lengths, const void* d_out,
+                                             const void* stats, void* delta, void* dq_u, void* ds, void* dk,
+                                             void* dv, int B, int T, int H, int dh, int D, int ld_ds, float scale,
+                                             unsigned seed, unsigned thresh, float inv_keep, int dropout,
+                                             void* stream) {
+    using namespace attn;
+    if (T < 1 || ld_ds < T || ld_ds % 8 != 0) return (int)cudaErrorInvalidValue;
+    const DropoutArgs drop{seed, thresh, inv_keep, dropout};
+    return with_head_width(dh, [&](auto head) {
+        constexpr int DH = decltype(head)::value;
+        if (!fa::supported<DH>(B, H, D) || wide_slots<DH>(D / CW) < wide::MIN_SLOTS ||
+            smem_bytes<DH, true>(D / CW) > MAX_SMEM)
+            return (int)cudaErrorInvalidValue;
+        return launch_bwd<DH, true>(q_u, q_rot, k, v, k_std, lengths, d_out, stats, delta, dq_u, nullptr, ds, ld_ds,
+                                    dk, dv, B, T, H, D, scale, drop, static_cast<cudaStream_t>(stream));
+    });
+}

@@ -38,6 +38,10 @@
 //     the kernel spends its time on).
 //   * The block structure (ring, producer, score product, tensor maps) is
 //     attention_wgmma.cuh's, shared with the inference kernel rel_attention.cu.
+//   * q_rot past 256 columns (WIDE, up to 512): the query tile stays resident
+//     (144 KB at D = 512) and the k_std chunks come through attention_wgmma.cuh's
+//     chunk ring; S is then computed to its end before the fp32 work (the two
+//     fragments stay, with nothing in flight between them).
 //   * Two walks over the keys are kept: P must be rounded before the dropout
 //     scale, from the final row max and sum, so the first walk takes (max,
 //     sum) and the second the exact P. The second S product costs 9 GFLOP
@@ -51,13 +55,13 @@ namespace {
 
 using namespace fa;
 
-template <int DH>
+template <int DH, bool WIDE>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 train_fwd_bf16_kernel(const __grid_constant__ Maps maps, const int* __restrict__ lengths,
                       bf16* __restrict__ out, float* __restrict__ stats, int B, int T, int H, int D,
                       float scale, DropoutArgs drop) {
     extern __shared__ unsigned char smem_raw[];
-    const Smem<DH> sm(smem_raw, D);
+    const Smem<DH, WIDE> sm(smem_raw, D);
     const int nc = sm.nc;
     init_barriers(sm);
 
@@ -95,15 +99,20 @@ train_fwd_bf16_kernel(const __grid_constant__ Maps maps, const int* __restrict__
     const uint32_t key = dropout_key(drop.seed, b, h, H);
     const float inv_keep_e = round_bf(drop.inv_keep);
 
+    wide::Cursor cur;  // WIDE: this consumer's place in the k_std chunk ring
     auto start = [&](float (&s)[32], int it) {
         mbar_wait(sm.full_bar(it), (it / STAGES) & 1);
-        start_scores<DH>(s, my_qu, my_qr, sm.stage(it), nc);
+        if constexpr (WIDE) wide_scores<DH>(s, my_qu, my_qr, sm.stage(it), sm, cur, lane);
+        else start_scores<DH>(s, my_qu, my_qr, sm.stage(it), nc);
     };
 
     // the fp32 work on step `it`, whose product is the oldest group in flight
+    // (WIDE: done already)
     auto consume = [&](float (&s)[32], int it, bool next_in_flight) {
-        if (next_in_flight) wgmma_wait<1>(); else wgmma_wait<0>();
-        fence_regs(s);
+        if constexpr (!WIDE) {
+            if (next_in_flight) wgmma_wait<1>(); else wgmma_wait<0>();
+            fence_regs(s);
+        }
         const bool second_walk = it >= n_tiles;
         const int s0 = (second_walk ? it - n_tiles : it) * BKEY;
         if (!second_walk) {
@@ -195,9 +204,10 @@ int train_fwd_bf16(const void* q_u, const void* q_rot, const void* k, const void
     if (!fa::supported<DH>(B, H, D)) return (int)cudaErrorInvalidValue;
     fa::Maps maps;
     cudaError_t err = fa::make_maps<DH>(&maps, q_u, q_rot, k, v, k_std, B, T, H, D, H * DH);
-    if (err == cudaSuccess) err = fa::allow_smem<DH>(train_fwd_bf16_kernel<DH>, D);
+    auto kernel = fa::wide_path(D) ? train_fwd_bf16_kernel<DH, true> : train_fwd_bf16_kernel<DH, false>;
+    if (err == cudaSuccess) err = fa::allow_smem<DH>(kernel, D);
     if (err != cudaSuccess) return (int)err;
-    train_fwd_bf16_kernel<DH><<<fa::grid(B, T, H), BLOCK_THREADS, fa::smem_bytes<DH>(D / fa::CW), stream>>>(
+    kernel<<<fa::grid(B, T, H), BLOCK_THREADS, fa::block_smem<DH>(D), stream>>>(
         maps, (const int*)lengths, (bf16*)out, (float*)stats, B, T, H, D, scale, drop);
     return (int)cudaGetLastError();
 }

@@ -9,9 +9,12 @@ accepts the result. ``flax_tree_from_state_dict`` is its inverse (numpy out),
 so gradients and trained weights can go back for comparison.
 
 Both walk one table of (Flax path, state-dict key, layout change). The
-decoder's table (``decoder_param_table``) mirrors ``export_gpt2_decoder`` and
-the joint model's (``joint_param_table``) ``export_joint``; each has the same
-pair of functions.
+decoder's table (``decoder_param_table``) mirrors ``export_gpt2_decoder``, the
+joint model's (``joint_param_table``) ``export_joint``, and BEST-RQ
+pretraining's (``pretraining_param_table``) the tree of
+``huggingface_asr_tpu/models/bestrq.py``: the encoder under ``wav2vec2``, one
+``classifiers_{k}`` Dense a book, and the frozen quantizer in the ``buffers``
+collection. Each has the same pair of functions.
 """
 
 from __future__ import annotations
@@ -227,3 +230,37 @@ def joint_flax_tree_from_state_dict(sd: Mapping[str, Any], enc: EBranchformerCon
                                     dec: GPT2DecoderConfig) -> Dict[str, Any]:
     """The inverse of ``joint_state_dict_from_flax``."""
     return _to_tree(sd, joint_param_table(enc, dec, joint_tree_shape(enc, dec)))
+
+
+def pretraining_param_table(cfg: EBranchformerConfig) -> Iterator[Entry]:
+    """Every parameter of ``BestRQForPreTraining``: the CTC model's encoder
+    entries (``wav2vec2``) and one classifier a book."""
+    yield from (e for e in param_table(cfg) if e[0][0] == "wav2vec2")
+    for k in range(cfg.best_rq_num_books):
+        yield from _dense((f"classifiers_{k}",), f"classifiers.{k}")
+
+
+# the ``buffers`` collection of BEST-RQ pretraining: the frozen quantizer
+_PRETRAINING_BUFFERS = ((("rpq", "P"), "rpq.P", "same"), (("rpq", "CB"), "rpq.CB", "same"))
+
+
+def pretraining_state_dict_from_flax(variables: Mapping[str, Any], cfg: EBranchformerConfig) -> Dict[str, torch.Tensor]:
+    """Flax ``BestRQForPreTraining`` variables (``{"params": ..., "buffers":
+    ...}``, the buffers optional) -> float32 state dict of
+    ``models/bestrq.py::BestRQForPreTraining`` (with ``rpq.P`` and ``rpq.CB``
+    where the buffers are given)."""
+    _refuse_gated(variables["params"], cfg)
+    sd = _to_state_dict(variables["params"], pretraining_param_table(cfg))
+    if "buffers" in variables:
+        sd.update(_to_state_dict(variables["buffers"], _PRETRAINING_BUFFERS))
+    return sd
+
+
+def pretraining_flax_tree_from_state_dict(sd: Mapping[str, Any], cfg: EBranchformerConfig) -> Dict[str, Any]:
+    """The inverse of ``pretraining_state_dict_from_flax``: ``{"params": ...}``,
+    and ``"buffers"`` where ``sd`` holds the quantizer's. Gradients keyed by
+    parameter name go back the same way."""
+    out = {"params": _to_tree(sd, pretraining_param_table(cfg))}
+    if "rpq.P" in sd:
+        out["buffers"] = _to_tree(sd, _PRETRAINING_BUFFERS)
+    return out

@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from huggingface_asr_tpu_torch.kernels import _build
-from huggingface_asr_tpu_torch.kernels.attention import HEAD_WIDTHS, head_width
+from huggingface_asr_tpu_torch.kernels.attention import HEAD_WIDTHS, ROT_MAX, head_width
 from huggingface_asr_tpu_torch.models.ebranchformer import relpos_tables
 
 ACT_CODES = {"identity": 0, "gelu": 1, "gelu_new": 2, "relu": 3, "swish": 4, "silu": 4}
@@ -310,16 +310,17 @@ def rel_attention_plain(q_u, k, v, q_rot, k_std, lengths) -> torch.Tensor:
 
 def rel_attention_width_ok(D: int) -> bool:
     """The q_rot / k_std widths ``csrc/rel_attention.cu`` takes: whole 64-column
-    chunks, and a query tile plus three key stages within a block's shared
-    memory (at either head width)."""
-    return D % ROT_CHUNK == 0 and ROT_CHUNK <= D <= 256
+    chunks, at most ``ROT_MAX``: the query tile within a block's shared memory
+    beside three key stages (k_std's chunks in them up to 256, in a ring of
+    their own past that), at either head width."""
+    return D % ROT_CHUNK == 0 and ROT_CHUNK <= D <= ROT_MAX
 
 
 def rel_attention(q_u, k, v, q_rot, k_std, lengths) -> torch.Tensor:
     """``rel_attention_plain``; CUDA tensors run ``csrc/rel_attention.cu``
     (wgmma out of TMA-filled shared memory, one walk with an online softmax).
     The kernel takes a head width of 32 or 64 and a q_rot width D that is a
-    multiple of 64, at most 256 (the layer passes the padded operands of
+    multiple of 64, at most 512 (the layer passes the padded operands of
     ``fold_layer_weights``); q_u, k, v may be column views of one (B*T, 3*H*dh)
     buffer, which the kernel's tensor maps read in place."""
     if not _build.on_cuda(q_u, k, v, q_rot, k_std, lengths):
@@ -329,7 +330,7 @@ def rel_attention(q_u, k, v, q_rot, k_std, lengths) -> torch.Tensor:
     if dh not in HEAD_WIDTHS:
         raise ValueError(f"rel_attention kernel takes head widths {HEAD_WIDTHS}, got {dh}")
     if not rel_attention_width_ok(D):
-        raise ValueError(f"rel_attention kernel needs D % 64 == 0 and D <= 256, got {D}")
+        raise ValueError(f"rel_attention kernel needs D % 64 == 0 and D <= {ROT_MAX}, got {D}")
     ld = q_u.stride(1)
     for name, t in (("q_u", q_u), ("k", k), ("v", v)):
         _build.check(t, name, BF16, (B, T, H, dh), contiguous=False)
@@ -380,7 +381,15 @@ def merge_conv_plain(x, w, bias, B: int, T: int, t_valid: int):
 
 
 DWCONV_MAX_K = 33
-DWCONV_MAX_C = {0: 768, 1: 1024}  # CSGU, merge: two stages of a 16-row tile in 227 KB
+DWCONV_MAX_C = {0: 1024, 1: 1024}  # CSGU, merge: two stages of a 16-row tile of 128-channel slices in 227 KB
+DWCONV_CSGU_ROW_C = 768  # CSGU tiles of whole rows up to here; past it 128-channel slices
+
+
+def dwconv_channels_ok(mode: int, C: int) -> bool:
+    """Whether the depthwise conv kernel takes C channels in ``mode`` (0 CSGU,
+    1 merge): a multiple of 8, at most ``DWCONV_MAX_C[mode]``, and past
+    ``DWCONV_CSGU_ROW_C`` (CSGU) a whole number of 128-channel slices."""
+    return C % 8 == 0 and 0 < C <= DWCONV_MAX_C[mode] and (mode != 0 or C <= DWCONV_CSGU_ROW_C or C % 128 == 0)
 
 
 def dwconv_contract(mode: int, x, w, bias, B: int, T: int, t_valid: int, ln_g=None, ln_b=None) -> int:
@@ -388,16 +397,18 @@ def dwconv_contract(mode: int, x, w, bias, B: int, T: int, t_valid: int, ln_g=No
     they lie on); return C. mode 0 (CSGU): x is (B*T, 2C) ``[x_r | x_g]``;
     mode 1 (merge): x is (B*T, C). x may be a row view: unit column stride, a
     row stride divisible by 8 and a 16-byte aligned base, which the kernel's
-    TMA maps need; C a multiple of 8, at most 768 (CSGU) or 1024
-    (merge), so that two stages of a tile fit in shared memory; w (K, C) bf16 with
+    TMA maps need; C a multiple of 8, at most 1024, so that two stages of a
+    tile fit in shared memory (CSGU past 768 in 128-channel slices: C a
+    multiple of 128 there); w (K, C) bf16 with
     K odd, at most 33 (the TPU kernel's ``PAD_ALLOC``); bias, ln_g, ln_b (C,)
     fp32, each contiguous; 0 <= t_valid."""
     width = x.shape[1] if x.ndim == 2 else -1
     C = width // 2 if mode == 0 else width
     if x.ndim != 2 or x.shape[0] != B * T or C <= 0 or width != (2 * C if mode == 0 else C):
         raise ValueError(f"x: expected ({B * T}, {'2C' if mode == 0 else 'C'}) rows, got {tuple(x.shape)}")
-    if C % 8 or C > DWCONV_MAX_C[mode]:
-        raise ValueError(f"depthwise conv kernel needs C % 8 == 0 and C <= {DWCONV_MAX_C[mode]}, got C={C}")
+    if not dwconv_channels_ok(mode, C):
+        raise ValueError(f"depthwise conv kernel needs C % 8 == 0 and C <= {DWCONV_MAX_C[mode]} (CSGU past "
+                         f"{DWCONV_CSGU_ROW_C}: whole 128-channel slices), got C={C}")
     if x.stride(1) != 1 or x.stride(0) % 8 or x.data_ptr() % 16:
         raise ValueError("x: needs unit column stride, a row stride divisible by 8 and a 16-byte aligned base")
     K = w.shape[0] if w.ndim == 2 else 0
@@ -426,9 +437,11 @@ def _dwconv(mode, x, ln_g, ln_b, w, bias, B, T, t_valid, act, eps, label, out=No
     if out is None:
         out = torch.empty(B * T, C, dtype=BF16, device=x.device)
     _build.check(out, "out", BF16, (B * T, C))
+    # CSGU in channel slices: each row's (mean, 1 / std) from the kernel's first pass
+    stats = torch.empty(B * T, 2, dtype=F32, device=x.device) if mode == 0 and C > DWCONV_CSGU_ROW_C else None
     ptr = lambda t: t.data_ptr() if t is not None else None
-    _build.launch("asr_dwconv", "ppppppiiiiiiiif", x.data_ptr(), ptr(ln_g), ptr(ln_b),
-                  w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, T, t_valid, C, w.shape[0],
+    _build.launch("asr_dwconv", "pppppppiiiiiiiif", x.data_ptr(), ptr(ln_g), ptr(ln_b),
+                  w.data_ptr(), bias.data_ptr(), out.data_ptr(), ptr(stats), B, T, t_valid, C, w.shape[0],
                   x.stride(0), mode, ACT_CODES[act], float(eps), label=label)
     return out
 

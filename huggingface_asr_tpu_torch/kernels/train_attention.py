@@ -14,7 +14,12 @@ passes (dq, then dk/dv; bf16: ``csrc/rel_attention_train_bwd.cu``, fp32:
 do not take raises. Gradients exist for q_u, q_rot, k and v only.
 
 The kernels are compiled for heads of 32 and 64 columns and read q_rot and
-k_std in whole 64-column (bf16) or 16-column (fp32) tiles. The Function pads
+k_std in whole 64-column (bf16, up to 512) or 16-column (fp32, up to 256)
+tiles. Where the bf16 dq kernel's ``[dq_u | dq_rot]`` accumulator passes its
+registers (head width + q_rot width > ``ACC_COLUMNS``), the backward is
+``asr_rel_attention_train_bwd_wide``: it writes dS (bf16, the rounding the
+products read) beside dq_u, dk and dv, and ``dq_rot = dS k_std`` is one call
+of the GEMM kernel (``kernels/layer.py::gemm``). The Function pads
 other sizes with zero columns, in copies (q_u, k, v to the head width,
 q_rot and k_std to the tile width), launches the kernels on the copies and
 returns the gradients' true columns; the scale stays 1/sqrt(dh) of the true
@@ -39,7 +44,7 @@ import numpy as np
 import torch
 
 from huggingface_asr_tpu_torch.kernels import _build
-from huggingface_asr_tpu_torch.kernels.attention import head_width
+from huggingface_asr_tpu_torch.kernels.attention import ROT_MAX, head_width
 
 NEG_INF = -1.0e9
 _M32 = 0xFFFFFFFF
@@ -137,21 +142,27 @@ def rel_attention_train_plain(q_u, q_rot, k, v, k_std, lengths, seed, dropout_ra
 
 
 ACC_COLUMNS = 288  # the bf16 dq kernel's [dq_u | dq_rot] accumulator, in registers
+MAX_ROT = {torch.bfloat16: ROT_MAX, torch.float32: 256}  # the widest q_rot the kernels hold resident
 
 
 def padded_widths(dh: int, D: int, dtype: torch.dtype):
     """(head width, q_rot width) the kernels run ``(dh, D)`` at in ``dtype``,
     or None where they do not take it: a head of at most 64 columns, q_rot in
-    whole tiles of 64 (bf16) or 16 (fp32) columns, at most 256 of them, and in
-    bf16 the two together within the backward's register accumulator."""
+    whole tiles of 64 (bf16) or 16 (fp32) columns, at most 512 (bf16) or 256
+    (fp32) of them."""
     hw = head_width(dh)
+    if dtype not in MAX_ROT or hw is None:
+        return None
     step = 64 if dtype == torch.bfloat16 else 16
     d_rot = -(-D // step) * step
-    if dtype not in (torch.bfloat16, torch.float32) or hw is None or d_rot > 256:
-        return None
-    if dtype == torch.bfloat16 and hw + d_rot > ACC_COLUMNS:
-        return None
-    return hw, d_rot
+    return (hw, d_rot) if d_rot <= MAX_ROT[dtype] else None
+
+
+def wide_backward(hw: int, d_rot: int, dtype: torch.dtype) -> bool:
+    """Whether the backward at these padded widths writes dS and forms dq_rot
+    in a GEMM (``asr_rel_attention_train_bwd_wide``): bf16 past the dq
+    kernel's register accumulator."""
+    return dtype == torch.bfloat16 and hw + d_rot > ACC_COLUMNS
 
 
 def _check_inputs(q_u, q_rot, k, v, k_std, lengths):
@@ -162,9 +173,9 @@ def _check_inputs(q_u, q_rot, k, v, k_std, lengths):
     dtype = q_u.dtype
     widths = padded_widths(dh, D, dtype)
     if widths is None:
-        raise ValueError(f"rel_attention_train kernels need bf16 or fp32 inputs, dh <= 64 and D <= 256 (in bf16 "
-                         f"also the padded dh + D <= {ACC_COLUMNS}), got dh={dh}, D={D}, {dtype}; "
-                         f"attention_impl='xla' selects the plain attention")
+        raise ValueError(f"rel_attention_train kernels need bf16 or fp32 inputs, dh <= 64 and D <= "
+                         f"{MAX_ROT[torch.bfloat16]} in bf16, {MAX_ROT[torch.float32]} in fp32, got dh={dh}, D={D}, "
+                         f"{dtype}; attention_impl='xla' selects the plain attention")
     _build.check(q_u, "q_u", dtype, (B, T, H, dh))
     _build.check(q_rot, "q_rot", dtype, (B, T, H, D))
     _build.check(k, "k", dtype, (B, T, H, dh))
@@ -212,11 +223,27 @@ class _KernelFunction(torch.autograd.Function):
         dq_u, dq_rot = torch.empty_like(q_u), torch.empty_like(q_rot)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         delta = torch.empty(B, H, T, dtype=torch.float32, device=q_u.device)
-        _build.launch("asr_rel_attention_train_bwd", "pppppppppppppiiiiiifuufi",
-                      q_u.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      k_std.data_ptr(), lengths.data_ptr(), d_out.data_ptr(), stats.data_ptr(),
-                      delta.data_ptr(), dq_u.data_ptr(), dq_rot.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr(), *ctx.tail)
+        hw, d_rot = ctx.tail[3:5]
+        if wide_backward(hw, d_rot, q_u.dtype):
+            from huggingface_asr_tpu_torch.kernels.layer import gemm  # (layer.py imports the model, which imports this)
+
+            # dS (B, T, H, ld) with zeros past the visited keys, then
+            # dq_rot (B*T*H, D) = dS (B*T*H, ld) @ k_std (ld, D), k_std's rows past T zero
+            ld = -(-T // 8) * 8
+            ds = torch.zeros(B, T, H, ld, dtype=q_u.dtype, device=q_u.device)
+            _build.launch("asr_rel_attention_train_bwd_wide", "pppppppppppppiiiiiifuufi",
+                          q_u.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          k_std.data_ptr(), lengths.data_ptr(), d_out.data_ptr(), stats.data_ptr(),
+                          delta.data_ptr(), dq_u.data_ptr(), ds.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                          B, T, H, hw, d_rot, ld, *ctx.tail[6:], label="asr_rel_attention_train_bwd")
+            gemm(ds.view(B * T * H, ld), torch.nn.functional.pad(k_std, (0, 0, 0, ld - T)),
+                 out=dq_rot.view(B * T * H, d_rot))
+        else:
+            _build.launch("asr_rel_attention_train_bwd", "pppppppppppppiiiiiifuufi",
+                          q_u.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          k_std.data_ptr(), lengths.data_ptr(), d_out.data_ptr(), stats.data_ptr(),
+                          delta.data_ptr(), dq_u.data_ptr(), dq_rot.data_ptr(), dk.data_ptr(),
+                          dv.data_ptr(), *ctx.tail)
         return (dq_u[..., :dh], dq_rot[..., :D], dk[..., :dh], dv[..., :dh],
                 None, None, None, None)
 
@@ -228,8 +255,9 @@ def rel_attention_train(q_u, q_rot, k, v, k_std, lengths, seed, dropout_rate=0.0
     positional query; k_std: (T, D) ascending sinusoid table (no gradient);
     lengths: (B,) int32 valid key counts; seed: int (int32 range); returns
     (B, T, H, dh) in q_u's dtype. CUDA tensors run the kernels (dh <= 64,
-    D <= 256, each padded with zeros to what the kernels are compiled for:
-    ``padded_widths``), CPU tensors the plain version."""
+    D <= 512 in bf16 and 256 in fp32, each padded with zeros to what the
+    kernels are compiled for: ``padded_widths``), CPU tensors the plain
+    version."""
     seed, rate = int(seed), float(dropout_rate)
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")

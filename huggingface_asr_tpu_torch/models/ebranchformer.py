@@ -27,8 +27,10 @@ run their kernels or raise (a model the kernels do not take trains with
 also the float32 reference that the fused path (``models/fast_infer.py``) is
 held against. Supported: the plain 2-D conv front end, non-causal
 self-attention with relative positions (or none), macaron FFs, cgMLP/CSGU
-and the merge block. The gated conv front ends, causal models, rotary
-positions and the BEST-RQ fine-tuning adapters raise ``NotImplementedError``.
+and the merge block, and the SSL masking hook with BEST-RQ's noise
+(``models/bestrq.py``). The gated conv front ends, causal models, rotary
+positions, wav2vec2's learned mask embedding and the BEST-RQ fine-tuning
+adapters raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -411,9 +413,20 @@ class EBranchformerModel(nn.Module):
         self.encoder = EBranchformerEncoder(cfg)
 
     def forward(self, input_features, input_lengths, rng: Optional[DropoutRng] = None,
-                output_hidden_states: bool = False):
+                output_hidden_states: bool = False, mask_time_indices: Optional[torch.Tensor] = None,
+                mask_noise: Optional[torch.Tensor] = None):
+        """``mask_time_indices`` (B, T_enc) bool: the SSL masking hook, which
+        replaces the masked frames after the feature projection by
+        ``mask_noise`` (B, T_enc, hidden), BEST-RQ's noise. The learned
+        ``masked_spec_embed`` that wav2vec2 pretraining puts there instead is
+        not ported."""
         cfg = self.config
         hidden = self.feature_projection(self.feature_extractor(input_features), rng)
+        if mask_time_indices is not None:
+            if mask_noise is None:
+                raise NotImplementedError("masked_spec_embed (wav2vec2 pretraining's learned mask embedding) is not "
+                                          "ported yet: pass mask_noise (BEST-RQ)")
+            hidden = torch.where(mask_time_indices[..., None], mask_noise.to(hidden.dtype), hidden)
         T = hidden.shape[1]
         # Encoder masking uses the true padded-conv frame count; the RETURNED
         # lengths use the reference's unpadded formula (see the two helpers).
@@ -499,7 +512,8 @@ def _lecun_normal(shape, fan_in: int, generator: torch.Generator) -> torch.Tenso
 
 
 @torch.no_grad()
-def init_from_scratch_(model: "EBranchformerForCTC", generator: torch.Generator) -> "EBranchformerForCTC":
+def init_from_scratch_(model: "EBranchformerForCTC", generator: torch.Generator,
+                       lecun_linears=()) -> "EBranchformerForCTC":
     """The distributions of the JAX package's ``EBranchformerForCTC.init``, for
     a model trained from scratch (``cli/train_ctc.py`` when nothing is loaded):
 
@@ -514,6 +528,9 @@ def init_from_scratch_(model: "EBranchformerForCTC", generator: torch.Generator)
 
     The draws come from ``generator`` on the CPU, in ``named_parameters``
     order, and are copied into place; a parameter of another kind raises.
+    ``lecun_linears``: further Dense layers that keep Flax's default (BEST-RQ's
+    classifiers). ``model`` is any module with a ``config`` and a ``wav2vec2``
+    encoder.
 
     Caveat (b) of ROADMAP.md follows from the zero conv biases: a frame that
     SpecAugment's time mask zeroed stays exactly zero through the front end,
@@ -525,7 +542,7 @@ def init_from_scratch_(model: "EBranchformerForCTC", generator: torch.Generator)
     SpecAugment later) is the way round it.
     """
     std = model.config.initializer_range
-    lecun_dense = {id(model.wav2vec2.feature_projection.projection)}
+    lecun_dense = {id(model.wav2vec2.feature_projection.projection)} | {id(m) for m in lecun_linears}
     for module in model.modules():
         own = dict(module.named_parameters(recurse=False))
         if not own:

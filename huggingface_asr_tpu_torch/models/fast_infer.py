@@ -24,9 +24,12 @@ from typing import Dict, Optional
 
 import torch
 
-from huggingface_asr_tpu_torch.kernels.attention import HEAD_WIDTHS, head_width
+from huggingface_asr_tpu_torch.kernels.attention import HEAD_WIDTHS, ROT_MAX, head_width
 from huggingface_asr_tpu_torch.kernels.layer import (
     ACT_CODES,
+    DWCONV_CSGU_ROW_C,
+    DWCONV_MAX_C,
+    dwconv_channels_ok,
     ebranchformer_layer,
     ebranchformer_layer_plain,
     fold_layer_weights,
@@ -79,8 +82,12 @@ def fused_encoder_refusal(cfg: EBranchformerConfig, dtype: torch.dtype, *, log_m
          f"hidden_size {cfg.hidden_size}, intermediate_size {cfg.intermediate_size} (the GEMM kernel takes "
          f"multiples of 8 columns)"),
         (rel_attention_width_ok(rot_width(cfg.hidden_size)),
-         f"hidden_size {cfg.hidden_size} (the attention kernels hold q_rot rows of at most 256 columns in "
-         f"shared memory; wider ones need q_rot streamed in chunks, which is not built)"),
+         f"hidden_size {cfg.hidden_size} (the attention kernels hold q_rot rows of at most {ROT_MAX} columns in "
+         f"shared memory)"),
+        (dwconv_channels_ok(0, cfg.intermediate_size // 2) and dwconv_channels_ok(1, 2 * cfg.hidden_size),
+         f"intermediate_size {cfg.intermediate_size}, hidden_size {cfg.hidden_size} (the depthwise conv kernels "
+         f"take at most {DWCONV_MAX_C[0]} CSGU channels, in whole 128-channel slices past {DWCONV_CSGU_ROW_C}, "
+         f"and {DWCONV_MAX_C[1]} merge channels)"),
         (not log_mel or (cfg.num_fbanks <= MEL_MAX_BINS and cfg.num_fbanks % 8 == 0),
          f"num_fbanks {cfg.num_fbanks} (the log-mel and CMVN kernels take at most {MEL_MAX_BINS} mel bins, "
          f"a multiple of 8)"),

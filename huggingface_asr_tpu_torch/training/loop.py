@@ -12,8 +12,13 @@ device tensors and ``fit`` reads them only when it logs.
 The per-step augment and dropout streams are derived from ``(seed, step)``, so
 a restored run repeats the run it was saved from.
 
-Not ported here: the joint, BEST-RQ, wav2vec2-SSL and LLM-ASR trainers, meshes
-and sharded state (one device), profiler capture.
+``BestRQTrainer`` trains BEST-RQ pretraining (``models/bestrq.py``): the
+masked frames' noise comes from the step's augment stream, the loss is divided
+by the masked-frame count, and the frozen quantizer rides in the model's
+buffers, so the checkpoint saves and restores it with the parameters.
+
+Not ported here: the joint, wav2vec2-SSL and LLM-ASR trainers, meshes and
+sharded state (one device), profiler capture.
 """
 
 from __future__ import annotations
@@ -286,3 +291,30 @@ class CTCTrainer(BaseTrainer):
         tokens, token_lengths = ctc_greedy_decode(out.logits, out.logit_lengths, blank_id=-1)
         loss = out.loss if out.loss is not None else torch.zeros((), device=self.device)
         return {"loss": loss, "tokens": tokens, "token_lengths": token_lengths}
+
+
+class BestRQTrainer(BaseTrainer):
+    """BEST-RQ pretraining (JAX ``BestRQTrainer``; reference SSLTrainer,
+    training_utils.py:207-283): the loss divided by ``max(num_masked, 1)``,
+    with ``num_masked`` and ``percent_masked`` as metrics. The batches carry
+    ``mask_time_indices`` (B, T_enc) from the input pipeline
+    (``cli/pretrain.py::make_ssl_batch_fn``). The quantizer's P and CB are
+    buffers of the model: the optimizer never sees them, and ``_payload``'s
+    state dict carries them through every checkpoint."""
+
+    def _forward(self, batch, generator, rng):
+        feats, lengths = self._featurize(batch)
+        mask = batch["mask_time_indices"].to(torch.bool)
+        out = self.model(feats, lengths, mask, generator=generator, rng=rng, dtype=self.dtype)
+        loss = out.loss / torch.clamp(out.num_masked, min=1)
+        return out, loss, mask
+
+    def loss_and_metrics(self, batch, aug_gen, dropout_rng, step):
+        out, loss, mask = self._forward(batch, aug_gen, dropout_rng)
+        num_masked = out.num_masked.float()
+        return loss, {"num_masked": num_masked, "percent_masked": 100.0 * num_masked / mask.numel()}
+
+    def eval_outputs(self, batch):
+        # the noise of an evaluation step comes from a fixed seed, as the JAX trainer's key(0)
+        generator = torch.Generator(device=self.device).manual_seed(0)
+        return {"loss": self._forward(batch, generator, None)[1]}

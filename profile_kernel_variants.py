@@ -1,6 +1,6 @@
 """A/B of kernel source variants on one NVIDIA GPU.
 
-    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm,dwconv,mel,posq,conv1,cmvn,ln DIR_A [DIR_B ...]
+    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm,dwconv,mel,posq,conv1,cmvn,ln,trace DIR_A [DIR_B ...]
 
 Each DIR is a directory holding a full copy of ``huggingface_asr_tpu_torch/csrc``
 (the package's own directory is a valid DIR). Every variant is built and run in
@@ -21,7 +21,8 @@ wider output, round-first at K=5120, a strided ``a``) against ``gemm_plain``
 at M = 56, 2,048 and 32,768 rows, checks that rows past M and the other half
 of a sliced output stay untouched, and times it beside ``F.linear``;
 ``dwconv`` holds both forms of the depthwise conv (CSGU with its LayerNorm
-and gate, merge with its residual; C = 512, K = 31) against their plain
+and gate, merge with its residual; C = 512 and 1,024, K = 31: the CSGU conv at
+1,024 runs 128-channel slices behind its statistics pass) against their plain
 versions at M = 2,048 and 32,768 rows and times them beside
 ``F.conv1d(groups=C)``, with the device times under the profiler; ``mel``
 holds the log-mel kernel against its plain version at B = 8 and 128 x 10 s of
@@ -35,7 +36,10 @@ ragged lengths) and time them beside their bounds, cmvn also beside a bf16 cast 
 moved by one streaming kernel), conv1 also beside ``F.conv2d`` in bf16 (device times)
 with the share of its outputs equal to the plain version's bit for bit, and beside ``fill_`` of its output (the
 card's rate of writing those bytes); ``ln`` holds the LayerNorm at M = 2,048 and 32,768 rows (D = 256) against its
-plain version and times it beside ``F.layer_norm`` in bf16 (device times).
+plain version and times it beside ``F.layer_norm`` in bf16 (device times); ``trace`` takes 100 profiler
+traces of 10 calls each of the CSGU conv at C = 512 and 1,024, a GEMM and the LayerNorm (B=8 x 256 rows), opened
+and closed right at the calls and 20 ms before and after them, and counts the traces that hold fewer kernel records than host
+launch records, and whether the first or the last call's record is the one missing.
 Exits non-zero without a CUDA device.
 """
 
@@ -141,7 +145,7 @@ def run_variant(csrc: str, what: str) -> None:
     _build.library()
     sources = {"conv2": "conv2", "k4": "train_fwd", "k4bwd": "train_bwd", "k1": "rel_attention.cu", "k5": "shift",
                "gemm": "layer.cu", "dwconv": "dwconv", "mel": "mel.cu", "posq": "layer.cu",
-               "conv1": "subsample.cu", "cmvn": "mel.cu", "ln": "layer.cu"}
+               "conv1": "subsample.cu", "cmvn": "mel.cu", "ln": "layer.cu", "trace": "dwconv"}
     keep = False
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("=="):
@@ -174,8 +178,8 @@ def run_variant(csrc: str, what: str) -> None:
     if "dwconv" in what.split(","):
         import torch.nn.functional as F
 
-        C, K = 512, 31
-        for B, T in DWCONV_SHAPES:
+        K = 31
+        for C, (B, T) in ((c, bt) for c in (512, 1024) for bt in DWCONV_SHAPES):
             gen = torch.Generator().manual_seed(B + T)
             l = torch.randn(B * T, 2 * C, generator=gen).bfloat16().to(dev)
             x = torch.randn(B * T, C, generator=gen).bfloat16().to(dev)
@@ -198,11 +202,67 @@ def run_variant(csrc: str, what: str) -> None:
                 ok = bool(torch.isfinite(got).all()) and err <= 2 ** -7 * max(1.0, float(ref.abs().max()))
                 library = lambda: F.conv1d(lib_in, w_lib, padding=(K - 1) // 2, groups=C)  # noqa: E731
                 with torch.no_grad():
-                    print(f"dwconv {name} B={B} T={T} M={B * T}: err={err:.3e} {'ok' if ok else 'FAIL'} "
+                    print(f"dwconv {name} C={C} B={B} T={T} M={B * T}: err={err:.3e} {'ok' if ok else 'FAIL'} "
                           f"ms={timed(kernel):.4f} device_ms={device_ms(kernel):.4f} conv1d_ms={timed(library):.4f} "
                           f"conv1d_device_ms={device_ms(library):.4f}", flush=True)
             del l, x
             torch.cuda.empty_cache()
+    if "trace" in what.split(","):
+        # how often a profiler trace loses kernel records: 100 traces of 10
+        # calls each, per call; "bare" opens and closes the trace right at
+        # the calls, "padded" TRACE_PAD_S before and after them (as
+        # chip_smoke.device_kernel_ms does)
+        import time
+
+        from torch.profiler import ProfilerActivity, profile
+
+        from chip_smoke import TRACE_PAD_S
+
+        B, T, K = 8, 256, 31
+        gen = torch.Generator().manual_seed(5)
+        calls = {}
+        for C in (512, 1024):
+            l = torch.randn(B * T, 2 * C, generator=gen).bfloat16().to(dev)
+            w = (torch.randn(K, C, generator=gen) * K ** -0.5).bfloat16().to(dev)
+            vec = lambda: (1.0 + 0.1 * torch.randn(C, generator=gen)).to(dev)  # noqa: E731
+            calls[f"csgu C={C}"] = (lambda l=l, w=w, a=vec(), b=vec(), c=vec(), C=C:
+                                    K1.csgu(l, a, b, w, c, B, T, T - 6, "identity", 1e-5))
+        a, wt = torch.randn(B * T, 512, generator=gen).bfloat16().to(dev), \
+            (torch.randn(512, 2048, generator=gen) * 512 ** -0.5).bfloat16().to(dev)
+        ln_g, ln_b = torch.ones(512, device=dev), torch.zeros(512, device=dev)
+        calls["gemm K=512 N=2048"] = lambda: K1.gemm(a, wt)
+        calls["layernorm D=512"] = lambda: K1.layer_norm(a, ln_g, ln_b, 1e-5)
+        for mode in ("bare", "padded"):
+            for name, fn in calls.items():
+                fn()
+                torch.cuda.synchronize()
+                counts, per_call = [], []
+                for _ in range(100):
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        if mode == "padded":
+                            time.sleep(TRACE_PAD_S)
+                        for _ in range(10):
+                            fn()
+                        torch.cuda.synchronize()
+                        if mode == "padded":
+                            time.sleep(TRACE_PAD_S)
+                    events = prof.events()
+                    kernels = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA]
+                    launches = sorted((ev for ev in events if "Launch" in ev.name), key=lambda e: e.time_range.start)
+                    # which call's record is missing: the records' starts against the launches'
+                    first, last = (min(ev.time_range.start for ev in kernels), max(ev.time_range.start for ev in kernels)) \
+                        if kernels else (None, None)
+                    counts.append((len(kernels), len(launches),
+                                   first is not None and len(launches) > 1 and first >= launches[1].time_range.start,
+                                   last is not None and last < launches[-1].time_range.start))
+                    per_call.append(sum(ev.time_range.end - ev.time_range.start for ev in kernels) / 1e4)
+                short = [c for c in counts if c[0] < c[1]]
+                print(f"trace {mode} {name}: kernel records per trace {min(c[0] for c in counts)}-"
+                      f"{max(c[0] for c in counts)}, traces with fewer kernel records than host launch records "
+                      f"{len(short)}/100, of them the first call's record missing {sum(c[2] for c in short)}, the "
+                      f"last call's {sum(c[3] for c in short)} (the first: {short[:5]}); device ms per call min "
+                      f"{min(per_call):.4f} median {float(np.median(per_call)):.4f} max {max(per_call):.4f}",
+                      flush=True)
     if "mel" in what.split(","):
         from chip_smoke import mel_errors, speech
         from huggingface_asr_tpu_torch.kernels import mel as K3

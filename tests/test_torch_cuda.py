@@ -528,17 +528,19 @@ def test_train_attention_backward_widths_and_lengths(dtype, H, D, T, rate):
         assert not bool(got[2][1, 1:].any()) and not bool(got[3][1, 1:].any())
 
 
-def _flagship_gemm_calls(dev, M, seed):
-    """Every GEMM call of the flagship layer (D=256, I=1024, cgMLP 1024 -> 512)
-    and of its subsampler (5120 -> 256 -> 256), as (name, a, w, bias, kwargs)."""
+def _layer_gemm_calls(dev, M, seed, D=256, I=1024, subsampler=True):
+    """Every GEMM call of a layer of width D (FF I wide, cgMLP I -> I / 2;
+    the flagship's D=256, I=1024 by default) and, with ``subsampler``, of the
+    flagship's subsampler (5120 -> 256 -> 256), as (name, a, w, bias,
+    kwargs); wo and cg_w2 write the two halves of a (M + 8, 2D) buffer."""
     g = torch.Generator().manual_seed(seed)
     mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
     wt = lambda k, n: (torch.randn(k, n, generator=g) * k ** -0.5).bfloat16().to(dev)  # noqa: E731
     bias = lambda n: torch.randn(n, generator=g).bfloat16().float().to(dev)  # noqa: E731
-    D, I, C = 256, 1024, 512
+    C = I // 2
     x = mk(M, D)
     merged = torch.full((M + 8, 2 * D), 7.0, dtype=torch.bfloat16, device=dev)
-    return merged, [
+    calls = [
         ("ff_in gelu", x, wt(D, I), bias(I), dict(act="gelu")),
         ("ff_in swish", x, wt(D, I), bias(I), dict(act="swish")),
         ("ff_out", mk(M, I), wt(I, D), bias(D), dict(residual=x, alpha=0.5)),
@@ -547,18 +549,19 @@ def _flagship_gemm_calls(dev, M, seed):
         ("cg_w1", x, wt(D, 2 * C), bias(2 * C), dict(act="gelu")),
         ("cg_w2", mk(M, C), wt(C, D), bias(D), dict(out=merged[:M, D:])),
         ("merge", mk(M, 4 * D)[:, D:3 * D], wt(2 * D, D), bias(D), dict(residual=x, alpha=1.0)),
-        ("out-dense", mk(M, 5120), wt(5120, D), bias(D), dict(round_first=True)),
-        ("proj", x, wt(D, D), bias(D), dict(round_first=True)),
     ]
+    if subsampler:
+        calls += [("out-dense", mk(M, 5120), wt(5120, D), bias(D), dict(round_first=True)),
+                  ("proj", x, wt(D, D), bias(D), dict(round_first=True))]
+    return merged, calls
 
 
-@pytest.mark.parametrize("M", [56, 2048, 8200, 32768])
-def test_gemm_at_the_flagship_call_shapes(M):
-    """Both kernels, a ragged M in each (56 in the small one, 8,200 in the
-    large one), every epilogue; rows past M and the other half of a sliced
-    output stay as they were."""
+def _check_layer_gemms(M, D, I, subsampler):
+    """Each call of ``_layer_gemm_calls`` against ``gemm_plain`` (both outputs
+    of the dual one); rows past M and the other half of a sliced output stay
+    as they were; one launch a call."""
     dev = _cuda()
-    merged, calls = _flagship_gemm_calls(dev, M, seed=M)
+    merged, calls = _layer_gemm_calls(dev, M, M + D, D, I, subsampler)
     _build.reset_launch_counts()
     for name, a, w, bias, kw in calls:
         got = K1.gemm(a, w, bias, **kw)
@@ -569,11 +572,42 @@ def test_gemm_at_the_flagship_call_shapes(M):
             got, ref = got[0], ref[0]
         _close(got, ref, 2 ** -6)
         if name == "wo":
-            assert bool((merged[:M, 256:] == 7.0).all()) and bool((merged[M:] == 7.0).all()), name
+            assert bool((merged[:M, D:] == 7.0).all()) and bool((merged[M:] == 7.0).all()), name
         if name == "cg_w2":
             assert bool((merged[M:] == 7.0).all()), name
-            _close(merged[:M, :256], K1.gemm_plain(*calls[4][1:4]), 2 ** -6)  # wo's half is still wo's
+            _close(merged[:M, :D], K1.gemm_plain(*calls[4][1:4]), 2 ** -6)  # wo's half is still wo's
     assert _build.LAUNCHES["asr_gemm_bf16"] == len(calls)
+
+
+@pytest.mark.parametrize("M", [56, 2048, 8200, 32768])
+def test_gemm_at_the_flagship_call_shapes(M):
+    """Both kernels, a ragged M in each (56 in the small one, 8,200 in the
+    large one), every epilogue; rows past M and the other half of a sliced
+    output stay untouched."""
+    _check_layer_gemms(M, 256, 1024, subsampler=True)
+
+
+@pytest.mark.parametrize("M", [56, 2048, 8200, 32768])
+def test_gemm_at_the_512_wide_call_shapes(M):
+    """The 512-wide config's layer GEMMs (D=512, I=2048, cgMLP 2048 -> 1024:
+    N and K of 512, 1,024, 1,536 and 2,048), every epilogue, in both kernels,
+    as at the flagship's widths."""
+    _check_layer_gemms(M, 512, 2048, subsampler=False)
+
+
+@pytest.mark.parametrize("M", [56, 2048, 32768])
+@pytest.mark.parametrize("D", [176, 256, 512])
+def test_layernorm_at_the_configs_widths(D, M):
+    """The LayerNorm at the shipped configs' widths (176, 256, 512): ragged
+    and whole blocks of rows."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(D + M)
+    x = (torch.randn(M, D, generator=g) * 3.0 + 0.5).bfloat16().to(dev)
+    gamma, beta = (1.0 + 0.1 * torch.randn(D, generator=g)).to(dev), (0.1 * torch.randn(D, generator=g)).to(dev)
+    _build.reset_launch_counts()
+    got = K1.layer_norm(x, gamma, beta, 1e-5)
+    assert _build.LAUNCHES["asr_layernorm_bf16"] == 1
+    _close(got, K1.layer_norm_plain(x, gamma, beta, 1e-5), 2 ** -7)
 
 
 @pytest.mark.parametrize("D", [64, 128, 192])
@@ -639,11 +673,11 @@ def test_layer_rel_attention_on_strided_views(B, T, H, D, lens):
     _close(got, K1.rel_attention_plain(q_u, k, v, q_rot, k_std, lengths), 2 ** -6)
 
 
-@pytest.mark.parametrize("D", [48, 96, 320])
+@pytest.mark.parametrize("D", [48, 96, 576])
 def test_layer_rel_attention_raises_on_widths_it_does_not_take(D):
     """D must be whole 64-column chunks and fit a block's shared memory. A
-    config whose width rounds up to at most 256 takes the fused path on the
-    fold's padded operands (96 -> 128); one past 256 (320) is kept off it."""
+    config whose width rounds up to at most 512 takes the fused path on the
+    fold's padded operands (96 -> 128); one past 512 (576) is kept off it."""
     from huggingface_asr_tpu_torch.models.fast_infer import fused_encoder_ok
 
     dev = _cuda()
@@ -655,7 +689,7 @@ def test_layer_rel_attention_raises_on_widths_it_does_not_take(D):
     assert dict(_build.LAUNCHES) == before
     if D % 32 == 0:
         cfg = dataclasses.replace(CFG, hidden_size=D, num_attention_heads=D // 32, conv_dim=(256, 256))
-        assert cfg.head_size == 32 and fused_encoder_ok(cfg, torch.bfloat16) == (K1.rot_width(D) <= 256)
+        assert cfg.head_size == 32 and fused_encoder_ok(cfg, torch.bfloat16) == (K1.rot_width(D) <= K1.ROT_MAX)
         assert fused_encoder_ok(dataclasses.replace(cfg, hidden_size=128, num_attention_heads=4), torch.bfloat16)
 
 
@@ -682,6 +716,169 @@ def test_model_attention_dispatch_on_the_card(impl, heads, launched):
     assert (_build.LAUNCHES["asr_rel_attention_train_fwd"] == 1) == launched
 
 
+# ---- q_rot past 256 columns (the k_std chunk ring) and the CSGU conv past 768
+# channels (128-channel slices behind a row-statistics pass): the 512-wide
+# config's shapes (head 64, q_rot 512, CSGU 1,024 channels), other widths of
+# the same paths, and the widths of the paths before them at 256 / 768.
+
+
+@pytest.mark.parametrize("B,T,H,DH,D,lens", [(2, 250, 8, 64, 512, [250, 0]), (3, 752, 8, 64, 512, [700, 1, 440]),
+                                             (8, 256, 8, 64, 512, [250, 250, 200, 1, 0, 64, 65, 128]),
+                                             (2, 192, 4, 32, 320, [187, 0]), (2, 250, 8, 64, 256, [250, 3]),
+                                             (2, 250, 8, 32, 256, [250, 3])])
+def test_layer_rel_attention_past_256_columns(B, T, H, DH, D, lens):
+    """The fused layer's attention at the 512-wide config's widths (and 320
+    at head width 32) on column views of one (B*T, 3 * H * DH) buffer, key
+    loops past one tile, lengths 0 and 1; 256 keeps the stage path."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(T + D)
+    mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
+    qkv, q_rot, k_std = mk(B * T, 3 * H * DH), mk(B, T, H, D) * 0.25, mk(T, D)
+    q_u, k, v = (qkv[:, i * H * DH:(i + 1) * H * DH].view(B, T, H, DH) for i in range(3))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    _build.reset_launch_counts()
+    got = K1.rel_attention(q_u, k, v, q_rot, k_std, lengths)
+    assert _build.LAUNCHES["asr_rel_attention"] == 1 and got.shape == (B, T, H, DH)
+    _close(got, K1.rel_attention_plain(q_u, k, v, q_rot, k_std, lengths), 2 ** -6)
+
+
+WIDE_CASES = [(32, 250, 8, 64, 512, None), (3, 333, 8, 64, 512, [1, 333, 0]), (3, 70, 4, 64, 448, [70, 33, 0]),
+              (2, 129, 4, 32, 320, [129, 1]), (3, 250, 8, 64, 256, [250, 1, 167]), (3, 250, 8, 32, 256, [250, 1, 167])]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,T,H,DH,D,lens", WIDE_CASES)
+def test_train_attention_past_288_columns(B, T, H, DH, D, lens, rate):
+    """K4 forward and backward in bf16 where the dq kernel's [dq_u | dq_rot]
+    passes its registers (dh + D > 288: dS written, dq_rot by the GEMM) and
+    past 256 columns of q_rot (the chunk ring): the 512-wide config's step
+    (B=32, T=250, head 64, q_rot 512), lengths 0 and 1, widths 320 and 448;
+    (32, 256) keeps the register path. Tolerances as at 256."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(T + D + DH)
+    mk = lambda *s: torch.randn(*s, generator=g).bfloat16().to(dev)  # noqa: E731
+    q_u, q_rot, k, v, k_std, cot = mk(B, T, H, DH), mk(B, T, H, D) * 0.25, mk(B, T, H, DH), mk(B, T, H, DH), \
+        mk(T, D), mk(B, T, H, DH)
+    lens = lens or [T - (7 * b) % 40 for b in range(B)]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q_u, q_rot, k, v)]
+        out = fn(*leaves, k_std, lengths, 77, rate)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, cot))
+
+    _build.reset_launch_counts()
+    got = run(rel_attention_train)
+    wide = DH + D > 288
+    assert _build.LAUNCHES["asr_rel_attention_train_fwd"] == 1
+    assert _build.LAUNCHES["asr_rel_attention_train_bwd"] == 1
+    assert _build.LAUNCHES["asr_gemm_bf16"] == int(wide)
+    for name, gt, r in zip(("out", "dq_u", "dq_rot", "dk", "dv"), got, run(rel_attention_train_plain)):
+        assert gt.dtype == torch.bfloat16 and gt.shape == r.shape, name
+        _close(gt, r, ATT_TOL[torch.bfloat16])
+    # keys past every row's visited keys get exact zeros
+    for b, n in enumerate(lens):
+        if 0 < n < T:
+            assert not bool(got[3][b, n:].any()) and not bool(got[4][b, n:].any())
+
+
+@pytest.mark.parametrize("t_valid", ["ragged", 1, "T", 0])
+@pytest.mark.parametrize("B,T", [(1, 56), (8, 256), (128, 256), (3, 70)])
+@pytest.mark.parametrize("C", [1024, 896, 768])
+def test_dwconv_csgu_past_768_channels(C, B, T, t_valid):
+    """The CSGU conv of the 512-wide config (C = 1,024, K = 31) in 128-channel
+    slices behind the row-statistics pass, at t_valid 0, 1, ragged and T, both
+    tilings; 896 is the other width of the sliced path, 768 the widest of the
+    whole-row tiles. Also as a row view."""
+    dev = _cuda()
+    tv = {"ragged": T - 5, "T": T}.get(t_valid, t_valid)
+    args = _dw_inputs(dev, 0, B, T, C, 31, seed=C + B + T, lead=64 if B == 3 else 0)
+    _build.reset_launch_counts()
+    got, ref = _dw_both(0, *args, B, T, tv, act="identity")
+    assert sum(_build.LAUNCHES.values()) == 1
+    _close(got, ref, 2 ** -7)
+    if B == 8:
+        _close(*_dw_both(0, *args, B, T, tv, act="swish"), 2 ** -7)
+
+
+@pytest.mark.parametrize("t_valid", ["ragged", 1, "T", 0])
+@pytest.mark.parametrize("B,T", [(1, 56), (8, 256), (128, 256), (3, 70)])
+def test_dwconv_merge_at_1024_channels(B, T, t_valid):
+    """The merge conv of the 512-wide config (2D = 1,024 channels, K = 31) at
+    t_valid 0, 1, ragged and T, both tilings; at (3, 70) as a row view."""
+    dev = _cuda()
+    tv = {"ragged": T - 5, "T": T}.get(t_valid, t_valid)
+    args = _dw_inputs(dev, 1, B, T, 1024, 31, seed=1024 + B + T, lead=64 if B == 3 else 0)
+    _build.reset_launch_counts()
+    got, ref = _dw_both(1, *args, B, T, tv)
+    assert sum(_build.LAUNCHES.values()) == 1
+    _close(got, ref, 2 ** -7)
+
+
+WIDE = EBranchformerConfig(
+    hidden_size=512, num_hidden_layers=2, num_attention_heads=8, intermediate_size=2048, conv_dim=(512, 512),
+    vocab_size=50,
+)
+
+
+@pytest.fixture(scope="module")
+def wide():
+    model = init_random_(EBranchformerForCTC(WIDE).eval(), torch.Generator().manual_seed(512))
+    return model, FusedCTC(model, "cuda") if torch.cuda.is_available() else None
+
+
+@pytest.mark.parametrize("B,T,t_valid,lens", [(3, 72, 70, [70, 1, 0]), (8, 256, 250, [250, 200, 1, 0, 64, 65, 128, 3])])
+def test_layer_pieces_and_layer_at_512_wide(wide, B, T, t_valid, lens):
+    """Every piece of a 512-wide layer (heads of 64, q_rot 512, I = 2,048) on
+    the fold's operands against its plain version: the LayerNorm, each GEMM,
+    pos_query, the attention, the CSGU conv at 1,024 channels, the merge conv
+    at 1,024, and the whole layer."""
+    dev = _cuda()
+    _, fm = wide
+    w, D, H = fm.layers[0], WIDE.hidden_size, WIDE.num_attention_heads
+    assert (w["wp"].shape[2], K1.rot_width(D)) == (64, 512)
+    g = torch.Generator().manual_seed(B + T)
+    x = torch.randn(B, T, D, generator=g).bfloat16().to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tables = fm.tables(T)
+    M, xf = B * T, x.view(B * T, D)
+    ln = K1.layer_norm(xf, w["ff1_ln_g"], w["ff1_ln_b"], 1e-5)
+    _close(ln, K1.layer_norm_plain(xf, w["ff1_ln_g"], w["ff1_ln_b"], 1e-5), 2 ** -7)
+    h = K1.gemm(ln, w["ff1_wi"], w["ff1_bi"], act="gelu")  # K = 512, N = 2,048
+    _close(h, K1.gemm_plain(ln, w["ff1_wi"], w["ff1_bi"], act="gelu"), 2 ** -6)
+    _close(K1.gemm(h, w["ff1_wo"], w["ff1_bo"], residual=xf, alpha=0.5),  # K = 2,048
+           K1.gemm_plain(h, w["ff1_wo"], w["ff1_bo"], residual=xf, alpha=0.5), 2 ** -6)
+    qkv, q_v = K1.gemm(ln, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])  # N = 1,536
+    ref_qkv, ref_q_v = K1.gemm_plain(ln, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
+    _close(qkv, ref_qkv, 2 ** -6)
+    _close(q_v, ref_q_v, 2 ** -6)
+    q_rot = K1.pos_query(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"], T)
+    _close(q_rot, K1.pos_query_plain(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"], T), 2 ** -7)
+    hv = lambda i: qkv[:, i * D:(i + 1) * D].view(B, T, H, 64)  # noqa: E731
+    args = (hv(0), hv(1), hv(2), q_rot.view(B, T, H, D), tables["k_std"], lengths)
+    attn = K1.rel_attention(*args)
+    _close(attn, K1.rel_attention_plain(*args), 2 ** -6)
+    l = K1.gemm(ln, w["cg_w1"], w["cg_b1"], act="gelu")  # N = 2,048
+    _close(l, K1.gemm_plain(ln, w["cg_w1"], w["cg_b1"], act="gelu"), 2 ** -6)
+    cargs = (w["csgu_ln_g"], w["csgu_ln_b"], w["csgu_dw"], w["csgu_dw_b"], B, T, t_valid, WIDE.csgu_activation, 1e-5)
+    gated = K1.csgu(l, *cargs)
+    _close(gated, K1.csgu_plain(l, *cargs), 2 ** -7)
+    # the out projection and cg_w2 (K = 1,024) into the two halves of `merged`
+    merged = torch.full((M + 8, 2 * D), 7.0, dtype=torch.bfloat16, device=dev)
+    K1.gemm(attn.view(M, D), w["wo"], w["bo"], out=merged[:M, :D])
+    K1.gemm(gated, w["cg_w2"], w["cg_b2"], out=merged[:M, D:])
+    assert bool((merged[M:] == 7.0).all())
+    _close(merged[:M, :D], K1.gemm_plain(attn.view(M, D), w["wo"], w["bo"]), 2 ** -6)
+    _close(merged[:M, D:], K1.gemm_plain(gated, w["cg_w2"], w["cg_b2"]), 2 ** -6)
+    margs = (w["merge_dw"], w["merge_dw_b"], B, T, t_valid)
+    mixed = K1.merge_conv(merged[:M], *margs)  # 1,024 channels
+    _close(mixed, K1.merge_conv_plain(merged[:M], *margs), 2 ** -7)
+    _close(K1.gemm(mixed, w["merge_w"], w["merge_b"], residual=xf, alpha=1.0),  # K = 1,024
+           K1.gemm_plain(mixed, w["merge_w"], w["merge_b"], residual=xf, alpha=1.0), 2 ** -6)
+    _close(K1.ebranchformer_layer(x, lengths, w, WIDE, t_valid, tables),
+           K1.ebranchformer_layer_plain(x, lengths, w, WIDE, t_valid, tables), 0.05)
+
+
 def test_attention_wrappers_raise_on_what_the_kernels_do_not_take():
     dev = _cuda()
     z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16, device=dev)  # noqa: E731
@@ -689,9 +886,12 @@ def test_attention_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):  # a head past 64 columns (16 and 44 are padded)
         rel_attention_train(z(1, 8, 2, 96), z(1, 8, 2, 64), z(1, 8, 2, 96), z(1, 8, 2, 96), z(8, 64),
                             lengths, 0, 0.0)
-    with pytest.raises(ValueError):  # q_rot past 256 columns (48 is padded to 64)
-        rel_attention_train(z(1, 8, 2, 32), z(1, 8, 2, 320), z(1, 8, 2, 32), z(1, 8, 2, 32), z(8, 320),
+    with pytest.raises(ValueError):  # q_rot past 512 columns (48 is padded to 64)
+        rel_attention_train(z(1, 8, 2, 32), z(1, 8, 2, 576), z(1, 8, 2, 32), z(1, 8, 2, 32), z(8, 576),
                             lengths, 0, 0.0)
+    with pytest.raises(ValueError):  # fp32 q_rot past 256 columns
+        rel_attention_train(z(1, 8, 2, 32).float(), z(1, 8, 2, 320).float(), z(1, 8, 2, 32).float(),
+                            z(1, 8, 2, 32).float(), z(8, 320).float(), lengths, 0, 0.0)
     with pytest.raises(ValueError):  # the shift form: a head past 64 columns
         rel_attention(z(1, 8, 2, 96), z(1, 8, 2, 96), z(1, 8, 2, 96), z(1, 8, 2, 96), z(15, 2, 96), lengths)
     with pytest.raises(ValueError):  # lengths on the CPU
@@ -746,7 +946,8 @@ def test_port_modules_import_nothing_of_jax():
         "import huggingface_asr_tpu_torch.data.collator, huggingface_asr_tpu_torch.data.prefetch\n"
         "import huggingface_asr_tpu_torch.utils.metrics, huggingface_asr_tpu_torch.utils.logging_utils\n"
         "import huggingface_asr_tpu_torch.utils.device, huggingface_asr_tpu_torch.interop.from_jax\n"
-        "import huggingface_asr_tpu_torch.serving.pipeline\n"
+        "import huggingface_asr_tpu_torch.serving.pipeline, huggingface_asr_tpu_torch.cli.pretrain\n"
+        "import huggingface_asr_tpu_torch.models.bestrq, huggingface_asr_tpu_torch.ops.masking\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'huggingface_asr_tpu'))\n"
         "assert not bad, bad\nprint('ok')\n" % repo

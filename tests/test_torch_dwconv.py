@@ -104,7 +104,7 @@ T_VALIDS = [1, T - 5, T]
 
 
 @pytest.mark.parametrize("t_valid", T_VALIDS)
-@pytest.mark.parametrize("C", [64, 512])
+@pytest.mark.parametrize("C", [64, 512, 1024])
 @pytest.mark.parametrize("K", [3, 7, 31, 33])
 def test_merge_plain_is_bit_equal_to_jax(K, C, t_valid):
     x, w, bias, _, _ = _inputs(K + C + t_valid, C, K, 1)
@@ -114,7 +114,7 @@ def test_merge_plain_is_bit_equal_to_jax(K, C, t_valid):
 
 
 @pytest.mark.parametrize("t_valid", T_VALIDS)
-@pytest.mark.parametrize("C", [64, 512])
+@pytest.mark.parametrize("C", [64, 512, 1024])
 @pytest.mark.parametrize("K", [3, 7, 31, 33])
 def test_csgu_plain_matches_jax(K, C, t_valid):
     l, w, bias, ln_g, ln_b = _inputs(K + C + t_valid, C, K, 2)
@@ -170,9 +170,12 @@ def _contract_case(name):
     elif name == "C % 8":
         x, w, bias, ln_g, ln_b = (torch.zeros(B * T, 120, dtype=torch.bfloat16), torch.zeros(K, 60, dtype=torch.bfloat16),
                                   torch.zeros(60), torch.ones(60), torch.zeros(60))
-    elif name == "C > 768":
+    elif name == "C > 768":  # past 768 CSGU runs 128-channel slices: 776 is no whole number of them
         x, w, bias, ln_g, ln_b = (torch.zeros(B * T, 1552, dtype=torch.bfloat16), torch.zeros(K, 776, dtype=torch.bfloat16),
                                   torch.zeros(776), torch.ones(776), torch.zeros(776))
+    elif name == "csgu C > 1024":
+        x, w, bias, ln_g, ln_b = (torch.zeros(B * T, 2304, dtype=torch.bfloat16), torch.zeros(K, 1152, dtype=torch.bfloat16),
+                                  torch.zeros(1152), torch.ones(1152), torch.zeros(1152))
     elif name == "merge C > 1024":
         x, w, bias = (torch.zeros(B * T, 1032, dtype=torch.bfloat16), torch.zeros(K, 1032, dtype=torch.bfloat16),
                       torch.zeros(1032))
@@ -205,7 +208,7 @@ def _contract_case(name):
     return mode, x, w, bias, t_valid, ln_g, ln_b
 
 
-REFUSED = ["even K", "K > 33", "C % 8", "C > 768", "merge C > 1024", "x fp32", "x rows", "x odd width", "x row stride",
+REFUSED = ["even K", "K > 33", "C % 8", "C > 768", "csgu C > 1024", "merge C > 1024", "x fp32", "x rows", "x odd width", "x row stride",
            "x base", "x column stride", "w fp32", "w shape", "bias bf16", "ln_g shape", "ln_b bf16",
            "negative t_valid", "merge x width"]
 
@@ -235,8 +238,7 @@ REFUSAL = {
     "decred_base.json": None,
     "decred_small.json": None,
     "ebranchformer_30m_ssl.json": None,
-    "ebranchformer_90m_ssl.json": "hidden_size 512 (the attention kernels hold q_rot rows of at most 256 columns "
-                                  "in shared memory; wider ones need q_rot streamed in chunks, which is not built)",
+    "ebranchformer_90m_ssl.json": None,
     "ebranchformer_base_ctc.json": None,
     "ebranchformer_small_ctc.json": None,
     "ed_base.json": None,

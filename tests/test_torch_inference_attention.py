@@ -47,10 +47,10 @@ def test_fused_gate_accepts_the_flagship_config():
     assert fused_encoder_ok(EBranchformerConfig(**FLAGSHIP), torch.bfloat16)
 
 
-@pytest.mark.parametrize("hidden,heads", [(288, 9), (320, 10), (384, 12), (512, 16), (1024, 32)])
+@pytest.mark.parametrize("hidden,heads", [(544, 17), (576, 18), (640, 20), (768, 24), (1024, 32)])
 def test_fused_gate_refuses_widths_the_attention_kernel_does_not_take(hidden, heads):
     """Head size 32, but the q_rot width, padded to whole 64-column chunks, is
-    past 256. (Widths up to 256 that are no multiple of 64 are taken: the fold
+    past 512. (Widths up to 512 that are no multiple of 64 are taken: the fold
     pads them.)"""
     cfg = EBranchformerConfig(**{**FLAGSHIP, "hidden_size": hidden, "num_attention_heads": heads})
     assert cfg.head_size == 32
@@ -58,7 +58,8 @@ def test_fused_gate_refuses_widths_the_attention_kernel_does_not_take(hidden, he
     assert not fused_encoder_ok(cfg, torch.bfloat16)
 
 
-@pytest.mark.parametrize("hidden,heads", [(64, 2), (128, 4), (192, 6), (256, 8), (96, 3), (160, 5), (32, 1)])
+@pytest.mark.parametrize("hidden,heads", [(64, 2), (128, 4), (192, 6), (256, 8), (96, 3), (160, 5), (32, 1),
+                                          (288, 9), (320, 10), (384, 12), (512, 16)])
 def test_fused_gate_accepts_every_width_the_attention_kernel_takes(hidden, heads):
     cfg = EBranchformerConfig(**{**FLAGSHIP, "hidden_size": hidden, "num_attention_heads": heads})
     assert K1.rel_attention_width_ok(K1.rot_width(hidden)) and fused_encoder_ok(cfg, torch.bfloat16)
@@ -69,8 +70,9 @@ def test_shipped_configs_with_head_size_32_pass_the_width_gate(path):
     with open(path) as f:
         cfg = EBranchformerConfig.from_dict(json.load(f))
     # every shipped config with head size 32 is 256 wide and stays on the fused
-    # path; so do the 176-wide ones (head size 44, padded); the 512-wide one does not
-    assert fused_encoder_ok(cfg, torch.bfloat16) == (cfg.hidden_size <= 256)
+    # path; so do the 176-wide ones (head size 44, padded) and the 512-wide one
+    # (head size 64, q_rot 512)
+    assert fused_encoder_ok(cfg, torch.bfloat16)
     if cfg.head_size == 32:
         assert cfg.hidden_size == 256 and K1.rel_attention_width_ok(cfg.hidden_size)
 

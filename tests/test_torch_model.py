@@ -117,7 +117,7 @@ def test_fused_gate(models):
     assert not fused_encoder_ok(pcfg, torch.float32)
     # a front end the subsampler kernel does not take runs as the model's own
     # modules, and a head under 32 columns is padded to the kernels' width
-    for change in ({"hidden_size": 320, "num_attention_heads": 10}, {"num_attention_heads": 1},
+    for change in ({"hidden_size": 576, "num_attention_heads": 18}, {"num_attention_heads": 1},
                    {"position_embeddings_type": "rotary"}, {"use_macaron_ff": False},
                    {"csgu_use_linear_after_conv": True}):
         assert not fused_encoder_ok(dataclasses.replace(pcfg, **change), torch.bfloat16), change

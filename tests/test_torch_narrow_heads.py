@@ -318,11 +318,15 @@ def test_176_wide_configs_take_the_fused_path(name):
     assert padded_widths(cfg.head_size, cfg.hidden_size, torch.bfloat16) == (HW, D_ROT)
 
 
-def test_512_wide_config_names_what_is_missing():
+def test_512_wide_config_is_admitted():
+    """The 512-wide config (head size 64, q_rot 512, CSGU 1,024 channels) takes
+    the fused path and K4 in training, unpadded."""
     with open(os.path.join(REPO, "configs", "ebranchformer_90m_ssl.json")) as f:
         cfg = EBranchformerConfig.from_dict(json.load(f))
-    reason = fused_encoder_refusal(cfg, torch.bfloat16)
-    assert reason is not None and "q_rot streamed in chunks" in reason and "512" in reason
+    assert fused_encoder_refusal(cfg, torch.bfloat16) is None
+    assert fused_encoder_refusal(cfg, torch.bfloat16, log_mel=True) is None
+    assert padded_widths(64, 512, torch.bfloat16) == (64, 512)
+    assert padded_widths(cfg.head_size, cfg.hidden_size, torch.bfloat16) == (64, 512)
 
 
 def test_fused_ctc_keeps_the_front_end_only_where_k2_does_not_fit(models):

@@ -51,8 +51,9 @@ def make_models(seed=0, **overrides):
     jcfg, pcfg = JConfig(**kw), EBranchformerConfig(**kw)
     jmodel = JModel(jcfg, dtype=jnp.float32)
     x = jnp.zeros((1, 64, jcfg.num_fbanks), jnp.float32)
-    params = jmodel.init(jax.random.key(0), x, jnp.asarray([64], jnp.int32))["params"]
-    tree = randomize(jax.tree.map(np.asarray, params), np.random.default_rng(seed))
+    # only the tree's shapes are used: the values are drawn by ``randomize``
+    params = jax.eval_shape(lambda: jmodel.init(jax.random.key(0), x, jnp.asarray([64], jnp.int32)))["params"]
+    tree = randomize(params, np.random.default_rng(seed))
     pmodel = EBranchformerForCTC(pcfg)
     pmodel.load_state_dict(state_dict_from_flax(tree, pcfg), strict=True)
     return jcfg, pcfg, tree, jmodel, pmodel.eval()
