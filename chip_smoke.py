@@ -138,12 +138,28 @@
    applied (K4 forward and backward and the backward's dq_rot GEMM 17 times a
    step), one evaluation batch (K5 17 times), final/ written, and step 1
    again with the plain attention within 1e-4 of its loss.
+14. right after step 11, trains that joint model (configs/decred_base.json at
+   full width, vocabulary 500) from the Flax-matching initialiser through
+   ``cli/train_aed.py::run`` (in-memory corpus rows of seeded synthetic speech
+   and seeded label rows, a stand-in tokenizer): 6 steps at B=32 x 9.3-10 s,
+   bf16 over fp32 weights, attention_impl "pallas" (config override), no
+   SpecAugment (caveat (b)); every step applied with 16 K4 forward and 16 K4
+   backward launches; one evaluation step (16 K5 launches); ``final/``; the
+   final joint decode of an 8-utterance test split (5 beams, ctc_weight 0.3,
+   max_length 32) on K2 + K1 with n-best lists written; step 1 again with the
+   plain attention, loss within 1e-4 and gradient norm within 1e-3; then three
+   ``cli/train_clm.py::run`` steps of a 6 x 256 LM on seeded text, and
+   ``cli/evaluate.py::run --model_type aed --lm_model`` at lm_weight 0.3 on the
+   trained model (the LM's score component non-zero, K1/K2 launched). It
+   prints each step's losses, time, launches and the peak memory beside the
+   card's name and power limit.
 
 Beside each kernel's time it prints the plain version's, the least time the
 card could take (the larger of bytes / 3.35 TB/s and operations / the peak
 rate of their type) and, where one PyTorch call computes the same function,
 that call's time. It prints one JSON line with every kernel's launches
-(and ``cli_launches``, its launches in step 12), error, times and bound, then
+(and ``cli_launches``, its launches in step 12, and ``aed_train_launches``,
+those of step 14's ``train_aed`` run), error, times and bound, then
 the result line {"ok": true, "device": {...}}
 last. It exits non-zero without a result line when CUDA is missing or any
 phase fails.
@@ -624,6 +640,197 @@ def aed_phase(dev, rng, smi) -> dict:
     print(f"  AED request with a 2 x 256 LM at lm_weight 0.3: {lm_ms:.1f} ms (after one warm-up); best "
           f"hypotheses changed by the LM in {int((lm_seqs[:, 0] != seqs[:, 0]).any(-1).sum())}/{B}", flush=True)
     return launches
+
+
+def aed_train_phase(dev, smi) -> dict:
+    """Joint CTC/attention training and the shallow-fusion LM on the card
+    (step 14 of the module's docstring), through ``train_aed.run``,
+    ``train_clm.run`` and ``evaluate.run`` with in-memory corpus rows and
+    stand-in tokenizers. Returns the kernel launches of the ``train_aed`` run,
+    by counter."""
+    import torch
+
+    from huggingface_asr_tpu_torch.cli import evaluate, train_aed, train_clm
+    from huggingface_asr_tpu_torch.cli.common import tokenizer_ids
+    from huggingface_asr_tpu_torch.data.datasets import ColumnTable, DataConfig
+    from huggingface_asr_tpu_torch.kernels import _build
+    from huggingface_asr_tpu_torch.kernels.train_attention import rel_attention_train, rel_attention_train_plain
+    from huggingface_asr_tpu_torch.models import ebranchformer as model_module
+    from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
+    from huggingface_asr_tpu_torch.training.arguments import (
+        GeneralTrainingArguments,
+        GenerationArguments,
+        ModelArguments,
+    )
+    from huggingface_asr_tpu_torch.training.loop import JointTrainer
+    from huggingface_asr_tpu_torch.training.model_factory import load_aed_model
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_aed_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(14)
+    tok = IdTokenizer(AED_VOCAB, specials=(0, 1, 2, 3))
+
+    def split(n):
+        audio = [speech(rng.uniform(9.3, 10.0), rng) for _ in range(n)]
+        labels = [rng.integers(4, AED_VOCAB, rng.integers(20, 41)).tolist() for _ in range(n)]
+        return ColumnTable({"audio": audio, "labels": labels, "text": [tok.decode(x) for x in labels],
+                            "input_len": [len(a) / 16000 for a in audio]})
+
+    data = {"train": split(64), "validation": split(32), "test": split(8)}
+    n_layers = config_file(AED_CONFIG).num_hidden_layers
+    print(f"-- AED training (cli/train_aed.run): configs/{AED_CONFIG} at full width, vocabulary {AED_VOCAB}, "
+          f"B=32 x 9.3-10 s, bf16 over fp32 weights, attention_impl 'pallas' (K4 in the steps, K5 in the "
+          f"evaluation), the Flax-matching initialiser, --no-apply_spec_augment", flush=True)
+    model_args = ModelArguments(model_config=os.path.join(ROOT, "configs", AED_CONFIG), device="cuda",
+                                dtype="bfloat16", config_overrides="encoder_attention_impl=pallas")
+    training = GeneralTrainingArguments(output_dir=os.path.join(work, "aed"), per_device_train_batch_size=32,
+                                        per_device_eval_batch_size=32, max_steps=6, logging_steps=1, eval_steps=6,
+                                        save_steps=10 ** 9, warmup_steps=2, learning_rate=2e-4, seed=5,
+                                        apply_spec_augment=False)
+    gen = GenerationArguments(num_beams=5, ctc_weight=0.3, max_length=32, save_nbest=True)
+    steps_seen = []
+    real_step = JointTrainer.train_step
+
+    def watched_step(self, state, batch):
+        before = dict(_build.LAUNCHES)
+        t_ = time.perf_counter()
+        state, m = real_step(self, state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_) * 1e3
+        step_launches = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items() if v != before.get(k, 0)}
+        steps_seen.append((dict(batch), {k: float(v) for k, v in m.items()}, ms, step_launches,
+                           torch.cuda.max_memory_allocated() / 2 ** 30))
+        return state, m
+
+    JointTrainer.train_step = watched_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        results = train_aed.run(model_args, training, gen, DataConfig(), data, tok)
+    finally:
+        JointTrainer.train_step = real_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_launches = dict(_build.LAUNCHES)
+    for i, (_, m, ms, sl, peak) in enumerate(steps_seen):
+        print(f"  step {i + 1}: loss={m['loss']:.4f} enc_loss={m['enc_loss']:.4f} dec_loss={m['dec_loss']:.4f} "
+              f"grad_norm={m['grad_norm']:.3f} applied={int(m['step_applied'])} {ms:.1f} ms (host clock, "
+              f"synchronized); launches {sl}", flush=True)
+    step_ms = [ms for _, _, ms, _, _ in steps_seen]
+    with open(os.path.join(training.output_dir, "metrics.jsonl")) as f:
+        evals = [r for r in map(json.loads, f) if "eval/loss" in r]
+    print(f"  train_aed: {len(steps_seen)} steps, step ms median {float(np.median(step_ms)):.1f} (steps 2-6: "
+          f"{[round(x, 1) for x in step_ms[1:]]}), peak memory {max(p for *_, p in steps_seen):.2f} GiB; the run "
+          f"(steps, evaluation, final/, joint decode of the test split) {wall:.1f} s; evaluation "
+          f"{[{k: round(v, 4) for k, v in r.items() if k.startswith('eval/')} for r in evals]}; {smi}", flush=True)
+    print(f"  train_aed run launches: {run_launches}", flush=True)
+    if len(steps_seen) != 6 or not all(np.isfinite(m["loss"]) for _, m, *_ in steps_seen):
+        _fail(f"train_aed: {len(steps_seen)} of 6 steps, or a loss is not finite")
+    if not all(int(m["step_applied"]) == 1 for _, m, *_ in steps_seen):
+        _fail("train_aed: the guard rejected a step")
+    for i, (_, _, _, sl, _) in enumerate(steps_seen):
+        for k in ("asr_rel_attention_train_fwd", "asr_rel_attention_train_bwd"):
+            if sl.get(k, 0) != n_layers:
+                _fail(f"train_aed step {i + 1}: {sl.get(k, 0)} launches of {k}, want {n_layers}")
+    if len(evals) != 1 or run_launches.get("asr_rel_attention_shift", 0) != n_layers:
+        _fail(f"train_aed: {len(evals)} evaluations, {run_launches.get('asr_rel_attention_shift', 0)} K5 launches "
+              f"(want one evaluation step, {n_layers})")
+    if any(run_launches.get(k, 0) <= 0 for k in ("asr_conv1", "asr_conv2", "asr_rel_attention")):
+        _fail(f"train_aed: the final joint decode did not take the kernel route: {run_launches}")
+    names = ("predictions_test.csv", "nbest_hyps.txt", "nbest_scores.txt", "nbest_att_scores.txt",
+             "nbest_ctc_scores.txt", "nbest_lm_scores.txt")
+    if "test" not in results or any(not os.path.exists(os.path.join(training.output_dir, n)) for n in names):
+        _fail(f"train_aed: no test-split result or not all of {names} written")
+    with open(os.path.join(training.output_dir, "nbest_hyps.txt")) as f:
+        n_nbest = len(f.readlines())
+    final = os.path.join(training.output_dir, "final")
+    load_aed_model(final, dev, torch.bfloat16)  # strict
+    print(f"  final joint decode (5 beams, ctc_weight 0.3, max_length 32): {results['test'].num_examples} test "
+          f"utterances in {1e3 * results['test'].wall_time:.1f} ms, {n_nbest} n-best entries written", flush=True)
+
+    # step 1 again from the same initial weights, streams and batch, with the plain attention
+    twin_model = train_aed.build_model(model_args, train_aed.build_model_config(model_args, tokenizer_ids(tok)),
+                                       training.seed)
+    twin = JointTrainer(twin_model, train_aed.build_trainer_config(training), device="cuda", dtype="bfloat16",
+                        frontend=LogMelFrontEnd(LogMelConfig(num_mel_bins=twin_model.config.encoder.num_fbanks)))
+    model_module.rel_attention_train = rel_attention_train_plain
+    try:
+        before = dict(_build.LAUNCHES)
+        _, m_plain = twin.train_step(twin.init_state(), steps_seen[0][0])
+        if any(k.startswith("asr_rel_attention") and v != before.get(k, 0) for k, v in _build.LAUNCHES.items()):
+            _fail("the plain-attention AED step launched an attention kernel")
+    finally:
+        model_module.rel_attention_train = rel_attention_train
+    m1 = steps_seen[0][1]
+    d_loss = abs(m1["loss"] - float(m_plain["loss"])) / abs(float(m_plain["loss"]))
+    d_norm = abs(m1["grad_norm"] - float(m_plain["grad_norm"])) / float(m_plain["grad_norm"])
+    print(f"  AED step 1, kernels vs plain attention: loss {m1['loss']:.6f} vs {float(m_plain['loss']):.6f} (rel "
+          f"{d_loss:.2e}, tol 1e-4); grad norm {m1['grad_norm']:.4f} vs {float(m_plain['grad_norm']):.4f} (rel "
+          f"{d_norm:.2e}, tol 1e-3)", flush=True)
+    if d_loss > 1e-4 or d_norm > 1e-3:
+        _fail("AED step 1 with the attention kernels disagrees with the plain-attention step")
+    del twin
+    torch.cuda.empty_cache()
+
+    # ---- train_clm: three steps of a 6 x 256 LM on seeded text
+    letters = np.array(list(IdTokenizer.CHARS))
+    texts = ["".join(rng.choice(letters, rng.integers(20, 60))) for _ in range(400)]
+    clm_training = GeneralTrainingArguments(output_dir=os.path.join(work, "clm"), per_device_train_batch_size=16,
+                                            per_device_eval_batch_size=16, max_steps=3, logging_steps=1,
+                                            eval_steps=10 ** 9, save_steps=10 ** 9, warmup_steps=1,
+                                            learning_rate=1e-3, seed=5)
+    clm_args = train_clm.CLMArguments(block_size=128)
+    clm_steps = []
+    real_clm_step = train_clm.CLMTrainer.train_step
+
+    def watched_clm_step(self, state, batch):
+        t_ = time.perf_counter()
+        state, m = real_clm_step(self, state, batch)
+        torch.cuda.synchronize()
+        clm_steps.append(({k: float(v) for k, v in m.items()}, (time.perf_counter() - t_) * 1e3))
+        return state, m
+
+    train_clm.CLMTrainer.train_step = watched_clm_step
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        clm_eval = train_clm.run(ModelArguments(device="cuda"), clm_training, clm_args, texts, texts[:40],
+                                 IdTokenizer(AED_VOCAB))
+    finally:
+        train_clm.CLMTrainer.train_step = real_clm_step
+    clm_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, (m, ms) in enumerate(clm_steps):
+        print(f"  train_clm step {i + 1}: loss={m['loss']:.4f} ppl={m['ppl']:.1f} applied={int(m['step_applied'])} "
+              f"{ms:.1f} ms", flush=True)
+    print(f"  train_clm (6 x 256, B=16 x 128 tokens, fp32): step ms median "
+          f"{float(np.median([ms for _, ms in clm_steps])):.1f}, peak memory {clm_peak:.2f} GiB; final evaluation "
+          f"{clm_eval}; {smi}", flush=True)
+    if len(clm_steps) != 3 or not all(np.isfinite(m["loss"]) and int(m["step_applied"]) == 1 for m, _ in clm_steps) \
+            or not clm_eval or not os.path.exists(os.path.join(clm_training.output_dir, "final", "config.json")):
+        _fail(f"train_clm: {len(clm_steps)} of 3 steps, a loss not finite or a step rejected, or no final/")
+
+    # ---- evaluate --model_type aed --lm_model on the trained model at lm_weight 0.3
+    ev_out = os.path.join(work, "eval_lm")
+    ev_gen = GenerationArguments(num_beams=5, ctc_weight=0.3, max_length=32, save_nbest=True,
+                                 lm_model=os.path.join(clm_training.output_dir, "final"), lm_weight=0.3)
+    _build.reset_launch_counts()
+    res = evaluate.run(evaluate.EvalArguments(output_dir=ev_out, batch_size=8, model_type="aed"),
+                       ModelArguments(from_pretrained=final), ev_gen, DataConfig(), {"test": data["test"]}, tok)
+    torch.cuda.synchronize()
+    with open(os.path.join(ev_out, "nbest_lm_scores.txt")) as f:
+        lm_scores = [float(line.split()[1]) for line in f]
+    print(f"  evaluate --model_type aed --lm_model (6 x 256 LM, lm_weight 0.3): {res['test'].num_examples} "
+          f"utterances in {1e3 * res['test'].wall_time:.1f} ms; LM score components {min(lm_scores):.3f} .. "
+          f"{max(lm_scores):.3f}; launches {dict(_build.LAUNCHES)}", flush=True)
+    if len(lm_scores) != 8 * 5 or not all(np.isfinite(s) and s < 0.0 for s in lm_scores):
+        _fail("evaluate --lm_model: the LM's score components are missing, zero or not finite")
+    if any(_build.LAUNCHES.get(k, 0) <= 0 for k in ("asr_conv1", "asr_conv2", "asr_rel_attention")):
+        _fail(f"evaluate --lm_model did not take the kernel route: {dict(_build.LAUNCHES)}")
+    print(f"AED training phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return run_launches
 
 
 class IdTokenizer:
@@ -2397,6 +2604,7 @@ def main() -> None:
     print(f"512-wide phase: {time.perf_counter() - wide_t0:.1f} s", flush=True)
 
     aed_launches = aed_phase(dev, rng, smi)
+    aed_train_launches = aed_train_phase(dev, smi)
     cli_launches = cli_phase(dev, smi)
 
     if failures:
@@ -2454,6 +2662,7 @@ def main() -> None:
                 "name": name, "route": "cuda", "source": f"huggingface_asr_tpu_torch/{src}",
                 "replaces": replaces, "launches": counts[counter], **results[name],
                 "cli_launches": cli_launches.get(counter, 0),
+                "aed_train_launches": aed_train_launches.get(counter, 0),
             })
     print(f"AED path launches a request (K2 and K1): {aed_launches}")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,6 @@
 """What the command-line entry points share (counterpart of
 ``huggingface_asr_tpu/cli/common.py``; its ``setup_compile_cache`` is the
-XLA compile cache and has no counterpart, and ``load_fusion_lm`` comes with
-``train_clm``).
+XLA compile cache and has no counterpart).
 
 ``datasets`` and ``transformers`` are imported inside the loaders only: a
 caller that brings its own dataset mapping and tokenizer needs neither.
@@ -15,9 +14,13 @@ import os
 from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
 
 from huggingface_asr_tpu_torch.data.bucketing import BucketedBatchSampler
 from huggingface_asr_tpu_torch.data.collator import SpeechCollator
+from huggingface_asr_tpu_torch.models.gpt2_decoder import GPT2DecoderConfig, GPT2MultiHeadDecoder
+from huggingface_asr_tpu_torch.training.model_factory import load_config, load_state
+from huggingface_asr_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -52,6 +55,21 @@ def tokenizer_ids(tokenizer) -> Dict[str, int]:
         "unk": tokenizer.unk_token_id,
         "vocab_size": len(tokenizer),
     }
+
+
+def load_fusion_lm(gen_args, device="cuda", dtype: torch.dtype = torch.bfloat16) -> Optional[GPT2MultiHeadDecoder]:
+    """The external shallow-fusion LM named by ``--lm_model`` (reference
+    train_enc_dec_asr.py:61-77, shallow_fussion.py:5-53): a ``final/`` that
+    ``cli/train_clm.py`` wrote (``config.json`` + ``pytorch_model.bin``, a
+    decoder without cross-attention), in the serving layout of ``dtype`` on
+    ``device``, for ``generate_joint``'s ``lm``; None where fusion is off (no
+    ``lm_model``, or ``lm_weight`` 0)."""
+    if not getattr(gen_args, "lm_model", None) or gen_args.lm_weight == 0.0:
+        return None
+    lm = GPT2MultiHeadDecoder(load_config(gen_args.lm_model, GPT2DecoderConfig), dtype)
+    lm.load_state_dict(load_state(gen_args.lm_model), strict=True)
+    logger.info("shallow-fusion LM loaded from %s (weight %.3f)", gen_args.lm_model, gen_args.lm_weight)
+    return lm.to(resolve_device(device)).eval()
 
 
 def dataset_lengths(dataset, length_column: str) -> np.ndarray:

@@ -6,16 +6,17 @@ override strings and per-split CSV/trn outputs (reference:
 src/utilities/general_utils.py:129-228) — for the port's model directories:
 CTC greedy decode for E-Branchformer CTC models (``--model_type ctc``), joint
 CTC/attention beam search for AED models (``--model_type aed``, with
-``--save_nbest``'s ``nbest_*`` files). ``--model_type whisper_ctc|llm_asr``
-raises (ROADMAP.md Queue 1 item 11), and so does ``--lm_model`` (shallow
-fusion's ``load_fusion_lm`` comes with ``train_clm``, Queue 1 item 8).
+``--save_nbest``'s ``nbest_*`` files and ``--lm_model``'s shallow fusion of a
+``cli/train_clm.py`` LM at ``--lm_weight``). ``--model_type
+whisper_ctc|llm_asr`` raises (ROADMAP.md Queue 1 item 11).
 
 ``--fused_encoder`` (the CTC route): "auto" takes the kernel route (the
 log-mel kernel, then ``ctc_infer``: the subsampler and layer kernels, then the
 heads) where the device is a card and ``fused_encoder_refusal(config, dtype,
 log_mel=True)`` is None; "on" requires it and raises with the reason
 otherwise; "off" runs the plain model behind the plain log-mel front end. The
-AED route hands the same choice to ``generate_joint`` ("on" -> True, "off" ->
+AED route (``AedRoute``, which ``cli/train_aed.py``'s final evaluation runs
+too) hands the same choice to ``generate_joint`` ("on" -> True, "off" ->
 False).
 
 ``main(argv)`` parses the arguments and loads the dataset and the tokenizer
@@ -31,13 +32,14 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from huggingface_asr_tpu_torch.cli.common import (
     eval_batches,
+    load_fusion_lm,
     load_tokenizer,
     setup_logging,
     split_references,
@@ -52,6 +54,8 @@ from huggingface_asr_tpu_torch.kernels.mel import MelFrontEnd
 from huggingface_asr_tpu_torch.models.configs import parse_dtype
 from huggingface_asr_tpu_torch.models.ebranchformer import CTCOutput, EBranchformerForCTC
 from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer, fused_encoder_refusal
+from huggingface_asr_tpu_torch.models.gpt2_decoder import GPT2MultiHeadDecoder
+from huggingface_asr_tpu_torch.models.joint_ctc_aed import JointCTCAttentionEncoderDecoder
 from huggingface_asr_tpu_torch.ops.ctc import ctc_greedy_decode, tokens_to_lists
 from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
 from huggingface_asr_tpu_torch.training.arguments import GenerationArguments, ModelArguments, check_supported
@@ -94,6 +98,19 @@ def build_generation_config(gen_args: GenerationArguments, ids) -> BeamSearchCon
     )
 
 
+def evaluation_generation_config(gen_args: GenerationArguments, ids) -> BeamSearchConfig:
+    """The joint search of an evaluation: ``build_generation_config``, then
+    ``--override_for_evaluation``, then the beams multiplied by
+    ``--eval_beam_factor`` (reference do_evaluate, general_utils.py:200-203;
+    the caller divides its batch by the factor)."""
+    gen_cfg = build_generation_config(gen_args, ids)
+    if gen_args.override_for_evaluation:
+        gen_cfg = parse_override_string(gen_args.override_for_evaluation, gen_cfg)
+    if gen_args.eval_beam_factor > 1:
+        gen_cfg = dataclasses.replace(gen_cfg, num_beams=gen_cfg.num_beams * gen_args.eval_beam_factor)
+    return gen_cfg
+
+
 class CTCRoute:
     """The CTC route's front end and encoder, chosen once by
     ``fused_encoder``: ``route(waveforms, lengths)`` -> ``CTCOutput`` (logits
@@ -126,6 +143,62 @@ class CTCRoute:
         if self.fused:
             return ctc_infer(self._encoder, feats, feat_lens)
         return self._model(feats.to(self.dtype), feat_lens)
+
+
+class AedRoute:
+    """The AED route: the plain log-mel front end, then ``generate_joint``
+    with the encoder route chosen once by ``fused_encoder`` (the folded
+    kernel operands kept) and an optional fusion ``lm``.
+    ``route(waveforms, lengths)`` -> the (B, W, L) sequences on the host;
+    with ``save_nbest`` it also keeps every batch's scores and score
+    components for ``write_nbests``."""
+
+    def __init__(self, model: JointCTCAttentionEncoderDecoder, gen_cfg: BeamSearchConfig, fused_encoder: str,
+                 device: torch.device, lm: Optional[GPT2MultiHeadDecoder] = None, save_nbest: bool = False):
+        if fused_encoder not in FUSED_CHOICES:
+            raise ValueError(f"--fused_encoder {fused_encoder!r}: auto, on or off")
+        use_fused = FUSED_CHOICES[fused_encoder]
+        refusal = fused_encoder_refusal(model.config.encoder, model.dtype)
+        if use_fused is True and refusal is not None:
+            raise ValueError(f"--fused_encoder on, but the kernel path does not take this encoder: {refusal}")
+        if use_fused == "auto":
+            use_fused = device.type == "cuda" and refusal is None
+        self.use_fused = use_fused
+        self.fused = FusedCTC(model.encoder, device) if use_fused else None  # folded once, not per batch
+        self.model, self.lm = model, lm
+        self.frontend = LogMelFrontEnd(LogMelConfig(num_mel_bins=model.config.encoder.num_fbanks))
+        self.gen_cfg = dataclasses.replace(gen_cfg, return_components=True) if save_nbest else gen_cfg
+        self.save_nbest = save_nbest
+        self.nbest: List[Any] = []
+
+    @torch.inference_mode()
+    def __call__(self, waveforms: torch.Tensor, lengths: torch.Tensor) -> np.ndarray:
+        feats, lens = self.frontend(waveforms, lengths)
+        out = generate_joint(self.model, feats, lens, self.gen_cfg, lm=self.lm, fused_encoder=self.use_fused,
+                             fused=self.fused)
+        if self.save_nbest:
+            seqs, scores, comps = out
+            self.nbest.append((seqs.cpu().numpy(), scores.cpu().numpy(),
+                               {k: v.cpu().numpy() for k, v in comps.items()}))
+            return self.nbest[-1][0]
+        return out[0].cpu().numpy()
+
+    def write_nbests(self, output_dir: str, detokenize: Callable[[List[int]], str]) -> None:
+        """``nbest_hyps.txt`` / ``nbest_scores.txt`` and one
+        ``nbest_{att,ctc,lm}_scores.txt`` a score component (reference
+        postprocess_beam_outputs, general_utils.py:115-126), over every batch
+        decoded so far."""
+        if not self.nbest:
+            return
+        seqs = np.concatenate([s for s, _, _ in self.nbest], axis=0)
+        scores = np.concatenate([s for _, s, _ in self.nbest], axis=0)
+        save_nbests(os.path.join(output_dir, "nbest"), seqs, scores, detokenize)
+        for name in ("att", "ctc", "lm"):
+            comp = np.concatenate([c[name] for _, _, c in self.nbest], axis=0)
+            with open(os.path.join(output_dir, f"nbest_{name}_scores.txt"), "w") as f:
+                for i in range(comp.shape[0]):
+                    for w in range(comp.shape[1]):
+                        f.write(f"utt_{i}-{w} {comp[i, w]:.6f}\n")
 
 
 def main(argv=None):
@@ -162,12 +235,13 @@ def run(
         return (torch.from_numpy(batch["input_values"]).to(device),
                 torch.from_numpy(batch["input_values_lengths"]).to(device))
 
-    nbest_store = []
+    route = None
     if eval_args.model_type == "ctc":
-        route = CTCRoute(load_ctc_model(model_args.from_pretrained, device), eval_args.fused_encoder, device, dtype)
+        ctc_route = CTCRoute(load_ctc_model(model_args.from_pretrained, device), eval_args.fused_encoder, device,
+                             dtype)
 
         def decode_batch(batch):
-            out = route(*to_device(batch))
+            out = ctc_route(*to_device(batch))
             toks, tlens = ctc_greedy_decode(out.logits, out.logit_lengths, blank_id=-1)
             return [
                 tokenizer.decode(t, skip_special_tokens=True)
@@ -175,45 +249,14 @@ def run(
             ], None
 
     else:
-        if gen_args.lm_model:
-            raise NotImplementedError(
-                "--lm_model is not ported yet: shallow fusion's load_fusion_lm comes with train_clm "
-                "(ROADMAP.md Queue 1 item 8)")
         model = load_aed_model(model_args.from_pretrained, device, dtype)
-        frontend = LogMelFrontEnd(LogMelConfig(num_mel_bins=model.config.encoder.num_fbanks))
-        gen_cfg = build_generation_config(gen_args, ids)
-        if gen_args.override_for_evaluation:
-            gen_cfg = parse_override_string(gen_args.override_for_evaluation, gen_cfg)
-        if gen_args.save_nbest:
-            gen_cfg = dataclasses.replace(gen_cfg, return_components=True)
-        if gen_args.eval_beam_factor > 1:
-            # Reference do_evaluate: beams x= factor, eval batch /= factor
-            # (general_utils.py:200-203).
-            gen_cfg = dataclasses.replace(
-                gen_cfg, num_beams=gen_cfg.num_beams * gen_args.eval_beam_factor
-            )
-            eval_args = dataclasses.replace(
-                eval_args,
-                batch_size=max(eval_args.batch_size // gen_args.eval_beam_factor, 1),
-            )
-        use_fused = FUSED_CHOICES[eval_args.fused_encoder]
-        refusal = fused_encoder_refusal(model.config.encoder, dtype)
-        if use_fused is True and refusal is not None:
-            raise ValueError(f"--fused_encoder on, but the kernel path does not take this encoder: {refusal}")
-        if use_fused == "auto":
-            use_fused = device.type == "cuda" and refusal is None
-        fused = FusedCTC(model.encoder, device) if use_fused else None  # folded once, not per batch
+        eval_args = dataclasses.replace(
+            eval_args, batch_size=max(eval_args.batch_size // max(gen_args.eval_beam_factor, 1), 1))
+        route = AedRoute(model, evaluation_generation_config(gen_args, ids), eval_args.fused_encoder, device,
+                         load_fusion_lm(gen_args, device, dtype), gen_args.save_nbest)
 
-        @torch.inference_mode()
         def decode_batch(batch):
-            feats, lens = frontend(*to_device(batch))
-            out = generate_joint(model, feats, lens, gen_cfg, fused_encoder=use_fused, fused=fused)
-            out = tuple(o.cpu().numpy() if isinstance(o, torch.Tensor) else o for o in out)
-            if gen_args.save_nbest:
-                seqs, scores, comps = out
-                nbest_store.append((seqs, scores, {k: v.cpu().numpy() for k, v in comps.items()}))
-            else:
-                seqs, scores = out
+            seqs = route(*to_device(batch))
             return [
                 tokenizer.decode([int(t) for t in row[0]], skip_special_tokens=True)
                 for row in seqs
@@ -238,23 +281,8 @@ def run(
         output_dir=eval_args.output_dir,
         normalizer=normalizer,
     )
-    if eval_args.model_type == "aed" and gen_args.save_nbest and nbest_store:
-        seqs = np.concatenate([s for s, _, _ in nbest_store], axis=0)
-        scores = np.concatenate([s for _, s, _ in nbest_store], axis=0)
-        save_nbests(
-            os.path.join(eval_args.output_dir, "nbest"),
-            seqs, scores,
-            lambda toks: tokenizer.decode(toks, skip_special_tokens=True),
-        )
-        # per-component score streams (reference postprocess_beam_outputs,
-        # general_utils.py:115-126 splits joint/dec/ctc/lm)
-        for name in ("att", "ctc", "lm"):
-            comp = np.concatenate([c[name] for _, _, c in nbest_store], axis=0)
-            path = os.path.join(eval_args.output_dir, f"nbest_{name}_scores.txt")
-            with open(path, "w") as f:
-                for i in range(comp.shape[0]):
-                    for w in range(comp.shape[1]):
-                        f.write(f"utt_{i}-{w} {comp[i, w]:.6f}\n")
+    if route is not None:
+        route.write_nbests(eval_args.output_dir, lambda toks: tokenizer.decode(toks, skip_special_tokens=True))
     return results
 
 

@@ -101,7 +101,10 @@ def decoder_param_table(cfg: GPT2DecoderConfig, tree: Mapping[str, Any]) -> Iter
     writes it. GPT-2 ``Conv1D`` weights are (in, out) on both sides; the heads
     are dense. ``tree`` (Flax params, or None-valued stand-ins) decides the
     optional entries, as the export does: ``wpe``, the cross-attention, the
-    heads."""
+    heads, and ``lm_mixing`` under the names ``interop/hf_decred.py`` reads
+    (``lm_mixing.weight`` / ``.bias`` for the "full" Linear, ``lm_mixing``
+    for the "linear" and "scalar" parameters); the residual classifier is
+    ``lm_head`` over the concatenated states."""
     yield ("wte", "embedding"), "transformer.wte.weight", "same"
     if "wpe" in tree:
         yield ("wpe",), "transformer.wpe.weight", "same"
@@ -123,6 +126,11 @@ def decoder_param_table(cfg: GPT2DecoderConfig, tree: Mapping[str, Any]) -> Iter
     for k in range(len(cfg.head_locations)):
         if f"additional_lm_heads_{k}" in tree:
             yield from _dense((f"additional_lm_heads_{k}",), f"additional_lm_heads.{k}", bias=False)
+    if "lm_mixing" in tree:
+        if cfg.mixing_mode == "full":
+            yield from _dense(("lm_mixing",), "lm_mixing")
+        else:  # "linear" (n, V) or "scalar" (n,): one parameter, the same layout on both sides
+            yield ("lm_mixing",), "lm_mixing", "same"
 
 
 def decoder_tree_shape(cfg: GPT2DecoderConfig) -> Dict[str, Any]:
@@ -132,10 +140,15 @@ def decoder_tree_shape(cfg: GPT2DecoderConfig) -> Dict[str, Any]:
                             for i in range(cfg.n_layer)}
     if not cfg.pos_emb_fixed:
         tree["wpe"] = None
+    if cfg.connected_residuals:  # the residual classifier's lm_head (over the concatenated states) alone
+        tree["lm_head"] = None
+        return tree
     if not cfg.tie_word_embeddings:
         tree["lm_head"] = None
     if not cfg.tie_additional_weights:
         tree.update({f"additional_lm_heads_{k}": None for k in range(len(cfg.head_locations))})
+    if cfg.mixing_mode is not None:
+        tree["lm_mixing"] = None
     return tree
 
 

@@ -12,13 +12,20 @@ device tensors and ``fit`` reads them only when it logs.
 The per-step augment and dropout streams are derived from ``(seed, step)``, so
 a restored run repeats the run it was saved from.
 
+``JointTrainer`` trains the joint CTC/attention model (DeCRED/ED,
+``models/joint_ctc_aed.py``): the same featurization and SpecAugment, the
+joint forward with labels, ``enc_loss`` and ``dec_loss`` beside the loss.
+The model holds fp32 weights (``param_dtype=torch.float32``) and computes in
+the trainer's dtype.
+
 ``BestRQTrainer`` trains BEST-RQ pretraining (``models/bestrq.py``): the
 masked frames' noise comes from the step's augment stream, the loss is divided
 by the masked-frame count, and the frozen quantizer rides in the model's
 buffers, so the checkpoint saves and restores it with the parameters.
 
-Not ported here: the joint, wav2vec2-SSL and LLM-ASR trainers, meshes and
-sharded state (one device), profiler capture.
+The causal-LM trainer of ``cli/train_clm.py`` sits in that module, as in the
+JAX package. Not ported here: the wav2vec2-SSL, LLM-ASR and Whisper seq2seq
+trainers, meshes and sharded state (one device), profiler capture.
 """
 
 from __future__ import annotations
@@ -291,6 +298,31 @@ class CTCTrainer(BaseTrainer):
         tokens, token_lengths = ctc_greedy_decode(out.logits, out.logit_lengths, blank_id=-1)
         loss = out.loss if out.loss is not None else torch.zeros((), device=self.device)
         return {"loss": loss, "tokens": tokens, "token_lengths": token_lengths}
+
+
+class JointTrainer(BaseTrainer):
+    """DeCRED/ED training with the encoder's and the decoder's losses tracked
+    (JAX ``JointTrainer``; reference AdditionalLossTrackerTrainer). The model
+    computes in its own ``dtype``, which must be the trainer's."""
+
+    def __init__(self, model, config: TrainerConfig = TrainerConfig(), frontend=None, device="cuda",
+                 dtype: str = "bfloat16", frozen_prefixes=()):
+        super().__init__(model, config, frontend, device, dtype, frozen_prefixes)
+        if self.model.dtype != self.dtype:
+            raise ValueError(f"the joint model computes in {self.model.dtype}, the trainer in {self.dtype}")
+
+    def loss_and_metrics(self, batch, aug_gen, dropout_rng, step):
+        feats, lengths = self._featurize(batch)
+        feats = self._maybe_spec_augment(aug_gen, feats, lengths, step)
+        out = self.model(feats.to(self.dtype), lengths, labels=batch["labels"],
+                         label_lengths=batch["label_lengths"], rng=dropout_rng)
+        return out.loss, {"enc_loss": out.enc_loss.detach(), "dec_loss": out.dec_loss.detach()}
+
+    def eval_outputs(self, batch):
+        feats, lengths = self._featurize(batch)
+        out = self.model(feats.to(self.dtype), lengths, labels=batch.get("labels"),
+                         label_lengths=batch.get("label_lengths"))
+        return {"loss": out.loss, "enc_loss": out.enc_loss, "dec_loss": out.dec_loss}
 
 
 class BestRQTrainer(BaseTrainer):

@@ -1,8 +1,6 @@
 """Model directories, trainer checkpoints, checkpoint averaging and config
 overrides (counterpart of ``huggingface_asr_tpu/training/model_factory.py``;
-``torch.save`` takes the place of orbax; the joint model's
-``instantiate_aed_model`` and ``merge_pretrained_halves`` come with its
-training half).
+``torch.save`` takes the place of orbax).
 
 A model directory holds ``config.json`` (the JAX package's config fields) and
 ``pytorch_model.bin`` (a flat state dict with the reference HF keys, the file
@@ -153,3 +151,45 @@ def instantiate_ctc_model(
     elif average_checkpoints_dir:
         state = average_checkpoints(average_checkpoints_dir)
     return EBranchformerForCTC(config), state
+
+
+def _prefixed(prefix: str, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}{k}": v for k, v in state.items()}
+
+
+def instantiate_aed_model(
+    config: Optional[JointCTCAttentionConfig] = None,
+    from_pretrained: Optional[str] = None,
+    encoder_state: Optional[Dict[str, torch.Tensor]] = None,
+    decoder_state: Optional[Dict[str, torch.Tensor]] = None,
+    dtype: torch.dtype = torch.float32,
+) -> Tuple[JointCTCAttentionEncoderDecoder, Optional[Dict[str, torch.Tensor]]]:
+    """Build (model, state dict or None) for training (reference
+    from_encoder_decoder_pretrained, ctc_encoder...py:138-235): the joint model
+    computing in ``dtype`` over fp32 weights. The state dict is a model
+    directory's, or else the separately pretrained halves' (a CTC model's
+    state dict, a decoder's), keyed ``encoder.*`` / ``decoder.*``; where it
+    holds only halves, ``merge_pretrained_halves`` completes it. The caller
+    loads it."""
+    state = None
+    if from_pretrained:
+        config = config or load_config(from_pretrained, JointCTCAttentionConfig)
+        state = load_state(from_pretrained)
+    model = JointCTCAttentionEncoderDecoder(config, dtype, param_dtype=torch.float32)
+    if state is None and (encoder_state is not None or decoder_state is not None):
+        state = {**_prefixed("encoder.", encoder_state or {}), **_prefixed("decoder.", decoder_state or {})}
+    return model, state
+
+
+def merge_pretrained_halves(init_state: Dict[str, torch.Tensor],
+                            encoder_state: Optional[Dict[str, torch.Tensor]] = None,
+                            decoder_state: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """Graft pretrained halves into a fresh joint state dict: every
+    ``encoder.*`` (``decoder.*``) entry of ``init_state`` gives way to the
+    half's state dict, keyed without the prefix."""
+    state = dict(init_state)
+    for prefix, half in (("encoder.", encoder_state), ("decoder.", decoder_state)):
+        if half is not None:
+            state = {k: v for k, v in state.items() if not k.startswith(prefix)}
+            state.update(_prefixed(prefix, half))
+    return state

@@ -221,8 +221,7 @@ GATE_DIR = os.path.join(REPO, "huggingface_asr_tpu_torch", "assets", "gate_ctc")
     ("train", ["--fsdp"], NotImplementedError, "fsdp"),
     ("train", ["--profile_steps", "3"], NotImplementedError, "profile_steps"),
     ("eval", ["--model_type", "whisper_ctc"], NotImplementedError, "Queue 1 item 11"),
-    ("eval", ["--model_type", "aed", "--lm_model", "lm_dir", "--lm_weight", "0.3", "--device", "cpu"], NotImplementedError,
-     "load_fusion_lm"),
+    ("eval", ["--model_type", "llm_asr"], NotImplementedError, "Queue 1 item 11"),
     ("eval", ["--fused_encoder", "on", "--device", "cpu"], ValueError, "CUDA"),
     ("eval", ["--fused_encoder", "on", "--device", "cpu", "--dtype", "float32"], ValueError, "bfloat16"),
     ("eval", [], RuntimeError, "CUDA is not available"),

@@ -1192,3 +1192,95 @@ def test_aed_pipeline_takes_the_kernel_route(tmp_path):
     assert len(texts) == 2
     assert launches.get("asr_rel_attention") == 2 and launches.get("asr_conv2") == 1
     assert not launches.get("asr_log_mel")
+
+
+def _decred_widths(attention_impl="auto"):
+    """configs/decred_base.json's widths (encoder 256 x 8 heads, I 1024,
+    256 x 256 subsampler; decoder 256 x 4 heads, a head after layer 1 of 2),
+    two layers each, vocabulary 500."""
+    from huggingface_asr_tpu_torch.models.gpt2_decoder import GPT2DecoderConfig
+    from huggingface_asr_tpu_torch.models.joint_ctc_aed import JointCTCAttentionConfig
+
+    return JointCTCAttentionConfig(
+        encoder=EBranchformerConfig(hidden_size=256, num_hidden_layers=2, num_attention_heads=8,
+                                    intermediate_size=1024, csgu_kernel_size=31, merge_conv_kernel=31,
+                                    vocab_size=500, attention_impl=attention_impl),
+        decoder=GPT2DecoderConfig(vocab_size=500, n_embd=256, n_layer=2, n_head=4, n_positions=512,
+                                  head_locations=(1,), head_weights=(0.3, 0.7), lsm_factor=0.1,
+                                  bos_token_id=0, eos_token_id=1, pad_token_id=3))
+
+
+def test_joint_trainer_step_on_k4_agrees_with_the_plain_attention():
+    """One JointTrainer step at decred widths (bf16 over fp32 weights,
+    dropout on, from the Flax-matching initialiser), "auto": K4 forward and
+    backward once per encoder layer; the same step with the plain attention
+    gives the loss within 1e-4 and the gradient norm within 1e-3 (relative),
+    as the smoke's training phases hold them."""
+    import copy
+
+    from huggingface_asr_tpu_torch.models import ebranchformer as model_module
+    from huggingface_asr_tpu_torch.models.joint_ctc_aed import init_joint_from_scratch_
+    from huggingface_asr_tpu_torch.training.loop import JointTrainer, TrainerConfig
+    from huggingface_asr_tpu_torch.training.model_factory import instantiate_aed_model
+    from huggingface_asr_tpu_torch.training.optim import OptimizerConfig
+
+    dev = _cuda()
+    cfg = _decred_widths()
+    model = init_joint_from_scratch_(instantiate_aed_model(cfg, dtype=torch.bfloat16)[0],
+                                     torch.Generator().manual_seed(0))
+    twin = copy.deepcopy(model)
+    tcfg = TrainerConfig(optimizer=OptimizerConfig(learning_rate=1e-4, warmup_steps=1, total_steps=10),
+                         spec_augment=None)
+    rng = np.random.default_rng(0)
+    batch = {"input_features": rng.standard_normal((4, 600, 80)).astype(np.float32),
+             "input_lengths": np.asarray([600, 555, 431, 300], np.int32),
+             "labels": rng.integers(4, 500, (4, 24)).astype(np.int32),
+             "label_lengths": np.asarray([24, 20, 13, 9], np.int32)}
+    trainer = JointTrainer(model, tcfg, device=dev, dtype="bfloat16")
+    _build.reset_launch_counts()
+    _, m = trainer.train_step(trainer.init_state(), batch)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["asr_rel_attention_train_fwd"] == 2 and _build.LAUNCHES["asr_rel_attention_train_bwd"] == 2
+    plain = JointTrainer(twin, tcfg, device=dev, dtype="bfloat16")
+    orig = model_module.rel_attention_train
+    model_module.rel_attention_train = rel_attention_train_plain
+    try:
+        _build.reset_launch_counts()
+        _, m_plain = plain.train_step(plain.init_state(), batch)
+        assert not _build.LAUNCHES.get("asr_rel_attention_train_fwd")
+    finally:
+        model_module.rel_attention_train = orig
+    assert int(m["step_applied"]) == 1 and bool(torch.isfinite(m["loss"]))
+    assert abs(float(m["loss"]) - float(m_plain["loss"])) <= 1e-4 * abs(float(m_plain["loss"]))
+    assert abs(float(m["grad_norm"]) - float(m_plain["grad_norm"])) <= 1e-3 * float(m_plain["grad_norm"])
+    for k in ("enc_loss", "dec_loss"):
+        assert bool(torch.isfinite(m[k]))
+
+
+def test_decoder_master_and_serving_layouts_agree_on_the_card():
+    """The decoder at decred widths in bf16: fp32 master weights cast at use
+    (the trainer's layout) and weights cast once (the serving layout) give
+    bit-equal logits, whole-sequence and through the cache."""
+    from huggingface_asr_tpu_torch.models.gpt2_decoder import GPT2MultiHeadDecoder, init_decoder_from_scratch_
+
+    dev = _cuda()
+    cfg = _decred_widths().decoder
+    master = GPT2MultiHeadDecoder(cfg, torch.bfloat16, param_dtype=torch.float32)
+    init_decoder_from_scratch_(master, torch.Generator().manual_seed(1))
+    serving = GPT2MultiHeadDecoder(cfg, torch.bfloat16)
+    serving.load_state_dict(master.state_dict(), strict=True)
+    master, serving = master.to(dev).eval(), serving.to(dev).eval()
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, 500, (4, 17), generator=g).to(dev)
+    enc = torch.randn(4, 120, 256, generator=g).to(dev)
+    lens = torch.tensor([120, 97, 64, 3], device=dev)
+    with torch.no_grad():
+        a, b = master(tokens, enc, lens).logits, serving(tokens, enc, lens).logits
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        ca = master.write_cross_kv(master.init_cache(4, 32, dev), enc)
+        cb = serving.write_cross_kv(serving.init_cache(4, 32, dev), enc)
+        for t in range(5):
+            pos = torch.full((4,), t, device=dev)
+            sa = master(tokens[:, t:t + 1], encoder_lengths=lens, position_offset=pos, cache=ca).logits
+            sb = serving(tokens[:, t:t + 1], encoder_lengths=lens, position_offset=pos, cache=cb).logits
+            assert torch.equal(sa, sb), t
