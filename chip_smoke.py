@@ -153,6 +153,30 @@
    trained model (the LM's score component non-zero, K1/K2 launched). It
    prints each step's losses, time, launches and the peak memory beside the
    card's name and power limit.
+15. right after step 13, the rest of SSL: (a) wav2vec2 contrastive
+   pretraining of configs/ebranchformer_30m_ssl.json at full width (12 x
+   256, 8 heads; the quantizer's G=2 x V=320 codes of 256 columns, 100
+   negatives; mask prob 0.65, length 10) through ``cli/pretrain.run`` at
+   B=16 x 9.3-10 s, bf16, attention_impl "pallas": 3 steps, every one
+   applied with a finite loss, one evaluation batch, exactly 36 K4 forward,
+   36 K4 backward and 12 K5 launches, ``final/`` written, and step 1 again
+   with the plain attention and the same Gumbel draw within 1e-4 in loss
+   (step times, peak memory, contrastive and diversity losses printed);
+   (d) ``train_ctc.run --from_pretrained`` of that ``final/`` refused with an
+   error that names ``masked_spec_embed``, as the JAX CLI refuses it; (b)
+   ``train_ctc.run --from_pretrained`` of step 13's BEST-RQ ``final/`` with
+   both fine-tuning adapters (``--config_overrides``) and without them, 3
+   steps each at B=16 x 9.3-10 s (vocabulary 31, no SpecAugment): the
+   encoder at step 0 equal to the checkpoint's bit for bit, every step
+   applied, 51 K4 forward and 51 K4 backward launches (the additional layer
+   takes the plain attention, as in JAX); (c) both fine-tuned ``final/``s
+   served through ``ASRPipeline(device="cuda")``, two requests of 8 x 10 s
+   each: without adapters the fused route (the log-mel kernel, the model's
+   own 512 x 512 front end, 17 layers of K1 pieces, counted per request) and
+   greedy ids equal to the plain bf16 route's on at least 98 % of the valid
+   frames; with adapters the plain route, the logged refusal naming the
+   adapter, 17 K5 launches a request. Each kernel entry of the JSON line
+   gains ``ssl_launches``, its launches in this step.
 
 Beside each kernel's time it prints the plain version's, the least time the
 card could take (the larger of bytes / 3.35 TB/s and operations / the peak
@@ -169,6 +193,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -878,6 +903,311 @@ def _csv_ids(path):
         return [[int(t) for t in row["prediction"].split()] for row in csv.DictReader(f)]
 
 
+def count_launches(fn, into: dict):
+    """Run ``fn`` with the kernels' launch counts set to 0 just before; returns
+    (its result, the counts read just after), which are also added into ``into``."""
+    import torch
+
+    from huggingface_asr_tpu_torch.kernels import _build
+
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(_build.LAUNCHES)
+    for k, v in got.items():
+        into[k] = into.get(k, 0) + v
+    return out, got
+
+
+def watch_steps(cls):
+    """Record (batch, metrics, host ms) of each synchronized ``cls.train_step``;
+    returns the list and the function that restores the method."""
+    import torch
+
+    seen, real = [], cls.train_step
+
+    def step(self, state, batch):
+        t_ = time.perf_counter()
+        state, m = real(self, state, batch)
+        torch.cuda.synchronize()
+        seen.append((dict(batch), {k: float(v) for k, v in m.items()}, (time.perf_counter() - t_) * 1e3))
+        return state, m
+
+    cls.train_step = step
+    return seen, lambda: setattr(cls, "train_step", real)
+
+
+def against_plain_path(pipe, requests):
+    """A CTC ``ASRPipeline`` on its fused route: the kernel path vs the plain
+    path on the card for every request (same waveforms): logits within 0.05
+    of their scale (the tolerance the JAX package holds its Pallas path to),
+    greedy ids equal on every frame where the plain path's top-2 margin
+    exceeds twice that tolerance. Returns (valid frames, frames whose greedy
+    ids agree)."""
+    import torch
+
+    from huggingface_asr_tpu_torch.models.fast_infer import ctc_infer
+
+    dev, vocab_size = pipe.device, pipe._fused.config.vocab_size
+    n_frames = n_agree = 0
+    for name, audios in requests.items():
+        wav = torch.from_numpy(pipe._bucket_pad(audios)).to(dev)
+        lens = torch.tensor([len(a) for a in audios], dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            got = ctc_infer(pipe._fused, *pipe._frontend(wav, lens))
+            ref = ctc_infer(pipe._fused, *pipe._frontend(wav, lens, plain=True), plain=True)
+        torch.cuda.synchronize()
+        g, r = got.logits.float(), ref.logits.float()
+        if g.shape != r.shape or g.shape[:2] != (len(audios), r.shape[1]) \
+                or g.shape[-1] != vocab_size + 1:
+            _fail(f"{name}: logit shapes {tuple(g.shape)} vs {tuple(r.shape)}")
+        if not torch.equal(got.logit_lengths, ref.logit_lengths):
+            _fail(f"{name}: logit lengths differ")
+        valid = torch.arange(g.shape[1], device=dev)[None, :] < ref.logit_lengths[:, None]
+        err = float((g - r).abs()[valid].max())
+        scale = float(r.abs()[valid].max())
+        tol = 0.05 * max(1.0, scale)
+        same = (g.argmax(-1) == r.argmax(-1))[valid]
+        top2 = r.topk(2, dim=-1).values
+        clear = ((top2[..., 0] - top2[..., 1]) > 2 * tol)[valid]
+        n_frames += int(valid.sum())
+        n_agree += int(same.sum())
+        print(f"{name} logits kernel vs plain: max_abs_err={err:.3e} tol={tol:.3e} "
+              f"(scale {scale:.3f}); greedy ids agree on {float(same.float().mean()):.4f} of "
+              f"{int(valid.sum())} valid frames, on {int((same & clear).sum())}/{int(clear.sum())} "
+              f"frames with a clear margin", flush=True)
+        if not bool(torch.isfinite(g).all()) or err > tol:
+            _fail(f"{name}: pipeline logits disagree with the plain path")
+        if not bool(same[clear].all()):
+            _fail(f"{name}: greedy ids differ on a frame with a clear margin")
+    return n_frames, n_agree
+
+
+# The 256-wide shipped SSL config of the wav2vec2 pretraining run: 12 layers x
+# 256, 8 heads of 32, I=1024, conv_dim (256, 256); the quantizer's defaults
+# (G=2, V=320, codevector_dim 256, 100 negatives).
+SSL_CONFIG = "ebranchformer_30m_ssl.json"
+ADAPTERS = "finetune_with_layer_mixing=True;finetune_with_additional_layer=True"
+
+
+def ssl_phase(dev, smi) -> dict:
+    """The rest of SSL on the card (step 15 of the module's docstring):
+    wav2vec2 pretraining through ``cli/pretrain.run``, fine-tuning the 512-wide
+    phase's BEST-RQ ``final/`` through ``cli/train_ctc.run --from_pretrained``
+    with and without the BEST-RQ adapters, serving both fine-tuned models, and
+    the refused wav2vec2 graft. Returns the kernel launches of its runs and
+    requests, by counter."""
+    import logging
+
+    import torch
+
+    from huggingface_asr_tpu_torch.cli import pretrain as pretrain_cli
+    from huggingface_asr_tpu_torch.cli import train_ctc
+    from huggingface_asr_tpu_torch.data.datasets import ColumnTable, DataConfig
+    from huggingface_asr_tpu_torch.kernels import _build
+    from huggingface_asr_tpu_torch.kernels.train_attention import rel_attention_train, rel_attention_train_plain
+    from huggingface_asr_tpu_torch.models import ebranchformer as model_module
+    from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
+    from huggingface_asr_tpu_torch.training.arguments import (
+        GeneralTrainingArguments,
+        GenerationArguments,
+        ModelArguments,
+        PretrainingArguments,
+    )
+    from huggingface_asr_tpu_torch.training.loop import CTCTrainer, Wav2Vec2SSLTrainer
+    from huggingface_asr_tpu_torch.training.model_factory import load_config, load_state
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_ssl")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(15)
+    tok = IdTokenizer()
+    letters = list(IdTokenizer.CHARS[1:])
+    ssl_launches = {}
+    counted = functools.partial(count_launches, into=ssl_launches)
+
+    def split(n):
+        audio = [speech(rng.uniform(9.3, 10.0), rng) for _ in range(n)]
+        text = [" ".join("".join(rng.choice(letters, size=rng.integers(3, 8))) for _ in range(rng.integers(8, 14)))
+                for _ in range(n)]
+        return ColumnTable({"audio": audio, "text": text, "input_len": [len(a) / 16000 for a in audio]})
+
+    # ---- (a) wav2vec2 pretraining of the 256-wide SSL config through cli/pretrain.run
+    scfg = config_file(SSL_CONFIG)
+    n_l = scfg.num_hidden_layers
+    with open(os.path.join(ROOT, "configs", SSL_CONFIG)) as f:
+        w_json = {**json.load(f), "attention_impl": "pallas"}
+    with open(os.path.join(work, "w2v.json"), "w") as f:
+        json.dump(w_json, f)
+    print(f"-- SSL phase (a): wav2vec2 pretraining (cli/pretrain.run), {SSL_CONFIG} ({n_l} x {scfg.hidden_size}, "
+          f"{scfg.num_attention_heads} heads), G={scfg.num_codevector_groups} V={scfg.num_codevectors_per_group} "
+          f"codevector_dim {scfg.codevector_dim}, {scfg.num_negatives} negatives, mask prob 0.65 length 10, "
+          f"B=16 x 9.3-10 s, bf16, attention_impl 'pallas'", flush=True)
+    w_data = {"train": split(16), "validation": split(16)}
+    w_args = ModelArguments(model_config=os.path.join(work, "w2v.json"), device="cuda", dtype="bfloat16")
+    w_training = GeneralTrainingArguments(output_dir=os.path.join(work, "w2v"), per_device_train_batch_size=16,
+                                          per_device_eval_batch_size=16, max_steps=3, logging_steps=1, eval_steps=3,
+                                          save_steps=10 ** 9, warmup_steps=1, learning_rate=1e-4, seed=15)
+    pargs = PretrainingArguments(pretraining_objective="wav2vec2", mask_time_prob=0.65, mask_time_length=10)
+    seen, undo = watch_steps(Wav2Vec2SSLTrainer)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        w_out, w_launches = counted(lambda: pretrain_cli.run(w_args, w_training, pargs, DataConfig(), w_data))
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, (batch, m, ms) in enumerate(seen):
+        masked = float(np.mean(np.asarray(batch["mask_time_indices"].cpu())))
+        print(f"  step {i + 1}: loss={m['loss']:.4f} contrastive={m['contrastive_loss']:.4f} "
+              f"diversity={m['diversity_loss']:.4f} perplexity={m['codevector_perplexity']:.1f} "
+              f"gumbel_temperature={m['gumbel_temperature']:.6f} grad_norm={m['grad_norm']:.3f} "
+              f"applied={int(m['step_applied'])} masked {100 * masked:.1f} % {ms:.1f} ms", flush=True)
+    with open(os.path.join(work, "w2v", "metrics.jsonl")) as f:
+        w_eval = [json.loads(line) for line in f if "eval/loss" in line]
+    print(f"  evaluation loss {w_eval[-1]['eval/loss'] if w_eval else None}; peak memory {peak:.2f} GiB; launches "
+          f"over the run {w_launches}; {smi}", flush=True)
+    if len(seen) != 3 or any(int(m["step_applied"]) != 1 or not np.isfinite(m["loss"]) for _, m, _ in seen):
+        _fail("wav2vec2: not every one of 3 steps was applied with a finite loss")
+    if not w_eval or not np.isfinite(w_eval[-1]["eval/loss"]):
+        _fail("wav2vec2: no finite evaluation loss")
+    want = {"asr_rel_attention_train_fwd": 3 * n_l, "asr_rel_attention_train_bwd": 3 * n_l,
+            "asr_rel_attention_shift": n_l}
+    if any(w_launches.get(k, 0) != v for k, v in want.items()):
+        _fail(f"wav2vec2 launches {w_launches}, want {want}")
+    w_final = os.path.join(work, "w2v", "final")
+    if "wav2vec2.masked_spec_embed" not in load_state(w_final):
+        _fail("wav2vec2: no final/ with the learned mask embedding written")
+    # step 1 again from the same initial weights and Gumbel draw (the step's augment stream), plain attention
+    twin = Wav2Vec2SSLTrainer(pretrain_cli.build_model(w_args, w_training.seed, "wav2vec2"), w_out["trainer"].config,
+                              frontend=w_out["trainer"].frontend, device="cuda", dtype="bfloat16")
+    model_module.rel_attention_train = rel_attention_train_plain
+    try:
+        before = dict(_build.LAUNCHES)
+        _, m_plain = twin.train_step(twin.init_state(), seen[0][0])
+        if dict(_build.LAUNCHES) != before:
+            _fail("the plain-attention wav2vec2 step launched an attention kernel")
+    finally:
+        model_module.rel_attention_train = rel_attention_train
+    d_loss = abs(seen[0][1]["loss"] - float(m_plain["loss"])) / abs(float(m_plain["loss"]))
+    print(f"  wav2vec2 step 1, kernels vs plain attention (same Gumbel draw): loss {seen[0][1]['loss']:.6f} vs "
+          f"{float(m_plain['loss']):.6f} (rel {d_loss:.2e}, tol 1e-4)", flush=True)
+    if d_loss > 1e-4:
+        _fail("wav2vec2 step 1 with the attention kernels disagrees with the plain-attention step")
+    del twin, w_out, seen
+    torch.cuda.empty_cache()
+
+    # ---- (d) a wav2vec2 final/ under a fresh CTC head: refused, as the JAX CLI refuses it (caveat (h))
+    try:
+        train_ctc.run(ModelArguments(from_pretrained=w_final, device="cuda"),
+                      GeneralTrainingArguments(output_dir=os.path.join(work, "w2v_ft"), max_steps=1),
+                      GenerationArguments(), DataConfig(), {"train": w_data["train"]}, tok)
+        _fail("train_ctc fine-tuned from a wav2vec2 final/: the JAX CLI refuses it")
+    except ValueError as e:
+        if "masked_spec_embed" not in str(e):
+            _fail(f"the wav2vec2 graft's refusal does not name masked_spec_embed: {e}")
+        print(f"  (d) train_ctc --from_pretrained <wav2vec2 final/>: refused ({str(e)[:120]}...)", flush=True)
+
+    # ---- (b) fine-tuning the 512-wide BEST-RQ final/ through train_ctc.run, with and without the adapters
+    bestrq_final = os.path.join(ROOT, "build", "chip_smoke_pretrain", "out", "final")
+    ckpt = load_state(bestrq_final)
+    wcfg = load_config(bestrq_final)
+    n_w = wcfg.num_hidden_layers
+    ft_data = {"train": split(16)}
+    finals = {}
+    for name, overrides in (("adapters", ADAPTERS), ("no adapters", None)):
+        out_dir = os.path.join(work, "ft_" + name.replace(" ", "_"))
+        print(f"-- SSL phase (b): train_ctc --from_pretrained <512-wide BEST-RQ final/> ({name}; config overrides "
+              f"{overrides}), vocabulary {len(tok)} + blank, B=16 x 9.3-10 s, bf16, --no-apply_spec_augment", flush=True)
+        grafted = {}
+        real_fit = CTCTrainer.fit
+
+        def fit(self, state, *a, **k):
+            grafted.update({k_: v.detach().cpu().clone() for k_, v in state.model.state_dict().items()
+                            if k_.startswith("wav2vec2.")})
+            return real_fit(self, state, *a, **k)
+
+        seen, undo = watch_steps(CTCTrainer)
+        CTCTrainer.fit = fit
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            _, f_launches = counted(lambda: train_ctc.run(
+                ModelArguments(from_pretrained=bestrq_final, config_overrides=overrides, device="cuda",
+                               dtype="bfloat16"),
+                GeneralTrainingArguments(output_dir=out_dir, per_device_train_batch_size=16, max_steps=3,
+                                         logging_steps=1, eval_steps=10 ** 9, save_steps=10 ** 9, warmup_steps=1,
+                                         learning_rate=1e-4, seed=15, apply_spec_augment=False),
+                GenerationArguments(), DataConfig(), ft_data, tok))
+        finally:
+            undo()
+            CTCTrainer.fit = real_fit
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for i, (_, m, ms) in enumerate(seen):
+            print(f"  step {i + 1}: loss={m['loss']:.4f} grad_norm={m['grad_norm']:.3f} "
+                  f"applied={int(m['step_applied'])} {ms:.1f} ms", flush=True)
+        equal = sorted(grafted) == sorted(k for k in ckpt if k.startswith("wav2vec2.")) and all(
+            torch.equal(v, ckpt[k]) for k, v in grafted.items())
+        print(f"  encoder at step 0 equal to the checkpoint's, bit for bit: {equal} ({len(grafted)} tensors); "
+              f"peak memory {peak:.2f} GiB; launches over the run {f_launches}; {smi}", flush=True)
+        if not equal:
+            _fail(f"fine-tune ({name}): the encoder at step 0 is not the checkpoint's")
+        if len(seen) != 3 or any(int(m["step_applied"]) != 1 or not np.isfinite(m["loss"]) for _, m, _ in seen):
+            _fail(f"fine-tune ({name}): not every one of 3 steps was applied with a finite loss")
+        want = {"asr_rel_attention_train_fwd": 3 * n_w, "asr_rel_attention_train_bwd": 3 * n_w}
+        if any(f_launches.get(k, 0) != v for k, v in want.items()):
+            _fail(f"fine-tune ({name}): launches {f_launches}, want {want} (the additional layer takes none)")
+        finals[name] = os.path.join(out_dir, "final")
+
+    # ---- (c) serving both fine-tuned final/s through ASRPipeline(device="cuda")
+    requests = {f"fine-tuned 512-wide, 8 utts (10 s) #{r}": [speech(10.0 * (1.0 - 0.01 * ((i + r) % 7)), rng)
+                                                              for i in range(8)] for r in range(2)}
+    pipe = ASRPipeline(finals["no adapters"], model_type="ctc", device="cuda", tokenizer=tok)
+    if not pipe._use_fused:
+        _fail("the fine-tuned model without adapters did not take the fused route")
+    pipe(requests[next(iter(requests))][:1])  # warm-up
+    per_layer = {"asr_layernorm_bf16": 5, "asr_gemm_bf16": 9, "asr_rel_attention": 1, "asr_pos_query": 1,
+                 "dwconv_csgu": 1, "dwconv_merge": 1}
+    want = {**{k: v * n_w for k, v in per_layer.items()}, "asr_log_mel": 1, "asr_conv1": 0, "asr_conv2": 0}
+    for name, audios in requests.items():
+        t0 = time.perf_counter()
+        texts, got = counted(lambda: pipe(audios))
+        print(f"  (c) {name}, fused route: {(time.perf_counter() - t0) * 1e3:.1f} ms; launches {got}", flush=True)
+        if len(texts) != len(audios) or any(got.get(k, 0) != v for k, v in want.items()):
+            _fail(f"{name}: {len(texts)} transcripts, launches {got}, want {want}")
+    frames, agree = against_plain_path(pipe, requests)
+    print(f"  (c) fused route vs plain bf16 route: greedy ids agree on {agree}/{frames} valid frames "
+          f"({100 * agree / max(frames, 1):.2f} %)", flush=True)
+    if agree < 0.98 * frames:
+        _fail(f"fine-tuned 512-wide: greedy ids agree on {agree}/{frames} valid frames, below 98 %")
+    del pipe
+
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda record: logged.append(record.getMessage())
+    pipeline_log = logging.getLogger("huggingface_asr_tpu_torch.serving.pipeline")
+    pipeline_log.addHandler(handler)
+    try:
+        pipe = ASRPipeline(finals["adapters"], model_type="ctc", device="cuda", tokenizer=tok)
+    finally:
+        pipeline_log.removeHandler(handler)
+    print(f"  (c) adapter model: {logged}", flush=True)
+    if pipe._use_fused or not any("finetune_with_layer_mixing" in m for m in logged):
+        _fail("the adapter model did not take the plain route with a refusal that names the adapter")
+    pipe(requests[next(iter(requests))][:1])  # warm-up
+    for name, audios in requests.items():
+        t0 = time.perf_counter()
+        texts, got = counted(lambda: pipe(audios))
+        print(f"  (c) {name}, plain route (adapters): {(time.perf_counter() - t0) * 1e3:.1f} ms; launches {got}",
+              flush=True)
+        if len(texts) != len(audios) or got.get("asr_rel_attention_shift", 0) != n_w or \
+                any(got.get(k, 0) for k in per_layer):
+            _fail(f"{name} (adapters): {len(texts)} transcripts, launches {got}, want {n_w} K5 and no K1")
+    del pipe
+    torch.cuda.empty_cache()
+    print(f"SSL phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ssl_launches
+
+
 def cli_phase(dev, smi) -> dict:
     """The CTC command-line surface on the card (step 12 of the module's
     docstring), through ``train_ctc.run`` and ``evaluate.run`` with in-memory
@@ -892,7 +1222,6 @@ def cli_phase(dev, smi) -> dict:
     from huggingface_asr_tpu_torch.data.datasets import ColumnTable, DataConfig
     from huggingface_asr_tpu_torch.data.synthetic_speech import corpus_rows
     from huggingface_asr_tpu_torch.decoding.generate import generate_joint
-    from huggingface_asr_tpu_torch.kernels import _build
     from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC
     from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
     from huggingface_asr_tpu_torch.training.arguments import (
@@ -906,16 +1235,7 @@ def cli_phase(dev, smi) -> dict:
     work = os.path.join(ROOT, "build", "chip_smoke_cli")
     os.makedirs(work, exist_ok=True)
     cli_launches = {}
-
-    def counted(fn):
-        """Run ``fn`` with the launch counts set to 0 just before; returns (its result, the counts)."""
-        _build.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        got = dict(_build.LAUNCHES)
-        for k, v in got.items():
-            cli_launches[k] = cli_launches.get(k, 0) + v
-        return out, got
+    counted = functools.partial(count_launches, into=cli_launches)
 
     # ---- train_ctc at the flagship width, from the Flax-matching initialiser
     tok = IdTokenizer()
@@ -1280,7 +1600,7 @@ def main() -> None:
     from huggingface_asr_tpu_torch.data.prefetch import PrefetchIterator, pinned_device_put
     from huggingface_asr_tpu_torch.models import ebranchformer as model_module
     from huggingface_asr_tpu_torch.models.ebranchformer import feat_extract_output_frames
-    from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer
+    from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC
     from huggingface_asr_tpu_torch.ops.features import LogMelConfig
     from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
     from huggingface_asr_tpu_torch.training.model_factory import save_params
@@ -1801,45 +2121,6 @@ def main() -> None:
     missing = [k for k in needed if launches.get(k, 0) <= 0]
     if missing:
         _fail(f"kernels not launched on the main path: {missing}")
-
-    def against_plain_path(pipe, requests):
-        """Kernel path vs plain path on the card for every request (same
-        waveforms): logits within 0.05 of their scale (the tolerance the JAX
-        package holds its Pallas path to), greedy ids equal on every frame
-        where the plain path's top-2 margin exceeds twice that tolerance.
-        Returns (valid frames, frames whose greedy ids agree)."""
-        n_frames = n_agree = 0
-        for name, audios in requests.items():
-            wav = torch.from_numpy(pipe._bucket_pad(audios)).to(dev)
-            lens = torch.tensor([len(a) for a in audios], dtype=torch.int32, device=dev)
-            with torch.inference_mode():
-                got = ctc_infer(pipe._fused, *pipe._frontend(wav, lens))
-                ref = ctc_infer(pipe._fused, *pipe._frontend(wav, lens, plain=True), plain=True)
-            torch.cuda.synchronize()
-            g, r = got.logits.float(), ref.logits.float()
-            if g.shape != r.shape or g.shape[:2] != (len(audios), r.shape[1]) \
-                    or g.shape[-1] != cfg.vocab_size + 1:
-                _fail(f"{name}: logit shapes {tuple(g.shape)} vs {tuple(r.shape)}")
-            if not torch.equal(got.logit_lengths, ref.logit_lengths):
-                _fail(f"{name}: logit lengths differ")
-            valid = torch.arange(g.shape[1], device=dev)[None, :] < ref.logit_lengths[:, None]
-            err = float((g - r).abs()[valid].max())
-            scale = float(r.abs()[valid].max())
-            tol = 0.05 * max(1.0, scale)
-            same = (g.argmax(-1) == r.argmax(-1))[valid]
-            top2 = r.topk(2, dim=-1).values
-            clear = ((top2[..., 0] - top2[..., 1]) > 2 * tol)[valid]
-            n_frames += int(valid.sum())
-            n_agree += int(same.sum())
-            print(f"{name} logits kernel vs plain: max_abs_err={err:.3e} tol={tol:.3e} "
-                  f"(scale {scale:.3f}); greedy ids agree on {float(same.float().mean()):.4f} of "
-                  f"{int(valid.sum())} valid frames, on {int((same & clear).sum())}/{int(clear.sum())} "
-                  f"frames with a clear margin", flush=True)
-            if not bool(torch.isfinite(g).all()) or err > tol:
-                _fail(f"{name}: pipeline logits disagree with the plain path")
-            if not bool(same[clear].all()):
-                _fail(f"{name}: greedy ids differ on a frame with a clear margin")
-        return n_frames, n_agree
 
     # Every request of the main path; pooled over them, the greedy ids must
     # also agree on >= 98 % of all valid frames (random weights leave many
@@ -2543,24 +2824,12 @@ def main() -> None:
     p_training = GeneralTrainingArguments(output_dir=os.path.join(p_dir, "out"), per_device_train_batch_size=16,
                                           per_device_eval_batch_size=16, max_steps=3, logging_steps=1, eval_steps=3,
                                           save_steps=10 ** 9, warmup_steps=1, learning_rate=1e-4, seed=3)
-    steps_seen = []
-    real_step = BestRQTrainer.train_step
-
-    def watched_step(self, state, batch):
-        t_ = time.perf_counter()
-        state, m = real_step(self, state, batch)
-        torch.cuda.synchronize()
-        steps_seen.append((dict(batch), {k: float(v) for k, v in m.items()}, (time.perf_counter() - t_) * 1e3))
-        return state, m
-
-    BestRQTrainer.train_step = watched_step
-    _build.reset_launch_counts()
+    steps_seen, undo = watch_steps(BestRQTrainer)
     try:
-        p_out = pretrain_cli.run(p_model_args, p_training, PretrainingArguments(), DataConfig(), p_data)
+        p_out, p_launches = count_launches(
+            lambda: pretrain_cli.run(p_model_args, p_training, PretrainingArguments(), DataConfig(), p_data), {})
     finally:
-        BestRQTrainer.train_step = real_step
-    torch.cuda.synchronize()
-    p_launches = dict(_build.LAUNCHES)
+        undo()
     for i, (_, m, ms) in enumerate(steps_seen):
         print(f"  step {i + 1}: loss={m['loss']:.4f} grad_norm={m['grad_norm']:.3f} applied={int(m['step_applied'])} "
               f"num_masked={int(m['num_masked'])} ({m['percent_masked']:.1f} %) {ms:.1f} ms", flush=True)
@@ -2603,6 +2872,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"512-wide phase: {time.perf_counter() - wide_t0:.1f} s", flush=True)
 
+    ssl_launches = ssl_phase(dev, smi)
     aed_launches = aed_phase(dev, rng, smi)
     aed_train_launches = aed_train_phase(dev, smi)
     cli_launches = cli_phase(dev, smi)
@@ -2663,6 +2933,7 @@ def main() -> None:
                 "replaces": replaces, "launches": counts[counter], **results[name],
                 "cli_launches": cli_launches.get(counter, 0),
                 "aed_train_launches": aed_train_launches.get(counter, 0),
+                "ssl_launches": ssl_launches.get(counter, 0),
             })
     print(f"AED path launches a request (K2 and K1): {aed_launches}")
     print(json.dumps({"kernels": kernels}))

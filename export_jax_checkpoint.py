@@ -6,10 +6,15 @@ SRC_DIR is what the JAX package's CLIs write as ``final/``: an orbax
 ``params/`` tree and ``config.json``. DST_DIR receives ``config.json`` (the same
 file) and ``pytorch_model.bin``, a flat state dict with the reference HF key
 names, which ``huggingface_asr_tpu_torch``'s ``load_ctc_model``,
-``load_aed_model`` and ``ASRPipeline`` load with ``strict=True``. A CTC model
-goes through ``interop/export_hf.py::export_ebranchformer_ctc``; a joint
+``load_aed_model`` and ``ASRPipeline`` load with ``strict=True``. A joint
 CTC/attention model (its ``config.json`` nests ``encoder`` and ``decoder``)
-through ``export_joint``. DST_DIR may be SRC_DIR.
+goes through ``interop/export_hf.py::export_joint``; the other trees through
+the port's tables (``huggingface_asr_tpu_torch/interop/from_jax.py``): a CTC
+model, the BEST-RQ fine-tuning adapters included; and the trees of
+``cli/pretrain.py``, BEST-RQ's (with the frozen quantizer's buffers, which the
+JAX ``final/`` does not hold: the port builds them from the config) and
+wav2vec2's, which ``train_ctc --from_pretrained`` fine-tunes from. DST_DIR may
+be SRC_DIR.
 
 This script imports JAX, so it lives outside both packages; the port itself
 never does.
@@ -27,29 +32,40 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
 def export(src: str, dst: str) -> str:
-    """Write ``dst/config.json`` and ``dst/pytorch_model.bin``; returns the kind ("ctc" or "joint")."""
-    from huggingface_asr_tpu.interop.export_hf import (
-        export_ebranchformer_ctc,
-        export_joint,
-        save_torch_checkpoint,
-    )
-    from huggingface_asr_tpu.models.configs import EBranchformerConfig
+    """Write ``dst/config.json`` and ``dst/pytorch_model.bin``; returns the
+    kind ("ctc", "joint", "bestrq" or "wav2vec2")."""
+    import jax
+    import numpy as np
+    import torch
+
+    from huggingface_asr_tpu.interop.export_hf import export_joint, save_torch_checkpoint
     from huggingface_asr_tpu.models.joint_ctc_aed import JointCTCAttentionConfig
     from huggingface_asr_tpu.training.model_factory import load_config, load_params
+    from huggingface_asr_tpu_torch.interop import from_jax
+    from huggingface_asr_tpu_torch.models.bestrq import make_bestrq_buffers
+    from huggingface_asr_tpu_torch.training.model_factory import load_config as load_port_config
 
     with open(os.path.join(src, "config.json")) as f:
         joint = {"encoder", "decoder"} <= set(json.load(f))
-    params = load_params(src)
-    if joint:
-        cfg = load_config(src, JointCTCAttentionConfig)
-        state = export_joint(params, cfg.encoder, cfg.decoder)
-    else:
-        state = export_ebranchformer_ctc(params, load_config(src, EBranchformerConfig))
+    params = jax.tree.map(np.asarray, load_params(src))
     os.makedirs(dst, exist_ok=True)
     if os.path.abspath(src) != os.path.abspath(dst):
         shutil.copy(os.path.join(src, "config.json"), os.path.join(dst, "config.json"))
-    save_torch_checkpoint(state, os.path.join(dst, "pytorch_model.bin"))
-    return "joint" if joint else "ctc"
+    out = os.path.join(dst, "pytorch_model.bin")
+    if joint:
+        cfg = load_config(src, JointCTCAttentionConfig)
+        save_torch_checkpoint(export_joint(params, cfg.encoder, cfg.decoder), out)
+        return "joint"
+    cfg = load_port_config(dst)
+    if "quantizer" in params:
+        kind, state = "wav2vec2", from_jax.wav2vec2_state_dict_from_flax(params, cfg)
+    elif "lm_head" not in params:
+        kind, state = "bestrq", {**from_jax.pretraining_state_dict_from_flax({"params": params}, cfg),
+                                 **{f"rpq.{k}": v for k, v in make_bestrq_buffers(cfg).items()}}
+    else:
+        kind, state = "ctc", from_jax.state_dict_from_flax(params, cfg)
+    torch.save(state, out)
+    return kind
 
 
 def main(argv=None) -> None:

@@ -1,21 +1,24 @@
 """SSL pretraining entry point (counterpart of ``huggingface_asr_tpu/cli/pretrain.py``;
 reference: src/trainers/pretrain.py).
 
-BEST-RQ pretraining of the E-Branchformer encoder: bucketed batches of raw
-waveforms, mask spans sampled on the host for every batch
-(``make_ssl_batch_fn``, reference collators.py:109-253), then
-``BestRQTrainer`` steps on the device (log-mel, the frozen quantizer's
-targets, the encoder with the masked frames replaced by noise, the
-classifiers' cross entropy), a periodic evaluation loss, checkpoints and
-``final/`` (``config.json`` + ``pytorch_model.bin``, the quantizer's buffers
-included). No SpecAugment: the span masks take its place.
+BEST-RQ or wav2vec2-contrastive pretraining of the E-Branchformer encoder:
+bucketed batches of raw waveforms, mask spans (and, for wav2vec2, negative
+indices) sampled on the host for every batch (``make_ssl_batch_fn``,
+reference collators.py:109-253), then trainer steps on the device:
+``BestRQTrainer`` (log-mel, the frozen quantizer's targets, the encoder with
+the masked frames replaced by noise, the classifiers' cross entropy) or
+``Wav2Vec2SSLTrainer`` (log-mel, the encoder with the learned mask embedding,
+the Gumbel quantizer at the step's temperature, the contrastive and diversity
+losses); a periodic evaluation loss, checkpoints and ``final/``
+(``config.json`` + ``pytorch_model.bin``, BEST-RQ's quantizer buffers
+included). No SpecAugment: the span masks take its place. ``train_ctc
+--from_pretrained`` fine-tunes the encoder of a BEST-RQ ``final/``.
 
 ``main(argv)`` parses the arguments and loads the dataset (through
 ``datasets``); ``run`` does the rest, for a caller that brings its own
 dataset mapping (split -> a table with ``len``, rows and columns, such as
-``data.datasets.ColumnTable``). ``--pretraining_objective wav2vec2`` raises
-(ROADMAP.md Queue 1 item 10). ``--device cpu`` runs on the CPU; the default
-is the card.
+``data.datasets.ColumnTable``). ``--device cpu`` runs on the CPU; the
+default is the card.
 
     python -m huggingface_asr_tpu_torch.cli.pretrain --dataset_name DIR --load_from_disk \\
         --model_config configs/ebranchformer_90m_ssl.json --output_dir out [--device cpu]
@@ -45,14 +48,15 @@ from huggingface_asr_tpu_torch.models.ebranchformer import (
     feat_extract_output_lengths,
     init_from_scratch_,
 )
+from huggingface_asr_tpu_torch.models.wav2vec2_ssl import Wav2Vec2ForPreTraining
 from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
-from huggingface_asr_tpu_torch.ops.masking import compute_mask_indices
+from huggingface_asr_tpu_torch.ops.masking import compute_mask_indices, sample_negative_indices
 from huggingface_asr_tpu_torch.training.arguments import (
     GeneralTrainingArguments,
     ModelArguments,
     PretrainingArguments,
 )
-from huggingface_asr_tpu_torch.training.loop import BestRQTrainer
+from huggingface_asr_tpu_torch.training.loop import BestRQTrainer, Wav2Vec2SSLTrainer
 from huggingface_asr_tpu_torch.training.model_factory import save_params
 from huggingface_asr_tpu_torch.utils.argparsing import DataclassArgumentParser
 from huggingface_asr_tpu_torch.utils.device import resolve_device
@@ -64,11 +68,11 @@ logger = logging.getLogger(__name__)
 def make_ssl_batch_fn(config: EBranchformerConfig, pretrain_args: PretrainingArguments,
                       frontend_cfg: LogMelConfig, seed: int = 0):
     """Add ``mask_time_indices`` (B, T_enc) to collated batches: span masks
-    over the encoder frames of each utterance's valid length, from one
+    over the encoder frames of each utterance's valid length, and for
+    wav2vec2 ``sampled_negative_indices`` (B, T_enc, num_negatives), from one
     ``np.random.default_rng(seed)`` stream, as the JAX function draws them."""
-    if pretrain_args.pretraining_objective != "bestrq":
-        raise NotImplementedError(_WAV2VEC2)
     rng = np.random.default_rng(seed)
+    is_w2v2 = pretrain_args.pretraining_objective == "wav2vec2"
 
     def fn(batch):
         wav_lens = np.asarray(batch["input_values_lengths"])
@@ -76,7 +80,7 @@ def make_ssl_batch_fn(config: EBranchformerConfig, pretrain_args: PretrainingArg
         enc_lens = np.asarray(feat_extract_output_lengths(config, mel_lens))
         S = batch["input_values"].shape[1]
         T_enc = int(feat_extract_output_frames(config, int(frontend_cfg.num_frames(S))))
-        batch["mask_time_indices"] = compute_mask_indices(
+        mask = compute_mask_indices(
             (len(wav_lens), T_enc),
             pretrain_args.mask_time_prob,
             pretrain_args.mask_time_length,
@@ -84,33 +88,40 @@ def make_ssl_batch_fn(config: EBranchformerConfig, pretrain_args: PretrainingArg
             min_masks=pretrain_args.min_masks,
             rng=rng,
         )
+        batch["mask_time_indices"] = mask
+        if is_w2v2:
+            batch["sampled_negative_indices"] = sample_negative_indices(mask, config.num_negatives, rng=rng)
         return batch
 
     return fn
 
 
-_WAV2VEC2 = ("--pretraining_objective wav2vec2 (Gumbel-quantizer contrastive pretraining) is not ported yet "
-             "(ROADMAP.md Queue 1 item 10); bestrq is")
-
-
-def build_model(model_args: ModelArguments, seed: int) -> BestRQForPreTraining:
-    """``--model_config``'s model (else the default config) with the Flax
-    init's distributions: the encoder as ``init_from_scratch_`` draws it, the
-    classifiers lecun_normal (Flax's Dense default), every bias 0."""
+def build_model(model_args: ModelArguments, seed: int, objective: str = "bestrq"):
+    """``--model_config``'s model (else the default config) for ``objective``
+    with the Flax init's distributions: the encoder as ``init_from_scratch_``
+    draws it; BEST-RQ's classifiers, or wav2vec2's ``weight_proj``,
+    ``project_hid`` and ``project_q``, lecun_normal (Flax's Dense default);
+    every bias 0; wav2vec2's ``masked_spec_embed`` and ``codevectors``
+    uniform on [0, 1)."""
+    if objective not in ("bestrq", "wav2vec2"):
+        raise ValueError(f"unknown pretraining_objective {objective!r} (bestrq | wav2vec2)")
     if model_args.model_config:
         with open(model_args.model_config) as f:
             config = EBranchformerConfig.from_dict(json.load(f))
     else:
         config = EBranchformerConfig()
+    generator = torch.Generator().manual_seed(seed)
+    if objective == "wav2vec2":
+        model = Wav2Vec2ForPreTraining(config)
+        return init_from_scratch_(model, generator,
+                                  lecun_linears=(model.quantizer.weight_proj, model.project_hid, model.project_q))
     model = BestRQForPreTraining(config)
-    return init_from_scratch_(model, torch.Generator().manual_seed(seed), lecun_linears=model.classifiers)
+    return init_from_scratch_(model, generator, lecun_linears=model.classifiers)
 
 
 def main(argv=None):
     parser = DataclassArgumentParser([ModelArguments, GeneralTrainingArguments, PretrainingArguments, DataConfig])
     model_args, training, pretrain_args, data_cfg = parser.parse_args_into_dataclasses(argv)
-    if pretrain_args.pretraining_objective != "bestrq":
-        raise NotImplementedError(_WAV2VEC2)
     setup_logging(training.output_dir)
     return run(model_args, training, pretrain_args, data_cfg, get_dataset(data_cfg))
 
@@ -124,16 +135,22 @@ def run(
 ) -> Dict[str, Any]:
     """Pretrain, then write the last checkpoint and ``final/``; returns
     ``{"trainer", "state"}``."""
-    if pretrain_args.pretraining_objective != "bestrq":
-        raise NotImplementedError(_WAV2VEC2)
     device = resolve_device(model_args.device)
-    model = build_model(model_args, training.seed)
+    objective = pretrain_args.pretraining_objective
+    model = build_model(model_args, training.seed, objective)
     config = model.config
 
     frontend_cfg = LogMelConfig(num_mel_bins=config.num_fbanks)
-    trainer_cfg = dataclasses.replace(build_trainer_config(training), spec_augment=None)
-    trainer = BestRQTrainer(model, trainer_cfg, frontend=LogMelFrontEnd(frontend_cfg), device=device,
-                            dtype=model_args.dtype)
+    trainer_cfg = dataclasses.replace(
+        build_trainer_config(training),
+        spec_augment=None,
+        gumbel_temperature_start=pretrain_args.gumbel_temperature_start,
+        gumbel_temperature_end=pretrain_args.gumbel_temperature_end,
+        gumbel_temperature_decay=pretrain_args.gumbel_temperature_decay,
+    )
+    trainer_cls = Wav2Vec2SSLTrainer if objective == "wav2vec2" else BestRQTrainer
+    trainer = trainer_cls(model, trainer_cfg, frontend=LogMelFrontEnd(frontend_cfg), device=device,
+                          dtype=model_args.dtype)
 
     collator = SpeechCollator(CollatorConfig(bucketing=BucketingConfig(
         batch_size=training.per_device_train_batch_size,

@@ -4,7 +4,9 @@
 Flow: parse arg groups -> get_dataset -> tokenizer -> model (from
 ``--model_config`` / ``--from_pretrained`` with the tokenizer's vocabulary and
 ``--config_overrides``; the Flax-matching ``init_from_scratch_`` when nothing
-is loaded) -> bucketed batches of raw waveforms -> ``CTCTrainer`` steps on the
+is loaded; from an SSL pretraining ``final/``, its encoder grafted under the
+fresh head, with the BEST-RQ adapters where ``--config_overrides`` sets them)
+-> bucketed batches of raw waveforms -> ``CTCTrainer`` steps on the
 device (log-mel + SpecAugment + E-Branchformer + fp32 CTC) -> periodic
 greedy-WER eval -> checkpoints -> ``final/`` (``config.json`` +
 ``pytorch_model.bin``) -> final per-test-split evaluation (CSV and ``.trn``).
@@ -58,6 +60,7 @@ from huggingface_asr_tpu_torch.training.arguments import (
 from huggingface_asr_tpu_torch.training.loop import CTCTrainer, TrainerConfig
 from huggingface_asr_tpu_torch.training.model_factory import (
     apply_config_overrides,
+    graft_pretrained_encoder,
     instantiate_ctc_model,
     load_config,
     save_params,
@@ -152,11 +155,10 @@ def run(
         from_pretrained=model_args.from_pretrained,
         from_hf_checkpoint=model_args.from_hf_checkpoint,
     )
-    if state_dict is None:
+    if state_dict is None or "lm_head.weight" not in state_dict:
         init_from_scratch_(model, torch.Generator().manual_seed(training.seed))
-    elif "lm_head.weight" not in state_dict:
-        raise NotImplementedError("an encoder-only (SSL pretraining) checkpoint under a fresh CTC head comes "
-                                  "with the SSL slice (ROADMAP.md Queue 1 item 10)")
+        if state_dict is not None:  # an SSL pretraining checkpoint: its encoder under the fresh head
+            graft_pretrained_encoder(model, state_dict)
     else:
         model.load_state_dict(state_dict, strict=True)
 

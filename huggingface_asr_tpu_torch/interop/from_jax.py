@@ -10,11 +10,14 @@ so gradients and trained weights can go back for comparison.
 
 Both walk one table of (Flax path, state-dict key, layout change). The
 decoder's table (``decoder_param_table``) mirrors ``export_gpt2_decoder``, the
-joint model's (``joint_param_table``) ``export_joint``, and BEST-RQ
+joint model's (``joint_param_table``) ``export_joint``, BEST-RQ
 pretraining's (``pretraining_param_table``) the tree of
 ``huggingface_asr_tpu/models/bestrq.py``: the encoder under ``wav2vec2``, one
 ``classifiers_{k}`` Dense a book, and the frozen quantizer in the ``buffers``
-collection. Each has the same pair of functions.
+collection; and wav2vec2 pretraining's (``wav2vec2_param_table``) the tree of
+``huggingface_asr_tpu/models/wav2vec2_ssl.py``: the encoder with
+``masked_spec_embed``, the quantizer's ``codevectors`` and ``weight_proj``,
+``project_hid`` and ``project_q``. Each has the same pair of functions.
 """
 
 from __future__ import annotations
@@ -54,8 +57,36 @@ def _conv(path, key, kind) -> Iterator[Entry]:
     yield path + ("bias",), f"{key}.bias", "same"
 
 
+def _layer_entries(L: Tuple[str, ...], p: str, cfg: EBranchformerConfig) -> Iterator[Entry]:
+    """One E-Branchformer layer at Flax path ``L`` and state-dict prefix ``p``."""
+    if cfg.use_macaron_ff:
+        for ff in ("ff1", "ff2"):
+            yield from _ln(L + (f"{ff}_layer_norm",), f"{p}.{ff}.0")
+            yield from _dense(L + (ff, "intermediate_dense"), f"{p}.{ff}.1.intermediate_dense")
+            yield from _dense(L + (ff, "output_dense"), f"{p}.{ff}.1.output_dense")
+    yield from _ln(L + ("self_attn_layer_norm",), f"{p}.self_attn_layer_norm")
+    for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+        yield from _dense(L + ("self_attn", name), f"{p}.self_attn.{name}")
+    if cfg.position_embeddings_type == "relative":
+        yield from _dense(L + ("self_attn", "linear_pos"), f"{p}.self_attn.linear_pos", bias=False)
+        yield L + ("self_attn", "pos_bias_u"), f"{p}.self_attn.pos_bias_u", "same"
+        yield L + ("self_attn", "pos_bias_v"), f"{p}.self_attn.pos_bias_v", "same"
+    yield from _ln(L + ("cgMLP_layer_norm",), f"{p}.cgMLP_layer_norm")
+    yield from _dense(L + ("cgMLP", "channel_proj1"), f"{p}.cgMLP.channel_proj1.0")
+    yield from _ln(L + ("cgMLP", "csgu", "norm"), f"{p}.cgMLP.csgu.norm")
+    yield from _conv(L + ("cgMLP", "csgu", "conv"), f"{p}.cgMLP.csgu.conv", "conv1d")
+    if cfg.csgu_use_linear_after_conv:
+        yield from _dense(L + ("cgMLP", "csgu", "linear"), f"{p}.cgMLP.csgu.linear")
+    yield from _dense(L + ("cgMLP", "channel_proj2"), f"{p}.cgMLP.channel_proj2")
+    yield from _conv(L + ("depthwise_conv_fusion",), f"{p}.depthwise_conv_fusion", "conv1d")
+    yield from _dense(L + ("merge_proj",), f"{p}.merge_proj")
+    yield from _ln(L + ("final_layer_norm",), f"{p}.final_layer_norm")
+
+
 def param_table(cfg: EBranchformerConfig) -> Iterator[Entry]:
-    """Every parameter of the CTC model as (Flax path, state-dict key, layout change)."""
+    """Every parameter of the CTC model as (Flax path, state-dict key, layout
+    change), the BEST-RQ fine-tuning adapters included where the config sets
+    them (``per_layer_weights``; ``additional_layer``, a layer's entries)."""
     w = ("wav2vec2",)
     for i in range(len(cfg.conv_dim)):
         yield from _conv(w + ("feature_extractor", f"conv_{i}"),
@@ -65,29 +96,11 @@ def param_table(cfg: EBranchformerConfig) -> Iterator[Entry]:
     yield from _dense(w + ("feature_projection", "projection"), "wav2vec2.feature_projection.projection")
     yield from _ln(w + ("encoder", "layer_norm"), "wav2vec2.encoder.layer_norm")
     for i in range(cfg.num_hidden_layers):
-        L, p = w + ("encoder", f"layers_{i}"), f"wav2vec2.encoder.layers.{i}"
-        if cfg.use_macaron_ff:
-            for ff in ("ff1", "ff2"):
-                yield from _ln(L + (f"{ff}_layer_norm",), f"{p}.{ff}.0")
-                yield from _dense(L + (ff, "intermediate_dense"), f"{p}.{ff}.1.intermediate_dense")
-                yield from _dense(L + (ff, "output_dense"), f"{p}.{ff}.1.output_dense")
-        yield from _ln(L + ("self_attn_layer_norm",), f"{p}.self_attn_layer_norm")
-        for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
-            yield from _dense(L + ("self_attn", name), f"{p}.self_attn.{name}")
-        if cfg.position_embeddings_type == "relative":
-            yield from _dense(L + ("self_attn", "linear_pos"), f"{p}.self_attn.linear_pos", bias=False)
-            yield L + ("self_attn", "pos_bias_u"), f"{p}.self_attn.pos_bias_u", "same"
-            yield L + ("self_attn", "pos_bias_v"), f"{p}.self_attn.pos_bias_v", "same"
-        yield from _ln(L + ("cgMLP_layer_norm",), f"{p}.cgMLP_layer_norm")
-        yield from _dense(L + ("cgMLP", "channel_proj1"), f"{p}.cgMLP.channel_proj1.0")
-        yield from _ln(L + ("cgMLP", "csgu", "norm"), f"{p}.cgMLP.csgu.norm")
-        yield from _conv(L + ("cgMLP", "csgu", "conv"), f"{p}.cgMLP.csgu.conv", "conv1d")
-        if cfg.csgu_use_linear_after_conv:
-            yield from _dense(L + ("cgMLP", "csgu", "linear"), f"{p}.cgMLP.csgu.linear")
-        yield from _dense(L + ("cgMLP", "channel_proj2"), f"{p}.cgMLP.channel_proj2")
-        yield from _conv(L + ("depthwise_conv_fusion",), f"{p}.depthwise_conv_fusion", "conv1d")
-        yield from _dense(L + ("merge_proj",), f"{p}.merge_proj")
-        yield from _ln(L + ("final_layer_norm",), f"{p}.final_layer_norm")
+        yield from _layer_entries(w + ("encoder", f"layers_{i}"), f"wav2vec2.encoder.layers.{i}", cfg)
+    if cfg.finetune_with_layer_mixing:
+        yield ("per_layer_weights",), "per_layer_weights", "same"
+    if cfg.finetune_with_additional_layer:
+        yield from _layer_entries(("additional_layer",), "additional_layer", cfg)
     yield from _dense(("lm_head",), "lm_head")
     yield from _dense(("blank_projection",), "blank_projection")
 
@@ -277,3 +290,27 @@ def pretraining_flax_tree_from_state_dict(sd: Mapping[str, Any], cfg: EBranchfor
     if "rpq.P" in sd:
         out["buffers"] = _to_tree(sd, _PRETRAINING_BUFFERS)
     return out
+
+
+def wav2vec2_param_table(cfg: EBranchformerConfig) -> Iterator[Entry]:
+    """Every parameter of ``Wav2Vec2ForPreTraining``: the CTC model's encoder
+    entries, ``masked_spec_embed``, the quantizer and the two projections."""
+    yield from (e for e in param_table(cfg) if e[0][0] == "wav2vec2")
+    yield ("wav2vec2", "masked_spec_embed"), "wav2vec2.masked_spec_embed", "same"
+    yield ("quantizer", "codevectors"), "quantizer.codevectors", "same"
+    yield from _dense(("quantizer", "weight_proj"), "quantizer.weight_proj")
+    yield from _dense(("project_hid",), "project_hid")
+    yield from _dense(("project_q",), "project_q")
+
+
+def wav2vec2_state_dict_from_flax(params: Mapping[str, Any], cfg: EBranchformerConfig) -> Dict[str, torch.Tensor]:
+    """Flax ``Wav2Vec2ForPreTraining`` params -> float32 state dict of
+    ``models/wav2vec2_ssl.py::Wav2Vec2ForPreTraining``."""
+    _refuse_gated(params, cfg)
+    return _to_state_dict(params, wav2vec2_param_table(cfg))
+
+
+def wav2vec2_flax_tree_from_state_dict(sd: Mapping[str, Any], cfg: EBranchformerConfig) -> Dict[str, Any]:
+    """The inverse of ``wav2vec2_state_dict_from_flax`` (gradients keyed by
+    parameter name go back the same way)."""
+    return _to_tree(sd, wav2vec2_param_table(cfg))

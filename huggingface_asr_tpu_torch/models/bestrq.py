@@ -203,8 +203,8 @@ class BestRQForPreTraining(nn.Module):
             mask_noise = 0.1 * torch.randn(B, T_enc, cfg.hidden_size, generator=generator,
                                            device=input_features.device, dtype=torch.float32)
         mask = mask_time_indices.to(torch.bool)
-        hidden, lengths, _ = self.wav2vec2(input_features.to(dtype), input_lengths, rng,
-                                           mask_time_indices=mask, mask_noise=mask_noise.to(dtype))
+        hidden, lengths, _, _ = self.wav2vec2(input_features.to(dtype), input_lengths, rng,
+                                              mask_time_indices=mask, mask_noise=mask_noise.to(dtype))
         logits = torch.stack([_lin(c, hidden) for c in self.classifiers])  # (K, B, T, V)
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, targets.transpose(0, 1)[..., None])[..., 0]  # (K, B, T)

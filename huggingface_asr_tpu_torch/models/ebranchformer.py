@@ -27,10 +27,11 @@ run their kernels or raise (a model the kernels do not take trains with
 also the float32 reference that the fused path (``models/fast_infer.py``) is
 held against. Supported: the plain 2-D conv front end, non-causal
 self-attention with relative positions (or none), macaron FFs, cgMLP/CSGU
-and the merge block, and the SSL masking hook with BEST-RQ's noise
-(``models/bestrq.py``). The gated conv front ends, causal models, rotary
-positions, wav2vec2's learned mask embedding and the BEST-RQ fine-tuning
-adapters raise ``NotImplementedError``.
+and the merge block, the SSL masking hook (BEST-RQ's noise,
+``models/bestrq.py``, or wav2vec2's learned ``masked_spec_embed``,
+``models/wav2vec2_ssl.py``) and the BEST-RQ fine-tuning adapters (layer
+mixing, one additional layer). The gated conv front ends, causal models and
+rotary positions raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -214,7 +215,10 @@ class FeatureProjection(nn.Module):
         self.dropout = cfg.feat_proj_dropout
 
     def forward(self, x, rng: Optional[DropoutRng] = None):
-        return _drop(rng, _lin(self.projection, _ln(self.layer_norm, x)), self.dropout)
+        """(projection, its LayerNorm input): the second is what wav2vec2's
+        quantizer reads (``extract_features``)."""
+        norm = _ln(self.layer_norm, x)
+        return _drop(rng, _lin(self.projection, norm), self.dropout), norm
 
 
 class EBranchformerSelfAttention(nn.Module):
@@ -405,11 +409,17 @@ class EBranchformerEncoder(nn.Module):
 
 
 class EBranchformerModel(nn.Module):
-    def __init__(self, cfg: EBranchformerConfig):
+    """``masked_spec_embed``: give the encoder wav2vec2's learned mask
+    embedding (only ``Wav2Vec2ForPreTraining`` builds one, as only the Flax
+    tree called with masks and no noise has that parameter)."""
+
+    def __init__(self, cfg: EBranchformerConfig, masked_spec_embed: bool = False):
         super().__init__()
         self.config = cfg
         self.feature_extractor = Conv2dFeatureExtractor(cfg)
         self.feature_projection = FeatureProjection(cfg)
+        if masked_spec_embed:
+            self.masked_spec_embed = nn.Parameter(torch.rand(cfg.hidden_size))
         self.encoder = EBranchformerEncoder(cfg)
 
     def forward(self, input_features, input_lengths, rng: Optional[DropoutRng] = None,
@@ -417,15 +427,18 @@ class EBranchformerModel(nn.Module):
                 mask_noise: Optional[torch.Tensor] = None):
         """``mask_time_indices`` (B, T_enc) bool: the SSL masking hook, which
         replaces the masked frames after the feature projection by
-        ``mask_noise`` (B, T_enc, hidden), BEST-RQ's noise. The learned
-        ``masked_spec_embed`` that wav2vec2 pretraining puts there instead is
-        not ported."""
+        ``mask_noise`` (B, T_enc, hidden), BEST-RQ's noise, or else by the
+        learned ``masked_spec_embed`` cast to the compute dtype. Returns the
+        final state, the CTC lengths, the hidden states (or None) and the
+        feature projection's LayerNorm output (``extract_features``)."""
         cfg = self.config
-        hidden = self.feature_projection(self.feature_extractor(input_features), rng)
+        hidden, extract_features = self.feature_projection(self.feature_extractor(input_features), rng)
         if mask_time_indices is not None:
             if mask_noise is None:
-                raise NotImplementedError("masked_spec_embed (wav2vec2 pretraining's learned mask embedding) is not "
-                                          "ported yet: pass mask_noise (BEST-RQ)")
+                if not hasattr(self, "masked_spec_embed"):
+                    raise ValueError("masking without mask_noise needs masked_spec_embed: build the encoder with "
+                                     "masked_spec_embed=True (wav2vec2 pretraining)")
+                mask_noise = self.masked_spec_embed
             hidden = torch.where(mask_time_indices[..., None], mask_noise.to(hidden.dtype), hidden)
         T = hidden.shape[1]
         # Encoder masking uses the true padded-conv frame count; the RETURNED
@@ -434,20 +447,32 @@ class EBranchformerModel(nn.Module):
         out_lengths = torch.clamp(feat_extract_output_lengths(cfg, input_lengths), 0, T)
         last, all_hidden = self.encoder(hidden, lengths_to_mask(enc_lengths, T), enc_lengths.to(torch.int32),
                                         rng, output_hidden_states)
-        return last, out_lengths.to(torch.int32), all_hidden
+        return last, out_lengths.to(torch.int32), all_hidden, extract_features
 
 
 class EBranchformerForCTC(nn.Module):
-    """Encoder + vocab head + separate blank projection (the LAST logit)."""
+    """Encoder + vocab head + separate blank projection (the LAST logit),
+    with BEST-RQ's fine-tuning adapters where the config sets them:
+
+    - ``finetune_with_layer_mixing``: the heads read the softmax of
+      ``per_layer_weights`` over the L + 1 hidden states (stacked and mixed in
+      fp32, then cast to the compute dtype), initialised to select the last;
+    - ``finetune_with_additional_layer``: one more E-Branchformer layer on
+      top. The Flax model calls it without ``lengths``, so it always takes
+      the plain attention with the additive mask; so does this (no K4/K5).
+    """
 
     def __init__(self, cfg: EBranchformerConfig):
         super().__init__()
         if cfg.is_causal:
             raise NotImplementedError("causal E-Branchformer is not ported yet")
-        if cfg.finetune_with_layer_mixing or cfg.finetune_with_additional_layer:
-            raise NotImplementedError("BEST-RQ fine-tuning adapters are not ported yet")
         self.config = cfg
         self.wav2vec2 = EBranchformerModel(cfg)
+        if cfg.finetune_with_layer_mixing:
+            self.per_layer_weights = nn.Parameter(F.one_hot(torch.tensor(cfg.num_hidden_layers),
+                                                            cfg.num_hidden_layers + 1).float())
+        if cfg.finetune_with_additional_layer:
+            self.additional_layer = EBranchformerEncoderLayer(cfg)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size)
         self.blank_projection = nn.Linear(cfg.hidden_size, 1)
 
@@ -463,14 +488,25 @@ class EBranchformerForCTC(nn.Module):
         B, T_in, _ = input_features.shape
         if input_lengths is None:
             input_lengths = torch.full((B,), T_in, dtype=torch.int32, device=input_features.device)
-        hidden, lengths, all_hidden = self.wav2vec2(input_features, input_lengths, rng, output_hidden_states)
+        cfg = self.config
+        hidden, lengths, all_hidden, _ = self.wav2vec2(input_features, input_lengths, rng,
+                                                       output_hidden_states or cfg.finetune_with_layer_mixing)
+        if cfg.finetune_with_layer_mixing:
+            mix = torch.softmax(self.per_layer_weights.float(), dim=0)[:, None, None, None]
+            hidden = torch.sum(torch.stack(all_hidden).float() * mix, dim=0).to(hidden.dtype)
+        if cfg.finetune_with_additional_layer:
+            # masked with the CTC lengths, as the Flax model does
+            mask = lengths_to_mask(lengths, hidden.shape[1])
+            bias = torch.where(mask, 0.0, NEG_INF)[:, None, None, :].float()
+            hidden = self.additional_layer(torch.where(mask[..., None], hidden, 0.0), bias, None, rng)
         hidden = _drop(rng, hidden, self.final_dropout)
         logits = torch.cat([_lin(self.lm_head, hidden), _lin(self.blank_projection, hidden)], dim=-1)
         loss = None
         if labels is not None:
             loss = ctc_loss(logits.float(), lengths, labels, label_lengths, blank_id=-1,
                             reduction=self.config.ctc_loss_reduction)
-        return CTCOutput(logits=logits, logit_lengths=lengths, loss=loss, hidden_states=all_hidden)
+        return CTCOutput(logits=logits, logit_lengths=lengths, loss=loss,
+                         hidden_states=all_hidden if output_hidden_states else None)
 
 
 @torch.no_grad()
@@ -524,13 +560,17 @@ def init_from_scratch_(model: "EBranchformerForCTC", generator: torch.Generator,
       depthwise convs) lecun_normal over its fan-in (input channels per group
       x kernel taps), Flax's ``nn.Conv`` default;
     - every bias 0, the attention's ``pos_bias_u`` / ``pos_bias_v`` 0, every
-      LayerNorm scale 1 and bias 0.
+      LayerNorm scale 1 and bias 0;
+    - ``per_layer_weights`` (layer mixing) one-hot on the last entry; the
+      additional layer as the encoder's layers;
+    - wav2vec2's ``masked_spec_embed`` and quantizer ``codevectors``
+      uniform on [0, 1).
 
     The draws come from ``generator`` on the CPU, in ``named_parameters``
     order, and are copied into place; a parameter of another kind raises.
     ``lecun_linears``: further Dense layers that keep Flax's default (BEST-RQ's
-    classifiers). ``model`` is any module with a ``config`` and a ``wav2vec2``
-    encoder.
+    classifiers; wav2vec2's ``weight_proj``, ``project_hid``, ``project_q``).
+    ``model`` is any module with a ``config`` and a ``wav2vec2`` encoder.
 
     Caveat (b) of ROADMAP.md follows from the zero conv biases: a frame that
     SpecAugment's time mask zeroed stays exactly zero through the front end,
@@ -554,6 +594,10 @@ def init_from_scratch_(model: "EBranchformerForCTC", generator: torch.Generator,
         for name, p in own.items():
             if name == "bias" or name in ("pos_bias_u", "pos_bias_v"):
                 p.zero_()
+            elif name == "per_layer_weights":
+                p.copy_(F.one_hot(torch.tensor(p.numel() - 1), p.numel()).float())
+            elif name in ("masked_spec_embed", "codevectors"):
+                p.copy_(torch.rand(p.shape, generator=generator, dtype=torch.float32))
             elif name == "weight" and isinstance(module, nn.Linear) and id(module) not in lecun_dense:
                 p.copy_(std * torch.randn(p.shape, generator=generator, dtype=torch.float32))
             elif name == "weight" and isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):

@@ -154,7 +154,7 @@ def ctc_infer(fused: FusedCTC, input_features: torch.Tensor, input_lengths: torc
         # kernel of its own), padded with zero frames to T_pad
         extractor, projection = fused.front_end
         with torch.no_grad():
-            hidden = projection(extractor(input_features.to(torch.bfloat16)))
+            hidden = projection(extractor(input_features.to(torch.bfloat16)))[0]
         hidden = torch.nn.functional.pad(hidden, (0, 0, 0, T_pad - hidden.shape[1]))
 
     # Encoder masking uses the padded-conv frame count; the RETURNED lengths

@@ -23,9 +23,14 @@ masked frames' noise comes from the step's augment stream, the loss is divided
 by the masked-frame count, and the frozen quantizer rides in the model's
 buffers, so the checkpoint saves and restores it with the parameters.
 
+``Wav2Vec2SSLTrainer`` trains wav2vec2 contrastive pretraining
+(``models/wav2vec2_ssl.py``): the batches also carry
+``sampled_negative_indices``, the Gumbel temperature decays a step, and the
+Gumbel draws come from the step's augment stream.
+
 The causal-LM trainer of ``cli/train_clm.py`` sits in that module, as in the
-JAX package. Not ported here: the wav2vec2-SSL, LLM-ASR and Whisper seq2seq
-trainers, meshes and sharded state (one device), profiler capture.
+JAX package. Not ported here: the LLM-ASR and Whisper seq2seq trainers,
+meshes and sharded state (one device), profiler capture.
 """
 
 from __future__ import annotations
@@ -73,6 +78,10 @@ class TrainerConfig:
     metric_for_best: str = "eval_loss"
     # SpecAugment switches on at this global step.
     spec_augment_start_step: int = 0
+    # wav2vec2 SSL (reference GumbelTemperatureCallback, callbacks.py:32-49)
+    gumbel_temperature_start: float = 2.0
+    gumbel_temperature_end: float = 0.5
+    gumbel_temperature_decay: float = 0.999995
 
 
 def _stream_seed(seed: int, step: int, stream: int) -> int:
@@ -350,3 +359,39 @@ class BestRQTrainer(BaseTrainer):
         # the noise of an evaluation step comes from a fixed seed, as the JAX trainer's key(0)
         generator = torch.Generator(device=self.device).manual_seed(0)
         return {"loss": self._forward(batch, generator, None)[1]}
+
+
+class Wav2Vec2SSLTrainer(BaseTrainer):
+    """wav2vec2 contrastive pretraining with a per-step Gumbel temperature
+    decay (JAX ``Wav2Vec2SSLTrainer``). The batches carry
+    ``mask_time_indices`` and ``sampled_negative_indices`` from the input
+    pipeline (``cli/pretrain.py::make_ssl_batch_fn``); the step's Gumbel draws
+    come from its augment generator, seeded from the trainer's seed and the
+    step. The loss and the contrastive loss are divided by
+    ``max(num_masked, 1)``."""
+
+    def gumbel_temperature(self, step: int) -> float:
+        """``max(start * decay ** step, end)`` in float32, as the JAX trainer computes it."""
+        cfg = self.config
+        t = np.float32(cfg.gumbel_temperature_start) * np.float32(cfg.gumbel_temperature_decay) ** np.float32(step)
+        return float(max(t, np.float32(cfg.gumbel_temperature_end)))
+
+    def _forward(self, batch, step: int, generator=None, rng=None):
+        feats, lengths = self._featurize(batch)
+        return self.model(feats, lengths, batch["mask_time_indices"].to(torch.bool),
+                          batch["sampled_negative_indices"], gumbel_temperature=self.gumbel_temperature(step),
+                          rng=rng, generator=generator, dtype=self.dtype)
+
+    def loss_and_metrics(self, batch, aug_gen, dropout_rng, step):
+        out = self._forward(batch, step, aug_gen, dropout_rng)
+        n = torch.clamp(out.num_masked, min=1)
+        return out.loss / n, {
+            "contrastive_loss": out.contrastive_loss.detach() / n,
+            "diversity_loss": out.diversity_loss.detach(),
+            "codevector_perplexity": out.codevector_perplexity.detach(),
+            "gumbel_temperature": torch.tensor(self.gumbel_temperature(step)),
+        }
+
+    def eval_outputs(self, batch):
+        out = self._forward(batch, 0)
+        return {"loss": out.loss / torch.clamp(out.num_masked, min=1)}

@@ -153,6 +153,27 @@ def instantiate_ctc_model(
     return EBranchformerForCTC(config), state
 
 
+def graft_pretrained_encoder(model: EBranchformerForCTC, state: Dict[str, torch.Tensor]) -> EBranchformerForCTC:
+    """Copy an SSL pretraining checkpoint's encoder (its ``wav2vec2.*``
+    entries) into ``model``, whose head and adapters keep their values, as the
+    JAX ``cli/train_ctc.py`` grafts the checkpoint's ``wav2vec2`` subtree with
+    ``jax.tree.map``; the other pretraining entries (BEST-RQ's
+    ``classifiers.*`` and ``rpq.*``, wav2vec2's quantizer and projections) are
+    dropped. The two encoders must hold the same entries, as ``jax.tree.map``
+    demands: a wav2vec2 checkpoint's ``wav2vec2.masked_spec_embed`` has no
+    place in a CTC encoder, and the JAX graft refuses it too (ROADMAP.md
+    caveat (h))."""
+    own = {k for k in model.state_dict() if k.startswith("wav2vec2.")}
+    theirs = {k for k in state if k.startswith("wav2vec2.")}
+    if own != theirs:
+        raise ValueError(f"the pretrained encoder does not match the CTC encoder: entries only in the checkpoint "
+                         f"{sorted(theirs - own)}, only in the model {sorted(own - theirs)} (the JAX package's "
+                         f"graft refuses such a checkpoint too)")
+    missing, unexpected = model.load_state_dict({k: state[k] for k in theirs}, strict=False)
+    assert not unexpected and not any(k.startswith("wav2vec2.") for k in missing)
+    return model
+
+
 def _prefixed(prefix: str, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {f"{prefix}{k}": v for k, v in state.items()}
 

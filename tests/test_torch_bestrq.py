@@ -16,6 +16,8 @@ masking hook of ``models/ebranchformer.py``, the pretraining tree of
   gradient within 1e-4 of its norm;
 - one trainer step, and three steps of ``cli/pretrain.run``, whose masks are
   what the JAX CLI's ``make_ssl_batch_fn`` draws on the same batches.
+
+The wav2vec2 objective is held in ``tests/test_torch_wav2vec2.py``.
 """
 
 import dataclasses
@@ -173,8 +175,10 @@ def test_pretraining_tree_round_trips(tiny):
 
 
 def test_masking_hook_without_noise_names_what_is_missing():
+    """An encoder built without wav2vec2's learned embedding (a CTC or BEST-RQ
+    encoder) has nothing to put in the masked frames without noise."""
     model = EBranchformerModel(EBranchformerConfig(**TINY))
-    with pytest.raises(NotImplementedError, match="masked_spec_embed"):
+    with pytest.raises(ValueError, match="masked_spec_embed"):
         model(torch.zeros(1, 16, 80), torch.tensor([16]), mask_time_indices=torch.ones(1, 4, dtype=torch.bool))
 
 
@@ -262,11 +266,3 @@ def test_pretrain_cli_runs_three_steps_with_jax_masks(tmp_path, monkeypatch):
     for got, ref in zip(handed, want):
         np.testing.assert_array_equal(got, ref)
 
-
-def test_wav2vec2_objective_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pretrain.run(ModelArguments(device="cpu"), GeneralTrainingArguments(output_dir=str(tmp_path)),
-                     PretrainingArguments(pretraining_objective="wav2vec2"), DataConfig(), {})
-    with pytest.raises(NotImplementedError, match="wav2vec2"):
-        pretrain.make_ssl_batch_fn(EBranchformerConfig(**TINY), PretrainingArguments(pretraining_objective="wav2vec2"),
-                                   LogMelConfig())

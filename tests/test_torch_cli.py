@@ -282,18 +282,22 @@ def test_the_cli_modules_need_neither_jax_nor_datasets_nor_transformers():
             "    sys.modules[name] = None\n"
             "import huggingface_asr_tpu_torch.cli.train_ctc as t, huggingface_asr_tpu_torch.cli.evaluate as e\n"
             "import huggingface_asr_tpu_torch.utils.normalizer, huggingface_asr_tpu_torch.data.preprocessing_config\n"
+            "import huggingface_asr_tpu_torch.cli.pretrain as p, huggingface_asr_tpu_torch.models.wav2vec2_ssl\n"
             "import chip_smoke\n"
-            "assert callable(t.run) and callable(e.run) and callable(chip_smoke.cli_phase)\n")
+            "assert callable(t.run) and callable(e.run) and callable(p.run)\n"
+            "assert callable(chip_smoke.cli_phase) and callable(chip_smoke.ssl_phase)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
 
 
-def test_an_encoder_only_checkpoint_raises_until_the_ssl_slice(tmp_path):
-    """A checkpoint without the CTC head (what SSL pretraining writes) names
-    the slice that brings its fine-tuning."""
+def test_an_encoder_only_checkpoint_is_grafted_under_a_fresh_head(tmp_path, monkeypatch):
+    """A checkpoint without the CTC head (what SSL pretraining writes): the
+    encoder comes from it bit for bit, the head from the initialiser, and the
+    run trains (``tests/test_torch_finetune_cli.py`` holds it against JAX)."""
     import shutil
 
     from huggingface_asr_tpu_torch.data.datasets import DataConfig
+    from huggingface_asr_tpu_torch.training import loop
     from huggingface_asr_tpu_torch.training.arguments import (
         GeneralTrainingArguments,
         GenerationArguments,
@@ -303,10 +307,28 @@ def test_an_encoder_only_checkpoint_raises_until_the_ssl_slice(tmp_path):
     src = tmp_path / "encoder_only"
     src.mkdir()
     shutil.copy(os.path.join(GATE_DIR, "config.json"), src / "config.json")
-    torch.save({k: v for k, v in load_state(GATE_DIR).items() if k.startswith("wav2vec2.")},
-               src / "pytorch_model.bin")
-    dataset = {"train": ColumnTable({"audio": [np.zeros(1600, np.float32)], "text": ["a"], "input_len": [0.1]})}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        p_train_ctc.run(ModelArguments(from_pretrained=str(src), device="cpu"),
-                        GeneralTrainingArguments(output_dir=str(tmp_path / "out")), GenerationArguments(),
-                        DataConfig(), dataset, _Tok())
+    encoder = {k: v for k, v in load_state(GATE_DIR).items() if k.startswith("wav2vec2.")}
+    torch.save(encoder, src / "pytorch_model.bin")
+    seen = {}
+    real_fit = loop.CTCTrainer.fit
+
+    def fit(self, state, *a, **k):
+        seen.update({n: v.clone() for n, v in state.model.state_dict().items()})
+        return real_fit(self, state, *a, **k)
+
+    monkeypatch.setattr(loop.CTCTrainer, "fit", fit)
+
+    class Tok(_Tok):
+        def encode(self, text):
+            return [4 + ord(c) % 30 for c in text if c != " "]
+
+    audio = [np.random.default_rng(i).standard_normal(12000).astype(np.float32) * 0.1 for i in range(2)]
+    dataset = {"train": ColumnTable({"audio": audio, "text": ["a b", "c"], "input_len": [0.75, 0.75]})}
+    p_train_ctc.run(ModelArguments(from_pretrained=str(src), device="cpu", dtype="float32"),
+                    GeneralTrainingArguments(output_dir=str(tmp_path / "out"), per_device_train_batch_size=2,
+                                             max_steps=1, logging_steps=1, save_steps=10, warmup_steps=1),
+                    GenerationArguments(), DataConfig(), dataset, Tok())
+    assert all(torch.equal(seen[k], v) for k, v in encoder.items())
+    assert seen["lm_head.weight"].shape[0] == len(_Tok()) and not torch.equal(
+        seen["lm_head.weight"], load_state(GATE_DIR)["lm_head.weight"][:len(_Tok())])
+    assert os.path.exists(tmp_path / "out" / "final" / "pytorch_model.bin")

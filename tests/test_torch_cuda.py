@@ -32,7 +32,7 @@ from huggingface_asr_tpu_torch.kernels.train_attention import (
     rel_attention_train_plain,
 )
 from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
-from huggingface_asr_tpu_torch.models.ebranchformer import EBranchformerForCTC, init_random_
+from huggingface_asr_tpu_torch.models.ebranchformer import EBranchformerForCTC, init_from_scratch_, init_random_
 from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer
 from huggingface_asr_tpu_torch.ops.features import LogMelConfig
 
@@ -948,6 +948,7 @@ def test_port_modules_import_nothing_of_jax():
         "import huggingface_asr_tpu_torch.utils.device, huggingface_asr_tpu_torch.interop.from_jax\n"
         "import huggingface_asr_tpu_torch.serving.pipeline, huggingface_asr_tpu_torch.cli.pretrain\n"
         "import huggingface_asr_tpu_torch.models.bestrq, huggingface_asr_tpu_torch.ops.masking\n"
+        "import huggingface_asr_tpu_torch.models.wav2vec2_ssl, huggingface_asr_tpu_torch.cli.train_ctc\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'huggingface_asr_tpu'))\n"
         "assert not bad, bad\nprint('ok')\n" % repo
@@ -1284,3 +1285,101 @@ def test_decoder_master_and_serving_layouts_agree_on_the_card():
             sa = master(tokens[:, t:t + 1], encoder_lengths=lens, position_offset=pos, cache=ca).logits
             sb = serving(tokens[:, t:t + 1], encoder_lengths=lens, position_offset=pos, cache=cb).logits
             assert torch.equal(sa, sb), t
+
+
+def _wav2vec2_batch(cfg, B=4, T_mel=600, seed=0):
+    from huggingface_asr_tpu_torch.models.ebranchformer import feat_extract_output_frames, feat_extract_output_lengths
+    from huggingface_asr_tpu_torch.ops.masking import compute_mask_indices, sample_negative_indices
+
+    rng = np.random.default_rng(seed)
+    lens = np.asarray([T_mel, 555, 431, 300][:B], np.int32)
+    T_enc = int(feat_extract_output_frames(cfg, T_mel))
+    mask = compute_mask_indices((B, T_enc), 0.65, 10, lengths=feat_extract_output_lengths(cfg, lens), min_masks=2,
+                                rng=rng)
+    return {"input_features": rng.standard_normal((B, T_mel, 80)).astype(np.float32), "input_lengths": lens,
+            "mask_time_indices": mask, "sampled_negative_indices": sample_negative_indices(mask, cfg.num_negatives,
+                                                                                          rng=rng)}
+
+
+def test_wav2vec2_step_on_k4_agrees_with_the_plain_attention():
+    """One Wav2Vec2SSLTrainer step of a 2-layer, 128-wide model from the
+    Flax-matching initialiser (bf16 over fp32 weights, attention dropout 0.1,
+    the quantizer's default widths),
+    attention_impl "pallas": K4 forward and backward once per layer; the same
+    step with the plain attention (the same Gumbel draw: the step's augment
+    stream) gives the loss within 1e-4 and the gradient norm within 1e-3
+    (relative); an evaluation step launches K5 once per layer."""
+    import copy
+
+    from huggingface_asr_tpu_torch.models import ebranchformer as model_module
+    from huggingface_asr_tpu_torch.models.wav2vec2_ssl import Wav2Vec2ForPreTraining
+    from huggingface_asr_tpu_torch.training.loop import TrainerConfig, Wav2Vec2SSLTrainer
+    from huggingface_asr_tpu_torch.training.optim import OptimizerConfig
+
+    dev = _cuda()
+    cfg = dataclasses.replace(CFG, attention_impl="pallas", num_negatives=20)
+    model = Wav2Vec2ForPreTraining(cfg)
+    init_from_scratch_(model, torch.Generator().manual_seed(0),
+                       lecun_linears=(model.quantizer.weight_proj, model.project_hid, model.project_q))
+    twin = copy.deepcopy(model)
+    tcfg = TrainerConfig(optimizer=OptimizerConfig(learning_rate=1e-4, warmup_steps=1, total_steps=10),
+                         spec_augment=None)
+    batch = _wav2vec2_batch(cfg)
+    trainer = Wav2Vec2SSLTrainer(model, tcfg, device=dev, dtype="bfloat16")
+    _build.reset_launch_counts()
+    _, m = trainer.train_step(trainer.init_state(), batch)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["asr_rel_attention_train_fwd"] == 2 and _build.LAUNCHES["asr_rel_attention_train_bwd"] == 2
+    plain = Wav2Vec2SSLTrainer(twin, tcfg, device=dev, dtype="bfloat16")
+    orig = model_module.rel_attention_train
+    model_module.rel_attention_train = rel_attention_train_plain
+    try:
+        _build.reset_launch_counts()
+        _, m_plain = plain.train_step(plain.init_state(), batch)
+        assert not _build.LAUNCHES.get("asr_rel_attention_train_fwd")
+    finally:
+        model_module.rel_attention_train = orig
+    assert int(m["step_applied"]) == 1 and bool(torch.isfinite(m["loss"]))
+    assert abs(float(m["loss"]) - float(m_plain["loss"])) <= 1e-4 * abs(float(m_plain["loss"]))
+    assert abs(float(m["grad_norm"]) - float(m_plain["grad_norm"])) <= 1e-3 * float(m_plain["grad_norm"])
+    assert float(m["contrastive_loss"]) > 0 and float(m["codevector_perplexity"]) > 1
+    _build.reset_launch_counts()
+    assert bool(torch.isfinite(trainer.eval_step(None, batch)["loss"]))
+    assert _build.LAUNCHES["asr_rel_attention_shift"] == 2
+
+
+def test_adapter_model_takes_k4_and_k5_in_the_encoder_layers_only():
+    """A CTC model with both BEST-RQ adapters from the Flax-matching
+    initialiser, attention_impl "pallas": a
+    training step launches K4 once per encoder layer and an inference forward
+    K5 once per encoder layer; the additional layer takes the plain attention
+    (the Flax model calls it without lengths), and the logits match the model
+    on the plain attention throughout."""
+    from huggingface_asr_tpu_torch.training.loop import CTCTrainer, TrainerConfig
+
+    dev = _cuda()
+    cfg = dataclasses.replace(CFG, attention_impl="pallas", finetune_with_layer_mixing=True,
+                              finetune_with_additional_layer=True)
+    model = init_from_scratch_(EBranchformerForCTC(cfg), torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(1)
+    feats = torch.from_numpy(rng.standard_normal((4, 600, 80)).astype(np.float32))
+    lens = torch.tensor([600, 555, 431, 300], dtype=torch.int32)
+    batch = {"input_features": feats.numpy(), "input_lengths": lens.numpy(),
+             "labels": rng.integers(0, 50, (4, 24)).astype(np.int32),
+             "label_lengths": np.asarray([24, 20, 13, 9], np.int32)}
+    trainer = CTCTrainer(model, TrainerConfig(spec_augment=None), device=dev, dtype="bfloat16")
+    _build.reset_launch_counts()
+    _, m = trainer.train_step(trainer.init_state(), batch)
+    torch.cuda.synchronize()
+    assert int(m["step_applied"]) == 1
+    assert _build.LAUNCHES["asr_rel_attention_train_fwd"] == 2 and _build.LAUNCHES["asr_rel_attention_train_bwd"] == 2
+    model.eval()
+    plain = dataclasses.replace(cfg, attention_impl="xla")
+    twin = EBranchformerForCTC(plain).to(dev)
+    twin.load_state_dict(model.state_dict())
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        got = model(feats.to(dev, torch.bfloat16), lens.to(dev)).logits
+        assert _build.LAUNCHES["asr_rel_attention_shift"] == 2
+        ref = twin.eval()(feats.to(dev, torch.bfloat16), lens.to(dev)).logits
+    _close(got, ref, 0.05)
