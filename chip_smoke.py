@@ -177,6 +177,29 @@
    frames; with adapters the plain route, the logged refusal naming the
    adapter, 17 K5 launches a request. Each kernel entry of the JSON line
    gains ``ssl_launches``, its launches in this step.
+16. last, the recipe families at the published widths of
+   ``openai/whisper-small.en`` (12 x 768, 12 heads, FFN 3072, 80 mel bins,
+   1,500 source and 448 target positions, vocabulary 51,864) and GPT-2 small
+   (12 x 768, 12 heads, 1,024 positions, vocabulary 50,257), from seeded
+   weights drawn as HF initialises them (``reference_init_``) and loaded
+   through ``--from_pretrained``, bf16 over fp32 weights, stand-in tokenizers
+   and label rows of 100-150 ids: (a) ``train_ctc.run --model_family
+   whisper_ctc`` 3 steps at B=16 x 9.3-10 s, every step applied; ``evaluate.run
+   --model_type whisper_ctc`` on its ``final/`` (B=8 x 10 s) with
+   ``--fused_encoder on`` (one mel and one cmvn launch a batch) and ``off``
+   (none); the two routes' CTC logits within 0.05 of scale and their greedy ids
+   equal on >= 98 % of the valid frames; a ``learnable_blank_head`` model 2
+   steps, its frozen vocabulary kernel bit-equal after them; (b)
+   ``train_aed.run --model_family whisper`` 3 steps at B=16 with forced ids,
+   then ``generate_whisper`` on its ``final/`` at B=8 x 10 s, 5 beams,
+   max_length 32, two forced ids and 200 suppressed tokens: no suppressed
+   token in any hypothesis, every forced position held, ms a decode step; (c)
+   ``train_ctc.run --model_family llm_asr`` 2 steps at B=8 (16 soft prompts,
+   ctc_weight 0.3), ``evaluate.run --model_type llm_asr`` (16 greedy tokens)
+   through both front ends, and the first-step LLM logits of the two front
+   ends within 0.05 of scale under one CTC plan that keeps every valid frame.
+   Each kernel entry of the JSON line gains ``recipe_launches``, its launches
+   on these decode routes.
 
 Beside each kernel's time it prints the plain version's, the least time the
 card could take (the larger of bytes / 3.35 TB/s and operations / the peak
@@ -1448,6 +1471,328 @@ def cli_phase(dev, smi) -> dict:
         _fail("evaluate --model_type aed: the best hypotheses differ from generate_joint's")
     print(f"  CLI phase launches (train, evaluate, gate, aed): {cli_launches}", flush=True)
     return cli_launches
+
+
+# The recipe families' published widths: whisper-small.en (vocabulary 51,864) and GPT-2 small's LLM
+WHISPER_SMALL = dict(num_mel_bins=80, d_model=768, encoder_layers=12, encoder_attention_heads=12,
+                     encoder_ffn_dim=3072, max_source_positions=1500)
+WHISPER_VOCAB, GPT2_VOCAB = 51864, 50257
+GPT2_SMALL = dict(n_embd=768, n_layer=12, n_head=12, n_positions=1024, add_cross_attention=False)
+
+
+def reference_init_(model, seed: int):
+    """Seeded weights drawn as HF initialises Whisper and GPT-2 (``init_std``
+    0.02): every matrix (and the frozen vocabulary kernel) ~ N(0, 0.02^2),
+    LayerNorm scales 1, every other vector 0. From the Flax defaults' draws
+    (``init_whisper_from_scratch_``, what the CLIs draw when nothing is
+    loaded) a whisper-small-wide Whisper-CTC step's gradient norm reads ~600
+    on an H100 (``PERF.md``), past the trainers' guard of 100, which the JAX
+    trainer applies too."""
+    import torch
+
+    from huggingface_asr_tpu_torch.models.ebranchformer import init_random_
+
+    generator = torch.Generator().manual_seed(seed)
+    init_random_(model, generator, matrix_std=0.02)
+    ln = {f"{n}.weight" for n, m in model.named_modules() if isinstance(m, torch.nn.LayerNorm)}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim == 1:
+                p.fill_(1.0 if name in ln else 0.0)
+        for name, b in model.named_buffers():
+            if name.endswith("lm_head_frozen_kernel"):
+                b.copy_(0.02 * torch.randn(b.shape, generator=generator))
+    return model
+
+
+def recipe_phase(dev, smi) -> dict:
+    """The recipe families on the card (step 16 of the module's docstring),
+    through ``train_ctc.run``, ``train_aed.run``, ``evaluate.run`` and
+    ``generate_whisper`` with in-memory corpus rows and stand-in tokenizers.
+    Returns the kernel launches of its decode routes, by counter."""
+    import torch
+
+    from huggingface_asr_tpu_torch.cli import evaluate, train_aed, train_ctc
+    from huggingface_asr_tpu_torch.data.datasets import ColumnTable, DataConfig
+    from huggingface_asr_tpu_torch.decoding.beam_search import BeamSearchConfig
+    from huggingface_asr_tpu_torch.decoding.generate import generate_whisper
+    from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
+    from huggingface_asr_tpu_torch.training.arguments import (
+        GeneralTrainingArguments,
+        GenerationArguments,
+        ModelArguments,
+    )
+    from huggingface_asr_tpu_torch.training.loop import CTCTrainer, LLMASRTrainer, Seq2SeqTrainer
+    from huggingface_asr_tpu_torch.models.llm_asr import LLMASRConfig, LLMASRModel
+    from huggingface_asr_tpu_torch.models.whisper_ctc import WhisperCTCConfig, WhisperEncoderForCTC
+    from huggingface_asr_tpu_torch.models.whisper_seq2seq import WhisperForConditionalGeneration, WhisperSeq2SeqConfig
+    from huggingface_asr_tpu_torch.training.model_factory import (
+        load_llm_asr_model,
+        load_state,
+        load_whisper_ctc_model,
+        load_whisper_model,
+        save_params,
+    )
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_recipes")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(16)
+    recipe_launches = {}
+    bf16 = torch.bfloat16
+
+    def split(n, vocab, seconds=None):
+        # label rows of 100-150 ids: the stand-in's character rate for 10 s of speech
+        audio = [speech(seconds or rng.uniform(9.3, 10.0), rng) for _ in range(n)]
+        labels = [rng.integers(4, vocab, rng.integers(100, 151)).tolist() for _ in range(n)]
+        return ColumnTable({"audio": audio, "labels": labels, "text": [" ".join(map(str, x)) for x in labels],
+                            "input_len": [len(a) / 16000 for a in audio]})
+
+    def batch_of(table):
+        waves = table["audio"]
+        wav = torch.zeros(len(waves), max(len(w) for w in waves), device=dev)
+        for i, w in enumerate(waves):
+            wav[i, :len(w)] = torch.from_numpy(w)
+        return wav, torch.tensor([len(w) for w in waves], dtype=torch.int32, device=dev)
+
+    def seeded(name, model):
+        """A model directory of ``model`` under ``reference_init_``'s seeded weights."""
+        path = os.path.join(work, name)
+        save_params(reference_init_(model, 16), path)
+        return path
+
+    def trained(trainer_cls, run, n_steps, what):
+        """Run ``run()`` with ``trainer_cls.train_step`` watched: (result, steps), each step
+        (metrics, host ms, peak GiB); fails unless every step was applied with a finite loss."""
+        seen, restore = watch_steps(trainer_cls)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            out = run()
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for i, (_, m, ms) in enumerate(seen):
+            extra = f" enc_loss={m['enc_loss']:.4f}" if "enc_loss" in m else ""
+            print(f"  {what} step {i + 1}: loss={m['loss']:.4f}{extra} grad_norm={m['grad_norm']:.3f} "
+                  f"applied={int(m['step_applied'])} {ms:.1f} ms (host clock, synchronized)", flush=True)
+        print(f"  {what}: {len(seen)} steps, the run (steps, final/, the test split's decode) {wall:.1f} s, peak "
+              f"memory {peak:.2f} GiB; {smi}", flush=True)
+        if len(seen) != n_steps or not all(int(m["step_applied"]) == 1 and np.isfinite(m["loss"]) for _, m, _ in seen):
+            _fail(f"{what}: not every one of {n_steps} steps was applied with a finite loss")
+        return out
+
+    def timed_ms(fn, reps=3):
+        out, times = None, []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, float(np.median(times))
+
+    def training_args(out, batch, steps):
+        return GeneralTrainingArguments(output_dir=out, per_device_train_batch_size=batch,
+                                        per_device_eval_batch_size=8, max_steps=steps, logging_steps=1,
+                                        eval_steps=10 ** 9, save_steps=10 ** 9, warmup_steps=1,
+                                        learning_rate=1e-4, seed=3, apply_spec_augment=False)
+
+    def k3_per_batch(launches, what):
+        if launches != {"asr_log_mel": 1, "asr_cmvn": 1}:
+            _fail(f"{what}: launches {launches}, want one mel and one cmvn launch for the batch")
+
+    # ---- (a) Whisper-encoder CTC
+    tok = IdTokenizer(WHISPER_VOCAB, specials=(0, 1, 2, 3))
+    W = WHISPER_SMALL
+    ctc_cfg = {**W, "llm_dim": W["d_model"], "additional_head_count": W["encoder_attention_heads"],
+               "blank_token_id": 0, "vocab_size": WHISPER_VOCAB}
+    test = split(8, WHISPER_VOCAB, seconds=10.0)
+    data = {"train": split(48, WHISPER_VOCAB), "test": test}
+    print(f"-- recipe phase (a): Whisper-encoder CTC at whisper-small.en widths (12 x 768, 12 heads, FFN 3072, "
+          f"80 mel bins; llm_dim 768, additional layer of 12 heads; vocabulary {WHISPER_VOCAB}, blank 0), "
+          f"train_ctc.run --from_pretrained of seeded weights (reference_init_), B=16 x 9.3-10 s, label rows of "
+          f"100-150 ids, bf16 over fp32 weights, no SpecAugment", flush=True)
+    out_a = os.path.join(work, "whisper_ctc")
+    model_args = ModelArguments(model_family="whisper_ctc", device="cuda", dtype="bfloat16",
+                                from_pretrained=seeded("whisper_ctc_init", WhisperEncoderForCTC(
+                                    WhisperCTCConfig(**ctc_cfg))))
+    trained(CTCTrainer, lambda: train_ctc.run(model_args, training_args(out_a, 16, 3), GenerationArguments(),
+                                              DataConfig(), data, tok), 3, "train_ctc whisper_ctc")
+    final_a = os.path.join(out_a, "final")
+    for route in ("on", "off"):
+        eval_args = evaluate.EvalArguments(output_dir=os.path.join(work, f"eval_whisper_ctc_{route}"), batch_size=8,
+                                           model_type="whisper_ctc", fused_encoder=route)
+        (res, wall), got = count_launches(lambda: timed_ms(lambda: evaluate.run(
+            eval_args, ModelArguments(from_pretrained=final_a, device="cuda", dtype="bfloat16"),
+            GenerationArguments(), DataConfig(), {"test": test}, tok), reps=1), recipe_launches)
+        print(f"  evaluate whisper_ctc --fused_encoder {route}: 8 x 10 s in {wall:.1f} ms (model load "
+              f"included), wer {res['test'].metrics['wer']:.4f}, launches {got}", flush=True)
+        if route == "on":
+            k3_per_batch(got, "evaluate whisper_ctc on")
+        elif got:
+            _fail(f"evaluate whisper_ctc off launched kernels: {got}")
+    model = load_whisper_ctc_model(final_a, "cuda", bf16)
+    wav, lens = batch_of(test)
+    fused_route = evaluate.WhisperCTCRoute(model, "on", dev, bf16)
+    plain_route = evaluate.WhisperCTCRoute(model, "off", dev, bf16)
+    out_k, got = count_launches(lambda: fused_route(wav, lens), recipe_launches)
+    k3_per_batch(got, "the Whisper-CTC kernel route")
+    out_p = plain_route(wav, lens)
+    _, ms_k = timed_ms(lambda: fused_route(wav, lens))
+    _, ms_p = timed_ms(lambda: plain_route(wav, lens))
+    err = float((out_k.logits.float() - out_p.logits.float()).abs().max())
+    scale = max(1.0, float(out_p.logits.float().abs().max()))
+    valid = torch.arange(out_k.logits.shape[1], device=dev)[None, :] < out_k.logit_lengths[:, None]
+    agree = float((out_k.logits.argmax(-1) == out_p.logits.argmax(-1))[valid].float().mean())
+    print(f"  Whisper-CTC decode B=8 x 10 s: kernel route {ms_k:.2f} ms, plain route {ms_p:.2f} ms (median of 3, "
+          f"host clock); logits max |diff| {err:.4f} of scale {scale:.2f} (tol 0.05 x scale), greedy ids equal on "
+          f"{100 * agree:.2f} % of valid frames (bar 98 %)", flush=True)
+    if not torch.equal(out_k.logit_lengths, out_p.logit_lengths) or err > 0.05 * scale or agree < 0.98:
+        _fail("the Whisper-CTC kernel route disagrees with the plain route")
+    del model, fused_route, plain_route, out_k, out_p
+    # the LearnableBlankLinear head: its frozen vocabulary kernel through two steps
+    out_b = os.path.join(work, "whisper_ctc_blank")
+    blank_init = seeded("whisper_ctc_blank_init", WhisperEncoderForCTC(
+        WhisperCTCConfig(**ctc_cfg, learnable_blank_head=True)))
+    blank_args = dataclasses.replace(model_args, from_pretrained=blank_init)
+    trained(CTCTrainer, lambda: train_ctc.run(blank_args, training_args(out_b, 16, 2), GenerationArguments(),
+                                              DataConfig(), {"train": data["train"]}, tok), 2,
+            "train_ctc whisper_ctc learnable_blank_head")
+    init, saved = load_state(blank_init), load_state(os.path.join(out_b, "final"))
+    frozen_equal = torch.equal(saved["lm_head_frozen_kernel"], init["lm_head_frozen_kernel"])
+    blank_moved = not torch.equal(saved["blank_kernel"], init["blank_kernel"])
+    print(f"  learnable_blank_head: frozen vocabulary kernel bit-equal after 2 steps {frozen_equal}, blank "
+          f"column moved {blank_moved}", flush=True)
+    if not (frozen_equal and blank_moved):
+        _fail("learnable_blank_head: the frozen kernel moved or the blank column did not")
+    del init, saved
+    torch.cuda.empty_cache()
+
+    # ---- (b) Whisper seq2seq
+    s2s_cfg = {**W, "decoder_layers": W["encoder_layers"], "decoder_attention_heads": W["encoder_attention_heads"],
+               "decoder_ffn_dim": W["encoder_ffn_dim"], "max_target_positions": 448, "vocab_size": WHISPER_VOCAB,
+               "decoder_start_token_id": 0, "eos_token_id": 1, "pad_token_id": 3}
+    print(f"-- recipe phase (b): Whisper seq2seq at whisper-small.en widths (12 + 12 layers x 768, 448 target "
+          f"positions, vocabulary {WHISPER_VOCAB}), train_aed.run --model_family whisper B=16 x 9.3-10 s, bf16 "
+          f"over fp32 weights, from seeded weights (reference_init_)", flush=True)
+    out_s = os.path.join(work, "whisper")
+    forced = ((1, WHISPER_VOCAB - 4), (2, WHISPER_VOCAB - 3))
+    s2s_args = ModelArguments(model_family="whisper", device="cuda", dtype="bfloat16", from_pretrained=seeded(
+        "whisper_init", WhisperForConditionalGeneration(WhisperSeq2SeqConfig(**s2s_cfg))))
+    gen = GenerationArguments(num_beams=5, max_length=32)
+    trained(Seq2SeqTrainer, lambda: train_aed.run(s2s_args, training_args(out_s, 16, 3), gen, DataConfig(), data,
+                                                  tok, forced_decoder_ids=forced), 3, "train_aed whisper")
+    model = load_whisper_model(os.path.join(out_s, "final"), "cuda", bf16)
+    frontend = LogMelFrontEnd(LogMelConfig())
+    feats, feat_lens = frontend(*batch_of(test))
+    suppress = tuple(range(WHISPER_VOCAB // 2, WHISPER_VOCAB // 2 + min(200, WHISPER_VOCAB // 4)))
+    beam = BeamSearchConfig(num_beams=5, max_length=32, ctc_weight=0.0, num_candidates=64, bos_token_id=0,
+                            eos_token_id=1, pad_token_id=3)
+    n_steps = []
+
+    def decode():
+        n_steps.clear()
+        with torch.inference_mode():
+            return generate_whisper(model, feats, feat_lens, beam, forced_decoder_ids=forced, suppress_tokens=suppress,
+                                    hook=lambda name, alive=None: n_steps.append(1) if name == "decoder" else None)
+
+    (seqs, scores), ms = timed_ms(decode)
+    seqs = seqs.cpu().numpy()
+    ok = not np.isin(seqs, suppress).any() and all((seqs[:, :, p] == t).all() for p, t in forced)
+    print(f"  generate_whisper B=8 x 10 s, 5 beams, max_length 32, 2 forced ids, {len(suppress)} suppressed: "
+          f"{ms:.1f} ms (median of 3, host clock) for {len(n_steps)} decode steps, {ms / max(len(n_steps), 1):.2f} "
+          f"ms a step; scores finite {bool(torch.isfinite(scores).all())}; no suppressed token and every forced "
+          f"position held: {ok}; {smi}", flush=True)
+    if not ok or not bool(torch.isfinite(scores).all()):
+        _fail("generate_whisper: a suppressed token or a missing forced id, or a non-finite score")
+    del model, feats
+    torch.cuda.empty_cache()
+
+    # ---- (c) LLM-ASR
+    tok = IdTokenizer(GPT2_VOCAB, specials=(0, 1, 2, 3))
+    llm_cfg = {"encoder": {**ctc_cfg, "vocab_size": GPT2_VOCAB}, "number_of_prompt_tokens": 16, "ctc_weight": 0.3,
+               "decoder": {**GPT2_SMALL, "vocab_size": GPT2_VOCAB, "bos_token_id": 0, "eos_token_id": 1,
+                           "pad_token_id": 3}}
+    test = split(8, GPT2_VOCAB, seconds=10.0)
+    print(f"-- recipe phase (c): LLM-ASR (the Whisper-CTC encoder above; GPT-2 small: 12 x 768, 12 heads, 1024 "
+          f"positions, vocabulary {GPT2_VOCAB}; 16 soft prompts, ctc_weight 0.3), train_ctc.run B=8 x 9.3-10 s "
+          f"from seeded weights (reference_init_), label rows of 100-150 ids (plan 1 + 16 + 500 + 1 + L <= 1024), "
+          f"bf16 over fp32 weights", flush=True)
+    out_l = os.path.join(work, "llm_asr")
+    llm_args = ModelArguments(model_family="llm_asr", device="cuda", dtype="bfloat16", from_pretrained=seeded(
+        "llm_asr_init", LLMASRModel(LLMASRConfig.from_dict(llm_cfg))))
+    trained(LLMASRTrainer, lambda: train_ctc.run(llm_args, training_args(out_l, 8, 2), GenerationArguments(),
+                                                 DataConfig(), {"train": split(16, GPT2_VOCAB)}, tok), 2,
+            "train_ctc llm_asr")
+    final_l = os.path.join(out_l, "final")
+    for route in ("on", "off"):
+        eval_args = evaluate.EvalArguments(output_dir=os.path.join(work, f"eval_llm_asr_{route}"), batch_size=8,
+                                           model_type="llm_asr", fused_encoder=route)
+        (res, wall), got = count_launches(lambda: timed_ms(lambda: evaluate.run(
+            eval_args, ModelArguments(from_pretrained=final_l, device="cuda", dtype="bfloat16"),
+            GenerationArguments(max_length=16), DataConfig(), {"test": test}, tok), reps=1), recipe_launches)
+        print(f"  evaluate llm_asr --fused_encoder {route}: 8 x 10 s, 16 greedy tokens (16 whole-model passes) in "
+              f"{wall:.1f} ms (model load included), launches {got}", flush=True)
+        if route == "on":
+            k3_per_batch(got, "evaluate llm_asr on")
+        elif got:
+            _fail(f"evaluate llm_asr off launched kernels: {got}")
+    model = load_llm_asr_model(final_l, "cuda", bf16)
+    wav, lens = batch_of(test)
+    fused_route = evaluate.LLMASRRoute(model, "on", dev, 16)
+    plain_route = evaluate.LLMASRRoute(model, "off", dev, 16)
+    (toks_k, _), ms_k = timed_ms(lambda: fused_route(wav, lens))
+    (toks_p, _), ms_p = timed_ms(lambda: plain_route(wav, lens))
+    P = model.config.number_of_prompt_tokens
+    labels = torch.full((8, 16), 3, dtype=torch.int64, device=dev)
+    label_lengths = torch.full((8,), 16, dtype=torch.int32, device=dev)
+    rows = torch.arange(8, device=dev)
+    real_encoder = model.encoder.forward
+    with torch.inference_mode():
+        (f_k, l_k), (f_p, l_p) = fused_route.frontend(wav, lens), plain_route.frontend(wav, lens)
+        own = [model(f, fl, labels=labels, label_lengths=label_lengths).asr_lengths
+               for f, fl in ((f_k, l_k), (f_p, l_p))]
+        enc_k, enc_p = model.encoder(f_k.to(bf16), l_k), model.encoder(f_p.to(bf16), l_p)
+        # one CTC plan for both routes, every valid frame kept (ids 4, 5, 4, ...:
+        # no blank, no repeat), so that the LLM's first-step logits differ only
+        # through the frames each front end feeds it
+        T = enc_p.logits.shape[1]
+        plan = torch.zeros_like(enc_p.logits)
+        plan[:, torch.arange(T, device=dev), 4 + torch.arange(T, device=dev) % 2] = 1.0
+        model.encoder.forward = lambda *a, **k: dataclasses.replace(real_encoder(*a, **k), logits=plan)
+        try:
+            out_k, out_p = (model(f, fl, labels=labels, label_lengths=label_lengths)
+                            for f, fl in ((f_k, l_k), (f_p, l_p)))
+        finally:
+            model.encoder.forward = real_encoder
+    if not torch.equal(out_k.asr_lengths, enc_p.logit_lengths) or not torch.equal(out_p.asr_lengths,
+                                                                                   enc_p.logit_lengths):
+        _fail("LLM-ASR: the common plan did not keep every valid frame")
+    end = 1 + P + out_p.asr_lengths.long()
+    first_k, first_p = (o.llm_logits[rows, end].float() for o in (out_k, out_p))
+    err = float((first_k - first_p).abs().max())
+    scale = max(1.0, float(first_p.abs().max()))
+    ctc_err = float((enc_k.logits.float() - enc_p.logits.float()).abs().max())
+    ctc_scale = max(1.0, float(enc_p.logits.float().abs().max()))
+    valid = torch.arange(enc_p.logits.shape[1], device=dev)[None, :] < enc_p.logit_lengths[:, None]
+    ctc_agree = float((enc_k.logits.argmax(-1) == enc_p.logits.argmax(-1))[valid].float().mean())
+    print(f"  LLM-ASR greedy decode B=8 x 10 s, 16 tokens: kernel front end {ms_k:.1f} ms, plain {ms_p:.1f} ms "
+          f"(median of 3, host clock); greedy tokens equal in {int((toks_k == toks_p).all(1).sum())} of 8 rows; "
+          f"the encoder's CTC logits max |diff| {ctc_err:.4f} of scale {ctc_scale:.2f}, ids equal on "
+          f"{100 * ctc_agree:.2f} % of valid frames (bar 98 %); surviving CTC frames a row, each route's own "
+          f"plan: {own[0].tolist()} vs {own[1].tolist()}; first-step LLM logits under one plan keeping every "
+          f"valid frame ({out_p.asr_lengths.tolist()}), each route's frames: max |diff| {err:.4f} of scale "
+          f"{scale:.2f} (tol 0.05 x scale)", flush=True)
+    if ctc_err > 0.05 * ctc_scale or ctc_agree < 0.98 or err > 0.05 * scale:
+        _fail("the LLM-ASR kernel front end disagrees with the plain front end")
+    del model, fused_route, plain_route
+    torch.cuda.empty_cache()
+    print(f"recipe phase: {time.perf_counter() - t_phase:.1f} s; decode-route launches {recipe_launches}", flush=True)
+    return recipe_launches
 
 
 def timed(fn, iters: int = 20, reps: int = 5) -> float:
@@ -2876,6 +3221,7 @@ def main() -> None:
     aed_launches = aed_phase(dev, rng, smi)
     aed_train_launches = aed_train_phase(dev, smi)
     cli_launches = cli_phase(dev, smi)
+    recipe_launches = recipe_phase(dev, smi)
 
     if failures:
         _fail(f"kernel phases outside tolerance: {failures}")
@@ -2934,6 +3280,7 @@ def main() -> None:
                 "cli_launches": cli_launches.get(counter, 0),
                 "aed_train_launches": aed_train_launches.get(counter, 0),
                 "ssl_launches": ssl_launches.get(counter, 0),
+                "recipe_launches": recipe_launches.get(counter, 0),
             })
     print(f"AED path launches a request (K2 and K1): {aed_launches}")
     print(json.dumps({"kernels": kernels}))

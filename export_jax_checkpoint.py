@@ -13,8 +13,11 @@ the port's tables (``huggingface_asr_tpu_torch/interop/from_jax.py``): a CTC
 model, the BEST-RQ fine-tuning adapters included; and the trees of
 ``cli/pretrain.py``, BEST-RQ's (with the frozen quantizer's buffers, which the
 JAX ``final/`` does not hold: the port builds them from the config) and
-wav2vec2's, which ``train_ctc --from_pretrained`` fine-tunes from. DST_DIR may
-be SRC_DIR.
+wav2vec2's, which ``train_ctc --from_pretrained`` fine-tunes from; and the
+recipe families (``config.json`` tells them apart): the Whisper-encoder CTC
+model (``d_model`` and ``llm_dim``), the Whisper seq2seq model (``d_model``
+and ``decoder_layers``) and LLM-ASR (``number_of_prompt_tokens``). DST_DIR
+may be SRC_DIR.
 
 This script imports JAX, so it lives outside both packages; the port itself
 never does.
@@ -33,7 +36,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 def export(src: str, dst: str) -> str:
     """Write ``dst/config.json`` and ``dst/pytorch_model.bin``; returns the
-    kind ("ctc", "joint", "bestrq" or "wav2vec2")."""
+    kind ("ctc", "joint", "bestrq", "wav2vec2", "whisper_ctc", "whisper" or
+    "llm_asr")."""
     import jax
     import numpy as np
     import torch
@@ -46,12 +50,26 @@ def export(src: str, dst: str) -> str:
     from huggingface_asr_tpu_torch.training.model_factory import load_config as load_port_config
 
     with open(os.path.join(src, "config.json")) as f:
-        joint = {"encoder", "decoder"} <= set(json.load(f))
+        keys = set(json.load(f))
+    joint = {"encoder", "decoder"} <= keys and "number_of_prompt_tokens" not in keys
     params = jax.tree.map(np.asarray, load_params(src))
     os.makedirs(dst, exist_ok=True)
     if os.path.abspath(src) != os.path.abspath(dst):
         shutil.copy(os.path.join(src, "config.json"), os.path.join(dst, "config.json"))
     out = os.path.join(dst, "pytorch_model.bin")
+    recipe = _recipe_kind(keys)
+    if recipe is not None:
+        from huggingface_asr_tpu_torch.models.llm_asr import LLMASRConfig
+        from huggingface_asr_tpu_torch.models.whisper_ctc import WhisperCTCConfig
+        from huggingface_asr_tpu_torch.models.whisper_seq2seq import WhisperSeq2SeqConfig
+
+        cls, convert = {
+            "whisper_ctc": (WhisperCTCConfig, from_jax.whisper_ctc_state_dict_from_flax),
+            "whisper": (WhisperSeq2SeqConfig, from_jax.whisper_seq2seq_state_dict_from_flax),
+            "llm_asr": (LLMASRConfig, from_jax.llm_asr_state_dict_from_flax),
+        }[recipe]
+        torch.save(convert(params, load_port_config(dst, cls)), out)
+        return recipe
     if joint:
         cfg = load_config(src, JointCTCAttentionConfig)
         save_torch_checkpoint(export_joint(params, cfg.encoder, cfg.decoder), out)
@@ -66,6 +84,15 @@ def export(src: str, dst: str) -> str:
         kind, state = "ctc", from_jax.state_dict_from_flax(params, cfg)
     torch.save(state, out)
     return kind
+
+
+def _recipe_kind(keys) -> "str | None":
+    """The recipe family a ``config.json``'s fields name, or None."""
+    if "number_of_prompt_tokens" in keys:
+        return "llm_asr"
+    if "d_model" in keys:
+        return "whisper" if "decoder_layers" in keys else "whisper_ctc"
+    return None
 
 
 def main(argv=None) -> None:

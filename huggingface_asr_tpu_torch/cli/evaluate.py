@@ -7,8 +7,11 @@ src/utilities/general_utils.py:129-228) — for the port's model directories:
 CTC greedy decode for E-Branchformer CTC models (``--model_type ctc``), joint
 CTC/attention beam search for AED models (``--model_type aed``, with
 ``--save_nbest``'s ``nbest_*`` files and ``--lm_model``'s shallow fusion of a
-``cli/train_clm.py`` LM at ``--lm_weight``). ``--model_type
-whisper_ctc|llm_asr`` raises (ROADMAP.md Queue 1 item 11).
+``cli/train_clm.py`` LM at ``--lm_weight``), CTC greedy decode (blank
+``blank_token_id``) for Whisper-encoder CTC models (``--model_type
+whisper_ctc``, ``WhisperCTCRoute``) and the LLM's greedy decode over the
+soft-prompted frames for LLM-ASR models (``--model_type llm_asr``,
+``LLMASRRoute``, at most ``--max_length`` tokens).
 
 ``--fused_encoder`` (the CTC route): "auto" takes the kernel route (the
 log-mel kernel, then ``ctc_infer``: the subsampler and layer kernels, then the
@@ -17,7 +20,14 @@ log_mel=True)`` is None; "on" requires it and raises with the reason
 otherwise; "off" runs the plain model behind the plain log-mel front end. The
 AED route (``AedRoute``, which ``cli/train_aed.py``'s final evaluation runs
 too) hands the same choice to ``generate_joint`` ("on" -> True, "off" ->
-False).
+False). The recipe routes' encoders are plain transformers with no kernel
+of their own; there the choice is the front end's (``recipe_frontend``):
+"auto" runs the log-mel and CMVN kernels (``kernels/mel.py::MelFrontEnd``)
+on a card for a bfloat16 model with at most 80 mel bins, a multiple of 8,
+and the plain ``LogMelFrontEnd`` otherwise, logging why on a card; "on"
+requires the kernels and raises with the reason; "off" runs the plain front
+end. On a card a kernel that does not build or launch ends the run with its
+error: nothing falls back.
 
 ``main(argv)`` parses the arguments and loads the dataset and the tokenizer
 (through ``datasets`` and ``transformers``); ``run`` does the rest, for a
@@ -50,7 +60,7 @@ from huggingface_asr_tpu_torch.data.collator import CollatorConfig, SpeechCollat
 from huggingface_asr_tpu_torch.data.datasets import DataConfig, get_dataset
 from huggingface_asr_tpu_torch.decoding.beam_search import BeamSearchConfig
 from huggingface_asr_tpu_torch.decoding.generate import generate_joint
-from huggingface_asr_tpu_torch.kernels.mel import MelFrontEnd
+from huggingface_asr_tpu_torch.kernels.mel import MEL_MAX_BINS, MelFrontEnd
 from huggingface_asr_tpu_torch.models.configs import parse_dtype
 from huggingface_asr_tpu_torch.models.ebranchformer import CTCOutput, EBranchformerForCTC
 from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer, fused_encoder_refusal
@@ -59,7 +69,12 @@ from huggingface_asr_tpu_torch.models.joint_ctc_aed import JointCTCAttentionEnco
 from huggingface_asr_tpu_torch.ops.ctc import ctc_greedy_decode, tokens_to_lists
 from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
 from huggingface_asr_tpu_torch.training.arguments import GenerationArguments, ModelArguments, check_supported
-from huggingface_asr_tpu_torch.training.model_factory import load_aed_model, load_ctc_model
+from huggingface_asr_tpu_torch.training.model_factory import (
+    load_aed_model,
+    load_ctc_model,
+    load_llm_asr_model,
+    load_whisper_ctc_model,
+)
 from huggingface_asr_tpu_torch.utils.argparsing import DataclassArgumentParser, parse_override_string
 from huggingface_asr_tpu_torch.utils.device import resolve_device
 from huggingface_asr_tpu_torch.utils.eval_utils import evaluate_splits, save_nbests
@@ -73,7 +88,7 @@ FUSED_CHOICES = {"auto": "auto", "on": True, "off": False}
 class EvalArguments:
     output_dir: str = "eval_output"
     batch_size: int = 32
-    model_type: str = "ctc"  # ctc | aed (whisper_ctc | llm_asr: not ported yet)
+    model_type: str = "ctc"  # ctc | aed | whisper_ctc | llm_asr
     # "auto": the kernel route when on a card and the config/dtype qualify;
     # "on": require it; "off": the plain model.
     fused_encoder: str = "auto"  # auto | on | off
@@ -143,6 +158,74 @@ class CTCRoute:
         if self.fused:
             return ctc_infer(self._encoder, feats, feat_lens)
         return self._model(feats.to(self.dtype), feat_lens)
+
+
+def recipe_frontend_refusal(device: torch.device, num_mel_bins: Optional[int] = None,
+                            dtype: Optional[torch.dtype] = None) -> Optional[str]:
+    """The first condition of the log-mel and CMVN kernels that a recipe
+    route fails, as a sentence, or None (``num_mel_bins`` and ``dtype`` are
+    checked where given)."""
+    checks = (
+        (device.type == "cuda", f"device {device} (the kernels run on a CUDA device)"),
+        (num_mel_bins is None or (num_mel_bins <= MEL_MAX_BINS and num_mel_bins % 8 == 0),
+         f"num_mel_bins {num_mel_bins} (the log-mel and CMVN kernels take at most {MEL_MAX_BINS} mel bins, "
+         f"a multiple of 8)"),
+        (dtype is None or dtype == torch.bfloat16, f"dtype {dtype} (the CMVN kernel writes bfloat16 features)"),
+    )
+    return next((reason for ok, reason in checks if not ok), None)
+
+
+def recipe_frontend(num_mel_bins: int, fused_encoder: str, device: torch.device, dtype: torch.dtype, what: str):
+    """(front end, whether it runs the kernels) of a recipe route:
+    ``MelFrontEnd`` (the log-mel and CMVN kernels, bf16 features) where
+    ``fused_encoder`` allows it and the kernels take the model, else the
+    plain ``LogMelFrontEnd`` (fp32 features). "on" raises where the kernels
+    do not take it; "auto" on a card logs the reason."""
+    if fused_encoder not in FUSED_CHOICES:
+        raise ValueError(f"--fused_encoder {fused_encoder!r}: auto, on or off")
+    refusal = recipe_frontend_refusal(device, num_mel_bins, dtype)
+    if fused_encoder == "on" and refusal is not None:
+        raise ValueError(f"--fused_encoder on, but the log-mel kernels do not take this model: {refusal}")
+    mel_cfg = LogMelConfig(num_mel_bins=num_mel_bins)
+    if fused_encoder != "off" and refusal is None:
+        logger.info("%s front end through the log-mel and CMVN kernels", what)
+        return MelFrontEnd(mel_cfg, device=device), True
+    if fused_encoder == "auto" and device.type == "cuda":
+        logger.warning("%s front end through the plain log-mel, not the kernels: %s", what, refusal)
+    return LogMelFrontEnd(mel_cfg), False
+
+
+class WhisperCTCRoute:
+    """The Whisper-encoder CTC route: ``recipe_frontend``, then the model in
+    ``dtype``. ``route(waveforms, lengths)`` -> ``CTCOutput``."""
+
+    def __init__(self, model, fused_encoder: str, device: torch.device, dtype: torch.dtype):
+        self.frontend, self.fused = recipe_frontend(model.config.num_mel_bins, fused_encoder, device, dtype,
+                                                    "Whisper-CTC")
+        self.model, self.dtype = model, dtype
+
+    @torch.inference_mode()
+    def __call__(self, waveforms: torch.Tensor, lengths: torch.Tensor) -> CTCOutput:
+        feats, feat_lens = self.frontend(waveforms, lengths)
+        return self.model(feats.to(self.dtype), feat_lens)
+
+
+class LLMASRRoute:
+    """The LLM-ASR route: ``recipe_frontend``, then ``llm_asr_greedy_decode``
+    of at most ``max_len`` tokens. ``route(waveforms, lengths)`` -> (tokens
+    (B, max_len), lengths (B,))."""
+
+    def __init__(self, model, fused_encoder: str, device: torch.device, max_len: int):
+        self.frontend, self.fused = recipe_frontend(model.config.encoder.num_mel_bins, fused_encoder, device,
+                                                    model.dtype, "LLM-ASR")
+        self.model, self.max_len = model, max_len
+
+    @torch.inference_mode()
+    def __call__(self, waveforms: torch.Tensor, lengths: torch.Tensor):
+        from huggingface_asr_tpu_torch.models.llm_asr import llm_asr_greedy_decode
+
+        feats, feat_lens = self.frontend(waveforms, lengths)
+        return llm_asr_greedy_decode(self.model, feats, feat_lens, max_len=self.max_len)
 
 
 class AedRoute:
@@ -225,8 +308,8 @@ def run(
     """Decode and score every split but the train split; returns
     ``evaluate_splits``' results (split -> ``SplitResult``)."""
     check_supported(eval_args.model_type)
-    if eval_args.model_type not in ("ctc", "aed"):
-        raise ValueError(f"--model_type {eval_args.model_type!r}: ctc or aed")
+    if eval_args.model_type not in ("ctc", "aed", "whisper_ctc", "llm_asr"):
+        raise ValueError(f"--model_type {eval_args.model_type!r}: ctc, aed, whisper_ctc or llm_asr")
     device = resolve_device(model_args.device)
     ids = tokenizer_ids(tokenizer)
     dtype = parse_dtype(model_args.dtype)
@@ -234,6 +317,11 @@ def run(
     def to_device(batch):
         return (torch.from_numpy(batch["input_values"]).to(device),
                 torch.from_numpy(batch["input_values_lengths"]).to(device))
+
+    refusal = recipe_frontend_refusal(device)
+    if eval_args.model_type in ("whisper_ctc", "llm_asr") and eval_args.fused_encoder == "on" and refusal:
+        # before any weights are read
+        raise ValueError(f"--fused_encoder on, but the log-mel kernels do not take this model: {refusal}")
 
     route = None
     if eval_args.model_type == "ctc":
@@ -243,6 +331,29 @@ def run(
         def decode_batch(batch):
             out = ctc_route(*to_device(batch))
             toks, tlens = ctc_greedy_decode(out.logits, out.logit_lengths, blank_id=-1)
+            return [
+                tokenizer.decode(t, skip_special_tokens=True)
+                for t in tokens_to_lists(toks.cpu().numpy(), tlens.cpu().numpy())
+            ], None
+
+    elif eval_args.model_type == "whisper_ctc":
+        model = load_whisper_ctc_model(model_args.from_pretrained, device, dtype)
+        whisper_route = WhisperCTCRoute(model, eval_args.fused_encoder, device, dtype)
+
+        def decode_batch(batch):
+            out = whisper_route(*to_device(batch))
+            toks, tlens = ctc_greedy_decode(out.logits, out.logit_lengths, blank_id=model.config.blank_token_id)
+            return [
+                tokenizer.decode(t, skip_special_tokens=True)
+                for t in tokens_to_lists(toks.cpu().numpy(), tlens.cpu().numpy())
+            ], None
+
+    elif eval_args.model_type == "llm_asr":
+        llm_route = LLMASRRoute(load_llm_asr_model(model_args.from_pretrained, device, dtype), eval_args.fused_encoder,
+                                device, gen_args.max_length)
+
+        def decode_batch(batch):
+            toks, tlens = llm_route(*to_device(batch))
             return [
                 tokenizer.decode(t, skip_special_tokens=True)
                 for t in tokens_to_lists(toks.cpu().numpy(), tlens.cpu().numpy())

@@ -19,11 +19,21 @@ fusion and the normalizer), CSV and ``.trn`` per split and, with
 ``--save_nbest``, the n-best lists (the JAX CLI decodes them and drops them;
 here they are written, as ``cli/evaluate.py`` writes them).
 
+``--model_family whisper`` fine-tunes the Whisper seq2seq model
+(``models/whisper_seq2seq.py``; the JAX CLI's ``_main_whisper``): the model
+from ``--from_pretrained``, ``--from_hf_checkpoint`` (an HF Whisper directory's
+``config.json`` and ``pytorch_model.bin``, ``interop/hf_whisper.py``) or
+``--model_config`` with the tokenizer's vocabulary and special ids, then
+``--config_overrides``; ``Seq2SeqTrainer`` steps; ``final/``; and the final
+evaluation through ``generate_whisper`` (attention scores alone, the
+``--whisper_task`` / ``--whisper_language`` prompt as forced ids).
+
 ``main(argv)`` parses the arguments and loads the dataset and the tokenizer
-(through ``datasets`` and ``transformers``); ``run`` does the rest, for a
-caller that brings its own dataset mapping and tokenizer. ``--model_family
-whisper`` raises (ROADMAP.md Queue 1 item 11). ``--device cpu`` runs on the
-CPU; the default is the card.
+(through ``datasets`` and ``transformers``), and turns the Whisper prompt
+into forced ids with the tokenizer's ``get_decoder_prompt_ids``; ``run`` does
+the rest, for a caller that brings its own dataset mapping and tokenizer
+(and the forced ids). ``--device cpu`` runs on the CPU; the default is the
+card.
 
     python -m huggingface_asr_tpu_torch.cli.train_aed --dataset_name DIR --load_from_disk \\
         --tokenizer_name TOK --model_config configs/decred_base.json --output_dir out [--device cpu]
@@ -34,7 +44,7 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -124,10 +134,42 @@ def build_model(model_args: ModelArguments, config: JointCTCAttentionConfig,
     return model
 
 
-def _check_family(model_args: ModelArguments) -> None:
-    if model_args.model_family == "whisper":
-        raise NotImplementedError("--model_family whisper (Whisper seq2seq fine-tuning) is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 11, the recipe families)")
+def build_whisper_model(model_args: ModelArguments, ids: Dict[str, int], seed: int):
+    """(model over fp32 weights computing in ``--dtype``, config) of the
+    Whisper family: ``--from_pretrained``'s directory, else
+    ``--from_hf_checkpoint``'s HF directory, else ``--model_config`` with the
+    tokenizer's vocabulary and special ids and the Flax init's distributions
+    drawn from ``seed``; then ``--config_overrides``."""
+    from huggingface_asr_tpu_torch.interop.hf_whisper import load_hf_whisper_checkpoint
+    from huggingface_asr_tpu_torch.models.whisper_seq2seq import (
+        WhisperForConditionalGeneration,
+        WhisperSeq2SeqConfig,
+        init_seq2seq_from_scratch_,
+    )
+    from huggingface_asr_tpu_torch.training.model_factory import load_config, load_state
+
+    state = None
+    if model_args.from_pretrained:
+        config = load_config(model_args.from_pretrained, WhisperSeq2SeqConfig)
+        state = load_state(model_args.from_pretrained)
+    elif model_args.from_hf_checkpoint:
+        config, state = load_hf_whisper_checkpoint(model_args.from_hf_checkpoint)
+    elif model_args.model_config:
+        with open(model_args.model_config) as f:
+            raw = json.load(f)
+        config = WhisperSeq2SeqConfig(**{**raw, "vocab_size": ids["vocab_size"], "decoder_start_token_id": ids["bos"],
+                                         "eos_token_id": ids["eos"], "pad_token_id": ids["pad"]})
+    else:
+        raise ValueError("--model_family whisper needs --from_pretrained, --from_hf_checkpoint or --model_config")
+    if model_args.config_overrides:
+        overrides = dict(p.split("=", 1) for p in model_args.config_overrides.split(";"))
+        config = apply_config_overrides(config, overrides)
+    model = WhisperForConditionalGeneration(config, parse_dtype(model_args.dtype))
+    if state is None:
+        init_seq2seq_from_scratch_(model, torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(state, strict=True)
+    return model, config
 
 
 def main(argv=None):
@@ -135,7 +177,6 @@ def main(argv=None):
         [ModelArguments, GeneralTrainingArguments, GenerationArguments, DataConfig]
     )
     model_args, training, gen_args, data_cfg = parser.parse_args_into_dataclasses(argv)
-    _check_family(model_args)
     check_supported(model_args.model_family, training)
     setup_logging(training.output_dir)
 
@@ -143,7 +184,85 @@ def main(argv=None):
     if training.preprocess_dataset_only:
         return
     tokenizer = load_tokenizer(model_args.tokenizer_name)
-    return run(model_args, training, gen_args, data_cfg, dataset, tokenizer)
+    forced = None
+    if model_args.model_family == "whisper" and model_args.whisper_task and model_args.whisper_language:
+        # Whisper generation-config handling (reference model_utils.py:248-261)
+        forced = tuple(tuple(p) for p in tokenizer.get_decoder_prompt_ids(
+            language=model_args.whisper_language, task=model_args.whisper_task))
+    return run(model_args, training, gen_args, data_cfg, dataset, tokenizer, forced_decoder_ids=forced)
+
+
+def run_whisper(model_args: ModelArguments, training: GeneralTrainingArguments, gen_args: GenerationArguments,
+                data_cfg: DataConfig, dataset: Mapping[str, Any], tokenizer,
+                forced_decoder_ids: Optional[Sequence[Tuple[int, int]]] = None) -> Dict[str, Any]:
+    """``--model_family whisper``: train, write ``final/`` and decode the
+    test splits with ``generate_whisper``."""
+    from huggingface_asr_tpu_torch.decoding.beam_search import BeamSearchConfig
+    from huggingface_asr_tpu_torch.decoding.generate import generate_whisper
+    from huggingface_asr_tpu_torch.training.loop import Seq2SeqTrainer
+    from huggingface_asr_tpu_torch.utils.argparsing import parse_override_string
+
+    device = resolve_device(model_args.device)
+    model, config = build_whisper_model(model_args, tokenizer_ids(tokenizer), training.seed)
+    frontend = LogMelFrontEnd(LogMelConfig(num_mel_bins=config.num_mel_bins))
+    trainer = Seq2SeqTrainer(model, build_trainer_config(training), frontend=frontend, device=device,
+                             dtype=model_args.dtype)
+    collator = SpeechCollator(
+        CollatorConfig(bucketing=BucketingConfig(batch_size=training.per_device_train_batch_size,
+                                                 pad_to_multiple=training.pad_to_multiple * 160)),
+        tokenizer=tokenizer,
+    )
+    train_ds = dataset[data_cfg.train_split]
+    sampler = BucketedBatchSampler(
+        np.asarray(train_ds[data_cfg.length_column_name], dtype=np.float64),
+        BucketingConfig(batch_size=training.per_device_train_batch_size, seed=training.seed),
+    )
+    state = trainer.init_state()
+    if training.restart_from:
+        state = trainer.restore_checkpoint(state, None)
+    metrics_logger = MetricsLogger(training.output_dir)
+
+    def eval_fn(state):
+        val = dataset.get(data_cfg.validation_split)
+        if val is None:
+            return {}
+        losses = []
+        for batch in eval_batches(val, collator, training.per_device_eval_batch_size):
+            batch.pop("_num_real", None)
+            losses.append(float(trainer.eval_step(state, batch)["loss"]))
+        return {"loss": float(np.mean(losses))}
+
+    train_iter = PrefetchIterator(epoch_iterator(train_ds, sampler, collator, max_steps=training.max_steps),
+                                  depth=2, device_put=pinned_device_put(device))
+    state = trainer.fit(state, train_iter, eval_fn=eval_fn, hooks=[metrics_logger.log])
+    trainer.save_checkpoint(state)
+    save_params(trainer.model, os.path.join(training.output_dir, "final"))
+
+    gen_cfg = BeamSearchConfig(
+        num_beams=gen_args.num_beams, max_length=gen_args.max_length, ctc_weight=0.0,
+        length_penalty=gen_args.length_penalty, num_candidates=gen_args.num_candidates,
+        bos_token_id=config.decoder_start_token_id, eos_token_id=config.eos_token_id,
+        pad_token_id=config.pad_token_id)
+    if gen_args.override_for_evaluation:
+        gen_cfg = parse_override_string(gen_args.override_for_evaluation, gen_cfg)
+    trainer.model.eval()
+
+    @torch.inference_mode()
+    def decode_batch(batch):
+        feats, lens = frontend(torch.from_numpy(batch["input_values"]).to(device),
+                               torch.from_numpy(batch["input_values_lengths"]).to(device))
+        seqs, _ = generate_whisper(trainer.model, feats, lens, gen_cfg, forced_decoder_ids=forced_decoder_ids)
+        return [tokenizer.decode([int(t) for t in row[0]], skip_special_tokens=True)
+                for row in seqs.cpu().numpy()], None
+
+    test_splits = {name: ds for name, ds in dataset.items()
+                   if name not in (data_cfg.train_split, data_cfg.validation_split)}
+    return evaluate_splits(
+        decode_batch,
+        {n: eval_batches(ds, collator, training.per_device_eval_batch_size) for n, ds in test_splits.items()},
+        {n: split_references(ds, data_cfg.text_column_name) for n, ds in test_splits.items()},
+        output_dir=training.output_dir,
+    )
 
 
 def run(
@@ -153,11 +272,14 @@ def run(
     data_cfg: DataConfig,
     dataset: Mapping[str, Any],
     tokenizer,
+    forced_decoder_ids: Optional[Sequence[Tuple[int, int]]] = None,
 ) -> Dict[str, Any]:
-    """Train, write ``final/`` and decode the test splits jointly; returns
-    ``evaluate_splits``' results (split -> ``SplitResult``)."""
-    _check_family(model_args)
+    """Train, write ``final/`` and decode the test splits (jointly, or with
+    ``generate_whisper`` and ``forced_decoder_ids`` for the Whisper family);
+    returns ``evaluate_splits``' results (split -> ``SplitResult``)."""
     check_supported(model_args.model_family, training)
+    if model_args.model_family == "whisper":
+        return run_whisper(model_args, training, gen_args, data_cfg, dataset, tokenizer, forced_decoder_ids)
     device = resolve_device(model_args.device)
     ids = tokenizer_ids(tokenizer)
 

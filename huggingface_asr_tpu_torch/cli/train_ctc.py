@@ -15,9 +15,16 @@ greedy-WER eval -> checkpoints -> ``final/`` (``config.json`` +
 (through ``datasets`` and ``transformers``); ``run`` does the rest, for a
 caller that brings its own dataset mapping (split -> a table with ``len``,
 rows and columns, such as ``data.datasets.ColumnTable``) and tokenizer.
-The E-Branchformer CTC family only: ``--model_family whisper_ctc|llm_asr``
-raises (ROADMAP.md Queue 1 item 11). ``--device cpu`` runs on the CPU; the
-default is the card.
+``--model_family whisper_ctc`` trains the Whisper-encoder CTC model
+(``models/whisper_ctc.py``) through ``CTCTrainer`` and ``--model_family
+llm_asr`` LLM-ASR (``models/llm_asr.py``) through ``LLMASRTrainer``, each from
+``--model_config`` (LLM-ASR's nests ``encoder`` and ``decoder``),
+``--from_pretrained`` or the JAX defaults, with the tokenizer's vocabulary
+(and, for the LLM, its special ids), drawn from the seed where nothing is
+loaded. Both refuse ``--from_hf_checkpoint``, which the JAX CLI ignores for
+them (ROADMAP.md reference caveat (i)); LLM-ASR ignores
+``--config_overrides`` as the JAX CLI does, with a warning. ``--device cpu``
+runs on the CPU; the default is the card.
 
     python -m huggingface_asr_tpu_torch.cli.train_ctc --dataset_name DIR --load_from_disk \\
         --tokenizer_name TOK --model_config model.json --output_dir out [--device cpu]
@@ -46,7 +53,7 @@ from huggingface_asr_tpu_torch.data.bucketing import BucketedBatchSampler, Bucke
 from huggingface_asr_tpu_torch.data.collator import CollatorConfig, SpeechCollator
 from huggingface_asr_tpu_torch.data.datasets import DataConfig, get_dataset
 from huggingface_asr_tpu_torch.data.prefetch import PrefetchIterator, pinned_device_put
-from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
+from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig, parse_dtype
 from huggingface_asr_tpu_torch.models.ebranchformer import init_from_scratch_
 from huggingface_asr_tpu_torch.ops.ctc import tokens_to_lists
 from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
@@ -57,7 +64,7 @@ from huggingface_asr_tpu_torch.training.arguments import (
     ModelArguments,
     check_supported,
 )
-from huggingface_asr_tpu_torch.training.loop import CTCTrainer, TrainerConfig
+from huggingface_asr_tpu_torch.training.loop import CTCTrainer, LLMASRTrainer, TrainerConfig
 from huggingface_asr_tpu_torch.training.model_factory import (
     apply_config_overrides,
     graft_pretrained_encoder,
@@ -120,6 +127,60 @@ def build_model_config(model_args: ModelArguments, vocab_size: int) -> EBranchfo
     return config
 
 
+def build_recipe_model(model_args: ModelArguments, ids: Dict[str, int], seed: int):
+    """``--model_family whisper_ctc|llm_asr``: (model over fp32 weights, its
+    config, mel bins, trainer class), as the JAX CLI builds them: the config
+    from ``--model_config``, ``--from_pretrained`` or the defaults; the
+    tokenizer's vocabulary on the CTC head (and the LLM with its special
+    ids); the weights from ``--from_pretrained``, else the Flax init's
+    distributions drawn from ``seed``."""
+    from huggingface_asr_tpu_torch.models.llm_asr import LLMASRConfig, LLMASRModel, init_llm_asr_from_scratch_
+    from huggingface_asr_tpu_torch.models.whisper_ctc import (
+        WhisperCTCConfig,
+        WhisperEncoderForCTC,
+        init_whisper_from_scratch_,
+    )
+    from huggingface_asr_tpu_torch.training.model_factory import load_state
+
+    family = model_args.model_family
+    if model_args.from_hf_checkpoint:
+        raise ValueError(f"--from_hf_checkpoint with --model_family {family}: the JAX CLI ignores the flag for this "
+                         f"family and trains from its init, and the port has no such route; pass --from_pretrained "
+                         f"with a model directory instead (ROADMAP.md reference caveat (i))")
+    cls = WhisperCTCConfig if family == "whisper_ctc" else LLMASRConfig
+    if model_args.model_config:
+        with open(model_args.model_config) as f:
+            config = cls.from_dict(json.load(f))
+    elif model_args.from_pretrained:
+        config = load_config(model_args.from_pretrained, cls)
+    else:
+        config = cls()
+    generator = torch.Generator().manual_seed(seed)
+    if family == "whisper_ctc":
+        config = dataclasses.replace(config, vocab_size=ids["vocab_size"])
+        if model_args.config_overrides:
+            overrides = dict(p.split("=", 1) for p in model_args.config_overrides.split(";"))
+            config = apply_config_overrides(config, overrides)
+        model, init, trainer_cls, num_mel = (WhisperEncoderForCTC(config), init_whisper_from_scratch_, CTCTrainer,
+                                             config.num_mel_bins)
+    else:
+        if model_args.config_overrides:
+            logger.warning("--config_overrides is not applied to an llm_asr config (nor by the JAX CLI)")
+        config = dataclasses.replace(
+            config,
+            encoder=dataclasses.replace(config.encoder, vocab_size=ids["vocab_size"]),
+            decoder=dataclasses.replace(config.decoder, vocab_size=ids["vocab_size"], bos_token_id=ids["bos"],
+                                        eos_token_id=ids["eos"], pad_token_id=ids["pad"]))
+        model, init, trainer_cls, num_mel = (LLMASRModel(config, parse_dtype(model_args.dtype)),
+                                             init_llm_asr_from_scratch_, LLMASRTrainer,
+                                             config.encoder.num_mel_bins)
+    if model_args.from_pretrained:
+        model.load_state_dict(load_state(model_args.from_pretrained), strict=True)
+    else:
+        init(model, generator)
+    return model, config, num_mel, trainer_cls
+
+
 def main(argv=None):
     parser = DataclassArgumentParser(
         [ModelArguments, GeneralTrainingArguments, GenerationArguments, DataConfig]
@@ -149,20 +210,25 @@ def run(
     device = resolve_device(model_args.device)
     ids = tokenizer_ids(tokenizer)
 
-    config = build_model_config(model_args, ids["vocab_size"])
-    model, state_dict = instantiate_ctc_model(
-        config,
-        from_pretrained=model_args.from_pretrained,
-        from_hf_checkpoint=model_args.from_hf_checkpoint,
-    )
-    if state_dict is None or "lm_head.weight" not in state_dict:
-        init_from_scratch_(model, torch.Generator().manual_seed(training.seed))
-        if state_dict is not None:  # an SSL pretraining checkpoint: its encoder under the fresh head
-            graft_pretrained_encoder(model, state_dict)
+    trainer_cls = CTCTrainer
+    if model_args.model_family in ("whisper_ctc", "llm_asr"):
+        model, config, num_mel, trainer_cls = build_recipe_model(model_args, ids, training.seed)
     else:
-        model.load_state_dict(state_dict, strict=True)
+        config = build_model_config(model_args, ids["vocab_size"])
+        model, state_dict = instantiate_ctc_model(
+            config,
+            from_pretrained=model_args.from_pretrained,
+            from_hf_checkpoint=model_args.from_hf_checkpoint,
+        )
+        if state_dict is None or "lm_head.weight" not in state_dict:
+            init_from_scratch_(model, torch.Generator().manual_seed(training.seed))
+            if state_dict is not None:  # an SSL pretraining checkpoint: its encoder under the fresh head
+                graft_pretrained_encoder(model, state_dict)
+        else:
+            model.load_state_dict(state_dict, strict=True)
+        num_mel = config.num_fbanks
 
-    frontend = LogMelFrontEnd(LogMelConfig(num_mel_bins=config.num_fbanks))
+    frontend = LogMelFrontEnd(LogMelConfig(num_mel_bins=num_mel))
     trainer_cfg = build_trainer_config(training)
 
     speed_perturb = None
@@ -177,7 +243,7 @@ def run(
                 spec_augment=plan.spec_augment,
                 spec_augment_start_step=plan.spec_augment_start_step,
             )
-    trainer = CTCTrainer(model, trainer_cfg, frontend=frontend, device=device, dtype=model_args.dtype)
+    trainer = trainer_cls(model, trainer_cfg, frontend=frontend, device=device, dtype=model_args.dtype)
 
     collator_cfg = CollatorConfig(
         bucketing=BucketingConfig(

@@ -1,6 +1,5 @@
-"""Generation for the joint CTC/attention model
-(counterpart of ``huggingface_asr_tpu/decoding/generate.py``; ``generate_whisper``
-waits for the Whisper slice).
+"""Generation for the joint CTC/attention model and the Whisper seq2seq
+model (counterpart of ``huggingface_asr_tpu/decoding/generate.py``).
 
 The encoder runs once; its CTC log-probs feed the prefix scorer; each
 decoder layer's cross-attention K/V are written once from the unexpanded
@@ -12,11 +11,15 @@ The encoder route: on CUDA tensors, where ``fused_encoder_refusal`` takes the
 encoder config, the kernel path ``ctc_infer(..., return_hidden=True)`` (K2 and
 the K1 layers), with ``enc_to_dec_proj`` applied in the model dtype; otherwise
 the plain ``encode``.
+
+``generate_whisper`` runs the Whisper encoder once and the same beam search
+with attention scores alone (``ctc_weight=0``), Whisper's generation
+specials applied to each step's logits (``build_whisper_decoder_step``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -109,5 +112,84 @@ def generate_joint(
         lm_step=lm_step, init_lm_cache=init_lm_cache,
         vocab_size=cfg.decoder.vocab_size, hook=hook,
     )
+    mark("end")
+    return out
+
+
+NEG_INF_GEN = -1.0e9
+
+
+def build_whisper_decoder_step(
+    model,
+    batch_beams: int,
+    max_length: int,
+    kv_hidden: torch.Tensor,
+    kv_lengths: torch.Tensor,
+    forced_decoder_ids: Optional[Sequence[Tuple[int, int]]] = None,
+    suppress_tokens: Optional[Sequence[int]] = None,
+    begin_suppress_tokens: Optional[Sequence[int]] = None,
+):
+    """(step_fn, init_cache) for the Whisper beam search over ``batch_beams``
+    rows, the cross-attention K/V written once from ``kv_hidden`` (B, S, D),
+    the unexpanded encoder state, and read with ``kv_lengths`` (B,).
+
+    Whisper's generation specials (the reference gets them through HF
+    generate and handle_whisper_generation_config, model_utils.py:248-261)
+    transform each step's logits, as the JAX step does:
+
+    - ``suppress_tokens`` are set to ``NEG_INF_GEN``;
+    - ``begin_suppress_tokens`` get ``NEG_INF_GEN`` added at the first
+      generated position only;
+    - ``forced_decoder_ids`` ((position, token) pairs) are indexed from
+      generation position 1, position 0 being the start token: at step
+      ``p - 1`` every logit but the forced token's gets ``NEG_INF_GEN`` added.
+    """
+    device = kv_hidden.device
+    cache = model.init_cache(batch_beams, max_length, device)
+    model.write_cross_kv(cache, kv_hidden)
+    forced_by_pos = {p - 1: t for p, t in dict(forced_decoder_ids or ()).items()}
+    suppress = torch.as_tensor(list(suppress_tokens), device=device) if suppress_tokens else None
+    begin = torch.as_tensor(list(begin_suppress_tokens), device=device) if begin_suppress_tokens else None
+
+    def step(cache, tokens, positions):
+        logits = model.decode_step(tokens, positions, cache, kv_lengths)[:, -1, :]
+        pos = positions[:1]  # every beam is at the same step; read on the device
+        if suppress is not None:
+            logits[:, suppress] = NEG_INF_GEN
+        if begin is not None:
+            sup = torch.where(pos == 0, NEG_INF_GEN, 0.0).to(logits.dtype)
+            logits.index_add_(1, begin, sup.expand(logits.shape[0], begin.numel()))
+        for p, tok in forced_by_pos.items():
+            forced_row = torch.full_like(logits[:1], NEG_INF_GEN)
+            forced_row[0, tok] = 0.0
+            logits = torch.where(pos == p, logits + forced_row, logits)
+        return logits, cache
+
+    return step, cache
+
+
+def generate_whisper(
+    model,
+    input_features: torch.Tensor,
+    input_lengths: torch.Tensor,
+    config: BeamSearchConfig,
+    forced_decoder_ids: Optional[Sequence[Tuple[int, int]]] = None,
+    suppress_tokens: Optional[Sequence[int]] = None,
+    begin_suppress_tokens: Optional[Sequence[int]] = None,
+    hook: Optional[Callable[..., None]] = None,
+):
+    """Whisper AED beam search (``models/whisper_seq2seq.py``): the encoder
+    once, then ``joint_beam_search`` on attention scores alone (pass
+    ``ctc_weight=0``). Returns (sequences (B, W, L), scores (B, W)), as
+    ``generate_joint`` does."""
+    B = input_features.shape[0]
+    mark = hook or (lambda name, alive=None: None)
+    mark("encoder")
+    enc_hidden, enc_lengths = model.encode(input_features, input_lengths)
+    step, init_cache = build_whisper_decoder_step(
+        model, B * config.num_beams, config.max_length, enc_hidden, enc_lengths,
+        forced_decoder_ids=forced_decoder_ids, suppress_tokens=suppress_tokens,
+        begin_suppress_tokens=begin_suppress_tokens)
+    out = joint_beam_search(step, init_cache, B, config, vocab_size=model.config.vocab_size, hook=hook)
     mark("end")
     return out

@@ -18,10 +18,20 @@ collection; and wav2vec2 pretraining's (``wav2vec2_param_table``) the tree of
 ``huggingface_asr_tpu/models/wav2vec2_ssl.py``: the encoder with
 ``masked_spec_embed``, the quantizer's ``codevectors`` and ``weight_proj``,
 ``project_hid`` and ``project_q``. Each has the same pair of functions.
+
+The recipe families' tables mirror ``huggingface_asr_tpu/interop/hf_whisper.py``'s
+names (HF Whisper's, and the reference extensions): the Whisper-encoder CTC
+model (``whisper_ctc_param_table``), the Whisper seq2seq model
+(``whisper_seq2seq_param_table``) and LLM-ASR (``llm_asr_param_table``: the
+CTC encoder, ``linear``, ``soft_prompt`` and the decoder through
+``decoder_param_table``, without cross-attention). The Whisper encoders'
+sinusoid table, a buffer of the port's models that the Flax trees do not
+hold, is added from the config.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Iterable, Iterator, Mapping, Tuple
 
 import numpy as np
@@ -29,6 +39,7 @@ import torch
 
 from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
 from huggingface_asr_tpu_torch.models.gpt2_decoder import GPT2DecoderConfig
+from huggingface_asr_tpu_torch.models.whisper_ctc import _sinusoids
 
 # layout change -> (axes Flax -> torch, axes torch -> Flax)
 _AXES = {
@@ -314,3 +325,110 @@ def wav2vec2_flax_tree_from_state_dict(sd: Mapping[str, Any], cfg: EBranchformer
     """The inverse of ``wav2vec2_state_dict_from_flax`` (gradients keyed by
     parameter name go back the same way)."""
     return _to_tree(sd, wav2vec2_param_table(cfg))
+
+
+# ---------------------------------------------------------------- recipes
+
+def _whisper_layer(L: Tuple[str, ...], p: str, cross: bool = False) -> Iterator[Entry]:
+    """One Whisper layer at Flax path ``L``, state-dict prefix ``p`` (a
+    decoder layer with ``cross``)."""
+    def attn(name):
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            yield from _dense(L + (name, proj), f"{p}.{name}.{proj}", bias=proj != "k_proj")
+
+    yield from _ln(L + ("self_attn_layer_norm",), f"{p}.self_attn_layer_norm")
+    yield from attn("self_attn")
+    if cross:
+        yield from _ln(L + ("encoder_attn_layer_norm",), f"{p}.encoder_attn_layer_norm")
+        yield from attn("encoder_attn")
+    yield from _ln(L + ("final_layer_norm",), f"{p}.final_layer_norm")
+    yield from _dense(L + ("fc1",), f"{p}.fc1")
+    yield from _dense(L + ("fc2",), f"{p}.fc2")
+
+
+def _whisper_encoder(L: Tuple[str, ...], key: str, n_layers: int) -> Iterator[Entry]:
+    for conv in ("conv1", "conv2"):
+        yield from _conv(L + (conv,), f"{key}{conv}", "conv1d")
+    for i in range(n_layers):
+        yield from _whisper_layer(L + (f"layers_{i}",), f"{key}layers.{i}")
+    yield from _ln(L + ("layer_norm",), f"{key}layer_norm")
+
+
+def whisper_ctc_param_table(cfg) -> Iterator[Entry]:
+    """Every parameter of ``WhisperEncoderForCTC`` (``models/whisper_ctc.py``);
+    the Flax tree holds the encoder at its top."""
+    yield from _whisper_encoder((), "encoder.", cfg.encoder_layers)
+    yield from _dense(("dim_matching",), "dim_matching")
+    yield from _whisper_layer(("additional_layer_1",), "additional_layer_1")
+    if cfg.sub_sample:
+        for i in (1, 2):
+            yield (f"subsample_conv{i}", "kernel"), f"subsample_conv{i}.weight", "conv1d"
+    if cfg.learnable_blank_head:
+        yield ("lm_head_frozen_kernel",), "lm_head_frozen_kernel", "same"
+        yield ("blank_kernel",), "blank_kernel", "same"
+    else:
+        yield from _dense(("lm_head",), "lm_head", bias=False)
+
+
+def whisper_seq2seq_param_table(cfg) -> Iterator[Entry]:
+    """Every parameter of ``WhisperForConditionalGeneration``
+    (``models/whisper_seq2seq.py``), HF's keys."""
+    yield from _whisper_encoder(("encoder",), "model.encoder.", cfg.encoder_layers)
+    d = ("decoder",)
+    yield d + ("embed_tokens", "embedding"), "model.decoder.embed_tokens.weight", "same"
+    yield d + ("embed_positions",), "model.decoder.embed_positions.weight", "same"
+    for i in range(cfg.decoder_layers):
+        yield from _whisper_layer(d + (f"layers_{i}",), f"model.decoder.layers.{i}", cross=True)
+    yield from _ln(d + ("layer_norm",), "model.decoder.layer_norm")
+
+
+def llm_asr_param_table(cfg, tree: Mapping[str, Any]) -> Iterator[Entry]:
+    """Every parameter of ``LLMASRModel`` (``models/llm_asr.py``); ``tree``
+    (Flax params, or ``llm_asr_tree_shape``) decides the decoder's optional
+    entries."""
+    yield from _prefixed(whisper_ctc_param_table(cfg.encoder), ("encoder",), "encoder.")
+    if not cfg.prompt_with_tokens:
+        yield from _dense(("linear",), "linear")
+    yield ("soft_prompt",), "soft_prompt", "same"
+    yield from _prefixed(decoder_param_table(cfg.decoder, tree["decoder"]), ("decoder",), "decoder.")
+
+
+def llm_asr_tree_shape(cfg) -> Dict[str, Any]:
+    return {"decoder": decoder_tree_shape(dataclasses.replace(cfg.decoder, add_cross_attention=False))}
+
+
+def _positions(key: str, cfg) -> Dict[str, torch.Tensor]:
+    return {key: torch.as_tensor(_sinusoids(cfg.max_source_positions, cfg.d_model), dtype=torch.float32)}
+
+
+def whisper_ctc_state_dict_from_flax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """Flax ``WhisperEncoderForCTC`` params -> float32 state dict of the port's."""
+    return {**_to_state_dict(tree, whisper_ctc_param_table(cfg)), **_positions("encoder.embed_positions.weight", cfg)}
+
+
+def whisper_ctc_flax_tree_from_state_dict(sd: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The inverse of ``whisper_ctc_state_dict_from_flax`` (gradients keyed by
+    parameter name go back the same way)."""
+    return _to_tree(sd, whisper_ctc_param_table(cfg))
+
+
+def whisper_seq2seq_state_dict_from_flax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """Flax ``WhisperForConditionalGeneration`` params -> float32 state dict of the port's."""
+    return {**_to_state_dict(tree, whisper_seq2seq_param_table(cfg)),
+            **_positions("model.encoder.embed_positions.weight", cfg)}
+
+
+def whisper_seq2seq_flax_tree_from_state_dict(sd: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The inverse of ``whisper_seq2seq_state_dict_from_flax``."""
+    return _to_tree(sd, whisper_seq2seq_param_table(cfg))
+
+
+def llm_asr_state_dict_from_flax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """Flax ``LLMASRModel`` params -> float32 state dict of the port's."""
+    return {**_to_state_dict(tree, llm_asr_param_table(cfg, tree)),
+            **_positions("encoder.encoder.embed_positions.weight", cfg.encoder)}
+
+
+def llm_asr_flax_tree_from_state_dict(sd: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The inverse of ``llm_asr_state_dict_from_flax``."""
+    return _to_tree(sd, llm_asr_param_table(cfg, llm_asr_tree_shape(cfg)))

@@ -392,7 +392,9 @@ class GPT2MultiHeadDecoder(nn.Module):
                 encoder_lengths: Optional[torch.Tensor] = None,
                 position_offset: Optional[torch.Tensor] = None,
                 cache: Optional[Cache] = None, labels: Optional[torch.Tensor] = None,
-                label_mask: Optional[torch.Tensor] = None, rng: Optional[DropoutRng] = None) -> DecoderOutput:
+                label_mask: Optional[torch.Tensor] = None, rng: Optional[DropoutRng] = None,
+                embeds_overlay: Optional[torch.Tensor] = None,
+                overlay_mask: Optional[torch.Tensor] = None) -> DecoderOutput:
         """Without ``cache``: the whole (B, T) sequence, causally masked,
         attending to ``encoder_hidden`` (B, S, D). With ``cache``: one step
         (or ``T`` more tokens) at positions ``position_offset`` (B,); the
@@ -407,11 +409,16 @@ class GPT2MultiHeadDecoder(nn.Module):
         has no smoothing. Without labels the final head's logits (B, T, V),
         with ``average_logits`` plus the weighted intermediate heads (not
         divided by their count), as the JAX decoder has the two forms.
-        ``rng``: the training forward's dropout stream."""
+        ``rng``: the training forward's dropout stream. ``embeds_overlay``
+        (B, T, D) and ``overlay_mask`` (B, T): the flagged positions take the
+        overlay, cast to the model dtype, in place of their token embedding
+        (LLM-ASR's soft prompts and projected frames)."""
         cfg, dt = self.config, self.dtype
         tr = self.transformer
         B, T = input_ids.shape
         x = tr.wte.weight[input_ids].to(dt)
+        if embeds_overlay is not None:
+            x = torch.where(overlay_mask[..., None], embeds_overlay.to(dt), x)
         if cfg.pos_emb_fixed:
             x = x * torch.tensor(math.sqrt(cfg.n_embd), dtype=dt)
             table = self.pos_table

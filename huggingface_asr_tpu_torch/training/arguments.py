@@ -134,12 +134,12 @@ class TokenizerTrainingArguments:
 
 
 def check_supported(family: str, training: Optional[GeneralTrainingArguments] = None) -> None:
-    """Raise ``NotImplementedError`` for a value the port cannot honour yet
-    (``family``: ``--model_family`` of train_ctc, ``--model_type`` of
-    evaluate), naming the field and the ROADMAP.md item that brings it."""
-    if family in ("whisper_ctc", "llm_asr"):
-        raise NotImplementedError(
-            f"{family} models are not ported yet (ROADMAP.md Queue 1 item 11, the recipe families)")
+    """Raise ``NotImplementedError`` for a value the port cannot honour yet,
+    naming the field and the ROADMAP.md item that brings it. ``family`` is
+    ``--model_family`` of train_ctc/train_aed or ``--model_type`` of
+    evaluate; every value of those is ported (the recipe families since
+    ``whisper_ctc``, ``llm_asr`` and ``whisper`` came over), so only the
+    training options are checked here."""
     if training is None:
         return
     if training.fsdp:

@@ -28,9 +28,18 @@ buffers, so the checkpoint saves and restores it with the parameters.
 ``sampled_negative_indices``, the Gumbel temperature decays a step, and the
 Gumbel draws come from the step's augment stream.
 
+``LLMASRTrainer`` trains LLM-ASR (``models/llm_asr.py``), reporting
+``enc_loss`` where the model computes it; its evaluation decodes greedily
+(``llm_asr_greedy_decode``, ``max_len`` the label rows' width).
+``Seq2SeqTrainer`` trains the Whisper seq2seq model
+(``models/whisper_seq2seq.py``) on its teacher-forced cross entropy. Both
+models compute in their own ``dtype``, which must be the trainer's, as the
+joint model's. ``CTCTrainer`` also trains the Whisper-encoder CTC model,
+whose blank is its config's ``blank_token_id``.
+
 The causal-LM trainer of ``cli/train_clm.py`` sits in that module, as in the
-JAX package. Not ported here: the LLM-ASR and Whisper seq2seq trainers,
-meshes and sharded state (one device), profiler capture.
+JAX package. Not ported here: meshes and sharded state (one device),
+profiler capture.
 """
 
 from __future__ import annotations
@@ -303,34 +312,44 @@ class CTCTrainer(BaseTrainer):
         feats, lengths = self._featurize(batch)
         out = self.model(feats.to(self.dtype), lengths, labels=batch.get("labels"),
                          label_lengths=batch.get("label_lengths"))
-        # blank = last index for the E-Branchformer family
-        tokens, token_lengths = ctc_greedy_decode(out.logits, out.logit_lengths, blank_id=-1)
+        # blank = last index for the E-Branchformer family; Whisper-CTC models
+        # carry an explicit blank_token_id
+        blank = getattr(self.model.config, "blank_token_id", -1)
+        tokens, token_lengths = ctc_greedy_decode(out.logits, out.logit_lengths, blank_id=blank)
         loss = out.loss if out.loss is not None else torch.zeros((), device=self.device)
         return {"loss": loss, "tokens": tokens, "token_lengths": token_lengths}
 
 
-class JointTrainer(BaseTrainer):
-    """DeCRED/ED training with the encoder's and the decoder's losses tracked
-    (JAX ``JointTrainer``; reference AdditionalLossTrackerTrainer). The model
-    computes in its own ``dtype``, which must be the trainer's."""
+class _OwnDtypeTrainer(BaseTrainer):
+    """A trainer of a model that computes in its own ``dtype``, which must be
+    the trainer's."""
 
     def __init__(self, model, config: TrainerConfig = TrainerConfig(), frontend=None, device="cuda",
                  dtype: str = "bfloat16", frozen_prefixes=()):
         super().__init__(model, config, frontend, device, dtype, frozen_prefixes)
         if self.model.dtype != self.dtype:
-            raise ValueError(f"the joint model computes in {self.model.dtype}, the trainer in {self.dtype}")
+            raise ValueError(f"the model computes in {self.model.dtype}, the trainer in {self.dtype}")
+
+    def _forward(self, batch, aug_gen=None, dropout_rng=None, step=None):
+        """The model on the batch's features (SpecAugmented in a training
+        step, ``step`` given) with its labels where the batch has them."""
+        feats, lengths = self._featurize(batch)
+        if step is not None:
+            feats = self._maybe_spec_augment(aug_gen, feats, lengths, step)
+        return self.model(feats.to(self.dtype), lengths, labels=batch.get("labels"),
+                          label_lengths=batch.get("label_lengths"), rng=dropout_rng)
+
+
+class JointTrainer(_OwnDtypeTrainer):
+    """DeCRED/ED training with the encoder's and the decoder's losses tracked
+    (JAX ``JointTrainer``; reference AdditionalLossTrackerTrainer)."""
 
     def loss_and_metrics(self, batch, aug_gen, dropout_rng, step):
-        feats, lengths = self._featurize(batch)
-        feats = self._maybe_spec_augment(aug_gen, feats, lengths, step)
-        out = self.model(feats.to(self.dtype), lengths, labels=batch["labels"],
-                         label_lengths=batch["label_lengths"], rng=dropout_rng)
+        out = self._forward(batch, aug_gen, dropout_rng, step)
         return out.loss, {"enc_loss": out.enc_loss.detach(), "dec_loss": out.dec_loss.detach()}
 
     def eval_outputs(self, batch):
-        feats, lengths = self._featurize(batch)
-        out = self.model(feats.to(self.dtype), lengths, labels=batch.get("labels"),
-                         label_lengths=batch.get("label_lengths"))
+        out = self._forward(batch)
         return {"loss": out.loss, "enc_loss": out.enc_loss, "dec_loss": out.dec_loss}
 
 
@@ -395,3 +414,34 @@ class Wav2Vec2SSLTrainer(BaseTrainer):
     def eval_outputs(self, batch):
         out = self._forward(batch, 0)
         return {"loss": out.loss / torch.clamp(out.num_masked, min=1)}
+
+
+class LLMASRTrainer(_OwnDtypeTrainer):
+    """LLM-ASR training (JAX ``LLMASRTrainer``; the reference trains these
+    through its CTC trainer with recipe-local models, local_models.py:10-243)."""
+
+    def loss_and_metrics(self, batch, aug_gen, dropout_rng, step):
+        out = self._forward(batch, aug_gen, dropout_rng, step)
+        return out.loss, ({} if out.enc_loss is None else {"enc_loss": out.enc_loss.detach()})
+
+    def eval_outputs(self, batch):
+        from huggingface_asr_tpu_torch.models.llm_asr import llm_asr_greedy_decode
+
+        feats, lengths = self._featurize(batch)
+        out = self.model(feats, lengths, labels=batch.get("labels"), label_lengths=batch.get("label_lengths"))
+        max_len = batch["labels"].shape[1] if "labels" in batch else 48
+        tokens, token_lengths = llm_asr_greedy_decode(self.model, feats, lengths, max_len=max_len)
+        loss = out.loss if out.loss is not None else torch.zeros((), device=self.device)
+        return {"loss": loss, "tokens": tokens, "token_lengths": token_lengths}
+
+
+class Seq2SeqTrainer(_OwnDtypeTrainer):
+    """Plain encoder-decoder cross-entropy training (JAX ``Seq2SeqTrainer``;
+    the reference trains HF WhisperForConditionalGeneration directly,
+    train_enc_dec_asr.py:82-85)."""
+
+    def loss_and_metrics(self, batch, aug_gen, dropout_rng, step):
+        return self._forward(batch, aug_gen, dropout_rng, step).loss, {}
+
+    def eval_outputs(self, batch):
+        return {"loss": self._forward(batch).loss}

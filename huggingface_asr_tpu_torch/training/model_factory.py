@@ -7,6 +7,11 @@ A model directory holds ``config.json`` (the JAX package's config fields) and
 ``huggingface_asr_tpu/interop/export_hf.py::save_torch_checkpoint`` writes).
 Orbax checkpoints cannot be read without JAX; the JAX side converts them.
 
+The recipe families' directories (Whisper-encoder CTC, Whisper seq2seq,
+LLM-ASR) hold the same two files; ``load_config`` reads their configs (the
+LLM-ASR one nests ``encoder`` and ``decoder``) and ``load_whisper_ctc_model``,
+``load_whisper_model`` and ``load_llm_asr_model`` load them for decoding.
+
 A trainer checkpoint is one file ``checkpoint_<step>.pt`` in the trainer's
 checkpoint directory: model and optimizer state, step, guard counters, seed.
 ``average_checkpoints`` averages those files' model states, as the JAX
@@ -19,7 +24,7 @@ import dataclasses
 import json
 import os
 import re
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -36,10 +41,10 @@ STATE_FILE = "pytorch_model.bin"
 _CKPT = re.compile(r"^checkpoint_(\d+)\.pt$")
 
 
-def load_config(path: str, cls=EBranchformerConfig) -> Union[EBranchformerConfig, JointCTCAttentionConfig]:
-    """The ``config.json`` of a model directory as ``cls``: the CTC model's
-    flat fields, or (``JointCTCAttentionConfig``) nested ``encoder`` and
-    ``decoder`` dicts."""
+def load_config(path: str, cls=EBranchformerConfig):
+    """The ``config.json`` of a model directory as ``cls`` (any config class
+    with ``from_dict``): the CTC model's flat fields, or (``JointCTCAttentionConfig``,
+    ``LLMASRConfig``) nested ``encoder`` and ``decoder`` dicts."""
     with open(os.path.join(path, "config.json")) as f:
         return cls.from_dict(json.load(f))
 
@@ -48,7 +53,7 @@ def load_state(path: str) -> Dict[str, torch.Tensor]:
     return torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
 
 
-def save_params(model: Union[EBranchformerForCTC, JointCTCAttentionEncoderDecoder], path: str) -> None:
+def save_params(model: torch.nn.Module, path: str) -> None:
     """Write a standalone inference checkpoint (``config.json`` +
     ``pytorch_model.bin``), over any earlier one at ``path``."""
     os.makedirs(path, exist_ok=True)
@@ -71,6 +76,59 @@ def load_aed_model(path: str, device="cuda", dtype: torch.dtype = torch.float32)
     model = JointCTCAttentionEncoderDecoder(load_config(path, JointCTCAttentionConfig), dtype)
     model.load_state_dict(load_state(path), strict=True)
     return model.to(device).eval()
+
+
+def cast_matrices_(model: torch.nn.Module, dtype: torch.dtype, keep: Tuple[str, ...] = ()) -> torch.nn.Module:
+    """Hold the weights and biases of every Linear, Conv1d and Embedding (and
+    GPT-2 ``Conv1D``) in ``dtype``, but the modules named in ``keep``: the
+    recipe models cast those parameters to their compute dtype at each use,
+    so holding them there computes the same function and casts nothing a
+    step. LayerNorm parameters and the fp32-applied kernels stay as they are."""
+    from huggingface_asr_tpu_torch.models.gpt2_decoder import Conv1D
+
+    for name, m in model.named_modules():
+        if isinstance(m, (torch.nn.Linear, torch.nn.Conv1d, torch.nn.Embedding, Conv1D)) and name not in keep:
+            m.to(dtype)
+    return model
+
+
+def _load_recipe_model(path: str, model: torch.nn.Module, device, dtype: Optional[torch.dtype],
+                       keep: Tuple[str, ...] = ()) -> torch.nn.Module:
+    model.load_state_dict(load_state(path), strict=True)
+    if dtype is not None and dtype != torch.float32:
+        cast_matrices_(model, dtype, keep)
+    return model.to(device).eval()
+
+
+def load_whisper_ctc_model(path: str, device="cuda", dtype: Optional[torch.dtype] = None):
+    """The Whisper-encoder CTC model of a model directory; it computes in the
+    dtype of the features it is given, and with ``dtype`` its matrices are
+    held in that dtype."""
+    from huggingface_asr_tpu_torch.models.whisper_ctc import WhisperCTCConfig, WhisperEncoderForCTC
+
+    device = resolve_device(device)
+    return _load_recipe_model(path, WhisperEncoderForCTC(load_config(path, WhisperCTCConfig)), device, dtype)
+
+
+def load_whisper_model(path: str, device="cuda", dtype: torch.dtype = torch.float32):
+    """The Whisper seq2seq model of a model directory, computing in ``dtype``
+    (the token embedding stays fp32: the tied head applies it in fp32)."""
+    from huggingface_asr_tpu_torch.models.whisper_seq2seq import (
+        WhisperForConditionalGeneration,
+        WhisperSeq2SeqConfig,
+    )
+
+    device = resolve_device(device)
+    model = WhisperForConditionalGeneration(load_config(path, WhisperSeq2SeqConfig), dtype)
+    return _load_recipe_model(path, model, device, dtype, keep=("model.decoder.embed_tokens",))
+
+
+def load_llm_asr_model(path: str, device="cuda", dtype: torch.dtype = torch.float32):
+    """The LLM-ASR model of a model directory, computing in ``dtype``."""
+    from huggingface_asr_tpu_torch.models.llm_asr import LLMASRConfig, LLMASRModel
+
+    device = resolve_device(device)
+    return _load_recipe_model(path, LLMASRModel(load_config(path, LLMASRConfig), dtype), device, dtype)
 
 
 def checkpoint_steps(directory: str) -> List[int]:

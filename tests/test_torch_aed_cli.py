@@ -152,10 +152,20 @@ def test_train_aed_writes_final_predictions_and_nbest_lists(aed_runs):
 
 
 def test_train_aed_whisper_family_raises(corpus):
+    """The Whisper family (``tests/test_torch_recipe_cli.py`` trains it)
+    refuses an HF directory that holds safetensors weights only, naming the
+    file it reads, and a run given no model at all."""
     root, path, tok, _ = corpus
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        train_aed.main(["--dataset_name", path, "--load_from_disk", "--tokenizer_name", tok, "--model_family",
-                        "whisper", "--output_dir", str(root / "whisper"), "--device", "cpu"])
+    hf_dir = root / "hf_whisper"
+    hf_dir.mkdir()
+    (hf_dir / "config.json").write_text(json.dumps({"d_model": 32, "vocab_size": 40}))
+    (hf_dir / "model.safetensors").write_bytes(b"")
+    common = ["--dataset_name", path, "--load_from_disk", "--no-do_resample", "--tokenizer_name", tok,
+              "--model_family", "whisper", "--output_dir", str(root / "whisper"), "--device", "cpu"]
+    with pytest.raises(FileNotFoundError, match="pytorch_model.bin"):
+        train_aed.main([*common, "--from_hf_checkpoint", str(hf_dir)])
+    with pytest.raises(ValueError, match="--model_config"):
+        train_aed.main(common)
 
 
 # ------------------------------------------------------------ train_clm

@@ -216,19 +216,22 @@ GATE_DIR = os.path.join(REPO, "huggingface_asr_tpu_torch", "assets", "gate_ctc")
 
 
 @pytest.mark.parametrize("cli,argv,error,words", [
-    ("train", ["--model_family", "whisper_ctc"], NotImplementedError, "Queue 1 item 11"),
-    ("train", ["--model_family", "llm_asr"], NotImplementedError, "Queue 1 item 11"),
+    ("train", ["--model_family", "whisper_ctc", "--from_hf_checkpoint", "x", "--device", "cpu"], ValueError,
+     "caveat .i."),
+    ("train", ["--model_family", "llm_asr", "--from_hf_checkpoint", "x", "--device", "cpu"], ValueError,
+     "caveat .i."),
     ("train", ["--fsdp"], NotImplementedError, "fsdp"),
     ("train", ["--profile_steps", "3"], NotImplementedError, "profile_steps"),
-    ("eval", ["--model_type", "whisper_ctc"], NotImplementedError, "Queue 1 item 11"),
-    ("eval", ["--model_type", "llm_asr"], NotImplementedError, "Queue 1 item 11"),
+    ("eval", ["--model_type", "whisper"], ValueError, "whisper_ctc or llm_asr"),
+    ("eval", ["--model_type", "llm_asr", "--fused_encoder", "on", "--device", "cpu"], ValueError, "CUDA"),
     ("eval", ["--fused_encoder", "on", "--device", "cpu"], ValueError, "CUDA"),
     ("eval", ["--fused_encoder", "on", "--device", "cpu", "--dtype", "float32"], ValueError, "bfloat16"),
     ("eval", [], RuntimeError, "CUDA is not available"),
 ])
 def test_what_the_port_cannot_honour_yet_raises(cli, argv, error, words, tmp_path):
-    """Each refusal names its field or its ROADMAP.md item (``run`` takes the
-    parsed groups, a dataset mapping and a tokenizer)."""
+    """Each refusal names its field, its ROADMAP.md item or the reference
+    caveat behind it (``run`` takes the parsed groups, a dataset mapping and
+    a tokenizer)."""
     from huggingface_asr_tpu_torch.data.datasets import DataConfig
     from huggingface_asr_tpu_torch.training.arguments import (
         GeneralTrainingArguments,

@@ -949,6 +949,8 @@ def test_port_modules_import_nothing_of_jax():
         "import huggingface_asr_tpu_torch.serving.pipeline, huggingface_asr_tpu_torch.cli.pretrain\n"
         "import huggingface_asr_tpu_torch.models.bestrq, huggingface_asr_tpu_torch.ops.masking\n"
         "import huggingface_asr_tpu_torch.models.wav2vec2_ssl, huggingface_asr_tpu_torch.cli.train_ctc\n"
+        "import huggingface_asr_tpu_torch.models.llm_asr, huggingface_asr_tpu_torch.models.whisper_seq2seq\n"
+        "import huggingface_asr_tpu_torch.interop.hf_whisper, huggingface_asr_tpu_torch.cli.train_aed\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'huggingface_asr_tpu'))\n"
         "assert not bad, bad\nprint('ok')\n" % repo
@@ -1383,3 +1385,45 @@ def test_adapter_model_takes_k4_and_k5_in_the_encoder_layers_only():
         assert _build.LAUNCHES["asr_rel_attention_shift"] == 2
         ref = twin.eval()(feats.to(dev, torch.bfloat16), lens.to(dev)).logits
     _close(got, ref, 0.05)
+
+
+def test_whisper_ctc_route_takes_the_mel_kernels_and_agrees_with_the_plain_route():
+    """The Whisper-CTC decode route on the card, a tiny bf16 model: with
+    "auto" one ``mel`` and one ``cmvn`` launch a batch in front of the plain
+    transformer; its CTC logits agree with the plain front end's route within
+    0.05 of scale and its greedy ids on at least 98 % of the valid frames;
+    "on" at 128 mel bins raises."""
+    from huggingface_asr_tpu_torch.cli.evaluate import WhisperCTCRoute
+    from huggingface_asr_tpu_torch.models.whisper_ctc import (
+        WhisperCTCConfig,
+        WhisperEncoderForCTC,
+        init_whisper_from_scratch_,
+    )
+
+    dev = _cuda()
+    cfg = WhisperCTCConfig(d_model=64, encoder_layers=2, encoder_attention_heads=4, encoder_ffn_dim=128,
+                           llm_dim=64, additional_head_count=4, vocab_size=40)
+    model = init_whisper_from_scratch_(WhisperEncoderForCTC(cfg), torch.Generator().manual_seed(0)).to(dev).eval()
+    rng = np.random.default_rng(0)
+    waves = [utterance(s, rng)[0] for s in (4.0, 2.5)]
+    S = max(len(w) for w in waves)
+    wav = torch.zeros(2, S, device=dev)
+    for i, w in enumerate(waves):
+        wav[i, :len(w)] = torch.from_numpy(w)
+    lens = torch.tensor([len(w) for w in waves], dtype=torch.int32, device=dev)
+    fused = WhisperCTCRoute(model, "auto", dev, torch.bfloat16)
+    plain = WhisperCTCRoute(model, "off", dev, torch.bfloat16)
+    assert fused.fused and not plain.fused
+    _build.reset_launch_counts()
+    out = fused(wav, lens)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"asr_log_mel": 1, "asr_cmvn": 1}
+    ref = plain(wav, lens)
+    assert torch.equal(out.logit_lengths, ref.logit_lengths)
+    _close(out.logits, ref.logits, 0.05)
+    valid = torch.arange(out.logits.shape[1], device=dev)[None, :] < out.logit_lengths[:, None]
+    agree = (out.logits.argmax(-1) == ref.logits.argmax(-1))[valid].float().mean()
+    assert float(agree) >= 0.98
+    wide = WhisperEncoderForCTC(dataclasses.replace(cfg, num_mel_bins=128)).to(dev)
+    with pytest.raises(ValueError, match="num_mel_bins 128"):
+        WhisperCTCRoute(wide, "on", dev, torch.bfloat16)

@@ -162,3 +162,25 @@ def test_plain_cmvn_at_edge_lengths_matches_pallas_interpret(norm_means, norm_va
     np.testing.assert_allclose(g[finite], r[finite], rtol=0, atol=atol)
     for i, n in enumerate(LogMelConfig().num_frames(lens).tolist()):
         assert np.all(g[i, max(n, 0):] == 0.0)
+
+
+def test_128_bins_empty_filter_column_matches_jax_nan_and_all():
+    """ROADMAP.md reference caveat (k): the 128-filter Kaldi bank has an
+    all-zero filter (index 3), so its log-mel column is the constant
+    log(mel_floor), and the utterance CMVN divides a rounding residue by its
+    own square root. The column comes out all NaN (150 frames) or all -1
+    (171 frames), depending on the length, and the port's plain front end
+    writes what the JAX one writes; every other column agrees within the
+    tolerance of ``test_plain_front_end_matches_jax_fp32``."""
+    rng = np.random.default_rng(0)
+    S = 160 * 170 + 400
+    wav = (rng.standard_normal((2, S)) * 0.1).astype(np.float32)
+    lens = np.asarray([160 * 149 + 400, S], np.int32)  # 150 and 171 frames
+    ref, ref_lens = JLogMelFrontEnd(JLogMelConfig(num_mel_bins=128))(jnp.asarray(wav), jnp.asarray(lens))
+    got, got_lens = LogMelFrontEnd(LogMelConfig(num_mel_bins=128))(torch.from_numpy(wav), torch.from_numpy(lens))
+    ref, got = np.asarray(ref), got.numpy()
+    np.testing.assert_array_equal(got_lens.numpy(), np.asarray(ref_lens))
+    assert list(got_lens.numpy()) == [150, 171]
+    assert np.isnan(ref[0, :150, 3]).all() and (ref[1, :, 3] == -1.0).all()
+    np.testing.assert_array_equal(got[:, :, 3], ref[:, :, 3])
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4, equal_nan=True)
