@@ -200,6 +200,32 @@
    ends within 0.05 of scale under one CTC plan that keeps every valid frame.
    Each kernel entry of the JSON line gains ``recipe_launches``, its launches
    on these decode routes.
+17. last, the E-Branchformer variants, the streaming sessions and the CTC
+   beam search: (a) the flagship with a gated conv front end and the CSGU
+   linear after the conv (seeded weights) serves B=8 x 10 s through
+   ``ASRPipeline`` on the kernel route (K3, the model's own gated front end in
+   bf16, then every layer's K1 pieces with the ungated CSGU conv and the GEMM's
+   gate epilogue, 12 launches of each), three requests counted and five timed,
+   logits and greedy ids against the plain path (0.05 of scale, ids equal at
+   clear margins and on >= 98 % of valid frames with near-ties by the triage
+   rule counted as ties, beside the plain layers' own agreement between the
+   two front ends' features); the two new pieces against
+   their plain versions at B=8 and B=128 beside their bounds, ``F.conv1d``
+   and ``F.linear``, with device times, the ungated conv bit-equal to the gated
+   form where x_r is 1; (b) two ``CTCTrainer`` steps of that model under
+   attention_impl "auto" (12 K4 forward and backward launches a step), step 1
+   within 1e-4 in loss of the plain attention; (c) the flagship with rotary
+   positions, one B=8 request on the plain route (no kernel), its bf16 logits
+   within 0.05 of scale of the fp32 model's; (d) ``StreamingCTCSession`` on a
+   causal flagship (fp32) behind a global-CMVN front end, 10 s in 1 s feeds:
+   every feed extends the last but at near-ties by the triage rule, the last
+   equals a one-shot decode, ms a feed; (e) ``StreamingJointSession`` on
+   ``decred_base.json`` with a causal encoder (fp32), three 2 s feeds, the last
+   equal to ``generate_joint`` on the whole audio; (f) ``ctc_beam_search``
+   (W=10, K=16) on (a)'s log-probs on the card against the same call on the
+   CPU: n-best ids equal, scores within 1e-3, ms printed. The JSON line gains
+   the two new pieces' rows (``dwconv_csgu_conv``, ``gemm_gate``, each also at
+   B=128 / M = 32,768) with their launches in (a)'s request.
 
 Beside each kernel's time it prints the plain version's, the least time the
 card could take (the larger of bytes / 3.35 TB/s and operations / the peak
@@ -405,22 +431,26 @@ AED_CONFIG = "decred_base.json"
 AED_VOCAB = 500
 
 
-def aed_model(seed: int = 0):
-    """The joint model of ``AED_CONFIG`` with seeded random weights."""
-    import torch
-
+def aed_config():
+    """The joint config of ``AED_CONFIG`` with the smoke's vocabulary and special ids."""
     sys.path.insert(0, ROOT)
-    from huggingface_asr_tpu_torch.models.ebranchformer import init_random_
-    from huggingface_asr_tpu_torch.models.joint_ctc_aed import (
-        JointCTCAttentionConfig,
-        JointCTCAttentionEncoderDecoder,
-    )
+    from huggingface_asr_tpu_torch.models.joint_ctc_aed import JointCTCAttentionConfig
 
     with open(os.path.join(ROOT, "configs", AED_CONFIG)) as f:
         d = json.load(f)
     d["encoder"]["vocab_size"] = AED_VOCAB
     d["decoder"].update(vocab_size=AED_VOCAB, bos_token_id=0, eos_token_id=1, pad_token_id=3)
-    cfg = JointCTCAttentionConfig.from_dict({**d, "decoder_start_token_id": 0, "pad_token_id": 3})
+    return JointCTCAttentionConfig.from_dict({**d, "decoder_start_token_id": 0, "pad_token_id": 3})
+
+
+def aed_model(seed: int = 0, cfg=None):
+    """The joint model of ``AED_CONFIG`` (or ``cfg``) with seeded random weights."""
+    import torch
+
+    from huggingface_asr_tpu_torch.models.ebranchformer import init_random_
+    from huggingface_asr_tpu_torch.models.joint_ctc_aed import JointCTCAttentionEncoderDecoder
+
+    cfg = cfg or aed_config()
     return init_random_(JointCTCAttentionEncoderDecoder(cfg).eval(), torch.Generator().manual_seed(seed))
 
 
@@ -1793,6 +1823,323 @@ def recipe_phase(dev, smi) -> dict:
     torch.cuda.empty_cache()
     print(f"recipe phase: {time.perf_counter() - t_phase:.1f} s; decode-route launches {recipe_launches}", flush=True)
     return recipe_launches
+
+
+def variants_phase(dev, smi, compare) -> dict:
+    """The E-Branchformer variants, the streaming sessions and the CTC beam
+    search on the card (step 17 of the module's docstring). ``compare`` is
+    ``main``'s kernel-vs-plain hold, which keeps the new pieces' rows for the
+    JSON line. Returns the kernel launches of the gated, csgu-linear request."""
+    import torch
+    import torch.nn.functional as F
+
+    from huggingface_asr_tpu_torch.decoding.beam_search import BeamSearchConfig
+    from huggingface_asr_tpu_torch.decoding.ctc_beam import CTCBeamConfig, ctc_beam_search
+    from huggingface_asr_tpu_torch.decoding.generate import generate_joint
+    from huggingface_asr_tpu_torch.kernels import _build
+    from huggingface_asr_tpu_torch.kernels import layer as K1
+    from huggingface_asr_tpu_torch.kernels.train_attention import rel_attention_train, rel_attention_train_plain
+    from huggingface_asr_tpu_torch.models import ebranchformer as model_module
+    from huggingface_asr_tpu_torch.models.fast_infer import ctc_infer
+    from huggingface_asr_tpu_torch.ops.ctc import ctc_greedy_decode
+    from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
+    from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
+    from huggingface_asr_tpu_torch.serving.streaming import StreamingCTCSession, StreamingJointSession
+    from huggingface_asr_tpu_torch.training.model_factory import save_params
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_variants")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(17)
+
+    class Pieces:
+        def decode(self, ids, skip_special_tokens=True):
+            return " ".join(map(str, ids))
+
+    def host_ms(fn, reps=3):
+        out, times = None, []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, times
+
+    # ---- (a) the gated front end and the CSGU linear on the kernel route
+    cfg = flagship_config(context_awareness_type="gated", csgu_use_linear_after_conv=True)
+    n_l = cfg.num_hidden_layers
+    print(f"-- variants (a): the flagship with a gated front end and the CSGU linear, B=8 x 10 s through "
+          f"ASRPipeline; {smi}", flush=True)
+    model_dir = os.path.join(work, "gated_csgu_linear")
+    save_params(seeded_model(cfg, seed=17), model_dir)
+    pipe = ASRPipeline(model_dir, model_type="ctc", device="cuda", tokenizer=Pieces())
+    if not pipe._use_fused or pipe._fused.subsample is not None:
+        _fail("the gated csgu-linear model did not take the fused route behind its own front end")
+    audios = [speech(10.0 * (1.0 - 0.03 * i), rng) for i in range(8)]
+    pipe(audios[:1])  # first call: warm the allocator
+    per_layer = {"asr_layernorm_bf16": 5, "asr_gemm_bf16": 9, "asr_gemm_gate_bf16": 1, "asr_rel_attention": 1,
+                 "asr_pos_query": 1, "dwconv_csgu_conv": 1, "dwconv_merge": 1}
+    want = {"asr_log_mel": 1, "asr_cmvn": 1, **{k: v * n_l for k, v in per_layer.items()}}
+    variant_launches, req_ms = {}, []
+    for _ in range(3):
+        texts, got = count_launches(lambda: pipe(audios), {})
+        if got != want or len(texts) != 8:
+            _fail(f"gated csgu-linear request: launches {got}, want {want}")
+        variant_launches = got
+    _, req_ms = host_ms(lambda: pipe(audios), reps=5)
+    print(f"  request B=8 x 10 s: {float(np.median(req_ms)):.2f} ms median of 5 (host clock, synchronized; "
+          f"{[round(t, 2) for t in req_ms]}); launches {variant_launches}", flush=True)
+    against_plain_path(pipe, {"gated csgu-linear, 8 utt (10 s)": audios})
+    # The >= 98 % bar on the greedy ids counts a frame whose ids differ at a
+    # near-tie by the triage rule (top-two gap within TIE of the logit scale
+    # on the plain route) as a tie. This seeded model's logits are flat
+    # (median top-two gap ~0.15 of a scale of ~4): the plain layers alone
+    # change ids between the two front ends' features (K3's and the plain
+    # log-mel's, a bf16 ulp apart here and there), printed beside as the
+    # yardstick.
+    wav = torch.from_numpy(pipe._bucket_pad(audios)).to(dev)
+    wav_lens = torch.tensor([len(a) for a in audios], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        feats_k, flens_k = pipe._frontend(wav, wav_lens)
+        enc = ctc_infer(pipe._fused, feats_k, flens_k)
+        ref = ctc_infer(pipe._fused, *pipe._frontend(wav, wav_lens, plain=True), plain=True)
+        nudged = ctc_infer(pipe._fused, feats_k, flens_k, plain=True)
+    valid = torch.arange(ref.logits.shape[1], device=dev)[None, :] < ref.logit_lengths[:, None]
+    r = ref.logits.float()
+    top2 = r.topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= TIE * float(r.abs()[valid].max())
+    differ = (enc.logits.argmax(-1) != r.argmax(-1)) & valid
+    frames = int(valid.sum())
+    raw, held = 1.0 - int(differ.sum()) / frames, 1.0 - int((differ & ~tie).sum()) / frames
+    self_agree = 1.0 - int(((nudged.logits.argmax(-1) != r.argmax(-1)) & valid).sum()) / frames
+    print(f"  greedy ids equal on {100 * raw:.2f} % of {frames} valid frames, {100 * held:.2f} % with near-ties "
+          f"(triage rule) as ties (bar 98 %); the plain layers on K3's features against the plain route: "
+          f"{100 * self_agree:.2f} %", flush=True)
+    if held < 0.98:
+        _fail("gated csgu-linear: greedy ids equal on fewer than 98 % of the valid frames, ties aside")
+    log_probs, lp_lens = F.log_softmax(enc.logits.float(), dim=-1), enc.logit_lengths
+
+    # the two new pieces against their plain versions at B=8 and B=128, each
+    # beside its bound and its library call (F.conv1d(groups=C) in bf16 without
+    # the LayerNorm; F.linear without the epilogue); the ungated conv bit-equal
+    # to the gated form where x_r is 1 and the activation the identity
+    w = pipe._fused.layers[0]
+    C, Kc = w["csgu_dw"].shape[1], w["csgu_dw"].shape[0]
+    gen = torch.Generator().manual_seed(171)
+    dev_ms = {}
+    with torch.no_grad():
+        for B_ in (8, 128):
+            M, T_pad = B_ * 256, 256
+            suffix = "" if B_ == 8 else "_b128"
+            l = torch.randn(M, 2 * C, generator=gen).bfloat16().to(dev)
+            cargs = (w["csgu_ln_g"], w["csgu_ln_b"], w["csgu_dw"], w["csgu_dw_b"], B_, T_pad, 250, 1e-5)
+            gate_in = l[:, C:].reshape(B_, T_pad, C).transpose(1, 2)
+            dw_c = w["csgu_dw"].t().reshape(C, 1, Kc).contiguous()
+            conv = compare(f"dwconv csgu ungated B={B_}", f"dwconv_csgu_conv{suffix}",
+                           lambda: K1.csgu_conv(l, *cargs), lambda: K1.csgu_conv_plain(l, *cargs), 2 ** -7,
+                           library_fn=lambda: F.conv1d(gate_in, dw_c, padding=(Kc - 1) // 2, groups=C),
+                           work=(2.0 * M * C * Kc + 10.0 * M * C, 2 * M * C + nbytes(w["csgu_dw"]) + 2 * M * C,
+                                 "fp32"))
+            ones = l.clone()
+            ones[:, :C] = 1.0
+            same = torch.equal(conv, K1.csgu(ones, *cargs[:-1], "identity", 1e-5))
+            print(f"  ungated conv B={B_}: bit-equal to the gated form with x_r = 1: {same}", flush=True)
+            if not same:
+                _fail(f"the ungated CSGU conv at B={B_} is not bit-equal to the gated form's")
+            lin_w, lin_b = w["csgu_lin_w"], w["csgu_lin_b"]
+            x_r = l[:, :C]
+            w_t, b16 = lin_w.t(), lin_b.bfloat16()
+            compare(f"gemm gate epilogue M={M}", f"gemm_gate{'' if B_ == 8 else '_m32768'}",
+                    lambda: K1.gemm(conv, lin_w, lin_b, act=cfg.csgu_activation, gate=x_r),
+                    lambda: K1.gemm_plain(conv, lin_w, lin_b, act=cfg.csgu_activation, gate=x_r), 2 ** -6,
+                    library_fn=lambda: F.linear(conv, w_t, b16),
+                    work=(2.0 * M * C * C, nbytes(conv, lin_w, lin_b) + 2 * M * C + 2 * M * C, "bf16"))
+            for act in ("gelu", "swish"):
+                compare(f"gemm gate epilogue M={M} {act}", None,
+                        lambda: K1.gemm(conv, lin_w, lin_b, act=act, gate=x_r),
+                        lambda: K1.gemm_plain(conv, lin_w, lin_b, act=act, gate=x_r), 2 ** -6, iters=4)
+            dev_ms.update({
+                f"ungated conv B={B_}": device_ms(lambda: K1.csgu_conv(l, *cargs)),
+                f"gated conv B={B_}": device_ms(lambda: K1.csgu(l, *cargs[:-1], "identity", 1e-5)),
+                f"F.conv1d B={B_}": device_ms(lambda: F.conv1d(gate_in, dw_c, padding=(Kc - 1) // 2, groups=C)),
+                f"gate GEMM M={M}": device_ms(lambda: K1.gemm(conv, lin_w, lin_b, act=cfg.csgu_activation,
+                                                              gate=x_r)),
+                f"plain-epilogue GEMM M={M}": device_ms(lambda: K1.gemm(conv, lin_w, lin_b)),
+                f"F.linear M={M}": device_ms(lambda: F.linear(conv, w_t, b16)),
+            })
+            del l, ones, conv, gate_in
+    print("  device ms under the profiler: " + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()), flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+
+    # ---- (f) the CTC beam search on (a)'s log-probs, on the card and on the CPU
+    bcfg = CTCBeamConfig(beam_size=10, beam_size_token=16)
+    got, beam_ms = host_ms(lambda: ctc_beam_search(log_probs, lp_lens, bcfg))
+    t0 = time.perf_counter()
+    ref = ctc_beam_search(log_probs.cpu(), lp_lens.cpu(), bcfg)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    ids_same = torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+    score_err = float((got[2].cpu() - ref[2]).abs().max())
+    print(f"-- variants (f): ctc_beam_search W=10, K=16 on (a)'s log-probs (B=8, T={log_probs.shape[1]}, "
+          f"V={log_probs.shape[2]}): {float(np.median(beam_ms)):.1f} ms on the card (median of 3, "
+          f"{[round(t, 1) for t in beam_ms]}), {cpu_ms:.1f} ms on the host's CPU; n-best ids equal {ids_same}, "
+          f"scores max |diff| {score_err:.2e} (tol 1e-3); best lengths {got[1][:, 0].tolist()}", flush=True)
+    if not ids_same or score_err > 1e-3 or not bool(torch.isfinite(got[2]).all()):
+        _fail("ctc_beam_search on the card disagrees with the CPU")
+
+    # ---- (b) two CTCTrainer steps of the same model under "auto": K4 on the card
+    tcfg = dataclasses.replace(cfg, attention_impl="auto", attention_dropout=0.1)
+    print(f"-- variants (b): training, attention_impl 'auto', B=32 x 9.3-10 s, bf16; {smi}", flush=True)
+    trainer, batches = training_setup(seed=17, batch_size=32, n_batches=2, cfg=tcfg)
+    twin = copy.deepcopy(trainer.model)
+    state = trainer.init_state()
+    logged = []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        (state, m), step_l = count_launches(lambda: trainer.train_step(state, batch), {})
+        step_ms = (time.perf_counter() - t0) * 1e3
+        logged.append({k: float(v) for k, v in m.items() if k in ("loss", "grad_norm", "step_applied")})
+        print(f"  step {i + 1}: loss={logged[-1]['loss']:.4f} grad_norm={logged[-1]['grad_norm']:.3f} "
+              f"applied={int(logged[-1]['step_applied'])} {step_ms:.1f} ms (host clock, synchronized); K4 launches "
+              f"{step_l.get('asr_rel_attention_train_fwd', 0)} fwd, {step_l.get('asr_rel_attention_train_bwd', 0)} bwd",
+              flush=True)
+        if any(step_l.get(k, 0) != n_l for k in ("asr_rel_attention_train_fwd", "asr_rel_attention_train_bwd")):
+            _fail(f"variants step {i + 1}: K4 launches {step_l}, want {n_l} of each")
+        if int(logged[-1]["step_applied"]) != 1 or not np.isfinite(logged[-1]["loss"]):
+            _fail(f"variants step {i + 1} was not applied or its loss is not finite")
+    plain, _ = training_setup(seed=17, batch_size=32, n_batches=0, cfg=tcfg)
+    plain.model.load_state_dict(twin.state_dict())
+    model_module.rel_attention_train = rel_attention_train_plain
+    try:
+        _, m_plain = plain.train_step(plain.init_state(), batches[0])
+    finally:
+        model_module.rel_attention_train = rel_attention_train
+    d_loss = abs(logged[0]["loss"] - float(m_plain["loss"])) / abs(float(m_plain["loss"]))
+    print(f"  step 1, kernels vs plain attention: loss {logged[0]['loss']:.6f} vs {float(m_plain['loss']):.6f} "
+          f"(rel {d_loss:.2e}, tol 1e-4)", flush=True)
+    if d_loss > 1e-4:
+        _fail("variants step 1 with the attention kernels disagrees with the plain-attention step")
+    del trainer, plain, twin, state, batches
+    torch.cuda.empty_cache()
+
+    # ---- (c) rotary positions: one B=8 request on the plain route
+    rcfg = flagship_config(position_embeddings_type="rotary")
+    print("-- variants (c): the flagship with rotary positions, B=8 x 10 s on the plain route", flush=True)
+    r_model = seeded_model(rcfg, seed=18)
+    r_dir = os.path.join(work, "rotary")
+    save_params(r_model, r_dir)
+    r_pipe = ASRPipeline(r_dir, model_type="ctc", device="cuda", tokenizer=Pieces())
+    if r_pipe._use_fused:
+        _fail("the rotary model took the fused route")
+    texts, r_launches = count_launches(lambda: r_pipe(audios), {})
+    _, r_ms = host_ms(lambda: r_pipe(audios))
+    with torch.inference_mode():
+        feats, flens = r_pipe._frontend(wav, wav_lens)
+        got_r = r_pipe._model(feats.to(torch.bfloat16), flens)
+        ref_r = r_model.to(dev)(feats, flens)
+    valid = torch.arange(ref_r.logits.shape[1], device=dev)[None, :] < ref_r.logit_lengths[:, None]
+    r_err = float((got_r.logits.float() - ref_r.logits).abs()[valid].max())
+    r_scale = max(1.0, float(ref_r.logits.abs()[valid].max()))
+    print(f"  request {float(np.median(r_ms)):.2f} ms median of 3 ({[round(t, 2) for t in r_ms]}); launches "
+          f"{r_launches}; bf16 logits vs the fp32 model max |diff| {r_err:.4f} of scale {r_scale:.2f} "
+          f"(tol 0.05 x scale)", flush=True)
+    if len(texts) != 8 or r_launches or r_err > 0.05 * r_scale or not bool(torch.isfinite(got_r.logits).all()):
+        _fail("the rotary model's plain route failed")
+    del r_pipe, r_model
+    torch.cuda.empty_cache()
+
+    # ---- (d) streaming CTC: a causal flagship (fp32) behind a global-CMVN front end, 10 s in 1 s feeds
+    mel_rng = np.random.default_rng(19)
+    means, stds = mel_rng.standard_normal(80) * 0.5 - 4.0, mel_rng.uniform(2.0, 4.0, 80)
+    frontend = LogMelFrontEnd(LogMelConfig(norm_type="global"), global_means=means, global_stds=stds)
+    s_model = seeded_model(flagship_config(is_causal=True), seed=19).to(dev)
+    audio = speech(10.0, rng)
+    session = StreamingCTCSession(s_model, frontend, device="cuda")
+    print("-- variants (d): StreamingCTCSession, causal flagship (fp32), global CMVN, 10 s in 1 s feeds", flush=True)
+
+    def logits_of(n):
+        """The session's logits for the first n samples (its bucket padding)."""
+        b = session._bucketed(n)
+        x = torch.zeros(1, b, device=dev)
+        x[0, :n] = torch.from_numpy(audio[:n]).to(dev)
+        with torch.inference_mode():
+            out = s_model(*frontend(x, torch.tensor([n], dtype=torch.int32, device=dev)))
+        return out.logits[0].float(), int(out.logit_lengths[0])
+
+    feeds, feed_ms = [], []
+    for k in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feeds.append(session.feed(audio[k * 16000:(k + 1) * 16000]))
+        torch.cuda.synchronize()
+        feed_ms.append((time.perf_counter() - t0) * 1e3)
+    ties = 0
+    for k in range(1, 10):
+        prev, cur = feeds[k - 1], feeds[k]
+        if cur[:len(prev)] == prev:
+            continue
+        # the triage rule: where the two feeds' greedy ids part, the top-two
+        # logit gap must be within 2^-7 of the logit scale on one side
+        a, na = logits_of(k * 16000)
+        b, nb = logits_of((k + 1) * 16000)
+        n = min(na, nb)
+        diff = (a[:n].argmax(-1) != b[:n].argmax(-1)).nonzero()
+        if not len(diff):
+            _fail(f"streaming feed {k + 1} does not extend feed {k}, with equal frame ids")
+        f = int(diff[0])
+        gaps = [float(t[f].topk(2).values[0] - t[f].topk(2).values[1]) for t in (a, b)]
+        scale = max(1.0, float(b[:n].abs().max()))
+        print(f"  feed {k + 1} parts from feed {k} at frame {f}: top-two gaps {gaps[0]:.2e}, {gaps[1]:.2e} of "
+              f"scale {scale:.2f}", flush=True)
+        if min(gaps) > TIE * scale:
+            _fail(f"streaming feed {k + 1} does not extend feed {k} (no near-tie)")
+        ties += 1
+    one_shot = StreamingCTCSession(s_model, frontend, device="cuda").feed(audio)
+    with torch.inference_mode():
+        x = torch.from_numpy(audio)[None].to(dev)
+        out = s_model(*frontend(x, torch.tensor([len(audio)], dtype=torch.int32, device=dev)))
+        toks, tl = ctc_greedy_decode(out.logits, out.logit_lengths)
+    unpadded = toks[0, :int(tl[0])].tolist()
+    print(f"  {len(feeds[-1])} tokens after 10 feeds; ms a feed {[round(t, 1) for t in feed_ms]} (host clock, "
+          f"synchronized; median {float(np.median(feed_ms)):.1f}); {ties} feeds parted at near-ties; the last feed "
+          f"equals the one-shot session decode: {feeds[-1] == one_shot}, the unpadded decode: {feeds[-1] == unpadded}",
+          flush=True)
+    if feeds[-1] != one_shot or not feeds[-1]:
+        _fail("the last streaming feed differs from a one-shot decode of the whole audio")
+    del session, s_model
+    torch.cuda.empty_cache()
+
+    # ---- (e) streaming joint decoding: decred_base with a causal encoder (fp32), three 2 s feeds
+    base = aed_config()
+    joint = aed_model(20, dataclasses.replace(base, encoder=dataclasses.replace(base.encoder, is_causal=True))).to(dev)
+    gen_cfg = BeamSearchConfig(num_beams=5, max_length=32, ctc_weight=0.3, bos_token_id=0, eos_token_id=1,
+                               pad_token_id=3)
+    j_audio = speech(6.0, rng)
+    j_session = StreamingJointSession(joint, frontend, gen_cfg, device="cuda")
+    print(f"-- variants (e): StreamingJointSession, {AED_CONFIG} with a causal encoder (fp32), 5 beams, max "
+          f"length 32, three 2 s feeds", flush=True)
+    j_feeds, j_ms = [], []
+    for k in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        j_feeds.append(j_session.feed(j_audio[k * 32000:(k + 1) * 32000]))
+        torch.cuda.synchronize()
+        j_ms.append((time.perf_counter() - t0) * 1e3)
+    with torch.inference_mode():
+        x = torch.from_numpy(j_audio)[None].to(dev)
+        seqs, _ = generate_joint(joint, *frontend(x, torch.tensor([len(j_audio)], dtype=torch.int32, device=dev)),
+                                 gen_cfg)
+    whole = [int(t) for t in seqs[0, 0].tolist() if int(t) not in (0, 1, 3)]
+    print(f"  feeds: {[len(f) for f in j_feeds]} tokens, {[round(t, 1) for t in j_ms]} ms (host clock, "
+          f"synchronized); the last feed equals generate_joint on the whole audio: {j_feeds[-1] == whole}", flush=True)
+    if j_feeds[-1] != whole:
+        _fail("the last joint streaming feed differs from generate_joint on the whole audio")
+    del joint, j_session
+    torch.cuda.empty_cache()
+    print(f"variants phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return variant_launches
 
 
 def timed(fn, iters: int = 20, reps: int = 5) -> float:
@@ -3222,6 +3569,7 @@ def main() -> None:
     aed_train_launches = aed_train_phase(dev, smi)
     cli_launches = cli_phase(dev, smi)
     recipe_launches = recipe_phase(dev, smi)
+    variant_launches = variants_phase(dev, smi, compare)
 
     if failures:
         _fail(f"kernel phases outside tolerance: {failures}")
@@ -3271,8 +3619,16 @@ def main() -> None:
         "rel_attention_train_bwd_q512": routes["rel_attention_train_bwd"],
         "rel_attention_shift_dh64": routes["rel_attention_shift"],
     }
+    # the CSGU linear's two pieces: launches from the gated, csgu-linear request of the variants phase
+    variant_routes = {
+        "dwconv_csgu_conv": ("dwconv_csgu_conv", "csrc/dwconv_csgu.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
+        "gemm_gate": ("asr_gemm_gate_bf16", "csrc/gemm.cuh", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
+    }
+    variant_routes.update(dwconv_csgu_conv_b128=variant_routes["dwconv_csgu_conv"],
+                          gemm_gate_m32768=variant_routes["gemm_gate"])
     kernels = []
-    for table, counts in ((routes, launches), (narrow_routes, narrow_launches), (wide_routes, wide_launches)):
+    for table, counts in ((routes, launches), (narrow_routes, narrow_launches), (wide_routes, wide_launches),
+                          (variant_routes, variant_launches)):
         for name, (counter, src, replaces) in table.items():
             kernels.append({
                 "name": name, "route": "cuda", "source": f"huggingface_asr_tpu_torch/{src}",

@@ -26,7 +26,8 @@ cudaError_t launch_merge(const Args& a, cudaStream_t stream) {
 
 }  // namespace dwconv
 
-// x: [B*T rows, row stride ldx] bf16. mode 0 (CSGU): x = [x_r | x_g], each C
+// x: [B*T rows, row stride ldx] bf16. mode 0 (CSGU) and 2 (CSGU, ungated:
+// bf16(dwconv(LN(x_g))), no activation and no gate): x = [x_r | x_g], each C
 // wide; mode 1 (merge): x is C wide. out [B*T, C]; w: [K, C] bf16; bias,
 // ln_g, ln_b: [C] fp32. K odd, at most 33; C and ldx multiples of 8, C at
 // most 1024 (both forms; CSGU past 768 also needs `stats`, [B*T] float2
@@ -35,15 +36,17 @@ cudaError_t launch_merge(const Args& a, cudaStream_t stream) {
 ASR_API int asr_dwconv(const void* x, const void* ln_g, const void* ln_b, const void* w,
                        const void* bias, void* out, void* stats, int B, int T, int t_valid, int C, int K,
                        int ldx, int mode, int act, float eps, void* stream) {
-    const int max_c = mode == 0 ? dwconv::MAX_C_CSGU_SPLIT : dwconv::MAX_C_MERGE;
-    const bool split = mode == 0 && C > dwconv::MAX_C_CSGU;
-    if (K < 1 || K > dwconv::MAX_K || K % 2 == 0 || C < 8 || C % 8 || C > max_c || ldx % 8 ||
-        ldx < (mode == 0 ? 2 * C : C) || B < 1 || T < 1 || (split && (stats == nullptr || C % dwconv::BOX)))
+    const bool csgu = mode != 1;
+    const int max_c = csgu ? dwconv::MAX_C_CSGU_SPLIT : dwconv::MAX_C_MERGE;
+    const bool split = csgu && C > dwconv::MAX_C_CSGU;
+    if (mode < 0 || mode > 2 || K < 1 || K > dwconv::MAX_K || K % 2 == 0 || C < 8 || C % 8 || C > max_c ||
+        ldx % 8 || ldx < (csgu ? 2 * C : C) || B < 1 || T < 1 ||
+        (split && (stats == nullptr || C % dwconv::BOX)))
         return static_cast<int>(cudaErrorInvalidValue);
     const dwconv::Args a{static_cast<const bf16*>(x), static_cast<const float*>(ln_g),
                          static_cast<const float*>(ln_b), static_cast<const bf16*>(w),
                          static_cast<const float*>(bias), static_cast<bf16*>(out),
-                         ldx, B, T, t_valid, C, K, act, eps, static_cast<float2*>(stats)};
+                         ldx, B, T, t_valid, C, K, act, eps, static_cast<float2*>(stats), mode == 0 ? 1 : 0};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return static_cast<int>(mode == 0 ? dwconv::launch_csgu(a, s) : dwconv::launch_merge(a, s));
+    return static_cast<int>(csgu ? dwconv::launch_csgu(a, s) : dwconv::launch_merge(a, s));
 }

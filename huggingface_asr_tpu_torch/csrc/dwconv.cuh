@@ -1,9 +1,14 @@
-// Depthwise convolution along T for the E-Branchformer layer, in two forms.
+// Depthwise convolution along T for the E-Branchformer layer, in three forms.
 //
 // Replaces `_dwconv` and its callers inside ops/pallas_layer.py::_layer_kernel
 // (`_dwconv` at :395, called at :570-593):
 //   CSGU  (dwconv_csgu_kernel):  g = LN(l[:, C:]) over the C gate channels (bf16);
 //                                gated = bf16(l[:, :C] * bf16(act(dwconv(g))))
+//   CSGU, ungated (dwconv_csgu_conv_kernel): bf16(dwconv(g)) alone, for a model
+//                                with csgu_use_linear_after_conv (:578-583),
+//                                whose linear, activation and gate follow in
+//                                the GEMM's gate epilogue (gemm.cuh); the
+//                                x_r rows are neither staged nor read
 //   merge (dwconv_merge_kernel): out = bf16(x + bf16(dwconv(x)))  over all C channels
 // with dwconv(x)[t, c] = bias[c] + sum_j x[t + j - P, c] * w[j, c] accumulated
 // in fp32 (bias first, then j = 0..K-1), P = (K - 1) / 2, and rows outside
@@ -83,6 +88,7 @@ struct Args {
     int ldx, B, T, t_valid, C, K, act;
     float eps;
     float2* stats;  // [B*T] (mean, 1 / std) of x_g's rows: CSGU past MAX_C_CSGU only
+    int gated;      // CSGU: 1 the gated form, 0 the ungated conv (no x_r staged)
 };
 
 // 3-D views (channel, frame, utterance) of the input rows (frames at or past
@@ -102,16 +108,17 @@ static __device__ __noinline__ float act_call(int act, float v) { return apply_a
 // boxes of 128), and the shared memory of a block: two stages, each the
 // tile's input rows [nbox][rows_in][128] (CSGU: then its x_r rows
 // [nbox][TT][128]); the output rows [nbox][TT][128]; (CSGU) the LayerNorm's
-// g and b [2][C] fp32; the stages' two mbarriers.
+// g and b [2][C] fp32; the stages' two mbarriers. `xr`: the tile stages its
+// x_r rows (the gated CSGU form; the ungated one stages none).
 struct Tiles {
     int TT, CS, nbox, rows_in, per_utt, n_slices, n;
     size_t in_bytes, stage_bytes, out_off, gs_off, bar_off, smem;
-    __host__ __device__ Tiles(const Args& a, bool csgu, int KP, int rows, int chans)
+    __host__ __device__ Tiles(const Args& a, bool csgu, int KP, int rows, int chans, bool xr)
         : TT(rows), CS(chans), nbox((chans + BOX - 1) / BOX), rows_in(rows + KP - 1),
           per_utt((a.T + rows - 1) / rows), n_slices(a.C / chans),
           n(a.B * ((a.T + rows - 1) / rows) * (a.C / chans)),
           in_bytes((size_t)nbox * rows_in * BOX * 2),
-          stage_bytes(in_bytes + (csgu ? (size_t)nbox * rows * BOX * 2 : 0)),
+          stage_bytes(in_bytes + (xr ? (size_t)nbox * rows * BOX * 2 : 0)),
           out_off(2 * stage_bytes), gs_off(out_off + (size_t)nbox * rows * BOX * 2),
           bar_off(gs_off + (csgu ? 2 * (size_t)a.C * sizeof(float) : 0)), smem(bar_off + 16) {}
 };
@@ -124,8 +131,8 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
 // One thread loads a tile into a stage: a TMA box of 128 channels by the
 // tile's input rows for each box (CSGU: and one of its x_r rows), counted in
 // bytes on the stage's mbarrier. A tile past the last loads nothing. SPLIT:
-// CSGU in channel slices (past MAX_C_CSGU).
-template <bool CSGU, int KP, bool SPLIT>
+// CSGU in channel slices (past MAX_C_CSGU); GATE: CSGU's gated form.
+template <bool CSGU, int KP, bool SPLIT, bool GATE>
 __device__ __forceinline__ void load_tile(const Args& a, const Maps& maps, const Tiles& tl, int tile,
                                           uint32_t stage, uint32_t bar) {
     if (tile >= tl.n) return;
@@ -137,7 +144,7 @@ __device__ __forceinline__ void load_tile(const Args& a, const Maps& maps, const
     hopper::mbar_arrive_expect_tx(bar, (uint32_t)(tl.stage_bytes));
     for (int j = 0; j < tl.nbox; ++j) {
         hopper::tma_load_3d(stage + j * tl.rows_in * BOX * 2, &maps.in, bar, slice * tl.CS + j * BOX, t_in, b);
-        if (CSGU)
+        if (CSGU && GATE)
             hopper::tma_load_3d(stage + (uint32_t)tl.in_bytes + j * tl.TT * BOX * 2, &maps.xr, bar,
                                 (SPLIT ? slice * tl.CS : 0) + j * BOX, t0, b);
     }
@@ -293,13 +300,13 @@ __device__ __forceinline__ void merge_residual(const Args& a, const Tiles& tl, c
 // tile's output boxes from shared memory; both run while the block works on
 // the next tile. SPLIT: CSGU in 128-channel slices, normalised from the
 // statistics pass's output (a second instantiation: the whole-row path keeps
-// its code).
-template <bool CSGU, int KP, int R, bool SPLIT = false>
+// its code). GATE = false: CSGU's ungated form, which writes bf16(acc).
+template <bool CSGU, int KP, int R, bool SPLIT = false, bool GATE = true>
 __device__ __forceinline__ void dwconv_body(const Args& a, const Maps& maps, int TT, int CS) {
     extern __shared__ __align__(128) unsigned char smem[];
     constexpr int ROW = BOX * 2;  // bytes of a staged row of a box
     const int NT = blockDim.x, tid = threadIdx.x;
-    const Tiles tl(a, CSGU, KP, TT, CS);
+    const Tiles tl(a, CSGU, KP, TT, CS, CSGU && GATE);
     const int tv = max(0, min(a.t_valid, a.T));
     float* gs = reinterpret_cast<float*>(smem + tl.gs_off);
     unsigned char* ys = smem + tl.out_off;
@@ -318,8 +325,9 @@ __device__ __forceinline__ void dwconv_body(const Args& a, const Maps& maps, int
     }
     __syncthreads();
     if (tid == 0) {
-        load_tile<CSGU, KP, SPLIT>(a, maps, tl, blockIdx.x, smem0, bar0);
-        load_tile<CSGU, KP, SPLIT>(a, maps, tl, blockIdx.x + gridDim.x, smem0 + (uint32_t)tl.stage_bytes, bar0 + 8);
+        load_tile<CSGU, KP, SPLIT, GATE>(a, maps, tl, blockIdx.x, smem0, bar0);
+        load_tile<CSGU, KP, SPLIT, GATE>(a, maps, tl, blockIdx.x + gridDim.x, smem0 + (uint32_t)tl.stage_bytes,
+                                         bar0 + 8);
     }
 
     const int off = (KP - a.K) / 2;  // zero taps on each side of a smaller kernel
@@ -370,17 +378,19 @@ __device__ __forceinline__ void dwconv_body(const Args& a, const Maps& maps, int
                         if (j >= 0 && j < KP) acc[r] = fmaf(xi, wk[j], acc[r]);
                     }
                 }
-                if (CSGU && a.act != ACT_IDENTITY) {
+                if (CSGU && GATE && a.act != ACT_IDENTITY) {
 #pragma unroll
                     for (int r = 0; r < R; ++r) acc[r] = act_call(a.act, acc[r]);
                 }
                 // CSGU's output rows, bf16(x_r * bf16(act(acc))) with the staged x_r;
-                // merge's rounded conv rows, to which merge_residual adds x
+                // the ungated CSGU's bf16(acc); merge's rounded conv rows, to
+                // which merge_residual adds x
                 unsigned short* y0 = reinterpret_cast<unsigned short*>(out_col + (size_t)g * R * ROW);
 #pragma unroll
                 for (int r = 0; r < R; ++r) {
                     const float y = round_bf(acc[r]);
-                    y0[r * BOX] = __bfloat16_as_ushort(to_bf(CSGU ? bf16_bits(xr_col[(g * R + r) * BOX]) * y : y));
+                    y0[r * BOX] = __bfloat16_as_ushort(
+                        to_bf(CSGU && GATE ? bf16_bits(xr_col[(g * R + r) * BOX]) * y : y));
                 }
             }
         }
@@ -394,7 +404,8 @@ __device__ __forceinline__ void dwconv_body(const Args& a, const Maps& maps, int
             for (int j = 0; j < tl.nbox; ++j)
                 tma_store_3d(&maps.out, hopper::smem_u32(ys + (size_t)j * TT * ROW), c0 + j * BOX, t0, b);
             asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-            load_tile<CSGU, KP, SPLIT>(a, maps, tl, tile + 2 * gridDim.x, hopper::smem_u32(stage), bar0 + 8 * (k & 1));
+            load_tile<CSGU, KP, SPLIT, GATE>(a, maps, tl, tile + 2 * gridDim.x, hopper::smem_u32(stage),
+                                             bar0 + 8 * (k & 1));
         }
     }
     if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
@@ -435,7 +446,7 @@ inline bool use_large(const Args& a, bool csgu, int KP) {
     int n_sm, max_smem;
     device_limits(n_sm, max_smem);
     const Tiling t = choose_tiling(a, csgu, true);
-    const Tiles tl(a, csgu, KP, t.rows, t.chans);
+    const Tiles tl(a, csgu, KP, t.rows, t.chans, csgu && a.gated);
     return tl.n >= 2 * n_sm && tl.smem <= (size_t)max_smem;
 }
 
@@ -444,7 +455,7 @@ inline bool use_large(const Args& a, bool csgu, int KP) {
 template <typename Kernel>
 inline cudaError_t launch_tiled(Kernel kernel, const Args& a, bool csgu, int KP, cudaStream_t stream) {
     const Tiling t = choose_tiling(a, csgu, use_large(a, csgu, KP));
-    const Tiles tl(a, csgu, KP, t.rows, t.chans);
+    const Tiles tl(a, csgu, KP, t.rows, t.chans, csgu && a.gated);
     Maps maps{};
     const cuuint64_t ld = (cuuint64_t)a.ldx * 2, tv = a.t_valid > 0 ? (a.t_valid < a.T ? a.t_valid : a.T) : 1;
     const cuuint64_t dims_in[3] = {(cuuint64_t)a.C, tv, (cuuint64_t)a.B};
@@ -454,7 +465,7 @@ inline cudaError_t launch_tiled(Kernel kernel, const Args& a, bool csgu, int KP,
     const cuuint32_t box_in[3] = {BOX, (cuuint32_t)tl.rows_in, 1}, box_rows[3] = {BOX, (cuuint32_t)t.rows, 1};
     cudaError_t err = hopper::tensor_map_bf16(&maps.in, a.x + (csgu ? a.C : 0), 3, dims_in, strides_x, box_in,
                                               CU_TENSOR_MAP_SWIZZLE_NONE);
-    if (err == cudaSuccess && csgu)
+    if (err == cudaSuccess && csgu && a.gated)
         err = hopper::tensor_map_bf16(&maps.xr, a.x, 3, dims, strides_x, box_rows, CU_TENSOR_MAP_SWIZZLE_NONE);
     if (err == cudaSuccess)
         err = hopper::tensor_map_bf16(&maps.out, a.out, 3, dims, strides_out, box_rows, CU_TENSOR_MAP_SWIZZLE_NONE);

@@ -1,5 +1,6 @@
-// The CSGU form of the depthwise convolution (design and numeric contract in
-// dwconv.cuh): LayerNorm of the gate half, conv, activation and gate.
+// The CSGU forms of the depthwise convolution (design and numeric contract in
+// dwconv.cuh): LayerNorm of the gate half, conv, activation and gate; or
+// (ungated, a model with the CSGU linear) LayerNorm and conv alone.
 #include "dwconv.cuh"
 
 namespace dwconv {
@@ -11,8 +12,17 @@ dwconv_csgu_kernel(const Args a, const __grid_constant__ Maps maps, int TT, int 
     dwconv_body<true, KP, ROWS, SPLIT>(a, maps, TT, CS);
 }
 
+template <int KP, bool SPLIT>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+dwconv_csgu_conv_kernel(const Args a, const __grid_constant__ Maps maps, int TT, int CS) {
+    dwconv_body<true, KP, ROWS, SPLIT, false>(a, maps, TT, CS);
+}
+
 template <int KP>
 static cudaError_t launch_csgu_k(const Args& a, cudaStream_t stream) {
+    if (!a.gated)
+        return csgu_split(a) ? launch_tiled(dwconv_csgu_conv_kernel<KP, true>, a, true, KP, stream)
+                             : launch_tiled(dwconv_csgu_conv_kernel<KP, false>, a, true, KP, stream);
     return csgu_split(a) ? launch_tiled(dwconv_csgu_kernel<KP, true>, a, true, KP, stream)
                          : launch_tiled(dwconv_csgu_kernel<KP, false>, a, true, KP, stream);
 }

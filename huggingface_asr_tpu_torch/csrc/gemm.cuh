@@ -53,7 +53,15 @@
 //   round_first = 1 (K2's conv/dense):   v = bf16(bf16(acc) + bias)
 //   then, if act:      v = bf16(act(v))
 //   then, if residual: v = bf16(res + alpha * v)
+//   or, if gate:       v = bf16(res * v)   (K1's CSGU linear: res is x_r)
 //   dual output (Q):   out2 = bf16(acc + bias2) for columns < n2
+//
+// The gate epilogue (asr_gemm_gate_bf16 in layer.cu) finishes the CSGU of a
+// model with csgu_use_linear_after_conv (pallas_layer.py:578-583): the
+// product is the linear over the conv output, the activation the CSGU's, and
+// `res` the first half of channel_proj1's output (x_r, read in place through
+// its row stride). It takes the residual's loads and replaces its sum by a
+// product; nothing else of the epilogue changes.
 #pragma once
 
 #include "hopper.cuh"
@@ -70,11 +78,12 @@ struct Epilogue {
     const float* bias2;  // [n2] or null
     bf16* out;           // [M, ldo]
     bf16* out2;          // [M, ldo2] or null
-    const bf16* res;     // [M, ldr] or null
+    const bf16* res;     // [M, ldr] or null: the residual, or (gate) the gate's other factor
     int ldo, ldo2, ldr, n2;
     float alpha;
     int act;
     int round_first;
+    int gate;            // 1: v = bf16(res * v) in place of the residual's sum
 };
 
 struct Maps {
@@ -235,14 +244,27 @@ __device__ __forceinline__ void epilogue(float (&acc)[BN / 2], int m_top, int n0
             if (n < N && m_a < M) ra[g] = *reinterpret_cast<const uint4*>(e.res + (size_t)m_a * e.ldr + n);
             if (n < N && m_b < M) rb[g] = *reinterpret_cast<const uint4*>(e.res + (size_t)m_b * e.ldr + n);
         }
+        if (e.gate) {
 #pragma unroll
-        for (int g = 0; g < NG / 4; ++g) {
-            const uint32_t wa[4] = {ra[g].x, ra[g].y, ra[g].z, ra[g].w}, wb[4] = {rb[g].x, rb[g].y, rb[g].z, rb[g].w};
+            for (int g = 0; g < NG / 4; ++g) {
+                const uint32_t wa[4] = {ra[g].x, ra[g].y, ra[g].z, ra[g].w}, wb[4] = {rb[g].x, rb[g].y, rb[g].z, rb[g].w};
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                const uint32_t a = va[4 * g + c], b = vb[4 * g + c];
-                va[4 * g + c] = pack_bf16(bf16_lo(wa[c]) + e.alpha * bf16_lo(a), bf16_hi(wa[c]) + e.alpha * bf16_hi(a));
-                vb[4 * g + c] = pack_bf16(bf16_lo(wb[c]) + e.alpha * bf16_lo(b), bf16_hi(wb[c]) + e.alpha * bf16_hi(b));
+                for (int c = 0; c < 4; ++c) {
+                    const uint32_t a = va[4 * g + c], b = vb[4 * g + c];
+                    va[4 * g + c] = pack_bf16(bf16_lo(wa[c]) * bf16_lo(a), bf16_hi(wa[c]) * bf16_hi(a));
+                    vb[4 * g + c] = pack_bf16(bf16_lo(wb[c]) * bf16_lo(b), bf16_hi(wb[c]) * bf16_hi(b));
+                }
+            }
+        } else {
+#pragma unroll
+            for (int g = 0; g < NG / 4; ++g) {
+                const uint32_t wa[4] = {ra[g].x, ra[g].y, ra[g].z, ra[g].w}, wb[4] = {rb[g].x, rb[g].y, rb[g].z, rb[g].w};
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const uint32_t a = va[4 * g + c], b = vb[4 * g + c];
+                    va[4 * g + c] = pack_bf16(bf16_lo(wa[c]) + e.alpha * bf16_lo(a), bf16_hi(wa[c]) + e.alpha * bf16_hi(a));
+                    vb[4 * g + c] = pack_bf16(bf16_lo(wb[c]) + e.alpha * bf16_lo(b), bf16_hi(wb[c]) + e.alpha * bf16_hi(b));
+                }
             }
         }
     }

@@ -61,6 +61,31 @@ ASR_API int asr_gemm_bf16(const void* a, const void* b, const void* bias, const 
     e.alpha = alpha;
     e.act = act;
     e.round_first = round_first;
+    e.gate = 0;
+    return gemm::launch(static_cast<const bf16*>(a), lda, static_cast<const bf16*>(b), ldb, M, N, K, e,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The gate epilogue (gemm.cuh): out = bf16(xr * bf16(act(bf16(a @ b + bias)))),
+// xr [M, ldx] bf16 read in place (K1's CSGU linear, x_r a column view of
+// channel_proj1's output).
+ASR_API int asr_gemm_gate_bf16(const void* a, const void* b, const void* bias, void* out, const void* xr,
+                               int M, int N, int K, int lda, int ldb, int ldo, int ldx, int act, void* stream) {
+    gemm::Epilogue e;
+    e.bias = static_cast<const float*>(bias);
+    e.bias2 = nullptr;
+    e.out = static_cast<bf16*>(out);
+    e.out2 = nullptr;
+    e.res = static_cast<const bf16*>(xr);
+    e.ldo = ldo;
+    e.ldo2 = 0;
+    e.ldr = ldx;
+    e.n2 = 0;
+    e.alpha = 1.0f;
+    e.act = act;
+    e.round_first = 0;
+    e.gate = 1;
+    if (xr == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return gemm::launch(static_cast<const bf16*>(a), lda, static_cast<const bf16*>(b), ldb, M, N, K, e,
                         static_cast<cudaStream_t>(stream));
 }

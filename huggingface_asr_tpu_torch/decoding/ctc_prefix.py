@@ -10,6 +10,10 @@ State layout: r (T, 2, BW) forward log-probs of the current prefix (n: ends
 in a non-blank, b: ends in blank), s (BW,) prefix score, last (BW,) last token,
 length (BW,) tokens after the start.
 
+Streaming: ``extended`` appends a chunk of posteriors, ``extend_state``
+continues a state into it (a cheap approximation) and ``replay_state``
+rebuilds a state over all frames exactly.
+
 Plain PyTorch on every device: the JAX function holds no Pallas kernel.
 """
 
@@ -169,6 +173,71 @@ class CTCPrefixScorer:
         # blank never extends a prefix as a label
         log_psi = torch.where(candidate_ids == self.blank_id, LOG_ZERO, psi)
         return log_psi - state.s[:, None], (r_new, log_psi)
+
+    def extended(self, ctc_log_probs: torch.Tensor, lengths: torch.Tensor) -> "CTCPrefixScorer":
+        """Streaming: a scorer over the old frames and a new chunk of
+        posteriors (the reference's ``extend_prob``). The prepared tensors
+        concatenate exactly: frames past each chunk's length are blank 0 and
+        ``LOG_ZERO`` elsewhere, the padding the reference inserts mid-stream."""
+        new = CTCPrefixScorer(ctc_log_probs, lengths, self.blank_id, self.eos_id, impl=self.impl)
+        if new.batch != self.batch or new.odim != self.odim:
+            raise ValueError(f"extended: chunk of batch {new.batch} and {new.odim} outputs, scorer of "
+                             f"{self.batch} and {self.odim}")
+        merged = CTCPrefixScorer.__new__(CTCPrefixScorer)
+        merged.impl = self.impl
+        merged.batch, merged.odim = self.batch, self.odim
+        merged.blank_id, merged.eos_id = self.blank_id, self.eos_id
+        merged.input_length = self.input_length + new.input_length
+        merged.xn = torch.cat([self.xn, new.xn], dim=0)
+        merged.xb = torch.cat([self.xb, new.xb], dim=0)
+        return merged
+
+    def extend_state(self, state: CTCPrefixState, old_T: int) -> CTCPrefixState:
+        """Continue a state's forward variables into this scorer's frames past
+        ``old_T``, the documented cheap approximation (O(T_new)):
+
+            rn[t] = rn[t-1] + x_t[last]   (re-emission collapses repeats)
+            rb[t] = lse(rn[t-1], rb[t-1]) + x_t[blank]
+
+        It keeps more probability mass than the reference's blank-only
+        ``extend_state`` but still drops the paths whose last label is first
+        emitted inside the new frames; ``replay_state`` is the exact
+        continuation."""
+        BW = state.r.shape[2]
+        batch_of = torch.arange(self.batch, device=state.r.device).repeat_interleave(BW // self.batch)
+        xb_new = self.xb[old_T:, batch_of]  # (T_new, BW)
+        safe_last = torch.clamp(state.last, 0, self.odim - 1)
+        x_last = self.xn[old_T:, batch_of, safe_last]  # (T_new, BW)
+        x_last = torch.where(state.last[None, :] >= 0, x_last, LOG_ZERO)
+        rn, rb = state.r[old_T - 1, 0], state.r[old_T - 1, 1]
+        ext = []
+        for t in range(x_last.shape[0]):
+            rn, rb = rn + x_last[t], _lse2(rn, rb) + xb_new[t]
+            ext.append(torch.stack([rn, rb]))
+        r_ext = torch.stack(ext) if ext else state.r.new_empty((0,) + state.r.shape[1:])
+        return CTCPrefixState(r=torch.cat([state.r, r_ext], dim=0), s=state.s, last=state.last,
+                              length=state.length)
+
+    def replay_state(self, tokens: torch.Tensor, lengths: torch.Tensor, num_hyps: int) -> CTCPrefixState:
+        """The exact streaming state: every prefix's forward variables over all
+        frames of this (extended) scorer, rebuilt by replaying its tokens.
+        tokens (BW, L), anything past each prefix's ``lengths`` (BW,). O(L T)."""
+        state = self.init_state(num_hyps)
+        BW, L = tokens.shape
+        beam_idx = torch.arange(BW, device=tokens.device)
+        zeros = torch.zeros(BW, dtype=torch.int64, device=tokens.device)
+        for step in range(L):
+            tok = tokens[:, step]
+            _, scored = self.score_candidates(state, tok[:, None])
+            new = self.select_state(state, scored, beam_idx, zeros, tok)
+            alive = step < lengths.to(tokens.device)
+            state = CTCPrefixState(
+                r=torch.where(alive[None, None, :], new.r, state.r),
+                s=torch.where(alive, new.s, state.s),
+                last=torch.where(alive, new.last, state.last),
+                length=torch.where(alive, new.length, state.length),
+            )
+        return state
 
     def select_state(self, state: CTCPrefixState, scored: Tuple[torch.Tensor, torch.Tensor],
                      beam_idx: torch.Tensor, cand_idx: torch.Tensor, new_tokens: torch.Tensor

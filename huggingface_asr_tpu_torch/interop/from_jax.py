@@ -97,11 +97,18 @@ def _layer_entries(L: Tuple[str, ...], p: str, cfg: EBranchformerConfig) -> Iter
 def param_table(cfg: EBranchformerConfig) -> Iterator[Entry]:
     """Every parameter of the CTC model as (Flax path, state-dict key, layout
     change), the BEST-RQ fine-tuning adapters included where the config sets
-    them (``per_layer_weights``; ``additional_layer``, a layer's entries)."""
+    them (``per_layer_weights``; ``additional_layer``, a layer's entries).
+    A gated front end's convs are ``conv.{i}.0.conv.conv`` and its gate convs
+    (Flax ``gate_{i}``) ``conv.{i}.0.conv.gate``, the reference's names."""
     w = ("wav2vec2",)
+    gated = cfg.context_awareness_type not in (None, "none")
     for i in range(len(cfg.conv_dim)):
-        yield from _conv(w + ("feature_extractor", f"conv_{i}"),
-                         f"wav2vec2.feature_extractor.conv.{i}.0.conv", "conv2d")
+        fe, key = w + ("feature_extractor",), f"wav2vec2.feature_extractor.conv.{i}.0.conv"
+        if gated:
+            yield from _conv(fe + (f"conv_{i}",), f"{key}.conv", "conv2d")
+            yield from _conv(fe + (f"gate_{i}",), f"{key}.gate", "conv2d")
+        else:
+            yield from _conv(fe + (f"conv_{i}",), key, "conv2d")
     yield from _dense(w + ("feature_extractor", "out"), "wav2vec2.feature_extractor.out")
     yield from _ln(w + ("feature_projection", "layer_norm"), "wav2vec2.feature_projection.layer_norm")
     yield from _dense(w + ("feature_projection", "projection"), "wav2vec2.feature_projection.projection")
@@ -219,18 +226,11 @@ def _to_tree(sd: Mapping[str, Any], table: Iterable[Entry]) -> Dict[str, Any]:
     return tree
 
 
-def _refuse_gated(encoder_tree: Mapping[str, Any], cfg: EBranchformerConfig) -> None:
-    fe = encoder_tree["wav2vec2"]["feature_extractor"]
-    if any(f"gate_{i}" in fe for i in range(len(cfg.conv_dim))):
-        raise NotImplementedError("gated conv front ends are not ported yet")
-
-
 def state_dict_from_flax(
     tree: Mapping[str, Any], cfg: EBranchformerConfig
 ) -> Dict[str, torch.Tensor]:
     """Flax ``EBranchformerForCTC`` params (nested dicts of arrays) -> float32
     torch state dict keyed like the reference ``Wav2Vec2EBranchformerForCTC``."""
-    _refuse_gated(tree, cfg)
     return _to_state_dict(tree, param_table(cfg))
 
 
@@ -259,7 +259,6 @@ def joint_state_dict_from_flax(tree: Mapping[str, Any], enc: EBranchformerConfig
                                dec: GPT2DecoderConfig) -> Dict[str, torch.Tensor]:
     """Flax ``JointCTCAttentionEncoderDecoder`` params -> float32 state dict of
     ``models/joint_ctc_aed.py::JointCTCAttentionEncoderDecoder``."""
-    _refuse_gated(tree["encoder"], enc)
     return _to_state_dict(tree, joint_param_table(enc, dec, tree))
 
 
@@ -286,7 +285,6 @@ def pretraining_state_dict_from_flax(variables: Mapping[str, Any], cfg: EBranchf
     ...}``, the buffers optional) -> float32 state dict of
     ``models/bestrq.py::BestRQForPreTraining`` (with ``rpq.P`` and ``rpq.CB``
     where the buffers are given)."""
-    _refuse_gated(variables["params"], cfg)
     sd = _to_state_dict(variables["params"], pretraining_param_table(cfg))
     if "buffers" in variables:
         sd.update(_to_state_dict(variables["buffers"], _PRETRAINING_BUFFERS))
@@ -317,7 +315,6 @@ def wav2vec2_param_table(cfg: EBranchformerConfig) -> Iterator[Entry]:
 def wav2vec2_state_dict_from_flax(params: Mapping[str, Any], cfg: EBranchformerConfig) -> Dict[str, torch.Tensor]:
     """Flax ``Wav2Vec2ForPreTraining`` params -> float32 state dict of
     ``models/wav2vec2_ssl.py::Wav2Vec2ForPreTraining``."""
-    _refuse_gated(params, cfg)
     return _to_state_dict(params, wav2vec2_param_table(cfg))
 
 

@@ -9,6 +9,8 @@ kernels (``csrc/``), in ``_layer_kernel``'s order:
   attn:   layer_norm -> gemm(QKV; dual bias writes q_u and q_v)
           -> pos_query -> rel_attention -> gemm(out proj)
   cgMLP:  layer_norm -> gemm(+bias, exact GELU) -> csgu dwconv -> gemm
+          (with ``csgu_use_linear_after_conv``: -> ungated csgu dwconv
+          -> gemm(+bias, act, x_r * out: the gate epilogue) -> gemm)
   merge:  merge dwconv -> gemm(+bias, residual + out)
   FF2, then the final layer_norm.
 
@@ -115,10 +117,11 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) ->
 
 
 def gemm_plain(a, w, bias=None, *, act="identity", residual=None, alpha=1.0, bias2=None,
-               round_first=False, out=None):
+               round_first=False, out=None, gate=None):
     """``bf16(epilogue(a @ w))`` with fp32 accumulation; see ``csrc/gemm.cuh``
     for the rounding points. With ``bias2`` returns ``(out, out2)`` where
-    ``out2 = bf16(acc[:, :n2] + bias2)``."""
+    ``out2 = bf16(acc[:, :n2] + bias2)``. ``gate`` (M, N) bf16, in place of a
+    residual: the result is ``bf16(gate * v)``."""
     acc = a.to(F32) @ w.to(F32)
     out2 = None
     if bias2 is not None:
@@ -129,6 +132,8 @@ def gemm_plain(a, w, bias=None, *, act="identity", residual=None, alpha=1.0, bia
         v = _round(act_plain(act, v))
     if residual is not None:
         v = residual.to(F32) + alpha * v
+    elif gate is not None:
+        v = gate.to(F32) * v
     v = v.to(BF16)
     if out is not None:
         out.copy_(v)
@@ -171,29 +176,38 @@ def gemm_contract(a, w, out=None, residual=None, bias2=None) -> None:
 
 
 def gemm(a, w, bias=None, *, act="identity", residual=None, alpha=1.0, bias2=None,
-         round_first=False, out=None):
+         round_first=False, out=None, gate=None):
     """``gemm_plain``; CUDA tensors run the wgmma + TMA GEMM of ``csrc/gemm.cuh``
     (two tile shapes, chosen there from M and N; the epilogue runs on the
     accumulator fragment). a: (M, K) bf16, a view with a row stride is fine;
     w: (K, N) bf16; bias/bias2: fp32; ``out`` may be a column slice of a wider
-    buffer, whose other columns and rows are left untouched. What the kernel
-    takes is ``gemm_contract``'s to say; anything else raises."""
-    tensors = [t for t in (a, w, bias, residual, bias2, out) if t is not None]
+    buffer, whose other columns and rows are left untouched. ``gate`` (a view
+    with a row stride is fine) runs the gate epilogue, ``asr_gemm_gate_bf16``
+    (counted under that name), and takes neither ``residual`` nor ``bias2``.
+    What the kernel takes is ``gemm_contract``'s to say; anything else raises."""
+    tensors = [t for t in (a, w, bias, residual, bias2, out, gate) if t is not None]
     if not _build.on_cuda(*tensors):
         return gemm_plain(a, w, bias, act=act, residual=residual, alpha=alpha, bias2=bias2,
-                          round_first=round_first, out=out)
+                          round_first=round_first, out=out, gate=gate)
+    if gate is not None and (residual is not None or bias2 is not None or round_first):
+        raise ValueError("gemm: the gate epilogue takes no residual, bias2 or round_first")
     M, K = a.shape
     N = w.shape[1]
     if out is None:
         out = torch.empty(M, N, dtype=BF16, device=a.device)
-    gemm_contract(a, w, out, residual, bias2)  # shapes, strides, base addresses
-    for name, t in (("a", a), ("out", out), ("residual", residual)):
+    gemm_contract(a, w, out, residual if gate is None else gate, bias2)  # shapes, strides, base addresses
+    for name, t in (("a", a), ("out", out), ("residual", residual), ("gate", gate)):
         if t is not None and t.dtype != BF16:
             raise ValueError(f"{name}: expected {BF16}, got {t.dtype}")
     _build.check(w, "w", BF16, (K, N))
     if bias is not None:
         _build.check(bias, "bias", F32, (N,))
     lda, ldo = a.stride(0), out.stride(0)
+    if gate is not None:
+        _build.launch("asr_gemm_gate_bf16", "pppppiiiiiiii", a.data_ptr(), w.data_ptr(),
+                      None if bias is None else bias.data_ptr(), out.data_ptr(), gate.data_ptr(), M, N, K,
+                      lda, N, ldo, gate.stride(0), ACT_CODES[act])
+        return out
     ldr = residual.stride(0) if residual is not None else 0
     out2, n2, ldo2 = None, 0, 0
     if bias2 is not None:
@@ -373,6 +387,16 @@ def csgu_plain(l, ln_g, ln_b, w, bias, B: int, T: int, t_valid: int, act: str, e
     return (l[:, :C].to(F32) * gate.reshape(B * T, C)).to(BF16)
 
 
+def csgu_conv_plain(l, ln_g, ln_b, w, bias, B: int, T: int, t_valid: int, eps: float):
+    """The ungated CSGU conv of a model with ``csgu_use_linear_after_conv``:
+    bf16(dwconv(LN(l[:, C:]))), no activation and no gate (the CSGU linear's
+    gate epilogue, ``gemm(..., gate=l[:, :C])``, finishes it). l: (B*T, 2C)
+    bf16 -> (B*T, C) bf16."""
+    C = l.shape[1] // 2
+    g = layer_norm_plain(l[:, C:], ln_g, ln_b, eps).to(F32).reshape(B, T, C)
+    return _dwconv_plain(g, w, bias, t_valid).reshape(B * T, C).to(BF16)
+
+
 def merge_conv_plain(x, w, bias, B: int, T: int, t_valid: int):
     """merged + bf16(dwconv(merged)), rounded to bf16. x: (B*T, C) bf16."""
     C = x.shape[1]
@@ -394,21 +418,22 @@ def dwconv_channels_ok(mode: int, C: int) -> bool:
 
 def dwconv_contract(mode: int, x, w, bias, B: int, T: int, t_valid: int, ln_g=None, ln_b=None) -> int:
     """Raise unless ``csrc/dwconv.cu`` takes these operands (whatever device
-    they lie on); return C. mode 0 (CSGU): x is (B*T, 2C) ``[x_r | x_g]``;
-    mode 1 (merge): x is (B*T, C). x may be a row view: unit column stride, a
+    they lie on); return C. mode 0 (CSGU) and 2 (CSGU, ungated): x is (B*T,
+    2C) ``[x_r | x_g]``; mode 1 (merge): x is (B*T, C). x may be a row view: unit column stride, a
     row stride divisible by 8 and a 16-byte aligned base, which the kernel's
     TMA maps need; C a multiple of 8, at most 1024, so that two stages of a
     tile fit in shared memory (CSGU past 768 in 128-channel slices: C a
     multiple of 128 there); w (K, C) bf16 with
     K odd, at most 33 (the TPU kernel's ``PAD_ALLOC``); bias, ln_g, ln_b (C,)
     fp32, each contiguous; 0 <= t_valid."""
+    csgu = mode != 1
     width = x.shape[1] if x.ndim == 2 else -1
-    C = width // 2 if mode == 0 else width
-    if x.ndim != 2 or x.shape[0] != B * T or C <= 0 or width != (2 * C if mode == 0 else C):
-        raise ValueError(f"x: expected ({B * T}, {'2C' if mode == 0 else 'C'}) rows, got {tuple(x.shape)}")
-    if not dwconv_channels_ok(mode, C):
-        raise ValueError(f"depthwise conv kernel needs C % 8 == 0 and C <= {DWCONV_MAX_C[mode]} (CSGU past "
-                         f"{DWCONV_CSGU_ROW_C}: whole 128-channel slices), got C={C}")
+    C = width // 2 if csgu else width
+    if x.ndim != 2 or x.shape[0] != B * T or C <= 0 or width != (2 * C if csgu else C):
+        raise ValueError(f"x: expected ({B * T}, {'2C' if csgu else 'C'}) rows, got {tuple(x.shape)}")
+    if not dwconv_channels_ok(int(not csgu), C):
+        raise ValueError(f"depthwise conv kernel needs C % 8 == 0 and C <= {DWCONV_MAX_C[int(not csgu)]} (CSGU "
+                         f"past {DWCONV_CSGU_ROW_C}: whole 128-channel slices), got C={C}")
     if x.stride(1) != 1 or x.stride(0) % 8 or x.data_ptr() % 16:
         raise ValueError("x: needs unit column stride, a row stride divisible by 8 and a 16-byte aligned base")
     K = w.shape[0] if w.ndim == 2 else 0
@@ -417,7 +442,7 @@ def dwconv_contract(mode: int, x, w, bias, B: int, T: int, t_valid: int, ln_g=No
     if t_valid < 0:
         raise ValueError(f"t_valid must be >= 0, got {t_valid}")
     params = [("x", x, BF16, None), ("w", w, BF16, (K, C)), ("bias", bias, F32, (C,))]
-    if mode == 0:
+    if csgu:
         params += [("ln_g", ln_g, F32, (C,)), ("ln_b", ln_b, F32, (C,))]
     for name, t, dtype, shape in params:
         if t.dtype != dtype:
@@ -438,7 +463,7 @@ def _dwconv(mode, x, ln_g, ln_b, w, bias, B, T, t_valid, act, eps, label, out=No
         out = torch.empty(B * T, C, dtype=BF16, device=x.device)
     _build.check(out, "out", BF16, (B * T, C))
     # CSGU in channel slices: each row's (mean, 1 / std) from the kernel's first pass
-    stats = torch.empty(B * T, 2, dtype=F32, device=x.device) if mode == 0 and C > DWCONV_CSGU_ROW_C else None
+    stats = torch.empty(B * T, 2, dtype=F32, device=x.device) if mode != 1 and C > DWCONV_CSGU_ROW_C else None
     ptr = lambda t: t.data_ptr() if t is not None else None
     _build.launch("asr_dwconv", "pppppppiiiiiiiif", x.data_ptr(), ptr(ln_g), ptr(ln_b),
                   w.data_ptr(), bias.data_ptr(), out.data_ptr(), ptr(stats), B, T, t_valid, C, w.shape[0],
@@ -452,6 +477,15 @@ def csgu(l, ln_g, ln_b, w, bias, B: int, T: int, t_valid: int, act: str, eps: fl
     if not _build.on_cuda(l, ln_g, ln_b, w, bias):
         return csgu_plain(l, ln_g, ln_b, w, bias, B, T, t_valid, act, eps)
     return _dwconv(0, l, ln_g, ln_b, w, bias, B, T, t_valid, act, eps, "dwconv_csgu")
+
+
+def csgu_conv(l, ln_g, ln_b, w, bias, B: int, T: int, t_valid: int, eps: float):
+    """``csgu_conv_plain``; CUDA tensors run ``csrc/dwconv_csgu.cu``'s ungated
+    kernel (mode 2 of ``asr_dwconv``, counted as ``dwconv_csgu_conv``), which
+    takes what ``csgu`` takes."""
+    if not _build.on_cuda(l, ln_g, ln_b, w, bias):
+        return csgu_conv_plain(l, ln_g, ln_b, w, bias, B, T, t_valid, eps)
+    return _dwconv(2, l, ln_g, ln_b, w, bias, B, T, t_valid, "identity", eps, "dwconv_csgu_conv")
 
 
 def merge_conv(x, w, bias, B: int, T: int, t_valid: int):
@@ -493,7 +527,9 @@ def fold_layer_weights(layer, cfg, device=None) -> Dict[str, torch.Tensor]:
     * the positional projection kept low rank per head, split into even
       (sin) and odd (cos) sinusoid channels, the sin half negated: (H, dh,
       D/2) twice, stored as ``pos_weights`` lays them out, (H, D, dh);
-    * depthwise conv kernels as (K, C) bf16, their biases fp32.
+    * depthwise conv kernels as (K, C) bf16, their biases fp32;
+    * with ``csgu_use_linear_after_conv`` the CSGU linear as ``csgu_lin_w``
+      (C, C) bf16 and ``csgu_lin_b`` (rounded to bf16, as the TPU fold keeps it).
 
     Each head is padded with zero columns to ``head_width(dh)`` (HW) in W_q,
     W_k, W_v and their biases, with zero rows in W_out and in the positional
@@ -552,6 +588,8 @@ def fold_layer_weights(layer, cfg, device=None) -> Dict[str, torch.Tensor]:
     w["cg_w1"], w["cg_b1"] = mat(cg.channel_proj1[0]), vec(cg.channel_proj1[0])
     w["csgu_ln_g"], w["csgu_ln_b"] = ln(cg.csgu.norm)
     w["csgu_dw"], w["csgu_dw_b"] = dw(cg.csgu.conv)
+    if cfg.csgu_use_linear_after_conv:
+        w["csgu_lin_w"], w["csgu_lin_b"] = mat(cg.csgu.linear), vec(cg.csgu.linear)
     w["cg_w2"], w["cg_b2"] = mat(cg.channel_proj2), vec(cg.channel_proj2)
     w["merge_dw"], w["merge_dw_b"] = dw(layer.depthwise_conv_fusion)
     w["merge_w"], w["merge_b"] = mat(layer.merge_proj), vec(layer.merge_proj)
@@ -564,11 +602,11 @@ def fold_layer_weights(layer, cfg, device=None) -> Dict[str, torch.Tensor]:
 
 PLAIN_OPS = types.SimpleNamespace(
     layer_norm=layer_norm_plain, gemm=gemm_plain, pos_query=pos_query_plain,
-    rel_attention=rel_attention_plain, csgu=csgu_plain, merge_conv=merge_conv_plain,
+    rel_attention=rel_attention_plain, csgu=csgu_plain, csgu_conv=csgu_conv_plain, merge_conv=merge_conv_plain,
 )
 KERNEL_OPS = types.SimpleNamespace(
     layer_norm=layer_norm, gemm=gemm, pos_query=pos_query,
-    rel_attention=rel_attention, csgu=csgu, merge_conv=merge_conv,
+    rel_attention=rel_attention, csgu=csgu, csgu_conv=csgu_conv, merge_conv=merge_conv,
 )
 
 
@@ -598,8 +636,14 @@ def _layer(x, lengths, w, cfg, t_valid, tables, ops):
     # cgMLP branch (channel_proj1 is always exact GELU)
     l = ops.layer_norm(xf, w["cg_ln_g"], w["cg_ln_b"], eps)
     l = ops.gemm(l, w["cg_w1"], w["cg_b1"], act="gelu")
-    gated = ops.csgu(l, w["csgu_ln_g"], w["csgu_ln_b"], w["csgu_dw"], w["csgu_dw_b"],
-                     B, T, t_valid, cfg.csgu_activation, eps)
+    if "csgu_lin_w" in w:
+        # the CSGU linear between the conv and the gate (pallas_layer.py:578-583)
+        conv = ops.csgu_conv(l, w["csgu_ln_g"], w["csgu_ln_b"], w["csgu_dw"], w["csgu_dw_b"], B, T, t_valid, eps)
+        gated = ops.gemm(conv, w["csgu_lin_w"], w["csgu_lin_b"], act=cfg.csgu_activation,
+                         gate=l[:, : l.shape[1] // 2])
+    else:
+        gated = ops.csgu(l, w["csgu_ln_g"], w["csgu_ln_b"], w["csgu_dw"], w["csgu_dw_b"],
+                         B, T, t_valid, cfg.csgu_activation, eps)
     ops.gemm(gated, w["cg_w2"], w["cg_b2"], out=merged[:, D:])
 
     # merge: concat + depthwise fusion + projection, residual
@@ -613,23 +657,23 @@ def _layer(x, lengths, w, cfg, t_valid, tables, ops):
     return ops.layer_norm(xf, w["final_ln_g"], w["final_ln_b"], eps).view(B, T, D)
 
 
-def _check_layer_args(x, cfg):
+def _check_layer_args(x, w, cfg):
     if x.dtype != BF16 or x.ndim != 3:
         raise ValueError("x must be (B, T, D) bfloat16")
-    if cfg.csgu_use_linear_after_conv:
-        raise NotImplementedError("csgu_use_linear_after_conv is not ported yet")
+    if cfg.csgu_use_linear_after_conv != ("csgu_lin_w" in w):
+        raise ValueError("the folded weights and the config disagree on csgu_use_linear_after_conv")
 
 
 def ebranchformer_layer_plain(x, lengths, w, cfg, t_valid: int, tables) -> torch.Tensor:
     """One inference layer in plain PyTorch on any device. x: (B, T, D) bf16,
     lengths: (B,) int32 key lengths; rows >= t_valid are masked out of both
     depthwise convs (padding rows below it are not re-zeroed)."""
-    _check_layer_args(x, cfg)
+    _check_layer_args(x, w, cfg)
     return _layer(x, lengths, w, cfg, t_valid, tables, PLAIN_OPS)
 
 
 def ebranchformer_layer(x, lengths, w, cfg, t_valid: int, tables) -> torch.Tensor:
     """``ebranchformer_layer_plain`` on CPU tensors; on CUDA tensors every
     piece runs its kernel."""
-    _check_layer_args(x, cfg)
+    _check_layer_args(x, w, cfg)
     return _layer(x, lengths, w, cfg, t_valid, tables, KERNEL_OPS)

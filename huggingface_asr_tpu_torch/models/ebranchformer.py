@@ -25,13 +25,20 @@ On CPU tensors both wrappers run their plain versions; on CUDA tensors they
 run their kernels or raise (a model the kernels do not take trains with
 ``attention_impl="xla"``). The inference path is
 also the float32 reference that the fused path (``models/fast_infer.py``) is
-held against. Supported: the plain 2-D conv front end, non-causal
-self-attention with relative positions (or none), macaron FFs, cgMLP/CSGU
-and the merge block, the SSL masking hook (BEST-RQ's noise,
+held against. Supported: the plain 2-D conv front end and its gated
+variants (``context_awareness_type`` "gated": each conv times the sigmoid of a
+gate conv of the same shape; "gated_shared": the gate conv at
+``shared_scale_factor`` times the kernel, stride and padding in time, one gate
+frame for that many conv frames), self-attention with relative or rotary
+positions (or none), causal models (``is_causal``: left padding of k - 1 in
+both axes of the 2-D convs and in both depthwise convs, and a lower-triangular
+attention mask), macaron FFs, cgMLP/CSGU (with or without its linear after
+the conv) and the merge block, the SSL masking hook (BEST-RQ's noise,
 ``models/bestrq.py``, or wav2vec2's learned ``masked_spec_embed``,
 ``models/wav2vec2_ssl.py``) and the BEST-RQ fine-tuning adapters (layer
-mixing, one additional layer). The gated conv front ends, causal models and
-rotary positions raise ``NotImplementedError``.
+mixing, one additional layer). A causal or rotary model always takes the
+plain attention, as the Flax model does: the kernels hold relative positions
+without a causal mask.
 """
 
 from __future__ import annotations
@@ -115,9 +122,12 @@ def _ln(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dwconv(m: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    """Depthwise conv over time on (B, T, C)."""
-    y = F.conv1d(x.transpose(1, 2), m.weight.to(x.dtype), m.bias.to(x.dtype),
-                 padding=m.padding, groups=m.groups)
+    """Depthwise conv over time on (B, T, C); a causal conv (``left_pad``,
+    see ``_depthwise_conv1d``) is padded on the left alone."""
+    x = x.transpose(1, 2)
+    if m.left_pad:
+        x = F.pad(x, (m.left_pad, 0))
+    y = F.conv1d(x, m.weight.to(x.dtype), m.bias.to(x.dtype), padding=m.padding, groups=m.groups)
     return y.transpose(1, 2)
 
 
@@ -156,6 +166,16 @@ def relative_positional_embeddings(T: int, D: int, device=None, dtype=torch.floa
     return torch.as_tensor(table, dtype=dtype, device=device)
 
 
+def rotary_cos_sin(T: int, head_size: int, base: int = 10000, device=None, dtype=torch.float32):
+    """Rotary tables ``(cos, sin)``, each (T, head_size): angle ``t * base^(-2i/dh)``
+    for the dh/2 frequencies, the two halves repeated, built in float64."""
+    inv = 1.0 / (base ** (np.arange(0, head_size, 2, dtype=np.float64) / head_size))
+    freqs = np.outer(np.arange(T, dtype=np.float64), inv)
+    emb = np.concatenate([freqs, freqs], axis=-1)
+    return (torch.as_tensor(np.cos(emb), dtype=dtype, device=device),
+            torch.as_tensor(np.sin(emb), dtype=dtype, device=device))
+
+
 def relpos_tables(T: int, D: int, device=None, dtype=torch.float32):
     """Factored relative-position tables: ``(cos, sin)`` of angle ``t * w_i``
     for the D/2 sinusoid frequencies, each (T, D/2), built in float64."""
@@ -167,41 +187,90 @@ def relpos_tables(T: int, D: int, device=None, dtype=torch.float32):
     )
 
 
-class _ConvLayer(nn.Module):
-    def __init__(self, c_in: int, c_out: int, k: int, s: int, p: int):
-        super().__init__()
-        self.conv = nn.Conv2d(c_in, c_out, k, stride=s, padding=p)
+def _conv2d(conv: nn.Conv2d, x: torch.Tensor, pad) -> torch.Tensor:
+    """``conv`` on (B, C, T, F) in x's dtype, after zero padding ``pad`` =
+    ((time before, after), (frequency before, after))."""
+    (t0, t1), (f0, f1) = pad
+    x = F.pad(x, (f0, f1, t0, t1))
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), stride=conv.stride)
 
-    def forward(self, x):
-        return self.conv(x)
+
+class _GatedConv(nn.Module):
+    """The gated front-end conv: ``conv(x) * sigmoid(gate(x))``. The reference
+    names the two ``conv.conv`` and ``conv.gate``."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, s: int, gate_k, gate_s):
+        super().__init__()
+        self.conv = nn.Conv2d(c_in, c_out, k, stride=s)
+        self.gate = nn.Conv2d(c_in, c_out, gate_k, stride=gate_s)
+
+
+class _ConvLayer(nn.Module):
+    """One front-end conv (``conv``, a Conv2d, or a ``_GatedConv``), applied
+    by ``Conv2dFeatureExtractor``, which holds the padding."""
+
+    def __init__(self, conv: nn.Module):
+        super().__init__()
+        self.conv = conv
 
 
 class Conv2dFeatureExtractor(nn.Module):
-    """2-D convs over (B, T, F) mel input, channel-major flatten, Linear."""
+    """2-D convs over (B, T, F) mel input, channel-major flatten, Linear.
+
+    ``context_awareness_type`` "gated" multiplies each conv by the sigmoid of
+    a gate conv of the same shape; "gated_shared" runs the gate conv at
+    ``shared_scale_factor`` (f) times the kernel, stride and padding in time,
+    so that one gate frame multiplies f consecutive conv frames, and raises
+    ``ValueError`` where the conv's frames are not f times the gate's (pad the
+    input to a multiple of f post-conv frames). A causal model pads k - 1
+    before each axis, time and frequency, and nothing after (the gate conv
+    of "gated_shared": f k - 1 before in time)."""
 
     def __init__(self, cfg: EBranchformerConfig):
         super().__init__()
-        if cfg.context_awareness_type not in (None, "none"):
-            raise NotImplementedError(
-                f"context_awareness_type={cfg.context_awareness_type!r} is not ported yet"
-            )
+        self.kind = cfg.context_awareness_type if cfg.context_awareness_type not in (None, "none") else None
+        if self.kind not in (None, "gated", "gated_shared"):
+            raise ValueError(f"unknown context_awareness_type {cfg.context_awareness_type!r}")
         self.act = ACT[cfg.feat_extract_activation]
+        self.factor = cfg.shared_scale_factor
+        f_sh = self.factor if self.kind == "gated_shared" else 1
         chans = (1,) + tuple(cfg.conv_dim)
-        self.conv = nn.ModuleList([
-            nn.Sequential(_ConvLayer(chans[i], chans[i + 1], k, s, p))
-            for i, (k, s, p) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride, cfg.conv_padding))
-        ])
+        self.conv = nn.ModuleList()
+        self.pads, self.gate_pads = [], []
+        for i, (k, s, p) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride, cfg.conv_padding)):
+            if self.kind is None:
+                conv = nn.Conv2d(chans[i], chans[i + 1], k, stride=s)
+            else:
+                conv = _GatedConv(chans[i], chans[i + 1], k, s, (k * f_sh, k), (s * f_sh, s))
+            self.conv.append(nn.Sequential(_ConvLayer(conv)))
+            if cfg.is_causal:
+                self.pads.append(((k - 1, 0), (k - 1, 0)))
+                self.gate_pads.append(((k * f_sh - 1, 0), (k - 1, 0)))
+            else:
+                self.pads.append(((p, p), (p, p)))
+                self.gate_pads.append(((p * f_sh, p * f_sh), (p, p)))
         f = cfg.num_fbanks
-        for k, s, p in zip(cfg.conv_kernel, cfg.conv_stride, cfg.conv_padding):
-            f = conv_output_length(f, k, s, p)
+        for (_, (f0, f1)), k, s in zip(self.pads, cfg.conv_kernel, cfg.conv_stride):
+            f = conv_output_length(f + f0 + f1, k, s, 0)
         self.out = nn.Linear(cfg.conv_dim[-1] * f, cfg.hidden_size)
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         x = features[:, None]  # (B, 1, T, F)
-        for block in self.conv:
+        for block, pad, gate_pad in zip(self.conv, self.pads, self.gate_pads):
             conv = block[0].conv
-            x = self.act(F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-                                  stride=conv.stride, padding=conv.padding))
+            if self.kind is None:
+                x = _conv2d(conv, x, pad)
+            else:
+                c = _conv2d(conv.conv, x, pad)
+                g = torch.sigmoid(_conv2d(conv.gate, x, gate_pad))
+                if self.kind == "gated_shared":
+                    f = self.factor
+                    if c.shape[2] != g.shape[2] * f:
+                        raise ValueError(f"gated_shared needs conv time {c.shape[2]} == gate time {g.shape[2]} x "
+                                         f"{f}; pad inputs to a multiple of {f} post-conv frames")
+                    g = g.repeat_interleave(f, dim=2)
+                x = c * g
+            x = self.act(x)
         B, C, T, Fq = x.shape
         x = x.permute(0, 2, 1, 3).reshape(B, T, C * Fq)  # channel-major: c*F' + f
         return _lin(self.out, x)
@@ -223,17 +292,21 @@ class FeatureProjection(nn.Module):
 
 class EBranchformerSelfAttention(nn.Module):
     """Multi-head self-attention; relative positions in the exact factored
-    form: ``bd[t, s] = rot_t(W_pos^T q_v[t]) . PE_std[s]``."""
+    form: ``bd[t, s] = rot_t(W_pos^T q_v[t]) . PE_std[s]``; rotary positions
+    as the Flax model applies them, to the layer input ``x`` before
+    ``linear_q`` and ``linear_k`` (each dh-wide piece of x rotated in the
+    half-split form ``x * cos + [-x2, x1] * sin``), not to q and k; a causal
+    model masks the keys after each query (before the key-padding bias)."""
 
     def __init__(self, cfg: EBranchformerConfig):
         super().__init__()
-        if cfg.position_embeddings_type not in ("relative", "none"):
-            raise NotImplementedError(
-                f"position_embeddings_type={cfg.position_embeddings_type!r} is not ported yet"
-            )
+        if cfg.position_embeddings_type not in ("relative", "rotary", "none"):
+            raise ValueError(f"unknown position_embeddings_type {cfg.position_embeddings_type!r}")
         D = cfg.hidden_size
         self.H, self.dh = cfg.num_attention_heads, cfg.head_size
         self.relative = cfg.position_embeddings_type == "relative"
+        self.rotary = cfg.position_embeddings_type == "rotary"
+        self.causal = cfg.is_causal
         self.impl, self.attention_dropout = cfg.attention_impl, cfg.attention_dropout
         self.linear_q = nn.Linear(D, D)
         self.linear_k = nn.Linear(D, D)
@@ -249,16 +322,25 @@ class EBranchformerSelfAttention(nn.Module):
                 pos_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``lengths``: (B,) int32 valid key counts for the kernels (the
         encoder's lengths). ``pos_emb``: the (2T-1, D) table, given when the
-        shift-form inference kernel may run."""
+        shift-form inference kernel may run; for a rotary model the
+        ``rotary_cos_sin`` tables (T, dh) in x's dtype."""
         B, T, D = x.shape
         H, dh = self.H, self.dh
-        q = _lin(self.linear_q, x).view(B, T, H, dh)
-        k = _lin(self.linear_k, x).view(B, T, H, dh)
+        qk_in = x
+        if self.rotary:
+            cos, sin = pos_emb
+            h = x.view(B, T, H, dh)
+            rotated = torch.cat([-h[..., dh // 2:], h[..., : dh // 2]], dim=-1)
+            qk_in = (h * cos[None, :, None, :] + rotated * sin[None, :, None, :]).reshape(B, T, D)
+        q = _lin(self.linear_q, qk_in).view(B, T, H, dh)
+        k = _lin(self.linear_k, qk_in).view(B, T, H, dh)
         v = _lin(self.linear_v, x).view(B, T, H, dh)
+        # the kernels hold no causal mask: a causal model takes the plain attention
+        kernels_ok = not self.causal and lengths is not None
         if self.relative:
             q_u = q + self.pos_bias_u.to(x.dtype)
             q_v = q + self.pos_bias_v.to(x.dtype)
-            if self.impl == "pallas" and rng is None and lengths is not None and pos_emb is not None:
+            if self.impl == "pallas" and rng is None and kernels_ok and pos_emb is not None:
                 pos = _lin(self.linear_pos, pos_emb).view(-1, H, dh)
                 out = rel_attention(q_u, q_v, k, v, pos, lengths).reshape(B, T, D)
                 return _lin(self.linear_out, out)
@@ -270,7 +352,7 @@ class EBranchformerSelfAttention(nn.Module):
             q_rot = torch.cat([r_sin * qo - r_cos * qe, r_sin * qe + r_cos * qo], dim=-1)
             k_std = torch.cat([sin_t, cos_t], dim=-1)  # (T, D)
             use_train_kernel = self.impl == "pallas" or (self.impl == "auto" and x.is_cuda)
-            if use_train_kernel and rng is not None and lengths is not None:
+            if use_train_kernel and rng is not None and kernels_ok:
                 # the kernel's own dropout takes the place of the probability dropout
                 out = rel_attention_train(q_u, q_rot, k, v, k_std, lengths, rng.seed(),
                                           self.attention_dropout).reshape(B, T, D)
@@ -280,6 +362,9 @@ class EBranchformerSelfAttention(nn.Module):
         else:
             scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(dh)
         scores = scores.float()
+        if self.causal:
+            causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+            scores = torch.where(causal, scores, NEG_INF)
         if attention_bias is not None:
             scores = scores + attention_bias
         probs = _drop(rng, torch.softmax(scores, dim=-1).to(x.dtype), self.attention_dropout)
@@ -300,8 +385,12 @@ class FeedForward(nn.Module):
         return _drop(rng, _lin(self.output_dense, x), self.hidden_dropout)
 
 
-def _depthwise_conv1d(C: int, k: int) -> nn.Conv1d:
-    return nn.Conv1d(C, C, k, padding=(k - 1) // 2, groups=C)
+def _depthwise_conv1d(C: int, k: int, causal: bool = False) -> nn.Conv1d:
+    """A depthwise conv over time, padded (k-1)/2 on both sides, or (causal)
+    k - 1 on the left alone (``left_pad``, which ``_dwconv`` applies)."""
+    conv = nn.Conv1d(C, C, k, padding=0 if causal else (k - 1) // 2, groups=C)
+    conv.left_pad = k - 1 if causal else 0
+    return conv
 
 
 class ConvolutionalSpatialGatingUnit(nn.Module):
@@ -310,7 +399,7 @@ class ConvolutionalSpatialGatingUnit(nn.Module):
         n = cfg.intermediate_size // 2
         self.act = ACT[cfg.csgu_activation]
         self.norm = nn.LayerNorm(n, eps=cfg.layer_norm_eps)
-        self.conv = _depthwise_conv1d(n, cfg.csgu_kernel_size)
+        self.conv = _depthwise_conv1d(n, cfg.csgu_kernel_size, cfg.is_causal)
         if cfg.csgu_use_linear_after_conv:
             self.linear = nn.Linear(n, n)
         self.dropout = cfg.csgu_conv_dropout
@@ -350,7 +439,7 @@ class EBranchformerEncoderLayer(nn.Module):
         self.self_attn = EBranchformerSelfAttention(cfg)
         self.cgMLP_layer_norm = nn.LayerNorm(D, eps=eps)
         self.cgMLP = ConvolutionalGatingMLP(cfg)
-        self.depthwise_conv_fusion = _depthwise_conv1d(2 * D, cfg.merge_conv_kernel)
+        self.depthwise_conv_fusion = _depthwise_conv1d(2 * D, cfg.merge_conv_kernel, cfg.is_causal)
         self.merge_proj = nn.Linear(2 * D, D)
         self.final_layer_norm = nn.LayerNorm(D, eps=eps)
         # The reference drops the attention and the merged branch outputs at
@@ -381,7 +470,9 @@ class EBranchformerEncoder(nn.Module):
         )
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.hidden_dropout = cfg.hidden_dropout
-        self.shift_kernel = cfg.attention_impl == "pallas" and cfg.position_embeddings_type == "relative"
+        self.shift_kernel = (cfg.attention_impl == "pallas" and cfg.position_embeddings_type == "relative"
+                             and not cfg.is_causal)
+        self.rotary = (cfg.head_size, cfg.rotary_embedding_base) if cfg.position_embeddings_type == "rotary" else None
 
     def forward(self, x, mask: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRng] = None, output_hidden_states: bool = False):
@@ -396,6 +487,8 @@ class EBranchformerEncoder(nn.Module):
         pos_emb = None
         if self.shift_kernel and rng is None and lengths is not None:
             pos_emb = relative_positional_embeddings(x.shape[1], x.shape[2], x.device, x.dtype)
+        elif self.rotary is not None:
+            pos_emb = rotary_cos_sin(x.shape[1], *self.rotary, x.device, x.dtype)
         all_hidden = [] if output_hidden_states else None
         for layer in self.layers:
             if output_hidden_states:
@@ -464,8 +557,6 @@ class EBranchformerForCTC(nn.Module):
 
     def __init__(self, cfg: EBranchformerConfig):
         super().__init__()
-        if cfg.is_causal:
-            raise NotImplementedError("causal E-Branchformer is not ported yet")
         self.config = cfg
         self.wav2vec2 = EBranchformerModel(cfg)
         if cfg.finetune_with_layer_mixing:
@@ -498,7 +589,11 @@ class EBranchformerForCTC(nn.Module):
             # masked with the CTC lengths, as the Flax model does
             mask = lengths_to_mask(lengths, hidden.shape[1])
             bias = torch.where(mask, 0.0, NEG_INF)[:, None, None, :].float()
-            hidden = self.additional_layer(torch.where(mask[..., None], hidden, 0.0), bias, None, rng)
+            pos_emb = None
+            if cfg.position_embeddings_type == "rotary":
+                pos_emb = rotary_cos_sin(hidden.shape[1], cfg.head_size, cfg.rotary_embedding_base,
+                                         hidden.device, hidden.dtype)
+            hidden = self.additional_layer(torch.where(mask[..., None], hidden, 0.0), bias, None, rng, pos_emb)
         hidden = _drop(rng, hidden, self.final_dropout)
         logits = torch.cat([_lin(self.lm_head, hidden), _lin(self.blank_projection, hidden)], dim=-1)
         loss = None
@@ -556,9 +651,10 @@ def init_from_scratch_(model: "EBranchformerForCTC", generator: torch.Generator,
     - every Dense kernel ~ N(0, ``initializer_range``^2) (the Flax model's
       ``_winit``), but the feature projection's, which keeps Flax's default
       lecun_normal;
-    - every convolution kernel (the 2-D front-end convs, the CSGU and merge
-      depthwise convs) lecun_normal over its fan-in (input channels per group
-      x kernel taps), Flax's ``nn.Conv`` default;
+    - every convolution kernel (the 2-D front-end convs and a gated front
+      end's gate convs, the CSGU and merge depthwise convs) lecun_normal over
+      its fan-in (input channels per group x kernel taps), Flax's ``nn.Conv``
+      default;
     - every bias 0, the attention's ``pos_bias_u`` / ``pos_bias_v`` 0, every
       LayerNorm scale 1 and bias 0;
     - ``per_layer_weights`` (layer mixing) one-hot on the last entry; the

@@ -8,9 +8,11 @@ plain tensor code — the JAX path computes those outside any kernel too.
 On CUDA tensors the kernels run; on CPU tensors their plain versions.
 
 Where K2 does not take the model's front end (any conv_dim other than
-(256, 256), as in the 176-wide configs), the model's own feature extractor
-and feature projection run in bf16 instead, as the JAX path runs its Flax
-modules, and the K1 layers follow as before.
+(256, 256), as in the 176-wide configs, or a gated front end), the model's own
+feature extractor and feature projection run in bf16 instead, as the JAX path
+runs its Flax modules, and the K1 layers follow as before. A model with
+``csgu_use_linear_after_conv`` runs K1's two CSGU-linear pieces (the ungated
+conv and the GEMM's gate epilogue) in place of the CSGU conv.
 
 ``FusedCTC`` holds the folded kernel operands. They are folded once, from a
 loaded ``EBranchformerForCTC`` onto the target device; the relative-position
@@ -61,7 +63,8 @@ def _round_up(n: int, m: int) -> int:
 
 def fused_encoder_refusal(cfg: EBranchformerConfig, dtype: torch.dtype, *, log_mel: bool = False) -> Optional[str]:
     """The first condition of the fused path that ``cfg`` and ``dtype`` fail,
-    as a sentence for the user, or None where the fused path takes them.
+    as a sentence for the user, or None where the fused path takes them: what
+    the JAX package's ``fused_encoder_ok`` admits, within the kernels' limits.
     ``log_mel``: the caller also runs the log-mel and CMVN kernels in front of
     the encoder (the CTC pipeline does; the AED route keeps the plain front
     end, and the subsampler falls back to the model's own where it does not
@@ -73,7 +76,6 @@ def fused_encoder_refusal(cfg: EBranchformerConfig, dtype: torch.dtype, *, log_m
         (not cfg.finetune_with_layer_mixing, "finetune_with_layer_mixing is set"),
         (not cfg.finetune_with_additional_layer, "finetune_with_additional_layer is set"),
         (cfg.use_macaron_ff, "use_macaron_ff is off"),
-        (not cfg.csgu_use_linear_after_conv, "csgu_use_linear_after_conv is set"),
         (cfg.hidden_act in ACT_CODES, f"hidden_act {cfg.hidden_act!r} has no kernel form"),
         (cfg.csgu_activation in ACT_CODES, f"csgu_activation {cfg.csgu_activation!r} has no kernel form"),
         (head_width(cfg.head_size) is not None,

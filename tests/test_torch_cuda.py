@@ -951,6 +951,7 @@ def test_port_modules_import_nothing_of_jax():
         "import huggingface_asr_tpu_torch.models.wav2vec2_ssl, huggingface_asr_tpu_torch.cli.train_ctc\n"
         "import huggingface_asr_tpu_torch.models.llm_asr, huggingface_asr_tpu_torch.models.whisper_seq2seq\n"
         "import huggingface_asr_tpu_torch.interop.hf_whisper, huggingface_asr_tpu_torch.cli.train_aed\n"
+        "import huggingface_asr_tpu_torch.serving.streaming, huggingface_asr_tpu_torch.decoding.ctc_beam\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'huggingface_asr_tpu'))\n"
         "assert not bad, bad\nprint('ok')\n" % repo
@@ -1427,3 +1428,92 @@ def test_whisper_ctc_route_takes_the_mel_kernels_and_agrees_with_the_plain_route
     wide = WhisperEncoderForCTC(dataclasses.replace(cfg, num_mel_bins=128)).to(dev)
     with pytest.raises(ValueError, match="num_mel_bins 128"):
         WhisperCTCRoute(wide, "on", dev, torch.bfloat16)
+
+
+# ---- the CSGU linear (csgu_use_linear_after_conv): the ungated CSGU conv
+# (mode 2 of asr_dwconv) and the GEMM's gate epilogue (asr_gemm_gate_bf16)
+
+
+@pytest.mark.parametrize("C,K", [(512, 31), (512, 7), (1024, 31)])
+@pytest.mark.parametrize("B,T", [(1, 56), (8, 256), (128, 256)])
+def test_dwconv_csgu_ungated_against_plain_and_the_gated_form(B, T, C, K):
+    """bf16(dwconv(LN(x_g))) against ``csgu_conv_plain`` (one launch, under
+    its own counter), and bit-equal to the gated form's output where x_r is 1
+    and the activation the identity (the gated form then rounds the same sum
+    once); C = 1,024 takes the 128-channel slices behind the statistics pass."""
+    dev = _cuda()
+    x, ln_g, ln_b, w, bias = _dw_inputs(dev, 0, B, T, C, K, seed=B + T + C + K)
+    tv = T - 5
+    _build.reset_launch_counts()
+    got = K1.csgu_conv(x, ln_g, ln_b, w, bias, B, T, tv, 1e-5)
+    assert dict(_build.LAUNCHES) == {"dwconv_csgu_conv": 1}
+    _close(got, K1.csgu_conv_plain(x, ln_g, ln_b, w, bias, B, T, tv, 1e-5), 2 ** -7)
+    ones = x.clone()
+    ones[:, :C] = 1.0
+    gated = K1.csgu(ones, ln_g, ln_b, w, bias, B, T, tv, "identity", 1e-5)
+    assert torch.equal(got, gated)
+
+
+@pytest.mark.parametrize("act", ["identity", "gelu", "swish"])
+@pytest.mark.parametrize("M", [56, 2048, 8200, 32768])
+def test_gemm_gate_epilogue_against_plain(M, act):
+    """bf16(x_r * bf16(act(bf16(a @ w + bias)))) with x_r a column view of a
+    (M, 2C) buffer, at the flagship's C = 512, both GEMM kernels, ragged M;
+    with x_r = 1 and the identity, bit-equal to the plain epilogue's kernel."""
+    dev = _cuda()
+    C = 512
+    g = torch.Generator().manual_seed(M)
+    a = torch.randn(M, C, generator=g).bfloat16().to(dev)
+    w = (torch.randn(C, C, generator=g) * C ** -0.5).bfloat16().to(dev)
+    bias = torch.randn(C, generator=g).bfloat16().float().to(dev)
+    l = torch.randn(M, 2 * C, generator=g).bfloat16().to(dev)
+    _build.reset_launch_counts()
+    got = K1.gemm(a, w, bias, act=act, gate=l[:, :C])
+    assert dict(_build.LAUNCHES) == {"asr_gemm_gate_bf16": 1}
+    _close(got, K1.gemm_plain(a, w, bias, act=act, gate=l[:, :C]), 2 ** -6)
+    if act == "identity":
+        ones = torch.ones(M, 2 * C, dtype=torch.bfloat16, device=dev)[:, :C]
+        assert torch.equal(K1.gemm(a, w, bias, gate=ones), K1.gemm(a, w, bias))
+
+
+def test_csgu_linear_gated_model_on_the_kernel_path():
+    """A gated front end (the model's own modules) and the CSGU linear in
+    every layer: ``ctc_infer`` launches the ungated conv and the gate epilogue
+    once a layer and the gated CSGU conv never, within 0.05 of the scale of
+    its plain version."""
+    dev = _cuda()
+    cfg = dataclasses.replace(CFG, context_awareness_type="gated", csgu_use_linear_after_conv=True,
+                              csgu_activation="gelu")
+    model = init_random_(EBranchformerForCTC(cfg).eval(), torch.Generator().manual_seed(2))
+    fm = FusedCTC(model, dev)
+    assert fm.subsample is None
+    feats = torch.randn(3, 150, 80, generator=torch.Generator().manual_seed(3)).to(dev)
+    lens = torch.tensor([150, 96, 41], dtype=torch.int32, device=dev)
+    _build.reset_launch_counts()
+    got = ctc_infer(fm, feats, lens)
+    torch.cuda.synchronize()
+    n = cfg.num_hidden_layers
+    assert _build.LAUNCHES["dwconv_csgu_conv"] == n and _build.LAUNCHES["asr_gemm_gate_bf16"] == n
+    assert "dwconv_csgu" not in _build.LAUNCHES and "asr_conv1" not in _build.LAUNCHES
+    ref = ctc_infer(fm, feats, lens, plain=True)
+    assert torch.equal(got.logit_lengths, ref.logit_lengths)
+    _close(got.logits, ref.logits, 0.05)
+
+
+def test_ctc_beam_search_on_the_card_matches_the_cpu():
+    """The same posteriors on the card and on the CPU: equal n-best ids and
+    lengths, scores within 1e-3 (the two devices' exp and log differ in the
+    last bits)."""
+    from huggingface_asr_tpu_torch.decoding.ctc_beam import CTCBeamConfig, ctc_beam_search
+
+    dev = _cuda()
+    g = torch.Generator().manual_seed(5)
+    logits = torch.randn(4, 120, 60, generator=g) * 3.0
+    lp = torch.log_softmax(logits, dim=-1)
+    lens = torch.tensor([120, 97, 40, 1])
+    cfg = CTCBeamConfig(beam_size=10, beam_size_token=16)
+    ref = ctc_beam_search(lp, lens, cfg)
+    got = ctc_beam_search(lp.to(dev), lens.to(dev), cfg)
+    assert got[0].is_cuda
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+    torch.testing.assert_close(got[2].cpu(), ref[2], rtol=0, atol=1e-3)

@@ -17,6 +17,7 @@ from huggingface_asr_tpu.models import ebranchformer as JE
 from huggingface_asr_tpu.models.configs import EBranchformerConfig as JConfig
 from huggingface_asr_tpu.ops.lengths import conv_stack_output_length as j_stack_length
 from huggingface_asr_tpu.models.fast_infer import ctc_infer_fused
+from huggingface_asr_tpu.models.fast_infer import fused_encoder_ok as j_fused_ok
 from huggingface_asr_tpu.ops.ctc import ctc_greedy_decode as j_greedy
 from torch_port_helpers import make_models
 
@@ -112,15 +113,20 @@ def test_bf16_ctc_infer_matches_fused_interpret(models, feats):
 
 
 def test_fused_gate(models):
-    pcfg = models[1]
+    jcfg, pcfg = models[0], models[1]
     assert fused_encoder_ok(pcfg, torch.bfloat16)
     assert not fused_encoder_ok(pcfg, torch.float32)
-    # a front end the subsampler kernel does not take runs as the model's own
-    # modules, and a head under 32 columns is padded to the kernels' width
-    for change in ({"hidden_size": 576, "num_attention_heads": 18}, {"num_attention_heads": 1},
-                   {"position_embeddings_type": "rotary"}, {"use_macaron_ff": False},
-                   {"csgu_use_linear_after_conv": True}):
+    # the kernels' own limits: heads past 64 columns, one head of 128
+    for change in ({"hidden_size": 576, "num_attention_heads": 18}, {"num_attention_heads": 1}):
         assert not fused_encoder_ok(dataclasses.replace(pcfg, **change), torch.bfloat16), change
+    # elsewhere the port admits what the JAX package's gate admits: a gated
+    # front end runs as the model's own modules, the CSGU linear as K1's
+    # ungated conv and gate epilogue
+    for change in ({"position_embeddings_type": "rotary"}, {"use_macaron_ff": False},
+                   {"csgu_use_linear_after_conv": True}, {"context_awareness_type": "gated"}):
+        got = fused_encoder_ok(dataclasses.replace(pcfg, **change), torch.bfloat16)
+        assert got == j_fused_ok(dataclasses.replace(jcfg, **change), jnp.bfloat16), change
+    assert fused_encoder_ok(dataclasses.replace(pcfg, context_awareness_type="gated"), torch.bfloat16)
     assert fused_encoder_ok(dataclasses.replace(pcfg, conv_dim=(32, 32), num_attention_heads=8), torch.bfloat16)
     with pytest.raises(ValueError):
         FusedCTC(EBranchformerForCTC(dataclasses.replace(pcfg, num_attention_heads=1)), "cpu")
