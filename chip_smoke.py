@@ -48,7 +48,8 @@
    T=333 with rows of length 1 and 0 (the shift form also at T=70, one ragged
    tile), the training kernel's backward also at D = 64 and 128 (T = 70 and
    250), checks that the
-   kernel's keep-mask is the plain version's bit for bit, then holds them
+   kernel's keep-mask is the plain version's bit for bit (rows numbered from
+   0, and from 3 as a data-parallel rank's), then holds them
    against their plain versions once more and times them at the training
    path's shape (B=32, T=250, bf16, rate 0.1);
 7. trains the flagship model (attention_impl="pallas", bf16 over fp32
@@ -226,6 +227,27 @@
    CPU: n-best ids equal, scores within 1e-3, ms printed. The JSON line gains
    the two new pieces' rows (``dwconv_csgu_conv``, ``gemm_gate``, each also at
    B=128 / M = 32,768) with their launches in (a)'s request.
+18. last, the tools and data parallelism (``tools_phase``): (a)
+   ``cli/compute_dataset_statistics.run`` over 64 seeded utterances of 2-15 s
+   in batches of 16 on K3's log-mel kernel (4 launches, no CMVN), its means
+   and stds within twice the fp32 plain log-mel's largest error of the
+   statistics of the same rows through the plain version in fp64 (the kernel's
+   fp64 gate holds each log-mel value within that, and a mean or a std moves
+   by no more); (b) ``train_ctc.run`` on the flagship (vocabulary 31,
+   attention_impl "pallas", dropout on, no SpecAugment), 3 steps of 32 x
+   9.3-10 s with an evaluation, twice without a process group, then under a
+   one-rank NCCL group that the phase sets up (torchrun's variables, a free
+   local port) with ``--fsdp`` off and on: every step applied, 36 K4 forward
+   and 36 K4 backward launches and K5 in the evaluation each run, step 1's
+   loss bit-equal in all four, and each step's loss and gradient norm of the
+   group runs within the larger of the two runs' spread and 8 fp32 ulps (the
+   CUDA backward of ``F.ctc_loss`` adds with atomics); (c) ``TrainerConfig.profile_steps
+   = 2`` on a flagship ``CTCTrainer`` (32 x 10 s): the trace names K4's
+   forward and backward kernels and a GEMM; (d) the native collator built by
+   g++ under ``build/torch_native`` and in use; (e) ``build_hub_repo`` from
+   (b)'s ``final/``, its weights loaded back strictly giving the same logits.
+   Each kernel entry of the JSON line gains ``stats_cli_launches`` and
+   ``process_group_launches``, its launches in (a) and in (b)'s group runs.
 
 Beside each kernel's time it prints the plain version's, the least time the
 card could take (the larger of bytes / 3.35 TB/s and operations / the peak
@@ -2142,6 +2164,228 @@ def variants_phase(dev, smi, compare) -> dict:
     return variant_launches
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def tools_phase(dev, smi) -> tuple:
+    """The statistics CLI on K3, data-parallel training under a one-rank NCCL
+    process group (with and without ``--fsdp``), the profiler capture, the
+    native collator and the publisher (step 18 of the module's docstring).
+    Returns (the statistics CLI's launches, the process-group runs' launches)."""
+    import dataclasses as dc
+
+    import torch
+    import torch.distributed as dist
+
+    from huggingface_asr_tpu_torch.cli import compute_dataset_statistics as stats_cli
+    from huggingface_asr_tpu_torch.cli import train_ctc
+    from huggingface_asr_tpu_torch.cli.common import eval_batches
+    from huggingface_asr_tpu_torch.data import native_collate
+    from huggingface_asr_tpu_torch.data.bucketing import BucketingConfig
+    from huggingface_asr_tpu_torch.data.collator import CollatorConfig, SpeechCollator
+    from huggingface_asr_tpu_torch.data.datasets import ColumnTable, DataConfig
+    from huggingface_asr_tpu_torch.data.synthetic_speech import utterance
+    from huggingface_asr_tpu_torch.interop.publish import build_hub_repo
+    from huggingface_asr_tpu_torch.kernels import mel as K3
+    from huggingface_asr_tpu_torch.ops.features import LogMelConfig
+    from huggingface_asr_tpu_torch.training.arguments import (
+        GeneralTrainingArguments,
+        GenerationArguments,
+        ModelArguments,
+    )
+    from huggingface_asr_tpu_torch.training.model_factory import load_ctc_model
+    from huggingface_asr_tpu_torch.utils.argparsing import DataclassArgumentParser
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(18)
+
+    # ---- (a) the statistics CLI on K3: 64 utterances of 2-15 s, batches of 16
+    audio = [speech(rng.uniform(2.0, 15.0), rng) for _ in range(64)]
+    table = ColumnTable({"audio": audio, "text": [""] * 64, "input_len": [len(a) / 16000 for a in audio]})
+    args = stats_cli.StatsArguments(output_dir=os.path.join(work, "stats"), batch_size=16, device="cuda")
+    t0 = time.perf_counter()
+    (mean, std), stats_launches = count_launches(lambda: stats_cli.run(args, table), {})
+    stats_s = time.perf_counter() - t0
+    # the reference: the same batches through the kernel's plain version in fp64, and the
+    # largest fp32 plain log-mel error against it (the kernel's fp64 gate holds each
+    # log-mel value within twice that; a mean or a std of such values moves by as much)
+    fe = K3.MelFrontEnd(LogMelConfig(norm_type="none"), device=dev)
+    cfg = fe.config
+    collator = SpeechCollator(CollatorConfig(bucketing=BucketingConfig(batch_size=16, pad_to_multiple=16000)))
+    total = np.zeros(cfg.num_mel_bins)
+    total_sq = np.zeros_like(total)
+    count, err32 = 0.0, 0.0
+    for batch in eval_batches(table, collator, 16):
+        n = int(batch.pop("_num_real"))
+        wav = torch.from_numpy(batch["input_values"][:n]).to(dev)
+        n_frames = int(cfg.num_frames(wav.shape[1]))
+        frames = cfg.num_frames(torch.from_numpy(batch["input_values_lengths"][:n]).to(dev).long())
+        valid = (torch.arange(n_frames, device=dev)[None, :] < frames[:, None])[..., None]
+        exact = K3.log_mel_plain(wav.double(), n_frames, fe.dft.double(), fe.mel.double(), cfg.hop_length,
+                                 cfg.mel_floor)
+        plain = K3.log_mel_plain(wav, n_frames, fe.dft, fe.mel, cfg.hop_length, cfg.mel_floor)
+        err32 = max(err32, float(((plain.double() - exact).abs() * valid).max()))
+        total += (exact * valid).sum(dim=(0, 1)).cpu().numpy()
+        total_sq += (exact.square() * valid).sum(dim=(0, 1)).cpu().numpy()
+        count += float(valid.sum())
+    ref_mean = total / count
+    ref_std = np.sqrt(total_sq / count - np.square(ref_mean))
+    d_mean, d_std = float(np.abs(mean - ref_mean).max()), float(np.abs(std - ref_std).max())
+    tol = 2.0 * err32
+    print(f"-- tools phase (a): compute_dataset_statistics.run on K3, 64 utterances of 2-15 s "
+          f"({sum(len(a) for a in audio) / 16000:.1f} s) in batches of 16: {stats_s:.2f} s, launches "
+          f"{stats_launches}; means {mean.min():.3f}..{mean.max():.3f}, stds {std.min():.3f}..{std.max():.3f}; "
+          f"largest error against the fp64 statistics: mean {d_mean:.3e}, std {d_std:.3e} (tolerance "
+          f"2 x {err32:.3e}, twice the fp32 plain log-mel's largest error); {smi}", flush=True)
+    if stats_launches.get("asr_log_mel", 0) != 4 or stats_launches.get("asr_cmvn", 0):
+        _fail(f"statistics CLI: launches {stats_launches}, want 4 of asr_log_mel and no asr_cmvn")
+    if not (d_mean <= tol and d_std <= tol):
+        _fail("statistics CLI: the K3 statistics are outside twice the fp32 plain error of the fp64 statistics")
+    for name in ("global_means.npy", "global_stds.npy", "global_stats.json"):
+        if not os.path.exists(os.path.join(args.output_dir, name)):
+            _fail(f"statistics CLI: no {name}")
+
+    # ---- (b) train_ctc.run, flagship, 3 steps of 32 x 9.3-10 s: twice alone, then under a
+    # one-rank NCCL process group with --fsdp off and on
+    tok = IdTokenizer()
+    model_cfg = flagship_config(vocab_size=len(tok), attention_impl="pallas")
+    with open(os.path.join(work, "model.json"), "w") as f:
+        f.write(model_cfg.to_json())
+
+    def split(n):
+        cols = {"audio": [], "text": [], "input_len": []}
+        for _ in range(n):
+            wav, text = utterance(rng.uniform(9.3, 10.0), rng)
+            cols["audio"].append(wav)
+            cols["text"].append(text)
+            cols["input_len"].append(len(wav) / 16000)
+        return ColumnTable(cols)
+
+    dataset = {"train": split(32), "validation": split(16), "test": split(16)}
+    pg_launches = {}
+
+    def train(name, *flags, into=None):
+        out = os.path.join(work, name)
+        argv = ["--model_config", os.path.join(work, "model.json"), "--output_dir", out,
+                "--per_device_train_batch_size", "32", "--per_device_eval_batch_size", "16", "--max_steps", "3",
+                "--logging_steps", "1", "--eval_steps", "3", "--save_steps", "1000", "--warmup_steps", "2",
+                "--learning_rate", "5e-4", "--pad_to_multiple", "100", "--no-apply_spec_augment", *flags]
+        groups = [ModelArguments, GeneralTrainingArguments, GenerationArguments, DataConfig]
+        parsed = DataclassArgumentParser(groups).parse_args_into_dataclasses(argv)
+        t0 = time.perf_counter()
+        _, launches = count_launches(lambda: train_ctc.run(*parsed, dataset, tok), {} if into is None else into)
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        steps = [(r["loss"], r["grad_norm"], int(r["step_applied"])) for r in logged if "loss" in r]
+        print(f"  train_ctc {name}: {time.perf_counter() - t0:.1f} s; (loss, grad_norm, applied) "
+              f"{[(repr(a), repr(b), c) for a, b, c in steps]}; launches {launches}", flush=True)
+        n_l = model_cfg.num_hidden_layers
+        want = {"asr_rel_attention_train_fwd": 3 * n_l, "asr_rel_attention_train_bwd": 3 * n_l}
+        if len(steps) != 3 or any(not np.isfinite(a) or c != 1 for a, _, c in steps):
+            _fail(f"train_ctc {name}: not 3 applied steps with finite losses")
+        if any(launches.get(k, 0) != v for k, v in want.items()) or launches.get("asr_rel_attention_shift", 0) < n_l:
+            _fail(f"train_ctc {name}: launches {launches}, want {want} and K5 in the evaluation")
+        return out, steps
+
+    print("-- tools phase (b): train_ctc.run, flagship, 3 steps of 32 x 9.3-10 s, no SpecAugment "
+          "(dropout on), attention_impl 'pallas': twice without a process group, then under a one-rank "
+          "NCCL group with --fsdp off and on", flush=True)
+    _, alone = train("alone")
+    _, alone2 = train("alone_again")
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), RANK="0", WORLD_SIZE="1",
+                      LOCAL_RANK="0")
+    try:
+        final_dir, grouped = train("group", into=pg_launches)
+        if not dist.is_initialized() or dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            _fail("train_ctc under the process group: no one-rank NCCL group was joined")
+        _, sharded = train("group_fsdp", "--fsdp", into=pg_launches)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+            os.environ.pop(k, None)
+    # The step is deterministic but for F.ctc_loss's CUDA backward, which adds with atomics
+    # (PyTorch names ctc_loss_backward_gpu as having no deterministic implementation): its
+    # gradients move by ~1e-11 between runs, and at times a step's gradient norm by an fp32
+    # ulp, at times not at all. So two runs alone may agree bit for bit and a third differ by
+    # an ulp; each step's loss and gradient norm is held within the larger of the two runs'
+    # spread and 8 fp32 ulps of the value (a fault of the grouped step, a row, a shard or a
+    # gather, moves them by 1e-3 or more). Step 1's loss comes before any gradient and is
+    # bit-equal in every run.
+    spread = [[abs(a[i] - b[i]) for a, b in zip(alone, alone2)] for i in (0, 1)]
+    tol = [[max(d, 8 * float(np.spacing(np.float32(a[i])))) for d, a in zip(spread[i], alone)] for i in (0, 1)]
+    for name, run in (("group", grouped), ("group_fsdp", sharded)):
+        gaps = [[abs(a[i] - b[i]) for a, b in zip(alone, run)] for i in (0, 1)]
+        print(f"  {name} against alone, steps 1-3: loss gaps {[f'{g:.3e}' for g in gaps[0]]}, gradient norm "
+              f"gaps {[f'{g:.3e}' for g in gaps[1]]} (spread of two runs alone: {[f'{g:.3e}' for g in spread[0]]}, "
+              f"{[f'{g:.3e}' for g in spread[1]]}; tolerances {[f'{g:.3e}' for g in tol[0]]}, "
+              f"{[f'{g:.3e}' for g in tol[1]]}; {'bit-equal' if not any(gaps[0] + gaps[1]) else 'not bit-equal'})",
+              flush=True)
+        if gaps[0][0] != 0.0:
+            _fail(f"train_ctc {name}: step 1's loss differs from the run alone")
+        if any(g > t for i in (0, 1) for g, t in zip(gaps[i], tol[i])):
+            _fail(f"train_ctc {name}: losses or gradient norms outside the spread of two runs alone "
+                  "and 8 ulps")
+
+    # ---- (c) the profiler capture of steps 1-2 of the same trainer (CTCTrainer, flagship, 32 x 10 s)
+    trainer, batches = training_setup(seed=5, batch_size=32, n_batches=4)
+    profile_dir = os.path.join(work, "profile")
+    trainer.config = dc.replace(trainer.config, profile_steps=2, profile_start=1, profile_dir=profile_dir)
+    t0 = time.perf_counter()
+    trainer.fit(trainer.init_state(), iter(batches))
+    trace = os.path.join(profile_dir, "trace_rank0.json")
+    if not os.path.exists(trace):
+        _fail(f"profile_steps: no trace at {trace}")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    k4 = sorted(n for n in kernels if "train_fwd" in n or "train_bwd" in n)
+    gemms = sorted(n for n in kernels if "gemm" in n.lower() or n.startswith("nvjet"))
+    print(f"-- tools phase (c): profile_steps=2 from step 1: {time.perf_counter() - t0:.1f} s, trace "
+          f"{os.path.getsize(trace) / 1e6:.1f} MB, {len(kernels)} kernel names, K4's {[n[:60] for n in k4]}, "
+          f"{len(gemms)} GEMM names, e.g. {[n[:60] for n in gemms[:2]]}", flush=True)
+    if not any("train_fwd" in n for n in k4) or not any("train_bwd" in n for n in k4) or not gemms:
+        _fail("profile_steps: the trace does not name K4's forward and backward kernels and a GEMM")
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+    # ---- (d) the native collator: built by g++ under build/torch_native and in use
+    built = sorted(os.listdir(native_collate.BUILD_DIR)) if native_collate.BUILD_DIR.exists() else []
+    print(f"-- tools phase (d): native collator in use: {native_collate.using_native()}, built {built}",
+          flush=True)
+    if not native_collate.using_native() or not any(n.startswith("libcollate_") for n in built):
+        _fail("the native collator was not built by g++ or is not in use")
+
+    # ---- (e) build_hub_repo from (b)'s final/, loaded back strictly: the same logits
+    repo = build_hub_repo(os.path.join(final_dir, "final"), os.path.join(work, "hub_repo"), model_type="ctc",
+                          repo_name="user/flagship-ctc")
+    model = load_ctc_model(os.path.join(final_dir, "final"), device=dev)
+    twin = load_ctc_model(os.path.join(final_dir, "final"), device=dev)
+    twin.load_state_dict(torch.load(os.path.join(repo, "pytorch_model.bin"), weights_only=True), strict=True)
+    feats = torch.from_numpy(np.random.default_rng(3).standard_normal((4, 998, 80)).astype(np.float32)).to(dev)
+    lens = torch.tensor([998, 900, 700, 500], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        a, b = model(feats, lens).logits, twin(feats, lens).logits
+    with open(os.path.join(repo, "config.json")) as f:
+        hub_cfg = json.load(f)
+    print(f"-- tools phase (e): hub repo {sorted(os.listdir(repo))}, architectures {hub_cfg['architectures']}; "
+          f"logits of the loaded-back weights equal: {bool(torch.equal(a, b))}", flush=True)
+    if not torch.equal(a, b):
+        _fail("the hub repo's weights give other logits than final/'s")
+    del model, twin
+    torch.cuda.empty_cache()
+    print(f"tools phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return stats_launches, pg_launches
+
+
 def timed(fn, iters: int = 20, reps: int = 5) -> float:
     """Median over ``reps`` windows of the mean ms of ``iters`` calls (CUDA events)."""
     import torch
@@ -2929,19 +3173,20 @@ def main() -> None:
     t = attention_inputs(4, 250, torch.bfloat16, seed=5)
     t["lengths"] = torch.full((4,), 250, dtype=torch.int32, device=dev)
     zq, zr = torch.zeros_like(t["q_u"]), torch.zeros_like(t["q_rot"])
-    kept = torch.zeros(4, H, 250, 250, dtype=torch.bool, device=dev)
-    with torch.no_grad():
-        for c0 in range(0, 250, dh):
-            probe = torch.zeros_like(t["v"])
-            for d in range(min(dh, 250 - c0)):
-                probe[:, c0 + d, :, d] = 1.0
-            out = rel_attention_train(zq, zr, t["k"], probe, t["k_std"], t["lengths"], 4242, 0.1)
-            kept[:, :, :, c0:c0 + dh] = (out != 0).permute(0, 2, 1, 3)[..., : min(dh, 250 - c0)]
-    same_mask = bool(torch.equal(kept, keep_mask(4242, 4, H, 250, 0.1, dev)))
-    print(f"  K4 keep-mask read from the kernel equals the plain version's: {same_mask} "
-          f"(kept share {float(kept.float().mean()):.4f})", flush=True)
-    if not same_mask:
-        failures.append("K4 keep-mask")
+    for row0 in (0, 3):  # 3: a data-parallel rank's first row of the global batch
+        kept = torch.zeros(4, H, 250, 250, dtype=torch.bool, device=dev)
+        with torch.no_grad():
+            for c0 in range(0, 250, dh):
+                probe = torch.zeros_like(t["v"])
+                for d in range(min(dh, 250 - c0)):
+                    probe[:, c0 + d, :, d] = 1.0
+                out = rel_attention_train(zq, zr, t["k"], probe, t["k_std"], t["lengths"], 4242, 0.1, row0=row0)
+                kept[:, :, :, c0:c0 + dh] = (out != 0).permute(0, 2, 1, 3)[..., : min(dh, 250 - c0)]
+        same_mask = bool(torch.equal(kept, keep_mask(4242, 4, H, 250, 0.1, dev, row0=row0)))
+        print(f"  K4 keep-mask (rows numbered from {row0}) read from the kernel equals the plain version's: "
+              f"{same_mask} (kept share {float(kept.float().mean()):.4f})", flush=True)
+        if not same_mask:
+            failures.append(f"K4 keep-mask, row0 {row0}")
 
     # At the training path's own shape, B=32, T=250, bf16, rate 0.1: each
     # kernel against its plain version (same tolerance), then the times (the
@@ -3570,6 +3815,7 @@ def main() -> None:
     cli_launches = cli_phase(dev, smi)
     recipe_launches = recipe_phase(dev, smi)
     variant_launches = variants_phase(dev, smi, compare)
+    stats_launches, pg_launches = tools_phase(dev, smi)
 
     if failures:
         _fail(f"kernel phases outside tolerance: {failures}")
@@ -3637,6 +3883,8 @@ def main() -> None:
                 "aed_train_launches": aed_train_launches.get(counter, 0),
                 "ssl_launches": ssl_launches.get(counter, 0),
                 "recipe_launches": recipe_launches.get(counter, 0),
+                "stats_cli_launches": stats_launches.get(counter, 0),
+                "process_group_launches": pg_launches.get(counter, 0),
             })
     print(f"AED path launches a request (K2 and K1): {aed_launches}")
     print(json.dumps({"kernels": kernels}))

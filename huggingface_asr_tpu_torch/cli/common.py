@@ -19,15 +19,18 @@ import torch
 from huggingface_asr_tpu_torch.data.bucketing import BucketedBatchSampler
 from huggingface_asr_tpu_torch.data.collator import SpeechCollator
 from huggingface_asr_tpu_torch.models.gpt2_decoder import GPT2DecoderConfig, GPT2MultiHeadDecoder
-from huggingface_asr_tpu_torch.training.model_factory import load_config, load_state
+from huggingface_asr_tpu_torch.parallel.distributed import host_barrier
+from huggingface_asr_tpu_torch.parallel.mesh import Mesh
+from huggingface_asr_tpu_torch.training.model_factory import load_config, load_state, save_params
 from huggingface_asr_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
 
 def setup_logging(output_dir: Optional[str] = None, level=logging.INFO):
+    """Log to stderr, and on rank 0 (torchrun's ``RANK``) to ``output_dir/train.log``."""
     handlers = [logging.StreamHandler()]
-    if output_dir:
+    if output_dir and os.environ.get("RANK", "0") == "0":
         os.makedirs(output_dir, exist_ok=True)
         handlers.append(logging.FileHandler(os.path.join(output_dir, "train.log")))
     logging.basicConfig(
@@ -84,17 +87,23 @@ def epoch_iterator(
     collator: SpeechCollator,
     max_steps: Optional[int] = None,
     extra_fn: Optional[Callable[[dict], dict]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Infinite (or max_steps-bounded) epoch-cycling batch iterator. Each
     batch carries ``_num_audio_samples``, counted on the host, for ``fit``'s
-    throughput."""
+    throughput. Under a ``mesh`` of more than one ``data`` rank every rank
+    walks the same global batches and collates its own rows of each
+    (``SpeechCollator``'s ``rows``; a batch size that ``data`` does not
+    divide raises)."""
     step = 0
+    split = mesh is not None and mesh.data > 1
     for epoch in itertools.count():
         for idx in sampler.epoch_batches(epoch):
-            batch = collator([dataset[int(i)] for i in idx])
+            examples = [dataset[int(i)] for i in idx]
+            batch = collator(examples, rows=mesh.rows(len(idx))) if split else collator(examples)
             if extra_fn is not None:
                 batch = extra_fn(batch)
-            for key in ("input_values_lengths", "input_lengths", "label_lengths"):
+            for key in ("_all_lengths", "input_values_lengths", "input_lengths", "label_lengths"):
                 if key in batch:
                     batch["_num_audio_samples"] = np.asarray(
                         np.sum(batch[key]), np.int64
@@ -131,6 +140,16 @@ def eval_batches(
         batch = collator([dataset[i] for i in idx])
         batch["_num_real"] = np.asarray(num_real, np.int32)
         yield batch
+
+
+def save_final(trainer, output_dir: str) -> str:
+    """``output_dir/final`` (``config.json`` + ``pytorch_model.bin``) of the
+    trainer's model, written by rank 0; every rank waits until it exists."""
+    final_dir = os.path.join(output_dir, "final")
+    if trainer.mesh.is_primary:
+        save_params(trainer.model, final_dir)
+    host_barrier("final")
+    return final_dir
 
 
 def split_references(dataset, text_column: str) -> List[str]:

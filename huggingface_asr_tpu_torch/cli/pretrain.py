@@ -35,7 +35,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from huggingface_asr_tpu_torch.cli.common import epoch_iterator, eval_batches, setup_logging
+from huggingface_asr_tpu_torch.cli.common import epoch_iterator, eval_batches, save_final, setup_logging
 from huggingface_asr_tpu_torch.cli.train_ctc import build_trainer_config
 from huggingface_asr_tpu_torch.data.bucketing import BucketedBatchSampler, BucketingConfig
 from huggingface_asr_tpu_torch.data.collator import CollatorConfig, SpeechCollator
@@ -51,15 +51,14 @@ from huggingface_asr_tpu_torch.models.ebranchformer import (
 from huggingface_asr_tpu_torch.models.wav2vec2_ssl import Wav2Vec2ForPreTraining
 from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
 from huggingface_asr_tpu_torch.ops.masking import compute_mask_indices, sample_negative_indices
+from huggingface_asr_tpu_torch.parallel.distributed import initialize_distributed
 from huggingface_asr_tpu_torch.training.arguments import (
     GeneralTrainingArguments,
     ModelArguments,
     PretrainingArguments,
 )
 from huggingface_asr_tpu_torch.training.loop import BestRQTrainer, Wav2Vec2SSLTrainer
-from huggingface_asr_tpu_torch.training.model_factory import save_params
 from huggingface_asr_tpu_torch.utils.argparsing import DataclassArgumentParser
-from huggingface_asr_tpu_torch.utils.device import resolve_device
 from huggingface_asr_tpu_torch.utils.logging_utils import MetricsLogger
 
 logger = logging.getLogger(__name__)
@@ -70,12 +69,14 @@ def make_ssl_batch_fn(config: EBranchformerConfig, pretrain_args: PretrainingArg
     """Add ``mask_time_indices`` (B, T_enc) to collated batches: span masks
     over the encoder frames of each utterance's valid length, and for
     wav2vec2 ``sampled_negative_indices`` (B, T_enc, num_negatives), from one
-    ``np.random.default_rng(seed)`` stream, as the JAX function draws them."""
+    ``np.random.default_rng(seed)`` stream, as the JAX function draws them.
+    A data-parallel rank's batch (``_rows``) gets its rows of the global
+    batch's draws."""
     rng = np.random.default_rng(seed)
     is_w2v2 = pretrain_args.pretraining_objective == "wav2vec2"
 
     def fn(batch):
-        wav_lens = np.asarray(batch["input_values_lengths"])
+        wav_lens = np.asarray(batch.get("_all_lengths", batch["input_values_lengths"]))
         mel_lens = frontend_cfg.num_frames(wav_lens)
         enc_lens = np.asarray(feat_extract_output_lengths(config, mel_lens))
         S = batch["input_values"].shape[1]
@@ -88,9 +89,11 @@ def make_ssl_batch_fn(config: EBranchformerConfig, pretrain_args: PretrainingArg
             min_masks=pretrain_args.min_masks,
             rng=rng,
         )
-        batch["mask_time_indices"] = mask
+        negatives = sample_negative_indices(mask, config.num_negatives, rng=rng) if is_w2v2 else None
+        rows = slice(*batch["_rows"][:2]) if "_rows" in batch else slice(None)
+        batch["mask_time_indices"] = mask[rows]
         if is_w2v2:
-            batch["sampled_negative_indices"] = sample_negative_indices(mask, config.num_negatives, rng=rng)
+            batch["sampled_negative_indices"] = negatives[rows]
         return batch
 
     return fn
@@ -123,6 +126,8 @@ def main(argv=None):
     parser = DataclassArgumentParser([ModelArguments, GeneralTrainingArguments, PretrainingArguments, DataConfig])
     model_args, training, pretrain_args, data_cfg = parser.parse_args_into_dataclasses(argv)
     setup_logging(training.output_dir)
+    if "WORLD_SIZE" in os.environ:  # under torchrun: join before the dataset's rank-0-first calls
+        initialize_distributed(model_args.device)
     return run(model_args, training, pretrain_args, data_cfg, get_dataset(data_cfg))
 
 
@@ -135,7 +140,7 @@ def run(
 ) -> Dict[str, Any]:
     """Pretrain, then write the last checkpoint and ``final/``; returns
     ``{"trainer", "state"}``."""
-    device = resolve_device(model_args.device)
+    device = initialize_distributed(model_args.device)
     objective = pretrain_args.pretraining_objective
     model = build_model(model_args, training.seed, objective)
     config = model.config
@@ -184,13 +189,14 @@ def run(
         return {"loss": float(np.mean(losses))}
 
     train_iter = PrefetchIterator(
-        epoch_iterator(train_ds, sampler, collator, max_steps=training.max_steps, extra_fn=batch_fn),
+        epoch_iterator(train_ds, sampler, collator, max_steps=training.max_steps, extra_fn=batch_fn,
+                       mesh=trainer.mesh),
         depth=2,
         device_put=pinned_device_put(device),
     )
     state = trainer.fit(state, train_iter, eval_fn=eval_fn, hooks=[metrics_logger.log])
     trainer.save_checkpoint(state)
-    save_params(trainer.model, os.path.join(training.output_dir, "final"))
+    save_final(trainer, training.output_dir)
     return {"trainer": trainer, "state": state}
 
 

@@ -54,6 +54,7 @@ from huggingface_asr_tpu_torch.cli.common import (
     eval_batches,
     load_fusion_lm,
     load_tokenizer,
+    save_final,
     setup_logging,
     split_references,
     tokenizer_ids,
@@ -72,6 +73,7 @@ from huggingface_asr_tpu_torch.models.joint_ctc_aed import (
     init_joint_from_scratch_,
 )
 from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
+from huggingface_asr_tpu_torch.parallel.distributed import initialize_distributed
 from huggingface_asr_tpu_torch.training.arguments import (
     GeneralTrainingArguments,
     GenerationArguments,
@@ -83,10 +85,8 @@ from huggingface_asr_tpu_torch.training.model_factory import (
     apply_config_overrides,
     instantiate_aed_model,
     load_aed_model,
-    save_params,
 )
 from huggingface_asr_tpu_torch.utils.argparsing import DataclassArgumentParser
-from huggingface_asr_tpu_torch.utils.device import resolve_device
 from huggingface_asr_tpu_torch.utils.eval_utils import evaluate_splits
 from huggingface_asr_tpu_torch.utils.logging_utils import MetricsLogger
 
@@ -179,6 +179,8 @@ def main(argv=None):
     model_args, training, gen_args, data_cfg = parser.parse_args_into_dataclasses(argv)
     check_supported(model_args.model_family, training)
     setup_logging(training.output_dir)
+    if "WORLD_SIZE" in os.environ:  # under torchrun: join before the dataset's rank-0-first calls
+        initialize_distributed(model_args.device)
 
     dataset = get_dataset(data_cfg)
     if training.preprocess_dataset_only:
@@ -202,7 +204,7 @@ def run_whisper(model_args: ModelArguments, training: GeneralTrainingArguments, 
     from huggingface_asr_tpu_torch.training.loop import Seq2SeqTrainer
     from huggingface_asr_tpu_torch.utils.argparsing import parse_override_string
 
-    device = resolve_device(model_args.device)
+    device = initialize_distributed(model_args.device)
     model, config = build_whisper_model(model_args, tokenizer_ids(tokenizer), training.seed)
     frontend = LogMelFrontEnd(LogMelConfig(num_mel_bins=config.num_mel_bins))
     trainer = Seq2SeqTrainer(model, build_trainer_config(training), frontend=frontend, device=device,
@@ -232,11 +234,12 @@ def run_whisper(model_args: ModelArguments, training: GeneralTrainingArguments, 
             losses.append(float(trainer.eval_step(state, batch)["loss"]))
         return {"loss": float(np.mean(losses))}
 
-    train_iter = PrefetchIterator(epoch_iterator(train_ds, sampler, collator, max_steps=training.max_steps),
+    train_iter = PrefetchIterator(epoch_iterator(train_ds, sampler, collator, max_steps=training.max_steps,
+                                                 mesh=trainer.mesh),
                                   depth=2, device_put=pinned_device_put(device))
     state = trainer.fit(state, train_iter, eval_fn=eval_fn, hooks=[metrics_logger.log])
     trainer.save_checkpoint(state)
-    save_params(trainer.model, os.path.join(training.output_dir, "final"))
+    save_final(trainer, training.output_dir)
 
     gen_cfg = BeamSearchConfig(
         num_beams=gen_args.num_beams, max_length=gen_args.max_length, ctc_weight=0.0,
@@ -261,7 +264,7 @@ def run_whisper(model_args: ModelArguments, training: GeneralTrainingArguments, 
         decode_batch,
         {n: eval_batches(ds, collator, training.per_device_eval_batch_size) for n, ds in test_splits.items()},
         {n: split_references(ds, data_cfg.text_column_name) for n, ds in test_splits.items()},
-        output_dir=training.output_dir,
+        output_dir=training.output_dir if trainer.mesh.is_primary else None,
     )
 
 
@@ -280,7 +283,7 @@ def run(
     check_supported(model_args.model_family, training)
     if model_args.model_family == "whisper":
         return run_whisper(model_args, training, gen_args, data_cfg, dataset, tokenizer, forced_decoder_ids)
-    device = resolve_device(model_args.device)
+    device = initialize_distributed(model_args.device)
     ids = tokenizer_ids(tokenizer)
 
     config = build_model_config(model_args, ids)
@@ -322,14 +325,13 @@ def run(
         return {"loss": float(np.mean(losses))}
 
     train_iter = PrefetchIterator(
-        epoch_iterator(train_ds, sampler, collator, max_steps=training.max_steps),
+        epoch_iterator(train_ds, sampler, collator, max_steps=training.max_steps, mesh=trainer.mesh),
         depth=2,
         device_put=pinned_device_put(device),
     )
     state = trainer.fit(state, train_iter, eval_fn=eval_fn, hooks=[metrics_logger.log])
     trainer.save_checkpoint(state)
-    final_dir = os.path.join(training.output_dir, "final")
-    save_params(trainer.model, final_dir)
+    final_dir = save_final(trainer, training.output_dir)
 
     # ---- the final joint-decoding evaluation, from final/ in the serving layout
     dtype = parse_dtype(model_args.dtype)
@@ -356,10 +358,11 @@ def run(
         decode_batch,
         {n: eval_batches(ds, collator, eval_bs) for n, ds in test_splits.items()},
         {n: split_references(ds, data_cfg.text_column_name) for n, ds in test_splits.items()},
-        output_dir=training.output_dir,
+        output_dir=training.output_dir if trainer.mesh.is_primary else None,
         normalizer=normalizer,
     )
-    route.write_nbests(training.output_dir, lambda toks: tokenizer.decode(toks, skip_special_tokens=True))
+    if trainer.mesh.is_primary:
+        route.write_nbests(training.output_dir, lambda toks: tokenizer.decode(toks, skip_special_tokens=True))
     return results
 
 

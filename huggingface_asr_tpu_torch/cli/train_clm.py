@@ -41,7 +41,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from huggingface_asr_tpu_torch.cli.common import load_tokenizer, setup_logging, tokenizer_ids
+from huggingface_asr_tpu_torch.cli.common import load_tokenizer, save_final, setup_logging, tokenizer_ids
 from huggingface_asr_tpu_torch.cli.train_ctc import build_trainer_config
 from huggingface_asr_tpu_torch.data.datasets import DataConfig, get_dataset
 from huggingface_asr_tpu_torch.models.gpt2_decoder import (
@@ -49,11 +49,11 @@ from huggingface_asr_tpu_torch.models.gpt2_decoder import (
     GPT2MultiHeadDecoder,
     init_decoder_from_scratch_,
 )
+from huggingface_asr_tpu_torch.parallel.distributed import initialize_distributed
 from huggingface_asr_tpu_torch.training.arguments import GeneralTrainingArguments, ModelArguments
 from huggingface_asr_tpu_torch.training.loop import BaseTrainer
-from huggingface_asr_tpu_torch.training.model_factory import checkpoint_steps, save_params
+from huggingface_asr_tpu_torch.training.model_factory import checkpoint_steps
 from huggingface_asr_tpu_torch.utils.argparsing import DataclassArgumentParser
-from huggingface_asr_tpu_torch.utils.device import resolve_device
 from huggingface_asr_tpu_torch.utils.logging_utils import MetricsLogger
 
 logger = logging.getLogger(__name__)
@@ -81,7 +81,13 @@ class CLMTrainer(BaseTrainer):
 
     def loss_and_metrics(self, batch, aug_gen, dropout_rng, step):
         out = self.model(batch["input_ids"], labels=batch["labels"], label_mask=batch["label_mask"], rng=dropout_rng)
-        return out.loss, {"ppl": torch.exp(torch.clamp(out.loss.detach(), max=20.0))}
+        return out.loss, {}
+
+    def train_step(self, state, batch):
+        state, metrics = super().train_step(state, batch)
+        # from the loss summed over the ranks
+        metrics["ppl"] = torch.exp(torch.clamp(metrics["loss"], max=20.0))
+        return state, metrics
 
     def eval_outputs(self, batch):
         out = self.model(batch["input_ids"], labels=batch["labels"], label_mask=batch["label_mask"])
@@ -176,6 +182,8 @@ def main(argv=None):
     parser = DataclassArgumentParser([ModelArguments, GeneralTrainingArguments, CLMArguments, DataConfig])
     model_args, training, clm_args, data_cfg = parser.parse_args_into_dataclasses(argv)
     setup_logging(training.output_dir)
+    if "WORLD_SIZE" in os.environ:  # under torchrun: join before the dataset's rank-0-first calls
+        initialize_distributed(model_args.device)
     if _skip(clm_args, training):
         return None
 
@@ -210,7 +218,7 @@ def run(model_args: ModelArguments, training: GeneralTrainingArguments, clm_args
     ``{}`` without validation text, or None where ``skip_if_exists`` skipped."""
     if _skip(clm_args, training):
         return None
-    device = resolve_device(model_args.device)
+    device = initialize_distributed(model_args.device)
     ids = tokenizer_ids(tokenizer)
     if clm_args.from_hf_gpt2:
         config, init_state = load_hf_gpt2(clm_args.from_hf_gpt2, ids)
@@ -264,13 +272,14 @@ def run(model_args: ModelArguments, training: GeneralTrainingArguments, clm_args
     metrics_logger = MetricsLogger(training.output_dir)
     state = trainer.fit(state, batches, eval_fn=eval_fn if eval_texts else None, hooks=[metrics_logger.log])
     trainer.save_checkpoint(state)
-    save_params(trainer.model, os.path.join(training.output_dir, "final"))
+    save_final(trainer, training.output_dir)
     if not eval_texts:
         return {}
     final_eval = eval_fn(state)
     logger.info("final eval: %s", final_eval)
-    with open(os.path.join(training.output_dir, "clm_eval.json"), "w") as f:
-        json.dump(final_eval, f)
+    if trainer.mesh.is_primary:
+        with open(os.path.join(training.output_dir, "clm_eval.json"), "w") as f:
+            json.dump(final_eval, f)
     return final_eval
 
 

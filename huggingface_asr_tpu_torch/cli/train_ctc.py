@@ -45,6 +45,7 @@ from huggingface_asr_tpu_torch.cli.common import (
     epoch_iterator,
     eval_batches,
     load_tokenizer,
+    save_final,
     setup_logging,
     split_references,
     tokenizer_ids,
@@ -58,6 +59,8 @@ from huggingface_asr_tpu_torch.models.ebranchformer import init_from_scratch_
 from huggingface_asr_tpu_torch.ops.ctc import tokens_to_lists
 from huggingface_asr_tpu_torch.ops.features import LogMelConfig, LogMelFrontEnd
 from huggingface_asr_tpu_torch.ops.spec_augment import SpecAugmentConfig
+from huggingface_asr_tpu_torch.parallel.distributed import initialize_distributed
+from huggingface_asr_tpu_torch.parallel.mesh import MeshConfig
 from huggingface_asr_tpu_torch.training.arguments import (
     GeneralTrainingArguments,
     GenerationArguments,
@@ -70,11 +73,9 @@ from huggingface_asr_tpu_torch.training.model_factory import (
     graft_pretrained_encoder,
     instantiate_ctc_model,
     load_config,
-    save_params,
 )
 from huggingface_asr_tpu_torch.training.optim import OptimizerConfig
 from huggingface_asr_tpu_torch.utils.argparsing import DataclassArgumentParser
-from huggingface_asr_tpu_torch.utils.device import resolve_device
 from huggingface_asr_tpu_torch.utils.eval_utils import evaluate_splits, get_metrics
 from huggingface_asr_tpu_torch.utils.logging_utils import MetricsLogger
 
@@ -95,6 +96,7 @@ def build_trainer_config(training: GeneralTrainingArguments) -> TrainerConfig:
             max_grad_norm=training.max_grad_norm,
             gradient_accumulation_steps=training.gradient_accumulation_steps,
         ),
+        mesh=MeshConfig(fsdp=training.fsdp),
         spec_augment=SpecAugmentConfig() if training.apply_spec_augment else None,
         log_every=training.logging_steps,
         eval_every=training.eval_steps,
@@ -188,6 +190,8 @@ def main(argv=None):
     model_args, training, gen_args, data_cfg = parser.parse_args_into_dataclasses(argv)
     check_supported(model_args.model_family, training)
     setup_logging(training.output_dir)
+    if "WORLD_SIZE" in os.environ:  # under torchrun: join before the dataset's rank-0-first calls
+        initialize_distributed(model_args.device)
 
     dataset = get_dataset(data_cfg)
     if training.preprocess_dataset_only:
@@ -207,7 +211,7 @@ def run(
     """Train, write ``final/`` and evaluate the test splits; returns
     ``evaluate_splits``' results (split -> ``SplitResult``)."""
     check_supported(model_args.model_family, training)
-    device = resolve_device(model_args.device)
+    device = initialize_distributed(model_args.device)
     ids = tokenizer_ids(tokenizer)
 
     trainer_cls = CTCTrainer
@@ -294,13 +298,13 @@ def run(
         logger.info("start_by_eval: %s", eval_fn(state))
 
     train_iter = PrefetchIterator(
-        epoch_iterator(train_ds, sampler, train_collator, max_steps=training.max_steps),
+        epoch_iterator(train_ds, sampler, train_collator, max_steps=training.max_steps, mesh=trainer.mesh),
         depth=2,
         device_put=pinned_device_put(device),
     )
     state = trainer.fit(state, train_iter, eval_fn=eval_fn, hooks=[metrics_logger.log])
     trainer.save_checkpoint(state)
-    save_params(trainer.model, os.path.join(training.output_dir, "final"))
+    save_final(trainer, training.output_dir)
 
     # Final evaluation on all test splits.
     test_splits = {
@@ -314,7 +318,7 @@ def run(
             for name, ds in test_splits.items()
         },
         {name: split_references(ds, data_cfg.text_column_name) for name, ds in test_splits.items()},
-        output_dir=training.output_dir,
+        output_dir=training.output_dir if trainer.mesh.is_primary else None,
     )
 
 

@@ -137,6 +137,7 @@ struct DropoutArgs {
     uint32_t seed, thresh;
     float inv_keep;  // fp32(1 / (1 - rate))
     int enabled;
+    int row0;  // the batch row that row 0 is (a data-parallel rank's first row of the global batch)
 };
 
 // The bf16 training forward (rel_attention_train_fwd.cu): builds its tensor

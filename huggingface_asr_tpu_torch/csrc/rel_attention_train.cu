@@ -152,7 +152,7 @@ train_fwd_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot, const E
     }
 
     // pass B: P = exp(S - m) / l, rounded, dropped; out += Pd v
-    const uint32_t key = dropout_key(drop.seed, b, h, H);
+    const uint32_t key = dropout_key(drop.seed, drop.row0 + b, h, H);
     const float inv_keep_e = round_to<E>(drop.inv_keep);
     for (int s0 = 0; s0 < n_keys; s0 += BT) {
         __syncthreads();
@@ -252,7 +252,7 @@ train_bwd_dq_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot,
         l[i] = stats[(size_t)B * H * T + at];
         delta[i] = 0.0f;
     }
-    const uint32_t key = dropout_key(drop.seed, b, h, H);
+    const uint32_t key = dropout_key(drop.seed, drop.row0 + b, h, H);
 
     for (int pass = 0; pass < 2; ++pass) {
         for (int s0 = 0; s0 < n_keys; s0 += BT) {
@@ -391,7 +391,7 @@ train_bwd_dkv_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot,
         AccV[(i / DH) * L.lda + i % DH] = 0.0f;
         AccK[(i / DH) * L.lda + i % DH] = 0.0f;
     }
-    const uint32_t key = dropout_key(drop.seed, b, h, H);
+    const uint32_t key = dropout_key(drop.seed, drop.row0 + b, h, H);
     const float inv_keep_e = round_to<E>(drop.inv_keep);
 
     for (int t0 = 0; t0 < T; t0 += BT) {
@@ -499,14 +499,14 @@ int bwd(const void* q_u, const void* q_rot, const void* k, const void* v, const 
 // q_u, k, v, out: (B, T, H, dh) contiguous; q_rot: (B, T, H, D); k_std: (T, D);
 // lengths: (B,) int32; stats: (2, B, H, T) fp32 (row max, row sum). dh = 32 or
 // 64 (the wrapper pads other head sizes with zero columns); is_bf16 selects the
-// element type (bf16 or float).
+// element type (bf16 or float); row0: the number the dropout hash gives batch row 0.
 ASR_API int asr_rel_attention_train_fwd(const void* q_u, const void* q_rot, const void* k,
                                         const void* v, const void* k_std, const void* lengths,
                                         void* out, void* stats, int B, int T, int H, int dh, int D,
                                         int is_bf16, float scale, unsigned seed, unsigned thresh,
-                                        float inv_keep, int dropout, void* stream) {
+                                        float inv_keep, int dropout, int row0, void* stream) {
     if (D % 16 != 0 || T < 1) return (int)cudaErrorInvalidValue;
-    const DropoutArgs drop{seed, thresh, inv_keep, dropout};
+    const DropoutArgs drop{seed, thresh, inv_keep, dropout, row0};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     return with_head_width(dh, [&](auto head) {
         constexpr int DH = decltype(head)::value;
@@ -523,9 +523,9 @@ ASR_API int asr_rel_attention_train_bwd(const void* q_u, const void* q_rot, cons
                                         void* dq_u, void* dq_rot, void* dk, void* dv, int B, int T,
                                         int H, int dh, int D, int is_bf16, float scale,
                                         unsigned seed, unsigned thresh, float inv_keep, int dropout,
-                                        void* stream) {
+                                        int row0, void* stream) {
     if (D % 16 != 0 || T < 1) return (int)cudaErrorInvalidValue;
-    const DropoutArgs drop{seed, thresh, inv_keep, dropout};
+    const DropoutArgs drop{seed, thresh, inv_keep, dropout, row0};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     return with_head_width(dh, [&](auto head) {
         constexpr int DH = decltype(head)::value;

@@ -265,7 +265,7 @@ train_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const int* __restric
     const float m_a = stats[at + min(ta, T - 1)], m_b = stats[at + min(tb, T - 1)];
     const float il_a = 1.0f / stats[n_stats + at + min(ta, T - 1)];
     const float il_b = 1.0f / stats[n_stats + at + min(tb, T - 1)];
-    const uint32_t key = dropout_key(drop.seed, b, h, H);
+    const uint32_t key = dropout_key(drop.seed, drop.row0 + b, h, H);
 
     float s[32], dp[32], acc_u[DH / 2], acc_r[MAXC > 0 ? MAXC : 1][32];
 #pragma unroll
@@ -471,7 +471,7 @@ train_bwd_dkv_bf16_kernel(const __grid_constant__ Maps maps, const int* __restri
     float* cols = reinterpret_cast<float*>(smem_raw + (sm.cols - smem_u32(smem_raw))) + wg * (2 * 3 * BKEY);
 
     const size_t at = ((size_t)b * H + h) * T, n_stats = (size_t)B * H * T;
-    const uint32_t key = dropout_key(drop.seed, b, h, H);
+    const uint32_t key = dropout_key(drop.seed, drop.row0 + b, h, H);
     const float inv_keep_e = round_bf(drop.inv_keep);
 
     float st[32], dpt[32], acc_k[DH / 2], acc_v[DH / 2];
@@ -660,10 +660,10 @@ ASR_API int asr_rel_attention_train_bwd_wide(const void* q_u, const void* q_rot,
                                              const void* stats, void* delta, void* dq_u, void* ds, void* dk,
                                              void* dv, int B, int T, int H, int dh, int D, int ld_ds, float scale,
                                              unsigned seed, unsigned thresh, float inv_keep, int dropout,
-                                             void* stream) {
+                                             int row0, void* stream) {
     using namespace attn;
     if (T < 1 || ld_ds < T || ld_ds % 8 != 0) return (int)cudaErrorInvalidValue;
-    const DropoutArgs drop{seed, thresh, inv_keep, dropout};
+    const DropoutArgs drop{seed, thresh, inv_keep, dropout, row0};
     return with_head_width(dh, [&](auto head) {
         constexpr int DH = decltype(head)::value;
         if (!fa::supported<DH>(B, H, D) || wide_slots<DH>(D / CW) < wide::MIN_SLOTS ||

@@ -96,7 +96,7 @@ train_fwd_bf16_kernel(const __grid_constant__ Maps maps, const int* __restrict__
 #pragma unroll
     for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
     float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
-    const uint32_t key = dropout_key(drop.seed, b, h, H);
+    const uint32_t key = dropout_key(drop.seed, drop.row0 + b, h, H);
     const float inv_keep_e = round_bf(drop.inv_keep);
 
     wide::Cursor cur;  // WIDE: this consumer's place in the k_std chunk ring

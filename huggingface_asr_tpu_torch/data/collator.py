@@ -4,7 +4,16 @@
 The collator pads raw waveforms (or precomputed mel features) to a quantized
 length and tokenizes labels; the log-mel front end and SpecAugment run inside
 the training step on the device. Label padding comes with explicit
-``label_lengths`` (the CTC loss takes lengths, not -100 sentinels).
+``label_lengths`` (the CTC loss takes lengths, not -100 sentinels). Rows are
+padded by the native assembler (``data/native_collate.py``), as in the JAX
+collator.
+
+A data-parallel rank collates only its contiguous rows of a global batch
+(``rows=(start, stop)``): every example's waveform and labels are read (a
+speed-perturbing transform draws for each of them in order), the rows are
+padded to the global batch's quantized length and label width, and the
+batch carries ``_rows`` (start, stop, total) and ``_all_lengths`` (every
+row's waveform length) for the trainer and the SSL mask draws.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from huggingface_asr_tpu_torch.data.bucketing import BucketingConfig, quantize_length
+from huggingface_asr_tpu_torch.data.native_collate import collate_f32, collate_i32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,17 +38,6 @@ class CollatorConfig:
     # Drop tokens equal to the UNK token from the labels.
     mask_unks: bool = False
     unk_token_id: Optional[int] = None
-
-
-def pad_rows(rows: Sequence, max_len: int, dtype, fill=0) -> Tuple[np.ndarray, np.ndarray]:
-    """Pad (and cut) ragged rows into a (B, max_len) array + int32 lengths."""
-    out = np.full((len(rows), max_len), fill, dtype)
-    lengths = np.empty((len(rows),), np.int32)
-    for i, r in enumerate(rows):
-        n = min(len(r), max_len)
-        out[i, :n] = np.asarray(r, dtype)[:n]
-        lengths[i] = n
-    return out, lengths
 
 
 class SpeechCollator:
@@ -75,7 +74,7 @@ class SpeechCollator:
             ids = ids[: self.config.max_label_length]
         return list(ids)
 
-    def _labels(self, examples) -> Dict[str, np.ndarray]:
+    def _labels(self, examples, rows: slice) -> Dict[str, np.ndarray]:
         cfg = self.config
         if all("labels" in e for e in examples):
             label_lists = [list(e["labels"]) for e in examples]
@@ -87,18 +86,26 @@ class SpeechCollator:
             label_lists = [[t for t in ids if t != cfg.unk_token_id] for ids in label_lists]
         m = cfg.label_pad_to_multiple
         L = max(max((len(l) for l in label_lists), default=1), 1)
-        labels, label_lengths = pad_rows(label_lists, ((L + m - 1) // m) * m, np.int32)
+        labels, label_lengths = collate_i32(label_lists[rows], ((L + m - 1) // m) * m, fill=0)
         return {"labels": labels, "label_lengths": label_lengths}
 
-    def __call__(self, examples: Sequence[Dict[str, Any]]) -> Dict[str, np.ndarray]:
+    def __call__(self, examples: Sequence[Dict[str, Any]],
+                 rows: Optional[Tuple[int, int]] = None) -> Dict[str, np.ndarray]:
+        """The batch of ``examples``, or of its rows ``[start, stop)``
+        padded as the whole batch would be."""
         # step-delayed transform chains count assembled batches
         if hasattr(self.audio_transform, "advance_batch"):
             self.audio_transform.advance_batch()
         cfg = self.config
         audios = [self._audio_array(e[cfg.audio_key]) for e in examples]
         padded_len = quantize_length(max(len(a) for a in audios), cfg.bucketing)
-        waveforms, lengths = pad_rows(audios, padded_len, np.float32)
-        return {"input_values": waveforms, "input_values_lengths": lengths, **self._labels(examples)}
+        part = slice(None) if rows is None else slice(*rows)
+        waveforms, lengths = collate_f32(audios[part], padded_len)
+        batch = {"input_values": waveforms, "input_values_lengths": lengths, **self._labels(examples, part)}
+        if rows is not None:
+            batch["_rows"] = np.asarray([rows[0], rows[1], len(examples)], np.int64)
+            batch["_all_lengths"] = np.asarray([min(len(a), padded_len) for a in audios], np.int32)
+        return batch
 
 
 class FeatureCollator(SpeechCollator):
@@ -111,4 +118,4 @@ class FeatureCollator(SpeechCollator):
         out = np.zeros((len(feats), padded_len, feats[0].shape[1]), dtype=np.float32)
         for i, f in enumerate(feats):
             out[i, : f.shape[0]] = f
-        return {"input_features": out, "input_lengths": lengths, **self._labels(examples)}
+        return {"input_features": out, "input_lengths": lengths, **self._labels(examples, slice(None))}

@@ -24,8 +24,10 @@ import logging
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from huggingface_asr_tpu_torch.data.text_transforms import TEXT_FILTERS, TEXT_TRANSFORMS
+from huggingface_asr_tpu_torch.parallel.distributed import host_barrier, is_primary
 
 logger = logging.getLogger(__name__)
 
@@ -64,8 +66,16 @@ class DataConfig:
 
 
 def _run_on_primary(dataset, method: str, tag: str, **kwargs):
-    """The JAX package's process-0 Arrow call; one process here, so a direct call."""
-    return getattr(dataset, method)(**kwargs)
+    """Rank 0 runs the Arrow call; the other ranks wait for it, then make
+    the same call, which ``datasets`` serves from the cache it wrote."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return getattr(dataset, method)(**kwargs)
+    if is_primary():
+        result = getattr(dataset, method)(**kwargs)
+        host_barrier(f"{tag}:done")
+        return result
+    host_barrier(f"{tag}:done")
+    return getattr(dataset, method)(**kwargs)  # served from the cache
 
 
 def _extract_lens(audios, length_column, sampling_rate):
@@ -372,7 +382,9 @@ def get_dataset(config: DataConfig):
     dataset = resolve_validation(dataset, config)
 
     if config.dump_prepared_dataset_to:
-        dataset.save_to_disk(config.dump_prepared_dataset_to)
+        if is_primary():
+            dataset.save_to_disk(config.dump_prepared_dataset_to)
+        host_barrier("dump")
     return dataset
 
 

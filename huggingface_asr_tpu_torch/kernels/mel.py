@@ -127,13 +127,16 @@ def cmvn(lm: torch.Tensor, lengths: torch.Tensor, norm_means: bool = True,
 
 
 class MelFrontEnd:
-    """Counterpart of ``PallasLogMelFrontEnd(fused_cmvn_bf16=True)``: log-mel
-    in the first kernel, utterance CMVN and length masking in the second,
-    bf16 features out. The bases live on ``device``, folded once here.
+    """Counterpart of ``PallasLogMelFrontEnd``: with ``norm_type="utterance"``
+    (``fused_cmvn_bf16=True``) log-mel in the first kernel, utterance CMVN and
+    length masking in the second, bf16 features out; with ``"none"``
+    (``fused_cmvn_bf16=False``) the log-mel kernel alone, fp32 out, padding
+    frames zeroed. Global CMVN stays on ``ops.features.LogMelFrontEnd``, as
+    in JAX. The bases live on ``device``, folded once here.
     """
 
     def __init__(self, config: LogMelConfig = LogMelConfig(), device=None):
-        if config.norm_type != "utterance":
+        if config.norm_type not in ("utterance", "none"):
             raise NotImplementedError(
                 f"norm_type={config.norm_type!r}: use ops.features.LogMelFrontEnd")
         self.config = config
@@ -143,8 +146,9 @@ class MelFrontEnd:
 
     def __call__(self, waveforms: torch.Tensor, lengths: Optional[torch.Tensor] = None, *,
                  plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        """waveforms (B, S) -> (features (B, T, n_mel) bf16, frame lengths (B,)
-        int32). ``plain=True`` runs the plain versions on any device."""
+        """waveforms (B, S) -> (features (B, T, n_mel) bf16, or fp32 without
+        CMVN, frame lengths (B,) int32). ``plain=True`` runs the plain
+        versions on any device."""
         cfg = self.config
         if waveforms.ndim == 1:
             waveforms = waveforms[None]
@@ -158,4 +162,7 @@ class MelFrontEnd:
         wav = waveforms.to(F32).contiguous()
         mel_fn, cmvn_fn = (log_mel_plain, cmvn_plain) if plain else (log_mel, cmvn)
         lm = mel_fn(wav, n_frames, self.dft, self.mel, cfg.hop_length, cfg.mel_floor)
+        if cfg.norm_type == "none":
+            mask = torch.arange(n_frames, device=dev)[None, :] < feat_lengths[:, None]
+            return torch.where(mask[..., None], lm, 0.0), feat_lengths
         return cmvn_fn(lm, feat_lengths, cfg.normalize_means, cfg.normalize_vars), feat_lengths

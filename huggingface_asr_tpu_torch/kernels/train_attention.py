@@ -70,9 +70,11 @@ def dropout_threshold(rate: float) -> int:
     return int(rate * float(2 ** 32))
 
 
-def keep_mask(seed: int, B: int, H: int, T: int, rate: float, device=None) -> torch.Tensor:
-    """(B, H, T, T) bool keep-mask: wrapping-uint32 arithmetic on int64 tensors."""
-    bh = torch.arange(B * H, dtype=torch.int64, device=device)
+def keep_mask(seed: int, B: int, H: int, T: int, rate: float, device=None, row0: int = 0) -> torch.Tensor:
+    """(B, H, T, T) bool keep-mask: wrapping-uint32 arithmetic on int64
+    tensors. The hash numbers the batch rows from ``row0``: a data-parallel
+    rank's rows get their rows' masks of the global batch."""
+    bh = torch.arange(row0 * H, (row0 + B) * H, dtype=torch.int64, device=device)
     mixed = (int(seed) & _M32) ^ _mul32(bh, _GOLDEN)
     mixed = _hash_round(_hash_round(mixed))
     key = _mul32(mixed, _GOLDEN)
@@ -105,12 +107,12 @@ def _dropped(p32, dtype, keep, rate):
 
 class _PlainFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q_u, q_rot, k, v, k_std, lengths, seed, rate):
+    def forward(ctx, q_u, q_rot, k, v, k_std, lengths, seed, rate, row0):
         B, T, H, _ = q_u.shape
-        keep = keep_mask(seed, B, H, T, rate, q_u.device) if rate > 0.0 else None
+        keep = keep_mask(seed, B, H, T, rate, q_u.device, row0) if rate > 0.0 else None
         pd = _dropped(_probs(q_u, q_rot, k, k_std, lengths), q_u.dtype, keep, rate)
         ctx.save_for_backward(q_u, q_rot, k, v, k_std, lengths)
-        ctx.seed, ctx.rate = seed, rate
+        ctx.seed, ctx.rate, ctx.row0 = seed, rate, row0
         return torch.einsum("bhts,bshd->bthd", pd.float(), v.float()).to(q_u.dtype)
 
     @staticmethod
@@ -118,7 +120,7 @@ class _PlainFunction(torch.autograd.Function):
         q_u, q_rot, k, v, k_std, lengths = ctx.saved_tensors
         rate, dtype = ctx.rate, q_u.dtype
         B, T, H, dh = q_u.shape
-        keep = keep_mask(ctx.seed, B, H, T, rate, q_u.device) if rate > 0.0 else None
+        keep = keep_mask(ctx.seed, B, H, T, rate, q_u.device, ctx.row0) if rate > 0.0 else None
         p32 = _probs(q_u, q_rot, k, k_std, lengths)
         pd = _dropped(p32, dtype, keep, rate)
         do = d_out.float()
@@ -132,13 +134,13 @@ class _PlainFunction(torch.autograd.Function):
         dk = torch.einsum("bhts,bthd->bshd", ds, q_u.float())
         dq_rot = torch.einsum("bhts,sD->bthD", ds, k_std.float())
         return (dq_u.to(dtype), dq_rot.to(q_rot.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
-def rel_attention_train_plain(q_u, q_rot, k, v, k_std, lengths, seed, dropout_rate=0.0):
+def rel_attention_train_plain(q_u, q_rot, k, v, k_std, lengths, seed, dropout_rate=0.0, row0=0):
     """Plain PyTorch version of ``rel_attention_train``, on any device,
     differentiable in q_u, q_rot, k and v."""
-    return _PlainFunction.apply(q_u, q_rot, k, v, k_std, lengths, int(seed), float(dropout_rate))
+    return _PlainFunction.apply(q_u, q_rot, k, v, k_std, lengths, int(seed), float(dropout_rate), int(row0))
 
 
 ACC_COLUMNS = 288  # the bf16 dq kernel's [dq_u | dq_rot] accumulator, in registers
@@ -194,7 +196,7 @@ def _pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
 
 class _KernelFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q_u, q_rot, k, v, k_std, lengths, seed, rate):
+    def forward(ctx, q_u, q_rot, k, v, k_std, lengths, seed, rate, row0):
         q_u, q_rot, k, v, k_std = (t.contiguous() for t in (q_u, q_rot, k, v, k_std))
         B, T, H, dh, D, hw, d_rot = _check_inputs(q_u, q_rot, k, v, k_std, lengths)
         q_u, k, v = (_pad_last(t, hw) for t in (q_u, k, v))
@@ -204,8 +206,8 @@ class _KernelFunction(torch.autograd.Function):
         ctx.widths = (dh, D)
         ctx.tail = (B, T, H, hw, d_rot, int(q_u.dtype == torch.bfloat16),
                     float(np.float32(1.0 / np.sqrt(dh))), seed & _M32, dropout_threshold(rate),
-                    float(np.float32(1.0 / (1.0 - rate))) if rate > 0.0 else 1.0, int(rate > 0.0))
-        _build.launch("asr_rel_attention_train_fwd", "ppppppppiiiiiifuufi",
+                    float(np.float32(1.0 / (1.0 - rate))) if rate > 0.0 else 1.0, int(rate > 0.0), row0)
+        _build.launch("asr_rel_attention_train_fwd", "ppppppppiiiiiifuufii",
                       q_u.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
                       k_std.data_ptr(), lengths.data_ptr(), out.data_ptr(), stats.data_ptr(),
                       *ctx.tail)
@@ -231,7 +233,7 @@ class _KernelFunction(torch.autograd.Function):
             # dq_rot (B*T*H, D) = dS (B*T*H, ld) @ k_std (ld, D), k_std's rows past T zero
             ld = -(-T // 8) * 8
             ds = torch.zeros(B, T, H, ld, dtype=q_u.dtype, device=q_u.device)
-            _build.launch("asr_rel_attention_train_bwd_wide", "pppppppppppppiiiiiifuufi",
+            _build.launch("asr_rel_attention_train_bwd_wide", "pppppppppppppiiiiiifuufii",
                           q_u.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
                           k_std.data_ptr(), lengths.data_ptr(), d_out.data_ptr(), stats.data_ptr(),
                           delta.data_ptr(), dq_u.data_ptr(), ds.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -239,28 +241,30 @@ class _KernelFunction(torch.autograd.Function):
             gemm(ds.view(B * T * H, ld), torch.nn.functional.pad(k_std, (0, 0, 0, ld - T)),
                  out=dq_rot.view(B * T * H, d_rot))
         else:
-            _build.launch("asr_rel_attention_train_bwd", "pppppppppppppiiiiiifuufi",
+            _build.launch("asr_rel_attention_train_bwd", "pppppppppppppiiiiiifuufii",
                           q_u.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
                           k_std.data_ptr(), lengths.data_ptr(), d_out.data_ptr(), stats.data_ptr(),
                           delta.data_ptr(), dq_u.data_ptr(), dq_rot.data_ptr(), dk.data_ptr(),
                           dv.data_ptr(), *ctx.tail)
         return (dq_u[..., :dh], dq_rot[..., :D], dk[..., :dh], dv[..., :dh],
-                None, None, None, None)
+                None, None, None, None, None)
 
 
-def rel_attention_train(q_u, q_rot, k, v, k_std, lengths, seed, dropout_rate=0.0):
+def rel_attention_train(q_u, q_rot, k, v, k_std, lengths, seed, dropout_rate=0.0, row0=0):
     """Attention core with in-kernel dropout.
 
     q_u, k, v: (B, T, H, dh); q_rot: (B, T, H, D) rotary-transformed
     positional query; k_std: (T, D) ascending sinusoid table (no gradient);
-    lengths: (B,) int32 valid key counts; seed: int (int32 range); returns
+    lengths: (B,) int32 valid key counts; seed: int (int32 range); row0: the
+    number the dropout hash gives batch row 0 (a data-parallel rank's first
+    row of the global batch, so its masks are that batch's); returns
     (B, T, H, dh) in q_u's dtype. CUDA tensors run the kernels (dh <= 64,
     D <= 512 in bf16 and 256 in fp32, each padded with zeros to what the
     kernels are compiled for: ``padded_widths``), CPU tensors the plain
     version."""
-    seed, rate = int(seed), float(dropout_rate)
+    seed, rate, row0 = int(seed), float(dropout_rate), int(row0)
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
     if not _build.on_cuda(q_u, q_rot, k, v, k_std, lengths):
-        return _PlainFunction.apply(q_u, q_rot, k, v, k_std, lengths, seed, rate)
-    return _KernelFunction.apply(q_u, q_rot, k, v, k_std, lengths, seed, rate)
+        return _PlainFunction.apply(q_u, q_rot, k, v, k_std, lengths, seed, rate, row0)
+    return _KernelFunction.apply(q_u, q_rot, k, v, k_std, lengths, seed, rate, row0)

@@ -34,6 +34,7 @@ from torch import nn
 
 from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
 from huggingface_asr_tpu_torch.models.ebranchformer import DropoutRng, EBranchformerModel, _lin
+from huggingface_asr_tpu_torch.parallel.mesh import row_draw
 
 _F32 = np.float32
 
@@ -200,7 +201,7 @@ class BestRQForPreTraining(nn.Module):
         targets = self.rpq(stacked.reshape(B, T_enc, stack * n_mel))  # (B, K, T)
 
         if mask_noise is None:
-            mask_noise = 0.1 * torch.randn(B, T_enc, cfg.hidden_size, generator=generator,
+            mask_noise = 0.1 * row_draw(torch.randn, (B, T_enc, cfg.hidden_size), generator=generator,
                                            device=input_features.device, dtype=torch.float32)
         mask = mask_time_indices.to(torch.bool)
         hidden, lengths, _, _ = self.wav2vec2(input_features.to(dtype), input_lengths, rng,

@@ -57,6 +57,7 @@ from huggingface_asr_tpu_torch.kernels.train_attention import rel_attention_trai
 from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
 from huggingface_asr_tpu_torch.ops.ctc import ctc_loss
 from huggingface_asr_tpu_torch.ops.lengths import conv_output_length, lengths_to_mask
+from huggingface_asr_tpu_torch.parallel.mesh import first_row, row_draw
 
 ACT = {
     "gelu": lambda x: F.gelu(x),
@@ -98,7 +99,7 @@ class DropoutRng:
     def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         if rate <= 0.0:
             return x
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        u = row_draw(torch.rand, x.shape, generator=self.generator, device=x.device)
         return dropout_apply(x, u >= rate, rate)
 
     def seed(self) -> int:
@@ -355,7 +356,7 @@ class EBranchformerSelfAttention(nn.Module):
             if use_train_kernel and rng is not None and kernels_ok:
                 # the kernel's own dropout takes the place of the probability dropout
                 out = rel_attention_train(q_u, q_rot, k, v, k_std, lengths, rng.seed(),
-                                          self.attention_dropout).reshape(B, T, D)
+                                          self.attention_dropout, row0=first_row()).reshape(B, T, D)
                 return _lin(self.linear_out, out)
             scores = (torch.einsum("bthd,bshd->bhts", q_u, k)
                       + torch.einsum("bthD,sD->bhts", q_rot, k_std)) / math.sqrt(dh)

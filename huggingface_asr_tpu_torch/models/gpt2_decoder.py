@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from huggingface_asr_tpu_torch.models.ebranchformer import DropoutRng, _lecun_normal, _ln
+from huggingface_asr_tpu_torch.parallel.mesh import global_sum
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -129,13 +130,14 @@ def smoothed_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: to
                            label_smoothing: float = 0.0) -> torch.Tensor:
     """The mean cross entropy over the masked tokens, with torch-style label
     smoothing (``(1 - ls) * nll + ls * mean_v(-log p_v)``), in fp32; the
-    denominator is ``max(sum(mask), 1)``."""
+    denominator is ``max(sum(mask), 1)``, the global batch's tokens in a
+    data-parallel step (``parallel/mesh.py``)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets[..., None].long())[..., 0]
     if label_smoothing > 0.0:
         nll = (1.0 - label_smoothing) * nll + label_smoothing * -logp.mean(dim=-1)
     mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum() / torch.clamp(global_sum(mask.sum()), min=1.0)
 
 
 def _drop(rng: Optional[DropoutRng], x: torch.Tensor, rate: float) -> torch.Tensor:

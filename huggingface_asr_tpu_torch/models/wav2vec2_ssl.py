@@ -36,6 +36,7 @@ from torch import nn
 
 from huggingface_asr_tpu_torch.models.configs import EBranchformerConfig
 from huggingface_asr_tpu_torch.models.ebranchformer import DropoutRng, EBranchformerModel, _lin
+from huggingface_asr_tpu_torch.parallel.mesh import global_sum, row_draw
 from huggingface_asr_tpu_torch.ops.lengths import lengths_to_mask
 
 
@@ -52,7 +53,7 @@ class Wav2Vec2SSLOutput:
 
 def draw_gumbel(shape, generator: Optional[torch.Generator], device=None) -> torch.Tensor:
     """``-log(-log(U))`` in fp32, U uniform on [tiny, 1) (``jax.random.gumbel``'s transform)."""
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    u = row_draw(torch.rand, shape, generator=generator, device=device, dtype=torch.float32)
     return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
 
 
@@ -88,7 +89,9 @@ class GumbelVectorQuantizer(nn.Module):
 
         # perplexity over the valid masked frames
         m = mask.reshape(B * T, 1, 1).float()
-        probs_mean = torch.sum(marginal * m, dim=0) / torch.clamp(torch.sum(m), min=1.0)
+        # the marginal of the global batch's masked frames in a data-parallel step
+        probs_mean = global_sum(torch.sum(marginal * m, dim=0), differentiable=True) / torch.clamp(
+            global_sum(torch.sum(m)), min=1.0)
         perplexity = torch.sum(torch.exp(-torch.sum(probs_mean * torch.log(probs_mean + 1e-7), dim=-1)))
 
         # the probability-weighted sum of each group's codes (a contraction over V)

@@ -45,6 +45,7 @@ from huggingface_asr_tpu_torch.models.whisper_ctc import (
     init_whisper_from_scratch_,
 )
 from huggingface_asr_tpu_torch.ops.lengths import lengths_to_mask
+from huggingface_asr_tpu_torch.parallel.mesh import global_sum
 
 NEG_INF = -1.0e9
 
@@ -297,7 +298,7 @@ class WhisperForConditionalGeneration(nn.Module):
             gold = logp.gather(-1, labels[..., None].long())[..., 0]
             if cfg.label_smoothing > 0.0:
                 gold = (1 - cfg.label_smoothing) * gold + cfg.label_smoothing * logp.mean(dim=-1)
-            loss = -(gold * mask).sum() / torch.clamp(mask.sum(), min=1)
+            loss = -(gold * mask).sum() / torch.clamp(global_sum(mask.sum()), min=1)
         return WhisperSeq2SeqOutput(logits=logits, loss=loss, encoder_hidden=enc, encoder_lengths=enc_lengths)
 
 

@@ -8,6 +8,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from huggingface_asr_tpu_torch.parallel.mesh import global_rows
+
 
 NO_ALIGNMENT_LOSS = 1e9  # the JAX package's stand-in for -log(0)
 
@@ -26,7 +28,8 @@ def ctc_loss(
     (B, L) target ids without blanks, padded arbitrarily; label_lengths: (B,).
     ``blank_id`` -1 means the last index. ``reduction``: "mean" divides each
     example's loss by ``max(label_length, 1)`` and then averages over the
-    batch; "sum"; "none" gives (B,).
+    batch (the global batch in a data-parallel step, ``parallel/mesh.py``);
+    "sum"; "none" gives (B,).
 
     The recursion is ``F.ctc_loss`` (the JAX package computes its loss outside
     any kernel too). Where no alignment exists (more labels, repeats counted
@@ -51,7 +54,8 @@ def ctc_loss(
     if reduction == "sum":
         return per_example.sum()
     if reduction == "mean":
-        return (per_example / torch.clamp(label_lengths, min=1)).mean()
+        # the batch mean over the global batch's rows inside a data-parallel step
+        return (per_example / torch.clamp(label_lengths, min=1)).sum() / global_rows(per_example.shape[0])
     raise ValueError(f"unknown reduction {reduction}")
 
 

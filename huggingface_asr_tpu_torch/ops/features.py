@@ -179,3 +179,25 @@ class LogMelFrontEnd:
         elif cfg.norm_type == "global":
             log_mel = (log_mel - self._gmeans.to(dev)) / self._gstds.to(dev)
         return torch.where(mask[..., None], log_mel, 0.0), feat_lengths
+
+
+def compute_global_stats(frontend, batches) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-mel-bin mean and std over the valid frames of batches of
+    ``(waveforms, lengths)`` tensors, summed in float64 (counterpart of
+    ``huggingface_asr_tpu/ops/features.py::compute_global_stats``; reference
+    compute_dataset_statistics.py:12-24). ``frontend`` computes the log-mel
+    without normalization (``norm_type="none"``): this module's
+    ``LogMelFrontEnd`` or ``kernels/mel.py::MelFrontEnd`` on the card."""
+    n_mel = frontend.config.num_mel_bins
+    total = np.zeros(n_mel, dtype=np.float64)
+    total_sq = np.zeros_like(total)
+    count = 0.0
+    for waveforms, lengths in batches:
+        feats, feat_lens = frontend(waveforms, lengths)
+        feats = feats.to(torch.float64)
+        mask = (torch.arange(feats.shape[1], device=feats.device)[None, :] < feat_lens[:, None])[..., None]
+        total += (feats * mask).sum(dim=(0, 1)).cpu().numpy()
+        total_sq += (feats.square() * mask).sum(dim=(0, 1)).cpu().numpy()
+        count += float(mask.sum())
+    mean = total / count
+    return mean, np.sqrt(total_sq / count - np.square(mean))

@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from huggingface_asr_tpu_torch.parallel.mesh import row_draw
+
 
 @dataclasses.dataclass(frozen=True)
 class SpecAugmentConfig:
@@ -37,7 +39,7 @@ def _randint(gen: torch.Generator, shape, low, high, device) -> torch.Tensor:
     broadcast against ``shape``."""
     low = torch.as_tensor(low, device=device)
     high = torch.as_tensor(high, device=device)
-    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float64)
+    u = row_draw(torch.rand, shape, generator=gen, device=device, dtype=torch.float64)
     span = (high - low).to(torch.float64)
     return low + torch.minimum(torch.floor(u * span), span - 1).to(torch.int64)
 

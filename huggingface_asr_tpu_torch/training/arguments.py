@@ -9,8 +9,9 @@ Parsed by utils.argparsing.DataclassArgumentParser in every CLI entry point.
 
 One field is the port's own: ``ModelArguments.device`` (default "cuda"), the
 counterpart of the JAX package's ``JAX_PLATFORMS``; ``--device cpu`` is the
-only way a caller asks for the CPU. ``check_supported`` names the values the
-port cannot honour yet and the ROADMAP.md item that brings each.
+only way a caller asks for the CPU. ``check_supported`` refuses
+``--profile_steps``, which the JAX CLIs parse and never forward (ROADMAP.md
+reference caveat (m)); ``TrainerConfig.profile_steps`` is the capture.
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ class GeneralTrainingArguments:
     # reference-style preprocessing JSON (configs/default_data_preprocessing*.json)
     preprocessing_config: Optional[str] = None
     pad_to_multiple: int = 100  # mel frames (recipes use ×100)
-    profile_steps: int = 0  # capture a jax.profiler trace for N steps
+    profile_steps: int = 0  # refused: the JAX CLIs never forward it (TrainerConfig.profile_steps captures)
     track_ctc_loss: bool = False
 
 
@@ -134,17 +135,12 @@ class TokenizerTrainingArguments:
 
 
 def check_supported(family: str, training: Optional[GeneralTrainingArguments] = None) -> None:
-    """Raise ``NotImplementedError`` for a value the port cannot honour yet,
-    naming the field and the ROADMAP.md item that brings it. ``family`` is
-    ``--model_family`` of train_ctc/train_aed or ``--model_type`` of
-    evaluate; every value of those is ported (the recipe families since
-    ``whisper_ctc``, ``llm_asr`` and ``whisper`` came over), so only the
-    training options are checked here."""
-    if training is None:
-        return
-    if training.fsdp:
-        raise NotImplementedError("--fsdp is not ported yet: the port trains on one device (ROADMAP.md Queue 1 "
-                                  "item 12, parallel/ as torch.distributed)")
-    if training.profile_steps > 0:
-        raise NotImplementedError("--profile_steps is not ported yet (ROADMAP.md Queue 1 item 12, "
-                                  "TrainerConfig.profile_steps as a torch.profiler capture)")
+    """Raise ``ValueError`` for ``--profile_steps``: the JAX CLIs parse it and
+    never forward it to their trainer, so no run of theirs profiles; a caller
+    sets ``TrainerConfig.profile_steps`` instead (ROADMAP.md reference
+    caveat (m)). ``family`` is ``--model_family`` of train_ctc/train_aed or
+    ``--model_type`` of evaluate; every value of those is ported."""
+    if training is not None and training.profile_steps > 0:
+        raise ValueError("--profile_steps: the JAX CLIs parse this flag and never forward it, so the port's CLIs "
+                         "refuse it; set TrainerConfig.profile_steps (with profile_start and profile_dir) on the "
+                         "trainer for a torch.profiler capture (ROADMAP.md reference caveat (m))")

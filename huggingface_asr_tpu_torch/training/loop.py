@@ -38,17 +38,32 @@ joint model's. ``CTCTrainer`` also trains the Whisper-encoder CTC model,
 whose blank is its config's ``blank_token_id``.
 
 The causal-LM trainer of ``cli/train_clm.py`` sits in that module, as in the
-JAX package. Not ported here: meshes and sharded state (one device),
-profiler capture.
+JAX package.
+
+Every trainer runs over a ``parallel.mesh.Mesh`` (``TrainerConfig.mesh``):
+one process alone, or one rank of a ``torch.distributed`` group (torchrun).
+A rank computes its contiguous rows of each global batch (the batch already
+cut by the collator, ``_rows``, or cut here) with the losses' denominators
+and per-row draws of the global batch, and the optimizer sums the gradients
+over the ``data`` ranks (``training/optim.py``; under ``fsdp`` it shards its
+state). The model is not wrapped in ``DistributedDataParallel``: its
+reducer hooks ``.grad`` accumulation, which ``torch.autograd.grad`` bypasses.
+Evaluation splits the rows where the batch divides ``data`` and gathers the
+outputs, else every rank runs the whole batch. Metrics come back summed
+over the ranks; logs, hooks and checkpoint files come from rank 0.
+``profile_steps`` > 0 captures steps ``[profile_start, profile_start +
+profile_steps)`` with ``torch.profiler`` into ``profile_dir``
+(``trace_rank<r>.json``, a Chrome trace).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
 import time
-from typing import Any, Callable, Dict, Iterable, Optional, Union
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,6 +74,8 @@ from huggingface_asr_tpu_torch.models.ebranchformer import DropoutRng
 from huggingface_asr_tpu_torch.ops.ctc import ctc_greedy_decode
 from huggingface_asr_tpu_torch.ops.features import LogMelFrontEnd
 from huggingface_asr_tpu_torch.ops.spec_augment import SpecAugmentConfig, spec_augment
+from huggingface_asr_tpu_torch.parallel.distributed import host_barrier
+from huggingface_asr_tpu_torch.parallel.mesh import Mesh, MeshConfig, global_rows, global_sum
 from huggingface_asr_tpu_torch.training.model_factory import (
     load_trainer_checkpoint,
     save_trainer_checkpoint,
@@ -73,6 +90,7 @@ logger = logging.getLogger(__name__)
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     optimizer: OptimizerConfig = OptimizerConfig()
+    mesh: MeshConfig = MeshConfig()
     spec_augment: Optional[SpecAugmentConfig] = SpecAugmentConfig()
     max_grad_norm_guard: float = 100.0
     log_every: int = 50
@@ -91,6 +109,10 @@ class TrainerConfig:
     gumbel_temperature_start: float = 2.0
     gumbel_temperature_end: float = 0.5
     gumbel_temperature_decay: float = 0.999995
+    # a torch.profiler capture of steps [profile_start, profile_start + profile_steps)
+    profile_steps: int = 0
+    profile_start: int = 10
+    profile_dir: str = "torch_trace"
 
 
 def _stream_seed(seed: int, step: int, stream: int) -> int:
@@ -102,11 +124,16 @@ def _stream_seed(seed: int, step: int, stream: int) -> int:
 
 
 class BaseTrainer:
-    """Shared optimizer/state/fit/checkpoint machinery on one device.
+    """Shared mesh/optimizer/state/fit/checkpoint machinery.
 
     The trainer runs on the card unless the caller passes ``device="cpu"``;
     without a card the default raises. ``dtype`` is the compute dtype; the
-    parameters stay fp32."""
+    parameters stay fp32. ``mesh``: this rank's place in the process group
+    (default: ``Mesh(config.mesh)``, one process alone where no group
+    was joined). ``SHARED_METRICS``: the metrics that are each rank's share
+    of a global sum, summed over the ranks with the loss."""
+
+    SHARED_METRICS: Tuple[str, ...] = ()
 
     def __init__(
         self,
@@ -116,6 +143,7 @@ class BaseTrainer:
         device: Union[str, torch.device] = "cuda",
         dtype: str = "bfloat16",
         frozen_prefixes=(),
+        mesh: Optional[Mesh] = None,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device).float()
@@ -123,6 +151,7 @@ class BaseTrainer:
         self.frontend = frontend
         self.dtype = parse_dtype(dtype)
         self.frozen_prefixes = tuple(frozen_prefixes)
+        self.mesh = mesh if mesh is not None else Mesh(config.mesh, self.device)
 
     # --------------------------------------------------------------- model fns
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -140,7 +169,7 @@ class BaseTrainer:
 
     def init_state(self) -> TrainState:
         """A fresh state over the model's current parameters."""
-        optimizer = AdamW(self.model.named_parameters(), self.config.optimizer, self.frozen_prefixes)
+        optimizer = AdamW(self.model.named_parameters(), self.config.optimizer, self.frozen_prefixes, self.mesh)
         return TrainState.create_with_guards(self.model, optimizer, self.config.seed)
 
     # ------------------------------------------------------- subclass hooks
@@ -157,19 +186,40 @@ class BaseTrainer:
         aug_gen = torch.Generator(device=self.device).manual_seed(_stream_seed(state.seed, step, 0))
         return aug_gen, DropoutRng(_stream_seed(state.seed, step, 1), self.device)
 
+    def _local(self, batch: Dict[str, Any]):
+        """(this rank's rows of ``batch`` on the device, ``(start, stop,
+        total)`` or None where the process runs alone)."""
+        batch = dict(batch)
+        rows = batch.pop("_rows", None)
+        batch.pop("_all_lengths", None)
+        if rows is None and self.mesh.distributed:
+            batch, rows = self.mesh.local_batch(batch)
+        return self._to_device(batch), (None if rows is None else tuple(int(r) for r in rows))
+
+    def _split(self, rows):
+        return contextlib.nullcontext() if rows is None else self.mesh.split(*rows)
+
     def train_step(self, state: TrainState, batch: Dict[str, Any]):
         """One guarded optimizer step; updates ``state`` in place and returns
-        it with the step's metrics (0-d tensors on the device)."""
-        batch = self._to_device(batch)
+        it with the step's metrics (0-d tensors on the device). ``batch`` is
+        the global batch, or this rank's rows of it with ``_rows``."""
+        batch, rows = self._local(batch)
         aug_gen, dropout_rng = self.step_streams(state)
         self.model.train()
-        loss, aux = self.loss_and_metrics(batch, aug_gen, dropout_rng, state.step)
+        with self._split(rows):
+            loss, aux = self.loss_and_metrics(batch, aug_gen, dropout_rng, state.step)
         params = state.optimizer.params
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         gnorm, ok = state.apply_gradients_guarded(grads, self.config.max_grad_norm_guard)
+        loss = loss.detach()
+        if self.mesh.distributed:  # the ranks' shares of the global batch's loss and metrics
+            keys = [k for k in self.SHARED_METRICS if k in aux]
+            summed = self.mesh.all_reduce_(torch.stack([loss.float()] + [aux[k].float() for k in keys]))
+            loss = summed[0]
+            aux.update(zip(keys, summed[1:]))
         metrics = {
-            "loss": loss.detach(),
+            "loss": loss,
             "grad_norm": gnorm,
             "step_applied": ok.to(torch.int32),
             "skipped_steps": state.skipped_steps.clone(),
@@ -180,8 +230,18 @@ class BaseTrainer:
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict[str, Any]):
+        """The evaluation outputs of the global ``batch``: split over the
+        ``data`` ranks where its rows divide them (scalars summed, rows
+        gathered), else the whole batch on every rank."""
         self.model.eval()
-        return self.eval_outputs(self._to_device(batch))
+        n = len(next(v for k, v in batch.items() if not k.startswith("_")))
+        if not self.mesh.distributed or n % self.mesh.data:
+            return self.eval_outputs(self._to_device(batch))
+        local, rows = self._local(batch)
+        with self._split(rows):
+            out = self.eval_outputs(local)
+        return {k: self.mesh.all_reduce_(v.clone()) if v.ndim == 0 else self.mesh.gather_rows(v)
+                for k, v in out.items()}
 
     # ------------------------------------------------------------------ loop
     def fit(
@@ -197,11 +257,18 @@ class BaseTrainer:
         t0 = time.time()
         audio_samples = 0
         nan_dumped = False
+        primary = self.mesh.is_primary
+        profiler = None
 
         for batch in train_iter:
             step = state.step
             if step >= cfg.max_steps:
                 break
+            if cfg.profile_steps > 0:
+                if profiler is None and step == cfg.profile_start:
+                    profiler = self._start_profiler()
+                elif profiler is not None and step >= cfg.profile_start + cfg.profile_steps:
+                    profiler = self._stop_profiler(profiler)
             batch = dict(batch)
             n_audio = batch.pop("_num_audio_samples", None)
             if n_audio is None:  # counted on the host copy, before it moves to the device
@@ -215,9 +282,10 @@ class BaseTrainer:
             if (step + 1) % cfg.log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["throughput"] = audio_samples / max(time.time() - t0, 1e-6)
-                logger.info("step %d: %s", step + 1, m)
-                for h in hooks:
-                    h(step + 1, m)
+                if primary:
+                    logger.info("step %d: %s", step + 1, m)
+                    for h in hooks:
+                        h(step + 1, m)
                 # Post-mortem on the first non-finite gradient. The guard has
                 # cancelled the update, so the parameters and optimizer state
                 # are those before it; the batch is the logged step's, not
@@ -228,9 +296,10 @@ class BaseTrainer:
 
             if eval_fn is not None and (step + 1) % cfg.eval_every == 0:
                 eval_metrics = eval_fn(state)
-                logger.info("eval @%d: %s", step + 1, eval_metrics)
-                for h in hooks:
-                    h(step + 1, {f"eval/{k}": v for k, v in eval_metrics.items()})
+                if primary:
+                    logger.info("eval @%d: %s", step + 1, eval_metrics)
+                    for h in hooks:
+                        h(step + 1, {f"eval/{k}": v for k, v in eval_metrics.items()})
                 if cfg.early_stopping_patience > 0:
                     val = eval_metrics.get(cfg.metric_for_best.replace("eval_", ""))
                     if val is not None:
@@ -247,14 +316,38 @@ class BaseTrainer:
 
             if cfg.checkpoint_dir and (step + 1) % cfg.save_every == 0:
                 self.save_checkpoint(state)
+        if profiler is not None:
+            self._stop_profiler(profiler)
         return state
+
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler) -> None:
+        """End the capture and write ``profile_dir/trace_rank<r>.json``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        path = os.path.join(self.config.profile_dir, f"trace_rank{self.mesh.rank}.json")
+        profiler.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)
 
     def _dump_nan_postmortem(self, state: TrainState, batch, step: int):
         """Write parameters, optimizer state and the batch to
-        ``<checkpoint_dir>/nan_postmortem/`` for offline diagnosis."""
+        ``<checkpoint_dir>/nan_postmortem/`` for offline diagnosis (rank 0;
+        every rank takes part in gathering a sharded state)."""
+        payload = self._payload(state)
+        if not self.mesh.is_primary:
+            return
         out = os.path.join(self.config.checkpoint_dir, "nan_postmortem")
         os.makedirs(out, exist_ok=True)
-        torch.save(self._payload(state), os.path.join(out, "state.pt"))
+        torch.save(payload, os.path.join(out, "state.pt"))
         np.savez(os.path.join(out, "batch.npz"), step=np.asarray(step),
                  **{k: torch.as_tensor(v).cpu().numpy() for k, v in batch.items() if not k.startswith("_")})
         logger.warning("non-finite gradients: post-mortem dumped to %s", out)
@@ -274,11 +367,17 @@ class BaseTrainer:
             "nonfinite_steps": int(state.nonfinite_steps),
         }
 
-    def save_checkpoint(self, state: TrainState) -> str:
-        """``<checkpoint_dir>/checkpoint_<step>.pt``; the newest
-        ``keep_checkpoints`` are kept."""
-        return save_trainer_checkpoint(self.config.checkpoint_dir, state.step, self._payload(state),
-                                       self.config.keep_checkpoints)
+    def save_checkpoint(self, state: TrainState) -> Optional[str]:
+        """``<checkpoint_dir>/checkpoint_<step>.pt``, written by rank 0 (a
+        sharded optimizer state gathered whole first); the newest
+        ``keep_checkpoints`` are kept. Returns the path (None on other ranks)."""
+        payload = self._payload(state)
+        path = None
+        if self.mesh.is_primary:
+            path = save_trainer_checkpoint(self.config.checkpoint_dir, state.step, payload,
+                                           self.config.keep_checkpoints)
+        host_barrier("checkpoint")
+        return path
 
     def restore_checkpoint(self, state: TrainState, step: Optional[int] = None) -> TrainState:
         """Load the checkpoint of ``step`` (default: the newest) into ``state``."""
@@ -325,8 +424,8 @@ class _OwnDtypeTrainer(BaseTrainer):
     the trainer's."""
 
     def __init__(self, model, config: TrainerConfig = TrainerConfig(), frontend=None, device="cuda",
-                 dtype: str = "bfloat16", frozen_prefixes=()):
-        super().__init__(model, config, frontend, device, dtype, frozen_prefixes)
+                 dtype: str = "bfloat16", frozen_prefixes=(), mesh: Optional[Mesh] = None):
+        super().__init__(model, config, frontend, device, dtype, frozen_prefixes, mesh)
         if self.model.dtype != self.dtype:
             raise ValueError(f"the model computes in {self.model.dtype}, the trainer in {self.dtype}")
 
@@ -343,6 +442,8 @@ class _OwnDtypeTrainer(BaseTrainer):
 class JointTrainer(_OwnDtypeTrainer):
     """DeCRED/ED training with the encoder's and the decoder's losses tracked
     (JAX ``JointTrainer``; reference AdditionalLossTrackerTrainer)."""
+
+    SHARED_METRICS = ("enc_loss", "dec_loss")
 
     def loss_and_metrics(self, batch, aug_gen, dropout_rng, step):
         out = self._forward(batch, aug_gen, dropout_rng, step)
@@ -366,13 +467,14 @@ class BestRQTrainer(BaseTrainer):
         feats, lengths = self._featurize(batch)
         mask = batch["mask_time_indices"].to(torch.bool)
         out = self.model(feats, lengths, mask, generator=generator, rng=rng, dtype=self.dtype)
-        loss = out.loss / torch.clamp(out.num_masked, min=1)
-        return out, loss, mask
+        num_masked = global_sum(out.num_masked)  # the global batch's, in a data-parallel step
+        return num_masked, out.loss / torch.clamp(num_masked, min=1), mask
 
     def loss_and_metrics(self, batch, aug_gen, dropout_rng, step):
-        out, loss, mask = self._forward(batch, aug_gen, dropout_rng)
-        num_masked = out.num_masked.float()
-        return loss, {"num_masked": num_masked, "percent_masked": 100.0 * num_masked / mask.numel()}
+        num_masked, loss, mask = self._forward(batch, aug_gen, dropout_rng)
+        num_masked = num_masked.float()
+        frames = global_rows(mask.shape[0]) * mask.shape[1]
+        return loss, {"num_masked": num_masked, "percent_masked": 100.0 * num_masked / frames}
 
     def eval_outputs(self, batch):
         # the noise of an evaluation step comes from a fixed seed, as the JAX trainer's key(0)
@@ -401,9 +503,11 @@ class Wav2Vec2SSLTrainer(BaseTrainer):
                           batch["sampled_negative_indices"], gumbel_temperature=self.gumbel_temperature(step),
                           rng=rng, generator=generator, dtype=self.dtype)
 
+    SHARED_METRICS = ("contrastive_loss",)
+
     def loss_and_metrics(self, batch, aug_gen, dropout_rng, step):
         out = self._forward(batch, step, aug_gen, dropout_rng)
-        n = torch.clamp(out.num_masked, min=1)
+        n = torch.clamp(global_sum(out.num_masked), min=1)
         return out.loss / n, {
             "contrastive_loss": out.contrastive_loss.detach() / n,
             "diversity_loss": out.diversity_loss.detach(),
@@ -413,12 +517,14 @@ class Wav2Vec2SSLTrainer(BaseTrainer):
 
     def eval_outputs(self, batch):
         out = self._forward(batch, 0)
-        return {"loss": out.loss / torch.clamp(out.num_masked, min=1)}
+        return {"loss": out.loss / torch.clamp(global_sum(out.num_masked), min=1)}
 
 
 class LLMASRTrainer(_OwnDtypeTrainer):
     """LLM-ASR training (JAX ``LLMASRTrainer``; the reference trains these
     through its CTC trainer with recipe-local models, local_models.py:10-243)."""
+
+    SHARED_METRICS = ("enc_loss",)
 
     def loss_and_metrics(self, batch, aug_gen, dropout_rng, step):
         out = self._forward(batch, aug_gen, dropout_rng, step)

@@ -42,13 +42,15 @@ class TrainState:
 
     def apply_gradients_guarded(self, grads, max_grad_norm_guard: float = 100.0
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Apply ``grads`` (one per optimizer parameter) unless their global
-        norm, taken before any clipping, is anomalous. Returns
+        """Apply ``grads`` (one per optimizer parameter, this rank's under a
+        data-parallel mesh: they are summed over the ranks first) unless their
+        global norm, taken before any clipping, is anomalous. Returns
         ``(grad_norm, applied)`` as 0-d tensors."""
-        gnorm = AdamW.global_norm(grads)
+        g = self.optimizer.reduce_gradients(grads)
+        gnorm = self.optimizer.global_norm(g)
         finite = torch.isfinite(gnorm)
         ok = finite & (gnorm < max_grad_norm_guard)
-        self.optimizer.update(grads, ok)
+        self.optimizer.update(g, ok)
         self.step += 1
         self.skipped_steps += (~ok).to(torch.int32)
         self.nonfinite_steps += (~finite).to(torch.int32)

@@ -1,6 +1,6 @@
 """A/B of kernel source variants on one NVIDIA GPU.
 
-    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm,dwconv,mel,posq,conv1,cmvn,ln,trace DIR_A [DIR_B ...]
+    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm,dwconv,mel,posq,conv1,cmvn,ln,trace,ptxas DIR_A [DIR_B ...]
 
 Each DIR is a directory holding a full copy of ``huggingface_asr_tpu_torch/csrc``
 (the package's own directory is a valid DIR). Every variant is built and run in
@@ -39,7 +39,8 @@ card's rate of writing those bytes); ``ln`` holds the LayerNorm at M = 2,048 and
 plain version and times it beside ``F.layer_norm`` in bf16 (device times); ``trace`` takes 100 profiler
 traces of 10 calls each of the CSGU conv at C = 512 and 1,024, a GEMM and the LayerNorm (B=8 x 256 rows), opened
 and closed right at the calls and 20 ms before and after them, and counts the traces that hold fewer kernel records than host
-launch records, and whether the first or the last call's record is the one missing.
+launch records, and whether the first or the last call's record is the one missing. ``ptxas`` prints
+every source's ptxas lines and runs nothing (variants whose C entry points differ from this tree's).
 Exits non-zero without a CUDA device.
 """
 
@@ -145,7 +146,7 @@ def run_variant(csrc: str, what: str) -> None:
     _build.library()
     sources = {"conv2": "conv2", "k4": "train_fwd", "k4bwd": "train_bwd", "k1": "rel_attention.cu", "k5": "shift",
                "gemm": "layer.cu", "dwconv": "dwconv", "mel": "mel.cu", "posq": "layer.cu",
-               "conv1": "subsample.cu", "cmvn": "mel.cu", "ln": "layer.cu", "trace": "dwconv"}
+               "conv1": "subsample.cu", "cmvn": "mel.cu", "ln": "layer.cu", "trace": "dwconv", "ptxas": ""}
     keep = False
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("=="):

@@ -220,8 +220,8 @@ GATE_DIR = os.path.join(REPO, "huggingface_asr_tpu_torch", "assets", "gate_ctc")
      "caveat .i."),
     ("train", ["--model_family", "llm_asr", "--from_hf_checkpoint", "x", "--device", "cpu"], ValueError,
      "caveat .i."),
-    ("train", ["--fsdp"], NotImplementedError, "fsdp"),
-    ("train", ["--profile_steps", "3"], NotImplementedError, "profile_steps"),
+    ("train", ["--fsdp"], RuntimeError, "CUDA is not available"),
+    ("train", ["--profile_steps", "3"], ValueError, "profile_steps.*caveat .m."),
     ("eval", ["--model_type", "whisper"], ValueError, "whisper_ctc or llm_asr"),
     ("eval", ["--model_type", "llm_asr", "--fused_encoder", "on", "--device", "cpu"], ValueError, "CUDA"),
     ("eval", ["--fused_encoder", "on", "--device", "cpu"], ValueError, "CUDA"),

@@ -782,6 +782,35 @@ def test_train_attention_past_288_columns(B, T, H, DH, D, lens, rate):
             assert not bool(got[3][b, n:].any()) and not bool(got[4][b, n:].any())
 
 
+@pytest.mark.parametrize("dtype,H,DH,D", [(torch.float32, 4, 32, 128), (torch.bfloat16, 4, 32, 128),
+                                          (torch.bfloat16, 8, 64, 512)])
+def test_train_attention_row0_numbers_the_dropout_rows(dtype, H, DH, D):
+    """A data-parallel rank's call (``row0`` = its first row of the global
+    batch, rate 0.1): the forward and the four gradients within tolerance of
+    the plain version with the same ``row0``, and equal bit for bit to the
+    rank's rows of the call on the whole global batch."""
+    dev = _cuda()
+    B, T, start = 4, 129, 2
+    g = torch.Generator().manual_seed(D + DH)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dtype).to(dev)  # noqa: E731
+    q_u, q_rot, k, v, k_std, cot = mk(B, T, H, DH), mk(B, T, H, D) * 0.25, mk(B, T, H, DH), mk(B, T, H, DH), \
+        mk(T, D), mk(B, T, H, DH)
+    lengths = torch.tensor([129, 1, 100, 0], dtype=torch.int32, device=dev)
+
+    def run(fn, rows, row0):
+        leaves = [t[rows].clone().requires_grad_(True) for t in (q_u, q_rot, k, v)]
+        out = fn(*leaves, k_std, lengths[rows].clone(), 4242, 0.1, row0=row0)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, cot[rows]))
+
+    part = slice(start, B)
+    got = run(rel_attention_train, part, start)
+    for name, gt, r in zip(("out", "dq_u", "dq_rot", "dk", "dv"), got, run(rel_attention_train_plain, part, start)):
+        _close(gt, r, ATT_TOL[dtype])
+    whole = run(rel_attention_train, slice(None), 0)
+    for name, gt, w in zip(("out", "dq_u", "dq_rot", "dk", "dv"), got, whole):
+        assert torch.equal(gt, w[part]), name
+
+
 @pytest.mark.parametrize("t_valid", ["ragged", 1, "T", 0])
 @pytest.mark.parametrize("B,T", [(1, 56), (8, 256), (128, 256), (3, 70)])
 @pytest.mark.parametrize("C", [1024, 896, 768])
@@ -952,6 +981,12 @@ def test_port_modules_import_nothing_of_jax():
         "import huggingface_asr_tpu_torch.models.llm_asr, huggingface_asr_tpu_torch.models.whisper_seq2seq\n"
         "import huggingface_asr_tpu_torch.interop.hf_whisper, huggingface_asr_tpu_torch.cli.train_aed\n"
         "import huggingface_asr_tpu_torch.serving.streaming, huggingface_asr_tpu_torch.decoding.ctc_beam\n"
+        "import huggingface_asr_tpu_torch.parallel.mesh, huggingface_asr_tpu_torch.parallel.distributed\n"
+        "import huggingface_asr_tpu_torch.data.builders, huggingface_asr_tpu_torch.data.native_collate\n"
+        "import huggingface_asr_tpu_torch.interop.publish, huggingface_asr_tpu_torch.cli.publish_model\n"
+        "import huggingface_asr_tpu_torch.cli.compute_dataset_statistics, huggingface_asr_tpu_torch.cli.train_clm\n"
+        "import huggingface_asr_tpu_torch.cli.preprocess_dataset, huggingface_asr_tpu_torch.cli.train_tokenizer\n"
+        "import huggingface_asr_tpu_torch.cli.init_model_configs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'huggingface_asr_tpu'))\n"
         "assert not bad, bad\nprint('ok')\n" % repo
