@@ -248,6 +248,30 @@
    (b)'s ``final/``, its weights loaded back strictly giving the same logits.
    Each kernel entry of the JSON line gains ``stats_cli_launches`` and
    ``process_group_launches``, its launches in (a) and in (b)'s group runs.
+19. last, the serving numeric profile (``serving_phase``; the pipelines of
+   steps 4, 7, 9, 13, 15 and 17(a) pass ``numeric_profile="exact"``, the
+   contract their checks name; steps 9, 13 and 17(a) then serve one request
+   in "serving" too, its serving kernels counted and held against the plain
+   path of that profile): (a) K3's bf16 and high DFT modes
+   (``csrc/mel_bf16.cu``) at B=8 and 128 x 10 s against their plain versions
+   (1e-3 of the log-mel's scale), beside their bound, the fp32 kernel's time
+   and cuBLAS's bf16 product of the same framed operands, with device times
+   and each mode's largest log-mel error against the folded product in fp64
+   beside the plain version's in the same mode and the fp32 one's; (b) the
+   serving pieces at the B=8 x 10 s request's shapes, each beside its exact
+   form's time: conv1 (bit-equal to its plain version, also at B=128), conv2,
+   the GEMM's serving GELU epilogue (also at M = 32,768), rel_attention's
+   serving normaliser, the whole layer; a ``MelFrontEnd(matmul_precision=
+   "high")`` call's launches; (c) step 4's requests through ``ASRPipeline``
+   with ``numeric_profile`` "exact" and then "serving" (the default), each
+   launching only its own profile's kernels and held against the plain path
+   of its profile; (d) the transcript gate: the committed gate model's 64
+   test utterances in requests of 16 through ``ASRPipeline(model_type="ctc")``
+   in "serving", whose ids must be the JAX serving composition's
+   (``jax_reference.json``'s "serving") but for ties by the triage rule (the
+   count in "exact" against the JAX bf16 model's ids is printed). The JSON
+   line gains the serving kernels' rows with their launches in (c)'s serving
+   requests, and the high mode's with the launches of its front-end call.
 
 Beside each kernel's time it prints the plain version's, the least time the
 card could take (the larger of bytes / 3.35 TB/s and operations / the peak
@@ -1236,7 +1260,7 @@ def ssl_phase(dev, smi) -> dict:
     # ---- (c) serving both fine-tuned final/s through ASRPipeline(device="cuda")
     requests = {f"fine-tuned 512-wide, 8 utts (10 s) #{r}": [speech(10.0 * (1.0 - 0.01 * ((i + r) % 7)), rng)
                                                               for i in range(8)] for r in range(2)}
-    pipe = ASRPipeline(finals["no adapters"], model_type="ctc", device="cuda", tokenizer=tok)
+    pipe = ASRPipeline(finals["no adapters"], model_type="ctc", device="cuda", tokenizer=tok, numeric_profile="exact")
     if not pipe._use_fused:
         _fail("the fine-tuned model without adapters did not take the fused route")
     pipe(requests[next(iter(requests))][:1])  # warm-up
@@ -1896,7 +1920,7 @@ def variants_phase(dev, smi, compare) -> dict:
           f"ASRPipeline; {smi}", flush=True)
     model_dir = os.path.join(work, "gated_csgu_linear")
     save_params(seeded_model(cfg, seed=17), model_dir)
-    pipe = ASRPipeline(model_dir, model_type="ctc", device="cuda", tokenizer=Pieces())
+    pipe = ASRPipeline(model_dir, model_type="ctc", device="cuda", tokenizer=Pieces(), numeric_profile="exact")
     if not pipe._use_fused or pipe._fused.subsample is not None:
         _fail("the gated csgu-linear model did not take the fused route behind its own front end")
     audios = [speech(10.0 * (1.0 - 0.03 * i), rng) for i in range(8)]
@@ -1993,6 +2017,18 @@ def variants_phase(dev, smi, compare) -> dict:
             })
             del l, ones, conv, gate_in
     print("  device ms under the profiler: " + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()), flush=True)
+    del pipe
+    # the same request in the serving profile: the CSGU linear keeps its exact
+    # activation (JAX's CSGU act is fp32), the other GELUs and the attention serve
+    pipe = ASRPipeline(model_dir, model_type="ctc", device="cuda", tokenizer=Pieces(), numeric_profile="serving")
+    pipe(audios[:1])
+    texts, got = count_launches(lambda: pipe(audios), {})
+    want_s = {"asr_log_mel_bf16": 1, "asr_gemm_gate_bf16": n_l, "dwconv_csgu_conv": n_l,
+              "asr_rel_attention_serving": n_l, "asr_gemm_gelu_serving": 3 * n_l}
+    print(f"  serving profile, request B=8 x 10 s: launches {got}", flush=True)
+    if len(texts) != 8 or any(got.get(k, 0) != v for k, v in want_s.items()):
+        _fail(f"gated csgu-linear request, serving profile: launches {got}, want {want_s}")
+    against_plain_path(pipe, {"gated csgu-linear, serving, 8 utt (10 s)": audios})
     del pipe
     torch.cuda.empty_cache()
 
@@ -2508,6 +2544,272 @@ def pos_query_library(q_v, wp):
     qv = q_v.reshape(-1, H, dh).transpose(0, 1).contiguous()
     w = wp.transpose(1, 2).contiguous()
     return lambda: torch.bmm(qv, w)
+
+
+def mel_bf16_work(wav, n_frames: int, bases, mel):
+    """(operations, bytes, type) of the bf16 log-mel kernel: the waveform,
+    bases and log-mel moved once; of its two kinds of operations, the DFT's
+    bf16 products (three in "high") and the fp32 mel product, the one that
+    takes the card longer at its own peak (the two run on different units)."""
+    B = wav.shape[0]
+    P, two_nb, L = bases.shape
+    dft = 2.0 * B * n_frames * L * two_nb * (3 if P == 2 else 1)
+    mel_ops = 2.0 * B * n_frames * mel.shape[0] * mel.shape[1]
+    moved = nbytes(wav, bases, mel) + 4 * B * n_frames * mel.shape[1]
+    if dft / PEAK_FLOPS["bf16"] >= mel_ops / PEAK_FLOPS["fp32"]:
+        return dft, moved, "bf16"
+    return mel_ops, moved, "fp32"
+
+
+class IdsRecorder:
+    """A stand-in tokenizer that records the ids it decodes."""
+
+    def __init__(self):
+        self.ids = []
+
+    def decode(self, ids, skip_special_tokens=True):
+        self.ids.append([int(t) for t in ids])
+        return " ".join(map(str, self.ids[-1]))
+
+
+SERVING_KERNELS = ("asr_log_mel_bf16", "asr_conv1_serving", "asr_conv2_serving", "asr_gemm_gelu_serving",
+                   "asr_rel_attention_serving")
+EXACT_KERNELS = ("asr_log_mel", "asr_conv1", "asr_conv2", "asr_rel_attention")
+
+
+def serving_phase(dev, smi, compare, fused, model_dir, requests, B_big: int = 128, S: int = 160000) -> tuple:
+    """The serving profile on the card (step 19 of the module's docstring),
+    with ``fused`` and ``model_dir`` the flagship's and its requests, at B=8
+    and ``B_big`` x ``S`` samples. Returns (the serving flagship requests'
+    launches, the "high" front end's launches, the gate's counts of JAX ids)."""
+    import torch
+    import torch.nn.functional as F
+
+    from huggingface_asr_tpu_torch.data.synthetic_speech import corpus_rows
+    from huggingface_asr_tpu_torch.kernels import _build
+    from huggingface_asr_tpu_torch.kernels import layer as K1
+    from huggingface_asr_tpu_torch.kernels import mel as K3
+    from huggingface_asr_tpu_torch.kernels import subsample as K2
+    from huggingface_asr_tpu_torch.models.ebranchformer import feat_extract_output_frames
+    from huggingface_asr_tpu_torch.models.fast_infer import ctc_infer
+    from huggingface_asr_tpu_torch.ops.features import LogMelConfig
+    from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
+
+    t_phase = time.perf_counter()
+    cfg = fused.config
+    base = LogMelConfig(num_mel_bins=cfg.num_fbanks)
+    dft_np, mel_np = K3.folded_bases(base)
+    dft32, mel32 = torch.from_numpy(dft_np).to(dev), torch.from_numpy(mel_np).to(dev)
+    hop, floor, L = base.hop_length, base.mel_floor, base.frame_length
+    n = int(base.num_frames(S))
+    gen = np.random.default_rng(19)
+    wavs = np.zeros((B_big, S), np.float32)
+    lens = [int(S * (1.0 - 0.005 * (i % 16))) for i in range(B_big)]
+    for i in range(B_big):
+        wv = speech(lens[i] / 16000, gen)
+        wavs[i, :len(wv)] = wv
+    wav_big = torch.from_numpy(wavs).to(dev)
+    del wavs
+
+    # ---- (a) K3's bf16 and high DFT modes at B=8 and 128 x 10 s, beside the fp32
+    # kernel's time and cuBLAS's bf16 product of the same framed operands (the
+    # library call: it computes the DFT's product alone, not the power, mel and
+    # log); their log-mel errors against the folded product in fp64
+    print(f"-- serving (a): the log-mel kernel's bf16 and high DFT modes, B=8 and {B_big} x {S} samples "
+          f"(T_in={n}); {smi}",
+          flush=True)
+    bases = {mode: K3.split_bases(dft_np, mode).to(dev) for mode in ("bf16", "high")}
+    with torch.no_grad():
+        for B in (8, B_big):
+            wav = wav_big[:B]
+            exact = K3.log_mel_plain(wav.double(), n, dft32.double(), mel32.double(), hop, floor)
+            fp32_err = float((K3.log_mel_plain(wav, n, dft32, mel32, hop, floor).double() - exact).abs().max())
+            fp32_ms = timed(lambda: K3.log_mel(wav, n, dft32, mel32, hop, floor))
+            for mode, bs in bases.items():
+                args = (n, bs, mel32, hop, floor, mode)
+                frames16 = wav.unfold(1, L, hop)[:, :n].to(torch.bfloat16).contiguous()
+                hi_t = bs[0].t()
+                key = f"mel_{mode}" + ("_b128" if B != 8 else "")
+                got = compare(f"mel {mode} B={B}", key, lambda: K3.log_mel(wav, *args),
+                              lambda: K3.log_mel_plain(wav, *args), 1e-3, library_fn=lambda: frames16 @ hi_t,
+                              work=mel_bf16_work(wav, n, bs, mel32))
+                err_k = float((got.double() - exact).abs().max())
+                err_p = float((K3.log_mel_plain(wav, *args).double() - exact).abs().max())
+                print(f"    against fp64: kernel {err_k:.3e}, plain {mode} {err_p:.3e}, fp32 plain (cuBLAS) "
+                      f"{fp32_err:.3e}; device ms under the profiler {device_ms(lambda: K3.log_mel(wav, *args)):.4f} "
+                      f"(fp32 kernel {fp32_ms:.4f} on events, cuBLAS bf16 product "
+                      f"{device_ms(lambda: frames16 @ hi_t):.4f})", flush=True)
+                del frames16, got
+            del exact
+            torch.cuda.empty_cache()
+
+    # ---- (b) the serving pieces of K2 and K1 at the B=8 x 10 s request's shapes,
+    # each beside its exact form's time; conv1 also at B=128
+    print(f"-- serving (b): conv1 (also at B={B_big}), conv2, the GEMM's serving GELU epilogue (also at M = 32,768), "
+          "rel_attention, the layer, B=8", flush=True)
+    wav8 = wav_big[:8]
+    lens8 = torch.tensor(lens[:8], dtype=torch.int32, device=dev)
+    front = K3.MelFrontEnd(dataclasses.replace(base, matmul_precision="bf16"), device=dev)
+    sw, w = fused.subsample, fused.layers[0]
+    C, D, H = cfg.conv_dim[0], cfg.hidden_size, cfg.num_attention_heads
+    T = int(feat_extract_output_frames(cfg, n))
+    T_pad = -(-T // 8) * 8
+    with torch.no_grad():
+        for B, wv, ln in ((8, wav8, lens8), (B_big, wav_big, torch.tensor(lens, dtype=torch.int32, device=dev))):
+            feats, feat_lens = front(wv, ln)
+            T1 = (n + 1) // 2
+            work1 = (2.0 * 9 * C * B * T1 * (cfg.num_fbanks // 2),
+                     nbytes(feats, sw["w1"], sw["b1"]) + 2 * C * B * T1 * (cfg.num_fbanks // 2), "bf16")
+            cw1 = sw["w1"].t().reshape(C, 1, 3, 3)
+            y1 = compare(f"conv1 serving B={B}", "conv1_serving" + ("_b128" if B != 8 else ""),
+                         lambda: K2.conv1(feats, sw["w1"], sw["b1"], "serving"),
+                         lambda: K2.conv1_plain(feats, sw["w1"], sw["b1"], "serving"), 2 ** -7,
+                         library_fn=lambda: F.conv2d(feats[:, None], cw1, stride=2, padding=1), work=work1)
+            same = float((y1.view(torch.int16) == K2.conv1_plain(feats, sw["w1"], sw["b1"], "serving")
+                           .view(torch.int16)).float().mean())
+            print(f"    {same:.6f} of its outputs equal the plain version's bit for bit; exact conv1 "
+                  f"{timed(lambda: K2.conv1(feats, sw['w1'], sw['b1'])):.4f} ms, serving "
+                  f"{timed(lambda: K2.conv1(feats, sw['w1'], sw['b1'], 'serving')):.4f} ms (events, same call)",
+                  flush=True)
+            if same != 1.0:
+                _fail(f"conv1 serving B={B}: {same} of its outputs bit-equal to the plain version's, not all")
+            if B != 8:
+                del y1, feats
+                torch.cuda.empty_cache()
+                continue
+            rows2 = B * T_pad * (cfg.num_fbanks // 4)
+            work2 = (2.0 * rows2 * C * 9 * C, nbytes(y1, sw["w2"], sw["b2"]) + 2 * rows2 * C, "bf16")
+            cw2 = sw["w2"].reshape(3, 3, C, C).permute(3, 2, 0, 1).contiguous()
+            y1_nchw = y1.permute(0, 3, 1, 2)
+            compare("conv2 serving", "conv2_serving", lambda: K2.conv2(y1, sw["w2"], sw["b2"], T_pad, "serving"),
+                    lambda: K2.conv2_plain(y1, sw["w2"], sw["b2"], T_pad, "serving"), 2 ** -6,
+                    library_fn=lambda: F.conv2d(y1_nchw, cw2, stride=2, padding=1), work=work2)
+            print(f"    exact conv2 {timed(lambda: K2.conv2(y1, sw['w2'], sw['b2'], T_pad)):.4f} ms, serving "
+                  f"{timed(lambda: K2.conv2(y1, sw['w2'], sw['b2'], T_pad, 'serving')):.4f} ms", flush=True)
+            hidden = K2.conv_subsample(feats, sw, cfg, T_pad, "serving")
+            enc = torch.clamp(feat_extract_output_frames(cfg, feat_lens.long()), 0, T).int()
+            mask = torch.arange(T_pad, device=dev)[None, :] < enc[:, None]
+            x = torch.where(mask[..., None], hidden, 0.0).to(torch.bfloat16).contiguous()
+            M = B * T_pad
+            xf = x.view(M, D)
+            g = K1.layer_norm(xf, w["ff1_ln_g"], w["ff1_ln_b"], cfg.layer_norm_eps)
+            I = w["ff1_wi"].shape[1]
+            wi_t, bi16 = w["ff1_wi"].t(), w["ff1_bi"].bfloat16()
+            for Mr, a in ((M, g), (32768, torch.randn(32768, D, generator=torch.Generator().manual_seed(4))
+                                    .bfloat16().to(dev))):
+                key = "gemm_gelu_serving" + ("_m32768" if Mr == 32768 else "")
+                compare(f"gemm ff1_in serving GELU M={Mr}", key,
+                        lambda: K1.gemm(a, w["ff1_wi"], w["ff1_bi"], act="gelu_serving"),
+                        lambda: K1.gemm_plain(a, w["ff1_wi"], w["ff1_bi"], act="gelu_serving"), 2 ** -6,
+                        library_fn=lambda: F.linear(a, wi_t, bi16), work=gemm_work(Mr, D, I))
+                print(f"    device ms under the profiler: serving GELU "
+                      f"{device_ms(lambda: K1.gemm(a, w['ff1_wi'], w['ff1_bi'], act='gelu_serving')):.4f}, "
+                      f"exact GELU {device_ms(lambda: K1.gemm(a, w['ff1_wi'], w['ff1_bi'], act='gelu')):.4f}",
+                      flush=True)
+            qkv, q_v = K1.gemm(g, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
+            tables = fused.tables(T_pad)
+            q_rot = K1.pos_query(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"], T_pad)
+            dh = D // H
+            hv = lambda i: qkv[:, i * D:(i + 1) * D].view(B, T_pad, H, dh)  # noqa: E731
+            att = (hv(0), hv(1), hv(2), q_rot.view(B, T_pad, H, D), tables["k_std"], enc)
+            keys = torch.where(enc > 0, enc, T_pad).sum().item()
+            compare("rel_attention serving", "rel_attention_serving",
+                    lambda: K1.rel_attention(*att, profile="serving"),
+                    lambda: K1.rel_attention_plain(*att, profile="serving"), 2 ** -6,
+                    library_fn=sdpa_call(hv(0), att[3], hv(1), hv(2), tables["k_std"], enc, 1.0)[0],
+                    work=(2.0 * H * T_pad * keys * (dh + D + dh), nbytes(att[3], tables["k_std"]) + 4 * 2 * M * D,
+                          "bf16"))
+            print(f"    device ms under the profiler: serving {device_ms(lambda: K1.rel_attention(*att, profile='serving')):.4f}, "
+                  f"exact {device_ms(lambda: K1.rel_attention(*att)):.4f}", flush=True)
+            compare("layer serving (K1 whole)", None,
+                    lambda: K1.ebranchformer_layer(x, enc, w, cfg, T, tables, "serving"),
+                    lambda: K1.ebranchformer_layer_plain(x, enc, w, cfg, T, tables, "serving"), 0.05)
+            del y1, feats, hidden, x
+    _build.reset_launch_counts()
+    K3.MelFrontEnd(dataclasses.replace(base, matmul_precision="high"), device=dev)(wav8, lens8)
+    torch.cuda.synchronize()
+    high_launches = dict(_build.LAUNCHES)
+    print(f"  MelFrontEnd(matmul_precision='high') on B=8: launches {high_launches}", flush=True)
+    del wav_big
+    torch.cuda.empty_cache()
+
+    # ---- (c) the flagship requests through ASRPipeline in both profiles, each
+    # against the plain path of its own profile
+    print("-- serving (c): the flagship requests through ASRPipeline, numeric_profile 'exact' and 'serving'", flush=True)
+    launches = {}
+    for profile in ("exact", "serving"):
+        pipe = ASRPipeline(model_dir, model_type="ctc", device="cuda", tokenizer=IdsRecorder(),
+                           numeric_profile=profile)
+        if not pipe._use_fused or pipe.numeric_profile != profile:
+            _fail(f"numeric_profile {profile!r}: the pipeline did not take the fused route in that profile")
+        pipe(next(iter(requests.values()))[:1])  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        for name, audios in requests.items():
+            t = time.perf_counter()
+            texts = pipe(audios)
+            torch.cuda.synchronize()
+            print(f"  {profile} request {name}: {(time.perf_counter() - t) * 1e3:.1f} ms", flush=True)
+            if len(texts) != len(audios):
+                _fail(f"{profile} {name}: {len(texts)} transcripts for {len(audios)} utterances")
+        launches[profile] = dict(_build.LAUNCHES)
+        print(f"  launches, {profile}: {launches[profile]}", flush=True)
+        mine, other = (SERVING_KERNELS, EXACT_KERNELS) if profile == "serving" else (EXACT_KERNELS, SERVING_KERNELS)
+        if any(launches[profile].get(k, 0) <= 0 for k in mine) or any(k in launches[profile] for k in other):
+            _fail(f"numeric_profile {profile!r}: launches {launches[profile]}, want every one of {mine}, none of {other}")
+        n_frames, n_agree = against_plain_path(pipe, requests)
+        print(f"  {profile}: greedy ids agree with the plain path on {n_agree}/{n_frames} valid frames", flush=True)
+        if n_agree < 0.98 * n_frames:
+            _fail(f"{profile}: greedy ids agree on {n_agree}/{n_frames} valid frames, below 98 %")
+        del pipe
+    torch.cuda.empty_cache()
+
+    # ---- (d) the transcript gate: the committed gate model's 64 test utterances in
+    # requests of 16 through ASRPipeline(model_type="ctc"), against the JAX serving
+    # composition's ids (jax_reference.json "serving"), ties by the triage rule
+    with open(os.path.join(ROOT, GATE_DIR, "jax_reference.json")) as f:
+        ref = json.load(f)
+    rows = corpus_rows(n_train=512, n_eval=64, seed=0)["test"]
+    counts = {}
+    for profile, key in (("serving", "serving"), ("exact", "bfloat16")):
+        rec = IdsRecorder()
+        pipe = ASRPipeline(os.path.join(ROOT, GATE_DIR), model_type="ctc", device="cuda", tokenizer=rec,
+                           numeric_profile=profile)
+        if not pipe._use_fused:
+            _fail("the gate model did not take the fused route")
+        gaps, gate_launches = [], {}
+        for start in range(0, 64, 16):
+            audios = [np.asarray(a, np.float32) for a in rows["audio"][start:start + 16]]
+            _, got_l = count_launches(lambda: pipe(audios), gate_launches)
+            got = rec.ids[start:start + 16]
+            differ = [b for b in range(16) if got[b] != ref[key]["ids"][start + b]]
+            if differ:
+                wav = torch.from_numpy(pipe._bucket_pad(audios)).to(dev)
+                lens_ = torch.tensor([len(a) for a in audios], dtype=torch.int32, device=dev)
+                with torch.inference_mode():
+                    out = ctc_infer(pipe._fused, *pipe._frontend(wav, lens_))
+                logits = out.logits.float().cpu().numpy()
+                for b in differ:
+                    T_ = int(out.logit_lengths[b])
+                    pf, jf = logits[b, :T_].argmax(-1), np.asarray(ref[key]["frame_ids"][start + b])
+                    t = int(np.flatnonzero(pf != jf)[0]) if len(jf) == T_ and (pf != jf).any() else 0
+                    top2 = np.sort(logits[b, t])[-2:]
+                    gaps.append((start + b, t, float(top2[1] - top2[0]), float(np.abs(logits[b, :T_]).max())))
+        counts[profile] = 64 - len(gaps)
+        print(f"  gate model through ASRPipeline, numeric_profile {profile!r}: {counts[profile]}/64 id sequences "
+              f"equal to JAX's {key} ids; launches {gate_launches}" + "".join(
+                  f"; utterance {u} frame {t}: top-two gap {g:.5f} of scale {s:.3f} (bound {TIE * s:.5f})"
+                  for u, t, g, s in gaps), flush=True)
+        if profile == "serving":
+            if any(gate_launches.get(k, 0) <= 0 for k in ("asr_log_mel_bf16", "asr_rel_attention_serving")):
+                _fail(f"gate model, serving: the serving kernels did not launch: {gate_launches}")
+            for u, t, g, s in gaps:
+                if g > TIE * s:
+                    _fail(f"gate model, serving: utterance {u} differs from JAX at frame {t} beyond a tie")
+        del pipe
+    print(f"gate serving: {counts['serving']}/64 equal to JAX's serving ids", flush=True)
+    print(f"serving phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches["serving"], high_launches, counts
 
 
 def main() -> None:
@@ -3030,7 +3332,7 @@ def main() -> None:
         def decode(self, ids, skip_special_tokens=True):
             return "".join(chr(ord("a") + i % 26) if i % 7 else " " for i in ids)
 
-    pipe = ASRPipeline(model_dir, model_type="ctc", device="cuda", tokenizer=PieceTable())
+    pipe = ASRPipeline(model_dir, model_type="ctc", device="cuda", tokenizer=PieceTable(), numeric_profile="exact")
     if not pipe._use_fused:
         _fail("pipeline did not select the fused kernel path")
     requests = {
@@ -3259,7 +3561,7 @@ def main() -> None:
     trainer.save_checkpoint(state)
     final_dir = os.path.join(ckpt_dir, "final")
     save_params(state.model, final_dir)
-    trained_pipe = ASRPipeline(final_dir, model_type="ctc", tokenizer=PieceTable())
+    trained_pipe = ASRPipeline(final_dir, model_type="ctc", tokenizer=PieceTable(), numeric_profile="exact")
     trained_request = {"trained model, 1 utt (6 s)": [speech(6.0, rng)]}
     served = trained_pipe(trained_request["trained model, 1 utt (6 s)"])
     torch.cuda.synchronize()
@@ -3568,10 +3870,14 @@ def main() -> None:
         LayerNorms, 9 GEMMs and one of each other layer kernel; one log-mel
         launch; no conv1: the model's own front end), then every request
         against the plain path. Returns (the launches summed over the
-        requests, valid frames, frames whose greedy ids agree)."""
+        requests, valid frames, frames whose greedy ids agree). Then the first
+        request once more in the serving profile: its serving kernels launched
+        (per layer 3 GELU epilogues with a GELU ``hidden_act``, else 1, and the
+        serving attention), no exact attention, against the serving plain path."""
         model_dir_ = os.path.join(ROOT, "build", f"chip_smoke_model_{cfg_.hidden_size}")
         save_params(model_, model_dir_)
-        pipe_ = ASRPipeline(model_dir_, model_type="ctc", device="cuda", tokenizer=PieceTable())
+        pipe_ = ASRPipeline(model_dir_, model_type="ctc", device="cuda", tokenizer=PieceTable(),
+                            numeric_profile="exact")
         if not pipe_._use_fused:
             _fail(f"the pipeline did not select the fused kernel path for the {title} config")
         pipe_(next(iter(requests.values()))[:1])  # first call: warm the allocator
@@ -3594,6 +3900,21 @@ def main() -> None:
                     or got_l.get("asr_log_mel", 0) != 1 or got_l.get("asr_conv1", 0) != 0:
                 _fail(f"{name}: {len(texts)} transcripts, launches {got_l}, want {want} and one mel, no conv1")
         frames, agree = against_plain_path(pipe_, requests)
+        del pipe_
+        pipe_ = ASRPipeline(model_dir_, model_type="ctc", device="cuda", tokenizer=PieceTable(),
+                            numeric_profile="serving")
+        first = dict([next(iter(requests.items()))])
+        (name, audios), = first.items()
+        pipe_(audios[:1])  # warm-up
+        texts, got_s = count_launches(lambda: pipe_(audios), {})
+        n_l = cfg_.num_hidden_layers
+        want_s = {"asr_log_mel_bf16": 1, "asr_rel_attention_serving": n_l,
+                  "asr_gemm_gelu_serving": (3 if cfg_.hidden_act == "gelu" else 1) * n_l}
+        print(f"request {name}, serving profile: launches {got_s}", flush=True)
+        if len(texts) != len(audios) or any(got_s.get(k, 0) != v for k, v in want_s.items()) \
+                or "asr_rel_attention" in got_s:
+            _fail(f"{name}, serving: {len(texts)} transcripts, launches {got_s}, want {want_s}")
+        against_plain_path(pipe_, first)
         del pipe_
         torch.cuda.empty_cache()
         return summed, frames, agree
@@ -3816,6 +4137,7 @@ def main() -> None:
     recipe_launches = recipe_phase(dev, smi)
     variant_launches = variants_phase(dev, smi, compare)
     stats_launches, pg_launches = tools_phase(dev, smi)
+    serving_launches, high_launches, gate_counts = serving_phase(dev, smi, compare, fused, model_dir, requests)
 
     if failures:
         _fail(f"kernel phases outside tolerance: {failures}")
@@ -3872,9 +4194,21 @@ def main() -> None:
     }
     variant_routes.update(dwconv_csgu_conv_b128=variant_routes["dwconv_csgu_conv"],
                           gemm_gate_m32768=variant_routes["gemm_gate"])
+    serving_routes = {
+        "mel_bf16": ("asr_log_mel_bf16", "csrc/mel_bf16.cu", routes["mel"][2]),
+        "conv1_serving": ("asr_conv1_serving", "csrc/subsample.cu", routes["conv1"][2]),
+        "conv2_serving": ("asr_conv2_serving", "csrc/conv2.cu", routes["conv2"][2]),
+        "gemm_gelu_serving": ("asr_gemm_gelu_serving", "csrc/gemm.cuh", routes["gemm"][2]),
+        "rel_attention_serving": ("asr_rel_attention_serving", "csrc/rel_attention.cu", routes["gemm"][2]),
+    }
+    serving_routes.update(mel_bf16_b128=serving_routes["mel_bf16"], conv1_serving_b128=serving_routes["conv1_serving"],
+                          gemm_gelu_serving_m32768=serving_routes["gemm_gelu_serving"])
+    # the high mode is on no served route: its launches are a MelFrontEnd(matmul_precision="high") call's
+    high_routes = {k: ("asr_log_mel_high", "csrc/mel_bf16.cu", routes["mel"][2]) for k in ("mel_high", "mel_high_b128")}
     kernels = []
     for table, counts in ((routes, launches), (narrow_routes, narrow_launches), (wide_routes, wide_launches),
-                          (variant_routes, variant_launches)):
+                          (variant_routes, variant_launches), (serving_routes, serving_launches),
+                          (high_routes, high_launches)):
         for name, (counter, src, replaces) in table.items():
             kernels.append({
                 "name": name, "route": "cuda", "source": f"huggingface_asr_tpu_torch/{src}",
@@ -3887,6 +4221,7 @@ def main() -> None:
                 "process_group_launches": pg_launches.get(counter, 0),
             })
     print(f"AED path launches a request (K2 and K1): {aed_launches}")
+    print(f"gate model on the card, id sequences equal to JAX's: {gate_counts}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

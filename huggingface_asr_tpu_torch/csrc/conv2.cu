@@ -62,6 +62,8 @@ struct Maps {
     CUtensorMap w;
 };
 
+// SERVING: the serving profile's GELU (common.cuh::gelu_serving) in place of gelu_erf.
+template <bool SERVING>
 __global__ void __launch_bounds__(384, 1)
 conv2_kernel(const __grid_constant__ Maps maps, const float* __restrict__ b2,
              bf16* __restrict__ y2, int T2, int F2, int frames) {
@@ -134,7 +136,7 @@ conv2_kernel(const __grid_constant__ Maps maps, const float* __restrict__ b2,
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const float x = round_bf(round_bf(acc[4 * j + e]) + (e % 2 ? bias.y : bias.x));
-                v[e] = gelu_erf(x);
+                v[e] = SERVING ? gelu_serving(x) : gelu_erf(x);
             }
             if (row < rows) *reinterpret_cast<uint32_t*>(out_a + 8 * j) = pack_bf16(v[0], v[1]);
             if (row + 8 < rows) *reinterpret_cast<uint32_t*>(out_b + 8 * j) = pack_bf16(v[2], v[3]);
@@ -146,9 +148,9 @@ conv2_kernel(const __grid_constant__ Maps maps, const float* __restrict__ b2,
 
 // y2[B*T2*F2, C] = GELU(bf16(bf16(conv2(y1)) + b2)); y1: [B, T1, F1, C] bf16;
 // w2: [9*C, C] bf16, rows (kt, kf, c); b2: [C] fp32. C must be 256, F1 even,
-// F2 = F1 / 2 <= 128.
+// F2 = F1 / 2 <= 128. serving 1: the serving profile's GELU.
 ASR_API int asr_conv2(const void* y1, const void* w2, const void* b2, void* y2, int B, int T1,
-                      int F1, int Cn, int T2, int F2, void* stream) {
+                      int F1, int Cn, int T2, int F2, int serving, void* stream) {
     if (Cn != C || F1 % 2 || F2 != F1 / 2 || F2 < 1 || F2 > BM || T1 < 2 || B < 1 || T2 < 1 || B > 65535)
         return (int)cudaErrorInvalidValue;
     const int frames = BM / F2;  // whole output frames in a tile of at most BM rows
@@ -171,10 +173,11 @@ ASR_API int asr_conv2(const void* y1, const void* w2, const void* b2, void* y2, 
     const cuuint32_t box[2] = {64, BK};
     err = tensor_map_bf16(&maps.w, w2, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(conv2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    auto kernel = serving ? conv2_kernel<true> : conv2_kernel<false>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(ceil_div(T2, frames), B);
-    conv2_kernel<<<grid, 384, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<grid, 384, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
         maps, static_cast<const float*>(b2), static_cast<bf16*>(y2), T2, F2, frames);
     return (int)cudaGetLastError();
 }

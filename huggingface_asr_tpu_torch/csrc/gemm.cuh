@@ -51,7 +51,8 @@
 // Rounding points (one numeric contract, the TPU kernels'):
 //   round_first = 0 (K1's `_mm`):        v = bf16(acc + bias)
 //   round_first = 1 (K2's conv/dense):   v = bf16(bf16(acc) + bias)
-//   then, if act:      v = bf16(act(v))
+//   then, if act:      v = bf16(act(v))   (act ACT_GELU_SERVING: the serving
+//                      profile's GELU, common.cuh::gelu_serving, value by value)
 //   then, if residual: v = bf16(res + alpha * v)
 //   or, if gate:       v = bf16(res * v)   (K1's CSGU linear: res is x_r)
 //   dual output (Q):   out2 = bf16(acc + bias2) for columns < n2
@@ -519,6 +520,7 @@ cudaError_t launch_tile(const bf16* A, int lda, const bf16* B, int ldb, int M, i
         case ACT_GELU_TANH: return launch_kernel<ACT_GELU_TANH>(T(), maps, M, N, K, e, stream);
         case ACT_RELU: return launch_kernel<ACT_RELU>(T(), maps, M, N, K, e, stream);
         case ACT_SILU: return launch_kernel<ACT_SILU>(T(), maps, M, N, K, e, stream);
+        case ACT_GELU_SERVING: return launch_kernel<ACT_GELU_SERVING>(T(), maps, M, N, K, e, stream);
         default: return cudaErrorInvalidValue;
     }
 }

@@ -11,6 +11,12 @@
 //                                                          row stays finite)
 //   out[t]   = sum_s' bf16(exp2(s - m)) v[s'] / sum_s' exp2(s - m)
 //
+// Under the serving profile (SERVING, pallas_layer.py's SOFTMAX_Z_MODE "mxu")
+// the normaliser is sum_s' bf16(exp2(s - m)): the running row sum adds the
+// same bf16-rounded probabilities that enter P.V (read back from their packed
+// pairs), rescaled online as the fp32 sum is; the output is still divided
+// once, at the end.
+//
 // Head width dh = 32 or 64 (a template parameter; a head of another size is
 // padded with zero columns in the folded weights, kernels/layer.py), q_rot
 // width D in whole 64-column chunks (padded there too), at most 512: past 256
@@ -61,7 +67,7 @@ __device__ __forceinline__ float masked(float raw, int col, int len, int T) {
     return col < len ? raw : raw + MASK_NEG;
 }
 
-template <int DH, bool WIDE>
+template <int DH, bool WIDE, bool SERVING>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 rel_attention_kernel(const __grid_constant__ Maps maps, const int* __restrict__ lengths,
                      bf16* __restrict__ out, int ld_o, int T, int H, int D) {
@@ -140,9 +146,15 @@ rel_attention_kernel(const __grid_constant__ Maps maps, const int* __restrict__ 
         for (int j = 0; j < 8; ++j) {
             const float a0 = exp2f(s[4 * j] - new_a), a1 = exp2f(s[4 * j + 1] - new_a);
             const float b0 = exp2f(s[4 * j + 2] - new_b), b1 = exp2f(s[4 * j + 3] - new_b);
-            sum_a += a0 + a1;
-            sum_b += b0 + b1;
             pack_p(pd, j, a0, a1, b0, b1);
+            if constexpr (SERVING) {
+                const uint32_t pa = pd[j / 2][2 * (j % 2)], pb = pd[j / 2][2 * (j % 2) + 1];
+                sum_a += bf16_lo(pa) + bf16_hi(pa);
+                sum_b += bf16_lo(pb) + bf16_hi(pb);
+            } else {
+                sum_a += a0 + a1;
+                sum_b += b0 + b1;
+            }
         }
         l_a = l_a * alpha_a + sum_a;
         l_b = l_b * alpha_b + sum_b;
@@ -164,14 +176,15 @@ rel_attention_kernel(const __grid_constant__ Maps maps, const int* __restrict__ 
 
 ASR_API int asr_rel_attention(const void* q_u, const void* k, const void* v, const void* q_rot,
                               const void* k_std, const void* lengths, void* out, int B, int T,
-                              int H, int dh, int D, int ld_qkv, int ld_o, void* stream) {
+                              int H, int dh, int D, int ld_qkv, int ld_o, int serving, void* stream) {
     return with_head_width(dh, [&](auto head) {
         constexpr int DH = decltype(head)::value;
         if (T < 1 || !supported<DH>(B, H, D) || ld_qkv % 8 != 0 || ld_qkv < H * DH || ld_o % 2 != 0)
             return static_cast<int>(cudaErrorInvalidValue);
         Maps maps;
         cudaError_t err = make_maps<DH>(&maps, q_u, q_rot, k, v, k_std, B, T, H, D, ld_qkv);
-        auto kernel = wide_path(D) ? rel_attention_kernel<DH, true> : rel_attention_kernel<DH, false>;
+        auto kernel = wide_path(D) ? (serving ? rel_attention_kernel<DH, true, true> : rel_attention_kernel<DH, true, false>)
+                                   : (serving ? rel_attention_kernel<DH, false, true> : rel_attention_kernel<DH, false, false>);
         if (err == cudaSuccess) err = allow_smem<DH>(kernel, D);
         if (err != cudaSuccess) return static_cast<int>(err);
         kernel<<<grid(B, T, H), BLOCK_THREADS, block_smem<DH>(D), static_cast<cudaStream_t>(stream)>>>(

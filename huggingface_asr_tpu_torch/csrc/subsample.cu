@@ -31,11 +31,12 @@
 //     bf16 in pairs (cvt.rn.bf16x2) and take the bias in one bf16x2 add,
 //     which rounds as the fp32 add and second rounding do;
 //   * the GELU of a bf16 value is a function of its 16 bits: each block
-//     tabulates gelu_erf (common.cuh), rounded to bf16, for every bf16 of
+//     tabulates gelu_erf (common.cuh; gelu_serving under the serving
+//     profile), rounded to bf16, for every bf16 of
 //     magnitude in [2^-24, 2^8), both signs, in shared memory; one check on
 //     the packed pairs of two outputs sends a lane whose values all lie in
 //     the table to eight lookups, else each value outside it (zero, tiny,
-//     huge, inf, NaN) takes gelu_erf itself, so the output is the same
+//     huge, inf, NaN) takes the GELU itself, so the output is the same
 //     function bit for bit;
 //   * a lane writes its 4 channels as one 8-byte store, a warp 256
 //     contiguous bytes.
@@ -65,8 +66,9 @@ constexpr uint32_t STAGE_OFF = G_N * 2;       // byte offset of the warps' mel r
 constexpr uint32_t SMEM_BYTES = TABLE_NEG + G_N * 2;
 static_assert(STAGE_OFF + WARPS * 3 * ROW_LD * 4 <= TABLE_NEG, "the mel rows must fit the table's gap");
 
-__device__ __forceinline__ uint32_t gelu_bits(float v) {
-    const bf16 y = to_bf(gelu_erf(v));
+// The GELU of v rounded to bf16, as bits: gelu_erf, or the serving profile's.
+__device__ __forceinline__ uint32_t gelu_bits(float v, int serving) {
+    const bf16 y = to_bf(serving ? gelu_serving(v) : gelu_erf(v));
     return *reinterpret_cast<const unsigned short*>(&y);
 }
 
@@ -92,16 +94,18 @@ __device__ __forceinline__ uint32_t entry_hi(uint32_t base, uint32_t q) {
 }
 
 // The GELU of the bf16 value with bits `bits`: from the table (its entry for
-// bits at base + 2 * bits) where it holds the value, else gelu_erf itself.
-__device__ __forceinline__ uint32_t gelu_of_bits(uint32_t base, uint32_t bits) {
-    return ((bits - G_LO) & 0x7000u) == 0 ? lds_u16(base + 2 * bits) : gelu_bits(__uint_as_float(bits << 16));
+// bits at base + 2 * bits) where it holds the value, else the GELU itself.
+__device__ __forceinline__ uint32_t gelu_of_bits(uint32_t base, uint32_t bits, int serving) {
+    return ((bits - G_LO) & 0x7000u) == 0 ? lds_u16(base + 2 * bits)
+                                          : gelu_bits(__uint_as_float(bits << 16), serving);
 }
 
 // mel: [B, T_in, F] bf16; w1: [9, C1] bf16 ((kt, kf) major); b1: [C1] fp32;
-// y1: [B, T1, F1, C1] bf16 with T1 = (T_in - 1) / 2 + 1, F1 = F / 2.
+// y1: [B, T1, F1, C1] bf16 with T1 = (T_in - 1) / 2 + 1, F1 = F / 2;
+// serving: 1 for the serving profile's GELU.
 __global__ void __launch_bounds__(WARPS * 32, 1)
 conv1_kernel(const bf16* __restrict__ mel, const bf16* __restrict__ w1, const float* __restrict__ b1,
-             bf16* __restrict__ y1, int B, int T_in, int T1, int F) {
+             bf16* __restrict__ y1, int B, int T_in, int T1, int F, int serving) {
     extern __shared__ __align__(16) unsigned char smem[];
     unsigned short* tab = reinterpret_cast<unsigned short*>(smem);
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -109,7 +113,7 @@ conv1_kernel(const bf16* __restrict__ mel, const bf16* __restrict__ w1, const fl
 
     for (uint32_t i = threadIdx.x; i < 2 * G_N; i += blockDim.x) {
         const uint32_t d = i < G_N ? i : 0x8000u + (i - G_N);
-        tab[d] = (unsigned short)gelu_bits(__uint_as_float(((G_LO + d) & 0xFFFFu) << 16));
+        tab[d] = (unsigned short)gelu_bits(__uint_as_float(((G_LO + d) & 0xFFFFu) << 16), serving);
     }
     // this warp's channels: group warp % GROUPS, CPL consecutive ones a lane
     const int c0 = (warp % GROUPS) * 32 * CPL + CPL * lane;
@@ -202,7 +206,8 @@ conv1_kernel(const bf16* __restrict__ mel, const bf16* __restrict__ w1, const fl
             } else {
 #pragma unroll
                 for (int j = 0; j < 2 * P; ++j)
-                    y[j] = __byte_perm(gelu_of_bits(base, q[j] & 0xFFFFu), gelu_of_bits(base, q[j] >> 16), 0x5410);
+                    y[j] = __byte_perm(gelu_of_bits(base, q[j] & 0xFFFFu, serving),
+                                       gelu_of_bits(base, q[j] >> 16, serving), 0x5410);
             }
             // a lane's 4 outputs of each position as one 8-byte store
             *reinterpret_cast<uint2*>(out + (size_t)f1 * C1) = make_uint2(y[0], y[1]);
@@ -214,9 +219,9 @@ conv1_kernel(const bf16* __restrict__ mel, const bf16* __restrict__ w1, const fl
 }  // namespace
 
 // Takes C == 256 and F % 8 == 0, F <= 128 (the wrapper's tensors are
-// contiguous and 16-byte aligned).
+// contiguous and 16-byte aligned); serving 1 tabulates the serving profile's GELU.
 ASR_API int asr_conv1(const void* mel, const void* w1, const void* b1, void* y1, int B, int T_in,
-                      int T1, int F, int C, void* stream) {
+                      int T1, int F, int C, int serving, void* stream) {
     if (C != C1 || F < 8 || F > F_MAX || F % 8 || B < 1 || T_in < 1 || T1 != (T_in - 1) / 2 + 1)
         return static_cast<int>(cudaErrorInvalidValue);
     int dev = 0, sms = 0;
@@ -231,6 +236,6 @@ ASR_API int asr_conv1(const void* mel, const void* w1, const void* b1, void* y1,
     const int blocks = need < sms ? (int)need : sms;
     conv1_kernel<<<blocks, WARPS * 32, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const bf16*>(mel), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-        static_cast<bf16*>(y1), B, T_in, T1, F);
+        static_cast<bf16*>(y1), B, T_in, T1, F, serving);
     return static_cast<int>(cudaGetLastError());
 }

@@ -30,10 +30,19 @@ that of the unpadded layer (the scale keeps the true 1/sqrt(dh)).
 Numeric contract (each piece states its own rounding points; they are the
 TPU kernel's): bf16 activations between pieces, fp32 accumulation inside,
 LayerNorm with flax's fast variance, biases added in fp32 before the bf16
-rounding. GELU is evaluated once in fp32 (``0.5 x erfc(-x/sqrt 2)``) and
-rounded once, where the TPU ``bitexact`` profile replays XLA's intermediate
-bf16 roundings; the two differ by 1-2 bf16 ulp on some elements, which is
-what the tests' bf16 tolerances absorb.
+rounding. The numeric profile is an argument, one of ``PROFILES``:
+
+* ``"exact"`` (the default everywhere): GELU is evaluated once in fp32
+  (``0.5 x erfc(-x/sqrt 2)``) and rounded once, where the TPU ``bitexact``
+  profile replays XLA's intermediate bf16 roundings; the two differ by 1-2
+  bf16 ulp on some elements, which is what the tests' bf16 tolerances absorb.
+  The attention normaliser is the fp32 sum of the probabilities.
+* ``"serving"``: the JAX package's ``set_numeric_profile("serving")``
+  (pallas_layer.py:266-289): the model's GELUs (the macaron FFs' when
+  ``hidden_act`` is "gelu", channel_proj1's) are the A&S 7.1.27 GELU
+  (``act_plain("gelu_serving")``, ``csrc/common.cuh::gelu_serving``), and
+  the attention normaliser sums the bf16-rounded probabilities that enter
+  P.V (SOFTMAX_Z_MODE "mxu"). The CSGU's activation stays fp32, as in JAX.
 """
 
 from __future__ import annotations
@@ -49,7 +58,10 @@ from huggingface_asr_tpu_torch.kernels import _build
 from huggingface_asr_tpu_torch.kernels.attention import HEAD_WIDTHS, ROT_MAX, head_width
 from huggingface_asr_tpu_torch.models.ebranchformer import relpos_tables
 
-ACT_CODES = {"identity": 0, "gelu": 1, "gelu_new": 2, "relu": 3, "swish": 4, "silu": 4}
+ACT_CODES = {"identity": 0, "gelu": 1, "gelu_new": 2, "relu": 3, "swish": 4, "silu": 4}  # the configs' names
+# the GEMM epilogue's codes: the configs' activations and the serving profile's GELU, which no config names
+GEMM_ACT_CODES = {**ACT_CODES, "gelu_serving": 5}
+PROFILES = ("exact", "serving")
 NEG_INF = -1.0e9
 _SQRT_HALF = 0.7071067811865476
 BF16, F32 = torch.bfloat16, torch.float32
@@ -68,10 +80,41 @@ def rot_width(D: int) -> int:
     return -(-D // ROT_CHUNK) * ROT_CHUNK
 
 
+def check_profile(profile: str) -> str:
+    if profile not in PROFILES:
+        raise ValueError(f"numeric profile {profile!r}: one of {PROFILES}")
+    return profile
+
+
+def profile_act(name: str, profile: str) -> str:
+    """The activation a GELU of the model runs under ``profile``."""
+    return "gelu_serving" if check_profile(profile) == "serving" and name == "gelu" else name
+
+
+_ERFC4 = (0.078108, 0.000972, 0.230389, 0.278393)  # A&S 7.1.27's a4 .. a1
+
+
+def erfc4(u: torch.Tensor) -> torch.Tensor:
+    """``csrc/common.cuh::erfc4`` on fp32 values, one IEEE operation at a
+    time in the same order (PyTorch fuses no multiply-add here), so that the
+    kernels' bits are the same: A&S 7.1.27 with the JAX serving profile's
+    clamps (``pallas_layer.py::_erfc_rational4``)."""
+    ax = u.abs()
+    p = ax * _ERFC4[0] + _ERFC4[1]
+    for a in _ERFC4[2:]:
+        p = p * ax + a
+    p = torch.clamp(p * ax + 1.0, max=1.0e9)
+    p2 = p * p
+    inv = torch.where(ax > 10.06, 0.0, 1.0 / (p2 * p2))
+    return torch.where(u >= 0, inv, 2.0 - inv)
+
+
 def act_plain(name: str, x: torch.Tensor) -> torch.Tensor:
     """Activations in fp32, as ``csrc/common.cuh::apply_act``."""
     if name == "gelu":
         return 0.5 * x * torch.special.erfc(-x * _SQRT_HALF)
+    if name == "gelu_serving":
+        return (0.5 * x) * erfc4(x * -_SQRT_HALF)
     if name == "gelu_new":
         return F.gelu(x, approximate="tanh")
     if name == "relu":
@@ -184,7 +227,9 @@ def gemm(a, w, bias=None, *, act="identity", residual=None, alpha=1.0, bias2=Non
     buffer, whose other columns and rows are left untouched. ``gate`` (a view
     with a row stride is fine) runs the gate epilogue, ``asr_gemm_gate_bf16``
     (counted under that name), and takes neither ``residual`` nor ``bias2``.
-    What the kernel takes is ``gemm_contract``'s to say; anything else raises."""
+    ``act="gelu_serving"`` (the serving profile's GELU) is counted under
+    ``asr_gemm_gelu_serving``. What the kernel takes is ``gemm_contract``'s to
+    say; anything else raises."""
     tensors = [t for t in (a, w, bias, residual, bias2, out, gate) if t is not None]
     if not _build.on_cuda(*tensors):
         return gemm_plain(a, w, bias, act=act, residual=residual, alpha=alpha, bias2=bias2,
@@ -206,7 +251,7 @@ def gemm(a, w, bias=None, *, act="identity", residual=None, alpha=1.0, bias2=Non
     if gate is not None:
         _build.launch("asr_gemm_gate_bf16", "pppppiiiiiiii", a.data_ptr(), w.data_ptr(),
                       None if bias is None else bias.data_ptr(), out.data_ptr(), gate.data_ptr(), M, N, K,
-                      lda, N, ldo, gate.stride(0), ACT_CODES[act])
+                      lda, N, ldo, gate.stride(0), GEMM_ACT_CODES[act])
         return out
     ldr = residual.stride(0) if residual is not None else 0
     out2, n2, ldo2 = None, 0, 0
@@ -218,7 +263,8 @@ def gemm(a, w, bias=None, *, act="identity", residual=None, alpha=1.0, bias2=Non
     ptr = lambda t: t.data_ptr() if t is not None else None
     _build.launch("asr_gemm_bf16", "pppppppiiiiiiiiiiif", a.data_ptr(), w.data_ptr(), ptr(bias),
                   ptr(bias2), out.data_ptr(), ptr(out2), ptr(residual), M, N, K, lda, N, ldo,
-                  ldo2, ldr, n2, ACT_CODES[act], int(round_first), float(alpha))
+                  ldo2, ldr, n2, GEMM_ACT_CODES[act], int(round_first), float(alpha),
+                  label="asr_gemm_gelu_serving" if act == "gelu_serving" else None)
     return (out, out2) if bias2 is not None else out
 
 
@@ -304,21 +350,24 @@ def pos_query(q_v, wp, rot_cos, rot_sin, T: int) -> torch.Tensor:
 # attention's forward, without dropout)
 
 
-def rel_attention_plain(q_u, k, v, q_rot, k_std, lengths) -> torch.Tensor:
+def rel_attention_plain(q_u, k, v, q_rot, k_std, lengths, profile: str = "exact") -> torch.Tensor:
     """softmax2(q_u.k + q_rot.k_std + mask) @ v, normalised after P.V.
 
     q_u, k, v: (B, T, H, dh) bf16 (views allowed); q_rot: (B, T, H, D) bf16;
     k_std: (T, D) bf16; lengths: (B,) int32. Scores are log2-scaled (the
     scales are folded into the query weights); keys at or past an
-    utterance's length get the finite -1e9. -> (B, T, H, dh) bf16."""
+    utterance's length get the finite -1e9. The normaliser is the fp32 sum
+    of the probabilities, or under ``profile="serving"`` the sum of the same
+    bf16-rounded probabilities that enter P.V. -> (B, T, H, dh) bf16."""
     B, T, H, dh = q_u.shape
     s = (torch.einsum("bthd,bshd->bhts", q_u.to(F32), k.to(F32))
          + torch.einsum("bthD,sD->bhts", q_rot.to(F32), k_std.to(F32)))
     col = torch.arange(T, device=q_u.device)
     s = s + torch.where(col[None, :] < lengths[:, None].to(col.dtype), 0.0, NEG_INF)[:, None, None, :]
     e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
-    z = e.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhts,bshd->bhtd", e.to(BF16).to(F32), v.to(F32)) * (1.0 / z)
+    p = _round(e)
+    z = (p if check_profile(profile) == "serving" else e).sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhts,bshd->bhtd", p, v.to(F32)) * (1.0 / z)
     return o.permute(0, 2, 1, 3).to(BF16).contiguous()
 
 
@@ -330,15 +379,17 @@ def rel_attention_width_ok(D: int) -> bool:
     return D % ROT_CHUNK == 0 and ROT_CHUNK <= D <= ROT_MAX
 
 
-def rel_attention(q_u, k, v, q_rot, k_std, lengths) -> torch.Tensor:
+def rel_attention(q_u, k, v, q_rot, k_std, lengths, profile: str = "exact") -> torch.Tensor:
     """``rel_attention_plain``; CUDA tensors run ``csrc/rel_attention.cu``
     (wgmma out of TMA-filled shared memory, one walk with an online softmax).
     The kernel takes a head width of 32 or 64 and a q_rot width D that is a
     multiple of 64, at most 512 (the layer passes the padded operands of
     ``fold_layer_weights``); q_u, k, v may be column views of one (B*T, 3*H*dh)
-    buffer, which the kernel's tensor maps read in place."""
+    buffer, which the kernel's tensor maps read in place. ``profile="serving"``
+    runs the kernel's serving normaliser, counted as ``asr_rel_attention_serving``."""
+    serving = check_profile(profile) == "serving"
     if not _build.on_cuda(q_u, k, v, q_rot, k_std, lengths):
-        return rel_attention_plain(q_u, k, v, q_rot, k_std, lengths)
+        return rel_attention_plain(q_u, k, v, q_rot, k_std, lengths, profile)
     B, T, H, dh = q_u.shape
     D = q_rot.shape[-1]
     if dh not in HEAD_WIDTHS:
@@ -354,9 +405,10 @@ def rel_attention(q_u, k, v, q_rot, k_std, lengths) -> torch.Tensor:
     _build.check(k_std, "k_std", BF16, (T, D))
     _build.check(lengths, "lengths", torch.int32, (B,))
     out = torch.empty(B, T, H, dh, dtype=BF16, device=q_u.device)
-    _build.launch("asr_rel_attention", "pppppppiiiiiii", q_u.data_ptr(), k.data_ptr(),
+    _build.launch("asr_rel_attention", "pppppppiiiiiiii", q_u.data_ptr(), k.data_ptr(),
                   v.data_ptr(), q_rot.data_ptr(), k_std.data_ptr(), lengths.data_ptr(),
-                  out.data_ptr(), B, T, H, dh, D, ld, H * dh)
+                  out.data_ptr(), B, T, H, dh, D, ld, H * dh, int(serving),
+                  label="asr_rel_attention_serving" if serving else None)
     return out
 
 
@@ -610,10 +662,10 @@ KERNEL_OPS = types.SimpleNamespace(
 )
 
 
-def _layer(x, lengths, w, cfg, t_valid, tables, ops):
+def _layer(x, lengths, w, cfg, t_valid, tables, ops, profile):
     B, T, D = x.shape
     H = cfg.num_attention_heads
-    M, eps, act = B * T, cfg.layer_norm_eps, cfg.hidden_act
+    M, eps, act = B * T, cfg.layer_norm_eps, profile_act(cfg.hidden_act, profile)
     hw, d_rot = w["wp"].shape[2], tables["k_std"].shape[1]  # the fold's padded widths
     xf = x.reshape(M, D)
 
@@ -629,13 +681,13 @@ def _layer(x, lengths, w, cfg, t_valid, tables, ops):
     q_rot = ops.pos_query(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"], T)
     heads = lambda i: qkv[:, i * H * hw:(i + 1) * H * hw].view(B, T, H, hw)
     attn = ops.rel_attention(heads(0), heads(1), heads(2), q_rot.view(B, T, H, d_rot),
-                             tables["k_std"], lengths)
+                             tables["k_std"], lengths, profile)
     merged = torch.empty(M, 2 * D, dtype=BF16, device=x.device)
     ops.gemm(attn.view(M, H * hw), w["wo"], w["bo"], out=merged[:, :D])
 
-    # cgMLP branch (channel_proj1 is always exact GELU)
+    # cgMLP branch (channel_proj1 is always the profile's GELU)
     l = ops.layer_norm(xf, w["cg_ln_g"], w["cg_ln_b"], eps)
-    l = ops.gemm(l, w["cg_w1"], w["cg_b1"], act="gelu")
+    l = ops.gemm(l, w["cg_w1"], w["cg_b1"], act=profile_act("gelu", profile))
     if "csgu_lin_w" in w:
         # the CSGU linear between the conv and the gate (pallas_layer.py:578-583)
         conv = ops.csgu_conv(l, w["csgu_ln_g"], w["csgu_ln_b"], w["csgu_dw"], w["csgu_dw_b"], B, T, t_valid, eps)
@@ -664,16 +716,17 @@ def _check_layer_args(x, w, cfg):
         raise ValueError("the folded weights and the config disagree on csgu_use_linear_after_conv")
 
 
-def ebranchformer_layer_plain(x, lengths, w, cfg, t_valid: int, tables) -> torch.Tensor:
+def ebranchformer_layer_plain(x, lengths, w, cfg, t_valid: int, tables, profile: str = "exact") -> torch.Tensor:
     """One inference layer in plain PyTorch on any device. x: (B, T, D) bf16,
     lengths: (B,) int32 key lengths; rows >= t_valid are masked out of both
-    depthwise convs (padding rows below it are not re-zeroed)."""
+    depthwise convs (padding rows below it are not re-zeroed). ``profile``:
+    one of ``PROFILES`` (the module docstring)."""
     _check_layer_args(x, w, cfg)
-    return _layer(x, lengths, w, cfg, t_valid, tables, PLAIN_OPS)
+    return _layer(x, lengths, w, cfg, t_valid, tables, PLAIN_OPS, check_profile(profile))
 
 
-def ebranchformer_layer(x, lengths, w, cfg, t_valid: int, tables) -> torch.Tensor:
+def ebranchformer_layer(x, lengths, w, cfg, t_valid: int, tables, profile: str = "exact") -> torch.Tensor:
     """``ebranchformer_layer_plain`` on CPU tensors; on CUDA tensors every
     piece runs its kernel."""
     _check_layer_args(x, w, cfg)
-    return _layer(x, lengths, w, cfg, t_valid, tables, KERNEL_OPS)
+    return _layer(x, lengths, w, cfg, t_valid, tables, KERNEL_OPS, check_profile(profile))

@@ -4,10 +4,21 @@ and CUDA kernels (counterpart of ``huggingface_asr_tpu/ops/pallas_features.py``)
 DC removal, pre-emphasis, the povey window and the 2^15 waveform scale are
 linear per-frame operators, folded (in float64 numpy, as the JAX package
 does) into the cos|sin DFT bases; the all-zero Nyquist bin is dropped. The
-kernel (``csrc/mel.cu``) then computes the DFT in fp32 FFMA (register tiles,
-each sum in k order as the cuBLAS fp32 product takes it), the power, the mel
-product and the log; a second kernel applies utterance CMVN with length
-masking and writes bf16 — the input the conv subsampler takes.
+DFT runs in one of the TPU kernel's three modes (``LogMelConfig.
+matmul_precision``, ``MEL_MODES``):
+
+* ``"highest"``: fp32. ``csrc/mel.cu`` computes it in fp32 FFMA (register
+  tiles, each sum in k order as the cuBLAS fp32 product takes it);
+* ``"bf16"``: one bf16 product, ``bf16(waveform) @ bf16(bases)`` with fp32
+  sums (the JAX serving path's front end);
+* ``"high"``: three bf16 products, ``hi.hi + hi.lo + lo.hi`` of the split
+  operands (``_split_hi_lo``), the lo.lo term dropped.
+
+The last two run ``csrc/mel_bf16.cu`` (mma.sync on the tensor cores); their
+plain version takes the products band by band, in the TPU kernel's order
+(hop-row bands of ``hop`` samples). Then the power, the fp32 mel product and
+the log; a second kernel applies utterance CMVN with length masking and
+writes bf16 — the input the conv subsampler takes.
 
 ``MelFrontEnd`` is the counterpart of ``PallasLogMelFrontEnd``; the plain
 ``ops/features.py::LogMelFrontEnd`` computes the same features unfolded.
@@ -30,6 +41,7 @@ from huggingface_asr_tpu_torch.ops.features import (
 )
 
 BF16, F32 = torch.bfloat16, torch.float32
+MEL_MODES = ("highest", "high", "bf16")
 
 
 def folded_bases(cfg: LogMelConfig) -> Tuple[np.ndarray, np.ndarray]:
@@ -65,13 +77,57 @@ def folded_bases(cfg: LogMelConfig) -> Tuple[np.ndarray, np.ndarray]:
     )
 
 
+def _split_hi_lo(a: torch.Tensor):
+    """(hi, lo) bf16: hi = a rounded to nearest even, lo = bf16(a - hi)
+    (``pallas_features.py::_split_hi_lo``)."""
+    hi = a.to(BF16)
+    return hi, (a - hi.to(F32)).to(BF16)
+
+
+def split_bases(dft: np.ndarray, mode: str) -> torch.Tensor:
+    """The bf16 bases of ``mode`` as the kernel reads them: (P, 2*bins, L),
+    a row per output column, P = 1 (hi) for "bf16", 2 (hi, lo) for "high"."""
+    hi, lo = _split_hi_lo(torch.as_tensor(dft, dtype=F32).t().contiguous())
+    return torch.stack([hi] if mode == "bf16" else [hi, lo])
+
+
+def _check_mode(mode: str) -> str:
+    if mode not in MEL_MODES:
+        raise ValueError(f"matmul_precision {mode!r}: the log-mel front end takes {MEL_MODES}")
+    return mode
+
+
+def _round(x: torch.Tensor) -> torch.Tensor:
+    return x.to(BF16).to(x.dtype)
+
+
 def log_mel_plain(wav: torch.Tensor, n_frames: int, dft: torch.Tensor, mel: torch.Tensor,
-                  hop: int, floor: float) -> torch.Tensor:
-    """wav (B, S) f32 -> (B, n_frames, n_mel) f32 log-mel from the folded bases."""
-    L, two_nb = dft.shape
+                  hop: int, floor: float, mode: str = "highest") -> torch.Tensor:
+    """wav (B, S) f32 -> (B, n_frames, n_mel) f32 log-mel from the folded bases:
+    ``dft`` (L, 2*bins) fp32 for "highest", ``split_bases``' (P, 2*bins, L)
+    bf16 for "bf16" and "high", whose products are taken band by band (``hop``
+    samples of the frame each), every product with fp32 sums, as the TPU
+    kernel takes them (pallas_features.py:129-158)."""
+    if _check_mode(mode) == "highest":
+        L, two_nb = dft.shape
+    else:
+        two_nb, L = dft.shape[1:]
     nb = two_nb // 2
     frames = wav.unfold(1, L, hop)[:, :n_frames]
-    coef = frames @ dft
+    if mode == "highest":
+        coef = frames @ dft
+    else:
+        x_hi = _round(frames)
+        x_lo = _round(frames - x_hi)
+        hi = dft[0].to(frames.dtype).t()
+        lo = dft[1].to(frames.dtype).t() if mode == "high" else None
+        coef = None
+        for j in range(0, L, hop):
+            band = slice(j, min(j + hop, L))
+            part = x_hi[..., band] @ hi[band]
+            if mode == "high":
+                part = part + x_hi[..., band] @ lo[band] + x_lo[..., band] @ hi[band]
+            coef = part if coef is None else coef + part
     power = coef[..., :nb] ** 2 + coef[..., nb:] ** 2
     return torch.log(torch.clamp(power @ mel, min=floor))
 
@@ -80,11 +136,15 @@ MEL_PASS_BINS, MEL_MAX_BINS = 64, 80  # the kernel's bins a pass; mel columns it
 
 
 def log_mel(wav: torch.Tensor, n_frames: int, dft: torch.Tensor, mel: torch.Tensor,
-            hop: int, floor: float) -> torch.Tensor:
-    """``log_mel_plain``; CUDA tensors run ``csrc/mel.cu::mel_kernel`` (any S;
-    bins in passes of 64, at most 80 mel bins)."""
+            hop: int, floor: float, mode: str = "highest") -> torch.Tensor:
+    """``log_mel_plain``; CUDA tensors run ``csrc/mel.cu::mel_kernel`` ("highest")
+    or ``csrc/mel_bf16.cu`` ("bf16", "high"; counted as ``asr_log_mel_bf16``
+    and ``asr_log_mel_high``): any S, bins in passes of 64, at most 80 mel
+    bins; the bf16 kernel also needs L and hop multiples of 16."""
     if not _build.on_cuda(wav, dft, mel):
-        return log_mel_plain(wav, n_frames, dft, mel, hop, floor)
+        return log_mel_plain(wav, n_frames, dft, mel, hop, floor, mode)
+    if _check_mode(mode) != "highest":
+        return _log_mel_bf16(wav, n_frames, dft, mel, hop, floor, mode)
     B, S = wav.shape
     L, two_nb = dft.shape
     nb, n_mel = mel.shape
@@ -101,6 +161,28 @@ def log_mel(wav: torch.Tensor, n_frames: int, dft: torch.Tensor, mel: torch.Tens
     out = torch.empty(B, n_frames, n_mel, dtype=F32, device=wav.device)
     _build.launch("asr_log_mel", "ppppiiiiiiif", wav.data_ptr(), dft.data_ptr(), mel.data_ptr(),
                   out.data_ptr(), B, S, n_frames, L, hop, nb, n_mel, float(floor))
+    return out
+
+
+def _log_mel_bf16(wav, n_frames, dft, mel, hop, floor, mode):
+    B, S = wav.shape
+    P, two_nb, L = dft.shape
+    nb, n_mel = mel.shape
+    if P != (2 if mode == "high" else 1) or two_nb != 2 * nb:
+        raise ValueError(f"dft must be ({2 if mode == 'high' else 1}, 2 * bins, L) for {mode!r}, "
+                         f"got {tuple(dft.shape)}")
+    if nb % MEL_PASS_BINS or n_mel > MEL_MAX_BINS or L % 16 or hop % 16:
+        raise ValueError(f"the bf16 mel kernel takes bins in passes of {MEL_PASS_BINS}, at most {MEL_MAX_BINS} "
+                         f"mel bins, and L and hop multiples of 16, got {nb}, {n_mel}, {L} and {hop}")
+    if n_frames < 1 or n_frames > 1 + (S - L) // hop:
+        raise ValueError(f"{n_frames} frames need more than {S} samples")
+    _build.check(wav, "wav", F32)
+    _build.check(dft, "dft", BF16)
+    _build.check(mel, "mel", F32)
+    out = torch.empty(B, n_frames, n_mel, dtype=F32, device=wav.device)
+    _build.launch("asr_log_mel_bf16", "ppppiiiiiiifi", wav.data_ptr(), dft.data_ptr(), mel.data_ptr(),
+                  out.data_ptr(), B, S, n_frames, L, hop, nb, n_mel, float(floor), int(mode == "high"),
+                  label=f"asr_log_mel_{mode}")
     return out
 
 
@@ -132,7 +214,10 @@ class MelFrontEnd:
     length masking in the second, bf16 features out; with ``"none"``
     (``fused_cmvn_bf16=False``) the log-mel kernel alone, fp32 out, padding
     frames zeroed. Global CMVN stays on ``ops.features.LogMelFrontEnd``, as
-    in JAX. The bases live on ``device``, folded once here.
+    in JAX. The DFT runs in ``config.matmul_precision`` (``MEL_MODES``; any
+    other value raises, as in JAX). The bases live on ``device``, folded once
+    here: ``dft`` fp32 (L, 2*bins) for "highest", ``split_bases``' bf16 for
+    the other two.
     """
 
     def __init__(self, config: LogMelConfig = LogMelConfig(), device=None):
@@ -140,8 +225,10 @@ class MelFrontEnd:
             raise NotImplementedError(
                 f"norm_type={config.norm_type!r}: use ops.features.LogMelFrontEnd")
         self.config = config
+        self.mode = _check_mode(config.matmul_precision)
         dft, mel = folded_bases(config)
-        self.dft = torch.as_tensor(dft, device=device)
+        self.dft = torch.as_tensor(dft, device=device) if self.mode == "highest" else \
+            split_bases(dft, self.mode).to(device)
         self.mel = torch.as_tensor(mel, device=device)
 
     def __call__(self, waveforms: torch.Tensor, lengths: Optional[torch.Tensor] = None, *,
@@ -161,7 +248,7 @@ class MelFrontEnd:
         feat_lengths = feat_lengths.to(torch.int32)
         wav = waveforms.to(F32).contiguous()
         mel_fn, cmvn_fn = (log_mel_plain, cmvn_plain) if plain else (log_mel, cmvn)
-        lm = mel_fn(wav, n_frames, self.dft, self.mel, cfg.hop_length, cfg.mel_floor)
+        lm = mel_fn(wav, n_frames, self.dft, self.mel, cfg.hop_length, cfg.mel_floor, self.mode)
         if cfg.norm_type == "none":
             mask = torch.arange(n_frames, device=dev)[None, :] < feat_lengths[:, None]
             return torch.where(mask[..., None], lm, 0.0), feat_lengths

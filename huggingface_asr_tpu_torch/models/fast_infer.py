@@ -16,7 +16,11 @@ conv and the GEMM's gate epilogue) in place of the CSGU conv.
 
 ``FusedCTC`` holds the folded kernel operands. They are folded once, from a
 loaded ``EBranchformerForCTC`` onto the target device; the relative-position
-tables are built once per padded length and cached.
+tables are built once per padded length and cached. It also holds the numeric
+profile (``kernels/layer.py::PROFILES``), which ``ctc_infer`` passes to every
+piece: ``"exact"`` (the default) or ``"serving"``, the JAX package's serving
+profile (the A&S 7.1.27 GELU in K2 and K1, the bf16-probability softmax
+normaliser in K1's attention).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from huggingface_asr_tpu_torch.kernels.layer import (
     ACT_CODES,
     DWCONV_CSGU_ROW_C,
     DWCONV_MAX_C,
+    check_profile,
     dwconv_channels_ok,
     ebranchformer_layer,
     ebranchformer_layer_plain,
@@ -104,13 +109,15 @@ def fused_encoder_ok(cfg: EBranchformerConfig, dtype: torch.dtype) -> bool:
 
 
 class FusedCTC:
-    """Folded kernel operands of one ``EBranchformerForCTC`` on one device."""
+    """Folded kernel operands of one ``EBranchformerForCTC`` on one device,
+    and the numeric profile its pieces run."""
 
-    def __init__(self, model: EBranchformerForCTC, device="cuda"):
+    def __init__(self, model: EBranchformerForCTC, device="cuda", profile: str = "exact"):
         cfg = model.config
         if not fused_encoder_ok(cfg, torch.bfloat16):
             raise ValueError("model config is outside the fused path's support")
         self.config = cfg
+        self.profile = check_profile(profile)
         self.device = resolve_device(device)
         w2v = model.wav2vec2
         with torch.no_grad():
@@ -141,7 +148,8 @@ def ctc_infer(fused: FusedCTC, input_features: torch.Tensor, input_lengths: torc
               *, plain: bool = False, return_hidden: bool = False):
     """(B, T_in, num_fbanks) features + (B,) frame lengths -> bf16 CTC logits
     (B, T, V+1) and the CTC decode lengths. ``plain=True`` runs every
-    kernel's plain version, on any device. ``return_hidden=True`` returns
+    kernel's plain version, on any device. Every piece runs ``fused.profile``.
+    ``return_hidden=True`` returns
     ``(output, hidden)`` with the post-final-LayerNorm bf16 hidden states
     (B, T, D), as ``ctc_infer_fused(..., return_hidden=True)`` does."""
     cfg = fused.config
@@ -150,7 +158,7 @@ def ctc_infer(fused: FusedCTC, input_features: torch.Tensor, input_lengths: torc
     layer = ebranchformer_layer_plain if plain else ebranchformer_layer
     if fused.subsample is not None:
         subsample = conv_subsample_plain if plain else conv_subsample
-        hidden = subsample(input_features, fused.subsample, cfg, T_pad)
+        hidden = subsample(input_features, fused.subsample, cfg, T_pad, fused.profile)
     else:
         # the model's conv front end and feature projection in bf16 (no
         # kernel of its own), padded with zero frames to T_pad
@@ -171,7 +179,7 @@ def ctc_infer(fused: FusedCTC, input_features: torch.Tensor, input_lengths: torc
     enc_lengths = enc_lengths.to(torch.int32)
     tables = fused.tables(T_pad)
     for w in fused.layers:
-        x = layer(x, enc_lengths, w, cfg, T, tables)
+        x = layer(x, enc_lengths, w, cfg, T, tables, fused.profile)
 
     # final encoder LayerNorm (two-pass variance, as fast_infer.py computes it)
     xf = x.float()

@@ -68,8 +68,8 @@ class LogMelConfig:
     normalize_means: bool = True
     normalize_vars: bool = True
     waveform_scale: float = 32768.0
-    # Kept for config compatibility with the JAX package. This package always
-    # computes the DFT in full float32 (the JAX "highest" contract).
+    # The DFT's precision: "highest" (fp32), "high" or "bf16". LogMelFrontEnd
+    # here always computes in fp32; kernels/mel.py::MelFrontEnd takes all three.
     matmul_precision: str = "highest"
 
     @property

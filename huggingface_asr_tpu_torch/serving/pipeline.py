@@ -13,10 +13,22 @@ dtype, the encoder runs the CUDA kernels (``kernels/``): the CTC route from
 the log-mel kernel on, the AED route from the subsampler on, behind the plain
 log-mel front end, as the JAX AED route runs the XLA front end. Otherwise the
 plain model runs and the reason is logged.
+
+``numeric_profile`` selects the CTC kernel route's numerics, as the JAX
+pipeline's fused route sets them (pipeline.py:86-113): ``"serving"`` (the
+default) runs the log-mel kernel's single bf16 DFT pass
+(``matmul_precision="bf16"``) with the fused CMVN and the ``"serving"``
+profile of K2 and K1 (``kernels/layer.py::PROFILES``); ``"exact"`` keeps
+the fp32 DFT and the exact profile. The serving route was admitted by the
+transcript gate (``tests/test_torch_cli_gate.py``, ``chip_smoke.py``): the
+committed gate model's 64 utterances give the JAX serving composition's ids.
+The other routes (the plain model, the AED route) stay on the exact
+contract, as the JAX package's do.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -26,6 +38,7 @@ import torch
 from huggingface_asr_tpu_torch.cli.common import tokenizer_ids
 from huggingface_asr_tpu_torch.decoding.beam_search import BeamSearchConfig
 from huggingface_asr_tpu_torch.decoding.generate import generate_joint
+from huggingface_asr_tpu_torch.kernels.layer import check_profile
 from huggingface_asr_tpu_torch.kernels.mel import MelFrontEnd
 from huggingface_asr_tpu_torch.models.configs import parse_dtype
 from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer, fused_encoder_refusal
@@ -43,7 +56,9 @@ class ASRPipeline:
     ``pad_token_id``, ``unk_token_id`` and ``len``); without one, an HF
     tokenizer is loaded from ``tokenizer_dir`` (or the model directory)
     through ``transformers``. ``fused_encoder``: "auto" takes the kernels where
-    they apply; False keeps the plain encoder; True requires the kernels."""
+    they apply; False keeps the plain encoder; True requires the kernels.
+    ``numeric_profile``: the CTC kernel route's profile, "serving" or "exact"
+    (the module docstring)."""
 
     def __init__(
         self,
@@ -59,9 +74,11 @@ class ASRPipeline:
         fused_encoder: Union[bool, str] = "auto",
         device: Union[str, torch.device] = "cuda",
         tokenizer=None,
+        numeric_profile: str = "serving",
     ):
         if model_type not in ("aed", "ctc"):
             raise ValueError(f"model_type={model_type!r}: 'aed' or 'ctc'")
+        check_profile(numeric_profile)
         self.device = resolve_device(device)
         if tokenizer is None:
             from transformers import AutoTokenizer
@@ -89,12 +106,16 @@ class ASRPipeline:
         else:
             self._use_fused = bool(fused_encoder)
         mel_cfg = LogMelConfig(num_mel_bins=enc_config.num_fbanks)
-        self._fused = FusedCTC(model if model_type == "ctc" else model.encoder, self.device) \
-            if self._use_fused else None
+        # the CTC kernel route's numeric profile; the AED route stays exact
+        self.numeric_profile = numeric_profile if model_type == "ctc" and self._use_fused else "exact"
+        self._fused = FusedCTC(model if model_type == "ctc" else model.encoder, self.device,
+                               profile=self.numeric_profile) if self._use_fused else None
 
         if model_type == "ctc":
             if self._use_fused:
-                self._frontend = MelFrontEnd(mel_cfg, device=self.device)
+                precision = "bf16" if self.numeric_profile == "serving" else "highest"
+                self._frontend = MelFrontEnd(dataclasses.replace(mel_cfg, matmul_precision=precision),
+                                             device=self.device)
             else:
                 self._model = model.to(dt)
                 self._dtype = dt

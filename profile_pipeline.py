@@ -47,7 +47,7 @@ GROUPS = (  # (group, substring of the demangled kernel name), first match wins
     ("pos_query", "pos_query_kernel"),
     ("layernorm", "layernorm_kernel"),
     ("conv1", "conv1_kernel"),
-    ("mel", "mel_kernel"),
+    ("mel", ("mel_kernel", "mel_bf16_kernel")),
     ("cmvn", "cmvn_kernel"),
     ("memcpy HtoD", "Memcpy HtoD"),
     ("memcpy DtoH", "Memcpy DtoH"),

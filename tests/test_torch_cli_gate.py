@@ -26,7 +26,13 @@ the kernel route's gate takes it, so the card runs the log-mel and layer
 kernels on it). ``jax_reference.json`` holds what the JAX evaluate CLI gives
 for the corpus's 64 test utterances (``corpus_rows(512, 64, seed=0)["test"]``,
 batches of 32): fp32 token ids and transcripts, bf16 token ids, and the bf16
-model's per-frame argmax ids (which the card's kernel route is held to).
+model's per-frame argmax ids (which the card's kernel route is held to);
+and, under ``"serving"``, the ids and per-frame argmax ids of the JAX
+serving composition (``jax_serving_reference``: what ``serving/pipeline.py``
+composes on a TPU, ``set_numeric_profile("serving")``, the bf16-DFT
+``PallasLogMelFrontEnd`` with the fused CMVN, ``ctc_infer_fused`` and the
+greedy decode, here in interpret mode) on requests of 16 utterances padded
+to the pipelines' length buckets.
 
 Held here, on the CPU:
 - both packages' ``cli/evaluate.py`` at fp32 write byte-identical
@@ -37,7 +43,13 @@ Held here, on the CPU:
   64 id sequences, but for ties by the triage rule: at the first frame where
   the argmax ids differ, JAX's top-two logit gap is within 2^-7 of the
   utterance's logit scale (its largest |logit|); each gap is printed;
-- the committed JSON is what the JAX CLI gives now.
+- the committed JSON is what the JAX CLI gives now, and its ``"serving"`` ids
+  what the JAX serving composition gives now on the first request;
+- the port's ``ASRPipeline(model_type="ctc")`` on its serving route (the
+  default ``numeric_profile``; on the CPU every kernel's plain version) gives
+  the JAX serving ids, 64/64 but for ties by the triage rule (at the first
+  frame where the port's argmax ids leave JAX's, the port's top-two logit
+  gap within 2^-7 of its logit scale); each gap is printed.
 """
 
 import csv
@@ -55,6 +67,7 @@ REFERENCE = os.path.join(GATE_DIR, "jax_reference.json")
 GATE_CONFIG = {"hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 2, "intermediate_size": 256,
                "conv_dim": [32, 32], "conv_kernel": [3, 3], "conv_stride": [2, 2], "conv_padding": [1, 1]}
 N_TRAIN, N_TEST, BATCH = 512, 64, 32
+SERVING_BATCH = 16  # utterances a serving request
 TIE = 2.0 ** -7
 
 
@@ -167,6 +180,62 @@ def jax_reference(work, rows):
     return out
 
 
+def serving_requests(rows):
+    """The gate's test utterances as requests of ``SERVING_BATCH``, padded as
+    the pipelines pad them (the JAX ``ASRPipeline._bucket_pad``, default
+    length buckets): a list of (waveforms (16, S) f32, lengths (16,) int32)."""
+    import types
+
+    from huggingface_asr_tpu.serving.pipeline import ASRPipeline as JPipeline
+
+    buckets = types.SimpleNamespace(length_buckets=[2.0, 5.0, 10.0, 20.0, 30.0], sampling_rate=16000)
+    out = []
+    for i in range(0, N_TEST, SERVING_BATCH):
+        audios = [np.asarray(a, np.float32) for a in rows["audio"][i:i + SERVING_BATCH]]
+        out.append((JPipeline._bucket_pad(buckets, audios), np.asarray([len(a) for a in audios], np.int32)))
+    return out
+
+
+def jax_serving_reference(rows, n_requests=None):
+    """The JAX serving composition on the gate model, in interpret mode: what
+    ``huggingface_asr_tpu/serving/pipeline.py:86-124`` runs on a TPU
+    (``set_numeric_profile("serving")``, ``PallasLogMelFrontEnd`` with
+    ``matmul_precision="bf16"`` and the fused CMVN, ``ctc_infer_fused`` at the
+    pipeline's ``bb``, ``ctc_greedy_decode``), the profile restored to
+    "bitexact" after. Returns {"ids": token ids, "frame_ids": per-frame argmax
+    ids} of the first ``n_requests`` requests' utterances (all by default)."""
+    import jax.numpy as jnp
+
+    from huggingface_asr_tpu.models.configs import EBranchformerConfig as JConfig
+    from huggingface_asr_tpu.models.fast_infer import ctc_infer_fused
+    from huggingface_asr_tpu.ops import pallas_layer
+    from huggingface_asr_tpu.ops.ctc import ctc_greedy_decode, tokens_to_lists
+    from huggingface_asr_tpu.ops.features import LogMelConfig
+    from huggingface_asr_tpu.ops.pallas_features import PallasLogMelFrontEnd
+
+    from huggingface_asr_tpu_torch.interop.from_jax import flax_tree_from_state_dict
+    from huggingface_asr_tpu_torch.training.model_factory import load_config, load_state
+
+    with open(os.path.join(GATE_DIR, "config.json")) as f:
+        jcfg = JConfig.from_dict(json.load(f))
+    tree = flax_tree_from_state_dict(load_state(GATE_DIR), load_config(GATE_DIR))
+    out = {"ids": [], "frame_ids": []}
+    pallas_layer.set_numeric_profile("serving")
+    try:
+        frontend = PallasLogMelFrontEnd(LogMelConfig(num_mel_bins=jcfg.num_fbanks, matmul_precision="bf16"),
+                                        interpret=True, fused_cmvn_bf16=True)
+        for wav, lens in serving_requests(rows)[:n_requests]:
+            feats, feat_lens = frontend(jnp.asarray(wav), jnp.asarray(lens))
+            res = ctc_infer_fused(tree, jcfg, feats, feat_lens, bb=min(8, len(lens)), interpret=True)
+            toks, tlens = ctc_greedy_decode(res.logits, res.logit_lengths, blank_id=-1)
+            out["ids"] += [[int(t) for t in ids] for ids in tokens_to_lists(np.asarray(toks), np.asarray(tlens))]
+            frames = np.asarray(res.logits.astype(jnp.float32)).argmax(-1)
+            out["frame_ids"] += [frames[b, :int(res.logit_lengths[b])].tolist() for b in range(len(lens))]
+    finally:
+        pallas_layer.set_numeric_profile("bitexact")
+    return out
+
+
 @pytest.fixture(scope="module")
 def gate(tmp_path_factory):
     pytest.importorskip("datasets")
@@ -184,10 +253,11 @@ def gate(tmp_path_factory):
 
 
 def test_committed_reference_is_what_the_jax_cli_gives_now(gate):
+    """The JAX CLI's part of the JSON (the ``"serving"`` key is held below)."""
     ref = gate[0]
     with open(REFERENCE) as f:
         committed = json.load(f)
-    assert committed == json.loads(json.dumps(ref))
+    assert {k: v for k, v in committed.items() if k != "serving"} == json.loads(json.dumps(ref))
     for dtype in ("float32", "bfloat16"):
         assert len(ref[dtype]["ids"]) == len(ref[dtype]["transcripts"]) == N_TEST
     assert [_collapse(f, ref["blank_id"]) for f in ref["bfloat16"]["frame_ids"]] == ref["bfloat16"]["ids"]
@@ -272,6 +342,60 @@ def test_bf16_plain_kernel_path_matches_the_jax_bf16_model(gate, capsys):
         assert gap <= TIE * scale, f"utterance {u}: a difference at frame {t} beyond a tie"
 
 
+def test_committed_serving_reference_is_what_jax_gives_now(gate):
+    """The committed ``"serving"`` ids, recomputed on the first request of 16
+    (the whole set takes four interpret-mode requests: ``__main__`` below)."""
+    ref, rows = gate[0], gate[1]
+    with open(REFERENCE) as f:
+        committed = json.load(f)["serving"]
+    assert len(committed["ids"]) == len(committed["frame_ids"]) == N_TEST
+    assert [_collapse(f, ref["blank_id"]) for f in committed["frame_ids"]] == committed["ids"]
+    now = jax_serving_reference(rows, n_requests=1)
+    assert now == {k: v[:SERVING_BATCH] for k, v in committed.items()}
+
+
+def test_serving_pipeline_gives_the_jax_serving_ids(gate, capsys):
+    """The port's ``ASRPipeline(model_type="ctc")`` on its serving route (the
+    default profile; ``fused_encoder=True`` takes the kernel route, whose
+    pieces run their plain versions on the CPU) against the JAX serving ids,
+    by the triage rule on the port's logits."""
+    from huggingface_asr_tpu_torch.models.fast_infer import ctc_infer
+    from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
+    from transformers import AutoTokenizer
+
+    rows, blank = gate[1], gate[0]["blank_id"]
+    with open(REFERENCE) as f:
+        want = json.load(f)["serving"]
+    rec = Recording(AutoTokenizer.from_pretrained(GATE_DIR))
+    pipe = ASRPipeline(GATE_DIR, model_type="ctc", fused_encoder=True, device="cpu", tokenizer=rec)
+    assert pipe.numeric_profile == "serving" and pipe._frontend.mode == "bf16"
+    equal, ties = 0, []
+    for r, (wav, lens) in enumerate(serving_requests(rows)):
+        start = r * SERVING_BATCH
+        pipe([wav[b, :lens[b]] for b in range(len(lens))])
+        got = rec.ids[start:start + SERVING_BATCH]
+        differ = [b for b in range(len(lens)) if got[b] != want["ids"][start + b]]
+        equal += len(lens) - len(differ)
+        if differ:
+            with torch.inference_mode():
+                out = ctc_infer(pipe._fused, *pipe._frontend(torch.from_numpy(wav), torch.from_numpy(lens)))
+            logits = out.logits.float().numpy()
+            for b in differ:
+                T = int(out.logit_lengths[b])
+                pf, jf = logits[b, :T].argmax(-1), np.asarray(want["frame_ids"][start + b])
+                assert _collapse(pf, blank) == got[b]
+                t = int(np.flatnonzero(pf != jf)[0])
+                top2 = np.sort(logits[b, t])[-2:]
+                ties.append((start + b, t, float(top2[1] - top2[0]), float(np.abs(logits[b, :T]).max())))
+    with capsys.disabled():
+        print(f"\ngate, serving route (CPU, plain versions) vs the JAX serving composition: {equal}/{N_TEST} id "
+              f"sequences equal" + "".join(f"; utterance {u} frame {t}: top-two gap {g:.5f} of scale {s:.3f} "
+                                            f"(bound {TIE * s:.5f})" for u, t, g, s in ties))
+    assert len(rec.ids) == N_TEST
+    for u, t, gap, scale in ties:
+        assert gap <= TIE * scale, f"utterance {u}: a difference at frame {t} beyond a tie"
+
+
 if __name__ == "__main__":
     import tempfile
 
@@ -282,6 +406,7 @@ if __name__ == "__main__":
     sys.path.insert(0, REPO)
     with tempfile.TemporaryDirectory() as work:
         ref = jax_reference(work, gate_rows())
+    ref["serving"] = jax_serving_reference(gate_rows())
     with open(REFERENCE, "w") as f:
         json.dump(ref, f)
     print(f"wrote {REFERENCE}: fp32 WER {ref['float32']['wer']:.4f}, "

@@ -1162,10 +1162,15 @@ def test_pipeline_serves_a_176_wide_model_through_the_kernels(narrow, tmp_path):
         def decode(self, ids, skip_special_tokens=True):
             return " ".join(map(str, ids))
 
-    pipe = ASRPipeline(str(tmp_path), model_type="ctc", device="cuda", tokenizer=Ids())
-    assert pipe._use_fused
+    audios = [np.zeros(16000, np.float32), np.ones(24000, np.float32) * 0.01]
+    pipe = ASRPipeline(str(tmp_path), model_type="ctc", device="cuda", tokenizer=Ids())  # the serving profile
+    assert pipe._use_fused and pipe.numeric_profile == "serving"
     _build.reset_launch_counts()
-    texts = pipe([np.zeros(16000, np.float32), np.ones(24000, np.float32) * 0.01])
+    texts = pipe(audios)
+    assert len(texts) == 2 and _build.LAUNCHES["asr_rel_attention_serving"] == NARROW.num_hidden_layers
+    pipe = ASRPipeline(str(tmp_path), model_type="ctc", device="cuda", tokenizer=Ids(), numeric_profile="exact")
+    _build.reset_launch_counts()
+    texts = pipe(audios)
     assert len(texts) == 2 and _build.LAUNCHES["asr_rel_attention"] == NARROW.num_hidden_layers
 
 
@@ -1552,3 +1557,124 @@ def test_ctc_beam_search_on_the_card_matches_the_cpu():
     assert got[0].is_cuda
     assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
     torch.testing.assert_close(got[2].cpu(), ref[2], rtol=0, atol=1e-3)
+
+
+# ---- the serving profile (kernels/layer.py::PROFILES) and the log-mel kernel's
+# bf16 and high DFT modes (csrc/mel_bf16.cu): each against its plain version.
+
+
+@pytest.mark.parametrize("mode", ["bf16", "high"])
+@pytest.mark.parametrize("B,S", [(1, 16000 * 2 + 3), (3, 16000 * 3 + 1), (8, 160000 + 2)])
+@pytest.mark.parametrize("quiet", [False, True])
+def test_mel_bf16_modes_against_plain(mode, B, S, quiet):
+    """The tensor-core DFT in "bf16" and "high" on speech-like input and on
+    the same input x 1e-4, at an S that is no multiple of 4: the same bf16
+    operands as the plain version, fp32 sums in another order, so the
+    log-mel within 1e-3 of its scale; counted under its mode's name."""
+    dev = _cuda()
+    cfg = LogMelConfig(matmul_precision=mode)
+    wav = torch.from_numpy(_speech_batch(B, S, seed=B) * (1e-4 if quiet else 1.0)).to(dev)
+    fe = K3.MelFrontEnd(cfg, device=dev)
+    n_frames = int(cfg.num_frames(S))
+    args = (n_frames, fe.dft, fe.mel, cfg.hop_length, cfg.mel_floor, mode)
+    _build.reset_launch_counts()
+    got = K3.log_mel(wav, *args)
+    assert dict(_build.LAUNCHES) == {f"asr_log_mel_{mode}": 1} and got.shape == (B, n_frames, cfg.num_mel_bins)
+    _close(got, K3.log_mel_plain(wav, *args), 1e-3)
+
+
+def test_serving_gemm_epilogue_against_plain(fused):
+    """The serving GELU in the GEMM epilogue, both tile shapes (M = 120 and
+    32,768), counted as ``asr_gemm_gelu_serving``; the gate epilogue takes the
+    code too."""
+    dev = _cuda()
+    _, fm = fused
+    w = fm.layers[0]
+    g = torch.Generator().manual_seed(11)
+    for M in (120, 32768):
+        a = torch.randn(M, CFG.hidden_size, generator=g).bfloat16().to(dev)
+        _build.reset_launch_counts()
+        got = K1.gemm(a, w["ff1_wi"], w["ff1_bi"], act="gelu_serving")
+        assert dict(_build.LAUNCHES) == {"asr_gemm_gelu_serving": 1}
+        _close(got, K1.gemm_plain(a, w["ff1_wi"], w["ff1_bi"], act="gelu_serving"), 2 ** -6)
+    C = w["ff1_wi"].shape[1]
+    gate = torch.randn(120, C, generator=g).bfloat16().to(dev)
+    a = torch.randn(120, C, generator=g).bfloat16().to(dev)
+    wl = (torch.randn(C, C, generator=g) * C ** -0.5).bfloat16().to(dev)
+    _close(K1.gemm(a, wl, None, act="gelu_serving", gate=gate),
+           K1.gemm_plain(a, wl, None, act="gelu_serving", gate=gate), 2 ** -6)
+
+
+@pytest.mark.parametrize("T", [40, 256, 504])
+@pytest.mark.parametrize("width", ["32", "44->64", "64, q_rot 512"])
+def test_rel_attention_serving_against_plain(T, width):
+    """The serving normaliser at the head widths and q_rot widths the route
+    takes (the k_std chunk ring past 256), lengths with 0 and 1, on column
+    views of one projection buffer: within 2^-6 of the scale."""
+    dev = _cuda()
+    H, hw, D = {"32": (8, 32, 256), "44->64": (4, 64, 192), "64, q_rot 512": (8, 64, 512)}[width]
+    B = 4
+    g = torch.Generator().manual_seed(T + D)
+    qkv = torch.randn(B * T, 3 * H * hw, generator=g).bfloat16().to(dev)
+    q_u, k, v = (qkv[:, i * H * hw:(i + 1) * H * hw].view(B, T, H, hw) for i in range(3))
+    q_rot = (torch.randn(B, T, H, D, generator=g) * 0.25).bfloat16().to(dev)
+    k_std = torch.randn(T, D, generator=g).bfloat16().to(dev)
+    lens = torch.tensor([T, 1, 0, T // 2], dtype=torch.int32, device=dev)
+    args = (q_u, k, v, q_rot, k_std, lens)
+    _build.reset_launch_counts()
+    got = K1.rel_attention(*args, profile="serving")
+    assert dict(_build.LAUNCHES) == {"asr_rel_attention_serving": 1}
+    _close(got, K1.rel_attention_plain(*args, profile="serving"), 2 ** -6)
+
+
+@pytest.mark.parametrize("bias", ["zero", "seeded"])
+def test_conv1_serving_gelu_on_every_bf16_value(bias):
+    """``test_conv1_gelu_on_every_bf16_value`` under the serving profile: the
+    block's table of ``gelu_serving`` and its fallback equal the plain
+    version's expression (``act_plain("gelu_serving")`` of the bf16 sum,
+    rounded to bf16) bit for bit on every bf16 input, NaNs in place."""
+    dev = _cuda()
+    T1, F1 = 1639, 40
+    values = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    grid = torch.zeros(T1 * F1, dtype=torch.bfloat16)
+    grid[:65536] = values
+    feats = torch.zeros(1, 2 * T1 - 1, 2 * F1, dtype=torch.bfloat16)
+    feats[0, 0::2, 0::2] = grid.view(T1, F1)
+    w1 = torch.zeros(9, 256, dtype=torch.bfloat16, device=dev)
+    w1[4] = 1.0
+    b1 = torch.zeros(256)
+    if bias == "seeded":
+        g = torch.Generator().manual_seed(7)
+        b1 = torch.randn(256, generator=g).sign() * 2.0 ** torch.randint(-30, 7, (256,), generator=g)
+        b1 = (b1 * (1.0 + torch.rand(256, generator=g))).bfloat16().float()
+    b1 = b1.to(dev)
+    _build.reset_launch_counts()
+    got = K2.conv1(feats.to(dev), w1, b1, "serving").float()
+    assert dict(_build.LAUNCHES) == {"asr_conv1_serving": 1}
+    x = grid.float().to(dev).view(1, T1, F1, 1)
+    ref = K1.act_plain("gelu_serving", (x + b1).bfloat16().float()).bfloat16().float()
+    nan = torch.isnan(ref)
+    assert int(nan.sum()) > 0 and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(torch.where(nan, 0.0, got), torch.where(nan, 0.0, ref))
+
+
+def test_ctc_infer_serving_launches_kernels_and_matches_plain(fused):
+    """``FusedCTC(..., profile="serving")``: the serving pieces launch (and no
+    exact conv1, conv2 or attention), the logits within 0.05 of the plain
+    serving path's."""
+    dev = _cuda()
+    model, _ = fused
+    fm = FusedCTC(model, "cuda", profile="serving")
+    feats = torch.randn(3, 150, 80, generator=torch.Generator().manual_seed(3)).to(dev)
+    lens = torch.tensor([150, 96, 41], dtype=torch.int32, device=dev)
+    _build.reset_launch_counts()
+    got = ctc_infer(fm, feats, lens)
+    torch.cuda.synchronize()
+    n = CFG.num_hidden_layers
+    want = {"asr_conv1_serving": 1, "asr_conv2_serving": 1, "asr_rel_attention_serving": n,
+            "asr_gemm_gelu_serving": 3 * n}
+    assert {k: _build.LAUNCHES[k] for k in want} == want
+    assert not {"asr_conv1", "asr_conv2", "asr_rel_attention"} & set(_build.LAUNCHES)
+    ref = ctc_infer(fm, feats, lens, plain=True)
+    assert torch.equal(got.logit_lengths, ref.logit_lengths)
+    _close(got.logits, ref.logits, 0.05)
