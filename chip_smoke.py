@@ -257,7 +257,8 @@
    (1e-3 of the log-mel's scale), beside their bound, the fp32 kernel's time
    and cuBLAS's bf16 product of the same framed operands, with device times
    and each mode's largest log-mel error against the folded product in fp64
-   beside the plain version's in the same mode and the fp32 one's; (b) the
+   beside the plain version's in the same mode and the fp32 one's (the
+   kernel's at most 1.25x the plain version's of its mode); (b) the
    serving pieces at the B=8 x 10 s request's shapes, each beside its exact
    form's time: conv1 (bit-equal to its plain version, also at B=128), conv2,
    the GEMM's serving GELU epilogue (also at M = 32,768), rel_attention's
@@ -314,9 +315,11 @@ def bound(flops: float, nbytes: float, kind: str):
 
 def mel_work(wav, n_frames: int, dft, mel):
     """(operations, bytes, type) of the log-mel kernel: the framed DFT and
-    the mel product in fp32; the waveform, bases and log-mel moved once."""
+    the mel product in fp32, the mel product over the bank's nonzero weights
+    (501 of 256 x 80 in the Kaldi bank: no implementation has to multiply
+    by the zeros); the waveform, bases and log-mel moved once."""
     B = wav.shape[0]
-    flops = 2.0 * B * n_frames * (dft.shape[0] * dft.shape[1] + mel.shape[0] * mel.shape[1])
+    flops = 2.0 * B * n_frames * (dft.shape[0] * dft.shape[1] + int((mel != 0).sum()))
     return flops, nbytes(wav, dft, mel) + 4 * B * n_frames * mel.shape[1], "fp32"
 
 
@@ -2549,12 +2552,13 @@ def pos_query_library(q_v, wp):
 def mel_bf16_work(wav, n_frames: int, bases, mel):
     """(operations, bytes, type) of the bf16 log-mel kernel: the waveform,
     bases and log-mel moved once; of its two kinds of operations, the DFT's
-    bf16 products (three in "high") and the fp32 mel product, the one that
-    takes the card longer at its own peak (the two run on different units)."""
+    bf16 products (three in "high") and the fp32 mel product over the bank's
+    nonzero weights, the one that takes the card longer at its own peak (the
+    two run on different units)."""
     B = wav.shape[0]
     P, two_nb, L = bases.shape
     dft = 2.0 * B * n_frames * L * two_nb * (3 if P == 2 else 1)
-    mel_ops = 2.0 * B * n_frames * mel.shape[0] * mel.shape[1]
+    mel_ops = 2.0 * B * n_frames * int((mel != 0).sum())
     moved = nbytes(wav, bases, mel) + 4 * B * n_frames * mel.shape[1]
     if dft / PEAK_FLOPS["bf16"] >= mel_ops / PEAK_FLOPS["fp32"]:
         return dft, moved, "bf16"
@@ -2639,6 +2643,9 @@ def serving_phase(dev, smi, compare, fused, model_dir, requests, B_big: int = 12
                       f"{fp32_err:.3e}; device ms under the profiler {device_ms(lambda: K3.log_mel(wav, *args)):.4f} "
                       f"(fp32 kernel {fp32_ms:.4f} on events, cuBLAS bf16 product "
                       f"{device_ms(lambda: frames16 @ hi_t):.4f})", flush=True)
+                if not err_k <= 1.25 * err_p:
+                    _fail(f"mel {mode} B={B}: largest log-mel error against fp64 {err_k:.3e}, past 1.25x the "
+                          f"plain {mode} version's {err_p:.3e}")
                 del frames16, got
             del exact
             torch.cuda.empty_cache()
@@ -2721,9 +2728,26 @@ def serving_phase(dev, smi, compare, fused, model_dir, requests, B_big: int = 12
                           "bf16"))
             print(f"    device ms under the profiler: serving {device_ms(lambda: K1.rel_attention(*att, profile='serving')):.4f}, "
                   f"exact {device_ms(lambda: K1.rel_attention(*att)):.4f}", flush=True)
+            # the layer's 18 launches at these shapes, as the exact layer's row counts them
+            Cg, Kc, Km = w["cg_w1"].shape[1] // 2, w["csgu_dw"].shape[0], w["merge_dw"].shape[0]
+            work_ln = (8.0 * M * D, 4 * M * D, "fp32")
+            layer_pieces = [
+                work_ln, gemm_work(M, D, I), gemm_work(M, I, D, 2 * M * D),
+                work_ln, gemm_work(M, D, 3 * D, 2 * M * D),
+                (2.0 * M * D * D + 6.0 * M * H * D,
+                 nbytes(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"]) + 2 * M * H * D, "bf16"),
+                (2.0 * H * T_pad * keys * (dh + D + dh), nbytes(att[3], tables["k_std"]) + 4 * 2 * M * D, "bf16"),
+                gemm_work(M, D, D),
+                work_ln, gemm_work(M, D, 2 * Cg),
+                (2.0 * M * Cg * Kc + 10.0 * M * Cg, 4 * M * Cg + nbytes(w["csgu_dw"]) + 2 * M * Cg, "fp32"),
+                gemm_work(M, Cg, D),
+                (2.0 * M * 2 * D * Km, 8 * M * D + nbytes(w["merge_dw"]), "fp32"), gemm_work(M, 2 * D, D, 2 * M * D),
+                work_ln, gemm_work(M, D, I), gemm_work(M, I, D, 2 * M * D), work_ln,
+            ]
             compare("layer serving (K1 whole)", None,
                     lambda: K1.ebranchformer_layer(x, enc, w, cfg, T, tables, "serving"),
-                    lambda: K1.ebranchformer_layer_plain(x, enc, w, cfg, T, tables, "serving"), 0.05)
+                    lambda: K1.ebranchformer_layer_plain(x, enc, w, cfg, T, tables, "serving"), 0.05,
+                    work=layer_pieces)
             del y1, feats, hidden, x
     _build.reset_launch_counts()
     K3.MelFrontEnd(dataclasses.replace(base, matmul_precision="high"), device=dev)(wav8, lens8)

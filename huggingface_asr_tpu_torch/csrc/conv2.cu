@@ -62,7 +62,8 @@ struct Maps {
     CUtensorMap w;
 };
 
-// SERVING: the serving profile's GELU (common.cuh::gelu_serving) in place of gelu_erf.
+// SERVING: the serving profile's GELU (common.cuh::gelu_serving8, eight values at a
+// time) in place of gelu_erf.
 template <bool SERVING>
 __global__ void __launch_bounds__(384, 1)
 conv2_kernel(const __grid_constant__ Maps maps, const float* __restrict__ b2,
@@ -130,16 +131,27 @@ conv2_kernel(const __grid_constant__ Maps maps, const float* __restrict__ b2,
         bf16* out_a = y2 + (((size_t)b * T2 + t2_0) * F2 + row) * C + cq;
         bf16* out_b = out_a + 8 * C;
 #pragma unroll
-        for (int j = 0; j < C / 8; ++j) {
-            const float2 bias = *reinterpret_cast<const float2*>(b2 + 8 * j + cq);
-            float v[4];
+        for (int j = 0; j < C / 8; j += 2) {
+            float v[8];  // column groups j and j + 1: rows a, a, b, b of each
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const float x = round_bf(round_bf(acc[4 * j + e]) + (e % 2 ? bias.y : bias.x));
-                v[e] = SERVING ? gelu_serving(x) : gelu_erf(x);
+            for (int h = 0; h < 2; ++h) {
+                const float2 bias = *reinterpret_cast<const float2*>(b2 + 8 * (j + h) + cq);
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    v[4 * h + e] = round_bf(round_bf(acc[4 * (j + h) + e]) + (e % 2 ? bias.y : bias.x));
             }
-            if (row < rows) *reinterpret_cast<uint32_t*>(out_a + 8 * j) = pack_bf16(v[0], v[1]);
-            if (row + 8 < rows) *reinterpret_cast<uint32_t*>(out_b + 8 * j) = pack_bf16(v[2], v[3]);
+            if constexpr (SERVING) {
+                gelu_serving8(v);
+            } else {
+#pragma unroll
+                for (int i = 0; i < 8; ++i) v[i] = gelu_erf(v[i]);
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                if (row < rows) *reinterpret_cast<uint32_t*>(out_a + 8 * (j + h)) = pack_bf16(v[4 * h], v[4 * h + 1]);
+                if (row + 8 < rows)
+                    *reinterpret_cast<uint32_t*>(out_b + 8 * (j + h)) = pack_bf16(v[4 * h + 2], v[4 * h + 3]);
+            }
         }
     }
 }

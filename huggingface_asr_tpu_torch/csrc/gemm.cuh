@@ -44,7 +44,8 @@
 //     slice of a wider buffer. No fp32 tile passes through shared memory.
 //     It is straight-line code: the activation is a template parameter (a
 //     switch per value kept the 64 chains of a thread apart), GELU is
-//     evaluated on eight values at a time without a branch (gelu8), the
+//     evaluated on eight values at a time without a branch (gelu8, and
+//     gelu_serving8 under the serving profile), the
 //     tile's biases wait in shared memory from before the first product, and
 //     a thread's residual loads are all issued before the first is used.
 //
@@ -52,7 +53,7 @@
 //   round_first = 0 (K1's `_mm`):        v = bf16(acc + bias)
 //   round_first = 1 (K2's conv/dense):   v = bf16(bf16(acc) + bias)
 //   then, if act:      v = bf16(act(v))   (act ACT_GELU_SERVING: the serving
-//                      profile's GELU, common.cuh::gelu_serving, value by value)
+//                      profile's GELU, common.cuh::gelu_serving8, eight at a time)
 //   then, if residual: v = bf16(res + alpha * v)
 //   or, if gate:       v = bf16(res * v)   (K1's CSGU linear: res is x_r)
 //   dual output (Q):   out2 = bf16(acc + bias2) for columns < n2
@@ -205,17 +206,18 @@ __device__ __forceinline__ void epilogue(float (&acc)[BN / 2], int m_top, int n0
         const float2 bias = *reinterpret_cast<const float2*>(bias_s + 8 * j + 2 * q);
         va[j] = pack_bf16(acc[4 * j] + bias.x, acc[4 * j + 1] + bias.y);
         vb[j] = pack_bf16(acc[4 * j + 2] + bias.x, acc[4 * j + 3] + bias.y);
-        if (ACT != ACT_IDENTITY && ACT != ACT_GELU) {
+        if (ACT != ACT_IDENTITY && ACT != ACT_GELU && ACT != ACT_GELU_SERVING) {
             va[j] = pack_bf16(apply_act(ACT, bf16_lo(va[j])), apply_act(ACT, bf16_hi(va[j])));
             vb[j] = pack_bf16(apply_act(ACT, bf16_lo(vb[j])), apply_act(ACT, bf16_hi(vb[j])));
         }
     }
-    if (ACT == ACT_GELU) {
+    if (ACT == ACT_GELU || ACT == ACT_GELU_SERVING) {
 #pragma unroll
         for (int j = 0; j < NG; j += 2) {
             float x[8] = {bf16_lo(va[j]), bf16_hi(va[j]), bf16_lo(vb[j]), bf16_hi(vb[j]),
                           bf16_lo(va[j + 1]), bf16_hi(va[j + 1]), bf16_lo(vb[j + 1]), bf16_hi(vb[j + 1])};
-            gelu8(x);
+            if constexpr (ACT == ACT_GELU) gelu8(x);
+            else gelu_serving8(x);
             va[j] = pack_bf16(x[0], x[1]);
             vb[j] = pack_bf16(x[2], x[3]);
             va[j + 1] = pack_bf16(x[4], x[5]);

@@ -4,219 +4,489 @@
 // "bf16"))). mel.cu keeps the "highest" contract in fp32 FFMA; the CMVN
 // kernel there follows either.
 //
-// Per frame f (samples [f*hop, f*hop + L)) and output column n of the folded
-// bases (kernels/mel.py::folded_bases, [cos | sin], Nyquist bin dropped):
-//   bf16: coef[f, n] = sum_k bf16(x[f*hop + k]) hi[k, n]
-//   high: coef[f, n] = sum_k  bf16(x) hi + bf16(x) lo + bf16(x - bf16(x)) hi
+// Per frame f (samples [f*hop, f*hop + L)) and bin n of the folded bases
+// (kernels/mel.py::folded_bases, Nyquist bin dropped), whose cos and sin are
+// the output columns 2n and 2n + 1 (kernels/mel.py::split_bases):
+//   bf16: coef[f, c] = sum_k bf16(x[f*hop + k]) hi[k, c]
+//   high: coef[f, c] = sum_k  bf16(x) hi + bf16(x) lo + bf16(x - bf16(x)) hi
 // (hi = bf16(dft), lo = bf16(dft - hi); the lo x lo term dropped, as the TPU
-// kernel drops it), fp32 accumulation, then as in mel.cu: the power c^2 + s^2,
-// the fp32 mel product, log(max(mel, floor)).
+// kernel drops it), fp32 accumulation, then the power c^2 + s^2, the mel
+// product and log(max(mel, floor)).
 //
-// What bounds it on the H100: operations. At B=128 x 10 s the DFT is 52 GFLOP
-// of bf16 products (0.053 ms at 989 TFLOP/s; three times that in "high") and
-// the mel product 5.2 GFLOP of fp32 FMA (0.078 ms at 67 TFLOP/s), against
-// 0.037 ms for the waveform and the log-mel moved once.
+// What bounds it on the H100: operations, the DFT's. At B=128 x 10 s it is
+// 52 GFLOP of bf16 products (0.053 ms at 989 TFLOP/s; three times that in
+// "high"), against 0.037 ms for the waveform and the log-mel moved once. The
+// Kaldi bank is 97.6 % zeros (501 weights of 256 x 80; each filter one run of
+// at most 16 bins): its product, 0.13 GFLOP of fp32 FMA once the zeros are
+// skipped, is nothing beside the DFT. What the card spends beyond that bound
+// (PERF.md section 6) is latency inside a block: one block an SM at
+// 128 frames, whose staging, products and mel sums follow one another.
 //
-// What the design does about it (a first, simple version; PERF.md section 6):
-//   * the A operand is the frames, which overlap: frame f's band j (samples
-//     j*hop .. j*hop + hop - 1 of the frame) is hop-row f + j of the
-//     waveform. So a block stages the hop-rows its 64 frames read (64 + 2 at
-//     L = 400, hop = 160) once, as bf16 (and, in "high", the low halves
-//     beside them), in shared memory rows padded to hop + 8 values, and a
-//     k16 step of the product, which lies in one band because hop % 16 == 0,
-//     reads its A fragment straight from the rows f + j: a shifted row is a
-//     shifted address, which a swizzled wgmma tile could not take. The
-//     padding puts the eight rows of a fragment on eight different bank
-//     quads (168 / 2 = 84 words, 84 = 20 mod 32): no bank conflicts;
-//   * the products are mma.sync m16n8k16 (bf16 in, fp32 accumulators in
-//     registers); B fragments are read from the transposed bases (a row per
-//     output column, k contiguous: one 32-bit load per fragment register),
-//     which stay in L2;
-//   * a warp owns 16 bins of a 64-bin pass for all 64 frames, and computes
-//     their cos and their sin columns as separate n8 tiles: the accumulator
-//     fragments of a bin's cos and sin then sit in the same registers of the
-//     same thread, and the power is formed there;
-//   * the power goes to shared memory at the end of a pass and the mel
-//     product is mel.cu's: each thread adds its 8 frames x 5 mel columns over
-//     the pass's bins in order, in fp32 FMA; after four passes, log and one
-//     fp32 store.
-#include "common.cuh"
+// What the design does about it:
+//   * the DFT runs on wgmma (m64n128k16, fp32 accumulators in registers);
+//     the basis arrives by TMA, 128 output columns (64 bins: a pass) x 64
+//     k-values a box, in the 128-byte-swizzled K-major layout wgmma reads,
+//     through a ring of stages under full/empty mbarriers filled by one
+//     producer thread (in "high" a stage holds the hi and the lo box); the
+//     ring's first round goes out before the waveform is staged;
+//   * the frames are the A operand, read as register fragments: frame f's band
+//     j (samples j*hop .. j*hop + hop - 1 of the frame) is hop-row f + j of the
+//     waveform, so a block stages the hop-rows its frames read once, as bf16
+//     (and, in "high", the low halves beside them), in shared memory rows
+//     padded to hop + 8 values, and a k16 step, which lies in one band because
+//     hop % 16 == 0, loads its fragment from the rows f + j: a shifted row is
+//     a shifted address, which a swizzled shared-memory A tile could not take.
+//     The padding puts the eight rows of a fragment on eight different bank
+//     quads (168 / 2 = 84 words, 84 = 20 mod 32). Each step's offset comes
+//     from a table made once a block (no division in the loop), and two
+//     register sets take the boxes in pairs, so that a box's products run
+//     while the next box's fragments load (wgmma_wait<1>); an odd box count
+//     ends on one box from the first set (ODD);
+//   * the waveform arrives by one bulk copy into the rows that the power and
+//     the log-mel take later, and the threads convert it there;
+//   * two consumer warpgroups (CW = 2), 64 frames each, share every basis
+//     tile: a tile feeds 128 frames, half the L2 reads of one warpgroup a
+//     tile. Where that grid would not cover the card's SMs (B=8 x 10 s: 64
+//     blocks) the block has one consumer warpgroup and 64 frames (CW = 1):
+//     twice the blocks, all SMs busy;
+//   * the bases' columns interleave each bin's cos and sin, so that the two
+//     sit in one thread's accumulator pair (fragment columns 2q, 2q + 1) and
+//     the power is formed in registers, then stored for the pass, bin b in
+//     column b % 128 of the block's power rows: the last two passes' power;
+//   * the mel product is sparse: each filter is summed over its own run of
+//     nonzero bins (kernels/mel.py::mel_bands: the runs, ordered by the pass
+//     in which each ends, a run within that pass and the one before it), in
+//     bin order and in fp32 FMA, its weights packed after the runs. A skipped
+//     zero weight would have added fma(p, 0, acc) = acc for a finite power
+//     p >= 0: the sum is the dense in-order sum bit for bit. A pass's sums run
+//     while the next pass's products do (two filters a warp after each box),
+//     a warp a filter, a lane two frames: the weight loads are broadcasts and
+//     a column of the power rows (stride 133) lies in 32 banks. The log-mel
+//     rows wait in shared memory and leave in 16-byte stores (where they fit
+//     beside the rest: not in "high" at CW = 2, which stores each value).
+#include "hopper.cuh"
+
+// With ASR_MEL_PHASES defined (profile_mel_phases.py builds such a copy),
+// thread 0 of each block in the first frame tile records clock64() at the
+// phases' ends and writes the cycles since its start over its utterance's
+// first log-mel row: the staging, each pass's products, the end.
+#ifdef ASR_MEL_PHASES
+#define MEL_PHASE() (phase_n < 15 ? (void)(phase_t[phase_n++] = clock64()) : (void)0)
+#else
+#define MEL_PHASE() ((void)0)
+#endif
 
 namespace {
 
-constexpr int FT = 64;               // frames of a block
-constexpr int PASS_BINS = 64;        // bins of a pass: 16 a warp
-constexpr int THREADS = 128;         // four warps
-constexpr int PW_LD = PASS_BINS + 1;  // row stride of the staged power
-constexpr int MEL_J = 5;             // mel columns of a thread, 16 apart: n_mel <= 80
+using namespace hopper;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    asm(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int BINS = 64;                // bins of a pass
+constexpr int COLS = 2 * BINS;          // output columns of a pass: a box's rows
+constexpr int BK = 64;                  // k-values of a box: one 128-byte swizzled row
+constexpr int BOX_BYTES = COLS * BK * 2;
+constexpr int PW_COLS = 2 * BINS;       // the power of the last two passes, bin b in column b % 128
+constexpr int PW_LD = PW_COLS + 5;      // its row stride in floats: 133, odd (a column in 32 banks)
+constexpr int OUT_LD = 84;              // row stride (floats) of the staged log-mel: 16-byte rows, n_mel <= 80
+constexpr int UNROLL = 8;               // float4 loads a thread has in flight while staging
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // CW = 2: 128 * (2 * 232 + 40) = 384 * 168
+
+template <bool HIGH, int CW> struct Ring {
+    static constexpr int STAGES = HIGH ? 2 : 4;
+    static constexpr int STAGE_BYTES = (HIGH ? 2 : 1) * BOX_BYTES;
+    // the log-mel rows wait in shared memory and leave coalesced, where they fit
+    static constexpr bool STAGE_OUT = !(HIGH && CW == 2);
+};
+
+// Byte offsets of the dynamic shared memory past the 1024-aligned ring, the
+// same on the host (its size) and in the kernel.
+// The power and log-mel rows come last: until the first pass they hold the
+// block's waveform in fp32, where it fits.
+struct Layout {
+    int bars, steps, table, xh, xl, pw, lm, end;
+    __host__ __device__ Layout(int stages, int n_steps, int ft, int table_rows, int rows, int rs, bool high,
+                               bool stage_out) {
+        bars = 0;
+        steps = bars + 16 * stages + 16;
+        table = steps + 16 * ((n_steps + 3) / 4);
+        xh = table + 16 * table_rows;
+        xl = xh + 2 * rows * rs;
+        pw = xl + (high ? 2 * rows * rs : 0);
+        lm = pw + 4 * ft * PW_LD;
+        end = lm + (stage_out ? 4 * ft * OUT_LD : 0);
+    }
+};
+
+// Loads the register A fragments of box kb's four k16 steps into ah (and al)
+// and issues its products into acc: four, twelve in "high". xh and xl point
+// at this lane's first fragment row and column pair; step s's fragment lies
+// steps[s] values further (hop-row j = 16 s / hop, column 16 s - j hop), or,
+// where steps[s] < 0 (past L, whose basis rows the TMA filled with zeros),
+// is zero. Every box issues the same products, so the issue is straight-line
+// code. The caller commits.
+template <bool HIGH>
+__device__ __forceinline__ void issue_box(float (&acc)[64], uint32_t (&ah)[4][4], uint32_t (&al)[4][4],
+                                          const bf16* xh, const bf16* xl, const int* steps, int kb, int RS,
+                                          uint32_t stage) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int off = steps[4 * kb + i];
+        const bool in = off >= 0;
+        const int at = in ? off : 0;
+        ah[i][0] = in ? *reinterpret_cast<const uint32_t*>(xh + at) : 0u;
+        ah[i][1] = in ? *reinterpret_cast<const uint32_t*>(xh + at + 8 * RS) : 0u;
+        ah[i][2] = in ? *reinterpret_cast<const uint32_t*>(xh + at + 8) : 0u;
+        ah[i][3] = in ? *reinterpret_cast<const uint32_t*>(xh + at + 8 * RS + 8) : 0u;
+        if constexpr (HIGH) {
+            al[i][0] = in ? *reinterpret_cast<const uint32_t*>(xl + at) : 0u;
+            al[i][1] = in ? *reinterpret_cast<const uint32_t*>(xl + at + 8 * RS) : 0u;
+            al[i][2] = in ? *reinterpret_cast<const uint32_t*>(xl + at + 8) : 0u;
+            al[i][3] = in ? *reinterpret_cast<const uint32_t*>(xl + at + 8 * RS + 8) : 0u;
+        }
+    }
+    const uint64_t bh = make_desc(stage, 16, 1024, SWIZZLE_128);
+    const uint64_t bl = make_desc(stage + BOX_BYTES, 16, 1024, SWIZZLE_128);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        wgmma_m64n128k16_rs(acc, ah[i], bh + 2 * i, 1);
+        if constexpr (HIGH) {
+            wgmma_m64n128k16_rs(acc, ah[i], bl + 2 * i, 1);
+            wgmma_m64n128k16_rs(acc, al[i], bh + 2 * i, 1);
+        }
+    }
 }
 
-// wav: [B, S] fp32; dft: [P, 2*NB, L] bf16, P = 1 (hi) or 2 (hi, lo), a row
-// per output column (cos columns, then sin); melbank: [NB, n_mel] fp32;
-// out: [B, n_frames, n_mel] fp32. Shared memory: the power [FT][PW_LD] fp32,
-// then the hop-rows [R][RS] bf16 (and, HIGH, their low halves).
-template <bool HIGH>
-__global__ void __launch_bounds__(THREADS)
-mel_bf16_kernel(const float* __restrict__ wav, int S, const bf16* __restrict__ dft,
-                const float* __restrict__ melbank, float* __restrict__ out, int n_frames, int L, int hop,
-                int NB, int n_mel, float floor_) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    float (*pw)[PW_LD] = reinterpret_cast<float (*)[PW_LD]>(smem);
-    const int RS = hop + 8, R = FT + (L - 1) / hop;  // row stride (bf16 values) and rows of the block
-    bf16* xh = reinterpret_cast<bf16*>(smem + FT * PW_LD * 4);
-    bf16* xl = xh + R * RS;
-    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-    const int g = lane / 4, c = lane % 4;
-    const int b = blockIdx.y, f0 = blockIdx.x * FT;
-    const float* x = wav + (size_t)b * S;
+// wav: [B, S] fp32; map: the bases [P * 2*NB, L] bf16 (P = 1 + HIGH, a row per
+// output column, each bin's cos then sin); table: kernels/mel.py::
+// mel_kernel_table, table_rows x 4 int32; out: [B, n_frames, n_mel] fp32.
+template <bool HIGH, int CW, bool ODD>
+__global__ void __launch_bounds__(128 * (CW + 1), 1)
+mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ wav, int S,
+                const int4* __restrict__ table, int table_rows, float* __restrict__ out, int n_frames, int L,
+                int hop, int NB, int n_mel, float floor_) {
+    using R = Ring<HIGH, CW>;
+    constexpr int STAGES = R::STAGES, FT = 64 * CW, THREADS = 128 * (CW + 1);
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    unsigned char* base = smem_raw + (ring - smem_u32(smem_raw)) + STAGES * R::STAGE_BYTES;
+    // a pass's boxes: pairs, whose two register sets take turns, and where
+    // ODD, one more from the first set
+    const int passes = NB / BINS, boxes = (L + BK - 1) / BK, total = passes * boxes;
+    const int rows = FT + (L - 1) / hop, RS = hop + 8;
+    const Layout lay(STAGES, 4 * boxes, FT, table_rows, rows, RS, HIGH, R::STAGE_OUT);
+    const uint32_t full = smem_u32(base + lay.bars), empty = full + 8 * STAGES, wav_bar = empty + 8 * STAGES;
+    int4* bands_s = reinterpret_cast<int4*>(base + lay.table);
+    const float* w_s = reinterpret_cast<const float*>(bands_s + n_mel + passes);
+    float* pw = reinterpret_cast<float*>(base + lay.pw);
+    bf16* xh = reinterpret_cast<bf16*>(base + lay.xh);
+    bf16* xl = reinterpret_cast<bf16*>(base + lay.xl);
+    float* lm = reinterpret_cast<float*>(base + lay.lm);
+    int* steps = reinterpret_cast<int*>(base + lay.steps);
+    const int tid = threadIdx.x, b = blockIdx.y, f0 = blockIdx.x * FT;
+#ifdef ASR_MEL_PHASES
+    long long phase_t[16];
+    int phase_n = 0;
+#endif
+    MEL_PHASE();
 
-    // hop-rows f0 .. f0 + R - 1, zeros past S
-    for (int i = tid; i < R * hop; i += THREADS) {
-        const int r = i / hop, col = i - r * hop;
-        const long long at = (long long)(f0 + r) * hop + col;
-        const float v = at < S ? __ldg(x + at) : 0.0f;
-        const bf16 h = to_bf(v);
-        xh[r * RS + col] = h;
-        if constexpr (HIGH) xl[r * RS + col] = to_bf(v - to_f(h));
+    // The block's samples from its first frame's, to the end of the utterance
+    // or of its hop-rows: one bulk copy into the power's and log-mel's rows
+    // where the utterance's rows are 16-byte aligned and the samples fit there,
+    // else loads by the threads.
+    const float* x = wav + (size_t)b * S + (size_t)f0 * hop;
+    const long long left = (long long)S - (long long)f0 * hop;  // samples of the utterance from the block's first
+    const int n_samples = rows * hop, n_copy = (int)min((long long)n_samples, left);
+    const bool bulk = S % 4 == 0 && 4 * n_samples <= lay.end - lay.pw;
+    float* xf = reinterpret_cast<float*>(base + lay.pw);
+    if (tid == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, 4 * CW);
+        }
+        mbar_init(wav_bar, 1);
+        mbar_init_fence();
+        if (bulk) {
+            mbar_arrive_expect_tx(wav_bar, 4 * n_copy);
+            bulk_load(smem_u32(xf), x, 4 * n_copy, wav_bar);
+        }
     }
     __syncthreads();
+    // the first round of the ring goes out before the waveform is staged
+    const bool producer = tid == 128 * CW;
+    auto load = [&](int g) {
+        const int s = g % STAGES, p = g / boxes, kb = g - p * boxes;
+        const uint32_t st = ring + s * R::STAGE_BYTES, bar = full + 8 * s;
+        mbar_wait(empty + 8 * s, ((g / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(bar, R::STAGE_BYTES);
+        tma_load_2d(st, &map, bar, kb * BK, p * COLS);
+        if constexpr (HIGH) tma_load_2d(st + BOX_BYTES, &map, bar, kb * BK, 2 * NB + p * COLS);
+    };
+    if (producer)
+        for (int g = 0; g < STAGES && g < total; ++g) load(g);
 
-    float mel[8][MEL_J];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int m = 0; m < MEL_J; ++m) mel[i][m] = 0.0f;
-    const int tx = tid % 16, ty = tid / 16;  // the mel product's 16 column groups x 8 frame groups
-    const size_t plane = (size_t)2 * NB * L;
-    const int steps = L / 16;
-
-    for (int p = 0; p < NB / PASS_BINS; ++p) {
-        // this warp's bins p*64 + 16 warp + 8 t + g (t = 0, 1): B rows of cos (tiles 0, 1) and sin (2, 3)
-        const bf16* brow[4];
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-            const int bin = p * PASS_BINS + 16 * warp + 8 * t + g;
-            brow[t] = dft + (size_t)bin * L + 2 * c;
-            brow[2 + t] = dft + (size_t)(NB + bin) * L + 2 * c;
-        }
-        float acc[4][4][4];  // [m16 tile][n8 tile][fragment]
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-
-#pragma unroll 5
-        for (int s = 0; s < steps; ++s) {
-            const int k0 = 16 * s, j = k0 / hop, kk = k0 - j * hop;
-            uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-                bh[nt][0] = __ldg(reinterpret_cast<const unsigned int*>(brow[nt] + k0));
-                bh[nt][1] = __ldg(reinterpret_cast<const unsigned int*>(brow[nt] + k0 + 8));
-                if constexpr (HIGH) {
-                    bl[nt][0] = __ldg(reinterpret_cast<const unsigned int*>(brow[nt] + plane + k0));
-                    bl[nt][1] = __ldg(reinterpret_cast<const unsigned int*>(brow[nt] + plane + k0 + 8));
-                }
-            }
-#pragma unroll
-            for (int mt = 0; mt < 4; ++mt) {
-                // frame rows 16 mt + g and + 8 read hop-rows (those) + j, columns kk + 2c (+ 8)
-                const int at = (16 * mt + g + j) * RS + kk + 2 * c;
-                uint32_t ah[4], al[4];
-                ah[0] = *reinterpret_cast<const uint32_t*>(xh + at);
-                ah[1] = *reinterpret_cast<const uint32_t*>(xh + at + 8 * RS);
-                ah[2] = *reinterpret_cast<const uint32_t*>(xh + at + 8);
-                ah[3] = *reinterpret_cast<const uint32_t*>(xh + at + 8 * RS + 8);
-                if constexpr (HIGH) {
-                    al[0] = *reinterpret_cast<const uint32_t*>(xl + at);
-                    al[1] = *reinterpret_cast<const uint32_t*>(xl + at + 8 * RS);
-                    al[2] = *reinterpret_cast<const uint32_t*>(xl + at + 8);
-                    al[3] = *reinterpret_cast<const uint32_t*>(xl + at + 8 * RS + 8);
-                }
-#pragma unroll
-                for (int nt = 0; nt < 4; ++nt) {
-                    mma_bf16(acc[mt][nt], ah, bh[nt][0], bh[nt][1]);
-                    if constexpr (HIGH) {
-                        mma_bf16(acc[mt][nt], ah, bl[nt][0], bl[nt][1]);
-                        mma_bf16(acc[mt][nt], al, bh[nt][0], bh[nt][1]);
-                    }
-                }
-            }
-        }
-        // the pass's power, c^2 + s^2 as the plain version rounds it: fragment e of
-        // tile (mt, t) is frame 16 mt + g + 8 (e / 2), bin 16 warp + 8 t + 2c + e % 2
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-            for (int t = 0; t < 2; ++t)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const float cv = acc[mt][t][e], sv = acc[mt][2 + t][e];
-                    pw[16 * mt + g + 8 * (e / 2)][16 * warp + 8 * t + 2 * c + e % 2] =
-                        __fadd_rn(__fmul_rn(cv, cv), __fmul_rn(sv, sv));
-                }
-        __syncthreads();
-        // mel.cu's mel product: 8 frames x 5 mel columns a thread, over the pass's bins in order
-        const float* wrow = melbank + (size_t)p * PASS_BINS * n_mel;
-#pragma unroll 8
-        for (int jb = 0; jb < PASS_BINS; ++jb) {
-            float w[MEL_J];
-#pragma unroll
-            for (int m = 0; m < MEL_J; ++m) {
-                const int col = tx + 16 * m;
-                w[m] = col < n_mel ? __ldg(wrow + (size_t)jb * n_mel + col) : 0.0f;
-            }
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                const float v = pw[8 * ty + i][jb];
-#pragma unroll
-                for (int m = 0; m < MEL_J; ++m) mel[i][m] = fmaf(v, w[m], mel[i][m]);
-            }
-        }
-        __syncthreads();  // every thread is done with pw before the next pass writes it
+    // the filters' runs (in the order the passes take them), the passes' rows
+    // and the filters' weights
+    for (int r = tid; r < table_rows; r += THREADS) bands_s[r] = __ldg(table + r);
+    // where each k16 step's A fragment lies past a frame's first sample
+    for (int i = tid; i < 4 * boxes; i += THREADS) {
+        const int k = 16 * i, j = k / hop;
+        steps[i] = k < L ? j * RS + k - j * hop : -1;
     }
+    // hop-rows f0 .. f0 + rows - 1 as bf16 (and their low halves), zeros past
+    // S: from the bulk copy, or UNROLL loads in flight a thread before the
+    // first is converted
+    const int n4 = n_samples / 4;
+    const float inv_hop = 1.0f / hop;  // r = floor(4 i / hop) for 4 i < 2^22, the half keeping it off a boundary
+    if (bulk) mbar_wait(wav_bar, 0);
+    for (int i0 = tid; i0 < n4; i0 += UNROLL * THREADS) {
+        float4 v[UNROLL];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        const int f = f0 + 8 * ty + i;
-        if (f >= n_frames) break;
-        float* o = out + ((size_t)b * n_frames + f) * n_mel;
+        for (int u = 0; u < UNROLL; ++u) {
+            const int i = i0 + u * THREADS;
+            const long long at = 4LL * i;
+            if (bulk) {
+                v[u] = at < n_copy ? reinterpret_cast<const float4*>(xf)[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            } else if (i < n4 && S % 4 == 0 && at + 3 < left) {
+                v[u] = __ldg(reinterpret_cast<const float4*>(x + at));
+            } else {
+                v[u].x = i < n4 && at < left ? __ldg(x + at) : 0.0f;
+                v[u].y = i < n4 && at + 1 < left ? __ldg(x + at + 1) : 0.0f;
+                v[u].z = i < n4 && at + 2 < left ? __ldg(x + at + 2) : 0.0f;
+                v[u].w = i < n4 && at + 3 < left ? __ldg(x + at + 3) : 0.0f;
+            }
+        }
 #pragma unroll
-        for (int m = 0; m < MEL_J; ++m) {
-            const int col = tx + 16 * m;
-            if (col < n_mel) o[col] = logf(fmaxf(mel[i][m], floor_));
+        for (int u = 0; u < UNROLL; ++u) {
+            const int i = i0 + u * THREADS;
+            if (i < n4) {
+                const int r = __float2int_rz((4.0f * i + 0.5f) * inv_hop), col = 4 * i - r * hop;
+                const uint32_t h01 = pack_bf16(v[u].x, v[u].y), h23 = pack_bf16(v[u].z, v[u].w);
+                *reinterpret_cast<uint2*>(xh + r * RS + col) = make_uint2(h01, h23);
+                if constexpr (HIGH)
+                    *reinterpret_cast<uint2*>(xl + r * RS + col) =
+                        make_uint2(pack_bf16(v[u].x - bf16_lo(h01), v[u].y - bf16_hi(h01)),
+                                   pack_bf16(v[u].z - bf16_lo(h23), v[u].w - bf16_hi(h23)));
+            }
         }
     }
+    __syncthreads();
+    MEL_PHASE();
+
+    const int wg = tid / 128;
+    if (wg == CW) {
+        // ---- producer: one thread keeps the ring full
+        if constexpr (CW == 2) setmaxnreg_dec<PRODUCER_REGS>();
+        if (producer)
+            for (int g = STAGES; g < total; ++g) load(g);
+        return;
+    }
+    if constexpr (CW == 2) setmaxnreg_inc<CONSUMER_REGS>();
+
+    // ---- consumer warpgroup wg: the block's frames 64 wg .. + 63
+    const int t = tid % 128, lane = tid % 32, warp = t / 32;
+    const int row = 64 * wg + 16 * warp + lane / 4, q = lane % 4;  // fragment rows row, row + 8
+    const float* pw_wg = pw + 64 * wg * PW_LD;
+    float* lm_wg = lm + 64 * wg * OUT_LD;
+    const float* r0 = pw_wg + lane * PW_LD;  // this lane's two frames' power: frames lane, lane + 32
+    const float* r1 = r0 + 32 * PW_LD;
+    const int fa = f0 + 64 * wg + lane;      // their indices in the utterance
+
+    // Sum of filter row e over its run (the power of its pass and the one
+    // before it) in bin order, for this lane's two frames: a filter's bins
+    // are the same for all lanes (a weight load, broadcast, for 64 power
+    // loads in 32 banks); the log goes to the staged rows or out. Four bins
+    // a step, their loads issued together; a step's bins past the run add
+    // fma(0, 0, a) = a.
+    auto mel_filter = [&](int e) {
+        const int4 band = bands_s[e];
+        const float* w = w_s + band.z;  // w[i]: the filter's weight of bin band.x + i
+        float a0 = 0.0f, a1 = 0.0f;
+        for (int i = 0; i < band.y; i += 4) {
+            float wk[4], p0[4], p1[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const bool in = i + u < band.y;
+                const int c = (band.x + i + u) & (PW_COLS - 1);
+                wk[u] = in ? w[i + u] : 0.0f;
+                p0[u] = in ? r0[c] : 0.0f;  // a column past the run may hold anything, a NaN too
+                p1[u] = in ? r1[c] : 0.0f;
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                a0 = fmaf(p0[u], wk[u], a0);
+                a1 = fmaf(p1[u], wk[u], a1);
+            }
+        }
+        a0 = logf(fmaxf(a0, floor_));
+        a1 = logf(fmaxf(a1, floor_));
+        if constexpr (R::STAGE_OUT) {
+            lm_wg[lane * OUT_LD + band.w] = a0;
+            lm_wg[(lane + 32) * OUT_LD + band.w] = a1;
+        } else {
+            float* o = out + ((size_t)b * n_frames + fa) * n_mel + band.w;
+            if (fa < n_frames) *o = a0;
+            if (fa + 32 < n_frames) o[32 * (size_t)n_mel] = a1;
+        }
+    };
+
+    const bf16* xa = xh + row * RS + 2 * q;  // this lane's first A fragment row and column pair
+    const bf16* xla = xl + row * RS + 2 * q;
+    uint32_t ah0[4][4], al0[4][4], ah1[4][4], al1[4][4];
+    int g = 0;  // boxes taken so far
+    // Pass p's products run while the warps sum pass p - 1's filters (warp w
+    // takes the pass's filter rows w, w + 4, ...): two filters after each box
+    // is issued, the rest after the pass's last box. A last round, p ==
+    // passes, sums the last pass's filters alone.
+    for (int p = 0; p <= passes; ++p) {
+        const int4 range = p > 0 ? bands_s[n_mel + p - 1] : make_int4(0, 0, 0, 0);
+        int e = warp;  // the next of pass p - 1's filter rows this warp sums
+        if (p < passes) {
+            float acc[64];
+#pragma unroll
+            for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+            fence_regs(acc);
+            for (int kb = 0; kb + 1 < boxes; kb += 2, g += 2) {
+                // box kb from register set 0, box kb + 1 from set 1; a set is
+                // loaded again only after the products that read it are done
+                mbar_wait(full + 8 * (g % STAGES), (g / STAGES) & 1);
+                issue_box<HIGH>(acc, ah0, al0, xa, xla, steps, kb, RS, ring + (g % STAGES) * R::STAGE_BYTES);
+                wgmma_commit();
+                for (int n = 0; n < 2 && e < range.y; ++n, e += 4) mel_filter(range.x + e);
+                wgmma_wait<1>();  // the box before is done: hand its stage back
+                if (kb > 0 && lane == 0) mbar_arrive(empty + 8 * ((g - 1) % STAGES));
+                mbar_wait(full + 8 * ((g + 1) % STAGES), ((g + 1) / STAGES) & 1);
+                issue_box<HIGH>(acc, ah1, al1, xa, xla, steps, kb + 1, RS,
+                                ring + ((g + 1) % STAGES) * R::STAGE_BYTES);
+                wgmma_commit();
+                for (int n = 0; n < 2 && e < range.y; ++n, e += 4) mel_filter(range.x + e);
+                wgmma_wait<1>();
+                if (lane == 0) mbar_arrive(empty + 8 * (g % STAGES));
+            }
+            if constexpr (ODD) {
+                mbar_wait(full + 8 * (g % STAGES), (g / STAGES) & 1);
+                issue_box<HIGH>(acc, ah0, al0, xa, xla, steps, boxes - 1, RS, ring + (g % STAGES) * R::STAGE_BYTES);
+                wgmma_commit();
+                for (int n = 0; n < 2 && e < range.y; ++n, e += 4) mel_filter(range.x + e);
+                wgmma_wait<1>();
+                if (boxes > 1 && lane == 0) mbar_arrive(empty + 8 * ((g - 1) % STAGES));
+                ++g;
+            }
+            wgmma_wait<0>();
+            fence_regs(acc);
+            MEL_PHASE();
+            if (lane == 0) mbar_arrive(empty + 8 * ((g - 1) % STAGES));
+            for (; e < range.y; e += 4) mel_filter(range.x + e);
+            // the power of pass p goes over that of pass p - 2: pass p - 1's
+            // sums, which read it, are done
+            named_barrier(1 + wg, 128);
+            // c^2 + s^2 as the plain version rounds it: the pair (4j + 2h,
+            // 4j + 2h + 1) is the cos and sin of bin 4j + q, row row + 8h
+            const int col0 = BINS * (p & 1) + q;
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const float c = acc[4 * j + 2 * h], s = acc[4 * j + 2 * h + 1];
+                    pw[(row + 8 * h) * PW_LD + col0 + 4 * j] = __fadd_rn(__fmul_rn(c, c), __fmul_rn(s, s));
+                }
+            named_barrier(1 + wg, 128);
+        } else {
+            for (; e < range.y; e += 4) mel_filter(range.x + e);
+        }
+    }
+    if constexpr (R::STAGE_OUT) {
+        // this warpgroup's log-mel rows leave in one coalesced run
+        named_barrier(1 + wg, 128);
+        const int fw = f0 + 64 * wg, n_rows = min(64, n_frames - fw);
+        if (n_mel % 4 == 0) {
+            const int q4 = n_mel / 4;  // 16-byte pieces a row
+            float4* o = reinterpret_cast<float4*>(out + ((size_t)b * n_frames + fw) * n_mel);
+            for (int i = t; i < n_rows * q4; i += 128) {
+                const int r = i / q4;
+                o[i] = *reinterpret_cast<const float4*>(lm_wg + r * OUT_LD + 4 * (i - r * q4));
+            }
+        } else {
+            for (int r = warp; r < n_rows; r += 4) {
+                float* o = out + ((size_t)b * n_frames + fw + r) * n_mel;
+                for (int c = lane; c < n_mel; c += 32) o[c] = lm_wg[r * OUT_LD + c];
+            }
+        }
+    }
+#ifdef ASR_MEL_PHASES
+    MEL_PHASE();
+    if (tid == 0 && blockIdx.x == 0) {
+        for (int k = 1; k < phase_n; ++k) out[(size_t)b * n_frames * n_mel + k - 1] = (float)(phase_t[k] - phase_t[0]);
+        out[(size_t)b * n_frames * n_mel + 15] = (float)(phase_n - 1);
+    }
+#endif
+}
+
+// Registers of the CW = 2 kernel: setmaxnreg.inc waits until the pool the
+// block was launched with can give what the consumers take, so a kernel
+// compiled with fewer would hang, not trap.
+template <bool HIGH, int CW, bool ODD>
+cudaError_t launch_mel(const CUtensorMap& map, const float* wav, int B, int S, const int4* table, int table_rows,
+                       float* out, int n_frames, int L, int hop, int NB, int n_mel, float floor_,
+                       cudaStream_t stream) {
+    using R = Ring<HIGH, CW>;
+    constexpr int FT = 64 * CW, THREADS = 128 * (CW + 1);
+    auto kernel = mel_bf16_kernel<HIGH, CW, ODD>;
+    const int rows = FT + (L - 1) / hop;
+    const Layout lay(R::STAGES, 4 * ((L + BK - 1) / BK), FT, table_rows, rows, hop + 8, HIGH, R::STAGE_OUT);
+    const size_t smem = 1024 + (size_t)R::STAGES * R::STAGE_BYTES + lay.end;
+    if (smem > 232448) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    if (CW == 2) {
+        cudaFuncAttributes attr;
+        err = cudaFuncGetAttributes(&attr, kernel);
+        if (err != cudaSuccess) return err;
+        if (attr.numRegs * THREADS < 128 * (CW * CONSUMER_REGS + PRODUCER_REGS)) return cudaErrorLaunchOutOfResources;
+    }
+    dim3 grid(ceil_div(n_frames, FT), B);
+    kernel<<<grid, THREADS, smem, stream>>>(map, wav, S, table, table_rows, out, n_frames, L, hop, NB, n_mel,
+                                            floor_);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
-// wav: [B, S] fp32; dft: [1 + high, 2*NB, L] bf16 (kernels/mel.py::MelFrontEnd's
-// transposed hi and lo bases); melbank: [NB, n_mel] fp32; out: [B, n_frames,
-// n_mel] fp32 log-mel. Takes NB % 64 == 0, n_mel <= 80, L % 16 == 0, hop % 16
-// == 0 and frames within S (the wrapper checks).
-ASR_API int asr_log_mel_bf16(const void* wav, const void* dft, const void* melbank, void* out, int B, int S,
-                             int n_frames, int L, int hop, int NB, int n_mel, float floor_, int high,
+// wav: [B, S] fp32; dft: [1 + high, 2*NB, L] bf16 (kernels/mel.py::split_bases:
+// the transposed hi and lo bases, a bin's cos and sin in adjacent rows);
+// table: [table_rows, 4] int32, kernels/mel.py::mel_kernel_table: a row per
+// filter (first nonzero bin, width, offset of its weights, filter) ordered by
+// the pass of 64 bins in which its run ends, the run within that pass and the
+// one before it; a row per pass (its filters' first row, their count, 0, 0);
+// then the filters' nonzero weights, fp32 bits, four a row; out: [B,
+// n_frames, n_mel] fp32 log-mel. Takes NB % 64 == 0, n_mel <= 80, L % 16 == 0,
+// hop % 16 == 0 and frames within S (the wrapper checks). The block has two
+// consumer warpgroups (128 frames) when that grid covers the card's SMs at
+// least once, else one (64 frames).
+ASR_API int asr_log_mel_bf16(const void* wav, const void* dft, const void* table, int table_rows, void* out,
+                             int B, int S, int n_frames, int L, int hop, int NB, int n_mel, float floor_, int high,
                              void* stream) {
-    if (B < 1 || B > 65535 || n_frames < 1 || L < 16 || L % 16 || hop < 16 || hop % 16 || NB < PASS_BINS ||
-        NB % PASS_BINS || n_mel < 1 || n_mel > 16 * MEL_J)
+    if (B < 1 || B > 65535 || n_frames < 1 || L < 16 || L % 16 || hop < 16 || hop % 16 || NB < BINS ||
+        NB % BINS || n_mel < 1 || n_mel > 80 || table_rows < n_mel + NB / BINS || table_rows > 4096)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int rows = FT + (L - 1) / hop;
-    const size_t smem = (size_t)FT * PW_LD * 4 + (size_t)(high ? 2 : 1) * rows * (hop + 8) * 2;
-    auto kernel = high ? mel_bf16_kernel<true> : mel_bf16_kernel<false>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const int P = high ? 2 : 1;
+    const cuuint64_t dims[2] = {(cuuint64_t)L, (cuuint64_t)P * 2 * NB}, strides[1] = {(cuuint64_t)L * 2};
+    const cuuint32_t box[2] = {BK, COLS};
+    CUtensorMap map;
+    cudaError_t err = tensor_map_bf16(&map, dft, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid(ceil_div(n_frames, FT), B);
-    kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(wav), S, static_cast<const bf16*>(dft), static_cast<const float*>(melbank),
-        static_cast<float*>(out), n_frames, L, hop, NB, n_mel, floor_);
-    return static_cast<int>(cudaGetLastError());
+    const bool wide = (long long)ceil_div(n_frames, 128) * B >= 132;
+    auto st = static_cast<cudaStream_t>(stream);
+    const float* w = static_cast<const float*>(wav);
+    const int4* tb = static_cast<const int4*>(table);
+    float* o = static_cast<float*>(out);
+    const bool odd = (L + BK - 1) / BK % 2;
+#define ASR_MEL_LAUNCH(H, C, O) launch_mel<H, C, O>(map, w, B, S, tb, table_rows, o, n_frames, L, hop, NB, n_mel, floor_, st)
+    if (high)
+        err = wide ? (odd ? ASR_MEL_LAUNCH(true, 2, true) : ASR_MEL_LAUNCH(true, 2, false))
+                   : (odd ? ASR_MEL_LAUNCH(true, 1, true) : ASR_MEL_LAUNCH(true, 1, false));
+    else
+        err = wide ? (odd ? ASR_MEL_LAUNCH(false, 2, true) : ASR_MEL_LAUNCH(false, 2, false))
+                   : (odd ? ASR_MEL_LAUNCH(false, 1, true) : ASR_MEL_LAUNCH(false, 1, false));
+#undef ASR_MEL_LAUNCH
+    return static_cast<int>(err);
 }

@@ -14,11 +14,14 @@ matmul_precision``, ``MEL_MODES``):
 * ``"high"``: three bf16 products, ``hi.hi + hi.lo + lo.hi`` of the split
   operands (``_split_hi_lo``), the lo.lo term dropped.
 
-The last two run ``csrc/mel_bf16.cu`` (mma.sync on the tensor cores); their
-plain version takes the products band by band, in the TPU kernel's order
-(hop-row bands of ``hop`` samples). Then the power, the fp32 mel product and
-the log; a second kernel applies utterance CMVN with length masking and
-writes bf16 — the input the conv subsampler takes.
+The last two run ``csrc/mel_bf16.cu`` (wgmma on the tensor cores, the bases
+through a TMA ring, each bin's cos and sin in adjacent columns); their plain
+version takes the products band by band, in the TPU kernel's order (hop-row
+bands of ``hop`` samples). Then the power, the mel product and the log: the
+bf16 kernel sums each filter over its own run of nonzero bins
+(``mel_bands``), which gives the dense in-order sum's bits. A second kernel
+applies utterance CMVN with length masking and writes bf16 — the input the
+conv subsampler takes.
 
 ``MelFrontEnd`` is the counterpart of ``PallasLogMelFrontEnd``; the plain
 ``ops/features.py::LogMelFrontEnd`` computes the same features unfolded.
@@ -42,6 +45,7 @@ from huggingface_asr_tpu_torch.ops.features import (
 
 BF16, F32 = torch.bfloat16, torch.float32
 MEL_MODES = ("highest", "high", "bf16")
+MEL_PASS_BINS, MEL_MAX_BINS = 64, 80  # the kernels' bins a pass; the most mel bins they take
 
 
 def folded_bases(cfg: LogMelConfig) -> Tuple[np.ndarray, np.ndarray]:
@@ -86,9 +90,72 @@ def _split_hi_lo(a: torch.Tensor):
 
 def split_bases(dft: np.ndarray, mode: str) -> torch.Tensor:
     """The bf16 bases of ``mode`` as the kernel reads them: (P, 2*bins, L),
-    a row per output column, P = 1 (hi) for "bf16", 2 (hi, lo) for "high"."""
-    hi, lo = _split_hi_lo(torch.as_tensor(dft, dtype=F32).t().contiguous())
+    a row per output column, P = 1 (hi) for "bf16", 2 (hi, lo) for "high".
+    Row 2n is bin n's cos column of ``dft``, row 2n + 1 its sin column, so
+    that the two land in one thread's accumulator pair."""
+    nb = dft.shape[1] // 2
+    order = np.stack([np.arange(nb), nb + np.arange(nb)], axis=1).reshape(-1)
+    hi, lo = _split_hi_lo(torch.as_tensor(dft[:, order], dtype=F32).t().contiguous())
     return torch.stack([hi] if mode == "bf16" else [hi, lo])
+
+
+def mel_bands(mel: np.ndarray) -> np.ndarray:
+    """The bank's filters as the bf16 kernel reads them: (n_mel + passes, 4)
+    int32, passes = ceil(bins / 64). Row r < n_mel: a filter's (first nonzero
+    bin, width of the run from it to its last nonzero bin, offset of its
+    weights among all the bank's nonzeros, the filter's index); the rows are
+    ordered by the pass of 64 bins in which the run ends (an all-zero filter,
+    of width 0, in the first), filter order within a pass, and the offsets
+    follow filter order. Row n_mel + p: (the first row of pass p's filters,
+    their count, 0, 0). Raises if a filter's nonzeros are not one contiguous
+    run, or if its run begins before the pass before the one it ends in: the
+    kernel keeps the power of two passes."""
+    nb, n_mel = mel.shape
+    passes = -(-nb // MEL_PASS_BINS)
+    runs, off = [], 0
+    for m in range(n_mel):
+        nz = np.flatnonzero(mel[:, m])
+        if nz.size and nz[-1] - nz[0] + 1 != nz.size:
+            raise ValueError(f"mel filter {m} has nonzero weights at bins {nz.tolist()}: not one contiguous run")
+        first, width = (int(nz[0]), int(nz.size)) if nz.size else (0, 0)
+        end_pass = (first + width - 1) // MEL_PASS_BINS if width else 0
+        if first < MEL_PASS_BINS * (end_pass - 1):
+            raise ValueError(f"mel filter {m} runs over bins {first}..{first + width - 1}: more than two passes "
+                             f"of {MEL_PASS_BINS} bins")
+        runs.append((end_pass, m, first, width, off))
+        off += width
+    table = np.zeros((n_mel + passes, 4), np.int32)
+    for r, (end_pass, m, first, width, o) in enumerate(sorted(runs)):
+        table[r] = (first, width, o, m)
+    ends = np.asarray(sorted(run[0] for run in runs))
+    for p in range(passes):
+        table[n_mel + p] = (int(np.searchsorted(ends, p)), int((ends == p).sum()), 0, 0)
+    return table
+
+
+def mel_kernel_table(mel: np.ndarray) -> np.ndarray:
+    """What ``csrc/mel_bf16.cu`` reads of the bank, one int32 array of rows of
+    4: ``mel_bands``' rows, then the filters' nonzero weights in filter order
+    (each at its band's offset), fp32 bits, four a row, the last row padded
+    with zeros."""
+    bands = mel_bands(mel)
+    n_mel = mel.shape[1]
+    weights = np.zeros(-(-int(bands[:n_mel, 1].sum()) // 4) * 4, np.float32)
+    for first, width, off, m in bands[:n_mel]:
+        weights[off:off + width] = mel[first:first + width, m]
+    return np.concatenate([bands, weights.view(np.int32).reshape(-1, 4)])
+
+
+def _kernel_table_of(mel: torch.Tensor) -> torch.Tensor:
+    """``mel_kernel_table`` of a bank on the card, made at the bank's first
+    use (a copy to the host) and kept on the tensor until it is written in
+    place."""
+    kept = getattr(mel, "_asr_mel_table", None)
+    if kept is None or kept[0] != mel._version:
+        table = torch.from_numpy(mel_kernel_table(mel.detach().cpu().numpy())).to(mel.device)
+        kept = (mel._version, table)
+        mel._asr_mel_table = kept
+    return kept[1]
 
 
 def _check_mode(mode: str) -> str:
@@ -105,9 +172,10 @@ def log_mel_plain(wav: torch.Tensor, n_frames: int, dft: torch.Tensor, mel: torc
                   hop: int, floor: float, mode: str = "highest") -> torch.Tensor:
     """wav (B, S) f32 -> (B, n_frames, n_mel) f32 log-mel from the folded bases:
     ``dft`` (L, 2*bins) fp32 for "highest", ``split_bases``' (P, 2*bins, L)
-    bf16 for "bf16" and "high", whose products are taken band by band (``hop``
-    samples of the frame each), every product with fp32 sums, as the TPU
-    kernel takes them (pallas_features.py:129-158)."""
+    bf16 (each bin's cos and sin in adjacent rows) for "bf16" and "high",
+    whose products are taken band by band (``hop`` samples of the frame
+    each), every product with fp32 sums, as the TPU kernel takes them
+    (pallas_features.py:129-158)."""
     if _check_mode(mode) == "highest":
         L, two_nb = dft.shape
     else:
@@ -128,11 +196,11 @@ def log_mel_plain(wav: torch.Tensor, n_frames: int, dft: torch.Tensor, mel: torc
             if mode == "high":
                 part = part + x_hi[..., band] @ lo[band] + x_lo[..., band] @ hi[band]
             coef = part if coef is None else coef + part
-    power = coef[..., :nb] ** 2 + coef[..., nb:] ** 2
+    if mode == "highest":
+        power = coef[..., :nb] ** 2 + coef[..., nb:] ** 2
+    else:
+        power = coef[..., 0::2] ** 2 + coef[..., 1::2] ** 2
     return torch.log(torch.clamp(power @ mel, min=floor))
-
-
-MEL_PASS_BINS, MEL_MAX_BINS = 64, 80  # the kernel's bins a pass; mel columns its threads hold
 
 
 def log_mel(wav: torch.Tensor, n_frames: int, dft: torch.Tensor, mel: torch.Tensor,
@@ -140,7 +208,8 @@ def log_mel(wav: torch.Tensor, n_frames: int, dft: torch.Tensor, mel: torch.Tens
     """``log_mel_plain``; CUDA tensors run ``csrc/mel.cu::mel_kernel`` ("highest")
     or ``csrc/mel_bf16.cu`` ("bf16", "high"; counted as ``asr_log_mel_bf16``
     and ``asr_log_mel_high``): any S, bins in passes of 64, at most 80 mel
-    bins; the bf16 kernel also needs L and hop multiples of 16."""
+    bins; the bf16 kernel also needs L and hop multiples of 16 and each
+    filter's nonzeros contiguous (``mel_bands``)."""
     if not _build.on_cuda(wav, dft, mel):
         return log_mel_plain(wav, n_frames, dft, mel, hop, floor, mode)
     if _check_mode(mode) != "highest":
@@ -179,10 +248,11 @@ def _log_mel_bf16(wav, n_frames, dft, mel, hop, floor, mode):
     _build.check(wav, "wav", F32)
     _build.check(dft, "dft", BF16)
     _build.check(mel, "mel", F32)
+    table = _kernel_table_of(mel)
     out = torch.empty(B, n_frames, n_mel, dtype=F32, device=wav.device)
-    _build.launch("asr_log_mel_bf16", "ppppiiiiiiifi", wav.data_ptr(), dft.data_ptr(), mel.data_ptr(),
-                  out.data_ptr(), B, S, n_frames, L, hop, nb, n_mel, float(floor), int(mode == "high"),
-                  label=f"asr_log_mel_{mode}")
+    _build.launch("asr_log_mel_bf16", "pppipiiiiiiifi", wav.data_ptr(), dft.data_ptr(), table.data_ptr(),
+                  table.shape[0], out.data_ptr(), B, S, n_frames, L, hop, nb, n_mel, float(floor),
+                  int(mode == "high"), label=f"asr_log_mel_{mode}")
     return out
 
 
@@ -230,6 +300,8 @@ class MelFrontEnd:
         self.dft = torch.as_tensor(dft, device=device) if self.mode == "highest" else \
             split_bases(dft, self.mode).to(device)
         self.mel = torch.as_tensor(mel, device=device)
+        if self.mode != "highest" and self.mel.is_cuda:
+            _kernel_table_of(self.mel)  # the bf16 kernel's table, made here and not in the first request
 
     def __call__(self, waveforms: torch.Tensor, lengths: Optional[torch.Tensor] = None, *,
                  plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:

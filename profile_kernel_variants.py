@@ -1,6 +1,6 @@
 """A/B of kernel source variants on one NVIDIA GPU.
 
-    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm,dwconv,mel,posq,conv1,cmvn,ln,trace,ptxas DIR_A [DIR_B ...]
+    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm,dwconv,mel,melbf16,geluserving,posq,conv1,cmvn,ln,trace,ptxas DIR_A [DIR_B ...]
 
 Each DIR is a directory holding a full copy of ``huggingface_asr_tpu_torch/csrc``
 (the package's own directory is a valid DIR). Every variant is built and run in
@@ -28,7 +28,18 @@ versions at M = 2,048 and 32,768 rows and times them beside
 holds the log-mel kernel against its plain version at B = 8 and 128 x 10 s of
 seeded synthetic speech, and against the folded product in fp64 on that speech
 and on it x 1e-4 (its largest error at most twice the cuBLAS fp32 product's),
-and times it beside the cuBLAS fp32 product (device times); ``posq`` holds the positional query at head widths 32 (8 heads, q_rot
+and times it beside the cuBLAS fp32 product (device times); ``melbf16`` holds the
+log-mel kernel's "bf16" and "high" DFT modes (``csrc/mel_bf16.cu``) against
+their plain version at B = 8 and 128 x 10 s of that speech, prints each one's
+largest error against the folded product in fp64 beside the plain version's,
+and times it beside cuBLAS's bf16 product of the framed operands and its
+bound (device times; a tree whose ``asr_log_mel_bf16`` predates the filter
+table, and whose bases put the cos columns before the sin ones, is called
+with its own arguments and layout); ``geluserving`` times the FF1-in GEMM (K =
+256, N = 1,024) with the serving GELU epilogue beside the exact one at M =
+2,048 and 32,768, and conv2 with the serving GELU beside the exact one at B =
+8 and 128 x 499 frames (device times, each held against its plain version
+where that fits); ``posq`` holds the positional query at head widths 32 (8 heads, q_rot
 256) and 64 (4 heads, q_rot 192) at M = 2,048 and 32,768 rows and times it
 beside ``torch.bmm`` (device times); ``conv1`` and ``cmvn`` hold the subsampler's conv1 and the
 utterance CMVN against their plain versions at B = 8 and 128 x 998 frames (seeded log-mel, the smoke's
@@ -131,6 +142,108 @@ def smoke_lengths(B: int, T: int):
     return lens
 
 
+def melbf16_variant(csrc: str, dev) -> None:
+    """The ``melbf16`` mode on the variant whose sources are ``csrc``."""
+    import torch
+
+    from chip_smoke import bound, mel_bf16_work, speech
+    from huggingface_asr_tpu_torch.kernels import _build
+    from huggingface_asr_tpu_torch.kernels import mel as K3
+    from huggingface_asr_tpu_torch.ops.features import LogMelConfig
+
+    cfg = LogMelConfig()
+    dft_np, mel_np = K3.folded_bases(cfg)
+    dft32, mel = torch.from_numpy(dft_np).to(dev), torch.from_numpy(mel_np).to(dev)
+    hop, floor, L = cfg.hop_length, cfg.mel_floor, cfg.frame_length
+    # a tree of the first design: no filter table, the cos columns before the sin ones
+    table = "int table_rows" in (pathlib.Path(csrc) / "mel_bf16.cu").read_text()
+    rng = np.random.default_rng(0)
+    S = 160000
+    wav_all = np.zeros((128, S), np.float32)
+    for i in range(128):
+        w_ = speech(10.0 - 0.05 * (i % 16), rng)
+        wav_all[i, :len(w_)] = w_
+    wav_all = torch.from_numpy(wav_all).to(dev)
+    n = int(cfg.num_frames(S))
+    for mode in ("bf16", "high"):
+        bases = K3.split_bases(dft_np, mode).to(dev)
+        first = torch.stack(K3._split_hi_lo(dft32.t().contiguous())[:1 if mode == "bf16" else 2]).contiguous()
+
+        def kernel(x):
+            if table:
+                return K3.log_mel(x, n, bases, mel, hop, floor, mode)
+            out = torch.empty(x.shape[0], n, mel.shape[1], dtype=torch.float32, device=dev)
+            _build.launch("asr_log_mel_bf16", "ppppiiiiiiifi", x.data_ptr(), first.data_ptr(), mel.data_ptr(),
+                          out.data_ptr(), x.shape[0], S, n, L, hop, mel.shape[0], mel.shape[1], float(floor),
+                          int(mode == "high"), label=f"asr_log_mel_{mode}")
+            return out
+
+        for B in (8, 128):
+            x = wav_all[:B]
+            with torch.no_grad():
+                got, ref = kernel(x), K3.log_mel_plain(x, n, bases, mel, hop, floor, mode)
+                exact = K3.log_mel_plain(x.double(), n, dft32.double(), mel.double(), hop, floor)
+                err = float((got - ref).abs().max())
+                ok = bool(torch.isfinite(got).all()) and err <= 1e-3 * max(1.0, float(ref.abs().max()))
+                err_k = float((got.double() - exact).abs().max())
+                err_p = float((ref.double() - exact).abs().max())
+                frames16 = x.unfold(1, L, hop)[:, :n].to(torch.bfloat16).contiguous()
+                hi_t = bases[0].t()
+                bound_ms, by = bound(*mel_bf16_work(x, n, bases, mel))
+                print(f"melbf16 {mode} B={B}: err={err:.3e} {'ok' if ok else 'FAIL'} fp64 kernel {err_k:.4e} "
+                      f"plain {err_p:.4e} ms={timed(lambda: kernel(x)):.4f} "
+                      f"device_ms={device_ms(lambda: kernel(x)):.4f} bound_ms={bound_ms:.4f} ({by}) "
+                      f"cublas_bf16_device_ms={device_ms(lambda: frames16 @ hi_t):.4f}", flush=True)
+                del got, ref, exact, frames16
+            torch.cuda.empty_cache()
+
+
+def geluserving_variant(dev) -> None:
+    """The ``geluserving`` mode: the GEMM's and conv2's serving GELU epilogues
+    beside their exact ones."""
+    import torch
+
+    from chip_smoke import bound
+    from huggingface_asr_tpu_torch.kernels import layer as K1
+    from huggingface_asr_tpu_torch.kernels import subsample as K2
+
+    g = torch.Generator().manual_seed(20)
+    K, N = 256, 1024
+    w = (torch.randn(K, N, generator=g) * K ** -0.5).bfloat16().to(dev)
+    bias = (torch.randn(N, generator=g) * 0.1).to(dev)
+    for M in (2048, 32768):
+        a = torch.randn(M, K, generator=g).bfloat16().to(dev)
+        bound_ms, by = bound(2.0 * M * K * N, 2 * (M * K + K * N + M * N) + 4 * N, "bf16")
+        line = [f"geluserving gemm M={M} K={K} N={N}: bound_ms={bound_ms:.4f} ({by})"]
+        for act in ("gelu_serving", "gelu"):
+            call = lambda: K1.gemm(a, w, bias, act=act)  # noqa: E731
+            got, ref = call(), K1.gemm_plain(a, w, bias, act=act)
+            err = float((got.float() - ref.float()).abs().max())
+            ok = err <= 2 ** -6 * max(1.0, float(ref.float().abs().max()))
+            line.append(f"{act} err={err:.3e} {'ok' if ok else 'FAIL'} ms={timed(call):.4f} "
+                        f"device_ms={device_ms(call):.4f}")
+        print("; ".join(line), flush=True)
+        del a, got, ref
+    for B in (8, 128):
+        T1, T2 = 499, 256
+        y1 = torch.randn(B, T1, 40, 256, generator=g).bfloat16().to(dev)
+        w2 = (torch.randn(9 * 256, 256, generator=g) * 0.02).bfloat16().to(dev)
+        b2 = (torch.randn(256, generator=g) * 0.1).bfloat16().float().to(dev)
+        line = [f"geluserving conv2 B={B} T2={T2}"]
+        for profile in ("serving", "exact"):
+            call = lambda: K2.conv2(y1, w2, b2, T2, profile)  # noqa: E731
+            verdict = "unchecked"
+            if B <= 8:  # the plain version at B=128 needs tens of GB
+                got, ref = call().float(), K2.conv2_plain(y1, w2, b2, T2, profile).float()
+                err = float((got - ref).abs().max())
+                verdict = f"err={err:.3e} {'ok' if err <= 2 ** -6 * max(1.0, float(ref.abs().max())) else 'FAIL'}"
+            with torch.no_grad():
+                line.append(f"{profile} {verdict} ms={timed(call):.4f} device_ms={device_ms(call):.4f}")
+        print("; ".join(line), flush=True)
+        del y1
+        torch.cuda.empty_cache()
+
+
 def run_variant(csrc: str, what: str) -> None:
     import torch
 
@@ -145,7 +258,8 @@ def run_variant(csrc: str, what: str) -> None:
     _build.CSRC = pathlib.Path(csrc).resolve()
     _build.library()
     sources = {"conv2": "conv2", "k4": "train_fwd", "k4bwd": "train_bwd", "k1": "rel_attention.cu", "k5": "shift",
-               "gemm": "layer.cu", "dwconv": "dwconv", "mel": "mel.cu", "posq": "layer.cu",
+               "gemm": "layer.cu", "dwconv": "dwconv", "mel": "mel.cu", "melbf16": "mel_bf16", "posq": "layer.cu",
+               "geluserving": "layer.cu",
                "conv1": "subsample.cu", "cmvn": "mel.cu", "ln": "layer.cu", "trace": "dwconv", "ptxas": ""}
     keep = False
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
@@ -296,6 +410,10 @@ def run_variant(csrc: str, what: str) -> None:
                 print(f"mel B={B}: err={err:.3e} fp64 kernel/cublas: {', '.join(gate)} {'ok' if ok else 'FAIL'} "
                       f"ms={timed(kernel):.4f} device_ms={device_ms(kernel):.4f} "
                       f"cublas_fp32_device_ms={device_ms(library):.4f}", flush=True)
+    if "melbf16" in what.split(","):
+        melbf16_variant(csrc, dev)
+    if "geluserving" in what.split(","):
+        geluserving_variant(dev)
     if "conv1" in what.split(",") or "cmvn" in what.split(","):
         import torch.nn.functional as F
 

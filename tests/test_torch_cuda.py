@@ -1564,13 +1564,17 @@ def test_ctc_beam_search_on_the_card_matches_the_cpu():
 
 
 @pytest.mark.parametrize("mode", ["bf16", "high"])
-@pytest.mark.parametrize("B,S", [(1, 16000 * 2 + 3), (3, 16000 * 3 + 1), (8, 160000 + 2)])
+@pytest.mark.parametrize("B,S", [(1, 16000 * 2 + 3), (3, 16000 * 3 + 1), (8, 160000 + 2), (8, 160000),
+                                 (128, 160000), (2, 2000)])
 @pytest.mark.parametrize("quiet", [False, True])
 def test_mel_bf16_modes_against_plain(mode, B, S, quiet):
     """The tensor-core DFT in "bf16" and "high" on speech-like input and on
-    the same input x 1e-4, at an S that is no multiple of 4: the same bf16
-    operands as the plain version, fp32 sums in another order, so the
-    log-mel within 1e-3 of its scale; counted under its mode's name."""
+    the same input x 1e-4, at S that are and are no multiple of 4: the same
+    bf16 operands as the plain version, fp32 sums in another order, so the
+    log-mel within 1e-3 of its scale; counted under its mode's name. B=8 x 10 s
+    takes the one-warpgroup blocks (64 frames), B=128 x 10 s the two-warpgroup
+    ones (128 frames); 998 frames leave a ragged last tile in both, and S =
+    2,000 (11 frames) is shorter than one tile."""
     dev = _cuda()
     cfg = LogMelConfig(matmul_precision=mode)
     wav = torch.from_numpy(_speech_batch(B, S, seed=B) * (1e-4 if quiet else 1.0)).to(dev)
@@ -1581,6 +1585,96 @@ def test_mel_bf16_modes_against_plain(mode, B, S, quiet):
     got = K3.log_mel(wav, *args)
     assert dict(_build.LAUNCHES) == {f"asr_log_mel_{mode}": 1} and got.shape == (B, n_frames, cfg.num_mel_bins)
     _close(got, K3.log_mel_plain(wav, *args), 1e-3)
+
+
+def test_mel_bf16_refuses_shapes_outside_its_contract():
+    """The bf16 kernel's wrapper raises, and never falls back to the plain
+    version, on bins not in passes of 64, more than 80 mel bins, a hop that is
+    no multiple of 16, frames past S, and a bank whose filter has two runs."""
+    dev = _cuda()
+    cfg = LogMelConfig(matmul_precision="bf16")
+    fe = K3.MelFrontEnd(cfg, device=dev)
+    wav = torch.zeros(2, 16000, device=dev)
+    n = int(cfg.num_frames(16000))
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="passes of 64"):
+        K3.log_mel(wav, n, fe.dft[:, :480].contiguous(), fe.mel[:240].contiguous(), 160, 1e-10, "bf16")
+    with pytest.raises(ValueError, match="at most 80"):
+        K3.log_mel(wav, n, fe.dft, torch.zeros(256, 88, device=dev), 160, 1e-10, "bf16")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        K3.log_mel(wav, n, fe.dft, fe.mel, 150, 1e-10, "bf16")
+    with pytest.raises(ValueError, match="frames need more"):
+        K3.log_mel(wav, n + 1, fe.dft, fe.mel, 160, 1e-10, "bf16")
+    split = fe.mel.clone()
+    split[200, 10] = 0.5
+    with pytest.raises(ValueError, match="filter 10"):
+        K3.log_mel(wav, n, fe.dft, split, 160, 1e-10, "bf16")
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
+def _every_bf16_value(finite: bool = False) -> torch.Tensor:
+    values = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    return values[torch.isfinite(values.float())] if finite else values
+
+
+def _serving_gelu_ref(x: torch.Tensor) -> torch.Tensor:
+    """``act_plain("gelu_serving")`` of the kernels' fp32 value, rounded to
+    bf16. A product's sum turns -0 into +0, so the reference takes x + 0."""
+    return K1.act_plain("gelu_serving", x.float() + 0.0).bfloat16()
+
+
+def _bit_equal(got: torch.Tensor, ref: torch.Tensor) -> None:
+    nan = torch.isnan(ref.float())
+    assert torch.equal(torch.isnan(got.float()), nan)
+    assert torch.equal(torch.where(nan, 0, got.view(torch.int16)), torch.where(nan, 0, ref.view(torch.int16)))
+
+
+@pytest.mark.parametrize("tile", ["large", "small"])
+def test_gemm_gelu_serving_on_every_bf16_value(tile):
+    """``gelu_serving8`` in the GEMM epilogue: rows whose product is each of
+    the 65,536 bf16 values exactly (a one in the weight's first row, the value
+    in the row's first column, zeros elsewhere; no bias), so that every output
+    column is the serving GELU of that value: bit-equal to
+    ``act_plain("gelu_serving")`` on every input, NaNs in place. "large" runs
+    the 128 x 128 persistent tile (M = 65,536 in one launch), "small" the
+    64 x 64 one (four launches of M = 16,384, fewer tiles than SMs)."""
+    dev = _cuda()
+    K, N = 64, 128
+    values = _every_bf16_value().to(dev)
+    w = torch.zeros(K, N, dtype=torch.bfloat16, device=dev)
+    w[0] = 1.0
+    parts = [values] if tile == "large" else list(values.split(16384))
+    _build.reset_launch_counts()
+    for part in parts:
+        a = torch.zeros(part.numel(), K, dtype=torch.bfloat16, device=dev)
+        a[:, 0] = part
+        got = K1.gemm(a, w, None, act="gelu_serving")
+        _bit_equal(got, _serving_gelu_ref(part)[:, None].expand(-1, N))
+    assert dict(_build.LAUNCHES) == {"asr_gemm_gelu_serving": len(parts)}
+
+
+def test_conv2_serving_gelu_on_every_finite_bf16_value():
+    """``gelu_serving8`` in conv2's serving epilogue: the weight is one at the
+    centre tap from each channel to itself and zero elsewhere, the bias zero,
+    and conv1's output holds every finite bf16 value once at the centre taps'
+    places (channel fastest) and zeros between them, so that output (t2, f2,
+    c) is the serving GELU of one value: bit-equal to
+    ``act_plain("gelu_serving")`` of it. Infinities and NaNs are left out: a
+    zero weight times an infinity at a neighbour's tap is a NaN in the kernel
+    and in the plain conv alike."""
+    dev = _cuda()
+    C, T2, F2 = 256, 16, 20
+    values = _every_bf16_value(finite=True)
+    grid = torch.zeros(T2 * F2 * C, dtype=torch.bfloat16)
+    grid[:values.numel()] = values
+    y1 = torch.zeros(1, 2 * T2, 2 * F2, C, dtype=torch.bfloat16)
+    y1[0, 0::2, 0::2] = grid.view(T2, F2, C)
+    w2 = torch.zeros(9 * C, C, dtype=torch.bfloat16)
+    w2[4 * C:5 * C] = torch.eye(C, dtype=torch.bfloat16)
+    _build.reset_launch_counts()
+    got = K2.conv2(y1.to(dev), w2.to(dev), torch.zeros(C, device=dev), T2, "serving")
+    assert dict(_build.LAUNCHES) == {"asr_conv2_serving": 1}
+    _bit_equal(got.view(-1), _serving_gelu_ref(grid.to(dev)))
 
 
 def test_serving_gemm_epilogue_against_plain(fused):
