@@ -273,6 +273,23 @@
    count in "exact" against the JAX bf16 model's ids is printed). The JSON
    line gains the serving kernels' rows with their launches in (c)'s serving
    requests, and the high mode's with the launches of its front-end call.
+20. last, K3 past 80 mel bins and at a count that is no multiple of 8
+   (``mel_bins_phase``, 23 and 128 bins): (a) the log-mel kernel in
+   "highest" and "bf16" and the CMVN kernel at B=8 and 128 x 10 s against
+   their plain versions (1e-4, 1e-3 and 2^-7 of the scale; CMVN on every
+   column but the 128-bin bank's empty filter 3, reference caveat (k), whose
+   values on each side are printed), the fp64 gates of (19a) and the "exact"
+   contract, beside the cuBLAS product of the same framed operands and
+   device times; (b) the flagship at that count, seeded weights, through
+   ``ASRPipeline`` in "exact" and "serving": four requests, each launching
+   one log-mel and one CMVN kernel and 12 x K1 behind the model's own conv
+   front end (K2 takes 80 bins only), held against the plain path by
+   ``against_plain_path`` with the caveat (k) rule (``empty_column_rule``),
+   greedy ids on >= 98 % of the compared frames with near-ties by the
+   triage rule as ties (seeded random weights give flat logits: 96.1 % raw
+   at 128 bins in "exact").
+   The JSON line gains the rows ``mel_m23``, ``mel_bf16_m23``, ``cmvn_m23``
+   (and ``_b128``, and the same at 128) with their launches in (b).
 
 Beside each kernel's time it prints the plain version's, the least time the
 card could take (the larger of bytes / 3.35 TB/s and operations / the peak
@@ -1039,13 +1056,25 @@ def watch_steps(cls):
     return seen, lambda: setattr(cls, "train_step", real)
 
 
-def against_plain_path(pipe, requests):
+def against_plain_path(pipe, requests, empty_column=None, tie_counts=None):
     """A CTC ``ASRPipeline`` on its fused route: the kernel path vs the plain
     path on the card for every request (same waveforms): logits within 0.05
     of their scale (the tolerance the JAX package holds its Pallas path to),
     greedy ids equal on every frame where the plain path's top-2 margin
     exceeds twice that tolerance. Returns (valid frames, frames whose greedy
-    ids agree)."""
+    ids agree).
+
+    ``empty_column``: the bank's all-zero filter (reference caveat (k): its
+    CMVN column is all NaN or all -1, by the length). The features are then
+    held against the plain path's on every other column (2^-6 of their
+    scale: two bf16 ulps) and what each side writes in that column is
+    printed; an utterance whose plain column is NaN must have no finite
+    logit on either side; one whose kernel column alone is non-finite may
+    have non-finite kernel logits and is not compared; the others are
+    compared as above. ``tie_counts`` (a dict), where given, gains under
+    "differ_at_ties" the compared frames whose greedy ids differ where the
+    plain path's top-two gap is a tie by the triage rule (within ``TIE`` of
+    the logit scale)."""
     import torch
 
     from huggingface_asr_tpu_torch.models.fast_infer import ctc_infer
@@ -1056,8 +1085,10 @@ def against_plain_path(pipe, requests):
         wav = torch.from_numpy(pipe._bucket_pad(audios)).to(dev)
         lens = torch.tensor([len(a) for a in audios], dtype=torch.int32, device=dev)
         with torch.inference_mode():
-            got = ctc_infer(pipe._fused, *pipe._frontend(wav, lens))
-            ref = ctc_infer(pipe._fused, *pipe._frontend(wav, lens, plain=True), plain=True)
+            feats, feat_lens = pipe._frontend(wav, lens)
+            feats_p, feat_lens_p = pipe._frontend(wav, lens, plain=True)
+            got = ctc_infer(pipe._fused, feats, feat_lens)
+            ref = ctc_infer(pipe._fused, feats_p, feat_lens_p, plain=True)
         torch.cuda.synchronize()
         g, r = got.logits.float(), ref.logits.float()
         if g.shape != r.shape or g.shape[:2] != (len(audios), r.shape[1]) \
@@ -1066,6 +1097,12 @@ def against_plain_path(pipe, requests):
         if not torch.equal(got.logit_lengths, ref.logit_lengths):
             _fail(f"{name}: logit lengths differ")
         valid = torch.arange(g.shape[1], device=dev)[None, :] < ref.logit_lengths[:, None]
+        rows = torch.ones(len(audios), dtype=torch.bool, device=dev)  # the utterances compared
+        if empty_column is not None:
+            rows = empty_column_rule(name, feats, feats_p, feat_lens, g, r, valid, empty_column)
+            valid = valid & rows[:, None]
+            if not bool(valid.any()):
+                continue
         err = float((g - r).abs()[valid].max())
         scale = float(r.abs()[valid].max())
         tol = 0.05 * max(1.0, scale)
@@ -1074,15 +1111,58 @@ def against_plain_path(pipe, requests):
         clear = ((top2[..., 0] - top2[..., 1]) > 2 * tol)[valid]
         n_frames += int(valid.sum())
         n_agree += int(same.sum())
+        if tie_counts is not None:
+            tie = ((top2[..., 0] - top2[..., 1]) <= TIE * scale)[valid]
+            tie_counts["differ_at_ties"] = tie_counts.get("differ_at_ties", 0) + int((~same & tie).sum())
         print(f"{name} logits kernel vs plain: max_abs_err={err:.3e} tol={tol:.3e} "
               f"(scale {scale:.3f}); greedy ids agree on {float(same.float().mean()):.4f} of "
               f"{int(valid.sum())} valid frames, on {int((same & clear).sum())}/{int(clear.sum())} "
               f"frames with a clear margin", flush=True)
-        if not bool(torch.isfinite(g).all()) or err > tol:
+        if not bool(torch.isfinite(g[rows]).all()) or err > tol:
             _fail(f"{name}: pipeline logits disagree with the plain path")
         if not bool(same[clear].all()):
             _fail(f"{name}: greedy ids differ on a frame with a clear margin")
     return n_frames, n_agree
+
+
+def empty_column_rule(name, feats, feats_p, feat_lens, g, r, valid, col):
+    """``against_plain_path``'s rule for the all-zero filter's column ``col``
+    (reference caveat (k)) on one request: the features (kernel ``feats``,
+    plain ``feats_p``) within 2^-6 of their scale on every other column and
+    finite there, below each length; the column's values on each side
+    printed; an utterance whose plain column is non-finite has no finite
+    logit on either side (``g`` kernel, ``r`` plain). Returns the utterances
+    whose logits are compared: both columns finite."""
+    import torch
+
+    T = feats.shape[1]
+    below = torch.arange(T, device=feats.device)[None, :] < feat_lens[:, None]
+    keep = [c for c in range(feats.shape[-1]) if c != col]
+    fk, fp = feats.float()[..., keep][below], feats_p.float()[..., keep][below]
+    f_err, f_scale = float((fk - fp).abs().max()), float(fp.abs().max())
+    print(f"{name} features kernel vs plain, every column but {col}: max_abs_err={f_err:.3e} "
+          f"tol={2 ** -6 * max(1.0, f_scale):.3e} (scale {f_scale:.3f})", flush=True)
+    if not bool(torch.isfinite(fk).all()) or not bool(torch.isfinite(fp).all()) \
+            or f_err > 2 ** -6 * max(1.0, f_scale):
+        _fail(f"{name}: the features disagree with the plain front end's off column {col}")
+
+    def written(f, i):  # what an utterance's column holds below its length
+        v = f[i, :int(feat_lens[i]), col].float()
+        return "nan" if bool(torch.isnan(v).all()) else ",".join(f"{x:g}" for x in torch.unique(v).tolist()[:3])
+
+    rows, seen = [], {}
+    for i in range(feats.shape[0]):
+        k_ok = bool(torch.isfinite(feats[i, :int(feat_lens[i]), col].float()).all())
+        p_ok = bool(torch.isfinite(feats_p[i, :int(feat_lens[i]), col].float()).all())
+        pair = f"{written(feats, i)}/{written(feats_p, i)}"
+        seen[pair] = seen.get(pair, 0) + 1
+        if not p_ok:  # the plain side's NaN column: no finite logit on either side
+            if bool(torch.isfinite(g[i][valid[i]]).any()) or bool(torch.isfinite(r[i][valid[i]]).any()):
+                _fail(f"{name}: utterance {i}, column {col} non-finite on the plain side, yet a finite logit")
+        rows.append(k_ok and p_ok)
+    print(f"{name} column {col} (kernel/plain) per utterance: {seen}; {sum(rows)} of {len(rows)} utterances "
+          f"compared", flush=True)
+    return torch.tensor(rows, device=g.device)
 
 
 # The 256-wide shipped SSL config of the wav2vec2 pretraining run: 12 layers x
@@ -2836,6 +2916,162 @@ def serving_phase(dev, smi, compare, fused, model_dir, requests, B_big: int = 12
     return launches["serving"], high_launches, counts
 
 
+# The bin counts past the shipped 80: Kaldi's compute-fbank-feats default
+# (no multiple of 8) and Whisper large-v3's front end; the all-zero filter of
+# each bank (reference caveat (k)).
+MEL_BINS = (23, 128)
+EMPTY_FILTER = {128: 3}
+
+
+def mel_bins_phase(dev, smi, compare, B_big: int = 128, S: int = 160000) -> dict:
+    """K3 at 23 and 128 mel bins (step 20 of the module's docstring). Returns
+    the kernel rows' launch counts, {row key: (counter, launches)}."""
+    import torch
+
+    from huggingface_asr_tpu_torch.kernels import _build
+    from huggingface_asr_tpu_torch.kernels import mel as K3
+    from huggingface_asr_tpu_torch.ops.features import LogMelConfig
+    from huggingface_asr_tpu_torch.serving.pipeline import ASRPipeline
+    from huggingface_asr_tpu_torch.training.model_factory import save_params
+
+    t_phase = time.perf_counter()
+    gen = np.random.default_rng(21)
+    wavs = np.zeros((B_big, S), np.float32)
+    lens = [int(S * (1.0 - 0.005 * (i % 16))) for i in range(B_big)]
+    for i in range(B_big):
+        wv = speech(lens[i] / 16000, gen)
+        wavs[i, :len(wv)] = wv
+    wav_big = torch.from_numpy(wavs).to(dev)
+    lens_big = torch.tensor(lens, dtype=torch.int32, device=dev)
+    del wavs
+    requests = {
+        "1 utt (4 s)": [speech(4.0, gen)],
+        "4 utts (6-18 s)": [speech(s_, gen) for s_ in (6.0, 9.5, 13.0, 18.0)],
+        "8 utts (3-10 s)": [speech(3.0 + s_, gen) for s_ in np.linspace(0, 7, 8)],
+        "8 utts (9.3-10 s)": [speech(10.0 * (1.0 - 0.01 * i), gen) for i in range(8)],
+    }
+    launches = {}
+    for n_mel in MEL_BINS:
+        base = LogMelConfig(num_mel_bins=n_mel)
+        dft_np, mel_np = K3.folded_bases(base)
+        dft32, mel32 = torch.from_numpy(dft_np).to(dev), torch.from_numpy(mel_np).to(dev)
+        bf = K3.split_bases(dft_np, "bf16").to(dev)
+        hop, floor, L = base.hop_length, base.mel_floor, base.frame_length
+        n = int(base.num_frames(S))
+        empty = EMPTY_FILTER.get(n_mel)
+        keep = [c for c in range(n_mel) if c != empty]
+
+        # ---- (a) the log-mel kernel in "highest" and "bf16" and the CMVN kernel at
+        # B=8 and 128 x 10 s against their plain versions, the fp64 gates, beside the
+        # cuBLAS product of the same framed operands
+        print(f"-- mel bins (a): {n_mel} mel bins, the log-mel kernel ('highest', 'bf16') and cmvn, B=8 and "
+              f"{B_big} x {S} samples (T_in={n}); {smi}", flush=True)
+        with torch.no_grad():
+            for B in (8, B_big):
+                wav = wav_big[:B]
+                sfx = f"_m{n_mel}" + ("_b128" if B != 8 else "")
+                exact = K3.log_mel_plain(wav.double(), n, dft32.double(), mel32.double(), hop, floor)
+                frames32 = wav.unfold(1, L, hop)[:, :n].contiguous()
+                frames16 = frames32.to(torch.bfloat16).contiguous()
+                hi_t = bf[0].t()
+                a32 = (n, dft32, mel32, hop, floor)
+                a16 = (n, bf, mel32, hop, floor, "bf16")
+                lm = compare(f"mel {n_mel} bins B={B}", "mel" + sfx, lambda: K3.log_mel(wav, *a32),
+                             lambda: K3.log_mel_plain(wav, *a32), 1e-4, library_fn=lambda: frames32 @ dft32,
+                             work=mel_work(wav, n, dft32, mel32))
+                lm16 = compare(f"mel bf16 {n_mel} bins B={B}", "mel_bf16" + sfx, lambda: K3.log_mel(wav, *a16),
+                               lambda: K3.log_mel_plain(wav, *a16), 1e-3, library_fn=lambda: frames16 @ hi_t,
+                               work=mel_bf16_work(wav, n, bf, mel32))
+                errs = {}
+                for mode, got, args in (("highest", lm, a32), ("bf16", lm16, a16)):
+                    errs[mode] = (float((got.double() - exact).abs().max()),
+                                  float((K3.log_mel_plain(wav, *args).double() - exact).abs().max()))
+                print(f"    against fp64: highest kernel {errs['highest'][0]:.3e}, fp32 plain (cuBLAS) "
+                      f"{errs['highest'][1]:.3e}; bf16 kernel {errs['bf16'][0]:.3e}, bf16 plain "
+                      f"{errs['bf16'][1]:.3e}; device ms under the profiler: highest "
+                      f"{device_ms(lambda: K3.log_mel(wav, *a32)):.4f} (cuBLAS fp32 product "
+                      f"{device_ms(lambda: frames32 @ dft32):.4f}), bf16 {device_ms(lambda: K3.log_mel(wav, *a16)):.4f} "
+                      f"(cuBLAS bf16 product {device_ms(lambda: frames16 @ hi_t):.4f})", flush=True)
+                if not errs["highest"][0] <= 2 * errs["highest"][1]:
+                    _fail(f"mel {n_mel} bins B={B}: largest log-mel error against fp64 {errs['highest'][0]:.3e}, "
+                          f"past twice the fp32 plain version's {errs['highest'][1]:.3e}")
+                if not errs["bf16"][0] <= 1.25 * errs["bf16"][1]:
+                    _fail(f"mel bf16 {n_mel} bins B={B}: largest log-mel error against fp64 {errs['bf16'][0]:.3e}, "
+                          f"past 1.25x the plain bf16 version's {errs['bf16'][1]:.3e}")
+                fl = torch.clamp(base.num_frames(lens_big[:B].long()), 0, n).int()
+                out = compare(f"cmvn {n_mel} bins B={B}", "cmvn" + sfx, lambda: K3.cmvn(lm, fl),
+                              lambda: K3.cmvn_plain(lm, fl), 2 ** -7, columns=keep,
+                              work=(8.0 * lm.numel(), nbytes(lm) + 2 * lm.numel(), "fp32"))
+                print(f"    cmvn device ms under the profiler: {device_ms(lambda: K3.cmvn(lm, fl)):.4f}", flush=True)
+                below = torch.arange(n, device=dev)[None, :] >= fl[:, None]
+                if bool(out[below].any()):
+                    _fail(f"cmvn {n_mel} bins B={B}: a row at or past its length is not zero")
+                if empty is not None:
+                    ref = K3.cmvn_plain(lm, fl)
+                    col = lambda f: tuple(sorted(set(  # noqa: E731
+                        "nan" if bool(torch.isnan(f[i, :int(fl[i]), empty].float()).all())
+                        else str(torch.unique(f[i, :int(fl[i]), empty].float()).tolist()) for i in range(B))))
+                    same = sum(bool(torch.equal(out[i, :int(fl[i]), empty].float().nan_to_num(7.0),
+                                                ref[i, :int(fl[i]), empty].float().nan_to_num(7.0)))
+                               for i in range(B))
+                    print(f"    column {empty} (the empty filter): kernel writes {col(out)}, plain {col(ref)}; "
+                          f"equal in {same} of {B} utterances", flush=True)
+                del exact, frames16, lm, lm16, out
+                torch.cuda.empty_cache()
+
+        # ---- (b) the flagship at n_mel bins, seeded weights, through ASRPipeline in
+        # both profiles: K3 (log-mel + CMVN) and 12 x K1, no K2 (80 bins only), each
+        # request held against the plain path under the caveat (k) rule
+        print(f"-- mel bins (b): the flagship at {n_mel} mel bins through ASRPipeline, 'exact' and 'serving'",
+              flush=True)
+        cfg = flagship_config(num_fbanks=n_mel)
+        model_dir = os.path.join(ROOT, "build", f"chip_smoke_model_m{n_mel}")
+        save_params(seeded_model(cfg, seed=n_mel), model_dir)
+        n_l = cfg.num_hidden_layers
+        for profile, mel_counter, att in (("exact", "asr_log_mel", "asr_rel_attention"),
+                                          ("serving", "asr_log_mel_bf16", "asr_rel_attention_serving")):
+            pipe = ASRPipeline(model_dir, model_type="ctc", device="cuda", tokenizer=IdsRecorder(),
+                               numeric_profile=profile)
+            if not pipe._use_fused or pipe._fused.subsample is not None:
+                _fail(f"{n_mel} bins, {profile}: the pipeline did not take the fused route behind the model's own "
+                      f"front end")
+            pipe(requests["1 utt (4 s)"])  # warm-up
+            torch.cuda.synchronize()
+            want = {mel_counter: 1, "asr_cmvn": 1, att: n_l, "asr_pos_query": n_l, "asr_layernorm_bf16": 5 * n_l,
+                    "dwconv_csgu": n_l, "dwconv_merge": n_l}
+            summed = launches.setdefault((n_mel, profile), {})
+            for name, audios in requests.items():
+                t = time.perf_counter()
+                texts, got_l = count_launches(lambda: pipe(audios), summed)
+                print(f"  {n_mel} bins, {profile} request {name}: {(time.perf_counter() - t) * 1e3:.1f} ms; "
+                      f"launches {got_l}", flush=True)
+                if len(texts) != len(audios) or any(got_l.get(k, 0) != v for k, v in want.items()) \
+                        or "asr_conv1" in got_l or "asr_conv1_serving" in got_l:
+                    _fail(f"{n_mel} bins, {profile}, {name}: {len(texts)} transcripts, launches {got_l}, want {want} "
+                          f"and no conv1")
+            ties = {}
+            n_frames, n_agree = against_plain_path(pipe, requests, empty_column=empty, tie_counts=ties)
+            held = n_agree + ties.get("differ_at_ties", 0)
+            print(f"  {n_mel} bins, {profile}: greedy ids agree with the plain path on {n_agree}/{n_frames} compared "
+                  f"valid frames, {held} with near-ties (triage rule) as ties (bar 98 %)", flush=True)
+            if held < 0.98 * n_frames:
+                _fail(f"{n_mel} bins, {profile}: greedy ids agree on {held}/{n_frames} valid frames with ties as "
+                      f"ties, below 98 %")
+            del pipe
+            torch.cuda.empty_cache()
+    del wav_big
+    torch.cuda.empty_cache()
+    rows = {}
+    for n_mel in MEL_BINS:
+        exact_l, serving_l = launches[(n_mel, "exact")], launches[(n_mel, "serving")]
+        for sfx in (f"_m{n_mel}", f"_m{n_mel}_b128"):
+            rows["mel" + sfx] = ("asr_log_mel", exact_l.get("asr_log_mel", 0))
+            rows["mel_bf16" + sfx] = ("asr_log_mel_bf16", serving_l.get("asr_log_mel_bf16", 0))
+            rows["cmvn" + sfx] = ("asr_cmvn", exact_l.get("asr_cmvn", 0) + serving_l.get("asr_cmvn", 0))
+    print(f"mel bins phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
 def main() -> None:
     import torch
     import torch.nn.functional as F
@@ -2905,19 +3141,22 @@ def main() -> None:
                 entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=library_ms)
 
-    def compare(name, key, kernel_fn, plain_fn, rel_tol, iters=20, work=None, library_fn=None):
+    def compare(name, key, kernel_fn, plain_fn, rel_tol, iters=20, work=None, library_fn=None, columns=None):
         """Kernel vs plain on the same inputs; times are medians of 5 windows
         (``iters`` kernel calls, ``iters // 4`` plain calls each). ``work`` is
         (operations, bytes moved, type of the operations) for the bound, or a
         list of them for a chain of kernels (the sum of their bounds);
         ``library_fn`` is the one PyTorch call that computes the same function,
         timed as a yardstick and used nowhere else. The 10 s bucket runs
-        first, so the JSON line carries its times."""
+        first, so the JSON line carries its times. ``columns``: the last
+        dimension's columns that the error reads (the rest may differ)."""
         got = kernel_fn()
         ref = plain_fn()
         torch.cuda.synchronize()
         g = (got if isinstance(got, torch.Tensor) else got[0]).float()
         r = (ref if isinstance(ref, torch.Tensor) else ref[0]).float()
+        if columns is not None:
+            g, r = g[..., columns], r[..., columns]
         err = float((g - r).abs().max())
         ok = bool(torch.isfinite(g).all()) and err <= rel_tol * max(1.0, float(r.abs().max()))
         library_ms = None
@@ -4162,6 +4401,7 @@ def main() -> None:
     variant_launches = variants_phase(dev, smi, compare)
     stats_launches, pg_launches = tools_phase(dev, smi)
     serving_launches, high_launches, gate_counts = serving_phase(dev, smi, compare, fused, model_dir, requests)
+    bins_rows = mel_bins_phase(dev, smi, compare)
 
     if failures:
         _fail(f"kernel phases outside tolerance: {failures}")
@@ -4229,6 +4469,11 @@ def main() -> None:
                           gemm_gelu_serving_m32768=serving_routes["gemm_gelu_serving"])
     # the high mode is on no served route: its launches are a MelFrontEnd(matmul_precision="high") call's
     high_routes = {k: ("asr_log_mel_high", "csrc/mel_bf16.cu", routes["mel"][2]) for k in ("mel_high", "mel_high_b128")}
+    # the 23- and 128-bin entries: launches from their own requests (exact for "highest", serving for "bf16",
+    # both for cmvn)
+    src_of = {"asr_log_mel": "csrc/mel.cu", "asr_log_mel_bf16": "csrc/mel_bf16.cu", "asr_cmvn": "csrc/mel.cu"}
+    bins_routes = {k: (counter, src_of[counter], routes["mel"][2]) for k, (counter, _) in bins_rows.items()}
+    bins_launches = {k: n for k, (_, n) in bins_rows.items()}
     kernels = []
     for table, counts in ((routes, launches), (narrow_routes, narrow_launches), (wide_routes, wide_launches),
                           (variant_routes, variant_launches), (serving_routes, serving_launches),
@@ -4244,6 +4489,9 @@ def main() -> None:
                 "stats_cli_launches": stats_launches.get(counter, 0),
                 "process_group_launches": pg_launches.get(counter, 0),
             })
+    for name, (counter, src, replaces) in bins_routes.items():
+        kernels.append({"name": name, "route": "cuda", "source": f"huggingface_asr_tpu_torch/{src}",
+                        "replaces": replaces, "launches": bins_launches[name], **results[name]})
     print(f"AED path launches a request (K2 and K1): {aed_launches}")
     print(f"gate model on the card, id sequences equal to JAX's: {gate_counts}")
     print(json.dumps({"kernels": kernels}))

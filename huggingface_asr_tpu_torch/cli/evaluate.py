@@ -23,7 +23,7 @@ too) hands the same choice to ``generate_joint`` ("on" -> True, "off" ->
 False). The recipe routes' encoders are plain transformers with no kernel
 of their own; there the choice is the front end's (``recipe_frontend``):
 "auto" runs the log-mel and CMVN kernels (``kernels/mel.py::MelFrontEnd``)
-on a card for a bfloat16 model with at most 80 mel bins, a multiple of 8,
+on a card for a bfloat16 model with at most ``MEL_MAX_BINS`` (128) mel bins
 and the plain ``LogMelFrontEnd`` otherwise, logging why on a card; "on"
 requires the kernels and raises with the reason; "off" runs the plain front
 end. On a card a kernel that does not build or launch ends the run with its
@@ -167,9 +167,9 @@ def recipe_frontend_refusal(device: torch.device, num_mel_bins: Optional[int] = 
     checked where given)."""
     checks = (
         (device.type == "cuda", f"device {device} (the kernels run on a CUDA device)"),
-        (num_mel_bins is None or (num_mel_bins <= MEL_MAX_BINS and num_mel_bins % 8 == 0),
-         f"num_mel_bins {num_mel_bins} (the log-mel and CMVN kernels take at most {MEL_MAX_BINS} mel bins, "
-         f"a multiple of 8)"),
+        (num_mel_bins is None or num_mel_bins <= MEL_MAX_BINS,
+         f"num_mel_bins {num_mel_bins} (the log-mel and CMVN kernels take at most MEL_MAX_BINS = {MEL_MAX_BINS} "
+         f"mel bins)"),
         (dtype is None or dtype == torch.bfloat16, f"dtype {dtype} (the CMVN kernel writes bfloat16 features)"),
     )
     return next((reason for ok, reason in checks if not ok), None)

@@ -33,6 +33,12 @@
 //   * at the end of a pass the power goes to shared memory and each thread
 //     adds its 8 frames x 5 mel columns of power @ melbank over the pass's
 //     bins, in bin order; after the last pass, log and one fp32 store.
+//   * past 80 mel bins (WIDE) 8 x 8 mel sums held through the passes would
+//     spill (the 80-bin kernel is at ~250 registers a thread), so every
+//     pass's power stays in shared memory ([64 frames][NB + 1], 66 KB at 256
+//     bins) and, after the last pass, the threads run the mel product in
+//     groups of 80 columns, each group over all bins in order: the same sums,
+//     bit for bit, with no mel sum live during the DFT.
 //
 // CMVN needs statistics over the whole utterance, so it is a second kernel,
 // in the TPU kernel's op order (the mean first, then the variance of the
@@ -47,6 +53,8 @@
 // thread, then over the block's frame groups, then over the cluster in rank
 // order), and the block writes its frames in 16-byte pieces. A block whose
 // frames do not fit 160 KB reads them again, chunk by chunk, in every pass.
+// A bin count that is no multiple of 8 (Kaldi's 23) takes the same kernel in
+// column groups of one bin, loaded and written a value a thread (V = 1).
 // What holds it at ~2.4x its byte bound at B=128 (about twice a bf16 cast of
 // the same input, PERF.md section 6): the cluster exchange, a quarter of its time
 // there, since a block waits at the first cluster barrier for the slowest
@@ -63,17 +71,23 @@ constexpr int THREADS = 128;           // 16 bin groups x 8 frame groups
 constexpr int F_LD = FT + 4;           // row stride (floats) of the staged frames, k-major
 constexpr int B_LD = 2 * PASS_BINS;    // row stride of the staged basis: the pass's cos, then sin columns
 constexpr int PW_LD = PASS_BINS + 1;   // row stride of the staged power
-constexpr int MEL_J = 5;               // mel columns of a thread, 16 apart: n_mel <= 80
+constexpr int MEL_J = 5;               // mel columns of a thread, 16 apart: 80 a group
+constexpr int MEL_GROUP = 16 * MEL_J;  // mel columns of a group
 
 // wav: [B, S] fp32; dft: [L, 2*NB] fp32 (cos columns, then sin);
-// melbank: [NB, n_mel] fp32; out: [B, n_frames, n_mel] fp32.
+// melbank: [NB, n_mel] fp32; out: [B, n_frames, n_mel] fp32. WIDE (n_mel >
+// MEL_GROUP): the power of every pass in the dynamic shared memory, [FT][NB + 1].
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 mel_kernel(const float* __restrict__ wav, int S, const float* __restrict__ dft,
            const float* __restrict__ melbank, float* __restrict__ out, int n_frames, int L, int hop,
            int NB, int n_mel, float floor_) {
     __shared__ __align__(16) float fs[2][KC][F_LD];
     __shared__ __align__(16) float bs[2][KC][B_LD];
-    __shared__ float pw[FT][PW_LD];
+    __shared__ float pw_pass[WIDE ? 1 : FT][PW_LD];
+    extern __shared__ float pw_all[];
+    float* pw = WIDE ? pw_all : &pw_pass[0][0];
+    const int pw_ld = WIDE ? NB + 1 : PW_LD;
     const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
     const int b = blockIdx.y, f0 = blockIdx.x * FT;
     const float* x = wav + (size_t)b * S;
@@ -146,12 +160,15 @@ mel_kernel(const float* __restrict__ wav, int S, const float* __restrict__ dft,
             if (chunk + 1 < chunks) store(buf ^ 1);
             __syncthreads();
         }
-        // the pass's power, c^2 + s^2 as the plain version rounds it
+        // the pass's power, c^2 + s^2 as the plain version rounds it (WIDE: at its bins' columns)
+        float* pw_p = pw + (WIDE ? p * PASS_BINS : 0);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
             for (int j = 0; j < 4; ++j)
-                pw[8 * ty + i][4 * tx + j] = __fadd_rn(__fmul_rn(ac[i][j], ac[i][j]), __fmul_rn(as[i][j], as[i][j]));
+                pw_p[(8 * ty + i) * pw_ld + 4 * tx + j] =
+                    __fadd_rn(__fmul_rn(ac[i][j], ac[i][j]), __fmul_rn(as[i][j], as[i][j]));
+        if constexpr (WIDE) continue;  // the mel product waits for every pass's power
         __syncthreads();
         // this thread's 8 frames x 5 mel columns (fg = ty, mg = tx), over the pass's bins in order;
         // eight bins' melbank loads in flight
@@ -166,22 +183,52 @@ mel_kernel(const float* __restrict__ wav, int S, const float* __restrict__ dft,
             }
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
-                const float v = pw[8 * ty + i][j];
+                const float v = pw[(8 * ty + i) * PW_LD + j];
 #pragma unroll
                 for (int c = 0; c < MEL_J; ++c) mel[i][c] = fmaf(v, w[c], mel[i][c]);
             }
         }
         // the next pass writes pw again only after its chunks' barriers
     }
+    // this thread's 8 frames x 5 mel columns of group m0 (all of them where !WIDE), log, one store each
+    auto write_out = [&](int m0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        const int f = f0 + 8 * ty + i;
-        if (f >= n_frames) break;
-        float* o = out + ((size_t)b * n_frames + f) * n_mel;
+        for (int i = 0; i < 8; ++i) {
+            const int f = f0 + 8 * ty + i;
+            if (f >= n_frames) break;
+            float* o = out + ((size_t)b * n_frames + f) * n_mel + m0;
 #pragma unroll
-        for (int c = 0; c < MEL_J; ++c) {
-            const int m = tx + 16 * c;
-            if (m < n_mel) o[m] = logf(fmaxf(mel[i][c], floor_));
+            for (int c = 0; c < MEL_J; ++c) {
+                const int m = tx + 16 * c;
+                if (m0 + m < n_mel) o[m] = logf(fmaxf(mel[i][c], floor_));
+            }
+        }
+    };
+    if constexpr (!WIDE) {
+        write_out(0);
+    } else {
+        __syncthreads();  // every pass's power is in place
+        for (int m0 = 0; m0 < n_mel; m0 += MEL_GROUP) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int c = 0; c < MEL_J; ++c) mel[i][c] = 0.0f;
+#pragma unroll 8
+            for (int j = 0; j < NB; ++j) {
+                float w[MEL_J];
+#pragma unroll
+                for (int c = 0; c < MEL_J; ++c) {
+                    const int m = m0 + tx + 16 * c;
+                    w[c] = m < n_mel ? __ldg(melbank + (size_t)j * n_mel + m) : 0.0f;
+                }
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const float v = pw[(8 * ty + i) * pw_ld + j];
+#pragma unroll
+                    for (int c = 0; c < MEL_J; ++c) mel[i][c] = fmaf(v, w[c], mel[i][c]);
+                }
+            }
+            write_out(m0);
         }
     }
 }
@@ -195,19 +242,26 @@ constexpr int CMVN_CHUNK_BYTES = 160 * 1024;    // of a block's frames held in s
 // block r owning frames [r * per, (r + 1) * per). Shared memory: the block's
 // frames ([chunk][n_mel] fp32), the frame groups' partial sums ([G][n_mel]),
 // the block's sums of both passes ([2][n_mel], read by the whole cluster),
-// shift and divisor ([2][n_mel]), the mbarrier.
+// shift and divisor ([2][n_mel]), the mbarrier (8-byte aligned).
+// V = 4 (n_mel % 8 == 0, 16-byte aligned tensors): a thread sums a column
+// group of 4 bins, the frames arrive by one bulk copy and leave in 16-byte
+// pieces of 8 bins. V = 1 (any n_mel; a 23-bin row is 92 bytes, which those
+// pieces do not tile): a thread sums one bin, the threads load the frames
+// and write the features a value each, in the rows' order.
+template <int V>
 __global__ void __launch_bounds__(CMVN_THREADS)
 cmvn_kernel(const float* __restrict__ lm, const int* __restrict__ lengths, bf16* __restrict__ out,
             int n_frames, int n_mel, int per, int chunk, int norm_means, int norm_vars) {
     using namespace hopper;
+    static_assert(V == 4 || V == 1, "column groups of 4 bins or of one");
     extern __shared__ __align__(16) unsigned char smem[];
-    const int Q = n_mel / 4, G = CMVN_THREADS / Q;
+    const int Q = n_mel / V, G = CMVN_THREADS / Q;
     float* xs = reinterpret_cast<float*>(smem);
     float* part = xs + (size_t)chunk * n_mel;
     float* sums = part + G * n_mel;
     float* stat = sums + 2 * n_mel;
-    const uint32_t bar = smem_u32(stat + 2 * n_mel);
-    const int tid = threadIdx.x, q = tid % Q, g = tid / Q;  // bins 4q .. 4q + 3 of frames g, g + G, ..
+    const uint32_t bar = (smem_u32(stat + 2 * n_mel) + 7u) & ~7u;
+    const int tid = threadIdx.x, q = tid % Q, g = tid / Q;  // bins V q .. V q + V - 1 of frames g, g + G, ..
     const int b = blockIdx.y;
     const int f_lo = (int)cluster_rank() * per, f_hi = min(f_lo + per, n_frames);
     const int n = min(lengths[b], n_frames);
@@ -217,20 +271,26 @@ cmvn_kernel(const float* __restrict__ lm, const int* __restrict__ lengths, bf16*
     bf16* o = out + ((size_t)b * n_frames + f_lo) * n_mel;
     const bool resident = n_ld <= chunk;
 
-    if (tid == 0) {
+    if (V == 4 && tid == 0) {
         mbar_init(bar, 1);
         mbar_init_fence();
     }
     __syncthreads();
     uint32_t phase = 0;
     auto load = [&](int c0, int cn) {  // this block's frames c0 .. c0 + cn - 1 into xs
-        if (tid == 0) {
-            const uint32_t bytes = (uint32_t)cn * n_mel * 4;
-            mbar_arrive_expect_tx(bar, bytes);
-            bulk_load(smem_u32(xs), x + (size_t)c0 * n_mel, bytes, bar);
+        if constexpr (V == 4) {
+            if (tid == 0) {
+                const uint32_t bytes = (uint32_t)cn * n_mel * 4;
+                mbar_arrive_expect_tx(bar, bytes);
+                bulk_load(smem_u32(xs), x + (size_t)c0 * n_mel, bytes, bar);
+            }
+            mbar_wait(bar, phase);
+            phase ^= 1;
+        } else {
+            const float* src = x + (size_t)c0 * n_mel;
+            for (int i = tid; i < cn * n_mel; i += CMVN_THREADS) xs[i] = __ldg(src + i);
+            __syncthreads();
         }
-        mbar_wait(bar, phase);
-        phase ^= 1;
     };
     // body(c0, cn) over the block's frames below the length: held once where
     // they fit, else chunk by chunk (read again by every pass)
@@ -249,18 +309,27 @@ cmvn_kernel(const float* __restrict__ lm, const int* __restrict__ lengths, bf16*
     // the length: per thread in frame order, then over the frame groups, then
     // over the cluster's blocks in rank order (every block gets the same sum)
     auto utterance_sums = [&](float* mine, float* dst, auto&& term) {
-        float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        visit([&](int, int cn) {
-            if (g < G)
-                for (int f = g; f < cn; f += G) {
-                    const float4 v = reinterpret_cast<const float4*>(xs + (size_t)f * n_mel)[q];
-                    s.x += term(v.x, 4 * q);
-                    s.y += term(v.y, 4 * q + 1);
-                    s.z += term(v.z, 4 * q + 2);
-                    s.w += term(v.w, 4 * q + 3);
-                }
-        });
-        if (g < G) reinterpret_cast<float4*>(part + g * n_mel)[q] = s;
+        if constexpr (V == 4) {
+            float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            visit([&](int, int cn) {
+                if (g < G)
+                    for (int f = g; f < cn; f += G) {
+                        const float4 v = reinterpret_cast<const float4*>(xs + (size_t)f * n_mel)[q];
+                        s.x += term(v.x, 4 * q);
+                        s.y += term(v.y, 4 * q + 1);
+                        s.z += term(v.z, 4 * q + 2);
+                        s.w += term(v.w, 4 * q + 3);
+                    }
+            });
+            if (g < G) reinterpret_cast<float4*>(part + g * n_mel)[q] = s;
+        } else {
+            float s = 0.0f;
+            visit([&](int, int cn) {
+                if (g < G)
+                    for (int f = g; f < cn; f += G) s += term(xs[(size_t)f * n_mel + q], q);
+            });
+            if (g < G) part[g * n_mel + q] = s;
+        }
         __syncthreads();
         if (tid < n_mel) {
             float t = 0.0f;
@@ -308,62 +377,87 @@ cmvn_kernel(const float* __restrict__ lm, const int* __restrict__ lengths, bf16*
         cluster_arrive();  // this block reads no other block's shared memory after here
     }
 
-    // bf16 out in 16-byte pieces of 8 bins: (x - shift) / sd below the length, zeros from it on
-    const int P = n_mel / 8;
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int i = tid; i < (f_hi - f_lo - n_ld) * P; i += CMVN_THREADS)
-        reinterpret_cast<uint4*>(o + (size_t)(n_ld + i / P) * n_mel)[i % P] = zero;
-    visit([&](int c0, int cn) {
-        for (int i = tid; i < cn * P; i += CMVN_THREADS) {
-            const int f = i / P, p = i % P;
-            const float* v = xs + (size_t)f * n_mel + 8 * p;
-            uint32_t w[4];
+    // bf16 out: (x - shift) / sd below the length, zeros from it on
+    if constexpr (V == 4) {  // in 16-byte pieces of 8 bins
+        const int P = n_mel / 8;
+        const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+        for (int i = tid; i < (f_hi - f_lo - n_ld) * P; i += CMVN_THREADS)
+            reinterpret_cast<uint4*>(o + (size_t)(n_ld + i / P) * n_mel)[i % P] = zero;
+        visit([&](int c0, int cn) {
+            for (int i = tid; i < cn * P; i += CMVN_THREADS) {
+                const int f = i / P, p = i % P;
+                const float* v = xs + (size_t)f * n_mel + 8 * p;
+                uint32_t w[4];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int m = 8 * p + 2 * j;
-                const __nv_bfloat162 y = __floats2bfloat162_rn((v[2 * j] - shift[m]) / sd[m],
-                                                               (v[2 * j + 1] - shift[m + 1]) / sd[m + 1]);
-                w[j] = *reinterpret_cast<const uint32_t*>(&y);
+                for (int j = 0; j < 4; ++j) {
+                    const int m = 8 * p + 2 * j;
+                    const __nv_bfloat162 y = __floats2bfloat162_rn((v[2 * j] - shift[m]) / sd[m],
+                                                                   (v[2 * j + 1] - shift[m + 1]) / sd[m + 1]);
+                    w[j] = *reinterpret_cast<const uint32_t*>(&y);
+                }
+                reinterpret_cast<uint4*>(o + (size_t)(c0 + f) * n_mel)[p] = make_uint4(w[0], w[1], w[2], w[3]);
             }
-            reinterpret_cast<uint4*>(o + (size_t)(c0 + f) * n_mel)[p] = make_uint4(w[0], w[1], w[2], w[3]);
-        }
-    });
+        });
+    } else {  // a value a thread, the block's rows as one run
+        for (int i = tid; i < (f_hi - f_lo - n_ld) * n_mel; i += CMVN_THREADS)
+            o[(size_t)n_ld * n_mel + i] = __float2bfloat16_rn(0.0f);
+        visit([&](int c0, int cn) {
+            for (int i = tid; i < cn * n_mel; i += CMVN_THREADS) {
+                const int m = i % n_mel;
+                o[(size_t)c0 * n_mel + i] = __float2bfloat16_rn((xs[i] - shift[m]) / sd[m]);
+            }
+        });
+    }
     if (norm_means || norm_vars) cluster_wait();  // no block leaves while another reads its sums
 }
 
 }  // namespace
 
 // wav: [B, S] fp32; dft: [L, 2*NB] fp32; melbank: [NB, n_mel] fp32;
-// out: [B, n_frames, n_mel] fp32 log-mel. Takes NB % 64 == 0, n_mel <= 80 and
+// out: [B, n_frames, n_mel] fp32 log-mel. Takes NB % 64 == 0, any n_mel (past
+// 80 while the power of all NB bins fits the shared memory: NB <= 768) and
 // frames within S (the wrapper checks).
 ASR_API int asr_log_mel(const void* wav, const void* dft, const void* melbank, void* out, int B, int S,
                         int n_frames, int L, int hop, int NB, int n_mel, float floor_, void* stream) {
-    if (B < 1 || B > 65535 || n_frames < 1 || L < 1 || NB < PASS_BINS || NB % PASS_BINS || n_mel < 1 ||
-        n_mel > 16 * MEL_J)
+    if (B < 1 || B > 65535 || n_frames < 1 || L < 1 || NB < PASS_BINS || NB % PASS_BINS || n_mel < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     dim3 grid(ceil_div(n_frames, FT), B);
-    mel_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(wav), S, static_cast<const float*>(dft),
-        static_cast<const float*>(melbank), static_cast<float*>(out), n_frames, L, hop, NB, n_mel,
-        floor_);
+    auto st = static_cast<cudaStream_t>(stream);
+    const float* w = static_cast<const float*>(wav);
+    const float* d = static_cast<const float*>(dft);
+    const float* m = static_cast<const float*>(melbank);
+    float* o = static_cast<float*>(out);
+    if (n_mel <= MEL_GROUP) {
+        mel_kernel<false><<<grid, THREADS, 0, st>>>(w, S, d, m, o, n_frames, L, hop, NB, n_mel, floor_);
+    } else {
+        const size_t smem = (size_t)FT * (NB + 1) * sizeof(float);
+        if (smem > 200 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+        cudaError_t err = cudaFuncSetAttribute(mel_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        mel_kernel<true><<<grid, THREADS, smem, st>>>(w, S, d, m, o, n_frames, L, hop, NB, n_mel, floor_);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 
 // lm: [B, n_frames, n_mel] fp32; lengths: [B] int32 frame counts;
-// out: [B, n_frames, n_mel] bf16, rows >= length exact zeros. Takes n_mel % 8
-// == 0, n_mel <= CMVN_THREADS (a thread a bin for the sums) and 16-byte
-// aligned tensors (the wrapper's are).
+// out: [B, n_frames, n_mel] bf16, rows >= length exact zeros. Takes any
+// n_mel <= CMVN_THREADS (a thread a bin for the sums); where n_mel % 8 == 0
+// and both tensors are 16-byte aligned (the wrapper's are) the V = 4 kernel
+// runs, else V = 1.
 ASR_API int asr_cmvn(const void* lm, const void* lengths, void* out, int B, int n_frames,
                      int n_mel, int norm_means, int norm_vars, void* stream) {
-    if (B < 1 || B > 65535 || n_frames < 1 || n_mel < 8 || n_mel % 8 || n_mel > CMVN_THREADS ||
-        reinterpret_cast<uintptr_t>(lm) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+    if (B < 1 || B > 65535 || n_frames < 1 || n_mel < 1 || n_mel > CMVN_THREADS)
         return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec = n_mel % 8 == 0 && reinterpret_cast<uintptr_t>(lm) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
     const int per = ceil_div(n_frames, CMVN_CLUSTER);
     const int max_chunk = CMVN_CHUNK_BYTES / (n_mel * 4);
     const int chunk = per < max_chunk ? per : max_chunk;
-    const int G = CMVN_THREADS / (n_mel / 4);
-    const size_t smem = ((size_t)chunk + G + 4) * n_mel * 4 + 8;
-    cudaError_t err = cudaFuncSetAttribute(cmvn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const int G = CMVN_THREADS / (vec ? n_mel / 4 : n_mel);
+    const size_t smem = ((size_t)chunk + G + 4) * n_mel * 4 + 16;
+    auto kernel = vec ? cmvn_kernel<4> : cmvn_kernel<1>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(CMVN_CLUSTER, B);
@@ -377,7 +471,7 @@ ASR_API int asr_cmvn(const void* lm, const void* lengths, void* out, int B, int 
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, cmvn_kernel, static_cast<const float*>(lm), static_cast<const int*>(lengths),
+    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(lm), static_cast<const int*>(lengths),
                              static_cast<bf16*>(out), n_frames, n_mel, per, chunk, norm_means, norm_vars);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());

@@ -63,7 +63,11 @@
 //     a warp a filter, a lane two frames: the weight loads are broadcasts and
 //     a column of the power rows (stride 133) lies in 32 banks. The log-mel
 //     rows wait in shared memory and leave in 16-byte stores (where they fit
-//     beside the rest: not in "high" at CW = 2, which stores each value).
+//     beside the rest: not in "high" at CW = 2, which stores each value as
+//     its filter is summed; "bf16" at CW = 2 past 92 bins (TIGHT) keeps them
+//     with a ring of 3 stages, not 4, and rows of 4-byte pieces).
+//     Nothing else holds the bin count: a filter row a warp takes, its run
+//     any width within two passes, so 23 or 128 bins run the same code.
 #include "hopper.cuh"
 
 // With ASR_MEL_PHASES defined (profile_mel_phases.py builds such a copy),
@@ -86,16 +90,22 @@ constexpr int BK = 64;                  // k-values of a box: one 128-byte swizz
 constexpr int BOX_BYTES = COLS * BK * 2;
 constexpr int PW_COLS = 2 * BINS;       // the power of the last two passes, bin b in column b % 128
 constexpr int PW_LD = PW_COLS + 5;      // its row stride in floats: 133, odd (a column in 32 banks)
-constexpr int OUT_LD = 84;              // row stride (floats) of the staged log-mel: 16-byte rows, n_mel <= 80
 constexpr int UNROLL = 8;               // float4 loads a thread has in flight while staging
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // CW = 2: 128 * (2 * 232 + 40) = 384 * 168
 
-template <bool HIGH, int CW> struct Ring {
-    static constexpr int STAGES = HIGH ? 2 : 4;
+// TIGHT ("bf16" at CW = 2 where the staged log-mel rows of 4 stages do not
+// fit: 93-128 bins): a stage fewer, and the rows at an odd stride.
+template <bool HIGH, int CW, bool TIGHT = false> struct Ring {
+    static constexpr int STAGES = HIGH ? 2 : TIGHT ? 3 : 4;
     static constexpr int STAGE_BYTES = (HIGH ? 2 : 1) * BOX_BYTES;
     // the log-mel rows wait in shared memory and leave coalesced, where they fit
     static constexpr bool STAGE_OUT = !(HIGH && CW == 2);
 };
+
+// Row stride (floats) of the staged log-mel: 16-byte rows, four floats past
+// the bins (84 at 80 bins); TIGHT: n_mel + 1 or n_mel, odd (129 at 128), rows
+// of 4-byte pieces, still one bank a lane.
+__host__ __device__ inline int out_ld(int n_mel, bool tight) { return tight ? n_mel | 1 : (n_mel + 3) / 4 * 4 + 4; }
 
 // Byte offsets of the dynamic shared memory past the 1024-aligned ring, the
 // same on the host (its size) and in the kernel.
@@ -104,7 +114,7 @@ template <bool HIGH, int CW> struct Ring {
 struct Layout {
     int bars, steps, table, xh, xl, pw, lm, end;
     __host__ __device__ Layout(int stages, int n_steps, int ft, int table_rows, int rows, int rs, bool high,
-                               bool stage_out) {
+                               bool stage_out, int lm_ld) {
         bars = 0;
         steps = bars + 16 * stages + 16;
         table = steps + 16 * ((n_steps + 3) / 4);
@@ -112,7 +122,7 @@ struct Layout {
         xl = xh + 2 * rows * rs;
         pw = xl + (high ? 2 * rows * rs : 0);
         lm = pw + 4 * ft * PW_LD;
-        end = lm + (stage_out ? 4 * ft * OUT_LD : 0);
+        end = lm + (stage_out ? 4 * ft * lm_ld : 0);
     }
 };
 
@@ -159,12 +169,12 @@ __device__ __forceinline__ void issue_box(float (&acc)[64], uint32_t (&ah)[4][4]
 // wav: [B, S] fp32; map: the bases [P * 2*NB, L] bf16 (P = 1 + HIGH, a row per
 // output column, each bin's cos then sin); table: kernels/mel.py::
 // mel_kernel_table, table_rows x 4 int32; out: [B, n_frames, n_mel] fp32.
-template <bool HIGH, int CW, bool ODD>
+template <bool HIGH, int CW, bool ODD, bool TIGHT>
 __global__ void __launch_bounds__(128 * (CW + 1), 1)
 mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ wav, int S,
                 const int4* __restrict__ table, int table_rows, float* __restrict__ out, int n_frames, int L,
                 int hop, int NB, int n_mel, float floor_) {
-    using R = Ring<HIGH, CW>;
+    using R = Ring<HIGH, CW, TIGHT>;
     constexpr int STAGES = R::STAGES, FT = 64 * CW, THREADS = 128 * (CW + 1);
     extern __shared__ unsigned char smem_raw[];
     const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -173,7 +183,8 @@ mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict
     // ODD, one more from the first set
     const int passes = NB / BINS, boxes = (L + BK - 1) / BK, total = passes * boxes;
     const int rows = FT + (L - 1) / hop, RS = hop + 8;
-    const Layout lay(STAGES, 4 * boxes, FT, table_rows, rows, RS, HIGH, R::STAGE_OUT);
+    const int OUT_LD = out_ld(n_mel, TIGHT);
+    const Layout lay(STAGES, 4 * boxes, FT, table_rows, rows, RS, HIGH, R::STAGE_OUT, OUT_LD);
     const uint32_t full = smem_u32(base + lay.bars), empty = full + 8 * STAGES, wav_bar = empty + 8 * STAGES;
     int4* bands_s = reinterpret_cast<int4*>(base + lay.table);
     const float* w_s = reinterpret_cast<const float*>(bands_s + n_mel + passes);
@@ -398,7 +409,7 @@ mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict
         // this warpgroup's log-mel rows leave in one coalesced run
         named_barrier(1 + wg, 128);
         const int fw = f0 + 64 * wg, n_rows = min(64, n_frames - fw);
-        if (n_mel % 4 == 0) {
+        if (n_mel % 4 == 0 && !TIGHT) {
             const int q4 = n_mel / 4;  // 16-byte pieces a row
             float4* o = reinterpret_cast<float4*>(out + ((size_t)b * n_frames + fw) * n_mel);
             for (int i = t; i < n_rows * q4; i += 128) {
@@ -421,19 +432,27 @@ mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict
 #endif
 }
 
+// The dynamic shared memory of a block.
+template <bool HIGH, int CW, bool TIGHT>
+size_t mel_smem(int L, int hop, int table_rows, int n_mel) {
+    using R = Ring<HIGH, CW, TIGHT>;
+    constexpr int FT = 64 * CW;
+    const Layout lay(R::STAGES, 4 * ((L + BK - 1) / BK), FT, table_rows, FT + (L - 1) / hop, hop + 8, HIGH,
+                     R::STAGE_OUT, out_ld(n_mel, TIGHT));
+    return 1024 + (size_t)R::STAGES * R::STAGE_BYTES + lay.end;
+}
+
 // Registers of the CW = 2 kernel: setmaxnreg.inc waits until the pool the
 // block was launched with can give what the consumers take, so a kernel
 // compiled with fewer would hang, not trap.
-template <bool HIGH, int CW, bool ODD>
+template <bool HIGH, int CW, bool ODD, bool TIGHT = false>
 cudaError_t launch_mel(const CUtensorMap& map, const float* wav, int B, int S, const int4* table, int table_rows,
                        float* out, int n_frames, int L, int hop, int NB, int n_mel, float floor_,
                        cudaStream_t stream) {
-    using R = Ring<HIGH, CW>;
+    using R = Ring<HIGH, CW, TIGHT>;
     constexpr int FT = 64 * CW, THREADS = 128 * (CW + 1);
-    auto kernel = mel_bf16_kernel<HIGH, CW, ODD>;
-    const int rows = FT + (L - 1) / hop;
-    const Layout lay(R::STAGES, 4 * ((L + BK - 1) / BK), FT, table_rows, rows, hop + 8, HIGH, R::STAGE_OUT);
-    const size_t smem = 1024 + (size_t)R::STAGES * R::STAGE_BYTES + lay.end;
+    auto kernel = mel_bf16_kernel<HIGH, CW, ODD, TIGHT>;
+    const size_t smem = mel_smem<HIGH, CW, TIGHT>(L, hop, table_rows, n_mel);
     if (smem > 232448) return cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -458,7 +477,9 @@ cudaError_t launch_mel(const CUtensorMap& map, const float* wav, int B, int S, c
 // the pass of 64 bins in which its run ends, the run within that pass and the
 // one before it; a row per pass (its filters' first row, their count, 0, 0);
 // then the filters' nonzero weights, fp32 bits, four a row; out: [B,
-// n_frames, n_mel] fp32 log-mel. Takes NB % 64 == 0, n_mel <= 80, L % 16 == 0,
+// n_frames, n_mel] fp32 log-mel. Takes NB % 64 == 0, any n_mel whose block
+// fits the shared memory (at L = 400, hop = 160: up to 128 bins, which is
+// kernels/mel.py::MEL_MAX_BINS; else an error is returned), L % 16 == 0,
 // hop % 16 == 0 and frames within S (the wrapper checks). The block has two
 // consumer warpgroups (128 frames) when that grid covers the card's SMs at
 // least once, else one (64 frames).
@@ -466,7 +487,7 @@ ASR_API int asr_log_mel_bf16(const void* wav, const void* dft, const void* table
                              int B, int S, int n_frames, int L, int hop, int NB, int n_mel, float floor_, int high,
                              void* stream) {
     if (B < 1 || B > 65535 || n_frames < 1 || L < 16 || L % 16 || hop < 16 || hop % 16 || NB < BINS ||
-        NB % BINS || n_mel < 1 || n_mel > 80 || table_rows < n_mel + NB / BINS || table_rows > 4096)
+        NB % BINS || n_mel < 1 || table_rows < n_mel + NB / BINS || table_rows > 4096)
         return static_cast<int>(cudaErrorInvalidValue);
     const int P = high ? 2 : 1;
     const cuuint64_t dims[2] = {(cuuint64_t)L, (cuuint64_t)P * 2 * NB}, strides[1] = {(cuuint64_t)L * 2};
@@ -480,13 +501,19 @@ ASR_API int asr_log_mel_bf16(const void* wav, const void* dft, const void* table
     const int4* tb = static_cast<const int4*>(table);
     float* o = static_cast<float*>(out);
     const bool odd = (L + BK - 1) / BK % 2;
+    // "bf16" at CW = 2 whose block does not fit with 4 stages (93-128 bins at L = 400, hop = 160): TIGHT
+    const bool tight = !high && wide && mel_smem<false, 2, false>(L, hop, table_rows, n_mel) > 232448;
 #define ASR_MEL_LAUNCH(H, C, O) launch_mel<H, C, O>(map, w, B, S, tb, table_rows, o, n_frames, L, hop, NB, n_mel, floor_, st)
+#define ASR_MEL_TIGHT(O) launch_mel<false, 2, O, true>(map, w, B, S, tb, table_rows, o, n_frames, L, hop, NB, n_mel, floor_, st)
     if (high)
         err = wide ? (odd ? ASR_MEL_LAUNCH(true, 2, true) : ASR_MEL_LAUNCH(true, 2, false))
                    : (odd ? ASR_MEL_LAUNCH(true, 1, true) : ASR_MEL_LAUNCH(true, 1, false));
+    else if (tight)
+        err = odd ? ASR_MEL_TIGHT(true) : ASR_MEL_TIGHT(false);
     else
         err = wide ? (odd ? ASR_MEL_LAUNCH(false, 2, true) : ASR_MEL_LAUNCH(false, 2, false))
                    : (odd ? ASR_MEL_LAUNCH(false, 1, true) : ASR_MEL_LAUNCH(false, 1, false));
 #undef ASR_MEL_LAUNCH
+#undef ASR_MEL_TIGHT
     return static_cast<int>(err);
 }

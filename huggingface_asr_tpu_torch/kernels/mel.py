@@ -45,7 +45,7 @@ from huggingface_asr_tpu_torch.ops.features import (
 
 BF16, F32 = torch.bfloat16, torch.float32
 MEL_MODES = ("highest", "high", "bf16")
-MEL_PASS_BINS, MEL_MAX_BINS = 64, 80  # the kernels' bins a pass; the most mel bins they take
+MEL_PASS_BINS, MEL_MAX_BINS = 64, 128  # the kernels' bins a pass; the most mel bins they take (any count up to it)
 
 
 def folded_bases(cfg: LogMelConfig) -> Tuple[np.ndarray, np.ndarray]:
@@ -207,9 +207,9 @@ def log_mel(wav: torch.Tensor, n_frames: int, dft: torch.Tensor, mel: torch.Tens
             hop: int, floor: float, mode: str = "highest") -> torch.Tensor:
     """``log_mel_plain``; CUDA tensors run ``csrc/mel.cu::mel_kernel`` ("highest")
     or ``csrc/mel_bf16.cu`` ("bf16", "high"; counted as ``asr_log_mel_bf16``
-    and ``asr_log_mel_high``): any S, bins in passes of 64, at most 80 mel
-    bins; the bf16 kernel also needs L and hop multiples of 16 and each
-    filter's nonzeros contiguous (``mel_bands``)."""
+    and ``asr_log_mel_high``): any S, bins in passes of 64, any count of mel
+    bins up to ``MEL_MAX_BINS``; the bf16 kernel also needs L and hop
+    multiples of 16 and each filter's nonzeros contiguous (``mel_bands``)."""
     if not _build.on_cuda(wav, dft, mel):
         return log_mel_plain(wav, n_frames, dft, mel, hop, floor, mode)
     if _check_mode(mode) != "highest":
@@ -220,8 +220,8 @@ def log_mel(wav: torch.Tensor, n_frames: int, dft: torch.Tensor, mel: torch.Tens
     if two_nb != 2 * nb:
         raise ValueError("dft must have 2 * bins columns")
     if nb % MEL_PASS_BINS or n_mel > MEL_MAX_BINS:
-        raise ValueError(f"the mel kernel takes bins in passes of {MEL_PASS_BINS} and at most {MEL_MAX_BINS} "
-                         f"mel bins, got {nb} and {n_mel}")
+        raise ValueError(f"the mel kernel takes bins in passes of {MEL_PASS_BINS} and at most MEL_MAX_BINS = "
+                         f"{MEL_MAX_BINS} mel bins, got {nb} and {n_mel}")
     if n_frames < 1 or n_frames > 1 + (S - L) // hop:
         raise ValueError(f"{n_frames} frames need more than {S} samples")
     _build.check(wav, "wav", F32)
@@ -241,8 +241,8 @@ def _log_mel_bf16(wav, n_frames, dft, mel, hop, floor, mode):
         raise ValueError(f"dft must be ({2 if mode == 'high' else 1}, 2 * bins, L) for {mode!r}, "
                          f"got {tuple(dft.shape)}")
     if nb % MEL_PASS_BINS or n_mel > MEL_MAX_BINS or L % 16 or hop % 16:
-        raise ValueError(f"the bf16 mel kernel takes bins in passes of {MEL_PASS_BINS}, at most {MEL_MAX_BINS} "
-                         f"mel bins, and L and hop multiples of 16, got {nb}, {n_mel}, {L} and {hop}")
+        raise ValueError(f"the bf16 mel kernel takes bins in passes of {MEL_PASS_BINS}, at most MEL_MAX_BINS = "
+                         f"{MEL_MAX_BINS} mel bins, and L and hop multiples of 16, got {nb}, {n_mel}, {L} and {hop}")
     if n_frames < 1 or n_frames > 1 + (S - L) // hop:
         raise ValueError(f"{n_frames} frames need more than {S} samples")
     _build.check(wav, "wav", F32)
@@ -266,10 +266,13 @@ def cmvn_plain(lm: torch.Tensor, lengths: torch.Tensor, norm_means: bool = True,
 
 def cmvn(lm: torch.Tensor, lengths: torch.Tensor, norm_means: bool = True,
          norm_vars: bool = True) -> torch.Tensor:
-    """``cmvn_plain``; CUDA tensors run ``csrc/mel.cu::cmvn_kernel``."""
+    """``cmvn_plain``; CUDA tensors run ``csrc/mel.cu::cmvn_kernel``: any
+    count of mel bins up to ``MEL_MAX_BINS``."""
     if not _build.on_cuda(lm, lengths):
         return cmvn_plain(lm, lengths, norm_means, norm_vars)
     B, T, n_mel = lm.shape
+    if n_mel > MEL_MAX_BINS:
+        raise ValueError(f"the CMVN kernel takes at most MEL_MAX_BINS = {MEL_MAX_BINS} mel bins, got {n_mel}")
     _build.check(lm, "lm", F32)
     _build.check(lengths, "lengths", torch.int32, (B,))
     out = torch.empty(B, T, n_mel, dtype=BF16, device=lm.device)

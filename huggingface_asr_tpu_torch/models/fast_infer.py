@@ -95,9 +95,9 @@ def fused_encoder_refusal(cfg: EBranchformerConfig, dtype: torch.dtype, *, log_m
          f"intermediate_size {cfg.intermediate_size}, hidden_size {cfg.hidden_size} (the depthwise conv kernels "
          f"take at most {DWCONV_MAX_C[0]} CSGU channels, in whole 128-channel slices past {DWCONV_CSGU_ROW_C}, "
          f"and {DWCONV_MAX_C[1]} merge channels)"),
-        (not log_mel or (cfg.num_fbanks <= MEL_MAX_BINS and cfg.num_fbanks % 8 == 0),
-         f"num_fbanks {cfg.num_fbanks} (the log-mel and CMVN kernels take at most {MEL_MAX_BINS} mel bins, "
-         f"a multiple of 8)"),
+        (not log_mel or cfg.num_fbanks <= MEL_MAX_BINS,
+         f"num_fbanks {cfg.num_fbanks} (the log-mel and CMVN kernels take at most MEL_MAX_BINS = {MEL_MAX_BINS} "
+         f"mel bins)"),
         (dtype == torch.bfloat16, f"dtype {dtype} (the kernels run bfloat16)"),
     )
     return next((reason for ok, reason in checks if not ok), None)

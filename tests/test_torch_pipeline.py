@@ -152,17 +152,17 @@ def test_aed_pipeline_builds_and_decodes_on_cpu(tmp_path):
     assert len(texts) == 3 and all(isinstance(t, str) for t in texts)
 
 
-@pytest.mark.parametrize("num_fbanks", [128, 84])
+@pytest.mark.parametrize("num_fbanks", [129, 256])
 def test_fused_gate_refuses_mel_bins_the_front_end_kernels_refuse(num_fbanks):
-    """The log-mel and CMVN kernels take at most 80 bins, a multiple of 8: a
-    CTC model with 128 or 84 is served through the plain model, with that
+    """The log-mel and CMVN kernels take at most ``MEL_MAX_BINS`` (128) bins:
+    a CTC model with 129 or 256 is served through the plain model, with that
     reason. The encoder's kernels do not need that limit (the subsampler
     falls back to the model's own front end), so the AED route, which keeps
     the plain log-mel, still takes the encoder kernels there."""
     cfg = EBranchformerConfig(num_fbanks=num_fbanks, hidden_size=64, num_attention_heads=2,
                               intermediate_size=128, num_hidden_layers=1, vocab_size=12)
     reason = fused_encoder_refusal(cfg, torch.bfloat16, log_mel=True)
-    assert reason is not None and f"num_fbanks {num_fbanks}" in reason
+    assert reason is not None and f"num_fbanks {num_fbanks}" in reason and "MEL_MAX_BINS = 128" in reason
     assert fused_encoder_refusal(EBranchformerConfig(num_fbanks=80), torch.bfloat16, log_mel=True) is None
     assert fused_encoder_refusal(cfg, torch.bfloat16) is None
 

@@ -10,7 +10,8 @@ decode. Then:
   ``evaluate`` writes byte-identical fp32 transcripts to the JAX
   ``evaluate``'s for ``whisper_ctc`` and ``llm_asr``;
 - the port's ``train_ctc`` trains both ``train_ctc`` families from its own
-  initialiser and writes ``final/`` and the test predictions;
+  initialiser and writes ``final/`` and the test predictions
+  (``tests/test_torch_recipe_cli_port.py``, on this file's corpus);
 - ``--from_hf_checkpoint`` with ``--model_family whisper_ctc``: the JAX CLI
   trains from its own init as if the flag were absent (its run here passes a
   directory that does not exist), the port raises (ROADMAP.md reference
@@ -23,12 +24,9 @@ family's ``train_aed`` is held in ``tests/test_torch_whisper_cli.py``.
 import os
 import sys
 
-import numpy as np
 import pytest
-import torch
 
 from huggingface_asr_tpu_torch.cli import evaluate, train_ctc
-from huggingface_asr_tpu_torch.training.model_factory import load_llm_asr_model, load_whisper_ctc_model
 
 datasets = pytest.importorskip("datasets")
 pytest.importorskip("transformers")
@@ -36,7 +34,7 @@ pytest.importorskip("transformers")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 from export_jax_checkpoint import export  # noqa: E402
-from torch_port_helpers import RECIPE_TRAIN as TRAIN, logged as _logged, recipe_corpus  # noqa: E402
+from torch_port_helpers import RECIPE_TRAIN as TRAIN, recipe_corpus  # noqa: E402
 
 WHISPER_CTC = {"d_model": 32, "encoder_layers": 1, "encoder_attention_heads": 2, "encoder_ffn_dim": 64,
                "max_source_positions": 256, "llm_dim": 32, "additional_head_count": 2, "blank_token_id": 0}
@@ -90,22 +88,6 @@ def test_evaluate_transcripts_are_byte_identical_to_jax(jax_trained, corpus, fam
         assert _same_bytes(j_out, p_out, name), name
     with open(os.path.join(p_out, "predictions_test_hyp.trn")) as f:
         assert any(line.split("(")[0].strip() for line in f)  # not every transcript is empty
-
-
-@pytest.mark.parametrize("family,load", [("whisper_ctc", load_whisper_ctc_model), ("llm_asr", load_llm_asr_model)])
-def test_the_port_trains_both_train_ctc_families_from_its_own_init(corpus, family, load):
-    root, _, with_test, tok = corpus
-    out = str(root / f"port_trained_{family}")
-    results = train_ctc.main(["--dataset_name", with_test, "--tokenizer_name", tok, "--model_family", family,
-                              "--model_config", str(root / f"{family}.json"), "--output_dir", out, "--device", "cpu",
-                              *TRAIN])
-    steps = _logged(out)
-    assert [r["step"] for r in steps] == [1, 2] and all(np.isfinite(r["loss"]) for r in steps)
-    assert ("enc_loss" in steps[0]) == (family == "llm_asr")
-    assert np.isfinite(results["test"].metrics["wer"])
-    assert os.path.exists(os.path.join(out, "predictions_test.csv"))
-    model = load(os.path.join(out, "final"), "cpu")
-    assert isinstance(model, torch.nn.Module)
 
 
 def test_whisper_ctc_from_hf_checkpoint_raises_in_the_port(corpus):

@@ -1,7 +1,8 @@
 """The port's tool CLIs against the JAX package's: ``train_tokenizer``,
-``init_model_configs``, ``compute_dataset_statistics`` and the publisher
-(``interop/publish.py::build_hub_repo``, ``cli/publish_model.py``), on one
-seeded corpus and one set of weights."""
+``init_model_configs`` and the publisher (``interop/publish.py::
+build_hub_repo``), on one seeded corpus and one set of weights.
+``compute_dataset_statistics`` and ``cli/publish_model.py`` are in
+``tests/test_torch_stats_cli.py``, on the same corpus and weights."""
 
 import json
 import os
@@ -13,7 +14,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from huggingface_asr_tpu.cli import compute_dataset_statistics as j_stats
 from huggingface_asr_tpu.cli import init_model_configs as j_configs
 from huggingface_asr_tpu.cli import train_tokenizer as j_tokenizer
 from huggingface_asr_tpu.interop import publish as j_publish
@@ -24,12 +24,9 @@ from huggingface_asr_tpu.models.joint_ctc_aed import JointCTCAttentionConfig as 
 from huggingface_asr_tpu.models.joint_ctc_aed import JointCTCAttentionEncoderDecoder as JJointModel
 from huggingface_asr_tpu.training.model_factory import save_params as j_save_params
 
-from huggingface_asr_tpu_torch.cli import compute_dataset_statistics as p_stats
 from huggingface_asr_tpu_torch.cli import init_model_configs as p_configs
 from huggingface_asr_tpu_torch.cli import train_tokenizer as p_tokenizer
-from huggingface_asr_tpu_torch.cli.publish_model import main as p_publish_main
 from huggingface_asr_tpu_torch.interop import publish as p_publish
-from huggingface_asr_tpu_torch.training.model_factory import load_ctc_model, load_state
 
 WORDS = ["hello", "world", "speech", "model", "test", "data", "token", "audio"]
 DATA_ARGS = ["--load_from_disk", "--no-do_resample", "--preprocessing_num_workers", "1"]
@@ -117,48 +114,6 @@ def test_init_model_configs_writes_equal_json(only, tmp_path):
         assert json.loads((outs["port"] / n).read_text()) == json.loads((outs["jax"] / n).read_text())
 
 
-# The two sides' log-mel: JAX's plain front end (the unfolded fp32 product)
-# and the port's log-mel kernel's plain version on the CPU (the folded bases
-# in fp32; the card's fp64 gate holds the kernel within twice the fp32
-# product's error). Each is a few 1e-7 relative off the fp64 log-mel, on
-# values of 10-25, so the float64 statistics (means 12-23, stds 0.4-3.2 on
-# this corpus) differ by 1.4e-6 and 2.0e-6 at most here; the bound is ten
-# times that.
-STATS_ATOL = 2e-5
-
-
-@pytest.mark.parametrize("batch_size", [4, 3])
-def test_compute_dataset_statistics_match_jax(corpus, batch_size, tmp_path):
-    """Batches of 4 and 3 (the last one padded with repeated rows, which both
-    drop) over the ten train rows."""
-    path, _ = corpus
-    outs = {n: str(tmp_path / n) for n in ("jax", "port")}
-    j_mean, j_std = j_stats.main(["--dataset_name", path, *DATA_ARGS, "--output_dir", outs["jax"],
-                                  "--batch_size", str(batch_size)])
-    p_mean, p_std = p_stats.main(["--dataset_name", path, *DATA_ARGS, "--output_dir", outs["port"],
-                                  "--batch_size", str(batch_size), "--device", "cpu"])
-    np.testing.assert_allclose(p_mean, j_mean, rtol=0, atol=STATS_ATOL)
-    np.testing.assert_allclose(p_std, j_std, rtol=0, atol=STATS_ATOL)
-    assert p_mean.dtype == np.float64 and p_mean.shape == (80,) and np.all(p_std > 0)
-    for name in ("global_means.npy", "global_stds.npy"):
-        np.testing.assert_array_equal(np.load(os.path.join(outs["port"], name)),
-                                      p_mean if "means" in name else p_std)
-    with open(os.path.join(outs["port"], "global_stats.json")) as f:
-        assert json.load(f) == {"means": p_mean.tolist(), "stds": p_std.tolist()}
-
-
-def test_statistics_of_the_rows_equal_the_whole_batch_statistics(corpus, tmp_path):
-    """``run`` on the rows directly: one batch of all ten equals batches of 3."""
-    from huggingface_asr_tpu_torch.data.datasets import ColumnTable
-
-    _, rows = corpus
-    table = ColumnTable({k: v[:10] for k, v in rows.items()})
-    whole = p_stats.run(p_stats.StatsArguments(output_dir=str(tmp_path / "a"), batch_size=10, device="cpu"), table)
-    parts = p_stats.run(p_stats.StatsArguments(output_dir=str(tmp_path / "b"), batch_size=3, device="cpu"), table)
-    for a, b in zip(whole, parts):
-        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-9)
-
-
 # ---- publishing
 
 ENC = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128, conv_dim=(32, 32),
@@ -217,19 +172,3 @@ def test_build_hub_repo_matches_jax(kind, tokenizers, tmp_path):
     assert set(p_sd) == set(j_sd)
     for k, v in j_sd.items():
         assert p_sd[k].dtype == v.dtype and torch.equal(p_sd[k], v), k
-
-
-def test_publish_model_cli_builds_a_repo_that_loads_back(tmp_path):
-    """The CLI's repo: its weights load strictly into the port's CTC model
-    and give the logits of the ``final/`` it was built from."""
-    _, p_final = _jax_final("ctc", tmp_path)
-    out = str(tmp_path / "repo")
-    p_publish_main(["--checkpoint", p_final, "--output_dir", out, "--model_type", "ctc", "--repo_id", "user/tiny"])
-    model = load_ctc_model(p_final, device="cpu")
-    twin = load_ctc_model(p_final, device="cpu")
-    twin.load_state_dict(torch.load(os.path.join(out, "pytorch_model.bin"), weights_only=True), strict=True)
-    feats = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 64, 80)).astype(np.float32))
-    lens = torch.tensor([64, 50], dtype=torch.int32)
-    with torch.no_grad():
-        assert torch.equal(model(feats, lens).logits, twin(feats, lens).logits)
-    assert set(load_state(p_final)) == set(torch.load(os.path.join(out, "pytorch_model.bin"), weights_only=True))
