@@ -131,14 +131,31 @@
    and 2,048, pos_query at q_rot 512, the attention at q_rot 512 (the k_std
    chunk ring) beside SDPA on the 576-wide concatenated head, the CSGU conv
    (128-channel slices) and the merge conv at 1,024 channels; K4 forward and
-   its four gradients at (dh 64, q_rot 512) in bf16 and K5 at dh 64, timed at
-   the BEST-RQ step's B=32, T=250 beside SDPA; then serves four requests of
+   its four gradients at (dh 64, q_rot 512) in bf16 and fp32 and K5 at dh 64,
+   timed at the BEST-RQ step's B=32, T=250 beside SDPA (fp32 K4 also at
+   B=16, and K5 in fp32, beside SDPA in fp32), fp32 K4 at a padded head and
+   q_rot ((40, 312) -> (64, 320), T=70, lengths 70, 1, 0), the fp32 time at
+   q_rot 256 as a reference, the fp32 kernel's keep-mask read out of it at
+   q_rot 512 against the plain version's; then serves four requests of
    8 x 10 s through ASRPipeline(model_type="ctc") as in step 9, the greedy
    ids also equal on at least 98 % of the valid frames; and pretrains it through cli/pretrain.run (BEST-RQ, codebook
    8192, B=16 x 9.3-10 s, bf16, attention_impl "pallas"): 3 steps, every one
    applied (K4 forward and backward and the backward's dq_rot GEMM 17 times a
    step), one evaluation batch (K5 17 times), final/ written, and step 1
-   again with the plain attention within 1e-4 of its loss.
+   again with the plain attention within 1e-4 of its loss. Then the fp32
+   training paths (``fp32_wide_phase``): BEST-RQ through cli/pretrain.run
+   with --dtype float32 and the config's own attention_impl ("auto"), 3
+   steps at B=16 x 9.3-10 s, every one applied with 17 K4 forward and 17 K4
+   backward launches (the fp32 kernels of rel_attention_train.cu at q_rot
+   512), the CLI's evaluation, step 1 again with the plain attention within
+   1e-4 of its loss and 1e-3 of its gradient norm, one evaluation batch of
+   the trained weights with "pallas" (17 K5 launches, fp32); then
+   ``train_ctc.run --from_pretrained`` of that ``final/`` in fp32, 2 steps,
+   each applied with 17 K4 forward and 17 backward launches; each step's
+   host-clock time and the runs' peak memory printed. The JSON line gains
+   the fp32 rows (``rel_attention_train_{fwd,bwd}_q512_fp32`` at B=16 and
+   ``_b32``, ``rel_attention_shift_dh64_fp32``) with the BEST-RQ run's
+   launches and ``fp32_finetune_launches``.
 14. right after step 11, trains that joint model (configs/decred_base.json at
    full width, vocabulary 500) from the Flax-matching initialiser through
    ``cli/train_aed.py::run`` (in-memory corpus rows of seeded synthetic speech
@@ -1163,6 +1180,147 @@ def empty_column_rule(name, feats, feats_p, feat_lens, g, r, valid, col):
     print(f"{name} column {col} (kernel/plain) per utterance: {seen}; {sum(rows)} of {len(rows)} utterances "
           f"compared", flush=True)
     return torch.tensor(rows, device=g.device)
+
+
+def fp32_wide_phase(dev, smi, steps: int = 3, ft_steps: int = 2) -> tuple:
+    """The 512-wide config's fp32 training paths (end of step 13): BEST-RQ
+    pretraining through ``cli/pretrain.run`` with ``--dtype float32`` and the
+    config's own attention_impl ("auto": fp32 K4 at q_rot 512 on the card),
+    ``steps`` steps at B=16 x 9.3-10 s and the CLI's evaluation; step 1 again
+    with the plain attention; one evaluation batch of the trained weights
+    with "pallas" (K5 in fp32); then ``train_ctc.run --from_pretrained`` of its
+    ``final/`` in fp32, ``ft_steps`` steps. Returns the launches of the
+    pretraining run with the evaluation's, and of the fine-tune, by counter."""
+    import torch
+
+    from huggingface_asr_tpu_torch.cli import pretrain as pretrain_cli
+    from huggingface_asr_tpu_torch.cli import train_ctc
+    from huggingface_asr_tpu_torch.data.datasets import ColumnTable, DataConfig
+    from huggingface_asr_tpu_torch.kernels import _build
+    from huggingface_asr_tpu_torch.kernels.train_attention import rel_attention_train, rel_attention_train_plain
+    from huggingface_asr_tpu_torch.models import ebranchformer as model_module
+    from huggingface_asr_tpu_torch.training.arguments import (
+        GeneralTrainingArguments,
+        GenerationArguments,
+        ModelArguments,
+        PretrainingArguments,
+    )
+    from huggingface_asr_tpu_torch.training.loop import BestRQTrainer, CTCTrainer
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_pretrain_fp32")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(32)
+    tok = IdTokenizer()
+    letters = list(IdTokenizer.CHARS[1:])
+    with open(os.path.join(ROOT, "configs", WIDE_CONFIG)) as f:
+        raw = json.load(f)
+    wcfg = config_file(WIDE_CONFIG)
+    n_l = wcfg.num_hidden_layers
+    if wcfg.attention_impl != "auto":
+        _fail(f"{WIDE_CONFIG}: attention_impl {wcfg.attention_impl!r}, the phase drives the config's 'auto'")
+
+    def split(n):
+        audio = [speech(rng.uniform(9.3, 10.0), rng) for _ in range(n)]
+        text = [" ".join("".join(rng.choice(letters, size=rng.integers(3, 8))) for _ in range(rng.integers(8, 14)))
+                for _ in range(n)]
+        return ColumnTable({"audio": audio, "text": text, "input_len": [len(a) / 16000 for a in audio]})
+
+    def steps_applied(title, seen, n, launches):
+        for i, (_, m, ms) in enumerate(seen):
+            print(f"  step {i + 1}: loss={m['loss']:.4f} grad_norm={m['grad_norm']:.3f} "
+                  f"applied={int(m['step_applied'])} {ms:.1f} ms (host clock, synchronized)", flush=True)
+        if len(seen) != n or any(int(m["step_applied"]) != 1 or not np.isfinite(m["loss"]) for _, m, _ in seen):
+            _fail(f"{title}: not every one of {n} steps was applied with a finite loss")
+        want = {"asr_rel_attention_train_fwd": n * n_l, "asr_rel_attention_train_bwd": n * n_l}
+        if any(launches.get(k, 0) != v for k, v in want.items()):
+            _fail(f"{title}: launches {launches}, want {want}")
+
+    # ---- BEST-RQ pretraining, fp32, attention_impl "auto"
+    print(f"-- fp32 BEST-RQ pretraining (cli/pretrain.run --dtype float32): {WIDE_CONFIG} at full width ({n_l} x "
+          f"{wcfg.hidden_size}, q_rot {wcfg.hidden_size}), attention_impl {wcfg.attention_impl!r}, B=16 x 9.3-10 s, "
+          f"{steps} steps", flush=True)
+    with open(os.path.join(work, "model.json"), "w") as f:
+        json.dump(raw, f)
+    p_args = ModelArguments(model_config=os.path.join(work, "model.json"), device="cuda", dtype="float32")
+    p_training = GeneralTrainingArguments(output_dir=os.path.join(work, "out"), per_device_train_batch_size=16,
+                                          per_device_eval_batch_size=16, max_steps=steps, logging_steps=1,
+                                          eval_steps=steps, save_steps=10 ** 9, warmup_steps=1, learning_rate=1e-4,
+                                          seed=4)
+    p_data = {"train": split(16), "validation": split(16)}
+    seen, undo = watch_steps(BestRQTrainer)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        p_out, p_launches = count_launches(
+            lambda: pretrain_cli.run(p_args, p_training, PretrainingArguments(), DataConfig(), p_data), {})
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps_applied("fp32 BEST-RQ", seen, steps, p_launches)
+    with open(os.path.join(work, "out", "metrics.jsonl")) as f:
+        p_eval = [json.loads(line) for line in f if "eval/loss" in line]
+    print(f"  evaluation loss (the CLI's, 'auto': the plain attention) {p_eval[-1]['eval/loss'] if p_eval else None}; "
+          f"peak memory {peak:.2f} GiB; launches over the run {p_launches}; {smi}", flush=True)
+    if not p_eval or not np.isfinite(p_eval[-1]["eval/loss"]):
+        _fail("fp32 BEST-RQ: no finite evaluation loss")
+    final = os.path.join(work, "out", "final")
+    if not os.path.exists(os.path.join(final, "pytorch_model.bin")):
+        _fail("fp32 BEST-RQ: no final/ written")
+
+    # step 1 again from the same initial weights and batch, with the plain attention
+    twin = BestRQTrainer(pretrain_cli.build_model(p_args, p_training.seed), p_out["trainer"].config,
+                         frontend=p_out["trainer"].frontend, device="cuda", dtype="float32")
+    model_module.rel_attention_train = rel_attention_train_plain
+    try:
+        before = dict(_build.LAUNCHES)
+        _, m_plain = twin.train_step(twin.init_state(), seen[0][0])
+        if dict(_build.LAUNCHES) != before:
+            _fail("the plain-attention fp32 BEST-RQ step launched an attention kernel")
+    finally:
+        model_module.rel_attention_train = rel_attention_train
+    gaps = {k: abs(seen[0][1][k] - float(m_plain[k])) / abs(float(m_plain[k])) for k in ("loss", "grad_norm")}
+    print(f"  fp32 BEST-RQ step 1, kernels vs plain attention: loss {seen[0][1]['loss']:.6f} vs "
+          f"{float(m_plain['loss']):.6f} (rel {gaps['loss']:.2e}, tol 1e-4), grad_norm {seen[0][1]['grad_norm']:.5f} "
+          f"vs {float(m_plain['grad_norm']):.5f} (rel {gaps['grad_norm']:.2e}, tol 1e-3)", flush=True)
+    if gaps["loss"] > 1e-4 or gaps["grad_norm"] > 1e-3:
+        _fail("fp32 BEST-RQ step 1 with the attention kernels disagrees with the plain-attention step")
+    del twin
+
+    # one evaluation batch of the trained weights with "pallas": K5 in fp32 at dh 64
+    with open(os.path.join(work, "model_pallas.json"), "w") as f:
+        json.dump({**raw, "attention_impl": "pallas"}, f)
+    e_args = dataclasses.replace(p_args, model_config=os.path.join(work, "model_pallas.json"))
+    evaluator = BestRQTrainer(pretrain_cli.build_model(e_args, p_training.seed), p_out["trainer"].config,
+                              frontend=p_out["trainer"].frontend, device="cuda", dtype="float32")
+    evaluator.model.load_state_dict(p_out["state"].model.state_dict())
+    ev, e_launches = count_launches(lambda: evaluator.eval_step(evaluator.init_state(), seen[0][0]), p_launches)
+    print(f"  evaluation batch with 'pallas': loss {float(ev['loss']):.4f}, launches {e_launches}", flush=True)
+    if e_launches.get("asr_rel_attention_shift", 0) != n_l or not np.isfinite(float(ev["loss"])):
+        _fail(f"fp32 BEST-RQ evaluation with 'pallas': launches {e_launches}, want {n_l} asr_rel_attention_shift")
+    del evaluator, p_out, seen
+    torch.cuda.empty_cache()
+
+    # ---- CTC fine-tuning of that final/, fp32
+    print(f"-- fp32 fine-tuning (train_ctc.run --from_pretrained <fp32 BEST-RQ final/> --dtype float32), vocabulary "
+          f"{len(tok)} + blank, B=16 x 9.3-10 s, --no-apply_spec_augment, {ft_steps} steps", flush=True)
+    seen, undo = watch_steps(CTCTrainer)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _, f_launches = count_launches(lambda: train_ctc.run(
+            ModelArguments(from_pretrained=final, device="cuda", dtype="float32"),
+            GeneralTrainingArguments(output_dir=os.path.join(work, "ft"), per_device_train_batch_size=16,
+                                     max_steps=ft_steps, logging_steps=1, eval_steps=10 ** 9, save_steps=10 ** 9,
+                                     warmup_steps=1, learning_rate=1e-4, seed=32, apply_spec_augment=False),
+            GenerationArguments(), DataConfig(), {"train": split(16)}, tok), {})
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps_applied("fp32 fine-tune", seen, ft_steps, f_launches)
+    print(f"  peak memory {peak:.2f} GiB; launches over the run {f_launches}; {smi}", flush=True)
+    torch.cuda.empty_cache()
+    print(f"fp32 512-wide training paths: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return p_launches, f_launches
 
 
 # The 256-wide shipped SSL config of the wav2vec2 pretraining run: 12 layers x
@@ -3731,26 +3889,32 @@ def main() -> None:
             if not ok:
                 failures.append(f"K4 bwd D={Dn} T={T}")
 
-    # The kernel's keep-mask, read out of the kernel itself: with zero queries
-    # every valid key has the same probability, and v = one-hot of (s mod 32)
-    # within one 32-key chunk makes out[t, d] non-zero exactly where key
-    # 32*chunk + d was kept.
-    t = attention_inputs(4, 250, torch.bfloat16, seed=5)
-    t["lengths"] = torch.full((4,), 250, dtype=torch.int32, device=dev)
-    zq, zr = torch.zeros_like(t["q_u"]), torch.zeros_like(t["q_rot"])
-    for row0 in (0, 3):  # 3: a data-parallel rank's first row of the global batch
-        kept = torch.zeros(4, H, 250, 250, dtype=torch.bool, device=dev)
+    def kernel_keep_mask(B_, T_, H_, dh_, D_, dtype, row0):
+        """Whether K4's keep-mask, read out of the kernel itself, is the plain
+        version's (printed): with zero queries every valid key has the same
+        probability, and v = one-hot of (s mod dh_) within one dh_-key chunk
+        makes out[t, d] non-zero exactly where key dh_*chunk + d was kept."""
+        g = torch.Generator().manual_seed(5)
+        k_ = torch.randn(B_, T_, H_, dh_, generator=g).to(dtype).to(dev)
+        k_std_ = torch.randn(T_, D_, generator=g).to(dtype).to(dev)
+        lengths_ = torch.full((B_,), T_, dtype=torch.int32, device=dev)
+        zq, zr = torch.zeros_like(k_), torch.zeros(B_, T_, H_, D_, dtype=dtype, device=dev)
+        kept = torch.zeros(B_, H_, T_, T_, dtype=torch.bool, device=dev)
         with torch.no_grad():
-            for c0 in range(0, 250, dh):
-                probe = torch.zeros_like(t["v"])
-                for d in range(min(dh, 250 - c0)):
+            for c0 in range(0, T_, dh_):
+                probe = torch.zeros_like(k_)
+                for d in range(min(dh_, T_ - c0)):
                     probe[:, c0 + d, :, d] = 1.0
-                out = rel_attention_train(zq, zr, t["k"], probe, t["k_std"], t["lengths"], 4242, 0.1, row0=row0)
-                kept[:, :, :, c0:c0 + dh] = (out != 0).permute(0, 2, 1, 3)[..., : min(dh, 250 - c0)]
-        same_mask = bool(torch.equal(kept, keep_mask(4242, 4, H, 250, 0.1, dev, row0=row0)))
-        print(f"  K4 keep-mask (rows numbered from {row0}) read from the kernel equals the plain version's: "
-              f"{same_mask} (kept share {float(kept.float().mean()):.4f})", flush=True)
-        if not same_mask:
+                out = rel_attention_train(zq, zr, k_, probe, k_std_, lengths_, 4242, 0.1, row0=row0)
+                kept[:, :, :, c0:c0 + dh_] = (out != 0).permute(0, 2, 1, 3)[..., : min(dh_, T_ - c0)]
+        same = bool(torch.equal(kept, keep_mask(4242, B_, H_, T_, 0.1, dev, row0=row0)))
+        print(f"  K4 keep-mask ({str(dtype).split('.')[-1]}, dh {dh_}, q_rot {D_}, rows numbered from {row0}) read "
+              f"from the kernel equals the plain version's: {same} (kept share {float(kept.float().mean()):.4f})",
+              flush=True)
+        return same
+
+    for row0 in (0, 3):  # 3: a data-parallel rank's first row of the global batch
+        if not kernel_keep_mask(4, 250, H, dh, D, torch.bfloat16, row0):
             failures.append(f"K4 keep-mask, row0 {row0}")
 
     # At the training path's own shape, B=32, T=250, bf16, rate 0.1: each
@@ -4043,7 +4207,7 @@ def main() -> None:
               + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()), flush=True)
         return w_, T_pad_, tab_
 
-    def train_attention_holds(tag, H_, dh_, D_, keys, dtypes, seed):
+    def train_attention_holds(tag, H_, dh_, D_, keys, dtypes, seed, fp32_keys=None):
         """K4 (forward and the four gradients) and K5 at head size ``dh_`` and
         q_rot width ``D_`` (the wrappers pad to the kernels' widths) against
         their plain versions: B=8 x T=250 and B=4 x T=333 with rows of length 1
@@ -4051,7 +4215,9 @@ def main() -> None:
         step's B=32, T=250, bf16, rate 0.1, timed beside SDPA on the
         concatenated head, and the wrappers' device time split into the
         attention kernels' own and the rest (the pad copies; where the
-        backward writes dS, its zeroing and the dq_rot GEMM)."""
+        backward writes dS, its zeroing and the dq_rot GEMM). ``fp32_keys``
+        ({batch size: keys}): K4 in fp32 held and timed the same way at those
+        batch sizes, T=250, beside SDPA in fp32 (K5 too where the keys name it)."""
         def inputs(B, T, dtype, lens, s):
             g = torch.Generator().manual_seed(s)
             mk = lambda *shape: torch.randn(*shape, generator=g).to(dtype).to(dev)  # noqa: E731
@@ -4078,54 +4244,70 @@ def main() -> None:
                 print(f"  K5 {'fwd':18s} {label:36s} max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     failures.append(f"K5 {label}")
-        Bt, Tt = 32, 250
-        t = inputs(Bt, Tt, torch.bfloat16, [Tt - (i * Tt) // (2 * Bt) for i in range(Bt)], seed + 32)
-        got = train_attention_run(rel_attention_train, t, 77, 0.1)
-        ref = train_attention_run(rel_attention_train_plain, t, 77, 0.1)
-        (err_fwd, ok_fwd), (err_bwd, ok_bwd) = (worst(got[sl], ref[sl], att_tol[torch.bfloat16])
-                                                for sl in (slice(0, 1), slice(1, 5)))
-        args = (t["q_u"], t["q_v"], t["k"], t["v"], t["pos"], t["lengths"])
-        err_k5, ok_k5 = worst([rel_attention(*args)], [rel_attention_plain_shift(*args)], att_tol[torch.bfloat16])
-        del got, ref
-        n_keys = float(t["lengths"].sum())
-        small, big = nbytes(t["q_u"]), nbytes(t["q_rot"])
-        lib_fwd, lib_make_bwd = sdpa_call(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"], t["lengths"],
-                                          1.0 / float(np.sqrt(dh_)))
 
-        def backward_of(fn):
-            leaves = [t[n].clone().requires_grad_(True) for n in ("q_u", "q_rot", "k", "v")]
-            out = fn(*leaves, t["k_std"], t["lengths"], 77, 0.1)
-            return lambda: torch.autograd.grad(out, leaves, t["cot"], retain_graph=True)
+        def timed_at(Bt, dtype, keys_, iters):
+            """K4 (and K5 where ``keys_`` names it) at B=``Bt``, T=250, rate
+            0.1: held against the plain versions, timed beside SDPA in the
+            same dtype, device time split."""
+            Tt = 250
+            t = inputs(Bt, Tt, dtype, [Tt - (i * Tt) // (2 * Bt) for i in range(Bt)], seed + Bt)
+            got = train_attention_run(rel_attention_train, t, 77, 0.1)
+            ref = train_attention_run(rel_attention_train_plain, t, 77, 0.1)
+            (err_fwd, ok_fwd), (err_bwd, ok_bwd) = (worst(got[sl], ref[sl], att_tol[dtype])
+                                                    for sl in (slice(0, 1), slice(1, 5)))
+            del got, ref
+            kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+            label = f"{tag} B={Bt} {kind}"
+            n_keys = float(t["lengths"].sum())
+            small, big = nbytes(t["q_u"]), nbytes(t["q_rot"])
+            lib_fwd, lib_make_bwd = sdpa_call(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"], t["lengths"],
+                                              1.0 / float(np.sqrt(dh_)))
 
-        forward_of = lambda fn: (lambda: fn(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"], t["lengths"],  # noqa: E731
-                                            77, 0.1))
-        with torch.no_grad():
-            record(f"K4 fwd {tag}", keys["fwd"], err_fwd, ok_fwd,
-                   timed(forward_of(rel_attention_train), 20), timed(forward_of(rel_attention_train_plain), 5),
-                   (2.0 * H_ * Tt * n_keys * (dh_ + D_ + dh_),
-                    4 * small + big + nbytes(t["k_std"]) + 8 * Bt * H_ * Tt, "bf16"), timed(lib_fwd, 20))
-        # the backward's bytes: its inputs and the four gradients once (a dS
-        # scratch it writes and reads back is the design's, not the function's)
-        record(f"K4 bwd {tag}", keys["bwd"], err_bwd, ok_bwd,
-               timed(backward_of(rel_attention_train), 20), timed(backward_of(rel_attention_train_plain), 5),
-               (2.0 * H_ * Tt * n_keys * ((dh_ + D_) + 4 * dh_ + D_),
-                7 * small + 2 * big + nbytes(t["k_std"]) + 8 * Bt * H_ * Tt, "bf16"),
-               timed(lib_make_bwd(), 20))
-        with torch.no_grad():
-            record(f"K5 fwd {tag}", keys["shift"], err_k5, ok_k5,
-                   timed(lambda: rel_attention(*args), 20), timed(lambda: rel_attention_plain_shift(*args), 5),
-                   (2.0 * H_ * Tt * n_keys * 3 * dh_, 5 * small + nbytes(t["pos"]), "bf16"), timed(lib_fwd, 20))
-        splits = {"K4 fwd": (forward_of(rel_attention_train), "train_fwd_bf16_kernel"),
-                  "K4 bwd": (backward_of(rel_attention_train), "train_bwd_"),
-                  "K5": (lambda: rel_attention(*args), "shift_bf16_kernel")}
-        for name, (fn, kernel_name) in splits.items():
-            per_kernel = device_kernel_ms(fn)
-            total = sum(per_kernel.values())
-            own = sum(v for k, v in per_kernel.items() if kernel_name in k)
-            print(f"  {name} {tag} B={Bt} T={Tt} device ms under the profiler: {total:.4f}, the attention kernels "
-                  f"{own:.4f}, the rest {total - own:.4f}", flush=True)
-        del t, lib_fwd, lib_make_bwd
-        torch.cuda.empty_cache()
+            def backward_of(fn):
+                leaves = [t[n].clone().requires_grad_(True) for n in ("q_u", "q_rot", "k", "v")]
+                out = fn(*leaves, t["k_std"], t["lengths"], 77, 0.1)
+                return lambda: torch.autograd.grad(out, leaves, t["cot"], retain_graph=True)
+
+            forward_of = lambda fn: (lambda: fn(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"],  # noqa: E731
+                                                t["lengths"], 77, 0.1))
+            with torch.no_grad():
+                record(f"K4 fwd {label}", keys_["fwd"], err_fwd, ok_fwd,
+                       timed(forward_of(rel_attention_train), iters),
+                       timed(forward_of(rel_attention_train_plain), 5),
+                       (2.0 * H_ * Tt * n_keys * (dh_ + D_ + dh_),
+                        4 * small + big + nbytes(t["k_std"]) + 8 * Bt * H_ * Tt, kind), timed(lib_fwd, iters))
+            # the backward's bytes: its inputs and the four gradients once (a dS
+            # scratch it writes and reads back is the design's, not the function's)
+            record(f"K4 bwd {label}", keys_["bwd"], err_bwd, ok_bwd,
+                   timed(backward_of(rel_attention_train), iters), timed(backward_of(rel_attention_train_plain), 5),
+                   (2.0 * H_ * Tt * n_keys * ((dh_ + D_) + 4 * dh_ + D_),
+                    7 * small + 2 * big + nbytes(t["k_std"]) + 8 * Bt * H_ * Tt, kind),
+                   timed(lib_make_bwd(), iters))
+            splits = {"K4 fwd": (forward_of(rel_attention_train), "train_fwd_"),
+                      "K4 bwd": (backward_of(rel_attention_train), "train_bwd_")}
+            if "shift" in keys_:
+                args = (t["q_u"], t["q_v"], t["k"], t["v"], t["pos"], t["lengths"])
+                err_k5, ok_k5 = worst([rel_attention(*args)], [rel_attention_plain_shift(*args)], att_tol[dtype])
+                with torch.no_grad():
+                    record(f"K5 fwd {label}", keys_["shift"], err_k5, ok_k5,
+                           timed(lambda: rel_attention(*args), iters),
+                           timed(lambda: rel_attention_plain_shift(*args), 5),
+                           (2.0 * H_ * Tt * n_keys * 3 * dh_, 5 * small + nbytes(t["pos"]), kind),
+                           timed(lib_fwd, iters))
+                splits["K5"] = (lambda: rel_attention(*args), "shift_")
+            for name, (fn, kernel_name) in splits.items():
+                per_kernel = device_kernel_ms(fn)
+                total = sum(per_kernel.values())
+                own = sum(v for k, v in per_kernel.items() if kernel_name in k)
+                lib = device_ms(lib_fwd) if name != "K4 bwd" else device_ms(lib_make_bwd())
+                print(f"  {name} {label} T={Tt} device ms under the profiler: {total:.4f}, the attention kernels "
+                      f"{own:.4f}, the rest {total - own:.4f}; SDPA {lib:.4f}", flush=True)
+            del t, lib_fwd, lib_make_bwd
+            torch.cuda.empty_cache()
+
+        timed_at(32, torch.bfloat16, keys, 20)
+        for Bt, keys_ in (fp32_keys or {}).items():
+            timed_at(Bt, torch.float32, keys_, 5)
 
     def serve_requests(title, cfg_, model_, requests):
         """``model_`` saved and served through ``ASRPipeline(model_type="ctc")``
@@ -4301,10 +4483,49 @@ def main() -> None:
         layernorm="layernorm_d512", gemm="gemm_d512", pos_query="pos_query_q512", rel_attention="rel_attention_q512",
         dwconv_csgu="dwconv_csgu_c1024", dwconv_merge="dwconv_merge_c1024"))
     del wf
-    # K4 at (dh 64, q_rot 512) in bf16 (fp32 K4 takes q_rot up to 256) and K5 at dh 64
-    train_attention_holds("dh=64, q_rot=512", wcfg.num_attention_heads, wcfg.head_size, wcfg.hidden_size,
+    # K4 at (dh 64, q_rot 512) in bf16 and fp32 and K5 at dh 64; fp32 K4 (and K5) also timed at the fp32
+    # training runs' B=16 and at B=32
+    wH, w_dh, wD = wcfg.num_attention_heads, wcfg.head_size, wcfg.hidden_size
+    train_attention_holds("dh=64, q_rot=512", wH, w_dh, wD,
                           dict(fwd="rel_attention_train_fwd_q512", bwd="rel_attention_train_bwd_q512",
-                               shift="rel_attention_shift_dh64"), (torch.bfloat16,), seed=512)
+                               shift="rel_attention_shift_dh64"), (torch.bfloat16, torch.float32), seed=512,
+                          fp32_keys={16: dict(fwd="rel_attention_train_fwd_q512_fp32",
+                                              bwd="rel_attention_train_bwd_q512_fp32",
+                                              shift="rel_attention_shift_dh64_fp32"),
+                                     32: dict(fwd="rel_attention_train_fwd_q512_fp32_b32",
+                                              bwd="rel_attention_train_bwd_q512_fp32_b32")})
+    # fp32 K4 at the edges: a padded head and q_rot, (40, 312) -> (64, 320), one ragged key tile at T=70; and
+    # the fp32 q_rot-256 time beside 512's (B=16, T=250, rate 0.1), as a reference
+    for (e_dh, eD), (eB, eT, e_lens) in (((40, 312), (3, 70, [70, 1, 0])), ((64, 256), (16, 250, None))):
+        g = torch.Generator().manual_seed(eD + eT)
+        mk = lambda *shape: torch.randn(*shape, generator=g).to(dev)  # noqa: E731
+        e_lens = e_lens or [eT - (i * eT) // (2 * eB) for i in range(eB)]
+        te = dict(q_u=mk(eB, eT, wH, e_dh), q_rot=mk(eB, eT, wH, eD) * 0.25, k=mk(eB, eT, wH, e_dh),
+                  v=mk(eB, eT, wH, e_dh), k_std=mk(eT, eD), cot=mk(eB, eT, wH, e_dh),
+                  lengths=torch.tensor(e_lens, dtype=torch.int32, device=dev))
+        label = f"fp32 dh={e_dh}, q_rot={eD} B={eB} T={eT}"
+        for rate in (0.0, 0.1):
+            got = train_attention_run(rel_attention_train, te, 77, rate)
+            err, ok = worst(got, train_attention_run(rel_attention_train_plain, te, 77, rate), att_tol[torch.float32])
+            print(f"  K4 fwd + bwd {label} rate={rate}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"K4 {label} rate={rate}")
+        if eD == 256:
+            fwd_fn = lambda: rel_attention_train(te["q_u"], te["q_rot"], te["k"], te["v"], te["k_std"],  # noqa: E731
+                                                 te["lengths"], 77, 0.1)
+            leaves = [te[n].clone().requires_grad_(True) for n in ("q_u", "q_rot", "k", "v")]
+            out = rel_attention_train(*leaves, te["k_std"], te["lengths"], 77, 0.1)
+            bwd_fn = lambda: torch.autograd.grad(out, leaves, te["cot"], retain_graph=True)  # noqa: E731
+            with torch.no_grad():
+                fwd_ms, fwd_dev = timed(fwd_fn, 5), device_ms(fwd_fn, name="train_fwd_")
+            print(f"  K4 {label} (reference): fwd {fwd_ms:.4f} ms, bwd {timed(bwd_fn, 5):.4f} ms (events); device "
+                  f"fwd {fwd_dev:.4f}, bwd {device_ms(bwd_fn, name='train_bwd_'):.4f}; {smi}", flush=True)
+            del leaves, out
+        del te
+    # the fp32 kernel's keep-mask at (dh 64, q_rot 512), read out of the kernel itself as in step 6
+    same_mask = kernel_keep_mask(4, 250, wH, w_dh, wD, torch.float32, row0=0)
+    if not same_mask:
+        failures.append("K4 fp32 keep-mask at q_rot 512")
 
     # the 512-wide serving path: four requests of 8 x 10 s
     w_requests = {f"512-wide, 8 utts (10 s) #{r}": [speech(10.0 * (1.0 - 0.01 * ((i + r) % 7)), rng) for i in range(8)]
@@ -4391,6 +4612,7 @@ def main() -> None:
             wide_launches[k] = v
     del twin, p_out, steps_seen
     torch.cuda.empty_cache()
+    fp32_launches, fp32_ft_launches = fp32_wide_phase(dev, smi)
     print(f"512-wide phase: {time.perf_counter() - wide_t0:.1f} s", flush=True)
 
     ssl_launches = ssl_phase(dev, smi)
@@ -4451,6 +4673,17 @@ def main() -> None:
         "rel_attention_train_bwd_q512": routes["rel_attention_train_bwd"],
         "rel_attention_shift_dh64": routes["rel_attention_shift"],
     }
+    # the fp32 kernels at (dh 64, q_rot 512): launches from the fp32 BEST-RQ run (3 steps and its "pallas"
+    # evaluation batch); the fine-tune's under "fp32_finetune_launches"
+    fp32_fwd, fp32_bwd = ((routes[k][0], "csrc/rel_attention_train.cu", routes[k][2])
+                          for k in ("rel_attention_train_fwd", "rel_attention_train_bwd"))
+    fp32_routes = {
+        "rel_attention_train_fwd_q512_fp32": fp32_fwd, "rel_attention_train_bwd_q512_fp32": fp32_bwd,
+        "rel_attention_shift_dh64_fp32": ("asr_rel_attention_shift", "csrc/rel_attention_shift.cu",
+                                          routes["rel_attention_shift"][2]),
+    }
+    fp32_routes.update(rel_attention_train_fwd_q512_fp32_b32=fp32_routes["rel_attention_train_fwd_q512_fp32"],
+                       rel_attention_train_bwd_q512_fp32_b32=fp32_routes["rel_attention_train_bwd_q512_fp32"])
     # the CSGU linear's two pieces: launches from the gated, csgu-linear request of the variants phase
     variant_routes = {
         "dwconv_csgu_conv": ("dwconv_csgu_conv", "csrc/dwconv_csgu.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
@@ -4476,8 +4709,8 @@ def main() -> None:
     bins_launches = {k: n for k, (_, n) in bins_rows.items()}
     kernels = []
     for table, counts in ((routes, launches), (narrow_routes, narrow_launches), (wide_routes, wide_launches),
-                          (variant_routes, variant_launches), (serving_routes, serving_launches),
-                          (high_routes, high_launches)):
+                          (fp32_routes, fp32_launches), (variant_routes, variant_launches),
+                          (serving_routes, serving_launches), (high_routes, high_launches)):
         for name, (counter, src, replaces) in table.items():
             kernels.append({
                 "name": name, "route": "cuda", "source": f"huggingface_asr_tpu_torch/{src}",
@@ -4489,6 +4722,9 @@ def main() -> None:
                 "stats_cli_launches": stats_launches.get(counter, 0),
                 "process_group_launches": pg_launches.get(counter, 0),
             })
+    for entry in kernels:
+        if entry["name"] in fp32_routes:
+            entry["fp32_finetune_launches"] = fp32_ft_launches.get(fp32_routes[entry["name"]][0], 0)
     for name, (counter, src, replaces) in bins_routes.items():
         kernels.append({"name": name, "route": "cuda", "source": f"huggingface_asr_tpu_torch/{src}",
                         "replaces": replaces, "launches": bins_launches[name], **results[name]})

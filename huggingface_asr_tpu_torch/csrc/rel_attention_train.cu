@@ -35,28 +35,38 @@
 //             scaled dP, as the TPU kernel takes it (written out for the dkv
 //             pass); pass 1 walks them again and accumulates
 //             [dq_u | dq_rot] += dS [k | k_std] in shared memory (fp32).
+//             [k | k_std] of a key tile comes through one buffer in chunks of
+//             KC columns, twice in pass 1: S summed over the chunks in column
+//             order (the same fma chain as one product over the whole width),
+//             then each chunk's columns of the accumulator. So only the
+//             [q_u | q_rot] tile and the accumulator grow with the width: at
+//             dh 64 + q_rot 512 the pass holds 196,992 bytes where a resident
+//             [k | k_std] tile would need 253,952 (more than a block has).
 //   dkv pass  block = (key tile, head, batch), walks the query tiles and
 //             accumulates dv += Pd^T dO and dk += dS^T q_u.
 //
 // The kernels of this file are instantiated for fp32 only: exact FMA loops on
 // 32-row tiles out of padded shared memory, S recomputed three times in the
-// backward. They are slow by design and are not on a main path (training
-// runs in bf16); what bounds the bf16 kernels is said in their own files.
+// backward, at any q_rot up to 512 columns. They are slow by design: fp32
+// training (--dtype float32) runs them; what bounds the bf16 kernels is said
+// in their own files.
 #include "attention_common.cuh"
 
 namespace {
 
 using namespace attn;
 
-// Load `rows` rows [a | b] (widths na, nb) of a tile starting at row r0.
+// Load columns [c0, c0 + w) of `rows` rows of [a | b] (a of width na) starting at row r0.
 template <typename E>
-__device__ __forceinline__ void load_cat_tile(E* dst, int ld, const E* a, size_t a_stride, int na,
-                                              const E* b, size_t b_stride, int nb, int r0, int T,
+__device__ __forceinline__ void load_cat_cols(E* dst, int ld, const E* a, size_t a_stride, int na,
+                                              const E* b, size_t b_stride, int c0, int w, int r0, int T,
                                               int rows, int warp, int n_warps, int lane) {
+    const int wa = max(0, min(na - c0, w));  // the columns that come from a
     for (int r = warp; r < rows; r += n_warps) {
         const int t = r0 + r;
-        copy_row<E>(dst + (size_t)r * ld, a + (size_t)t * a_stride, na, t < T, lane);
-        if (nb > 0) copy_row<E>(dst + (size_t)r * ld + na, b + (size_t)t * b_stride, nb, t < T, lane);
+        if (wa > 0) copy_row<E>(dst + (size_t)r * ld, a + (size_t)t * a_stride + c0, wa, t < T, lane);
+        if (wa < w)
+            copy_row<E>(dst + (size_t)r * ld + wa, b + (size_t)t * b_stride + (c0 + wa - na), w - wa, t < T, lane);
     }
 }
 
@@ -108,7 +118,7 @@ train_fwd_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot, const E
     const E* k_b = k + (size_t)b * T * hs + (size_t)h * DH;
     const E* v_b = v + (size_t)b * T * hs + (size_t)h * DH;
 
-    load_cat_tile<E>(Qs, L.ldk, qu_b, hs, DH, qr_b, rs, D, t0, T, BT, warp, NW, lane);
+    load_cat_cols<E>(Qs, L.ldk, qu_b, hs, DH, qr_b, rs, 0, kd, t0, T, BT, warp, NW, lane);
     for (int i = threadIdx.x; i < BT * DH; i += NW * 32) Os[(i / DH) * L.ldo + i % DH] = 0.0f;
 
     float m[16], l[16];
@@ -121,7 +131,7 @@ train_fwd_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot, const E
     // pass A: row max and sum over all visited keys
     for (int s0 = 0; s0 < n_keys; s0 += BT) {
         __syncthreads();
-        load_cat_tile<E>(Ks, L.ldk, k_b, hs, DH, k_std, (size_t)D, D, s0, T, BT, warp, NW, lane);
+        load_cat_cols<E>(Ks, L.ldk, k_b, hs, DH, k_std, (size_t)D, 0, kd, s0, T, BT, warp, NW, lane);
         __syncthreads();
         warp_mm<false, true, false>(Ss + wr * L.lds, L.lds, Qs + (size_t)wr * L.ldk, L.ldk, Ks,
                                     L.ldk, kd, BT / 16);
@@ -156,8 +166,8 @@ train_fwd_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot, const E
     const float inv_keep_e = round_to<E>(drop.inv_keep);
     for (int s0 = 0; s0 < n_keys; s0 += BT) {
         __syncthreads();
-        load_cat_tile<E>(Ks, L.ldk, k_b, hs, DH, k_std, (size_t)D, D, s0, T, BT, warp, NW, lane);
-        load_cat_tile<E>(Vs, L.ldv, v_b, hs, DH, v_b, hs, 0, s0, T, BT, warp, NW, lane);
+        load_cat_cols<E>(Ks, L.ldk, k_b, hs, DH, k_std, (size_t)D, 0, kd, s0, T, BT, warp, NW, lane);
+        load_cat_cols<E>(Vs, L.ldv, v_b, hs, DH, v_b, hs, 0, DH, s0, T, BT, warp, NW, lane);
         __syncthreads();
         warp_mm<false, true, false>(Ss + wr * L.lds, L.lds, Qs + (size_t)wr * L.ldk, L.ldk, Ks,
                                     L.ldk, kd, BT / 16);
@@ -189,20 +199,22 @@ train_fwd_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot, const E
 
 template <typename E, int DH>
 struct DqSmem {
-    size_t q, k, v, dO, s, d, ds, acc, total;
-    int ldk, ldv, lds, ldp, lda;
+    static constexpr int KC = 128;  // columns of [k | k_std] a chunk
+    size_t q, kc, v, dO, s, d, ds, acc, st, total;
+    int ldq, ldkc, ldv, lds, ldp, lda;
     __host__ __device__ explicit DqSmem(int kd) {
         constexpr int BT = Tile<E>::B, V = 16 / (int)sizeof(E);
-        ldk = kd + V; ldv = DH + V; lds = BT + 4; ldp = BT + V; lda = kd + 4;
+        ldq = kd + V; ldkc = KC + V; ldv = DH + V; lds = BT + 4; ldp = BT + V; lda = kd + 4;
         q = 0;
-        k = up128(q + (size_t)BT * ldk * sizeof(E));
-        v = up128(k + (size_t)BT * ldk * sizeof(E));
+        kc = up128(q + (size_t)BT * ldq * sizeof(E));
+        v = up128(kc + (size_t)BT * ldkc * sizeof(E));
         dO = up128(v + (size_t)BT * ldv * sizeof(E));
         s = up128(dO + (size_t)BT * ldv * sizeof(E));
         d = up128(s + (size_t)BT * lds * 4);
         ds = up128(d + (size_t)BT * lds * 4);
         acc = up128(ds + (size_t)BT * ldp * sizeof(E));
-        total = up128(acc + (size_t)BT * lda * 4);
+        st = up128(acc + (size_t)BT * lda * 4);
+        total = up128(st + (size_t)3 * BT * 4);
     }
 };
 
@@ -214,18 +226,23 @@ train_bwd_dq_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot,
                     const E* __restrict__ d_out, const float* __restrict__ stats,
                     float* __restrict__ delta_out, E* __restrict__ dq_u, E* __restrict__ dq_rot,
                     int B, int T, int H, int D, float scale, DropoutArgs drop) {
-    constexpr int BT = Tile<E>::B, NW = BT / 16;
+    constexpr int BT = Tile<E>::B, NW = BT / 16, KC = DqSmem<E, DH>::KC;
     extern __shared__ __align__(128) unsigned char smem_raw[];
     const int kd = DH + D;
     const DqSmem<E, DH> L(kd);
     E* Qs = reinterpret_cast<E*>(smem_raw + L.q);
-    E* Ks = reinterpret_cast<E*>(smem_raw + L.k);
+    E* Kc = reinterpret_cast<E*>(smem_raw + L.kc);
     E* Vs = reinterpret_cast<E*>(smem_raw + L.v);
     E* dOs = reinterpret_cast<E*>(smem_raw + L.dO);
     float* Ss = reinterpret_cast<float*>(smem_raw + L.s);
     float* Ds = reinterpret_cast<float*>(smem_raw + L.d);
     E* dSs = reinterpret_cast<E*>(smem_raw + L.ds);
     float* Acc = reinterpret_cast<float*>(smem_raw + L.acc);
+    // the rows' max, sum and delta (in shared memory, not registers: the
+    // chunked products leave no room for them there)
+    float* m_s = reinterpret_cast<float*>(smem_raw + L.st);
+    float* l_s = m_s + BT;
+    float* dl_s = l_s + BT;
 
     const int t0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -239,60 +256,75 @@ train_bwd_dq_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot,
     const E* v_b = v + (size_t)b * T * hs + (size_t)h * DH;
     const E* do_b = d_out + (size_t)b * T * hs + (size_t)h * DH;
 
-    load_cat_tile<E>(Qs, L.ldk, qu_b, hs, DH, qr_b, rs, D, t0, T, BT, warp, NW, lane);
-    load_cat_tile<E>(dOs, L.ldv, do_b, hs, DH, do_b, hs, 0, t0, T, BT, warp, NW, lane);
+    load_cat_cols<E>(Qs, L.ldq, qu_b, hs, DH, qr_b, rs, 0, kd, t0, T, BT, warp, NW, lane);
+    load_cat_cols<E>(dOs, L.ldv, do_b, hs, DH, do_b, hs, 0, DH, t0, T, BT, warp, NW, lane);
     for (int i = threadIdx.x; i < BT * kd; i += NW * 32) Acc[(i / kd) * L.lda + i % kd] = 0.0f;
-
-    float m[16], l[16], delta[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-        const int t = t0 + wr + i;
-        const size_t at = ((size_t)b * H + h) * T + min(t, T - 1);
-        m[i] = stats[at];
-        l[i] = stats[(size_t)B * H * T + at];
-        delta[i] = 0.0f;
+    for (int r = threadIdx.x; r < BT; r += NW * 32) {
+        const size_t at = ((size_t)b * H + h) * T + min(t0 + r, T - 1);
+        m_s[r] = stats[at];
+        l_s[r] = stats[(size_t)B * H * T + at];
+        dl_s[r] = 0.0f;
     }
     const uint32_t key = dropout_key(drop.seed, drop.row0 + b, h, H);
 
     for (int pass = 0; pass < 2; ++pass) {
         for (int s0 = 0; s0 < n_keys; s0 += BT) {
-            __syncthreads();
-            load_cat_tile<E>(Ks, L.ldk, k_b, hs, DH, k_std, (size_t)D, D, s0, T, BT, warp, NW, lane);
-            load_cat_tile<E>(Vs, L.ldv, v_b, hs, DH, v_b, hs, 0, s0, T, BT, warp, NW, lane);
-            __syncthreads();
-            warp_mm<false, true, false>(Ss + wr * L.lds, L.lds, Qs + (size_t)wr * L.ldk, L.ldk,
-                                        Ks, L.ldk, kd, BT / 16);
+            __syncthreads();  // the previous key tile's products are done
+            load_cat_cols<E>(Vs, L.ldv, v_b, hs, DH, v_b, hs, 0, DH, s0, T, BT, warp, NW, lane);
+            // S over the chunks of [k | k_std], in column order
+            for (int c0 = 0; c0 < kd; c0 += KC) {
+                const int w = min(KC, kd - c0);
+                if (c0 > 0) __syncthreads();  // every warp is done with the last chunk
+                load_cat_cols<E>(Kc, L.ldkc, k_b, hs, DH, k_std, (size_t)D, c0, w, s0, T, BT, warp, NW, lane);
+                __syncthreads();
+                if (c0 == 0)
+                    warp_mm<false, true, false>(Ss + wr * L.lds, L.lds, Qs + (size_t)wr * L.ldq, L.ldq, Kc,
+                                                L.ldkc, w, BT / 16);
+                else
+                    warp_mm<false, true, true>(Ss + wr * L.lds, L.lds, Qs + (size_t)wr * L.ldq + c0, L.ldq,
+                                               Kc, L.ldkc, w, BT / 16);
+            }
             warp_mm<false, true, false>(Ds + wr * L.lds, L.lds, dOs + (size_t)wr * L.ldv, L.ldv,
                                         Vs, L.ldv, DH, BT / 16);
 #pragma unroll
             for (int i = 0; i < 16; ++i) {
                 const int r = wr + i, t = t0 + r;
+                const float m = m_s[r], l = l_s[r], delta = dl_s[r];
                 float part = 0.0f;
                 for (int c = lane; c < BT; c += 32) {
                     const int s = s0 + c;
                     const float x = masked_score(Ss[r * L.lds + c], scale, s, len, T);
-                    const float p = expf(x - m[i]) / l[i];
+                    const float p = expf(x - m) / l;
                     float dp = Ds[r * L.lds + c];
                     if (drop.enabled)
                         dp = dropout_keep(key, t, s, T, drop.thresh) ? dp * drop.inv_keep : 0.0f;
                     if (pass == 0)
                         part += p * dp;
                     else
-                        dSs[r * L.ldp + c] = from_float<E>(p * (dp - delta[i]) * scale);
+                        dSs[r * L.ldp + c] = from_float<E>(p * (dp - delta) * scale);
                 }
-                if (pass == 0) delta[i] += warp_sum(part);
+                if (pass == 0) {
+                    part = warp_sum(part);
+                    if (lane == 0) dl_s[r] = delta + part;
+                }
             }
             if (pass == 1) {
-                __syncwarp();
-                warp_mm<false, false, true>(Acc + (size_t)wr * L.lda, L.lda,
-                                            dSs + (size_t)wr * L.ldp, L.ldp, Ks, L.ldk, BT, kd / 16);
+                // [dq_u | dq_rot] += dS [k | k_std], chunk by chunk
+                for (int c0 = 0; c0 < kd; c0 += KC) {
+                    const int w = min(KC, kd - c0);
+                    __syncthreads();  // every warp is done with the chunk in the buffer
+                    load_cat_cols<E>(Kc, L.ldkc, k_b, hs, DH, k_std, (size_t)D, c0, w, s0, T, BT, warp, NW,
+                                     lane);
+                    __syncthreads();
+                    warp_mm<false, false, true>(Acc + (size_t)wr * L.lda + c0, L.lda, dSs + (size_t)wr * L.ldp,
+                                                L.ldp, Kc, L.ldkc, BT, w / 16);
+                }
             }
         }
         if (pass == 0 && lane == 0) {
-#pragma unroll
             for (int i = 0; i < 16; ++i) {
                 const int t = t0 + wr + i;
-                if (t < T) delta_out[((size_t)b * H + h) * T + t] = delta[i];
+                if (t < T) delta_out[((size_t)b * H + h) * T + t] = dl_s[wr + i];
             }
         }
     }
@@ -385,8 +417,8 @@ train_bwd_dkv_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot,
     const E* v_b = v + (size_t)b * T * hs + (size_t)h * DH;
     const E* do_b = d_out + (size_t)b * T * hs + (size_t)h * DH;
 
-    load_cat_tile<E>(Ks, L.ldk, k_b, hs, DH, k_std, (size_t)D, D, s0, T, BT, warp, NW, lane);
-    load_cat_tile<E>(Vs, L.ldv, v_b, hs, DH, v_b, hs, 0, s0, T, BT, warp, NW, lane);
+    load_cat_cols<E>(Ks, L.ldk, k_b, hs, DH, k_std, (size_t)D, 0, kd, s0, T, BT, warp, NW, lane);
+    load_cat_cols<E>(Vs, L.ldv, v_b, hs, DH, v_b, hs, 0, DH, s0, T, BT, warp, NW, lane);
     for (int i = threadIdx.x; i < BT * DH; i += NW * 32) {
         AccV[(i / DH) * L.lda + i % DH] = 0.0f;
         AccK[(i / DH) * L.lda + i % DH] = 0.0f;
@@ -396,8 +428,8 @@ train_bwd_dkv_kernel(const E* __restrict__ q_u, const E* __restrict__ q_rot,
 
     for (int t0 = 0; t0 < T; t0 += BT) {
         __syncthreads();  // the previous query tile's products are done
-        load_cat_tile<E>(Qs, L.ldk, qu_b, hs, DH, qr_b, rs, D, t0, T, BT, warp, NW, lane);
-        load_cat_tile<E>(dOs, L.ldv, do_b, hs, DH, do_b, hs, 0, t0, T, BT, warp, NW, lane);
+        load_cat_cols<E>(Qs, L.ldk, qu_b, hs, DH, qr_b, rs, 0, kd, t0, T, BT, warp, NW, lane);
+        load_cat_cols<E>(dOs, L.ldv, do_b, hs, DH, do_b, hs, 0, DH, t0, T, BT, warp, NW, lane);
         for (int r = threadIdx.x; r < BT; r += NW * 32) {
             const int t = t0 + r;
             const size_t at = ((size_t)b * H + h) * T + min(t, T - 1);

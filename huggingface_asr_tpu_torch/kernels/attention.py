@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from huggingface_asr_tpu_torch.kernels import _build
 
 HEAD_WIDTHS = (32, 64)  # the head widths every attention kernel is compiled for
-ROT_MAX = 512  # the widest bf16 q_rot the inference and training attention kernels hold resident
+ROT_MAX = 512  # the widest q_rot the inference and training attention kernels take
 
 
 def head_width(dh: int):

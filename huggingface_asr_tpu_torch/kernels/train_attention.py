@@ -14,9 +14,10 @@ passes (dq, then dk/dv; bf16: ``csrc/rel_attention_train_bwd.cu``, fp32:
 do not take raises. Gradients exist for q_u, q_rot, k and v only.
 
 The kernels are compiled for heads of 32 and 64 columns and read q_rot and
-k_std in whole 64-column (bf16, up to 512) or 16-column (fp32, up to 256)
-tiles. Where the bf16 dq kernel's ``[dq_u | dq_rot]`` accumulator passes its
-registers (head width + q_rot width > ``ACC_COLUMNS``), the backward is
+k_std in whole 64-column (bf16) or 16-column (fp32) tiles, up to 512 columns
+in both (the fp32 dq pass takes ``[k | k_std]`` in column chunks). Where the
+bf16 dq kernel's ``[dq_u | dq_rot]`` accumulator passes its registers (head
+width + q_rot width > ``ACC_COLUMNS``), the backward is
 ``asr_rel_attention_train_bwd_wide``: it writes dS (bf16, the rounding the
 products read) beside dq_u, dk and dv, and ``dq_rot = dS k_std`` is one call
 of the GEMM kernel (``kernels/layer.py::gemm``). The Function pads
@@ -144,20 +145,20 @@ def rel_attention_train_plain(q_u, q_rot, k, v, k_std, lengths, seed, dropout_ra
 
 
 ACC_COLUMNS = 288  # the bf16 dq kernel's [dq_u | dq_rot] accumulator, in registers
-MAX_ROT = {torch.bfloat16: ROT_MAX, torch.float32: 256}  # the widest q_rot the kernels hold resident
+ROT_STEP = {torch.bfloat16: 64, torch.float32: 16}  # the kernels' q_rot tile width, by dtype
 
 
 def padded_widths(dh: int, D: int, dtype: torch.dtype):
     """(head width, q_rot width) the kernels run ``(dh, D)`` at in ``dtype``,
     or None where they do not take it: a head of at most 64 columns, q_rot in
-    whole tiles of 64 (bf16) or 16 (fp32) columns, at most 512 (bf16) or 256
-    (fp32) of them."""
+    whole tiles of 64 (bf16) or 16 (fp32) columns, at most ``ROT_MAX`` (512)
+    of them."""
     hw = head_width(dh)
-    if dtype not in MAX_ROT or hw is None:
+    if dtype not in ROT_STEP or hw is None:
         return None
-    step = 64 if dtype == torch.bfloat16 else 16
+    step = ROT_STEP[dtype]
     d_rot = -(-D // step) * step
-    return (hw, d_rot) if d_rot <= MAX_ROT[dtype] else None
+    return (hw, d_rot) if d_rot <= ROT_MAX else None
 
 
 def wide_backward(hw: int, d_rot: int, dtype: torch.dtype) -> bool:
@@ -175,9 +176,8 @@ def _check_inputs(q_u, q_rot, k, v, k_std, lengths):
     dtype = q_u.dtype
     widths = padded_widths(dh, D, dtype)
     if widths is None:
-        raise ValueError(f"rel_attention_train kernels need bf16 or fp32 inputs, dh <= 64 and D <= "
-                         f"{MAX_ROT[torch.bfloat16]} in bf16, {MAX_ROT[torch.float32]} in fp32, got dh={dh}, D={D}, "
-                         f"{dtype}; attention_impl='xla' selects the plain attention")
+        raise ValueError(f"rel_attention_train kernels need bf16 or fp32 inputs, dh <= 64 and D <= {ROT_MAX}, "
+                         f"got dh={dh}, D={D}, {dtype}; attention_impl='xla' selects the plain attention")
     _build.check(q_u, "q_u", dtype, (B, T, H, dh))
     _build.check(q_rot, "q_rot", dtype, (B, T, H, D))
     _build.check(k, "k", dtype, (B, T, H, dh))
@@ -259,9 +259,8 @@ def rel_attention_train(q_u, q_rot, k, v, k_std, lengths, seed, dropout_rate=0.0
     number the dropout hash gives batch row 0 (a data-parallel rank's first
     row of the global batch, so its masks are that batch's); returns
     (B, T, H, dh) in q_u's dtype. CUDA tensors run the kernels (dh <= 64,
-    D <= 512 in bf16 and 256 in fp32, each padded with zeros to what the
-    kernels are compiled for: ``padded_widths``), CPU tensors the plain
-    version."""
+    D <= 512, each padded with zeros to what the kernels are compiled for:
+    ``padded_widths``), CPU tensors the plain version."""
     seed, rate, row0 = int(seed), float(dropout_rate), int(row0)
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")

@@ -1,6 +1,6 @@
 """A/B of kernel source variants on one NVIDIA GPU.
 
-    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k1,k5,gemm,dwconv,mel,melbf16,geluserving,posq,conv1,cmvn,ln,trace,ptxas DIR_A [DIR_B ...]
+    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k4wide,yardsticks,k1,k5,gemm,dwconv,mel,melbf16,geluserving,posq,conv1,cmvn,ln,trace,ptxas DIR_A [DIR_B ...]
 
 Each DIR is a directory holding a full copy of ``huggingface_asr_tpu_torch/csrc``
 (the package's own directory is a valid DIR). Every variant is built and run in
@@ -15,7 +15,14 @@ times them with CUDA events (median of 5 windows of 20 calls). For ``k1`` and
 ``k5`` it also prints the host's time per launch (the wrapper call at a tiny
 shape, where the device never falls behind). ``k4bwd`` holds the four
 gradients of the bf16 training attention against the plain backward and times
-the backward alone; ``gemm`` holds the GEMM with each epilogue the layer and
+the backward alone; ``k4wide`` holds K4's forward and four gradients at head 64,
+T=250, rate 0.1, against the plain version and gives their device times: bf16 at
+q_rot 512, B=32 (the 512-wide config's step), fp32 at q_rot 256 (B=16) and 512
+(B=16 and 32; a tree whose fp32 kernels stop at 256 says it refuses them);
+``yardsticks`` gives two library device times that the tables lacked beside
+their kernels': SDPA at the flagship's rel_attention shape (B=8, T_pad=256,
+both profiles of the kernel) and ``F.linear`` at the 176-wide config's FF1-in
+(M = 2,048, K = 176, N = 704, the kernel with its GELU); ``gemm`` holds the GEMM with each epilogue the layer and
 the subsampler use (activation, residual, dual output, a column slice of a
 wider output, round-first at K=5120, a strided ``a``) against ``gemm_plain``
 at M = 56, 2,048 and 32,768 rows, checks that rows past M and the other half
@@ -75,6 +82,9 @@ K4_SHAPES = [  # (B, T, H, D, lengths or None for the smoke's ragged lengths, ra
     (4, 333, 8, 256, [333, 1, 0, 200], 0.1), (8, 500, 8, 256, None, 0.1), (32, 250, 8, 256, None, 0.1),
 ]
 K4BWD_SHAPES = [(3, 70, 2, 64, [70, 1, 0], 0.1)] + K4_SHAPES
+# (dtype, B, q_rot width) of ``k4wide``, at head 64, 8 heads, T=250: the 512-wide config's bf16 step, and fp32
+# at q_rot 256 and 512
+K4WIDE_CASES = [("bfloat16", 32, 512), ("float32", 16, 256), ("float32", 16, 512), ("float32", 32, 512)]
 K1_SHAPES = [  # (B, T_pad, H, D, lengths or None for the smoke's ragged lengths)
     (2, 64, 4, 128, [64, 0]), (3, 192, 4, 128, [187, 1, 0]), (2, 752, 8, 256, [752, 0]), (3, 752, 8, 256, [700, 1, 440]),
     (8, 56, 8, 256, None), (8, 256, 8, 256, None), (8, 512, 8, 256, None), (128, 256, 8, 256, None),
@@ -257,7 +267,9 @@ def run_variant(csrc: str, what: str) -> None:
         sys.exit("torch.cuda.is_available() is false")
     _build.CSRC = pathlib.Path(csrc).resolve()
     _build.library()
-    sources = {"conv2": "conv2", "k4": "train_fwd", "k4bwd": "train_bwd", "k1": "rel_attention.cu", "k5": "shift",
+    sources = {"conv2": "conv2", "k4": "train_fwd", "k4bwd": "train_bwd", "k4wide": "rel_attention_train",
+               "yardsticks": "layer.cu",
+               "k1": "rel_attention.cu", "k5": "shift",
                "gemm": "layer.cu", "dwconv": "dwconv", "mel": "mel.cu", "melbf16": "mel_bf16", "posq": "layer.cu",
                "geluserving": "layer.cu",
                "conv1": "subsample.cu", "cmvn": "mel.cu", "ln": "layer.cu", "trace": "dwconv", "ptxas": ""}
@@ -547,6 +559,72 @@ def run_variant(csrc: str, what: str) -> None:
                 errs.append(f"{name}={err:.2e}{'' if ok else ' FAIL'}")
             print(f"K4 bwd B={B} T={T} D={D} rate={rate} {' '.join(errs)} ms={timed(call):.4f} "
                   f"device_ms={device_ms(call):.4f}", flush=True)
+    if "k4wide" in what.split(","):
+        for dtype_name, B, D in K4WIDE_CASES:
+            dtype = getattr(torch, dtype_name)
+            gen = torch.Generator().manual_seed(B + D)
+            mk = lambda *s: torch.randn(*s, generator=gen).to(dtype).to(dev)  # noqa: E731
+            H, dh, T = 8, 64, 250
+            q_u, q_rot, k, v, k_std, cot = (mk(B, T, H, dh), mk(B, T, H, D) * 0.25, mk(B, T, H, dh), mk(B, T, H, dh),
+                                            mk(T, D), mk(B, T, H, dh))
+            lengths = torch.tensor(smoke_lengths(B, T), dtype=torch.int32, device=dev)
+            label = f"K4 {str(dtype).split('.')[-1]} dh={dh} D={D} B={B} T={T} rate=0.1"
+
+            def run(fn):
+                leaves = [t.clone().requires_grad_(True) for t in (q_u, q_rot, k, v)]
+                out = fn(*leaves, k_std, lengths, 77, 0.1)
+                return out, leaves
+
+            out, leaves = run(rel_attention_train)
+            bwd = lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)  # noqa: E731
+            fwd = lambda: rel_attention_train(q_u, q_rot, k, v, k_std, lengths, 77, 0.1)  # noqa: E731
+            try:
+                got = [out.detach()] + list(bwd())
+            except RuntimeError as e:  # a tree whose backward does not take this width
+                print(f"{label}: the backward refused by this tree ({str(e)[:120]})", flush=True)
+                continue
+            ref_out, ref_leaves = run(rel_attention_train_plain)
+            errs = []
+            att_tol = 2 ** -6 if dtype == torch.bfloat16 else 1e-4
+            for name, a, r in zip(("out", "dq_u", "dq_rot", "dk", "dv"), got,
+                                  [ref_out.detach()] + list(torch.autograd.grad(ref_out, ref_leaves, cot))):
+                err = float((a.float() - r.float()).abs().max())
+                ok = bool(torch.isfinite(a.float()).all()) and err <= att_tol * max(1.0, float(r.float().abs().max()))
+                errs.append(f"{name}={err:.2e}{'' if ok else ' FAIL'}")
+            del ref_out, ref_leaves
+            with torch.no_grad():
+                fwd_line = f"fwd ms={timed(fwd, 5):.4f} device_ms={device_ms(fwd, name='train_fwd_'):.4f}"
+            print(f"{label} {' '.join(errs)} {fwd_line} bwd ms={timed(bwd, 5):.4f} "
+                  f"device_ms={device_ms(bwd, name='train_bwd_'):.4f}", flush=True)
+            del out, leaves
+            torch.cuda.empty_cache()
+    if "yardsticks" in what.split(","):
+        import torch.nn.functional as F
+
+        from chip_smoke import sdpa_call
+
+        # rel_attention (flagship: 8 heads of 32, q_rot 256) at a B=8 x 10 s request, both profiles, beside SDPA
+        B, T, H, D = 8, 256, 8, 256
+        gen = torch.Generator().manual_seed(8)
+        mk = lambda *s: torch.randn(*s, generator=gen).bfloat16().to(dev)  # noqa: E731
+        q_u, k, v, q_rot, k_std = mk(B, T, H, 32), mk(B, T, H, 32), mk(B, T, H, 32), mk(B, T, H, D) * 0.25, mk(T, D)
+        lengths = torch.tensor([250 - 12 * i for i in range(B)], dtype=torch.int32, device=dev)
+        att = (q_u, k, v, q_rot, k_std, lengths)
+        lib = sdpa_call(q_u, q_rot, k, v, k_std, lengths, 1.0)[0]
+        with torch.no_grad():
+            print(f"rel_attention B={B} T_pad={T} device_ms serving="
+                  f"{device_ms(lambda: K1.rel_attention(*att, profile='serving')):.4f} "
+                  f"exact={device_ms(lambda: K1.rel_attention(*att)):.4f} sdpa_device_ms={device_ms(lib):.4f}",
+                  flush=True)
+        # the 176-wide config's FF1-in with its GELU (K = 176, N = 704) at M = 2,048, beside F.linear
+        M, K, N = 2048, 176, 704
+        a, w = mk(M, K), mk(K, N) * 0.1
+        bias = torch.randn(N, generator=gen).to(dev)
+        w_t, b16 = w.t().contiguous(), bias.bfloat16()
+        with torch.no_grad():
+            kernel_ms = device_ms(lambda: K1.gemm(a, w, bias, act="gelu"))
+            print(f"gemm ff1_in+gelu M={M} K={K} N={N} device_ms={kernel_ms:.4f} "
+                  f"linear_device_ms={device_ms(lambda: F.linear(a, w_t, b16)):.4f}", flush=True)
     if "k1" in what.split(","):
         for B, T, H, D, lens in K1_SHAPES:
             g = torch.Generator().manual_seed(T)

@@ -796,6 +796,37 @@ def test_train_attention_past_288_columns(B, T, H, DH, D, lens, rate):
             assert not bool(got[3][b, n:].any()) and not bool(got[4][b, n:].any())
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T,lens", [(250, [250, 1, 0, 167]), (333, [333, 1, 0, 200])])
+@pytest.mark.parametrize("DH,D", [(64, 512), (64, 464), (32, 512), (40, 312)])
+def test_train_attention_fp32_past_256_columns(DH, D, T, lens, rate):
+    """fp32 K4 forward and its four gradients past 256 columns of q_rot, where
+    the dq pass takes [k | k_std] in column chunks: the 512-wide config's
+    (64, 512), 464, a head of 32 at 512, and (40, 312), which the wrapper pads
+    to (64, 320); rows of length 1 and 0. fp32 tolerance as at 256."""
+    dev = _cuda()
+    B, H = len(lens), 4
+    g = torch.Generator().manual_seed(T + D + DH)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dev)  # noqa: E731
+    q_u, q_rot, k, v, k_std, cot = mk(B, T, H, DH), mk(B, T, H, D) * 0.25, mk(B, T, H, DH), mk(B, T, H, DH), \
+        mk(T, D), mk(B, T, H, DH)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q_u, q_rot, k, v)]
+        out = fn(*leaves, k_std, lengths, 77, rate)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, cot))
+
+    _build.reset_launch_counts()
+    got = run(rel_attention_train)
+    assert dict(_build.LAUNCHES) == {"asr_rel_attention_train_fwd": 1, "asr_rel_attention_train_bwd": 1}
+    for name, gt, r in zip(("out", "dq_u", "dq_rot", "dk", "dv"), got, run(rel_attention_train_plain)):
+        assert gt.dtype == torch.float32 and gt.shape == r.shape, name
+        _close(gt, r, ATT_TOL[torch.float32])
+    # a row of length 1 sends gradient to its first key only
+    assert not bool(got[3][1, 1:].any()) and not bool(got[4][1, 1:].any())
+
+
 @pytest.mark.parametrize("dtype,H,DH,D", [(torch.float32, 4, 32, 128), (torch.bfloat16, 4, 32, 128),
                                           (torch.bfloat16, 8, 64, 512)])
 def test_train_attention_row0_numbers_the_dropout_rows(dtype, H, DH, D):
@@ -932,9 +963,9 @@ def test_attention_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):  # q_rot past 512 columns (48 is padded to 64)
         rel_attention_train(z(1, 8, 2, 32), z(1, 8, 2, 576), z(1, 8, 2, 32), z(1, 8, 2, 32), z(8, 576),
                             lengths, 0, 0.0)
-    with pytest.raises(ValueError):  # fp32 q_rot past 256 columns
-        rel_attention_train(z(1, 8, 2, 32).float(), z(1, 8, 2, 320).float(), z(1, 8, 2, 32).float(),
-                            z(1, 8, 2, 32).float(), z(8, 320).float(), lengths, 0, 0.0)
+    with pytest.raises(ValueError):  # fp32 q_rot past 512 columns
+        rel_attention_train(z(1, 8, 2, 32).float(), z(1, 8, 2, 528).float(), z(1, 8, 2, 32).float(),
+                            z(1, 8, 2, 32).float(), z(8, 528).float(), lengths, 0, 0.0)
     with pytest.raises(ValueError):  # the shift form: a head past 64 columns
         rel_attention(z(1, 8, 2, 96), z(1, 8, 2, 96), z(1, 8, 2, 96), z(1, 8, 2, 96), z(15, 2, 96), lengths)
     with pytest.raises(ValueError):  # lengths on the CPU

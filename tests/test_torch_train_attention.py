@@ -165,12 +165,12 @@ def test_bad_rate_raises():
 
 
 @pytest.mark.parametrize("dh,D,dtype", [(64, 576, torch.bfloat16), (32, 520, torch.bfloat16),
-                                        (32, 272, torch.float32), (32, 256, torch.float16),
+                                        (32, 528, torch.float32), (32, 256, torch.float16),
                                         (96, 64, torch.bfloat16)])
 def test_kernel_gate_raises_and_names_the_way_out(dh, D, dtype):
     """What the CUDA kernels do not take raises (nothing falls back to the
     plain version), and the message names ``attention_impl='xla'``: a head
-    past 64 columns, q_rot past 512 (bf16) or 256 (fp32) once padded to whole
+    past 64 columns, q_rot past 512 (bf16 and fp32) once padded to whole
     tiles, a dtype other than bf16 and fp32. (The wrapper pads D to whole
     tiles, so D = 40 in fp32 and 48 in bf16 run; in bf16 a head and q_rot
     wider together than the dq kernel's 288-column accumulator, as 64 + 256,
