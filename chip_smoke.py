@@ -51,7 +51,8 @@
    kernel's keep-mask is the plain version's bit for bit (rows numbered from
    0, and from 3 as a data-parallel rank's), then holds them
    against their plain versions once more and times them at the training
-   path's shape (B=32, T=250, bf16, rate 0.1);
+   path's shape (B=32, T=250, bf16, rate 0.1), and K4 again there in fp32
+   beside SDPA in fp32 (TF32 off);
 7. trains the flagship model (attention_impl="pallas", bf16 over fp32
    parameters, attention_dropout 0.1, SpecAugment on) for 6 steps on seeded
    synthetic speech (B=32 of 9.3-10 s) through collator -> prefetch ->
@@ -152,10 +153,12 @@
    the trained weights with "pallas" (17 K5 launches, fp32); then
    ``train_ctc.run --from_pretrained`` of that ``final/`` in fp32, 2 steps,
    each applied with 17 K4 forward and 17 backward launches; each step's
-   host-clock time and the runs' peak memory printed. The JSON line gains
-   the fp32 rows (``rel_attention_train_{fwd,bwd}_q512_fp32`` at B=16 and
-   ``_b32``, ``rel_attention_shift_dh64_fp32``) with the BEST-RQ run's
-   launches and ``fp32_finetune_launches``.
+   host-clock time, K4's device time in a BEST-RQ step (profiler) and the
+   runs' peak memory printed. The JSON line gains the fp32 rows
+   (``rel_attention_train_{fwd,bwd}_fp32`` at the flagship's shape, step 6,
+   ``rel_attention_train_{fwd,bwd}_q512_fp32`` at B=16 and ``_b32``,
+   ``rel_attention_shift_dh64_fp32``) with the BEST-RQ run's launches and
+   ``fp32_finetune_launches``.
 14. right after step 11, trains that joint model (configs/decred_base.json at
    full width, vocabulary 500) from the Flax-matching initialiser through
    ``cli/train_aed.py::run`` (in-memory corpus rows of seeded synthetic speech
@@ -1286,6 +1289,11 @@ def fp32_wide_phase(dev, smi, steps: int = 3, ft_steps: int = 2) -> tuple:
     if gaps["loss"] > 1e-4 or gaps["grad_norm"] > 1e-3:
         _fail("fp32 BEST-RQ step 1 with the attention kernels disagrees with the plain-attention step")
     del twin
+    # K4's share of a step's device time: two more steps with the kernels under the profiler
+    per_kernel = device_kernel_ms(lambda: p_out["trainer"].train_step(p_out["state"], seen[0][0]), 2)
+    k4_ms = sum(v for k, v in per_kernel.items() if "train_fwd_" in k or "train_bwd_" in k)
+    print(f"  fp32 BEST-RQ step under the profiler: device {sum(per_kernel.values()):.1f} ms a step, of it K4 "
+          f"{k4_ms:.2f} ms ({n_l} forward and {n_l} backward launches)", flush=True)
 
     # one evaluation batch of the trained weights with "pallas": K5 in fp32 at dh 64
     with open(os.path.join(work, "model_pallas.json"), "w") as f:
@@ -3957,6 +3965,34 @@ def main() -> None:
                (2.0 * H * Tt * keys * 3 * dh, 5 * small + nbytes(t["pos"]), "bf16"), timed(lib_fwd, 20))
     del t, lib_fwd, lib_make_bwd
     torch.cuda.empty_cache()
+    # The same at the flagship's fp32 training shape (--dtype float32: the fp32 kernels of
+    # rel_attention_train.cu), beside SDPA in fp32 with TF32 off.
+    print("-- the training attention (K4) at the training path's shape in fp32: B=32, T=250, rate 0.1", flush=True)
+    t = attention_inputs(Bt, Tt, torch.float32, seed=2)
+    got = train_attention_run(rel_attention_train, t, 77, 0.1)
+    ref = train_attention_run(rel_attention_train_plain, t, 77, 0.1)
+    (err_fwd, ok_fwd), (err_bwd, ok_bwd) = (worst(got[sl], ref[sl], att_tol[torch.float32])
+                                            for sl in (slice(0, 1), slice(1, 5)))
+    del got, ref
+    keys = float(torch.where(t["lengths"] > 0, t["lengths"], Tt).sum())
+    small, big = nbytes(t["q_u"]), nbytes(t["q_rot"])
+    lib_fwd, lib_make_bwd = sdpa_call(t["q_u"], t["q_rot"], t["k"], t["v"], t["k_std"], t["lengths"], scale)
+    with torch.no_grad():
+        record("K4 fwd fp32", "rel_attention_train_fwd_fp32", err_fwd, ok_fwd,
+               timed(fwd(rel_attention_train), 20), timed(fwd(rel_attention_train_plain), 5),
+               (2.0 * H * Tt * keys * (dh + D + dh), 4 * small + big + nbytes(t["k_std"]) + 8 * Bt * H * Tt, "fp32"),
+               timed(lib_fwd, 20))
+    record("K4 bwd fp32", "rel_attention_train_bwd_fp32", err_bwd, ok_bwd,
+           timed(backward_call(rel_attention_train), 20), timed(backward_call(rel_attention_train_plain), 5),
+           (2.0 * H * Tt * keys * ((dh + D) + 4 * dh + D), 7 * small + 2 * big + nbytes(t["k_std"]) + 8 * Bt * H * Tt,
+            "fp32"),
+           timed(lib_make_bwd(), 20))
+    for name, fn_, lib_ in (("K4 fwd fp32", fwd(rel_attention_train), lib_fwd),
+                            ("K4 bwd fp32", backward_call(rel_attention_train), lib_make_bwd())):
+        print(f"  {name} B={Bt} T={Tt} device ms under the profiler: the attention kernels "
+              f"{device_ms(fn_, name='train_'):.4f}, SDPA fp32 {device_ms(lib_):.4f}", flush=True)
+    del t, lib_fwd, lib_make_bwd
+    torch.cuda.empty_cache()
 
     # ---- the training path at full width
     print("-- training path: flagship model, B=32 x 9.3-10 s, bf16, attention_dropout 0.1", flush=True)
@@ -4673,11 +4709,12 @@ def main() -> None:
         "rel_attention_train_bwd_q512": routes["rel_attention_train_bwd"],
         "rel_attention_shift_dh64": routes["rel_attention_shift"],
     }
-    # the fp32 kernels at (dh 64, q_rot 512): launches from the fp32 BEST-RQ run (3 steps and its "pallas"
-    # evaluation batch); the fine-tune's under "fp32_finetune_launches"
+    # the fp32 kernels (at the flagship's shape and at (dh 64, q_rot 512)): launches from the fp32 BEST-RQ run
+    # (3 steps and its "pallas" evaluation batch); the fine-tune's under "fp32_finetune_launches"
     fp32_fwd, fp32_bwd = ((routes[k][0], "csrc/rel_attention_train.cu", routes[k][2])
                           for k in ("rel_attention_train_fwd", "rel_attention_train_bwd"))
     fp32_routes = {
+        "rel_attention_train_fwd_fp32": fp32_fwd, "rel_attention_train_bwd_fp32": fp32_bwd,
         "rel_attention_train_fwd_q512_fp32": fp32_fwd, "rel_attention_train_bwd_q512_fp32": fp32_bwd,
         "rel_attention_shift_dh64_fp32": ("asr_rel_attention_shift", "csrc/rel_attention_shift.cu",
                                           routes["rel_attention_shift"][2]),

@@ -1,15 +1,15 @@
-// Shared device helpers of the training attention kernels
-// (rel_attention_train.cu) and the shift-form inference attention kernel
-// (rel_attention_shift.cu); the mask, the visited keys and the dropout hash
-// also serve the kernels on wgmma (attention_wgmma.cuh).
+// Shared device helpers of the attention kernels: the mask, the visited keys
+// and the dropout hash serve them all (the fp32 training kernels of
+// rel_attention_train.cu, the shift-form inference kernel of
+// rel_attention_shift.cu and the kernels on wgmma, attention_wgmma.cuh);
+// Tile, copy_row and warp_mm serve the fp32 shift-form kernel.
 //
 // One template parameter E is the element type of the inputs and outputs of
-// the kernels that are not on wgmma. Only float is instantiated today (tile
-// products as exact fp32 FMA loops, the slow path that holds the kernels'
-// logic to the plain version at fp32 tolerance); bf16 runs the wgmma kernels.
+// the shift-form kernel that is not on wgmma. Only float is instantiated
+// today (tile products as exact fp32 FMA loops); bf16 runs the wgmma kernels.
 // Everything between the products (scores, softmax, dropout, dS) is fp32.
 //
-// Tiles: a block owns TILE<E> query rows (or key rows), one warp per 16
+// Tiles (warp_mm's kernels): a block owns TILE<E> query rows, one warp per 16
 // rows, and walks the other direction in tiles of the same size. Rows past
 // the sequence end are zero-filled on load and masked on store, so any
 // sequence length runs.

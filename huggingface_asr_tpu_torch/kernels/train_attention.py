@@ -7,15 +7,22 @@
 
 ``rel_attention_train`` is a ``torch.autograd.Function``: on CUDA tensors its
 forward launches the forward kernel (bf16: ``csrc/rel_attention_train_fwd.cu``,
-fp32: ``csrc/rel_attention_train.cu``) and its backward the two backward
-passes (dq, then dk/dv; bf16: ``csrc/rel_attention_train_bwd.cu``, fp32:
-``csrc/rel_attention_train.cu``); on CPU tensors it runs
+fp32: ``csrc/rel_attention_train.cu``) and its backward the backward kernels
+(bf16: ``csrc/rel_attention_train_bwd.cu``, dq then dk/dv; fp32:
+``csrc/rel_attention_train.cu``, delta, dk/dv, then dq); on CPU tensors it runs
 ``rel_attention_train_plain``. Nothing falls back: a CUDA tensor the kernels
 do not take raises. Gradients exist for q_u, q_rot, k and v only.
 
 The kernels are compiled for heads of 32 and 64 columns and read q_rot and
 k_std in whole 64-column (bf16) or 16-column (fp32) tiles, up to 512 columns
-in both (the fp32 dq pass takes ``[k | k_std]`` in column chunks). Where the
+in both. The fp32 kernels are register-tiled FFMA products that stream
+``[q_u | q_rot]`` and ``[k | k_std]`` through rings of column chunks in
+shared memory: the forward walks the keys once (online softmax), and the
+backward forms S
+once, in its dk/dv kernel, which writes dS (fp32) to a (B, H, T, ld)
+scratch that the dq kernel multiplies by ``[k | k_std]``; its delta is
+``rowsum(dO * out)`` (``delta_plain``), so the Function keeps the forward's
+output for fp32. Where the
 bf16 dq kernel's ``[dq_u | dq_rot]`` accumulator passes its registers (head
 width + q_rot width > ``ACC_COLUMNS``), the backward is
 ``asr_rel_attention_train_bwd_wide``: it writes dS (bf16, the rounding the
@@ -36,7 +43,11 @@ The plain version is itself an explicit forward/backward pair with the TPU
 kernel's rounding points (P rounded before the dropout scale, dv from the
 dropped P, ``rowsum(dP * P)`` over the fp32 P, dS rounded before its three
 products), so that it says what the kernels compute in bf16 too; in fp32 it
-equals autograd of the naive formula.
+equals autograd of the naive formula. The fp32 kernels take delta as
+``rowsum(dO * out)``: with ``Pd = keep * P * inv_keep`` and ``dP = keep *
+(dO v^T) * inv_keep``, ``rowsum(dP * P) = dO . sum_s Pd_s v_s = dO . out``,
+the same value up to fp32 rounding (in bf16 out is built from the rounded P,
+and the two differ).
 """
 
 from __future__ import annotations
@@ -138,6 +149,12 @@ class _PlainFunction(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+def delta_plain(out: torch.Tensor, d_out: torch.Tensor) -> torch.Tensor:
+    """Plain version of the fp32 backward's delta kernel: ``rowsum(dO * out)``
+    over the head's columns, (B, T, H, dh) -> (B, H, T) fp32."""
+    return (d_out.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
 def rel_attention_train_plain(q_u, q_rot, k, v, k_std, lengths, seed, dropout_rate=0.0, row0=0):
     """Plain PyTorch version of ``rel_attention_train``, on any device,
     differentiable in q_u, q_rot, k and v."""
@@ -211,12 +228,13 @@ class _KernelFunction(torch.autograd.Function):
                       q_u.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(),
                       k_std.data_ptr(), lengths.data_ptr(), out.data_ptr(), stats.data_ptr(),
                       *ctx.tail)
-        ctx.save_for_backward(q_u, q_rot, k, v, k_std, lengths, stats)
+        # the fp32 backward's delta reads the forward's output
+        ctx.save_for_backward(q_u, q_rot, k, v, k_std, lengths, stats, *([out] if q_u.dtype == torch.float32 else []))
         return out[..., :dh]
 
     @staticmethod
     def backward(ctx, d_out):
-        q_u, q_rot, k, v, k_std, lengths, stats = ctx.saved_tensors
+        q_u, q_rot, k, v, k_std, lengths, stats = ctx.saved_tensors[:7]
         B, T, H = ctx.tail[:3]
         dh, D = ctx.widths
         d_out = d_out.contiguous()
@@ -226,7 +244,18 @@ class _KernelFunction(torch.autograd.Function):
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         delta = torch.empty(B, H, T, dtype=torch.float32, device=q_u.device)
         hw, d_rot = ctx.tail[3:5]
-        if wide_backward(hw, d_rot, q_u.dtype):
+        if q_u.dtype == torch.float32:
+            # dS (B, H, T, ld): the dk/dv kernel writes every visited key tile whole (zeros past the
+            # visited keys), the dq kernel reads no further, so the scratch needs no zeroing
+            ld = -(-T // 64) * 64
+            ds = torch.empty(B, H, T, ld, dtype=torch.float32, device=q_u.device)
+            out = ctx.saved_tensors[7]
+            _build.launch("asr_rel_attention_train_bwd_fp32", "pppppppppppppppiiiiiifuufii",
+                          q_u.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(), k_std.data_ptr(),
+                          lengths.data_ptr(), out.data_ptr(), d_out.data_ptr(), stats.data_ptr(),
+                          delta.data_ptr(), ds.data_ptr(), dq_u.data_ptr(), dq_rot.data_ptr(), dk.data_ptr(),
+                          dv.data_ptr(), B, T, H, hw, d_rot, ld, *ctx.tail[6:], label="asr_rel_attention_train_bwd")
+        elif wide_backward(hw, d_rot, q_u.dtype):
             from huggingface_asr_tpu_torch.kernels.layer import gemm  # (layer.py imports the model, which imports this)
 
             # dS (B, T, H, ld) with zeros past the visited keys, then

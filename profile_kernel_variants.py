@@ -15,10 +15,14 @@ times them with CUDA events (median of 5 windows of 20 calls). For ``k1`` and
 ``k5`` it also prints the host's time per launch (the wrapper call at a tiny
 shape, where the device never falls behind). ``k4bwd`` holds the four
 gradients of the bf16 training attention against the plain backward and times
-the backward alone; ``k4wide`` holds K4's forward and four gradients at head 64,
-T=250, rate 0.1, against the plain version and gives their device times: bf16 at
-q_rot 512, B=32 (the 512-wide config's step), fp32 at q_rot 256 (B=16) and 512
-(B=16 and 32; a tree whose fp32 kernels stop at 256 says it refuses them);
+the backward alone; ``k4wide`` holds K4's forward and four gradients at 8 heads,
+T=250, rate 0.1, against the plain version and gives their device times beside
+their bounds and SDPA's in the same type (TF32 off), the backward's also by
+kernel: bf16 at head 64, q_rot 512,
+B=32 (the 512-wide config's step), fp32 at head 64, q_rot 256 (B=16) and 512
+(B=16 and 32), and the flagship's fp32 step (head 32, q_rot 256, B=32); a tree
+whose fp32 kernels stop at 256 says it refuses them, and a tree from before the
+fp32 redesign runs its own backward entry (``legacy_fp32_backward``);
 ``yardsticks`` gives two library device times that the tables lacked beside
 their kernels': SDPA at the flagship's rel_attention shape (B=8, T_pad=256,
 both profiles of the kernel) and ``F.linear`` at the 176-wide config's FF1-in
@@ -66,6 +70,7 @@ from __future__ import annotations
 
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -82,9 +87,10 @@ K4_SHAPES = [  # (B, T, H, D, lengths or None for the smoke's ragged lengths, ra
     (4, 333, 8, 256, [333, 1, 0, 200], 0.1), (8, 500, 8, 256, None, 0.1), (32, 250, 8, 256, None, 0.1),
 ]
 K4BWD_SHAPES = [(3, 70, 2, 64, [70, 1, 0], 0.1)] + K4_SHAPES
-# (dtype, B, q_rot width) of ``k4wide``, at head 64, 8 heads, T=250: the 512-wide config's bf16 step, and fp32
-# at q_rot 256 and 512
-K4WIDE_CASES = [("bfloat16", 32, 512), ("float32", 16, 256), ("float32", 16, 512), ("float32", 32, 512)]
+# (dtype, B, head width, q_rot width) of ``k4wide``, 8 heads, T=250: the 512-wide config's bf16 step, fp32 at
+# head 64 and q_rot 256 and 512, and the flagship's fp32 step (head 32, q_rot 256, B=32)
+K4WIDE_CASES = [("bfloat16", 32, 64, 512), ("float32", 16, 64, 256), ("float32", 16, 64, 512),
+                ("float32", 32, 64, 512), ("float32", 32, 32, 256)]
 K1_SHAPES = [  # (B, T_pad, H, D, lengths or None for the smoke's ragged lengths)
     (2, 64, 4, 128, [64, 0]), (3, 192, 4, 128, [187, 1, 0]), (2, 752, 8, 256, [752, 0]), (3, 752, 8, 256, [700, 1, 440]),
     (8, 56, 8, 256, None), (8, 256, 8, 256, None), (8, 512, 8, 256, None), (128, 256, 8, 256, None),
@@ -252,6 +258,34 @@ def geluserving_variant(dev) -> None:
         print("; ".join(line), flush=True)
         del y1
         torch.cuda.empty_cache()
+
+
+def legacy_fp32_backward(TA) -> None:
+    """Give ``TA._KernelFunction`` (``kernels/train_attention.py``) the fp32
+    backward of a tree from before the fp32 kernels' redesign: one entry,
+    ``asr_rel_attention_train_bwd``, with a delta scratch and no dS, so that
+    ``k4wide`` can A/B such a tree's ``csrc/`` under this tree's wrapper."""
+    import torch
+
+    from huggingface_asr_tpu_torch.kernels import _build
+
+    backward = TA._KernelFunction.backward
+
+    def patched(ctx, d_out):
+        q_u, q_rot, k, v, k_std, lengths, stats = ctx.saved_tensors[:7]
+        if q_u.dtype != torch.float32:
+            return backward(ctx, d_out)
+        (B, T, H), (dh, D) = ctx.tail[:3], ctx.widths
+        d_out = TA._pad_last(d_out.contiguous(), q_u.shape[-1])
+        dq_u, dq_rot, dk, dv = (torch.empty_like(t) for t in (q_u, q_rot, k, v))
+        delta = torch.empty(B, H, T, dtype=torch.float32, device=q_u.device)
+        _build.launch("asr_rel_attention_train_bwd", "pppppppppppppiiiiiifuufii",
+                      q_u.data_ptr(), q_rot.data_ptr(), k.data_ptr(), v.data_ptr(), k_std.data_ptr(),
+                      lengths.data_ptr(), d_out.data_ptr(), stats.data_ptr(), delta.data_ptr(), dq_u.data_ptr(),
+                      dq_rot.data_ptr(), dk.data_ptr(), dv.data_ptr(), *ctx.tail)
+        return dq_u[..., :dh], dq_rot[..., :D], dk[..., :dh], dv[..., :dh], None, None, None, None, None
+
+    TA._KernelFunction.backward = staticmethod(patched)
 
 
 def run_variant(csrc: str, what: str) -> None:
@@ -560,15 +594,22 @@ def run_variant(csrc: str, what: str) -> None:
             print(f"K4 bwd B={B} T={T} D={D} rate={rate} {' '.join(errs)} ms={timed(call):.4f} "
                   f"device_ms={device_ms(call):.4f}", flush=True)
     if "k4wide" in what.split(","):
-        for dtype_name, B, D in K4WIDE_CASES:
+        from chip_smoke import bound, device_kernel_ms, nbytes, sdpa_call
+        from huggingface_asr_tpu_torch.kernels import train_attention as TA
+
+        if "asr_rel_attention_train_bwd_fp32" not in (pathlib.Path(csrc) / "rel_attention_train.cu").read_text():
+            legacy_fp32_backward(TA)
+        for dtype_name, B, dh, D in K4WIDE_CASES:
             dtype = getattr(torch, dtype_name)
             gen = torch.Generator().manual_seed(B + D)
             mk = lambda *s: torch.randn(*s, generator=gen).to(dtype).to(dev)  # noqa: E731
-            H, dh, T = 8, 64, 250
+            H, T = 8, 250
             q_u, q_rot, k, v, k_std, cot = (mk(B, T, H, dh), mk(B, T, H, D) * 0.25, mk(B, T, H, dh), mk(B, T, H, dh),
                                             mk(T, D), mk(B, T, H, dh))
-            lengths = torch.tensor(smoke_lengths(B, T), dtype=torch.int32, device=dev)
-            label = f"K4 {str(dtype).split('.')[-1]} dh={dh} D={D} B={B} T={T} rate=0.1"
+            lens = smoke_lengths(B, T)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+            label = f"K4 {kind} dh={dh} D={D} B={B} T={T} rate=0.1"
 
             def run(fn):
                 leaves = [t.clone().requires_grad_(True) for t in (q_u, q_rot, k, v)]
@@ -592,11 +633,22 @@ def run_variant(csrc: str, what: str) -> None:
                 ok = bool(torch.isfinite(a.float()).all()) and err <= att_tol * max(1.0, float(r.float().abs().max()))
                 errs.append(f"{name}={err:.2e}{'' if ok else ' FAIL'}")
             del ref_out, ref_leaves
+            # bounds as chip_smoke.py counts them: the visited keys' products, each operand and result once
+            n_keys = float(sum(n if n > 0 else T for n in lens))
+            small, big, rest = nbytes(q_u), nbytes(q_rot), nbytes(k_std) + 8 * B * H * T
+            fwd_bound = bound(2.0 * H * T * n_keys * (2 * dh + D), 4 * small + big + rest, kind)[0]
+            bwd_bound = bound(2.0 * H * T * n_keys * (5 * dh + 2 * D), 7 * small + 2 * big + rest, kind)[0]
+            lib_fwd, lib_make_bwd = sdpa_call(q_u, q_rot, k, v, k_std, lengths, 1.0 / float(np.sqrt(dh)))
             with torch.no_grad():
-                fwd_line = f"fwd ms={timed(fwd, 5):.4f} device_ms={device_ms(fwd, name='train_fwd_'):.4f}"
+                fwd_line = (f"fwd ms={timed(fwd, 5):.4f} device_ms={device_ms(fwd, name='train_fwd_'):.4f} "
+                            f"bound_ms={fwd_bound:.4f} sdpa_device_ms={device_ms(lib_fwd):.4f}")
+            # the backward's device time by kernel (the fp32 tree of this file: delta, dk/dv, dq)
+            by_kernel = {re.search(r"train_\w+", name).group(0): round(ms, 4)
+                         for name, ms in device_kernel_ms(bwd).items() if "train_bwd_" in name}
             print(f"{label} {' '.join(errs)} {fwd_line} bwd ms={timed(bwd, 5):.4f} "
-                  f"device_ms={device_ms(bwd, name='train_bwd_'):.4f}", flush=True)
-            del out, leaves
+                  f"device_ms={sum(by_kernel.values()):.4f} {by_kernel} bound_ms={bwd_bound:.4f} "
+                  f"sdpa_device_ms={device_ms(lib_make_bwd()):.4f}", flush=True)
+            del out, leaves, lib_fwd, lib_make_bwd
             torch.cuda.empty_cache()
     if "yardsticks" in what.split(","):
         import torch.nn.functional as F

@@ -797,13 +797,14 @@ def test_train_attention_past_288_columns(B, T, H, DH, D, lens, rate):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("T,lens", [(250, [250, 1, 0, 167]), (333, [333, 1, 0, 200])])
-@pytest.mark.parametrize("DH,D", [(64, 512), (64, 464), (32, 512), (40, 312)])
+@pytest.mark.parametrize("T,lens", [(250, [250, 1, 0, 167]), (333, [333, 1, 0, 200]), (70, [70, 1, 0])])
+@pytest.mark.parametrize("DH,D", [(64, 512), (64, 464), (32, 512), (40, 312), (32, 256)])
 def test_train_attention_fp32_past_256_columns(DH, D, T, lens, rate):
-    """fp32 K4 forward and its four gradients past 256 columns of q_rot, where
-    the dq pass takes [k | k_std] in column chunks: the 512-wide config's
-    (64, 512), 464, a head of 32 at 512, and (40, 312), which the wrapper pads
-    to (64, 320); rows of length 1 and 0. fp32 tolerance as at 256."""
+    """fp32 K4 forward and its four gradients at the widths the fp32 kernels
+    stream through their chunk ring: the 512-wide config's (64, 512), 464, a
+    head of 32 at 512, (40, 312), which the wrapper pads to (64, 320), and the
+    flagship's (32, 256); rows of length 1 and 0, one ragged key tile at T=70.
+    fp32 tolerance as at 256."""
     dev = _cuda()
     B, H = len(lens), 4
     g = torch.Generator().manual_seed(T + D + DH)
@@ -825,6 +826,36 @@ def test_train_attention_fp32_past_256_columns(DH, D, T, lens, rate):
         _close(gt, r, ATT_TOL[torch.float32])
     # a row of length 1 sends gradient to its first key only
     assert not bool(got[3][1, 1:].any()) and not bool(got[4][1, 1:].any())
+
+
+@pytest.mark.parametrize("T,lens", [(250, [250, 1, 0, 167, 250, 200, 64, 65]), (333, [333, 1, 0, 200])])
+def test_train_attention_fp32_at_the_flagship_shape(T, lens):
+    """fp32 K4 at the flagship's attention (8 heads of 32, q_rot 256), rate
+    0.1, ragged lengths with rows of length 1 and 0: out and the four
+    gradients within the fp32 tolerance; the backward's dS scratch leaves the
+    gradients of the keys past every row's length at exact zeros."""
+    dev = _cuda()
+    B, H, DH, D = len(lens), 8, 32, 256
+    g = torch.Generator().manual_seed(T + 32)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dev)  # noqa: E731
+    q_u, q_rot, k, v, k_std, cot = mk(B, T, H, DH), mk(B, T, H, D) * 0.25, mk(B, T, H, DH), mk(B, T, H, DH), \
+        mk(T, D), mk(B, T, H, DH)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q_u, q_rot, k, v)]
+        out = fn(*leaves, k_std, lengths, 31, 0.1)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, cot))
+
+    _build.reset_launch_counts()
+    got = run(rel_attention_train)
+    assert dict(_build.LAUNCHES) == {"asr_rel_attention_train_fwd": 1, "asr_rel_attention_train_bwd": 1}
+    for name, gt, r in zip(("out", "dq_u", "dq_rot", "dk", "dv"), got, run(rel_attention_train_plain)):
+        assert gt.dtype == torch.float32 and gt.shape == r.shape, name
+        _close(gt, r, ATT_TOL[torch.float32])
+    for b, n in enumerate(lens):
+        if 0 < n < T:
+            assert not bool(got[3][b, n:].any()) and not bool(got[4][b, n:].any())
 
 
 @pytest.mark.parametrize("dtype,H,DH,D", [(torch.float32, 4, 32, 128), (torch.bfloat16, 4, 32, 128),

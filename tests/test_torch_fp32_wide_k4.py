@@ -131,28 +131,29 @@ def test_bestrq_objective_in_fp32_on_the_k4_route_matches_jax():
     assert norm > 0 and diff <= 1e-4 * norm, (diff, norm)
 
 
-# The fp32 kernels' shared-memory layouts, as the structs FwdSmem, DqSmem and
-# DkvSmem of csrc/rel_attention_train.cu compute them (change the two together):
-# 32-row tiles, rows padded by 16 bytes (fp32 products and scores by 4
-# floats), each buffer starting on 128 bytes.
-def _up128(x):
-    return (x + 127) // 128 * 128
+# The fp32 kernels' shared-memory bytes, as fwd_smem, dkv_smem and dq_smem of
+# csrc/rel_attention_train.cu compute them (change the two together): rings of
+# two stages, each a 64-column chunk of both operands (64 rows each), plus the
+# forward's v tile and one 64 x 64 tile of Pd or dS; dq's ring of three stages,
+# each 64 rows of dS by 32 keys and 32 key rows of 128 columns; rows padded by
+# 16 bytes. None depends on q_rot: the rings stream [q_u | q_rot] and
+# [k | k_std] at any width.
+SM_SMEM, BLOCK_RESERVED = 233472, 1024  # an H100 SM's 228 KB of shared memory; 1 KB of it reserved a block
 
 
-def _layouts(dh, kd, kc, bt=32, pad=4):
-    def place(sizes):
-        at = 0
-        for n in sizes:
-            at = _up128(at + n)
-        return at
+def _consts():
+    with open(os.path.join(CSRC, "rel_attention_train.cu")) as f:
+        src = f.read()
+    ints = {name: int(val) for name, val in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    return {k: ints[k] for k in ("BM", "BN", "KC", "QC", "DKC", "DQ_STAGES")}
 
-    tile = lambda ld: bt * ld * 4  # noqa: E731
-    fwd = place([tile(kd + pad), tile(kd + pad), tile(dh + pad), tile(bt + 4), tile(bt + pad), tile(dh + 4)])
-    dq = place([tile(kd + pad), tile(kc + pad), tile(dh + pad), tile(dh + pad), tile(bt + 4), tile(bt + 4),
-                tile(bt + pad), tile(kd + 4), 3 * bt * 4])
-    dkv = place([tile(kd + pad), tile(kd + pad), tile(dh + pad), tile(dh + pad), tile(bt + 4), tile(bt + 4),
-                 tile(bt + pad), tile(bt + pad), tile(dh + 4), tile(dh + 4), 3 * bt * 4])
-    return {"FwdSmem": fwd, "DqSmem": dq, "DkvSmem": dkv}
+
+def _layouts(dh, c):
+    ldc, ldp, ldq = c["KC"] + 4, c["BN"] + 4, c["QC"] + 4
+    fwd = 4 * (2 * (c["BM"] + c["BN"]) * ldc + c["BN"] * (dh + 4) + c["BM"] * ldp)
+    dkv = 4 * (2 * (c["BN"] + c["BM"]) * ldc + c["BN"] * ldp)
+    dq = 4 * (c["DQ_STAGES"] * (c["BM"] * (c["DKC"] + 4) + c["DKC"] * ldq))
+    return {"fwd": fwd, "dkv": dkv, "dq": dq}
 
 
 def test_fp32_gate_and_the_kernels_layouts_at_every_q_rot_it_admits():
@@ -162,15 +163,17 @@ def test_fp32_gate_and_the_kernels_layouts_at_every_q_rot_it_admits():
     with pytest.raises(ValueError, match=r"D <= 512.*attention_impl='xla'"):
         _check_inputs(z(1, 8, 2, 64), z(1, 8, 2, 528), z(1, 8, 2, 64), z(1, 8, 2, 64), z(8, 528),
                       torch.zeros(1, dtype=torch.int32))
-    with open(os.path.join(CSRC, "rel_attention_train.cu")) as f:
-        kc = int(re.search(r"static constexpr int KC = (\d+);", f.read()).group(1))
+    consts = _consts()
     with open(os.path.join(CSRC, "attention_common.cuh")) as f:
         max_smem = int(re.search(r"constexpr size_t MAX_SMEM = (\d+);", f.read()).group(1))
     assert max_smem == 232448
     for dh in (32, 64):
         for D in range(16, 513, 16):
             assert padded_widths(dh, D, torch.float32) == (dh, D)
-            sizes = _layouts(dh, dh + D, kc)
+            sizes = _layouts(dh, consts)
             assert max(sizes.values()) <= max_smem, (dh, D, sizes)
-    # the widest: with [k | k_std] in chunks the dq pass holds 196,992 bytes, where a resident tile needs 253,952
-    assert _layouts(64, 576, kc) == {"FwdSmem": 175104, "DqSmem": 196992, "DkvSmem": 202112}
+    # the widest head: every kernel leaves room for two blocks an SM, at q_rot 512 as at 16
+    sizes = _layouts(64, consts)
+    assert sizes == {"fwd": 104448, "dkv": 87040, "dq": 78336}
+    for name, n in sizes.items():
+        assert 2 * (n + BLOCK_RESERVED) <= SM_SMEM, (name, n)
