@@ -51,8 +51,8 @@
    kernel's keep-mask is the plain version's bit for bit (rows numbered from
    0, and from 3 as a data-parallel rank's), then holds them
    against their plain versions once more and times them at the training
-   path's shape (B=32, T=250, bf16, rate 0.1), and K4 again there in fp32
-   beside SDPA in fp32 (TF32 off);
+   path's shape (B=32, T=250, bf16, rate 0.1), and K4 and K5 again there in
+   fp32 beside SDPA in fp32 (TF32 off);
 7. trains the flagship model (attention_impl="pallas", bf16 over fp32
    parameters, attention_dropout 0.1, SpecAugment on) for 6 steps on seeded
    synthetic speech (B=32 of 9.3-10 s) through collator -> prefetch ->
@@ -150,14 +150,17 @@
    backward launches (the fp32 kernels of rel_attention_train.cu at q_rot
    512), the CLI's evaluation, step 1 again with the plain attention within
    1e-4 of its loss and 1e-3 of its gradient norm, one evaluation batch of
-   the trained weights with "pallas" (17 K5 launches, fp32); then
+   the trained weights with "pallas" (17 K5 launches, fp32; its host time and
+   K5's device time in it printed); then
    ``train_ctc.run --from_pretrained`` of that ``final/`` in fp32, 2 steps,
    each applied with 17 K4 forward and 17 backward launches; each step's
    host-clock time, K4's device time in a BEST-RQ step (profiler) and the
    runs' peak memory printed. The JSON line gains the fp32 rows
    (``rel_attention_train_{fwd,bwd}_fp32`` at the flagship's shape, step 6,
    ``rel_attention_train_{fwd,bwd}_q512_fp32`` at B=16 and ``_b32``,
-   ``rel_attention_shift_dh64_fp32``) with the BEST-RQ run's launches and
+   ``rel_attention_shift_dh64_fp32``, and ``rel_attention_shift_fp32``: K5 in
+   fp32 at the flagship's shape, step 6, beside SDPA in fp32 on the 288-wide
+   head) with the BEST-RQ run's launches and
    ``fp32_finetune_launches``.
 14. right after step 11, trains that joint model (configs/decred_base.json at
    full width, vocabulary 500) from the Flax-matching initialiser through
@@ -1306,6 +1309,19 @@ def fp32_wide_phase(dev, smi, steps: int = 3, ft_steps: int = 2) -> tuple:
     print(f"  evaluation batch with 'pallas': loss {float(ev['loss']):.4f}, launches {e_launches}", flush=True)
     if e_launches.get("asr_rel_attention_shift", 0) != n_l or not np.isfinite(float(ev["loss"])):
         _fail(f"fp32 BEST-RQ evaluation with 'pallas': launches {e_launches}, want {n_l} asr_rel_attention_shift")
+    # K5's share of an evaluation batch: its host time (synchronized), then its device time under the profiler
+    eval_batch = lambda: evaluator.eval_step(evaluator.init_state(), seen[0][0])  # noqa: E731
+    host_ms = []
+    for _ in range(3):
+        t_ = time.perf_counter()
+        eval_batch()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t_) * 1e3)
+    per_kernel = device_kernel_ms(eval_batch, 2)
+    k5_ms = sum(v for k, v in per_kernel.items() if "shift_" in k)
+    print(f"  evaluation batch with 'pallas': host {float(np.median(host_ms)):.1f} ms (median of 3, synchronized), "
+          f"device {sum(per_kernel.values()):.2f} ms under the profiler, of it K5 {k5_ms:.3f} ms ({n_l} launches); "
+          f"{smi}", flush=True)
     del evaluator, p_out, seen
     torch.cuda.empty_cache()
 
@@ -3967,7 +3983,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     # The same at the flagship's fp32 training shape (--dtype float32: the fp32 kernels of
     # rel_attention_train.cu), beside SDPA in fp32 with TF32 off.
-    print("-- the training attention (K4) at the training path's shape in fp32: B=32, T=250, rate 0.1", flush=True)
+    print("-- the training attention (K4) at the training path's shape in fp32: B=32, T=250, rate 0.1; K5 in fp32 "
+          "there too (the flagship's fp32 evaluation step with \"pallas\")", flush=True)
     t = attention_inputs(Bt, Tt, torch.float32, seed=2)
     got = train_attention_run(rel_attention_train, t, 77, 0.1)
     ref = train_attention_run(rel_attention_train_plain, t, 77, 0.1)
@@ -3987,11 +4004,20 @@ def main() -> None:
            (2.0 * H * Tt * keys * ((dh + D) + 4 * dh + D), 7 * small + 2 * big + nbytes(t["k_std"]) + 8 * Bt * H * Tt,
             "fp32"),
            timed(lib_make_bwd(), 20))
-    for name, fn_, lib_ in (("K4 fwd fp32", fwd(rel_attention_train), lib_fwd),
-                            ("K4 bwd fp32", backward_call(rel_attention_train), lib_make_bwd())):
-        print(f"  {name} B={Bt} T={Tt} device ms under the profiler: the attention kernels "
-              f"{device_ms(fn_, name='train_'):.4f}, SDPA fp32 {device_ms(lib_):.4f}", flush=True)
-    del t, lib_fwd, lib_make_bwd
+    # K5 in fp32 on the same rows (library: the same SDPA call, 288-wide head)
+    args = (t["q_u"], t["q_v"], t["k"], t["v"], t["pos"], t["lengths"])
+    err_k5, ok_k5 = worst([rel_attention(*args)], [rel_attention_plain_shift(*args)], att_tol[torch.float32])
+    with torch.no_grad():
+        record("K5 fwd fp32", "rel_attention_shift_fp32", err_k5, ok_k5,
+               timed(lambda: rel_attention(*args), 20), timed(lambda: rel_attention_plain_shift(*args), 5),
+               (2.0 * H * Tt * keys * 3 * dh, 5 * small + nbytes(t["pos"]), "fp32"), timed(lib_fwd, 20))
+    for name, fn_, lib_, kernel_name in (("K4 fwd fp32", fwd(rel_attention_train), lib_fwd, "train_"),
+                                         ("K4 bwd fp32", backward_call(rel_attention_train), lib_make_bwd(), "train_"),
+                                         ("K5 fwd fp32", lambda: rel_attention(*args), lib_fwd, "shift_")):
+        with torch.no_grad():
+            print(f"  {name} B={Bt} T={Tt} device ms under the profiler: the attention kernels "
+                  f"{device_ms(fn_, name=kernel_name):.4f}, SDPA fp32 {device_ms(lib_):.4f}", flush=True)
+    del t, args, lib_fwd, lib_make_bwd
     torch.cuda.empty_cache()
 
     # ---- the training path at full width
@@ -4719,6 +4745,7 @@ def main() -> None:
         "rel_attention_shift_dh64_fp32": ("asr_rel_attention_shift", "csrc/rel_attention_shift.cu",
                                           routes["rel_attention_shift"][2]),
     }
+    fp32_routes["rel_attention_shift_fp32"] = fp32_routes["rel_attention_shift_dh64_fp32"]
     fp32_routes.update(rel_attention_train_fwd_q512_fp32_b32=fp32_routes["rel_attention_train_fwd_q512_fp32"],
                        rel_attention_train_bwd_q512_fp32_b32=fp32_routes["rel_attention_train_bwd_q512_fp32"])
     # the CSGU linear's two pieces: launches from the gated, csgu-linear request of the variants phase

@@ -1,18 +1,8 @@
 // Shared device helpers of the attention kernels: the mask, the visited keys
 // and the dropout hash serve them all (the fp32 training kernels of
-// rel_attention_train.cu, the shift-form inference kernel of
-// rel_attention_shift.cu and the kernels on wgmma, attention_wgmma.cuh);
-// Tile, copy_row and warp_mm serve the fp32 shift-form kernel.
-//
-// One template parameter E is the element type of the inputs and outputs of
-// the shift-form kernel that is not on wgmma. Only float is instantiated
-// today (tile products as exact fp32 FMA loops); bf16 runs the wgmma kernels.
-// Everything between the products (scores, softmax, dropout, dS) is fp32.
-//
-// Tiles (warp_mm's kernels): a block owns TILE<E> query rows, one warp per 16
-// rows, and walks the other direction in tiles of the same size. Rows past
-// the sequence end are zero-filled on load and masked on store, so any
-// sequence length runs.
+// rel_attention_train.cu, the fp32 shift-form inference kernel of
+// rel_attention_shift.cu and the kernels on wgmma, attention_wgmma.cuh); the
+// cp.async helpers and the 16-lane row reductions serve the two fp32 files.
 //
 // Head width: every kernel is a template on it, DH, instantiated for 32 and
 // 64 (with_head_width below picks the instantiation at run time). Other head
@@ -33,21 +23,6 @@ namespace attn {
 constexpr float MASK_NEG = -1.0e9f;
 constexpr size_t MAX_SMEM = 232448;  // 227 KB, the most a Hopper block can use
 
-template <typename E> struct Tile;
-template <> struct Tile<float> { static constexpr int B = 32; };
-
-__device__ __forceinline__ float as_float(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float as_float(float v) { return v; }
-template <typename E> __device__ __forceinline__ E from_float(float v);
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float v) { return __float2bfloat16_rn(v); }
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-// Round to the element type and return as float.
-template <typename E> __device__ __forceinline__ float round_to(float v) {
-    return as_float(from_float<E>(v));
-}
-
-__host__ __device__ inline size_t up128(size_t x) { return (x + 127) / 128 * 128; }
-
 // fn(std::integral_constant<int, DH>{}) for the instantiated head width dh;
 // cudaErrorInvalidValue for any other.
 template <typename Fn>
@@ -57,44 +32,26 @@ inline int with_head_width(int dh, Fn&& fn) {
     return (int)cudaErrorInvalidValue;
 }
 
-// Copy `n` elements (n a multiple of 16 bytes, both sides 16-byte aligned), or zeros.
-template <typename E>
-__device__ __forceinline__ void copy_row(E* dst, const E* src, int n, bool valid, int lane) {
-    constexpr int V = 16 / (int)sizeof(E);  // elements in one 16-byte vector
-    for (int c = lane * V; c < n; c += 32 * V) {
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (valid) val = *reinterpret_cast<const uint4*>(src + c);
-        *reinterpret_cast<uint4*>(dst + c) = val;
-    }
+// 16-byte cp.async.cg into shared memory (a shared-space address); with
+// valid false, src-size 0 fills the 16 bytes with zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
 }
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
-// Warp-level product on shared-memory tiles, fp32 result in shared memory,
-// as exact FMA loops:
-//   C[16 x 16*n_tiles] (+)= A[16 x K] * B[K x 16*n_tiles]
-//   A_COL: A(i, k) at A[k * lda + i], else A[i * lda + k]
-//   B_COL: B(k, j) at B[j * ldb + k], else B[k * ldb + j]
-//   ACC:   add to what C holds, else overwrite.
-// Ends with __syncwarp(), so the warp may read C.
-template <bool A_COL, bool B_COL, bool ACC>
-__device__ __forceinline__ void warp_mm(float* C, int ldc, const float* A, int lda, const float* B,
-                                        int ldb, int K, int n_tiles) {
-    const int lane = threadIdx.x % 32;
-    for (int c = lane; c < 16 * n_tiles; c += 32) {
-        float acc[16];
+// max and sum over the 16 lanes of a row group (lanes 0-15 and 16-31)
+__device__ __forceinline__ float group_max(float v) {
 #pragma unroll
-        for (int i = 0; i < 16; ++i) acc[i] = ACC ? C[i * ldc + c] : 0.0f;
-        for (int k = 0; k < K; ++k) {
-            const float b = B_COL ? B[(size_t)c * ldb + k] : B[(size_t)k * ldb + c];
+    for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-            for (int i = 0; i < 16; ++i) {
-                const float a = A_COL ? A[(size_t)k * lda + i] : A[(size_t)i * lda + k];
-                acc[i] = fmaf(a, b, acc[i]);
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < 16; ++i) C[i * ldc + c] = acc[i];
-    }
-    __syncwarp();
+    for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
 }
 
 // Scaled and masked score of key column s: columns past the utterance's

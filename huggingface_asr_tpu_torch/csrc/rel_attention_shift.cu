@@ -1,166 +1,332 @@
-// Relative-position attention for INFERENCE, shift form.
+// Relative-position attention for INFERENCE, shift form: the entry point and
+// the fp32 kernel.
 //
 // Replaces ops/pallas_attention.py::_rel_attn_kernel of the JAX package:
 //
 //   S[t, s] = (q_u[t] . k[s] + q_v[t] . pos[t - s + T - 1, h]) / sqrt(dh)
-//   S[:, s >= length] := -1e9;  P = softmax(S) in fp32, rounded;  out = P v
+//   S[:, s >= length] := -1e9;  P = softmax(S) in fp32, rounded to v's type;  out = P v
 //
 // The TPU kernel multiplies q_v against the whole reversed (2T, dh) table and
 // barrel-shifts every row by log2(T) masked rolls, because a per-row lane
-// offset does not lower there. On the GPU a per-row offset is an index: for a
-// (query tile, key tile) pair the table rows t - s + T - 1 form one
-// contiguous band of 2*TILE - 1 rows. The block stages that band for its
-// head, takes G = q_v band^T (a K = dh product of width 2*TILE) and reads
-// the positional score of (t, s) at G[t - t0][(t - t0) - (s - s0) + TILE - 1].
-// So the positional term stays a K = 32 product (the factored form pays
-// K = 256 for it).
+// offset does not lower there. On the GPU a per-row offset is an index: the
+// table rows t - s + T - 1 of a (query tile, key tile) pair form one band of
+// 127 rows, and a thread whose scores are 4 consecutive queries by 4
+// consecutive keys needs 7 of them, one for each diagonal of its 4 x 4 tile.
 //
-// Block = (query tile, head, batch); two passes over the key tiles, as the
-// training forward: row max and sum first, then P = exp(S - m) / l rounded
-// to the element type and out += P v. Nothing quadratic reaches device
-// memory. Bound by bytes on the H100 (q_u, q_v, k, v, out once each; the
-// table is small and cached).
+// bf16 inputs run rel_attention_shift_bf16.cu (wgmma + TMA, two walks: P is
+// rounded to bf16 from the final max and sum). In fp32 the JAX kernel's
+// rounding of P to v's type is no rounding at all, so this kernel walks the
+// keys once.
 //
-// This file holds the entry point and the fp32 kernel: exact FMA loops out of
-// padded shared memory, which hold the logic to the plain version at fp32
-// tolerance. bf16 inputs run rel_attention_shift_bf16.cu (wgmma + TMA).
+// What bounds the fp32 kernel on the H100: fp32 FFMA at 67 TFLOP/s. Each score
+// costs 3 dh FMAs (q_u k, q_v band, P v) against a few bytes; the design keeps
+// the FFMA pipes fed:
+//
+//   block     64 query rows of one (b, h), 256 threads, two blocks an SM
+//             (shift_smem below). q_u and q_v stay in shared memory. A thread
+//             holds S for rows row0 .. row0 + 3 and keys 4 cg .. 4 cg + 3 of
+//             a 64-key tile (row0 = 8 warp + 4 half, cg = lane % 16), and out
+//             for those rows and columns VW cg .. VW cg + VW - 1.
+//   one walk  the online row max and sum of FlashAttention-2: P v
+//             accumulates exp(x - m_run) v in registers, rescaled when m_run
+//             moves, divided by the row sum at the end. Equal to the plain
+//             version's P v with P = exp(x - m) / l up to fp32 rounding.
+//   products  register-tiled FFMA with float4 operands out of shared memory:
+//             S = q_u k^T reads 4 q_u and 4 k vectors for 64 FMAs; the
+//             positional term reads 4 q_v and the 7 band vectors of the
+//             thread's diagonals for 64 FMAs (band row (t - t0) - (s - s0) +
+//             63, so no product of G = q_v band^T is formed and none is
+//             wasted); P v reads 4 P vectors and one v vector a key.
+//   the band  key tile j needs table rows t0 + T - 1 - 64 j + [-63, 63]: the
+//             64-row chunks j (upper half) and j + 1 (lower half) of the
+//             sequence chunk m = rows t0 + T - 1 - 64 m + [0, 64). Tile j + 1
+//             reuses chunk j + 1, so each tile brings one new chunk into a
+//             ring of two. Rows outside [0, 2T - 1) are zeros; they belong
+//             only to pairs with t >= T or s >= T, which are masked or never
+//             written.
+//   loads     16-byte cp.async.cg, each overlapping the other phase of the
+//             walk: v of tile j during S of tile j, k and the band chunk of
+//             tile j + 1 during the softmax and P v of tile j. Three barriers
+//             a tile.
+//   layout    no padding (two blocks of 114,944 bytes fill an SM's 228 KB):
+//             conflicts are avoided by XOR-swizzling the 16-byte chunks of a
+//             row. k rows and band rows are stored in the order 16 (x & 3) +
+//             (x >> 2) of their index x, so that the 16 lanes of a row group,
+//             which read keys 4 cg + j or diagonals 64 + row0 - 4 cg + d, hit
+//             16 consecutive stored rows, swizzled by the row's low 3 bits; q
+//             and P rows by bit 2 of the row (the two row groups of a warp).
 #include "attention_common.cuh"
 
 namespace {
 
 using namespace attn;
 
-template <typename E, int DH>
-struct ShiftSmem {
-    size_t qu, qv, k, v, band, g, s, p, o, total;
-    int ldv, ldg, lds, ldp, ldo;
-    __host__ __device__ ShiftSmem() {
-        constexpr int BT = Tile<E>::B, V = 16 / (int)sizeof(E);
-        ldv = DH + V; ldg = 2 * BT + 4; lds = BT + 4; ldp = BT + V; ldo = DH + 4;
-        qu = 0;
-        qv = up128(qu + (size_t)BT * ldv * sizeof(E));
-        k = up128(qv + (size_t)BT * ldv * sizeof(E));
-        v = up128(k + (size_t)BT * ldv * sizeof(E));
-        band = up128(v + (size_t)BT * ldv * sizeof(E));
-        g = up128(band + (size_t)2 * BT * ldv * sizeof(E));
-        s = up128(g + (size_t)BT * ldg * 4);
-        p = up128(s + (size_t)BT * lds * 4);
-        o = up128(p + (size_t)BT * ldp * sizeof(E));
-        total = up128(o + (size_t)BT * ldo * 4);
-    }
-};
+constexpr int THREADS = 256;  // 8 warps
+constexpr int BM = 64;        // query rows a block
+constexpr int BN = 64;        // keys a tile, and rows of a band chunk
+constexpr int ALIGN = 256;    // the layout's base alignment: each row then starts at a multiple of its size
+static_assert(BM == BN, "q, k, v and a band chunk are tiles of the same 64 rows");
 
-template <typename E, int DH>
-__device__ __forceinline__ void load_tile(E* dst, int ld, const E* src, size_t stride, int r0,
-                                          int lo, int hi, int rows, int warp, int n_warps, int lane) {
-    for (int r = warp; r < rows; r += n_warps) {
-        const int t = r0 + r;
-        const bool valid = t >= lo && t < hi;
-        copy_row<E>(dst + (size_t)r * ld, src + (size_t)(valid ? t : 0) * stride, DH, valid, lane);
+// Shared-memory bytes at head width dh: q_u, q_v (BM rows), k, v (BN rows), two band chunks (BN rows each),
+// P (BM x BN), and the slack that aligns the base. tests/test_torch_fp32_k5_walk.py recomputes it: change
+// both together. Two blocks an SM need 2 (bytes + 1 KB reserved) <= 228 KB.
+constexpr size_t shift_smem(int dh) { return ALIGN + 4 * (size_t)(2 * BM * dh + 4 * BN * dh + BM * BN); }
+
+__device__ __forceinline__ void lds4(float (&d)[4], uint32_t addr) {
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]) : "r"(addr));
+}
+__device__ __forceinline__ void lds2(float (&d)[2], uint32_t addr) {
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(d[0]), "=f"(d[1]) : "r"(addr));
+}
+__device__ __forceinline__ void sts4(uint32_t addr, const float (&d)[4]) {
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(d[0]), "f"(d[1]), "f"(d[2]),
+                 "f"(d[3]) : "memory");
+}
+
+// stored row of key (or band row) x of a 64-row tile
+__device__ __forceinline__ int perm(int x) { return 16 * (x & 3) + (x >> 2); }
+
+// s[i][j] += q_u[row0 + i] . k[4 cg + j]: qa is row row0's address with its swizzle, ka stored row cg's
+// (key 4 cg + j is stored row 16 j + cg, whose swizzle is cg's).
+template <int DH>
+__device__ __forceinline__ void content_scores(float (&s)[4][4], uint32_t qa, uint32_t ka) {
+    constexpr uint32_t ROW = DH * 4;
+#pragma unroll
+    for (int c = 0; c < DH / 4; ++c) {
+        float a[4][4], b[4][4];
+        const uint32_t q = qa ^ (uint32_t)(c << 4), kk = ka ^ (uint32_t)(c << 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) lds4(a[i], q + i * ROW);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) lds4(b[j], kk + j * 16 * ROW);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i][e], b[j][e], s[i][j]);
     }
 }
 
-// (instantiated for fp32 only; bf16 runs shift_fwd_bf16)
-template <typename E, int DH>
-__global__ void __launch_bounds__(Tile<E>::B * 2)
-shift_attention_kernel(const E* __restrict__ q_u, const E* __restrict__ q_v,
-                       const E* __restrict__ k, const E* __restrict__ v,
-                       const E* __restrict__ pos, const int* __restrict__ lengths,
-                       E* __restrict__ out, int T, int H, float scale) {
-    constexpr int BT = Tile<E>::B, NW = BT / 16;
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    const ShiftSmem<E, DH> L;
-    E* Qu = reinterpret_cast<E*>(smem_raw + L.qu);
-    E* Qv = reinterpret_cast<E*>(smem_raw + L.qv);
-    E* Ks = reinterpret_cast<E*>(smem_raw + L.k);
-    E* Vs = reinterpret_cast<E*>(smem_raw + L.v);
-    E* Band = reinterpret_cast<E*>(smem_raw + L.band);
-    float* Gs = reinterpret_cast<float*>(smem_raw + L.g);
-    float* Ss = reinterpret_cast<float*>(smem_raw + L.s);
-    E* Ps = reinterpret_cast<E*>(smem_raw + L.p);
-    float* Os = reinterpret_cast<float*>(smem_raw + L.o);
-
-    const int t0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wr = warp * 16;
-    const int len = lengths[b];
-    const int n_keys = visited_keys(len, T);
-    const size_t hs = (size_t)H * DH;
-    const size_t base = (size_t)b * T * hs + (size_t)h * DH;
-
-    load_tile<E, DH>(Qu, L.ldv, q_u + base, hs, t0, 0, T, BT, warp, NW, lane);
-    load_tile<E, DH>(Qv, L.ldv, q_v + base, hs, t0, 0, T, BT, warp, NW, lane);
-    for (int i = threadIdx.x; i < BT * DH; i += NW * 32) Os[(i / DH) * L.ldo + i % DH] = 0.0f;
-
-    float m[16], l[16];
+// s[i][j] += q_v[row0 + i] . band[diagonal i - j]: bp[d] is the address (with its swizzle) of the band row
+// of diagonal d - 3.
+template <int DH>
+__device__ __forceinline__ void positional_scores(float (&s)[4][4], uint32_t qa, const uint32_t (&bp)[7]) {
+    constexpr uint32_t ROW = DH * 4;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-        m[i] = -INFINITY;
-        l[i] = 0.0f;
+    for (int c = 0; c < DH / 4; ++c) {
+        float a[4][4], b[7][4];
+        const uint32_t q = qa ^ (uint32_t)(c << 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) lds4(a[i], q + i * ROW);
+#pragma unroll
+        for (int d = 0; d < 7; ++d) lds4(b[d], bp[d] ^ (uint32_t)(c << 4));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i][e], b[i - j + 3][e], s[i][j]);
     }
+}
 
-    for (int pass = 0; pass < 2; ++pass) {
-        for (int s0 = 0; s0 < n_keys; s0 += BT) {
-            __syncthreads();
-            load_tile<E, DH>(Ks, L.ldv, k + base, hs, s0, 0, T, BT, warp, NW, lane);
-            if (pass == 1) load_tile<E, DH>(Vs, L.ldv, v + base, hs, s0, 0, T, BT, warp, NW, lane);
-            // band row j is table row (t0 - s0 - (BT - 1) + T - 1) + j of head h
-            load_tile<E, DH>(Band, L.ldv, pos + (size_t)h * DH, hs, t0 - s0 - (BT - 1) + T - 1, 0,
-                         2 * T - 1, 2 * BT, warp, NW, lane);
-            __syncthreads();
-            warp_mm<false, true, false>(Ss + wr * L.lds, L.lds, Qu + wr * L.ldv, L.ldv, Ks, L.ldv,
-                                        DH, BT / 16);
-            warp_mm<false, true, false>(Gs + wr * L.ldg, L.ldg, Qv + wr * L.ldv, L.ldv, Band,
-                                        L.ldv, DH, 2 * BT / 16);
+// o[i][w] += sum over the tile's keys of P[row0 + i][key] v[key][VW cg + w]: pa is row row0's address in
+// P with its swizzle, va the address of column VW cg of v's first row.
+template <int DH>
+__device__ __forceinline__ void pv(float (&o)[4][DH / 16], uint32_t pa, uint32_t va) {
+    constexpr int VW = DH / 16;
+    constexpr uint32_t ROW = DH * 4;
 #pragma unroll
-            for (int i = 0; i < 16; ++i) {
-                const int r = wr + i;
-                const float* srow = Ss + r * L.lds;
-                const float* grow = Gs + r * L.ldg + r + BT - 1;  // grow[-c] is column c's term
-                if (pass == 0) {
-                    float mx = -INFINITY;
-                    for (int c = lane; c < BT; c += 32)
-                        mx = fmaxf(mx, masked_score(srow[c] + grow[-c], scale, s0 + c, len, T));
-                    const float m_new = fmaxf(m[i], warp_max(mx));
-                    float sum = 0.0f;
-                    for (int c = lane; c < BT; c += 32)
-                        sum += expf(masked_score(srow[c] + grow[-c], scale, s0 + c, len, T) - m_new);
-                    l[i] = l[i] * expf(m[i] - m_new) + warp_sum(sum);
-                    m[i] = m_new;
-                } else {
-                    for (int c = lane; c < BT; c += 32) {
-                        const float x = masked_score(srow[c] + grow[-c], scale, s0 + c, len, T);
-                        Ps[r * L.ldp + c] = from_float<E>(expf(x - m[i]) / l[i]);
-                    }
-                }
-            }
-            if (pass == 1) {
-                __syncwarp();
-                warp_mm<false, false, true>(Os + wr * L.ldo, L.ldo, Ps + wr * L.ldp, L.ldp, Vs,
-                                            L.ldv, BT, DH / 16);
-            }
+    for (int c = 0; c < BN / 4; ++c) {
+        float a[4][4];
+        const uint32_t p = pa ^ (uint32_t)(c << 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) lds4(a[i], p + i * BN * 4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            float b[VW];
+            if constexpr (VW == 4)
+                lds4(b, va + (4 * c + e) * ROW);
+            else
+                lds2(b, va + (4 * c + e) * ROW);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int w = 0; w < VW; ++w) o[i][w] = fmaf(a[i][e], b[w], o[i][w]);
         }
     }
+}
 
-    for (int i = lane; i < 16 * DH; i += 32) {
-        const int r = wr + i / DH, d = i % DH, t = t0 + r;
-        if (t < T) out[base + (size_t)t * hs + d] = from_float<E>(Os[r * L.ldo + d]);
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 2)
+shift_fp32_kernel(const float* __restrict__ q_u, const float* __restrict__ q_v, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ pos, const int* __restrict__ lengths,
+                  float* __restrict__ out, int T, int H, float scale) {
+    constexpr int NC = DH / 4;           // 16-byte chunks of a row
+    constexpr int PER = BM * NC / THREADS;  // chunks a thread copies of a 64-row tile
+    constexpr int VW = DH / 16;          // out columns a thread
+    constexpr uint32_t ROW = DH * 4, TILE = BN * ROW;
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    const uint32_t QU = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + ALIGN - 1) & ~(uint32_t)(ALIGN - 1);
+    const uint32_t QV = QU + TILE, KS = QV + TILE, VS = KS + TILE, BANDS = VS + TILE, PS = BANDS + 2 * TILE;
+
+    const int t0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, half = lane / 16, cg = lane % 16;
+    const int row0 = warp * 8 + half * 4;
+    const int len = lengths[b], n_keys = visited_keys(len, T), n_tiles = (n_keys + BN - 1) / BN;
+    const size_t hs = (size_t)H * DH;  // row stride of (B, T, H, dh) and of the (2T - 1, H, dh) table
+    const size_t at = (size_t)b * T * hs + (size_t)h * DH;
+    const float* k_b = k + at;
+    const float* v_b = v + at;
+    const float* pos_h = pos + (size_t)h * DH;
+
+    // copies of 64-row tiles: rows of q (swizzled by bit 2 of the row), keys, band rows
+    auto load_q = [&](uint32_t dst, const float* src) {
+#pragma unroll
+        for (int u = 0; u < PER; ++u) {
+            const int i = threadIdx.x + u * THREADS, r = i / NC, c = i % NC;
+            const bool ok = t0 + r < T;
+            cp_async16(dst + r * ROW + ((c ^ ((r >> 2) & 1)) << 4), src + (size_t)(ok ? t0 + r : 0) * hs + 4 * c, ok);
+        }
+    };
+    auto load_k = [&](int s0) {
+#pragma unroll
+        for (int u = 0; u < PER; ++u) {
+            const int i = threadIdx.x + u * THREADS, r = i / NC, c = i % NC, kr = perm(r);
+            const bool ok = s0 + r < T;
+            cp_async16(KS + kr * ROW + ((c ^ (kr & 7)) << 4), k_b + (size_t)(ok ? s0 + r : 0) * hs + 4 * c, ok);
+        }
+    };
+    auto load_v = [&](int s0) {
+#pragma unroll
+        for (int u = 0; u < PER; ++u) {
+            const int i = threadIdx.x + u * THREADS, r = i / NC, c = i % NC;
+            const bool ok = s0 + r < T;
+            cp_async16(VS + r * ROW + (c << 4), v_b + (size_t)(ok ? s0 + r : 0) * hs + 4 * c, ok);
+        }
+    };
+    auto load_band = [&](int m) {  // chunk m: table rows t0 + T - 1 - 64 m + [0, 64), into slot m % 2
+        const uint32_t slot = BANDS + (m & 1) * TILE;
+#pragma unroll
+        for (int u = 0; u < PER; ++u) {
+            const int i = threadIdx.x + u * THREADS, r = i / NC, c = i % NC, br = perm(r);
+            const int row = t0 + T - 1 - BN * m + r;
+            const bool ok = row >= 0 && row < 2 * T - 1;
+            cp_async16(slot + br * ROW + ((c ^ (br & 7)) << 4), pos_h + (size_t)(ok ? row : 0) * hs + 4 * c, ok);
+        }
+    };
+
+    load_q(QU, q_u + at);
+    load_q(QV, q_v + at);
+    load_k(0);
+    load_band(0);
+    load_band(1);
+    cp_async_commit();
+
+    const uint32_t xq = (uint32_t)half << 4;  // the swizzle of this thread's q and P rows
+    const uint32_t qu_a = (QU + row0 * ROW) | xq, qv_a = (QV + row0 * ROW) | xq;
+    const uint32_t k_a = (KS + cg * ROW) | ((uint32_t)(cg & 7) << 4);
+    const uint32_t p_a = (PS + row0 * BN * 4) | xq;
+    const uint32_t v_a = VS + VW * cg * 4;
+    float o[4][VW], m_run[4], l_part[4];  // l_part: this thread's keys' share of the row sum
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        m_run[i] = -INFINITY;
+        l_part[i] = 0.0f;
+#pragma unroll
+        for (int w = 0; w < VW; ++w) o[i][w] = 0.0f;
+    }
+
+    for (int j = 0; j < n_tiles; ++j) {
+        const int s0 = j * BN;
+        cp_async_wait<0>();
+        __syncthreads();  // q, k and band chunks j, j + 1 in place; every warp is done with v and P of tile j - 1
+        load_v(s0);
+        cp_async_commit();
+
+        float s[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.0f;
+        content_scores<DH>(s, qu_a, k_a);
+        // diagonal d - 3: band row 64 + row0 - 4 cg + d - 3 of chunks j + 1 (rows 0-63) and j (64-127)
+        uint32_t bp[7];
+#pragma unroll
+        for (int d = 0; d < 7; ++d) {
+            const int x = BN + row0 - 4 * cg + d - 3, br = perm(x & (BN - 1));
+            bp[d] = (BANDS + (uint32_t)((j + (x < BN)) & 1) * TILE + br * ROW) | ((uint32_t)(br & 7) << 4);
+        }
+        positional_scores<DH>(s, qv_a, bp);
+        __syncthreads();  // every warp is done with k and band chunk j
+        if (j + 1 < n_tiles) {
+            load_k(s0 + BN);
+            load_band(j + 2);
+        }
+        cp_async_commit();
+
+        // online softmax over this key tile
+        float mx[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            mx[i] = -INFINITY;
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+                s[i][jj] = masked_score(s[i][jj], scale, s0 + 4 * cg + jj, len, T);
+                mx[i] = fmaxf(mx[i], s[i][jj]);
+            }
+            mx[i] = group_max(mx[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float m_new = fmaxf(m_run[i], mx[i]);
+            const float alpha = expf(m_run[i] - m_new);  // 0 on the first tile (m_run = -inf)
+            m_run[i] = m_new;
+            l_part[i] *= alpha;
+#pragma unroll
+            for (int w = 0; w < VW; ++w) o[i][w] *= alpha;
+            float p[4];
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+                p[jj] = expf(s[i][jj] - m_new);
+                l_part[i] += p[jj];
+            }
+            sts4((p_a ^ (uint32_t)(cg << 4)) + i * BN * 4, p);
+        }
+        cp_async_wait<1>();
+        __syncthreads();  // v of the tile and every row of P in place
+        pv<DH>(o, p_a, v_a);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float l = group_sum(l_part[i]);
+        const int t = t0 + row0 + i;
+        if (t >= T) continue;
+        float* dst = out + at + (size_t)t * hs + VW * cg;
+        if constexpr (VW == 4)
+            *reinterpret_cast<float4*>(dst) = make_float4(o[i][0] / l, o[i][1] / l, o[i][2] / l, o[i][3] / l);
+        else
+            *reinterpret_cast<float2*>(dst) = make_float2(o[i][0] / l, o[i][1] / l);
     }
 }
 
-template <typename E, int DH>
-int run(const void* q_u, const void* q_v, const void* k, const void* v, const void* pos,
-        const void* lengths, void* out, int B, int T, int H, float scale, cudaStream_t stream) {
-    constexpr int BT = Tile<E>::B;
-    const ShiftSmem<E, DH> L;
-    if (L.total > MAX_SMEM) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(shift_attention_kernel<E, DH>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+template <int DH>
+int run(const void* q_u, const void* q_v, const void* k, const void* v, const void* pos, const void* lengths,
+        void* out, int B, int T, int H, float scale, cudaStream_t stream) {
+    const size_t bytes = shift_smem(DH);
+    static_assert(shift_smem(64) <= MAX_SMEM, "the fp32 shift kernel's tiles fit a block's shared memory");
+    cudaError_t err = cudaFuncSetAttribute(shift_fp32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(shift_fp32_kernel<DH>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid(ceil_div(T, BT), H, B);
-    shift_attention_kernel<E, DH><<<grid, BT * 2, L.total, stream>>>(
-        (const E*)q_u, (const E*)q_v, (const E*)k, (const E*)v, (const E*)pos, (const int*)lengths,
-        (E*)out, T, H, scale);
+    dim3 grid((T + BM - 1) / BM, H, B);
+    shift_fp32_kernel<DH><<<grid, THREADS, bytes, stream>>>(
+        (const float*)q_u, (const float*)q_v, (const float*)k, (const float*)v, (const float*)pos,
+        (const int*)lengths, (float*)out, T, H, scale);
     return (int)cudaGetLastError();
 }
 
@@ -176,6 +342,6 @@ ASR_API int asr_rel_attention_shift(const void* q_u, const void* q_v, const void
     return with_head_width(dh, [&](auto head) {
         constexpr int DH = decltype(head)::value;
         return is_bf16 ? shift_fwd_bf16<DH>(q_u, q_v, k, v, pos, lengths, out, B, T, H, scale, st)
-                       : run<float, DH>(q_u, q_v, k, v, pos, lengths, out, B, T, H, scale, st);
+                       : run<DH>(q_u, q_v, k, v, pos, lengths, out, B, T, H, scale, st);
     });
 }

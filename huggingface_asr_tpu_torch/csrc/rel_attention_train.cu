@@ -84,16 +84,6 @@ constexpr size_t fwd_smem(int dh) { return 4 * (size_t)(2 * (BM + BN) * LDC + BN
 constexpr size_t dkv_smem() { return 4 * (size_t)(2 * (BN + BM) * LDC + BN * LDP); }
 constexpr size_t dq_smem() { return 4 * (size_t)(DQ_STAGES * (BM * LDD + DKC * LDQ)); }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    // src-size 0 fills the 16 bytes with zeros and reads nothing
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-
 // cp.async of rows [r0, r0 + ROWS) x columns [c0, c0 + W) of [a | b] (a of na
 // columns, b of nb; row strides sa, sb) into dst (row stride ld). Rows at or
 // past T and columns at or past na + nb are zeros. na and nb are multiples of 4.
@@ -109,7 +99,7 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const float* a, si
         const bool ok = t < T && c < na + nb;
         const float* src = a;
         if (ok) src = c < na ? a + (size_t)t * sa + c : b + (size_t)t * sb + (c - na);
-        cp_async16(dst + r * ld + (c - c0), src, ok);
+        cp_async16(static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * ld + (c - c0))), src, ok);
     }
 }
 
@@ -192,18 +182,6 @@ __device__ __forceinline__ void mm_tn(float (&acc)[4][VW], const float* A, const
 #pragma unroll
             for (int v = 0; v < VW; ++v) acc[i][v] = fmaf(a[i], b[v], acc[i][v]);
     }
-}
-
-// max and sum over the 16 lanes of a row group (lanes 0-15 and 16-31)
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
 }
 
 // ---------------------------------------------------------------------------

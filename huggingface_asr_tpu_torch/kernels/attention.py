@@ -6,8 +6,9 @@
 
 ``rel_attention`` has the JAX function's signature. On CUDA tensors it
 launches ``asr_rel_attention_shift`` (bf16 runs the wgmma + TMA kernel of
-``csrc/rel_attention_shift_bf16.cu``, fp32 the exact FMA kernel of
-``csrc/rel_attention_shift.cu``) or raises; on CPU tensors it runs
+``csrc/rel_attention_shift_bf16.cu``, fp32 the register-tiled FFMA kernel
+of ``csrc/rel_attention_shift.cu``, one walk of the keys) or raises; on CPU
+tensors it runs
 ``rel_attention_plain_shift``. The kernels are compiled for heads of 32 and
 64 columns: a head size of at most 64 is padded with zero columns to the
 next of the two, in copies of the five operands (a zero column adds an exact

@@ -1,6 +1,6 @@
 """A/B of kernel source variants on one NVIDIA GPU.
 
-    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k4wide,yardsticks,k1,k5,gemm,dwconv,mel,melbf16,geluserving,posq,conv1,cmvn,ln,trace,ptxas DIR_A [DIR_B ...]
+    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k4wide,k5fp32,yardsticks,k1,k5,gemm,dwconv,mel,melbf16,geluserving,posq,conv1,cmvn,ln,trace,ptxas DIR_A [DIR_B ...]
 
 Each DIR is a directory holding a full copy of ``huggingface_asr_tpu_torch/csrc``
 (the package's own directory is a valid DIR). Every variant is built and run in
@@ -23,6 +23,17 @@ B=32 (the 512-wide config's step), fp32 at head 64, q_rot 256 (B=16) and 512
 (B=16 and 32), and the flagship's fp32 step (head 32, q_rot 256, B=32); a tree
 whose fp32 kernels stop at 256 says it refuses them, and a tree from before the
 fp32 redesign runs its own backward entry (``legacy_fp32_backward``);
+``k5fp32`` holds the shift-form inference attention against its plain version
+at 8 heads, T=250, the smoke's ragged lengths (a zero-length row among them),
+in fp32 and in bf16 at head 64, B=16 (the 512-wide config's evaluation batch)
+and head 32, B=32 (the flagship's), and gives its device time beside its
+bound and SDPA's in the same type (TF32 off) on the concatenated head the
+smoke takes as its yardstick (``[q_u | q_rot]``, q_rot as wide as the config:
+576 and 288 columns); then it runs the 512-wide config's model (seeded
+weights, fp32, attention_impl "pallas") forward on a B=16 batch of seeded
+log-mel features of 998 frames, the evaluation batch's shape, and prints its
+host time (synchronized, median of 3), its device time and K5's 17
+launches' share of it (profiler);
 ``yardsticks`` gives two library device times that the tables lacked beside
 their kernels': SDPA at the flagship's rel_attention shape (B=8, T_pad=256,
 both profiles of the kernel) and ``F.linear`` at the 176-wide config's FF1-in
@@ -91,6 +102,8 @@ K4BWD_SHAPES = [(3, 70, 2, 64, [70, 1, 0], 0.1)] + K4_SHAPES
 # head 64 and q_rot 256 and 512, and the flagship's fp32 step (head 32, q_rot 256, B=32)
 K4WIDE_CASES = [("bfloat16", 32, 64, 512), ("float32", 16, 64, 256), ("float32", 16, 64, 512),
                 ("float32", 32, 64, 512), ("float32", 32, 32, 256)]
+# (dtype, B, head width) of ``k5fp32``, 8 heads, T=250
+K5FP32_CASES = [("float32", 16, 64), ("float32", 32, 32), ("bfloat16", 16, 64), ("bfloat16", 32, 32)]
 K1_SHAPES = [  # (B, T_pad, H, D, lengths or None for the smoke's ragged lengths)
     (2, 64, 4, 128, [64, 0]), (3, 192, 4, 128, [187, 1, 0]), (2, 752, 8, 256, [752, 0]), (3, 752, 8, 256, [700, 1, 440]),
     (8, 56, 8, 256, None), (8, 256, 8, 256, None), (8, 512, 8, 256, None), (128, 256, 8, 256, None),
@@ -302,6 +315,7 @@ def run_variant(csrc: str, what: str) -> None:
     _build.CSRC = pathlib.Path(csrc).resolve()
     _build.library()
     sources = {"conv2": "conv2", "k4": "train_fwd", "k4bwd": "train_bwd", "k4wide": "rel_attention_train",
+               "k5fp32": "shift",
                "yardsticks": "layer.cu",
                "k1": "rel_attention.cu", "k5": "shift",
                "gemm": "layer.cu", "dwconv": "dwconv", "mel": "mel.cu", "melbf16": "mel_bf16", "posq": "layer.cu",
@@ -650,6 +664,63 @@ def run_variant(csrc: str, what: str) -> None:
                   f"sdpa_device_ms={device_ms(lib_make_bwd()):.4f}", flush=True)
             del out, leaves, lib_fwd, lib_make_bwd
             torch.cuda.empty_cache()
+    if "k5fp32" in what.split(","):
+        from chip_smoke import bound, nbytes, sdpa_call
+
+        for dtype_name, B, dh in K5FP32_CASES:
+            dtype = getattr(torch, dtype_name)
+            gen = torch.Generator().manual_seed(B + dh)
+            mk = lambda *s: torch.randn(*s, generator=gen).to(dtype).to(dev)  # noqa: E731
+            H, T, D = 8, 250, 8 * dh  # D: the config's width, the q_rot of the SDPA yardstick
+            lens = smoke_lengths(B, T)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            args = (mk(B, T, H, dh), mk(B, T, H, dh), mk(B, T, H, dh), mk(B, T, H, dh), mk(2 * T - 1, H, dh), lengths)
+            call = lambda: rel_attention(*args)  # noqa: E731
+            kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+            with torch.no_grad():
+                ref = rel_attention_plain_shift(*args).float()
+                err = float((call().float() - ref).abs().max())
+                ok = err <= (2 ** -6 if kind == "bf16" else 1e-4) * max(1.0, float(ref.abs().max()))
+                del ref
+                # the bound as chip_smoke.py counts it: the visited keys' three products, each operand once
+                n_keys = float(sum(n if n > 0 else T for n in lens))
+                bound_ms = bound(2.0 * H * T * n_keys * 3 * dh, 5 * nbytes(args[0]) + nbytes(args[4]), kind)[0]
+                lib = sdpa_call(args[0], mk(B, T, H, D) * 0.25, args[2], args[3], mk(T, D), lengths,
+                                1.0 / float(np.sqrt(dh)))[0]
+                print(f"K5 {kind} dh={dh} B={B} T={T} err={err:.3e} {'ok' if ok else 'FAIL'} ms={timed(call):.4f} "
+                      f"device_ms={device_ms(call, name='shift_'):.4f} bound_ms={bound_ms:.4f} "
+                      f"sdpa_device_ms={device_ms(lib):.4f}", flush=True)
+            del args, lib
+            torch.cuda.empty_cache()
+        import dataclasses
+        import time
+
+        from chip_smoke import WIDE_CONFIG, config_file, device_kernel_ms, seeded_model
+
+        cfg = dataclasses.replace(config_file(WIDE_CONFIG), attention_impl="pallas", vocab_size=500)
+        model = seeded_model(cfg, seed=2).to(dev)
+        gen = torch.Generator().manual_seed(16)
+        feats = torch.randn(16, 998, cfg.num_fbanks, generator=gen).to(dev)
+        feat_lens = torch.tensor([998 - 20 * i for i in range(16)], dtype=torch.int32, device=dev)
+        forward = lambda: model(feats, feat_lens)  # noqa: E731
+        with torch.no_grad():
+            _build.reset_launch_counts()
+            forward()
+            torch.cuda.synchronize()
+            k5_launches = _build.LAUNCHES["asr_rel_attention_shift"]
+            host = []
+            for _ in range(3):
+                t_ = time.perf_counter()
+                forward()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t_) * 1e3)
+            per_kernel = device_kernel_ms(forward, 2)
+        k5_ms = sum(v for k, v in per_kernel.items() if "shift_" in k)
+        print(f"512-wide fp32 forward B=16 x 998 frames ('pallas'): K5 launches {k5_launches}, host "
+              f"{float(np.median(host)):.1f} ms, device {sum(per_kernel.values()):.2f} ms, of it K5 {k5_ms:.3f} ms",
+              flush=True)
+        del model
+        torch.cuda.empty_cache()
     if "yardsticks" in what.split(","):
         import torch.nn.functional as F
 

@@ -669,6 +669,25 @@ def test_shift_attention_bf16_past_one_block(T, lens):
     _close(got, rel_attention_plain_shift(q_u, q_v, k, v, pos, lengths), ATT_TOL[torch.bfloat16])
 
 
+@pytest.mark.parametrize("DH", [32, 64])
+@pytest.mark.parametrize("T,lens", [(70, [70, 1, 0, 33]), (333, [333, 1, 0, 200]), (1000, [1000, 0, 1, 677])])
+def test_shift_attention_fp32_walk(DH, T, lens):
+    """The fp32 kernel (one walk of the keys, a band chunk a key tile) over
+    several query blocks and key tiles: ragged last tiles, rows of length 0,
+    1, a ragged length and T. At T=1000 the plain version gathers a (T, T, H,
+    dh) table, so H is 2 there. One launch a call."""
+    dev = _cuda()
+    B, H = len(lens), 4 if T < 1000 else 2
+    g = torch.Generator().manual_seed(T + DH)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dev)  # noqa: E731
+    args = (mk(B, T, H, DH), mk(B, T, H, DH), mk(B, T, H, DH), mk(B, T, H, DH), mk(2 * T - 1, H, DH),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+    _build.reset_launch_counts()
+    got = rel_attention(*args)
+    assert dict(_build.LAUNCHES) == {"asr_rel_attention_shift": 1} and got.shape == (B, T, H, DH)
+    _close(got, rel_attention_plain_shift(*args), ATT_TOL[torch.float32])
+
+
 @pytest.mark.parametrize("B,T,H,D,lens", [(2, 64, 4, 128, [64, 0]), (3, 192, 4, 128, [187, 1, 0]),
                                           (2, 752, 8, 256, [752, 0]), (3, 752, 8, 256, [700, 1, 440])])
 def test_layer_rel_attention_on_strided_views(B, T, H, D, lens):
