@@ -18,7 +18,15 @@
    second output, cg_w2 into a column slice of a wider buffer, and the
    subsampler's out-dense at K=5120), each beside its bound and ``F.linear``,
    at a ragged M (B=1, T_pad=56) and into each half of ``merged``, where the
-   other half and the rows past M must stay untouched; both depthwise convs
+   other half and the rows past M must stay untouched; the GEMM with the
+   LayerNorm in its operand prologue (``csrc/gemm_ln.cu``) at each of its
+   five call sites (FF1's, FF2's and cgMLP's intermediate dense with the
+   GELU, the QKV with its second output, the subsampler's projection) at
+   B=8 (10 s and 20 s), at M = 32,768 and 56, each against its plain
+   version, beside its bound and F.layer_norm + F.linear (two calls), with
+   the share of its outputs bit-equal to layer_norm then gemm (every one,
+   or the run fails) and the device times of the kernel and of that chain;
+   both depthwise convs
    (CSGU and merge) once more at B=128, T_pad=256, each beside its bound and
    ``F.conv1d(groups=C)``, then at B=8, 128 and 3 (T_pad 256, 256, 70) with
    K = 3, 31, 33 and t_valid = T - 5, 1, T, on an input that is a row view of
@@ -38,9 +46,11 @@
    loads it through ASRPipeline(device="cuda") and answers requests of 1, 4
    and 8 seeded synthetic utterances in the 5 s, 10 s and 20 s buckets, each
    timed once on the host clock;
-5. checks that every kernel of the path launched during those requests, and
-   that for every request the kernel path's logits and greedy ids match the
-   plain path's on the card;
+5. checks that every kernel of the path launched during those requests, that
+   one request of 8 utterances launches 12 standalone LayerNorms (each
+   layer's final one; 61 with the LayerNorm apart from its GEMM) and 49
+   GEMMs with the LayerNorm prologue, and that for every request the kernel
+   path's logits and greedy ids match the plain path's on the card;
 6. holds the training attention kernel (forward, and all four gradients for a
    seeded dO) and the shift-form inference attention kernel against their
    plain versions at B=8, T=250 and T=500, ragged lengths with one
@@ -80,9 +90,10 @@
    SDPA;
 9. serves that model through ASRPipeline(device="cuda"), which must take the
    fused path (the model's own front end, then the K1 layers), with requests
-   of 1 and 8 utterances at 10 s and 20 s, each launching per layer 5
-   LayerNorms, 9 GEMMs and one of each other K1 piece, logits and greedy ids
-   against the plain path (``serve_requests``, as step 13);
+   of 1 and 8 utterances at 10 s and 20 s, each launching per layer one
+   LayerNorm, 4 GEMMs with the LayerNorm prologue, 5 other GEMMs and one of
+   each other K1 piece (14 launches), logits and greedy ids against the
+   plain path (``serve_requests``, as step 13);
 10. trains it 3 steps through CTCTrainer with the config's attention_impl
    ("auto"): 8 K4 forward and 8 K4 backward launches a step, every step
    applied, step 1 within 1e-4 in loss of the plain attention; then one
@@ -397,6 +408,29 @@ def gemm_work(M: int, K: int, N: int, extra_bytes: int = 0):
     return 2.0 * M * K * N, 2 * M * K + 2 * K * N + 4 * N + 2 * M * N + extra_bytes, "bf16"
 
 
+def ln_gemm_work(M: int, K: int, N: int, extra_bytes: int = 0):
+    """(operations, bytes, type) of one GEMM with the LayerNorm in its operand
+    prologue: ``gemm_work``'s, plus g and b once and the LayerNorm's 8
+    operations a value (the product's type sets the rate: they are 0.1-0.4 %
+    of its operations); the normalised rows are never moved."""
+    flops, moved, kind = gemm_work(M, K, N, extra_bytes)
+    return flops + 8.0 * M * K, moved + 8 * K, kind
+
+
+def layer_work(M: int, D: int, I: int, Cg: int, work_ln, work_pos_query, work_attention, work_csgu, work_merge):
+    """The bound's pieces of the layer's 14 launches, in order: the four
+    LayerNorms that feed a product in the GEMMs' prologues, the final one
+    alone."""
+    return [
+        ln_gemm_work(M, D, I), gemm_work(M, I, D, 2 * M * D),                   # FF1 (+ residual)
+        ln_gemm_work(M, D, 3 * D, 2 * M * D), work_pos_query, work_attention,    # attention (+ q_v)
+        gemm_work(M, D, D),                                                     # out projection
+        ln_gemm_work(M, D, 2 * Cg), work_csgu, gemm_work(M, Cg, D),             # cgMLP
+        work_merge, gemm_work(M, 2 * D, D, 2 * M * D),                          # merge (+ residual)
+        ln_gemm_work(M, D, I), gemm_work(M, I, D, 2 * M * D), work_ln,          # FF2, final LayerNorm
+    ]
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -635,8 +669,8 @@ def aed_phase(dev, rng, smi) -> dict:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    per_layer = {"asr_gemm_bf16": 1, "asr_layernorm_bf16": 1, "asr_pos_query": 1, "asr_rel_attention": 1,
-                 "dwconv_csgu": 1, "dwconv_merge": 1}
+    per_layer = {"asr_gemm_bf16": 1, "asr_gemm_ln_bf16": 1, "asr_layernorm_bf16": 1, "asr_pos_query": 1,
+                 "asr_rel_attention": 1, "dwconv_csgu": 1, "dwconv_merge": 1}
     missing = [k for k in ("asr_conv1", "asr_conv2", *per_layer) if launches.get(k, 0) <= 0]
     if len(texts) != 8 or missing or launches.get("asr_log_mel", 0) or launches.get("asr_rel_attention", 0) \
             != ecfg.num_hidden_layers:
@@ -1529,8 +1563,8 @@ def ssl_phase(dev, smi) -> dict:
     if not pipe._use_fused:
         _fail("the fine-tuned model without adapters did not take the fused route")
     pipe(requests[next(iter(requests))][:1])  # warm-up
-    per_layer = {"asr_layernorm_bf16": 5, "asr_gemm_bf16": 9, "asr_rel_attention": 1, "asr_pos_query": 1,
-                 "dwconv_csgu": 1, "dwconv_merge": 1}
+    per_layer = {"asr_layernorm_bf16": 1, "asr_gemm_bf16": 5, "asr_gemm_ln_bf16": 4, "asr_rel_attention": 1,
+                 "asr_pos_query": 1, "dwconv_csgu": 1, "dwconv_merge": 1}
     want = {**{k: v * n_w for k, v in per_layer.items()}, "asr_log_mel": 1, "asr_conv1": 0, "asr_conv2": 0}
     for name, audios in requests.items():
         t0 = time.perf_counter()
@@ -1680,8 +1714,8 @@ def cli_phase(dev, smi) -> dict:
               f"({audio_s:.1f} s of audio) at batch 16 in {1e3 * res.wall_time:.1f} ms, RTFx "
               f"{audio_s / res.wall_time:.0f}; WER {res.metrics['wer']:.3f}; launches {launches}; {smi}", flush=True)
         if route == "on":
-            want = ("asr_log_mel", "asr_cmvn", "asr_conv1", "asr_conv2", "asr_gemm_bf16", "asr_layernorm_bf16",
-                    "asr_pos_query", "asr_rel_attention", "dwconv_csgu", "dwconv_merge")
+            want = ("asr_log_mel", "asr_cmvn", "asr_conv1", "asr_conv2", "asr_gemm_bf16", "asr_gemm_ln_bf16",
+                    "asr_layernorm_bf16", "asr_pos_query", "asr_rel_attention", "dwconv_csgu", "dwconv_merge")
             missing = [k for k in want if launches.get(k, 0) <= 0]
             if missing or launches.get("asr_rel_attention", 0) != cfg.num_hidden_layers * 2:
                 _fail(f"evaluate --fused_encoder on: not launched {missing}; launches {launches}")
@@ -2190,8 +2224,8 @@ def variants_phase(dev, smi, compare) -> dict:
         _fail("the gated csgu-linear model did not take the fused route behind its own front end")
     audios = [speech(10.0 * (1.0 - 0.03 * i), rng) for i in range(8)]
     pipe(audios[:1])  # first call: warm the allocator
-    per_layer = {"asr_layernorm_bf16": 5, "asr_gemm_bf16": 9, "asr_gemm_gate_bf16": 1, "asr_rel_attention": 1,
-                 "asr_pos_query": 1, "dwconv_csgu_conv": 1, "dwconv_merge": 1}
+    per_layer = {"asr_layernorm_bf16": 1, "asr_gemm_bf16": 5, "asr_gemm_ln_bf16": 4, "asr_gemm_gate_bf16": 1,
+                 "asr_rel_attention": 1, "asr_pos_query": 1, "dwconv_csgu_conv": 1, "dwconv_merge": 1}
     want = {"asr_log_mel": 1, "asr_cmvn": 1, **{k: v * n_l for k, v in per_layer.items()}}
     variant_launches, req_ms = {}, []
     for _ in range(3):
@@ -2289,7 +2323,7 @@ def variants_phase(dev, smi, compare) -> dict:
     pipe(audios[:1])
     texts, got = count_launches(lambda: pipe(audios), {})
     want_s = {"asr_log_mel_bf16": 1, "asr_gemm_gate_bf16": n_l, "dwconv_csgu_conv": n_l,
-              "asr_rel_attention_serving": n_l, "asr_gemm_gelu_serving": 3 * n_l}
+              "asr_rel_attention_serving": n_l, "asr_gemm_ln_gelu_serving": 3 * n_l}
     print(f"  serving profile, request B=8 x 10 s: launches {got}", flush=True)
     if len(texts) != 8 or any(got.get(k, 0) != v for k, v in want_s.items()):
         _fail(f"gated csgu-linear request, serving profile: launches {got}, want {want_s}")
@@ -2838,16 +2872,18 @@ class IdsRecorder:
         return " ".join(map(str, self.ids[-1]))
 
 
-SERVING_KERNELS = ("asr_log_mel_bf16", "asr_conv1_serving", "asr_conv2_serving", "asr_gemm_gelu_serving",
+SERVING_KERNELS = ("asr_log_mel_bf16", "asr_conv1_serving", "asr_conv2_serving", "asr_gemm_ln_gelu_serving",
                    "asr_rel_attention_serving")
 EXACT_KERNELS = ("asr_log_mel", "asr_conv1", "asr_conv2", "asr_rel_attention")
 
 
-def serving_phase(dev, smi, compare, fused, model_dir, requests, B_big: int = 128, S: int = 160000) -> tuple:
+def serving_phase(dev, smi, compare, ln_gemm_hold, fused, model_dir, requests, B_big: int = 128,
+                  S: int = 160000) -> tuple:
     """The serving profile on the card (step 19 of the module's docstring),
     with ``fused`` and ``model_dir`` the flagship's and its requests, at B=8
-    and ``B_big`` x ``S`` samples. Returns (the serving flagship requests'
-    launches, the "high" front end's launches, the gate's counts of JAX ids)."""
+    and ``B_big`` x ``S`` samples; ``compare`` and ``ln_gemm_hold`` are
+    ``main``'s. Returns (the serving flagship requests' launches, the "high"
+    front end's launches, the gate's counts of JAX ids)."""
     import torch
     import torch.nn.functional as F
 
@@ -2961,21 +2997,23 @@ def serving_phase(dev, smi, compare, fused, model_dir, requests, B_big: int = 12
             x = torch.where(mask[..., None], hidden, 0.0).to(torch.bfloat16).contiguous()
             M = B * T_pad
             xf = x.view(M, D)
-            g = K1.layer_norm(xf, w["ff1_ln_g"], w["ff1_ln_b"], cfg.layer_norm_eps)
             I = w["ff1_wi"].shape[1]
-            wi_t, bi16 = w["ff1_wi"].t(), w["ff1_bi"].bfloat16()
-            for Mr, a in ((M, g), (32768, torch.randn(32768, D, generator=torch.Generator().manual_seed(4))
+            eps = cfg.layer_norm_eps
+            # the serving GELU as the layer runs it, in the GEMM with the LayerNorm
+            # prologue; and without the LayerNorm (no call of the path runs that form now)
+            for Mr, a in ((M, xf), (32768, torch.randn(32768, D, generator=torch.Generator().manual_seed(4))
                                     .bfloat16().to(dev))):
                 key = "gemm_gelu_serving" + ("_m32768" if Mr == 32768 else "")
-                compare(f"gemm ff1_in serving GELU M={Mr}", key,
-                        lambda: K1.gemm(a, w["ff1_wi"], w["ff1_bi"], act="gelu_serving"),
-                        lambda: K1.gemm_plain(a, w["ff1_wi"], w["ff1_bi"], act="gelu_serving"), 2 ** -6,
-                        library_fn=lambda: F.linear(a, wi_t, bi16), work=gemm_work(Mr, D, I))
-                print(f"    device ms under the profiler: serving GELU "
-                      f"{device_ms(lambda: K1.gemm(a, w['ff1_wi'], w['ff1_bi'], act='gelu_serving')):.4f}, "
-                      f"exact GELU {device_ms(lambda: K1.gemm(a, w['ff1_wi'], w['ff1_bi'], act='gelu')):.4f}",
-                      flush=True)
-            qkv, q_v = K1.gemm(g, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
+                ln_args = (a, w["ff1_ln_g"], w["ff1_ln_b"], eps, w["ff1_wi"], w["ff1_bi"])
+                ln_gemm_hold(f"ln_gemm ff1_in serving GELU M={Mr}", key, *ln_args, timing=False, act="gelu_serving")
+                g = K1.layer_norm(a, w["ff1_ln_g"], w["ff1_ln_b"], eps)
+                compare(f"gemm ff1_in serving GELU M={Mr}", None,
+                        lambda: K1.gemm(g, w["ff1_wi"], w["ff1_bi"], act="gelu_serving"),
+                        lambda: K1.gemm_plain(g, w["ff1_wi"], w["ff1_bi"], act="gelu_serving"), 2 ** -6)
+                print(f"    device ms under the profiler: with the LayerNorm prologue, serving GELU "
+                      f"{device_ms(lambda: K1.ln_gemm(*ln_args, act='gelu_serving')):.4f}, exact GELU "
+                      f"{device_ms(lambda: K1.ln_gemm(*ln_args, act='gelu')):.4f}", flush=True)
+            qkv, q_v = K1.ln_gemm(xf, w["attn_ln_g"], w["attn_ln_b"], eps, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
             tables = fused.tables(T_pad)
             q_rot = K1.pos_query(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"], T_pad)
             dh = D // H
@@ -2990,22 +3028,15 @@ def serving_phase(dev, smi, compare, fused, model_dir, requests, B_big: int = 12
                           "bf16"))
             print(f"    device ms under the profiler: serving {device_ms(lambda: K1.rel_attention(*att, profile='serving')):.4f}, "
                   f"exact {device_ms(lambda: K1.rel_attention(*att)):.4f}", flush=True)
-            # the layer's 18 launches at these shapes, as the exact layer's row counts them
+            # the layer's 14 launches at these shapes, as the exact layer's row counts them
             Cg, Kc, Km = w["cg_w1"].shape[1] // 2, w["csgu_dw"].shape[0], w["merge_dw"].shape[0]
-            work_ln = (8.0 * M * D, 4 * M * D, "fp32")
-            layer_pieces = [
-                work_ln, gemm_work(M, D, I), gemm_work(M, I, D, 2 * M * D),
-                work_ln, gemm_work(M, D, 3 * D, 2 * M * D),
+            layer_pieces = layer_work(
+                M, D, I, Cg, (8.0 * M * D, 4 * M * D, "fp32"),
                 (2.0 * M * D * D + 6.0 * M * H * D,
                  nbytes(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"]) + 2 * M * H * D, "bf16"),
                 (2.0 * H * T_pad * keys * (dh + D + dh), nbytes(att[3], tables["k_std"]) + 4 * 2 * M * D, "bf16"),
-                gemm_work(M, D, D),
-                work_ln, gemm_work(M, D, 2 * Cg),
                 (2.0 * M * Cg * Kc + 10.0 * M * Cg, 4 * M * Cg + nbytes(w["csgu_dw"]) + 2 * M * Cg, "fp32"),
-                gemm_work(M, Cg, D),
-                (2.0 * M * 2 * D * Km, 8 * M * D + nbytes(w["merge_dw"]), "fp32"), gemm_work(M, 2 * D, D, 2 * M * D),
-                work_ln, gemm_work(M, D, I), gemm_work(M, I, D, 2 * M * D), work_ln,
-            ]
+                (2.0 * M * 2 * D * Km, 8 * M * D + nbytes(w["merge_dw"]), "fp32"))
             compare("layer serving (K1 whole)", None,
                     lambda: K1.ebranchformer_layer(x, enc, w, cfg, T, tables, "serving"),
                     lambda: K1.ebranchformer_layer_plain(x, enc, w, cfg, T, tables, "serving"), 0.05,
@@ -3219,8 +3250,9 @@ def mel_bins_phase(dev, smi, compare, B_big: int = 128, S: int = 160000) -> dict
                       f"front end")
             pipe(requests["1 utt (4 s)"])  # warm-up
             torch.cuda.synchronize()
-            want = {mel_counter: 1, "asr_cmvn": 1, att: n_l, "asr_pos_query": n_l, "asr_layernorm_bf16": 5 * n_l,
-                    "dwconv_csgu": n_l, "dwconv_merge": n_l}
+            want = {mel_counter: 1, "asr_cmvn": 1, att: n_l, "asr_pos_query": n_l, "asr_layernorm_bf16": n_l,
+                    "asr_gemm_ln_bf16": (n_l if profile == "serving" else 4 * n_l), "dwconv_csgu": n_l,
+                    "dwconv_merge": n_l}
             summed = launches.setdefault((n_mel, profile), {})
             for name, audios in requests.items():
                 t = time.perf_counter()
@@ -3349,6 +3381,44 @@ def main() -> None:
                work, library_ms)
         return got
 
+    def ln_gemm_hold(name, key, x, ln_g, ln_b, eps, wt, bias, timing=True, **kw):
+        """The GEMM with the LayerNorm in its operand prologue against its
+        plain version (2^-6 of the scale, the GEMM's; both outputs with
+        ``bias2``), beside its bound and F.layer_norm + F.linear in bf16 (two
+        PyTorch calls: no one call computes the pair); the share of its
+        outputs bit-equal to layer_norm then gemm, the two launches it
+        replaces (the kernel's contract: every one; the JSON entry keeps the
+        least share as ``bit_equal_share``); with ``timing``, the device times
+        of the kernel, of that chain and of the library pair. Returns the
+        kernel's output."""
+        M_, K_ = x.shape
+        N_ = wt.shape[1]
+        extra = 2 * M_ * kw["bias2"].shape[0] if "bias2" in kw else 0
+        g16, b16, wt_t, bias16 = ln_g.bfloat16(), ln_b.bfloat16(), wt.t().contiguous(), bias.bfloat16()
+        library = lambda: F.linear(F.layer_norm(x, (K_,), g16, b16, eps), wt_t, bias16)  # noqa: E731
+        run = lambda: K1.ln_gemm(x, ln_g, ln_b, eps, wt, bias, **kw)  # noqa: E731
+        plain = lambda: K1.ln_gemm_plain(x, ln_g, ln_b, eps, wt, bias, **kw)  # noqa: E731
+        chain = lambda: K1.gemm(K1.layer_norm(x, ln_g, ln_b, eps), wt, bias, **kw)  # noqa: E731
+        with torch.no_grad():
+            got = compare(name, key, run, plain, 2 ** -6, work=ln_gemm_work(M_, K_, N_, extra), library_fn=library)
+            pairs = list(zip(got, chain())) if "bias2" in kw else [(got, chain())]
+            if "bias2" in kw:
+                ref2 = plain()[1].float()
+                if float((got[1].float() - ref2).abs().max()) > 2 ** -6 * max(1.0, float(ref2.abs().max())):
+                    failures.append(f"{name}: second output")
+            same = sum(int((o.view(torch.int16) == r.view(torch.int16)).sum()) for o, r in pairs) \
+                / sum(o.numel() for o, _ in pairs)
+            entry = results[key]
+            entry["bit_equal_share"] = min(entry.get("bit_equal_share", 1.0), same)
+            line = f"    bit-equal to layer_norm then gemm: {same:.6f} of its outputs"
+            if timing:
+                line += (f"; device ms under the profiler: kernel {device_ms(run):.4f}, layer_norm + gemm "
+                         f"{device_ms(chain):.4f}, F.layer_norm + F.linear {device_ms(library):.4f}")
+            print(line, flush=True)
+        if same < 1.0:
+            failures.append(f"{name}: {same:.6f} of its outputs bit-equal to layer_norm then gemm")
+        return got
+
     rng = np.random.default_rng(0)
     for seconds in (10.0, 20.0):
         B = 8
@@ -3397,7 +3467,7 @@ def main() -> None:
         y1_nchw = y1.permute(0, 3, 1, 2)  # (B, C, T1, F1) view, channels last in memory
         rows2 = B * T_pad * ((y1.shape[2] + 1) // 2)
         work_conv2 = (2.0 * rows2 * C * 9 * C, nbytes(y1, sw["w2"], sw["b2"]) + 2 * rows2 * C, "bf16")
-        compare("conv2", "conv2", lambda: K2.conv2(y1, sw["w2"], sw["b2"], T_pad),
+        y2 = compare("conv2", "conv2", lambda: K2.conv2(y1, sw["w2"], sw["b2"], T_pad),
                 lambda: K2.conv2_plain(y1, sw["w2"], sw["b2"], T_pad), 2 ** -6,
                 library_fn=lambda: F.conv2d(y1_nchw, cw[1], stride=2, padding=1), work=work_conv2)
         if seconds == 10.0:
@@ -3406,11 +3476,15 @@ def main() -> None:
             y1_3 = y1[:B3, : 2 * T3 - 1].contiguous()
             compare(f"conv2 ragged tile (T2={T3})", "conv2", lambda: K2.conv2(y1_3, sw["w2"], sw["b2"], T3),
                     lambda: K2.conv2_plain(y1_3, sw["w2"], sw["b2"], T3), 2 ** -6)
-        M2, D = B * T_pad, cfg.hidden_size  # K2's pieces: conv1, conv2, out-dense, LayerNorm, projection
+        M2, D = B * T_pad, cfg.hidden_size  # K2's pieces: conv1, conv2, out-dense, LayerNorm + projection
         hidden = compare("subsample (K2 whole)", None, lambda: K2.conv_subsample(feats, sw, cfg, T_pad),
                          lambda: K2.conv_subsample_plain(feats, sw, cfg, T_pad), 0.05,
-                         work=[work_conv1, work_conv2, gemm_work(M2, sw["wout"].shape[0], D),
-                               (8.0 * M2 * D, 4 * M2 * D, "fp32"), gemm_work(M2, D, D)])
+                         work=[work_conv1, work_conv2, gemm_work(M2, sw["wout"].shape[0], D), ln_gemm_work(M2, D, D)])
+        # its LayerNorm in the projection's prologue, on the out-dense's output
+        h_dense = K1.gemm(y2.view(M2, -1), sw["wout"], sw["bout"], round_first=True)
+        ln_gemm_hold("ln_gemm proj (round_first)", "gemm_ln_subsample", h_dense, sw["ln_g"], sw["ln_b"],
+                     cfg.layer_norm_eps, sw["wproj"], sw["bproj"], timing=seconds == 10.0, round_first=True)
+        del h_dense, y2
 
         # K1 pieces at this bucket's shapes, with the real folded weights of layer 0
         w = fused.layers[0]
@@ -3431,16 +3505,24 @@ def main() -> None:
                 library_fn=lambda: F.linear(g, wi_t, bi16),  # F.linear in bf16, without the fused GELU
                 work=(2.0 * M * D * w["ff1_wi"].shape[1],
                       nbytes(g, w["ff1_wi"], w["ff1_bi"]) + 2 * M * w["ff1_wi"].shape[1], "bf16"))
-        h = K1.gemm(g, w["ff1_wi"], w["ff1_bi"], act="gelu")
+        # the four LayerNorm-fed GEMMs of the layer as the layer runs them: the
+        # LayerNorm in the operand prologue (and the subsampler's projection below)
+        eps = cfg.layer_norm_eps
+        h = ln_gemm_hold("ln_gemm ff1_in (+gelu)", "gemm_ln", xf, w["ff1_ln_g"], w["ff1_ln_b"], eps, w["ff1_wi"],
+                         w["ff1_bi"], timing=seconds == 10.0, act="gelu")
+        qkv, q_v = ln_gemm_hold("ln_gemm qkv (dual bias)", "gemm_ln", xf, w["attn_ln_g"], w["attn_ln_b"], eps,
+                                w["w_qkv"], w["b_qkv"], timing=seconds == 10.0, bias2=w["bq_v"])
+        ln_gemm_hold("ln_gemm cg_w1 (+gelu)", "gemm_ln", xf, w["cg_ln_g"], w["cg_ln_b"], eps, w["cg_w1"],
+                     w["cg_b1"], timing=seconds == 10.0, act="gelu")
+        ln_gemm_hold("ln_gemm ff2_in (+gelu)", "gemm_ln", xf, w["ff2_ln_g"], w["ff2_ln_b"], eps, w["ff2_wi"],
+                     w["ff2_bi"], timing=seconds == 10.0, act="gelu")
         compare("gemm ff1_out (+residual)", "gemm",
                 lambda: K1.gemm(h, w["ff1_wo"], w["ff1_bo"], residual=xf, alpha=0.5),
                 lambda: K1.gemm_plain(h, w["ff1_wo"], w["ff1_bo"], residual=xf, alpha=0.5), 2 ** -6)
-        qkv, q_v = compare("gemm qkv (dual bias)", "gemm",
-                           lambda: K1.gemm(g, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"]),
-                           lambda: K1.gemm_plain(g, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"]),
-                           2 ** -6)
+        _, q_v_g = compare("gemm qkv (dual bias)", "gemm", lambda: K1.gemm(g, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"]),
+                           lambda: K1.gemm_plain(g, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"]), 2 ** -6)
         q_v_ref = K1.gemm_plain(g, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])[1]
-        err_qv = float((q_v.float() - q_v_ref.float()).abs().max())
+        err_qv = float((q_v_g.float() - q_v_ref.float()).abs().max())
         print(f"  {'gemm qkv second output':28s} max_abs_err={err_qv:.3e}")
         if err_qv > 2 ** -6 * max(1.0, float(q_v_ref.float().abs().max())):
             failures.append("gemm qkv second output")
@@ -3462,8 +3544,7 @@ def main() -> None:
                 lambda: K1.rel_attention_plain(*att_args),
                 2 ** -6, library_fn=sdpa_call(hv(0), qr, hv(1), hv(2), tables["k_std"], enc_lens, 1.0)[0],
                 work=work_attention)
-        l = K1.gemm(K1.layer_norm(xf, w["cg_ln_g"], w["cg_ln_b"], 1e-5), w["cg_w1"], w["cg_b1"],
-                    act="gelu")
+        l = K1.ln_gemm(xf, w["cg_ln_g"], w["cg_ln_b"], 1e-5, w["cg_w1"], w["cg_b1"], act="gelu")
         args = (w["csgu_ln_g"], w["csgu_ln_b"], w["csgu_dw"], w["csgu_dw_b"], B, T_pad, T,
                 cfg.csgu_activation, 1e-5)
         # library calls: F.conv1d(groups=C) in bf16 on the (B, C, T) view, without
@@ -3487,14 +3568,7 @@ def main() -> None:
                 work=work_merge)
         I = w["ff1_wi"].shape[1]
         work_ln = (8.0 * M * D, 2 * nbytes(xf), "fp32")
-        layer_pieces = [  # the layer's 18 launches, in order
-            work_ln, gemm_work(M, D, I), gemm_work(M, I, D, 2 * M * D),             # FF1 (+ residual)
-            work_ln, gemm_work(M, D, 3 * D, 2 * M * D), work_pos_query, work_attention,  # attention
-            gemm_work(M, D, D),                                                     # out projection
-            work_ln, gemm_work(M, D, 2 * Cg), work_csgu, gemm_work(M, Cg, D),       # cgMLP
-            work_merge, gemm_work(M, 2 * D, D, 2 * M * D),                          # merge (+ residual)
-            work_ln, gemm_work(M, D, I), gemm_work(M, I, D, 2 * M * D), work_ln,    # FF2, final LayerNorm
-        ]
+        layer_pieces = layer_work(M, D, I, Cg, work_ln, work_pos_query, work_attention, work_csgu, work_merge)
         compare("layer (K1 whole)", None,
                 lambda: K1.ebranchformer_layer(x, enc_lens, w, cfg, T, tables),
                 lambda: K1.ebranchformer_layer_plain(x, enc_lens, w, cfg, T, tables), 0.05, work=layer_pieces)
@@ -3623,7 +3697,8 @@ def main() -> None:
     # layer 0's folded weights and the subsampler's out-dense; then at a ragged
     # M and into each half of a wider buffer. F.linear is the library call,
     # without what the kernel's epilogue fuses.
-    print(f"-- gemm at M={B_big * 256} (B={B_big}, T_pad=256), at M=56, and into column slices", flush=True)
+    print(f"-- gemm at M={B_big * 256} (B={B_big}, T_pad=256), at M=56, and into column slices; the LayerNorm-fed "
+          "ones with the LayerNorm in their prologue", flush=True)
     gen = torch.Generator().manual_seed(3)
     rows = lambda m, k: torch.randn(m, k, generator=gen).bfloat16().to(dev)  # noqa: E731
     I = w["ff1_wi"].shape[1]
@@ -3656,6 +3731,13 @@ def main() -> None:
         del merged_big, h_big
         gemm_case("gemm out-dense (K=5120)", "gemm_m32768_out_dense", Mb, rows(Mb, wout.shape[0]), wout, bout,
                   round_first=True)
+        # the LayerNorm-fed GEMMs at these rows: the LayerNorm in the operand prologue
+        for name, key, ln_key, wk, bk, kw in (
+                ("ff1_in (+act)", "gemm_ln_m32768_ff1_in", "ff1", "ff1_wi", "ff1_bi", dict(act=cfg.hidden_act)),
+                ("qkv (dual)", "gemm_ln_m32768_qkv", "attn", "w_qkv", "b_qkv", dict(bias2=w["bq_v"])),
+                ("cg_w1 (+gelu)", "gemm_ln_m32768_cg_w1", "cg", "cg_w1", "cg_b1", dict(act="gelu"))):
+            ln_gemm_hold(f"ln_gemm {name} M=32768", key, x_big, w[f"{ln_key}_ln_g"], w[f"{ln_key}_ln_b"],
+                         cfg.layer_norm_eps, w[wk], w[bk], **kw)
         del g_big, x_big
         torch.cuda.empty_cache()
         # a ragged M (B=1, T_pad=56: less than one tile), every epilogue, and both halves of `merged`
@@ -3666,6 +3748,8 @@ def main() -> None:
                   residual=x_s, alpha=0.5)
         gemm_case("gemm qkv M=56", "gemm", Ms, g_s, w["w_qkv"], w["b_qkv"], lib=False, bias2=w["bq_v"])
         gemm_case("gemm out-dense M=56", "gemm", Ms, rows(Ms, wout.shape[0]), wout, bout, lib=False, round_first=True)
+        ln_gemm_hold("ln_gemm qkv (dual) M=56", "gemm_ln", x_s, w["attn_ln_g"], w["attn_ln_b"], cfg.layer_norm_eps,
+                     w["w_qkv"], w["b_qkv"], timing=False, bias2=w["bq_v"])
         for half, (wt, bias, a_s) in enumerate(((w["wo"], w["bo"], g_s), (w["cg_w2"], w["cg_b2"], rows(Ms, Cg)))):
             merged_s = torch.full((Ms + 8, 2 * D), 7.0, dtype=torch.bfloat16, device=dev)
             gemm_case(f"gemm -> merged half {half} M=56", "gemm", Ms, a_s, wt, bias, lib=False,
@@ -3798,12 +3882,22 @@ def main() -> None:
         print(f"request {name}: {ms:.1f} ms; transcripts: {[s[:40] for s in texts]}", flush=True)
     launches = dict(_build.LAUNCHES)
     print(f"launches in the pipeline phase: {launches}", flush=True)
-    needed = ["asr_log_mel", "asr_cmvn", "asr_conv1", "asr_conv2", "asr_gemm_bf16",
+    needed = ["asr_log_mel", "asr_cmvn", "asr_conv1", "asr_conv2", "asr_gemm_bf16", "asr_gemm_ln_bf16",
               "asr_layernorm_bf16", "asr_pos_query", "asr_rel_attention", "dwconv_csgu",
               "dwconv_merge"]
     missing = [k for k in needed if launches.get(k, 0) <= 0]
     if missing:
         _fail(f"kernels not launched on the main path: {missing}")
+    # the standalone LayerNorms of one flagship request: each layer's final one
+    # (with the LayerNorm apart from its GEMM: 5 a layer and the subsampler's)
+    _, one = count_launches(lambda: pipe(requests["8 utts (3-10 s)"]), {})
+    n_l = cfg.num_hidden_layers
+    want_ln = {"asr_layernorm_bf16": n_l, "asr_gemm_ln_bf16": 4 * n_l + 1}
+    print(f"a flagship request (8 utts): {one.get('asr_layernorm_bf16', 0)} standalone LayerNorm launches (the "
+          f"LayerNorm apart from its GEMM: {5 * n_l + 1}), {one.get('asr_gemm_ln_bf16', 0)} GEMMs with the LayerNorm "
+          f"prologue, {sum(one.values())} kernel launches", flush=True)
+    if any(one.get(k, 0) != v for k, v in want_ln.items()):
+        _fail(f"a flagship request launched {one}, want {want_ln}")
 
     # Every request of the main path; pooled over them, the greedy ids must
     # also agree on >= 98 % of all valid frames (random weights leave many
@@ -4118,12 +4212,14 @@ def main() -> None:
     def layer_holds(title, cfg_, fm, keys, seed):
         """Every kernel of layer 0 of ``fm`` (the FusedCTC of ``cfg_``) at the
         shapes a B=8 x 10 s request gives it, against its plain version, with
-        bound, library call and device time: the LayerNorm; each GEMM of the
-        layer with its epilogue, into a column slice of a buffer whose other
-        columns and rows must stay untouched (2^-6); pos_query and the
-        attention (also at the 2 s and 20 s buckets), whose pad columns must
-        be zero; both depthwise convs at t_valid T, 1, T_pad and 0; the whole
-        layer against the sum of its 18 pieces' bounds (0.05 of scale).
+        bound, library call and device time: the LayerNorm; the three
+        LayerNorm-fed GEMMs with the LayerNorm in their prologue
+        (``ln_gemm_hold``: also bit-equal to layer_norm then gemm); each other
+        GEMM of the layer with its epilogue, into a column slice of a buffer
+        whose other columns and rows must stay untouched (2^-6); pos_query and
+        the attention (also at the 2 s and 20 s buckets), whose pad columns
+        must be zero; both depthwise convs at t_valid T, 1, T_pad and 0; the
+        whole layer against the sum of its 14 pieces' bounds (0.05 of scale).
         ``keys`` names each kernel's JSON entry. Returns layer 0's weights, the
         padded length and its tables."""
         D_, H_, dh_ = cfg_.hidden_size, cfg_.num_attention_heads, cfg_.head_size
@@ -4148,17 +4244,19 @@ def main() -> None:
 
         work_ln = (8.0 * M_ * D_, 4 * M_ * D_, "fp32")
         ln_g16, ln_b16 = w_["attn_ln_g"].bfloat16(), w_["attn_ln_b"].bfloat16()
-        g_ = compare(f"layernorm D={D_}", keys["layernorm"],
+        compare(f"layernorm D={D_}", keys["layernorm"],
                      lambda: K1.layer_norm(xf_, w_["attn_ln_g"], w_["attn_ln_b"], eps),
                      lambda: K1.layer_norm_plain(xf_, w_["attn_ln_g"], w_["attn_ln_b"], eps), 2 ** -7,
                      library_fn=lambda: F.layer_norm(xf_, (D_,), ln_g16, ln_b16, eps), work=work_ln)
 
+        for name, ln_key, wk, bk, kw in (("ff1_in (+act)", "ff1", "ff1_wi", "ff1_bi", dict(act=cfg_.hidden_act)),
+                                         ("qkv (dual)", "attn", "w_qkv", "b_qkv", dict(bias2=w_["bq_v"])),
+                                         ("cg_w1 (+gelu)", "cg", "cg_w1", "cg_b1", dict(act="gelu"))):
+            ln_gemm_hold(f"ln_gemm {name} K={D_} N={w_[wk].shape[1]}", keys["gemm_ln"], xf_, w_[f"{ln_key}_ln_g"],
+                         w_[f"{ln_key}_ln_b"], eps, w_[wk], w_[bk], **kw)
         # (name, input or None for a seeded one, weight, bias, epilogue, first column of the output)
-        gemms = [("ff1_in (+act)", g_, "ff1_wi", "ff1_bi", dict(act=cfg_.hidden_act), 16),
-                 ("ff1_out (+res)", None, "ff1_wo", "ff1_bo", dict(residual=xf_, alpha=0.5), 16),
-                 ("qkv (dual)", g_, "w_qkv", "b_qkv", dict(bias2=w_["bq_v"]), 16),
+        gemms = [("ff1_out (+res)", None, "ff1_wo", "ff1_bo", dict(residual=xf_, alpha=0.5), 16),
                  ("wo -> merged[:, :D]", None, "wo", "bo", {}, 0),
-                 ("cg_w1 (+gelu)", g_, "cg_w1", "cg_b1", dict(act="gelu"), 16),
                  ("cg_w2 -> merged[:, D:]", None, "cg_w2", "cg_b2", {}, D_),
                  ("merge_w (+res)", None, "merge_w", "merge_b", dict(residual=xf_, alpha=1.0), 16)]
         for name, a_, wk, bk, kw, lead in gemms:
@@ -4183,7 +4281,7 @@ def main() -> None:
                     or not bool((guard[M_:] == 7.0).all()):
                 failures.append(f"gemm {name} K={K_} N={N_}: wrote outside its slice")
 
-        qkv_, q_v_ = K1.gemm(g_, w_["w_qkv"], w_["b_qkv"], bias2=w_["bq_v"])
+        qkv_, q_v_ = K1.ln_gemm(xf_, w_["attn_ln_g"], w_["attn_ln_b"], eps, w_["w_qkv"], w_["b_qkv"], bias2=w_["bq_v"])
         work_pq = (2.0 * M_ * H_ * dh_ * D_ + 6.0 * M_ * H_ * D_,
                    2 * M_ * H_ * dh_ + 2 * H_ * dh_ * D_ + 2 * T_pad_ * D_ + 2 * M_ * H_ * D_, "bf16")
         pq = (q_v_, w_["wp"], tab_["rot_cos"], tab_["rot_sin"], T_pad_)
@@ -4221,7 +4319,7 @@ def main() -> None:
         # the depthwise convs: CSGU on the layer's own l, merge on a seeded
         # `merged`; F.conv1d(groups=C) in bf16 on the (B, C, T) layout is the
         # library call, without what the kernels fuse
-        l_ = K1.gemm(K1.layer_norm(xf_, w_["cg_ln_g"], w_["cg_ln_b"], eps), w_["cg_w1"], w_["cg_b1"], act="gelu")
+        l_ = K1.ln_gemm(xf_, w_["cg_ln_g"], w_["cg_ln_b"], eps, w_["cg_w1"], w_["cg_b1"], act="gelu")
         csgu_args = lambda tv: (l_, w_["csgu_ln_g"], w_["csgu_ln_b"], w_["csgu_dw"], w_["csgu_dw_b"],  # noqa: E731
                                 B_, T_pad_, tv, cfg_.csgu_activation, eps)
         gate_in = l_[:, Cg_:].reshape(B_, T_pad_, Cg_).transpose(1, 2).contiguous()
@@ -4243,14 +4341,7 @@ def main() -> None:
             compare(f"dwconv merge C={2 * D_} t_valid={tv}", keys["dwconv_merge"], lambda: K1.merge_conv(*margs(tv)),
                     lambda: K1.merge_conv_plain(*margs(tv)), 2 ** -7, **first)
 
-        layer_pieces = [  # the layer's 18 launches, in order, at the true widths
-            work_ln, gemm_work(M_, D_, I_), gemm_work(M_, I_, D_, 2 * M_ * D_),               # FF1 (+ residual)
-            work_ln, gemm_work(M_, D_, 3 * D_, 2 * M_ * D_), work_pq, work_att,               # attention
-            gemm_work(M_, D_, D_),                                                            # out projection
-            work_ln, gemm_work(M_, D_, 2 * Cg_), work_csgu, gemm_work(M_, Cg_, D_),           # cgMLP
-            work_merge, gemm_work(M_, 2 * D_, D_, 2 * M_ * D_),                               # merge (+ residual)
-            work_ln, gemm_work(M_, D_, I_), gemm_work(M_, I_, D_, 2 * M_ * D_), work_ln,      # FF2, final LN
-        ]
+        layer_pieces = layer_work(M_, D_, I_, Cg_, work_ln, work_pq, work_att, work_csgu, work_merge)  # true widths
         compare(f"layer (K1 whole) D={D_}", None, lambda: K1.ebranchformer_layer(x_, lens_, w_, cfg_, T_, tab_),
                 lambda: K1.ebranchformer_layer_plain(x_, lens_, w_, cfg_, T_, tab_), 0.05, work=layer_pieces)
         dev_ms = {
@@ -4373,14 +4464,16 @@ def main() -> None:
 
     def serve_requests(title, cfg_, model_, requests):
         """``model_`` saved and served through ``ASRPipeline(model_type="ctc")``
-        on the card, each request with its own launch counts (per layer 5
-        LayerNorms, 9 GEMMs and one of each other layer kernel; one log-mel
-        launch; no conv1: the model's own front end), then every request
-        against the plain path. Returns (the launches summed over the
-        requests, valid frames, frames whose greedy ids agree). Then the first
-        request once more in the serving profile: its serving kernels launched
-        (per layer 3 GELU epilogues with a GELU ``hidden_act``, else 1, and the
-        serving attention), no exact attention, against the serving plain path."""
+        on the card, each request with its own launch counts (per layer one
+        LayerNorm, 4 GEMMs with the LayerNorm prologue, 5 other GEMMs and one
+        of each other layer kernel; one log-mel launch; no conv1: the model's
+        own front end), then every request against the plain path. Returns
+        (the launches summed over the requests, valid frames, frames whose
+        greedy ids agree). Then the first request once more in the serving
+        profile: its serving kernels launched (per layer 3 GELU epilogues with
+        a GELU ``hidden_act``, else 1, each in a GEMM with the LayerNorm
+        prologue, and the serving attention), no exact attention, against the
+        serving plain path."""
         model_dir_ = os.path.join(ROOT, "build", f"chip_smoke_model_{cfg_.hidden_size}")
         save_params(model_, model_dir_)
         pipe_ = ASRPipeline(model_dir_, model_type="ctc", device="cuda", tokenizer=PieceTable(),
@@ -4389,8 +4482,8 @@ def main() -> None:
             _fail(f"the pipeline did not select the fused kernel path for the {title} config")
         pipe_(next(iter(requests.values()))[:1])  # first call: warm the allocator
         torch.cuda.synchronize()
-        per_layer = {"asr_layernorm_bf16": 5, "asr_gemm_bf16": 9, "asr_rel_attention": 1, "asr_pos_query": 1,
-                     "dwconv_csgu": 1, "dwconv_merge": 1}
+        per_layer = {"asr_layernorm_bf16": 1, "asr_gemm_ln_bf16": 4, "asr_gemm_bf16": 5, "asr_rel_attention": 1,
+                     "asr_pos_query": 1, "dwconv_csgu": 1, "dwconv_merge": 1}
         want = {k: v * cfg_.num_hidden_layers for k, v in per_layer.items()}
         summed = {}
         for name, audios in requests.items():
@@ -4416,7 +4509,7 @@ def main() -> None:
         texts, got_s = count_launches(lambda: pipe_(audios), {})
         n_l = cfg_.num_hidden_layers
         want_s = {"asr_log_mel_bf16": 1, "asr_rel_attention_serving": n_l,
-                  "asr_gemm_gelu_serving": (3 if cfg_.hidden_act == "gelu" else 1) * n_l}
+                  "asr_gemm_ln_gelu_serving": (3 if cfg_.hidden_act == "gelu" else 1) * n_l}
         print(f"request {name}, serving profile: launches {got_s}", flush=True)
         if len(texts) != len(audios) or any(got_s.get(k, 0) != v for k, v in want_s.items()) \
                 or "asr_rel_attention" in got_s:
@@ -4435,7 +4528,8 @@ def main() -> None:
     if nf.subsample is not None:
         _fail("the 176-wide config took the subsampler kernel")
     nw, nT_pad, n_tab = layer_holds(f"176-wide config ({SMALL_CONFIG})", ncfg, nf, seed=176, keys=dict(
-        layernorm="layernorm_d176", gemm="gemm_d176", pos_query="pos_query_dh44", rel_attention="rel_attention_dh44",
+        layernorm="layernorm_d176", gemm="gemm_d176", gemm_ln="gemm_ln_d176", pos_query="pos_query_dh44",
+        rel_attention="rel_attention_dh44",
         dwconv_csgu="dwconv_csgu_c352", dwconv_merge="dwconv_merge_c352"))
     nD, nH, n_dh = ncfg.hidden_size, ncfg.num_attention_heads, ncfg.head_size
     hw, d_rot = nw["wp"].shape[2], K1.rot_width(nD)
@@ -4542,7 +4636,8 @@ def main() -> None:
     if wf.subsample is not None:
         _fail("the 512-wide config took the subsampler kernel")
     layer_holds(f"512-wide config ({WIDE_CONFIG})", wcfg, wf, seed=512, keys=dict(
-        layernorm="layernorm_d512", gemm="gemm_d512", pos_query="pos_query_q512", rel_attention="rel_attention_q512",
+        layernorm="layernorm_d512", gemm="gemm_d512", gemm_ln="gemm_ln_d512", pos_query="pos_query_q512",
+        rel_attention="rel_attention_q512",
         dwconv_csgu="dwconv_csgu_c1024", dwconv_merge="dwconv_merge_c1024"))
     del wf
     # K4 at (dh 64, q_rot 512) in bf16 and fp32 and K5 at dh 64; fp32 K4 (and K5) also timed at the fp32
@@ -4684,7 +4779,8 @@ def main() -> None:
     recipe_launches = recipe_phase(dev, smi)
     variant_launches = variants_phase(dev, smi, compare)
     stats_launches, pg_launches = tools_phase(dev, smi)
-    serving_launches, high_launches, gate_counts = serving_phase(dev, smi, compare, fused, model_dir, requests)
+    serving_launches, high_launches, gate_counts = serving_phase(dev, smi, compare, ln_gemm_hold, fused, model_dir,
+                                                                 requests)
     bins_rows = mel_bins_phase(dev, smi, compare)
 
     if failures:
@@ -4697,6 +4793,8 @@ def main() -> None:
         "conv2": ("asr_conv2", "csrc/conv2.cu", "huggingface_asr_tpu/ops/pallas_subsample.py:147"),
         "gemm": ("asr_gemm_bf16", "csrc/gemm.cuh", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
         "layernorm": ("asr_layernorm_bf16", "csrc/layer.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
+        "gemm_ln": ("asr_gemm_ln_bf16", "csrc/gemm_ln.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
+        "gemm_ln_subsample": ("asr_gemm_ln_bf16", "csrc/gemm_ln.cu", "huggingface_asr_tpu/ops/pallas_subsample.py:147"),
         "pos_query": ("asr_pos_query", "csrc/layer.cu", "huggingface_asr_tpu/ops/pallas_layer.py:417"),
         "rel_attention": ("asr_rel_attention", "csrc/rel_attention.cu",
                           "huggingface_asr_tpu/ops/pallas_layer.py:417"),
@@ -4712,13 +4810,15 @@ def main() -> None:
     # the GEMM's readings at M = 32,768 and the convs' at B=128: the same
     # kernel, source and counter
     routes.update({k: routes["gemm"] for k in results if k.startswith("gemm_m32768_")})
+    routes.update({k: routes["gemm_ln"] for k in results if k.startswith("gemm_ln_m32768_")})
     routes.update({k: routes[k.rsplit("_", 1)[0]] for k in results
                    if k.endswith("_b128") and k.rsplit("_", 1)[0] in routes})
     launches.update({k: v for k, v in train_launches.items() if k.startswith("asr_rel_attention_")
                      and k != "asr_rel_attention"})
     # the 176-wide entries: launches from its own paths (4 requests; 3 train steps; 1 evaluation step)
     narrow_routes = {
-        "layernorm_d176": routes["layernorm"], "gemm_d176": routes["gemm"], "pos_query_dh44": routes["pos_query"],
+        "layernorm_d176": routes["layernorm"], "gemm_d176": routes["gemm"], "gemm_ln_d176": routes["gemm_ln"],
+        "pos_query_dh44": routes["pos_query"],
         "pos_query_dh44_b128": routes["pos_query"],
         "rel_attention_dh44": routes["rel_attention"], "dwconv_csgu_c352": routes["dwconv_csgu"],
         "dwconv_merge_c352": routes["dwconv_merge"],
@@ -4728,7 +4828,8 @@ def main() -> None:
     }
     # the 512-wide entries: launches from its own paths (4 requests; 3 BEST-RQ steps and 1 evaluation)
     wide_routes = {
-        "layernorm_d512": routes["layernorm"], "gemm_d512": routes["gemm"], "pos_query_q512": routes["pos_query"],
+        "layernorm_d512": routes["layernorm"], "gemm_d512": routes["gemm"], "gemm_ln_d512": routes["gemm_ln"],
+        "pos_query_q512": routes["pos_query"],
         "rel_attention_q512": routes["rel_attention"], "dwconv_csgu_c1024": routes["dwconv_csgu"],
         "dwconv_merge_c1024": routes["dwconv_merge"],
         "rel_attention_train_fwd_q512": routes["rel_attention_train_fwd"],
@@ -4759,7 +4860,7 @@ def main() -> None:
         "mel_bf16": ("asr_log_mel_bf16", "csrc/mel_bf16.cu", routes["mel"][2]),
         "conv1_serving": ("asr_conv1_serving", "csrc/subsample.cu", routes["conv1"][2]),
         "conv2_serving": ("asr_conv2_serving", "csrc/conv2.cu", routes["conv2"][2]),
-        "gemm_gelu_serving": ("asr_gemm_gelu_serving", "csrc/gemm.cuh", routes["gemm"][2]),
+        "gemm_gelu_serving": ("asr_gemm_ln_gelu_serving", "csrc/gemm_ln.cu", routes["gemm"][2]),
         "rel_attention_serving": ("asr_rel_attention_serving", "csrc/rel_attention.cu", routes["gemm"][2]),
     }
     serving_routes.update(mel_bf16_b128=serving_routes["mel_bf16"], conv1_serving_b128=serving_routes["conv1_serving"],

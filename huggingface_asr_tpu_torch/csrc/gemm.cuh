@@ -58,6 +58,11 @@
 //   or, if gate:       v = bf16(res * v)   (K1's CSGU linear: res is x_r)
 //   dual output (Q):   out2 = bf16(acc + bias2) for columns < n2
 //
+// The LayerNorm prologue (gemm_ln_kernel and gemm_ln_small_kernel, entry
+// asr_gemm_ln_bf16 in gemm_ln.cu; the end of this file): the GEMM of
+// bf16(LN(x)) with x the raw rows, on the two tiles' products and epilogue,
+// with a row tile of the A operand held whole in shared memory.
+//
 // The gate epilogue (asr_gemm_gate_bf16 in layer.cu) finishes the CSGU of a
 // model with csgu_use_linear_after_conv (pallas_layer.py:578-583): the
 // product is the linear over the conv output, the activation the CSGU's, and
@@ -505,9 +510,11 @@ cudaError_t launch_kernel(Large, const Maps& maps, int M, int N, int K, const Ep
     return cudaGetLastError();
 }
 
-template <class T>
+// The tile's tensor maps, then its kernel for the activation; `norm`: the
+// LayerNorm prologue's operands, for its tiles (the end of this file).
+template <class T, class... Prologue>
 cudaError_t launch_tile(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K,
-                        const Epilogue& e, cudaStream_t stream) {
+                        const Epilogue& e, cudaStream_t stream, const Prologue&... norm) {
     Maps maps;
     const cuuint64_t dims_a[2] = {(cuuint64_t)K, (cuuint64_t)M}, dims_b[2] = {(cuuint64_t)N, (cuuint64_t)K};
     const cuuint64_t stride_a[1] = {(cuuint64_t)lda * 2}, stride_b[1] = {(cuuint64_t)ldb * 2};
@@ -517,12 +524,12 @@ cudaError_t launch_tile(const bf16* A, int lda, const bf16* B, int ldb, int M, i
         err = tensor_map_bf16(&maps.b, B, 2, dims_b, stride_b, box_b, CU_TENSOR_MAP_SWIZZLE_128B);
     if (err != cudaSuccess) return err;
     switch (e.act) {
-        case ACT_IDENTITY: return launch_kernel<ACT_IDENTITY>(T(), maps, M, N, K, e, stream);
-        case ACT_GELU: return launch_kernel<ACT_GELU>(T(), maps, M, N, K, e, stream);
-        case ACT_GELU_TANH: return launch_kernel<ACT_GELU_TANH>(T(), maps, M, N, K, e, stream);
-        case ACT_RELU: return launch_kernel<ACT_RELU>(T(), maps, M, N, K, e, stream);
-        case ACT_SILU: return launch_kernel<ACT_SILU>(T(), maps, M, N, K, e, stream);
-        case ACT_GELU_SERVING: return launch_kernel<ACT_GELU_SERVING>(T(), maps, M, N, K, e, stream);
+        case ACT_IDENTITY: return launch_kernel<ACT_IDENTITY>(T(), maps, M, N, K, e, norm..., stream);
+        case ACT_GELU: return launch_kernel<ACT_GELU>(T(), maps, M, N, K, e, norm..., stream);
+        case ACT_GELU_TANH: return launch_kernel<ACT_GELU_TANH>(T(), maps, M, N, K, e, norm..., stream);
+        case ACT_RELU: return launch_kernel<ACT_RELU>(T(), maps, M, N, K, e, norm..., stream);
+        case ACT_SILU: return launch_kernel<ACT_SILU>(T(), maps, M, N, K, e, norm..., stream);
+        case ACT_GELU_SERVING: return launch_kernel<ACT_GELU_SERVING>(T(), maps, M, N, K, e, norm..., stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -543,6 +550,504 @@ inline cudaError_t launch(const bf16* A, int lda, const bf16* B, int ldb, int M,
     if (ceil_div(M, Large::BM) * ceil_div(N, Large::BN) >= SMS)
         return launch_tile<Large>(A, lda, B, ldb, M, N, K, e, stream);
     return launch_tile<Small>(A, lda, B, ldb, M, N, K, e, stream);
+}
+
+// ---- The LayerNorm prologue: pallas_layer.py::_ln inside the product that
+// consumes it (the TPU kernel's `_ln` output never leaves VMEM; here it never
+// reaches device memory), for the GEMMs whose A operand is only the
+// LayerNorm of their input rows (gemm_ln.cu). A row's statistics need all K
+// of its values before its first normalised k-step, and the operand is the
+// same for every column tile of a row tile: normalising each A box as it
+// arrives in the ring (the tiles' A boxes come anew for every column tile)
+// repeats the statistics and the normalisation 8 to 16 times at the layer's N,
+// which made such a GEMM slower than the standalone LayerNorm and the GEMM
+// together. So the A row tile stays: a block loads the raw rows of a row tile
+// once (K / 64 TMA boxes of 128 or 64 rows), takes their statistics from
+// shared memory, normalises them in place, and streams only the B boxes of
+// the row tile's column tiles through the ring. Where the row tiles are few
+// (M = 2,048) a row tile's column tiles are split over several blocks, each
+// of which normalises the rows again. The operations are common.cuh's, in
+// the standalone LayerNorm's order, so the operand is bit for bit the bf16
+// tensor that layer.cu's kernel writes, and the products (each output's sum
+// over k in the same order, whatever the tile) and the epilogue are the
+// GEMM's: the outputs are those of asr_layernorm_bf16 followed by
+// asr_gemm_bf16, bit for bit.
+
+struct Norm {
+    const float* g;  // [K]
+    const float* b;  // [K]
+    float eps;
+};
+
+// The large tile with A resident. The output tiles are cut into units of one
+// row tile and a run of its column tiles (all of them where the row tiles
+// alone cover the card's SMs, else `segs` runs of a row tile); a block takes
+// units blockIdx.x, blockIdx.x + gridDim.x, ... and the tiles of each in
+// turn, the two teams alternating over the block's tiles and their main loops
+// taking turns as in gemm_kernel_pingpong. For each unit the producer loads
+// the row tile's raw rows into an A buffer (two where they fit beside the
+// ring, K <= 256: the next unit's rows arrive under this one's products), then
+// the B boxes of the unit's tiles; the team of the unit's first tile takes the
+// statistics from the buffer and normalises it (its eight warps, 16 rows
+// each; all sixteen warps, 8 rows each, for a block's first unit, when both
+// teams are idle), then signals `a_ready`; each team signals `a_free` (its
+// eight warps) once its last product on the unit is done, and the producer
+// refills a buffer only after both teams did. A barrier of a buffer completes once per
+// use of it and nobody waits past the next use, so its parity is never
+// ambiguous.
+struct LargeLN {
+    static constexpr int BM = 128, BN = 128, THREADS = 640, MAX_KB = 8, MAX_STAGES = 8;  // K <= 512
+    static constexpr int CONSUMER_REGS = Large::CONSUMER_REGS, PRODUCER_REGS = Large::PRODUCER_REGS;
+    static constexpr uint32_t A_BOX = BM * BK * 2, B_BOX = BK * 64 * 2, B_BYTES = B_BOX * (BN / 64);
+    static constexpr uint32_t GB = 2 * MAX_KB * BK * 4;  // the LayerNorm's g and b, K floats each
+    static constexpr uint32_t BARRIERS = 8 * 32, TAIL = BARRIERS + 2 * 2 * BN * 4 + GB;  // 26 barriers; biases; g, b
+    static constexpr uint32_t SMEM_MAX = 232448;  // the dynamic shared memory a block can take
+    static int buffers(int kb) { return 1024 + 2 * kb * A_BOX + 4 * B_BYTES + TAIL <= SMEM_MAX ? 2 : 1; }
+    static int stages(int kb, int nbuf) {
+        const int n = (int)((SMEM_MAX - 1024 - TAIL - nbuf * kb * A_BOX) / B_BYTES);
+        return n < MAX_STAGES ? n : MAX_STAGES;
+    }
+    static uint32_t smem_bytes(int kb, int nbuf, int stages) { return 1024 + nbuf * kb * A_BOX + stages * B_BYTES + TAIL; }
+};
+
+// The statistics of rows row0 .. row0 + 8 Q - 1 of the A row tile at `a` (one
+// warp; its K / 64 boxes BOX bytes apart), with the standalone kernel's sums:
+// there, lane v adds columns v, v + 32, ... of a row. Here lane L = 4 h + u reads
+// 16-byte chunks, columns 8 u .. 8 u + 7 of each 32-column segment of rows
+// row0 + h (and row0 + h + 8 for Q = 2), and holds the sums of those eight
+// lanes v = 8 u + e (each over the same values in the same order); 4 Q chunks
+// in flight. warp_sum's butterfly (lane bits 4 to 0) is then lane bits 1 and 0
+// of u, across the four lanes of h, and bits 2 to 0 of e, inside the lane. Each
+// lane keeps mu and r of the rows it normalises (ln_box): row0 + L / 8 + 4 i,
+// i < 2 Q. Rows past M are the TMA's zeros.
+template <uint32_t BOX, int Q>
+__device__ __forceinline__ void ln_rows(uint32_t a, int row0, int K, float eps, float (&mu)[2 * Q], float (&r)[2 * Q]) {
+    const int lane = threadIdx.x % 32, u = lane % 4, h = lane / 4;
+    float s[Q][8], ss[Q][8];
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[q][e] = ss[q][e] = 0.0f;
+    for (int c0 = 0; c0 < K; c0 += 4 * 32) {
+        uint4 v[Q][4];
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int c = c0 + 32 * j + 8 * u, row = row0 + h + 8 * q;  // box c / 64, swizzled chunk
+                v[q][j] = c < K ? ld_shared_v4(a + (c / BK) * BOX + row * 128 + ((((c % BK) / 8) ^ (row & 7)) << 4))
+                                : make_uint4(0u, 0u, 0u, 0u);
+            }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (c0 + 32 * j + 8 * u >= K) break;  // K % 8 == 0: lane v's columns end below K
+#pragma unroll
+            for (int q = 0; q < Q; ++q) {
+                const uint32_t w[4] = {v[q][j].x, v[q][j].y, v[q][j].z, v[q][j].w};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    ln_accumulate(bf16_lo(w[e]), s[q][2 * e], ss[q][2 * e]);
+                    ln_accumulate(bf16_hi(w[e]), s[q][2 * e + 1], ss[q][2 * e + 1]);
+                }
+            }
+        }
+    }
+    float m[Q], rr[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+#pragma unroll
+        for (int o = 2; o > 0; o >>= 1)  // lane bits 4, 3
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+                s[q][e] += __shfl_xor_sync(0xffffffffu, s[q][e], o);
+                ss[q][e] += __shfl_xor_sync(0xffffffffu, ss[q][e], o);
+            }
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1)  // lane bits 2, 1, 0: a + b == b + a, so lane e's sum serves e ^ o too
+#pragma unroll
+            for (int e = 0; e < o; ++e) {
+                s[q][e] = s[q][e] + s[q][e + o];
+                ss[q][e] = ss[q][e] + ss[q][e + o];
+            }
+        ln_finish(s[q][0], ss[q][0], K, eps, m[q], rr[q]);
+    }
+    // row row0 + L / 8 + 4 i: q = i / 2, held by lane 4 ((L / 8 + 4 i) % 8)
+#pragma unroll
+    for (int i = 0; i < 2 * Q; ++i) {
+        const int src = 4 * ((lane / 8 + 4 * i) % 8);
+        mu[i] = __shfl_sync(0xffffffffu, m[i / 2], src);
+        r[i] = __shfl_sync(0xffffffffu, rr[i / 2], src);
+    }
+}
+
+// Normalise in place rows row0 .. row0 + 8 Q - 1 of an A box (k-values k0 ..
+// k0 + 63, 128-byte swizzle: chunk c of row q at chunk c ^ (q % 8)), one warp:
+// lane l rewrites the 16-byte chunk l % 8 (8 columns) of rows row0 + l / 8 +
+// 4 i, i < 2 Q, so that a quarter warp covers one row's 128 bytes (no bank
+// conflict) and a lane needs the g and b of 8 columns (`gb`: g, then b, K
+// floats each, in shared memory). Columns past K (an edge box: the TMA's
+// zeros) take g = b = 0 and stay 0. Fenced for the async proxy: the caller's
+// barrier then makes the box whole for the products.
+template <int Q>
+__device__ __forceinline__ void ln_box(uint32_t box, int row0, int k0, int K, uint32_t gb, const float (&mu)[2 * Q],
+                                       const float (&r)[2 * Q]) {
+    const int lane = threadIdx.x % 32, j = lane % 8, c = k0 + 8 * j;
+    row0 += lane / 8;
+    float g[8], b[8];
+    if (c < K) {  // K % 8 == 0: the chunk lies wholly below K or wholly past it
+        const uint4 g0 = ld_shared_v4(gb + 4 * c), g1 = ld_shared_v4(gb + 4 * c + 16);
+        const uint4 b0 = ld_shared_v4(gb + 4 * (K + c)), b1 = ld_shared_v4(gb + 4 * (K + c) + 16);
+        const uint32_t wg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+        const uint32_t wb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) g[e] = __uint_as_float(wg[e]), b[e] = __uint_as_float(wb[e]);
+    } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) g[e] = b[e] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 2 * Q; ++i) {
+        const int q = row0 + 4 * i;
+        const uint32_t addr = box + q * 128 + ((j ^ (q & 7)) << 4);
+        const uint4 v = ld_shared_v4(addr);
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+        uint32_t o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // word e: columns c + 2e (low half), c + 2e + 1
+            o[e] = pack_bf16(ln_apply(bf16_lo(w[e]), mu[i], r[i], g[2 * e], b[2 * e]),
+                             ln_apply(bf16_hi(w[e]), mu[i], r[i], g[2 * e + 1], b[2 * e + 1]));
+        st_shared_v4(addr, make_uint4(o[0], o[1], o[2], o[3]));
+    }
+    fence_proxy_async();
+}
+
+template <int ACT>
+__global__ void __launch_bounds__(LargeLN::THREADS, 1)
+gemm_ln_kernel(const __grid_constant__ Maps maps, int M, int N, int K, Epilogue e, Norm nm, int nbuf, int stages,
+               int segs) {
+    using T = LargeLN;
+    constexpr int BN = T::BN;
+    extern __shared__ unsigned char smem_raw[];
+    const int k_steps = (K + BK - 1) / BK;  // and the A boxes of a row tile
+    const uint32_t abuf = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t ring = abuf + nbuf * k_steps * T::A_BOX;
+    const uint32_t full = ring + stages * T::B_BYTES, empty = full + 8 * T::MAX_STAGES, turn = empty + 8 * T::MAX_STAGES;
+    const uint32_t a_full = turn + 16, a_ready = a_full + 16, a_free = a_ready + 16;  // [buffer]; a_free [team][buffer]
+    const uint32_t gb = full + T::BARRIERS + 2 * 2 * BN * 4;  // g, then b
+    if (threadIdx.x == 0) {
+        for (int st = 0; st < stages; ++st) {
+            mbar_init(full + 8 * st, 1);
+            mbar_init(empty + 8 * st, 8);  // the eight warps of the team whose tile the stage holds
+        }
+        for (int i = 0; i < 2; ++i) {
+            mbar_init(turn + 8 * i, 8);
+            mbar_init(a_full + 8 * i, 1);
+            mbar_init(a_ready + 8 * i, 1);
+            mbar_init(a_free + 8 * i, 8);
+            mbar_init(a_free + 16 + 8 * i, 8);
+        }
+        mbar_init_fence();
+    }
+    __syncthreads();
+
+    const int tiles_n = (N + BN - 1) / BN, units = ((M + T::BM - 1) / T::BM) * segs;
+    const int wg = threadIdx.x / 128;
+    if (wg == 4) {
+        // ---- producer: one thread; per unit its A row tile, then two B boxes per k-step of each tile
+        setmaxnreg_dec<T::PRODUCER_REGS>();
+        if (threadIdx.x != 512) return;
+        int st = 0;
+        uint32_t ph = 0;  // the ring stage loaded next, and the parity of its filling
+        for (int u = blockIdx.x, n = 0; u < units; u += gridDim.x, ++n) {
+            const int b = n % nbuf, use = n / nbuf;
+            if (use > 0) {  // both teams are done with the buffer's last unit
+                mbar_wait(a_free + 8 * b, (use - 1) & 1);
+                mbar_wait(a_free + 16 + 8 * b, (use - 1) & 1);
+            }
+            mbar_arrive_expect_tx(a_full + 8 * b, k_steps * T::A_BOX + (n == 0 ? 8 * K : 0));
+            if (n == 0) {  // g and b, once, with the first rows
+                bulk_load(gb, nm.g, 4 * K, a_full);
+                bulk_load(gb + 4 * K, nm.b, 4 * K, a_full);
+            }
+            for (int kb = 0; kb < k_steps; ++kb)
+                tma_load_2d(abuf + (b * k_steps + kb) * T::A_BOX, &maps.a, a_full + 8 * b, kb * BK, u / segs * T::BM);
+            const int seg = u % segs;
+            for (int c = seg * tiles_n / segs; c < (seg + 1) * tiles_n / segs; ++c)
+                for (int ks = 0; ks < k_steps; ++ks) {
+                    const uint32_t bar = full + 8 * st;
+                    mbar_wait(empty + 8 * st, ph ^ 1);
+                    mbar_arrive_expect_tx(bar, T::B_BYTES);
+#pragma unroll
+                    for (int j = 0; j < BN / 64; ++j)
+                        tma_load_2d(ring + st * T::B_BYTES + j * T::B_BOX, &maps.b, bar, c * BN + 64 * j, ks * BK);
+                    if (++st == stages) st = 0, ph ^= 1;
+                }
+        }
+        return;
+    }
+    setmaxnreg_inc<T::CONSUMER_REGS>();
+
+    // ---- consumer team wg / 2 takes the block's tiles team, team + 2, ...; its
+    // warpgroup wg % 2 has rows 64 (wg % 2) .. + 63 of each
+    const int lane = threadIdx.x % 32, team = wg / 2, tid = threadIdx.x % 256;
+    float* bias_s = reinterpret_cast<float*>(smem_raw + (full + T::BARRIERS - smem_u32(smem_raw))) + team * 2 * BN;
+    float* bias2_s = bias_s + BN;
+    int i = 0, st = 0;  // the block's tiles so far; the ring stage of the next one's first k-step
+    uint32_t ph = 0;    // and the parity of that stage's filling
+    for (int u = blockIdx.x, n = 0; u < units; u += gridDim.x, ++n) {
+        const int b = n % nbuf, use = n / nbuf, seg = u % segs;
+        const int c0 = seg * tiles_n / segs, c1 = (seg + 1) * tiles_n / segs;
+        const uint32_t a = abuf + b * k_steps * T::A_BOX;
+        if (n == 0) {
+            // the block's first rows: both teams are idle, its sixteen warps take 8 rows each
+            mbar_wait(a_full, 0);
+            float mu[2], rs[2];
+            const int row0 = 64 * team + tid / 32 * 8;
+            ln_rows<T::A_BOX, 1>(a, row0, K, nm.eps, mu, rs);
+            for (int kb = 0; kb < k_steps; ++kb) ln_box<1>(a + kb * T::A_BOX, row0, kb * BK, K, gb, mu, rs);
+            named_barrier(3, 512);  // every row of the buffer normalised and fenced
+            if (threadIdx.x == 0) mbar_arrive(a_ready);  // the buffer's first use, as for the units after it
+            if (team != i % 2 && c1 - c0 == 1 && lane == 0) mbar_arrive(a_free + 16 * team);  // no tile of it
+        } else if (team == i % 2) {
+            // the unit's first tile is this team's: the statistics and the
+            // normalised operand, under the other team's products
+            mbar_wait(a_full + 8 * b, use & 1);
+            float mu[4], rs[4];
+            ln_rows<T::A_BOX, 2>(a, tid / 32 * 16, K, nm.eps, mu, rs);
+            for (int kb = 0; kb < k_steps; ++kb) ln_box<2>(a + kb * T::A_BOX, tid / 32 * 16, kb * BK, K, gb, mu, rs);
+            named_barrier(1 + team, 256);  // every row of the buffer normalised and fenced
+            if (tid == 0) mbar_arrive(a_ready + 8 * b);
+        } else {
+            mbar_wait(a_ready + 8 * b, use & 1);
+            if (c1 - c0 == 1 && lane == 0) mbar_arrive(a_free + 16 * team + 8 * b);  // no tile of it is this team's
+        }
+        for (int c = c0; c < c1; ++c, ++i) {
+            if (i % 2 != team) {  // the other team's tile: its k-steps pass through the ring
+                for (st += k_steps; st >= stages; st -= stages) ph ^= 1;
+                continue;
+            }
+            const int m0 = u / segs * T::BM, n0 = c * BN;
+            const bool dual = e.out2 != nullptr && n0 < e.n2;  // this column tile also writes out2
+            named_barrier(1 + team, 256);  // the last tile's epilogue has read its biases
+            if (tid < BN) {
+                const int col = n0 + tid;
+                bias_s[tid] = e.bias != nullptr && col < N ? e.bias[col] : 0.0f;
+                bias2_s[tid] = dual && col < e.n2 ? e.bias2[col] : 0.0f;
+            }
+            float acc[BN / 2];
+#pragma unroll
+            for (int j = 0; j < BN / 2; ++j) acc[j] = 0.0f;
+            fence_regs(acc);
+            if (team == 1) mbar_wait(turn + 8, (i / 2) & 1);  // the main loops take turns in the tiles' order
+            else if (i > 0) mbar_wait(turn, (i / 2 - 1) & 1);
+            int prev = 0;
+            for (int ks = 0; ks < k_steps; ++ks) {
+                mbar_wait(full + 8 * st, ph);
+                const uint64_t a_desc = make_desc(a + ks * T::A_BOX + (wg % 2) * (64 * 128), 16, 1024, SWIZZLE_128);
+                const uint64_t b_desc = make_desc(ring + st * T::B_BYTES, T::B_BOX, 1024, SWIZZLE_128);
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < BK / 16; ++kk) product(acc, a_desc + 2 * kk, b_desc + kk * (16 * 128 / 16));
+                wgmma_commit();
+                if (ks > 0) {
+                    // the previous step's products are done: hand its stage back
+                    wgmma_wait<1>();
+                    if (lane == 0) mbar_arrive(empty + 8 * prev);
+                }
+                prev = st;
+                if (++st == stages) st = 0, ph ^= 1;
+            }
+            if (lane == 0) mbar_arrive(turn + 8 * (1 - team));  // every stage of this tile has been waited for
+            wgmma_wait<0>();
+            if (lane == 0) {
+                mbar_arrive(empty + 8 * prev);
+                if (c + 2 >= c1) mbar_arrive(a_free + 16 * team + 8 * b);  // this team's last product on the unit
+            }
+            fence_regs(acc);
+            named_barrier(1 + team, 256);  // the biases are in place
+            epilogue<BN, ACT>(acc, m0 + 64 * (wg % 2), n0, bias_s, bias2_s, dual, M, N, e);
+        }
+    }
+}
+
+// The small tile with A resident, where the large tiles would not fill the
+// card's SMs (launch()'s rule): gemm_kernel's 64 x 64 tiles and products, two
+// consumer warpgroups and a producer warp, two blocks an SM. A block takes one
+// unit, 64 rows and a run of their column tiles (as many runs as give the SMs
+// two blocks each): the producer loads the rows' raw A (K / 64 boxes of 64 x
+// 64) and then, k-step by k-step, the B boxes of the warpgroups' current tiles
+// into a ring each; the eight warps take the statistics of 8 rows each and
+// normalise them in place, and then warpgroup w runs the run's tiles w, w + 2,
+// ..., products and epilogue, beside the other's. (One warpgroup doing the
+// rows' prologue and then each tile in turn measured 19 % slower than the
+// LayerNorm and the GEMM apart at M = 2,048: its prologue took 3.5 us.)
+struct SmallLN {
+    static constexpr int BM = 64, BN = 64, NWG = 2, BLOCKS = 2, THREADS = 128 * NWG + 32;
+    static constexpr uint32_t A_BOX = BM * BK * 2, B_BOX = BK * 64 * 2;
+    static int stages(int kb) { return kb <= 4 ? 4 : 2; }  // a warpgroup's ring: two blocks an SM at K = 512 too
+    static uint32_t smem_bytes(int kb) {
+        return 1024 + kb * A_BOX + NWG * stages(kb) * B_BOX + kb * BK * 8 + 8 * (2 * NWG * 4 + 1) + NWG * BN * 8;
+    }
+};
+
+template <int ACT>
+__global__ void __launch_bounds__(SmallLN::THREADS, SmallLN::BLOCKS)
+gemm_ln_small_kernel(const __grid_constant__ Maps maps, int M, int N, int K, Epilogue e, Norm nm, int segs,
+                     int stages) {
+    using T = SmallLN;
+    constexpr int BN = T::BN, NWG = T::NWG;
+    extern __shared__ unsigned char smem_raw[];
+    const int k_steps = (K + BK - 1) / BK;
+    const uint32_t a = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t ring = a + k_steps * T::A_BOX, gb = ring + NWG * stages * T::B_BOX;  // gb: g, then b
+    // full / empty of warpgroup w's stage st at 8 (4 w + st); then a_full
+    const uint32_t full = gb + 8 * K, empty = full + 8 * 4 * NWG, a_full = empty + 8 * 4 * NWG;
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < 4 * NWG; ++i) {
+            mbar_init(full + 8 * i, 1);
+            mbar_init(empty + 8 * i, 4);  // the consumer warpgroup's four warps
+        }
+        mbar_init(a_full, 1);
+        mbar_init_fence();
+    }
+    __syncthreads();
+
+    const int tiles_n = (N + BN - 1) / BN, seg = blockIdx.x % segs, m0 = blockIdx.x / segs * T::BM;
+    const int c0 = seg * tiles_n / segs, c1 = (seg + 1) * tiles_n / segs;
+    const int wg = threadIdx.x / 128;
+    if (wg == NWG) {
+        // ---- producer: one thread; the rows' A boxes, then k-step by k-step one B box for each
+        // warpgroup's current tile
+        if (threadIdx.x != 128 * NWG) return;
+        mbar_arrive_expect_tx(a_full, k_steps * T::A_BOX + 8 * K);
+        bulk_load(gb, nm.g, 4 * K, a_full);
+        bulk_load(gb + 4 * K, nm.b, 4 * K, a_full);
+        for (int kb = 0; kb < k_steps; ++kb) tma_load_2d(a + kb * T::A_BOX, &maps.a, a_full, kb * BK, m0);
+        int st = 0;
+        uint32_t ph = 0;
+        for (int c = c0; c < c1; c += NWG)
+            for (int ks = 0; ks < k_steps; ++ks) {
+                for (int w = 0; w < NWG && c + w < c1; ++w) {
+                    const uint32_t i = 4 * w + st;
+                    mbar_wait(empty + 8 * i, ph ^ 1);
+                    mbar_arrive_expect_tx(full + 8 * i, T::B_BOX);
+                    tma_load_2d(ring + (w * stages + st) * T::B_BOX, &maps.b, full + 8 * i, (c + w) * BN, ks * BK);
+                }
+                if (++st == stages) st = 0, ph ^= 1;
+            }
+        return;
+    }
+
+    // ---- consumers: the rows' statistics and operand (8 rows a warp), then warpgroup wg's tiles
+    const int lane = threadIdx.x % 32;
+    mbar_wait(a_full, 0);
+    {
+        float mu[2], rs[2];
+        ln_rows<T::A_BOX, 1>(a, threadIdx.x / 32 * 8, K, nm.eps, mu, rs);
+        for (int kb = 0; kb < k_steps; ++kb) ln_box<1>(a + kb * T::A_BOX, threadIdx.x / 32 * 8, kb * BK, K, gb, mu, rs);
+    }
+    named_barrier(1, 128 * NWG);  // every row of the operand normalised and fenced
+    float* bias_s = reinterpret_cast<float*>(smem_raw + (a_full + 8 - smem_u32(smem_raw))) + wg * 2 * BN;
+    float* bias2_s = bias_s + BN;
+    int st = 0;
+    uint32_t ph = 0;
+    for (int c = c0 + wg; c < c1; c += NWG) {
+        const int n0 = c * BN;
+        const bool dual = e.out2 != nullptr && n0 < e.n2;  // this column tile also writes out2
+        named_barrier(2 + wg, 128);  // the last tile's epilogue has read its biases
+        if (threadIdx.x % 128 < BN) {
+            const int col = n0 + threadIdx.x % 128;
+            bias_s[threadIdx.x % 128] = e.bias != nullptr && col < N ? e.bias[col] : 0.0f;
+            bias2_s[threadIdx.x % 128] = dual && col < e.n2 ? e.bias2[col] : 0.0f;
+        }
+        float acc[BN / 2];
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) acc[j] = 0.0f;
+        fence_regs(acc);
+        int prev = 0;
+        for (int ks = 0; ks < k_steps; ++ks) {
+            const uint32_t i = 4 * wg + st;
+            mbar_wait(full + 8 * i, ph);
+            const uint64_t a_desc = make_desc(a + ks * T::A_BOX, 16, 1024, SWIZZLE_128);
+            const uint64_t b_desc = make_desc(ring + (wg * stages + st) * T::B_BOX, T::B_BOX, 1024, SWIZZLE_128);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk) product(acc, a_desc + 2 * kk, b_desc + kk * (16 * 128 / 16));
+            wgmma_commit();
+            if (ks > 0) {
+                wgmma_wait<1>();
+                if (lane == 0) mbar_arrive(empty + 8 * prev);
+            }
+            prev = i;
+            if (++st == stages) st = 0, ph ^= 1;
+        }
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+        fence_regs(acc);
+        named_barrier(2 + wg, 128);  // the biases are in place
+        epilogue<BN, ACT>(acc, m0, n0, bias_s, bias2_s, dual, M, N, e);
+    }
+}
+
+template <int ACT>
+cudaError_t launch_kernel(LargeLN, const Maps& maps, int M, int N, int K, const Epilogue& e, const Norm& nm,
+                             cudaStream_t stream) {
+    using T = LargeLN;
+    static bool ready = false;  // the attribute and the check below are made once per activation
+    if (!ready) {
+        cudaError_t err = cudaFuncSetAttribute(gemm_ln_kernel<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)T::SMEM_MAX);
+        if (err != cudaSuccess) return err;
+        cudaFuncAttributes attr;  // as for the large tile: the consumers' registers must be there
+        err = cudaFuncGetAttributes(&attr, gemm_ln_kernel<ACT>);
+        if (err != cudaSuccess) return err;
+        if (attr.numRegs * T::THREADS < 128 * (4 * T::CONSUMER_REGS + T::PRODUCER_REGS))
+            return cudaErrorLaunchOutOfResources;
+        ready = true;
+    }
+    const int kb = ceil_div(K, BK), nbuf = T::buffers(kb), stages = T::stages(kb, nbuf);
+    // as many runs of a row tile's column tiles as fill the SMs, where its row tiles alone do not
+    const int rows = ceil_div(M, T::BM), tiles_n = ceil_div(N, T::BN);
+    int segs = SMS / rows;
+    segs = segs < 1 ? 1 : segs > tiles_n ? tiles_n : segs;
+    const int units = rows * segs;
+    gemm_ln_kernel<ACT><<<units < SMS ? units : SMS, T::THREADS, T::smem_bytes(kb, nbuf, stages), stream>>>(
+        maps, M, N, K, e, nm, nbuf, stages, segs);
+    return cudaGetLastError();
+}
+
+template <int ACT>
+cudaError_t launch_kernel(SmallLN, const Maps& maps, int M, int N, int K, const Epilogue& e, const Norm& nm,
+                             cudaStream_t stream) {
+    using T = SmallLN;
+    static bool ready = false;  // the attribute is set once per activation, for the widest K
+    if (!ready) {
+        cudaError_t err = cudaFuncSetAttribute(gemm_ln_small_kernel<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)T::smem_bytes(LargeLN::MAX_KB));
+        if (err != cudaSuccess) return err;
+        ready = true;
+    }
+    // runs of a row tile's column tiles: enough blocks for two an SM
+    const int rows = ceil_div(M, T::BM), tiles_n = ceil_div(N, T::BN), kb = ceil_div(K, BK);
+    int segs = T::BLOCKS * SMS / rows;
+    segs = segs < 1 ? 1 : segs > tiles_n ? tiles_n : segs;
+    gemm_ln_small_kernel<ACT><<<rows * segs, T::THREADS, T::smem_bytes(kb), stream>>>(maps, M, N, K, e, nm, segs,
+                                                                                     T::stages(kb));
+    return cudaGetLastError();
+}
+
+// The LayerNorm prologue's shape contract (kernels/layer.py::ln_gemm_contract):
+// launch()'s, without a residual or gate, and K <= 512 (a row tile, K wide,
+// in shared memory); g and b 16-byte aligned. The tile is chosen as launch()
+// chooses it.
+inline cudaError_t launch_ln(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K, const Epilogue& e,
+                             const Norm& nm, cudaStream_t stream) {
+    if (M < 1 || N % 8 || K % 8 || K > BK * LargeLN::MAX_KB || lda % 8 || ldb % 8 || e.ldo % 8 || e.ldo2 % 8 ||
+        e.n2 % 8 || e.res != nullptr)
+        return cudaErrorInvalidValue;
+    if (ceil_div(M, LargeLN::BM) * ceil_div(N, LargeLN::BN) >= SMS)
+        return launch_tile<LargeLN>(A, lda, B, ldb, M, N, K, e, stream, nm);
+    return launch_tile<SmallLN>(A, lda, B, ldb, M, N, K, e, stream, nm);
 }
 
 }  // namespace gemm

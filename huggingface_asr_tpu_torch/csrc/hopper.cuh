@@ -199,6 +199,24 @@ template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
 }
+// 16 bytes of shared memory at a shared-space address, read and written by
+// the thread itself (a TMA-filled operand that the thread rewrites in place).
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+    uint4 v;
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr) : "memory");
+    return v;
+}
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+                 : "memory");
+}
+// Make this thread's shared-memory writes visible to the async proxy (a
+// wgmma or TMA store that reads them next, after a barrier).
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
     asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");

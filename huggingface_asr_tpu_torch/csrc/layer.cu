@@ -11,7 +11,10 @@
 //
 // LayerNorm: a row reduction over D <= 1024 values, memory-bound. One warp
 // per row reads the row once for both moments (flax's fast variance
-// E[x^2] - mu^2, clipped at 0, as pallas_layer.py::_ln) and writes bf16 once.
+// E[x^2] - mu^2, clipped at 0, as pallas_layer.py::_ln; common.cuh's ln_*
+// steps) and writes bf16 once. It runs each layer's final LayerNorm; the four
+// whose output only feeds a GEMM run in that GEMM's prologue (gemm_ln.cu),
+// with the same operations in the same order.
 //
 // Positional query (pallas_layer.py:489-499): per (row, head) ce|co = q_v_h @
 // [wp_e | wp_o][h] (K = the head width, 32 or 64 with the fold's zero pad)
@@ -100,19 +103,11 @@ layernorm_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict__ 
     const int lane = threadIdx.x % 32;
     if (row >= M) return;
     const bf16* xr = x + (size_t)row * ldx;
-    float s = 0.0f, ss = 0.0f;
-    for (int c = lane; c < D; c += 32) {
-        const float v = to_f(xr[c]);
-        s += v;
-        ss += v * v;
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    const float mu = s / D;
-    const float var = fmaxf(ss / D - mu * mu, 0.0f);
-    const float r = rsqrtf(var + eps);
+    float s = 0.0f, ss = 0.0f, mu, r;
+    for (int c = lane; c < D; c += 32) ln_accumulate(to_f(xr[c]), s, ss);
+    ln_finish(warp_sum(s), warp_sum(ss), D, eps, mu, r);
     bf16* yr = y + (size_t)row * ldy;
-    for (int c = lane; c < D; c += 32) yr[c] = to_bf((to_f(xr[c]) - mu) * (r * g[c]) + b[c]);
+    for (int c = lane; c < D; c += 32) yr[c] = to_bf(ln_apply(to_f(xr[c]), mu, r, g[c], b[c]));
 }
 
 ASR_API int asr_layernorm_bf16(const void* x, const void* g, const void* b, void* y, int M,

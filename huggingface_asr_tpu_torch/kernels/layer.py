@@ -5,14 +5,19 @@ The TPU kernel ``_layer_kernel`` keeps one whole layer in VMEM. Hopper has
 227 KB of shared memory per block, so here the layer is a short sequence of
 kernels (``csrc/``), in ``_layer_kernel``'s order:
 
-  FF1:    layer_norm -> gemm(+bias, act) -> gemm(+bias, x + 0.5*out)
-  attn:   layer_norm -> gemm(QKV; dual bias writes q_u and q_v)
+  FF1:    ln_gemm(+bias, act) -> gemm(+bias, x + 0.5*out)
+  attn:   ln_gemm(QKV; dual bias writes q_u and q_v)
           -> pos_query -> rel_attention -> gemm(out proj)
-  cgMLP:  layer_norm -> gemm(+bias, exact GELU) -> csgu dwconv -> gemm
+  cgMLP:  ln_gemm(+bias, exact GELU) -> csgu dwconv -> gemm
           (with ``csgu_use_linear_after_conv``: -> ungated csgu dwconv
           -> gemm(+bias, act, x_r * out: the gate epilogue) -> gemm)
   merge:  merge dwconv -> gemm(+bias, residual + out)
   FF2, then the final layer_norm.
+
+``ln_gemm`` is the GEMM whose A operand is the LayerNorm of its input rows,
+normalised inside the kernel (``csrc/gemm_ln.cu``): the four LayerNorms that
+only feed a product cost no launch of their own, 14 launches a layer (15 with
+the CSGU linear).
 
 Each piece has its plain PyTorch version here. A wrapper sends a CPU tensor
 to the plain version and a CUDA tensor to its kernel, and raises on anything
@@ -265,6 +270,74 @@ def gemm(a, w, bias=None, *, act="identity", residual=None, alpha=1.0, bias2=Non
                   ptr(bias2), out.data_ptr(), ptr(out2), ptr(residual), M, N, K, lda, N, ldo,
                   ldo2, ldr, n2, GEMM_ACT_CODES[act], int(round_first), float(alpha),
                   label="asr_gemm_gelu_serving" if act == "gelu_serving" else None)
+    return (out, out2) if bias2 is not None else out
+
+
+# ---------------------------------------------------------------------------
+# GEMM with a LayerNorm prologue
+
+
+def ln_gemm_plain(x, g, b, eps, w, bias=None, *, act="identity", bias2=None, round_first=False, out=None):
+    """``gemm_plain(layer_norm_plain(x, g, b, eps), w, ...)``: the GEMM of the
+    bf16 LayerNorm of the rows of ``x`` (the operand rounded once, as the TPU
+    kernel's ``_ln`` feeds its ``_mm``)."""
+    return gemm_plain(layer_norm_plain(x, g, b, eps), w, bias, act=act, bias2=bias2, round_first=round_first,
+                      out=out)
+
+
+LN_GEMM_MAX_K = 512  # the large tile keeps a 128-row tile of normalised rows, K wide, in shared memory
+
+
+def ln_gemm_contract(x, g, b, w, out=None, bias2=None) -> None:
+    """Raise unless ``csrc/gemm_ln.cu`` takes these operands (whatever device
+    they lie on): what ``gemm_contract`` asks of ``x`` as the A operand (K a
+    multiple of 8: the product's edge tiles), K at most ``LN_GEMM_MAX_K`` (the
+    widest hidden size the fused path admits), and ``g``, ``b`` (K,) fp32,
+    contiguous and 16-byte aligned (read 8 columns at a time)."""
+    gemm_contract(x, w, out, None, bias2)
+    K = x.shape[1]
+    if K > LN_GEMM_MAX_K:
+        raise ValueError(f"ln_gemm kernel takes K <= {LN_GEMM_MAX_K}, got {K}")
+    for name, t in (("g", g), ("b", b)):
+        if t.dtype != F32 or tuple(t.shape) != (K,) or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: expected a contiguous, 16-byte aligned ({K},) float32 tensor, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+
+
+def ln_gemm(x, g, b, eps, w, bias=None, *, act="identity", bias2=None, round_first=False, out=None):
+    """``ln_gemm_plain``; CUDA tensors run ``csrc/gemm_ln.cu`` (the GEMM of
+    ``csrc/gemm.cuh`` with the LayerNorm in its operand prologue: one launch,
+    the normalised rows never written; bit-equal to ``layer_norm`` followed by
+    ``gemm``). Takes ``gemm``'s epilogues but the residual and the gate:
+    ``act``, ``bias2`` (returns ``(out, out2)``), ``round_first``, ``out`` (a
+    column slice is fine). ``act="gelu_serving"`` is counted under
+    ``asr_gemm_ln_gelu_serving``. What the kernel takes is
+    ``ln_gemm_contract``'s to say; anything else raises."""
+    tensors = [t for t in (x, g, b, w, bias, bias2, out) if t is not None]
+    if not _build.on_cuda(*tensors):
+        return ln_gemm_plain(x, g, b, eps, w, bias, act=act, bias2=bias2, round_first=round_first, out=out)
+    M, K = x.shape
+    N = w.shape[1]
+    if out is None:
+        out = torch.empty(M, N, dtype=BF16, device=x.device)
+    ln_gemm_contract(x, g, b, w, out, bias2)
+    for name, t in (("x", x), ("out", out)):
+        if t.dtype != BF16:
+            raise ValueError(f"{name}: expected {BF16}, got {t.dtype}")
+    _build.check(w, "w", BF16, (K, N))
+    if bias is not None:
+        _build.check(bias, "bias", F32, (N,))
+    out2, n2, ldo2 = None, 0, 0
+    if bias2 is not None:
+        n2 = bias2.shape[0]
+        _build.check(bias2, "bias2", F32, (n2,))
+        out2 = torch.empty(M, n2, dtype=BF16, device=x.device)
+        ldo2 = n2
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    _build.launch("asr_gemm_ln_bf16", "pppfppppp" + "i" * 10, x.data_ptr(), g.data_ptr(), b.data_ptr(),
+                  float(eps), w.data_ptr(), ptr(bias), ptr(bias2), out.data_ptr(), ptr(out2), M, N, K,
+                  x.stride(0), N, out.stride(0), ldo2, n2, GEMM_ACT_CODES[act], int(round_first),
+                  label="asr_gemm_ln_gelu_serving" if act == "gelu_serving" else None)
     return (out, out2) if bias2 is not None else out
 
 
@@ -653,11 +726,11 @@ def fold_layer_weights(layer, cfg, device=None) -> Dict[str, torch.Tensor]:
 # The layer
 
 PLAIN_OPS = types.SimpleNamespace(
-    layer_norm=layer_norm_plain, gemm=gemm_plain, pos_query=pos_query_plain,
+    layer_norm=layer_norm_plain, gemm=gemm_plain, ln_gemm=ln_gemm_plain, pos_query=pos_query_plain,
     rel_attention=rel_attention_plain, csgu=csgu_plain, csgu_conv=csgu_conv_plain, merge_conv=merge_conv_plain,
 )
 KERNEL_OPS = types.SimpleNamespace(
-    layer_norm=layer_norm, gemm=gemm, pos_query=pos_query,
+    layer_norm=layer_norm, gemm=gemm, ln_gemm=ln_gemm, pos_query=pos_query,
     rel_attention=rel_attention, csgu=csgu, csgu_conv=csgu_conv, merge_conv=merge_conv,
 )
 
@@ -670,14 +743,12 @@ def _layer(x, lengths, w, cfg, t_valid, tables, ops, profile):
     xf = x.reshape(M, D)
 
     # macaron FF1: x += 0.5 * FF(LN(x))
-    h = ops.layer_norm(xf, w["ff1_ln_g"], w["ff1_ln_b"], eps)
-    h = ops.gemm(h, w["ff1_wi"], w["ff1_bi"], act=act)
+    h = ops.ln_gemm(xf, w["ff1_ln_g"], w["ff1_ln_b"], eps, w["ff1_wi"], w["ff1_bi"], act=act)
     xf = ops.gemm(h, w["ff1_wo"], w["ff1_bo"], residual=xf, alpha=0.5)
     residual = xf
 
     # attention branch
-    g = ops.layer_norm(xf, w["attn_ln_g"], w["attn_ln_b"], eps)
-    qkv, q_v = ops.gemm(g, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
+    qkv, q_v = ops.ln_gemm(xf, w["attn_ln_g"], w["attn_ln_b"], eps, w["w_qkv"], w["b_qkv"], bias2=w["bq_v"])
     q_rot = ops.pos_query(q_v, w["wp"], tables["rot_cos"], tables["rot_sin"], T)
     heads = lambda i: qkv[:, i * H * hw:(i + 1) * H * hw].view(B, T, H, hw)
     attn = ops.rel_attention(heads(0), heads(1), heads(2), q_rot.view(B, T, H, d_rot),
@@ -686,8 +757,7 @@ def _layer(x, lengths, w, cfg, t_valid, tables, ops, profile):
     ops.gemm(attn.view(M, H * hw), w["wo"], w["bo"], out=merged[:, :D])
 
     # cgMLP branch (channel_proj1 is always the profile's GELU)
-    l = ops.layer_norm(xf, w["cg_ln_g"], w["cg_ln_b"], eps)
-    l = ops.gemm(l, w["cg_w1"], w["cg_b1"], act=profile_act("gelu", profile))
+    l = ops.ln_gemm(xf, w["cg_ln_g"], w["cg_ln_b"], eps, w["cg_w1"], w["cg_b1"], act=profile_act("gelu", profile))
     if "csgu_lin_w" in w:
         # the CSGU linear between the conv and the gate (pallas_layer.py:578-583)
         conv = ops.csgu_conv(l, w["csgu_ln_g"], w["csgu_ln_b"], w["csgu_dw"], w["csgu_dw_b"], B, T, t_valid, eps)
@@ -703,8 +773,7 @@ def _layer(x, lengths, w, cfg, t_valid, tables, ops, profile):
     xf = ops.gemm(merged, w["merge_w"], w["merge_b"], residual=residual, alpha=1.0)
 
     # macaron FF2, final LN
-    h = ops.layer_norm(xf, w["ff2_ln_g"], w["ff2_ln_b"], eps)
-    h = ops.gemm(h, w["ff2_wi"], w["ff2_bi"], act=act)
+    h = ops.ln_gemm(xf, w["ff2_ln_g"], w["ff2_ln_b"], eps, w["ff2_wi"], w["ff2_bi"], act=act)
     xf = ops.gemm(h, w["ff2_wo"], w["ff2_bo"], residual=xf, alpha=0.5)
     return ops.layer_norm(xf, w["final_ln_g"], w["final_ln_b"], eps).view(B, T, D)
 

@@ -5,7 +5,8 @@ and CUDA kernels (counterpart of ``huggingface_asr_tpu/ops/pallas_subsample.py``
   conv2 (C->C, 3x3, s2, p1) + GELU      csrc/conv2.cu, implicit GEMM on wgmma
   flatten + Dense (F2*C -> D)           gemm (rows of the Dense weight
                                         regathered into f2-major order)
-  LayerNorm, Dense projection           layer_norm, gemm
+  LayerNorm + Dense projection          ln_gemm (the LayerNorm in the GEMM's
+                                        operand prologue)
 
 Rounding points are the TPU kernel's: each product accumulates in fp32 and
 rounds to bf16 BEFORE the bf16 bias is added (``round_first``), then the GELU
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 
 from huggingface_asr_tpu_torch.kernels import _build
 from huggingface_asr_tpu_torch.kernels.layer import (
-    BF16, F32, _round, act_plain, check_profile, gemm, gemm_plain, layer_norm, layer_norm_plain, profile_act,
+    BF16, F32, _round, act_plain, check_profile, gemm, gemm_plain, ln_gemm, ln_gemm_plain, profile_act,
 )
 
 
@@ -140,9 +141,8 @@ def conv2(y1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, T2: int, profile
     return y2
 
 
-PLAIN_OPS = types.SimpleNamespace(conv1=conv1_plain, conv2=conv2_plain, gemm=gemm_plain,
-                                  layer_norm=layer_norm_plain)
-KERNEL_OPS = types.SimpleNamespace(conv1=conv1, conv2=conv2, gemm=gemm, layer_norm=layer_norm)
+PLAIN_OPS = types.SimpleNamespace(conv1=conv1_plain, conv2=conv2_plain, gemm=gemm_plain, ln_gemm=ln_gemm_plain)
+KERNEL_OPS = types.SimpleNamespace(conv1=conv1, conv2=conv2, gemm=gemm, ln_gemm=ln_gemm)
 
 
 def _subsample(feats, w, cfg, T2_pad, ops, profile):
@@ -157,8 +157,7 @@ def _subsample(feats, w, cfg, T2_pad, ops, profile):
     y1 = ops.conv1(feats, w["w1"], w["b1"], profile)
     y2 = ops.conv2(y1, w["w2"], w["b2"], T2_pad, profile)
     h = ops.gemm(y2.view(B * T2_pad, F2 * C), w["wout"], w["bout"], round_first=True)
-    h = ops.layer_norm(h, w["ln_g"], w["ln_b"], cfg.layer_norm_eps)
-    h = ops.gemm(h, w["wproj"], w["bproj"], round_first=True)
+    h = ops.ln_gemm(h, w["ln_g"], w["ln_b"], cfg.layer_norm_eps, w["wproj"], w["bproj"], round_first=True)
     return h.view(B, T2_pad, D)
 
 

@@ -59,6 +59,18 @@ def ctc_loss(
     raise ValueError(f"unknown reduction {reduction}")
 
 
+def ctc_forced_alignment_log_prob(
+    logits: torch.Tensor,
+    logit_lengths: torch.Tensor,
+    labels: torch.Tensor,
+    label_lengths: torch.Tensor,
+    blank_id: int = -1,
+) -> torch.Tensor:
+    """log P(labels | logits) per example, (B,): the negated per-example
+    ``ctc_loss`` (-1e9 where no alignment exists, as in the JAX package)."""
+    return -ctc_loss(logits, logit_lengths, labels, label_lengths, blank_id=blank_id, reduction="none")
+
+
 def ctc_greedy_decode(
     logits: torch.Tensor,
     logit_lengths: torch.Tensor,

@@ -1,6 +1,6 @@
 """A/B of kernel source variants on one NVIDIA GPU.
 
-    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k4wide,k5fp32,yardsticks,k1,k5,gemm,dwconv,mel,melbf16,geluserving,posq,conv1,cmvn,ln,trace,ptxas DIR_A [DIR_B ...]
+    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k4wide,k5fp32,yardsticks,k1,k5,gemm,lngemm,dwconv,mel,melbf16,geluserving,posq,conv1,cmvn,ln,trace,ptxas DIR_A [DIR_B ...]
 
 Each DIR is a directory holding a full copy of ``huggingface_asr_tpu_torch/csrc``
 (the package's own directory is a valid DIR). Every variant is built and run in
@@ -69,7 +69,14 @@ ragged lengths) and time them beside their bounds, cmvn also beside a bf16 cast 
 moved by one streaming kernel), conv1 also beside ``F.conv2d`` in bf16 (device times)
 with the share of its outputs equal to the plain version's bit for bit, and beside ``fill_`` of its output (the
 card's rate of writing those bytes); ``ln`` holds the LayerNorm at M = 2,048 and 32,768 rows (D = 256) against its
-plain version and times it beside ``F.layer_norm`` in bf16 (device times); ``trace`` takes 100 profiler
+plain version and times it beside ``F.layer_norm`` in bf16 (device times); ``lngemm`` runs the five GEMMs that
+read a LayerNorm of their input (FF1's and FF2's intermediate dense and cgMLP's channel_proj1 with the GELU, the
+serving GELU too, the QKV with its second output, the subsampler's projection with ``round_first``) at the
+flagship's widths and the 512-wide config's (the projection at 256 only), M = 2,048, 8,192 and 32,768 rows: a tree with
+``asr_gemm_ln_bf16`` through ``ln_gemm`` (the LayerNorm in the GEMM's prologue), and also through its own
+``layer_norm`` then ``gemm``, beside ``F.layer_norm`` + ``F.linear`` in bf16; a tree without it through that
+chain alone; each output held against ``ln_gemm_plain``, with a digest of its bits (equal digests across trees: equal
+outputs) and device times; ``trace`` takes 100 profiler
 traces of 10 calls each of the CSGU conv at C = 512 and 1,024, a GEMM and the LayerNorm (B=8 x 256 rows), opened
 and closed right at the calls and 20 ms before and after them, and counts the traces that hold fewer kernel records than host
 launch records, and whether the first or the last call's record is the one missing. ``ptxas`` prints
@@ -301,6 +308,60 @@ def legacy_fp32_backward(TA) -> None:
     TA._KernelFunction.backward = staticmethod(patched)
 
 
+LNGEMM_SITES = [  # (name, N for (D, I), keyword arguments besides bias, widths it runs at)
+    ("ff1_wi +gelu", lambda D, I: I, dict(act="gelu"), (256, 512)),
+    ("ff1_wi +serving gelu", lambda D, I: I, dict(act="gelu_serving"), (256, 512)),
+    ("qkv dual", lambda D, I: 3 * D, dict(bias2=True), (256, 512)),
+    ("cg_w1 +gelu", lambda D, I: I, dict(act="gelu"), (256, 512)),
+    ("ff2_wi +gelu", lambda D, I: I, dict(act="gelu"), (256, 512)),
+    ("wproj round_first", lambda D, I: D, dict(round_first=True), (256,)),
+]
+
+
+def lngemm_variant(K1, dev) -> None:
+    """``lngemm``: the LayerNorm-fed GEMMs through this tree's route (see the module docstring)."""
+    import hashlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from huggingface_asr_tpu_torch.kernels import _build
+
+    fused = hasattr(_build.library(), "asr_gemm_ln_bf16")
+    for D, I in ((256, 1024), (512, 2048)):
+        for name, n_of, kw0, widths in LNGEMM_SITES:
+            if D not in widths:
+                continue
+            for M in (2048, 8192, 32768):
+                N = n_of(D, I)
+                gen = torch.Generator().manual_seed(M + D + N)
+                x = (torch.randn(M, D, generator=gen) * 2.0 + 0.3).bfloat16().to(dev)
+                g = (1.0 + 0.1 * torch.randn(D, generator=gen)).to(dev)
+                b = (0.1 * torch.randn(D, generator=gen)).to(dev)
+                w = (torch.randn(D, N, generator=gen) * D ** -0.5).bfloat16().to(dev)
+                bias = (0.1 * torch.randn(N, generator=gen)).bfloat16().float().to(dev)
+                kw = dict(kw0)
+                if kw.pop("bias2", False):
+                    kw["bias2"] = (0.1 * torch.randn(D, generator=gen)).bfloat16().float().to(dev)
+                chain = lambda: K1.gemm(K1.layer_norm(x, g, b, 1e-5), w, bias, **kw)  # noqa: E731
+                call = (lambda: K1.ln_gemm(x, g, b, 1e-5, w, bias, **kw)) if fused else chain  # noqa: E731
+                got, ref = call(), K1.ln_gemm_plain(x, g, b, 1e-5, w, bias, **kw)
+                torch.cuda.synchronize()
+                pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+                err = max(float((o.float() - r.float()).abs().max()) for o, r in pairs)
+                ok = all(float((o.float() - r.float()).abs().max()) <= 2 ** -6 * max(1.0, float(r.float().abs().max()))
+                         for o, r in pairs)
+                digest = hashlib.sha1(b"".join(o.view(torch.int16).cpu().numpy().tobytes() for o, _ in pairs))
+                line = (f"lngemm {name} D={D} M={M} N={N} {'fused' if fused else 'chain'}: err={err:.3e} "
+                        f"{'ok' if ok else 'FAIL'} digest={digest.hexdigest()[:16]} device_ms={device_ms(call):.4f}")
+                if fused:
+                    g16, b16, w_t = g.bfloat16(), b.bfloat16(), w.t().contiguous()
+                    library = lambda: F.linear(F.layer_norm(x, (D,), g16, b16, 1e-5), w_t, bias.bfloat16())  # noqa: E731
+                    line += (f" chain_device_ms={device_ms(chain):.4f} "
+                             f"layer_norm+linear_device_ms={device_ms(library):.4f}")
+                print(line, flush=True)
+
+
 def run_variant(csrc: str, what: str) -> None:
     import torch
 
@@ -319,7 +380,7 @@ def run_variant(csrc: str, what: str) -> None:
                "yardsticks": "layer.cu",
                "k1": "rel_attention.cu", "k5": "shift",
                "gemm": "layer.cu", "dwconv": "dwconv", "mel": "mel.cu", "melbf16": "mel_bf16", "posq": "layer.cu",
-               "geluserving": "layer.cu",
+               "geluserving": "layer.cu", "lngemm": "gemm_ln.cu",
                "conv1": "subsample.cu", "cmvn": "mel.cu", "ln": "layer.cu", "trace": "dwconv", "ptxas": ""}
     keep = False
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
@@ -533,6 +594,8 @@ def run_variant(csrc: str, what: str) -> None:
                 print(f"pos_query H={H} hw={hw} D={D} M={M}: err={err:.3e} {'ok' if ok else 'FAIL'} "
                       f"ms={timed(kernel):.4f} device_ms={device_ms(kernel):.4f} bmm_device_ms={device_ms(library):.4f}",
                       flush=True)
+    if "lngemm" in what.split(","):
+        lngemm_variant(K1, dev)
     if "ln" in what.split(","):
         import torch.nn.functional as F
 

@@ -40,6 +40,7 @@ from chip_smoke import ROOT, config_file, flagship_model, seeded_model, speech
 
 GROUPS = (  # (group, substring of the demangled kernel name), first match wins
     ("conv2", "conv2_kernel"),
+    ("gemm with the LayerNorm prologue", "gemm_ln_"),
     ("gemm", "gemm_kernel"),
     ("rel_attention", "rel_attention_kernel"),
     ("dwconv_csgu", "dwconv_csgu_kernel"),

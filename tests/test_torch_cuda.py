@@ -1849,8 +1849,10 @@ def test_conv1_serving_gelu_on_every_bf16_value(bias):
 
 def test_ctc_infer_serving_launches_kernels_and_matches_plain(fused):
     """``FusedCTC(..., profile="serving")``: the serving pieces launch (and no
-    exact conv1, conv2 or attention), the logits within 0.05 of the plain
-    serving path's."""
+    exact conv1, conv2 or attention; the GELU GEMMs all take the LayerNorm
+    prologue, the QKV and the subsampler's projection too, and one
+    LayerNorm a layer is left), the logits within 0.05 of the plain serving
+    path's."""
     dev = _cuda()
     model, _ = fused
     fm = FusedCTC(model, "cuda", profile="serving")
@@ -1861,9 +1863,96 @@ def test_ctc_infer_serving_launches_kernels_and_matches_plain(fused):
     torch.cuda.synchronize()
     n = CFG.num_hidden_layers
     want = {"asr_conv1_serving": 1, "asr_conv2_serving": 1, "asr_rel_attention_serving": n,
-            "asr_gemm_gelu_serving": 3 * n}
+            "asr_gemm_ln_gelu_serving": 3 * n, "asr_gemm_ln_bf16": n + 1, "asr_layernorm_bf16": n}
     assert {k: _build.LAUNCHES[k] for k in want} == want
     assert not {"asr_conv1", "asr_conv2", "asr_rel_attention"} & set(_build.LAUNCHES)
     ref = ctc_infer(fm, feats, lens, plain=True)
     assert torch.equal(got.logit_lengths, ref.logit_lengths)
     _close(got.logits, ref.logits, 0.05)
+
+
+# ---- the GEMM with a LayerNorm prologue (csrc/gemm_ln.cu): at the five call
+# sites' epilogues and the shipped configs' widths, both tile shapes (M = 56
+# and 2,048 in the small one, 32,768 in the large one), bit-equal to the
+# two-launch chain it replaces (layer_norm, then gemm), and within the GEMM's
+# tolerance of its plain version.
+
+LN_GEMM_SITES = {  # (N for a hidden size D, the call's epilogue): the macaron FFs' and cgMLP's
+    "ff_in (+gelu)": (lambda D: 4 * D, dict(act="gelu")),  # intermediate dense, channel_proj1
+    "ff_in (+serving gelu)": (lambda D: 4 * D, dict(act="gelu_serving")),
+    "qkv (dual)": (lambda D: 3 * D, dict()),  # bias2: q_v
+    "proj (round_first)": (lambda D: D, dict(round_first=True)),  # the subsampler's projection
+}
+
+
+@pytest.mark.parametrize("site", list(LN_GEMM_SITES))
+@pytest.mark.parametrize("D", [176, 256, 512])
+@pytest.mark.parametrize("M", [56, 2048, 32768])
+def test_ln_gemm_bit_equal_to_layernorm_then_gemm(site, D, M):
+    """One launch, counted under its label; every output (both of the QKV
+    call) bit-equal to ``layer_norm`` then ``gemm``, within 2^-6 of
+    ``ln_gemm_plain``. The rows are a view into a wider buffer and include a
+    zero row (its operand is b)."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(D + M)
+    n_of, kw = LN_GEMM_SITES[site]
+    N = n_of(D)
+    x = (torch.randn(M, D + 16, generator=g) * 2.0 + 0.3).bfloat16().to(dev)[:, 8:D + 8]
+    x[M // 3] = 0.0
+    gamma, beta = (1.0 + 0.1 * torch.randn(D, generator=g)).to(dev), (0.1 * torch.randn(D, generator=g)).to(dev)
+    w = (torch.randn(D, N, generator=g) * D ** -0.5).bfloat16().to(dev)
+    bias = K1._round(0.1 * torch.randn(N, generator=g)).to(dev)
+    if site == "qkv (dual)":
+        kw = dict(bias2=K1._round(0.1 * torch.randn(D, generator=g)).to(dev))
+    _build.reset_launch_counts()
+    got = K1.ln_gemm(x, gamma, beta, 1e-5, w, bias, **kw)
+    label = "asr_gemm_ln_gelu_serving" if kw.get("act") == "gelu_serving" else "asr_gemm_ln_bf16"
+    assert dict(_build.LAUNCHES) == {label: 1}
+    chain = K1.gemm(K1.layer_norm(x, gamma, beta, 1e-5), w, bias, **kw)
+    ref = K1.ln_gemm_plain(x, gamma, beta, 1e-5, w, bias, **kw)
+    for got_i, chain_i, ref_i in (zip(got, chain, ref) if "bias2" in kw else [(got, chain, ref)]):
+        _bit_equal(got_i, chain_i)
+        _close(got_i, ref_i, 2 ** -6)
+
+
+@pytest.mark.parametrize("M,D,N", [(2112, 256, 1024), (8200, 256, 768), (8200, 176, 704), (32768, 256, 128),
+                                   (32768, 512, 1536)])
+def test_ln_gemm_large_tile_schedules(M, D, N):
+    """The large tile's schedules: a row tile's column tiles split into runs
+    over several blocks (M = 2,112 and 8,200, a ragged last row tile), one
+    column tile a row tile (one team idle in every other unit), one A buffer
+    at K = 512; bit-equal to layer_norm then gemm."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(M + N)
+    x = (torch.randn(M, D, generator=g) * 2.0 + 0.3).bfloat16().to(dev)
+    gamma, beta = (1.0 + 0.1 * torch.randn(D, generator=g)).to(dev), (0.1 * torch.randn(D, generator=g)).to(dev)
+    w = (torch.randn(D, N, generator=g) * D ** -0.5).bfloat16().to(dev)
+    bias = K1._round(0.1 * torch.randn(N, generator=g)).to(dev)
+    got = K1.ln_gemm(x, gamma, beta, 1e-5, w, bias, act="gelu")
+    _bit_equal(got, K1.gemm(K1.layer_norm(x, gamma, beta, 1e-5), w, bias, act="gelu"))
+
+
+def test_ln_gemm_into_a_column_slice_and_its_contract():
+    """``out`` as a column slice of a wider buffer (the other columns and the
+    rows past M untouched); what the kernel does not take raises before any
+    launch: K % 8, K past 512, g of the wrong length or type."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(5)
+    M, D, N = 120, 256, 256
+    x = torch.randn(M, D, generator=g).bfloat16().to(dev)
+    gamma, beta = (1.0 + 0.1 * torch.randn(D, generator=g)).to(dev), (0.1 * torch.randn(D, generator=g)).to(dev)
+    w = (torch.randn(D, N, generator=g) * D ** -0.5).bfloat16().to(dev)
+    guard = torch.full((M + 8, N + 32), 7.0, dtype=torch.bfloat16, device=dev)
+    K1.ln_gemm(x, gamma, beta, 1e-5, w, None, out=guard[:M, 16:16 + N])
+    _bit_equal(guard[:M, 16:16 + N], K1.gemm(K1.layer_norm(x, gamma, beta, 1e-5), w))
+    assert bool((guard[:, :16] == 7.0).all() and (guard[:, 16 + N:] == 7.0).all() and (guard[M:] == 7.0).all())
+    _build.reset_launch_counts()
+    wide = torch.zeros(M, 520, dtype=torch.bfloat16, device=dev)
+    for bad in (dict(x=x[:, :D - 4], gamma=gamma[:D - 4], beta=beta[:D - 4], w=w[:D - 4]),
+                dict(x=wide, gamma=wide[0].float(), beta=wide[0].float(),
+                     w=torch.zeros(520, 64, dtype=torch.bfloat16, device=dev)),
+                dict(x=x, gamma=gamma[:D - 8], beta=beta, w=w),
+                dict(x=x, gamma=gamma.double(), beta=beta, w=w)):
+        with pytest.raises(ValueError):
+            K1.ln_gemm(bad["x"], bad["gamma"], bad["beta"], 1e-5, bad["w"])
+    assert not _build.LAUNCHES

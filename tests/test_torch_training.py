@@ -26,6 +26,7 @@ from huggingface_asr_tpu.data import bucketing as j_bucketing
 from huggingface_asr_tpu.data import collator as j_collator
 from huggingface_asr_tpu.data import synthetic_speech as j_speech
 from huggingface_asr_tpu.models.ebranchformer import EBranchformerForCTC as JModel
+from huggingface_asr_tpu.ops.ctc import ctc_forced_alignment_log_prob as j_forced_log_prob
 from huggingface_asr_tpu.ops.ctc import ctc_loss as j_ctc_loss
 from huggingface_asr_tpu.training import optim as j_optim
 from huggingface_asr_tpu.utils import metrics as j_metrics
@@ -46,7 +47,7 @@ from huggingface_asr_tpu_torch.models.ebranchformer import (
     relative_positional_embeddings,
 )
 from huggingface_asr_tpu_torch.ops import spec_augment as aug
-from huggingface_asr_tpu_torch.ops.ctc import ctc_loss
+from huggingface_asr_tpu_torch.ops.ctc import ctc_forced_alignment_log_prob, ctc_loss
 from huggingface_asr_tpu_torch.training.loop import CTCTrainer, TrainerConfig
 from huggingface_asr_tpu_torch.training.model_factory import checkpoint_steps, load_ctc_model, save_params
 from huggingface_asr_tpu_torch.training.optim import AdamW, OptimizerConfig, freeze_mask, make_schedule
@@ -187,6 +188,17 @@ def test_ctc_loss_values_match_jax():
     np.testing.assert_allclose(got[:3], ref[:3], rtol=1e-5, atol=1e-5)
     # no alignment exists: the stand-in for -inf, 1e9, on both sides
     assert ref[3] == 1e9 and got[3] == 1e9
+
+
+def test_ctc_forced_alignment_log_prob_matches_jax():
+    """log P(labels | logits) per example: the negated per-example loss on
+    both sides, -1e9 where no alignment exists."""
+    logits, tl, labels, ll = _ctc_case()
+    ref = np.asarray(j_forced_log_prob(jnp.asarray(logits), jnp.asarray(tl), jnp.asarray(labels), jnp.asarray(ll)))
+    got = ctc_forced_alignment_log_prob(torch.from_numpy(logits), torch.from_numpy(tl), torch.from_numpy(labels),
+                                        torch.from_numpy(ll)).numpy()
+    np.testing.assert_allclose(got[:3], ref[:3], rtol=1e-5, atol=1e-5)
+    assert ref[3] == -1e9 and got[3] == -1e9
 
 
 def test_ctc_loss_infeasible_row_gives_finite_gradients():
