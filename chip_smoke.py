@@ -322,8 +322,18 @@
    greedy ids on >= 98 % of the compared frames with near-ties by the
    triage rule as ties (seeded random weights give flat logits: 96.1 % raw
    at 128 bins in "exact").
+   (c) the bf16 kernel in "bf16" and "high" at 1-11 mel bins, whose Kaldi
+   banks (but 8's) have filters over more than two passes of 64 bins (summed
+   in segments through carry slots), at B=8 and, at 10, B=128: against the
+   plain version (1e-3 of the scale) and fp64 (at most 1.25x the plain
+   version's error in both modes, as at 23 bins), beside the cuBLAS bf16
+   product, each count's ``MelFrontEnd`` called once (one log-mel and one CMVN launch); then the
+   flagship at 10 bins through ``ASRPipeline`` as in (b).
    The JSON line gains the rows ``mel_m23``, ``mel_bf16_m23``, ``cmvn_m23``
-   (and ``_b128``, and the same at 128) with their launches in (b).
+   (and ``_b128``, and the same at 128) with their launches in (b), and
+   ``mel_bf16_m<n>``, ``mel_high_m<n>`` for n = 1-11 (and ``_b128`` at 10)
+   with their ``MelFrontEnd`` call's launches (the 10-bin "bf16" rows: its
+   serving requests').
 
 Beside each kernel's time it prints the plain version's, the least time the
 card could take (the larger of bytes / 3.35 TB/s and operations / the peak
@@ -3134,11 +3144,16 @@ def serving_phase(dev, smi, compare, ln_gemm_hold, fused, model_dir, requests, B
 # each bank (reference caveat (k)).
 MEL_BINS = (23, 128)
 EMPTY_FILTER = {128: 3}
+# The counts whose Kaldi bank has a filter over more than two passes of 64
+# bins (all of 1-11 but 8), which the bf16 kernel sums in segments with carry
+# slots; the flagship is served at WIDE_SERVED of them.
+WIDE_BINS, WIDE_SERVED = tuple(range(1, 12)), 10
 
 
 def mel_bins_phase(dev, smi, compare, B_big: int = 128, S: int = 160000) -> dict:
-    """K3 at 23 and 128 mel bins (step 20 of the module's docstring). Returns
-    the kernel rows' launch counts, {row key: (counter, launches)}."""
+    """K3 at 23 and 128 mel bins, and its bf16 kernel at 1-11 (step 20 of the
+    module's docstring). Returns the kernel rows' launch counts, {row key:
+    (counter, launches)}."""
     import torch
 
     from huggingface_asr_tpu_torch.kernels import _build
@@ -3164,6 +3179,51 @@ def mel_bins_phase(dev, smi, compare, B_big: int = 128, S: int = 160000) -> dict
         "8 utts (9.3-10 s)": [speech(10.0 * (1.0 - 0.01 * i), gen) for i in range(8)],
     }
     launches = {}
+
+    def served(n_mel, empty):
+        """(b): the flagship at n_mel bins, seeded weights, through ASRPipeline
+        in both profiles: K3 (log-mel + CMVN) and 12 x K1, no K2 (80 bins
+        only), each request held against the plain path under the caveat (k)
+        rule."""
+        print(f"-- mel bins (b): the flagship at {n_mel} mel bins through ASRPipeline, 'exact' and 'serving'",
+              flush=True)
+        cfg = flagship_config(num_fbanks=n_mel)
+        model_dir = os.path.join(ROOT, "build", f"chip_smoke_model_m{n_mel}")
+        save_params(seeded_model(cfg, seed=n_mel), model_dir)
+        n_l = cfg.num_hidden_layers
+        for profile, mel_counter, att in (("exact", "asr_log_mel", "asr_rel_attention"),
+                                          ("serving", "asr_log_mel_bf16", "asr_rel_attention_serving")):
+            pipe = ASRPipeline(model_dir, model_type="ctc", device="cuda", tokenizer=IdsRecorder(),
+                               numeric_profile=profile)
+            if not pipe._use_fused or pipe._fused.subsample is not None:
+                _fail(f"{n_mel} bins, {profile}: the pipeline did not take the fused route behind the model's own "
+                      f"front end")
+            pipe(requests["1 utt (4 s)"])  # warm-up
+            torch.cuda.synchronize()
+            want = {mel_counter: 1, "asr_cmvn": 1, att: n_l, "asr_pos_query": n_l, "asr_layernorm_bf16": n_l,
+                    "asr_gemm_ln_bf16": (n_l if profile == "serving" else 4 * n_l), "dwconv_csgu": n_l,
+                    "dwconv_merge": n_l}
+            summed = launches.setdefault((n_mel, profile), {})
+            for name, audios in requests.items():
+                t = time.perf_counter()
+                texts, got_l = count_launches(lambda: pipe(audios), summed)
+                print(f"  {n_mel} bins, {profile} request {name}: {(time.perf_counter() - t) * 1e3:.1f} ms; "
+                      f"launches {got_l}", flush=True)
+                if len(texts) != len(audios) or any(got_l.get(k, 0) != v for k, v in want.items()) \
+                        or "asr_conv1" in got_l or "asr_conv1_serving" in got_l:
+                    _fail(f"{n_mel} bins, {profile}, {name}: {len(texts)} transcripts, launches {got_l}, want {want} "
+                          f"and no conv1")
+            ties = {}
+            n_frames, n_agree = against_plain_path(pipe, requests, empty_column=empty, tie_counts=ties)
+            held = n_agree + ties.get("differ_at_ties", 0)
+            print(f"  {n_mel} bins, {profile}: greedy ids agree with the plain path on {n_agree}/{n_frames} compared "
+                  f"valid frames, {held} with near-ties (triage rule) as ties (bar 98 %)", flush=True)
+            if held < 0.98 * n_frames:
+                _fail(f"{n_mel} bins, {profile}: greedy ids agree on {held}/{n_frames} valid frames with ties as "
+                      f"ties, below 98 %")
+            del pipe
+            torch.cuda.empty_cache()
+
     for n_mel in MEL_BINS:
         base = LogMelConfig(num_mel_bins=n_mel)
         dft_np, mel_np = K3.folded_bases(base)
@@ -3232,47 +3292,57 @@ def mel_bins_phase(dev, smi, compare, B_big: int = 128, S: int = 160000) -> dict
                 del exact, frames16, lm, lm16, out
                 torch.cuda.empty_cache()
 
-        # ---- (b) the flagship at n_mel bins, seeded weights, through ASRPipeline in
-        # both profiles: K3 (log-mel + CMVN) and 12 x K1, no K2 (80 bins only), each
-        # request held against the plain path under the caveat (k) rule
-        print(f"-- mel bins (b): the flagship at {n_mel} mel bins through ASRPipeline, 'exact' and 'serving'",
-              flush=True)
-        cfg = flagship_config(num_fbanks=n_mel)
-        model_dir = os.path.join(ROOT, "build", f"chip_smoke_model_m{n_mel}")
-        save_params(seeded_model(cfg, seed=n_mel), model_dir)
-        n_l = cfg.num_hidden_layers
-        for profile, mel_counter, att in (("exact", "asr_log_mel", "asr_rel_attention"),
-                                          ("serving", "asr_log_mel_bf16", "asr_rel_attention_serving")):
-            pipe = ASRPipeline(model_dir, model_type="ctc", device="cuda", tokenizer=IdsRecorder(),
-                               numeric_profile=profile)
-            if not pipe._use_fused or pipe._fused.subsample is not None:
-                _fail(f"{n_mel} bins, {profile}: the pipeline did not take the fused route behind the model's own "
-                      f"front end")
-            pipe(requests["1 utt (4 s)"])  # warm-up
-            torch.cuda.synchronize()
-            want = {mel_counter: 1, "asr_cmvn": 1, att: n_l, "asr_pos_query": n_l, "asr_layernorm_bf16": n_l,
-                    "asr_gemm_ln_bf16": (n_l if profile == "serving" else 4 * n_l), "dwconv_csgu": n_l,
-                    "dwconv_merge": n_l}
-            summed = launches.setdefault((n_mel, profile), {})
-            for name, audios in requests.items():
-                t = time.perf_counter()
-                texts, got_l = count_launches(lambda: pipe(audios), summed)
-                print(f"  {n_mel} bins, {profile} request {name}: {(time.perf_counter() - t) * 1e3:.1f} ms; "
-                      f"launches {got_l}", flush=True)
-                if len(texts) != len(audios) or any(got_l.get(k, 0) != v for k, v in want.items()) \
-                        or "asr_conv1" in got_l or "asr_conv1_serving" in got_l:
-                    _fail(f"{n_mel} bins, {profile}, {name}: {len(texts)} transcripts, launches {got_l}, want {want} "
-                          f"and no conv1")
-            ties = {}
-            n_frames, n_agree = against_plain_path(pipe, requests, empty_column=empty, tie_counts=ties)
-            held = n_agree + ties.get("differ_at_ties", 0)
-            print(f"  {n_mel} bins, {profile}: greedy ids agree with the plain path on {n_agree}/{n_frames} compared "
-                  f"valid frames, {held} with near-ties (triage rule) as ties (bar 98 %)", flush=True)
-            if held < 0.98 * n_frames:
-                _fail(f"{n_mel} bins, {profile}: greedy ids agree on {held}/{n_frames} valid frames with ties as "
-                      f"ties, below 98 %")
-            del pipe
-            torch.cuda.empty_cache()
+        served(n_mel, empty)
+    # ---- (c) the bf16 kernel in "bf16" and "high" at 1-11 mel bins (filters over
+    # more than two passes of 64 bins: segments and carry slots), B=8 (and B=128 at
+    # WIDE_SERVED) against the plain version and the fp64 gate of (a); each count's
+    # MelFrontEnd once, whose launches its rows carry; then the flagship at
+    # WIDE_SERVED bins through ASRPipeline as in (b)
+    print(f"-- mel bins (c): the bf16 log-mel kernel ('bf16', 'high') at {WIDE_BINS[0]}-{WIDE_BINS[-1]} mel bins, "
+          f"B=8 (and {B_big} at {WIDE_SERVED}) x {S} samples; {smi}", flush=True)
+    t_wide = time.perf_counter()
+    front_end_launches = {}
+    with torch.no_grad():
+        for n_mel in WIDE_BINS:
+            for mode in ("bf16", "high"):
+                base = LogMelConfig(num_mel_bins=n_mel, matmul_precision=mode)
+                fe = K3.MelFrontEnd(base, device=dev)
+                dft_np, _ = K3.folded_bases(base)
+                dft64 = torch.from_numpy(dft_np).to(dev).double()
+                hop, floor, L = base.hop_length, base.mel_floor, base.frame_length
+                n = int(base.num_frames(S))
+                hi_t = fe.dft[0].t()
+                for B in ((8, B_big) if n_mel == WIDE_SERVED else (8,)):
+                    wav = wav_big[:B]
+                    key = f"mel_{mode}_m{n_mel}" + ("_b128" if B != 8 else "")
+                    args = (n, fe.dft, fe.mel, hop, floor, mode)
+                    frames16 = wav.unfold(1, L, hop)[:, :n].to(torch.bfloat16).contiguous()
+                    got = compare(f"mel {mode} {n_mel} bins B={B}", key, lambda: K3.log_mel(wav, *args),
+                                  lambda: K3.log_mel_plain(wav, *args), 1e-3, library_fn=lambda: frames16 @ hi_t,
+                                  work=mel_bf16_work(wav, n, fe.dft, fe.mel))
+                    exact = K3.log_mel_plain(wav.double(), n, dft64, fe.mel.double(), hop, floor)
+                    d_k, d_p = got.double() - exact, K3.log_mel_plain(wav, *args).double() - exact
+                    err_k, err_p = float(d_k.abs().max()), float(d_p.abs().max())
+                    gate = 1.25  # as at 23 bins, in both modes
+                    line = (f"    against fp64: kernel {err_k:.3e}, plain {err_p:.3e} ({err_k / err_p:.2f}x, gate "
+                            f"{gate}x); mean error kernel {float(d_k.mean()):+.2e}, plain {float(d_p.mean()):+.2e}")
+                    if n_mel == WIDE_SERVED:
+                        kernel_ms = device_ms(lambda: K3.log_mel(wav, *args))
+                        line += (f"; device ms under the profiler: kernel {kernel_ms:.4f}, cuBLAS bf16 product "
+                                 f"{device_ms(lambda: frames16 @ hi_t):.4f}")
+                    print(line, flush=True)
+                    if not err_k <= gate * err_p:
+                        _fail(f"mel {mode} {n_mel} bins B={B}: largest log-mel error against fp64 {err_k:.3e}, "
+                              f"past {gate}x the plain version's {err_p:.3e}")
+                    del got, exact, frames16, d_k, d_p
+                _, front_end_launches[(n_mel, mode)] = count_launches(
+                    lambda: fe(wav_big[:8], lens_big[:8]), {})
+                if front_end_launches[(n_mel, mode)] != {f"asr_log_mel_{mode}": 1, "asr_cmvn": 1}:
+                    _fail(f"MelFrontEnd {mode} at {n_mel} bins: launches {front_end_launches[(n_mel, mode)]}")
+                del fe
+    print(f"  (c) kernel holds: {time.perf_counter() - t_wide:.1f} s", flush=True)
+    served(WIDE_SERVED, None)
+    print(f"  (c) with the {WIDE_SERVED}-bin model: {time.perf_counter() - t_wide:.1f} s", flush=True)
     del wav_big
     torch.cuda.empty_cache()
     rows = {}
@@ -3282,6 +3352,13 @@ def mel_bins_phase(dev, smi, compare, B_big: int = 128, S: int = 160000) -> dict
             rows["mel" + sfx] = ("asr_log_mel", exact_l.get("asr_log_mel", 0))
             rows["mel_bf16" + sfx] = ("asr_log_mel_bf16", serving_l.get("asr_log_mel_bf16", 0))
             rows["cmvn" + sfx] = ("asr_cmvn", exact_l.get("asr_cmvn", 0) + serving_l.get("asr_cmvn", 0))
+    # the 1-11-bin rows: their MelFrontEnd call's launches, the served count's "bf16" its requests'
+    for (n_mel, mode), counts in front_end_launches.items():
+        counter = f"asr_log_mel_{mode}"
+        if (n_mel, mode) == (WIDE_SERVED, "bf16"):
+            counts = launches[(n_mel, "serving")]
+        for sfx in (f"_m{n_mel}",) + ((f"_m{n_mel}_b128",) if n_mel == WIDE_SERVED else ()):
+            rows[f"mel_{mode}" + sfx] = (counter, counts.get(counter, 0))
     print(f"mel bins phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
 
@@ -4868,8 +4945,9 @@ def main() -> None:
     # the high mode is on no served route: its launches are a MelFrontEnd(matmul_precision="high") call's
     high_routes = {k: ("asr_log_mel_high", "csrc/mel_bf16.cu", routes["mel"][2]) for k in ("mel_high", "mel_high_b128")}
     # the 23- and 128-bin entries: launches from their own requests (exact for "highest", serving for "bf16",
-    # both for cmvn)
-    src_of = {"asr_log_mel": "csrc/mel.cu", "asr_log_mel_bf16": "csrc/mel_bf16.cu", "asr_cmvn": "csrc/mel.cu"}
+    # both for cmvn); the 1-11-bin ones ("bf16", "high"): their MelFrontEnd call's, the 10-bin "bf16" its requests'
+    src_of = {"asr_log_mel": "csrc/mel.cu", "asr_log_mel_bf16": "csrc/mel_bf16.cu",
+              "asr_log_mel_high": "csrc/mel_bf16.cu", "asr_cmvn": "csrc/mel.cu"}
     bins_routes = {k: (counter, src_of[counter], routes["mel"][2]) for k, (counter, _) in bins_rows.items()}
     bins_launches = {k: n for k, (_, n) in bins_rows.items()}
     kernels = []

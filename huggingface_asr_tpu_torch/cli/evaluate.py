@@ -23,7 +23,8 @@ too) hands the same choice to ``generate_joint`` ("on" -> True, "off" ->
 False). The recipe routes' encoders are plain transformers with no kernel
 of their own; there the choice is the front end's (``recipe_frontend``):
 "auto" runs the log-mel and CMVN kernels (``kernels/mel.py::MelFrontEnd``)
-on a card for a bfloat16 model with at most ``MEL_MAX_BINS`` (128) mel bins
+on a card for a bfloat16 model whose bank they take (at most ``MEL_MAX_BINS``,
+128, mel bins: ``kernels/mel.py::mel_bins_refusal``)
 and the plain ``LogMelFrontEnd`` otherwise, logging why on a card; "on"
 requires the kernels and raises with the reason; "off" runs the plain front
 end. On a card a kernel that does not build or launch ends the run with its
@@ -60,7 +61,7 @@ from huggingface_asr_tpu_torch.data.collator import CollatorConfig, SpeechCollat
 from huggingface_asr_tpu_torch.data.datasets import DataConfig, get_dataset
 from huggingface_asr_tpu_torch.decoding.beam_search import BeamSearchConfig
 from huggingface_asr_tpu_torch.decoding.generate import generate_joint
-from huggingface_asr_tpu_torch.kernels.mel import MEL_MAX_BINS, MelFrontEnd
+from huggingface_asr_tpu_torch.kernels.mel import MelFrontEnd, mel_bins_refusal
 from huggingface_asr_tpu_torch.models.configs import parse_dtype
 from huggingface_asr_tpu_torch.models.ebranchformer import CTCOutput, EBranchformerForCTC
 from huggingface_asr_tpu_torch.models.fast_infer import FusedCTC, ctc_infer, fused_encoder_refusal
@@ -164,12 +165,12 @@ def recipe_frontend_refusal(device: torch.device, num_mel_bins: Optional[int] = 
                             dtype: Optional[torch.dtype] = None) -> Optional[str]:
     """The first condition of the log-mel and CMVN kernels that a recipe
     route fails, as a sentence, or None (``num_mel_bins`` and ``dtype`` are
-    checked where given)."""
+    checked where given; the bins as ``kernels/mel.py::mel_bins_refusal``
+    checks them)."""
+    mel_refusal = None if num_mel_bins is None else mel_bins_refusal(num_mel_bins)
     checks = (
         (device.type == "cuda", f"device {device} (the kernels run on a CUDA device)"),
-        (num_mel_bins is None or num_mel_bins <= MEL_MAX_BINS,
-         f"num_mel_bins {num_mel_bins} (the log-mel and CMVN kernels take at most MEL_MAX_BINS = {MEL_MAX_BINS} "
-         f"mel bins)"),
+        (mel_refusal is None, f"num_mel_bins {num_mel_bins} {mel_refusal}"),
         (dtype is None or dtype == torch.bfloat16, f"dtype {dtype} (the CMVN kernel writes bfloat16 features)"),
     )
     return next((reason for ok, reason in checks if not ok), None)

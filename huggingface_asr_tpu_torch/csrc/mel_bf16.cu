@@ -38,10 +38,22 @@
 //     a shifted address, which a swizzled shared-memory A tile could not take.
 //     The padding puts the eight rows of a fragment on eight different bank
 //     quads (168 / 2 = 84 words, 84 = 20 mod 32). Each step's offset comes
-//     from a table made once a block (no division in the loop), and two
-//     register sets take the boxes in pairs, so that a box's products run
+//     from a table made once a block (no division in the loop). In "bf16"
+//     two register sets take the boxes in pairs, so that a box's products run
 //     while the next box's fragments load (wgmma_wait<1>); an odd box count
 //     ends on one box from the first set (ODD);
+//   * the tensor core rounds each product's sum toward zero, so one
+//     accumulator over a pass's 84 "high" products (4 k16 steps x 3 terms x 7
+//     boxes) ends about 2e-6 low in log-mel at every bin count, which the
+//     fp64 gate sees at 1 bin (one filter over 255 bins, whose random errors
+//     average out). "high" sums each box into a fresh accumulator, its 8
+//     small terms (hi x lo, lo x hi) before its 4 large ones, so that only
+//     the large ones round at the box's scale, and adds the boxes with
+//     round-to-nearest fp32 adds, as the plain version adds its bands'
+//     products. The sum is added before the next box is issued, so "high"
+//     takes its boxes one at a time from one register set. "bf16" (28
+//     products, its error the bf16 rounding of the waveform) keeps one
+//     accumulator a pass;
 //   * the waveform arrives by one bulk copy into the rows that the power and
 //     the log-mel take later, and the threads convert it there;
 //   * two consumer warpgroups (CW = 2), 64 frames each, share every basis
@@ -56,7 +68,16 @@
 //   * the mel product is sparse: each filter is summed over its own run of
 //     nonzero bins (kernels/mel.py::mel_bands: the runs, ordered by the pass
 //     in which each ends, a run within that pass and the one before it), in
-//     bin order and in fp32 FMA, its weights packed after the runs. A skipped
+//     bin order and in fp32 FMA, its weights packed after the runs. A run
+//     that spans more passes (a bank of few, wide filters: the Kaldi bank's
+//     at 1-7 and 9-11 bins) is cut into segments that each lie so, summed in
+//     the rounds after their passes: a segment hands its two sums to the next
+//     through a carry slot in shared memory (CARRY_OUT), which starts from
+//     them (CARRY_IN), and only the last takes the log, so the filter is
+//     still one chain of FMAs in bin order. Only a table with carry slots
+//     runs the kernel that reads the flags (template CARRY): the flags'
+//     branches cost 4-5 % of the device time at 80 and 128 bins on an H100
+//     (profile_kernel_variants.py melbf16). A skipped
 //     zero weight would have added fma(p, 0, acc) = acc for a finite power
 //     p >= 0: the sum is the dense in-order sum bit for bit. A pass's sums run
 //     while the next pass's products do (two filters a warp after each box),
@@ -66,8 +87,8 @@
 //     beside the rest: not in "high" at CW = 2, which stores each value as
 //     its filter is summed; "bf16" at CW = 2 past 92 bins (TIGHT) keeps them
 //     with a ring of 3 stages, not 4, and rows of 4-byte pieces).
-//     Nothing else holds the bin count: a filter row a warp takes, its run
-//     any width within two passes, so 23 or 128 bins run the same code.
+//     Nothing else holds the bin count: a segment row a warp takes, its run
+//     any width within two passes, so 1, 23 or 128 bins run the same code.
 #include "hopper.cuh"
 
 // With ASR_MEL_PHASES defined (profile_mel_phases.py builds such a copy),
@@ -92,6 +113,9 @@ constexpr int PW_COLS = 2 * BINS;       // the power of the last two passes, bin
 constexpr int PW_LD = PW_COLS + 5;      // its row stride in floats: 133, odd (a column in 32 banks)
 constexpr int UNROLL = 8;               // float4 loads a thread has in flight while staging
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // CW = 2: 128 * (2 * 232 + 40) = 384 * 168
+// a segment row's last field: the filter (bits 0-7), its carry slot (8-15) and
+// these flags (kernels/mel.py::MEL_CARRY_IN, MEL_CARRY_OUT)
+constexpr int CARRY_IN = 1 << 16, CARRY_OUT = 1 << 17;
 
 // TIGHT ("bf16" at CW = 2 where the staged log-mel rows of 4 stages do not
 // fit: 93-128 bins): a stage fewer, and the rows at an odd stride.
@@ -109,12 +133,12 @@ __host__ __device__ inline int out_ld(int n_mel, bool tight) { return tight ? n_
 
 // Byte offsets of the dynamic shared memory past the 1024-aligned ring, the
 // same on the host (its size) and in the kernel.
-// The power and log-mel rows come last: until the first pass they hold the
-// block's waveform in fp32, where it fits.
+// The power, log-mel and carry rows come last: until the first pass they hold
+// the block's waveform in fp32, where it fits. A carry slot is a float a frame.
 struct Layout {
-    int bars, steps, table, xh, xl, pw, lm, end;
+    int bars, steps, table, xh, xl, pw, lm, carry, end;
     __host__ __device__ Layout(int stages, int n_steps, int ft, int table_rows, int rows, int rs, bool high,
-                               bool stage_out, int lm_ld) {
+                               bool stage_out, int lm_ld, int n_slots) {
         bars = 0;
         steps = bars + 16 * stages + 16;
         table = steps + 16 * ((n_steps + 3) / 4);
@@ -122,7 +146,8 @@ struct Layout {
         xl = xh + 2 * rows * rs;
         pw = xl + (high ? 2 * rows * rs : 0);
         lm = pw + 4 * ft * PW_LD;
-        end = lm + (stage_out ? 4 * ft * lm_ld : 0);
+        carry = lm + (stage_out ? 4 * ft * lm_ld : 0);
+        end = carry + 4 * ft * n_slots;
     }
 };
 
@@ -132,7 +157,8 @@ struct Layout {
 // steps[s] values further (hop-row j = 16 s / hop, column 16 s - j hop), or,
 // where steps[s] < 0 (past L, whose basis rows the TMA filled with zeros),
 // is zero. Every box issues the same products, so the issue is straight-line
-// code. The caller commits.
+// code; "high" starts acc afresh (its first product does not read it) and
+// issues the small terms first. The caller commits.
 template <bool HIGH>
 __device__ __forceinline__ void issue_box(float (&acc)[64], uint32_t (&ah)[4][4], uint32_t (&al)[4][4],
                                           const bf16* xh, const bf16* xl, const int* steps, int kb, int RS,
@@ -156,24 +182,25 @@ __device__ __forceinline__ void issue_box(float (&acc)[64], uint32_t (&ah)[4][4]
     const uint64_t bh = make_desc(stage, 16, 1024, SWIZZLE_128);
     const uint64_t bl = make_desc(stage + BOX_BYTES, 16, 1024, SWIZZLE_128);
     wgmma_fence();
+    if constexpr (HIGH) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        wgmma_m64n128k16_rs(acc, ah[i], bh + 2 * i, 1);
-        if constexpr (HIGH) {
-            wgmma_m64n128k16_rs(acc, ah[i], bl + 2 * i, 1);
-            wgmma_m64n128k16_rs(acc, al[i], bh + 2 * i, 1);
-        }
+        for (int i = 0; i < 4; ++i) wgmma_m64n128k16_rs(acc, ah[i], bl + 2 * i, i > 0);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wgmma_m64n128k16_rs(acc, al[i], bh + 2 * i, 1);
     }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wgmma_m64n128k16_rs(acc, ah[i], bh + 2 * i, 1);
 }
 
 // wav: [B, S] fp32; map: the bases [P * 2*NB, L] bf16 (P = 1 + HIGH, a row per
 // output column, each bin's cos then sin); table: kernels/mel.py::
-// mel_kernel_table, table_rows x 4 int32; out: [B, n_frames, n_mel] fp32.
-template <bool HIGH, int CW, bool ODD, bool TIGHT>
+// mel_kernel_table, table_rows x 4 int32, n_rows segment rows first (CARRY:
+// n_slots > 0, so some rows carry flags); out: [B, n_frames, n_mel] fp32.
+template <bool HIGH, int CW, bool ODD, bool TIGHT, bool CARRY>
 __global__ void __launch_bounds__(128 * (CW + 1), 1)
 mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ wav, int S,
-                const int4* __restrict__ table, int table_rows, float* __restrict__ out, int n_frames, int L,
-                int hop, int NB, int n_mel, float floor_) {
+                const int4* __restrict__ table, int table_rows, int n_rows, int n_slots, float* __restrict__ out,
+                int n_frames, int L, int hop, int NB, int n_mel, float floor_) {
     using R = Ring<HIGH, CW, TIGHT>;
     constexpr int STAGES = R::STAGES, FT = 64 * CW, THREADS = 128 * (CW + 1);
     extern __shared__ unsigned char smem_raw[];
@@ -184,14 +211,15 @@ mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict
     const int passes = NB / BINS, boxes = (L + BK - 1) / BK, total = passes * boxes;
     const int rows = FT + (L - 1) / hop, RS = hop + 8;
     const int OUT_LD = out_ld(n_mel, TIGHT);
-    const Layout lay(STAGES, 4 * boxes, FT, table_rows, rows, RS, HIGH, R::STAGE_OUT, OUT_LD);
+    const Layout lay(STAGES, 4 * boxes, FT, table_rows, rows, RS, HIGH, R::STAGE_OUT, OUT_LD, n_slots);
     const uint32_t full = smem_u32(base + lay.bars), empty = full + 8 * STAGES, wav_bar = empty + 8 * STAGES;
     int4* bands_s = reinterpret_cast<int4*>(base + lay.table);
-    const float* w_s = reinterpret_cast<const float*>(bands_s + n_mel + passes);
+    const float* w_s = reinterpret_cast<const float*>(bands_s + n_rows + passes);
     float* pw = reinterpret_cast<float*>(base + lay.pw);
     bf16* xh = reinterpret_cast<bf16*>(base + lay.xh);
     bf16* xl = reinterpret_cast<bf16*>(base + lay.xl);
     float* lm = reinterpret_cast<float*>(base + lay.lm);
+    float* carry = reinterpret_cast<float*>(base + lay.carry);
     int* steps = reinterpret_cast<int*>(base + lay.steps);
     const int tid = threadIdx.x, b = blockIdx.y, f0 = blockIdx.x * FT;
 #ifdef ASR_MEL_PHASES
@@ -235,8 +263,8 @@ mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict
     if (producer)
         for (int g = 0; g < STAGES && g < total; ++g) load(g);
 
-    // the filters' runs (in the order the passes take them), the passes' rows
-    // and the filters' weights
+    // the filters' segments (in the order the passes take them), the passes'
+    // rows and the filters' weights
     for (int r = tid; r < table_rows; r += THREADS) bands_s[r] = __ldg(table + r);
     // where each k16 step's A fragment lies past a frame's first sample
     for (int i = tid; i < 4 * boxes; i += THREADS) {
@@ -298,20 +326,28 @@ mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict
     const int row = 64 * wg + 16 * warp + lane / 4, q = lane % 4;  // fragment rows row, row + 8
     const float* pw_wg = pw + 64 * wg * PW_LD;
     float* lm_wg = lm + 64 * wg * OUT_LD;
+    float* carry_wg = carry + 64 * wg;       // slot s of this warpgroup's frames: carry_wg[s * FT + 0..63]
     const float* r0 = pw_wg + lane * PW_LD;  // this lane's two frames' power: frames lane, lane + 32
     const float* r1 = r0 + 32 * PW_LD;
     const int fa = f0 + 64 * wg + lane;      // their indices in the utterance
 
-    // Sum of filter row e over its run (the power of its pass and the one
+    // Sum of segment row e over its run (the power of its pass and the one
     // before it) in bin order, for this lane's two frames: a filter's bins
     // are the same for all lanes (a weight load, broadcast, for 64 power
-    // loads in 32 banks); the log goes to the staged rows or out. Four bins
-    // a step, their loads issued together; a step's bins past the run add
-    // fma(0, 0, a) = a.
+    // loads in 32 banks); from 0 or the segment before's sums (CARRY_IN), to
+    // the carry slot (CARRY_OUT) or the log, which goes to the staged rows or
+    // out. The slot was written in an earlier round, before the named barrier
+    // that ends it. Four bins a step, their loads issued together; a step's
+    // bins past the run add fma(0, 0, a) = a.
     auto mel_filter = [&](int e) {
         const int4 band = bands_s[e];
         const float* w = w_s + band.z;  // w[i]: the filter's weight of bin band.x + i
+        float* slot = carry_wg + FT * ((band.w >> 8) & 0xff);
         float a0 = 0.0f, a1 = 0.0f;
+        if (CARRY && (band.w & CARRY_IN)) {
+            a0 = slot[lane];
+            a1 = slot[lane + 32];
+        }
         for (int i = 0; i < band.y; i += 4) {
             float wk[4], p0[4], p1[4];
 #pragma unroll
@@ -328,13 +364,19 @@ mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict
                 a1 = fmaf(p1[u], wk[u], a1);
             }
         }
+        if (CARRY && (band.w & CARRY_OUT)) {
+            slot[lane] = a0;
+            slot[lane + 32] = a1;
+            return;
+        }
+        const int m = CARRY ? band.w & 0xff : band.w;
         a0 = logf(fmaxf(a0, floor_));
         a1 = logf(fmaxf(a1, floor_));
         if constexpr (R::STAGE_OUT) {
-            lm_wg[lane * OUT_LD + band.w] = a0;
-            lm_wg[(lane + 32) * OUT_LD + band.w] = a1;
+            lm_wg[lane * OUT_LD + m] = a0;
+            lm_wg[(lane + 32) * OUT_LD + m] = a1;
         } else {
-            float* o = out + ((size_t)b * n_frames + fa) * n_mel + band.w;
+            float* o = out + ((size_t)b * n_frames + fa) * n_mel + m;
             if (fa < n_frames) *o = a0;
             if (fa + 32 < n_frames) o[32 * (size_t)n_mel] = a1;
         }
@@ -349,43 +391,58 @@ mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict
     // is issued, the rest after the pass's last box. A last round, p ==
     // passes, sums the last pass's filters alone.
     for (int p = 0; p <= passes; ++p) {
-        const int4 range = p > 0 ? bands_s[n_mel + p - 1] : make_int4(0, 0, 0, 0);
+        const int4 range = p > 0 ? bands_s[n_rows + p - 1] : make_int4(0, 0, 0, 0);
         int e = warp;  // the next of pass p - 1's filter rows this warp sums
         if (p < passes) {
-            float acc[64];
+            float acc[64], sum[64];  // sum: "high"'s boxes, added
 #pragma unroll
-            for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+            for (int i = 0; i < 64; ++i) acc[i] = sum[i] = 0.0f;
             fence_regs(acc);
-            for (int kb = 0; kb + 1 < boxes; kb += 2, g += 2) {
-                // box kb from register set 0, box kb + 1 from set 1; a set is
-                // loaded again only after the products that read it are done
-                mbar_wait(full + 8 * (g % STAGES), (g / STAGES) & 1);
-                issue_box<HIGH>(acc, ah0, al0, xa, xla, steps, kb, RS, ring + (g % STAGES) * R::STAGE_BYTES);
-                wgmma_commit();
-                for (int n = 0; n < 2 && e < range.y; ++n, e += 4) mel_filter(range.x + e);
-                wgmma_wait<1>();  // the box before is done: hand its stage back
-                if (kb > 0 && lane == 0) mbar_arrive(empty + 8 * ((g - 1) % STAGES));
-                mbar_wait(full + 8 * ((g + 1) % STAGES), ((g + 1) / STAGES) & 1);
-                issue_box<HIGH>(acc, ah1, al1, xa, xla, steps, kb + 1, RS,
-                                ring + ((g + 1) % STAGES) * R::STAGE_BYTES);
-                wgmma_commit();
-                for (int n = 0; n < 2 && e < range.y; ++n, e += 4) mel_filter(range.x + e);
-                wgmma_wait<1>();
-                if (lane == 0) mbar_arrive(empty + 8 * (g % STAGES));
+            if constexpr (HIGH) {
+                for (int kb = 0; kb < boxes; ++kb, ++g) {
+                    mbar_wait(full + 8 * (g % STAGES), (g / STAGES) & 1);
+                    issue_box<HIGH>(acc, ah0, al0, xa, xla, steps, kb, RS, ring + (g % STAGES) * R::STAGE_BYTES);
+                    wgmma_commit();
+                    for (int n = 0; n < 2 && e < range.y; ++n, e += 4) mel_filter(range.x + e);
+                    wgmma_wait<0>();
+                    fence_regs(acc);
+                    if (lane == 0) mbar_arrive(empty + 8 * (g % STAGES));
+#pragma unroll
+                    for (int i = 0; i < 64; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
+                }
+            } else {
+                for (int kb = 0; kb + 1 < boxes; kb += 2, g += 2) {
+                    // box kb from register set 0, box kb + 1 from set 1; a set is
+                    // loaded again only after the products that read it are done
+                    mbar_wait(full + 8 * (g % STAGES), (g / STAGES) & 1);
+                    issue_box<HIGH>(acc, ah0, al0, xa, xla, steps, kb, RS, ring + (g % STAGES) * R::STAGE_BYTES);
+                    wgmma_commit();
+                    for (int n = 0; n < 2 && e < range.y; ++n, e += 4) mel_filter(range.x + e);
+                    wgmma_wait<1>();  // the box before is done: hand its stage back
+                    if (kb > 0 && lane == 0) mbar_arrive(empty + 8 * ((g - 1) % STAGES));
+                    mbar_wait(full + 8 * ((g + 1) % STAGES), ((g + 1) / STAGES) & 1);
+                    issue_box<HIGH>(acc, ah1, al1, xa, xla, steps, kb + 1, RS,
+                                    ring + ((g + 1) % STAGES) * R::STAGE_BYTES);
+                    wgmma_commit();
+                    for (int n = 0; n < 2 && e < range.y; ++n, e += 4) mel_filter(range.x + e);
+                    wgmma_wait<1>();
+                    if (lane == 0) mbar_arrive(empty + 8 * (g % STAGES));
+                }
+                if constexpr (ODD) {
+                    mbar_wait(full + 8 * (g % STAGES), (g / STAGES) & 1);
+                    issue_box<HIGH>(acc, ah0, al0, xa, xla, steps, boxes - 1, RS,
+                                    ring + (g % STAGES) * R::STAGE_BYTES);
+                    wgmma_commit();
+                    for (int n = 0; n < 2 && e < range.y; ++n, e += 4) mel_filter(range.x + e);
+                    wgmma_wait<1>();
+                    if (boxes > 1 && lane == 0) mbar_arrive(empty + 8 * ((g - 1) % STAGES));
+                    ++g;
+                }
+                wgmma_wait<0>();
+                fence_regs(acc);
+                if (lane == 0) mbar_arrive(empty + 8 * ((g - 1) % STAGES));
             }
-            if constexpr (ODD) {
-                mbar_wait(full + 8 * (g % STAGES), (g / STAGES) & 1);
-                issue_box<HIGH>(acc, ah0, al0, xa, xla, steps, boxes - 1, RS, ring + (g % STAGES) * R::STAGE_BYTES);
-                wgmma_commit();
-                for (int n = 0; n < 2 && e < range.y; ++n, e += 4) mel_filter(range.x + e);
-                wgmma_wait<1>();
-                if (boxes > 1 && lane == 0) mbar_arrive(empty + 8 * ((g - 1) % STAGES));
-                ++g;
-            }
-            wgmma_wait<0>();
-            fence_regs(acc);
             MEL_PHASE();
-            if (lane == 0) mbar_arrive(empty + 8 * ((g - 1) % STAGES));
             for (; e < range.y; e += 4) mel_filter(range.x + e);
             // the power of pass p goes over that of pass p - 2: pass p - 1's
             // sums, which read it, are done
@@ -397,7 +454,8 @@ mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict
             for (int j = 0; j < 16; ++j)
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
-                    const float c = acc[4 * j + 2 * h], s = acc[4 * j + 2 * h + 1];
+                    const float c = HIGH ? sum[4 * j + 2 * h] : acc[4 * j + 2 * h];
+                    const float s = HIGH ? sum[4 * j + 2 * h + 1] : acc[4 * j + 2 * h + 1];
                     pw[(row + 8 * h) * PW_LD + col0 + 4 * j] = __fadd_rn(__fmul_rn(c, c), __fmul_rn(s, s));
                 }
             named_barrier(1 + wg, 128);
@@ -408,16 +466,16 @@ mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict
     if constexpr (R::STAGE_OUT) {
         // this warpgroup's log-mel rows leave in one coalesced run
         named_barrier(1 + wg, 128);
-        const int fw = f0 + 64 * wg, n_rows = min(64, n_frames - fw);
+        const int fw = f0 + 64 * wg, n_out = min(64, n_frames - fw);
         if (n_mel % 4 == 0 && !TIGHT) {
             const int q4 = n_mel / 4;  // 16-byte pieces a row
             float4* o = reinterpret_cast<float4*>(out + ((size_t)b * n_frames + fw) * n_mel);
-            for (int i = t; i < n_rows * q4; i += 128) {
+            for (int i = t; i < n_out * q4; i += 128) {
                 const int r = i / q4;
                 o[i] = *reinterpret_cast<const float4*>(lm_wg + r * OUT_LD + 4 * (i - r * q4));
             }
         } else {
-            for (int r = warp; r < n_rows; r += 4) {
+            for (int r = warp; r < n_out; r += 4) {
                 float* o = out + ((size_t)b * n_frames + fw + r) * n_mel;
                 for (int c = lane; c < n_mel; c += 32) o[c] = lm_wg[r * OUT_LD + c];
             }
@@ -434,25 +492,25 @@ mel_bf16_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict
 
 // The dynamic shared memory of a block.
 template <bool HIGH, int CW, bool TIGHT>
-size_t mel_smem(int L, int hop, int table_rows, int n_mel) {
+size_t mel_smem(int L, int hop, int table_rows, int n_mel, int n_slots) {
     using R = Ring<HIGH, CW, TIGHT>;
     constexpr int FT = 64 * CW;
     const Layout lay(R::STAGES, 4 * ((L + BK - 1) / BK), FT, table_rows, FT + (L - 1) / hop, hop + 8, HIGH,
-                     R::STAGE_OUT, out_ld(n_mel, TIGHT));
+                     R::STAGE_OUT, out_ld(n_mel, TIGHT), n_slots);
     return 1024 + (size_t)R::STAGES * R::STAGE_BYTES + lay.end;
 }
 
 // Registers of the CW = 2 kernel: setmaxnreg.inc waits until the pool the
 // block was launched with can give what the consumers take, so a kernel
 // compiled with fewer would hang, not trap.
-template <bool HIGH, int CW, bool ODD, bool TIGHT = false>
+template <bool HIGH, int CW, bool ODD, bool TIGHT = false, bool CARRY = false>
 cudaError_t launch_mel(const CUtensorMap& map, const float* wav, int B, int S, const int4* table, int table_rows,
-                       float* out, int n_frames, int L, int hop, int NB, int n_mel, float floor_,
-                       cudaStream_t stream) {
+                       int n_rows, int n_slots, float* out, int n_frames, int L, int hop, int NB, int n_mel,
+                       float floor_, cudaStream_t stream) {
     using R = Ring<HIGH, CW, TIGHT>;
     constexpr int FT = 64 * CW, THREADS = 128 * (CW + 1);
-    auto kernel = mel_bf16_kernel<HIGH, CW, ODD, TIGHT>;
-    const size_t smem = mel_smem<HIGH, CW, TIGHT>(L, hop, table_rows, n_mel);
+    auto kernel = mel_bf16_kernel<HIGH, CW, ODD, TIGHT, CARRY>;
+    const size_t smem = mel_smem<HIGH, CW, TIGHT>(L, hop, table_rows, n_mel, n_slots);
     if (smem > 232448) return cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -463,8 +521,8 @@ cudaError_t launch_mel(const CUtensorMap& map, const float* wav, int B, int S, c
         if (attr.numRegs * THREADS < 128 * (CW * CONSUMER_REGS + PRODUCER_REGS)) return cudaErrorLaunchOutOfResources;
     }
     dim3 grid(ceil_div(n_frames, FT), B);
-    kernel<<<grid, THREADS, smem, stream>>>(map, wav, S, table, table_rows, out, n_frames, L, hop, NB, n_mel,
-                                            floor_);
+    kernel<<<grid, THREADS, smem, stream>>>(map, wav, S, table, table_rows, n_rows, n_slots, out, n_frames, L, hop,
+                                            NB, n_mel, floor_);
     return cudaGetLastError();
 }
 
@@ -472,22 +530,24 @@ cudaError_t launch_mel(const CUtensorMap& map, const float* wav, int B, int S, c
 
 // wav: [B, S] fp32; dft: [1 + high, 2*NB, L] bf16 (kernels/mel.py::split_bases:
 // the transposed hi and lo bases, a bin's cos and sin in adjacent rows);
-// table: [table_rows, 4] int32, kernels/mel.py::mel_kernel_table: a row per
-// filter (first nonzero bin, width, offset of its weights, filter) ordered by
-// the pass of 64 bins in which its run ends, the run within that pass and the
-// one before it; a row per pass (its filters' first row, their count, 0, 0);
-// then the filters' nonzero weights, fp32 bits, four a row; out: [B,
-// n_frames, n_mel] fp32 log-mel. Takes NB % 64 == 0, any n_mel whose block
-// fits the shared memory (at L = 400, hop = 160: up to 128 bins, which is
-// kernels/mel.py::MEL_MAX_BINS; else an error is returned), L % 16 == 0,
-// hop % 16 == 0 and frames within S (the wrapper checks). The block has two
-// consumer warpgroups (128 frames) when that grid covers the card's SMs at
-// least once, else one (64 frames).
-ASR_API int asr_log_mel_bf16(const void* wav, const void* dft, const void* table, int table_rows, void* out,
-                             int B, int S, int n_frames, int L, int hop, int NB, int n_mel, float floor_, int high,
-                             void* stream) {
+// table: [table_rows, 4] int32, kernels/mel.py::mel_kernel_table: n_rows
+// segment rows (first nonzero bin, width, offset of its weights, filter | carry
+// slot << 8 | CARRY_IN | CARRY_OUT) ordered by the pass of 64 bins in which
+// the segment ends, each within that pass and the one before it, a filter's
+// segments in bin order, n_slots carry slots among them; a row per pass (its
+// segments' first row, their count, 0, 0); then the filters' nonzero
+// weights, fp32 bits, four a row; out: [B, n_frames, n_mel] fp32 log-mel.
+// Takes NB % 64 == 0, any n_mel whose block fits the shared memory (at L =
+// 400, hop = 160: up to 128 bins, which is kernels/mel.py::MEL_MAX_BINS; else
+// an error is returned), L % 16 == 0, hop % 16 == 0 and frames within S (the
+// wrapper checks). The block has two consumer warpgroups (128 frames) when
+// that grid covers the card's SMs at least once, else one (64 frames).
+ASR_API int asr_log_mel_bf16(const void* wav, const void* dft, const void* table, int table_rows, int n_rows,
+                             int n_slots, void* out, int B, int S, int n_frames, int L, int hop, int NB, int n_mel,
+                             float floor_, int high, void* stream) {
     if (B < 1 || B > 65535 || n_frames < 1 || L < 16 || L % 16 || hop < 16 || hop % 16 || NB < BINS ||
-        NB % BINS || n_mel < 1 || table_rows < n_mel + NB / BINS || table_rows > 4096)
+        NB % BINS || n_mel < 1 || n_mel > 256 || n_rows < n_mel || n_slots < 0 || n_slots > 256 ||
+        table_rows < n_rows + NB / BINS || table_rows > 4096)
         return static_cast<int>(cudaErrorInvalidValue);
     const int P = high ? 2 : 1;
     const cuuint64_t dims[2] = {(cuuint64_t)L, (cuuint64_t)P * 2 * NB}, strides[1] = {(cuuint64_t)L * 2};
@@ -501,13 +561,21 @@ ASR_API int asr_log_mel_bf16(const void* wav, const void* dft, const void* table
     const int4* tb = static_cast<const int4*>(table);
     float* o = static_cast<float*>(out);
     const bool odd = (L + BK - 1) / BK % 2;
-    // "bf16" at CW = 2 whose block does not fit with 4 stages (93-128 bins at L = 400, hop = 160): TIGHT
-    const bool tight = !high && wide && mel_smem<false, 2, false>(L, hop, table_rows, n_mel) > 232448;
-#define ASR_MEL_LAUNCH(H, C, O) launch_mel<H, C, O>(map, w, B, S, tb, table_rows, o, n_frames, L, hop, NB, n_mel, floor_, st)
-#define ASR_MEL_TIGHT(O) launch_mel<false, 2, O, true>(map, w, B, S, tb, table_rows, o, n_frames, L, hop, NB, n_mel, floor_, st)
-    if (high)
-        err = wide ? (odd ? ASR_MEL_LAUNCH(true, 2, true) : ASR_MEL_LAUNCH(true, 2, false))
-                   : (odd ? ASR_MEL_LAUNCH(true, 1, true) : ASR_MEL_LAUNCH(true, 1, false));
+    // "bf16" at CW = 2 whose block does not fit with 4 stages (93-128 bins at L = 400, hop = 160, no carry
+    // slots there): TIGHT, which takes no carry
+    const bool tight = !high && wide && mel_smem<false, 2, false>(L, hop, table_rows, n_mel, n_slots) > 232448;
+#define ASR_MEL_LAUNCH(H, C, O) \
+    (n_slots ? launch_mel<H, C, O, false, true>(map, w, B, S, tb, table_rows, n_rows, n_slots, o, n_frames, L, hop, \
+                                                NB, n_mel, floor_, st) \
+             : launch_mel<H, C, O>(map, w, B, S, tb, table_rows, n_rows, n_slots, o, n_frames, L, hop, NB, n_mel, \
+                                   floor_, st))
+#define ASR_MEL_TIGHT(O) \
+    launch_mel<false, 2, O, true>(map, w, B, S, tb, table_rows, n_rows, n_slots, o, n_frames, L, hop, NB, n_mel, \
+                                  floor_, st)
+    if (high)  // "high" takes its boxes one at a time: ODD is bf16's
+        err = wide ? ASR_MEL_LAUNCH(true, 2, false) : ASR_MEL_LAUNCH(true, 1, false);
+    else if (tight && n_slots)
+        err = cudaErrorInvalidValue;
     else if (tight)
         err = odd ? ASR_MEL_TIGHT(true) : ASR_MEL_TIGHT(false);
     else

@@ -18,10 +18,14 @@ The last two run ``csrc/mel_bf16.cu`` (wgmma on the tensor cores, the bases
 through a TMA ring, each bin's cos and sin in adjacent columns); their plain
 version takes the products band by band, in the TPU kernel's order (hop-row
 bands of ``hop`` samples). Then the power, the mel product and the log: the
-bf16 kernel sums each filter over its own run of nonzero bins
-(``mel_bands``), which gives the dense in-order sum's bits. A second kernel
-applies utterance CMVN with length masking and writes bf16 — the input the
-conv subsampler takes.
+bf16 kernel sums each filter over its own run of nonzero bins (``mel_bands``),
+which gives the dense in-order sum's bits. It keeps the power of two passes
+of 64 bins, so a run that spans more is summed in segments, each within two
+passes, the partial sums carried from one to the next: any bank whose filters
+are each one contiguous run, at any count up to ``MEL_MAX_BINS``, the Kaldi
+bank at every count from 1 to 128 among them (``mel_bins_refusal``). A second
+kernel applies utterance CMVN with length masking and writes bf16 — the input
+the conv subsampler takes.
 
 ``MelFrontEnd`` is the counterpart of ``PallasLogMelFrontEnd``; the plain
 ``ops/features.py::LogMelFrontEnd`` computes the same features unfolded.
@@ -29,6 +33,7 @@ conv subsampler takes.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -46,6 +51,8 @@ from huggingface_asr_tpu_torch.ops.features import (
 BF16, F32 = torch.bfloat16, torch.float32
 MEL_MODES = ("highest", "high", "bf16")
 MEL_PASS_BINS, MEL_MAX_BINS = 64, 128  # the kernels' bins a pass; the most mel bins they take (any count up to it)
+# flags of a segment row's last field (``mel_bands``), above the filter's index and its carry slot
+MEL_CARRY_IN, MEL_CARRY_OUT = 1 << 16, 1 << 17
 
 
 def folded_bases(cfg: LogMelConfig) -> Tuple[np.ndarray, np.ndarray]:
@@ -65,6 +72,13 @@ def folded_bases(cfg: LogMelConfig) -> Tuple[np.ndarray, np.ndarray]:
             P[n, n - 1] = -p
     D = np.eye(L) - np.full((L, L), 1.0 / L) if cfg.remove_dc_offset else np.eye(L)
     M = (P @ D) if cfg.remove_dc_offset or p else np.eye(L)
+    mel = folded_bank(cfg)
+    dft = np.concatenate([M.T @ wc[:, :-1], M.T @ ws[:, :-1]], axis=1)
+    return np.ascontiguousarray(dft * np.float32(cfg.waveform_scale), dtype=np.float32), mel
+
+
+def folded_bank(cfg: LogMelConfig) -> np.ndarray:
+    """``folded_bases``' mel' alone: (bins-1, num_mel) float32."""
     mel = kaldi_mel_filter_bank(
         num_frequency_bins=cfg.num_frequency_bins,
         num_mel_filters=cfg.num_mel_bins,
@@ -74,11 +88,7 @@ def folded_bases(cfg: LogMelConfig) -> Tuple[np.ndarray, np.ndarray]:
     )
     if np.abs(mel[-1]).max() != 0.0:
         raise NotImplementedError("the folded front end requires a zero-weight Nyquist mel row")
-    dft = np.concatenate([M.T @ wc[:, :-1], M.T @ ws[:, :-1]], axis=1)
-    return (
-        np.ascontiguousarray(dft * np.float32(cfg.waveform_scale), dtype=np.float32),
-        np.ascontiguousarray(mel[:-1], dtype=np.float32),
-    )
+    return np.ascontiguousarray(mel[:-1], dtype=np.float32)
 
 
 def _split_hi_lo(a: torch.Tensor):
@@ -100,60 +110,108 @@ def split_bases(dft: np.ndarray, mode: str) -> torch.Tensor:
 
 
 def mel_bands(mel: np.ndarray) -> np.ndarray:
-    """The bank's filters as the bf16 kernel reads them: (n_mel + passes, 4)
-    int32, passes = ceil(bins / 64). Row r < n_mel: a filter's (first nonzero
-    bin, width of the run from it to its last nonzero bin, offset of its
-    weights among all the bank's nonzeros, the filter's index); the rows are
-    ordered by the pass of 64 bins in which the run ends (an all-zero filter,
-    of width 0, in the first), filter order within a pass, and the offsets
-    follow filter order. Row n_mel + p: (the first row of pass p's filters,
-    their count, 0, 0). Raises if a filter's nonzeros are not one contiguous
-    run, or if its run begins before the pass before the one it ends in: the
-    kernel keeps the power of two passes."""
+    """The bank's filters as the bf16 kernel reads them: (n_rows + passes, 4)
+    int32, passes = ceil(bins / 64). The kernel keeps the power of the last
+    two passes of 64 bins, so each filter's run of nonzero bins is cut into
+    segments that each lie within the pass in which they end and the one
+    before it: one where the run does (every filter of the Kaldi bank from 12
+    bins up), else from the run's end back, a segment a pair of passes. Row r
+    < n_rows: a segment's (first bin, width, offset of its weights among all
+    the bank's nonzeros, tag); the rows are ordered by the pass in which the
+    segment ends (an all-zero filter, of width 0, in the first), filter order
+    within a pass, and a filter's offsets follow its bins, the filters' in
+    filter order. The tag is the filter's index, and for a filter of
+    more than one segment also its carry slot (the count of such filters
+    before it) times 256, ``MEL_CARRY_IN`` where the segment starts from the
+    one before's sums and ``MEL_CARRY_OUT`` where it hands its sums on rather
+    than storing the log: each filter stays one sum in bin order. Row n_rows
+    + p: (the first row of pass p's segments, their count, 0, 0). Where no
+    run spans more than two passes, n_rows = n_mel and the rows are those of
+    the one-segment table. Raises if a filter's nonzeros are not one
+    contiguous run, or past ``MEL_MAX_BINS`` filters."""
     nb, n_mel = mel.shape
+    if n_mel > MEL_MAX_BINS:
+        raise ValueError(f"{n_mel} mel filters: the bf16 kernel takes at most MEL_MAX_BINS = {MEL_MAX_BINS}")
     passes = -(-nb // MEL_PASS_BINS)
-    runs, off = [], 0
+    rows, off, slots = [], 0, 0
     for m in range(n_mel):
         nz = np.flatnonzero(mel[:, m])
         if nz.size and nz[-1] - nz[0] + 1 != nz.size:
             raise ValueError(f"mel filter {m} has nonzero weights at bins {nz.tolist()}: not one contiguous run")
         first, width = (int(nz[0]), int(nz.size)) if nz.size else (0, 0)
-        end_pass = (first + width - 1) // MEL_PASS_BINS if width else 0
-        if first < MEL_PASS_BINS * (end_pass - 1):
-            raise ValueError(f"mel filter {m} runs over bins {first}..{first + width - 1}: more than two passes "
-                             f"of {MEL_PASS_BINS} bins")
-        runs.append((end_pass, m, first, width, off))
+        last = first + width - 1
+        segments = []  # (end pass, first bin, width), from the run's end back
+        while True:
+            end_pass = last // MEL_PASS_BINS if width else 0
+            start = max(first, MEL_PASS_BINS * (end_pass - 1))
+            segments.append((end_pass, start, last - start + 1 if width else 0))
+            if start == first:
+                break
+            last = start - 1
+        segments.reverse()
+        slot = slots << 8 if len(segments) > 1 else 0
+        slots += len(segments) > 1
+        for k, (end_pass, start, w) in enumerate(segments):
+            flags = (MEL_CARRY_IN if k else 0) | (MEL_CARRY_OUT if k + 1 < len(segments) else 0)
+            rows.append((end_pass, m, start, w, off + start - first, m | slot | flags))
         off += width
-    table = np.zeros((n_mel + passes, 4), np.int32)
-    for r, (end_pass, m, first, width, o) in enumerate(sorted(runs)):
-        table[r] = (first, width, o, m)
-    ends = np.asarray(sorted(run[0] for run in runs))
+    rows.sort()
+    table = np.zeros((len(rows) + passes, 4), np.int32)
+    for r, (_, _, start, w, o, tag) in enumerate(rows):
+        table[r] = (start, w, o, tag)
+    ends = np.asarray([row[0] for row in rows])
     for p in range(passes):
-        table[n_mel + p] = (int(np.searchsorted(ends, p)), int((ends == p).sum()), 0, 0)
+        table[len(rows) + p] = (int(np.searchsorted(ends, p)), int((ends == p).sum()), 0, 0)
     return table
 
 
 def mel_kernel_table(mel: np.ndarray) -> np.ndarray:
     """What ``csrc/mel_bf16.cu`` reads of the bank, one int32 array of rows of
     4: ``mel_bands``' rows, then the filters' nonzero weights in filter order
-    (each at its band's offset), fp32 bits, four a row, the last row padded
-    with zeros."""
+    (each segment's at its row's offset), fp32 bits, four a row, the last row
+    padded with zeros."""
+    return _kernel_table(mel)[0]
+
+
+def _kernel_table(mel: np.ndarray) -> Tuple[np.ndarray, int, int]:
+    """(``mel_kernel_table``, n_rows, carry slots): the table and what the
+    kernel's entry takes beside it."""
     bands = mel_bands(mel)
-    n_mel = mel.shape[1]
-    weights = np.zeros(-(-int(bands[:n_mel, 1].sum()) // 4) * 4, np.float32)
-    for first, width, off, m in bands[:n_mel]:
-        weights[off:off + width] = mel[first:first + width, m]
-    return np.concatenate([bands, weights.view(np.int32).reshape(-1, 4)])
+    nb, n_mel = mel.shape
+    n_rows = bands.shape[0] - -(-nb // MEL_PASS_BINS)
+    tags = bands[:n_rows, 3]
+    weights = np.zeros(-(-int(bands[:n_rows, 1].sum()) // 4) * 4, np.float32)
+    for first, width, off, tag in bands[:n_rows]:
+        weights[off:off + width] = mel[first:first + width, tag & 0xFF]
+    slots = len({int(t) >> 8 & 0xFF for t in tags if t & MEL_CARRY_OUT})
+    return np.concatenate([bands, weights.view(np.int32).reshape(-1, 4)]), n_rows, slots
 
 
-def _kernel_table_of(mel: torch.Tensor) -> torch.Tensor:
-    """``mel_kernel_table`` of a bank on the card, made at the bank's first
-    use (a copy to the host) and kept on the tensor until it is written in
-    place."""
+@functools.lru_cache(maxsize=None)
+def mel_bins_refusal(num_mel_bins: int) -> Optional[str]:
+    """Why the log-mel kernels do not take the bank that a front end of
+    ``num_mel_bins`` builds (``LogMelConfig``'s other fields as the serving
+    and evaluate routes leave them), as a parenthesis for the gates'
+    sentences, or None: past ``MEL_MAX_BINS``, or a bank whose bf16 table
+    ``mel_bands`` refuses. Every count from 1 to 128 builds today; the check
+    keeps a change of the bank from reaching a request."""
+    if num_mel_bins > MEL_MAX_BINS:
+        return f"(the log-mel and CMVN kernels take at most MEL_MAX_BINS = {MEL_MAX_BINS} mel bins)"
+    try:
+        mel_bands(folded_bank(LogMelConfig(num_mel_bins=num_mel_bins)))
+    except ValueError as e:
+        return f"(the bf16 log-mel kernel does not take its bank: {e})"
+    return None
+
+
+def _kernel_table_of(mel: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
+    """(``mel_kernel_table``, n_rows, carry slots) of a bank on the card,
+    made at the bank's first use (a copy to the host) and kept on the tensor
+    until it is written in place."""
     kept = getattr(mel, "_asr_mel_table", None)
     if kept is None or kept[0] != mel._version:
-        table = torch.from_numpy(mel_kernel_table(mel.detach().cpu().numpy())).to(mel.device)
-        kept = (mel._version, table)
+        table, n_rows, slots = _kernel_table(mel.detach().cpu().numpy())
+        kept = (mel._version, (torch.from_numpy(table).to(mel.device), n_rows, slots))
         mel._asr_mel_table = kept
     return kept[1]
 
@@ -248,10 +306,10 @@ def _log_mel_bf16(wav, n_frames, dft, mel, hop, floor, mode):
     _build.check(wav, "wav", F32)
     _build.check(dft, "dft", BF16)
     _build.check(mel, "mel", F32)
-    table = _kernel_table_of(mel)
+    table, n_rows, slots = _kernel_table_of(mel)
     out = torch.empty(B, n_frames, n_mel, dtype=F32, device=wav.device)
-    _build.launch("asr_log_mel_bf16", "pppipiiiiiiifi", wav.data_ptr(), dft.data_ptr(), table.data_ptr(),
-                  table.shape[0], out.data_ptr(), B, S, n_frames, L, hop, nb, n_mel, float(floor),
+    _build.launch("asr_log_mel_bf16", "pppiiipiiiiiiifi", wav.data_ptr(), dft.data_ptr(), table.data_ptr(),
+                  table.shape[0], n_rows, slots, out.data_ptr(), B, S, n_frames, L, hop, nb, n_mel, float(floor),
                   int(mode == "high"), label=f"asr_log_mel_{mode}")
     return out
 

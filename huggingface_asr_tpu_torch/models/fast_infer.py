@@ -44,7 +44,7 @@ from huggingface_asr_tpu_torch.kernels.layer import (
     relpos_kernel_tables,
     rot_width,
 )
-from huggingface_asr_tpu_torch.kernels.mel import MEL_MAX_BINS
+from huggingface_asr_tpu_torch.kernels.mel import mel_bins_refusal
 from huggingface_asr_tpu_torch.kernels.subsample import (
     conv_subsample,
     conv_subsample_plain,
@@ -73,7 +73,9 @@ def fused_encoder_refusal(cfg: EBranchformerConfig, dtype: torch.dtype, *, log_m
     ``log_mel``: the caller also runs the log-mel and CMVN kernels in front of
     the encoder (the CTC pipeline does; the AED route keeps the plain front
     end, and the subsampler falls back to the model's own where it does not
-    fit), so their bin limit applies too."""
+    fit), so their bin limit applies too, and the bf16 kernel's table of
+    the bank that front end builds (``kernels/mel.py::mel_bins_refusal``)."""
+    mel_refusal = mel_bins_refusal(cfg.num_fbanks) if log_mel else None
     checks = (
         (cfg.position_embeddings_type == "relative",
          f"position_embeddings_type is {cfg.position_embeddings_type!r}, not 'relative'"),
@@ -95,9 +97,7 @@ def fused_encoder_refusal(cfg: EBranchformerConfig, dtype: torch.dtype, *, log_m
          f"intermediate_size {cfg.intermediate_size}, hidden_size {cfg.hidden_size} (the depthwise conv kernels "
          f"take at most {DWCONV_MAX_C[0]} CSGU channels, in whole 128-channel slices past {DWCONV_CSGU_ROW_C}, "
          f"and {DWCONV_MAX_C[1]} merge channels)"),
-        (not log_mel or cfg.num_fbanks <= MEL_MAX_BINS,
-         f"num_fbanks {cfg.num_fbanks} (the log-mel and CMVN kernels take at most MEL_MAX_BINS = {MEL_MAX_BINS} "
-         f"mel bins)"),
+        (mel_refusal is None, f"num_fbanks {cfg.num_fbanks} {mel_refusal}"),
         (dtype == torch.bfloat16, f"dtype {dtype} (the kernels run bfloat16)"),
     )
     return next((reason for ok, reason in checks if not ok), None)

@@ -1,6 +1,6 @@
 """A/B of kernel source variants on one NVIDIA GPU.
 
-    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k4wide,k5fp32,yardsticks,k1,k5,gemm,lngemm,dwconv,mel,melbf16,geluserving,posq,conv1,cmvn,ln,trace,ptxas DIR_A [DIR_B ...]
+    python3 profile_kernel_variants.py [--out FILE] conv2,k4,k4bwd,k4wide,k5fp32,yardsticks,k1,k5,gemm,lngemm,dwconv,mel,melbf16[:N...],melerr[:N...],geluserving,posq,conv1,cmvn,ln,trace,ptxas DIR_A [DIR_B ...]
 
 Each DIR is a directory holding a full copy of ``huggingface_asr_tpu_torch/csrc``
 (the package's own directory is a valid DIR). Every variant is built and run in
@@ -52,12 +52,20 @@ seeded synthetic speech, and against the folded product in fp64 on that speech
 and on it x 1e-4 (its largest error at most twice the cuBLAS fp32 product's),
 and times it beside the cuBLAS fp32 product (device times); ``melbf16`` holds the
 log-mel kernel's "bf16" and "high" DFT modes (``csrc/mel_bf16.cu``) against
-their plain version at B = 8 and 128 x 10 s of that speech, prints each one's
-largest error against the folded product in fp64 beside the plain version's,
-and times it beside cuBLAS's bf16 product of the framed operands and its
-bound (device times; a tree whose ``asr_log_mel_bf16`` predates the filter
-table, and whose bases put the cos columns before the sin ones, is called
-with its own arguments and layout); ``geluserving`` times the FF1-in GEMM (K =
+their plain version at B = 8 and 128 x 10 s of that speech at 80 mel bins, or
+at each count N of ``melbf16:N[:N...]`` (``melbf16:23:80:128``), prints each
+one's largest error against the folded product in fp64 beside the plain
+version's and a digest of its output's bits (equal digests across trees:
+equal outputs), and times it beside cuBLAS's bf16 product of the framed
+operands and its bound (device times; a tree whose ``asr_log_mel_bf16``
+predates the filter table, and whose bases put the cos columns before the
+sin ones, or predates the table's segments and carry slots, is called with
+its own arguments and layout, and skips a count whose table needs carry
+slots); ``melerr[:N...]`` holds the log-mel kernel of each DFT mode and its
+plain version against the folded product in fp64 at each count N (80 by
+default) on ``tests/test_torch_cuda.py``'s speech batches (B=1, 3, 8, 24,
+each also x 1e-4), printing each one's largest error and its mean signed error;
+``geluserving`` times the FF1-in GEMM (K =
 256, N = 1,024) with the serving GELU epilogue beside the exact one at M =
 2,048 and 32,768, and conv2 with the serving GELU beside the exact one at B =
 8 and 128 x 499 frames (device times, each held against its plain version
@@ -178,8 +186,11 @@ def smoke_lengths(B: int, T: int):
     return lens
 
 
-def melbf16_variant(csrc: str, dev) -> None:
-    """The ``melbf16`` mode on the variant whose sources are ``csrc``."""
+def melbf16_variant(csrc: str, dev, bins=(80,)) -> None:
+    """The ``melbf16`` mode on the variant whose sources are ``csrc``, at
+    each count of mel bins in ``bins``."""
+    import hashlib
+
     import torch
 
     from chip_smoke import bound, mel_bf16_work, speech
@@ -187,12 +198,11 @@ def melbf16_variant(csrc: str, dev) -> None:
     from huggingface_asr_tpu_torch.kernels import mel as K3
     from huggingface_asr_tpu_torch.ops.features import LogMelConfig
 
-    cfg = LogMelConfig()
-    dft_np, mel_np = K3.folded_bases(cfg)
-    dft32, mel = torch.from_numpy(dft_np).to(dev), torch.from_numpy(mel_np).to(dev)
-    hop, floor, L = cfg.hop_length, cfg.mel_floor, cfg.frame_length
-    # a tree of the first design: no filter table, the cos columns before the sin ones
-    table = "int table_rows" in (pathlib.Path(csrc) / "mel_bf16.cu").read_text()
+    source = (pathlib.Path(csrc) / "mel_bf16.cu").read_text()
+    # a tree of the first design: no filter table, the cos columns before the sin ones; a tree of one
+    # segment a filter: the table without its segment rows' count and carry slots
+    table = "int table_rows" in source
+    segments = "int n_slots" in source
     rng = np.random.default_rng(0)
     S = 160000
     wav_all = np.zeros((128, S), np.float32)
@@ -200,38 +210,123 @@ def melbf16_variant(csrc: str, dev) -> None:
         w_ = speech(10.0 - 0.05 * (i % 16), rng)
         wav_all[i, :len(w_)] = w_
     wav_all = torch.from_numpy(wav_all).to(dev)
-    n = int(cfg.num_frames(S))
-    for mode in ("bf16", "high"):
-        bases = K3.split_bases(dft_np, mode).to(dev)
-        first = torch.stack(K3._split_hi_lo(dft32.t().contiguous())[:1 if mode == "bf16" else 2]).contiguous()
+    for n_mel in bins:
+        cfg = LogMelConfig(num_mel_bins=n_mel)
+        dft_np, mel_np = K3.folded_bases(cfg)
+        if not segments and K3._kernel_table(mel_np)[2]:
+            print(f"melbf16 bins={n_mel}: this tree's kernel takes no carry slots, which the table needs", flush=True)
+            continue
+        dft32, mel = torch.from_numpy(dft_np).to(dev), torch.from_numpy(mel_np).to(dev)
+        hop, floor, L = cfg.hop_length, cfg.mel_floor, cfg.frame_length
+        n = int(cfg.num_frames(S))
+        for mode in ("bf16", "high"):
+            bases = K3.split_bases(dft_np, mode).to(dev)
+            first = torch.stack(K3._split_hi_lo(dft32.t().contiguous())[:1 if mode == "bf16" else 2]).contiguous()
+            rows = torch.from_numpy(K3.mel_kernel_table(mel_np)).to(dev)
 
-        def kernel(x):
-            if table:
-                return K3.log_mel(x, n, bases, mel, hop, floor, mode)
-            out = torch.empty(x.shape[0], n, mel.shape[1], dtype=torch.float32, device=dev)
-            _build.launch("asr_log_mel_bf16", "ppppiiiiiiifi", x.data_ptr(), first.data_ptr(), mel.data_ptr(),
-                          out.data_ptr(), x.shape[0], S, n, L, hop, mel.shape[0], mel.shape[1], float(floor),
-                          int(mode == "high"), label=f"asr_log_mel_{mode}")
-            return out
+            def kernel(x):
+                if segments:
+                    return K3.log_mel(x, n, bases, mel, hop, floor, mode)
+                out = torch.empty(x.shape[0], n, mel.shape[1], dtype=torch.float32, device=dev)
+                if table:
+                    _build.launch("asr_log_mel_bf16", "pppipiiiiiiifi", x.data_ptr(), bases.data_ptr(),
+                                  rows.data_ptr(), rows.shape[0], out.data_ptr(), x.shape[0], S, n, L, hop,
+                                  mel.shape[0], mel.shape[1], float(floor), int(mode == "high"),
+                                  label=f"asr_log_mel_{mode}")
+                else:
+                    _build.launch("asr_log_mel_bf16", "ppppiiiiiiifi", x.data_ptr(), first.data_ptr(),
+                                  mel.data_ptr(), out.data_ptr(), x.shape[0], S, n, L, hop, mel.shape[0],
+                                  mel.shape[1], float(floor), int(mode == "high"), label=f"asr_log_mel_{mode}")
+                return out
 
-        for B in (8, 128):
-            x = wav_all[:B]
-            with torch.no_grad():
-                got, ref = kernel(x), K3.log_mel_plain(x, n, bases, mel, hop, floor, mode)
-                exact = K3.log_mel_plain(x.double(), n, dft32.double(), mel.double(), hop, floor)
-                err = float((got - ref).abs().max())
-                ok = bool(torch.isfinite(got).all()) and err <= 1e-3 * max(1.0, float(ref.abs().max()))
-                err_k = float((got.double() - exact).abs().max())
-                err_p = float((ref.double() - exact).abs().max())
-                frames16 = x.unfold(1, L, hop)[:, :n].to(torch.bfloat16).contiguous()
-                hi_t = bases[0].t()
-                bound_ms, by = bound(*mel_bf16_work(x, n, bases, mel))
-                print(f"melbf16 {mode} B={B}: err={err:.3e} {'ok' if ok else 'FAIL'} fp64 kernel {err_k:.4e} "
-                      f"plain {err_p:.4e} ms={timed(lambda: kernel(x)):.4f} "
-                      f"device_ms={device_ms(lambda: kernel(x)):.4f} bound_ms={bound_ms:.4f} ({by}) "
-                      f"cublas_bf16_device_ms={device_ms(lambda: frames16 @ hi_t):.4f}", flush=True)
-                del got, ref, exact, frames16
-            torch.cuda.empty_cache()
+            for B in (8, 128):
+                x = wav_all[:B]
+                with torch.no_grad():
+                    got, ref = kernel(x), K3.log_mel_plain(x, n, bases, mel, hop, floor, mode)
+                    exact = K3.log_mel_plain(x.double(), n, dft32.double(), mel.double(), hop, floor)
+                    err = float((got - ref).abs().max())
+                    ok = bool(torch.isfinite(got).all()) and err <= 1e-3 * max(1.0, float(ref.abs().max()))
+                    err_k = float((got.double() - exact).abs().max())
+                    err_p = float((ref.double() - exact).abs().max())
+                    digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
+                    frames16 = x.unfold(1, L, hop)[:, :n].to(torch.bfloat16).contiguous()
+                    hi_t = bases[0].t()
+                    bound_ms, by = bound(*mel_bf16_work(x, n, bases, mel))
+                    print(f"melbf16 {mode} bins={n_mel} B={B}: err={err:.3e} {'ok' if ok else 'FAIL'} "
+                          f"fp64 kernel {err_k:.4e} plain {err_p:.4e} digest={digest} "
+                          f"ms={timed(lambda: kernel(x)):.4f} device_ms={device_ms(lambda: kernel(x)):.4f} "
+                          f"bound_ms={bound_ms:.4f} ({by}) "
+                          f"cublas_bf16_device_ms={device_ms(lambda: frames16 @ hi_t):.4f}", flush=True)
+                    del got, ref, exact, frames16
+                torch.cuda.empty_cache()
+
+
+def inorder_log_mel(wav, n_frames, dft, mel, hop, floor):
+    """``csrc/mel.cu``'s contract ("highest"), emulated: each DFT sum over k in
+    order and each mel sum over bins in order, an fp32 FMA a term (the
+    product exact in fp64, the sum rounded to fp64 and then to fp32: two
+    roundings, which part from one only on a tie), the power c*c + s*s
+    rounded at each op, then the fp32 log. A witness of which order the
+    kernel's error comes from."""
+    import torch
+
+    L, nb = dft.shape[0], dft.shape[1] // 2
+    frames, d = wav.unfold(1, L, hop)[:, :n_frames].double(), dft.double()
+    acc = torch.zeros(*frames.shape[:2], 2 * nb, dtype=torch.float32, device=wav.device)
+    for k in range(L):
+        acc = (frames[..., k:k + 1] * d[k] + acc.double()).float()
+    power = acc[..., :nb] * acc[..., :nb] + acc[..., nb:] * acc[..., nb:]
+    m, w = torch.zeros(*frames.shape[:2], mel.shape[1], dtype=torch.float32, device=wav.device), mel.double()
+    for j in range(nb):
+        m = (power[..., j:j + 1].double() * w[j] + m.double()).float()
+    return torch.log(torch.clamp(m, min=floor))
+
+
+def melerr_variant(dev, bins) -> None:
+    """The ``melerr`` mode: the log-mel kernel of each DFT mode and its plain
+    version against the folded product in fp64, at each count in ``bins``,
+    on the card tests' speech batches (B=1 x 2 s, B=3 x 3 s, B=8 and 24 x 10 s,
+    and each x 1e-4): the largest error and the mean signed one (a bias) of each;
+    in "highest" also ``inorder_log_mel``'s largest error and the share of the
+    kernel's outputs equal to it."""
+    import torch
+
+    from huggingface_asr_tpu_torch.data.synthetic_speech import utterance
+    from huggingface_asr_tpu_torch.kernels import mel as K3
+    from huggingface_asr_tpu_torch.ops.features import LogMelConfig
+
+    for B, S in ((1, 32003), (3, 48001), (8, 160002), (24, 160002)):
+        rng = np.random.default_rng(B)  # tests/test_torch_cuda.py::_speech_batch
+        wav_np = np.zeros((B, S), np.float32)
+        for i in range(B):
+            w_ = utterance((S - i * (S // (4 * B))) / 16000, rng)[0]
+            wav_np[i, :len(w_)] = w_
+        for quiet in (False, True):
+            wav = torch.from_numpy(wav_np * (1e-4 if quiet else 1.0)).to(dev)
+            for n_mel in bins:
+                line = [f"melerr B={B} S={S} quiet={quiet} bins={n_mel}:"]
+                for mode in K3.MEL_MODES:
+                    cfg = LogMelConfig(num_mel_bins=n_mel, matmul_precision=mode)
+                    fe = K3.MelFrontEnd(cfg, device=dev)
+                    n = int(cfg.num_frames(S))
+                    args = (n, fe.dft, fe.mel, cfg.hop_length, cfg.mel_floor, mode)
+                    with torch.no_grad():
+                        got, plain = K3.log_mel(wav, *args).double(), K3.log_mel_plain(wav, *args).double()
+                        dft64 = torch.from_numpy(K3.folded_bases(cfg)[0]).to(dev).double()
+                        exact = K3.log_mel_plain(wav.double(), n, dft64, fe.mel.double(), cfg.hop_length,
+                                                 cfg.mel_floor)
+                    ek, ep = got - exact, plain - exact
+                    line.append(f"{mode} max kernel {float(ek.abs().max()):.3e} plain {float(ep.abs().max()):.3e} "
+                                f"({float(ek.abs().max()) / float(ep.abs().max()):.2f}x) mean kernel "
+                                f"{float(ek.mean()):+.2e} plain {float(ep.mean()):+.2e} scale "
+                                f"{float(exact.abs().max()):.1f}")
+                    if mode == "highest":
+                        with torch.no_grad():
+                            wit = inorder_log_mel(wav, *args[:5]).double()
+                        line.append(f"highest in-order witness max {float((wit - exact).abs().max()):.3e}, "
+                                    f"kernel equal to it on {float((got == wit).double().mean()):.4f}, "
+                                    f"largest gap {float((got - wit).abs().max()):.3e}")
+                print(" | ".join(line), flush=True)
 
 
 def geluserving_variant(dev) -> None:
@@ -379,13 +474,13 @@ def run_variant(csrc: str, what: str) -> None:
                "k5fp32": "shift",
                "yardsticks": "layer.cu",
                "k1": "rel_attention.cu", "k5": "shift",
-               "gemm": "layer.cu", "dwconv": "dwconv", "mel": "mel.cu", "melbf16": "mel_bf16", "posq": "layer.cu",
+               "gemm": "layer.cu", "dwconv": "dwconv", "mel": "mel.cu", "melbf16": "mel_bf16", "melerr": "mel", "posq": "layer.cu",
                "geluserving": "layer.cu", "lngemm": "gemm_ln.cu",
                "conv1": "subsample.cu", "cmvn": "mel.cu", "ln": "layer.cu", "trace": "dwconv", "ptxas": ""}
     keep = False
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("=="):
-            keep = any(sources[mode] in line for mode in what.split(","))
+            keep = any(sources[mode.split(":")[0]] in line for mode in what.split(","))
         # (C7517 and C7519 only say where the compiler put the waits around a product)
         if keep and any(s in line for s in ("Used", "spill", "C751", "error", "Compiling entry")) \
                 and "C7517" not in line and "C7519" not in line:
@@ -531,8 +626,11 @@ def run_variant(csrc: str, what: str) -> None:
                 print(f"mel B={B}: err={err:.3e} fp64 kernel/cublas: {', '.join(gate)} {'ok' if ok else 'FAIL'} "
                       f"ms={timed(kernel):.4f} device_ms={device_ms(kernel):.4f} "
                       f"cublas_fp32_device_ms={device_ms(library):.4f}", flush=True)
-    if "melbf16" in what.split(","):
-        melbf16_variant(csrc, dev)
+    for mode in what.split(","):
+        if mode.split(":")[0] == "melbf16":
+            melbf16_variant(csrc, dev, [int(b) for b in mode.split(":")[1:]] or [80])
+        if mode.split(":")[0] == "melerr":
+            melerr_variant(dev, [int(b) for b in mode.split(":")[1:]] or [80])
     if "geluserving" in what.split(","):
         geluserving_variant(dev)
     if "conv1" in what.split(",") or "cmvn" in what.split(","):
@@ -853,10 +951,10 @@ def main() -> None:
         out, args = open(args[1], "a"), args[2:]
     what, dirs = args[0], args[1:]
 
-    def emit(text: str) -> None:
+    def emit(text: str, full: str = None) -> None:
         print(text, flush=True)
         if out is not None:
-            out.write(text + "\n")
+            out.write((full or text) + "\n")
             out.flush()
 
     emit(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -865,7 +963,8 @@ def main() -> None:
     for d in (dirs + dirs[::-1] if len(dirs) > 1 else dirs):
         res = subprocess.run([sys.executable, __file__, "--one", d, what], capture_output=True, text=True,
                              timeout=600)
-        emit(f"=== {d} rc={res.returncode}\n{res.stdout[-12000:]}\n{res.stderr[-2500:]}")
+        emit(f"=== {d} rc={res.returncode}\n{res.stdout[-12000:]}\n{res.stderr[-2500:]}",
+             f"=== {d} rc={res.returncode}\n{res.stdout}\n{res.stderr[-2500:]}")
         failed = failed or res.returncode != 0 or "FAIL" in res.stdout
     sys.exit(1 if failed else 0)
 

@@ -92,9 +92,11 @@ def _speech_batch(B, S, seed):
 @pytest.mark.parametrize("B,S", [(1, 16000 * 2 + 3), (3, 16000 * 3 + 1), (8, 160000 + 2), (24, 160000 + 2)])
 @pytest.mark.parametrize("quiet", [False, True])
 @pytest.mark.parametrize("mode", K3.MEL_MODES)
-@pytest.mark.parametrize("n_mel", [23, 80, 128])
+@pytest.mark.parametrize("n_mel", [1, 10, 11, 23, 80, 128])
 def test_mel_kernel_against_fp64(n_mel, mode, B, S, quiet):
-    """The log-mel kernel of each DFT mode at 23, 80 and 128 mel bins (23: no
+    """The log-mel kernel of each DFT mode at 1, 10, 11, 23, 80 and 128 mel
+    bins (1, 10, 11: filters whose run spans more than two passes of 64 bins,
+    which the bf16 kernel sums in segments through its carry slots; 23: no
     multiple of 8; 128: the bank's filter 3 is empty, its column the constant
     log(mel_floor)), on speech-like input and on the same input x 1e-4 (bins
     near the mel floor), at an S that is no multiple of 4 (utterance rows not
@@ -1685,7 +1687,9 @@ def test_mel_bf16_modes_against_plain(mode, B, S, quiet):
 def test_mel_bf16_refuses_shapes_outside_its_contract():
     """The bf16 kernel's wrapper raises, and never falls back to the plain
     version, on bins not in passes of 64, more than MEL_MAX_BINS mel bins, a hop that is
-    no multiple of 16, frames past S, and a bank whose filter has two runs."""
+    no multiple of 16, frames past S, and a bank whose filter has two runs: at 80 bins,
+    and at 10 bins, a hole in a filter whose run spans three passes (the wide run
+    itself is taken)."""
     dev = _cuda()
     cfg = LogMelConfig(matmul_precision="bf16")
     fe = K3.MelFrontEnd(cfg, device=dev)
@@ -1704,6 +1708,13 @@ def test_mel_bf16_refuses_shapes_outside_its_contract():
     split[200, 10] = 0.5
     with pytest.raises(ValueError, match="filter 10"):
         K3.log_mel(wav, n, fe.dft, split, 160, 1e-10, "bf16")
+    narrow = K3.MelFrontEnd(LogMelConfig(num_mel_bins=10, matmul_precision="bf16"), device=dev)
+    holed = narrow.mel.clone()
+    nz = torch.nonzero(holed[:, 8]).flatten()
+    assert int(nz[-1]) // 64 - int(nz[0]) // 64 >= 2  # the run spans three passes
+    holed[int(nz[len(nz) // 2]), 8] = 0.0
+    with pytest.raises(ValueError, match="filter 8 has nonzero"):
+        K3.log_mel(wav, n, narrow.dft, holed, 160, 1e-10, "bf16")
     assert sum(_build.LAUNCHES.values()) == 0
 
 

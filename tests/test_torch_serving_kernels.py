@@ -71,18 +71,31 @@ def test_mel_bands_rebuild_the_folded_bank(n_mel):
 
 
 def test_mel_bands_refuse_what_the_kernel_cannot_sum():
-    """A filter with two runs, and one whose run spans three passes, are
-    refused; an all-zero filter is a run of width 0 in the first pass."""
+    """A filter with two runs, and a bank of more than ``MEL_MAX_BINS``
+    filters, are refused; a run over three passes is cut into segments that
+    each lie within their pass and the one before (the first hands its sums
+    on, the second starts from them); an all-zero filter is a run of width 0
+    in the first pass."""
     _, mel = K3.folded_bases(LogMelConfig())
     bad = mel.copy()
     first = int(np.flatnonzero(bad[:, 40])[0])
     bad[first + 30, 40] = 0.5  # a second run, far past the first
     with pytest.raises(ValueError, match="filter 40 has nonzero"):
         K3.mel_bands(bad)
+    with pytest.raises(ValueError, match="at most MEL_MAX_BINS = 128"):
+        K3.mel_bands(np.zeros((256, 129), np.float32))
     wide = mel.copy()
+    wide[:, 50] = 0.0
     wide[60:140, 50] = 0.25  # bins 60..139: passes 0, 1 and 2
-    with pytest.raises(ValueError, match="filter 50 runs over bins 60..139"):
-        K3.mel_bands(wide)
+    table = K3.mel_bands(wide)
+    n_rows = table.shape[0] - 4
+    assert n_rows == 81
+    rows = table[:n_rows][table[:n_rows, 3] & 0xFF == 50]
+    off = int(table[:n_rows][table[:n_rows, 3] == 49][0, 2]) + int((mel[:, 49] != 0).sum())
+    assert rows.tolist() == [[60, 4, off, 50 | K3.MEL_CARRY_OUT], [64, 76, off + 4, 50 | K3.MEL_CARRY_IN]]
+    for p in (0, 2):  # a segment in each of the passes it ends in
+        start, count = table[n_rows + p, :2]
+        assert int(np.sum(table[start:start + count, 3] & 0xFF == 50)) == 1
     zero = mel.copy()
     zero[:, 3] = 0.0
     table = K3.mel_bands(zero)
